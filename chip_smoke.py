@@ -9,21 +9,34 @@ Phases (any failure exits non-zero before the result line):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
 2. build: the CUDA kernels of ``karpenter_provider_aws_tpu_torch/csrc``
-   from the sources in this checkout (nvcc, sm_90a), with the build time
-   and the ptxas register / shared-memory report;
-3. kernels against their plain PyTorch versions, byte for byte: every
-   kernel on the BASELINE config-2 arena (50,000 mixed pods x the full
-   812-type catalog) and on the synthetic arenas of
+   from the sources in this checkout (one nvcc per source, all started
+   together; sm_90a), with the build time and the ptxas register /
+   shared-memory report;
+3. kernels against their plain PyTorch versions, byte for byte: the K1
+   and K2 kernels on the BASELINE config-2 arena (50,000 mixed pods x the
+   full 812-type catalog) and on the synthetic arenas of
    ``karpenter_provider_aws_tpu_torch.examples`` (existing nodes,
    minValues floors, binding pool limits, daemon overhead, two pools, a
-   priority section, exhausted slots, an all-zero R column);
-4. the main path: ``CUDASolver()`` solves config 2 through
-   ``Solver.solve`` (one warm-up, then timed rounds) with every launch
-   counter set to 0 just before and read just after; the decisions must
-   fingerprint-equal ``CUDASolver(device="cpu")`` (the plain versions)
-   and every pod must be placed or reported;
-5. kernel times with CUDA events at the config-2 shapes, beside the plain
-   versions' times and the bound the shapes allow.
+   priority section, exhausted slots, an all-zero R column); the K3 bank
+   kernels, the checkpointed solve and every (jr, SUF, GL) suffix of
+   G=8, CK=2 arenas with existing nodes and with minValues floors, and
+   of the 50,000-pod warm-cluster arena;
+4. the config-2 path: ``CUDASolver(incremental=False)`` solves config 2
+   from scratch through ``Solver.solve`` (one warm-up, then timed rounds)
+   with every launch counter set to 0 just before and read just after;
+   the decisions must fingerprint-equal ``CUDASolver(device="cpu")`` (the
+   plain versions) and every pod must be placed or reported;
+5. the warm-tick path: ``CUDASolver()`` (incremental) on
+   ``examples.warm_cluster(50_000, 0.01)``: a cold solve, 12 warm-up
+   ticks with binds, then 60 measured ticks without binds with every
+   launch counter set to 0 just before and read just after. Every
+   measured tick must be served by a suffix re-solve and fingerprint-
+   equal a from-scratch ``CUDASolver(incremental=False)`` solve on the
+   card; the first five and the last also the plain versions' solve;
+6. kernel times with CUDA events at the main paths' shapes, beside the
+   plain versions' times, the bound the shapes allow and, for the bank
+   kernels, ``Tensor.copy_`` of the same bytes; the suffix solve's device
+   time beside the checkpointed full solve's on the warm arena.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; a line before them holds the per-kernel
@@ -52,6 +65,16 @@ PEAK_OPS_S = 67e12
 PODS = 50_000
 ROUNDS = 10
 
+#: the warm tick (reference bench.py --warm-tick): cluster size, pending
+#: share, warm-up ticks (with binds) and measured ticks (without)
+WARM_PODS = 50_000
+WARM_PENDING = 0.01
+WARM_WARMUP = 12
+WARM_TICKS = 60
+#: measured ticks also checked against the plain versions' solve
+WARM_CPU_CHECKS = (0, 1, 2, 3, 4, WARM_TICKS - 1)
+CK = 2
+
 KERNELS = {
     "unpack_bits": dict(
         source="karpenter_provider_aws_tpu_torch/csrc/packed_io.cu",
@@ -65,6 +88,12 @@ KERNELS = {
     "pack_outputs": dict(
         source="karpenter_provider_aws_tpu_torch/csrc/packed_io.cu",
         replaces="karpenter_provider_aws_tpu/ops/ffd_jax.py:1159"),
+    "ffd_bank_store": dict(
+        source="karpenter_provider_aws_tpu_torch/csrc/ckpt.cu",
+        replaces="karpenter_provider_aws_tpu/ops/ffd_jax.py:795"),
+    "ffd_bank_load": dict(
+        source="karpenter_provider_aws_tpu_torch/csrc/ckpt.cu",
+        replaces="karpenter_provider_aws_tpu/ops/ffd_jax.py:1296"),
 }
 
 
@@ -127,6 +156,7 @@ def check_arena(label, buf_np, st, cmp, dev):
     """Every kernel against its plain version on one arena, group by
     group from the plain carry, then the whole packed solve."""
     import torch
+    from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
     from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
     from karpenter_provider_aws_tpu_torch.ops.hostpack import (
@@ -167,9 +197,7 @@ def check_arena(label, buf_np, st, cmp, dev):
     tk, lf = torch.stack(takes), torch.cat(lefts)
     cmp("pack_outputs", fc.pack_outputs(tk, lf, carry),
         ft._pack_outputs_ref(tk, lf, carry), f"{label} output buffer")
-    statics = {k: st[k] for k in ("T", "D", "Z", "C", "G", "E", "P",
-                                  "n_max", "K", "V", "M", "Q")}
-    whole = ft.solve_scan_packed1(buf, **statics)
+    whole = ft.solve_scan_packed1(buf, **examples.solve_statics(st))
     plain = ft._pack_outputs_ref(*ft._solve_scan_ref(
         ft._unpack_inputs(buf[:n_i64], ft._unpack_bits_ref(words, n_bits),
                           T, D, Z, C, G, E, P, K, M, 1, Q),
@@ -180,8 +208,159 @@ def check_arena(label, buf_np, st, cmp, dev):
     return inp, carry, tk, lf
 
 
+def n_offset(st) -> int:
+    """Word offset of the group-count vector ``n`` in a packed arena."""
+    return st["T"] * st["D"] + st["G"] * st["D"]
+
+
+def check_k3(label, buf_np, st, cmp, dev, gls=None):
+    """The K3 kernels and solves against their plain versions on one
+    arena: for each live bound GL (``gls``; default every multiple of CK
+    up to G, the groups past GL emptied) the checkpointed solve's output
+    and every bank field, ffd_bank_load of every bank row, then every
+    SUF the bound allows: the suffix output and the spliced bank, each
+    run from its own copy of the recorded bank."""
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    T, D, Z, C, G, E, P = (st[k] for k in "T D Z C G E P".split())
+    K, M, V, Q, n_max = st["K"], st["M"], st["V"], st["Q"], st["n_max"]
+    ss = examples.solve_statics(st)
+    off = n_offset(st)
+    runs = 0
+    for GL in (gls or range(CK, G + 1, CK)):
+        b = buf_np.copy()
+        b[off + GL:off + G] = 0
+        d = torch.from_numpy(b).to(dev)
+        out, bank = ft.solve_scan_packed1_ckpt(d, CK=CK, **ss)
+        inp = ft._packed_inputs_ref(d, T, D, Z, C, G, E, P, K, M, Q)
+        tk, lf, cr, pbank = ft._solve_ckpt_ref(inp, n_max, E, P, V, CK)
+        cmp("pack_outputs", out, ft._pack_outputs_ref(tk, lf, cr),
+            f"{label} GL={GL} ckpt output")
+        for nm, g, w in zip(ft.Carry._fields, bank, pbank):
+            cmp("ffd_bank_store", g, w, f"{label} GL={GL} ckpt bank.{nm}")
+        work = ft.bank_row(pbank, 0)
+        bs = fc.BankState(work, bank)
+        for j in range(G // CK):
+            fc.ffd_bank_load(bs, j)
+            for nm, g, w in zip(ft.Carry._fields, work,
+                                ft.bank_row(pbank, j)):
+                cmp("ffd_bank_load", g, w, f"{label} row {j} {nm}")
+        for SUF in range(1, GL // CK + 1):
+            kb = ft.Carry(*[x.clone() for x in bank])
+            pb = ft.Carry(*[x.clone() for x in pbank])
+            o, kb = ft.solve_scan_suffix(d, kb, CK=CK, SUF=SUF, GL=GL, **ss)
+            tk, lf, cr, pb = ft._solve_suffix_ref(inp, pb, n_max, E, P, V,
+                                                  CK, SUF, GL)
+            cmp("ffd_bank_load", o, ft._pack_outputs_ref(tk, lf, cr),
+                f"{label} GL={GL} SUF={SUF} suffix output")
+            for nm, g, w in zip(ft.Carry._fields, kb, pb):
+                cmp("ffd_bank_store", g, w,
+                    f"{label} GL={GL} SUF={SUF} spliced bank.{nm}")
+            runs += 1
+    return runs
+
+
 # ---------------------------------------------------------------------------
-# phase 5: timing and bounds
+# phase 5: the warm tick
+# ---------------------------------------------------------------------------
+
+def pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def warm_tick_phase(pods=WARM_PODS, device=None):
+    """Drive the warm tick on ``device`` (default cuda; the rehearsal
+    passes cpu); returns (launches of the measured run, summary dict).
+    Raises on any failed check."""
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    snapshot, tick = examples.warm_cluster(pods=pods,
+                                           pending_frac=WARM_PENDING)
+    solver = CUDASolver(device=device)
+    t0 = time.perf_counter()
+    solver.solve(snapshot())
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    warm_modes = []
+    for _ in range(WARM_WARMUP):
+        tick(binds=True)
+        solver.solve(snapshot())
+        warm_modes.append((solver.last_phase_stats["solve"],
+                           solver.last_dispatch_stats["reason"]))
+    snaps, fps, walls, stats = [], [], [], []
+    fc.reset_launches()
+    for _ in range(WARM_TICKS):
+        tick(binds=False)
+        snap = snapshot()
+        t0 = time.perf_counter()
+        res = solver.solve(snap)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        snaps.append(snap)
+        fps.append(res.decision_fingerprint())
+        stats.append((dict(solver.last_phase_stats),
+                      dict(solver.last_dispatch_stats)))
+    launches = dict(fc.LAUNCHES)
+    log(f"[warm] {pods} pods, {len(snaps[0].pods)} pending, "
+        f"{len(snaps[0].existing_nodes)} existing nodes; cold solve "
+        f"{cold_ms:.1f} ms; warm-up (mode, full reason): {warm_modes}")
+    log(f"[warm] launches in the measured run ({WARM_TICKS} ticks): "
+        f"{launches}")
+    # the from-scratch solves (on the card, and the plain versions) run
+    # after the counters are read: their launches are not the main path's
+    on_card = CUDASolver(device=device, incremental=False)
+    plain = CUDASolver(device="cpu", incremental=False)
+    for t, snap in enumerate(snaps):
+        if on_card.solve(snap).decision_fingerprint() != fps[t]:
+            raise AssertionError(f"warm tick {t}: incremental decisions "
+                                 "differ from the from-scratch solve")
+        if t in WARM_CPU_CHECKS and \
+                plain.solve(snap).decision_fingerprint() != fps[t]:
+            raise AssertionError(f"warm tick {t}: decisions differ from "
+                                 "the plain versions' solve")
+    full = [(t, ds["reason"]) for t, (ps, ds) in enumerate(stats)
+            if ps["solve"] == "full"]
+    modes = {}
+    for ps, _ in stats:
+        modes[ps["solve"]] = modes.get(ps["solve"], 0) + 1
+    resume = {}
+    for _, ds in stats:
+        if "resume_group" in ds:
+            resume[ds["resume_group"]] = resume.get(ds["resume_group"], 0) + 1
+    split = {k: statistics.median(ps[k] for ps, _ in stats)
+             for k in ("group_ms", "encode_ms", "kernel_ms", "decode_ms")}
+    tiers = {}
+    for ps, _ in stats:
+        tiers[ps["cache"]] = tiers.get(ps["cache"], 0) + 1
+    summary = dict(p50_ms=statistics.median(walls), p99_ms=pct(walls, 0.99),
+                   modes=modes, full_ticks=full, resume_groups=resume,
+                   tiers=tiers, median_split_ms=split,
+                   slot_bucket=stats[-1][1]["slot_bucket"],
+                   groups=stats[-1][1]["groups"],
+                   launches_per_tick={k: v / WARM_TICKS
+                                      for k, v in launches.items()})
+    log(f"[warm] {WARM_TICKS} measured ticks: split (mode: ticks) {modes}; "
+        f"full ticks (tick, reason): {full}; resume groups {resume}; "
+        f"delta tiers {tiers}; slot bucket {summary['slot_bucket']}, "
+        f"padded groups {summary['groups']}")
+    log(f"[warm] tick p50 {summary['p50_ms']:.3f} ms p99 "
+        f"{summary['p99_ms']:.3f} ms; median split {json.dumps(split)}; "
+        f"fingerprints == from scratch on the card: {WARM_TICKS}/"
+        f"{WARM_TICKS}, == plain versions: {len(WARM_CPU_CHECKS)} ticks")
+    if full:
+        raise AssertionError(f"measured warm ticks served by a full solve: "
+                             f"{full}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing and solver.device.type == "cuda":
+        raise AssertionError(f"kernels never launched on the warm-tick "
+                             f"path: {missing}")
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# phase 6: timing and bounds
 # ---------------------------------------------------------------------------
 
 def time_launches(fn, reps=50, setup=None):
@@ -304,12 +483,92 @@ def kernel_times(c2, launches):
     return out
 
 
+def bank_times(d_buf, st, launches):
+    """The bank kernels at the warm arena's carry, beside the plain
+    versions and the eight ``Tensor.copy_`` calls that move the same
+    bytes (the library yardstick; the port never calls it)."""
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    ss = examples.solve_statics(st)
+    _, bank = ft.solve_scan_packed1_ckpt(d_buf, CK=CK, **ss)
+    j = bank.used.shape[0] // 2
+    carry = ft.bank_row(bank, j)
+    bs = fc.BankState(carry, bank)
+    row = sum(c.numel() * c.element_size() for c in carry)
+
+    def copy_store():
+        for b, c in zip(bank, carry):
+            b[j].copy_(c.reshape(b[j].shape))
+
+    def copy_load():
+        for b, c in zip(bank, carry):
+            c.copy_(b[j].reshape(c.shape))
+    recs = {
+        "ffd_bank_store": (time_launches(lambda: fc.ffd_bank_store(bs, j)),
+                           time_launches(lambda: ft._bank_store_ref(
+                               bank, carry, j)),
+                           time_launches(copy_store)),
+        "ffd_bank_load": (time_launches(lambda: fc.ffd_bank_load(bs, j)),
+                          time_launches(lambda: ft.bank_row(bank, j)),
+                          time_launches(copy_load)),
+    }
+    out = []
+    for name, (ms, pms, lms) in recs.items():
+        # one carry read and one written
+        b, by = bound_ms(2 * row, 0)
+        out.append(dict(name=name, route="cuda", **KERNELS[name],
+                        launches=launches[name], ms=ms, plain_ms=pms,
+                        bound_ms=b, bound_by=by, library_ms=lms,
+                        bytes=2 * row, ops=0))
+    return out
+
+
+def solve_device_ms(fn, reps=20):
+    """Mean device ms of one whole solve call: a sleep kernel ahead of
+    each call lets the host enqueue all of its launches before the start
+    event fires, so the events bracket the device work alone."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(20_000_000)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        total += s.elapsed_time(e)
+    return total / reps
+
+
+def warm_solve_times(d_buf, st, gl):
+    """Device ms of the checkpointed full solve and of the suffix
+    re-solves the warm tick runs (every SUF of the live bound), on the
+    warm arena."""
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    from karpenter_provider_aws_tpu_torch.solver.incremental import \
+        suffix_buckets
+    ss = examples.solve_statics(st)
+    _, bank = ft.solve_scan_packed1_ckpt(d_buf, CK=CK, **ss)
+    out = {"full_ckpt": solve_device_ms(
+        lambda: ft.solve_scan_packed1_ckpt(d_buf, CK=CK, **ss))}
+    for SUF in suffix_buckets(st["G"], CK, GL=gl):
+        out[f"suffix@{SUF}"] = solve_device_ms(
+            lambda: ft.solve_scan_suffix(d_buf, bank, CK=CK, SUF=SUF,
+                                         GL=gl, **ss))
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-4 with the plain versions at a "
+                    help="run phases 3-5 with the plain versions at a "
                          "small size on the CPU (never the default)")
     args = ap.parse_args()
 
@@ -339,6 +598,8 @@ def main() -> int:
     from karpenter_provider_aws_tpu_torch.ops.hostpack import (
         in_layout_bool, in_layout_i64, layout_sizes, nwords, pack_inputs1)
     from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    from karpenter_provider_aws_tpu_torch.solver.incremental import \
+        live_bound
 
     t_start = time.perf_counter()
     # ---- phase 1: device ------------------------------------------------
@@ -389,13 +650,34 @@ def main() -> int:
         inp, final, tk, lf = check_arena(label, buf, st, cmp, dev)
         if label == "config2":
             c2 = (inp, final, tk, lf)
+    # K3 on G=8, CK=2 arenas: every live bound and every SUF it allows
+    k3_runs = 0
+    for name in ("existing", "min_values"):
+        arrays, st = examples.example_case(name, G=8)
+        k3_runs += check_k3(f"{name}-G8", pack_inputs1(
+            arrays, *examples.pack_statics(st)), st, cmp, dev)
+    # K3 on the 50,000-pod warm-cluster arena at the settled slot bucket
+    wsnap, _ = examples.warm_cluster(pods=WARM_PODS,
+                                     pending_frac=WARM_PENDING)
+    wsnap = wsnap()
+    wenc = encode_snapshot(wsnap)
+    bufw, stw = CUDASolver(incremental=False).pack(
+        wenc, *full_existing_encode(wenc, sorted(
+            wsnap.existing_nodes, key=lambda n: n.name)))
+    stw = dict(stw, n_max=16)
+    glw = live_bound(bufw, T=stw["T"], D=stw["D"], G=stw["G"], CK=CK)
+    log(f"[warm arena] statics {stw}, live bound {glw}, arena "
+        f"{bufw.size} words")
+    k3_runs += check_k3("warm50k", bufw, stw, cmp, dev,
+                        gls=(glw, stw["G"]))
     torch.cuda.synchronize()
     log(f"[compare] tolerance exact (integer math; any differing word "
         f"fails): {cmp.checks} checks over "
-        f"{len(cases)} arenas, max_abs_err {cmp.err}")
+        f"{len(cases)} K1/K2 arenas and {k3_runs} K3 suffix runs, "
+        f"max_abs_err {cmp.err}")
 
-    # ---- phase 4: the main path --------------------------------------------
-    solver = CUDASolver()
+    # ---- phase 4: the config-2 path -----------------------------------------
+    solver = CUDASolver(incremental=False)
     fc.reset_launches()
     times, splits = [], []
     res = None
@@ -406,14 +688,16 @@ def main() -> int:
         if i:  # round 0 is the warm-up
             times.append(dt)
             splits.append(solver.last_phase_stats)
-    launches = dict(fc.LAUNCHES)
-    log(f"[main] launches in the main-path run ({ROUNDS + 1} solves): "
-        f"{launches}; per solve: {solver.last_dispatch_stats['launches']}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    launches_c2 = dict(fc.LAUNCHES)
+    log(f"[main] launches in the config-2 run ({ROUNDS + 1} solves): "
+        f"{launches_c2}; per solve: "
+        f"{solver.last_dispatch_stats['launches']}")
+    missing = [k for k, v in launches_c2.items()
+               if v <= 0 and k not in ("ffd_bank_store", "ffd_bank_load")]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
-    want = CUDASolver(device="cpu").solve(snap)
+        raise AssertionError(f"kernels never launched on the config-2 "
+                             f"path: {missing}")
+    want = CUDASolver(device="cpu", incremental=False).solve(snap)
     if res.decision_fingerprint() != want.decision_fingerprint():
         raise AssertionError("CUDA decisions differ from the plain "
                              "versions' decisions")
@@ -432,7 +716,11 @@ def main() -> int:
         f"{p50:.3f} ms p99 {p99:.3f} ms over {len(times)} rounds; "
         f"median split {json.dumps(split)}; fingerprint == plain: True")
 
-    # ---- phase 5: kernel times ---------------------------------------------
+    # ---- phase 5: the warm-tick path ----------------------------------------
+    launches_w, warm = warm_tick_phase()
+    launches = {k: launches_c2[k] + launches_w[k] for k in launches_c2}
+
+    # ---- phase 6: kernel times ---------------------------------------------
     inp, final, tk, lf = c2
     T, D, Z, C, G, E, P = (st2[k] for k in "T D Z C G E P".split())
     n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, 0, 0, 1,
@@ -447,12 +735,23 @@ def main() -> int:
                                           V=0)[0])
     recs = kernel_times((inp, st2, words, n_bits, carries, tk, lf, final),
                         launches)
+    d_bufw = torch.from_numpy(bufw).to(dev)
+    recs += bank_times(d_bufw, stw, launches)
     for r in recs:
         r["max_abs_err"] = cmp.err[r["name"]]
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms'] * 1e3:.2f} us (Tensor.copy_ x8)"
         log(f"[time] {r['name']}: {r['ms'] * 1e3:.2f} us/launch, "
-            f"{r['launches']} launches in the main-path run, bound "
-            f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}), plain "
-            f"{r['plain_ms'] * 1e3:.1f} us, library none")
+            f"{r['launches']} launches in the main-path runs (config 2: "
+            f"{launches_c2[r['name']]}, warm tick: "
+            f"{launches_w[r['name']]}, per warm tick "
+            f"{warm['launches_per_tick'][r['name']]:.2f}), bound "
+            f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}, "
+            f"{r['bytes']:.0f} B, {r['ops']:.0f} ops), plain "
+            f"{r['plain_ms'] * 1e3:.1f} us, library {lib}")
+    sol = warm_solve_times(d_bufw, stw, glw)
+    log(f"[time] warm arena (n_max 16) solve device ms: "
+        f"{json.dumps(sol)}")
     log(f"[wall] {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -466,7 +765,7 @@ def main() -> int:
 
 
 def rehearsal(n_pods: int, rounds: int) -> int:
-    """Phases 3-4 with the plain versions on the CPU, at a small size."""
+    """Phases 3-5 with the plain versions on the CPU, at a small size."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.fake import environment as fenv
@@ -492,6 +791,7 @@ def rehearsal(n_pods: int, rounds: int) -> int:
     assert placed + len(res.unschedulable) == n_pods
     log(f"[rehearsal] {n_pods} pods: {res.summary()}; "
         f"{solver.last_phase_stats}")
+    warm_tick_phase(pods=n_pods, device="cpu")
     log(json.dumps({"ok": True, "device": {"platform": "cpu",
                                            "kind": "cpu", "count": 1}}))
     return 0

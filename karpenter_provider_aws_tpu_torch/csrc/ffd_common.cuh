@@ -1,5 +1,6 @@
-// Shared definitions of the FFD group-scan kernels (ffd_scan.cu) and the
-// packed-arena kernels (packed_io.cu).
+// Shared definitions of the FFD group-scan kernels (ffd_scan.cu), the
+// packed-arena kernels (packed_io.cu) and the checkpoint-bank kernels
+// (ckpt.cu).
 //
 // Integer rules, carried over from the reference kernel
 // (karpenter_provider_aws_tpu/ops/ffd_jax.py): every resource, headroom,
@@ -58,11 +59,11 @@ struct FfdArgs {
     i64* k;                 // [N]   headroom, then take
     i64* hrn;               // [T]   fresh-node headroom of one pool
     u8* candn;              // [T]   fresh-node candidates of one pool
-    // outputs
-    int* takes;             // [G, N]
-    i64* leftover;          // [G]
-    // statics
-    i64 T, D, Z, C, G, E, P, N, K, M, V;
+    // outputs, over the scanned group window [G0, G0 + rows)
+    int* takes;             // [rows, N]
+    i64* leftover;          // [rows]
+    // statics; G0 is the window's first group (row 0 of takes/leftover)
+    i64 T, D, Z, C, G, E, P, N, K, M, V, G0;
 };
 
 __device__ __forceinline__ i64 wadd(i64 a, i64 b) {

@@ -28,7 +28,9 @@
 //   (each thread owns a contiguous chunk; wrapping 64-bit sums); then the
 //   narrowing of filled slots over N x T, the per-pool accounting, and the
 //   new-node phase pool by pool (block max over T, q, slot writes). It
-//   writes takes[g, :] as int32 and leftover[g]. One block is a serial
+//   writes takes[g - G0, :] as int32 and leftover[g - G0] (G0 is the
+//   first group of the scanned window: 0 for a full scan, the resume
+//   group of a suffix re-solve, csrc/ckpt.cu). One block is a serial
 //   section by design: the scan's order is the decision order. What
 //   bounds it: the latency of one block walking a few dozen barriers and
 //   the N-slot loop of the narrowing, not bytes or operations (PERF.md).
@@ -341,8 +343,8 @@ ffd_group_commit_kernel(FfdArgs a, i64 g) {
 
     // ---- outputs ---------------------------------------------------------
     for (i64 s = tid; s < N; s += blockDim.x)
-        a.takes[g * N + s] = (int)a.k[s];
-    if (tid == 0) a.leftover[g] = n_rem;
+        a.takes[(g - a.G0) * N + s] = (int)a.k[s];
+    if (tid == 0) a.leftover[g - a.G0] = n_rem;
 }
 
 int set_smem(const void* fn, size_t smem) {

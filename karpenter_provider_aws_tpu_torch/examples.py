@@ -1,11 +1,14 @@
-"""Synthetic kernel inputs for parity checks of the packed scan.
+"""Synthetic kernel inputs for parity checks of the packed scan, and the
+warm-tick cluster.
 
 ``example_arrays`` is a copy of the reference repository's
 ``__graft_entry__._example_arrays`` (numpy only, seeded); ``example_case``
 turns its output into one of the named arena cases the tests and
 ``chip_smoke.py`` hold the kernels to. Every case takes the base builder
 as an argument, so a test can feed the reference's own builder and check
-that both packages see the same arrays.
+that both packages see the same arrays. ``warm_cluster`` is a copy of the
+reference's ``bench.build_warm_cluster``: the steady-state cluster the
+incremental solve is measured on.
 """
 
 from __future__ import annotations
@@ -131,3 +134,125 @@ def solve_statics(statics: dict) -> dict:
     """Keyword statics of ``solve_scan_packed1``."""
     return {k: statics[k] for k in ("T", "D", "Z", "C", "G", "E", "P",
                                     "n_max", "K", "V", "M", "Q")}
+
+
+def warm_cluster(pods: int = 50_000, pending_frac: float = 0.01,
+                 seed: int = 23):
+    """The steady-state cluster of the warm provisioning tick: a copy of
+    the reference repository's ``bench.build_warm_cluster`` on this
+    package's classes, giving the same pod names, nodes and churn for the
+    same seed. All but ``pending_frac`` of the ``pods`` are BOUND — they
+    exist only as existing-node ``used`` — and the pending slice churns
+    tick to tick on a STABLE signature set (20 base deployments and 5
+    "hot" ones that sort last in canonical order, so the dirty frontier
+    stays deep), under one family-pinned pool (the ``m5.*`` types).
+
+    Returns ``(snapshot, tick)``: ``snapshot()`` builds the current
+    snapshot (fresh ExistingNode objects every call); ``tick(churned=None,
+    binds=False)`` cycles pending pods within the hot deployments, moves
+    one pod between two hot deployments and, with ``binds``, lands four
+    binds on node ``used``. Resets the pod-name counter."""
+    import random
+
+    from .apis import labels as L
+    from .apis.resources import Resources
+    from .fake.environment import Environment, make_pods, reset_pod_counter
+    from .solver.types import ExistingNode, NodePoolSpec
+
+    reset_pod_counter()
+    env = Environment()
+    np_obj, nc = env.nodepool("bench-warm")
+    spec = NodePoolSpec(
+        nodepool=np_obj,
+        instance_types=[it for it in env.instance_types.list(nc)
+                        if it.name.startswith("m5.")])
+    zones = ["us-west-2a", "us-west-2b", "us-west-2c"]
+    rng = random.Random(seed)
+
+    n_pending = max(25, int(pods * pending_frac))
+    n_bound = pods - n_pending
+    # m5.16xlarge nodes, CPU-bound at ~480 of these 120m pods per node
+    per_node = 480
+    E = max(1, (n_bound + per_node - 1) // per_node)
+
+    sigs = []
+    for i in range(20):
+        sel = {L.CAPACITY_TYPE: "spot"} if i % 8 == 7 else None
+        sigs.append(dict(cpu=f"{150 + (i * 37) % 500}m",
+                         memory=f"{256 + (i * 61) % 900}Mi",
+                         group=f"warm{i:02d}", node_selector=sel))
+    for i in range(5):
+        # hot cpu requests sit below every base request: they sort last
+        sigs.append(dict(cpu=f"{100 + i * 5}m",
+                         memory=f"{200 + i * 17}Mi",
+                         group=f"warmhot{i:02d}", node_selector=None))
+    hot = list(range(20, 25))
+    serial = [0]
+
+    def mk(n, gi):
+        kw = dict(sigs[gi % len(sigs)])
+        g = kw.pop("group")
+        serial[0] += 1
+        return make_pods(n, prefix=f"{g}-r{serial[0]}", group=g, **kw)
+
+    #: pending as (signature index, pod), so churn replaces a pod with a
+    #: same-signature successor and no group ever empties
+    pend = []
+    for gi in range(len(sigs)):
+        pend.extend((gi, p) for p in mk(n_pending // len(sigs) or 1, gi))
+
+    alloc = Resources.parse(
+        {"cpu": "63770m", "memory": "241591Mi", "pods": "737"})
+    used = []
+    for i in range(E):
+        n_on = min(per_node, n_bound - i * per_node)
+        used.append(Resources.parse(
+            {"cpu": f"{n_on * 120}m", "memory": f"{n_on * 420}Mi",
+             "pods": str(n_on)}))
+
+    counts = [0] * len(sigs)
+    for gi, _ in pend:
+        counts[gi] += 1
+
+    def snapshot():
+        snap = env.snapshot([p for _, p in pend], [(np_obj, nc)])
+        snap.nodepools = [spec]
+        snap.existing_nodes = [
+            ExistingNode(
+                name=f"warm-node-{i:04d}",
+                labels={L.ZONE: zones[i % 3], L.ARCH: "amd64",
+                        L.CAPACITY_TYPE: "on-demand",
+                        L.INSTANCE_TYPE: "m5.16xlarge",
+                        L.INSTANCE_FAMILY: "m5"},
+                allocatable=alloc, used=used[i])
+            for i in range(E)]
+        return snap
+
+    bump = Resources.parse({"cpu": "120m", "memory": "420Mi"})
+
+    def tick(churned=None, binds=False):
+        k = churned if churned is not None else max(1, n_pending // 5)
+        hot_slots = [j for j, (gi, _) in enumerate(pend) if gi in hot]
+        for _ in range(k):
+            j = hot_slots[rng.randrange(len(hot_slots))]
+            gi, _ = pend[j]
+            pend[j] = (gi, mk(1, gi)[0])
+        # one hot deployment scales down a pod, another scales up
+        donor = max(hot, key=lambda g: counts[g])
+        recip = min(hot, key=lambda g: counts[g])
+        if donor != recip and counts[donor] > 1:
+            for j, (gi, _) in enumerate(pend):
+                if gi == donor:
+                    pend.pop(j)
+                    break
+            pend.append((recip, mk(1, recip)[0]))
+            counts[donor] -= 1
+            counts[recip] += 1
+        # binds move node used: ex_used goes dirty and the bank with it
+        if binds:
+            for _ in range(4):
+                i = rng.randrange(E)
+                used[i] = used[i] + bump
+        return k
+
+    return snapshot, tick

@@ -1,8 +1,9 @@
 """The CUDA kernels of the packed FFD scan: build, binding and wrappers.
 
-``csrc/packed_io.cu`` (K1: ``unpack_bits``, ``pack_outputs``) and
+``csrc/packed_io.cu`` (K1: ``unpack_bits``, ``pack_outputs``),
 ``csrc/ffd_scan.cu`` (K2: ``ffd_slot_headroom``, ``ffd_group_commit``)
-are compiled with ``nvcc`` for ``sm_90a`` into one shared library with a
+and ``csrc/ckpt.cu`` (K3: ``ffd_bank_store``, ``ffd_bank_load``) are
+compiled with ``nvcc`` for ``sm_90a`` into one shared library with a
 plain C interface, loaded with ctypes. The build runs at first use, into
 ``_build/`` inside this package, keyed by a hash of the sources; a failed
 build raises with nvcc's output.
@@ -31,14 +32,14 @@ from typing import Dict, Tuple
 
 import torch
 
-from .ffd_torch import Carry, KernelInputs, _out_bools, _out_i64, \
-    _unpack_inputs, carry0
+from .ffd_torch import CARRY_DTYPES, Carry, KernelInputs, _out_bools, \
+    _out_i64, _unpack_inputs, carry0
 from .hostpack import in_layout_bool, in_layout_i64, layout_sizes, nwords
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("packed_io.cu", "ffd_scan.cu")
+SOURCES = ("packed_io.cu", "ffd_scan.cu", "ckpt.cu")
 HEADERS = ("ffd_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -46,7 +47,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel name -> launches since the last reset (a plain counter per
 #: wrapper, bumped where the kernel is launched and nowhere else)
 LAUNCHES: Dict[str, int] = {"unpack_bits": 0, "ffd_slot_headroom": 0,
-                            "ffd_group_commit": 0, "pack_outputs": 0}
+                            "ffd_group_commit": 0, "pack_outputs": 0,
+                            "ffd_bank_store": 0, "ffd_bank_load": 0}
 
 _LIB = None
 _BUILD_INFO: dict = {}
@@ -119,11 +121,14 @@ def _lib():
             lib.karp_pack_outputs.argtypes = [vp, ll, vp, vp, vp, vp]
             lib.karp_ffd_slot_headroom.argtypes = [vp, ll, vp]
             lib.karp_ffd_group_commit.argtypes = [vp, ll, vp]
+            lib.karp_ffd_bank_store.argtypes = [vp, ll, ll, vp]
+            lib.karp_ffd_bank_load.argtypes = [vp, ll, vp]
             lib.karp_error_string.argtypes = [ctypes.c_int]
             lib.karp_error_string.restype = ctypes.c_char_p
             for fn in (lib.karp_unpack_bits, lib.karp_pack_outputs,
                        lib.karp_ffd_slot_headroom,
-                       lib.karp_ffd_group_commit):
+                       lib.karp_ffd_group_commit,
+                       lib.karp_ffd_bank_store, lib.karp_ffd_bank_load):
                 fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
@@ -208,7 +213,8 @@ _PTR_FIELDS = ("A", "avail_zc", "R", "n", "F", "agz", "agc", "admit",
                "mv_pairs_v", "used", "types", "zones", "ct", "pool",
                "alive", "num_nodes", "pool_used", "cand", "k", "hrn",
                "candn", "takes", "leftover")
-_STATIC_FIELDS = ("T", "D", "Z", "C", "G", "E", "P", "N", "K", "M", "V")
+_STATIC_FIELDS = ("T", "D", "Z", "C", "G", "E", "P", "N", "K", "M", "V",
+                  "G0")
 
 
 class _FfdArgs(ctypes.Structure):
@@ -219,15 +225,21 @@ class _FfdArgs(ctypes.Structure):
 
 
 class ScanState:
-    """Device buffers of one scan: the inputs, the carry (updated in
-    place by the kernels), the per-group scratch and the outputs, plus
-    the ctypes argument block that points at them."""
+    """Device buffers of one scan over the group window [s0, s1) (default
+    every group): the inputs, the carry (updated in place by the
+    kernels; the window's entry carry), the per-group scratch and the
+    outputs, whose rows are those of the window, plus the ctypes
+    argument block that points at them."""
 
     def __init__(self, inp: KernelInputs, carry: Carry, *, E: int, P: int,
-                 V: int = 0):
+                 V: int = 0, s0: int = 0, s1: int = None):
         dev = inp.A.device
         T, D = inp.A.shape
         G = inp.R.shape[0]
+        s1 = G if s1 is None else s1
+        if not 0 <= s0 <= s1 <= G:
+            raise ValueError(f"group window [{s0}, {s1}) outside [0, {G})")
+        self.s0, self.s1 = s0, s1
         N = carry.used.shape[0]
         Z, C = inp.agz.shape[1], inp.agc.shape[1]
         K = 0 if inp.mv_floor is None else inp.mv_floor.shape[1]
@@ -260,8 +272,9 @@ class ScanState:
         self.k = torch.empty(N, dtype=i64, device=dev)
         self.hrn = torch.empty(T, dtype=i64, device=dev)
         self.candn = torch.empty(T, dtype=b, device=dev)
-        self.takes = torch.empty((G, N), dtype=torch.int32, device=dev)
-        self.leftover = torch.empty(G, dtype=i64, device=dev)
+        self.takes = torch.empty((s1 - s0, N), dtype=torch.int32,
+                                 device=dev)
+        self.leftover = torch.empty(s1 - s0, dtype=i64, device=dev)
         ptrs = {}
         for f in _PTR_FIELDS:
             t = getattr(inp, f, None) if f in KernelInputs._fields else \
@@ -269,11 +282,18 @@ class ScanState:
                 getattr(self, f)
             ptrs[f] = t.data_ptr() if t is not None and t.numel() else None
         self.args = _FfdArgs(**ptrs, T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, N=N,
-                             K=K, M=M, V=V)
+                             K=K, M=M, V=V, G0=s0)
+
+
+def _in_window(st: ScanState, g: int) -> None:
+    if not st.s0 <= g < st.s1:
+        raise ValueError(f"group {g} outside the scan window "
+                         f"[{st.s0}, {st.s1})")
 
 
 def ffd_slot_headroom(st: ScanState, g: int) -> None:
     """Steps 1-3 for group g: fills ``st.cand`` [N, T] and ``st.k`` [N]."""
+    _in_window(st, g)
     lib = _lib()
     err = lib.karp_ffd_slot_headroom(ctypes.byref(st.args), g, _stream())
     LAUNCHES["ffd_slot_headroom"] += 1
@@ -282,7 +302,9 @@ def ffd_slot_headroom(st: ScanState, g: int) -> None:
 
 def ffd_group_commit(st: ScanState, g: int) -> None:
     """Steps 4-7 for group g: updates the carry in place and writes
-    ``st.takes[g]`` and ``st.leftover[g]`` (``st.k`` becomes take)."""
+    ``st.takes[g - s0]`` and ``st.leftover[g - s0]`` (``st.k`` becomes
+    take)."""
+    _in_window(st, g)
     lib = _lib()
     err = lib.karp_ffd_group_commit(ctypes.byref(st.args), g, _stream())
     LAUNCHES["ffd_group_commit"] += 1
@@ -300,9 +322,9 @@ def solve_scan_cuda(inp: KernelInputs, n_max: int, E: int, P: int,
     return st.takes, st.leftover, st.carry
 
 
-def solve_scan_packed1_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E, P,
-                            n_max, K=0, V=0, M=0, Q=0) -> torch.Tensor:
-    """The packed solve on the card: unpack_bits, the scan, pack_outputs."""
+def _packed_inputs(buf: torch.Tensor, T, D, Z, C, G, E, P, K, M,
+                   Q) -> KernelInputs:
+    """The arena's inputs: one unpack_bits launch, then views."""
     _need(buf, "buf", torch.int64)
     n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, K, M, 1, Q))
     n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P, K, M, 1, Q))
@@ -310,7 +332,133 @@ def solve_scan_packed1_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E, P,
         raise ValueError(f"arena has {buf.numel()} words, the statics "
                          f"need {n_i64 + nwords(n_bits)}")
     bool_flat = unpack_bits(buf[n_i64:], n_bits)
-    inp = _unpack_inputs(buf[:n_i64], bool_flat, T, D, Z, C, G, E, P, K, M,
-                         1, Q)
+    return _unpack_inputs(buf[:n_i64], bool_flat, T, D, Z, C, G, E, P, K, M,
+                          1, Q)
+
+
+def solve_scan_packed1_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E, P,
+                            n_max, K=0, V=0, M=0, Q=0) -> torch.Tensor:
+    """The packed solve on the card: unpack_bits, the scan, pack_outputs."""
+    inp = _packed_inputs(buf, T, D, Z, C, G, E, P, K, M, Q)
     takes, leftover, carry = solve_scan_cuda(inp, n_max, E, P, V)
     return pack_outputs(takes, leftover, carry)
+
+
+# ---------------------------------------------------------------------------
+# K3 wrappers: the checkpoint bank, and the checkpointed / suffix solves
+# ---------------------------------------------------------------------------
+
+class _BankArgs(ctypes.Structure):
+    """Mirror of ``struct BankArgs`` in csrc/ckpt.cu."""
+    _fields_ = [("carry", ctypes.c_void_p * 8),
+                ("bank", ctypes.c_void_p * 8),
+                ("row_bytes", ctypes.c_longlong * 8)]
+
+
+def empty_bank(carry: Carry, rows: int) -> Carry:
+    """An unwritten bank of ``rows`` carries shaped like ``carry``
+    (num_nodes as [rows])."""
+    return Carry(*[torch.empty((rows,) + (() if nm == "num_nodes"
+                                          else tuple(c.shape)),
+                               dtype=c.dtype, device=c.device)
+                   for nm, c in zip(Carry._fields, carry)])
+
+
+class BankState:
+    """A working carry and a bank of its rows on the card, plus the
+    ctypes argument block that points at their eight fields."""
+
+    def __init__(self, carry: Carry, bank: Carry):
+        rows = bank.used.shape[0]
+        for nm, c, b in zip(Carry._fields, carry, bank):
+            _need(c, f"carry.{nm}", CARRY_DTYPES[nm])
+            _need(b, f"bank.{nm}", CARRY_DTYPES[nm],
+                  (rows,) if nm == "num_nodes" else (rows,) + tuple(c.shape))
+        if carry.num_nodes.numel() != 1:
+            raise ValueError("carry.num_nodes must hold one value")
+        self.carry, self.bank, self.rows = carry, bank, rows
+        self.args = _BankArgs()
+        for i, (c, b) in enumerate(zip(carry, bank)):
+            self.args.carry[i] = c.data_ptr()
+            self.args.bank[i] = b.data_ptr()
+            self.args.row_bytes[i] = c.numel() * c.element_size()
+
+
+def ffd_bank_store(bs: BankState, j: int, count: int = 1) -> None:
+    """The working carry into bank rows [j, j + count), every field in
+    one launch (count > 1: the pad re-stamp of a suffix re-solve)."""
+    if not (0 <= j and count >= 1 and j + count <= bs.rows):
+        raise ValueError(f"bank rows [{j}, {j + count}) outside "
+                         f"[0, {bs.rows})")
+    lib = _lib()
+    err = lib.karp_ffd_bank_store(ctypes.byref(bs.args), j, count,
+                                  _stream())
+    LAUNCHES["ffd_bank_store"] += 1
+    _check(err, "ffd_bank_store")
+
+
+def ffd_bank_load(bs: BankState, j: int) -> None:
+    """Bank row j into the working carry, every field in one launch."""
+    if not 0 <= j < bs.rows:
+        raise ValueError(f"bank row {j} outside [0, {bs.rows})")
+    lib = _lib()
+    err = lib.karp_ffd_bank_load(ctypes.byref(bs.args), j, _stream())
+    LAUNCHES["ffd_bank_load"] += 1
+    _check(err, "ffd_bank_load")
+
+
+def solve_scan_packed1_ckpt_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E,
+                                 P, n_max, K=0, V=0, M=0, Q=0, CK=4
+                                 ) -> Tuple[torch.Tensor, Carry]:
+    """The checkpointed full solve on the card: unpack_bits, then per
+    group ffd_slot_headroom and ffd_group_commit with ffd_bank_store at
+    every chunk entry, then pack_outputs; no synchronisation. Returns
+    (output buffer, bank [G/CK, ...])."""
+    if G % CK:
+        raise ValueError(f"G={G} is not a multiple of CK={CK}")
+    inp = _packed_inputs(buf, T, D, Z, C, G, E, P, K, M, Q)
+    st = ScanState(inp, carry0(inp, E + n_max, E), E=E, P=P, V=V)
+    bs = BankState(st.carry, empty_bank(st.carry, G // CK))
+    for g in range(G):
+        if g % CK == 0:
+            ffd_bank_store(bs, g // CK)
+        ffd_slot_headroom(st, g)
+        ffd_group_commit(st, g)
+    return pack_outputs(st.takes, st.leftover, st.carry), bs.bank
+
+
+def solve_scan_suffix_cuda(buf: torch.Tensor, bank: Carry, *, T, D, Z, C,
+                           G, E, P, n_max, K=0, V=0, M=0, Q=0, CK=4, SUF=1,
+                           GL=None) -> Tuple[torch.Tensor, Carry]:
+    """The suffix re-solve on the card: unpack_bits, ffd_bank_load of row
+    jr = GL/CK - SUF, then per group of [GL - SUF*CK, GL) the two K2
+    kernels with ffd_bank_store at every chunk entry, one ffd_bank_store
+    re-stamping the pad chunks [GL/CK, G/CK) with the final carry, and
+    pack_outputs over the SUF*CK window rows; no synchronisation. The
+    bank is spliced in place and returned."""
+    GL = G if GL is None else GL
+    NC = G // CK
+    if G % CK or GL % CK or not 0 < GL <= G or not 1 <= SUF <= GL // CK:
+        raise ValueError(f"suffix plan G={G} GL={GL} CK={CK} SUF={SUF} "
+                         "is not chunk-aligned inside the arena")
+    N = E + n_max
+    if bank.used.shape[:2] != (NC, N):
+        raise ValueError(f"bank rows/slots {tuple(bank.used.shape[:2])}, "
+                         f"the statics need {(NC, N)}")
+    inp = _packed_inputs(buf, T, D, Z, C, G, E, P, K, M, Q)
+    carry = Carry(*[torch.empty((1,) if nm == "num_nodes"
+                                else tuple(b.shape[1:]),
+                                dtype=b.dtype, device=b.device)
+                    for nm, b in zip(Carry._fields, bank)])
+    bs = BankState(carry, bank)
+    jr, s0 = GL // CK - SUF, GL - SUF * CK
+    ffd_bank_load(bs, jr)
+    st = ScanState(inp, carry, E=E, P=P, V=V, s0=s0, s1=GL)
+    for g in range(s0, GL):
+        if (g - s0) % CK == 0:
+            ffd_bank_store(bs, jr + (g - s0) // CK)
+        ffd_slot_headroom(st, g)
+        ffd_group_commit(st, g)
+    if NC > GL // CK:
+        ffd_bank_store(bs, GL // CK, NC - GL // CK)
+    return pack_outputs(st.takes, st.leftover, st.carry), bank

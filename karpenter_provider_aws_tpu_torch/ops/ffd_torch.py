@@ -22,10 +22,18 @@ division through ``torch.div(..., rounding_mode="floor")``, bit packing
 through int64 arithmetic (torch has no uint64 shifts), segment maxima
 through ``scatter_reduce("amax")``.
 
-``solve_scan`` / ``solve_scan_packed1`` dispatch on the tensor's device:
-the plain versions below for a CPU tensor, the CUDA kernels of
-``ops/ffd_cuda.py`` for a CUDA tensor. Nothing on the CUDA path calls a
-plain version, and nothing falls back from one to the other.
+K3, the incremental solve (``solve_scan_packed1_ckpt`` and
+``solve_scan_suffix``, the reference's functions of the same names):
+the full scan also records a bank of the carry entering every CK-th
+group; a warm tick restores one bank row and re-scans only the suffix of
+groups up to the live bound, splicing its own entry carries over the
+bank's tail.
+
+``solve_scan`` / ``solve_scan_packed1`` / ``solve_scan_packed1_ckpt`` /
+``solve_scan_suffix`` dispatch on the tensor's device: the plain
+versions below for a CPU tensor, the CUDA kernels of ``ops/ffd_cuda.py``
+for a CUDA tensor. Nothing on the CUDA path calls a plain version, and
+nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -96,14 +104,17 @@ def kernel_inputs_from_numpy(arrays: dict, device) -> KernelInputs:
     return KernelInputs(**vals)
 
 
+#: dtype of every carry (and bank) field
+CARRY_DTYPES = dict(used=_I64, types=torch.bool, zones=torch.bool,
+                    ct=torch.bool, pool=torch.int32, alive=torch.bool,
+                    num_nodes=torch.int32, pool_used=_I64)
+
+
 def carry_from_numpy(d: dict, device) -> Carry:
     """A reference carry, as a dict of numpy arrays, on ``device``."""
     dev = _device.resolve(device)
-    dts = dict(used=_I64, types=torch.bool, zones=torch.bool,
-               ct=torch.bool, pool=torch.int32, alive=torch.bool,
-               num_nodes=torch.int32, pool_used=_I64)
     out = {}
-    for nm, dt in dts.items():
+    for nm, dt in CARRY_DTYPES.items():
         a = np.array(d[nm])                 # a writable, contiguous copy
         if nm == "num_nodes":
             a = a.reshape(1)
@@ -349,6 +360,134 @@ def _solve_scan_ref(inp: KernelInputs, n_max: int, E: int, P: int,
     return takes_t, left_t, carry
 
 
+# ---------------------------------------------------------------------------
+# plain versions of K3: the checkpointed scan and the suffix re-solve
+# ---------------------------------------------------------------------------
+
+def bank_row(bank: Carry, j: int) -> Carry:
+    """Bank row ``j`` as a working carry (a copy; num_nodes as [1])."""
+    return Carry(*[f[j:j + 1].clone() if nm == "num_nodes"
+                   else f[j].clone()
+                   for nm, f in zip(Carry._fields, bank)])
+
+
+def _bank_store_ref(bank: Carry, carry: Carry, j: int, count: int = 1
+                    ) -> None:
+    """Plain version of ``ffd_bank_store``: the carry into bank rows
+    [j, j + count), every field, in place."""
+    for nm, b, c in zip(Carry._fields, bank, carry):
+        b[j:j + count] = c.reshape(-1) if nm == "num_nodes" else c
+
+
+def _chunked_scan_ref(inp: KernelInputs, carry: Carry, s0: int, s1: int,
+                      *, E: int, P: int, V: int, CK: int):
+    """Scan groups [s0, s1) from ``carry`` (s1 - s0 divisible by CK),
+    recording the carry entering every CK-th group of the window: the
+    reference's ``_chunked_scan``. Returns (takes [s1-s0, N] int32,
+    leftover [s1-s0], final carry, bank) where ``bank`` is a Carry of
+    [(s1-s0)/CK, ...] stacked entry states."""
+    entries, takes, lefts = [], [], []
+    for g in range(s0, s1):
+        if (g - s0) % CK == 0:
+            entries.append(carry)
+        carry, take, n_rem = _group_step_ref(inp, carry, g, E=E, P=P, V=V)
+        takes.append(take.to(torch.int32))
+        lefts.append(n_rem.reshape(1))
+    bank = Carry(*[torch.stack(f) for f in zip(*entries)])
+    bank = bank._replace(num_nodes=bank.num_nodes.reshape(-1))
+    return torch.stack(takes), torch.cat(lefts), carry, bank
+
+
+def _solve_ckpt_ref(inp: KernelInputs, n_max: int, E: int, P: int, V: int,
+                    CK: int):
+    """Full solve that also records the checkpoint bank; decisions are
+    those of ``_solve_scan_ref`` (same steps, same order)."""
+    return _chunked_scan_ref(inp, carry0(inp, E + n_max, E), 0,
+                             inp.R.shape[0], E=E, P=P, V=V, CK=CK)
+
+
+def _solve_suffix_ref(inp: KernelInputs, bank: Carry, n_max: int, E: int,
+                      P: int, V: int, CK: int, SUF: int, GL: int):
+    """Resume from bank row ``jr = GL/CK - SUF``, scan groups
+    [GL - SUF*CK, GL), splice the window's entry carries over rows
+    [jr, GL/CK) and re-stamp the pad chunks [GL/CK, G/CK) with the final
+    carry (groups past the live bound GL are empty, so their entry
+    carries equal the final carry). The bank is updated in place.
+    Returns (takes [SUF*CK, N], leftover [SUF*CK], final carry, bank)."""
+    G = inp.R.shape[0]
+    jr = GL // CK - SUF
+    takes, left, carry, mini = _chunked_scan_ref(
+        inp, bank_row(bank, jr), GL - SUF * CK, GL, E=E, P=P, V=V, CK=CK)
+    for b, m in zip(bank, mini):
+        b[jr:jr + SUF] = m
+    if G // CK > GL // CK:
+        _bank_store_ref(bank, carry, GL // CK, G // CK - GL // CK)
+    return takes, left, carry, bank
+
+
+def _packed_inputs_ref(buf, T, D, Z, C, G, E, P, K, M, Q):
+    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, K, M, 1, Q))
+    n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P, K, M, 1, Q))
+    bool_flat = _unpack_bits_ref(buf[n_i64:n_i64 + nwords(n_bits)], n_bits)
+    return _unpack_inputs(buf[:n_i64], bool_flat, T, D, Z, C, G, E, P, K, M,
+                          1, Q)
+
+
+def _as_arena(buf, device):
+    if isinstance(buf, torch.Tensor) and device is None:
+        dev = _device.resolve(buf.device)
+    else:
+        dev = _device.resolve(device)
+    return torch.as_tensor(buf).to(device=dev, dtype=_I64).contiguous()
+
+
+def solve_scan_packed1_ckpt(buf, *, T: int, D: int, Z: int, C: int, G: int,
+                            E: int, P: int, n_max: int, K: int = 0,
+                            V: int = 0, M: int = 0, Q: int = 0, CK: int = 4,
+                            device=None) -> Tuple[torch.Tensor, Carry]:
+    """The checkpoint-recording full solve (the reference's
+    ``solve_scan_packed1_ckpt``): the packed output buffer PLUS a
+    [G/CK, ...] bank of the carry entering every CK-th group, left on
+    the solve's device. CUDA runs the hand-written kernels; the CPU runs
+    the plain versions."""
+    buf = _as_arena(buf, device)
+    if buf.is_cuda:
+        from .ffd_cuda import solve_scan_packed1_ckpt_cuda
+        return solve_scan_packed1_ckpt_cuda(buf, T=T, D=D, Z=Z, C=C, G=G,
+                                            E=E, P=P, n_max=n_max, K=K, V=V,
+                                            M=M, Q=Q, CK=CK)
+    inp = _packed_inputs_ref(buf, T, D, Z, C, G, E, P, K, M, Q)
+    takes, leftover, carry, bank = _solve_ckpt_ref(inp, n_max, E, P, V, CK)
+    return _pack_outputs_ref(takes, leftover, carry), bank
+
+
+def solve_scan_suffix(buf, bank: Carry, *, T: int, D: int, Z: int, C: int,
+                      G: int, E: int, P: int, n_max: int, K: int = 0,
+                      V: int = 0, M: int = 0, Q: int = 0, CK: int = 4,
+                      SUF: int = 1, GL: Optional[int] = None, device=None
+                      ) -> Tuple[torch.Tensor, Carry]:
+    """Suffix-only re-solve from the resident ``bank`` (the reference's
+    ``solve_scan_suffix``): scans the SUF*CK groups below the live bound
+    GL (None means G) of the same packed arena. The output buffer has
+    the three-section layout with a group axis of SUF*CK covering groups
+    [GL - SUF*CK, GL); the bank is spliced IN PLACE (no second bank is
+    allocated) and returned. ``bank`` must lie on the arena's device."""
+    buf = _as_arena(buf, device)
+    GL = G if GL is None else GL
+    if bank.used.device != buf.device:
+        raise ValueError(f"bank on {bank.used.device}, arena on "
+                         f"{buf.device}")
+    if buf.is_cuda:
+        from .ffd_cuda import solve_scan_suffix_cuda
+        return solve_scan_suffix_cuda(buf, bank, T=T, D=D, Z=Z, C=C, G=G,
+                                      E=E, P=P, n_max=n_max, K=K, V=V, M=M,
+                                      Q=Q, CK=CK, SUF=SUF, GL=GL)
+    inp = _packed_inputs_ref(buf, T, D, Z, C, G, E, P, K, M, Q)
+    takes, leftover, carry, bank = _solve_suffix_ref(
+        inp, bank, n_max, E, P, V, CK, SUF, GL)
+    return _pack_outputs_ref(takes, leftover, carry), bank
+
+
 def solve_scan(inp: KernelInputs, n_max: int, E: int, P: int, V: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor, Carry]:
     """Returns (takes [G, N] int32, leftover [G] int64, final carry) on
@@ -439,20 +578,11 @@ def solve_scan_packed1(buf, *, T: int, D: int, Z: int, C: int, G: int,
         raise NotImplementedError(
             "fused arenas (F>1) are the K5 kernel (ROADMAP.md queue 2); "
             "pack with F=1")
-    if isinstance(buf, torch.Tensor) and device is None:
-        dev = _device.resolve(buf.device)
-    else:
-        dev = _device.resolve(device)
-    buf = torch.as_tensor(buf).to(device=dev, dtype=_I64).contiguous()
-    statics = dict(T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, n_max=n_max, K=K,
-                   V=V, M=M, Q=Q)
-    if dev.type == "cuda":
+    buf = _as_arena(buf, device)
+    if buf.is_cuda:
         from .ffd_cuda import solve_scan_packed1_cuda
-        return solve_scan_packed1_cuda(buf, **statics)
-    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, K, M, 1, Q))
-    n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P, K, M, 1, Q))
-    bool_flat = _unpack_bits_ref(buf[n_i64:n_i64 + nwords(n_bits)], n_bits)
-    inp = _unpack_inputs(buf[:n_i64], bool_flat, T, D, Z, C, G, E, P, K, M,
-                         1, Q)
+        return solve_scan_packed1_cuda(buf, T=T, D=D, Z=Z, C=C, G=G, E=E,
+                                       P=P, n_max=n_max, K=K, V=V, M=M, Q=Q)
+    inp = _packed_inputs_ref(buf, T, D, Z, C, G, E, P, K, M, Q)
     takes, leftover, carry = _solve_scan_ref(inp, n_max, E, P, V)
     return _pack_outputs_ref(takes, leftover, carry)

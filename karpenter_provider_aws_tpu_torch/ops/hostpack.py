@@ -6,7 +6,9 @@ the device boundary: the host packs kernel inputs into ONE int64 buffer
 output buffer; ops/ffd_torch.py and ops/ffd_cuda.py walk the same
 layouts on the device. A copy of the reference package's
 ops/hostpack.py, byte-identical on every function carried here
-(tests/test_torch_ffd.py holds the two against each other).
+(tests/test_torch_ffd.py and tests/test_torch_incremental.py hold the
+two against each other). Where the reference may call its native
+``deltawalk`` library, this copy runs the reference's numpy branch.
 """
 
 from __future__ import annotations
@@ -149,6 +151,70 @@ def pack_inputs1_state(arrays: dict, T, D, Z, C, G, E, P, K=0, M=0,
                          for nm, _ in in_layout_bool(T, D, Z, C, G, E, P,
                                                      K, M, F, Q)])
     return np.concatenate([i64, pack_bits(bl)]), bl
+
+
+def patch_inputs1(buf: np.ndarray, bool_flat: np.ndarray, arrays: dict,
+                  dirty_i64, dirty_bool, T, D, Z, C, G, E, P, K=0, M=0,
+                  F=1, Q=0):
+    """Patch dirty fields of a RESIDENT packed arena in place.
+
+    ``(buf, bool_flat)`` must be the pair ``pack_inputs1_state``
+    returned for the SAME statics; ``arrays`` carries the new field
+    values (only the dirty names are read). i64 fields overwrite the
+    changed run of their buffer words. Bool fields update the resident
+    bool plane, then re-bitpack only the words covering the field's bit
+    range — sections are not word-aligned, so the repack rounds out to
+    the enclosing words and re-reads the neighbours from the plane,
+    which is why the plane must stay resident. The result is
+    byte-identical to a fresh pack of the same arrays.
+
+    Returns the ``(start, stop)`` int64-word sections of ``buf`` that
+    were overwritten (bool sections word-rounded, as repacked)."""
+    sections = []
+    lay64 = in_layout_i64(T, D, Z, C, G, E, P, K, M, F, Q)
+    want64 = set(dirty_i64)
+    off = 0
+    for nm, shp in lay64:
+        sz = 1
+        for s in shp:
+            sz *= s
+        if nm in want64 and sz:
+            fresh = np.asarray(arrays[nm]).reshape(-1).astype(np.int64)
+            hit = np.nonzero(buf[off:off + sz] != fresh)[0]
+            if hit.size:
+                # one span per field: the changed word run
+                w0, w1 = int(hit[0]), int(hit[-1]) + 1
+                buf[off + w0:off + w1] = fresh[w0:w1]
+                sections.append((off + w0, off + w1))
+        off += sz
+    layb = in_layout_bool(T, D, Z, C, G, E, P, K, M, F, Q)
+    nbits = layout_sizes(layb)
+    wantb = set(dirty_bool)
+    boff = 0
+    for nm, shp in layb:
+        sz = 1
+        for s in shp:
+            sz *= s
+        if nm in wantb and sz:
+            fresh = np.asarray(arrays[nm]).reshape(-1)
+            bool_flat[boff:boff + sz] = fresh.astype(bool)
+            w0 = boff >> 6
+            end = min(((boff + sz + 63) >> 6) << 6, nbits)
+            words = pack_bits(np.ascontiguousarray(bool_flat[w0 << 6:end]))
+            buf[off + w0:off + w0 + words.size] = words
+            sections.append((off + w0, off + w0 + words.size))
+        boff += sz
+    return sections
+
+
+#: arena fields whose leading axis is the canonical GROUP axis — the
+#: only fields a dirty section can touch while still permitting a
+#: suffix-only re-solve past its group index. Everything else (catalog,
+#: pool vectors, existing-node tables) feeds the scan's INITIAL carry
+#: or every step, so touching it forces frontier 0 (full solve).
+GROUP_MAJOR_FIELDS = frozenset(
+    ("R", "n", "daemon", "prio", "F", "agz", "agc", "admit", "ex_compat",
+     "fuse"))
 
 
 def tier_leftovers(leftover: np.ndarray, prio) -> dict:

@@ -1,14 +1,25 @@
 """The CUDA solver: the packed FFD group scan behind the Solver interface.
 
 The counterpart of the main path of the reference's ``TPUSolver``
-(solver/tpu.py ``_solve_core`` on the device): encode from scratch
-(models/encoding.py, models/delta.py ``full_existing_encode``), pad into
-pow2 shape buckets (``_prep_device_inputs``), pack one int64 arena
-(ops/hostpack.py), move it to the device, run one packed solve
-(ops/ffd_torch.py ``solve_scan_packed1``: the CUDA kernels on a CUDA
-device), fetch the one output buffer, unpack it, and decode. The
-new-node slot bucket grows x4 and re-solves when a solve runs out of
-slots with pods left over, exactly as the reference does.
+(solver/tpu.py ``_solve_core`` on the device): encode, pad into pow2
+shape buckets (``_prep_device_inputs``), pack one int64 arena
+(ops/hostpack.py), move it to the device, run one packed solve, fetch
+the one output buffer, unpack it, and decode. The new-node slot bucket
+grows x4 and re-solves when a solve runs out of slots with pods left
+over, exactly as the reference does.
+
+``incremental=True`` (the default, as in the reference) is the warm
+provisioning tick: the ``DeltaEncoder`` (models/delta.py) patches the
+resident encoding, ``_arena_for`` patches the resident packed arena in
+place (hostpack ``patch_inputs1``), and the solve is either the
+checkpointed full scan (ops/ffd_torch.py ``solve_scan_packed1_ckpt``),
+which records a device-resident bank of carries every CKPT_CHUNK groups,
+or — on a steady-state tick whose dirty rows sit past a frontier — the
+suffix re-solve from that bank (``solve_scan_suffix``, policy in
+solver/incremental.py and ``_try_suffix``). Only the packed arena and
+the output buffer cross between host and device; the bank stays on the
+device. ``incremental=False`` encodes every snapshot from scratch and
+runs ``solve_scan_packed1``.
 
 There is no router, host twin or oracle fallback here: on a CUDA device
 every solve runs the kernels or raises. ``device="cpu"`` runs the plain
@@ -28,11 +39,14 @@ import torch
 from .. import device as _device
 from ..apis.requirements import Requirements
 from ..apis.resources import Resources
-from ..models.delta import full_existing_encode
+from ..models.delta import DeltaEncoder, full_existing_encode
 from ..models.encoding import SnapshotEncoding, encode_snapshot
 from ..ops import ffd_cuda
-from ..ops.ffd_torch import solve_scan_packed1
-from ..ops.hostpack import pack_inputs1, tier_leftovers, unpack_outputs1
+from ..ops.ffd_torch import (solve_scan_packed1, solve_scan_packed1_ckpt,
+                             solve_scan_suffix)
+from ..ops.hostpack import (pack_inputs1, pack_inputs1_state, patch_inputs1,
+                            tier_leftovers, unpack_outputs1)
+from .incremental import CKPT_CHUNK, ckpt_eligible, live_bound, suffix_plan
 from .types import (ExistingNode, NewNodeClaim, SchedulingSnapshot,
                     SolveResult, Solver)
 
@@ -49,24 +63,46 @@ def _slotmap(E: int, Ep: int, N: int) -> np.ndarray:
 class CUDASolver(Solver):
     name = "cuda"
 
-    def __init__(self, n_max: int = 2048, device=None):
+    def __init__(self, n_max: int = 2048, device=None,
+                 incremental: bool = True):
         """n_max sizes the new-node slot arrays per solve. It is a
         CAPACITY, not a decision bound: a solve that exhausts every slot
         with pods left over grows n_max (x4, capped at the pod count) and
         re-runs, so decisions match the oracle, which opens nodes
-        unboundedly. ``device`` defaults to cuda and raises without it."""
+        unboundedly. ``device`` defaults to cuda and raises without it.
+
+        incremental: keep the last solve's encoding, packed arena and
+        checkpoint bank RESIDENT and serve steady-state ticks by patching
+        them (module docstring); off is the from-scratch path."""
         self.device = _device.resolve(device)
         self.n_max = n_max
+        #: incremental encoder (None = from scratch every solve)
+        self._delta = DeltaEncoder() if incremental else None
+        #: the LAST encode's SnapshotDelta
+        self._last_delta = None
+        #: resident packed arena: dict(enc, arrays, stt, buf, bflat,
+        #: version) — reused/patched by _arena_for
+        self._pack_cache = None
+        #: resident checkpoint bank: dict(key, CK, GL, token, bank, takes,
+        #: leftover); the bank's tensors stay on self.device, takes and
+        #: leftover are host copies of the padded rows it solves for
+        self._ckpt_bank = None
+        #: "full" or "suffix@<SUF>" of the LAST solve
+        self._solve_mode = "full"
         #: current new-node slot bucket; grows on overflow, sticky across
         #: solves, shrinks back after 8 solves of small peaks
         self._bucket = min(256, n_max)
         self._bucket_peaks: list = []
         #: group/encode/kernel/decode wall split of the LAST solve (ms):
         #: group is the canonical pod grouping (Solver.solve), kernel
-        #: covers pack + h2d + the packed solve + d2h + unpack
+        #: covers pack/patch + h2d + the packed solve + d2h + unpack;
+        #: plus ``solve`` ("full" or "suffix@<SUF>") and, when
+        #: incremental, ``cache`` (the delta tier) and ``patched_rows``
         self.last_phase_stats: dict = {}
         #: kernel launches of the LAST solve (all of its bucket retries),
-        #: per kernel, plus the slot bucket and the retry count
+        #: per kernel, plus the slot bucket, the retry count, the kernel
+        #: path, the full-solve reason and, for a suffix, resume_group,
+        #: suffix_bucket and suffix_groups
         self.last_dispatch_stats: dict = {}
         self.last_tier_leftovers: dict = {}
 
@@ -116,8 +152,14 @@ class CUDASolver(Solver):
                                unschedulable={})
         t0 = time.perf_counter()
         existing = sorted(snapshot.existing_nodes, key=lambda n: n.name)
-        enc = encode_snapshot(snapshot, pod_groups=pod_groups)
-        ex_alloc, ex_used, ex_compat = full_existing_encode(enc, existing)
+        if self._delta is not None:
+            enc, (ex_alloc, ex_used, ex_compat), self._last_delta = \
+                self._delta.encode(snapshot, pod_groups, existing)
+        else:
+            enc = encode_snapshot(snapshot, pod_groups=pod_groups)
+            ex_alloc, ex_used, ex_compat = full_existing_encode(enc,
+                                                                existing)
+            self._last_delta = None
         if enc.topo_any:
             raise NotImplementedError(
                 "topology spread / pod (anti-)affinity needs the topology "
@@ -142,7 +184,12 @@ class CUDASolver(Solver):
         self.last_phase_stats = dict(group_ms=self.last_group_ms,
                                      encode_ms=(t_enc - t0) * 1e3,
                                      kernel_ms=(t_k - t_enc) * 1e3,
-                                     decode_ms=(now - t_k) * 1e3)
+                                     decode_ms=(now - t_k) * 1e3,
+                                     solve=self._solve_mode)
+        d = self._last_delta
+        if d is not None:
+            self.last_phase_stats["cache"] = d.tier
+            self.last_phase_stats["patched_rows"] = d.patched_rows
         return res
 
     # ------------------------------------------------------------------
@@ -234,19 +281,209 @@ class CUDASolver(Solver):
         d_buf = torch.from_numpy(buf).to(self.device)
         return solve_scan_packed1(d_buf, **statics).cpu().numpy()
 
+    def _dispatch_ckpt(self, buf: np.ndarray, **statics):
+        """The checkpointed full solve: the output buffer comes back to
+        the host, the bank stays on the device."""
+        d_buf = torch.from_numpy(buf).to(self.device)
+        o_buf, bank = solve_scan_packed1_ckpt(d_buf, **statics)
+        return o_buf.cpu().numpy(), bank
+
+    def _dispatch_suffix(self, buf: np.ndarray, bank, **statics):
+        """The suffix re-solve against the resident bank (spliced in
+        place on the device); only the arena and the output cross."""
+        d_buf = torch.from_numpy(buf).to(self.device)
+        o_buf, bank = solve_scan_suffix(d_buf, bank, **statics)
+        return o_buf.cpu().numpy(), bank
+
+    # -- the resident packed arena -------------------------------------
+    def _patch_pack_cache(self, pc, enc, ex_alloc, ex_used, ex_compat, d):
+        """Bring the resident padded arrays + packed arena up to the
+        current delta: re-pad only the dirty fields (the delta's
+        dirty_fields() vocabulary) and patch their sections of the
+        packed buffer in place (hostpack ``patch_inputs1``). Only fields
+        a ``rows``-tier delta can move are handled."""
+        arrays, stt = pc["arrays"], pc["stt"]
+        D = len(enc.dims)
+        G, E = len(enc.groups), ex_alloc.shape[0]
+        # prio never moves on a hit/rows tick (priority is part of the
+        # signature), so it is never among these
+        dirty64, dirtyb = d.dirty_fields()
+        if "n" in dirty64:
+            arrays["n"][:G] = enc.n
+        if "pool_limit" in dirty64:
+            pl, pu = arrays["pool_limit"], arrays["pool_used0"]
+            for p in enc.pools:
+                lim = p.limit_vec if p.limit_vec is not None \
+                    else np.full(D, -1, dtype=np.int64)
+                pl[p.index, :D] = lim
+                pl[p.index, D:] = -1
+                pu[p.index, :D] = p.in_use_vec
+        if "ex_alloc" in dirty64:
+            ap, up = arrays["ex_alloc"], arrays["ex_used0"]
+            ap[:] = 0
+            up[:] = 0
+            if E:
+                ap[:E, :D] = ex_alloc
+                up[:E, :D] = ex_used
+        if "ex_compat" in dirtyb:
+            cp = arrays["ex_compat"]
+            cp[:] = False
+            if E:
+                cp[:G, :E] = ex_compat
+        if dirty64 or dirtyb:
+            patch_inputs1(pc["buf"], pc["bflat"], arrays, dirty64, dirtyb,
+                          stt["T"], stt["D"], stt["Z"], stt["C"], stt["G"],
+                          stt["E"], stt["P"], stt["K"], stt["M"], 1,
+                          stt["Q"])
+
+    def _arena_for(self, enc, ex_alloc, ex_used, ex_compat):
+        """(arrays, stt, buf): the resident packed arena when the delta
+        tier proves the shape class unchanged (same resident encoding
+        object, same padded E bucket) — reused as is on a clean tick,
+        patched in its dirty sections otherwise — else a fresh pack. A
+        buffer lagging the encoder by more than one version (solves
+        refused in between) is re-packed, never patched."""
+        E = ex_alloc.shape[0]
+        d = self._last_delta
+        dver = self._delta.version if self._delta is not None else None
+        pc = self._pack_cache
+        if (pc is not None and d is not None and dver is not None
+                and d.tier in ("hit", "rows")
+                and pc["enc"] is enc
+                and pc["stt"]["E"] == (1 << (E - 1).bit_length()
+                                       if E else 0)
+                and pc["version"] in (dver, dver - 1)):
+            if pc["version"] != dver:
+                self._patch_pack_cache(pc, enc, ex_alloc, ex_used,
+                                       ex_compat, d)
+                pc["version"] = dver
+            return pc["arrays"], pc["stt"], pc["buf"]
+        arrays, stt = self._prep_device_inputs(enc, ex_alloc, ex_used,
+                                               ex_compat)
+        buf, bflat = pack_inputs1_state(arrays, stt["T"], stt["D"],
+                                        stt["Z"], stt["C"], stt["G"],
+                                        stt["E"], stt["P"], stt["K"],
+                                        stt["M"], 1, stt["Q"])
+        self._pack_cache = None if dver is None else dict(
+            enc=enc, arrays=arrays, stt=stt, buf=buf, bflat=bflat,
+            version=dver)
+        return arrays, stt, buf
+
+    # -- incremental solve (checkpointed scan prefix reuse) ------------
+    def _bank_prev_token(self):
+        """The ``(epoch, version)`` the resident arena held BEFORE this
+        encode — where a bank must sit to be restorable: the current
+        delta describes exactly the transition from that token to now.
+        None when incremental encoding is off."""
+        d, de = self._last_delta, self._delta
+        if d is None or de is None:
+            return None
+        bumped = (d.n_dirty or d.pools_dirty or d.ex_rows_dirty
+                  or d.ex_compat_dirty)
+        return (de.epoch, de.version - (1 if bumped else 0))
+
+    @staticmethod
+    def _ckpt_statics(stt: dict, n_bucket: int) -> dict:
+        """The ckpt/suffix solves' statics for this arena (F is 1)."""
+        return dict(T=stt["T"], D=stt["D"], Z=stt["Z"], C=stt["C"],
+                    G=stt["G"], E=stt["E"], P=stt["P"], K=stt["K"],
+                    V=stt["V"], M=stt["M"], Q=stt["Q"], n_max=n_bucket)
+
+    def _adopt_bank(self, buf, stt, n_bucket, bank, out, CK) -> None:
+        """Install a freshly recorded bank + the padded takes/leftover it
+        solves for, stamped with the encoder token the arena now sits
+        at. (The reference also pre-compiles the suffix ladder here,
+        ``_prime_suffix``; these kernels are built once per process and
+        take any shape, so there is nothing to prime.)"""
+        gl = live_bound(buf, T=stt["T"], D=stt["D"], G=stt["G"], CK=CK)
+        self._ckpt_bank = dict(
+            key=(tuple(sorted(stt.items())), n_bucket), CK=CK, GL=gl,
+            token=self._delta.state_token(), bank=bank,
+            takes=out["takes"].copy(), leftover=out["leftover"].copy())
+
+    def _try_suffix(self, buf, stt, n_bucket):
+        """Serve this solve from the resident bank if every validity edge
+        holds. Returns ``(out, reason, info)``: ``out`` is the full
+        unpacked result (suffix rows spliced over the resident takes/
+        leftover, carry fields straight from the suffix) or None, with
+        ``reason`` naming why a full solve runs."""
+        d = self._last_delta
+        if d is None or self._delta is None:
+            return None, "disabled", None
+        if d.tier not in ("hit", "rows"):
+            return None, "tier", None
+        bk = self._ckpt_bank
+        if bk is None:
+            return None, "cold", None
+        key = (tuple(sorted(stt.items())), n_bucket)
+        if bk["key"] != key:
+            return (None,
+                    "bucket" if bk["key"][0] == key[0] else "shape", None)
+        tok = self._bank_prev_token()
+        if bk["token"] != tok:
+            return (None,
+                    "epoch" if bk["token"][0] != tok[0] else "version_lag",
+                    None)
+        if d.dirty_frontier <= 0:
+            return None, "frontier", None
+        Gp, CK = stt["G"], bk["CK"]
+        gl = live_bound(buf, T=stt["T"], D=stt["D"], G=Gp, CK=CK)
+        if gl != bk["GL"] or gl <= 0:
+            # the live bound moved under a rows tick: re-record at the
+            # new bound rather than scan a stale region
+            return None, "shape", None
+        jr, SUF = suffix_plan(min(d.dirty_frontier, Gp), Gp, CK, GL=gl)
+        o_buf, bank = self._dispatch_suffix(
+            buf, bk["bank"], CK=CK, SUF=SUF, GL=gl,
+            **self._ckpt_statics(stt, n_bucket))
+        sv = unpack_outputs1(o_buf, stt["T"], stt["D"], stt["Z"],
+                             stt["C"], SUF * CK, stt["E"], stt["P"],
+                             n_bucket)
+        s0 = jr * CK
+        bk["takes"][s0:gl] = sv["takes"]
+        bk["leftover"][s0:gl] = sv["leftover"]
+        # the kernel spliced the suffix's entry carries over the stale
+        # bank tail: advance the token, the bank tracks the arena
+        bk["bank"] = bank
+        bk["token"] = self._delta.state_token()
+        out = dict(sv)
+        out["takes"] = bk["takes"].copy()
+        out["leftover"] = bk["leftover"].copy()
+        self._solve_mode = f"suffix@{SUF}"
+        return out, d.tier, dict(resume_group=s0, suffix_bucket=SUF,
+                                 suffix_groups=SUF * CK)
+
     def _run_device(self, enc, ex_alloc, ex_used, ex_compat):
         D = enc.A.shape[1]
         G, E = len(enc.groups), ex_alloc.shape[0]
-        buf, stt = self.pack(enc, ex_alloc, ex_used, ex_compat)
+        _, stt, buf = self._arena_for(enc, ex_alloc, ex_used, ex_compat)
         T, Dp, Z, C = stt["T"], stt["D"], stt["Z"], stt["C"]
         Gp, Ep, Pp = stt["G"], stt["E"], stt["P"]
         before = dict(ffd_cuda.LAUNCHES)
         n_bucket, retries = self._bucket, 0
+        ck_on = self._delta is not None and ckpt_eligible(Gp)
+        self._solve_mode = "full"
+        sreason, sinfo = ("disabled" if not ck_on else None), None
         while True:
-            o_buf = self._dispatch(buf, T=T, D=Dp, Z=Z, C=C, G=Gp, E=Ep,
-                                   P=Pp, n_max=n_bucket, K=stt["K"],
-                                   V=stt["V"], M=stt["M"], F=1, Q=stt["Q"])
-            out = unpack_outputs1(o_buf, T, Dp, Z, C, Gp, Ep, Pp, n_bucket)
+            out = None
+            if ck_on and sreason is None:
+                out, sreason, sinfo = self._try_suffix(buf, stt, n_bucket)
+            if out is None and ck_on:
+                if self._solve_mode != "full":
+                    # a suffix served but exhausted its slots: the grown
+                    # retry is a bank-rebuilding full solve
+                    self._solve_mode, sinfo = "full", None
+                    sreason = "exhausted"
+                o_buf, bank = self._dispatch_ckpt(
+                    buf, CK=CKPT_CHUNK, **self._ckpt_statics(stt, n_bucket))
+                out = unpack_outputs1(o_buf, T, Dp, Z, C, Gp, Ep, Pp,
+                                      n_bucket)
+                self._adopt_bank(buf, stt, n_bucket, bank, out, CKPT_CHUNK)
+            elif out is None:
+                o_buf = self._dispatch(buf, F=1,
+                                       **self._ckpt_statics(stt, n_bucket))
+                out = unpack_outputs1(o_buf, T, Dp, Z, C, Gp, Ep, Pp,
+                                      n_bucket)
             exhausted = (out["leftover"].sum() > 0
                          and int(out["num_nodes"][0]) >= n_bucket)
             if not exhausted or n_bucket >= self.n_max:
@@ -255,10 +492,16 @@ class CUDASolver(Solver):
             retries += 1
         self._bucket = self._settle_bucket(n_bucket,
                                            int(out["num_nodes"][0]))
+        suffix = self._solve_mode != "full"
         self.last_dispatch_stats = dict(
             device=str(self.device), slot_bucket=n_bucket, retries=retries,
-            groups=Gp, launches={k: v - before[k]
-                                 for k, v in ffd_cuda.LAUNCHES.items()})
+            groups=Gp,
+            kernel="suffix" if suffix else "ckpt" if ck_on else "base",
+            reason=None if suffix else sreason,
+            launches={k: v - before[k]
+                      for k, v in ffd_cuda.LAUNCHES.items()})
+        if sinfo is not None:
+            self.last_dispatch_stats.update(sinfo)
         takes = out["takes"][:G]
         # slot axis: drop padded existing rows (E..Ep) — they are dead
         takes = np.concatenate([takes[:, :E], takes[:, Ep:]], axis=1)

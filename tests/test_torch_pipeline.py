@@ -194,8 +194,13 @@ def test_config2_fingerprint_and_arena(envs, both_counters):
     assert placed + len(res.existing_assignments) + \
         len(res.unschedulable) == 2000
     assert set(solver.last_phase_stats) == {"group_ms", "encode_ms",
-                                            "kernel_ms", "decode_ms"}
+                                            "kernel_ms", "decode_ms",
+                                            "solve", "cache",
+                                            "patched_rows"}
+    assert solver.last_phase_stats["solve"] == "full"
+    assert solver.last_phase_stats["cache"] == "full"
     assert solver.last_dispatch_stats["device"] == "cpu"
+    assert solver.last_dispatch_stats["kernel"] == "ckpt"
 
 
 def test_slot_growth_matches_oracle(envs, both_counters):
@@ -246,6 +251,9 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for m in ('models.delta', 'solver.incremental', 'ops.ffd_cuda',\n"
+        "          'ops.hostpack', 'ops.ffd_torch', 'solver.cuda'):\n"
+        "    assert pkg.__name__ + '.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0].startswith('jax')\n"
         "       or m == 'karpenter_provider_aws_tpu'\n"
         "       or m.startswith('karpenter_provider_aws_tpu.')\n"
