@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's provisioning solve on one NVIDIA GPU and check it.
+"""Drive the port's provisioning solve and consolidation search on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py                    # on a machine with a CUDA card
     python3 chip_smoke.py --cpu-rehearsal    # plain versions, small, on CPU
@@ -20,7 +21,11 @@ Phases (any failure exits non-zero before the result line):
    priority section, exhausted slots, an all-zero R column); the K3 bank
    kernels, the checkpointed solve and every (jr, SUF, GL) suffix of
    G=8, CK=2 arenas with existing nodes and with minValues floors, and
-   of the 50,000-pod warm-cluster arena;
+   of the 50,000-pod warm-cluster arena; the K2 kernels on their lane
+   axis with one lane (config 2 and the warm arena) and with five; the
+   K7 kernels (``consol_absorb`` in its three modes, ``subset_gather``,
+   ``subset_summary``, whole subset rounds) on the synthetic hazard cases
+   of ``examples.absorb_case`` / ``subset_case``;
 4. the config-2 path: ``CUDASolver(incremental=False)`` solves config 2
    from scratch through ``Solver.solve`` (one warm-up, then timed rounds)
    with every launch counter set to 0 just before and read just after;
@@ -33,10 +38,21 @@ Phases (any failure exits non-zero before the result line):
    measured tick must be served by a suffix re-solve and fingerprint-
    equal a from-scratch ``CUDASolver(incremental=False)`` solve on the
    card; the first five and the last also the plain versions' solve;
-6. kernel times with CUDA events at the main paths' shapes, beside the
+6. the consolidation path, ``CUDAConsolidationEvaluator()`` on BASELINE
+   config 4 (``examples.config4``): (a) the whole-fleet round of
+   ``single_consolidation_device`` at 1,000 nodes (2,000 lanes), (b) the
+   prefix round of ``multi_consolidation`` over the first 100 candidates
+   (99 lanes), (c) ``single_consolidation_batched`` at 200 nodes, (d) the
+   same deletion checks as a heterogeneous batch (the dense path); each
+   a warm-up and timed rounds with every launch counter set to 0 just
+   before and read just after. Every lane's row or answer must equal the
+   plain versions' on the same CUDA tensors, every decision the plain
+   path's, and the batched branch's decision the whole-fleet walk's;
+7. kernel times with CUDA events at the main paths' shapes, beside the
    plain versions' times, the bound the shapes allow and, for the bank
    kernels, ``Tensor.copy_`` of the same bytes; the suffix solve's device
-   time beside the checkpointed full solve's on the warm arena.
+   time beside the checkpointed full solve's on the warm arena; the K2
+   kernels on the lane axis at the whole-fleet round's 2,048 lanes.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; a line before them holds the per-kernel
@@ -75,6 +91,23 @@ WARM_TICKS = 60
 WARM_CPU_CHECKS = (0, 1, 2, 3, 4, WARM_TICKS - 1)
 CK = 2
 
+#: consolidation (BASELINE config 4): whole-fleet round size, the
+#: multi-node prefix (a NodePool's default 10% disruption budget), the
+#: batched branch's cluster, timed rounds, and the plain check's lane chunk
+C4_FLEET = 1000
+C4_PREFIX = 100
+C4_BATCHED = 200
+C4_ROUNDS = 10
+C4_DENSE_ROUNDS = 3
+LANE_CHUNK = 256
+
+#: the kernels of the warm-tick path
+K3_PATH = ("unpack_bits", "ffd_slot_headroom", "ffd_group_commit",
+           "pack_outputs", "ffd_bank_store", "ffd_bank_load")
+
+K7_SRC = "karpenter_provider_aws_tpu_torch/csrc/consolidation.cu"
+K7_REF = "karpenter_provider_aws_tpu/ops/consolidation_jax.py"
+
 KERNELS = {
     "unpack_bits": dict(
         source="karpenter_provider_aws_tpu_torch/csrc/packed_io.cu",
@@ -94,6 +127,11 @@ KERNELS = {
     "ffd_bank_load": dict(
         source="karpenter_provider_aws_tpu_torch/csrc/ckpt.cu",
         replaces="karpenter_provider_aws_tpu/ops/ffd_jax.py:1296"),
+    "consol_absorb_deletions": dict(source=K7_SRC, replaces=f"{K7_REF}:43"),
+    "consol_absorb_prescreen": dict(source=K7_SRC, replaces=f"{K7_REF}:75"),
+    "consol_absorb_dense": dict(source=K7_SRC, replaces=f"{K7_REF}:142"),
+    "subset_gather": dict(source=K7_SRC, replaces=f"{K7_REF}:232"),
+    "subset_summary": dict(source=K7_SRC, replaces=f"{K7_REF}:253"),
 }
 
 
@@ -352,15 +390,401 @@ def warm_tick_phase(pods=WARM_PODS, device=None):
     if full:
         raise AssertionError(f"measured warm ticks served by a full solve: "
                              f"{full}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in K3_PATH if launches[k] <= 0]
     if missing and solver.device.type == "cuda":
         raise AssertionError(f"kernels never launched on the warm-tick "
                              f"path: {missing}")
     return launches, summary
 
 
+def check_lane_one(label, inp, st, cmp):
+    """The K2 kernels on their lane axis with ONE lane (every input
+    field and the carry per lane) against the same kernels without a
+    lane axis, over the whole scan: byte-identical."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    E, P, V, N = st["E"], st["P"], st["V"], st["E"] + st["n_max"]
+    lane_fields = ("avail_zc", "R", "n", "F", "agz", "agc", "admit",
+                   "daemon", "ex_alloc", "ex_compat")
+    one = fc.ScanState(inp, ft.carry0(inp, N, E), E=E, P=P, V=V)
+    lanes = fc.ScanState(
+        inp._replace(**{f: getattr(inp, f)[None] for f in lane_fields}),
+        ft.carry0(inp, N, E, lanes=1), E=E, P=P, V=V, lanes=1)
+    for g in range(st["G"]):
+        for state in (one, lanes):
+            fc.ffd_slot_headroom(state, g)
+            fc.ffd_group_commit(state, g)
+    for nm, a, b in zip(ft.Carry._fields, one.carry, lanes.carry):
+        cmp("ffd_group_commit", b[0], a, f"{label} lanes=1 {nm}")
+    cmp("ffd_group_commit", lanes.takes[0], one.takes, f"{label} lanes=1 "
+        "takes")
+    cmp("ffd_group_commit", lanes.leftover[0], one.leftover,
+        f"{label} lanes=1 leftover")
+
+
+def check_subset_lanes(label, arena, tprice, lanes, st, cmp, nlanes=None):
+    """One subset round piece by piece on the card against the plain
+    versions: subset_gather, the K2 kernels on the lane axis group by
+    group for the first ``nlanes`` lanes (default all), subset_summary,
+    and the whole round. ``arena`` is a KernelInputs and ``lanes`` a
+    dict of tensors, all on the card."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    E, P, N = st["E"], st["P"], st["E"] + st["n_max"]
+    t = lanes
+    g_k = cc.subset_gather(arena, t["gid"], t["n"], t["dead"], t["keep"])
+    g_p = ct._subset_gather_ref(arena, t["gid"], t["n"], t["dead"],
+                                t["keep"])
+    for f in ct.LANE_FIELDS:
+        cmp("subset_gather", getattr(g_k, f), getattr(g_p, f),
+            f"{label} {f}")
+    del g_p
+    B = nlanes or t["gid"].shape[0]
+    sub = g_k._replace(**{f: getattr(g_k, f)[:B].contiguous()
+                          for f in ct.LANE_FIELDS})
+    del g_k
+    state = fc.ScanState(sub, ft.carry0(sub, N, E, lanes=B), E=E, P=P,
+                         lanes=B)
+    carries = [ft.carry0(ct.lane_inputs(sub, b), N, E) for b in range(B)]
+    for g in range(sub.R.shape[1]):
+        fc.ffd_slot_headroom(state, g)
+        cands, ks = [], []
+        for b in range(B):
+            cand, k = ft._slot_headroom_ref(ct.lane_inputs(sub, b),
+                                            carries[b], g, E=E, P=P, V=0)
+            cands.append(cand)
+            ks.append(k)
+        cmp("ffd_slot_headroom", state.cand, torch.stack(cands),
+            f"{label} lanes g={g} cand")
+        cmp("ffd_slot_headroom", state.k, torch.stack(ks),
+            f"{label} lanes g={g} k")
+        del cands
+        fc.ffd_group_commit(state, g)
+        takes, lefts = [], []
+        for b in range(B):
+            carries[b], take, n_rem = ft._group_step_ref(
+                ct.lane_inputs(sub, b), carries[b], g, E=E, P=P, V=0)
+            takes.append(take.to(torch.int32))
+            lefts.append(n_rem)
+        for i, nm in enumerate(ft.Carry._fields):
+            cmp("ffd_group_commit", state.carry[i],
+                torch.stack([c[i] for c in carries]),
+                f"{label} lanes g={g} {nm}")
+        cmp("ffd_group_commit", state.takes[:, g], torch.stack(takes),
+            f"{label} lanes g={g} takes")
+        cmp("ffd_group_commit", state.leftover[:, g], torch.stack(lefts),
+            f"{label} lanes g={g} leftover")
+    del carries
+    keep, rp = t["keep"][:B].contiguous(), t["removed_price"][:B]
+    cmp("subset_summary",
+        cc.subset_summary(state.leftover, state.carry.num_nodes,
+                          state.carry.types, keep, tprice, rp, E),
+        ct._subset_summary_ref(state.leftover, state.carry.num_nodes,
+                               state.carry.types, keep, tprice, rp, E),
+        f"{label} summary")
+    del state, sub
+
+
+def check_k7_synthetic(cmp, dev):
+    """The K7 kernels on the seeded hazard cases of ``examples``: the
+    three consol_absorb modes (E=32 with the carry in shared memory,
+    E=4096 in the global scratch), and whole subset rounds piece by
+    piece. Returns the number of cases."""
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+
+    def cuda(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+    cases = 0
+    for hazard in examples.ABSORB_HAZARDS:
+        for seed, E in ((0, 32), (1, 32), (2, 4096)):
+            a = cuda(*examples.absorb_case(hazard, seed, E=E))
+            ps = cuda(*examples.prescreen_tables(seed))
+            dn = cuda(*examples.dense_case(hazard, seed, E=E))
+            what = f"{hazard} seed={seed} E={E}"
+            cmp("consol_absorb_deletions", ct.deletions_feasible(*a),
+                ct._deletions_feasible_ref(*a), what)
+            pa = (*a[:4], *ps[:5], *a[4:], ps[5])
+            cmp("consol_absorb_prescreen", ct.replacements_prescreen(*pa),
+                ct._replacements_prescreen_ref(*pa), what)
+            cmp("consol_absorb_dense", ct.deletions_feasible_dense(*dn),
+                ct._deletions_feasible_dense_ref(*dn), what)
+            cases += 1
+    for hazard in examples.SUBSET_HAZARDS:
+        for seed, kw in ((0, {}), (1, dict(T=812, Ep=64, B=32, Gq=4))):
+            arena, tprice, lanes, st = examples.subset_case(hazard, seed,
+                                                            **kw)
+            inp = ft.kernel_inputs_from_numpy(arena, dev)
+            tp = torch.from_numpy(tprice).to(dev)
+            t = {k: torch.from_numpy(v).to(dev) for k, v in lanes.items()}
+            what = f"subset {hazard} seed={seed}"
+            check_subset_lanes(what, inp, tp, t, st, cmp)
+            cmp("subset_summary",
+                ct.subset_solve(inp, tp, t["gid"], t["n"], t["dead"],
+                                t["keep"], t["removed_price"], **st),
+                ct._subset_solve_ref(inp, tp, t["gid"], t["n"], t["dead"],
+                                     t["keep"], t["removed_price"], **st),
+                f"{what} round")
+            cases += 1
+    return cases
+
+
 # ---------------------------------------------------------------------------
-# phase 6: timing and bounds
+# phase 6: consolidation
+# ---------------------------------------------------------------------------
+
+class Captured:
+    """Wraps an object's method (or a module function) and keeps the
+    arguments and result of its last call."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+        self.inner = getattr(owner, name)
+        self.last = None
+        setattr(owner, name, self)
+
+    def __call__(self, *a, **kw):
+        out = self.inner(*a, **kw)
+        self.last = (a, kw, out)
+        # the dispatch evidence before a later solve overwrites it
+        self.stats = dict(getattr(self.owner, "last_dispatch_stats", {}))
+        return out
+
+    def restore(self):
+        setattr(self.owner, self.name, self.inner)
+
+
+def drive(label, fn, rounds, split=None):
+    """Run ``fn`` once (warm-up) and ``rounds`` times timed, with every
+    launch counter set to 0 just before and read just after. Returns the
+    last result and a record: p50/p99 ms, the median split (``split()``
+    after each round), launches per round, device memory the rounds
+    allocated."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    on_card = torch.cuda.is_available()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+    fc.reset_launches()
+    got = fn()
+    times, splits = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        res = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if res != got:
+            raise AssertionError(f"{label}: decision moved between rounds: "
+                                 f"{res[:2]} vs {got[:2]}")
+        if split is not None:
+            splits.append(split())
+    launches = dict(fc.LAUNCHES)
+    rec = dict(p50_ms=statistics.median(times), p99_ms=pct(times, 0.99),
+               rounds=rounds,
+               launches_per_round={k: v / (rounds + 1)
+                                   for k, v in launches.items() if v},
+               launches=launches)
+    if splits:
+        rec["median_split_ms"] = {
+            k: statistics.median(s[k] for s in splits) for k in splits[0]
+            if k.endswith("_ms")}
+        rec["cache"] = splits[-1].get("cache")
+    if on_card:
+        rec["device_mb"] = (torch.cuda.max_memory_allocated() - m0) / 2**20
+    return got, rec
+
+
+def subset_rows_check(label, cap, cmp, dev):
+    """Every lane of the last captured subset round against the plain
+    versions on the same CUDA tensors (lanes in chunks). Returns the
+    plain rows (numpy)."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    (arrays,), kw, rows = cap.last
+    arena = ft.kernel_inputs_from_numpy(arrays, dev)
+    tp = torch.from_numpy(kw["tprice"]).to(dev)
+    t = {k: torch.from_numpy(kw[k]).to(dev)
+         for k in ("gid", "n", "dead", "keep", "removed_price")}
+    plain = ct._subset_solve_ref(arena, tp, t["gid"], t["n"], t["dead"],
+                                 t["keep"], t["removed_price"],
+                                 n_max=kw["n_max"], E=kw["E"], P=kw["P"],
+                                 chunk=LANE_CHUNK).cpu()
+    cmp("subset_summary", torch.from_numpy(rows), plain,
+        f"{label}: all {rows.shape[0]} lane rows")
+    return plain.numpy(), (arena, tp, t, kw)
+
+
+class RowsEvaluator:
+    """The plain path's evaluator for a decision check: verdicts from
+    the plain versions' rows, the simulate on ``solver``."""
+
+    def __init__(self, rows, solver):
+        from karpenter_provider_aws_tpu_torch.controllers.disruption import \
+            SubsetVerdict
+        self.solver = solver
+        self.verdicts = [SubsetVerdict(feasible=int(r[0]) == 0,
+                                       n_new=int(r[1]), flex=int(r[2]),
+                                       min_price=int(r[3]),
+                                       savings=int(r[4])) for r in rows]
+
+    def subset_solve(self, base, queries):
+        return self.verdicts[:len(queries)]
+
+
+def consolidation_phase(cmp=None, device=None, fleet=C4_FLEET,
+                        prefix=C4_PREFIX, batched=C4_BATCHED,
+                        rounds=C4_ROUNDS, dense_rounds=C4_DENSE_ROUNDS):
+    """Drive consolidation on ``device`` (default cuda; the rehearsal
+    passes cpu) through the evaluator's entry points; returns (launches
+    of the four runs summed, records, captures for the timings). With
+    ``cmp`` (on the card) every lane is held against the plain versions
+    on the same CUDA tensors and every decision against the plain
+    path's. Raises on any failed check."""
+    import copy
+
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    from karpenter_provider_aws_tpu_torch.solver.consolidation import \
+        CUDAConsolidationEvaluator
+    dev = torch.device(device or "cuda")
+    recs, caps, total = {}, {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) the whole-fleet round
+    fenv.reset_pod_counter()
+    t0 = time.perf_counter()
+    base, cands = examples.config4(fenv.Environment(), n_nodes=fleet)
+    queries = examples.consolidation_queries(cands)
+    log(f"[c4] config 4 at {fleet} nodes, "
+        f"{sum(len(c[1]) for c in cands)} pods, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    ev = CUDAConsolidationEvaluator(device=device)
+    sub = Captured(ev.solver, "dispatch_subsets")
+    got, rec = drive("fleet", lambda: examples.single_consolidation_device(
+        ev, base, cands, queries), rounds,
+        split=lambda: dict(ev.last_phase_stats))
+    rec["decision"] = got[:2]
+    rec["lanes"] = len(queries)
+    rec["padded_lanes"] = ev.last_phase_stats["padded_lanes"]
+    rec["subset_dispatch"] = sub.stats
+    add(rec.pop("launches"))
+    recs["fleet"] = rec
+    if got[0] == "fallback":
+        raise AssertionError("the whole-fleet round was not eligible")
+    if cmp is not None:
+        rows, caps["fleet"] = subset_rows_check("fleet", sub, cmp, dev)
+        arena, tp, t, kw = caps["fleet"]
+        st = dict(E=kw["E"], P=kw["P"], n_max=kw["n_max"])
+        if dev.type == "cuda":
+            check_subset_lanes("fleet", arena, tp, t, st, cmp)
+        plain = examples.single_consolidation_device(
+            RowsEvaluator(rows, CUDASolver(device=device,
+                                           incremental=False)),
+            base, cands, queries)
+        if plain != got:
+            raise AssertionError(f"fleet: decision {got[:2]} != plain path "
+                                 f"{plain[:2]}")
+    sub.restore()
+    log(f"[c4] (a) whole-fleet round: {json.dumps(rec)}")
+
+    # (b) the multi-node prefix round over the first `prefix` candidates
+    pre = cands[:prefix]
+    pq = examples.prefix_queries(pre)
+    ev_m = CUDAConsolidationEvaluator(device=device)
+    sub = Captured(ev_m.solver, "dispatch_subsets")
+    got, rec = drive("prefix", lambda: examples.multi_consolidation(
+        ev_m, ev_m.solver, base, pre, pq), rounds,
+        split=lambda: dict(ev_m.last_phase_stats))
+    rec["decision"] = [got[0], len(got[1])]
+    rec["lanes"] = len(pq)
+    rec["subset_dispatch"] = sub.stats
+    add(rec.pop("launches"))
+    recs["prefix"] = rec
+    if cmp is not None:
+        rows, _ = subset_rows_check("prefix", sub, cmp, dev)
+        plain = examples.multi_consolidation(
+            RowsEvaluator(rows, None),
+            CUDASolver(device=device, incremental=False), base, pre, pq)
+        if plain != got:
+            raise AssertionError(f"prefix: decision {got[:2]} != plain path "
+                                 f"{plain[:2]}")
+    sub.restore()
+    log(f"[c4] (b) prefix round: {json.dumps(rec)}")
+
+    # (c) the batched branch without subset lanes, config 4 as published
+    fenv.reset_pod_counter()
+    base_c, cands_c = examples.config4(fenv.Environment(), n_nodes=batched)
+    ev_c = CUDAConsolidationEvaluator(device=device)
+    solver_c = CUDASolver(device=device)
+    dl = Captured(ct, "deletions_feasible")
+    rp = Captured(ct, "replacements_prescreen")
+    got, rec = drive("batched", lambda: examples.single_consolidation_batched(
+        ev_c, solver_c, base_c, cands_c), rounds)
+    rec["decision"] = got[:2]
+    add(rec.pop("launches"))
+    recs["batched"] = rec
+    dl.restore()
+    rp.restore()
+    caps["deletions"], caps["prescreen"] = dl.last, rp.last
+    if cmp is not None:
+        for name, cap, ref in (
+                ("consol_absorb_deletions", dl, ct._deletions_feasible_ref),
+                ("consol_absorb_prescreen", rp,
+                 ct._replacements_prescreen_ref)):
+            a, kw, out = cap.last
+            cmp(name, out, ref(*a, **kw), f"batched: all {len(out)} lanes")
+        # the plain path's answers equal the kernels' (just checked), so
+        # its walk is this one; hold it against the whole-fleet walk too
+        dev_walk = examples.single_consolidation_device(
+            CUDAConsolidationEvaluator(device=device), base_c, cands_c)
+        if dev_walk != got:
+            raise AssertionError("batched: decision differs from the "
+                                 "whole-fleet walk's")
+    log(f"[c4] (c) batched branch at {batched} nodes: {json.dumps(rec)}")
+
+    # (d) the same deletion checks as a heterogeneous batch: every
+    # snapshot holds its own copies of the nodes (the dense path)
+    snaps = [examples.deletion_snapshot(base_c, c) for c in cands_c]
+    for s_ in snaps:
+        s_.existing_nodes = [copy.copy(n) for n in s_.existing_nodes]
+    shared = ev_c.deletions_feasible(
+        [examples.deletion_snapshot(base_c, c) for c in cands_c])
+    dn = Captured(ct, "deletions_feasible_dense")
+    got, rec = drive("dense", lambda: ev_c.deletions_feasible(snaps),
+                     dense_rounds)
+    dn.restore()
+    caps["dense"] = dn.last
+    if got != shared:
+        raise AssertionError("dense: answers differ from the shared path's")
+    rec["feasible"] = sum(got)
+    rec["lanes"] = len(got)
+    add(rec.pop("launches"))
+    recs["dense"] = rec
+    if cmp is not None:
+        a, kw, out = dn.last
+        cmp("consol_absorb_dense", out,
+            ct._deletions_feasible_dense_ref(*a, **kw),
+            f"dense: all {len(out)} lanes")
+    log(f"[c4] (d) heterogeneous deletion batch: {json.dumps(rec)}")
+    return total, recs, caps
+
+
+# ---------------------------------------------------------------------------
+# phase 7: timing and bounds
 # ---------------------------------------------------------------------------
 
 def time_launches(fn, reps=50, setup=None):
@@ -524,6 +948,144 @@ def bank_times(d_buf, st, launches):
     return out
 
 
+def _absorb_cost(kw, dense=False):
+    """(bytes, ops) of one consol_absorb call from its inputs: each input
+    read once, the answers written; one 64-bit quotient per (live group,
+    compatible node, dim with R > 0) plus the prefix and the fill per
+    (live group, node)."""
+    n = kw["n"]
+    B, G = n.shape
+    if dense:
+        _, E, D = kw["ex_alloc"].shape
+        npos = (kw["R"] > 0).sum(-1)
+        ncomp = kw["ex_compat"].sum(-1)
+        nbytes = (16 * B * E * D + kw["ex_compat"].numel()
+                  + 8 * kw["R"].numel() + 8 * B * G + B)
+    else:
+        E, D = kw["ex_alloc"].shape
+        npos = (kw["R_tab"][kw["gid"].long()] > 0).sum(-1)
+        ncomp = (kw["compat_tab"][kw["cid"].long()]
+                 & kw["alive"][:, None, :]).sum(-1)
+        nbytes = (16 * E * D + kw["compat_tab"].numel()
+                  + 8 * kw["R_tab"].numel() + 16 * B * G + B * E + B)
+    ops = int(((ncomp * npos + 3 * E) * (n > 0)).sum())
+    if "type_alloc" in kw:
+        T, P = kw["type_alloc"].shape[0], kw["padmit"].shape[0]
+        nbytes += (8 * kw["type_alloc"].numel() + 8 * T
+                   + kw["tcompat"].numel() + kw["padmit"].numel()
+                   + kw["pool_types"].numel() + 8 * B)
+        ops += B * T * (G + P + D)
+    return nbytes, ops
+
+
+def k7_times(caps, launches):
+    """The K7 kernels at the consolidation phase's shapes (the captured
+    inputs of its last rounds), beside the plain versions, and the K2
+    kernels on their lane axis at the whole-fleet round's lanes. Returns
+    (records for the kernels line, lane-axis record)."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    recs = []
+
+    def record(name, ms, pms, nbytes, ops):
+        b, by = bound_ms(nbytes, ops)
+        recs.append(dict(name=name, route="cuda", **KERNELS[name],
+                         launches=launches.get(name, 0), ms=ms, plain_ms=pms,
+                         bound_ms=b, bound_by=by, library_ms=None,
+                         bytes=nbytes, ops=ops))
+
+    for name, key, fn, ref, dense in (
+            ("consol_absorb_deletions", "deletions", ct.deletions_feasible,
+             ct._deletions_feasible_ref, False),
+            ("consol_absorb_prescreen", "prescreen",
+             ct.replacements_prescreen, ct._replacements_prescreen_ref,
+             False),
+            ("consol_absorb_dense", "dense", ct.deletions_feasible_dense,
+             ct._deletions_feasible_dense_ref, True)):
+        kw = caps[key][1]
+        record(name, time_launches(lambda: fn(**kw)),
+               time_launches(lambda: ref(**kw), reps=5),
+               *_absorb_cost(kw, dense))
+
+    arena, tp, t, kw = caps["fleet"]
+    E, P, N = kw["E"], kw["P"], kw["E"] + kw["n_max"]
+    B, Gq = t["gid"].shape
+    T, D = arena.A.shape
+    Gu = arena.R.shape[0]
+    Z, C = arena.agz.shape[1], arena.agc.shape[1]
+    row = 8 * D + T + Z + C + P + 8 * P * D + E   # one group's lane fields
+    gather_in = (T * Z * C + Gu * row + 16 * E * D
+                 + 4 * B * Gq + B * E + B * T)
+    gather_out = B * (T * Z * C + Gq * row + 16 * E * D)
+    record("subset_gather",
+           time_launches(lambda: cc.subset_gather(
+               arena, t["gid"], t["n"], t["dead"], t["keep"]), reps=20),
+           time_launches(lambda: ct._subset_gather_ref(
+               arena, t["gid"], t["n"], t["dead"], t["keep"]), reps=3),
+           gather_in + gather_out, 0)
+
+    # the K2 kernels on the lane axis at group 0 of the round
+    lanes = cc.subset_gather(arena, t["gid"], t["n"], t["dead"], t["keep"])
+    st = fc.ScanState(lanes, ft.carry0(lanes, N, E, lanes=B), E=E, P=P,
+                      lanes=B)
+    c0 = ft.Carry(*[x.clone() for x in st.carry])
+    fc.ffd_slot_headroom(st, 0)
+    cand0, k0 = st.cand.clone(), st.k.clone()
+    hr_ms = time_launches(lambda: fc.ffd_slot_headroom(st, 0), reps=20)
+
+    def restore():
+        for dst, src in zip(st.carry, c0):
+            dst.copy_(src)
+        st.cand.copy_(cand0)
+        st.k.copy_(k0)
+    cm_ms = time_launches(lambda: fc.ffd_group_commit(st, 0), reps=20,
+                          setup=restore)
+    nl = 32                       # plain: 32 lanes timed, scaled to B
+    sub = [ct.lane_inputs(lanes, b) for b in range(nl)]
+    subc = [ft.Carry(*[x[b] for x in c0]) for b in range(nl)]
+    p_hr = time_launches(lambda: [ft._slot_headroom_ref(
+        sub[b], subc[b], 0, E=E, P=P, V=0) for b in range(nl)], reps=2)
+    p_cm = time_launches(lambda: [ft._group_step_ref(
+        sub[b], subc[b], 0, E=E, P=P, V=0) for b in range(nl)], reps=2)
+    ZC = Z * C
+    hr_bytes = T * D * 8 + B * (N * T + T + T * ZC + N * D * 8
+                                + N * (Z + C + 4) + P + D * 8 + N * T + N * 8)
+    n_cand = int(cand0.sum())
+    hr_ops = n_cand * D + B * N * T * ZC
+    touched = int((st.k > 0).sum())
+    cm_bytes = T * D * 8 + B * (N * 8 + N * 4 + 2 * N * D * 8 + T * (2 + ZC)
+                                + P * D * 8 + D * 8 + N * 4 + 8) \
+        + touched * (2 * T + Z + C)
+    cm_ops = touched * T * D + B * (P * T * (D + ZC) + 4 * N)
+    lane = dict(lanes=B, groups=Gq, N=N, T=T,
+                ffd_slot_headroom=dict(ms=hr_ms, plain_ms=p_hr * B / nl,
+                                       bound_ms=bound_ms(hr_bytes, hr_ops)),
+                ffd_group_commit=dict(ms=cm_ms, plain_ms=p_cm * B / nl,
+                                      bound_ms=bound_ms(cm_bytes, cm_ops)))
+    del sub, subc
+
+    # the summary on the scanned lanes
+    restore()
+    fc.ffd_group_commit(st, 0)
+    del c0, cand0, k0
+    for g in range(1, Gq):
+        fc.ffd_slot_headroom(st, g)
+        fc.ffd_group_commit(st, g)
+    args = (st.leftover, st.carry.num_nodes, st.carry.types, t["keep"], tp,
+            t["removed_price"], E)
+    record("subset_summary",
+           time_launches(lambda: cc.subset_summary(*args)),
+           time_launches(lambda: ct._subset_summary_ref(*args), reps=10),
+           8 * B * Gq + 4 * B + 2 * B * T + 8 * T + 8 * B + 40 * B,
+           2 * B * T)
+    del st, lanes
+    torch.cuda.empty_cache()
+    return recs, lane
+
+
 def solve_device_ms(fn, reps=20):
     """Mean device ms of one whole solve call: a sleep kernel ahead of
     each call lets the host enqueue all of its launches before the start
@@ -568,7 +1130,7 @@ def warm_solve_times(d_buf, st, gl):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-5 with the plain versions at a "
+                    help="run phases 3-6 with the plain versions at a "
                          "small size on the CPU (never the default)")
     args = ap.parse_args()
 
@@ -670,11 +1232,18 @@ def main() -> int:
         f"{bufw.size} words")
     k3_runs += check_k3("warm50k", bufw, stw, cmp, dev,
                         gls=(glw, stw["G"]))
+    # the K2 lane axis with one lane on the main paths' arenas, then K7
+    check_lane_one("config2", c2[0], st2, cmp)
+    check_lane_one("warm50k", ft._packed_inputs_ref(
+        torch.from_numpy(bufw).to(dev), stw["T"], stw["D"], stw["Z"],
+        stw["C"], stw["G"], stw["E"], stw["P"], stw["K"], stw["M"],
+        stw["Q"]), stw, cmp)
+    k7_cases = check_k7_synthetic(cmp, dev)
     torch.cuda.synchronize()
     log(f"[compare] tolerance exact (integer math; any differing word "
         f"fails): {cmp.checks} checks over "
-        f"{len(cases)} K1/K2 arenas and {k3_runs} K3 suffix runs, "
-        f"max_abs_err {cmp.err}")
+        f"{len(cases)} K1/K2 arenas, {k3_runs} K3 suffix runs, 2 one-lane "
+        f"K2 scans and {k7_cases} K7 cases, max_abs_err {cmp.err}")
 
     # ---- phase 4: the config-2 path -----------------------------------------
     solver = CUDASolver(incremental=False)
@@ -692,8 +1261,9 @@ def main() -> int:
     log(f"[main] launches in the config-2 run ({ROUNDS + 1} solves): "
         f"{launches_c2}; per solve: "
         f"{solver.last_dispatch_stats['launches']}")
-    missing = [k for k, v in launches_c2.items()
-               if v <= 0 and k not in ("ffd_bank_store", "ffd_bank_load")]
+    missing = [k for k in ("unpack_bits", "ffd_slot_headroom",
+                           "ffd_group_commit", "pack_outputs")
+               if launches_c2[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the config-2 "
                              f"path: {missing}")
@@ -718,9 +1288,31 @@ def main() -> int:
 
     # ---- phase 5: the warm-tick path ----------------------------------------
     launches_w, warm = warm_tick_phase()
-    launches = {k: launches_c2[k] + launches_w[k] for k in launches_c2}
 
-    # ---- phase 6: kernel times ---------------------------------------------
+    # ---- phase 6: the consolidation path -------------------------------------
+    launches_k7, c4, caps = consolidation_phase(cmp)
+    missing = [k for k in ("consol_absorb_deletions",
+                           "consol_absorb_prescreen", "consol_absorb_dense",
+                           "subset_gather", "subset_summary",
+                           "ffd_slot_headroom", "ffd_group_commit")
+               if launches_k7.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the consolidation "
+                             f"path: {missing}")
+    per_round = c4["fleet"]["launches_per_round"]
+    gq = c4["fleet"]["subset_dispatch"]["groups"]
+    if (per_round.get("subset_gather"), per_round.get("subset_summary"),
+            c4["fleet"]["subset_dispatch"]["launches"]["ffd_group_commit"]) \
+            != (1, 1, gq):
+        raise AssertionError(f"subset round launches {per_round} are not "
+                             f"1 gather + 2*{gq} + 1 summary")
+    torch.cuda.synchronize()
+    log(f"[compare] after the consolidation phase: {cmp.checks} checks, "
+        f"max_abs_err {cmp.err}")
+    launches = {k: launches_c2[k] + launches_w[k] + launches_k7.get(k, 0)
+                for k in launches_c2}
+
+    # ---- phase 7: kernel times ---------------------------------------------
     inp, final, tk, lf = c2
     T, D, Z, C, G, E, P = (st2[k] for k in "T D Z C G E P".split())
     n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, 0, 0, 1,
@@ -737,6 +1329,8 @@ def main() -> int:
                         launches)
     d_bufw = torch.from_numpy(bufw).to(dev)
     recs += bank_times(d_bufw, stw, launches)
+    k7_recs, lane = k7_times(caps, launches)
+    recs += k7_recs
     for r in recs:
         r["max_abs_err"] = cmp.err[r["name"]]
         lib = "none" if r["library_ms"] is None else \
@@ -744,11 +1338,13 @@ def main() -> int:
         log(f"[time] {r['name']}: {r['ms'] * 1e3:.2f} us/launch, "
             f"{r['launches']} launches in the main-path runs (config 2: "
             f"{launches_c2[r['name']]}, warm tick: "
-            f"{launches_w[r['name']]}, per warm tick "
-            f"{warm['launches_per_tick'][r['name']]:.2f}), bound "
+            f"{launches_w[r['name']]}, consolidation: "
+            f"{launches_k7.get(r['name'], 0)}), bound "
             f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}, "
             f"{r['bytes']:.0f} B, {r['ops']:.0f} ops), plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib}")
+    log(f"[time] K2 on the lane axis at the whole-fleet round: "
+        f"{json.dumps(lane)}")
     sol = warm_solve_times(d_bufw, stw, glw)
     log(f"[time] warm arena (n_max 16) solve device ms: "
         f"{json.dumps(sol)}")
@@ -765,7 +1361,7 @@ def main() -> int:
 
 
 def rehearsal(n_pods: int, rounds: int) -> int:
-    """Phases 3-5 with the plain versions on the CPU, at a small size."""
+    """Phases 3-6 with the plain versions on the CPU, at a small size."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.fake import environment as fenv
@@ -792,6 +1388,10 @@ def rehearsal(n_pods: int, rounds: int) -> int:
     log(f"[rehearsal] {n_pods} pods: {res.summary()}; "
         f"{solver.last_phase_stats}")
     warm_tick_phase(pods=n_pods, device="cpu")
+    cmp = Compare()
+    consolidation_phase(cmp, device="cpu", fleet=24, prefix=6, batched=24,
+                        rounds=2, dense_rounds=1)
+    log(f"[rehearsal] consolidation checks {cmp.checks}")
     log(json.dumps({"ok": True, "device": {"platform": "cpu",
                                            "kind": "cpu", "count": 1}}))
     return 0

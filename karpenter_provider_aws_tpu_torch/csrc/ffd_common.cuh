@@ -1,6 +1,6 @@
 // Shared definitions of the FFD group-scan kernels (ffd_scan.cu), the
-// packed-arena kernels (packed_io.cu) and the checkpoint-bank kernels
-// (ckpt.cu).
+// packed-arena kernels (packed_io.cu), the checkpoint-bank kernels
+// (ckpt.cu) and the consolidation kernels (consolidation.cu).
 //
 // Integer rules, carried over from the reference kernel
 // (karpenter_provider_aws_tpu/ops/ffd_jax.py): every resource, headroom,
@@ -19,8 +19,18 @@ typedef unsigned char u8;
 
 #define KARP_BIG (1LL << 60)
 
-// Pointers and statics of one solve. Every field is 8 bytes wide, so the
-// ctypes mirror in ops/ffd_cuda.py (_FfdArgs) has no padding to agree on.
+// Number of pointer fields at the head of FfdArgs (A .. leftover).
+#define KARP_FFD_PTRS 32
+
+// Pointers and statics of one solve, or of L independent solves (lanes).
+// Every field is 8 bytes wide, so the ctypes mirror in ops/ffd_cuda.py
+// (_FfdArgs) has no padding to agree on.
+//
+// The lane axis: lane l of pointer field i starts lane_bytes[i] * l bytes
+// past the field's pointer; a stride of 0 means the lanes share the field
+// (the catalog and pool tables of a consolidation subset round). With
+// L == 1 and every stride 0 the kernels read exactly what they read
+// without a lane axis.
 struct FfdArgs {
     // catalog
     const i64* A;           // [T, D]
@@ -64,7 +74,21 @@ struct FfdArgs {
     i64* leftover;          // [rows]
     // statics; G0 is the window's first group (row 0 of takes/leftover)
     i64 T, D, Z, C, G, E, P, N, K, M, V, G0;
+    // lanes, and the byte stride between lanes of each pointer field
+    i64 L;
+    i64 lane_bytes[KARP_FFD_PTRS];
 };
+
+// The arguments of lane `lane`: every pointer moved by its lane stride.
+// The pointers are the struct's first KARP_FFD_PTRS members, all 8 bytes.
+__device__ __forceinline__ FfdArgs lane_view(const FfdArgs& a, i64 lane) {
+    FfdArgs v = a;
+    unsigned char** p = reinterpret_cast<unsigned char**>(&v);
+#pragma unroll
+    for (int i = 0; i < KARP_FFD_PTRS; ++i)
+        if (p[i]) p[i] += lane * a.lane_bytes[i];
+    return v;
+}
 
 __device__ __forceinline__ i64 wadd(i64 a, i64 b) {
     return (i64)((u64)a + (u64)b);
@@ -168,4 +192,36 @@ __device__ __forceinline__ i64 mv_cap_from(const i64* f, const i64* sel,
         if (c < cap) cap = c;
     }
     return cap < 0 ? 0 : cap;
+}
+
+// Block-wide exclusive scan with wrapping 64-bit adds. `local` is this
+// thread's chunk total; returns the sum of the chunks before it and
+// writes the block total to *total. Needs 33 shared entries in `tmp`.
+__device__ __forceinline__ i64 block_excl_scan(i64 local, i64* tmp,
+                                               i64* total) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = (blockDim.x + 31) >> 5;
+    u64 incl = (u64)local;
+    for (int off = 1; off < 32; off <<= 1) {
+        u64 o = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += o;
+    }
+    __syncthreads();
+    if (lane == 31) tmp[warp] = (i64)incl;
+    __syncthreads();
+    if (warp == 0) {
+        u64 w = lane < nwarps ? (u64)tmp[lane] : 0;
+        u64 wi = w;
+        for (int off = 1; off < 32; off <<= 1) {
+            u64 o = __shfl_up_sync(0xffffffffu, wi, off);
+            if (lane >= off) wi += o;
+        }
+        if (lane < nwarps) tmp[lane] = (i64)(wi - w);   // exclusive
+        if (lane == 31) tmp[32] = (i64)wi;
+    }
+    __syncthreads();
+    i64 before = (i64)((u64)tmp[warp] + incl - (u64)local);
+    *total = tmp[32];
+    __syncthreads();
+    return before;
 }

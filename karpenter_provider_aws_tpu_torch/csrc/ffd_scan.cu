@@ -7,6 +7,13 @@
 // memory for the whole scan; the host enqueues 2*G launches on one stream
 // with no synchronisation in between.
 //
+// The lane axis (FfdArgs.L, lane_bytes; ffd_common.cuh): L independent
+// solves of one shape in each launch, lane on a grid axis (y of the
+// headroom grid, x of the commit grid). The kernel bodies read the lane's
+// own view of the arguments and are otherwise those of a single solve; a
+// consolidation subset round (consolidation.cu) runs its B lanes this
+// way, 2*G launches whatever B is.
+//
 // ffd_slot_headroom (steps 1-3): one block per slot row. The block's
 //   threads stride over the T instance types, compute the candidate mask
 //   (a boolean any-reduction over zone x capacity-type offerings, never an
@@ -23,10 +30,11 @@
 //   (PERF.md has the times). The design keeps every slot row in one
 //   block so the k[s] max needs no second pass.
 //
-// ffd_group_commit (steps 4-7): one block of 1024 threads. Pool-limit caps
-//   and the greedy fill use block-wide exclusive scans over the N slots
-//   (each thread owns a contiguous chunk; wrapping 64-bit sums); then the
-//   narrowing of filled slots over N x T, the per-pool accounting, and the
+// ffd_group_commit (steps 4-7): one block of 1024 threads per lane.
+//   Pool-limit caps and the greedy fill use block-wide exclusive scans
+//   over the N slots (each thread owns a contiguous chunk; wrapping
+//   64-bit sums); then the narrowing of filled slots over N x T, the
+//   per-pool accounting, and the
 //   new-node phase pool by pool (block max over T, q, slot writes). It
 //   writes takes[g - G0, :] as int32 and leftover[g - G0] (G0 is the
 //   first group of the scanned window: 0 for a full scan, the resume
@@ -65,9 +73,10 @@ __device__ __forceinline__ bool offering_ok(const FfdArgs& a, i64 g, i64 s,
 }
 
 __global__ void __launch_bounds__(kHeadroomThreads)
-ffd_slot_headroom_kernel(FfdArgs a, i64 g) {
+ffd_slot_headroom_kernel(FfdArgs args, i64 g) {
     extern __shared__ i64 dyn[];   // h1 [K*V], sel [K]
     __shared__ i64 red[33];
+    const FfdArgs a = lane_view(args, blockIdx.y);
     const i64 s = blockIdx.x;
     const i64 T = a.T, D = a.D, P = a.P, K = a.K, V = a.V, M = a.M;
     const i64* R = a.R + g * D;
@@ -121,41 +130,10 @@ ffd_slot_headroom_kernel(FfdArgs a, i64 g) {
     if (threadIdx.x == 0) a.k[s] = k;
 }
 
-// Block-wide exclusive scan with wrapping 64-bit adds. `local` is this
-// thread's chunk total; returns the sum of the chunks before it and
-// writes the block total to *total. Needs 33 shared entries in `tmp`.
-__device__ __forceinline__ i64 block_excl_scan(i64 local, i64* tmp,
-                                               i64* total) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nwarps = (blockDim.x + 31) >> 5;
-    u64 incl = (u64)local;
-    for (int off = 1; off < 32; off <<= 1) {
-        u64 o = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += o;
-    }
-    __syncthreads();
-    if (lane == 31) tmp[warp] = (i64)incl;
-    __syncthreads();
-    if (warp == 0) {
-        u64 w = lane < nwarps ? (u64)tmp[lane] : 0;
-        u64 wi = w;
-        for (int off = 1; off < 32; off <<= 1) {
-            u64 o = __shfl_up_sync(0xffffffffu, wi, off);
-            if (lane >= off) wi += o;
-        }
-        if (lane < nwarps) tmp[lane] = (i64)(wi - w);   // exclusive
-        if (lane == 31) tmp[32] = (i64)wi;
-    }
-    __syncthreads();
-    i64 before = (i64)((u64)tmp[warp] + incl - (u64)local);
-    *total = tmp[32];
-    __syncthreads();
-    return before;
-}
-
 __global__ void __launch_bounds__(kCommitThreads)
-ffd_group_commit_kernel(FfdArgs a, i64 g) {
+ffd_group_commit_kernel(FfdArgs args, i64 g) {
     extern __shared__ i64 dyn[];   // take_by_pool [P], h1 [K*V], sel [K]
+    const FfdArgs a = lane_view(args, blockIdx.x);
     __shared__ i64 tmp[33];
     __shared__ i64 sc[8];          // broadcast scalars of the new-node phase
     const i64 N = a.N, T = a.T, D = a.D, Z = a.Z, C = a.C, P = a.P;
@@ -361,7 +339,8 @@ int karp_ffd_slot_headroom(const FfdArgs* a, long long g, void* stream) {
     size_t smem = (size_t)(a->K * a->V + a->K) * sizeof(i64);
     int err = set_smem((const void*)ffd_slot_headroom_kernel, smem);
     if (err) return err;
-    ffd_slot_headroom_kernel<<<(unsigned)a->N, kHeadroomThreads, smem,
+    dim3 grid((unsigned)a->N, (unsigned)a->L);
+    ffd_slot_headroom_kernel<<<grid, kHeadroomThreads, smem,
                                (cudaStream_t)stream>>>(*a, g);
     return (int)cudaGetLastError();
 }
@@ -370,7 +349,7 @@ int karp_ffd_group_commit(const FfdArgs* a, long long g, void* stream) {
     size_t smem = (size_t)(a->P + a->K * a->V + a->K) * sizeof(i64);
     int err = set_smem((const void*)ffd_group_commit_kernel, smem);
     if (err) return err;
-    ffd_group_commit_kernel<<<1, kCommitThreads, smem,
+    ffd_group_commit_kernel<<<(unsigned)a->L, kCommitThreads, smem,
                               (cudaStream_t)stream>>>(*a, g);
     return (int)cudaGetLastError();
 }

@@ -9,8 +9,9 @@ back to the CPU on its own.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -36,3 +37,27 @@ def describe() -> dict:
         raise RuntimeError("torch.cuda.is_available() is False")
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
+
+
+def upload(arrays: Dict[str, np.ndarray],
+           device: torch.device) -> Dict[str, torch.Tensor]:
+    """numpy arrays as tensors on ``device``. On CUDA they cross in ONE
+    host-to-device copy: packed into one byte buffer (each array at an
+    8-byte-aligned offset), copied, and viewed back by dtype and shape."""
+    arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+    if device.type != "cuda":
+        return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    offs, total = {}, 0
+    for k, v in arrays.items():
+        offs[k] = total
+        total += (v.nbytes + 7) // 8 * 8
+    host = np.zeros(max(total, 8), dtype=np.uint8)
+    for k, v in arrays.items():
+        host[offs[k]:offs[k] + v.nbytes] = v.reshape(-1).view(np.uint8)
+    dev = torch.from_numpy(host).to(device)
+    out = {}
+    for k, v in arrays.items():
+        dt = torch.from_numpy(v[:0].reshape(-1)).dtype
+        seg = dev[offs[k]:offs[k] + v.nbytes]
+        out[k] = seg.view(dt).reshape(v.shape)
+    return out

@@ -1,5 +1,5 @@
-"""Synthetic kernel inputs for parity checks of the packed scan, and the
-warm-tick cluster.
+"""Synthetic kernel inputs for parity checks of the packed scan, the
+warm-tick cluster, and consolidation's config 4 with its decision walks.
 
 ``example_arrays`` is a copy of the reference repository's
 ``__graft_entry__._example_arrays`` (numpy only, seeded); ``example_case``
@@ -8,7 +8,14 @@ turns its output into one of the named arena cases the tests and
 as an argument, so a test can feed the reference's own builder and check
 that both packages see the same arrays. ``warm_cluster`` is a copy of the
 reference's ``bench.build_warm_cluster``: the steady-state cluster the
-incremental solve is measured on.
+incremental solve is measured on. ``config4`` is a copy of the
+reference's ``bench.build_config4``, and ``deletion_snapshot``,
+``replacement_snapshot``, ``single_consolidation_device``,
+``single_consolidation_batched`` and ``multi_consolidation`` copy the
+disruption controller's consolidation walks (the reference's
+``controllers/disruption.py`` ``_single_consolidation`` and
+``_multi_consolidation``, as ``bench.py`` drives them) over a base
+snapshot and a candidate list, without budgets.
 """
 
 from __future__ import annotations
@@ -121,6 +128,145 @@ def example_case(name: str, base: Callable = example_arrays, G: int = 8,
     statics = dict(T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, K=K, M=M,
                    V=st.get("V", 0), Q=Q, n_max=st["n_max"])
     return arrays, statics
+
+
+# ---------------------------------------------------------------------------
+# synthetic consolidation (K7) inputs: the parity cases of the four kernels
+# ---------------------------------------------------------------------------
+
+#: absorption-scan hazards: an all-zero request row (k = BIG on every
+#: compatible node, so the exclusive prefix wraps int64), over-committed
+#: nodes (negative floor quotients), dead nodes, padded lanes and groups,
+#: and counts far past what the nodes hold
+ABSORB_HAZARDS = ("plain", "zero_r_row", "overcommitted", "dead_nodes",
+                  "padded_lanes", "wide_n")
+#: subset-lane hazards: the above where they apply, lanes that keep no
+#: type (price cap 0), and lanes that need more than the two subset slots
+SUBSET_HAZARDS = ("plain", "zero_r_row", "overcommitted", "dead_nodes",
+                  "padded_lanes", "no_keep", "three_nodes")
+_BIG = 1 << 60
+
+
+def absorb_case(hazard: str, seed: int, B: int = 16, E: int = 32,
+                G: int = 4, D: int = 8, S: int = 8, Sc: int = 4):
+    """Shared-table inputs of the deletion check and the pre-screen:
+    (ex_alloc, ex_used0, compat_tab, R_tab, gid, cid, n, alive)."""
+    rng = np.random.RandomState(seed)
+    ex_alloc = rng.randint(1 << 10, 1 << 14, (E, D)).astype(np.int64)
+    ex_used = (ex_alloc * rng.uniform(0, 0.9, (E, D))).astype(np.int64)
+    compat = rng.rand(Sc, E) < 0.8
+    R = rng.randint(1, 1 << 9, (S, D)).astype(np.int64)
+    R[:, rng.rand(D) < 0.4] = 0
+    gid = rng.randint(0, S, (B, G)).astype(np.int32)
+    cid = rng.randint(0, Sc, (B, G)).astype(np.int32)
+    n = rng.randint(0, 40, (B, G)).astype(np.int64)
+    alive = rng.rand(B, E) < 0.9
+    if hazard == "zero_r_row":
+        R[0] = 0
+        gid[::2, 0] = 0
+        compat[:] = True
+    elif hazard == "overcommitted":
+        ex_used[::3] = ex_alloc[::3] + rng.randint(1, 1 << 8, (E, D))[::3]
+    elif hazard == "dead_nodes":
+        alive[:, ::2] = False
+        alive[3 % B] = False
+    elif hazard == "padded_lanes":
+        n[B // 2:] = 0               # padded lanes: gid 0, n 0, all dead
+        gid[B // 2:] = 0
+        cid[B // 2:] = 0
+        alive[B // 2:] = False
+        n[:, G // 2:] = 0            # padded groups inside live lanes
+    elif hazard == "wide_n":
+        n *= 50
+    return ex_alloc, ex_used, compat, R, gid, cid, n, alive
+
+
+def prescreen_tables(seed: int, B: int = 16, T: int = 48, P: int = 2,
+                     Sc: int = 4, D: int = 8):
+    """The pre-screen's catalog inputs: (type_alloc, type_price, tcompat,
+    padmit, pool_types, price_cap)."""
+    rng = np.random.RandomState(seed + 1000)
+    type_alloc = rng.randint(1 << 9, 1 << 15, (T, D)).astype(np.int64)
+    type_price = rng.randint(1, 1 << 20, T).astype(np.int64)
+    type_price[rng.rand(T) < 0.1] = _BIG          # no available offering
+    tcompat = rng.rand(Sc, T) < 0.7
+    padmit = rng.rand(P, Sc) < 0.7
+    pool_types = rng.rand(P, T) < 0.6
+    price_cap = rng.choice([0, 1 << 18, 1 << 19, _BIG], B).astype(np.int64)
+    return type_alloc, type_price, tcompat, padmit, pool_types, price_cap
+
+
+def dense_case(hazard: str, seed: int, **kw):
+    """Per-lane tables (ex_alloc, ex_used0, ex_compat, R, n) gathered
+    from the shared case (dead rows masked), some lanes' capacities
+    moved, so every hazard carries over."""
+    ex_alloc, ex_used, compat, R, gid, cid, n, alive = \
+        absorb_case(hazard, seed, **kw)
+    B, E = alive.shape
+    rng = np.random.RandomState(seed + 7)
+    a = np.broadcast_to(ex_alloc, (B,) + ex_alloc.shape).copy()
+    u = np.broadcast_to(ex_used, (B,) + ex_used.shape).copy()
+    a[rng.rand(B, E) < 0.2] += 1 << 8
+    return a, u, compat[cid] & alive[:, None, :], R[gid], n
+
+
+def subset_case(hazard: str, seed: int, Gu: int = 6, Ep: int = 16,
+                T: int = 24, P: int = 2, Z: int = 3, C: int = 2, D: int = 8,
+                B: int = 16, Gq: int = 2):
+    """A synthetic union arena (the KernelInputs field set, no minValues)
+    and subset lanes: ``(arena, tprice, lanes, statics)`` with lanes =
+    dict(gid, n, dead, keep, removed_price) and statics = dict(n_max=2,
+    E, P)."""
+    rng = np.random.RandomState(seed)
+    arena = dict(
+        A=rng.randint(1 << 11, 1 << 14, (T, D)).astype(np.int64),
+        avail_zc=rng.rand(T, Z * C) < 0.8,
+        R=rng.randint(1, 1 << 9, (Gu, D)).astype(np.int64),
+        n=rng.randint(1, 30, Gu).astype(np.int64),
+        F=rng.rand(Gu, T) < 0.7,
+        agz=rng.rand(Gu, Z) < 0.9, agc=rng.rand(Gu, C) < 0.9,
+        admit=rng.rand(Gu, P) < 0.8,
+        daemon=rng.randint(0, 1 << 6, (Gu, P, D)).astype(np.int64),
+        ex_compat=rng.rand(Gu, Ep) < 0.7,
+        pool_types=rng.rand(P, T) < 0.7,
+        pool_agz=np.ones((P, Z), bool), pool_agc=np.ones((P, C), bool),
+        pool_limit=np.full((P, D), -1, np.int64),
+        pool_used0=np.zeros((P, D), np.int64),
+        ex_alloc=rng.randint(1 << 11, 1 << 14, (Ep, D)).astype(np.int64),
+        ex_used0=rng.randint(0, 1 << 12, (Ep, D)).astype(np.int64))
+    arena["R"][:, D // 2:] = 0
+    arena["daemon"][:, :, D // 2:] = 0
+    tprice = rng.randint(1, 1 << 20, T).astype(np.int64)
+    tprice[rng.rand(T) < 0.1] = _BIG
+    gid = rng.randint(0, Gu, (B, Gq)).astype(np.int32)
+    n = rng.randint(0, 40, (B, Gq)).astype(np.int64)
+    dead = rng.rand(B, Ep) < 0.3
+    cap = rng.choice([0, 1 << 18, 1 << 19, 1 << 21], B).astype(np.int64)
+    if hazard == "zero_r_row":
+        arena["R"][0] = 0
+        arena["daemon"][0] = 0
+        gid[::2, 0] = 0
+        arena["ex_compat"][0] = True
+    elif hazard == "overcommitted":
+        arena["ex_used0"][::3] = arena["ex_alloc"][::3] + 17
+    elif hazard == "dead_nodes":
+        dead[:, ::2] = True
+        dead[1 % B] = True
+    elif hazard == "padded_lanes":
+        gid[B // 2:] = 0
+        n[B // 2:] = 0
+        dead[B // 2:] = False
+        cap[B // 2:] = 0
+        n[: B // 2, Gq // 2:] = 0
+    elif hazard == "no_keep":
+        cap[::2] = 0
+    elif hazard == "three_nodes":
+        n[0] = 600
+        n[1 % B, 0] = 200
+        cap[:2] = 1 << 21
+    keep = tprice[None, :] < cap[:, None]
+    lanes = dict(gid=gid, n=n, dead=dead, keep=keep, removed_price=cap)
+    return arena, tprice, lanes, dict(n_max=2, E=Ep, P=P)
 
 
 def pack_statics(statics: dict) -> tuple:
@@ -256,3 +402,218 @@ def warm_cluster(pods: int = 50_000, pending_frac: float = 0.01,
         return k
 
     return snapshot, tick
+
+
+# ---------------------------------------------------------------------------
+# consolidation: config 4 and the controller's decision walks
+# ---------------------------------------------------------------------------
+
+def config4(env, n_nodes: int = 200, n_replaceable: int = 10):
+    """BASELINE config 4, consolidation over a live cluster: a copy of
+    the reference's ``bench.build_config4`` on this package's classes.
+    ``n_nodes`` m5.4xlarge nodes, every one a candidate, deletion
+    infeasible everywhere (each pod's request exceeds every neighbour's
+    spare). The first ``n_nodes - n_replaceable`` hold 2 pods of
+    (6500m, 26000Mi) pinned to the m5 family, where no cheaper type holds
+    their aggregate: unreplaceable. The last ``n_replaceable`` hold 3
+    memory-heavy pods of (650m, 17000Mi) that a cheaper r-family node
+    holds: replaceable, met last in disruption-cost order.
+
+    Returns ``(base, cands)``: the base snapshot (no pending pods, the
+    full catalog in one pool) and per candidate ``(name, pods, gone
+    names, price cap)``."""
+    from .apis import labels as L
+    from .apis.resources import Resources
+    from .fake.environment import make_pods
+    from .solver.types import ExistingNode
+
+    zones = ["us-west-2a", "us-west-2b", "us-west-2c"]
+    pool = env.nodepool("bench-c4")
+    base = env.snapshot([], [pool])
+    cand_price = max(
+        (it.cheapest_price() or 0)
+        for s in base.nodepools for it in s.instance_types
+        if it.name == "m5.4xlarge")
+    nodes, cands = [], []
+    for i in range(n_nodes):
+        if i >= n_nodes - n_replaceable:
+            pods = make_pods(3, cpu="650m", memory="17000Mi",
+                             prefix=f"c4z{i:03d}")
+        else:
+            pods = make_pods(2, cpu="6500m", memory="26000Mi",
+                             prefix=f"c4a{i:03d}",
+                             node_selector={L.INSTANCE_FAMILY: "m5"})
+        used = Resources()
+        for p in pods:
+            used = used + p.effective_requests()
+        name = f"bench-node-{i:03d}"
+        nodes.append(ExistingNode(
+            name=name,
+            labels={L.ZONE: zones[i % 3], L.ARCH: "amd64",
+                    L.CAPACITY_TYPE: "on-demand",
+                    L.INSTANCE_TYPE: "m5.4xlarge",
+                    L.INSTANCE_FAMILY: "m5"},
+            allocatable=Resources.parse(
+                {"cpu": "15796m", "memory": "57591Mi", "pods": "110"}),
+            used=used))
+        cands.append((name, pods, {name}, cand_price))
+    base.existing_nodes = nodes
+    return base, cands
+
+
+def deletion_snapshot(base, cand):
+    """The deletion check of one candidate: its pods against the other
+    nodes, no pools (price cap 0)."""
+    from .solver.types import SchedulingSnapshot
+    _name, pods, gone, _cap = cand
+    return SchedulingSnapshot(
+        pods=pods, nodepools=[],
+        existing_nodes=[n for n in base.existing_nodes if n.name not in gone],
+        daemon_overheads=base.daemon_overheads, zones=base.zones)
+
+
+def replacement_snapshot(base, cand):
+    """The controller's price-filtered simulate of one candidate (or
+    prefix): the pools keep only types strictly cheaper than the cap."""
+    from .cloudprovider.types import InstanceTypes
+    from .solver.types import NodePoolSpec, SchedulingSnapshot
+    _name, pods, gone, cap = cand
+    pools = []
+    for spec in base.nodepools:
+        kept = InstanceTypes(
+            [it for it in spec.instance_types
+             if (p := it.cheapest_price()) is not None and p < cap])
+        if kept:
+            pools.append(NodePoolSpec(nodepool=spec.nodepool,
+                                      instance_types=kept,
+                                      in_use=spec.in_use))
+    return SchedulingSnapshot(
+        pods=pods, nodepools=pools,
+        existing_nodes=[n for n in base.existing_nodes if n.name not in gone],
+        daemon_overheads=base.daemon_overheads, zones=base.zones)
+
+
+def consolidation_queries(cands):
+    """The whole-fleet round's lanes: a deletion query (price cap 0) per
+    candidate, then a replacement query (its own price cap) each."""
+    from .controllers.disruption import ReplacementQuery
+    return ([ReplacementQuery(pods=c[1], gone=c[2], price_cap=0)
+             for c in cands]
+            + [ReplacementQuery(pods=c[1], gone=c[2], price_cap=c[3])
+               for c in cands])
+
+
+def _replace_one(solver, base, cand):
+    res = solver.solve(replacement_snapshot(base, cand))
+    if res.unschedulable or len(res.new_nodes) != 1:
+        return None
+    return ("replace", cand[0], res.decision_fingerprint())
+
+
+def single_consolidation_device(ev, base, cands, queries=None):
+    """``_single_consolidation``'s device branch: ONE subset round answers
+    every deletion lane and every replacement lane; the first deletion
+    with ``feasible and n_new == 0`` wins, else the first replacement
+    lane with ``feasible and n_new == 1`` whose authoritative simulate
+    (``ev.solver``) opens exactly one node. Returns ``(kind, name,
+    fingerprint)``; ("fallback", "", "") when the round is ineligible."""
+    n = len(cands)
+    verdicts = ev.subset_solve(base, queries if queries is not None
+                               else consolidation_queries(cands))
+    if verdicts is None:
+        return ("fallback", "", "")
+    for c, v in zip(cands, verdicts[:n]):
+        if v.feasible and v.n_new == 0:
+            return ("delete", c[0], "")
+    for c, v in zip(cands, verdicts[n:]):
+        if v.feasible and v.n_new == 1:
+            got = _replace_one(ev.solver, base, c)
+            if got is not None:
+                return got
+    return ("none", "", "")
+
+
+def single_consolidation_batched(ev, solver, base, cands):
+    """``_single_consolidation``'s batched branch without subset lanes:
+    one deletion batch, one replacement pre-screen batch, then the
+    simulate (``solver``) on the surviving candidates in order."""
+    from .controllers.disruption import ReplacementQuery
+    ok = ev.deletions_feasible([deletion_snapshot(base, c) for c in cands])
+    for c, o in zip(cands, ok):
+        if o:
+            return ("delete", c[0], "")
+    maybe = ev.replacements_prescreen(base, [
+        ReplacementQuery(pods=c[1], gone=c[2], price_cap=c[3])
+        for c in cands])
+    for c, m in zip(cands, maybe):
+        if m:
+            got = _replace_one(solver, base, c)
+            if got is not None:
+                return got
+    return ("none", "", "")
+
+
+def prefix_queries(cands):
+    """The multi-node search's lanes: for k = 2 .. len(cands), the first
+    k candidates' pods, gone names and summed price cap."""
+    from .controllers.disruption import ReplacementQuery
+    out, pods, gone, price = [], [], set(), 0
+    for k, c in enumerate(cands, start=1):
+        pods = pods + c[1]
+        gone = gone | c[2]
+        price += c[3]
+        if k >= 2:
+            out.append(ReplacementQuery(pods=pods, gone=gone,
+                                        price_cap=price))
+    return out
+
+
+def _try_prefix(solver, base, prefix):
+    """The authoritative simulate of one prefix: at most one new node at
+    the summed price cap; a new node for an all-spot prefix must not be
+    spot (spot-to-spot replacement is single-node only)."""
+    from .apis import labels as L
+    cap = sum(c[3] for c in prefix)
+    gone = set().union(*(c[2] for c in prefix))
+    res = solver.solve(replacement_snapshot(
+        base, ("", [p for c in prefix for p in c[1]], gone, cap)))
+    if res.unschedulable or len(res.new_nodes) > 1:
+        return None
+    ctype = {n.name: n.labels.get(L.CAPACITY_TYPE, "")
+             for n in base.existing_nodes}
+    if res.new_nodes and all(ctype.get(c[0]) == L.CAPACITY_TYPE_SPOT
+                             for c in prefix):
+        ct = res.new_nodes[0].requirements.get(L.CAPACITY_TYPE)
+        if ct is None or ct.has(L.CAPACITY_TYPE_SPOT):
+            return None
+    return ("multi", tuple(c[0] for c in prefix),
+            res.decision_fingerprint())
+
+
+def multi_consolidation(ev, solver, base, cands, queries=None):
+    """``_multi_consolidation`` over the candidate prefix the caller
+    passes (budgets already applied): one subset round answers every
+    prefix the binary search can visit (the pre-screen when the round is
+    ineligible), then the binary search for the largest ascending-cost
+    prefix that one cheaper node replaces, simulating only prefixes whose
+    verdict allows it. Returns ``("multi", names, fingerprint)`` or
+    ``("none", (), "")``."""
+    if len(cands) < 2:
+        return ("none", (), "")
+    queries = queries if queries is not None else prefix_queries(cands)
+    verdicts = ev.subset_solve(base, queries)
+    if verdicts is not None:
+        maybe = [v.feasible and v.n_new <= 1 for v in verdicts]
+    else:
+        maybe = ev.replacements_prescreen(base, queries)
+    best = ("none", (), "")
+    lo, hi = 2, len(cands)
+    while lo <= hi:
+        mid = (lo + hi) // 2
+        got = _try_prefix(solver, base, cands[:mid]) if maybe[mid - 2] \
+            else None
+        if got is not None:
+            best, lo = got, mid + 1
+        else:
+            hi = mid - 1
+    return best

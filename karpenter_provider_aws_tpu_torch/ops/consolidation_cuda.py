@@ -1,0 +1,224 @@
+"""The CUDA kernels of consolidation's batched search (K7): wrappers.
+
+``csrc/consolidation.cu`` is built into the one kernel library of
+``ops/ffd_cuda.py``. Each wrapper checks device, dtype, shape and
+contiguity, allocates its outputs and scratch with ``torch.empty``,
+launches on the current stream, adds one to its entry of
+``ffd_cuda.LAUNCHES`` and raises when the C entry returns a CUDA error.
+Nothing here falls back to the plain versions in
+``ops/consolidation_torch.py``.
+
+- ``consol_absorb(mode, ...)``: the absorption scans, one launch per
+  batch whatever B or G: ``"deletions"`` (shared tables), ``"prescreen"``
+  (shared tables + the one-new-node tail), ``"dense"`` (per-lane tables).
+- ``subset_gather``: every lane's KernelInputs from the union arena.
+- ``subset_summary``: the [B, 5] rows.
+- ``subset_solve_cuda``: gather, the K2 kernels on their lane axis
+  (2·Gq launches), summary.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import ffd_cuda
+from .ffd_cuda import LAUNCHES, ScanState, _check, _lib, _need, _stream
+from .ffd_torch import KernelInputs, carry0
+
+#: the largest lane carry ``used`` [E, D] kept in shared memory (bytes);
+#: larger carries go to a global scratch
+ABSORB_SMEM_MAX = 160 * 1024
+
+_MODES = {"deletions": 0, "prescreen": 1, "dense": 2}
+
+_vp, _ll = ctypes.c_void_p, ctypes.c_longlong
+
+
+class _AbsorbArgs(ctypes.Structure):
+    """Mirror of ``struct AbsorbArgs`` in csrc/consolidation.cu."""
+    _fields_ = ([(f, _vp) for f in (
+        "ex_alloc", "ex_used0", "compat", "R", "gid", "cid", "n", "alive",
+        "type_alloc", "type_price", "tcompat", "padmit", "pool_types",
+        "price_cap", "used_scratch", "leftover", "out")]
+        + [(f, _ll) for f in ("B", "G", "E", "D", "Sc", "T", "P",
+                              "used_in_smem")])
+
+
+class _GatherArgs(ctypes.Structure):
+    """Mirror of ``struct GatherArgs`` in csrc/consolidation.cu."""
+    _fields_ = ([(f, _vp) for f in (
+        "avail_zc", "R", "F", "agz", "agc", "admit", "daemon", "ex_compat",
+        "ex_alloc", "ex_used0", "gid", "dead", "keep", "o_avail_zc", "o_R",
+        "o_F", "o_agz", "o_agc", "o_admit", "o_daemon", "o_ex_compat",
+        "o_ex_alloc", "o_ex_used0")]
+        + [(f, _ll) for f in ("B", "Gq", "T", "ZC", "D", "Z", "C", "P",
+                              "E")])
+
+
+class _SummaryArgs(ctypes.Structure):
+    """Mirror of ``struct SummaryArgs`` in csrc/consolidation.cu."""
+    _fields_ = ([(f, _vp) for f in (
+        "leftover", "num_nodes", "types", "keep", "tprice", "removed_price",
+        "out")]
+        + [(f, _ll) for f in ("B", "Gq", "N", "T", "E")])
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None and t.numel() else None
+
+
+def consol_absorb(mode: str, *, ex_alloc, ex_used0, compat, R, n, gid=None,
+                  cid=None, alive=None, type_alloc=None, type_price=None,
+                  tcompat=None, padmit=None, pool_types=None,
+                  price_cap=None) -> torch.Tensor:
+    """[B] bool. Shared modes: ex_alloc/ex_used0 [E, D], compat [Sc, E],
+    R [S, D], gid/cid [B, G] int32, n [B, G], alive [B, E]; "prescreen"
+    adds type_alloc [T, D], type_price [T], tcompat [Sc, T], padmit
+    [P, Sc], pool_types [P, T], price_cap [B]. "dense": ex_alloc/ex_used0
+    [B, E, D], compat [B, G, E], R [B, G, D], n [B, G]."""
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {tuple(_MODES)}")
+    i64, b = torch.int64, torch.bool
+    B, G = n.shape
+    _need(n, "n", i64, (B, G))
+    T = P = Sc = 0
+    if mode == "dense":
+        _, E, D = ex_alloc.shape
+        _need(ex_alloc, "ex_alloc", i64, (B, E, D))
+        _need(ex_used0, "ex_used0", i64, (B, E, D))
+        _need(compat, "ex_compat", b, (B, G, E))
+        _need(R, "R", i64, (B, G, D))
+    else:
+        E, D = ex_alloc.shape
+        Sc = compat.shape[0]
+        _need(ex_alloc, "ex_alloc", i64, (E, D))
+        _need(ex_used0, "ex_used0", i64, (E, D))
+        _need(compat, "compat_tab", b, (Sc, E))
+        _need(R, "R_tab", i64, (R.shape[0], D))
+        _need(gid, "gid", torch.int32, (B, G))
+        _need(cid, "cid", torch.int32, (B, G))
+        _need(alive, "alive", b, (B, E))
+    if mode == "prescreen":
+        T, P = type_alloc.shape[0], padmit.shape[0]
+        _need(type_alloc, "type_alloc", i64, (T, D))
+        _need(type_price, "type_price", i64, (T,))
+        _need(tcompat, "tcompat", b, (Sc, T))
+        _need(padmit, "padmit", b, (P, Sc))
+        _need(pool_types, "pool_types", b, (P, T))
+        _need(price_cap, "price_cap", i64, (B,))
+    dev = n.device
+    smem = E * D * 8 <= ABSORB_SMEM_MAX
+    scratch = None if smem else torch.empty((B, E, D), dtype=i64,
+                                            device=dev)
+    leftover = torch.empty((B, G), dtype=i64, device=dev)
+    out = torch.empty(B, dtype=b, device=dev)
+    args = _AbsorbArgs(
+        ex_alloc=_ptr(ex_alloc), ex_used0=_ptr(ex_used0), compat=_ptr(compat),
+        R=_ptr(R), gid=_ptr(gid), cid=_ptr(cid), n=_ptr(n),
+        alive=_ptr(alive), type_alloc=_ptr(type_alloc),
+        type_price=_ptr(type_price), tcompat=_ptr(tcompat),
+        padmit=_ptr(padmit), pool_types=_ptr(pool_types),
+        price_cap=_ptr(price_cap), used_scratch=_ptr(scratch),
+        leftover=_ptr(leftover), out=_ptr(out), B=B, G=G, E=E, D=D, Sc=Sc,
+        T=T, P=P, used_in_smem=int(smem))
+    name = f"consol_absorb_{mode}"
+    err = _lib().karp_consol_absorb(ctypes.byref(args), _MODES[mode],
+                                    _stream())
+    LAUNCHES[name] += 1
+    _check(err, name)
+    return out
+
+
+def subset_gather(arena: KernelInputs, gid, n, dead, keep) -> KernelInputs:
+    """Every lane's KernelInputs from the union ``arena``, lane-major: the
+    fields of ``consolidation_torch.LANE_FIELDS`` gain a leading lane
+    axis (``n`` is the lanes' own), the rest are the arena's."""
+    i64, b = torch.int64, torch.bool
+    T, D = arena.A.shape
+    Gu, E = arena.ex_compat.shape
+    Z, C, P = arena.agz.shape[1], arena.agc.shape[1], arena.admit.shape[1]
+    B, Gq = gid.shape
+    for nm, dt, shp in (
+            ("A", i64, (T, D)), ("avail_zc", b, (T, Z * C)),
+            ("R", i64, (Gu, D)), ("F", b, (Gu, T)), ("agz", b, (Gu, Z)),
+            ("agc", b, (Gu, C)), ("admit", b, (Gu, P)),
+            ("daemon", i64, (Gu, P, D)), ("ex_compat", b, (Gu, E)),
+            ("ex_alloc", i64, (E, D)), ("ex_used0", i64, (E, D))):
+        _need(getattr(arena, nm), nm, dt, shp)
+    _need(gid, "gid", torch.int32, (B, Gq))
+    _need(n, "n", i64, (B, Gq))
+    _need(dead, "dead", b, (B, E))
+    _need(keep, "keep", b, (B, T))
+    dev = gid.device
+    o = dict(avail_zc=torch.empty((B, T, Z * C), dtype=b, device=dev),
+             R=torch.empty((B, Gq, D), dtype=i64, device=dev),
+             F=torch.empty((B, Gq, T), dtype=b, device=dev),
+             agz=torch.empty((B, Gq, Z), dtype=b, device=dev),
+             agc=torch.empty((B, Gq, C), dtype=b, device=dev),
+             admit=torch.empty((B, Gq, P), dtype=b, device=dev),
+             daemon=torch.empty((B, Gq, P, D), dtype=i64, device=dev),
+             ex_compat=torch.empty((B, Gq, E), dtype=b, device=dev),
+             ex_alloc=torch.empty((B, E, D), dtype=i64, device=dev),
+             ex_used0=torch.empty((B, E, D), dtype=i64, device=dev))
+    args = _GatherArgs(
+        **{f: _ptr(getattr(arena, f)) for f in (
+            "avail_zc", "R", "F", "agz", "agc", "admit", "daemon",
+            "ex_compat", "ex_alloc", "ex_used0")},
+        gid=_ptr(gid), dead=_ptr(dead), keep=_ptr(keep),
+        **{"o_" + f: _ptr(t) for f, t in o.items()},
+        B=B, Gq=Gq, T=T, ZC=Z * C, D=D, Z=Z, C=C, P=P, E=E)
+    err = _lib().karp_subset_gather(ctypes.byref(args), _stream())
+    LAUNCHES["subset_gather"] += 1
+    _check(err, "subset_gather")
+    return arena._replace(n=n, **o)
+
+
+def subset_summary(leftover, num_nodes, types, keep, tprice, removed_price,
+                   E: int) -> torch.Tensor:
+    """[B, 5] int64 rows of SUBSET_OUT_COLS from the lanes' leftover
+    [B, Gq], num_nodes [B, 1] int32, types [B, N, T] and keep [B, T];
+    ``E`` is the padded count of existing rows."""
+    B, N, T = types.shape
+    Gq = leftover.shape[1]
+    if not 0 <= E < N:
+        raise ValueError(f"first new slot {E} outside [0, {N})")
+    _need(leftover, "leftover", torch.int64, (B, Gq))
+    _need(num_nodes, "num_nodes", torch.int32, (B, 1))
+    _need(types, "types", torch.bool, (B, N, T))
+    _need(keep, "keep", torch.bool, (B, T))
+    _need(tprice, "tprice", torch.int64, (T,))
+    _need(removed_price, "removed_price", torch.int64, (B,))
+    out = torch.empty((B, 5), dtype=torch.int64, device=types.device)
+    args = _SummaryArgs(
+        leftover=_ptr(leftover), num_nodes=_ptr(num_nodes),
+        types=_ptr(types), keep=_ptr(keep), tprice=_ptr(tprice),
+        removed_price=_ptr(removed_price), out=_ptr(out), B=B, Gq=Gq, N=N,
+        T=T, E=E)
+    err = _lib().karp_subset_summary(ctypes.byref(args), _stream())
+    LAUNCHES["subset_summary"] += 1
+    _check(err, "subset_summary")
+    return out
+
+
+def subset_solve_cuda(arena: KernelInputs, tprice, gid, n, dead, keep,
+                      removed_price, *, n_max: int, E: int,
+                      P: int) -> torch.Tensor:
+    """The whole-fleet subset round on the card: one subset_gather, the
+    two K2 kernels per group on the lane axis (2·Gq launches for every
+    lane at once), one subset_summary; no synchronisation."""
+    if arena.mv_floor is not None:
+        raise ValueError("subset lanes take no minValues floors")
+    if arena.ex_compat.shape[1] != E:
+        raise ValueError(f"arena has {arena.ex_compat.shape[1]} existing "
+                         f"rows, E={E}")
+    B, Gq = gid.shape
+    lanes = subset_gather(arena, gid, n, dead, keep)
+    carry = carry0(lanes, E + n_max, E, lanes=B)
+    st = ScanState(lanes, carry, E=E, P=P, lanes=B)
+    for g in range(Gq):
+        ffd_cuda.ffd_slot_headroom(st, g)
+        ffd_cuda.ffd_group_commit(st, g)
+    return subset_summary(st.leftover, carry.num_nodes, carry.types, keep,
+                          tprice, removed_price, E)

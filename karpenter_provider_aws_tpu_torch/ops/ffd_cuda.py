@@ -1,8 +1,10 @@
 """The CUDA kernels of the packed FFD scan: build, binding and wrappers.
 
 ``csrc/packed_io.cu`` (K1: ``unpack_bits``, ``pack_outputs``),
-``csrc/ffd_scan.cu`` (K2: ``ffd_slot_headroom``, ``ffd_group_commit``)
-and ``csrc/ckpt.cu`` (K3: ``ffd_bank_store``, ``ffd_bank_load``) are
+``csrc/ffd_scan.cu`` (K2: ``ffd_slot_headroom``, ``ffd_group_commit``),
+``csrc/ckpt.cu`` (K3: ``ffd_bank_store``, ``ffd_bank_load``) and
+``csrc/consolidation.cu`` (K7: ``consol_absorb``, ``subset_gather``,
+``subset_summary``; wrappers in ``ops/consolidation_cuda.py``) are
 compiled with ``nvcc`` for ``sm_90a`` into one shared library with a
 plain C interface, loaded with ctypes. The build runs at first use, into
 ``_build/`` inside this package, keyed by a hash of the sources; a failed
@@ -39,7 +41,7 @@ from .hostpack import in_layout_bool, in_layout_i64, layout_sizes, nwords
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("packed_io.cu", "ffd_scan.cu", "ckpt.cu")
+SOURCES = ("packed_io.cu", "ffd_scan.cu", "ckpt.cu", "consolidation.cu")
 HEADERS = ("ffd_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -48,7 +50,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: wrapper, bumped where the kernel is launched and nowhere else)
 LAUNCHES: Dict[str, int] = {"unpack_bits": 0, "ffd_slot_headroom": 0,
                             "ffd_group_commit": 0, "pack_outputs": 0,
-                            "ffd_bank_store": 0, "ffd_bank_load": 0}
+                            "ffd_bank_store": 0, "ffd_bank_load": 0,
+                            "consol_absorb_deletions": 0,
+                            "consol_absorb_prescreen": 0,
+                            "consol_absorb_dense": 0, "subset_gather": 0,
+                            "subset_summary": 0}
 
 _LIB = None
 _BUILD_INFO: dict = {}
@@ -123,12 +129,17 @@ def _lib():
             lib.karp_ffd_group_commit.argtypes = [vp, ll, vp]
             lib.karp_ffd_bank_store.argtypes = [vp, ll, ll, vp]
             lib.karp_ffd_bank_load.argtypes = [vp, ll, vp]
+            lib.karp_consol_absorb.argtypes = [vp, ctypes.c_int, vp]
+            lib.karp_subset_gather.argtypes = [vp, vp]
+            lib.karp_subset_summary.argtypes = [vp, vp]
             lib.karp_error_string.argtypes = [ctypes.c_int]
             lib.karp_error_string.restype = ctypes.c_char_p
             for fn in (lib.karp_unpack_bits, lib.karp_pack_outputs,
                        lib.karp_ffd_slot_headroom,
                        lib.karp_ffd_group_commit,
-                       lib.karp_ffd_bank_store, lib.karp_ffd_bank_load):
+                       lib.karp_ffd_bank_store, lib.karp_ffd_bank_load,
+                       lib.karp_consol_absorb, lib.karp_subset_gather,
+                       lib.karp_subset_summary):
                 fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
@@ -221,7 +232,9 @@ class _FfdArgs(ctypes.Structure):
     """Mirror of ``struct FfdArgs`` in csrc/ffd_common.cuh (8-byte
     fields throughout, so the layouts agree without padding rules)."""
     _fields_ = ([(f, ctypes.c_void_p) for f in _PTR_FIELDS]
-                + [(f, ctypes.c_longlong) for f in _STATIC_FIELDS])
+                + [(f, ctypes.c_longlong) for f in _STATIC_FIELDS]
+                + [("L", ctypes.c_longlong),
+                   ("lane_bytes", ctypes.c_longlong * len(_PTR_FIELDS))])
 
 
 class ScanState:
@@ -229,24 +242,45 @@ class ScanState:
     every group): the inputs, the carry (updated in place by the
     kernels; the window's entry carry), the per-group scratch and the
     outputs, whose rows are those of the window, plus the ctypes
-    argument block that points at them."""
+    argument block that points at them.
+
+    ``lanes=L`` runs L independent scans of one shape in the same
+    launches (the lane axis of csrc/ffd_common.cuh): an input field of
+    shape ``(L,) + shape`` is per lane, one of ``shape`` is shared by
+    every lane; the carry is per lane, and so are the scratch and the
+    outputs (``takes`` [L, rows, N], ``leftover`` [L, rows]). Without
+    ``lanes`` every shape is that of one solve."""
 
     def __init__(self, inp: KernelInputs, carry: Carry, *, E: int, P: int,
-                 V: int = 0, s0: int = 0, s1: int = None):
+                 V: int = 0, s0: int = 0, s1: int = None, lanes: int = None):
         dev = inp.A.device
-        T, D = inp.A.shape
-        G = inp.R.shape[0]
+        L = 1 if lanes is None else lanes
+        lead = () if lanes is None else (L,)
+        T, D = inp.A.shape[-2:]
+        G = inp.R.shape[-2]
         s1 = G if s1 is None else s1
         if not 0 <= s0 <= s1 <= G:
             raise ValueError(f"group window [{s0}, {s1}) outside [0, {G})")
-        self.s0, self.s1 = s0, s1
-        N = carry.used.shape[0]
-        Z, C = inp.agz.shape[1], inp.agc.shape[1]
-        K = 0 if inp.mv_floor is None else inp.mv_floor.shape[1]
-        M = 0 if inp.mv_pairs_t is None else inp.mv_pairs_t.shape[1]
+        if L < 1:
+            raise ValueError(f"lanes={L} must be at least 1")
+        self.s0, self.s1, self.lanes = s0, s1, lanes
+        N = carry.used.shape[-2]
+        Z, C = inp.agz.shape[-1], inp.agc.shape[-1]
+        K = 0 if inp.mv_floor is None else inp.mv_floor.shape[-1]
+        M = 0 if inp.mv_pairs_t is None else inp.mv_pairs_t.shape[-1]
         if T == 0:
             raise ValueError("the scan kernels need T > 0")
         i64, b = torch.int64, torch.bool
+        lane_bytes = {}
+
+        def field(t, nm, dt, shp):
+            # per lane when it carries the leading lane axis, else shared
+            if lanes is not None and t.dim() == len(shp) + 1:
+                _need(t, nm, dt, (L,) + tuple(shp))
+                lane_bytes[nm] = t[0].numel() * t.element_size()
+            else:
+                _need(t, nm, dt, shp)
+
         for nm, dt, shp in (
                 ("A", i64, (T, D)), ("avail_zc", b, (T, Z * C)),
                 ("R", i64, (G, D)), ("n", i64, (G,)), ("F", b, (G, T)),
@@ -255,34 +289,43 @@ class ScanState:
                 ("pool_types", b, (P, T)), ("pool_agz", b, (P, Z)),
                 ("pool_agc", b, (P, C)), ("pool_limit", i64, (P, D)),
                 ("ex_alloc", i64, (E, D)), ("ex_compat", b, (G, E))):
-            _need(getattr(inp, nm), nm, dt, shp)
+            field(getattr(inp, nm), nm, dt, shp)
         if K:
-            _need(inp.mv_floor, "mv_floor", i64, (P, K))
-            _need(inp.mv_pairs_t, "mv_pairs_t", i64, (K, M))
-            _need(inp.mv_pairs_v, "mv_pairs_v", i64, (K, M))
+            field(inp.mv_floor, "mv_floor", i64, (P, K))
+            field(inp.mv_pairs_t, "mv_pairs_t", i64, (K, M))
+            field(inp.mv_pairs_v, "mv_pairs_v", i64, (K, M))
         for nm, dt, shp in (
                 ("used", i64, (N, D)), ("types", b, (N, T)),
                 ("zones", b, (N, Z)), ("ct", b, (N, C)),
                 ("pool", torch.int32, (N,)), ("alive", b, (N,)),
                 ("num_nodes", torch.int32, (1,)),
                 ("pool_used", i64, (P, D))):
-            _need(getattr(carry, nm), nm, dt, shp)
+            t = getattr(carry, nm)
+            _need(t, nm, dt, lead + shp)
+            if lanes is not None:
+                lane_bytes[nm] = t[0].numel() * t.element_size()
         self.inp, self.carry = inp, carry
-        self.cand = torch.empty((N, T), dtype=b, device=dev)
-        self.k = torch.empty(N, dtype=i64, device=dev)
-        self.hrn = torch.empty(T, dtype=i64, device=dev)
-        self.candn = torch.empty(T, dtype=b, device=dev)
-        self.takes = torch.empty((s1 - s0, N), dtype=torch.int32,
+        self.cand = torch.empty(lead + (N, T), dtype=b, device=dev)
+        self.k = torch.empty(lead + (N,), dtype=i64, device=dev)
+        self.hrn = torch.empty(lead + (T,), dtype=i64, device=dev)
+        self.candn = torch.empty(lead + (T,), dtype=b, device=dev)
+        self.takes = torch.empty(lead + (s1 - s0, N), dtype=torch.int32,
                                  device=dev)
-        self.leftover = torch.empty(s1 - s0, dtype=i64, device=dev)
+        self.leftover = torch.empty(lead + (s1 - s0,), dtype=i64,
+                                    device=dev)
         ptrs = {}
         for f in _PTR_FIELDS:
             t = getattr(inp, f, None) if f in KernelInputs._fields else \
                 getattr(carry, f, None) if f in Carry._fields else \
                 getattr(self, f)
             ptrs[f] = t.data_ptr() if t is not None and t.numel() else None
+            if lanes is not None and f not in KernelInputs._fields \
+                    and f not in Carry._fields:
+                lane_bytes[f] = t[0].numel() * t.element_size()
         self.args = _FfdArgs(**ptrs, T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, N=N,
-                             K=K, M=M, V=V, G0=s0)
+                             K=K, M=M, V=V, G0=s0, L=L)
+        for i, f in enumerate(_PTR_FIELDS):
+            self.args.lane_bytes[i] = lane_bytes.get(f, 0)
 
 
 def _in_window(st: ScanState, g: int) -> None:

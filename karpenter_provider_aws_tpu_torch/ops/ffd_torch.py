@@ -122,25 +122,35 @@ def carry_from_numpy(d: dict, device) -> Carry:
     return Carry(**out)
 
 
-def carry0(inp: KernelInputs, N: int, E: int) -> Carry:
+def carry0(inp: KernelInputs, N: int, E: int, lanes: Optional[int] = None
+           ) -> Carry:
     """The scan's initial node state: existing rows [0, E) alive with
-    their used vectors, every other slot free."""
-    T, D = inp.A.shape
-    Z, C = inp.agz.shape[1], inp.agc.shape[1]
+    their used vectors, every other slot free. ``lanes=L`` stacks L such
+    states (every field gains a leading lane axis; ``ex_used0`` and
+    ``pool_used0`` may be per lane or shared)."""
+    lead = () if lanes is None else (lanes,)
+    T, D = inp.A.shape[-2:]
+    Z, C = inp.agz.shape[-1], inp.agc.shape[-1]
     dev = inp.A.device
-    used = torch.zeros((N, D), dtype=_I64, device=dev)
-    used[:E] = inp.ex_used0
-    pool = torch.full((N,), -1, dtype=torch.int32, device=dev)
-    pool[:E] = -2
-    alive = torch.zeros(N, dtype=torch.bool, device=dev)
-    alive[:E] = True
+    used = torch.zeros(lead + (N, D), dtype=_I64, device=dev)
+    used[..., :E, :] = inp.ex_used0
+    pool = torch.full(lead + (N,), -1, dtype=torch.int32, device=dev)
+    pool[..., :E] = -2
+    alive = torch.zeros(lead + (N,), dtype=torch.bool, device=dev)
+    alive[..., :E] = True
+    pool_used = inp.pool_used0.expand(
+        lead + tuple(inp.pool_used0.shape[-2:])).clone(
+            memory_format=torch.contiguous_format)
     return Carry(used=used,
-                 types=torch.zeros((N, T), dtype=torch.bool, device=dev),
-                 zones=torch.zeros((N, Z), dtype=torch.bool, device=dev),
-                 ct=torch.zeros((N, C), dtype=torch.bool, device=dev),
+                 types=torch.zeros(lead + (N, T), dtype=torch.bool,
+                                   device=dev),
+                 zones=torch.zeros(lead + (N, Z), dtype=torch.bool,
+                                   device=dev),
+                 ct=torch.zeros(lead + (N, C), dtype=torch.bool, device=dev),
                  pool=pool, alive=alive,
-                 num_nodes=torch.zeros(1, dtype=torch.int32, device=dev),
-                 pool_used=inp.pool_used0.clone())
+                 num_nodes=torch.zeros(lead + (1,), dtype=torch.int32,
+                                       device=dev),
+                 pool_used=pool_used)
 
 
 # ---------------------------------------------------------------------------

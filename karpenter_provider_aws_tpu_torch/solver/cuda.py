@@ -42,8 +42,9 @@ from ..apis.resources import Resources
 from ..models.delta import DeltaEncoder, full_existing_encode
 from ..models.encoding import SnapshotEncoding, encode_snapshot
 from ..ops import ffd_cuda
-from ..ops.ffd_torch import (solve_scan_packed1, solve_scan_packed1_ckpt,
-                             solve_scan_suffix)
+from ..ops.consolidation_torch import subset_solve
+from ..ops.ffd_torch import (kernel_inputs_from_numpy, solve_scan_packed1,
+                             solve_scan_packed1_ckpt, solve_scan_suffix)
 from ..ops.hostpack import (pack_inputs1, pack_inputs1_state, patch_inputs1,
                             tier_leftovers, unpack_outputs1)
 from .incremental import CKPT_CHUNK, ckpt_eligible, live_bound, suffix_plan
@@ -105,6 +106,10 @@ class CUDASolver(Solver):
         #: suffix_bucket and suffix_groups
         self.last_dispatch_stats: dict = {}
         self.last_tier_leftovers: dict = {}
+        #: the union arena of the last consolidation subset round on
+        #: self.device: (arrays, tprice, KernelInputs, tprice tensor),
+        #: reused while the caller hands the same arrays back
+        self._sub_arena = None
 
     def solve(self, snapshot: SchedulingSnapshot) -> SolveResult:
         """Slot growth (``_grow_if_exhausted``) is scoped to ONE solve."""
@@ -511,6 +516,50 @@ class CUDASolver(Solver):
             ct=out["ct"][sm], pool=out["pool"][sm],
             alive=out["alive"][sm], used=out["used"][sm][:, :D], E=E)
         return takes, out["leftover"][:G], final
+
+    # -- consolidation's whole-fleet search ------------------------------
+    #: the consolidation evaluator's subset search runs on this solver
+    supports_subset_kernel = True
+
+    def arena_epoch(self):
+        """Coherence token for caches derived from this solver's resident
+        encoding (consolidation ``_base_tables``): the delta encoder's
+        structural epoch (None when incremental is off), and 0 in place
+        of the reference's mesh generation (no mesh here)."""
+        return (self._delta.epoch if self._delta is not None else None, 0)
+
+    def dispatch_subsets(self, arrays: dict, *, tprice, gid, n, dead, keep,
+                         removed_price, n_max: int, E: int,
+                         P: int) -> np.ndarray:
+        """One whole-fleet consolidation subset batch on self.device: the
+        padded union arena (``_prep_device_inputs``' arrays; on the
+        device once and reused while the same arrays come back) and the
+        per-lane stacks in ONE host-to-device copy, then
+        ``ops.consolidation_torch.subset_solve`` (on CUDA: subset_gather,
+        2·Gq lane-axis K2 launches, subset_summary) and one copy of the
+        [B, 5] rows back."""
+        sa = self._sub_arena
+        if sa is None or sa[0] is not arrays or sa[1] is not tprice:
+            arena = kernel_inputs_from_numpy(arrays, self.device)
+            sa = self._sub_arena = (arrays, tprice, arena, torch.from_numpy(
+                np.asarray(tprice, dtype=np.int64)).to(self.device))
+        lanes = _device.upload(dict(
+            gid=np.asarray(gid, dtype=np.int32),
+            n=np.asarray(n, dtype=np.int64), dead=np.asarray(dead, bool),
+            keep=np.asarray(keep, bool),
+            removed_price=np.asarray(removed_price, dtype=np.int64)),
+            self.device)
+        before = dict(ffd_cuda.LAUNCHES)
+        out = subset_solve(sa[2], sa[3], lanes["gid"], lanes["n"],
+                           lanes["dead"], lanes["keep"],
+                           lanes["removed_price"], n_max=n_max, E=E,
+                           P=P).cpu().numpy()
+        self.last_dispatch_stats = dict(
+            device=str(self.device), kernel="subset", batch=len(out),
+            groups=int(np.asarray(gid).shape[1]),
+            launches={k: v - before[k]
+                      for k, v in ffd_cuda.LAUNCHES.items()})
+        return out
 
     # ------------------------------------------------------------------
     def _decode(self, enc: SnapshotEncoding,

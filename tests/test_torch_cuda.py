@@ -1,5 +1,7 @@
 """The CUDA kernels of the port held against their plain PyTorch versions
-on the card, at small shapes. Tolerance: exact (integer math).
+on the card, at small shapes. Tolerance: exact (integer math). K1-K3
+(the packed scan, the bank), the K2 kernels on their lane axis, and the
+K7 consolidation kernels.
 
 Every test here needs a CUDA card: the ``cuda_device`` fixture skips
 otherwise, so the CPU suite collects the same tests and skips them. On a
@@ -112,11 +114,11 @@ def test_packed_solve(cuda_device, case, width):
     want = ft.solve_scan_packed1(buf, device="cpu",
                                  **examples.solve_statics(st))
     assert torch.equal(got.cpu(), want)
-    assert ffd_cuda.LAUNCHES == {"unpack_bits": 1,
-                                 "ffd_slot_headroom": st["G"],
-                                 "ffd_group_commit": st["G"],
-                                 "pack_outputs": 1,
-                                 "ffd_bank_store": 0, "ffd_bank_load": 0}
+    assert ffd_cuda.LAUNCHES == dict(dict.fromkeys(ffd_cuda.LAUNCHES, 0),
+                                     unpack_bits=1,
+                                     ffd_slot_headroom=st["G"],
+                                     ffd_group_commit=st["G"],
+                                     pack_outputs=1)
 
 
 @pytest.mark.parametrize("case", ["base", "existing", "min_values"])
@@ -226,3 +228,146 @@ def test_warm_ticks_on_card_match_from_scratch(cuda_device):
         modes.append(warm.last_phase_stats["solve"])
     assert modes[12:] == ["suffix@3"] * 4
     assert warm.last_dispatch_stats["launches"]["ffd_bank_load"] == 1
+
+
+# ---------------------------------------------------------------------------
+# K2 on its lane axis, and the K7 consolidation kernels
+# ---------------------------------------------------------------------------
+
+def _t(dev, *arrays):
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("case", ["base", "existing", "min_values",
+                                  "two_pools"])
+def test_lane_axis_one_lane_is_the_plain_scan(cuda_device, case):
+    """lanes=1 (every field per lane, stride of one solve) gives the
+    bytes of the scan without a lane axis."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    buf, st, n_i64, n_bits = _arena(case, cuda_device)
+    inp = _inputs(buf, st, n_i64, n_bits)
+    E, P, V = st["E"], st["P"], st["V"]
+    one = ffd_cuda.ScanState(inp, ft.carry0(inp, E + st["n_max"], E),
+                             E=E, P=P, V=V)
+    lane_inp = inp._replace(**{f: getattr(inp, f)[None] for f in (
+        "avail_zc", "R", "n", "F", "agz", "agc", "admit", "daemon",
+        "ex_alloc", "ex_compat")})
+    lanes = ffd_cuda.ScanState(
+        lane_inp, ft.carry0(inp, E + st["n_max"], E, lanes=1), E=E, P=P,
+        V=V, lanes=1)
+    for g in range(st["G"]):
+        for s in (one, lanes):
+            ffd_cuda.ffd_slot_headroom(s, g)
+            ffd_cuda.ffd_group_commit(s, g)
+    for a, b in zip(one.carry, lanes.carry):
+        assert torch.equal(a, b[0])
+    assert torch.equal(one.takes, lanes.takes[0])
+    assert torch.equal(one.leftover, lanes.leftover[0])
+
+
+@pytest.mark.parametrize("hazard", examples.SUBSET_HAZARDS)
+def test_subset_kernels_match_plain(cuda_device, hazard):
+    """subset_gather, five lanes of the K2 kernels step by step, the
+    summary and the whole subset round against the plain versions."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    arena, tprice, lanes, st = examples.subset_case(hazard, seed=4)
+    inp = ft.kernel_inputs_from_numpy(arena, cuda_device)
+    tp = torch.from_numpy(tprice).to(cuda_device)
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in lanes.items()}
+    g_k = cc.subset_gather(inp, t["gid"], t["n"], t["dead"], t["keep"])
+    g_p = ct._subset_gather_ref(inp, t["gid"], t["n"], t["dead"], t["keep"])
+    for f in ct.LANE_FIELDS:
+        assert torch.equal(getattr(g_k, f), getattr(g_p, f)), f
+    E, P, N = st["E"], st["P"], st["E"] + st["n_max"]
+    B = 5
+    sub = g_k._replace(**{f: getattr(g_k, f)[:B].contiguous()
+                          for f in ct.LANE_FIELDS})
+    state = ffd_cuda.ScanState(sub, ft.carry0(sub, N, E, lanes=B), E=E,
+                               P=P, lanes=B)
+    carries = [ft.carry0(ct.lane_inputs(sub, b), N, E) for b in range(B)]
+    for g in range(sub.R.shape[1]):
+        ffd_cuda.ffd_slot_headroom(state, g)
+        for b in range(B):
+            cand, k = ft._slot_headroom_ref(ct.lane_inputs(sub, b),
+                                            carries[b], g, E=E, P=P, V=0)
+            assert torch.equal(state.cand[b], cand), (g, b)
+            assert torch.equal(state.k[b], k), (g, b)
+        ffd_cuda.ffd_group_commit(state, g)
+        for b in range(B):
+            carries[b], take, n_rem = ft._group_step_ref(
+                ct.lane_inputs(sub, b), carries[b], g, E=E, P=P, V=0)
+            for f, got, want in zip(ft.Carry._fields, state.carry,
+                                    carries[b]):
+                assert torch.equal(got[b], want), (g, b, f)
+            assert torch.equal(state.takes[b, g], take.to(torch.int32))
+            assert int(state.leftover[b, g]) == int(n_rem)
+    keep5, rp5 = t["keep"][:B].contiguous(), t["removed_price"][:B]
+    got = cc.subset_summary(state.leftover, state.carry.num_nodes,
+                            state.carry.types, keep5, tp, rp5, E)
+    want = ct._subset_summary_ref(state.leftover, state.carry.num_nodes,
+                                  state.carry.types, keep5, tp, rp5, E)
+    assert torch.equal(got, want)
+    ffd_cuda.reset_launches()
+    whole = ct.subset_solve(inp, tp, t["gid"], t["n"], t["dead"], t["keep"],
+                            t["removed_price"], **st)
+    Gq = lanes["gid"].shape[1]
+    assert {k: v for k, v in ffd_cuda.LAUNCHES.items() if v} == dict(
+        subset_gather=1, ffd_slot_headroom=Gq, ffd_group_commit=Gq,
+        subset_summary=1)
+    plain = ct._subset_solve_ref(inp, tp, t["gid"], t["n"], t["dead"],
+                                 t["keep"], t["removed_price"], **st)
+    assert torch.equal(whole, plain)
+
+
+@pytest.mark.parametrize("hazard", examples.ABSORB_HAZARDS)
+@pytest.mark.parametrize("E", [32, 4096])
+def test_consol_absorb_matches_plain(cuda_device, hazard, E):
+    """The three modes against the plain versions; E=4096 puts the used
+    carry (256 KB) in the global scratch instead of shared memory."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    a = _t(cuda_device, *examples.absorb_case(hazard, 3, E=E))
+    ps = _t(cuda_device, *examples.prescreen_tables(3))
+    dn = _t(cuda_device, *examples.dense_case(hazard, 3, E=E))
+    ffd_cuda.reset_launches()
+    assert torch.equal(ct.deletions_feasible(*a),
+                       ct._deletions_feasible_ref(*a))
+    assert torch.equal(ct.replacements_prescreen(*a[:4], *ps[:5], *a[4:],
+                                                 ps[5]),
+                       ct._replacements_prescreen_ref(*a[:4], *ps[:5],
+                                                      *a[4:], ps[5]))
+    assert torch.equal(ct.deletions_feasible_dense(*dn),
+                       ct._deletions_feasible_dense_ref(*dn))
+    assert {k: v for k, v in ffd_cuda.LAUNCHES.items() if v} == dict(
+        consol_absorb_deletions=1, consol_absorb_prescreen=1,
+        consol_absorb_dense=1)
+
+
+def test_consolidation_evaluator_on_card_matches_plain(cuda_device):
+    """config 4 at 24 nodes: the three walks on the card equal the plain
+    versions' walks, and the subset rows are equal lane for lane."""
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.solver.consolidation import \
+        CUDAConsolidationEvaluator
+    fenv.reset_pod_counter()
+    base, cands = examples.config4(fenv.Environment(), n_nodes=24)
+    gpu = CUDAConsolidationEvaluator()
+    cpu = CUDAConsolidationEvaluator(device="cpu")
+    rows = {}
+    for ev in (gpu, cpu):
+        inner = ev.solver.dispatch_subsets
+
+        def keep(arrays, ev=ev, inner=inner, **kw):
+            rows[ev.device.type] = inner(arrays, **kw)
+            return rows[ev.device.type]
+        ev.solver.dispatch_subsets = keep
+    want = examples.single_consolidation_device(cpu, base, cands)
+    assert examples.single_consolidation_device(gpu, base, cands) == want
+    assert (rows["cuda"] == rows["cpu"]).all()
+    assert examples.single_consolidation_batched(
+        gpu, gpu.solver, base, cands) == want
+    assert examples.multi_consolidation(gpu, gpu.solver, base,
+                                        cands[-8:]) == \
+        examples.multi_consolidation(cpu, cpu.solver, base, cands[-8:])

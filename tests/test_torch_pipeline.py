@@ -252,7 +252,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for m in ('models.delta', 'solver.incremental', 'ops.ffd_cuda',\n"
-        "          'ops.hostpack', 'ops.ffd_torch', 'solver.cuda'):\n"
+        "          'ops.hostpack', 'ops.ffd_torch', 'solver.cuda',\n"
+        "          'ops.consolidation_torch', 'ops.consolidation_cuda',\n"
+        "          'solver.consolidation', 'controllers.disruption'):\n"
         "    assert pkg.__name__ + '.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0].startswith('jax')\n"
         "       or m == 'karpenter_provider_aws_tpu'\n"
