@@ -46,8 +46,9 @@ Phases (any failure exits non-zero before the result line):
    same deletion checks as a heterogeneous batch (the dense path); each
    a warm-up and timed rounds with every launch counter set to 0 just
    before and read just after. Every lane's row or answer must equal the
-   plain versions' on the same CUDA tensors, every decision the plain
-   path's, and the batched branch's decision the whole-fleet walk's;
+   plain versions' on the same CUDA tensors, and every decision the plain
+   path's: the plain rows (a, b) or the plain evaluator on the CPU (c),
+   with every simulate by ``CUDASolver(device="cpu")``;
 7. kernel times with CUDA events at the main paths' shapes, beside the
    plain versions' times, the bound the shapes allow and, for the bank
    kernels, ``Tensor.copy_`` of the same bytes; the suffix solve's device
@@ -493,9 +494,11 @@ def check_k7_synthetic(cmp, dev):
     """The K7 kernels on the seeded hazard cases of ``examples``: the
     three consol_absorb modes (E=32 with the carry in shared memory,
     E=4096 in the global scratch), and whole subset rounds piece by
-    piece. Returns the number of cases."""
+    piece, and one round of 65,552 lanes (more than grid y holds). Returns
+    the number of cases."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
     from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
     from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
 
@@ -532,7 +535,30 @@ def check_k7_synthetic(cmp, dev):
                                      t["keep"], t["removed_price"], **st),
                 f"{what} round")
             cases += 1
-    return cases
+    # more lanes than grid y's 65,535 blocks (subset_gather and
+    # ffd_slot_headroom spread the lane over grid y and z): 16 lanes tiled
+    # 4,097 times
+    arena, tprice, lanes, st = examples.subset_case("dead_nodes", 5)
+    reps = 4097
+    inp = ft.kernel_inputs_from_numpy(arena, dev)
+    tp = torch.from_numpy(tprice).to(dev)
+    order = ("gid", "n", "dead", "keep", "removed_price")
+    one = [torch.from_numpy(lanes[k]).to(dev) for k in order]
+    tiled = examples.tile_lanes(lanes, reps)
+    many = [torch.from_numpy(tiled[k]).to(dev) for k in order]
+
+    def rep(x):
+        return x.repeat((reps,) + (1,) * (x.dim() - 1))
+    what = f"subset {16 * reps} lanes"
+    g_k = cc.subset_gather(inp, *many[:4])
+    g_p = ct._subset_gather_ref(inp, *one[:4])
+    for f in ct.LANE_FIELDS:
+        cmp("subset_gather", getattr(g_k, f), rep(getattr(g_p, f)),
+            f"{what} {f}")
+    del g_k, g_p
+    cmp("subset_summary", ct.subset_solve(inp, tp, *many, **st),
+        rep(ct._subset_solve_ref(inp, tp, *one, **st)), f"{what} round")
+    return cases + 1
 
 
 # ---------------------------------------------------------------------------
@@ -613,18 +639,21 @@ def subset_rows_check(label, cap, cmp, dev):
     tp = torch.from_numpy(kw["tprice"]).to(dev)
     t = {k: torch.from_numpy(kw[k]).to(dev)
          for k in ("gid", "n", "dead", "keep", "removed_price")}
-    plain = ct._subset_solve_ref(arena, tp, t["gid"], t["n"], t["dead"],
-                                 t["keep"], t["removed_price"],
-                                 n_max=kw["n_max"], E=kw["E"], P=kw["P"],
-                                 chunk=LANE_CHUNK).cpu()
+    B = rows.shape[0]
+    plain = torch.cat([ct._subset_solve_ref(
+        arena, tp, *(t[k][b0:b0 + LANE_CHUNK] for k in (
+            "gid", "n", "dead", "keep", "removed_price")),
+        n_max=kw["n_max"], E=kw["E"], P=kw["P"]).cpu()
+        for b0 in range(0, B, LANE_CHUNK)])
     cmp("subset_summary", torch.from_numpy(rows), plain,
-        f"{label}: all {rows.shape[0]} lane rows")
+        f"{label}: all {B} lane rows")
     return plain.numpy(), (arena, tp, t, kw)
 
 
 class RowsEvaluator:
     """The plain path's evaluator for a decision check: verdicts from
-    the plain versions' rows, the simulate on ``solver``."""
+    the plain versions' rows, the simulate on ``solver`` (the plain
+    versions on the CPU)."""
 
     def __init__(self, rows, solver):
         from karpenter_provider_aws_tpu_torch.controllers.disruption import \
@@ -647,7 +676,8 @@ def consolidation_phase(cmp=None, device=None, fleet=C4_FLEET,
     of the four runs summed, records, captures for the timings). With
     ``cmp`` (on the card) every lane is held against the plain versions
     on the same CUDA tensors and every decision against the plain
-    path's. Raises on any failed check."""
+    path's, whose simulates run the plain versions on the CPU. Raises on
+    any failed check."""
     import copy
 
     import torch
@@ -659,6 +689,8 @@ def consolidation_phase(cmp=None, device=None, fleet=C4_FLEET,
         CUDAConsolidationEvaluator
     dev = torch.device(device or "cuda")
     recs, caps, total = {}, {}, {}
+    # the plain path's simulate: the plain versions on the CPU
+    plain_solver = CUDASolver(device="cpu", incremental=False)
 
     def add(launches):
         for k, v in launches.items():
@@ -692,9 +724,7 @@ def consolidation_phase(cmp=None, device=None, fleet=C4_FLEET,
         if dev.type == "cuda":
             check_subset_lanes("fleet", arena, tp, t, st, cmp)
         plain = examples.single_consolidation_device(
-            RowsEvaluator(rows, CUDASolver(device=device,
-                                           incremental=False)),
-            base, cands, queries)
+            RowsEvaluator(rows, plain_solver), base, cands, queries)
         if plain != got:
             raise AssertionError(f"fleet: decision {got[:2]} != plain path "
                                  f"{plain[:2]}")
@@ -717,8 +747,7 @@ def consolidation_phase(cmp=None, device=None, fleet=C4_FLEET,
     if cmp is not None:
         rows, _ = subset_rows_check("prefix", sub, cmp, dev)
         plain = examples.multi_consolidation(
-            RowsEvaluator(rows, None),
-            CUDASolver(device=device, incremental=False), base, pre, pq)
+            RowsEvaluator(rows, None), plain_solver, base, pre, pq)
         if plain != got:
             raise AssertionError(f"prefix: decision {got[:2]} != plain path "
                                  f"{plain[:2]}")
@@ -747,13 +776,12 @@ def consolidation_phase(cmp=None, device=None, fleet=C4_FLEET,
                  ct._replacements_prescreen_ref)):
             a, kw, out = cap.last
             cmp(name, out, ref(*a, **kw), f"batched: all {len(out)} lanes")
-        # the plain path's answers equal the kernels' (just checked), so
-        # its walk is this one; hold it against the whole-fleet walk too
-        dev_walk = examples.single_consolidation_device(
-            CUDAConsolidationEvaluator(device=device), base_c, cands_c)
-        if dev_walk != got:
-            raise AssertionError("batched: decision differs from the "
-                                 "whole-fleet walk's")
+        plain = examples.single_consolidation_batched(
+            CUDAConsolidationEvaluator(device="cpu"), plain_solver, base_c,
+            cands_c)
+        if plain != got:
+            raise AssertionError(f"batched: decision {got[:2]} != plain "
+                                 f"path {plain[:2]}")
     log(f"[c4] (c) batched branch at {batched} nodes: {json.dumps(rec)}")
 
     # (d) the same deletion checks as a heterogeneous batch: every

@@ -228,7 +228,9 @@ consol_absorb_kernel(AbsorbArgs a) {
 
 __global__ void __launch_bounds__(kGatherThreads)
 subset_gather_kernel(GatherArgs a) {
-    const i64 b = blockIdx.y;
+    const unsigned lane = grid_lane();
+    if (lane >= a.B) return;   // the (y, z) grid's spare lanes
+    const i64 b = lane;
     const i64 i0 = (i64)blockIdx.x * blockDim.x + threadIdx.x;
     const i64 step = (i64)gridDim.x * blockDim.x;
     const i64 Gq = a.Gq, T = a.T, ZC = a.ZC, D = a.D, Z = a.Z, C = a.C;
@@ -340,7 +342,8 @@ int karp_subset_gather(const GatherArgs* a, void* stream) {
     for (i64 s : sizes) most = s > most ? s : most;
     i64 bx = (most + kGatherThreads - 1) / kGatherThreads;
     bx = bx < 1 ? 1 : (bx > 64 ? 64 : bx);
-    dim3 grid((unsigned)bx, (unsigned)a->B);
+    dim3 grid((unsigned)bx);
+    lane_grid(a->B, &grid);
     subset_gather_kernel<<<grid, kGatherThreads, 0, (cudaStream_t)stream>>>(
         *a);
     return (int)cudaGetLastError();

@@ -19,6 +19,20 @@ typedef unsigned char u8;
 
 #define KARP_BIG (1LL << 60)
 
+// A lane axis on grid y and z: y holds at most 65,535 blocks, so more
+// lanes take z = ceil(L / 65,535) layers of y = ceil(L / z) blocks, and a
+// block whose lane is past L returns. With L <= 65,535, z = 1 and the
+// lane is blockIdx.y.
+inline void lane_grid(i64 L, dim3* grid) {
+    const i64 z = L > 65535 ? (L + 65534) / 65535 : 1;
+    grid->y = (unsigned)((L + z - 1) / z);
+    grid->z = (unsigned)z;
+}
+
+__device__ __forceinline__ unsigned grid_lane() {
+    return blockIdx.z * gridDim.y + blockIdx.y;
+}
+
 // Number of pointer fields at the head of FfdArgs (A .. leftover).
 #define KARP_FFD_PTRS 32
 

@@ -8,11 +8,12 @@
 // with no synchronisation in between.
 //
 // The lane axis (FfdArgs.L, lane_bytes; ffd_common.cuh): L independent
-// solves of one shape in each launch, lane on a grid axis (y of the
-// headroom grid, x of the commit grid). The kernel bodies read the lane's
-// own view of the arguments and are otherwise those of a single solve; a
-// consolidation subset round (consolidation.cu) runs its B lanes this
-// way, 2*G launches whatever B is.
+// solves of one shape in each launch. The lane rides grid y and z of the
+// headroom grid (lane_grid; y alone holds 65,535 blocks) and grid x of
+// the commit grid. The kernel bodies read the lane's own view of the
+// arguments and are otherwise those of a single solve; a consolidation
+// subset round (consolidation.cu) runs its B lanes this way, 2*G
+// launches whatever B is.
 //
 // ffd_slot_headroom (steps 1-3): one block per slot row. The block's
 //   threads stride over the T instance types, compute the candidate mask
@@ -76,7 +77,9 @@ __global__ void __launch_bounds__(kHeadroomThreads)
 ffd_slot_headroom_kernel(FfdArgs args, i64 g) {
     extern __shared__ i64 dyn[];   // h1 [K*V], sel [K]
     __shared__ i64 red[33];
-    const FfdArgs a = lane_view(args, blockIdx.y);
+    const unsigned lane = grid_lane();
+    if (lane >= args.L) return;   // the (y, z) grid's spare lanes
+    const FfdArgs a = lane_view(args, lane);
     const i64 s = blockIdx.x;
     const i64 T = a.T, D = a.D, P = a.P, K = a.K, V = a.V, M = a.M;
     const i64* R = a.R + g * D;
@@ -339,7 +342,8 @@ int karp_ffd_slot_headroom(const FfdArgs* a, long long g, void* stream) {
     size_t smem = (size_t)(a->K * a->V + a->K) * sizeof(i64);
     int err = set_smem((const void*)ffd_slot_headroom_kernel, smem);
     if (err) return err;
-    dim3 grid((unsigned)a->N, (unsigned)a->L);
+    dim3 grid((unsigned)a->N);
+    lane_grid(a->L, &grid);
     ffd_slot_headroom_kernel<<<grid, kHeadroomThreads, smem,
                                (cudaStream_t)stream>>>(*a, g);
     return (int)cudaGetLastError();

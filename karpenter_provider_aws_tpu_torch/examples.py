@@ -269,6 +269,13 @@ def subset_case(hazard: str, seed: int, Gu: int = 6, Ep: int = 16,
     return arena, tprice, lanes, dict(n_max=2, E=Ep, P=P)
 
 
+def tile_lanes(lanes: dict, reps: int) -> dict:
+    """Subset lanes repeated ``reps`` times along the lane axis (a round
+    wider than a grid axis holds, from a small case)."""
+    return {k: np.tile(v, (reps,) + (1,) * (v.ndim - 1))
+            for k, v in lanes.items()}
+
+
 def pack_statics(statics: dict) -> tuple:
     """Positional statics of ``hostpack.pack_inputs1`` (F=1)."""
     s = statics

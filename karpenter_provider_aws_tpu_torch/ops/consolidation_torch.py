@@ -35,8 +35,6 @@ other.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from .ffd_torch import BIG, KernelInputs, _solve_scan_ref
@@ -165,28 +163,20 @@ def _subset_summary_ref(leftover, num_nodes, types, keep, tprice,
 
 
 def _subset_solve_ref(arena: KernelInputs, tprice, gid, n, dead, keep,
-                      removed_price, *, n_max: int, E: int, P: int,
-                      chunk: Optional[int] = None) -> torch.Tensor:
+                      removed_price, *, n_max: int, E: int,
+                      P: int) -> torch.Tensor:
     """[B, 5]: per lane, the gather, the whole scan (``_solve_scan_ref``)
-    and the summary; lanes in chunks of ``chunk`` (default all) bound the
-    gathered tensors' memory."""
-    B = gid.shape[0]
-    step = chunk or B
-    rows = []
-    for b0 in range(0, B, step):
-        sl = slice(b0, b0 + step)
-        lanes = _subset_gather_ref(arena, gid[sl], n[sl], dead[sl], keep[sl])
-        lefts, finals = [], []
-        for b in range(lanes.R.shape[0]):
-            _, left, final = _solve_scan_ref(lane_inputs(lanes, b), n_max, E,
-                                             P)
-            lefts.append(left)
-            finals.append(final)
-        rows.append(_subset_summary_ref(
-            torch.stack(lefts), torch.stack([f.num_nodes for f in finals]),
-            torch.stack([f.types for f in finals]), keep[sl], tprice,
-            removed_price[sl], E))
-    return torch.cat(rows)
+    and the summary."""
+    lanes = _subset_gather_ref(arena, gid, n, dead, keep)
+    lefts, finals = [], []
+    for b in range(lanes.R.shape[0]):
+        _, left, final = _solve_scan_ref(lane_inputs(lanes, b), n_max, E, P)
+        lefts.append(left)
+        finals.append(final)
+    return _subset_summary_ref(
+        torch.stack(lefts), torch.stack([f.num_nodes for f in finals]),
+        torch.stack([f.types for f in finals]), keep, tprice, removed_price,
+        E)
 
 
 # ---------------------------------------------------------------------------

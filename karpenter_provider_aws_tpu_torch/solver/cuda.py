@@ -518,7 +518,8 @@ class CUDASolver(Solver):
         return takes, out["leftover"][:G], final
 
     # -- consolidation's whole-fleet search ------------------------------
-    #: the consolidation evaluator's subset search runs on this solver
+    #: the solver interface's flag for a subset kernel; the reference's
+    #: router reads it, the port's evaluator (no router) does not
     supports_subset_kernel = True
 
     def arena_epoch(self):

@@ -38,6 +38,8 @@ import karpenter_provider_aws_tpu_torch.apis.resources as res_port
 import karpenter_provider_aws_tpu_torch.fake.environment as env_port
 import karpenter_provider_aws_tpu_torch.solver.types as types_port
 from karpenter_provider_aws_tpu.controllers.disruption import \
+    DisruptionController
+from karpenter_provider_aws_tpu.controllers.disruption import \
     ReplacementQuery as RefQuery
 from karpenter_provider_aws_tpu.ops import consolidation_jax as cj
 from karpenter_provider_aws_tpu.solver import CPUSolver
@@ -156,8 +158,8 @@ def test_subset_solve_matches_jax(hazard):
 def test_subset_pieces_compose():
     """The gather, the lane-stacked carry and the summary: the gather of
     a lane equals the lane's own masked inputs, carry0 over lanes stacks
-    the per-lane carries, and _subset_solve_ref in chunks equals it
-    whole."""
+    the per-lane carries, and _subset_solve_ref over lane slices equals
+    it whole (the lanes are independent)."""
     arena, tprice, lanes, st = _subset_case("dead_nodes", seed=3)
     inp = ft.kernel_inputs_from_numpy(arena, "cpu")
     t = {k: torch.from_numpy(v) for k, v in lanes.items()}
@@ -174,9 +176,11 @@ def test_subset_pieces_compose():
     whole = ct._subset_solve_ref(inp, torch.from_numpy(tprice), t["gid"],
                                  t["n"], t["dead"], t["keep"],
                                  t["removed_price"], **st)
-    chunked = ct._subset_solve_ref(inp, torch.from_numpy(tprice),
-                                   t["gid"], t["n"], t["dead"], t["keep"],
-                                   t["removed_price"], chunk=5, **st)
+    chunked = torch.cat([ct._subset_solve_ref(
+        inp, torch.from_numpy(tprice),
+        *(t[k][b0:b0 + 5] for k in ("gid", "n", "dead", "keep",
+                                    "removed_price")), **st)
+        for b0 in range(0, 16, 5)])
     assert torch.equal(whole, chunked)
 
 
@@ -431,31 +435,53 @@ def test_subset_rows_and_gates_match_reference(both_counters):
 # decision parity on config 4
 # ---------------------------------------------------------------------------
 
-def _ref_multi_sequential(solver, base, cands):
-    """The reference controller's multi-node binary search with every
-    prefix simulated (no pre-screen): the sequential oracle."""
-    best = ("none", (), "")
-    lo, hi = 2, len(cands)
-    while lo <= hi:
-        mid = (lo + hi) // 2
-        pre = cands[:mid]
-        res = solver.solve(bench._c4_replacement_snapshot(base, (
-            "", [p for c in pre for p in c[1]],
-            set().union(*(c[2] for c in pre)), sum(c[3] for c in pre))))
-        if res.unschedulable or len(res.new_nodes) > 1:
-            hi = mid - 1
-        else:
-            best, lo = ("multi", tuple(c[0] for c in pre),
-                        res.decision_fingerprint()), mid + 1
-    return best
+def _ref_multi_controller(solver, ev, base, cands):
+    """The reference controller's own ``_multi_consolidation`` and
+    ``_try_prefix`` (all-spot rule included) on config 4's candidates:
+    budgets, age and volume topology stubbed to pass, every simulate by
+    ``solver`` on the price-filtered snapshot."""
+    ctype = {n.name: n.labels.get(L_ref.CAPACITY_TYPE, "")
+             for n in base.existing_nodes}
+    results = {}
+
+    def simulate(cs, price_cap):
+        names = tuple(c.name for c in cs)
+        results[names] = res = solver.solve(bench._c4_replacement_snapshot(
+            base, ("", [p for c in cs for p in c.pods], set(names),
+                   price_cap)))
+        return None if res.unschedulable else res
+    ctl = types.SimpleNamespace(
+        _consolidatable=lambda cs: cs, _budget_allows=lambda cs, why: True,
+        provisioner=types.SimpleNamespace(
+            _resolve_volume_topology=lambda pods: None),
+        evaluator=ev, _round_base=base, _simulate=simulate)
+    ctl._try_prefix = lambda cs: DisruptionController._try_prefix(ctl, cs)
+    cmd = DisruptionController._multi_consolidation(ctl, [
+        types.SimpleNamespace(name=c[0], node=types.SimpleNamespace(
+            name=c[0]), pods=c[1], price=c[3], capacity_type=ctype[c[0]])
+        for c in cands])
+    if cmd is None:
+        return ("none", (), "")
+    names = tuple(c.name for c in cmd.candidates)
+    return ("multi", names, results[names].decision_fingerprint())
 
 
-def test_config4_decisions_match_reference(both_counters):
+def _to_spot(base, L):
+    for n in base.existing_nodes:
+        n.labels = dict(n.labels, **{L.CAPACITY_TYPE: L.CAPACITY_TYPE_SPOT})
+
+
+def _config4_walks(capacity):
+    """The three walks on config 4 at 24 nodes against the reference;
+    returns the last multi-node decision."""
     n_nodes = 24
     base_r, cands_r = bench.build_config4(env_ref.Environment(),
                                           n_nodes=n_nodes)
     base_p, cands_p = examples.config4(env_port.Environment(),
                                        n_nodes=n_nodes)
+    if capacity == "spot":
+        _to_spot(base_r, L_ref)
+        _to_spot(base_p, L_port)
     cpu = CPUSolver()
     want = bench._c4_decide_sequential(cpu, base_r, cands_r)
     assert want[0] == "replace"
@@ -467,12 +493,26 @@ def test_config4_decisions_match_reference(both_counters):
     # each candidate's pods are a signature of their own, so a prefix of
     # k candidates scans k groups: short prefixes keep the plain scans
     # small (unreplaceable only, then replaceable only)
+    ref_ev = TPUConsolidationEvaluator(backend="numpy")
     for sl in (slice(0, 5), slice(n_nodes - 8, None)):
         got = examples.multi_consolidation(ev, ev.solver, base_p,
                                            cands_p[sl])
-        assert got == _ref_multi_sequential(cpu, base_r, cands_r[sl])
-    assert got[0] == "multi" and len(got[1]) >= 2
+        assert got == _ref_multi_controller(cpu, ref_ev, base_r,
+                                            cands_r[sl])
     assert ev.fallbacks == {}
+    return got
+
+
+def test_config4_decisions_match_reference(both_counters):
+    got = _config4_walks("on-demand")
+    assert got[0] == "multi" and len(got[1]) >= 2
+
+
+def test_config4_all_spot_prefix_matches_reference(both_counters):
+    """Every node spot: the multi-node prefixes meet the all-spot rule
+    (no spot replacement for a merged prefix), which turns down the
+    replaceable prefix that the on-demand fleet merges."""
+    assert _config4_walks("spot") == ("none", (), "")
 
 
 # ---------------------------------------------------------------------------

@@ -321,6 +321,33 @@ def test_subset_kernels_match_plain(cuda_device, hazard):
     assert torch.equal(whole, plain)
 
 
+def test_subset_round_past_grid_y(cuda_device):
+    """65,552 lanes (16 tiled 4,097 times), more than grid y's 65,535
+    blocks (subset_gather and ffd_slot_headroom spread the lane over grid
+    y and z): the gathered lanes and the rows equal the plain versions'
+    on the 16 lanes, tiled the same way."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    arena, tprice, lanes, st = examples.subset_case("dead_nodes", seed=5)
+    reps = 4097
+    inp = ft.kernel_inputs_from_numpy(arena, cuda_device)
+    tp = torch.from_numpy(tprice).to(cuda_device)
+    order = ("gid", "n", "dead", "keep", "removed_price")
+    one = [torch.from_numpy(lanes[k]).to(cuda_device) for k in order]
+    tiled = examples.tile_lanes(lanes, reps)
+    many = [torch.from_numpy(tiled[k]).to(cuda_device) for k in order]
+
+    def rep(x):
+        return x.repeat((reps,) + (1,) * (x.dim() - 1))
+    g_k = cc.subset_gather(inp, *many[:4])
+    g_p = ct._subset_gather_ref(inp, *one[:4])
+    for f in ct.LANE_FIELDS:
+        assert torch.equal(getattr(g_k, f), rep(getattr(g_p, f))), f
+    del g_k
+    assert torch.equal(ct.subset_solve(inp, tp, *many, **st),
+                       rep(ct._subset_solve_ref(inp, tp, *one, **st)))
+
+
 @pytest.mark.parametrize("hazard", examples.ABSORB_HAZARDS)
 @pytest.mark.parametrize("E", [32, 4096])
 def test_consol_absorb_matches_plain(cuda_device, hazard, E):
