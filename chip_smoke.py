@@ -102,12 +102,28 @@ C4_ROUNDS = 10
 C4_DENSE_ROUNDS = 3
 LANE_CHUNK = 256
 
+#: the G-axis path: BASELINE config 7 at its published size (50,000
+#: pods, 10,000 signatures), timed solves after one warm-up, and the
+#: window of group steps over which each pruned kernel is held against
+#: its plain part (from the first carry and from a mid-scan carry)
+C7_PODS = 50_000
+C7_SIGS = 10_000
+C7_ROUNDS = 3
+C7_WINDOW = 512
+
+#: the batch path: lanes per solve_batch (examples.batch_snapshots) and
+#: timed rounds after one warm-up
+BATCH_SIZES = (8, 64)
+BATCH_ROUNDS = 5
+
 #: the kernels of the warm-tick path
 K3_PATH = ("unpack_bits", "ffd_slot_headroom", "ffd_group_commit",
            "pack_outputs", "ffd_bank_store", "ffd_bank_load")
 
 K7_SRC = "karpenter_provider_aws_tpu_torch/csrc/consolidation.cu"
 K7_REF = "karpenter_provider_aws_tpu/ops/consolidation_jax.py"
+K6_SRC = "karpenter_provider_aws_tpu_torch/csrc/pruned.cu"
+FFD_REF = "karpenter_provider_aws_tpu/ops/ffd_jax.py"
 
 KERNELS = {
     "unpack_bits": dict(
@@ -133,7 +149,18 @@ KERNELS = {
     "consol_absorb_dense": dict(source=K7_SRC, replaces=f"{K7_REF}:142"),
     "subset_gather": dict(source=K7_SRC, replaces=f"{K7_REF}:232"),
     "subset_summary": dict(source=K7_SRC, replaces=f"{K7_REF}:253"),
+    "ffd_pruned_select": dict(source=K6_SRC, replaces=f"{FFD_REF}:910"),
+    "ffd_pruned_headroom": dict(source=K6_SRC, replaces=f"{FFD_REF}:939"),
+    "ffd_pruned_commit": dict(source=K6_SRC, replaces=f"{FFD_REF}:957"),
 }
+#: the K1 kernels on their lane axis (the batch path), one record per
+#: batch width: the kernel, its width, and the reference's vmap they
+#: serve (solve_scan_packed1_many)
+for _b in BATCH_SIZES:
+    for _k in ("unpack_bits", "pack_outputs"):
+        KERNELS[f"{_k}_lanes_b{_b}"] = dict(
+            source="karpenter_provider_aws_tpu_torch/csrc/packed_io.cu",
+            replaces=f"{FFD_REF}:1211")
 
 
 def log(*a):
@@ -812,7 +839,333 @@ def consolidation_phase(cmp=None, device=None, fleet=C4_FLEET,
 
 
 # ---------------------------------------------------------------------------
-# phase 7: timing and bounds
+# phase 8: the G-axis path (the pruned scan, K6)
+# ---------------------------------------------------------------------------
+
+def check_pruned_window(label, inp, carry, g0, steps, st, S, cmp,
+                        keep=()):
+    """Each K6 kernel against its plain part over groups [g0, g0+steps)
+    from ``carry`` (not modified): the plain parts carry the state, and
+    each step the kernels start from the plain carry. Returns the plain
+    carry after the window and the states (g, carry) at the steps in
+    ``keep`` (for the timing phase)."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    E, P = st["E"], st["P"]
+    carry = ft.CarryP(*[t.clone() for t in carry])
+    ps = fc.PrunedState(inp, ft.CarryP(*[t.clone() for t in carry]), E=E,
+                        P=P, S=S)
+    kept = []
+    for g in range(g0, g0 + steps):
+        if g in keep:
+            kept.append((g, ft.CarryP(*[t.clone() for t in carry])))
+        for dst, src in zip(ps.carry, carry):
+            dst.copy_(src)
+        sel, cnt = ft._pruned_select_ref(inp, carry, g, E=E, P=P, S=S)
+        fc.ffd_pruned_select(ps, g)
+        cmp("ffd_pruned_select", ps.sel, sel, f"{label} g={g} sel")
+        cmp("ffd_pruned_select", ps.cnt, cnt, f"{label} g={g} cnt")
+        cand_s, k_s = ft._pruned_headroom_ref(inp, carry, g, sel)
+        fc.ffd_pruned_headroom(ps, g)
+        cmp("ffd_pruned_headroom", ps.cand, cand_s, f"{label} g={g} cand")
+        cmp("ffd_pruned_headroom", ps.ks, k_s, f"{label} g={g} ks")
+        carry, take, n_rem = ft._pruned_commit_ref(
+            inp, carry, g, sel, cnt, cand_s, k_s, E=E, P=P, S=S)
+        fc.ffd_pruned_commit(ps, g)
+        for f, got, want in zip(ft.CarryP._fields, ps.carry, carry):
+            cmp("ffd_pruned_commit", got, want, f"{label} g={g} {f}")
+        cmp("ffd_pruned_commit", ps.takes[g], take.to(torch.int32),
+            f"{label} g={g} takes")
+        cmp("ffd_pruned_commit", ps.leftover[g:g + 1], n_rem.reshape(1),
+            f"{label} g={g} leftover")
+    return carry, kept
+
+
+def g_axis_phase(cmp, device=None, n_pods=C7_PODS, n_sigs=C7_SIGS,
+                 rounds=C7_ROUNDS, window=C7_WINDOW, max_groups=None):
+    """Drive config 7 through ``CUDASolver().solve`` on the pruned
+    kernel (``device`` default cuda; the rehearsal passes
+    cpu and a small ``max_groups`` so its small G still rides the pruned
+    path). On the card, first each K6 kernel against its plain part over
+    ``window`` steps from the first carry and from a mid-scan carry, and
+    at S = 1 from the first carry. Returns (launches of the measured
+    run, summary, timing states)."""
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.models.delta import \
+        full_existing_encode
+    from karpenter_provider_aws_tpu_torch.models.encoding import \
+        encode_snapshot
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+
+    def solver_for(dev, **attrs):
+        s = CUDASolver(device=dev)
+        if max_groups is not None:
+            s.dev_max_groups = max_groups
+        for k, v in attrs.items():
+            setattr(s, k, v)
+        return s
+
+    fenv.reset_pod_counter()
+    env = fenv.Environment()
+    t0 = time.perf_counter()
+    snap = examples.config7(env, n_pods=n_pods, n_sigs=n_sigs)
+    build_s = time.perf_counter() - t0
+    solver = solver_for(device)
+    enc = encode_snapshot(snap)
+    buf, st = solver.pack(enc, *full_existing_encode(enc, []))
+    st = dict(st, n_max=solver._bucket)
+    T, D, Z, C, G, E, P = (st[k] for k in "T D Z C G E P".split())
+    N = E + st["n_max"]
+    S = min(solver.dev_pruned_slots, N)
+    log(f"[config7] {n_pods} pods, {len(enc.groups)} signatures, built in "
+        f"{build_s:.2f} s; statics {st}, S {S}, arena {buf.size} words")
+    states, plain_bail = [], None
+    if solver.device.type == "cuda":
+        inp = ft._packed_inputs_ref(torch.from_numpy(buf).to(solver.device),
+                                    T, D, Z, C, G, E, P, 0, 0, 0)
+        c0 = ft.carry0_pruned(inp, N, E)
+        g_mid = len(enc.groups) // 2
+        _, kept = check_pruned_window(
+            "config7 first", inp, c0, 0, window, st, S, cmp,
+            keep=range(0, window, window // 4))
+        states += kept
+        ps = fc.PrunedState(inp, ft.carry0_pruned(inp, N, E), E=E, P=P,
+                            S=S)
+        for g in range(g_mid):
+            fc.ffd_pruned_select(ps, g)
+            fc.ffd_pruned_headroom(ps, g)
+            fc.ffd_pruned_commit(ps, g)
+        _, kept = check_pruned_window(
+            "config7 mid", inp, ps.carry, g_mid, window, st, S, cmp,
+            keep=range(g_mid, g_mid + window, window // 4))
+        states += kept
+        fin, _ = check_pruned_window("config7 S=1", inp, c0, 0, window, st,
+                                     1, cmp)
+        plain_bail = int(fin.bail)
+        torch.cuda.synchronize()
+        log(f"[config7] K6 kernels == plain parts over {window} steps from "
+            f"the first carry and from group {g_mid} (S={S}), and from the "
+            f"first carry at S=1 (bail after the window: {plain_bail}); "
+            f"checks {dict((k, cmp.checks[k]) for k in KERNELS if 'pruned' in k)}")
+        del inp, ps, c0, fin
+
+    fc.reset_launches()
+    times, splits, stats = [], [], []
+    res = cold = None
+    for i in range(rounds + 1):
+        t0 = time.perf_counter()
+        res = solver.solve(snap)
+        dt = (time.perf_counter() - t0) * 1e3
+        stats.append(dict(solver.last_dispatch_stats))
+        if i:   # round 0 is the warm-up: the cold solve
+            times.append(dt)
+            splits.append(solver.last_phase_stats)
+        else:
+            cold = dict(solver.last_phase_stats, wall_ms=dt)
+    launches = dict(fc.LAUNCHES)
+    kinds = {(d["kernel"], d["bails"]) for d in stats}
+    if kinds != {("pruned", 0)}:
+        raise AssertionError(f"config 7 solves not all served by the "
+                             f"pruned kernel without a bail: {kinds}")
+    if solver.device.type == "cuda":
+        missing = [k for k in ("unpack_bits", "ffd_pruned_select",
+                               "ffd_pruned_headroom", "ffd_pruned_commit",
+                               "pack_outputs") if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the G-axis "
+                                 f"path: {missing}")
+    # the host engine on the CPU: the pruned cap at 0 routes it there
+    host = CUDASolver(device="cpu", incremental=False)
+    host.dev_max_groups_pruned = 0
+    t0 = time.perf_counter()
+    want = host.solve(snap)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if host.last_dispatch_stats["kernel"] != "host":
+        raise AssertionError("the host-engine reference did not run on the "
+                             "host engine")
+    if res.decision_fingerprint() != want.decision_fingerprint():
+        raise AssertionError("config 7: pruned-kernel decisions differ from "
+                             "the host engine's")
+    placed = sum(len(n.pod_names) for n in res.new_nodes)
+    if placed + len(res.existing_assignments) + len(res.unschedulable) \
+            != len(snap.pods):
+        raise AssertionError("config 7: not every pod placed or reported")
+    # the forced bail: S = 1 on the same snapshot
+    s1 = solver_for(device, dev_pruned_slots=1)
+    r1 = s1.solve(snap)
+    d1 = s1.last_dispatch_stats
+    if (d1["kernel"], d1["reason"], d1["bails"]) != \
+            ("host", "pruned_bail", 1):
+        raise AssertionError(f"the S=1 solve did not bail to the host "
+                             f"engine: {d1}")
+    if plain_bail is not None and plain_bail != 1:
+        raise AssertionError("the plain parts did not bail at S=1")
+    if r1.decision_fingerprint() != want.decision_fingerprint():
+        raise AssertionError("config 7: the host-served S=1 solve differs")
+    split = {k: statistics.median(x[k] for x in splits)
+             for k in ("group_ms", "encode_ms", "kernel_ms", "decode_ms")}
+    summary = dict(p50_ms=statistics.median(times), p99_ms=pct(times, 0.99),
+                   rounds=rounds, median_split_ms=split,
+                   launches_per_solve=stats[-1]["launches"],
+                   bails=sum(d["bails"] for d in stats),
+                   slot_bucket=stats[-1]["slot_bucket"], groups=G,
+                   signatures=len(enc.groups), host_engine_ms=host_ms,
+                   cold=cold,
+                   s1=dict(kernel=d1["kernel"], reason=d1["reason"],
+                           bails=d1["bails"]))
+    log(f"[config7] {res.summary()}; cold solve {json.dumps(cold)}; solve "
+        f"p50 {summary['p50_ms']:.3f} ms "
+        f"p99 {summary['p99_ms']:.3f} ms over {rounds} rounds; median split "
+        f"{json.dumps(split)}; launches per solve "
+        f"{summary['launches_per_solve']}; bails 0; fingerprint == host "
+        f"engine (CPU, {host_ms:.0f} ms): True; S=1: {summary['s1']}, "
+        f"fingerprint equal")
+    return launches, summary, (buf, st, S, states)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the batch path (K4)
+# ---------------------------------------------------------------------------
+
+def batch_phase(cmp, device=None, sizes=BATCH_SIZES, rounds=BATCH_ROUNDS,
+                n_sigs=96):
+    """Drive ``CUDASolver(incremental=False).solve_batch`` on
+    ``examples.batch_snapshots`` at each width in ``sizes``: one
+    ``_dispatch_many`` per batch of 1 + 2*Gp + 1 launches; every lane's
+    output row equal to the single packed solve of its arena on the card
+    and to the plain versions, every decision to a single solve's.
+    Returns ({B: launches}, {B: summary}, {B: (lane-axis K1 state,
+    statics)})."""
+    import numpy as np
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    all_launches, summaries, arenas = {}, {}, {}
+    for B in sizes:
+        fenv.reset_pod_counter()
+        snaps = examples.batch_snapshots(fenv.Environment(), batch=B,
+                                         n_sigs=n_sigs)
+        solver = CUDASolver(device=device, incremental=False)
+        calls = []
+        orig = solver._dispatch_many
+
+        def spy(bufs, orig=orig, calls=calls, **statics):
+            out = orig(bufs, **statics)
+            calls.append((bufs, statics, out))
+            return out
+        solver._dispatch_many = spy
+        fc.reset_launches()
+        times, res = [], None
+        for i in range(rounds + 1):
+            n0 = len(calls)
+            t0 = time.perf_counter()
+            res = solver.solve_batch(snaps)
+            dt = (time.perf_counter() - t0) * 1e3
+            ld = solver.last_dispatch_stats
+            Gp = ld["groups"]
+            lw = {k: v for k, v in ld["launches"].items() if v}
+            if len(calls) != n0 + 1 or ld["kernel"] != "batch" \
+                    or ld["batch"] != B:
+                raise AssertionError(f"B={B}: not one batched dispatch of "
+                                     f"{B} lanes: {ld}")
+            if solver.device.type == "cuda" and lw != dict(
+                    unpack_bits=1, ffd_slot_headroom=Gp,
+                    ffd_group_commit=Gp, pack_outputs=1):
+                raise AssertionError(f"B={B}: launches {lw} are not 1 + "
+                                     f"2*{Gp} + 1")
+            if i:
+                times.append(dt)
+        launches = dict(fc.LAUNCHES)
+        single = CUDASolver(device=device, incremental=False)
+        stimes, sres = [], None
+        for i in range(rounds + 1):
+            t0 = time.perf_counter()
+            sres = [single.solve(x) for x in snaps]
+            if i:
+                stimes.append((time.perf_counter() - t0) * 1e3)
+        if [r.decision_fingerprint() for r in res] != \
+                [r.decision_fingerprint() for r in sres]:
+            raise AssertionError(f"B={B}: batched decisions differ from "
+                                 "the single solves'")
+        bufs, statics, rows = calls[-1]
+        T, D, Z, C, G, E, P = (statics[k] for k in "T D Z C G E P".split())
+        d_bufs = torch.from_numpy(np.stack(bufs)).to(solver.device)
+        outs = []
+        for b in range(B):
+            one = ft.solve_scan_packed1(d_bufs[b], **statics).cpu().numpy()
+            outs.append(ft._solve_scan_ref(
+                ft._packed_inputs_ref(d_bufs[b], T, D, Z, C, G, E, P, 0, 0,
+                                      0), statics["n_max"], E, P))
+            plain = ft._pack_outputs_ref(*outs[-1]).cpu().numpy()
+            if not (np.array_equal(rows[b], one)
+                    and np.array_equal(rows[b], plain)):
+                raise AssertionError(f"B={B} lane {b}: the batched row "
+                                     "differs from the single solve or the "
+                                     "plain versions")
+        if len({r.tobytes() for r in rows}) != B:
+            raise AssertionError(f"B={B}: lanes with equal rows")
+        k1 = k1_lane_state(d_bufs, statics, outs)
+        if solver.device.type == "cuda":
+            check_k1_lanes(B, k1, cmp)
+        summaries[B] = dict(
+            p50_ms=statistics.median(times), p99_ms=pct(times, 0.99),
+            single_p50_ms=statistics.median(stimes), rounds=rounds,
+            groups=Gp, slot_bucket=statics["n_max"],
+            launches_per_batch=lw)
+        all_launches[B] = launches
+        arenas[B] = (k1, statics)
+        log(f"[batch] B={B}: solve_batch p50 {summaries[B]['p50_ms']:.3f} "
+            f"ms p99 {summaries[B]['p99_ms']:.3f} ms vs {B} single solves "
+            f"p50 {summaries[B]['single_p50_ms']:.3f} ms; one dispatch of "
+            f"{lw} launches; every lane == its single solve on "
+            f"{solver.device} and the plain versions; decisions == single "
+            f"solves'")
+    return all_launches, summaries, arenas
+
+
+def k1_lane_state(bufs, statics, outs):
+    """The lane-axis K1 kernels' inputs at a batch's shapes: the [B, W]
+    stack, its bool-plane offset and width, and the stacks of the plain
+    per-lane solves ``outs`` (takes, leftover, carry)."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    from karpenter_provider_aws_tpu_torch.ops.hostpack import (
+        in_layout_bool, in_layout_i64, layout_sizes)
+    T, D, Z, C, G, E, P = (statics[k] for k in "T D Z C G E P".split())
+    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P))
+    n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P))
+    takes = torch.stack([o[0] for o in outs])
+    lefts = torch.stack([o[1] for o in outs])
+    carry = ft.Carry(*[torch.stack(f) for f in zip(*[o[2] for o in outs])])
+    return bufs, n_i64, n_bits, takes, lefts, carry
+
+
+def check_k1_lanes(B, k1, cmp):
+    """The lane-axis unpack_bits and pack_outputs at width B against
+    their plain versions lane by lane."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    bufs, n_i64, n_bits, takes, lefts, carry = k1
+    bits = fc.unpack_bits_lanes(bufs[:, n_i64:], n_bits)
+    packed = fc.pack_outputs_lanes(takes, lefts, carry)
+    for b in range(B):
+        cmp(f"unpack_bits_lanes_b{B}", bits[b],
+            ft._unpack_bits_ref(bufs[b, n_i64:], n_bits), f"lane {b}")
+        cmp(f"pack_outputs_lanes_b{B}", packed[b], ft._pack_outputs_ref(
+            takes[b], lefts[b], ft.Carry(*[f[b] for f in carry])),
+            f"lane {b}")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: timing and bounds
 # ---------------------------------------------------------------------------
 
 def time_launches(fn, reps=50, setup=None):
@@ -1114,6 +1467,133 @@ def k7_times(caps, launches):
     return recs, lane
 
 
+def k6_times(c7, launches):
+    """The K6 kernels at config 7's shapes, at the states phase 8 kept
+    (four steps of each window): each kernel's time beside its plain
+    part's, and the bytes and operations of that state's work."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    buf, st, S, states = c7
+    T, D, Z, C, G, E, P = (st[k] for k in "T D Z C G E P".split())
+    N = E + st["n_max"]
+    inp = ft._packed_inputs_ref(torch.from_numpy(buf).cuda(), T, D, Z, C,
+                                G, E, P, 0, 0, 0)
+    ps = fc.PrunedState(inp, ft.carry0_pruned(inp, N, E), E=E, P=P, S=S)
+    acc = {k: [] for k in ("ffd_pruned_select", "ffd_pruned_headroom",
+                           "ffd_pruned_commit")}
+    slot = torch.arange(N, device=inp.A.device)
+    for g, carry in states:
+        def restore(carry=carry):
+            for dst, src in zip(ps.carry, carry):
+                dst.copy_(src)
+        restore()
+        sel, cnt = ft._pruned_select_ref(inp, carry, g, E=E, P=P, S=S)
+        cand_s, k_s = ft._pruned_headroom_ref(inp, carry, g, sel)
+        nxt, take, _ = ft._pruned_commit_ref(inp, carry, g, sel, cnt,
+                                             cand_s, k_s, E=E, P=P, S=S)
+        n_sel = int(cnt[0])
+        # the rows the select's type screen reads: open, admitted, alive,
+        # bound-positive, with a zone and a capacity-type overlap
+        R = inp.R[g]
+        pool = carry.pool.long()
+        qb = torch.where(R > 0, torch.div(carry.cap_hint - carry.used,
+                                          torch.where(R > 0, R, 1),
+                                          rounding_mode="floor"), ft.BIG)
+        screened = int(((slot >= E) & carry.alive & (pool >= 0)
+                        & inp.admit[g][pool.clamp(0, P - 1)]
+                        & (qb.amin(-1) > 0)
+                        & (carry.zones & inp.agz[g]).any(1)
+                        & (carry.ct & inp.agc[g]).any(1)).sum())
+        fc.ffd_pruned_select(ps, g)
+        acc["ffd_pruned_select"].append((
+            time_launches(lambda: fc.ffd_pruned_select(ps, g)),
+            time_launches(lambda: ft._pruned_select_ref(
+                inp, carry, g, E=E, P=P, S=S), reps=10),
+            2 * N * D * 8 + N * (4 + 1 + Z + C) + P + D * 8 + Z + C + T
+            + screened * T + S * 4 + 8,
+            N * D + screened * T))
+        acc["ffd_pruned_headroom"].append((
+            time_launches(lambda: fc.ffd_pruned_headroom(ps, g)),
+            time_launches(lambda: ft._pruned_headroom_ref(
+                inp, carry, g, sel), reps=10),
+            n_sel * (T + D * 8 + Z + C + 4) + T * D * 8 + T + T * Z * C
+            + D * 8 + Z + C + S * T + S * 8 + 4,
+            int(cand_s.sum()) * D + n_sel * T * Z * C))
+
+        def setup(restore=restore, sel=sel, cnt=cnt, cand_s=cand_s,
+                  k_s=k_s):
+            restore()
+            ps.sel.copy_(sel)
+            ps.cnt.copy_(cnt)
+            ps.cand.copy_(cand_s)
+            ps.ks.copy_(k_s)
+        n_take = int((take[E:] > 0).sum())
+        new = int(nxt.num_nodes) - int(carry.num_nodes)
+        acc["ffd_pruned_commit"].append((
+            time_launches(lambda: fc.ffd_pruned_commit(ps, g), setup=setup),
+            time_launches(lambda: ft._pruned_commit_ref(
+                inp, carry, g, sel, cnt, cand_s, k_s, E=E, P=P, S=S),
+                reps=10),
+            # k, used (read + write), pool, A, F/pool_types/offerings,
+            # pool budgets, the selection, the narrowed and new rows,
+            # takes, leftover
+            2 * N * 8 + 2 * N * D * 8 + N * 4 + T * D * 8
+            + T * (2 + Z * C) + 2 * P * D * 8 + n_sel * (T + 12)
+            + n_take * T + new * (T + Z + C + D * 8 + 5) + N * 4 + 8,
+            n_take * T * D + P * T * (D + Z * C) + 4 * N + new * T * D))
+    out = []
+    for name, rows in acc.items():
+        ms, pms, nbytes, ops = (statistics.fmean(r[i] for r in rows)
+                                for i in range(4))
+        b, by = bound_ms(nbytes, ops)
+        out.append(dict(name=name, route="cuda", **KERNELS[name],
+                        launches=launches[name], ms=ms, plain_ms=pms,
+                        bound_ms=b, bound_by=by, library_ms=None,
+                        bytes=nbytes, ops=ops))
+    del ps, inp
+    torch.cuda.empty_cache()
+    return out
+
+
+def k1_lane_times(arenas, launches_b):
+    """The lane-axis K1 kernels at each batch width, beside the plain
+    versions lane by lane."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    out = []
+    for B, (k1, statics) in arenas.items():
+        bufs, n_i64, n_bits, takes, lefts, carry = k1
+        words = bufs[:, n_i64:]
+        lanes = [ft.Carry(*[f[b] for f in carry]) for b in range(B)]
+        nb = sum(t[0].numel() for t in ft._out_bools(carry))
+        n_out = (takes[0].numel() + 1) // 2 + (nb + 63) // 64
+        i64 = ft._out_i64(lefts[0], lanes[0]).numel()
+        recs = {
+            f"unpack_bits_lanes_b{B}": (
+                time_launches(lambda: fc.unpack_bits_lanes(words, n_bits)),
+                time_launches(lambda: [ft._unpack_bits_ref(w, n_bits)
+                                       for w in words], reps=5),
+                B * (words.shape[1] * 8 + n_bits), 2 * B * n_bits,
+                "unpack_bits"),
+            f"pack_outputs_lanes_b{B}": (
+                time_launches(lambda: fc.pack_outputs_lanes(takes, lefts,
+                                                            carry)),
+                time_launches(lambda: [ft._pack_outputs_ref(
+                    takes[b], lefts[b], lanes[b]) for b in range(B)],
+                    reps=5),
+                B * (takes[0].numel() * 4 + nb + i64 * 16 + n_out * 8),
+                B * (nb + takes[0].numel()), "pack_outputs"),
+        }
+        for name, (ms, pms, nbytes, ops, kern) in recs.items():
+            b, by = bound_ms(nbytes, ops)
+            out.append(dict(name=name, route="cuda", **KERNELS[name],
+                            launches=launches_b[B][kern], ms=ms,
+                            plain_ms=pms, bound_ms=b, bound_by=by,
+                            library_ms=None, bytes=nbytes, ops=ops))
+    return out
+
+
 def solve_device_ms(fn, reps=20):
     """Mean device ms of one whole solve call: a sleep kernel ahead of
     each call lets the host enqueue all of its launches before the start
@@ -1158,8 +1638,8 @@ def warm_solve_times(d_buf, st, gl):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-6 with the plain versions at a "
-                         "small size on the CPU (never the default)")
+                    help="run phases 3-6, 8 and 9 with the plain versions "
+                         "at a small size on the CPU (never the default)")
     args = ap.parse_args()
 
     import torch
@@ -1337,10 +1817,20 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[compare] after the consolidation phase: {cmp.checks} checks, "
         f"max_abs_err {cmp.err}")
+
+    # ---- phase 8: the G-axis path (config 7 on the pruned kernel) ----------
+    launches_c7, c7, c7_states = g_axis_phase(cmp)
+
+    # ---- phase 9: the batch path ---------------------------------------------
+    launches_b, batch, batch_arenas = batch_phase(cmp)
+    torch.cuda.synchronize()
+    log(f"[compare] after the batch phase: {cmp.checks} checks, "
+        f"max_abs_err {cmp.err}")
     launches = {k: launches_c2[k] + launches_w[k] + launches_k7.get(k, 0)
+                + launches_c7[k] + sum(lb[k] for lb in launches_b.values())
                 for k in launches_c2}
 
-    # ---- phase 7: kernel times ---------------------------------------------
+    # ---- phase 10: kernel times --------------------------------------------
     inp, final, tk, lf = c2
     T, D, Z, C, G, E, P = (st2[k] for k in "T D Z C G E P".split())
     n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, 0, 0, 1,
@@ -1359,15 +1849,19 @@ def main() -> int:
     recs += bank_times(d_bufw, stw, launches)
     k7_recs, lane = k7_times(caps, launches)
     recs += k7_recs
+    recs += k6_times(c7_states, launches)
+    recs += k1_lane_times(batch_arenas, launches_b)
     for r in recs:
         r["max_abs_err"] = cmp.err[r["name"]]
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms'] * 1e3:.2f} us (Tensor.copy_ x8)"
+        k = r["name"].split("_lanes_")[0]
         log(f"[time] {r['name']}: {r['ms'] * 1e3:.2f} us/launch, "
             f"{r['launches']} launches in the main-path runs (config 2: "
-            f"{launches_c2[r['name']]}, warm tick: "
-            f"{launches_w[r['name']]}, consolidation: "
-            f"{launches_k7.get(r['name'], 0)}), bound "
+            f"{launches_c2[k]}, warm tick: {launches_w[k]}, "
+            f"consolidation: {launches_k7.get(k, 0)}, config 7: "
+            f"{launches_c7[k]}, batch: "
+            f"{ {b: lb[k] for b, lb in launches_b.items()} }), bound "
             f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}, "
             f"{r['bytes']:.0f} B, {r['ops']:.0f} ops), plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib}")
@@ -1376,6 +1870,17 @@ def main() -> int:
     sol = warm_solve_times(d_bufw, stw, glw)
     log(f"[time] warm arena (n_max 16) solve device ms: "
         f"{json.dumps(sol)}")
+    per = {r["name"]: r["ms"] for r in recs}
+    c7_dev = sum(per[k] * n for k, n in c7["launches_per_solve"].items()
+                 if n and k in per)
+    log(f"[time] config 7 pruned solve: device ms from the per-launch times "
+        f"x launches per solve {c7_dev:.3f} (wall p50 {c7['p50_ms']:.3f}); "
+        f"summary {json.dumps(c7)}")
+    for B, (k1, statics) in batch_arenas.items():
+        dev_ms = solve_device_ms(lambda: ft.solve_scan_packed1_many(
+            k1[0], **statics), reps=5)
+        log(f"[time] batch B={B}: one solve_scan_packed1_many device ms "
+            f"{dev_ms:.3f}; summary {json.dumps(batch[B])}")
     log(f"[wall] {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1389,7 +1894,8 @@ def main() -> int:
 
 
 def rehearsal(n_pods: int, rounds: int) -> int:
-    """Phases 3-6 with the plain versions on the CPU, at a small size."""
+    """Phases 3-6, 8 and 9 with the plain versions on the CPU, at a
+    small size (config 7 cut to ``n_pods`` pods, one signature per 5)."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.fake import environment as fenv
@@ -1420,6 +1926,9 @@ def rehearsal(n_pods: int, rounds: int) -> int:
     consolidation_phase(cmp, device="cpu", fleet=24, prefix=6, batched=24,
                         rounds=2, dense_rounds=1)
     log(f"[rehearsal] consolidation checks {cmp.checks}")
+    g_axis_phase(cmp, device="cpu", n_pods=n_pods, n_sigs=n_pods // 5,
+                 rounds=1, max_groups=256)
+    batch_phase(cmp, device="cpu", sizes=(3,), rounds=1, n_sigs=12)
     log(json.dumps({"ok": True, "device": {"platform": "cpu",
                                            "kind": "cpu", "count": 1}}))
     return 0

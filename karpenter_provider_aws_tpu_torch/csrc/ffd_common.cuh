@@ -1,6 +1,7 @@
 // Shared definitions of the FFD group-scan kernels (ffd_scan.cu), the
 // packed-arena kernels (packed_io.cu), the checkpoint-bank kernels
-// (ckpt.cu) and the consolidation kernels (consolidation.cu).
+// (ckpt.cu), the consolidation kernels (consolidation.cu) and the pruned
+// scan's kernels (pruned.cu).
 //
 // Integer rules, carried over from the reference kernel
 // (karpenter_provider_aws_tpu/ops/ffd_jax.py): every resource, headroom,
@@ -139,6 +140,24 @@ __device__ __forceinline__ i64 headroom(const i64* cap, const i64* base,
         }
     }
     return m < 0 ? 0 : m;
+}
+
+// Candidate test of (slot s, type t) for group g: an available offering
+// in the slot's zones x capacity types narrowed by the group's. The
+// caller has already checked types[s, t], F[g, t] and the slot's pool
+// admission. (ffd_scan.cu, pruned.cu)
+__device__ __forceinline__ bool offering_ok(const FfdArgs& a, i64 g, i64 s,
+                                            i64 t) {
+    const i64 Z = a.Z, C = a.C;
+    for (i64 z = 0; z < Z; ++z) {
+        if (!(a.zones[s * Z + z] && a.agz[g * Z + z])) continue;
+        for (i64 c = 0; c < C; ++c) {
+            if (a.ct[s * C + c] && a.agc[g * C + c]
+                && a.avail_zc[t * Z * C + z * C + c])
+                return true;
+        }
+    }
+    return false;
 }
 
 // Max additional pods a pool's limits allow (BIG if unlimited).

@@ -57,22 +57,6 @@ namespace {
 constexpr int kHeadroomThreads = 256;
 constexpr int kCommitThreads = 1024;
 
-// candidate test of (slot s, type t) for group g; the caller has already
-// checked types[s, t], F[g, t] and the slot's pool admission
-__device__ __forceinline__ bool offering_ok(const FfdArgs& a, i64 g, i64 s,
-                                            i64 t) {
-    const i64 Z = a.Z, C = a.C;
-    for (i64 z = 0; z < Z; ++z) {
-        if (!(a.zones[s * Z + z] && a.agz[g * Z + z])) continue;
-        for (i64 c = 0; c < C; ++c) {
-            if (a.ct[s * C + c] && a.agc[g * C + c]
-                && a.avail_zc[t * Z * C + z * C + c])
-                return true;
-        }
-    }
-    return false;
-}
-
 __global__ void __launch_bounds__(kHeadroomThreads)
 ffd_slot_headroom_kernel(FfdArgs args, i64 g) {
     extern __shared__ i64 dyn[];   // h1 [K*V], sel [K]

@@ -131,6 +131,86 @@ def example_case(name: str, base: Callable = example_arrays, G: int = 8,
 
 
 # ---------------------------------------------------------------------------
+# synthetic pruned-scan (K6) inputs
+# ---------------------------------------------------------------------------
+
+#: the pruned scan's parity cases: existing nodes (one over-committed),
+#: two pools with binding limits, daemon overhead, an all-zero request
+#: row met by eight or more compatible open slots (k = BIG on each, so
+#: the prefix wraps int64), and the plain shape. The request rows are
+#: scaled so a node holds tens of pods and a group's fill spans slots.
+PRUNED_CASES = ("plain", "existing", "pool_limits", "daemon", "zero_r_row")
+
+
+def pruned_case(name: str, base: Callable = example_arrays, G: int = 16,
+                T: int = 24, n_max: int = 16, Z: int = 3, C: int = 2,
+                D: int = 4, seed: int = 3) -> Tuple[Dict, Dict]:
+    """(arrays, statics) of one pruned-scan case: the K = M = 0, Q = 0
+    layout, statics as ``example_case``'s."""
+    if name not in PRUNED_CASES:
+        raise ValueError(f"unknown case {name!r}; one of {PRUNED_CASES}")
+    rng = np.random.RandomState(seed)
+    kw = dict(n_groups=G, n_types=T, n_max=n_max, Z=Z, C=C, D=D)
+    if name == "existing":
+        kw["E"] = 6
+    elif name == "pool_limits":
+        kw["P"] = 2
+    arrays, st = base(**kw)
+    E, P = st["E"], st["P"]
+    arrays["R"] = arrays["R"] * 64
+    if name == "existing":
+        arrays["ex_alloc"] = rng.randint(1 << 16, 1 << 20, size=(E, D)
+                                         ).astype(np.int64)
+        arrays["ex_used0"] = rng.randint(0, 1 << 16, size=(E, D)).astype(
+            np.int64)
+        arrays["ex_used0"][0] = arrays["ex_alloc"][0] + 5   # over-committed
+        arrays["ex_compat"] = rng.rand(G, E) < 0.6
+    elif name == "pool_limits":
+        pt = np.zeros((P, T), bool)
+        pt[0, : 2 * T // 3], pt[1, T // 3:] = True, True
+        lim = np.full((P, D), -1, np.int64)
+        lim[0, 0] = int(arrays["R"][:, 0].sum() * 3)
+        lim[1, 2] = int(arrays["R"][:, 2].sum() * 4)
+        arrays.update(pool_types=pt, pool_limit=lim,
+                      admit=rng.rand(G, P) < 0.8,
+                      pool_used0=rng.randint(0, 1 << 10, size=(P, D)
+                                             ).astype(np.int64))
+    elif name == "daemon":
+        arrays["daemon"] = rng.randint(0, 1 << 16, size=(G, P, D)).astype(
+            np.int64)
+    elif name == "zero_r_row":
+        arrays["R"][G - 1] = 0
+        arrays["n"][G - 1] = 40
+        arrays["F"][G - 1] = True
+    statics = dict(T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, K=0, M=0, V=0, Q=0,
+                   n_max=st["n_max"])
+    return arrays, statics
+
+
+#: the exact-slot budget at which ``pruned_lanes``' first lane bails and
+#: the other two do not
+PRUNED_LANES_S = 4
+
+
+def pruned_lanes(base: Callable = example_arrays):
+    """Three arenas of one statics bucket with different contents for
+    the lane axis of the pruned scan (``_many``): the ``daemon`` case as
+    it is (bails at ``PRUNED_LANES_S``), with one pod per group, and with
+    a tenth of its pods (neither bails). Returns (list of arrays,
+    statics)."""
+    arrays, st = pruned_case("daemon", base=base)
+    lanes = [arrays, dict(arrays, n=np.ones_like(arrays["n"])),
+             dict(arrays, n=arrays["n"] // 10 + 1)]
+    return lanes, st
+
+
+def pruned_statics(statics: dict) -> dict:
+    """Keyword statics of ``solve_scan_packed1_pruned`` (without S)."""
+    return {k: statics[k] for k in ("T", "D", "Z", "C", "G", "E", "P",
+                                    "n_max")}
+
+
+# ---------------------------------------------------------------------------
 # synthetic consolidation (K7) inputs: the parity cases of the four kernels
 # ---------------------------------------------------------------------------
 
@@ -414,6 +494,63 @@ def warm_cluster(pods: int = 50_000, pending_frac: float = 0.01,
 # ---------------------------------------------------------------------------
 # consolidation: config 4 and the controller's decision walks
 # ---------------------------------------------------------------------------
+
+def config7(env, n_pods: int = 50_000, n_sigs: int = 10_000):
+    """BASELINE config 7, the high-cardinality pod-signature stress (the
+    G axis): ~n_sigs distinct scheduling signatures across n_pods pods
+    under one pool over the full catalog. A copy of the reference
+    repository's ``bench.build_config7``: 80% unique-request groups (cpu
+    at 1m, memory at 1Mi granularity), 15% pinned to an instance family,
+    5% to spot capacity."""
+    from .apis import labels as L
+    from .fake.environment import make_pods
+
+    per = max(1, n_pods // n_sigs)
+    pods = []
+    fams = ["m5", "c5", "r5", "m6i", "c6i"]
+    i = 0
+    while len(pods) < n_pods:
+        cpu = 100 + (i % 400)          # 100..499 m
+        mem = 256 + (i // 400) * 3     # Mi; unique (cpu, mem) pairs
+        sel = None
+        if i % 20 >= 17:               # 15%: family-pinned
+            sel = {L.INSTANCE_FAMILY: fams[i % len(fams)]}
+        elif i % 20 == 16:             # 5%: spot-pinned
+            sel = {L.CAPACITY_TYPE: "spot"}
+        cnt = min(per, n_pods - len(pods))
+        pods += make_pods(cnt, cpu=f"{cpu}m", memory=f"{mem}Mi",
+                          prefix=f"hc{i:05d}", node_selector=sel)
+        i += 1
+    return env.snapshot(pods, [env.nodepool("bench-c7")])
+
+
+def batch_snapshots(env, batch: int = 8, n_sigs: int = 96, per: int = 4):
+    """B independent snapshots of ONE statics bucket for the batched
+    solve (``CUDASolver.solve_batch``), with different contents per
+    snapshot: n_sigs signatures striped over three family-disjoint
+    pools, requests varying with the snapshot's index. A copy of the
+    reference repository's ``bench.build_batch_snapshots`` (the model of
+    consolidation's candidate pre-screen: many small what-if snapshots
+    in hand at once)."""
+    from .apis import labels as L
+    from .fake.environment import make_pods
+
+    fams = ["m5", "c5", "r5"]
+    pools = [env.nodepool(f"bench-batch-{f}", requirements=[
+        {"key": L.INSTANCE_FAMILY, "operator": "In", "values": [f]}])
+        for f in fams]
+    snaps = []
+    for b in range(batch):
+        pods = []
+        for i in range(n_sigs):
+            pods += make_pods(
+                per, cpu=f"{100 + (i * 7 + b * 31) % 400}m",
+                memory=f"{256 + (i * 13 + b * 57) % 700}Mi",
+                prefix=f"bt{b:02d}x{i:03d}",
+                node_selector={L.INSTANCE_FAMILY: fams[i % 3]})
+        snaps.append(env.snapshot(pods, pools))
+    return snaps
+
 
 def config4(env, n_nodes: int = 200, n_replaceable: int = 10):
     """BASELINE config 4, consolidation over a live cluster: a copy of

@@ -2,9 +2,11 @@
 
 ``csrc/packed_io.cu`` (K1: ``unpack_bits``, ``pack_outputs``),
 ``csrc/ffd_scan.cu`` (K2: ``ffd_slot_headroom``, ``ffd_group_commit``),
-``csrc/ckpt.cu`` (K3: ``ffd_bank_store``, ``ffd_bank_load``) and
+``csrc/ckpt.cu`` (K3: ``ffd_bank_store``, ``ffd_bank_load``),
 ``csrc/consolidation.cu`` (K7: ``consol_absorb``, ``subset_gather``,
-``subset_summary``; wrappers in ``ops/consolidation_cuda.py``) are
+``subset_summary``; wrappers in ``ops/consolidation_cuda.py``) and
+``csrc/pruned.cu`` (K6: ``ffd_pruned_select``, ``ffd_pruned_headroom``,
+``ffd_pruned_commit``) are
 compiled with ``nvcc`` for ``sm_90a`` into one shared library with a
 plain C interface, loaded with ctypes. The build runs at first use, into
 ``_build/`` inside this package, keyed by a hash of the sources; a failed
@@ -34,14 +36,16 @@ from typing import Dict, Tuple
 
 import torch
 
-from .ffd_torch import CARRY_DTYPES, Carry, KernelInputs, _out_bools, \
-    _out_i64, _unpack_inputs, carry0
+from .ffd_torch import (CARRY_DTYPES, Carry, CarryP, KernelInputs,
+                        _unpack_inputs, _unpack_inputs_lanes, carry0,
+                        carry0_pruned)
 from .hostpack import in_layout_bool, in_layout_i64, layout_sizes, nwords
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("packed_io.cu", "ffd_scan.cu", "ckpt.cu", "consolidation.cu")
+SOURCES = ("packed_io.cu", "ffd_scan.cu", "ckpt.cu", "consolidation.cu",
+           "pruned.cu")
 HEADERS = ("ffd_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -54,7 +58,9 @@ LAUNCHES: Dict[str, int] = {"unpack_bits": 0, "ffd_slot_headroom": 0,
                             "consol_absorb_deletions": 0,
                             "consol_absorb_prescreen": 0,
                             "consol_absorb_dense": 0, "subset_gather": 0,
-                            "subset_summary": 0}
+                            "subset_summary": 0, "ffd_pruned_select": 0,
+                            "ffd_pruned_headroom": 0,
+                            "ffd_pruned_commit": 0}
 
 _LIB = None
 _BUILD_INFO: dict = {}
@@ -123,8 +129,9 @@ def _lib():
             _BUILD_INFO = build()
             lib = ctypes.CDLL(_BUILD_INFO["path"])
             vp, ll = ctypes.c_void_p, ctypes.c_longlong
-            lib.karp_unpack_bits.argtypes = [vp, ll, vp, vp]
-            lib.karp_pack_outputs.argtypes = [vp, ll, vp, vp, vp, vp]
+            lib.karp_unpack_bits.argtypes = [vp, ll, vp, ll, ll, vp]
+            lib.karp_pack_outputs.argtypes = [vp, ll, vp, vp, vp, ll, ll, vp,
+                                              ll, vp]
             lib.karp_ffd_slot_headroom.argtypes = [vp, ll, vp]
             lib.karp_ffd_group_commit.argtypes = [vp, ll, vp]
             lib.karp_ffd_bank_store.argtypes = [vp, ll, ll, vp]
@@ -132,6 +139,10 @@ def _lib():
             lib.karp_consol_absorb.argtypes = [vp, ctypes.c_int, vp]
             lib.karp_subset_gather.argtypes = [vp, vp]
             lib.karp_subset_summary.argtypes = [vp, vp]
+            for fn in (lib.karp_ffd_pruned_select,
+                       lib.karp_ffd_pruned_headroom,
+                       lib.karp_ffd_pruned_commit):
+                fn.argtypes = [vp, ll, vp]
             lib.karp_error_string.argtypes = [ctypes.c_int]
             lib.karp_error_string.restype = ctypes.c_char_p
             for fn in (lib.karp_unpack_bits, lib.karp_pack_outputs,
@@ -139,7 +150,9 @@ def _lib():
                        lib.karp_ffd_group_commit,
                        lib.karp_ffd_bank_store, lib.karp_ffd_bank_load,
                        lib.karp_consol_absorb, lib.karp_subset_gather,
-                       lib.karp_subset_summary):
+                       lib.karp_subset_summary, lib.karp_ffd_pruned_select,
+                       lib.karp_ffd_pruned_headroom,
+                       lib.karp_ffd_pruned_commit):
                 fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
@@ -173,17 +186,41 @@ def _need(t: torch.Tensor, name: str, dtype, shape=None) -> None:
                          f"expected {tuple(shape)}")
 
 
+def _need_lanes(t: torch.Tensor, name: str, dtype, shape) -> None:
+    """``_need`` for a [L, ...] field whose lanes are each contiguous and
+    ``t.stride(0)`` elements apart (a view of a [L, W] arena stack)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if t.shape[0] and not t[0].is_contiguous():
+        raise ValueError(f"{name} must be contiguous within each lane")
+
+
 # ---------------------------------------------------------------------------
 # K1 wrappers
 # ---------------------------------------------------------------------------
 
 def unpack_bits(words: torch.Tensor, nbits: int) -> torch.Tensor:
-    """int64 words -> bool [nbits], little-endian (kernel)."""
+    """int64 words -> bool [nbits], little-endian (kernel): the one-lane
+    launch of ``unpack_bits_lanes``."""
     _need(words, "words", torch.int64, (nwords(nbits),))
+    return unpack_bits_lanes(words[None], nbits)[0]
+
+
+def unpack_bits_lanes(words: torch.Tensor, nbits: int) -> torch.Tensor:
+    """[L, nwords] int64 words (lanes ``words.stride(0)`` apart, e.g. the
+    bool sections of a [L, W] arena stack) -> bool [L, nbits], one launch
+    whatever L is (kernel)."""
+    L = words.shape[0]
+    _need_lanes(words, "words", torch.int64, (L, nwords(nbits)))
     lib = _lib()
-    out = torch.empty(nbits, dtype=torch.bool, device=words.device)
-    err = lib.karp_unpack_bits(words.data_ptr(), nbits, out.data_ptr(),
-                               _stream())
+    out = torch.empty((L, nbits), dtype=torch.bool, device=words.device)
+    err = lib.karp_unpack_bits(words.data_ptr(), nbits, out.data_ptr(), L,
+                               words.stride(0), _stream())
     LAUNCHES["unpack_bits"] += 1
     _check(err, "unpack_bits")
     return out
@@ -192,23 +229,40 @@ def unpack_bits(words: torch.Tensor, nbits: int) -> torch.Tensor:
 def pack_outputs(takes: torch.Tensor, leftover: torch.Tensor,
                  carry: Carry) -> torch.Tensor:
     """The output buffer [i64 section | int32-pair takes | bit words]:
-    the i64 section is a cat of views, the rest one kernel launch."""
+    the one-lane launch of ``pack_outputs_lanes``."""
+    return pack_outputs_lanes(takes[None], leftover[None],
+                              Carry(*[f[None] for f in carry]))[0]
+
+
+def pack_outputs_lanes(takes: torch.Tensor, leftover: torch.Tensor,
+                       carry, extra: int = 0) -> torch.Tensor:
+    """[L, Wout + extra]: row l the output buffer [i64 section | int32-
+    pair takes | bit words] of lane l (takes [L, G, N], leftover [L, G],
+    carry fields [L, ...], each contiguous). The i64 section is a cat of
+    views, the rest one kernel launch; the ``extra`` trailing words of
+    each row are left for the caller (the pruned scan's bail word)."""
+    L = takes.shape[0]
     _need(takes, "takes", torch.int32)
-    segs = _out_bools(carry)
+    segs = (carry.types, carry.zones, carry.ct, carry.alive)
     for i, s in enumerate(segs):
         _need(s, f"bool segment {i}", torch.bool)
-    i64 = _out_i64(leftover, carry)
-    n32 = takes.numel()
-    nbits = sum(s.numel() for s in segs)
-    n_out = nwords(nbits) + (n32 + 1) // 2
-    out = torch.empty(i64.numel() + n_out, dtype=torch.int64,
-                      device=takes.device)
-    out[:i64.numel()] = i64
+    i64 = torch.cat([leftover.reshape(L, -1).long(),
+                     carry.used.reshape(L, -1), carry.pool.reshape(L, -1).long(),
+                     carry.num_nodes.reshape(L, -1).long(),
+                     carry.pool_used.reshape(L, -1)], dim=1)
+    n32 = takes[0].numel()
+    lens = [s[0].numel() for s in segs]
+    w = i64.shape[1] + nwords(sum(lens)) + (n32 + 1) // 2 + extra
+    out = torch.empty((L, w), dtype=torch.int64, device=takes.device)
+    out[:, :i64.shape[1]] = i64
     ptrs = (ctypes.c_void_p * 4)(*[s.data_ptr() for s in segs])
-    lens = (ctypes.c_longlong * 4)(*[s.numel() for s in segs])
+    seg_lens = (ctypes.c_longlong * 4)(*lens)
     lib = _lib()
-    err = lib.karp_pack_outputs(takes.data_ptr(), n32, ptrs, lens,
-                                out[i64.numel():].data_ptr(), _stream())
+    # each lane's segments are contiguous [L, ...] fields: lane strides
+    # are their lengths, the takes' is n32, the output row's is w
+    err = lib.karp_pack_outputs(takes.data_ptr(), n32, ptrs, seg_lens,
+                                out[:, i64.shape[1]:].data_ptr(), L, n32,
+                                seg_lens, w, _stream())
     LAUNCHES["pack_outputs"] += 1
     _check(err, "pack_outputs")
     return out
@@ -249,10 +303,17 @@ class ScanState:
     shape ``(L,) + shape`` is per lane, one of ``shape`` is shared by
     every lane; the carry is per lane, and so are the scratch and the
     outputs (``takes`` [L, rows, N], ``leftover`` [L, rows]). Without
-    ``lanes`` every shape is that of one solve."""
+    ``lanes`` every shape is that of one solve. A per-lane input field
+    may be a view of a [L, W] arena stack: each lane contiguous, the
+    lanes ``stride(0)`` elements apart (the stride, not the field's own
+    size, is the lane stride the kernels get).
+
+    ``cand_rows`` sizes the candidate scratch ``cand`` (default N rows;
+    the pruned scan keeps S selected rows there)."""
 
     def __init__(self, inp: KernelInputs, carry: Carry, *, E: int, P: int,
-                 V: int = 0, s0: int = 0, s1: int = None, lanes: int = None):
+                 V: int = 0, s0: int = 0, s1: int = None, lanes: int = None,
+                 cand_rows: int = None):
         dev = inp.A.device
         L = 1 if lanes is None else lanes
         lead = () if lanes is None else (L,)
@@ -276,8 +337,8 @@ class ScanState:
         def field(t, nm, dt, shp):
             # per lane when it carries the leading lane axis, else shared
             if lanes is not None and t.dim() == len(shp) + 1:
-                _need(t, nm, dt, (L,) + tuple(shp))
-                lane_bytes[nm] = t[0].numel() * t.element_size()
+                _need_lanes(t, nm, dt, (L,) + tuple(shp))
+                lane_bytes[nm] = t.stride(0) * t.element_size()
             else:
                 _need(t, nm, dt, shp)
 
@@ -305,7 +366,8 @@ class ScanState:
             if lanes is not None:
                 lane_bytes[nm] = t[0].numel() * t.element_size()
         self.inp, self.carry = inp, carry
-        self.cand = torch.empty(lead + (N, T), dtype=b, device=dev)
+        self.cand = torch.empty(lead + (N if cand_rows is None else
+                                        cand_rows, T), dtype=b, device=dev)
         self.k = torch.empty(lead + (N,), dtype=i64, device=dev)
         self.hrn = torch.empty(lead + (T,), dtype=i64, device=dev)
         self.candn = torch.empty(lead + (T,), dtype=b, device=dev)
@@ -505,3 +567,166 @@ def solve_scan_suffix_cuda(buf: torch.Tensor, bank: Carry, *, T, D, Z, C,
     if NC > GL // CK:
         ffd_bank_store(bs, GL // CK, NC - GL // CK)
     return pack_outputs(st.takes, st.leftover, st.carry), bank
+
+
+# ---------------------------------------------------------------------------
+# K4: the packed solve on the lane axis
+# ---------------------------------------------------------------------------
+
+def _packed_inputs_lanes(bufs: torch.Tensor, T, D, Z, C, G, E, P, K, M,
+                         Q) -> KernelInputs:
+    """The [B, W] stack's inputs: one lane-axis unpack_bits launch, then
+    [B, ...] views (each lane's i64 fields W words apart)."""
+    _need(bufs, "bufs", torch.int64)
+    if bufs.dim() != 2:
+        raise ValueError(f"bufs must be [B, W], got {tuple(bufs.shape)}")
+    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, K, M, 1, Q))
+    n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P, K, M, 1, Q))
+    if bufs.shape[1] != n_i64 + nwords(n_bits):
+        raise ValueError(f"arenas have {bufs.shape[1]} words, the statics "
+                         f"need {n_i64 + nwords(n_bits)}")
+    bools = unpack_bits_lanes(bufs[:, n_i64:], n_bits)
+    return _unpack_inputs_lanes(bufs[:, :n_i64], bools, T, D, Z, C, G, E, P,
+                                K, M, Q)
+
+
+def solve_scan_packed1_many_cuda(bufs: torch.Tensor, *, T, D, Z, C, G, E, P,
+                                 n_max, K=0, V=0, M=0, Q=0) -> torch.Tensor:
+    """B packed solves on the card in one dispatch: one lane-axis
+    unpack_bits, 2*G lane-axis K2 launches, one lane-axis pack_outputs,
+    whatever B is; no synchronisation. Returns [B, Wout]."""
+    B = bufs.shape[0]
+    inp = _packed_inputs_lanes(bufs, T, D, Z, C, G, E, P, K, M, Q)
+    st = ScanState(inp, carry0(inp, E + n_max, E, lanes=B), E=E, P=P, V=V,
+                   lanes=B)
+    for g in range(G):
+        ffd_slot_headroom(st, g)
+        ffd_group_commit(st, g)
+    return pack_outputs_lanes(st.takes, st.leftover, st.carry)
+
+
+# ---------------------------------------------------------------------------
+# K6 wrappers: the pruned scan
+# ---------------------------------------------------------------------------
+
+_PRUNED_FIELDS = ("cap_hint", "bail", "sel", "cnt", "ks")
+
+
+class _PrunedArgs(ctypes.Structure):
+    """Mirror of ``struct PrunedArgs`` in csrc/pruned.cu."""
+    _fields_ = ([("f", _FfdArgs)]
+                + [(f, ctypes.c_void_p) for f in _PRUNED_FIELDS]
+                + [("S", ctypes.c_longlong),
+                   ("lane_bytes", ctypes.c_longlong * len(_PRUNED_FIELDS))])
+
+
+class PrunedState:
+    """Device buffers of one pruned scan (or of L lanes of one shape):
+    a ``ScanState`` for the base fields (its ``cand`` holds the S
+    selected rows, its ``k`` the per-slot headroom and take), the bound
+    ``cap_hint`` and the ``bail`` flag of the carry (updated in place),
+    the selection scratch (``sel`` [S] slots, ``cnt`` [2] = (n_sel,
+    n_pos), ``ks`` [S] exact headroom) and the ctypes argument block."""
+
+    def __init__(self, inp: KernelInputs, carry: CarryP, *, E: int, P: int,
+                 S: int, lanes: int = None):
+        if inp.mv_floor is not None:
+            raise ValueError("the pruned scan takes no minValues floors")
+        N = carry.used.shape[-2]
+        if not 1 <= S <= N:
+            raise ValueError(f"S={S} must lie in [1, N={N}]")
+        L = 1 if lanes is None else lanes
+        lead = () if lanes is None else (L,)
+        D = inp.A.shape[-1]
+        self.scan = ScanState(inp, Carry(*carry[:8]), E=E, P=P, lanes=lanes,
+                              cand_rows=S)
+        _need(carry.cap_hint, "cap_hint", torch.int64, lead + (N, D))
+        _need(carry.bail, "bail", torch.bool, lead + (1,))
+        dev = inp.A.device
+        self.carry, self.S = carry, S
+        self.sel = torch.empty(lead + (S,), dtype=torch.int32, device=dev)
+        self.cnt = torch.empty(lead + (2,), dtype=torch.int32, device=dev)
+        self.ks = torch.empty(lead + (S,), dtype=torch.int64, device=dev)
+        bufs = dict(cap_hint=carry.cap_hint, bail=carry.bail, sel=self.sel,
+                    cnt=self.cnt, ks=self.ks)
+        self.args = _PrunedArgs(f=self.scan.args, S=S,
+                                **{k: t.data_ptr() for k, t in bufs.items()})
+        for i, f in enumerate(_PRUNED_FIELDS):
+            t = bufs[f]
+            self.args.lane_bytes[i] = 0 if lanes is None else \
+                t[0].numel() * t.element_size()
+
+    @property
+    def takes(self) -> torch.Tensor:
+        return self.scan.takes
+
+    @property
+    def leftover(self) -> torch.Tensor:
+        return self.scan.leftover
+
+    @property
+    def cand(self) -> torch.Tensor:
+        return self.scan.cand
+
+
+def _pruned_launch(name: str, ps: PrunedState, g: int) -> None:
+    _in_window(ps.scan, g)
+    lib = _lib()
+    err = getattr(lib, f"karp_{name}")(ctypes.byref(ps.args), g, _stream())
+    LAUNCHES[name] += 1
+    _check(err, name)
+
+
+def ffd_pruned_select(ps: PrunedState, g: int) -> None:
+    """The bound pass and the compatibility screen for group g: fills
+    ``ps.sel`` with the first S bound-positive compatible open slots in
+    slot order (-1 past them) and ``ps.cnt`` with (n_sel, n_pos)."""
+    _pruned_launch("ffd_pruned_select", ps, g)
+
+
+def ffd_pruned_headroom(ps: PrunedState, g: int) -> None:
+    """The exact candidate rows ``ps.cand`` [S, T] and headroom ``ps.ks``
+    [S] of the selected slots (rows past n_sel: False and 0)."""
+    _pruned_launch("ffd_pruned_headroom", ps, g)
+
+
+def ffd_pruned_commit(ps: PrunedState, g: int) -> None:
+    """The fill, the bail flag, the narrowing and the new nodes for
+    group g: updates the carry in place and writes ``ps.takes[g]`` and
+    ``ps.leftover[g]``."""
+    _pruned_launch("ffd_pruned_commit", ps, g)
+
+
+def _pruned_scan(inp: KernelInputs, *, G, E, P, n_max, S, lanes=None
+                 ) -> PrunedState:
+    ps = PrunedState(inp, carry0_pruned(inp, E + n_max, E, lanes=lanes),
+                     E=E, P=P, S=S, lanes=lanes)
+    for g in range(G):
+        ffd_pruned_select(ps, g)
+        ffd_pruned_headroom(ps, g)
+        ffd_pruned_commit(ps, g)
+    return ps
+
+
+def solve_scan_packed1_pruned_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E,
+                                   P, n_max, S) -> torch.Tensor:
+    """The pruned solve on the card: unpack_bits, three launches per
+    group step, pack_outputs, and the bail word appended; no
+    synchronisation."""
+    inp = _packed_inputs(buf, T, D, Z, C, G, E, P, 0, 0, 0)
+    ps = _pruned_scan(inp, G=G, E=E, P=P, n_max=n_max, S=S)
+    out = pack_outputs(ps.takes, ps.leftover, Carry(*ps.carry[:8]))
+    return torch.cat([out, ps.carry.bail.long()])
+
+
+def solve_scan_packed1_pruned_many_cuda(bufs: torch.Tensor, *, T, D, Z, C,
+                                        G, E, P, n_max, S) -> torch.Tensor:
+    """B pruned solves on the card in one dispatch: one lane-axis
+    unpack_bits, three lane-axis launches per group step, one lane-axis
+    pack_outputs; each row ends with its lane's bail word."""
+    B = bufs.shape[0]
+    inp = _packed_inputs_lanes(bufs, T, D, Z, C, G, E, P, 0, 0, 0)
+    ps = _pruned_scan(inp, G=G, E=E, P=P, n_max=n_max, S=S, lanes=B)
+    out = pack_outputs_lanes(ps.takes, ps.leftover, ps.carry, extra=1)
+    out[:, -1] = ps.carry.bail[:, 0].long()
+    return out

@@ -29,11 +29,19 @@ group; a warm tick restores one bank row and re-scans only the suffix of
 groups up to the live bound, splicing its own entry carries over the
 bank's tail.
 
+K4, ``solve_scan_packed1_many``: B arenas of one statics bucket in one
+dispatch (the reference's vmap; a lane axis on the kernels). K6, the
+pruned scan (``solve_scan_packed1_pruned`` and ``_many``): the G-axis
+variant of the scan, with a per-slot capacity bound in the carry and
+exact work only for the first S bound-positive slots; a trailing bail
+word marks the inputs where the pruning could have mattered.
+
 ``solve_scan`` / ``solve_scan_packed1`` / ``solve_scan_packed1_ckpt`` /
-``solve_scan_suffix`` dispatch on the tensor's device: the plain
-versions below for a CPU tensor, the CUDA kernels of ``ops/ffd_cuda.py``
-for a CUDA tensor. Nothing on the CUDA path calls a plain version, and
-nothing falls back from one to the other.
+``solve_scan_suffix`` / ``solve_scan_packed1_many`` /
+``solve_scan_packed1_pruned`` / ``_many`` dispatch on the tensor's
+device: the plain versions below for a CPU tensor, the CUDA kernels of
+``ops/ffd_cuda.py`` for a CUDA tensor. Nothing on the CUDA path calls a
+plain version, and nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -44,8 +52,8 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from .hostpack import (in_layout_bool, in_layout_i64, layout_sizes, nwords,
-                       split)
+from .hostpack import (DEV_PRUNED_SLOTS, in_layout_bool, in_layout_i64,
+                       layout_sizes, nwords, split)
 
 BIG = 1 << 60
 
@@ -244,11 +252,10 @@ def _slot_headroom_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
     return cand, k
 
 
-def _fill_phase_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
-                    P: int, V: int):
-    """Steps 1-5 of one group fill, without touching the carry: returns
-    (take [N], n_rem, cand [N, T])."""
-    cand, k = _slot_headroom_ref(inp, carry, g, E=E, P=P, V=V)
+def _prefix_fill_ref(inp: KernelInputs, carry: Carry, g: int, k, *,
+                     P: int):
+    """Steps 4-5: the per-pool limit caps over each pool's slot prefix,
+    then the greedy prefix fill of ``k`` [N]: (take [N], n_rem)."""
     R, n_rem = inp.R[g], inp.n[g]
     for pi in range(P):
         has_limit = bool((inp.pool_limit[pi] >= 0).any())
@@ -262,14 +269,26 @@ def _fill_phase_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
         k = torch.where(rows, capped, k)
     cum = torch.cumsum(k, 0) - k
     take = torch.minimum((n_rem - cum).clamp(min=0), k)
-    return take, n_rem - take.sum(), cand
+    return take, n_rem - take.sum()
+
+
+def _fill_phase_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
+                    P: int, V: int):
+    """Steps 1-5 of one group fill, without touching the carry: returns
+    (take [N], n_rem, cand [N, T])."""
+    cand, k = _slot_headroom_ref(inp, carry, g, E=E, P=P, V=V)
+    take, n_rem = _prefix_fill_ref(inp, carry, g, k, P=P)
+    return take, n_rem, cand
 
 
 def _new_nodes_phase_ref(inp: KernelInputs, g: int, take, used, types,
                          zones, ct, pool, alive, num_nodes, pool_used,
-                         n_rem, *, E: int, P: int, V: int):
+                         n_rem, *, E: int, P: int, V: int, cap_hint=None):
     """Step 7 of one group fill: open new nodes pool by pool (slot
-    indices are ordinal in ``num_nodes``)."""
+    indices are ordinal in ``num_nodes``). With ``cap_hint`` [N, D] (the
+    pruned scan) each opened slot's row becomes the pool's candidate
+    column max of A (0 when nothing is a candidate); it is returned last
+    (None without it)."""
     R, F = inp.R[g], inp.F[g]
     agz, agc, admit, daemon = inp.agz[g], inp.agc[g], inp.admit[g], \
         inp.daemon[g]
@@ -312,6 +331,11 @@ def _new_nodes_phase_ref(inp: KernelInputs, g: int, take, used, types,
         types = torch.where(is_new[:, None], hr_fit, types)
         zones = torch.where(is_new[:, None], agz_p[None, :], zones)
         ct = torch.where(is_new[:, None], agc_p[None, :], ct)
+        if cap_hint is not None:
+            cap_row = torch.where(cand_new[:, None], inp.A,
+                                  torch.zeros_like(inp.A)).amax(dim=0)
+            cap_hint = torch.where(is_new[:, None], cap_row[None, :],
+                                   cap_hint)
         pool = torch.where(is_new, torch.full_like(pool, pi), pool)
         alive = alive | is_new
         num_nodes = num_nodes + q.to(torch.int32)
@@ -319,7 +343,7 @@ def _new_nodes_phase_ref(inp: KernelInputs, g: int, take, used, types,
         pool_used[pi] = pool_used[pi] + placed * R
         n_rem = n_rem - placed
     return (take, used, types, zones, ct, pool, alive, num_nodes, pool_used,
-            n_rem)
+            n_rem, cap_hint)
 
 
 def _group_step_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
@@ -327,6 +351,16 @@ def _group_step_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
     """One whole group step (steps 1-7): (new carry, take [N], n_rem).
     The plain version of ``ffd_slot_headroom`` then ``ffd_group_commit``."""
     take, n_rem, cand = _fill_phase_ref(inp, carry, g, E=E, P=P, V=V)
+    new, take, n_rem, _ = _commit_ref(inp, carry, g, take, n_rem, cand,
+                                      E=E, P=P, V=V)
+    return new, take, n_rem
+
+
+def _commit_ref(inp: KernelInputs, carry: Carry, g: int, take, n_rem, cand,
+                *, E: int, P: int, V: int, cap_hint=None):
+    """Steps 6-7 after the fill: the narrowing of the filled open slots
+    (to ``cand`` [N, T] and the new aggregate), the pool accounting and
+    the new nodes: (new carry, take [N], n_rem, cap_hint)."""
     R = inp.R[g]
     used = carry.used + take[:, None] * R[None, :]
     filled_open = (take > 0) & (carry.pool >= 0)
@@ -343,12 +377,12 @@ def _group_step_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
     take_by_pool = take_by_pool.index_add(0, seg, take)[:P]
     pool_used = carry.pool_used + take_by_pool[:, None] * R[None, :]
     (take, used, types, zones, ct, pool_arr, alive, num_nodes, pool_used,
-     n_rem) = _new_nodes_phase_ref(
+     n_rem, cap_hint) = _new_nodes_phase_ref(
         inp, g, take, used, types, zones, ct, carry.pool, carry.alive,
-        carry.num_nodes, pool_used, n_rem, E=E, P=P, V=V)
+        carry.num_nodes, pool_used, n_rem, E=E, P=P, V=V, cap_hint=cap_hint)
     return (Carry(used=used, types=types, zones=zones, ct=ct, pool=pool_arr,
                   alive=alive, num_nodes=num_nodes, pool_used=pool_used),
-            take, n_rem)
+            take, n_rem, cap_hint)
 
 
 def _solve_scan_ref(inp: KernelInputs, n_max: int, E: int, P: int,
@@ -596,3 +630,262 @@ def solve_scan_packed1(buf, *, T: int, D: int, Z: int, C: int, G: int,
     inp = _packed_inputs_ref(buf, T, D, Z, C, G, E, P, K, M, Q)
     takes, leftover, carry = _solve_scan_ref(inp, n_max, E, P, V)
     return _pack_outputs_ref(takes, leftover, carry)
+
+
+# ---------------------------------------------------------------------------
+# K4: B packed solves of one statics bucket in one dispatch
+# ---------------------------------------------------------------------------
+
+def _as_arenas(bufs, device):
+    """A [B, W] stack of arenas (numpy or tensor) as one int64 tensor."""
+    t = _as_arena(bufs, device)
+    if t.dim() != 2:
+        raise ValueError(f"expected a [B, W] stack of arenas, got shape "
+                         f"{tuple(t.shape)}")
+    return t
+
+
+def split_lanes(buf2d: torch.Tensor, layout) -> dict:
+    """``hostpack.split`` along the last axis of a [B, W] stack: every
+    field a [B, ...] view whose lanes are ``buf2d.stride(0)`` apart."""
+    vals = {}
+    off = 0
+    for nm, shp in layout:
+        sz = 1
+        for s in shp:
+            sz *= s
+        vals[nm] = buf2d[:, off:off + sz].reshape((buf2d.shape[0],)
+                                                  + tuple(shp))
+        off += sz
+    return vals
+
+
+def _unpack_inputs_lanes(bufs_i64: torch.Tensor, bools: torch.Tensor,
+                         T, D, Z, C, G, E, P, K=0, M=0, Q=0) -> KernelInputs:
+    """``_unpack_inputs`` over a lane axis: [B, ...] views of the i64
+    rows of a [B, W] stack and of the [B, nbits] bool planes."""
+    vals = split_lanes(bufs_i64, in_layout_i64(T, D, Z, C, G, E, P, K, M,
+                                               1, Q))
+    vals.update(split_lanes(bools, in_layout_bool(T, D, Z, C, G, E, P, K, M,
+                                                  1, Q)))
+    if K == 0:
+        for nm in ("mv_floor", "mv_pairs_t", "mv_pairs_v"):
+            vals.pop(nm, None)
+    vals.pop("prio", None)
+    return KernelInputs(**vals)
+
+
+def solve_scan_packed1_many(bufs, *, T: int, D: int, Z: int, C: int, G: int,
+                            E: int, P: int, n_max: int, K: int = 0,
+                            V: int = 0, M: int = 0, F: int = 1, Q: int = 0,
+                            device=None) -> torch.Tensor:
+    """B packed solves of one statics bucket in one dispatch (the
+    reference's ``solve_scan_packed1_many``, a vmap of the packed body):
+    a [B, W] stack of arenas in, a [B, Wout] stack of output buffers
+    out, row b the output of ``solve_scan_packed1`` on arena b. CUDA
+    runs one lane-axis unpack, 2*G lane-axis scan launches and one
+    lane-axis pack whatever B is; the CPU runs the plain packed solve
+    lane by lane."""
+    if F != 1:
+        raise NotImplementedError(
+            "fused arenas (F>1) are the K5 kernel (ROADMAP.md queue 2); "
+            "pack with F=1")
+    bufs = _as_arenas(bufs, device)
+    st = dict(T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, n_max=n_max, K=K, V=V,
+              M=M, Q=Q)
+    if bufs.is_cuda:
+        from .ffd_cuda import solve_scan_packed1_many_cuda
+        return solve_scan_packed1_many_cuda(bufs, **st)
+    return torch.stack([solve_scan_packed1(b, **st) for b in bufs])
+
+
+# ---------------------------------------------------------------------------
+# K6: the pruned scan (the G-axis kernel), plain versions and dispatch
+# ---------------------------------------------------------------------------
+#
+# The reference's ``pruned_group_step`` (ops/ffd_jax.py) in three parts,
+# one per CUDA kernel (csrc/pruned.cu):
+#
+# - select: the bound pass over each slot's stale-high ``cap_hint``
+#   (k_bound = min_d floor((cap_hint - used) / R), BIG where R = 0), the
+#   compatibility screen (types & F, zones & agz, ct & agc each any), the
+#   count n_pos of bound-positive compatible open slots (existing rows
+#   excluded) and the first S of them in slot order. Only valid rows are
+#   selected: the reference's argsort pads its selection with
+#   non-candidate rows, whose k it sets to 0, which it never narrows,
+#   and whose existing-row k it overwrites afterwards, so they change no
+#   output.
+# - headroom: the exact candidate row and headroom of each selected slot.
+# - commit: k of the selected rows, then of the existing rows; the base
+#   step's pool caps, greedy fill, narrowing (only selected slots can
+#   take) and new nodes, each opened slot's cap_hint row the pool's
+#   candidate column max of A; the sticky bail flag when pods remain
+#   after the fill while more than S slots were bound-positive.
+
+class CarryP(NamedTuple):
+    """The pruned scan's carry: ``Carry``'s fields plus the bound."""
+    used: torch.Tensor       # [N, D] int64
+    types: torch.Tensor      # [N, T] bool
+    zones: torch.Tensor      # [N, Z] bool
+    ct: torch.Tensor         # [N, C] bool
+    pool: torch.Tensor       # [N] int32 (-1 free, -2 existing)
+    alive: torch.Tensor      # [N] bool
+    num_nodes: torch.Tensor  # [1] int32
+    pool_used: torch.Tensor  # [P, D] int64
+    cap_hint: torch.Tensor   # [N, D] int64 stale-high capacity bound
+    bail: torch.Tensor       # [1] bool: the pruning was insufficient
+
+
+def carry0_pruned(inp: KernelInputs, N: int, E: int,
+                  lanes: Optional[int] = None) -> CarryP:
+    """``carry0`` plus the bound: existing rows hold their allocatable,
+    every other row 0; no bail."""
+    base = carry0(inp, N, E, lanes=lanes)
+    lead = () if lanes is None else (lanes,)
+    D = inp.A.shape[-1]
+    cap_hint = torch.zeros(lead + (N, D), dtype=_I64, device=inp.A.device)
+    cap_hint[..., :E, :] = inp.ex_alloc
+    bail = torch.zeros(lead + (1,), dtype=torch.bool, device=inp.A.device)
+    return CarryP(*base, cap_hint=cap_hint, bail=bail)
+
+
+def _pruned_select_ref(inp: KernelInputs, carry: CarryP, g: int, *, E: int,
+                       P: int, S: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The select part: (sel [S] int32, the first min(n_pos, S)
+    bound-positive compatible open slots in slot order and -1 past them;
+    cnt [2] int32, (n_sel, n_pos))."""
+    R, F, agz, agc = inp.R[g], inp.F[g], inp.agz[g], inp.agc[g]
+    pool = carry.pool.long()
+    adm_open = (pool >= 0) & inp.admit[g][pool.clamp(0, P - 1)]
+    pos = R > 0
+    Rsafe = torch.where(pos, R, torch.ones_like(R))
+    qb = torch.div(carry.cap_hint - carry.used, Rsafe, rounding_mode="floor")
+    qb = torch.where(pos, qb, torch.full_like(qb, BIG))
+    k_bound = qb.amin(dim=-1).clamp(0, BIG)
+    compat = ((carry.types & F).any(dim=1) & (carry.zones & agz).any(dim=1)
+              & (carry.ct & agc).any(dim=1))
+    open_cand = adm_open & (k_bound > 0) & carry.alive & compat
+    open_cand[:E] = False
+    idx = torch.nonzero(open_cand).reshape(-1)
+    n_pos = idx.numel()
+    n_sel = min(n_pos, S)
+    sel = torch.full((S,), -1, dtype=torch.int32, device=idx.device)
+    sel[:n_sel] = idx[:n_sel].to(torch.int32)
+    cnt = torch.tensor([n_sel, n_pos], dtype=torch.int32, device=idx.device)
+    return sel, cnt
+
+
+def _pruned_headroom_ref(inp: KernelInputs, carry: CarryP, g: int,
+                         sel: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The headroom part: (cand_s [S, T] bool, k_s [S] int64) of the
+    selected rows, all False / 0 on rows past n_sel."""
+    R, F, agz, agc = inp.R[g], inp.F[g], inp.agz[g], inp.agc[g]
+    S = sel.shape[0]
+    valid = sel >= 0
+    rows = sel.clamp(min=0).long()
+    zc = ((carry.zones[rows] & agz)[:, :, None]
+          & (carry.ct[rows] & agc)[:, None, :]).reshape(S, -1)
+    off_ok = (zc[:, None, :] & inp.avail_zc[None, :, :]).any(dim=-1)
+    cand_s = carry.types[rows] & F[None, :] & off_ok & valid[:, None]
+    hr_s = _headroom(inp.A[None, :, :], carry.used[rows][:, None, :], R)
+    k_s = torch.where(cand_s, hr_s, torch.zeros_like(hr_s)).amax(dim=1)
+    return cand_s, k_s
+
+
+def _pruned_commit_ref(inp: KernelInputs, carry: CarryP, g: int,
+                       sel: torch.Tensor, cnt: torch.Tensor,
+                       cand_s: torch.Tensor, k_s: torch.Tensor, *, E: int,
+                       P: int, S: int):
+    """The commit part: (new CarryP, take [N], n_rem)."""
+    N, T = carry.types.shape
+    R = inp.R[g]
+    rows = sel[sel >= 0].long()
+    n_sel = rows.numel()
+    k = torch.zeros(N, dtype=_I64, device=carry.used.device)
+    k[rows] = k_s[:n_sel]
+    if E:
+        ex_ok = carry.alive[:E] & inp.ex_compat[g]
+        k_ex = _headroom(inp.ex_alloc, carry.used[:E], R)
+        k[:E] = torch.where(ex_ok, k_ex, torch.zeros_like(k_ex))
+    cand = torch.zeros((N, T), dtype=torch.bool, device=k.device)
+    cand[rows] = cand_s[:n_sel]
+    base = Carry(*carry[:8])
+    take, n_rem = _prefix_fill_ref(inp, base, g, k, P=P)
+    bail = carry.bail | ((cnt[1] > S) & (n_rem > 0))
+    # cap_hint stays stale-high for narrowed slots (the host discipline)
+    new, take, n_rem, cap_hint = _commit_ref(inp, base, g, take, n_rem,
+                                             cand, E=E, P=P, V=0,
+                                             cap_hint=carry.cap_hint)
+    return CarryP(*new, cap_hint=cap_hint, bail=bail), take, n_rem
+
+
+def _pruned_group_step_ref(inp: KernelInputs, carry: CarryP, g: int, *,
+                           E: int, P: int, S: int):
+    """One pruned group step (the reference's ``pruned_group_step``):
+    (new CarryP, take [N], n_rem)."""
+    sel, cnt = _pruned_select_ref(inp, carry, g, E=E, P=P, S=S)
+    cand_s, k_s = _pruned_headroom_ref(inp, carry, g, sel)
+    return _pruned_commit_ref(inp, carry, g, sel, cnt, cand_s, k_s, E=E,
+                              P=P, S=S)
+
+
+def _solve_pruned_ref(inp: KernelInputs, n_max: int, E: int, P: int,
+                      S: int):
+    """Plain version of the whole pruned scan: (takes [G, N] int32,
+    leftover [G], final CarryP). The selection never exceeds the slot
+    count: S = min(S, N), and S == N selects every slot (exact, no
+    bail)."""
+    N = E + n_max
+    S = min(S, N)
+    carry = carry0_pruned(inp, N, E)
+    takes, lefts = [], []
+    for g in range(inp.R.shape[0]):
+        carry, take, n_rem = _pruned_group_step_ref(inp, carry, g, E=E, P=P,
+                                                    S=S)
+        takes.append(take.to(torch.int32))
+        lefts.append(n_rem.reshape(1))
+    return torch.stack(takes), torch.cat(lefts), carry
+
+
+def _pack_pruned_outputs_ref(takes, leftover, carry: CarryP) -> torch.Tensor:
+    """The base output buffer plus one trailing int64: the bail word."""
+    return torch.cat([_pack_outputs_ref(takes, leftover, Carry(*carry[:8])),
+                      carry.bail.reshape(1).long()])
+
+
+def solve_scan_packed1_pruned(buf, *, T: int, D: int, Z: int, C: int,
+                              G: int, E: int, P: int, n_max: int,
+                              S: int = DEV_PRUNED_SLOTS,
+                              device=None) -> torch.Tensor:
+    """The pruned G-axis scan behind the base kernel's single-buffer
+    wire (the reference's ``solve_scan_packed1_pruned``): the packed
+    outputs plus ONE trailing int64, the bail word (1: the pruning was
+    insufficient; the caller discards the output and re-solves on the
+    host engine). The arena is the K = M = 0, Q = 0 layout (no minValues
+    floors, no priority section). CUDA runs the hand-written kernels
+    (three launches per group step); the CPU runs the plain versions."""
+    buf = _as_arena(buf, device)
+    S = min(S, E + n_max)
+    if buf.is_cuda:
+        from .ffd_cuda import solve_scan_packed1_pruned_cuda
+        return solve_scan_packed1_pruned_cuda(buf, T=T, D=D, Z=Z, C=C, G=G,
+                                              E=E, P=P, n_max=n_max, S=S)
+    inp = _packed_inputs_ref(buf, T, D, Z, C, G, E, P, 0, 0, 0)
+    return _pack_pruned_outputs_ref(*_solve_pruned_ref(inp, n_max, E, P, S))
+
+
+def solve_scan_packed1_pruned_many(bufs, *, T: int, D: int, Z: int, C: int,
+                                   G: int, E: int, P: int, n_max: int,
+                                   S: int = DEV_PRUNED_SLOTS,
+                                   device=None) -> torch.Tensor:
+    """B pruned solves of one statics bucket in one dispatch (the
+    reference's ``solve_scan_packed1_pruned_many``): [B, W] in, [B,
+    Wout + 1] out, each lane with its OWN trailing bail word."""
+    bufs = _as_arenas(bufs, device)
+    S = min(S, E + n_max)
+    st = dict(T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, n_max=n_max, S=S)
+    if bufs.is_cuda:
+        from .ffd_cuda import solve_scan_packed1_pruned_many_cuda
+        return solve_scan_packed1_pruned_many_cuda(bufs, **st)
+    return torch.stack([solve_scan_packed1_pruned(b, **st) for b in bufs])

@@ -15,6 +15,14 @@ from __future__ import annotations
 
 import numpy as np
 
+#: default exact-slot budget per pruned-kernel step: the one source for
+#: the kernel signature default (ops/ffd_torch.py) and the solver knob
+#: (solver/cuda.py dev_pruned_slots). The compat-aware bound pass counts
+#: only slots the exact step could fill, and BASELINE config 7 (50k pods,
+#: ~10k signatures, ~5 pods/signature) clears its deepest fill at S=48;
+#: 64 leaves margin without moving the O(S*T*D) step-cost class.
+DEV_PRUNED_SLOTS = 64
+
 
 def in_layout_i64(T, D, Z, C, G, E, P, K=0, M=0, F=1, Q=0):
     """(name, shape) of every int64 input, in buffer order. K/M are the

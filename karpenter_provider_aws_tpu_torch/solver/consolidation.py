@@ -43,7 +43,7 @@ from ..controllers.disruption import ConsolidationEvaluator, SubsetVerdict
 from ..models.delta import DeltaEncoder
 from ..models.encoding import canonical_pod_groups
 from ..ops import consolidation_torch as ct
-from .cuda import DEV_MAX_GROUPS, CUDASolver
+from .cuda import CUDASolver
 from .types import ExistingNode, SchedulingSnapshot, Solver, \
     preference_count
 
@@ -267,7 +267,7 @@ class CUDAConsolidationEvaluator(ConsolidationEvaluator):
             # minValues floors couple lanes to pool-level argmin state;
             # the per-prefix simulate handles them exactly
             return self._subset_fallback("minvalues")
-        if len(enc.groups) > DEV_MAX_GROUPS:
+        if len(enc.groups) > solver.dev_max_groups:
             return self._subset_fallback("group_cap")
 
         # padded union arena, reused verbatim while the encoder's version

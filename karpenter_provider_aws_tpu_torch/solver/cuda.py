@@ -21,11 +21,25 @@ the output buffer cross between host and device; the bank stays on the
 device. ``incremental=False`` encodes every snapshot from scratch and
 runs ``solve_scan_packed1``.
 
+The G axis follows the reference's routing (solver/tpu.py): past the
+base scan's padded group cap (``dev_max_groups``, 4096) a solve runs the
+pruned scan (ops/ffd_torch.py ``solve_scan_packed1_pruned``, K6) up to
+``dev_max_groups_pruned`` (16384) groups. The host engine (ops/ffd.py,
+``_run_host``) serves exactly the reference's host cases: a snapshot with
+no instance types (``no_types``), a group count past the effective cap
+(``group_cap``; 4096 with minValues floors), a priority arena past the
+base cap (``priority_cap``), and a pruned solve whose bail word is set
+(``pruned_bail``), which the reference re-solves on its host engine by
+contract. Each such solve is recorded in ``last_dispatch_stats``
+(``kernel``, ``reason``, ``bails``); decisions never depend on which
+engine served. ``solve_batch`` runs many snapshots of one statics bucket
+in one dispatch (``solve_scan_packed1_many``, K4).
+
 There is no router, host twin or oracle fallback here: on a CUDA device
-every solve runs the kernels or raises. ``device="cpu"`` runs the plain
-PyTorch versions of the same kernels (tests). Snapshots outside this
-port's slice raise ``NotImplementedError`` naming the ROADMAP.md item
-that will port them.
+a solve the kernels take runs them or raises, and nothing catches a
+kernel failure. ``device="cpu"`` runs the plain PyTorch versions of the
+same kernels (tests). Snapshots outside this port's slice raise
+``NotImplementedError`` naming the ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
@@ -41,19 +55,19 @@ from ..apis.requirements import Requirements
 from ..apis.resources import Resources
 from ..models.delta import DeltaEncoder, full_existing_encode
 from ..models.encoding import SnapshotEncoding, encode_snapshot
-from ..ops import ffd_cuda
+from ..models.encoding import canonical_pod_groups
+from ..ops import ffd, ffd_cuda
 from ..ops.consolidation_torch import subset_solve
 from ..ops.ffd_torch import (kernel_inputs_from_numpy, solve_scan_packed1,
-                             solve_scan_packed1_ckpt, solve_scan_suffix)
-from ..ops.hostpack import (pack_inputs1, pack_inputs1_state, patch_inputs1,
+                             solve_scan_packed1_ckpt,
+                             solve_scan_packed1_many,
+                             solve_scan_packed1_pruned, solve_scan_suffix)
+from ..ops.hostpack import (DEV_PRUNED_SLOTS, pack_inputs1,
+                            pack_inputs1_state, patch_inputs1,
                             tier_leftovers, unpack_outputs1)
 from .incremental import CKPT_CHUNK, ckpt_eligible, live_bound, suffix_plan
 from .types import (ExistingNode, NewNodeClaim, SchedulingSnapshot,
-                    SolveResult, Solver)
-
-#: padded group count past which the base scan is not run (its cost is
-#: O(G * N * T)); the reference serves such solves with the pruned kernel
-DEV_MAX_GROUPS = 4096
+                    SolveResult, Solver, preference_count)
 
 
 def _slotmap(E: int, Ep: int, N: int) -> np.ndarray:
@@ -110,6 +124,15 @@ class CUDASolver(Solver):
         #: self.device: (arrays, tprice, KernelInputs, tprice tensor),
         #: reused while the caller hands the same arrays back
         self._sub_arena = None
+        #: BASE scan cap: past this padded group count the [N, T]-per-step
+        #: scan is not run (its cost is O(G * N * T))
+        self.dev_max_groups = 4096
+        #: PRUNED scan cap: solves between the two caps ride the pruned
+        #: kernel (no minValues floors, no priority section); a solve whose
+        #: pruning was insufficient bails to the host engine
+        self.dev_max_groups_pruned = 16384
+        #: exact-slot budget S per pruned step
+        self.dev_pruned_slots = DEV_PRUNED_SLOTS
 
     def solve(self, snapshot: SchedulingSnapshot) -> SolveResult:
         """Slot growth (``_grow_if_exhausted``) is scoped to ONE solve."""
@@ -169,18 +192,17 @@ class CUDASolver(Solver):
             raise NotImplementedError(
                 "topology spread / pod (anti-)affinity needs the topology "
                 "scan (ROADMAP.md queue 2, K9: ops/topo_jax.py)")
-        if not enc.types:
-            raise NotImplementedError(
-                "a snapshot with no instance types (T == 0) needs the host "
-                "engine (ROADMAP.md queue 1: ops/ffd.py)")
-        if len(enc.groups) > DEV_MAX_GROUPS:
-            raise NotImplementedError(
-                f"{len(enc.groups)} groups exceed the base scan's cap of "
-                f"{DEV_MAX_GROUPS}; that envelope is the pruned kernel "
-                "(ROADMAP.md queue 2, K6)")
         t_enc = time.perf_counter()
-        takes, leftover, final = self._run_device(enc, ex_alloc, ex_used,
-                                                  ex_compat)
+        if not enc.types:
+            # zero-width type axis: only the host engine takes T == 0
+            takes, leftover, final = self._run_host(
+                enc, ex_alloc, ex_used, ex_compat, "no_types")
+        elif len(enc.groups) > self._dev_group_cap(enc):
+            takes, leftover, final = self._run_host(
+                enc, ex_alloc, ex_used, ex_compat, "group_cap")
+        else:
+            takes, leftover, final = self._run_device(enc, ex_alloc,
+                                                      ex_used, ex_compat)
         if self._grow_if_exhausted(snapshot, leftover, final):
             return self._solve_core(snapshot, pod_groups=pod_groups)
         t_k = time.perf_counter()
@@ -196,6 +218,44 @@ class CUDASolver(Solver):
             self.last_phase_stats["cache"] = d.tier
             self.last_phase_stats["patched_rows"] = d.patched_rows
         return res
+
+    def _dev_group_cap(self, enc: SnapshotEncoding) -> int:
+        """Effective device group cap for this snapshot: the pruned
+        kernel's envelope without minValues floors, else the base's."""
+        if enc.mv_K == 0:
+            return self.dev_max_groups_pruned
+        return self.dev_max_groups
+
+    def _run_host(self, enc, ex_alloc, ex_used, ex_compat, reason: str,
+                  bails: int = 0, before=None):
+        """The host engine (ops/ffd.py, the reference's ``_run_numpy``
+        interpreted path: one closed-form fill per group over a NodeState
+        of ``n_max`` new-node slots). Records ``kernel="host"`` and the
+        reason in ``last_dispatch_stats``; ``before`` holds the launch
+        counters from before a bailed pruned solve, whose launches it
+        reports."""
+        self._solve_mode = "full"
+        st = ffd.NodeState.create(enc, self.n_max, ex_alloc, ex_used,
+                                  ex_compat)
+        takes = np.zeros((len(enc.groups), st.N), dtype=np.int64)
+        leftover = np.zeros(len(enc.groups), dtype=np.int64)
+        for g in enc.groups:
+            take, rem = ffd.fill_group_closed_form(st, enc, g.index)
+            takes[g.index] = take
+            leftover[g.index] = rem
+        self.last_dispatch_stats = dict(
+            device=str(self.device), kernel="host", reason=reason,
+            bails=bails, batch=1, launches=self._launches_since(before))
+        final = dict(types=st.types, zones=st.zones, ct=st.ct, pool=st.pool,
+                     alive=st.alive, used=st.used, E=st.E)
+        return takes, leftover, final
+
+    @staticmethod
+    def _launches_since(before) -> dict:
+        """Kernel launches since the ``before`` snapshot of the counters
+        (all 0 without one)."""
+        return {k: v - (before[k] if before else v)
+                for k, v in ffd_cuda.LAUNCHES.items()}
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -285,6 +345,19 @@ class CUDASolver(Solver):
         solve, one d2h copy (the only synchronisation)."""
         d_buf = torch.from_numpy(buf).to(self.device)
         return solve_scan_packed1(d_buf, **statics).cpu().numpy()
+
+    def _dispatch_pruned(self, buf: np.ndarray, **statics) -> np.ndarray:
+        """The pruned G-axis solve: the base output buffer plus one
+        trailing bail word (S arrives in ``statics``)."""
+        d_buf = torch.from_numpy(buf).to(self.device)
+        return solve_scan_packed1_pruned(d_buf, **statics).cpu().numpy()
+
+    def _dispatch_many(self, bufs, **statics) -> np.ndarray:
+        """B packed solves of one statics bucket in ONE dispatch: one
+        h2d copy of the [B, W] stack, ``solve_scan_packed1_many``, one
+        d2h copy of the [B, Wout] rows."""
+        d_bufs = torch.from_numpy(np.stack(bufs)).to(self.device)
+        return solve_scan_packed1_many(d_bufs, **statics).cpu().numpy()
 
     def _dispatch_ckpt(self, buf: np.ndarray, **statics):
         """The checkpointed full solve: the output buffer comes back to
@@ -464,14 +537,32 @@ class CUDASolver(Solver):
         _, stt, buf = self._arena_for(enc, ex_alloc, ex_used, ex_compat)
         T, Dp, Z, C = stt["T"], stt["D"], stt["Z"], stt["C"]
         Gp, Ep, Pp = stt["G"], stt["E"], stt["P"]
+        if stt["Q"] and Gp > self.dev_max_groups:
+            # the pruned arena has no priority section
+            return self._run_host(enc, ex_alloc, ex_used, ex_compat,
+                                  "priority_cap")
+        use_pruned = stt["K"] == 0 and Gp > self.dev_max_groups
         before = dict(ffd_cuda.LAUNCHES)
         n_bucket, retries = self._bucket, 0
-        ck_on = self._delta is not None and ckpt_eligible(Gp)
+        ck_on = (self._delta is not None and not use_pruned
+                 and ckpt_eligible(Gp))
         self._solve_mode = "full"
         sreason, sinfo = ("disabled" if not ck_on else None), None
         while True:
             out = None
-            if ck_on and sreason is None:
+            if use_pruned:
+                o_buf = self._dispatch_pruned(
+                    buf, T=T, D=Dp, Z=Z, C=C, G=Gp, E=Ep, P=Pp,
+                    n_max=n_bucket, S=self.dev_pruned_slots)
+                if int(o_buf[-1]):
+                    # the pruning was insufficient for this input: the
+                    # host engine serves it, identically (recorded)
+                    return self._run_host(enc, ex_alloc, ex_used, ex_compat,
+                                          "pruned_bail", bails=1,
+                                          before=before)
+                out = unpack_outputs1(o_buf[:-1], T, Dp, Z, C, Gp, Ep, Pp,
+                                      n_bucket)
+            elif ck_on and sreason is None:
                 out, sreason, sinfo = self._try_suffix(buf, stt, n_bucket)
             if out is None and ck_on:
                 if self._solve_mode != "full":
@@ -500,11 +591,11 @@ class CUDASolver(Solver):
         suffix = self._solve_mode != "full"
         self.last_dispatch_stats = dict(
             device=str(self.device), slot_bucket=n_bucket, retries=retries,
-            groups=Gp,
-            kernel="suffix" if suffix else "ckpt" if ck_on else "base",
-            reason=None if suffix else sreason,
-            launches={k: v - before[k]
-                      for k, v in ffd_cuda.LAUNCHES.items()})
+            groups=Gp, bails=0, batch=1,
+            kernel=("pruned" if use_pruned else "suffix" if suffix
+                    else "ckpt" if ck_on else "base"),
+            reason=None if suffix or use_pruned else sreason,
+            launches=self._launches_since(before))
         if sinfo is not None:
             self.last_dispatch_stats.update(sinfo)
         takes = out["takes"][:G]
@@ -516,6 +607,100 @@ class CUDASolver(Solver):
             ct=out["ct"][sm], pool=out["pool"][sm],
             alive=out["alive"][sm], used=out["used"][sm][:, :D], E=E)
         return takes, out["leftover"][:G], final
+
+    # -- many snapshots in one dispatch -----------------------------------
+    def solve_batch(self, snapshots) -> List[SolveResult]:
+        """Solve many independent snapshots, eligible ones B per dispatch
+        (``_dispatch_many``: one lane-axis solve of a statics bucket).
+        Decisions are exactly ``[self.solve(s) for s in snapshots]``:
+        ineligible items (no pods, preferences, topology, no instance
+        types, minValues floors, padded groups past ``dev_max_groups``),
+        a bucket of fewer than 2 items, and an item whose lane ran out of
+        new-node slots take the single-solve path. The reference's
+        ``TPUSolver.solve_batch`` without its router. After a batch,
+        ``last_dispatch_stats`` has ``kernel="batch"`` and the lane count
+        (a later single solve overwrites it)."""
+        snapshots = list(snapshots)
+        results: List = [None] * len(snapshots)
+        buckets: Dict[Tuple, List] = {}
+        for i, snap in enumerate(snapshots):
+            item = self._prep_batch_item(snap)
+            if item is None:
+                results[i] = self.solve(snap)
+            else:
+                key = tuple(sorted(item["statics"].items()))
+                buckets.setdefault(key, []).append((i, item))
+        for key, items in buckets.items():
+            if len(items) < 2:
+                # nothing to amortize: the single path also keeps its
+                # slot-bucket retry
+                for i, _ in items:
+                    results[i] = self.solve(snapshots[i])
+                continue
+            statics = dict(key)
+            n_bucket = self._bucket
+            before = dict(ffd_cuda.LAUNCHES)
+            o = self._dispatch_many([it["buf"] for _, it in items],
+                                    n_max=n_bucket, **statics)
+            self.last_dispatch_stats = dict(
+                device=str(self.device), kernel="batch", reason=None,
+                bails=0, batch=len(items), groups=statics["G"],
+                slot_bucket=n_bucket, launches=self._launches_since(before))
+            for (i, it), o_buf in zip(items, o):
+                res = self._finish_batch_item(it, o_buf, statics, n_bucket)
+                # slot-bucket overflow: the single path re-solves with its
+                # x4 retry loop (and slot growth), identically
+                results[i] = res if res is not None \
+                    else self.solve(snapshots[i])
+        return results
+
+    def _prep_batch_item(self, snapshot: SchedulingSnapshot):
+        """Encode one snapshot for the batched dispatch, or None when it
+        must take the single-solve path (the reference's gates minus its
+        router): pods, no preferences, no topology, T > 0, K = 0 and a
+        padded group count within ``dev_max_groups``."""
+        if not snapshot.pods:
+            return None
+        groups = canonical_pod_groups(snapshot.pods)
+        if any(preference_count(plist[0]) for _sig, plist in groups):
+            return None
+        enc = encode_snapshot(snapshot, pod_groups=groups)
+        if enc.topo_any or not enc.types or enc.mv_K:
+            return None
+        existing = sorted(snapshot.existing_nodes, key=lambda n: n.name)
+        ex_alloc, ex_used, ex_compat = full_existing_encode(enc, existing)
+        arrays, stt = self._prep_device_inputs(enc, ex_alloc, ex_used,
+                                               ex_compat)
+        if stt["G"] > self.dev_max_groups:
+            return None
+        buf = pack_inputs1(arrays, stt["T"], stt["D"], stt["Z"], stt["C"],
+                           stt["G"], stt["E"], stt["P"], stt["K"], stt["M"],
+                           1, stt["Q"])
+        return dict(enc=enc, existing=existing, buf=buf, statics=stt,
+                    D=enc.A.shape[1], E=ex_alloc.shape[0])
+
+    def _finish_batch_item(self, it, o_buf, statics, n_bucket):
+        """Decode one row of the batched output; None when the item
+        exhausted the slot bucket (the caller re-solves it singly). The
+        tail is ``_run_device``'s unpadding."""
+        enc = it["enc"]
+        G, E, D = len(enc.groups), it["E"], it["D"]
+        Gp, Ep = statics["G"], statics["E"]
+        out = unpack_outputs1(np.ascontiguousarray(o_buf), statics["T"],
+                              statics["D"], statics["Z"], statics["C"], Gp,
+                              Ep, statics["P"], n_bucket)
+        if (out["leftover"].sum() > 0
+                and int(out["num_nodes"][0]) >= n_bucket):
+            return None
+        takes = out["takes"][:G]
+        takes = np.concatenate([takes[:, :E], takes[:, Ep:]], axis=1)
+        sm = _slotmap(E, Ep, Ep + n_bucket)
+        final = dict(
+            types=out["types"][sm], zones=out["zones"][sm],
+            ct=out["ct"][sm], pool=out["pool"][sm],
+            alive=out["alive"][sm], used=out["used"][sm][:, :D], E=E)
+        return self._decode(enc, it["existing"], takes,
+                            out["leftover"][:G], final)
 
     # -- consolidation's whole-fleet search ------------------------------
     #: the solver interface's flag for a subset kernel; the reference's
@@ -558,8 +743,7 @@ class CUDASolver(Solver):
         self.last_dispatch_stats = dict(
             device=str(self.device), kernel="subset", batch=len(out),
             groups=int(np.asarray(gid).shape[1]),
-            launches={k: v - before[k]
-                      for k, v in ffd_cuda.LAUNCHES.items()})
+            launches=self._launches_since(before))
         return out
 
     # ------------------------------------------------------------------

@@ -555,8 +555,7 @@ def test_refusals_and_eligibility_counts(both_counters, monkeypatch):
         {"key": L.INSTANCE_FAMILY, "operator": "Exists", "minValues": 2}])])
     mv.existing_nodes = nodes
     assert ev.subset_solve(mv, [plain]) is None
-    from karpenter_provider_aws_tpu_torch.solver import consolidation
-    monkeypatch.setattr(consolidation, "DEV_MAX_GROUPS", 0)
+    monkeypatch.setattr(ev.solver, "dev_max_groups", 0)
     assert ev.subset_solve(base, [plain]) is None
     assert ev.fallbacks == {"topology": 2, "no_pods": 1, "no_types": 1,
                             "minvalues": 1, "group_cap": 1}

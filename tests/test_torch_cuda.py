@@ -1,7 +1,8 @@
 """The CUDA kernels of the port held against their plain PyTorch versions
 on the card, at small shapes. Tolerance: exact (integer math). K1-K3
-(the packed scan, the bank), the K2 kernels on their lane axis, and the
-K7 consolidation kernels.
+(the packed scan, the bank), the K1 and K2 kernels on their lane axis
+and the batched packed solve (K4), the pruned scan's kernels (K6), and
+the K7 consolidation kernels.
 
 Every test here needs a CUDA card: the ``cuda_device`` fixture skips
 otherwise, so the CPU suite collects the same tests and skips them. On a
@@ -398,3 +399,131 @@ def test_consolidation_evaluator_on_card_matches_plain(cuda_device):
     assert examples.multi_consolidation(gpu, gpu.solver, base,
                                         cands[-8:]) == \
         examples.multi_consolidation(cpu, cpu.solver, base, cands[-8:])
+
+
+# ---------------------------------------------------------------------------
+# K1 on the lane axis and the batched packed solve (K4)
+# ---------------------------------------------------------------------------
+
+def _stack(arenas, st, dev):
+    return torch.stack([torch.from_numpy(pack_inputs1(
+        a, *examples.pack_statics(st))) for a in arenas]).to(dev)
+
+
+def test_k1_lane_axis_matches_plain(cuda_device):
+    """One lane is the lane-free launch; three lanes of different
+    contents, read out of a [B, W] stack (lanes W words apart), are the
+    plain versions lane by lane; pack_outputs over lane stacks likewise."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    lanes, st = examples.pruned_lanes()
+    T, D, Z, C, G, E, P = (st[k] for k in "T D Z C G E P".split())
+    bufs = _stack(lanes, st, cuda_device)
+    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P))
+    n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P))
+    one = ffd_cuda.unpack_bits_lanes(bufs[:1, n_i64:], n_bits)
+    assert torch.equal(one[0], ffd_cuda.unpack_bits(bufs[0, n_i64:],
+                                                    n_bits))
+    got = ffd_cuda.unpack_bits_lanes(bufs[:, n_i64:], n_bits)
+    for b in range(3):
+        assert torch.equal(got[b], ft._unpack_bits_ref(bufs[b, n_i64:],
+                                                       n_bits))
+    outs = []
+    for b in range(3):
+        inp = ft._packed_inputs_ref(bufs[b], T, D, Z, C, G, E, P, 0, 0, 0)
+        outs.append(ft._solve_scan_ref(inp, st["n_max"], E, P))
+    takes = torch.stack([o[0] for o in outs])
+    lefts = torch.stack([o[1] for o in outs])
+    carry = ft.Carry(*[torch.stack(f) for f in zip(*[o[2] for o in outs])])
+    packed = ffd_cuda.pack_outputs_lanes(takes, lefts, carry)
+    for b in range(3):
+        assert torch.equal(packed[b], ft._pack_outputs_ref(*outs[b]))
+    assert torch.equal(ffd_cuda.pack_outputs_lanes(takes[:1], lefts[:1],
+                                                   ft.Carry(*[f[:1] for f in
+                                                              carry]))[0],
+                       ffd_cuda.pack_outputs(*outs[0]))
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_packed_many_on_card(cuda_device, B):
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    cases = [examples.example_case(c) for c in ("base", "daemon",
+                                                "pool_limits")][:B]
+    st = cases[0][1]
+    bufs = _stack([a for a, _ in cases], st, cuda_device)
+    ffd_cuda.reset_launches()
+    got = ft.solve_scan_packed1_many(bufs, **examples.solve_statics(st))
+    assert ffd_cuda.LAUNCHES["unpack_bits"] == 1
+    assert ffd_cuda.LAUNCHES["pack_outputs"] == 1
+    assert ffd_cuda.LAUNCHES["ffd_group_commit"] == st["G"]
+    for b in range(B):
+        plain = ft.solve_scan_packed1(bufs[b].cpu(),
+                                      **examples.solve_statics(st))
+        assert torch.equal(got[b].cpu(), plain)
+
+
+# ---------------------------------------------------------------------------
+# K6: the pruned scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [1, 2, 64])
+@pytest.mark.parametrize("case", examples.PRUNED_CASES)
+def test_pruned_kernels_step_by_step(cuda_device, case, S):
+    """Each of the three kernels against its plain part, group by group
+    from the plain carry."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    arrays, st = examples.pruned_case(case)
+    T, D, Z, C, G, E, P = (st[k] for k in "T D Z C G E P".split())
+    N = E + st["n_max"]
+    S = min(S, N)
+    buf = torch.from_numpy(pack_inputs1(arrays, *examples.pack_statics(
+        st))).to(cuda_device)
+    inp = ft._packed_inputs_ref(buf, T, D, Z, C, G, E, P, 0, 0, 0)
+    carry = ft.carry0_pruned(inp, N, E)
+    ps = ffd_cuda.PrunedState(inp, ft.CarryP(*[t.clone() for t in carry]),
+                              E=E, P=P, S=S)
+    for g in range(G):
+        for dst, src in zip(ps.carry, carry):
+            dst.copy_(src)
+        sel, cnt = ft._pruned_select_ref(inp, carry, g, E=E, P=P, S=S)
+        ffd_cuda.ffd_pruned_select(ps, g)
+        assert torch.equal(ps.sel, sel) and torch.equal(ps.cnt, cnt), g
+        cand_s, k_s = ft._pruned_headroom_ref(inp, carry, g, sel)
+        ffd_cuda.ffd_pruned_headroom(ps, g)
+        assert torch.equal(ps.cand, cand_s) and torch.equal(ps.ks, k_s), g
+        carry, take, n_rem = ft._pruned_commit_ref(
+            inp, carry, g, sel, cnt, cand_s, k_s, E=E, P=P, S=S)
+        ffd_cuda.ffd_pruned_commit(ps, g)
+        for f, got, want in zip(ft.CarryP._fields, ps.carry, carry):
+            assert torch.equal(got, want), (g, f)
+        assert torch.equal(ps.takes[g], take.to(torch.int32)), g
+        assert torch.equal(ps.leftover[g:g + 1], n_rem.reshape(1)), g
+
+
+@pytest.mark.parametrize("S", [1, 64])
+@pytest.mark.parametrize("case", examples.PRUNED_CASES)
+def test_pruned_packed_solve_on_card(cuda_device, case, S):
+    arrays, st = examples.pruned_case(case)
+    buf = torch.from_numpy(pack_inputs1(arrays, *examples.pack_statics(st)))
+    got = ft.solve_scan_packed1_pruned(buf.to(cuda_device), S=S,
+                                       **examples.pruned_statics(st))
+    plain = ft.solve_scan_packed1_pruned(buf, S=S,
+                                         **examples.pruned_statics(st))
+    assert torch.equal(got.cpu(), plain)
+
+
+def test_pruned_many_on_card(cuda_device):
+    """Three lanes of different contents: each lane's own answer and
+    bail word (only the first bails), as the single solves give them."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    lanes, st = examples.pruned_lanes()
+    S = examples.PRUNED_LANES_S
+    bufs = _stack(lanes, st, cuda_device)
+    ffd_cuda.reset_launches()
+    got = ft.solve_scan_packed1_pruned_many(bufs, S=S,
+                                            **examples.pruned_statics(st))
+    assert ffd_cuda.LAUNCHES["ffd_pruned_commit"] == st["G"]
+    assert got[:, -1].tolist() == [1, 0, 0]
+    for b in range(3):
+        plain = ft.solve_scan_packed1_pruned(bufs[b].cpu(), S=S,
+                                             **examples.pruned_statics(st))
+        assert torch.equal(got[b].cpu(), plain)

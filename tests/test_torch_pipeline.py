@@ -237,9 +237,14 @@ def test_out_of_slice_snapshots_raise(envs):
     with pytest.raises(NotImplementedError, match="K9"):
         CUDASolver(device="cpu").solve(
             e_port.snapshot(hard, [e_port.nodepool("p")]))
+    # a snapshot with no instance types is in the slice now: the host
+    # engine serves it (no pools and no nodes: both pods are reported)
     empty = e_port.snapshot(env_port.make_pods(2), [])
-    with pytest.raises(NotImplementedError, match="T == 0"):
-        CUDASolver(device="cpu").solve(empty)
+    solver = CUDASolver(device="cpu")
+    res = solver.solve(empty)
+    assert not res.new_nodes and len(res.unschedulable) == 2
+    assert (solver.last_dispatch_stats["kernel"],
+            solver.last_dispatch_stats["reason"]) == ("host", "no_types")
 
 
 def test_port_imports_no_jax():
