@@ -49,11 +49,25 @@ Phases (any failure exits non-zero before the result line):
    plain versions' on the same CUDA tensors, and every decision the plain
    path's: the plain rows (a, b) or the plain evaluator on the CPU (c),
    with every simulate by ``CUDASolver(device="cpu")``;
-7. kernel times with CUDA events at the main paths' shapes, beside the
+8. the G-axis path: each K6 kernel against its plain part over 512 group
+   steps of BASELINE config 7 (``examples.config7``, 50,000 pods, 10,000
+   signatures) from the first carry, from a mid-scan carry and at S = 1;
+   then ``CUDASolver()`` solves config 7 on the pruned kernels (one
+   warm-up, timed rounds, counters set to 0 just before and read just
+   after) with 0 bails, fingerprint-equal to the host engine on the CPU;
+   a forced S = 1 solve must bail and be re-solved on the card with
+   every slot selected (``reason="pruned_bail"``), fingerprint-equal;
+9. the batch path: ``CUDASolver().solve_batch`` on
+   ``examples.batch_snapshots`` at B = 8 and 64, one ``_dispatch_many``
+   of 1 + 2*Gp + 1 launches each, every lane's output row byte-equal to
+   its single solve on the card and to the plain versions;
+10. kernel times with CUDA events at the main paths' shapes, beside the
    plain versions' times, the bound the shapes allow and, for the bank
    kernels, ``Tensor.copy_`` of the same bytes; the suffix solve's device
    time beside the checkpointed full solve's on the warm arena; the K2
-   kernels on the lane axis at the whole-fleet round's 2,048 lanes.
+   kernels on the lane axis at the whole-fleet round's 2,048 lanes; the
+   K6 kernels at config 7's states and the lane-axis K1 kernels at
+   B = 8 and 64.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; a line before them holds the per-kernel
@@ -995,18 +1009,25 @@ def g_axis_phase(cmp, device=None, n_pods=C7_PODS, n_sigs=C7_SIGS,
     if placed + len(res.existing_assignments) + len(res.unschedulable) \
             != len(snap.pods):
         raise AssertionError("config 7: not every pod placed or reported")
-    # the forced bail: S = 1 on the same snapshot
+    # the forced bail: S = 1 on the same snapshot bails, and the solver
+    # re-solves the same arena on the device with every slot selected
     s1 = solver_for(device, dev_pruned_slots=1)
+    t0 = time.perf_counter()
     r1 = s1.solve(snap)
+    s1_ms = (time.perf_counter() - t0) * 1e3
     d1 = s1.last_dispatch_stats
     if (d1["kernel"], d1["reason"], d1["bails"]) != \
-            ("host", "pruned_bail", 1):
-        raise AssertionError(f"the S=1 solve did not bail to the host "
-                             f"engine: {d1}")
+            ("pruned", "pruned_bail", 1):
+        raise AssertionError(f"the S=1 solve did not bail and re-solve on "
+                             f"the pruned kernel: {d1}")
+    if solver.device.type == "cuda" and \
+            d1["launches"]["ffd_pruned_commit"] < 2 * G:
+        raise AssertionError(f"the S=1 solve's re-solve did not run on the "
+                             f"card: {d1['launches']}")
     if plain_bail is not None and plain_bail != 1:
         raise AssertionError("the plain parts did not bail at S=1")
     if r1.decision_fingerprint() != want.decision_fingerprint():
-        raise AssertionError("config 7: the host-served S=1 solve differs")
+        raise AssertionError("config 7: the re-solved S=1 solve differs")
     split = {k: statistics.median(x[k] for x in splits)
              for k in ("group_ms", "encode_ms", "kernel_ms", "decode_ms")}
     summary = dict(p50_ms=statistics.median(times), p99_ms=pct(times, 0.99),
@@ -1017,7 +1038,9 @@ def g_axis_phase(cmp, device=None, n_pods=C7_PODS, n_sigs=C7_SIGS,
                    signatures=len(enc.groups), host_engine_ms=host_ms,
                    cold=cold,
                    s1=dict(kernel=d1["kernel"], reason=d1["reason"],
-                           bails=d1["bails"]))
+                           bails=d1["bails"], wall_ms=s1_ms,
+                           commit_launches=d1["launches"][
+                               "ffd_pruned_commit"]))
     log(f"[config7] {res.summary()}; cold solve {json.dumps(cold)}; solve "
         f"p50 {summary['p50_ms']:.3f} ms "
         f"p99 {summary['p99_ms']:.3f} ms over {rounds} rounds; median split "

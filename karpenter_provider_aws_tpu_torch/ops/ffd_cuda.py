@@ -37,8 +37,8 @@ from typing import Dict, Tuple
 import torch
 
 from .ffd_torch import (CARRY_DTYPES, Carry, CarryP, KernelInputs,
-                        _unpack_inputs, _unpack_inputs_lanes, carry0,
-                        carry0_pruned)
+                        _out_i64, _unpack_inputs, _unpack_inputs_lanes,
+                        carry0, carry0_pruned)
 from .hostpack import in_layout_bool, in_layout_i64, layout_sizes, nwords
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -174,30 +174,21 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _need(t: torch.Tensor, name: str, dtype, shape=None) -> None:
+def _need(t: torch.Tensor, name: str, dtype, shape=None,
+          lanes: bool = False) -> None:
+    """A CUDA tensor of ``dtype`` and ``shape``, contiguous; with
+    ``lanes`` a [L, ...] field contiguous only within each lane, the
+    lanes ``t.stride(0)`` elements apart (a view of a [L, W] stack)."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    if not (t[0] if lanes and t.shape[0] else t).is_contiguous():
+        raise ValueError(f"{name} must be contiguous"
+                         + (" within each lane" if lanes else ""))
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-
-
-def _need_lanes(t: torch.Tensor, name: str, dtype, shape) -> None:
-    """``_need`` for a [L, ...] field whose lanes are each contiguous and
-    ``t.stride(0)`` elements apart (a view of a [L, W] arena stack)."""
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if t.shape[0] and not t[0].is_contiguous():
-        raise ValueError(f"{name} must be contiguous within each lane")
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +207,7 @@ def unpack_bits_lanes(words: torch.Tensor, nbits: int) -> torch.Tensor:
     bool sections of a [L, W] arena stack) -> bool [L, nbits], one launch
     whatever L is (kernel)."""
     L = words.shape[0]
-    _need_lanes(words, "words", torch.int64, (L, nwords(nbits)))
+    _need(words, "words", torch.int64, (L, nwords(nbits)), lanes=True)
     lib = _lib()
     out = torch.empty((L, nbits), dtype=torch.bool, device=words.device)
     err = lib.karp_unpack_bits(words.data_ptr(), nbits, out.data_ptr(), L,
@@ -246,10 +237,7 @@ def pack_outputs_lanes(takes: torch.Tensor, leftover: torch.Tensor,
     segs = (carry.types, carry.zones, carry.ct, carry.alive)
     for i, s in enumerate(segs):
         _need(s, f"bool segment {i}", torch.bool)
-    i64 = torch.cat([leftover.reshape(L, -1).long(),
-                     carry.used.reshape(L, -1), carry.pool.reshape(L, -1).long(),
-                     carry.num_nodes.reshape(L, -1).long(),
-                     carry.pool_used.reshape(L, -1)], dim=1)
+    i64 = _out_i64(leftover, carry, lanes=L)
     n32 = takes[0].numel()
     lens = [s[0].numel() for s in segs]
     w = i64.shape[1] + nwords(sum(lens)) + (n32 + 1) // 2 + extra
@@ -337,7 +325,7 @@ class ScanState:
         def field(t, nm, dt, shp):
             # per lane when it carries the leading lane axis, else shared
             if lanes is not None and t.dim() == len(shp) + 1:
-                _need_lanes(t, nm, dt, (L,) + tuple(shp))
+                _need(t, nm, dt, (L,) + tuple(shp), lanes=True)
                 lane_bytes[nm] = t.stride(0) * t.element_size()
             else:
                 _need(t, nm, dt, shp)
@@ -708,22 +696,12 @@ def _pruned_scan(inp: KernelInputs, *, G, E, P, n_max, S, lanes=None
     return ps
 
 
-def solve_scan_packed1_pruned_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E,
-                                   P, n_max, S) -> torch.Tensor:
-    """The pruned solve on the card: unpack_bits, three launches per
-    group step, pack_outputs, and the bail word appended; no
-    synchronisation."""
-    inp = _packed_inputs(buf, T, D, Z, C, G, E, P, 0, 0, 0)
-    ps = _pruned_scan(inp, G=G, E=E, P=P, n_max=n_max, S=S)
-    out = pack_outputs(ps.takes, ps.leftover, Carry(*ps.carry[:8]))
-    return torch.cat([out, ps.carry.bail.long()])
-
-
 def solve_scan_packed1_pruned_many_cuda(bufs: torch.Tensor, *, T, D, Z, C,
                                         G, E, P, n_max, S) -> torch.Tensor:
-    """B pruned solves on the card in one dispatch: one lane-axis
-    unpack_bits, three lane-axis launches per group step, one lane-axis
-    pack_outputs; each row ends with its lane's bail word."""
+    """B pruned solves on the card in one dispatch (B = 1: a single
+    solve): one lane-axis unpack_bits, three lane-axis launches per group
+    step, one lane-axis pack_outputs; each row ends with its lane's bail
+    word; no synchronisation."""
     B = bufs.shape[0]
     inp = _packed_inputs_lanes(bufs, T, D, Z, C, G, E, P, 0, 0, 0)
     ps = _pruned_scan(inp, G=G, E=E, P=P, n_max=n_max, S=S, lanes=B)

@@ -575,11 +575,15 @@ def _i32_to_words_ref(x: torch.Tensor) -> torch.Tensor:
     return (v[0::2] & mask) | ((v[1::2] & mask) << 32)
 
 
-def _out_i64(leftover, carry: Carry) -> torch.Tensor:
-    """The i64 section of the output buffer (a plain cat of views)."""
-    return torch.cat([leftover.reshape(-1).long(), carry.used.reshape(-1),
-                      carry.pool.long(), carry.num_nodes.reshape(1).long(),
-                      carry.pool_used.reshape(-1)])
+def _out_i64(leftover, carry: Carry, lanes: Optional[int] = None
+             ) -> torch.Tensor:
+    """The i64 section of the output buffer (a plain cat of views); with
+    ``lanes=L`` every field has a leading lane axis and the section is
+    [L, n]."""
+    lead = () if lanes is None else (lanes,)
+    return torch.cat([f.reshape(lead + (-1,)).long() for f in
+                      (leftover, carry.used, carry.pool, carry.num_nodes,
+                       carry.pool_used)], dim=-1)
 
 
 def _out_bools(carry: Carry):
@@ -861,18 +865,13 @@ def solve_scan_packed1_pruned(buf, *, T: int, D: int, Z: int, C: int,
     """The pruned G-axis scan behind the base kernel's single-buffer
     wire (the reference's ``solve_scan_packed1_pruned``): the packed
     outputs plus ONE trailing int64, the bail word (1: the pruning was
-    insufficient; the caller discards the output and re-solves on the
-    host engine). The arena is the K = M = 0, Q = 0 layout (no minValues
-    floors, no priority section). CUDA runs the hand-written kernels
-    (three launches per group step); the CPU runs the plain versions."""
+    insufficient; the caller discards the output and re-solves with
+    S = N, which selects every slot and cannot bail). The arena is the
+    K = M = 0, Q = 0 layout (no minValues floors, no priority section).
+    The one-lane call of ``solve_scan_packed1_pruned_many``."""
     buf = _as_arena(buf, device)
-    S = min(S, E + n_max)
-    if buf.is_cuda:
-        from .ffd_cuda import solve_scan_packed1_pruned_cuda
-        return solve_scan_packed1_pruned_cuda(buf, T=T, D=D, Z=Z, C=C, G=G,
-                                              E=E, P=P, n_max=n_max, S=S)
-    inp = _packed_inputs_ref(buf, T, D, Z, C, G, E, P, 0, 0, 0)
-    return _pack_pruned_outputs_ref(*_solve_pruned_ref(inp, n_max, E, P, S))
+    return solve_scan_packed1_pruned_many(
+        buf[None], T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, n_max=n_max, S=S)[0]
 
 
 def solve_scan_packed1_pruned_many(bufs, *, T: int, D: int, Z: int, C: int,
@@ -881,11 +880,17 @@ def solve_scan_packed1_pruned_many(bufs, *, T: int, D: int, Z: int, C: int,
                                    device=None) -> torch.Tensor:
     """B pruned solves of one statics bucket in one dispatch (the
     reference's ``solve_scan_packed1_pruned_many``): [B, W] in, [B,
-    Wout + 1] out, each lane with its OWN trailing bail word."""
+    Wout + 1] out, each lane with its OWN trailing bail word. CUDA runs
+    the hand-written kernels (three lane-axis launches per group step);
+    the CPU runs the plain versions lane by lane."""
     bufs = _as_arenas(bufs, device)
     S = min(S, E + n_max)
-    st = dict(T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, n_max=n_max, S=S)
     if bufs.is_cuda:
         from .ffd_cuda import solve_scan_packed1_pruned_many_cuda
-        return solve_scan_packed1_pruned_many_cuda(bufs, **st)
-    return torch.stack([solve_scan_packed1_pruned(b, **st) for b in bufs])
+        return solve_scan_packed1_pruned_many_cuda(
+            bufs, T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, n_max=n_max, S=S)
+    return torch.stack([
+        _pack_pruned_outputs_ref(*_solve_pruned_ref(
+            _packed_inputs_ref(b, T, D, Z, C, G, E, P, 0, 0, 0), n_max, E,
+            P, S))
+        for b in bufs])

@@ -25,15 +25,16 @@ The G axis follows the reference's routing (solver/tpu.py): past the
 base scan's padded group cap (``dev_max_groups``, 4096) a solve runs the
 pruned scan (ops/ffd_torch.py ``solve_scan_packed1_pruned``, K6) up to
 ``dev_max_groups_pruned`` (16384) groups. The host engine (ops/ffd.py,
-``_run_host``) serves exactly the reference's host cases: a snapshot with
-no instance types (``no_types``), a group count past the effective cap
-(``group_cap``; 4096 with minValues floors), a priority arena past the
-base cap (``priority_cap``), and a pruned solve whose bail word is set
-(``pruned_bail``), which the reference re-solves on its host engine by
-contract. Each such solve is recorded in ``last_dispatch_stats``
-(``kernel``, ``reason``, ``bails``); decisions never depend on which
-engine served. ``solve_batch`` runs many snapshots of one statics bucket
-in one dispatch (``solve_scan_packed1_many``, K4).
+``_run_host``) serves the snapshots that never reach the card: no
+instance types (``no_types``), a group count past the effective cap
+(``group_cap``; 4096 with minValues floors) and a priority arena past the
+base cap (``priority_cap``). A pruned solve whose bail word is set
+re-solves the same arena on the card with every slot selected (S = N:
+exact, it cannot bail; ``reason="pruned_bail"``). Each solve is recorded
+in ``last_dispatch_stats`` (``kernel``, ``reason``, ``bails``);
+decisions never depend on which engine served. ``solve_batch`` runs many
+snapshots of one statics bucket in one dispatch
+(``solve_scan_packed1_many``, K4).
 
 There is no router, host twin or oracle fallback here: on a CUDA device
 a solve the kernels take runs them or raises, and nothing catches a
@@ -129,7 +130,7 @@ class CUDASolver(Solver):
         self.dev_max_groups = 4096
         #: PRUNED scan cap: solves between the two caps ride the pruned
         #: kernel (no minValues floors, no priority section); a solve whose
-        #: pruning was insufficient bails to the host engine
+        #: pruning was insufficient re-solves with every slot selected
         self.dev_max_groups_pruned = 16384
         #: exact-slot budget S per pruned step
         self.dev_pruned_slots = DEV_PRUNED_SLOTS
@@ -226,14 +227,11 @@ class CUDASolver(Solver):
             return self.dev_max_groups_pruned
         return self.dev_max_groups
 
-    def _run_host(self, enc, ex_alloc, ex_used, ex_compat, reason: str,
-                  bails: int = 0, before=None):
+    def _run_host(self, enc, ex_alloc, ex_used, ex_compat, reason: str):
         """The host engine (ops/ffd.py, the reference's ``_run_numpy``
         interpreted path: one closed-form fill per group over a NodeState
         of ``n_max`` new-node slots). Records ``kernel="host"`` and the
-        reason in ``last_dispatch_stats``; ``before`` holds the launch
-        counters from before a bailed pruned solve, whose launches it
-        reports."""
+        reason in ``last_dispatch_stats``."""
         self._solve_mode = "full"
         st = ffd.NodeState.create(enc, self.n_max, ex_alloc, ex_used,
                                   ex_compat)
@@ -245,7 +243,7 @@ class CUDASolver(Solver):
             leftover[g.index] = rem
         self.last_dispatch_stats = dict(
             device=str(self.device), kernel="host", reason=reason,
-            bails=bails, batch=1, launches=self._launches_since(before))
+            bails=0, batch=1, launches=self._launches_since(None))
         final = dict(types=st.types, zones=st.zones, ct=st.ct, pool=st.pool,
                      alive=st.alive, used=st.used, E=st.E)
         return takes, leftover, final
@@ -543,7 +541,7 @@ class CUDASolver(Solver):
                                   "priority_cap")
         use_pruned = stt["K"] == 0 and Gp > self.dev_max_groups
         before = dict(ffd_cuda.LAUNCHES)
-        n_bucket, retries = self._bucket, 0
+        n_bucket, retries, bails = self._bucket, 0, 0
         ck_on = (self._delta is not None and not use_pruned
                  and ckpt_eligible(Gp))
         self._solve_mode = "full"
@@ -551,15 +549,19 @@ class CUDASolver(Solver):
         while True:
             out = None
             if use_pruned:
+                # after a bail every slot is selected: S = N is exact
+                S = Ep + n_bucket if bails else self.dev_pruned_slots
                 o_buf = self._dispatch_pruned(
                     buf, T=T, D=Dp, Z=Z, C=C, G=Gp, E=Ep, P=Pp,
-                    n_max=n_bucket, S=self.dev_pruned_slots)
+                    n_max=n_bucket, S=S)
                 if int(o_buf[-1]):
-                    # the pruning was insufficient for this input: the
-                    # host engine serves it, identically (recorded)
-                    return self._run_host(enc, ex_alloc, ex_used, ex_compat,
-                                          "pruned_bail", bails=1,
-                                          before=before)
+                    # the pruning was insufficient for this input: the same
+                    # arena again on the card, every slot selected
+                    if bails:
+                        raise RuntimeError(
+                            f"the pruned scan bailed at S = N = {S}")
+                    bails += 1
+                    continue
                 out = unpack_outputs1(o_buf[:-1], T, Dp, Z, C, Gp, Ep, Pp,
                                       n_bucket)
             elif ck_on and sreason is None:
@@ -591,10 +593,11 @@ class CUDASolver(Solver):
         suffix = self._solve_mode != "full"
         self.last_dispatch_stats = dict(
             device=str(self.device), slot_bucket=n_bucket, retries=retries,
-            groups=Gp, bails=0, batch=1,
+            groups=Gp, bails=bails, batch=1,
             kernel=("pruned" if use_pruned else "suffix" if suffix
                     else "ckpt" if ck_on else "base"),
-            reason=None if suffix or use_pruned else sreason,
+            reason=("pruned_bail" if bails else None) if use_pruned
+            else None if suffix else sreason,
             launches=self._launches_since(before))
         if sinfo is not None:
             self.last_dispatch_stats.update(sinfo)

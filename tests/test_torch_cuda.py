@@ -527,3 +527,34 @@ def test_pruned_many_on_card(cuda_device):
         plain = ft.solve_scan_packed1_pruned(bufs[b].cpu(), S=S,
                                              **examples.pruned_statics(st))
         assert torch.equal(got[b].cpu(), plain)
+
+
+def test_pruned_bail_resolves_on_card(cuda_device):
+    """S = 1 on fills that spill: the pruned solve bails, and the same
+    arena is solved again on the card with every slot selected (two
+    pruned scans' launches, no host engine), deciding as the plain
+    versions on the CPU do."""
+    from karpenter_provider_aws_tpu_torch.apis import labels as L
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    env = fenv.Environment()
+    pods = []
+    for i in range(60):
+        pods += fenv.make_pods(3, cpu=f"{100 + i}m", memory="256Mi",
+                               prefix=f"dg{i:05d}")
+    snap = env.snapshot(pods, [env.nodepool("highg", requirements=[
+        {"key": L.INSTANCE_FAMILY, "operator": "In", "values": ["m5"]},
+        {"key": L.INSTANCE_SIZE, "operator": "In",
+         "values": ["large", "xlarge", "2xlarge"]}])])
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    results = []
+    for dev in (None, "cpu"):
+        s = CUDASolver(n_max=16, device=dev)
+        s.dev_max_groups, s.dev_pruned_slots = 8, 1
+        results.append(s.solve(snap))
+        st = s.last_dispatch_stats
+        assert (st["kernel"], st["reason"], st["bails"]) == \
+            ("pruned", "pruned_bail", 1)
+        if dev is None:
+            assert st["launches"]["ffd_pruned_commit"] == 2 * st["groups"]
+    assert results[0].decision_fingerprint() == \
+        results[1].decision_fingerprint()

@@ -167,6 +167,31 @@ def test_lane_views_stride_over_the_arena_stack():
     assert not torch.equal(inp.n[0], inp.n[1])
 
 
+def test_out_i64_lane_axis_is_each_lanes_section():
+    """The output's i64 section on a lane axis (what the lane-axis
+    ``pack_outputs`` writes) is, row by row, the one-lane section, which
+    opens each lane's packed output buffer."""
+    lanes, st = examples.pruned_lanes()
+    T, D, Z, C, G, E, P = (st[k] for k in "T D Z C G E P".split())
+    S = examples.PRUNED_LANES_S
+    finals = []
+    for a in lanes:
+        buf = torch.from_numpy(hp_torch.pack_inputs1(
+            a, *examples.pack_statics(st)))
+        inp = ft._packed_inputs_ref(buf, T, D, Z, C, G, E, P, 0, 0, 0)
+        takes, lefts, carry = ft._solve_pruned_ref(inp, st["n_max"], E, P, S)
+        finals.append((lefts, ft.Carry(*carry[:8]), takes))
+    stacked = ft.Carry(*[torch.stack([f[1][i] for f in finals])
+                         for i in range(8)])
+    sec = ft._out_i64(torch.stack([f[0] for f in finals]), stacked, lanes=3)
+    for b, (lefts, carry, takes) in enumerate(finals):
+        one = ft._out_i64(lefts, carry)
+        assert torch.equal(sec[b], one)
+        packed = ft._pack_outputs_ref(takes, lefts, carry)
+        assert torch.equal(packed[:one.numel()], one)
+    assert not torch.equal(sec[0], sec[1])
+
+
 # ---------------------------------------------------------------------------
 # the host engine copy
 # ---------------------------------------------------------------------------
@@ -273,18 +298,26 @@ def test_high_g_rides_the_pruned_kernel(both_counters):
 
 
 def test_bail_serves_host_identically(both_counters):
-    """S = 1: a fill that spills past the selected slot bails; the
-    solve comes back from the host engine, recorded, identical."""
+    """S = 1: a fill that spills past the selected slot bails; the same
+    arena is solved again on the solver's device with every slot
+    selected (S = N, no bail), recorded, and decides as the reference's
+    host-served solve does."""
     want = CPUSolver().solve(_high_g(env_ref, L_ref, per=3))
     s = CUDASolver(device="cpu", n_max=16)
     s.dev_max_groups = 8
     s.dev_pruned_slots = 1
+    slots = []
+    orig = s._dispatch_pruned
+    s._dispatch_pruned = lambda buf, **k: (slots.append((k["S"], k["E"]
+                                                         + k["n_max"])),
+                                           orig(buf, **k))[1]
     calls = _spy(s, "_dispatch_pruned")
     got = s.solve(_high_g(env_port, L_port, per=3))
-    assert len(calls) == 1 and int(calls[0][-1]) == 1
+    assert [int(o[-1]) for o in calls] == [1, 0]
+    assert slots[0][0] == 1 and slots[1][0] == slots[1][1]   # S = N
     st = s.last_dispatch_stats
     assert (st["kernel"], st["reason"], st["bails"]) == \
-        ("host", "pruned_bail", 1)
+        ("pruned", "pruned_bail", 1)
     assert got.decision_fingerprint() == want.decision_fingerprint()
 
 
