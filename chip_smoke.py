@@ -61,13 +61,24 @@ Phases (any failure exits non-zero before the result line):
    ``examples.batch_snapshots`` at B = 8 and 64, one ``_dispatch_many``
    of 1 + 2*Gp + 1 launches each, every lane's output row byte-equal to
    its single solve on the card and to the plain versions;
+11. the topology path (run before phase 10, so that its launches and its
+   kernels join phase 10's records): every topology group's
+   ``topo_group_start`` and ``topo_pour`` and every other group's
+   ``topo_record_plain`` of BASELINE config 3 (``examples.config3``,
+   50,000 pods: 20 zone-spread deployments, one hostname anti-affinity
+   deployment, plain pods) against the plain parts from the same entry
+   state; then ``CUDASolver()`` solves config 3 on the topology kernels
+   (one warm-up, timed rounds, counters set to 0 just before and read
+   just after) with 0 bails, fingerprint-equal to the host pour
+   (``ops/topo.py``) on the CPU; a forced EVCAP = 1 solve bails and is
+   solved again on the card (``reason="topo_bail"``), fingerprint-equal;
 10. kernel times with CUDA events at the main paths' shapes, beside the
    plain versions' times, the bound the shapes allow and, for the bank
    kernels, ``Tensor.copy_`` of the same bytes; the suffix solve's device
    time beside the checkpointed full solve's on the warm arena; the K2
    kernels on the lane axis at the whole-fleet round's 2,048 lanes; the
-   K6 kernels at config 7's states and the lane-axis K1 kernels at
-   B = 8 and 64.
+   K6 kernels at config 7's states, the lane-axis K1 kernels at B = 8
+   and 64, and the K9 kernels at config 3's states.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; a line before them holds the per-kernel
@@ -130,6 +141,11 @@ C7_WINDOW = 512
 BATCH_SIZES = (8, 64)
 BATCH_ROUNDS = 5
 
+#: the topology path: BASELINE config 3 at its published size and the
+#: timed solves after one warm-up
+C3_PODS = 50_000
+C3_ROUNDS = 10
+
 #: the kernels of the warm-tick path
 K3_PATH = ("unpack_bits", "ffd_slot_headroom", "ffd_group_commit",
            "pack_outputs", "ffd_bank_store", "ffd_bank_load")
@@ -137,6 +153,8 @@ K3_PATH = ("unpack_bits", "ffd_slot_headroom", "ffd_group_commit",
 K7_SRC = "karpenter_provider_aws_tpu_torch/csrc/consolidation.cu"
 K7_REF = "karpenter_provider_aws_tpu/ops/consolidation_jax.py"
 K6_SRC = "karpenter_provider_aws_tpu_torch/csrc/pruned.cu"
+K9_SRC = "karpenter_provider_aws_tpu_torch/csrc/topo.cu"
+K9_REF = "karpenter_provider_aws_tpu/ops/topo_jax.py"
 FFD_REF = "karpenter_provider_aws_tpu/ops/ffd_jax.py"
 
 KERNELS = {
@@ -166,6 +184,9 @@ KERNELS = {
     "ffd_pruned_select": dict(source=K6_SRC, replaces=f"{FFD_REF}:910"),
     "ffd_pruned_headroom": dict(source=K6_SRC, replaces=f"{FFD_REF}:939"),
     "ffd_pruned_commit": dict(source=K6_SRC, replaces=f"{FFD_REF}:957"),
+    "topo_group_start": dict(source=K9_SRC, replaces=f"{K9_REF}:281"),
+    "topo_pour": dict(source=K9_SRC, replaces=f"{K9_REF}:669"),
+    "topo_record_plain": dict(source=K9_SRC, replaces=f"{K9_REF}:685"),
 }
 #: the K1 kernels on their lane axis (the batch path), one record per
 #: batch width: the kernel, its width, and the reference's vmap they
@@ -1188,6 +1209,143 @@ def check_k1_lanes(B, k1, cmp):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the topology path (K9)
+# ---------------------------------------------------------------------------
+
+def topo_phase(cmp, device=None, n_pods=C3_PODS, rounds=C3_ROUNDS):
+    """Drive config 3 through ``CUDASolver().solve`` on the topology
+    kernels (``device`` default cuda; the rehearsal passes cpu). On the
+    card, first every group's K9 kernel against its plain part from the
+    same entry state. Returns (launches of the measured run, summary,
+    timing states)."""
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.models.encoding import \
+        encode_snapshot
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    from karpenter_provider_aws_tpu_torch.ops import topo_torch as tt
+    from karpenter_provider_aws_tpu_torch.ops.topo import \
+        build_topo_encoding
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    from karpenter_provider_aws_tpu_torch.solver.cuda import topo_arrays
+
+    fenv.reset_pod_counter()
+    t0 = time.perf_counter()
+    snap = examples.config3(fenv.Environment(), n_pods)
+    build_s = time.perf_counter() - t0
+    solver = CUDASolver(device=device)
+    enc = encode_snapshot(snap)
+    tenc = build_topo_encoding(enc, snap, [])
+    arrays, rows, stt = topo_arrays(enc, tenc)
+    st = dict(stt, n_max=solver._bucket, EVCAP=solver.TOPO_EVCAP,
+              PMAX=solver.TOPO_PMAX, T=enc.A.shape[0],
+              D=arrays["A"].shape[1], G=len(arrays["n"]))
+    n_topo = int(rows["has_topo"].sum())
+    log(f"[config3] {n_pods} pods, {len(enc.groups)} groups ({n_topo} with "
+        f"topology), built in {build_s:.2f} s; statics {st}")
+    states = []
+    if solver.device.type == "cuda":
+        inp = ft.kernel_inputs_from_numpy(arrays, solver.device)
+        trows = tt.topo_rows_from_numpy(rows, solver.device)
+        n0 = dict(cmp.checks)
+        for kernel, what, got, want in examples.topo_kernel_steps(
+                inp, trows, n_max=st["n_max"], P=st["P"], EVCAP=st["EVCAP"],
+                PMAX=st["PMAX"], states=states):
+            cmp(kernel, got, want, f"config3 {what}")
+        torch.cuda.synchronize()
+        log(f"[config3] every group's K9 kernel == its plain part from the "
+            f"same entry state; checks "
+            f"{ {k: cmp.checks[k] - n0[k] for k in KERNELS if 'topo' in k} }")
+        states = (inp, trows, st, states)
+
+    fc.reset_launches()
+    times, splits, stats = [], [], []
+    res = cold = None
+    for i in range(rounds + 1):
+        t0 = time.perf_counter()
+        res = solver.solve(snap)
+        dt = (time.perf_counter() - t0) * 1e3
+        stats.append(dict(solver.last_dispatch_stats))
+        if i:   # round 0 is the warm-up
+            times.append(dt)
+            splits.append(solver.last_phase_stats)
+        else:
+            cold = dict(solver.last_phase_stats, wall_ms=dt)
+    launches = dict(fc.LAUNCHES)
+    kinds = {(d["kernel"], d["bails"]) for d in stats}
+    if kinds != {("topo", 0)}:
+        raise AssertionError(f"config 3 solves not all served by the "
+                             f"topology kernels without a bail: {kinds}")
+    per = stats[-1]["launches"]
+    if solver.device.type == "cuda":
+        Gp = st["G"]
+        want = dict(topo_group_start=n_topo, topo_pour=n_topo,
+                    topo_record_plain=Gp - n_topo,
+                    ffd_slot_headroom=Gp - n_topo,
+                    ffd_group_commit=Gp - n_topo)
+        got = {k: per[k] for k in want}
+        if got != want:
+            raise AssertionError(f"config 3 launches per solve {got}, "
+                                 f"expected {want}")
+    # the host pour on the CPU: a group cap of 0 routes the solve there
+    host = CUDASolver(device="cpu", incremental=False)
+    host.dev_max_groups = 0
+    t0 = time.perf_counter()
+    want_res = host.solve(snap)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if (host.last_dispatch_stats["kernel"],
+            host.last_dispatch_stats["reason"]) != ("host", "group_cap"):
+        raise AssertionError("the host-pour reference did not run on the "
+                             "host pour")
+    if res.decision_fingerprint() != want_res.decision_fingerprint():
+        raise AssertionError("config 3: topology-kernel decisions differ "
+                             "from the host pour's")
+    placed = sum(len(n.pod_names) for n in res.new_nodes)
+    if placed + len(res.existing_assignments) + len(res.unschedulable) \
+            != len(snap.pods):
+        raise AssertionError("config 3: not every pod placed or reported")
+    # the forced bail: EVCAP = 1 overflows every topology group's log,
+    # and the solver solves the same inputs again on the device
+    s1 = CUDASolver(device=device)
+    s1.TOPO_EVCAP = 1
+    t0 = time.perf_counter()
+    r1 = s1.solve(snap)
+    s1_ms = (time.perf_counter() - t0) * 1e3
+    d1 = s1.last_dispatch_stats
+    if (d1["kernel"], d1["reason"], d1["bails"]) != \
+            ("topo", "topo_bail", 1):
+        raise AssertionError(f"the EVCAP=1 solve did not bail and re-solve "
+                             f"on the topology kernels: {d1}")
+    if solver.device.type == "cuda" and \
+            d1["launches"]["topo_pour"] != 2 * n_topo:
+        raise AssertionError(f"the EVCAP=1 re-solve did not run on the "
+                             f"card: {d1['launches']}")
+    if r1.decision_fingerprint() != want_res.decision_fingerprint():
+        raise AssertionError("config 3: the re-solved EVCAP=1 solve "
+                             "differs")
+    split = {k: statistics.median(x[k] for x in splits)
+             for k in ("group_ms", "encode_ms", "kernel_ms", "decode_ms")}
+    summary = dict(p50_ms=statistics.median(times), p99_ms=pct(times, 0.99),
+                   rounds=rounds, median_split_ms=split,
+                   launches_per_solve=per, bails=0,
+                   slot_bucket=stats[-1]["slot_bucket"], groups=st["G"],
+                   topo_groups=n_topo, host_pour_ms=host_ms, cold=cold,
+                   evcap1=dict(kernel=d1["kernel"], reason=d1["reason"],
+                               bails=d1["bails"], evcap=d1["evcap"],
+                               wall_ms=s1_ms,
+                               pour_launches=d1["launches"]["topo_pour"]))
+    log(f"[config3] {res.summary()}; cold solve {json.dumps(cold)}; solve "
+        f"p50 {summary['p50_ms']:.3f} ms p99 {summary['p99_ms']:.3f} ms "
+        f"over {rounds} rounds; median split {json.dumps(split)}; launches "
+        f"per solve {per}; bails 0; fingerprint == host pour (CPU, "
+        f"{host_ms:.0f} ms): True; EVCAP=1: {summary['evcap1']}, "
+        f"fingerprint equal")
+    return launches, summary, states
+
+
+# ---------------------------------------------------------------------------
 # phase 10: timing and bounds
 # ---------------------------------------------------------------------------
 
@@ -1579,6 +1737,135 @@ def k6_times(c7, launches):
     return out
 
 
+def pour_work(carry, r, gx, *, T, D, Z, C, P, N, GZ, EVCAP):
+    """(bytes, operations) of one ``topo_pour`` launch,
+    counted from the plain pour's result ``r`` at the entry ``carry``
+    (``gx``: the group's topology rows). Read: the admissibility inputs
+    of every slot (room, zone fix, pool), the hostname counter rows the
+    group is constrained by, the zone counters, the candidate and used
+    rows of the slots that held nodes before the group and got pods, A
+    when a slot narrows, the offerings when a zone was fixed, the pool
+    statics when a node was opened, the rows; written: the touched
+    slots' type, zone, ct and used rows, the counter entries they add
+    to, the new slots' alive and pool, the fixed zones, take, leftover
+    and the log row. Rows of cand evaluated and then rejected, and
+    counter entries of untouched slots, are not counted. Operations: per
+    event the admissibility of every slot against the constraining
+    counter rows, per zone fix the fit and offering scan over T, per
+    touched slot its narrowing over T."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import topo_torch as tt
+    touched = (r.take > 0) & (r.carry.pool >= 0)
+    nt = int(touched.sum())
+    old = torch.arange(N, device=touched.device) < int(carry.num_nodes[0])
+    ne = int((touched & old).sum())
+    n_new = int(r.carry.num_nodes[0]) - int(carry.num_nodes[0])
+    events = int(r.ev_n)
+    kinds = r.ev["kind"][:events]
+    n_fix = int((kinds == tt.K_FIX).sum())
+    opened = n_new > 0
+    h_read = int(((gx.hs_skew < tt.BIG) | gx.ha_any).sum())
+    h_write = int(gx.hs_any.sum()) + int(gx.member_h >= 0)
+    z_write = int(gx.zs_any.sum()) + int(gx.member_z >= 0)
+    nbytes = (N * 16 + h_read * N * 8 + GZ * Z * 8
+              + ne * (T + D * 8) + (T * D * 8 if nt else 0)
+              + (T * Z * C if n_fix else 0)
+              + (P * T * (1 + 8 + Z) + P * Z * 9 + P * 9 if opened else 0)
+              + P * D * 16 + D * 8 + 4 * (GZ * 2 + h_read)
+              + nt * (T + Z + C + D * 8) + nt * h_write * 8
+              + z_write * Z * 8 + n_new * 5 + n_fix * 4
+              + N * 4 + 8 + EVCAP * 5 * 8)
+    ops = (events * N * max(h_read, 1) + n_fix * T * (D + Z * C)
+           + nt * T * D)
+    return nbytes, ops
+
+
+def k9_times(c3, launches):
+    """The K9 kernels at config 3's states (every group's entry state from
+    phase 11): each kernel's time beside its plain part's, and the bytes
+    and operations of that state's work (each input read once, each
+    output written once; a pour's operations count its events)."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import topo_cuda as tc
+    from karpenter_provider_aws_tpu_torch.ops import topo_torch as tt
+    inp, rows, st, states = c3
+    T, D, Z, P, N = st["T"], st["D"], st["Z"], st["P"], st["n_max"]
+    C = inp.agc.shape[1]
+    GZ, GH, EVCAP = st["GZ"], st["GH"], st["EVCAP"]
+    dev = inp.A.device
+    ts = tc.topo_state(inp, rows,
+                       torch.zeros((GZ, Z), dtype=torch.int64, device=dev),
+                       torch.zeros((GH, N), dtype=torch.int64, device=dev),
+                       n_max=N, P=P, EVCAP=EVCAP, PMAX=st["PMAX"])
+    acc = {k: [] for k in ("topo_group_start", "topo_pour",
+                           "topo_record_plain")}
+    for g, carry, cz, ch, zfix, x, r in states:
+        def restore(carry=carry, cz=cz, ch=ch, zfix=zfix):
+            for dst, src in zip(ts.st.carry, carry):
+                dst.copy_(src)
+            ts.cz.copy_(cz)
+            ts.ch.copy_(ch)
+            ts.zfix.copy_(zfix)
+        if r is None:               # a group without topology
+            take = x
+
+            def setup(restore=restore, take=take, g=g):
+                restore()
+                ts.st.takes[g].copy_(take.to(torch.int32))
+            acc["topo_record_plain"].append((
+                time_launches(lambda: tc.topo_record_plain(ts, g),
+                              setup=setup),
+                time_launches(lambda: tt._topo_record_plain_ref(
+                    cz, ch, zfix, take, rows.member_z[g], rows.member_h[g]),
+                    reps=10),
+                N * 4 + N * 4 + 2 * N * 8 + 2 * Z * 8, 2 * N))
+            continue
+        gs = x
+        n_cand = int(gs.cand.sum())
+        # the slots of an admitting pool are the only rows it reads
+        na = int((carry.pool >= 0).sum())
+        acc["topo_group_start"].append((
+            time_launches(lambda: tc.topo_group_start(ts, g), setup=restore),
+            time_launches(lambda: tt._topo_group_start_ref(
+                inp, carry, g, rows, P=P), reps=5),
+            # read: pool, the admitted slots' types, zones, ct and used, F,
+            # admit, offerings, A, R, the group's zone/ct masks, the pool
+            # tables, daemon, rows; write: cand, rem, the per-pool statics
+            N * 4 + na * (T + Z + C + D * 8) + T + P + T * Z * C
+            + T * D * 8 + D * 8 + Z + C + P * (T + Z + C) + P * D * 8
+            + 4 * (GZ + GH) + N * T + N * 8 + P * T * (1 + 8 + Z)
+            + P * Z * 9 + P * 9 + 1,
+            n_cand * D + na * T * Z * C + P * T * (D + 2 * Z * C)))
+
+        def setup_pour(restore=restore, gs=gs):
+            restore()
+            ts.st.cand.copy_(gs.cand)
+            ts.rem.copy_(gs.rem0)
+            for f in ("cand_new", "hr_new", "open_ok0", "availz_p",
+                      "cap_pz", "cap_any", "zcand_pz"):
+                getattr(ts, f).copy_(getattr(gs, f))
+            ts.anti_bulk.copy_(gs.anti_bulk.reshape(1))
+        nbytes, ops = pour_work(carry, r, tt._row(rows, g), T=T, D=D, Z=Z,
+                                C=C, P=P, N=N, GZ=GZ, EVCAP=EVCAP)
+        acc["topo_pour"].append((
+            time_launches(lambda: tc.topo_pour(ts, g), setup=setup_pour),
+            time_launches(lambda: tt._topo_pour_ref(
+                inp, carry, cz, ch, zfix, g, rows, gs, P=P, EVCAP=EVCAP,
+                PMAX=st["PMAX"]), reps=3),
+            nbytes, ops))
+    out = []
+    for name, rows_ in acc.items():
+        ms, pms, nbytes, ops = (statistics.fmean(r[i] for r in rows_)
+                                for i in range(4))
+        b, by = bound_ms(nbytes, ops)
+        out.append(dict(name=name, route="cuda", **KERNELS[name],
+                        launches=launches[name], ms=ms, plain_ms=pms,
+                        bound_ms=b, bound_by=by, library_ms=None,
+                        bytes=nbytes, ops=ops))
+    del ts
+    return out
+
+
 def k1_lane_times(arenas, launches_b):
     """The lane-axis K1 kernels at each batch width, beside the plain
     versions lane by lane."""
@@ -1661,8 +1948,9 @@ def warm_solve_times(d_buf, st, gl):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-6, 8 and 9 with the plain versions "
-                         "at a small size on the CPU (never the default)")
+                    help="run phases 3-6, 8, 9 and 11 with the plain "
+                         "versions at a small size on the CPU (never the "
+                         "default)")
     args = ap.parse_args()
 
     import torch
@@ -1688,6 +1976,7 @@ def main() -> int:
         encode_snapshot
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
     from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    from karpenter_provider_aws_tpu_torch.ops import topo_torch as tt
     from karpenter_provider_aws_tpu_torch.ops.hostpack import (
         in_layout_bool, in_layout_i64, layout_sizes, nwords, pack_inputs1)
     from karpenter_provider_aws_tpu_torch.solver import CUDASolver
@@ -1849,8 +2138,21 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[compare] after the batch phase: {cmp.checks} checks, "
         f"max_abs_err {cmp.err}")
+
+    # ---- phase 11: the topology path (config 3 on the K9 kernels) ----------
+    launches_c3, c3, c3_states = topo_phase(cmp)
+    missing = [k for k in ("topo_group_start", "topo_pour",
+                           "topo_record_plain", "ffd_slot_headroom",
+                           "ffd_group_commit") if launches_c3[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the topology "
+                             f"path: {missing}")
+    torch.cuda.synchronize()
+    log(f"[compare] after the topology phase: {cmp.checks} checks, "
+        f"max_abs_err {cmp.err}")
     launches = {k: launches_c2[k] + launches_w[k] + launches_k7.get(k, 0)
                 + launches_c7[k] + sum(lb[k] for lb in launches_b.values())
+                + launches_c3[k]
                 for k in launches_c2}
 
     # ---- phase 10: kernel times --------------------------------------------
@@ -1874,6 +2176,7 @@ def main() -> int:
     recs += k7_recs
     recs += k6_times(c7_states, launches)
     recs += k1_lane_times(batch_arenas, launches_b)
+    recs += k9_times(c3_states, launches)
     for r in recs:
         r["max_abs_err"] = cmp.err[r["name"]]
         lib = "none" if r["library_ms"] is None else \
@@ -1884,7 +2187,8 @@ def main() -> int:
             f"{launches_c2[k]}, warm tick: {launches_w[k]}, "
             f"consolidation: {launches_k7.get(k, 0)}, config 7: "
             f"{launches_c7[k]}, batch: "
-            f"{ {b: lb[k] for b, lb in launches_b.items()} }), bound "
+            f"{ {b: lb[k] for b, lb in launches_b.items()} }, config 3: "
+            f"{launches_c3[k]}), bound "
             f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}, "
             f"{r['bytes']:.0f} B, {r['ops']:.0f} ops), plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib}")
@@ -1904,6 +2208,20 @@ def main() -> int:
             k1[0], **statics), reps=5)
         log(f"[time] batch B={B}: one solve_scan_packed1_many device ms "
             f"{dev_ms:.3f}; summary {json.dumps(batch[B])}")
+    c3_dev = sum(per[k] * n for k, n in c3["launches_per_solve"].items()
+                 if n and k in per)
+    inp3, rows3, st3, _ = c3_states
+    c3_scan = solve_device_ms(lambda: tt.solve_scan_topo(
+            inp3, rows3,
+            torch.zeros((st3["GZ"], st3["Z"]), dtype=torch.int64, device=dev),
+            torch.zeros((st3["GH"], st3["n_max"]), dtype=torch.int64,
+                        device=dev),
+            n_max=st3["n_max"], P=st3["P"], EVCAP=st3["EVCAP"],
+            PMAX=st3["PMAX"]), reps=5)
+    log(f"[time] config 3 topology solve: device ms from the per-launch "
+        f"times x launches per solve {c3_dev:.3f}; one solve_scan_topo "
+        f"device ms {c3_scan:.3f} (wall p50 {c3['p50_ms']:.3f}); summary "
+        f"{json.dumps(c3)}")
     log(f"[wall] {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1917,8 +2235,9 @@ def main() -> int:
 
 
 def rehearsal(n_pods: int, rounds: int) -> int:
-    """Phases 3-6, 8 and 9 with the plain versions on the CPU, at a
-    small size (config 7 cut to ``n_pods`` pods, one signature per 5)."""
+    """Phases 3-6, 8, 9 and 11 with the plain versions on the CPU, at a
+    small size (config 7 cut to ``n_pods`` pods, one signature per 5;
+    config 3 cut to ``n_pods`` pods)."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.fake import environment as fenv
@@ -1952,6 +2271,7 @@ def rehearsal(n_pods: int, rounds: int) -> int:
     g_axis_phase(cmp, device="cpu", n_pods=n_pods, n_sigs=n_pods // 5,
                  rounds=1, max_groups=256)
     batch_phase(cmp, device="cpu", sizes=(3,), rounds=1, n_sigs=12)
+    topo_phase(cmp, device="cpu", n_pods=n_pods, rounds=1)
     log(json.dumps({"ok": True, "device": {"platform": "cpu",
                                            "kind": "cpu", "count": 1}}))
     return 0

@@ -761,3 +761,389 @@ def multi_consolidation(ev, solver, base, cands, queries=None):
         else:
             hi = mid - 1
     return best
+
+
+# ---------------------------------------------------------------------------
+# topology (K9): BASELINE config 3, the equivalence scenarios, the fuzz,
+# and the kernel cases
+# ---------------------------------------------------------------------------
+
+def topo_api(pkg=None):
+    """The objects a topology scenario is built from, as a namespace:
+    ``make_pods``, ``TopologySpreadConstraint``, ``PodAffinityTerm``,
+    ``ExistingNode``, ``Resources`` and the ``labels`` module ``L``. By
+    default this package's; a test passes the reference package's
+    modules in the same shape to build the same scenario there."""
+    from types import SimpleNamespace
+    if pkg is not None:
+        return pkg
+    from .apis import labels as L
+    from .apis.objects import PodAffinityTerm, TopologySpreadConstraint
+    from .apis.resources import Resources
+    from .fake.environment import make_pods
+    from .solver.types import ExistingNode
+    return SimpleNamespace(make_pods=make_pods, L=L, Resources=Resources,
+                           TopologySpreadConstraint=TopologySpreadConstraint,
+                           PodAffinityTerm=PodAffinityTerm,
+                           ExistingNode=ExistingNode)
+
+
+def config3(env, n_pods: int = 50_000, api=None):
+    """BASELINE config 3, topology: half the pods plain, 20 zone-spread
+    deployments (maxSkew 1, DoNotSchedule) and one hostname
+    anti-affinity deployment of min(200, n/10) pods (one pod per node).
+    A copy of the reference repository's ``bench.build_config3``."""
+    a = topo_api(api)
+    L = a.L
+    n_plain = int(n_pods * 0.5)
+    n_anti = min(200, n_pods // 10)
+    n_spread = max(0, n_pods - n_plain - n_anti)
+    spread_groups = max(1, min(20, n_spread))
+    pods = a.make_pods(n_plain, cpu="250m", memory="512Mi", prefix="plain")
+    per = n_spread // spread_groups
+    for gi in range(spread_groups):
+        cnt = per if gi < spread_groups - 1 \
+            else n_spread - per * (spread_groups - 1)
+        pods += a.make_pods(
+            cnt, cpu="500m", memory="1Gi", prefix=f"spread{gi:02d}",
+            group=f"spread{gi:02d}",
+            topology_spread=[a.TopologySpreadConstraint(
+                max_skew=1, topology_key=L.ZONE,
+                when_unsatisfiable="DoNotSchedule", group=f"spread{gi:02d}")])
+    pods += a.make_pods(
+        n_anti, cpu="1", memory="2Gi", prefix="anti", group="anti",
+        pod_affinity=[a.PodAffinityTerm(topology_key=L.HOSTNAME,
+                                        group="anti", anti=True)])
+    return env.snapshot(pods, [env.nodepool("bench-c3")])
+
+
+#: the scenarios of the reference's tests/test_topology_equivalence.py
+#: that this package serves (ScheduleAnyway and preferred terms need the
+#: preference wrapper), plus the kernel cases' own arenas
+TOPO_SCENARIOS = (
+    "zone_skew1", "zone_skew2", "two_deployments", "zone_selector",
+    "hostname_cap", "zone_plus_hostname", "hostname_anti", "zone_anti",
+    "anti_plus_positive", "zone_self_affinity", "cross_group_zone_anti",
+    "cross_group_zone_affinity", "zone_pinned", "existing_seeded",
+    "mixed_topo_plain", "min_values_zone_spread",
+    "min_values_hostname_anti", "config3_small", "two_pools_limits",
+    "anti_budget", "anti_slots", "fix_zones")
+
+
+def topo_scenario(env, name: str, api=None):
+    """One named topology scenario (``TOPO_SCENARIOS``) on ``env``."""
+    a = topo_api(api)
+    L, mk = a.L, a.make_pods
+    Tsc, Pat = a.TopologySpreadConstraint, a.PodAffinityTerm
+
+    def zs(skew=1, group=""):
+        return Tsc(max_skew=skew, topology_key=L.ZONE, group=group)
+
+    def hs(skew=1, group=""):
+        return Tsc(max_skew=skew, topology_key=L.HOSTNAME, group=group)
+
+    pool = [env.nodepool("d")]
+    existing = ()
+    if name == "zone_skew1":
+        pods = mk(30, cpu="1", memory="2Gi", prefix="web",
+                  topology_spread=[zs(1)])
+    elif name == "zone_skew2":
+        pods = mk(25, cpu="1", memory="2Gi", prefix="w2",
+                  topology_spread=[zs(2)])
+    elif name == "two_deployments":
+        pods = (mk(20, cpu="1", memory="2Gi", prefix="a",
+                   topology_spread=[zs(1)])
+                + mk(15, cpu="2", memory="4Gi", prefix="b",
+                     topology_spread=[zs(1)]))
+    elif name == "zone_selector":
+        pods = mk(12, cpu="1", memory="2Gi", prefix="zsel",
+                  node_selector={L.ZONE: "us-west-2a"},
+                  topology_spread=[zs(1)])
+    elif name == "hostname_cap":
+        pods = mk(12, cpu="250m", memory="512Mi", prefix="hcap",
+                  topology_spread=[hs(2)])
+    elif name == "zone_plus_hostname":
+        pods = mk(18, cpu="500m", memory="1Gi", prefix="zh",
+                  topology_spread=[zs(1), hs(3)])
+    elif name == "hostname_anti":
+        pods = mk(8, cpu="1", memory="2Gi", prefix="ha",
+                  pod_affinity=[Pat(topology_key=L.HOSTNAME, group="ha",
+                                    anti=True)])
+    elif name == "zone_anti":
+        pods = mk(6, cpu="1", memory="2Gi", prefix="za",
+                  pod_affinity=[Pat(topology_key=L.ZONE, group="za",
+                                    anti=True)])
+    elif name == "anti_plus_positive":
+        pods = mk(6, cpu="1", memory="2Gi", prefix="ap", pod_affinity=[
+            Pat(topology_key=L.HOSTNAME, group="ap", anti=True),
+            Pat(topology_key=L.HOSTNAME, group="ap", anti=False)])
+    elif name == "zone_self_affinity":
+        pods = mk(10, cpu="1", memory="2Gi", prefix="co",
+                  pod_affinity=[Pat(topology_key=L.ZONE, group="co",
+                                    anti=False)])
+    elif name == "cross_group_zone_anti":
+        pods = (mk(4, cpu="1", memory="2Gi", prefix="lead",
+                   topology_spread=[zs(1)])
+                + mk(6, cpu="1", memory="2Gi", prefix="avoid",
+                     pod_affinity=[Pat(topology_key=L.ZONE, group="lead",
+                                       anti=True)]))
+    elif name == "cross_group_zone_affinity":
+        pods = (mk(3, cpu="2", memory="4Gi", prefix="anchor")
+                + mk(6, cpu="1", memory="2Gi", prefix="follow",
+                     pod_affinity=[Pat(topology_key=L.ZONE, group="anchor",
+                                       anti=False)]))
+    elif name == "zone_pinned":
+        pods = mk(12, cpu="1", memory="2Gi", prefix="pin",
+                  topology_spread=[zs(1)])
+    elif name == "existing_seeded":
+        existing = [
+            a.ExistingNode(
+                name=f"node-{z}", labels={L.ZONE: z, L.ARCH: "amd64"},
+                allocatable=a.Resources.parse(
+                    {"cpu": "16", "memory": "64Gi", "pods": "110"}),
+                used=a.Resources.parse({"cpu": "1", "memory": "1Gi"}),
+                pod_groups=["web"] * cnt)
+            for z, cnt in [("us-west-2a", 3), ("us-west-2b", 1)]]
+        pods = mk(10, cpu="1", memory="2Gi", prefix="web",
+                  topology_spread=[zs(1)])
+    elif name == "mixed_topo_plain":
+        pods = (mk(40, cpu="500m", memory="1Gi", prefix="plain")
+                + mk(12, cpu="1", memory="2Gi", prefix="spreader",
+                     topology_spread=[zs(1), hs(4)])
+                + mk(20, cpu="250m", memory="512Mi", prefix="tiny"))
+    elif name == "min_values_zone_spread":
+        pods = mk(120, cpu="8", prefix="mvsp", group="mvsp",
+                  topology_spread=[zs(1, group="mvsp")])
+        pool = [env.nodepool("mvpool", requirements=[
+            {"key": L.INSTANCE_FAMILY, "operator": "Exists",
+             "minValues": 5}])]
+    elif name == "min_values_hostname_anti":
+        pods = mk(6, cpu="4", prefix="mvanti", group="mvanti",
+                  pod_affinity=[Pat(topology_key=L.HOSTNAME, group="mvanti",
+                                    anti=True)])
+        pool = [env.nodepool("mvpool2", requirements=[
+            {"key": L.INSTANCE_FAMILY, "operator": "Exists",
+             "minValues": 3}])]
+    elif name == "config3_small":
+        # config 3's three kinds of group at a kernel case's size: every
+        # event kind, the periodic jump and the cap-1 ladder
+        pods = (mk(40, cpu="500m", memory="1Gi", prefix="ksp")
+                + mk(24, cpu="1", memory="2Gi", prefix="kss", group="kss",
+                     topology_spread=[zs(1, group="kss")])
+                + mk(8, cpu="1", memory="2Gi", prefix="kha",
+                     pod_affinity=[Pat(topology_key=L.HOSTNAME, group="kha",
+                                       anti=True)]))
+    elif name == "two_pools_limits":
+        # two pools with cpu limits that bind mid-pour
+        pods = (mk(30, cpu="1", memory="2Gi", prefix="tpl", group="tpl",
+                   topology_spread=[zs(1, group="tpl"), hs(3, group="tpl")])
+                + mk(6, cpu="2", memory="2Gi", prefix="tpa", group="tpa",
+                     pod_affinity=[Pat(topology_key=L.HOSTNAME, group="tpa",
+                                       anti=True)]))
+        pool = [env.nodepool("lim-a", weight=10, limits={"cpu": "24"}),
+                env.nodepool("lim-b", limits={"cpu": "40"})]
+    elif name == "anti_budget":
+        # the cap-1 ladder cut short by pool limits: the first pool's
+        # budget ends with its first node (an anti run of m = 0), the
+        # second's partway through the run
+        pods = mk(12, cpu="3", memory="2Gi", prefix="ab", group="ab",
+                  pod_affinity=[Pat(topology_key=L.HOSTNAME, group="ab",
+                                    anti=True)])
+        pool = [env.nodepool("lim-ab1", weight=10, limits={"cpu": "3"}),
+                env.nodepool("lim-ab2", limits={"cpu": "20"})]
+    elif name == "anti_slots":
+        # the cap-1 ladder past the new-node slots of a kernel case
+        pods = (mk(10, cpu="1", memory="2Gi", prefix="as0")
+                + mk(80, cpu="1", memory="2Gi", prefix="as", group="as",
+                     pod_affinity=[Pat(topology_key=L.HOSTNAME, group="as",
+                                       anti=True)]))
+    elif name == "fix_zones":
+        # zone-free nodes (a hostname spread opens them) that a zone
+        # spread of skew 3 then pins one by one, two pods a node: an
+        # undecided slot chooses the emptier zone over a lower-named one
+        # that its skew still admits
+        pods = (mk(8, cpu="3", memory="4Gi", prefix="fzo", group="fzo",
+                   topology_spread=[hs(1, group="fzo")])
+                + mk(16, cpu="500m", memory="512Mi", prefix="fzs",
+                     group="fzs", topology_spread=[zs(3, group="fzs"),
+                                                   hs(2, group="fzs")]))
+    else:
+        raise ValueError(f"unknown topology scenario {name!r}")
+    return env.snapshot(pods, pool, existing_nodes=existing)
+
+
+def topo_fuzz(env, seed: int, api=None):
+    """The random topology scenario of the reference's
+    tests/test_topology_equivalence.py ``test_random_scenarios`` (same
+    generator, same seed)."""
+    import random
+    a = topo_api(api)
+    L = a.L
+    rng = random.Random(seed)
+    pods = []
+    for gi in range(rng.randint(1, 5)):
+        spread, aff = [], []
+        if rng.random() < 0.7:
+            spread.append(a.TopologySpreadConstraint(
+                max_skew=rng.randint(1, 3), topology_key=L.ZONE))
+        if rng.random() < 0.4:
+            spread.append(a.TopologySpreadConstraint(
+                max_skew=rng.randint(1, 4), topology_key=L.HOSTNAME))
+        if rng.random() < 0.3:
+            aff.append(a.PodAffinityTerm(
+                topology_key=rng.choice([L.ZONE, L.HOSTNAME]),
+                group=f"fz{seed}g{rng.randint(0, gi)}",
+                anti=rng.random() < 0.6))
+        pods += a.make_pods(
+            rng.randint(1, 25), cpu=rng.choice(["250m", "500m", "1", "2"]),
+            memory=rng.choice(["512Mi", "1Gi", "4Gi"]),
+            prefix=f"fz{seed}g{gi}", topology_spread=spread,
+            pod_affinity=aff)
+    pools = [env.nodepool(f"fzp{seed}")]
+    if rng.random() < 0.3:
+        pools.append(env.nodepool(f"fzp{seed}b", weight=10,
+                                  limits={"cpu": "30"}))
+    return env.snapshot(pods, pools)
+
+
+#: the kernel cases (scenarios inside the device pour's envelope) and the
+#: one shape bucket they share: padded groups, pools, counter spaces and
+#: new-node slots
+TOPO_CASES = ("config3_small", "zone_skew2", "two_deployments",
+              "hostname_cap", "zone_plus_hostname", "zone_anti",
+              "zone_self_affinity",
+              "cross_group_zone_anti", "cross_group_zone_affinity",
+              "mixed_topo_plain", "two_pools_limits", "anti_budget",
+              "anti_slots", "fix_zones")
+TOPO_BUCKET = dict(Gp=8, Pp=2, GZp=8, GHp=8)
+TOPO_N_MAX = 64
+
+
+def topo_case(name: str, env=None):
+    """(arrays, rows, statics) of one kernel case: the scenario encoded by
+    this package and padded to ``TOPO_BUCKET`` with ``TOPO_N_MAX`` new-node
+    slots; statics Z/P/GZ/GH/n_max (the caller adds EVCAP and PMAX)."""
+    from .fake.environment import Environment, reset_pod_counter
+    from .models.encoding import encode_snapshot
+    from .ops.topo import build_topo_encoding
+    from .solver.cuda import topo_arrays
+    reset_pod_counter()
+    snap = topo_scenario(env or Environment(), name)
+    enc = encode_snapshot(snap)
+    tenc = build_topo_encoding(enc, snap, [])
+    arrays, rows, stt = topo_arrays(enc, tenc)
+    b = TOPO_BUCKET
+    assert len(arrays["n"]) <= b["Gp"] and stt["P"] <= b["Pp"] \
+        and stt["GZ"] <= b["GZp"] and stt["GH"] <= b["GHp"], name
+    arrays = {k: _pad_axes(a, {0: b["Gp"]} if k in _G_ARRAYS else {})
+              for k, a in arrays.items()}
+    for k, axis in _P_ARRAYS.items():
+        arrays[k] = _pad_axes(arrays[k], {axis: b["Pp"]})
+    cols = dict(zs=b["GZp"], za=b["GZp"], hs=b["GHp"], ha=b["GHp"])
+    rows = {k: _pad_axes(a, {0: b["Gp"], 1: cols.get(k[:2], a.shape[-1])},
+                         _ROW_FILL.get(k, 0))
+            for k, a in rows.items()}
+    return arrays, rows, dict(stt, P=b["Pp"], GZ=b["GZp"], GH=b["GHp"],
+                              n_max=TOPO_N_MAX)
+
+
+#: the kernel cases' re-padding to TOPO_BUCKET: the arrays with a group
+#: axis (axis 0) and with a pool axis, and the rows' pads (a padded
+#: counter column enforces no skew; a padded group records nothing)
+_G_ARRAYS = ("R", "n", "F", "agz", "agc", "admit", "daemon", "ex_compat")
+_P_ARRAYS = dict(admit=1, daemon=1, pool_types=0, pool_agz=0, pool_agc=0,
+                 pool_limit=0, pool_used0=0)
+_ROW_FILL = dict(zs_skew=1 << 60, hs_skew=1 << 60, member_z=-1, member_h=-1)
+
+
+def _pad_axes(a, sizes: dict, fill=0):
+    """``a`` padded at the end of each axis in ``sizes`` to that size."""
+    pad = [(0, sizes[ax] - a.shape[ax] if ax in sizes else 0)
+           for ax in range(a.ndim)]
+    return np.pad(a, pad, constant_values=fill)
+
+
+def topo_kernel_steps(inp, rows, *, n_max: int, P: int, EVCAP: int = 128,
+                      PMAX: int = 8, states: list = None):
+    """Walk a topology scan with the plain parts on the inputs' (CUDA)
+    device and, at every group's entry state, run that group's kernels
+    from the same state: yields (kernel, what, kernel value, plain value)
+    for each output of ``topo_group_start``, ``topo_pour`` (carry,
+    counters, take, leftover, event-log row, ev_n, bail) and
+    ``topo_record_plain`` (counters). The plain parts carry the state.
+    ``states`` collects each group's entry state (g, carry, cz, ch, zfix,
+    the plain group start or the plain take, the plain pour or None)."""
+    import torch
+
+    from .ops import ffd_torch as ft
+    from .ops import topo_cuda as tc
+    from .ops import topo_torch as tt
+    G = inp.R.shape[0]
+    GZ, GH = rows.zs_any.shape[1], rows.hs_any.shape[1]
+    Z = inp.agz.shape[1]
+    dev = inp.A.device
+    cz = torch.zeros((GZ, Z), dtype=torch.int64, device=dev)
+    ch = torch.zeros((GH, n_max), dtype=torch.int64, device=dev)
+    ts = tc.topo_state(inp, rows, cz, ch, n_max=n_max, P=P, EVCAP=EVCAP,
+                       PMAX=PMAX)
+    st = ts.st
+    carry = ft.carry0(inp, n_max, 0)
+    zfix = torch.full((n_max,), -1, dtype=torch.int32, device=dev)
+
+    def load(carry, cz, ch, zfix):
+        for dst, src in zip(st.carry, carry):
+            dst.copy_(src)
+        ts.cz.copy_(cz)
+        ts.ch.copy_(ch)
+        ts.zfix.copy_(zfix)
+
+    for g, topo in enumerate(rows.has_topo.tolist()):
+        load(carry, cz, ch, zfix)
+        if topo:
+            gs = tt._topo_group_start_ref(inp, carry, g, rows, P=P)
+            tc.topo_group_start(ts, g)
+            for f, got in (("cand", st.cand), ("rem0", ts.rem),
+                           ("cand_new", ts.cand_new), ("hr_new", ts.hr_new),
+                           ("open_ok0", ts.open_ok0),
+                           ("availz_p", ts.availz_p), ("cap_pz", ts.cap_pz),
+                           ("cap_any", ts.cap_any),
+                           ("zcand_pz", ts.zcand_pz),
+                           ("anti_bulk", ts.anti_bulk[0])):
+                yield "topo_group_start", f"g={g} {f}", got, \
+                    getattr(gs, f)
+            r = tt._topo_pour_ref(inp, carry, cz, ch, zfix, g, rows, gs,
+                                  P=P, EVCAP=EVCAP, PMAX=PMAX)
+            # the pour starts from the plain group-start state
+            st.cand.copy_(gs.cand)
+            ts.rem.copy_(gs.rem0)
+            for f in ("cand_new", "hr_new", "open_ok0", "availz_p",
+                      "cap_pz", "cap_any", "zcand_pz"):
+                getattr(ts, f).copy_(getattr(gs, f))
+            ts.anti_bulk.copy_(gs.anti_bulk.reshape(1))
+            tc.topo_pour(ts, g)
+            for f, got, want in zip(ft.Carry._fields, st.carry, r.carry):
+                yield "topo_pour", f"g={g} {f}", got, want
+            yield "topo_pour", f"g={g} cz", ts.cz, r.cz
+            yield "topo_pour", f"g={g} ch", ts.ch, r.ch
+            yield "topo_pour", f"g={g} zfix", ts.zfix, r.zfix
+            yield "topo_pour", f"g={g} take", st.takes[g].long(), r.take
+            yield "topo_pour", f"g={g} leftover", st.leftover[g], r.n_rem
+            for k in tt.EV_FILL:
+                yield "topo_pour", f"g={g} ev_{k}", ts.ev[k][g], r.ev[k]
+            yield "topo_pour", f"g={g} ev_n", ts.ev["n"][g], r.ev_n
+            yield "topo_pour", f"g={g} bail", ts.bail[g], r.bail
+            if states is not None:
+                states.append((g, carry, cz, ch, zfix, gs, r))
+            carry, cz, ch, zfix = r.carry, r.cz, r.ch, r.zfix
+        else:
+            carry, take, _ = ft._group_step_ref(inp, carry, g, E=0, P=P,
+                                                V=0)
+            st.takes[g] = take.to(torch.int32)
+            if states is not None:
+                states.append((g, carry, cz, ch, zfix, take, None))
+            cz, ch = tt._topo_record_plain_ref(cz, ch, zfix, take,
+                                               rows.member_z[g],
+                                               rows.member_h[g])
+            tc.topo_record_plain(ts, g)
+            yield "topo_record_plain", f"g={g} cz", ts.cz, cz
+            yield "topo_record_plain", f"g={g} ch", ts.ch, ch

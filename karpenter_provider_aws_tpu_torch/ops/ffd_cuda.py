@@ -6,7 +6,8 @@
 ``csrc/consolidation.cu`` (K7: ``consol_absorb``, ``subset_gather``,
 ``subset_summary``; wrappers in ``ops/consolidation_cuda.py``) and
 ``csrc/pruned.cu`` (K6: ``ffd_pruned_select``, ``ffd_pruned_headroom``,
-``ffd_pruned_commit``) are
+``ffd_pruned_commit``) and ``csrc/topo.cu`` (K9: ``topo_group_start``,
+``topo_pour``, ``topo_record_plain``; wrappers in ``ops/topo_cuda.py``) are
 compiled with ``nvcc`` for ``sm_90a`` into one shared library with a
 plain C interface, loaded with ctypes. The build runs at first use, into
 ``_build/`` inside this package, keyed by a hash of the sources; a failed
@@ -45,7 +46,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("packed_io.cu", "ffd_scan.cu", "ckpt.cu", "consolidation.cu",
-           "pruned.cu")
+           "pruned.cu", "topo.cu")
 HEADERS = ("ffd_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -60,7 +61,8 @@ LAUNCHES: Dict[str, int] = {"unpack_bits": 0, "ffd_slot_headroom": 0,
                             "consol_absorb_dense": 0, "subset_gather": 0,
                             "subset_summary": 0, "ffd_pruned_select": 0,
                             "ffd_pruned_headroom": 0,
-                            "ffd_pruned_commit": 0}
+                            "ffd_pruned_commit": 0, "topo_group_start": 0,
+                            "topo_pour": 0, "topo_record_plain": 0}
 
 _LIB = None
 _BUILD_INFO: dict = {}
@@ -143,6 +145,9 @@ def _lib():
                        lib.karp_ffd_pruned_headroom,
                        lib.karp_ffd_pruned_commit):
                 fn.argtypes = [vp, ll, vp]
+            for fn in (lib.karp_topo_group_start, lib.karp_topo_pour,
+                       lib.karp_topo_record_plain):
+                fn.argtypes = [vp, vp, ll, vp]
             lib.karp_error_string.argtypes = [ctypes.c_int]
             lib.karp_error_string.restype = ctypes.c_char_p
             for fn in (lib.karp_unpack_bits, lib.karp_pack_outputs,
@@ -152,7 +157,8 @@ def _lib():
                        lib.karp_consol_absorb, lib.karp_subset_gather,
                        lib.karp_subset_summary, lib.karp_ffd_pruned_select,
                        lib.karp_ffd_pruned_headroom,
-                       lib.karp_ffd_pruned_commit):
+                       lib.karp_ffd_pruned_commit, lib.karp_topo_group_start,
+                       lib.karp_topo_pour, lib.karp_topo_record_plain):
                 fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB

@@ -1,0 +1,174 @@
+"""The CUDA kernels of the topology scan (K9): wrappers and the scan loop.
+
+``csrc/topo.cu`` is built into the one kernel library of
+``ops/ffd_cuda.py``. Each wrapper checks its inputs (``TopoScanState``),
+launches on the current stream, adds one to its entry of
+``ffd_cuda.LAUNCHES`` and raises when the C entry returns a CUDA error.
+Nothing here falls back to the plain versions in ``ops/topo_torch.py``.
+
+- ``topo_group_start``: a topology group's candidates, per-slot room and
+  per-pool statics of opening a node;
+- ``topo_pour``: the group's whole event loop and its group-end
+  narrowing, in one block;
+- ``topo_record_plain``: the membership counters after a group without
+  topology ran the K2 kernels.
+
+``solve_scan_topo_cuda`` drives one scan: the K2 ``ScanState`` and the
+``TopoScanState`` share one carry on the device, which every kernel updates
+in place; per group two or three launches, no synchronisation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .ffd_cuda import (LAUNCHES, ScanState, _check, _lib, _need, _stream,
+                       ffd_group_commit, ffd_slot_headroom)
+from .ffd_torch import KernelInputs, carry0
+from .topo_torch import TopoGroupRows, empty_events
+
+_ROW_FIELDS = ("has_topo", "zone_needed", "min_mask", "zs_any", "zs_skew",
+               "hs_any", "hs_skew", "za_any", "za_anti", "za_own", "ha_any",
+               "ha_anti", "ha_own", "member_z", "member_h")
+_PTR_FIELDS = _ROW_FIELDS + (
+    "cz", "ch", "zfix", "take", "rem", "ok", "keep", "cand_new", "hr_new",
+    "open_ok0", "availz_p", "cap_pz", "cap_any", "zcand_pz", "anti_bulk",
+    "ev_slot", "ev_zone", "ev_len", "ev_kind", "ev_aux", "ev_n", "bail")
+
+
+class _TopoArgs(ctypes.Structure):
+    """Mirror of ``struct TopoArgs`` in csrc/topo.cu (8-byte fields)."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in _PTR_FIELDS]
+                + [(f, ctypes.c_longlong) for f in ("GZ", "GH", "EVCAP",
+                                                    "PMAX")])
+
+
+class TopoScanState:
+    """The topology side of one scan on the card, beside the K2
+    ``ScanState`` ``st`` whose carry, candidate scratch, takes and
+    leftover it shares: the rows, the counters ``cz`` [GZ, Z], ``ch``
+    [GH, N] and ``zfix`` [N] (updated in place), the per-group scratch
+    (``take``, ``rem``, ``ok``, ``keep``), the group-start statics, the
+    event log ``ev`` (``[G, EVCAP]`` rows at their fill values, ``n``
+    [G]) and ``bail`` [G], plus the ctypes argument block."""
+
+    def __init__(self, st: ScanState, rows: TopoGroupRows, cz, ch, zfix, *,
+                 EVCAP: int, PMAX: int):
+        inp = st.inp
+        dev = inp.A.device
+        T = inp.A.shape[0]
+        G = inp.R.shape[0]
+        Z, P = inp.agz.shape[1], inp.pool_types.shape[0]
+        N = st.carry.used.shape[0]
+        GZ, GH = cz.shape[0], ch.shape[0]
+        if st.lanes is not None or st.s0 != 0 or st.s1 != G:
+            raise ValueError("the topology scan takes one lane over every "
+                             "group")
+        if EVCAP < 1 or PMAX < 1:
+            raise ValueError(f"EVCAP={EVCAP} and PMAX={PMAX} must be >= 1")
+        b, i64, i32 = torch.bool, torch.int64, torch.int32
+        for nm, dt, shp in (
+                ("has_topo", b, (G,)), ("zone_needed", b, (G,)),
+                ("min_mask", b, (G, Z)), ("zs_any", b, (G, GZ)),
+                ("zs_skew", i64, (G, GZ)), ("hs_any", b, (G, GH)),
+                ("hs_skew", i64, (G, GH)), ("za_any", b, (G, GZ)),
+                ("za_anti", b, (G, GZ)), ("za_own", b, (G, GZ)),
+                ("ha_any", b, (G, GH)), ("ha_anti", b, (G, GH)),
+                ("ha_own", b, (G, GH)), ("member_z", i32, (G,)),
+                ("member_h", i32, (G,))):
+            _need(getattr(rows, nm), nm, dt, shp)
+        _need(cz, "cz", i64, (GZ, Z))
+        _need(ch, "ch", i64, (GH, N))
+        _need(zfix, "zfix", i32, (N,))
+        self.st, self.rows = st, rows
+        self.cz, self.ch, self.zfix = cz, ch, zfix
+        self.take = torch.empty(N, dtype=i64, device=dev)
+        self.rem = torch.empty(N, dtype=i64, device=dev)
+        self.ok = torch.empty(N, dtype=b, device=dev)
+        self.keep = torch.empty(T, dtype=b, device=dev)
+        self.cand_new = torch.empty((P, T), dtype=b, device=dev)
+        self.hr_new = torch.empty((P, T), dtype=i64, device=dev)
+        self.open_ok0 = torch.empty(P, dtype=b, device=dev)
+        self.availz_p = torch.empty((P, T, Z), dtype=b, device=dev)
+        self.cap_pz = torch.empty((P, Z), dtype=i64, device=dev)
+        self.cap_any = torch.empty(P, dtype=i64, device=dev)
+        self.zcand_pz = torch.empty((P, Z), dtype=b, device=dev)
+        self.anti_bulk = torch.empty(1, dtype=b, device=dev)
+        self.ev = empty_events(G, EVCAP, dev)
+        self.bail = torch.zeros(G, dtype=b, device=dev)
+        ptrs = {}
+        for f in _PTR_FIELDS:
+            if f in _ROW_FIELDS:
+                t = getattr(rows, f)
+            elif f.startswith("ev_"):
+                t = self.ev[f[3:]]
+            else:
+                t = getattr(self, f)
+            ptrs[f] = t.data_ptr() if t.numel() else None
+        self.args = _TopoArgs(**ptrs, GZ=GZ, GH=GH, EVCAP=EVCAP, PMAX=PMAX)
+
+
+def _launch(name: str, ts: TopoScanState, g: int) -> None:
+    if not 0 <= g < ts.st.s1:
+        raise ValueError(f"group {g} outside [0, {ts.st.s1})")
+    fn = getattr(_lib(), f"karp_{name}")
+    err = fn(ctypes.byref(ts.st.args), ctypes.byref(ts.args), g, _stream())
+    LAUNCHES[name] += 1
+    _check(err, name)
+
+
+def topo_group_start(ts: TopoScanState, g: int) -> None:
+    """Topology group g's group-start state: ``st.cand`` [N, T],
+    ``ts.rem`` [N] and the per-pool statics (kernel)."""
+    _launch("topo_group_start", ts, g)
+
+
+def topo_pour(ts: TopoScanState, g: int) -> None:
+    """Topology group g's event loop and narrowing from its group-start
+    state: updates the carry and counters in place and writes
+    ``st.takes[g]``, ``st.leftover[g]``, the group's event-log row,
+    ``ev["n"][g]`` and ``bail[g]`` (kernel)."""
+    _launch("topo_pour", ts, g)
+
+
+def topo_record_plain(ts: TopoScanState, g: int) -> None:
+    """The membership counters of group g, a group without topology whose
+    K2 step wrote ``st.takes[g]`` (kernel)."""
+    _launch("topo_record_plain", ts, g)
+
+
+def topo_state(inp: KernelInputs, rows: TopoGroupRows, cz0, ch0, *,
+               n_max: int, P: int, EVCAP: int, PMAX: int) -> TopoScanState:
+    """A fresh scan on the card: the initial carry (no existing nodes),
+    copies of ``cz0`` / ``ch0``, every zone undecided."""
+    st = ScanState(inp, carry0(inp, n_max, 0), E=0, P=P)
+    zfix = torch.full((n_max,), -1, dtype=torch.int32, device=inp.A.device)
+    return TopoScanState(st, rows, cz0.clone(), ch0.clone(), zfix, EVCAP=EVCAP,
+                     PMAX=PMAX)
+
+
+def solve_scan_topo_cuda(inp: KernelInputs, rows: TopoGroupRows, cz0, ch0,
+                         *, n_max: int, P: int, EVCAP: int = 128,
+                         PMAX: int = 8):
+    """The whole topology scan on the card: per topology group
+    ``topo_group_start`` and ``topo_pour``, per other group the K2 pair
+    and ``topo_record_plain``. Returns the reference's outputs (takes
+    [G, N] i64, leftover, events, zfix, bail, final Carry) on the card.
+    The only synchronisation is reading ``has_topo`` before the first
+    launch."""
+    ts = topo_state(inp, rows, cz0, ch0, n_max=n_max, P=P, EVCAP=EVCAP,
+                    PMAX=PMAX)
+    st = ts.st
+    for g, topo in enumerate(rows.has_topo.tolist()):
+        if topo:
+            topo_group_start(ts, g)
+            topo_pour(ts, g)
+        else:
+            ffd_slot_headroom(st, g)
+            ffd_group_commit(st, g)
+            topo_record_plain(ts, g)
+    return (st.takes.to(torch.int64), st.leftover, ts.ev, ts.zfix, ts.bail,
+            st.carry)
+

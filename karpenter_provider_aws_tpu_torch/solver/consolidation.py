@@ -26,8 +26,9 @@ a dispatch propagates. ``device="cpu"`` runs the plain versions.
 ``subset_solve`` returns None only for the reference's eligibility
 reasons (topology, no_types, minvalues, group_cap, preferences,
 no_pods), each counted in ``fallbacks``. A topology candidate in
-``deletions_feasible`` goes to ``solver.solve``, which refuses it
-(topology is K9, ROADMAP.md queue 2).
+``deletions_feasible`` goes to ``solver.solve``, which answers it on the
+host pour (ops/topo.py): a deletion snapshot has existing nodes and no
+instance types, both outside the device pour's envelope.
 """
 
 from __future__ import annotations
@@ -168,7 +169,7 @@ class CUDAConsolidationEvaluator(ConsolidationEvaluator):
         batch_idx: List[int] = []
         for i, snap in enumerate(snapshots):
             if any(p.topology_spread or p.pod_affinity for p in snap.pods):
-                # the solver's own path for topology (it refuses: K9)
+                # the solver's own path for topology: the host pour
                 res = self.solver.solve(snap)
                 out[i] = not res.new_nodes and not res.unschedulable
             elif not snap.pods:

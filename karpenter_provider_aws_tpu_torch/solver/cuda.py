@@ -36,6 +36,18 @@ decisions never depend on which engine served. ``solve_batch`` runs many
 snapshots of one statics bucket in one dispatch
 (``solve_scan_packed1_many``, K4).
 
+Topology spread and required pod (anti-)affinity follow the reference's
+topology routing: inside the device pour's envelope (no existing nodes,
+no minValues floors, no duplicate counter terms in a group) the solve
+runs the topology scan (ops/topo_torch.py ``dispatch_topo``, K9) on
+unpacked inputs; outside it, with no instance types or past
+``dev_max_groups``, the host pour (ops/topo.py through ``_run_host``;
+``reason`` ``topo_envelope`` / ``no_types`` / ``group_cap``). A group
+that overflows the event log bails, and the same inputs are solved
+again on the device at ``safe_evcap`` (``reason="topo_bail"``). The
+decode replays each topology group's placement runs from its event log
+(``_runs_from_events``).
+
 There is no router, host twin or oracle fallback here: on a CUDA device
 a solve the kernels take runs them or raises, and nothing catches a
 kernel failure. ``device="cpu"`` runs the plain PyTorch versions of the
@@ -52,7 +64,8 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from ..apis.requirements import Requirements
+from ..apis import labels as L
+from ..apis.requirements import IN, Requirement, Requirements
 from ..apis.resources import Resources
 from ..models.delta import DeltaEncoder, full_existing_encode
 from ..models.encoding import SnapshotEncoding, encode_snapshot
@@ -66,6 +79,9 @@ from ..ops.ffd_torch import (kernel_inputs_from_numpy, solve_scan_packed1,
 from ..ops.hostpack import (DEV_PRUNED_SLOTS, pack_inputs1,
                             pack_inputs1_state, patch_inputs1,
                             tier_leftovers, unpack_outputs1)
+from ..ops.topo import (TopoState, build_topo_encoding, fill_group_topo,
+                        record_plain_fill)
+from ..ops.topo_torch import K_ANTIRUN, K_CYC, dispatch_topo
 from .incremental import CKPT_CHUNK, ckpt_eligible, live_bound, suffix_plan
 from .types import (ExistingNode, NewNodeClaim, SchedulingSnapshot,
                     SolveResult, Solver, preference_count)
@@ -74,6 +90,99 @@ from .types import (ExistingNode, NewNodeClaim, SchedulingSnapshot,
 def _slotmap(E: int, Ep: int, N: int) -> np.ndarray:
     """Row indices that drop the dead padded existing slots [E, Ep)."""
     return np.concatenate([np.arange(E), np.arange(Ep, N)])
+
+
+def _runs_from_events(ev, gi: int):
+    """The host pour's placement-run list of group ``gi`` from its row of
+    the device event log (ops/topo_torch.py kinds): consecutive same-slot
+    runs merge (ops/topo.py ``_commit``), a cyc entry's pattern is the
+    last ``p`` events of the host-equivalent event tail, and the tail
+    grows by the pattern after a jump exactly as the host's event log
+    does. An anti run of m = 0 emits nothing. (The reference's
+    solver/tpu.py function of the same name.)"""
+    n = int(ev["n"][gi])
+    runs = []
+    tail = []  # (slot, len) of the host-equivalent event log tail
+    for i in range(n):
+        kind = int(ev["kind"][gi, i])
+        slot = int(ev["slot"][gi, i])
+        ln = int(ev["len"][gi, i])
+        if kind == K_CYC:
+            p = ln
+            k = int(ev["aux"][gi, i])
+            pattern = tail[-p:]
+            runs.append(("cyc", list(pattern), k))
+            tail.extend(pattern * (k if k < 3 else 2))
+        elif kind == K_ANTIRUN:
+            for j in range(ln):
+                runs.append((slot + j, 1))
+                tail.append((slot + j, 1))
+        else:  # place / fix / open
+            if runs and runs[-1][0] == slot:
+                runs[-1] = (slot, runs[-1][1] + ln)
+            else:
+                runs.append((slot, ln))
+            tail.append((slot, ln))
+        if len(tail) > 64:
+            del tail[:len(tail) - 64]
+    return runs
+
+
+def topo_arrays(enc: SnapshotEncoding, tenc):
+    """The device pour's inputs of one encoding (the reference's
+    ``_run_jax_topo`` padding): the base arrays with G, P padded to powers
+    of two and no existing nodes, and the dense topology rows
+    (``CUDASolver._topo_rows``) padded to Gp and to the counter buckets
+    GZp / GHp (powers of two), with BIG as the skew pad and -1 as the
+    membership pad. Returns (arrays, rows, statics Z/P/GZ/GH)."""
+    D = enc.A.shape[1]
+    G = len(enc.groups)
+    z = np.zeros((0, D), np.int64)
+    arrays, stt = CUDASolver._prep_device_inputs(
+        enc, z, z, np.zeros((G, 0), bool))
+    for k in ("mv_floor", "mv_pairs_t", "mv_pairs_v", "prio"):
+        arrays.pop(k, None)
+    Gp = stt["G"]
+    rows, GZ, GH = CUDASolver._topo_rows(enc, tenc)
+    GZp = max(1, 1 << (GZ - 1).bit_length())
+    GHp = max(1, 1 << (GH - 1).bit_length())
+    big = np.int64(1) << 60
+
+    def padC(a, width, fill):
+        out = np.full((Gp, width), fill, a.dtype)
+        out[:G, :a.shape[1]] = a
+        return out
+
+    topo_rows = dict(
+        has_topo=np.pad(rows["has_topo"], (0, Gp - G)),
+        zone_needed=np.pad(rows["zone_needed"], (0, Gp - G)),
+        min_mask=np.pad(rows["min_mask"], [(0, Gp - G), (0, 0)]),
+        zs_any=padC(rows["zs_any"], GZp, False),
+        zs_skew=padC(rows["zs_skew"], GZp, big),
+        hs_any=padC(rows["hs_any"], GHp, False),
+        hs_skew=padC(rows["hs_skew"], GHp, big),
+        za_any=padC(rows["za_any"], GZp, False),
+        za_anti=padC(rows["za_anti"], GZp, False),
+        za_own=padC(rows["za_own"], GZp, False),
+        ha_any=padC(rows["ha_any"], GHp, False),
+        ha_anti=padC(rows["ha_anti"], GHp, False),
+        ha_own=padC(rows["ha_own"], GHp, False),
+        member_z=np.pad(rows["member_z"], (0, Gp - G), constant_values=-1),
+        member_h=np.pad(rows["member_h"], (0, Gp - G), constant_values=-1),
+    )
+    return arrays, topo_rows, dict(Z=stt["Z"], P=stt["P"], GZ=GZp, GH=GHp)
+
+
+def safe_evcap(arrays: dict, rows: dict) -> int:
+    """An event-log capacity the pour cannot overflow: every event places
+    at least one pod except an anti run of m = 0, which ends its pool's
+    opens (its budget or the free slots are spent), so a group logs at
+    most n + P events; the next power of two of the largest topology
+    group's n + P + 2."""
+    n = np.asarray(arrays["n"])[np.asarray(rows["has_topo"], bool)]
+    top = int(n.max()) if n.size else 0
+    P = np.asarray(arrays["pool_types"]).shape[0]
+    return 1 << (top + P + 2 - 1).bit_length()
 
 
 class CUDASolver(Solver):
@@ -189,15 +298,35 @@ class CUDASolver(Solver):
             ex_alloc, ex_used, ex_compat = full_existing_encode(enc,
                                                                 existing)
             self._last_delta = None
+        tenc = None
         if enc.topo_any:
-            raise NotImplementedError(
-                "topology spread / pod (anti-)affinity needs the topology "
-                "scan (ROADMAP.md queue 2, K9: ops/topo_jax.py)")
+            tenc = build_topo_encoding(enc, snapshot, existing)
+            if not tenc.supported:
+                raise NotImplementedError(
+                    f"topology outside the pour ({tenc.reason}) needs the "
+                    f"CPU oracle (ROADMAP.md queue 1, item 14: "
+                    f"solver/cpu.py CPUSolver)")
         t_enc = time.perf_counter()
         if not enc.types:
             # zero-width type axis: only the host engine takes T == 0
             takes, leftover, final = self._run_host(
-                enc, ex_alloc, ex_used, ex_compat, "no_types")
+                enc, ex_alloc, ex_used, ex_compat, "no_types", tenc=tenc,
+                existing=existing)
+        elif tenc is not None:
+            # the reference's topology routing (solver/tpu.py:303-345):
+            # the device pour inside its envelope, else the host pour
+            if len(enc.groups) > self.dev_max_groups:
+                reason = "group_cap"
+            elif not self._topo_lowerable(enc, tenc, existing):
+                reason = "topo_envelope"
+            else:
+                reason = None
+            if reason is None:
+                takes, leftover, final = self._run_topo(enc, tenc)
+            else:
+                takes, leftover, final = self._run_host(
+                    enc, ex_alloc, ex_used, ex_compat, reason, tenc=tenc,
+                    existing=existing)
         elif len(enc.groups) > self._dev_group_cap(enc):
             takes, leftover, final = self._run_host(
                 enc, ex_alloc, ex_used, ex_compat, "group_cap")
@@ -227,25 +356,39 @@ class CUDASolver(Solver):
             return self.dev_max_groups_pruned
         return self.dev_max_groups
 
-    def _run_host(self, enc, ex_alloc, ex_used, ex_compat, reason: str):
+    def _run_host(self, enc, ex_alloc, ex_used, ex_compat, reason: str,
+                  tenc=None, existing=()):
         """The host engine (ops/ffd.py, the reference's ``_run_numpy``
         interpreted path: one closed-form fill per group over a NodeState
-        of ``n_max`` new-node slots). Records ``kernel="host"`` and the
+        of ``n_max`` new-node slots); with ``tenc`` the host pour
+        (ops/topo.py: ``fill_group_topo`` for the topology groups, the
+        closed form plus ``record_plain_fill`` for the rest, counters
+        seeded from ``existing``). Records ``kernel="host"`` and the
         reason in ``last_dispatch_stats``."""
         self._solve_mode = "full"
         st = ffd.NodeState.create(enc, self.n_max, ex_alloc, ex_used,
                                   ex_compat)
+        ts = None if tenc is None else TopoState.create(
+            tenc, st.Z, st.N, st.E, existing)
         takes = np.zeros((len(enc.groups), st.N), dtype=np.int64)
         leftover = np.zeros(len(enc.groups), dtype=np.int64)
+        run_log = {}
         for g in enc.groups:
-            take, rem = ffd.fill_group_closed_form(st, enc, g.index)
+            if ts is not None and tenc.has_topo[g.index]:
+                take, rem, run_log[g.index] = fill_group_topo(
+                    st, enc, tenc, ts, g.index)
+            else:
+                take, rem = ffd.fill_group_closed_form(st, enc, g.index)
+                if ts is not None:
+                    record_plain_fill(tenc, ts, st, g.index, take)
             takes[g.index] = take
             leftover[g.index] = rem
         self.last_dispatch_stats = dict(
             device=str(self.device), kernel="host", reason=reason,
             bails=0, batch=1, launches=self._launches_since(None))
         final = dict(types=st.types, zones=st.zones, ct=st.ct, pool=st.pool,
-                     alive=st.alive, used=st.used, E=st.E)
+                     alive=st.alive, used=st.used, E=st.E, run_log=run_log,
+                     zfix=None if ts is None else ts.zfix)
         return takes, leftover, final
 
     @staticmethod
@@ -611,6 +754,134 @@ class CUDASolver(Solver):
             alive=out["alive"][sm], used=out["used"][sm][:, :D], E=E)
         return takes, out["leftover"][:G], final
 
+    # -- the topology pour (K9) -----------------------------------------
+    #: event-log capacity and jump period bound of the device pour; a
+    #: group past TOPO_EVCAP events bails and the solve re-runs on the
+    #: device at ``safe_evcap`` (it cannot bail)
+    TOPO_EVCAP = 128
+    TOPO_PMAX = 8
+
+    def _topo_lowerable(self, enc, tenc, existing) -> bool:
+        """The device pour's envelope (the reference's predicate): no
+        existing nodes, no minValues floors, and no duplicate counter
+        references inside one group's constraint lists (the dense rows
+        merge duplicates, which would change the zone-choice score the
+        host computes per constraint)."""
+        if existing:
+            return False
+        if enc.mv_floor is not None and enc.mv_floor.any():
+            return False
+        for g in enc.groups:
+            gi = g.index
+            for lst in (tenc.zspread[gi], tenc.hspread[gi],
+                        tenc.zaff[gi], tenc.haff[gi]):
+                ids = [e[0] for e in lst]
+                if len(ids) != len(set(ids)):
+                    return False
+        return True
+
+    @staticmethod
+    def _topo_rows(enc, tenc):
+        """Densify the TopoEncoding into TopoGroupRows arrays (numpy,
+        unpadded): (rows, GZ, GH)."""
+        G = len(enc.groups)
+        GZ = max(1, tenc.GZ)
+        GH = max(1, tenc.GH)
+        big = np.int64(1) << 60
+        rows = dict(
+            has_topo=np.array(tenc.has_topo, dtype=bool),
+            zone_needed=np.array(tenc.zone_needed, dtype=bool),
+            min_mask=np.asarray(tenc.min_mask, dtype=bool),
+            zs_any=np.zeros((G, GZ), bool),
+            zs_skew=np.full((G, GZ), big, np.int64),
+            hs_any=np.zeros((G, GH), bool),
+            hs_skew=np.full((G, GH), big, np.int64),
+            za_any=np.zeros((G, GZ), bool),
+            za_anti=np.zeros((G, GZ), bool),
+            za_own=np.zeros((G, GZ), bool),
+            ha_any=np.zeros((G, GH), bool),
+            ha_anti=np.zeros((G, GH), bool),
+            ha_own=np.zeros((G, GH), bool),
+            member_z=np.full(G, -1, np.int32),
+            member_h=np.full(G, -1, np.int32),
+        )
+        for g in range(G):
+            for gz, sk, enforce in tenc.zspread[g]:
+                rows["zs_any"][g, gz] = True
+                if enforce:
+                    rows["zs_skew"][g, gz] = min(rows["zs_skew"][g, gz], sk)
+            for gh, sk, enforce in tenc.hspread[g]:
+                rows["hs_any"][g, gh] = True
+                if enforce:
+                    rows["hs_skew"][g, gh] = min(rows["hs_skew"][g, gh], sk)
+            for gz, anti, own in tenc.zaff[g]:
+                rows["za_any"][g, gz] = True
+                rows["za_anti"][g, gz] = anti
+                rows["za_own"][g, gz] = own
+            for gh, anti, own in tenc.haff[g]:
+                rows["ha_any"][g, gh] = True
+                rows["ha_anti"][g, gh] = anti
+                rows["ha_own"][g, gh] = own
+            # membership counters not already covered by the spread rows
+            # (ops/topo.py ``_record``'s seen_z / seen_h dedup)
+            mz = tenc.member_z[g]
+            if mz >= 0 and not rows["zs_any"][g, mz]:
+                rows["member_z"][g] = mz
+            mh = tenc.member_h[g]
+            if mh >= 0 and not rows["hs_any"][g, mh]:
+                rows["member_h"][g] = mh
+        return rows, GZ, GH
+
+    def _run_topo(self, enc, tenc):
+        """The device pour (the reference's ``_run_jax_topo`` without its
+        resident cache): the padded inputs go to the device once per
+        solve and serve every slot-bucket retry. A group that overflows
+        the event log bails; the same inputs are then solved again on the
+        device at ``safe_evcap`` (``reason="topo_bail"``), where the
+        reference re-solves on its host pour. A second bail raises."""
+        D = enc.A.shape[1]
+        G = len(enc.groups)
+        arrays, rows, stt = topo_arrays(enc, tenc)
+        self._solve_mode = "full"
+        cache: dict = {}
+        before = dict(ffd_cuda.LAUNCHES)
+        n_bucket, retries, bails = self._bucket, 0, 0
+        evcap = self.TOPO_EVCAP
+        while True:
+            out = dispatch_topo(arrays, rows, dict(
+                stt, n_max=n_bucket, EVCAP=evcap, PMAX=self.TOPO_PMAX),
+                device=self.device, cache=cache)
+            if bool(out["bail"].any()):
+                if bails:
+                    raise RuntimeError(
+                        f"the topology pour bailed at EVCAP = {evcap}, "
+                        f"past every group's event bound")
+                bails += 1
+                evcap = max(evcap, safe_evcap(arrays, rows))
+                continue
+            leftover = out["leftover"].cpu().numpy()
+            nn = int(out["num_nodes"][0])
+            exhausted = leftover.sum() > 0 and nn >= n_bucket
+            if not exhausted or n_bucket >= self.n_max:
+                break
+            n_bucket = min(n_bucket * 4, self.n_max)
+            retries += 1
+        self._bucket = self._settle_bucket(n_bucket, nn)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        self.last_dispatch_stats = dict(
+            device=str(self.device), kernel="topo",
+            reason="topo_bail" if bails else None, bails=bails, evcap=evcap,
+            batch=1, groups=arrays["n"].shape[0], slot_bucket=n_bucket,
+            retries=retries, launches=self._launches_since(before))
+        ev = {k[3:]: v for k, v in out.items() if k.startswith("ev_")}
+        run_log = {g.index: _runs_from_events(ev, g.index)
+                   for g in enc.groups if rows["has_topo"][g.index]}
+        final = dict(types=out["types"], zones=out["zones"], ct=out["ct"],
+                     pool=out["pool"], alive=out["alive"],
+                     used=out["used"][:, :D], E=0, run_log=run_log,
+                     zfix=out["zfix"])
+        return out["takes"][:G], out["leftover"][:G], final
+
     # -- many snapshots in one dispatch -----------------------------------
     def solve_batch(self, snapshots) -> List[SolveResult]:
         """Solve many independent snapshots, eligible ones B per dispatch
@@ -764,22 +1035,51 @@ class CUDASolver(Solver):
         # slots arrive contiguous and ordered
         gnz, snz = np.nonzero(takes)
         bounds = np.searchsorted(gnz, np.arange(len(enc.groups) + 1))
+        run_log = final.get("run_log") or {}
         for g in enc.groups:
             off = 0
             gp = g.pods
-            lo, hi = bounds[g.index], bounds[g.index + 1]
-            for s in snz[lo:hi]:
-                slot, cnt = int(s), int(takes[g.index, s])
-                chunk = gp[off:off + cnt]
-                off += cnt
+
+            def place(slot, chunk, gi=g.index):
                 if slot < E:
                     for p in chunk:
                         assignments[p.full_name()] = existing[slot].name
                 else:
                     slot_pods.setdefault(slot, []).extend(chunk)
                     sg = slot_groups.setdefault(slot, [])
-                    if g.index not in sg:
-                        sg.append(g.index)
+                    if gi not in sg:
+                        sg.append(gi)
+
+            # topology pours stripe pods across slots: replay their
+            # placement order. Plain fills are slot-order chunks.
+            placement = run_log.get(g.index)
+            if placement is None:
+                lo, hi = bounds[g.index], bounds[g.index + 1]
+                placement = [(int(s), int(takes[g.index, s]))
+                             for s in snz[lo:hi]]
+            for entry in placement:
+                if entry[0] == "cyc":
+                    # a committed periodic jump: ``pattern`` repeated k
+                    # times; pods stripe round-robin over the pattern, so
+                    # entry j of the pattern owns a strided slice
+                    _, pattern, k = entry
+                    d_n = sum(ln for _, ln in pattern)
+                    pos = 0
+                    for slot, ln in pattern:
+                        if ln == 1:
+                            chunk = gp[off + pos:off + d_n * k:d_n]
+                        else:
+                            chunk = []
+                            for p_i in range(k):
+                                base = off + pos + p_i * d_n
+                                chunk.extend(gp[base:base + ln])
+                        place(int(slot), chunk)
+                        pos += ln
+                    off += d_n * k
+                    continue
+                slot, cnt = entry
+                place(int(slot), gp[off:off + cnt])
+                off += cnt
             for p in gp[off:]:  # leftovers — could not be scheduled
                 unschedulable[p.full_name()] = "no capacity in any nodepool"
         return self._decode_nodes(enc, assignments, unschedulable,
@@ -794,8 +1094,9 @@ class CUDASolver(Solver):
         best_cache: Dict[bytes, np.ndarray] = {}
         #: (type-mask, zone-mask, ct-mask) -> cheapest-first type names
         order_cache: Dict[bytes, List[str]] = {}
-        #: (pool, groups) -> merged node requirements
+        #: (pool, groups, fixed zone) -> merged node requirements
         reqs_cache: Dict[Tuple, Requirements] = {}
+        zfix = final.get("zfix")
         for slot in sorted(slot_pods):
             pods = slot_pods[slot]
             pool = enc.pools[int(final["pool"][slot])]
@@ -819,14 +1120,20 @@ class CUDASolver(Solver):
                 order = idx[np.argsort(best[idx], kind="stable")]
                 type_names = order_cache[ok] = \
                     [enc.type_names[i] for i in order]
+            zf = int(zfix[slot]) if zfix is not None else -1
             gs = tuple(gi for gi in slot_groups[slot]
                        if enc.groups[gi].reqs)
-            rk = (int(final["pool"][slot]), gs)
+            rk = (int(final["pool"][slot]), gs, zf)
             reqs = reqs_cache.get(rk)
             if reqs is None:
                 reqs = pool.spec.nodepool.scheduling_requirements()
                 for gi in gs:
                     reqs = reqs.union(enc.groups[gi].reqs)
+                if zf >= 0:
+                    # topology pinned this node's zone: the oracle narrows
+                    # the node's requirements with ZONE IN [chosen]
+                    reqs = reqs.add(Requirement.new(L.ZONE, IN,
+                                                    [enc.zones[zf]]))
                 reqs_cache[rk] = reqs
             used_vec = final["used"][slot]
             names = [p._full_name for p in pods]

@@ -315,6 +315,46 @@ def test_deletions_feasible_matches_reference(both_counters, port_ev):
         assert port_ev.deletions_feasible(b) == ref_ev.deletions_feasible(a)
 
 
+def test_topology_deletions_match_reference(both_counters, port_ev):
+    """Deletion checks whose pods carry zone spread, hostname spread or
+    anti-affinity (counters seeded from the surviving nodes' pod groups):
+    the port answers each through the solver's host pour, as the
+    reference evaluator does."""
+    ref_ev = TPUConsolidationEvaluator(backend="numpy")
+    rr, rp = random.Random(11), random.Random(11)
+    e_ref, e_port = env_ref.Environment(), env_port.Environment()
+    for trial in range(4):
+        base_r, nodes_r, _ = _replacement_base(REF, rr, e_ref)
+        base_p, nodes_p, _ = _replacement_base(PORT, rp, e_port)
+        snaps = []
+        for ns, nodes in ((REF, nodes_r), (PORT, nodes_p)):
+            L = ns.L
+            for j, n in enumerate(nodes):
+                n.pod_groups = ["tsp"] * ((j + trial) % 3 == 0)
+            terms = [
+                dict(topology_spread=[ns.obj.TopologySpreadConstraint(
+                    max_skew=3, topology_key=L.ZONE,
+                    when_unsatisfiable="DoNotSchedule", group="tsp")]),
+                dict(topology_spread=[ns.obj.TopologySpreadConstraint(
+                    max_skew=2, topology_key=L.HOSTNAME,
+                    when_unsatisfiable="DoNotSchedule", group="tsp")]),
+                dict(pod_affinity=[ns.obj.PodAffinityTerm(
+                    topology_key=L.HOSTNAME, group="tsp", anti=True)])]
+            row = []
+            for i, kw in enumerate(terms):
+                pods = ns.env.make_pods(1 + trial, cpu="100m",
+                                        memory="128Mi", prefix=f"td{i}",
+                                        group="tsp", **kw)
+                row.append(ns.types.SchedulingSnapshot(
+                    pods=pods, nodepools=[], zones=base_r.zones,
+                    existing_nodes=[x for j, x in enumerate(nodes)
+                                    if j != i % len(nodes)]))
+            snaps.append(row)
+        assert port_ev.deletions_feasible(snaps[1]) == \
+            ref_ev.deletions_feasible(snaps[0]), trial
+        assert port_ev.solver.last_dispatch_stats["kernel"] == "host"
+
+
 def test_replacements_prescreen_matches_reference(both_counters, port_ev):
     ref_ev = TPUConsolidationEvaluator(backend="numpy")
     rr, rp = random.Random(7), random.Random(7)
@@ -531,8 +571,10 @@ def test_refusals_and_eligibility_counts(both_counters, monkeypatch):
             when_unsatisfiable="DoNotSchedule", group="tsc")])
     topo = types_port.SchedulingSnapshot(pods=spread, nodepools=[],
                                          existing_nodes=nodes)
-    with pytest.raises(NotImplementedError, match="K9"):
-        ev.deletions_feasible([topo])
+    # a topology deletion check is answered, on the host pour (no types)
+    assert [type(x) for x in ev.deletions_feasible([topo])] == [bool]
+    assert (ev.solver.last_dispatch_stats["kernel"],
+            ev.solver.last_dispatch_stats["reason"]) == ("host", "no_types")
     q = ReplacementQuery(pods=spread, gone=set(), price_cap=0)
     assert ev.replacements_prescreen(base, [q]) == [True]
     assert ev.subset_solve(base, [q]) is None

@@ -558,3 +558,71 @@ def test_pruned_bail_resolves_on_card(cuda_device):
             assert st["launches"]["ffd_pruned_commit"] == 2 * st["groups"]
     assert results[0].decision_fingerprint() == \
         results[1].decision_fingerprint()
+
+
+# ---------------------------------------------------------------------------
+# K9: the topology scan
+# ---------------------------------------------------------------------------
+
+def _topo_inputs(case, dev):
+    from karpenter_provider_aws_tpu_torch.ops import topo_torch as tt
+    arrays, rows, st = examples.topo_case(case)
+    return (arrays, rows, st, ft.kernel_inputs_from_numpy(arrays, dev),
+            tt.topo_rows_from_numpy(rows, dev))
+
+
+@pytest.mark.parametrize("case", examples.TOPO_CASES)
+def test_topo_kernels_step_by_step(cuda_device, case):
+    """Each K9 kernel from each group's entry state (the plain parts carry
+    the state): group start, the whole pour of a topology group, the
+    membership recording of the others."""
+    _, _, st, inp, rows = _topo_inputs(case, cuda_device)
+    n = 0
+    for kernel, what, got, want in examples.topo_kernel_steps(
+            inp, rows, n_max=st["n_max"], P=st["P"]):
+        assert got.dtype == want.dtype and torch.equal(got, want), \
+            (kernel, what)
+        n += 1
+    torch.cuda.synchronize()
+    assert n
+
+
+@pytest.mark.parametrize("evcap", [1, 2, 128])
+@pytest.mark.parametrize("case", ["config3_small", "two_pools_limits",
+                                  "anti_budget", "anti_slots"])
+def test_topo_scan_on_card(cuda_device, case, evcap):
+    """The whole scan on the card against the plain scan on the CPU, every
+    output, at the reference's EVCAP and at the two bailing ones."""
+    from karpenter_provider_aws_tpu_torch.ops import topo_cuda as tc
+    from karpenter_provider_aws_tpu_torch.ops import topo_torch as tt
+    arrays, rows, st, _, _ = _topo_inputs(case, cuda_device)
+    statics = dict(st, EVCAP=evcap, PMAX=8)
+    before = dict(tc.LAUNCHES)
+    got = tt.dispatch_topo(arrays, rows, statics, device=cuda_device)
+    want = tt.dispatch_topo(arrays, rows, statics, device="cpu")
+    n_topo = int(rows["has_topo"].sum())
+    assert tc.LAUNCHES["topo_pour"] - before["topo_pour"] == n_topo
+    assert tc.LAUNCHES["topo_record_plain"] \
+        - before["topo_record_plain"] == len(rows["has_topo"]) - n_topo
+    for k, w in want.items():
+        assert torch.equal(got[k].cpu(), w), k
+
+
+def test_topo_solver_on_card(cuda_device):
+    """Config 3 at 2,000 pods through ``CUDASolver()`` on the card: the
+    topology kernels serve it as the plain versions decide; a forced bail
+    (EVCAP 1) is solved again on the card."""
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    fenv.reset_pod_counter()
+    snap = examples.config3(fenv.Environment(), 2000)
+    want = CUDASolver(device="cpu").solve(snap).decision_fingerprint()
+    for evcap, reason, bails in ((128, None, 0), (1, "topo_bail", 1)):
+        s = CUDASolver()
+        s.TOPO_EVCAP = evcap
+        got = s.solve(snap)
+        d = s.last_dispatch_stats
+        assert (d["kernel"], d["reason"], d["bails"]) == \
+            ("topo", reason, bails)
+        assert d["launches"]["topo_pour"] == 21 * (1 + bails)
+        assert got.decision_fingerprint() == want

@@ -230,13 +230,23 @@ def test_out_of_slice_snapshots_raise(envs):
     with pytest.raises(NotImplementedError, match="preferences"):
         CUDASolver(device="cpu").solve(
             e_port.snapshot(spread, [e_port.nodepool("p")]))
+    # a required zone spread is in the slice now (the topology pour); a
+    # spread over a key the pour does not model still raises
     hard = env_port.make_pods(
         4, prefix="hard", topology_spread=[obj_port.TopologySpreadConstraint(
             max_skew=1, topology_key=L_port.ZONE,
             when_unsatisfiable="DoNotSchedule", group="hard")])
-    with pytest.raises(NotImplementedError, match="K9"):
+    solver = CUDASolver(device="cpu")
+    assert not solver.solve(
+        e_port.snapshot(hard, [e_port.nodepool("p")])).unschedulable
+    assert solver.last_dispatch_stats["kernel"] == "topo"
+    arch = env_port.make_pods(
+        4, prefix="arch", topology_spread=[obj_port.TopologySpreadConstraint(
+            max_skew=1, topology_key=L_port.ARCH,
+            when_unsatisfiable="DoNotSchedule", group="arch")])
+    with pytest.raises(NotImplementedError, match="CPUSolver"):
         CUDASolver(device="cpu").solve(
-            e_port.snapshot(hard, [e_port.nodepool("p")]))
+            e_port.snapshot(arch, [e_port.nodepool("p")]))
     # a snapshot with no instance types is in the slice now: the host
     # engine serves it (no pools and no nodes: both pods are reported)
     empty = e_port.snapshot(env_port.make_pods(2), [])
