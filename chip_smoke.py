@@ -72,13 +72,28 @@ Phases (any failure exits non-zero before the result line):
    just after) with 0 bails, fingerprint-equal to the host pour
    (``ops/topo.py``) on the CPU; a forced EVCAP = 1 solve bails and is
    solved again on the card (``reason="topo_bail"``), fingerprint-equal;
+12. the preemption path (run before phase 10 too): K8
+   (``consol_absorb_preempt``) against its plain version on every
+   ``examples.preempt_case`` hazard table; ``PreemptionPlanner.plan``
+   timed on a 1,000-node cluster of 30 bound pods a node
+   (``examples.preempt_cluster``, seed 1) whose wave of priority-1000
+   pods must preempt; then ``Provisioner.reconcile`` on fresh clusters
+   of that seed (the base solve on K1/K2, the planner's one K8 launch
+   over 64 victim lanes, the evictions, the demand's re-solve), counters
+   set to 0 just before and read just after: a feasible verdict from the
+   device, several victims after an infeasible lane, the result equal to
+   the same round on the plain versions on the CPU, K8 on the round's
+   own tables against its plain version, an infeasible variant (all
+   64 lanes short, nothing evicted), and K8 against its plain version on
+   waves of 16, 64 and 256 signatures;
 10. kernel times with CUDA events at the main paths' shapes, beside the
    plain versions' times, the bound the shapes allow and, for the bank
    kernels, ``Tensor.copy_`` of the same bytes; the suffix solve's device
    time beside the checkpointed full solve's on the warm arena; the K2
    kernels on the lane axis at the whole-fleet round's 2,048 lanes; the
    K6 kernels at config 7's states, the lane-axis K1 kernels at B = 8
-   and 64, and the K9 kernels at config 3's states.
+   and 64, the K9 kernels at config 3's states and K8 at the preemption
+   round's tables and at the wider waves'.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; a line before them holds the per-kernel
@@ -146,6 +161,20 @@ BATCH_ROUNDS = 5
 C3_PODS = 50_000
 C3_ROUNDS = 10
 
+#: the preemption path: nodes, bound pods a node (the density of the
+#: Kubernetes ClusterLoader2 density test, PODS_PER_NODE 30), the seed of
+#: examples.preempt_cluster, timed plans after one warm-up, and the
+#: reconciles of the measured run (the first a warm-up)
+P12_NODES = 1000
+P12_PER_NODE = 30
+P12_SEED = 1
+P12_ROUNDS = 10
+P12_RECONCILES = 3
+#: K8 at wider waves than the round's G = 2: one signature a pod, cpu in
+#: 1m steps as BASELINE config 7 draws them, up to the hundreds of
+#: distinct shapes of the upstream pod-dense scale envelope
+P12_WIDE_G = (16, 64, 256)
+
 #: the kernels of the warm-tick path
 K3_PATH = ("unpack_bits", "ffd_slot_headroom", "ffd_group_commit",
            "pack_outputs", "ffd_bank_store", "ffd_bank_load")
@@ -179,6 +208,9 @@ KERNELS = {
     "consol_absorb_deletions": dict(source=K7_SRC, replaces=f"{K7_REF}:43"),
     "consol_absorb_prescreen": dict(source=K7_SRC, replaces=f"{K7_REF}:75"),
     "consol_absorb_dense": dict(source=K7_SRC, replaces=f"{K7_REF}:142"),
+    "consol_absorb_preempt": dict(
+        source=K7_SRC,
+        replaces="karpenter_provider_aws_tpu/scheduling/preempt_jax.py:39"),
     "subset_gather": dict(source=K7_SRC, replaces=f"{K7_REF}:232"),
     "subset_summary": dict(source=K7_SRC, replaces=f"{K7_REF}:253"),
     "ffd_pruned_select": dict(source=K6_SRC, replaces=f"{FFD_REF}:910"),
@@ -1346,6 +1378,251 @@ def topo_phase(cmp, device=None, n_pods=C3_PODS, rounds=C3_ROUNDS):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the preemption path (K8)
+# ---------------------------------------------------------------------------
+
+def check_k8_hazards(cmp, dev):
+    """K8 against its plain version on every ``examples.preempt_case``
+    hazard table (two seeds each). Returns the number of tables."""
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.scheduling import preempt_torch as pt
+    n = 0
+    for hazard in examples.PREEMPT_HAZARDS:
+        for seed in (0, 1):
+            t = [torch.from_numpy(a).to(dev)
+                 for a in examples.preempt_case(hazard, seed)]
+            cmp("consol_absorb_preempt", pt.preempt_solve(*t),
+                pt._preempt_solve_ref(*t), f"{hazard} seed={seed}")
+            n += 1
+    return n
+
+
+def verdict_fingerprint(v):
+    """tests/test_preempt.py ``verdict_fingerprint``: the decision, not
+    the backend."""
+    if v is None:
+        return None
+    return (v.feasible, v.lanes, v.leftovers,
+            tuple(p.full_name() for p in v.victims),
+            tuple(p.full_name() for p in v.demand),
+            v.command.to_bytes() if v.command is not None else None)
+
+
+def round_fields(res):
+    return (tuple(sorted(res.unschedulable)),
+            tuple(sorted(res.nominated.items())),
+            tuple(sorted(res.preempted.items())),
+            verdict_fingerprint(res.preempt),
+            [c.name for c in res.created_claims])
+
+
+def preempt_phase(cmp, device=None, n_nodes=P12_NODES, per_node=P12_PER_NODE,
+                  seed=P12_SEED, rounds=P12_ROUNDS,
+                  reconciles=P12_RECONCILES):
+    """The preemption round through ``Provisioner.reconcile`` (``device``
+    default cuda; the rehearsal passes cpu): K8 against its plain version
+    on the hazard tables; ``planner.plan`` timed over ``rounds`` after one
+    warm-up on the cluster's own snapshot (plan mutates nothing); then
+    ``reconciles`` rounds, each on a fresh cluster from ``seed``, with
+    every launch counter set to 0 just before and read just after; the
+    first round's result against the same round on the plain versions;
+    K8 on the round's own tables against its plain version; the
+    infeasible variant (no prefix of 64 frees enough); and K8 against its
+    plain version on the tables of waves of ``P12_WIDE_G`` signatures.
+    Returns (launches of the measured run, summary, the round's K8
+    tables, {G: the wide waves' K8 tables})."""
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.cloudprovider.provider import \
+        CloudProvider
+    from karpenter_provider_aws_tpu_torch.controllers.provisioning import \
+        Provisioner
+    from karpenter_provider_aws_tpu_torch.fake.environment import \
+        Environment
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.scheduling import (
+        MAX_LANES, PreemptionPlanner)
+    from karpenter_provider_aws_tpu_torch.scheduling import preempt_torch as pt
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    from karpenter_provider_aws_tpu_torch.state.cluster import ClusterState
+
+    on_card = torch.device(device or "cuda").type == "cuda"
+    if on_card:
+        n_haz = check_k8_hazards(cmp, torch.device("cuda"))
+        log(f"[preempt] K8 == plain on {n_haz} hazard tables")
+    env = Environment()
+    api = examples.preempt_api()
+
+    def build(**kw):
+        t0 = time.perf_counter()
+        c = examples.preempt_cluster(api, n_nodes, per_node, seed, env=env,
+                                     **kw)
+        return c, time.perf_counter() - t0
+
+    def provisioner(c, solver):
+        planner = PreemptionPlanner(solver=solver)
+        prov = Provisioner(c.kube, ClusterState(c.kube, clock=lambda: 0.0),
+                           CloudProvider(c.kube, c.env.instance_types),
+                           solver, clock=lambda: 0.0,
+                           preempt_planner=planner)
+        return prov, planner
+
+    solver = CUDASolver(device=device)
+    cap = Captured(solver, "dispatch_preempt")
+    # plan alone, on the first round's snapshot and leftovers
+    c, build_s = build()
+    prov, planner = provisioner(c, solver)
+    snap = prov.build_snapshot(prov.state.pending_pods())
+    base = solver.solve(snap)
+    unsched = list(base.unschedulable)
+    E = len(snap.existing_nodes)
+    log(f"[preempt] {n_nodes} nodes x {per_node} pods (seed {seed}) built "
+        f"in {build_s:.2f} s: {len(snap.pods)} pending, E = {E}, base "
+        f"solve {base.summary()}")
+    times, splits = [], []
+    first = None
+    for i in range(rounds + 1):
+        t0 = time.perf_counter()
+        v = planner.plan(snap, unsched, prov.state)
+        dt = (time.perf_counter() - t0) * 1e3
+        if first is None:
+            first = verdict_fingerprint(v)
+        elif verdict_fingerprint(v) != first:
+            raise AssertionError("preempt: plan moved between rounds")
+        if i:   # round 0 is the warm-up
+            times.append(dt)
+            splits.append(dict(planner.last_phase_stats))
+    kw = cap.last[1]
+    B, Ee, D = kw["freed"].shape
+    G = kw["R"].shape[0]
+    plan = dict(p50_ms=statistics.median(times), p99_ms=pct(times, 0.99),
+                rounds=rounds, median_split_ms={
+                    k: statistics.median(x[k] for x in splits)
+                    for k in splits[0]}, B=B, E=Ee, D=D, G=G)
+    log(f"[preempt] plan p50 {plan['p50_ms']:.3f} ms p99 "
+        f"{plan['p99_ms']:.3f} ms over {rounds} rounds; median split "
+        f"{json.dumps(plan['median_split_ms'])}; lanes B = {B}, E = {Ee}, "
+        f"D = {D}, G = {G}")
+
+    # the main path: reconciles on fresh clusters of the same seed
+    clusters = [build()[0] for _ in range(reconciles)]
+    provs = [provisioner(x, solver) for x in clusters]
+    if on_card:
+        torch.cuda.synchronize()
+    fc.reset_launches()
+    walls, results, recs = [], [], []
+    for prov_i, _planner in provs:
+        cap.stats = None
+        t0 = time.perf_counter()
+        results.append(prov_i.reconcile())
+        walls.append((time.perf_counter() - t0) * 1e3)
+        recs.append(cap.stats)
+    launches = dict(fc.LAUNCHES)
+    res = results[0]
+    v = res.preempt
+    if any(round_fields(r) != round_fields(res) for r in results):
+        raise AssertionError("preempt: the rounds on one seed differ")
+    if not (v is not None and v.feasible and v.backend == "device"):
+        raise AssertionError(f"preempt: verdict {v and (v.feasible, v.backend, v.reason)} "
+                             "is not a feasible device verdict")
+    if not (len(v.victims) > 1 and v.leftovers[0] > 0
+            and v.lanes == MAX_LANES):
+        raise AssertionError(f"preempt: the chosen prefix ({len(v.victims)} "
+                             f"victims, lanes {v.leftovers}) is not several "
+                             f"victims after an infeasible lane")
+    if any(r is None or r["kernel"] != "preempt" or r["batch"] != MAX_LANES
+           for r in recs):
+        raise AssertionError(f"preempt: dispatch records {recs}")
+    if on_card and launches["consol_absorb_preempt"] != reconciles:
+        raise AssertionError(f"preempt: {launches['consol_absorb_preempt']} "
+                             f"K8 launches in {reconciles} plans")
+    if res.created_claims:
+        raise AssertionError("preempt: a preemption round minted a node")
+    # the same round on the plain versions, on the CPU
+    cpu_c, _ = build()
+    cpu_prov, _p = provisioner(cpu_c, CUDASolver(device="cpu"))
+    t0 = time.perf_counter()
+    want = cpu_prov.reconcile()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if round_fields(want) != round_fields(res):
+        raise AssertionError("preempt: the round differs from the plain "
+                             "versions' round")
+    tables = None
+    if on_card:
+        t = [torch.from_numpy(np_a).to("cuda") for np_a in (
+            kw["ex_alloc"], kw["ex_used"], kw["ex_compat"], kw["R"],
+            kw["n"], kw["freed"])]
+        cmp("consol_absorb_preempt", pt.preempt_solve(*t),
+            pt._preempt_solve_ref(*t), "the round's tables")
+        tables = t
+    # the infeasible variant: no prefix of 64 frees four CPUs on a node
+    ic, _ = build(wave_cpu=("4",))
+    iprov, _ip = provisioner(ic, solver)
+    cap.stats = None
+    t0 = time.perf_counter()
+    ires = iprov.reconcile()
+    inf_ms = (time.perf_counter() - t0) * 1e3
+    iv = ires.preempt
+    if iv is None or iv.feasible or iv.lanes != MAX_LANES \
+            or not all(x > 0 for x in iv.leftovers) or ires.preempted \
+            or cap.stats is None or cap.stats["kernel"] != "preempt":
+        raise AssertionError(f"preempt: the infeasible variant "
+                             f"{iv and (iv.feasible, iv.leftovers)} "
+                             f"evicted {len(ires.preempted)}")
+    if on_card:
+        ikw = cap.last[1]
+        it = [torch.from_numpy(np_a).to("cuda") for np_a in (
+            ikw["ex_alloc"], ikw["ex_used"], ikw["ex_compat"], ikw["R"],
+            ikw["n"], ikw["freed"])]
+        cmp("consol_absorb_preempt", pt.preempt_solve(*it),
+            pt._preempt_solve_ref(*it), "the infeasible round's tables")
+    # wider waves: G signatures of one pod each, every one too large for
+    # a node's slack, so the whole wave is the planner's demand
+    wide = {}
+    for g in P12_WIDE_G:
+        wc, _ = build(wave=g, wave_cpu=tuple(f"{300 + i}m" for i in range(g)))
+        wprov, wplanner = provisioner(wc, solver)
+        wsnap = wprov.build_snapshot(wprov.state.pending_pods())
+        wv = wplanner.plan(wsnap, list(solver.solve(wsnap).unschedulable),
+                           wprov.state)
+        wkw = cap.last[1]
+        if wv.lanes != MAX_LANES or wkw["R"].shape[0] != g:
+            raise AssertionError(f"preempt: the {g}-signature wave ran "
+                                 f"{wv.lanes} lanes over G = "
+                                 f"{wkw['R'].shape[0]}")
+        if on_card:
+            wt = [torch.from_numpy(np_a).to("cuda") for np_a in (
+                wkw["ex_alloc"], wkw["ex_used"], wkw["ex_compat"], wkw["R"],
+                wkw["n"], wkw["freed"])]
+            cmp("consol_absorb_preempt", pt.preempt_solve(*wt),
+                pt._preempt_solve_ref(*wt), f"a {g}-signature wave's tables")
+            wide[g] = wt
+    cap.restore()
+    walls_t = walls[1:] or walls
+    summary = dict(
+        plan=plan, reconcile_ms=walls, reconcile_p50_ms=statistics.median(
+            walls_t), victims=len(v.victims), lanes=v.lanes,
+        leftovers=list(v.leftovers[:len(v.victims) + 1]),
+        demand=len(v.demand), nominated=len(res.nominated),
+        unschedulable=len(res.unschedulable), plain_round_ms=cpu_ms,
+        infeasible=dict(leftovers_min=min(iv.leftovers), wall_ms=inf_ms,
+                        preempted=len(ires.preempted)),
+        launches_per_round={k: n / reconciles
+                            for k, n in launches.items() if n})
+    log(f"[preempt] {reconciles} reconciles {json.dumps(walls)} ms; "
+        f"verdict feasible on the device: {len(v.victims)} victims of "
+        f"{v.lanes} lanes, leftovers {list(v.leftovers[:len(v.victims) + 1])}"
+        f"; {len(res.nominated)} nominated, {len(res.preempted)} preempted, "
+        f"{len(res.unschedulable)} unschedulable; == the plain versions' "
+        f"round on the CPU ({cpu_ms:.0f} ms): True; infeasible variant: all "
+        f"{iv.lanes} lanes > 0, nothing evicted; launches per round "
+        f"{summary['launches_per_round']}; K8 == plain on waves of "
+        f"{list(P12_WIDE_G)} signatures")
+    return launches, summary, tables, wide
+
+
+# ---------------------------------------------------------------------------
 # phase 10: timing and bounds
 # ---------------------------------------------------------------------------
 
@@ -1866,6 +2143,43 @@ def k9_times(c3, launches):
     return out
 
 
+def k8_time(tables):
+    """K8 on one set of its tables, beside the plain version: (ms, plain
+    ms, bound ms, bound_by, bytes, ops). Bytes: every input read once,
+    the [B] answer written; operations: per lane the refund load (E·D),
+    and per group with pods one 64-bit quotient per (compatible node, dim
+    with R > 0) plus the prefix and the fill per node."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.scheduling import preempt_torch as pt
+    ex_alloc, ex_used, ex_compat, R, n, freed = tables
+    B, E, D = freed.shape
+    G = R.shape[0]
+    nbytes = (16 * E * D + ex_compat.numel() + 8 * R.numel() + 8 * G
+              + 8 * B * E * D + 8 * B)
+    per_group = (ex_compat.sum(-1) * (R > 0).sum(-1) + 3 * E) * (n > 0)
+    ops = B * (E * D + int(per_group.sum()))
+    ms = time_launches(lambda: cc.preempt_absorb(*tables))
+    pms = time_launches(lambda: pt._preempt_solve_ref(*tables), reps=10)
+    return (ms, pms, *bound_ms(nbytes, ops), nbytes, ops)
+
+
+def k8_times(tables, wide, launches):
+    """K8 at the preemption round's shapes (its own tables) for the
+    kernels line, and at each wider wave's (``wide``, {G: tables})."""
+    ms, pms, b, by, nbytes, ops = k8_time(tables)
+    by_g = [dict(G=tables[3].shape[0], ms=ms, plain_ms=pms, bound_ms=b,
+                 bound_by=by)]
+    for g, t in sorted(wide.items()):
+        gms, gpms, gb, gby, _nb, _ops = k8_time(t)
+        by_g.append(dict(G=g, ms=gms, plain_ms=gpms, bound_ms=gb,
+                         bound_by=gby))
+    return [dict(name="consol_absorb_preempt", route="cuda",
+                 **KERNELS["consol_absorb_preempt"],
+                 launches=launches["consol_absorb_preempt"], ms=ms,
+                 plain_ms=pms, bound_ms=b, bound_by=by, library_ms=None,
+                 bytes=nbytes, ops=ops)], by_g
+
+
 def k1_lane_times(arenas, launches_b):
     """The lane-axis K1 kernels at each batch width, beside the plain
     versions lane by lane."""
@@ -1948,7 +2262,7 @@ def warm_solve_times(d_buf, st, gl):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-6, 8, 9 and 11 with the plain "
+                    help="run phases 3-6, 8, 9, 11 and 12 with the plain "
                          "versions at a small size on the CPU (never the "
                          "default)")
     args = ap.parse_args()
@@ -2150,9 +2464,21 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[compare] after the topology phase: {cmp.checks} checks, "
         f"max_abs_err {cmp.err}")
+
+    # ---- phase 12: the preemption path (K8) --------------------------------
+    launches_p12, p12, p12_tables, p12_wide = preempt_phase(cmp)
+    missing = [k for k in ("consol_absorb_preempt", "unpack_bits",
+                           "ffd_slot_headroom", "ffd_group_commit",
+                           "pack_outputs") if launches_p12[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the preemption "
+                             f"path: {missing}")
+    torch.cuda.synchronize()
+    log(f"[compare] after the preemption phase: {cmp.checks} checks, "
+        f"max_abs_err {cmp.err}")
     launches = {k: launches_c2[k] + launches_w[k] + launches_k7.get(k, 0)
                 + launches_c7[k] + sum(lb[k] for lb in launches_b.values())
-                + launches_c3[k]
+                + launches_c3[k] + launches_p12[k]
                 for k in launches_c2}
 
     # ---- phase 10: kernel times --------------------------------------------
@@ -2177,6 +2503,8 @@ def main() -> int:
     recs += k6_times(c7_states, launches)
     recs += k1_lane_times(batch_arenas, launches_b)
     recs += k9_times(c3_states, launches)
+    k8_recs, k8_by_g = k8_times(p12_tables, p12_wide, launches)
+    recs += k8_recs
     for r in recs:
         r["max_abs_err"] = cmp.err[r["name"]]
         lib = "none" if r["library_ms"] is None else \
@@ -2188,7 +2516,7 @@ def main() -> int:
             f"consolidation: {launches_k7.get(k, 0)}, config 7: "
             f"{launches_c7[k]}, batch: "
             f"{ {b: lb[k] for b, lb in launches_b.items()} }, config 3: "
-            f"{launches_c3[k]}), bound "
+            f"{launches_c3[k]}, preemption: {launches_p12[k]}), bound "
             f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}, "
             f"{r['bytes']:.0f} B, {r['ops']:.0f} ops), plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib}")
@@ -2222,6 +2550,11 @@ def main() -> int:
         f"times x launches per solve {c3_dev:.3f}; one solve_scan_topo "
         f"device ms {c3_scan:.3f} (wall p50 {c3['p50_ms']:.3f}); summary "
         f"{json.dumps(c3)}")
+    log(f"[time] K8 by the wave's signatures G (B = 64, E = "
+        f"{P12_NODES}): {json.dumps(k8_by_g)}")
+    log(f"[time] preemption: plan p50 {p12['plan']['p50_ms']:.3f} ms, "
+        f"reconcile p50 {p12['reconcile_p50_ms']:.3f} ms; summary "
+        f"{json.dumps(p12)}")
     log(f"[wall] {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2235,9 +2568,10 @@ def main() -> int:
 
 
 def rehearsal(n_pods: int, rounds: int) -> int:
-    """Phases 3-6, 8, 9 and 11 with the plain versions on the CPU, at a
-    small size (config 7 cut to ``n_pods`` pods, one signature per 5;
-    config 3 cut to ``n_pods`` pods)."""
+    """Phases 3-6, 8, 9, 11 and 12 with the plain versions on the CPU, at
+    a small size (config 7 cut to ``n_pods`` pods, one signature per 5;
+    config 3 cut to ``n_pods`` pods; the preemption cluster to 40
+    nodes)."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.fake import environment as fenv
@@ -2272,6 +2606,7 @@ def rehearsal(n_pods: int, rounds: int) -> int:
                  rounds=1, max_groups=256)
     batch_phase(cmp, device="cpu", sizes=(3,), rounds=1, n_sigs=12)
     topo_phase(cmp, device="cpu", n_pods=n_pods, rounds=1)
+    preempt_phase(cmp, device="cpu", n_nodes=40, rounds=2, reconciles=2)
     log(json.dumps({"ok": True, "device": {"platform": "cpu",
                                            "kind": "cpu", "count": 1}}))
     return 0

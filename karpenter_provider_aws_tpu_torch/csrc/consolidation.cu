@@ -27,6 +27,13 @@
 //   256 nodes, one group) a launch reads well under a megabyte and does a
 //   few million 64-bit divides, microseconds of work: it costs its launch
 //   latency and the serial group loop of one block (PERF.md).
+//   A fourth mode is K8, the preemption victim-set search
+//   (karpenter_provider_aws_tpu/scheduling/preempt_jax.py:39
+//   preempt_solve_kernel): the node and group tables are shared rows (no
+//   gid/cid lookup, every node alive), each lane (one candidate victim
+//   prefix) starts from its own refund, used = max(ex_used0 - freed[b],
+//   0), and its answer is the wrapping int64 sum of every group's
+//   leftover pods.
 //
 // subset_gather (the lane body of subset_solve_kernel :232-251):
 //   materialises every lane's KernelInputs from the one union arena,
@@ -66,6 +73,8 @@ struct AbsorbArgs {
     i64* used_scratch;       // [B, E, D] when the carry is not in shared
     i64* leftover;           // [B, G]
     u8* out;                 // [B]
+    const i64* freed;        // [B, E, D] refunds (preempt)
+    i64* total;              // [B] leftover pods (preempt)
     i64 B, G, E, D, Sc, T, P;
     i64 used_in_smem;        // 1: the carry sits in dynamic shared memory
 };
@@ -116,19 +125,24 @@ constexpr int kAbsorbThreads = 256;
 constexpr int kGatherThreads = 256;
 constexpr int kSummaryThreads = 256;
 
-// k of node row e for the current group (R in shared memory `Rg`)
-template <bool DENSE>
+// k of node row e for the current group (R in shared memory `Rg`);
+// ALIVE: the lane's alive row masks the node too
+template <bool ALIVE>
 __device__ __forceinline__ i64 absorb_k(const AbsorbArgs& a, i64 b,
                                         const u8* crow, const i64* alloc,
                                         const i64* used, const i64* Rg,
                                         i64 e) {
-    const bool c = crow[e] && (DENSE || a.alive[b * a.E + e]);
+    const bool c = crow[e] && (!ALIVE || a.alive[b * a.E + e]);
     return c ? headroom(alloc + e * a.D, used + e * a.D, Rg, a.D) : 0;
 }
 
-template <bool DENSE, bool PRESCREEN>
+// DENSE: per-lane tables; PRESCREEN: the one-new-node tail; PREEMPT: the
+// group rows shared, a per-lane refund at load and the summed leftover
+// out (K8). Otherwise the shared tables through gid/cid/alive.
+template <bool DENSE, bool PRESCREEN, bool PREEMPT>
 __global__ void __launch_bounds__(kAbsorbThreads)
 consol_absorb_kernel(AbsorbArgs a) {
+    constexpr bool ALIVE = !DENSE && !PREEMPT;
     extern __shared__ i64 dyn[];   // Rg [D], agg [D], pok [P], used [E*D]
     __shared__ i64 tmp[33];
     __shared__ int any_active;
@@ -144,26 +158,38 @@ consol_absorb_kernel(AbsorbArgs a) {
     const i64 chunk = (E + blockDim.x - 1) / blockDim.x;
     const i64 lo = tid * chunk < E ? tid * chunk : E;
     const i64 hi = lo + chunk < E ? lo + chunk : E;
-    for (i64 i = lo * D; i < hi * D; ++i) used[i] = used0[i];
+    if (PREEMPT) {
+        const i64* fr = a.freed + b * E * D;
+        for (i64 i = lo * D; i < hi * D; ++i) {
+            const i64 u = wsub(used0[i], fr[i]);
+            used[i] = u < 0 ? 0 : u;
+        }
+    } else {
+        for (i64 i = lo * D; i < hi * D; ++i) used[i] = used0[i];
+    }
+    i64 total = 0;                     // thread 0's sum of leftovers (K8)
 
     for (i64 g = 0; g < G; ++g) {
         const i64 bg = b * G + g;
-        const i64 ng = a.n[bg];
-        const i64* Rrow = DENSE ? a.R + bg * D : a.R + (i64)a.gid[bg] * D;
+        const i64 ng = PREEMPT ? a.n[g] : a.n[bg];
+        const i64* Rrow = DENSE ? a.R + bg * D
+                        : PREEMPT ? a.R + g * D
+                                  : a.R + (i64)a.gid[bg] * D;
         const u8* crow = DENSE ? a.compat + bg * E
-                               : a.compat + (i64)a.cid[bg] * E;
+                       : PREEMPT ? a.compat + g * E
+                                 : a.compat + (i64)a.cid[bg] * E;
         __syncthreads();               // the last group's reads of Rg
         for (i64 d = tid; d < D; d += blockDim.x) Rg[d] = Rrow[d];
         __syncthreads();
         i64 local = 0;
         for (i64 e = lo; e < hi; ++e)
-            local = wadd(local, absorb_k<DENSE>(a, b, crow, alloc, used, Rg,
+            local = wadd(local, absorb_k<ALIVE>(a, b, crow, alloc, used, Rg,
                                                 e));
         i64 tot;
         i64 cum = block_excl_scan(local, tmp, &tot);
         i64 tsum = 0;
         for (i64 e = lo; e < hi; ++e) {
-            const i64 k = absorb_k<DENSE>(a, b, crow, alloc, used, Rg, e);
+            const i64 k = absorb_k<ALIVE>(a, b, crow, alloc, used, Rg, e);
             i64 x = wsub(ng, cum);
             x = x < 0 ? 0 : x;
             const i64 take = x < k ? x : k;
@@ -174,7 +200,14 @@ consol_absorb_kernel(AbsorbArgs a) {
         }
         i64 taken;
         block_excl_scan(tsum, tmp, &taken);
-        if (tid == 0) a.leftover[bg] = wsub(ng, taken);
+        if (tid == 0) {
+            if (PREEMPT) total = wadd(total, wsub(ng, taken));
+            else a.leftover[bg] = wsub(ng, taken);
+        }
+    }
+    if (PREEMPT) {
+        if (tid == 0) a.total[b] = total;
+        return;
     }
     __syncthreads();                   // leftover rows are visible
     const i64* left = a.leftover + b * G;
@@ -309,11 +342,11 @@ int set_smem(const void* fn, size_t smem) {
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <bool DENSE, bool PRESCREEN>
+template <bool DENSE, bool PRESCREEN, bool PREEMPT>
 int launch_absorb(const AbsorbArgs* a, void* stream) {
     size_t smem = (size_t)(2 * a->D + a->P) * sizeof(i64);
     if (a->used_in_smem) smem += (size_t)(a->E * a->D) * sizeof(i64);
-    auto fn = consol_absorb_kernel<DENSE, PRESCREEN>;
+    auto fn = consol_absorb_kernel<DENSE, PRESCREEN, PREEMPT>;
     int err = set_smem((const void*)fn, smem);
     if (err) return err;
     fn<<<(unsigned)a->B, kAbsorbThreads, smem, (cudaStream_t)stream>>>(*a);
@@ -325,12 +358,14 @@ int launch_absorb(const AbsorbArgs* a, void* stream) {
 extern "C" {
 
 // mode 0: deletions (shared tables), 1: pre-screen (shared tables + the
-// one-new-node tail), 2: dense (per-lane tables)
+// one-new-node tail), 2: dense (per-lane tables), 3: preempt (K8: shared
+// group rows, per-lane refunds)
 int karp_consol_absorb(const AbsorbArgs* a, int mode, void* stream) {
     switch (mode) {
-        case 0: return launch_absorb<false, false>(a, stream);
-        case 1: return launch_absorb<false, true>(a, stream);
-        case 2: return launch_absorb<true, false>(a, stream);
+        case 0: return launch_absorb<false, false, false>(a, stream);
+        case 1: return launch_absorb<false, true, false>(a, stream);
+        case 2: return launch_absorb<true, false, false>(a, stream);
+        case 3: return launch_absorb<false, false, true>(a, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }

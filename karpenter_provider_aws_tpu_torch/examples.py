@@ -15,7 +15,10 @@ reference's ``bench.build_config4``, and ``deletion_snapshot``,
 disruption controller's consolidation walks (the reference's
 ``controllers/disruption.py`` ``_single_consolidation`` and
 ``_multi_consolidation``, as ``bench.py`` drives them) over a base
-snapshot and a candidate list, without budgets.
+snapshot and a candidate list, without budgets. ``preempt_case`` makes
+the preemption kernel's (K8) hazard tables, and ``preempt_cluster`` a
+running cluster, in either package's objects, whose next provisioning
+round must preempt.
 """
 
 from __future__ import annotations
@@ -1147,3 +1150,209 @@ def topo_kernel_steps(inp, rows, *, n_max: int, P: int, EVCAP: int = 128,
             tc.topo_record_plain(ts, g)
             yield "topo_record_plain", f"g={g} cz", ts.cz, cz
             yield "topo_record_plain", f"g={g} ch", ts.ch, ch
+
+
+# ---------------------------------------------------------------------------
+# preemption (K8)
+# ---------------------------------------------------------------------------
+
+#: K8 hazard tables: an all-zero request row compatible everywhere (k =
+#: BIG on every node, so the exclusive prefix wraps int64), over-committed
+#: nodes (negative floor quotients), refunds above the usage (the clamp
+#: at 0), groups of 0 pods, a group compatible nowhere, one lane, the 64
+#: lanes of a full search, and a carry past shared memory (E = 4096)
+PREEMPT_HAZARDS = ("plain", "zero_r_row", "overcommitted",
+                   "refund_above_used", "n_zero", "compat_nowhere",
+                   "one_lane", "full_lanes", "wide_e")
+
+
+def preempt_case(name: str, seed: int, E: int = 32, G: int = 4, D: int = 8,
+                 B: int = 16):
+    """The K8 inputs of hazard ``name`` (``PREEMPT_HAZARDS``): (ex_alloc,
+    ex_used0, ex_compat, R, n, freed). As the planner builds them, lane
+    b's refund is lane b-1's plus one victim's requests on one node."""
+    B = {"one_lane": 1, "full_lanes": 64}.get(name, B)
+    E = 4096 if name == "wide_e" else E
+    rng = np.random.RandomState(seed)
+    ex_alloc = rng.randint(1 << 10, 1 << 14, (E, D)).astype(np.int64)
+    ex_used = (ex_alloc * rng.uniform(0.3, 1.0, (E, D))).astype(np.int64)
+    ex_compat = rng.rand(G, E) < 0.8
+    R = rng.randint(1, 1 << 9, (G, D)).astype(np.int64)
+    R[:, rng.rand(D) < 0.4] = 0
+    n = rng.randint(0, 60, G).astype(np.int64)
+    step = np.zeros((B, E, D), dtype=np.int64)
+    step[np.arange(B), rng.randint(0, E, B)] = \
+        rng.randint(0, 1 << 8, (B, D))
+    if name == "zero_r_row":
+        R[0] = 0
+        ex_compat[0] = True
+    elif name == "overcommitted":
+        ex_used[::3] = ex_alloc[::3] + rng.randint(1, 1 << 10, (E, D))[::3]
+    elif name == "refund_above_used":
+        step[0, ::4] += ex_used[::4] + rng.randint(1, 1 << 8, (E, D))[::4]
+    elif name == "n_zero":
+        n[::2] = 0
+    elif name == "compat_nowhere":
+        ex_compat[1 % G] = False
+    return ex_alloc, ex_used, ex_compat, R, n, np.cumsum(step, axis=0)
+
+
+def preempt_api(pkg=None):
+    """The objects a preemption cluster is built from, as a namespace:
+    the API objects, ``Resources``, ``Requirements``, the ``labels``
+    module ``L``, ``FakeKube`` and ``Environment``. By default this
+    package's; a test passes the reference package's modules in the same
+    shape to build the same cluster there."""
+    from types import SimpleNamespace
+    if pkg is not None:
+        return pkg
+    from .apis import labels as L
+    from .apis import objects as O
+    from .apis.requirements import Requirements
+    from .apis.resources import Resources
+    from .fake.environment import Environment
+    from .fake.kube import FakeKube
+    return SimpleNamespace(O=O, L=L, Resources=Resources,
+                           Requirements=Requirements, FakeKube=FakeKube,
+                           Environment=Environment)
+
+
+#: the preemption cluster's pools: name, the one instance type its nodes
+#: run, and the share of the nodes
+_PREEMPT_POOLS = (("pz0", "m5.2xlarge"), ("pz1", "c5.2xlarge"))
+#: millicores of the low-tier pods, the spare room a node keeps, memory
+_LOW_CPU = (100, 150, 200, 250, 300, 400)
+_SLACK_CPU = (0, 50, 100, 150, 200, 250)
+_LOW_MEM = ("256Mi", "512Mi", "768Mi", "1Gi")
+
+
+def preempt_cluster(ns, n_nodes: int, per_node: int, seed: int, *,
+                    wave: int = 4, wave_cpu=("300m", "500m"),
+                    pools: int = 0, pdb: object = 3, topo: bool = False,
+                    critical: float = 0.25,
+                    env=None):
+    """A running cluster whose next provisioning round must preempt,
+    written straight into a fresh ``ns.FakeKube`` (``ns`` from
+    ``preempt_api``). Every draw comes from ``seed``, so both packages
+    build the same cluster.
+
+    - one ready EC2NodeClass; ``pools`` NodePools (1 or 2; 0 draws it),
+      each running one instance type, limits frozen at the capacity its
+      NodeClaims hold (no new node can open);
+    - ``n_nodes`` ready Nodes (each with its launched NodeClaim), each
+      running one DaemonSet pod, a quarter of them (``critical``) one
+      system-cluster-critical pod, and ``per_node`` low-tier pods bound
+      and Running: priority 0 or the "bulk" class, mixed sizes that fill
+      the node's CPU to within 0-250m; 30% carry ``guarded=yes``, which
+      a PodDisruptionBudget of ``maxUnavailable=pdb`` covers (None: no
+      budget);
+    - PriorityClasses "bulk" (10), "high" (1000) and "sacred" (900,
+      preemptionPolicy Never);
+    - pending: ``wave`` "high" pods, their CPU requests cycling through
+      ``wave_cpu``; one "sacred" pod of 1 CPU; with ``topo`` one "high"
+      pod spread over zones (DoNotSchedule).
+
+    Returns a namespace: kube, env (the catalog), nodes (names), wave,
+    never and topo (the pending pods)."""
+    import random
+    from types import SimpleNamespace
+    O, L, Res = ns.O, ns.L, ns.Resources
+    rng = random.Random(seed)
+    env = env if env is not None else ns.Environment()
+    kube = ns.FakeKube()
+    nc = env.nodeclass("pz-class")
+    kube.create(nc)
+    types = {it.name: it for it in env.instance_types.list(nc)}
+    n_pools = pools or rng.randint(1, 2)
+    for name, v in (("bulk", 10), ("high", 1000)):
+        kube.create(O.PriorityClass(name, value=v))
+    kube.create(O.PriorityClass("sacred", value=900,
+                                preemption_policy="Never"))
+    sizes: Dict[Tuple[int, str], object] = {}
+
+    def req(mcpu: int, mem: str):
+        key = (mcpu, mem)
+        if key not in sizes:
+            sizes[key] = Res.parse({"cpu": f"{mcpu}m", "memory": mem})
+        return sizes[key]
+
+    zones = [z for z in sorted({o.zone for it in types.values()
+                                for o in it.offerings})]
+    usage: Dict[str, object] = {}
+    nodes = []
+    for i in range(n_nodes):
+        pool, tname = _PREEMPT_POOLS[i % n_pools]
+        it = types[tname]
+        name, zone = f"node-{i:04d}", zones[i % len(zones)]
+        pid = f"aws:///{zone}/i-{i:08x}"
+        labels = {L.NODEPOOL: pool, L.INSTANCE_TYPE: tname, L.ZONE: zone,
+                  L.CAPACITY_TYPE: L.CAPACITY_TYPE_ON_DEMAND,
+                  L.HOSTNAME: name, L.ARCH: "amd64", L.OS: "linux"}
+        node = O.Node(name, labels=labels, capacity=it.capacity,
+                      allocatable=it.allocatable(), provider_id=pid)
+        node.ready = True
+        kube.create(node)
+        claim = O.NodeClaim(f"{pool}-seed-{i:04d}", ns.Requirements(),
+                            O.NodeClassRef("pz-class"),
+                            labels={L.NODEPOOL: pool,
+                                    L.INSTANCE_TYPE: tname})
+        claim.capacity, claim.allocatable = it.capacity, it.allocatable()
+        claim.provider_id, claim.node_name = pid, name
+        claim.set_condition("Launched", "True")
+        kube.create(claim)
+        usage[pool] = usage[pool] + it.capacity if pool in usage \
+            else it.capacity
+        nodes.append(name)
+        room = it.allocatable()["cpu"] - rng.choice(_SLACK_CPU)
+        kube.create(O.Pod(f"ds-{i:04d}", requests=req(100, "128Mi"),
+                          node_name=name, phase="Running",
+                          owner_kind="DaemonSet", scheduling_group="ds"))
+        room -= 100
+        if rng.random() < critical:
+            kube.create(O.Pod(f"crit-{i:04d}", requests=req(200, "256Mi"),
+                              node_name=name, phase="Running",
+                              scheduling_group="crit",
+                              priority_class_name="system-cluster-critical"))
+            room -= 200
+        for j in range(per_node):
+            rest = per_node - j - 1
+            mcpu = min(rng.choice(_LOW_CPU), room - 100 * rest)
+            if rest == 0:
+                mcpu = room
+            mcpu = max(mcpu, 50)
+            room -= mcpu
+            pod = O.Pod(f"lo-{i:04d}-{j:02d}", requests=req(
+                mcpu, rng.choice(_LOW_MEM)), node_name=name,
+                phase="Running", scheduling_group=f"lo{j % 4}")
+            if rng.random() < 0.3:
+                pod.priority_class_name = "bulk"
+            if rng.random() < 0.3:
+                pod.metadata.labels["guarded"] = "yes"
+            kube.create(pod)
+    for pool, _t in _PREEMPT_POOLS[:n_pools]:
+        kube.create(O.NodePool(pool, template=O.NodePoolTemplate(
+            node_class_ref=O.NodeClassRef("pz-class"),
+            requirements=ns.Requirements.from_terms(
+                [{"key": L.INSTANCE_TYPE, "operator": "In",
+                  "values": [_t]}])), limits=usage.get(pool, Res())))
+    if pdb is not None:
+        kube.create(O.PodDisruptionBudget("guard", {"guarded": "yes"},
+                                          max_unavailable=pdb))
+    hi = []
+    for w in range(wave):
+        hi.append(O.Pod(f"hi-{w:03d}", requests=Res.parse(
+            {"cpu": wave_cpu[w % len(wave_cpu)], "memory": "512Mi"}),
+            scheduling_group="hi", priority_class_name="high"))
+    nv = O.Pod("nv-000", requests=req(1000, "512Mi"),
+               scheduling_group="nv", priority_class_name="sacred")
+    tp = O.Pod("tp-000", requests=Res.parse(
+        {"cpu": wave_cpu[0], "memory": "512Mi"}), scheduling_group="tp",
+        priority_class_name="high", topology_spread=[
+            O.TopologySpreadConstraint(
+                max_skew=1, topology_key=L.ZONE,
+                when_unsatisfiable="DoNotSchedule", group="tp")]) \
+        if topo else None
+    for p in hi + [nv] + ([tp] if topo else []):
+        kube.create(p)
+    return SimpleNamespace(kube=kube, env=env, nodes=nodes, wave=hi,
+                           never=nv, topo=tp)

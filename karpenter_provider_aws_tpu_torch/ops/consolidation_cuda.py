@@ -11,6 +11,9 @@ Nothing here falls back to the plain versions in
 - ``consol_absorb(mode, ...)``: the absorption scans, one launch per
   batch whatever B or G: ``"deletions"`` (shared tables), ``"prescreen"``
   (shared tables + the one-new-node tail), ``"dense"`` (per-lane tables).
+- ``preempt_absorb``: K8, the preemption victim-set search, as the fourth
+  mode of the same kernel (``consol_absorb_preempt``): shared group rows,
+  a per-lane refund, each lane's summed leftover out.
 - ``subset_gather``: every lane's KernelInputs from the union arena.
 - ``subset_summary``: the [B, 5] rows.
 - ``subset_solve_cuda``: gather, the K2 kernels on their lane axis
@@ -32,6 +35,8 @@ from .ffd_torch import KernelInputs, carry0
 ABSORB_SMEM_MAX = 160 * 1024
 
 _MODES = {"deletions": 0, "prescreen": 1, "dense": 2}
+#: the kernel's fourth mode, K8 (``preempt_absorb``)
+_MODE_PREEMPT = 3
 
 _vp, _ll = ctypes.c_void_p, ctypes.c_longlong
 
@@ -41,7 +46,7 @@ class _AbsorbArgs(ctypes.Structure):
     _fields_ = ([(f, _vp) for f in (
         "ex_alloc", "ex_used0", "compat", "R", "gid", "cid", "n", "alive",
         "type_alloc", "type_price", "tcompat", "padmit", "pool_types",
-        "price_cap", "used_scratch", "leftover", "out")]
+        "price_cap", "used_scratch", "leftover", "out", "freed", "total")]
         + [(f, _ll) for f in ("B", "G", "E", "D", "Sc", "T", "P",
                               "used_in_smem")])
 
@@ -129,6 +134,39 @@ def consol_absorb(mode: str, *, ex_alloc, ex_used0, compat, R, n, gid=None,
     LAUNCHES[name] += 1
     _check(err, name)
     return out
+
+
+def preempt_absorb(ex_alloc, ex_used0, ex_compat, R, n,
+                   freed) -> torch.Tensor:
+    """K8: [B] int64, each lane's leftover demand pods after the greedy
+    fill of the G demand groups onto the E existing nodes, the lane's
+    refund ``freed[b]`` taken off the usage first. ex_alloc/ex_used0
+    [E, D], ex_compat [G, E] bool, R [G, D], n [G], freed [B, E, D]; one
+    launch (one block per lane)."""
+    i64 = torch.int64
+    B, E, D = freed.shape
+    G = R.shape[0]
+    _need(freed, "freed", i64, (B, E, D))
+    _need(ex_alloc, "ex_alloc", i64, (E, D))
+    _need(ex_used0, "ex_used0", i64, (E, D))
+    _need(ex_compat, "ex_compat", torch.bool, (G, E))
+    _need(R, "R", i64, (G, D))
+    _need(n, "n", i64, (G,))
+    dev = freed.device
+    smem = E * D * 8 <= ABSORB_SMEM_MAX
+    scratch = None if smem else torch.empty((B, E, D), dtype=i64,
+                                            device=dev)
+    total = torch.empty(B, dtype=i64, device=dev)
+    args = _AbsorbArgs(
+        ex_alloc=_ptr(ex_alloc), ex_used0=_ptr(ex_used0),
+        compat=_ptr(ex_compat), R=_ptr(R), n=_ptr(n), freed=_ptr(freed),
+        used_scratch=_ptr(scratch), total=_ptr(total), B=B, G=G, E=E, D=D,
+        used_in_smem=int(smem))
+    err = _lib().karp_consol_absorb(ctypes.byref(args), _MODE_PREEMPT,
+                                    _stream())
+    LAUNCHES["consol_absorb_preempt"] += 1
+    _check(err, "consol_absorb_preempt")
+    return total
 
 
 def subset_gather(arena: KernelInputs, gid, n, dead, keep) -> KernelInputs:

@@ -5,8 +5,11 @@ Two engines over the same math, decision-identical by construction:
 - :func:`fill_group_closed_form` — the host (numpy) engine: one call per
   pod group in canonical order, mutating :class:`NodeState`. It serves
   the solves the device kernels do not take (``solver/cuda.py``
-  ``_run_host``: no instance types, group counts past the device caps,
-  and a pruned solve that bailed).
+  ``_run_host``: no instance types, group counts past the device caps, a
+  priority arena past the base cap); a pruned solve that bailed is
+  solved again on the device with every slot selected, not here. The
+  host topology pour (``ops/topo.py``) goes through ``_run_host`` too,
+  with this engine's closed form for its groups without topology.
 - ``ops/ffd_torch.py`` ``solve_scan`` / ``solve_scan_packed1_pruned`` —
   the device engines: one scan over pod groups whose carry is the
   open-node state (candidate-type masks, zone/capacity-type masks, int64

@@ -58,7 +58,8 @@ LAUNCHES: Dict[str, int] = {"unpack_bits": 0, "ffd_slot_headroom": 0,
                             "ffd_bank_store": 0, "ffd_bank_load": 0,
                             "consol_absorb_deletions": 0,
                             "consol_absorb_prescreen": 0,
-                            "consol_absorb_dense": 0, "subset_gather": 0,
+                            "consol_absorb_dense": 0,
+                            "consol_absorb_preempt": 0, "subset_gather": 0,
                             "subset_summary": 0, "ffd_pruned_select": 0,
                             "ffd_pruned_headroom": 0,
                             "ffd_pruned_commit": 0, "topo_group_start": 0,

@@ -82,6 +82,7 @@ from ..ops.hostpack import (DEV_PRUNED_SLOTS, pack_inputs1,
 from ..ops.topo import (TopoState, build_topo_encoding, fill_group_topo,
                         record_plain_fill)
 from ..ops.topo_torch import K_ANTIRUN, K_CYC, dispatch_topo
+from ..scheduling.preempt_torch import preempt_solve
 from .incremental import CKPT_CHUNK, ckpt_eligible, live_bound, suffix_plan
 from .types import (ExistingNode, NewNodeClaim, SchedulingSnapshot,
                     SolveResult, Solver, preference_count)
@@ -1017,6 +1018,30 @@ class CUDASolver(Solver):
         self.last_dispatch_stats = dict(
             device=str(self.device), kernel="subset", batch=len(out),
             groups=int(np.asarray(gid).shape[1]),
+            launches=self._launches_since(before))
+        return out
+
+    # -- the preemption victim-set search (K8) ---------------------------
+    def dispatch_preempt(self, *, ex_alloc, ex_used, ex_compat, R, n,
+                         freed) -> np.ndarray:
+        """One preemption victim-set batch on self.device: the shared
+        demand and node tables and the per-lane ``freed`` refund stack in
+        ONE host-to-device copy, one K8 launch for every candidate prefix
+        (scheduling/preempt_torch.py ``preempt_solve``; the plain version
+        on the CPU), one copy of the [B] int64 leftovers back."""
+        t = _device.upload(dict(
+            ex_alloc=np.asarray(ex_alloc, dtype=np.int64),
+            ex_used=np.asarray(ex_used, dtype=np.int64),
+            ex_compat=np.asarray(ex_compat, dtype=bool),
+            R=np.asarray(R, dtype=np.int64), n=np.asarray(n, dtype=np.int64),
+            freed=np.asarray(freed, dtype=np.int64)), self.device)
+        before = dict(ffd_cuda.LAUNCHES)
+        out = preempt_solve(t["ex_alloc"], t["ex_used"], t["ex_compat"],
+                            t["R"], t["n"], t["freed"]).cpu().numpy()
+        B, G = t["freed"].shape[0], t["R"].shape[0]
+        self.last_dispatch_stats = dict(
+            device=str(self.device), kernel="preempt", batch=B, fuse=1,
+            scan_steps=G, fused_blocks=0, seq_blocks=G,
             launches=self._launches_since(before))
         return out
 

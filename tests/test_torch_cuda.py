@@ -1,8 +1,10 @@
 """The CUDA kernels of the port held against their plain PyTorch versions
 on the card, at small shapes. Tolerance: exact (integer math). K1-K3
 (the packed scan, the bank), the K1 and K2 kernels on their lane axis
-and the batched packed solve (K4), the pruned scan's kernels (K6), and
-the K7 consolidation kernels.
+and the batched packed solve (K4), the pruned scan's kernels (K6), the
+K7 consolidation kernels, the K9 topology kernels and K8, the
+preemption search (its hazard tables and a round through
+``Provisioner.reconcile``).
 
 Every test here needs a CUDA card: the ``cuda_device`` fixture skips
 otherwise, so the CPU suite collects the same tests and skips them. On a
@@ -626,3 +628,65 @@ def test_topo_solver_on_card(cuda_device):
             ("topo", reason, bails)
         assert d["launches"]["topo_pour"] == 21 * (1 + bails)
         assert got.decision_fingerprint() == want
+
+
+# ---------------------------------------------------------------------------
+# K8: the preemption victim-set search
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hazard", examples.PREEMPT_HAZARDS)
+def test_preempt_kernel_matches_plain(cuda_device, hazard):
+    """The fourth mode of consol_absorb against the plain K8, one launch
+    a batch; "wide_e" keeps the lane carry in the global scratch."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    from karpenter_provider_aws_tpu_torch.scheduling import preempt_torch
+    for seed in (0, 1):
+        t = _t(cuda_device, *examples.preempt_case(hazard, seed))
+        ffd_cuda.reset_launches()
+        got = preempt_torch.preempt_solve(*t)
+        assert {k: v for k, v in ffd_cuda.LAUNCHES.items() if v} == \
+            dict(consol_absorb_preempt=1)
+        assert torch.equal(got, preempt_torch._preempt_solve_ref(*t))
+
+
+def test_preempt_round_on_card(cuda_device):
+    """A preemption round through Provisioner.reconcile on the card: the
+    planner's one K8 launch and its dispatch record, and the result of
+    the round equal to the same round on the plain versions."""
+    from karpenter_provider_aws_tpu_torch.cloudprovider.provider import \
+        CloudProvider
+    from karpenter_provider_aws_tpu_torch.controllers.provisioning import \
+        Provisioner
+    from karpenter_provider_aws_tpu_torch.scheduling import \
+        PreemptionPlanner
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    from karpenter_provider_aws_tpu_torch.state.cluster import ClusterState
+    out = []
+    for device in ("cuda", "cpu"):
+        c = examples.preempt_cluster(examples.preempt_api(), 24, 12, 1)
+        solver = CUDASolver(device=device)
+        planner = PreemptionPlanner(solver=solver)
+        records = []
+        inner = solver.dispatch_preempt
+
+        def spy(inner=inner, solver=solver, **kw):
+            got = inner(**kw)
+            records.append(dict(solver.last_dispatch_stats))
+            return got
+        solver.dispatch_preempt = spy
+        prov = Provisioner(c.kube, ClusterState(c.kube, clock=lambda: 0.0),
+                           CloudProvider(c.kube, c.env.instance_types),
+                           solver, clock=lambda: 0.0,
+                           preempt_planner=planner)
+        res = prov.reconcile()
+        v = res.preempt
+        assert v.feasible and v.backend == "device" and len(records) == 1
+        rec = records[0]
+        assert (rec["kernel"], rec["batch"], rec["fuse"],
+                rec["device"]) == ("preempt", v.lanes, 1, str(solver.device))
+        if device == "cuda":
+            assert rec["launches"]["consol_absorb_preempt"] == 1
+        out.append((sorted(res.unschedulable), sorted(res.nominated.items()),
+                    sorted(res.preempted.items()), v.leftovers,
+                    [p.full_name() for p in v.victims]))
+    assert out[0] == out[1]

@@ -203,6 +203,116 @@ def test_config2_fingerprint_and_arena(envs, both_counters):
     assert solver.last_dispatch_stats["kernel"] == "ckpt"
 
 
+def _priority_scenario(ns, env, seed):
+    """Signatures spread over three PriorityClasses (one the global
+    default) and a pool whose CPU limit binds, so priority decides which
+    pods get the capacity; a few existing nodes. Returns the snapshot,
+    its ``priority_classes`` set (Q = 1)."""
+    L = ns.L
+    rng = random.Random(seed)
+    pcs = [ns.obj.PriorityClass("low", value=1),
+           ns.obj.PriorityClass("mid", value=50, global_default=True),
+           ns.obj.PriorityClass("high", value=1000)]
+    pods = []
+    for j in range(rng.randint(4, 8)):
+        grp = ns.env.make_pods(
+            rng.randint(1, 40), cpu=rng.choice(["250m", "500m", "1", "2"]),
+            memory=rng.choice(["512Mi", "1Gi", "4Gi"]),
+            prefix=f"q{seed}-{j}")
+        cls = rng.choice(["low", "mid", "high", ""])
+        for p in grp:
+            p.priority_class_name = cls
+        pods += grp
+    ns.obj.resolve_pod_priorities(pods, pcs)
+    existing = [ns.types.ExistingNode(
+        name=f"qx-{seed}-{e}", labels={L.ARCH: "amd64", L.OS: "linux"},
+        allocatable=ns.res.Resources.parse({
+            "cpu": str(rng.randint(2, 8)), "memory": "16Gi", "pods": 58}))
+        for e in range(rng.randint(0, 3))]
+    snap = env.snapshot(pods, [env.nodepool(
+        f"prio-{seed}", limits={"cpu": str(rng.randint(8, 40))})],
+        existing_nodes=existing)
+    snap.priority_classes = pcs
+    return snap
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_priority_solve_matches_oracle(envs, both_counters, seed):
+    """A solve that carries a priority section (Q = 1) on the kernels'
+    plain versions, fingerprint-equal to the reference's CPUSolver."""
+    from karpenter_provider_aws_tpu_torch.models.encoding import \
+        encode_snapshot
+    e_ref, e_port = envs
+    want = CPUSolver().solve(_priority_scenario(REF, e_ref, seed))
+    snap = _priority_scenario(PORT, e_port, seed)
+    assert encode_snapshot(snap).prio is not None
+    solver = CUDASolver(device="cpu")
+    got = solver.solve(snap)
+    assert got.decision_fingerprint() == want.decision_fingerprint()
+    assert solver.last_dispatch_stats["kernel"] in ("ckpt", "suffix")
+
+
+def test_priority_cap_routes_to_the_host_engine(envs, both_counters):
+    """A priority arena past the base scan's group cap (Q > 0 and Gp >
+    dev_max_groups: the pruned arena has no priority section) is solved
+    by the host engine, recorded as ``priority_cap``, and still equals
+    the oracle."""
+    e_ref, e_port = envs
+    want = CPUSolver().solve(_priority_scenario(REF, e_ref, 5))
+    solver = CUDASolver(device="cpu")
+    solver.dev_max_groups = 4
+    got = solver.solve(_priority_scenario(PORT, e_port, 5))
+    assert (solver.last_dispatch_stats["kernel"],
+            solver.last_dispatch_stats["reason"]) == ("host", "priority_cap")
+    assert got.decision_fingerprint() == want.decision_fingerprint()
+
+
+def _config1(ns, env, n_pods):
+    """bench.py build_config1: homogeneous cpu/mem pods, one pool over
+    ~20 types (m5, c5, r5; large to 16xlarge)."""
+    L = ns.L
+    pods = ns.env.make_pods(n_pods, cpu="500m", memory="1Gi",
+                            prefix="homog")
+    pool = env.nodepool("bench-c1", requirements=[
+        {"key": L.INSTANCE_FAMILY, "operator": "In",
+         "values": ["m5", "c5", "r5"]},
+        {"key": L.INSTANCE_SIZE, "operator": "In",
+         "values": ["large", "xlarge", "2xlarge", "4xlarge",
+                    "8xlarge", "12xlarge", "16xlarge"]}])
+    return env.snapshot(pods, [pool])
+
+
+def _config5(ns, env, n_pods):
+    """bench.py build_config5: spot + on-demand across weighted pools,
+    the on-demand pool with limits, and a fallback pool."""
+    L = ns.L
+    n_flex = int(n_pods * 0.7)
+    mk = ns.env.make_pods
+    pods = (mk(n_flex, cpu="500m", memory="1Gi", prefix="flex")
+            + mk(n_pods - n_flex, cpu="1", memory="2Gi", prefix="spot5",
+                 node_selector={L.CAPACITY_TYPE: "spot"}))
+    spot = env.nodepool("bench-spot", weight=10, requirements=[
+        {"key": L.CAPACITY_TYPE, "operator": "In", "values": ["spot"]}])
+    od = env.nodepool("bench-od", weight=5, requirements=[
+        {"key": L.CAPACITY_TYPE, "operator": "In", "values": ["on-demand"]}],
+        limits={"cpu": "20000", "memory": "80000Gi"})
+    return env.snapshot(pods, [spot, od, env.nodepool("bench-fallback")])
+
+
+@pytest.mark.parametrize("config,n_pods", [(_config1, 1000),
+                                           (_config5, 2000)])
+def test_baseline_configs_1_and_5_match_oracle(envs, both_counters, config,
+                                               n_pods):
+    """BASELINE configs 1 (1,000 pods, as published) and 5 (cut from
+    50,000 to 2,000 pods) on the kernels' plain versions against the
+    reference's CPUSolver."""
+    e_ref, e_port = envs
+    want = CPUSolver().solve(config(REF, e_ref, n_pods))
+    got = CUDASolver(device="cpu").solve(config(PORT, e_port, n_pods))
+    assert got.decision_fingerprint() == want.decision_fingerprint()
+    assert not got.unschedulable and got.new_nodes
+
+
 def test_slot_growth_matches_oracle(envs, both_counters):
     """More new nodes than the slot bucket holds: the x4 bucket retry and
     the n_max growth both run and decisions still match."""
@@ -269,7 +379,9 @@ def test_port_imports_no_jax():
         "for m in ('models.delta', 'solver.incremental', 'ops.ffd_cuda',\n"
         "          'ops.hostpack', 'ops.ffd_torch', 'solver.cuda',\n"
         "          'ops.consolidation_torch', 'ops.consolidation_cuda',\n"
-        "          'solver.consolidation', 'controllers.disruption'):\n"
+        "          'solver.consolidation', 'controllers.disruption',\n"
+        "          'scheduling.preempt', 'scheduling.preempt_torch',\n"
+        "          'controllers.provisioning', 'state.cluster'):\n"
         "    assert pkg.__name__ + '.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0].startswith('jax')\n"
         "       or m == 'karpenter_provider_aws_tpu'\n"
