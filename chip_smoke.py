@@ -25,7 +25,11 @@ Phases (any failure exits non-zero before the result line):
    axis with one lane (config 2 and the warm arena) and with five; the
    K7 kernels (``consol_absorb`` in its three modes, ``subset_gather``,
    ``subset_summary``, whole subset rounds) on the synthetic hazard cases
-   of ``examples.absorb_case`` / ``subset_case``;
+   of ``examples.absorb_case`` / ``subset_case``; both K5 kernels
+   (``ffd_fused_headroom``, ``ffd_fused_commit``) block by block on every
+   ``examples.FUSED_CASES`` arena at F = 4 (each with a vectorized and a
+   sequential block; "striped" also at the catalog's 812 types), and on
+   the lane axis with one lane and with three lanes that branch apart;
 4. the config-2 path: ``CUDASolver(incremental=False)`` solves config 2
    from scratch through ``Solver.solve`` (one warm-up, then timed rounds)
    with every launch counter set to 0 just before and read just after;
@@ -58,9 +62,10 @@ Phases (any failure exits non-zero before the result line):
    a forced S = 1 solve must bail and be re-solved on the card with
    every slot selected (``reason="pruned_bail"``), fingerprint-equal;
 9. the batch path: ``CUDASolver().solve_batch`` on
-   ``examples.batch_snapshots`` at B = 8 and 64, one ``_dispatch_many``
-   of 1 + 2*Gp + 1 launches each, every lane's output row byte-equal to
-   its single solve on the card and to the plain versions;
+   ``examples.batch_snapshots`` at B = 8 and 64 (Gp = 128, so F = 4), one
+   fused ``_dispatch_many`` of 1 + 2*Gp/4 + 1 launches each, every lane's
+   output row byte-equal to its single solve on the card and to the
+   plain versions;
 11. the topology path (run before phase 10, so that its launches and its
    kernels join phase 10's records): every topology group's
    ``topo_group_start`` and ``topo_pour`` and every other group's
@@ -86,14 +91,26 @@ Phases (any failure exits non-zero before the result line):
    own tables against its plain version, an infeasible variant (all
    64 lanes short, nothing evicted), and K8 against its plain version on
    waves of 16, 64 and 256 signatures;
+13. the fused path (run before phase 10 too): the striped cluster
+   (``examples.striped_cluster``: 50,000 pods over 500 signatures, each
+   pinned to one of five family NodePools; Gp = 512, F = 4) through
+   ``CUDASolver(incremental=False)``: both K5 kernels block by block
+   against their plain parts on the solver's arena, then one warm-up and
+   timed solves (counters set to 0 just before and read just after) of
+   1 + 2*128 + 1 launches with 22+ vectorized blocks, fingerprint-equal
+   to the card's solve at ``dev_fuse = 1`` and to the plain versions on
+   the CPU; the variant with 100 existing nodes; 10 incremental rows-tier
+   ticks, each a full fused solve equal to a solve from scratch;
 10. kernel times with CUDA events at the main paths' shapes, beside the
    plain versions' times, the bound the shapes allow and, for the bank
    kernels, ``Tensor.copy_`` of the same bytes; the suffix solve's device
    time beside the checkpointed full solve's on the warm arena; the K2
    kernels on the lane axis at the whole-fleet round's 2,048 lanes; the
    K6 kernels at config 7's states, the lane-axis K1 kernels at B = 8
-   and 64, the K9 kernels at config 3's states and K8 at the preemption
-   round's tables and at the wider waves'.
+   and 64, the K9 kernels at config 3's states, K8 at the preemption
+   round's tables and at the wider waves', and the K5 kernels at the
+   striped cluster's vectorized and sequential blocks, with one fused
+   packed solve's device time beside the same snapshot packed unfused.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; a line before them holds the per-kernel
@@ -175,6 +192,16 @@ P12_RECONCILES = 3
 #: distinct shapes of the upstream pod-dense scale envelope
 P12_WIDE_G = (16, 64, 256)
 
+#: the fused path (K5): the striped cluster's pods and signatures (the
+#: pod-dense envelope of bench.py:228, hundreds of shapes at ~50k pods),
+#: timed solves after one warm-up, the incremental ticks, and the
+#: vectorized blocks its 500 signatures give (22 holding a real group)
+S13_PODS = 50_000
+S13_SIGS = 500
+S13_ROUNDS = 5
+S13_TICKS = 10
+S13_MIN_VEC = 22
+
 #: the kernels of the warm-tick path
 K3_PATH = ("unpack_bits", "ffd_slot_headroom", "ffd_group_commit",
            "pack_outputs", "ffd_bank_store", "ffd_bank_load")
@@ -183,6 +210,7 @@ K7_SRC = "karpenter_provider_aws_tpu_torch/csrc/consolidation.cu"
 K7_REF = "karpenter_provider_aws_tpu/ops/consolidation_jax.py"
 K6_SRC = "karpenter_provider_aws_tpu_torch/csrc/pruned.cu"
 K9_SRC = "karpenter_provider_aws_tpu_torch/csrc/topo.cu"
+K5_SRC = "karpenter_provider_aws_tpu_torch/csrc/fused.cu"
 K9_REF = "karpenter_provider_aws_tpu/ops/topo_jax.py"
 FFD_REF = "karpenter_provider_aws_tpu/ops/ffd_jax.py"
 
@@ -219,6 +247,8 @@ KERNELS = {
     "topo_group_start": dict(source=K9_SRC, replaces=f"{K9_REF}:281"),
     "topo_pour": dict(source=K9_SRC, replaces=f"{K9_REF}:669"),
     "topo_record_plain": dict(source=K9_SRC, replaces=f"{K9_REF}:685"),
+    "ffd_fused_headroom": dict(source=K5_SRC, replaces=f"{FFD_REF}:694"),
+    "ffd_fused_commit": dict(source=K5_SRC, replaces=f"{FFD_REF}:743"),
 }
 #: the K1 kernels on their lane axis (the batch path), one record per
 #: batch width: the kernel, its width, and the reference's vmap they
@@ -1111,10 +1141,11 @@ def g_axis_phase(cmp, device=None, n_pods=C7_PODS, n_sigs=C7_SIGS,
 def batch_phase(cmp, device=None, sizes=BATCH_SIZES, rounds=BATCH_ROUNDS,
                 n_sigs=96):
     """Drive ``CUDASolver(incremental=False).solve_batch`` on
-    ``examples.batch_snapshots`` at each width in ``sizes``: one
-    ``_dispatch_many`` per batch of 1 + 2*Gp + 1 launches; every lane's
-    output row equal to the single packed solve of its arena on the card
-    and to the plain versions, every decision to a single solve's.
+    ``examples.batch_snapshots`` at each width in ``sizes``: one fused
+    ``_dispatch_many`` (F = 4) per batch of 1 + 2*Gp/4 + 1 launches;
+    every lane's output row equal to the single packed solve of its arena
+    on the card and to the plain versions, every decision to a single
+    solve's.
     Returns ({B: launches}, {B: summary}, {B: (lane-axis K1 state,
     statics)})."""
     import numpy as np
@@ -1146,17 +1177,17 @@ def batch_phase(cmp, device=None, sizes=BATCH_SIZES, rounds=BATCH_ROUNDS,
             res = solver.solve_batch(snaps)
             dt = (time.perf_counter() - t0) * 1e3
             ld = solver.last_dispatch_stats
-            Gp = ld["groups"]
+            Gp, Fu = ld["groups"], ld["fuse"]
             lw = {k: v for k, v in ld["launches"].items() if v}
             if len(calls) != n0 + 1 or ld["kernel"] != "batch" \
-                    or ld["batch"] != B:
-                raise AssertionError(f"B={B}: not one batched dispatch of "
-                                     f"{B} lanes: {ld}")
+                    or ld["batch"] != B or Fu != 4:
+                raise AssertionError(f"B={B}: not one fused batched "
+                                     f"dispatch of {B} lanes: {ld}")
             if solver.device.type == "cuda" and lw != dict(
-                    unpack_bits=1, ffd_slot_headroom=Gp,
-                    ffd_group_commit=Gp, pack_outputs=1):
+                    unpack_bits=1, ffd_fused_headroom=Gp // Fu,
+                    ffd_fused_commit=Gp // Fu, pack_outputs=1):
                 raise AssertionError(f"B={B}: launches {lw} are not 1 + "
-                                     f"2*{Gp} + 1")
+                                     f"2*{Gp}/{Fu} + 1")
             if i:
                 times.append(dt)
         launches = dict(fc.LAUNCHES)
@@ -1174,12 +1205,14 @@ def batch_phase(cmp, device=None, sizes=BATCH_SIZES, rounds=BATCH_ROUNDS,
         bufs, statics, rows = calls[-1]
         T, D, Z, C, G, E, P = (statics[k] for k in "T D Z C G E P".split())
         d_bufs = torch.from_numpy(np.stack(bufs)).to(solver.device)
-        outs = []
+        outs, indep = [], []
         for b in range(B):
             one = ft.solve_scan_packed1(d_bufs[b], **statics).cpu().numpy()
-            outs.append(ft._solve_scan_ref(
-                ft._packed_inputs_ref(d_bufs[b], T, D, Z, C, G, E, P, 0, 0,
-                                      0), statics["n_max"], E, P))
+            inp = ft._packed_inputs_ref(d_bufs[b], T, D, Z, C, G, E, P, 0, 0,
+                                        0, statics["F"])
+            indep.append(ft.block_indep(inp.fuse, statics["F"]))
+            outs.append(ft._solve_fused_ref(inp, statics["n_max"], E, P,
+                                            statics["F"]))
             plain = ft._pack_outputs_ref(*outs[-1]).cpu().numpy()
             if not (np.array_equal(rows[b], one)
                     and np.array_equal(rows[b], plain)):
@@ -1188,22 +1221,27 @@ def batch_phase(cmp, device=None, sizes=BATCH_SIZES, rounds=BATCH_ROUNDS,
                                      "plain versions")
         if len({r.tobytes() for r in rows}) != B:
             raise AssertionError(f"B={B}: lanes with equal rows")
+        indep = torch.stack(indep)
         k1 = k1_lane_state(d_bufs, statics, outs)
         if solver.device.type == "cuda":
             check_k1_lanes(B, k1, cmp)
         summaries[B] = dict(
             p50_ms=statistics.median(times), p99_ms=pct(times, 0.99),
             single_p50_ms=statistics.median(stimes), rounds=rounds,
-            groups=Gp, slot_bucket=statics["n_max"],
+            groups=Gp, slot_bucket=statics["n_max"], fuse=Fu,
+            fused_blocks=ld["fused_blocks"], seq_blocks=ld["seq_blocks"],
+            lanes_vectorized_per_block=indep.sum(0).tolist(),
             launches_per_batch=lw)
         all_launches[B] = launches
         arenas[B] = (k1, statics)
         log(f"[batch] B={B}: solve_batch p50 {summaries[B]['p50_ms']:.3f} "
             f"ms p99 {summaries[B]['p99_ms']:.3f} ms vs {B} single solves "
-            f"p50 {summaries[B]['single_p50_ms']:.3f} ms; one dispatch of "
-            f"{lw} launches; every lane == its single solve on "
-            f"{solver.device} and the plain versions; decisions == single "
-            f"solves'")
+            f"p50 {summaries[B]['single_p50_ms']:.3f} ms; one fused "
+            f"dispatch of {lw} launches ({ld['fused_blocks']} vectorized "
+            f"blocks a lane on average, lanes vectorized per block "
+            f"{summaries[B]['lanes_vectorized_per_block']}); every lane == "
+            f"its single solve on {solver.device} and the plain versions; "
+            f"decisions == single solves'")
     return all_launches, summaries, arenas
 
 
@@ -1216,8 +1254,9 @@ def k1_lane_state(bufs, statics, outs):
     from karpenter_provider_aws_tpu_torch.ops.hostpack import (
         in_layout_bool, in_layout_i64, layout_sizes)
     T, D, Z, C, G, E, P = (statics[k] for k in "T D Z C G E P".split())
-    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P))
-    n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P))
+    F = statics.get("F", 1)
+    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, 0, 0, F))
+    n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P, 0, 0, F))
     takes = torch.stack([o[0] for o in outs])
     lefts = torch.stack([o[1] for o in outs])
     carry = ft.Carry(*[torch.stack(f) for f in zip(*[o[2] for o in outs])])
@@ -1620,6 +1659,312 @@ def preempt_phase(cmp, device=None, n_nodes=P12_NODES, per_node=P12_PER_NODE,
         f"{summary['launches_per_round']}; K8 == plain on waves of "
         f"{list(P12_WIDE_G)} signatures")
     return launches, summary, tables, wide
+
+
+# ---------------------------------------------------------------------------
+# K5: the fused block scan (phases 3, 9, 13)
+# ---------------------------------------------------------------------------
+
+def lane_inputs(inp, b):
+    """Lane ``b`` of a lane-axis KernelInputs."""
+    return type(inp)(*[None if f is None else f[b] for f in inp])
+
+
+def check_fused_blocks(label, inp, st, cmp, lanes=None, keep=()):
+    """Both K5 kernels block by block against their plain parts, from the
+    plain block-start carry of every lane: each group's candidates and
+    headroom after ``ffd_fused_headroom`` (copied out before the commit,
+    which turns k into takes and rewrites a sequential block's rows), the
+    block's carry, takes and leftover after ``ffd_fused_commit``.
+    ``inp`` is the arena's KernelInputs on the card (lane axis when
+    ``lanes``). Returns (the
+    final plain carries, the block-start states of the blocks in
+    ``keep``: (g0, carry, branch) of lane 0, for the timing phase)."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    E, P, Fu, N = st["E"], st["P"], st["F"], st["E"] + st["n_max"]
+    L = 1 if lanes is None else lanes
+    per = [inp] if lanes is None else [lane_inputs(inp, b)
+                                       for b in range(L)]
+    carries = [ft.carry0(x, N, E) for x in per]
+    fs = fc.FusedState(inp, ft.carry0(inp, N, E, lanes=lanes), E=E, P=P,
+                       Fu=Fu, lanes=lanes)
+    indep = [ft.block_indep(x.fuse, Fu).tolist() for x in per]
+
+    def lane(t, b):
+        return t if lanes is None else t[b]
+    kept = []
+    for g0 in range(0, st["G"], Fu):
+        bi = g0 // Fu
+        for b in range(L):
+            for dst, src in zip(fs.carry, carries[b]):
+                lane(dst, b).copy_(src)
+        if bi in keep:
+            kept.append((g0, ft.Carry(*[t.clone() for t in carries[0]]),
+                         indep[0][bi]))
+        fc.ffd_fused_headroom(fs, g0)
+        got_cand, got_k = fs.block_cand().clone(), fs.block_k().clone()
+        fc.ffd_fused_commit(fs, g0)
+        for b in range(L):
+            cand, k = ft._fused_headroom_ref(per[b], carries[b], g0, Fu, E=E,
+                                             P=P)
+            what = f"{label} lane {b} block {bi}"
+            cmp("ffd_fused_headroom", lane(got_cand, b), cand, f"{what} cand")
+            cmp("ffd_fused_headroom", lane(got_k, b), k, f"{what} k")
+            carries[b], takes, lefts = ft._fused_block_ref(
+                per[b], carries[b], g0, Fu, indep[b][bi], E=E, P=P)
+            for f, got, want in zip(ft.Carry._fields, fs.carry, carries[b]):
+                cmp("ffd_fused_commit", lane(got, b), want, f"{what} {f}")
+            cmp("ffd_fused_commit", lane(fs.takes, b)[g0:g0 + Fu], takes,
+                f"{what} takes")
+            cmp("ffd_fused_commit", lane(fs.leftover, b)[g0:g0 + Fu], lefts,
+                f"{what} leftover")
+    return carries, kept
+
+
+def fused_arena(arrays_list, st, dev):
+    """A [B, W] stack of fused arenas on ``dev`` and its lane-axis
+    KernelInputs (plain unpack)."""
+    import numpy as np
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    from karpenter_provider_aws_tpu_torch.ops.hostpack import (
+        in_layout_bool, in_layout_i64, layout_sizes, pack_inputs1)
+    bufs = torch.from_numpy(np.stack([
+        pack_inputs1(a, *examples.pack_statics(st))
+        for a in arrays_list])).to(dev)
+    args = [st[k] for k in "T D Z C G E P K M".split()]
+    n_i64 = layout_sizes(in_layout_i64(*args, st["F"], st["Q"]))
+    n_bits = layout_sizes(in_layout_bool(*args, st["F"], st["Q"]))
+    bools = torch.stack([ft._unpack_bits_ref(b[n_i64:], n_bits)
+                         for b in bufs])
+    return bufs, ft._unpack_inputs_lanes(bufs[:, :n_i64], bools, *args,
+                                         st["Q"], st["F"])
+
+
+def check_fused_cases(cmp, dev):
+    """Phase 3's K5 checks: every ``examples.FUSED_CASES`` arena (at its
+    own width, and "striped" at the catalog's 812 types) block by block
+    without a lane axis and the whole packed solve against the plain
+    one; then the lane axis with one lane and with three lanes whose
+    blocks branch differently. Returns the number of arenas checked."""
+    import numpy as np
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    cases = [(c, {}) for c in examples.FUSED_CASES]
+    cases.append(("striped", dict(T=812, D=8, G=32, n_max=64)))
+    for name, kw in cases:
+        arrays, st = examples.fused_case(name, **kw)
+        label = f"{name}{'-812' if kw else ''} F={st['F']}"
+        bufs, inp = fused_arena([arrays], st, dev)
+        one = lane_inputs(inp, 0)
+        check_fused_blocks(label, one, st, cmp)
+        whole = ft.solve_scan_packed1(bufs[0], **examples.solve_statics(st))
+        plain = ft._pack_outputs_ref(*ft._solve_fused_ref(
+            one, st["n_max"], st["E"], st["P"], st["F"]))
+        cmp("pack_outputs", whole, plain, f"{label} packed solve")
+    arrays, st = examples.fused_case("striped", T=812, D=8, G=32, n_max=64)
+    lanes = []
+    for flip in (None, 1, 5):
+        a = {k: np.array(v) for k, v in arrays.items()}
+        if flip is not None:
+            a["fuse"][flip] = ~a["fuse"][flip]
+            a["n"] = np.roll(a["n"], flip)
+        lanes.append(a)
+    for B in (1, 3):
+        bufs, inp = fused_arena(lanes[:B], st, dev)
+        if B == 3:
+            ind = torch.stack([ft.block_indep(inp.fuse[b], st["F"])
+                               for b in range(B)])
+            if not (ind.any(0) & ~ind.all(0)).any():
+                raise AssertionError("the mixed lanes never branch apart")
+        check_fused_blocks(f"striped-812 lanes={B}", inp, st, cmp, lanes=B)
+        many = ft.solve_scan_packed1_many(bufs, **examples.solve_statics(st))
+        for b in range(B):
+            plain = ft._pack_outputs_ref(*ft._solve_fused_ref(
+                lane_inputs(inp, b), st["n_max"], st["E"], st["P"],
+                st["F"]))
+            cmp("pack_outputs", many[b], plain,
+                f"striped-812 lanes={B} lane {b} packed solve")
+    return len(cases) + 2
+
+
+def fused_phase(cmp, device=None, n_pods=S13_PODS, n_sigs=S13_SIGS,
+                rounds=S13_ROUNDS, ticks=S13_TICKS, min_vec=S13_MIN_VEC):
+    """Drive the striped cluster (``examples.striped_cluster``, n_pods
+    over n_sigs signatures, five family NodePools) through
+    ``CUDASolver(incremental=False).solve`` on the fused kernels: one
+    warm-up and ``rounds`` timed solves with the counters set to 0 just
+    before and read just after; then the variant with 100 existing
+    nodes, and ``ticks`` incremental rows-tier ticks, each a full fused
+    solve. Every solve takes both branches, at least ``min_vec`` blocks
+    vectorized. On the card, first both K5 kernels block by block against
+    their plain parts on the solver's own arena. Returns (launches of the
+    measured runs, summary, timing states)."""
+    import dataclasses
+
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.models.delta import \
+        full_existing_encode
+    from karpenter_provider_aws_tpu_torch.models.encoding import \
+        encode_snapshot
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    fenv.reset_pod_counter()
+    env = fenv.Environment()
+    t0 = time.perf_counter()
+    snap = examples.striped_cluster(env, n_pods=n_pods, n_sigs=n_sigs)
+    snap_ex = examples.striped_cluster(env, n_pods=n_pods, n_sigs=n_sigs,
+                                       n_existing=100)
+    build_s = time.perf_counter() - t0
+    solver = CUDASolver(device=device, incremental=False)
+    on_card = solver.device.type == "cuda"
+
+    def measured(s, x, n):
+        """One warm-up and n timed solves of x, counters zeroed before
+        and read after: (launches, walls, last stats, result)."""
+        fc.reset_launches()
+        walls, res, kinds = [], None, set()
+        for i in range(n + 1):
+            t0 = time.perf_counter()
+            res = s.solve(x)
+            if i:
+                walls.append((time.perf_counter() - t0) * 1e3)
+            ds = s.last_dispatch_stats
+            kinds.add((ds["kernel"], ds["fuse"]))
+        if kinds != {("fused", 4)}:
+            raise AssertionError(f"striped solves not all fused: {kinds}")
+        return dict(fc.LAUNCHES), walls, dict(s.last_dispatch_stats), res
+
+    launches, walls, ds, res = measured(solver, snap, rounds)
+    splits = dict(solver.last_phase_stats)
+    if ds["fused_blocks"] < min_vec or ds["seq_blocks"] <= 0:
+        raise AssertionError(f"the striped cluster does not take both "
+                             f"branches: {ds}")
+    blocks = ds["scan_steps"]
+    per_solve = {k: v for k, v in ds["launches"].items() if v}
+    want = dict(unpack_bits=1, ffd_fused_headroom=blocks,
+                ffd_fused_commit=blocks, pack_outputs=1)
+    if on_card and (per_solve != want or launches != dict(
+            dict.fromkeys(launches, 0),
+            **{k: v * (rounds + 1) for k, v in want.items()})):
+        raise AssertionError(f"fused solve launches {per_solve} (run: "
+                             f"{launches}) are not 1 + 2*{blocks} + 1")
+    enc = encode_snapshot(snap)
+    buf, st = solver.pack(enc, *full_existing_encode(enc, []))
+    st = dict(st, n_max=ds["slot_bucket"])
+    log(f"[striped] {n_pods} pods, {len(enc.groups)} signatures, built in "
+        f"{build_s:.2f} s; statics {st}; {ds['fused_blocks']} vectorized "
+        f"and {ds['seq_blocks']} sequential blocks; launches per solve "
+        f"{per_solve}")
+    unfused = CUDASolver(device=device, incremental=False)
+    unfused.dev_fuse = 1
+    states = None
+    if on_card:
+        d_buf = torch.from_numpy(buf).to(solver.device)
+        inp = ft._packed_inputs_ref(d_buf, *(st[k] for k in
+                                             "T D Z C G E P K M Q F".split()))
+        ind = ft.block_indep(inp.fuse, st["F"]).tolist()
+        keep = [b for b, v in enumerate(ind) if v][:4] + \
+            [b for b, v in enumerate(ind) if not v][:4]
+        _, kept = check_fused_blocks("striped", inp, st, cmp, keep=keep)
+        out = ft.solve_scan_packed1(d_buf, **examples.solve_statics(st))
+        plain = ft._pack_outputs_ref(*ft._solve_fused_ref(
+            inp, st["n_max"], st["E"], st["P"], st["F"]))
+        cmp("pack_outputs", out, plain, "striped packed solve")
+        buf1, st1 = unfused.pack(enc, *full_existing_encode(enc, []))
+        states = (inp, st, kept, d_buf,
+                  torch.from_numpy(buf1).to(solver.device),
+                  dict(st1, n_max=st["n_max"]))
+        torch.cuda.synchronize()
+        log(f"[striped] K5 kernels == plain parts block by block on the "
+            f"solver's arena ({blocks} blocks); the packed solve == the "
+            f"plain packed solve on the card")
+    if unfused.solve(snap).decision_fingerprint() != \
+            res.decision_fingerprint():
+        raise AssertionError("fused decisions differ from the unfused "
+                             "solve's")
+    if unfused.last_dispatch_stats["fuse"] != 1:
+        raise AssertionError("dev_fuse = 1 still fused")
+    t0 = time.perf_counter()
+    plain_res = CUDASolver(device="cpu", incremental=False).solve(snap)
+    plain_s = time.perf_counter() - t0
+    if plain_res.decision_fingerprint() != res.decision_fingerprint():
+        raise AssertionError("fused decisions differ from the plain "
+                             "versions' on the CPU")
+    placed = sum(len(n.pod_names) for n in res.new_nodes)
+    if placed + len(res.existing_assignments) + len(res.unschedulable) \
+            != len(snap.pods):
+        raise AssertionError("striped pods not all placed or reported")
+
+    # the variant with 100 existing nodes
+    launches_ex, walls_ex, ds_ex, res_ex = measured(
+        CUDASolver(device=device, incremental=False), snap_ex, rounds)
+    if unfused.solve(snap_ex).decision_fingerprint() != \
+            res_ex.decision_fingerprint():
+        raise AssertionError("fused decisions with existing nodes differ "
+                             "from the unfused solve's")
+    if not res_ex.existing_assignments:
+        raise AssertionError("no pod landed on an existing node")
+
+    # incremental rows-tier ticks: one pod fewer in a signature each tick
+    inc = CUDASolver(device=device)
+    inc.solve(snap)
+    fc.reset_launches()
+    gone, tick_walls, tick_kinds, done = set(), [], set(), []
+    per_sig = n_pods // n_sigs
+    for t in range(ticks):
+        gone.add(id(snap.pods[((t * 37) % n_sigs) * per_sig]))
+        x = dataclasses.replace(snap, pods=[p for p in snap.pods
+                                            if id(p) not in gone])
+        t0 = time.perf_counter()
+        got = inc.solve(x)
+        tick_walls.append((time.perf_counter() - t0) * 1e3)
+        tick_kinds.add((inc.last_dispatch_stats["kernel"],
+                        inc.last_phase_stats["cache"]))
+        done.append((x, got.decision_fingerprint()))
+    launches_t = dict(fc.LAUNCHES)
+    if tick_kinds != {("fused", "rows")}:
+        raise AssertionError(f"incremental ticks not rows-tier fused "
+                             f"solves: {tick_kinds}")
+    # the solves from scratch run after the counters are read
+    for t, (x, fp) in enumerate(done):
+        if unfused.solve(x).decision_fingerprint() != fp:
+            raise AssertionError(f"incremental tick {t}: decisions differ "
+                                 "from a solve from scratch")
+    summary = dict(
+        p50_ms=statistics.median(walls), p99_ms=pct(walls, 0.99),
+        rounds=rounds, split_ms={k: splits[k] for k in (
+            "group_ms", "encode_ms", "kernel_ms", "decode_ms")},
+        groups=st["G"], slot_bucket=st["n_max"], fuse=ds["fuse"],
+        scan_steps=blocks, fused_blocks=ds["fused_blocks"],
+        seq_blocks=ds["seq_blocks"], launches_per_solve=per_solve,
+        plain_cpu_s=plain_s,
+        existing=dict(p50_ms=statistics.median(walls_ex),
+                      fused_blocks=ds_ex["fused_blocks"],
+                      on_existing=len(res_ex.existing_assignments)),
+        ticks=dict(p50_ms=statistics.median(tick_walls),
+                   p99_ms=pct(tick_walls, 0.99), count=ticks))
+    log(f"[striped] solve p50 {summary['p50_ms']:.3f} ms p99 "
+        f"{summary['p99_ms']:.3f} ms over {rounds}; split "
+        f"{json.dumps(summary['split_ms'])}; fingerprint == dev_fuse=1 on "
+        f"{solver.device} and == plain versions on the CPU "
+        f"({plain_s:.1f} s)")
+    log(f"[striped] 100 existing nodes: p50 "
+        f"{summary['existing']['p50_ms']:.3f} ms, "
+        f"{ds_ex['fused_blocks']} vectorized blocks, "
+        f"{len(res_ex.existing_assignments)} pods on existing nodes; "
+        f"{ticks} rows-tier ticks p50 {summary['ticks']['p50_ms']:.3f} ms, "
+        f"each fused and == a solve from scratch")
+    all_launches = {k: launches[k] + launches_ex[k] + launches_t[k]
+                    for k in launches}
+    return all_launches, summary, states
 
 
 # ---------------------------------------------------------------------------
@@ -2143,6 +2488,99 @@ def k9_times(c3, launches):
     return out
 
 
+def k5_times(states, mix, launches):
+    """The K5 kernels at the striped cluster's states (phase 13's kept
+    block-start carries: vectorized and sequential blocks). Each kernel's
+    time and its bound per branch; a record's figures are the per-branch
+    means weighted by the solve's block mix ``mix`` = (vectorized,
+    sequential). The plain time beside both is the plain block
+    (``_fused_block_ref``: the headroom, the fills and the commit), and
+    the plain headroom part alone beside ``ffd_fused_headroom``. Returns
+    (records, per-branch figures)."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    inp, st, kept = states
+    T, D, Z, C, E, P, Fu = (st[k] for k in "T D Z C E P F".split())
+    N = E + st["n_max"]
+    fs = fc.FusedState(inp, ft.carry0(inp, N, E), E=E, P=P, Fu=Fu)
+    acc = {(k, v): [] for k in ("ffd_fused_headroom", "ffd_fused_commit")
+           for v in (True, False)}
+    for g0, carry, vec in kept:
+        def restore(carry=carry):
+            for dst, src in zip(fs.carry, carry):
+                dst.copy_(src)
+        restore()
+        fc.ffd_fused_headroom(fs, g0)
+        cand, k = fs.cand.clone(), fs.k.clone()
+        nxt, takes, _ = ft._fused_block_ref(inp, carry, g0, Fu, vec, E=E,
+                                            P=P)
+        pcand, _ = ft._fused_headroom_ref(inp, carry, g0, Fu, E=E, P=P)
+        n_cand = int(pcand.sum())
+        acc[("ffd_fused_headroom", vec)].append((
+            time_launches(lambda: fc.ffd_fused_headroom(fs, g0),
+                          setup=restore),
+            time_launches(lambda: ft._fused_headroom_ref(
+                inp, carry, g0, Fu, E=E, P=P), reps=5),
+            # read once: types, used, zones, ct, pool, alive, the catalog
+            # (A, offerings), each group's F, admit, R, zone/ct masks and
+            # existing-compat row, the existing allocatable; write: the Fu
+            # candidate rows and headrooms
+            N * T + N * D * 8 + N * (Z + C + 5) + T * D * 8 + T * Z * C
+            + Fu * (T + P + D * 8 + Z + C + E) + E * D * 8
+            + Fu * N * T + Fu * N * 8,
+            # one quotient per (candidate cell, dim), one offering test per
+            # (slot, type, zone, capacity type), per group
+            n_cand * D + Fu * N * T * Z * C))
+
+        def setup(restore=restore, cand=cand, k=k):
+            restore()
+            fs.cand.copy_(cand)
+            fs.k.copy_(k)
+        touched = int((nxt.types != carry.types).any(dim=1).sum()) \
+            + int((takes > 0).sum())
+        # read: k, the filled rows' candidates, pool, used, the catalog
+        # (A, F of each group, pool types, offerings), pool tables,
+        # daemon, R; write: used, the touched type rows, zones/ct, pool,
+        # takes, leftover. A sequential block also recomputes groups
+        # 1..Fu-1's headroom over N x T (its operations; its reads are
+        # the carry's, counted once)
+        nbytes = (Fu * N * 8 + touched * T + N * 4 + 2 * N * D * 8
+                  + T * D * 8 + T * (Fu + 1 + Z * C) + 2 * P * D * 8
+                  + Fu * P * D * 8 + Fu * D * 8 + touched * (T + Z + C)
+                  + Fu * N * 4 + Fu * 8)
+        ops = touched * T * D + Fu * P * T * (D + Z * C) + 4 * N * Fu
+        if not vec:
+            ops += (Fu - 1) * (n_cand // Fu * D + N * T * Z * C)
+        acc[("ffd_fused_commit", vec)].append((
+            time_launches(lambda: fc.ffd_fused_commit(fs, g0), setup=setup),
+            time_launches(lambda: ft._fused_block_ref(
+                inp, carry, g0, Fu, vec, E=E, P=P), reps=5),
+            nbytes, ops))
+    out, per_branch = [], {}
+    w = {True: mix[0] / (mix[0] + mix[1]), False: mix[1] / (mix[0] + mix[1])}
+    for name in ("ffd_fused_headroom", "ffd_fused_commit"):
+        fig = {}
+        for vec in (True, False):
+            rows_ = acc[(name, vec)]
+            ms, pms, nbytes, ops = (statistics.fmean(r[i] for r in rows_)
+                                    for i in range(4))
+            fig[vec] = (ms, pms, nbytes, ops, bound_ms(nbytes, ops)[0])
+            per_branch[f"{name} {'vectorized' if vec else 'sequential'}"] \
+                = dict(us=ms * 1e3, plain_us=pms * 1e3,
+                       bound_us=fig[vec][4] * 1e3, bytes=nbytes, ops=ops,
+                       blocks=len(rows_))
+        ms, pms, nbytes, ops = (sum(w[v] * fig[v][i] for v in w)
+                                for i in range(4))
+        b, by = bound_ms(nbytes, ops)
+        out.append(dict(name=name, route="cuda", **KERNELS[name],
+                        launches=launches[name], ms=ms, plain_ms=pms,
+                        bound_ms=b, bound_by=by, library_ms=None,
+                        bytes=nbytes, ops=ops))
+    del fs
+    return out, per_branch
+
+
 def k8_time(tables):
     """K8 on one set of its tables, beside the plain version: (ms, plain
     ms, bound ms, bound_by, bytes, ops). Bytes: every input read once,
@@ -2262,9 +2700,9 @@ def warm_solve_times(d_buf, st, gl):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-6, 8, 9, 11 and 12 with the plain "
-                         "versions at a small size on the CPU (never the "
-                         "default)")
+                    help="run phases 3-6, 8, 9, 11, 12 and 13 with the "
+                         "plain versions at a small size on the CPU (never "
+                         "the default)")
     args = ap.parse_args()
 
     import torch
@@ -2373,11 +2811,13 @@ def main() -> int:
         stw["C"], stw["G"], stw["E"], stw["P"], stw["K"], stw["M"],
         stw["Q"]), stw, cmp)
     k7_cases = check_k7_synthetic(cmp, dev)
+    k5_cases = check_fused_cases(cmp, dev)
     torch.cuda.synchronize()
     log(f"[compare] tolerance exact (integer math; any differing word "
         f"fails): {cmp.checks} checks over "
         f"{len(cases)} K1/K2 arenas, {k3_runs} K3 suffix runs, 2 one-lane "
-        f"K2 scans and {k7_cases} K7 cases, max_abs_err {cmp.err}")
+        f"K2 scans, {k7_cases} K7 cases and {k5_cases} K5 arenas, "
+        f"max_abs_err {cmp.err}")
 
     # ---- phase 4: the config-2 path -----------------------------------------
     solver = CUDASolver(incremental=False)
@@ -2476,9 +2916,20 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[compare] after the preemption phase: {cmp.checks} checks, "
         f"max_abs_err {cmp.err}")
+    # ---- phase 13: the fused path (the striped cluster on K5) -------------
+    launches_s13, s13, s13_states = fused_phase(cmp)
+    missing = [k for k in ("unpack_bits", "ffd_fused_headroom",
+                           "ffd_fused_commit", "pack_outputs")
+               if launches_s13[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the fused path: "
+                             f"{missing}")
+    torch.cuda.synchronize()
+    log(f"[compare] after the fused phase: {cmp.checks} checks, "
+        f"max_abs_err {cmp.err}")
     launches = {k: launches_c2[k] + launches_w[k] + launches_k7.get(k, 0)
                 + launches_c7[k] + sum(lb[k] for lb in launches_b.values())
-                + launches_c3[k] + launches_p12[k]
+                + launches_c3[k] + launches_p12[k] + launches_s13[k]
                 for k in launches_c2}
 
     # ---- phase 10: kernel times --------------------------------------------
@@ -2505,6 +2956,9 @@ def main() -> int:
     recs += k9_times(c3_states, launches)
     k8_recs, k8_by_g = k8_times(p12_tables, p12_wide, launches)
     recs += k8_recs
+    k5_recs, k5_branch = k5_times(
+        s13_states[:3], (s13["fused_blocks"], s13["seq_blocks"]), launches)
+    recs += k5_recs
     for r in recs:
         r["max_abs_err"] = cmp.err[r["name"]]
         lib = "none" if r["library_ms"] is None else \
@@ -2516,7 +2970,8 @@ def main() -> int:
             f"consolidation: {launches_k7.get(k, 0)}, config 7: "
             f"{launches_c7[k]}, batch: "
             f"{ {b: lb[k] for b, lb in launches_b.items()} }, config 3: "
-            f"{launches_c3[k]}, preemption: {launches_p12[k]}), bound "
+            f"{launches_c3[k]}, preemption: {launches_p12[k]}, striped: "
+            f"{launches_s13[k]}), bound "
             f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}, "
             f"{r['bytes']:.0f} B, {r['ops']:.0f} ops), plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib}")
@@ -2550,6 +3005,16 @@ def main() -> int:
         f"times x launches per solve {c3_dev:.3f}; one solve_scan_topo "
         f"device ms {c3_scan:.3f} (wall p50 {c3['p50_ms']:.3f}); summary "
         f"{json.dumps(c3)}")
+    log(f"[time] K5 by branch at the striped cluster's blocks: "
+        f"{json.dumps(k5_branch)}")
+    _, st13, _, d13, d13_f1, st13_f1 = s13_states
+    s13_dev = {f"F={x['F']}": solve_device_ms(
+        lambda b=b, x=x: ft.solve_scan_packed1(
+            b, **examples.solve_statics(x)), reps=5)
+        for b, x in ((d13, st13), (d13_f1, st13_f1))}
+    log(f"[time] striped cluster: one packed solve, device ms "
+        f"{json.dumps(s13_dev)} (fused; the same snapshot packed unfused); "
+        f"summary {json.dumps(s13)}")
     log(f"[time] K8 by the wave's signatures G (B = 64, E = "
         f"{P12_NODES}): {json.dumps(k8_by_g)}")
     log(f"[time] preemption: plan p50 {p12['plan']['p50_ms']:.3f} ms, "
@@ -2568,10 +3033,10 @@ def main() -> int:
 
 
 def rehearsal(n_pods: int, rounds: int) -> int:
-    """Phases 3-6, 8, 9, 11 and 12 with the plain versions on the CPU, at
-    a small size (config 7 cut to ``n_pods`` pods, one signature per 5;
-    config 3 cut to ``n_pods`` pods; the preemption cluster to 40
-    nodes)."""
+    """Phases 3-6, 8, 9, 11, 12 and 13 with the plain versions on the CPU,
+    at a small size (config 7 cut to ``n_pods`` pods, one signature per
+    5; config 3 cut to ``n_pods`` pods; the preemption cluster to 40
+    nodes; the striped cluster to 400 pods over 100 signatures)."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.fake import environment as fenv
@@ -2604,9 +3069,11 @@ def rehearsal(n_pods: int, rounds: int) -> int:
     log(f"[rehearsal] consolidation checks {cmp.checks}")
     g_axis_phase(cmp, device="cpu", n_pods=n_pods, n_sigs=n_pods // 5,
                  rounds=1, max_groups=256)
-    batch_phase(cmp, device="cpu", sizes=(3,), rounds=1, n_sigs=12)
+    batch_phase(cmp, device="cpu", sizes=(3,), rounds=1, n_sigs=64)
     topo_phase(cmp, device="cpu", n_pods=n_pods, rounds=1)
     preempt_phase(cmp, device="cpu", n_nodes=40, rounds=2, reconciles=2)
+    fused_phase(cmp, device="cpu", n_pods=400, n_sigs=100, rounds=1,
+                ticks=3, min_vec=1)
     log(json.dumps({"ok": True, "device": {"platform": "cpu",
                                            "kind": "cpu", "count": 1}}))
     return 0

@@ -18,7 +18,8 @@ disruption controller's consolidation walks (the reference's
 snapshot and a candidate list, without budgets. ``preempt_case`` makes
 the preemption kernel's (K8) hazard tables, and ``preempt_cluster`` a
 running cluster, in either package's objects, whose next provisioning
-round must preempt.
+round must preempt. ``fused_case`` makes the fused block scan's (K5)
+arena cases, and ``striped_cluster`` its 50,000-pod cell.
 """
 
 from __future__ import annotations
@@ -131,6 +132,114 @@ def example_case(name: str, base: Callable = example_arrays, G: int = 8,
     statics = dict(T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, K=K, M=M,
                    V=st.get("V", 0), Q=Q, n_max=st["n_max"])
     return arrays, statics
+
+
+# ---------------------------------------------------------------------------
+# synthetic fused-scan (K5) inputs
+# ---------------------------------------------------------------------------
+
+#: the fusion width of the fused cases (hostpack.DEV_FUSE)
+FUSE = 4
+
+#: the fused scan's parity cases: every K == 0 arena case, whose fuse
+#: flags alternate a vectorized block with a sequential one (the flags
+#: are data: a vectorized block of groups that contend still follows the
+#: reference's merge formula, which the byte tests hold), and "striped",
+#: four pools with disjoint types whose groups admit one each, with
+#: existing nodes, and whose flags are the solver's plan (admit runs
+#: ANDed with existing-compat runs)
+FUSED_CASES = tuple(c for c in CASES if c != "min_values") + ("striped",)
+
+
+def fused_case(name: str, base: Callable = example_arrays, G: int = 8,
+               **kw) -> Tuple[Dict, Dict]:
+    """(arrays, statics) of one fused case (``FUSED_CASES``): the arena
+    case's arrays plus the [G] ``fuse`` flags, statics with F = FUSE."""
+    if name not in FUSED_CASES:
+        raise ValueError(f"unknown fused case {name!r}; one of "
+                         f"{FUSED_CASES}")
+    if name != "striped":
+        arrays, st = example_case(name, base=base, G=G, **kw)
+        rng = np.random.RandomState(7)
+        fuse = np.ones(G, bool)
+        fuse[0::FUSE] = rng.rand(G // FUSE) < 0.5   # never read
+        fuse[FUSE + 2::2 * FUSE] = False            # odd blocks: sequential
+        arrays["fuse"] = fuse
+        return arrays, dict(st, F=FUSE)
+    from .models.encoding import independent_runs
+    G = max(G, 16)
+    arrays, st = example_case("existing", base=base, G=G, **kw)
+    T, E = arrays["A"].shape[0], st["E"]
+    P = 4
+    Z, C = arrays["agz"].shape[1], arrays["agc"].shape[1]
+    # pool p owns types [p*T/P, (p+1)*T/P); group g admits pool stripe[g]
+    # (a repeat breaks a run); existing node e is compatible with the
+    # groups of pool e % P only
+    stripe = np.array([0, 1, 2, 3, 0, 0, 1, 2, 3, 1, 2, 0, 3, 3, 0, 1]
+                      * (G // 16 + 1))[:G]
+    pt = np.zeros((P, T), bool)
+    for p in range(P):
+        pt[p, p * T // P:(p + 1) * T // P] = True
+    admit = np.zeros((G, P), bool)
+    admit[np.arange(G), stripe] = True
+    rng = np.random.RandomState(11)
+    arrays.update(
+        pool_types=pt, pool_agz=np.ones((P, Z), bool),
+        pool_agc=np.ones((P, C), bool), admit=admit,
+        daemon=rng.randint(0, 1 << 12, size=(G, P, arrays["A"].shape[1])
+                           ).astype(np.int64),
+        pool_limit=np.full((P, arrays["A"].shape[1]), -1, np.int64),
+        pool_used0=np.zeros((P, arrays["A"].shape[1]), np.int64),
+        ex_compat=stripe[:, None] == (np.arange(E) % P)[None, :])
+    arrays["fuse"] = independent_runs(admit) & independent_runs(
+        arrays["ex_compat"])
+    return arrays, dict(st, P=P, F=FUSE)
+
+
+#: the striped cluster's NodePools, one an instance family (the families
+#: of the reference's ``bench.build_config7``)
+STRIPE_FAMILIES = ("m5", "c5", "r5", "m6i", "c6i")
+
+
+def striped_cluster(env, n_pods: int = 50_000, n_sigs: int = 500,
+                    n_existing: int = 0, api=None):
+    """The fused scan's cell: ``n_sigs`` signatures of n_pods/n_sigs pods
+    each, cpu and memory drawn as the reference's
+    ``bench.build_batch_snapshots`` draws them, signature i pinned to the
+    NodePool of family ``STRIPE_FAMILIES[i % 5]`` (one NodePool per
+    instance family, each over its family of the full catalog). Adjacent
+    groups in canonical order that admit disjoint pools form the runs
+    the encoder fuses. ``n_existing`` adds that many ready nodes (16 cpu,
+    64Gi, 58 pods, as the reference's fused-kernel test builds its one,
+    zones round-robin) labeled with the families round-robin, so each is
+    compatible with one family's groups: the vectorized blocks fill
+    existing rows, and the existing-compat runs follow the pools.
+    ``api`` as ``topo_api``."""
+    a = topo_api(api)
+    L = a.L
+    fams = STRIPE_FAMILIES
+    per = max(1, n_pods // n_sigs)
+    pods = []
+    for i in range(n_sigs):
+        cnt = per if i < n_sigs - 1 else n_pods - per * (n_sigs - 1)
+        pods += a.make_pods(cnt, cpu=f"{100 + (i * 7) % 400}m",
+                            memory=f"{256 + (i * 13) % 700}Mi",
+                            prefix=f"sc{i:03d}",
+                            node_selector={L.INSTANCE_FAMILY:
+                                           fams[i % len(fams)]})
+    pools = [env.nodepool(f"stripe-{f}", requirements=[
+        {"key": L.INSTANCE_FAMILY, "operator": "In", "values": [f]}])
+        for f in fams]
+    # the reference's Environment keeps its zones on its fake EC2
+    zones = [z.name for z in getattr(env, "ec2", env).zones]
+    existing = [a.ExistingNode(
+        name=f"sx-{e:03d}",
+        labels={L.ARCH: "amd64", L.OS: "linux", L.ZONE: zones[e % len(zones)],
+                L.INSTANCE_FAMILY: fams[e % len(fams)]},
+        allocatable=a.Resources.parse(
+            {"cpu": "16", "memory": "64Gi", "pods": 58}))
+        for e in range(n_existing)]
+    return env.snapshot(pods, pools, existing_nodes=existing)
 
 
 # ---------------------------------------------------------------------------
@@ -360,16 +469,22 @@ def tile_lanes(lanes: dict, reps: int) -> dict:
 
 
 def pack_statics(statics: dict) -> tuple:
-    """Positional statics of ``hostpack.pack_inputs1`` (F=1)."""
+    """Positional statics of ``hostpack.pack_inputs1`` (F from the
+    statics, 1 when absent)."""
     s = statics
     return (s["T"], s["D"], s["Z"], s["C"], s["G"], s["E"], s["P"], s["K"],
-            s["M"], 1, s["Q"])
+            s["M"], s.get("F", 1), s["Q"])
 
 
 def solve_statics(statics: dict) -> dict:
-    """Keyword statics of ``solve_scan_packed1``."""
-    return {k: statics[k] for k in ("T", "D", "Z", "C", "G", "E", "P",
-                                    "n_max", "K", "V", "M", "Q")}
+    """Keyword statics of ``solve_scan_packed1``; F only for a fused
+    arena (F > 1), so an unfused arena's statics also fit the
+    checkpointed and suffix solves."""
+    out = {k: statics[k] for k in ("T", "D", "Z", "C", "G", "E", "P",
+                                   "n_max", "K", "V", "M", "Q")}
+    if statics.get("F", 1) > 1:
+        out["F"] = statics["F"]
+    return out
 
 
 def warm_cluster(pods: int = 50_000, pending_frac: float = 0.01,

@@ -211,12 +211,26 @@ class SnapshotEncoding:
     #: required (anti-)affinity) — a pure function of the signatures,
     #: computed from the bank so the solver skips a per-group python scan
     topo_any: bool = False
+    #: [G] bool — lazy cache of independent_runs(admit); see fused_runs()
+    fuse_prev: Optional[np.ndarray] = None
     #: [G] int64 resolved scheduling priority per group (None when every
     #: pod is priority 0 — the wire then stays Q=0 / prio-free). The
     #: kernel's DECISIONS never read it (canonical order already encodes
     #: priority); it feeds per-tier leftover reporting and the
     #: preemption search's demand selection
     prio: Optional[np.ndarray] = None
+
+    def fused_runs(self) -> np.ndarray:
+        """[G] bool ``same_run_as_prev`` over the ADMIT axis: True at g
+        means group g's admit row is disjoint from every admit row of
+        the greedy run containing g-1, so steps 1-4 of the device scan
+        can batch g with that run (ops/ffd_torch.py fused scan). Pure
+        function of ``admit``, computed once per encoding on first use.
+        A rows-tier delta keeps the encoding and never moves ``admit``,
+        so the cache stays valid across warm ticks."""
+        if self.fuse_prev is None:
+            self.fuse_prev = independent_runs(self.admit)
+        return self.fuse_prev
 
     @property
     def mv_K(self) -> int:
@@ -225,6 +239,38 @@ class SnapshotEncoding:
     @property
     def mv_M(self) -> int:
         return 0 if self.mv_pairs_t is None else self.mv_pairs_t.shape[1]
+
+
+def independent_runs(rows: np.ndarray) -> np.ndarray:
+    """Greedy maximal runs of pairwise-disjoint boolean rows.
+
+    Returns ``same_run_as_prev`` [G] bool: True at g means row g shares
+    no True column with ANY row of the run containing g-1 (tracked as
+    the running OR of the current run), so g joins that run; False
+    starts a new run at g. Any two rows inside one run are therefore
+    pairwise disjoint — the exactness precondition of the fused device
+    scan (two groups admitting disjoint pool sets cannot contend for a
+    slot, an existing node, or a pool budget, so their fill phases
+    commute). An all-False row is disjoint from everything and joins
+    any run, which is right for the padded tail groups (n=0, admit
+    all-False).
+
+    Greedy maximal is not optimal run-partitioning, but it is O(G*P),
+    deterministic, and order-preserving — the scan order IS the FFD
+    decision order and must not be permuted."""
+    G = rows.shape[0]
+    out = np.zeros(G, dtype=bool)
+    if G == 0:
+        return out
+    acc = rows[0].copy()
+    for g in range(1, G):
+        r = rows[g]
+        if not (r & acc).any():
+            out[g] = True
+            acc |= r
+        else:
+            acc = r.copy()
+    return out
 
 
 #: C-speed sort key over Pod._nskey (set eagerly in Pod.__init__)

@@ -2,6 +2,7 @@
 
 ``csrc/packed_io.cu`` (K1: ``unpack_bits``, ``pack_outputs``),
 ``csrc/ffd_scan.cu`` (K2: ``ffd_slot_headroom``, ``ffd_group_commit``),
+``csrc/fused.cu`` (K5: ``ffd_fused_headroom``, ``ffd_fused_commit``),
 ``csrc/ckpt.cu`` (K3: ``ffd_bank_store``, ``ffd_bank_load``),
 ``csrc/consolidation.cu`` (K7: ``consol_absorb``, ``subset_gather``,
 ``subset_summary``; wrappers in ``ops/consolidation_cuda.py``) and
@@ -46,8 +47,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("packed_io.cu", "ffd_scan.cu", "ckpt.cu", "consolidation.cu",
-           "pruned.cu", "topo.cu")
-HEADERS = ("ffd_common.cuh",)
+           "pruned.cu", "topo.cu", "fused.cu")
+HEADERS = ("ffd_common.cuh", "ffd_step.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -63,7 +64,8 @@ LAUNCHES: Dict[str, int] = {"unpack_bits": 0, "ffd_slot_headroom": 0,
                             "subset_summary": 0, "ffd_pruned_select": 0,
                             "ffd_pruned_headroom": 0,
                             "ffd_pruned_commit": 0, "topo_group_start": 0,
-                            "topo_pour": 0, "topo_record_plain": 0}
+                            "topo_pour": 0, "topo_record_plain": 0,
+                            "ffd_fused_headroom": 0, "ffd_fused_commit": 0}
 
 _LIB = None
 _BUILD_INFO: dict = {}
@@ -149,6 +151,9 @@ def _lib():
             for fn in (lib.karp_topo_group_start, lib.karp_topo_pour,
                        lib.karp_topo_record_plain):
                 fn.argtypes = [vp, vp, ll, vp]
+            for fn in (lib.karp_ffd_fused_headroom,
+                       lib.karp_ffd_fused_commit):
+                fn.argtypes = [vp, ll, vp]
             lib.karp_error_string.argtypes = [ctypes.c_int]
             lib.karp_error_string.restype = ctypes.c_char_p
             for fn in (lib.karp_unpack_bits, lib.karp_pack_outputs,
@@ -159,7 +164,9 @@ def _lib():
                        lib.karp_subset_summary, lib.karp_ffd_pruned_select,
                        lib.karp_ffd_pruned_headroom,
                        lib.karp_ffd_pruned_commit, lib.karp_topo_group_start,
-                       lib.karp_topo_pour, lib.karp_topo_record_plain):
+                       lib.karp_topo_pour, lib.karp_topo_record_plain,
+                       lib.karp_ffd_fused_headroom,
+                       lib.karp_ffd_fused_commit):
                 fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
@@ -304,11 +311,13 @@ class ScanState:
     size, is the lane stride the kernels get).
 
     ``cand_rows`` sizes the candidate scratch ``cand`` (default N rows;
-    the pruned scan keeps S selected rows there)."""
+    the pruned scan keeps S selected rows there). ``Fu`` keeps that many
+    groups' scratch side by side (the fused scan): ``cand`` [Fu*N, T]
+    and ``k`` [Fu*N], group i's rows at i*N."""
 
     def __init__(self, inp: KernelInputs, carry: Carry, *, E: int, P: int,
                  V: int = 0, s0: int = 0, s1: int = None, lanes: int = None,
-                 cand_rows: int = None):
+                 cand_rows: int = None, Fu: int = 1):
         dev = inp.A.device
         L = 1 if lanes is None else lanes
         lead = () if lanes is None else (L,)
@@ -361,9 +370,10 @@ class ScanState:
             if lanes is not None:
                 lane_bytes[nm] = t[0].numel() * t.element_size()
         self.inp, self.carry = inp, carry
-        self.cand = torch.empty(lead + (N if cand_rows is None else
-                                        cand_rows, T), dtype=b, device=dev)
-        self.k = torch.empty(lead + (N,), dtype=i64, device=dev)
+        self.cand = torch.empty(lead + (Fu * (N if cand_rows is None else
+                                              cand_rows), T),
+                                dtype=b, device=dev)
+        self.k = torch.empty(lead + (Fu * N,), dtype=i64, device=dev)
         self.hrn = torch.empty(lead + (T,), dtype=i64, device=dev)
         self.candn = torch.empty(lead + (T,), dtype=b, device=dev)
         self.takes = torch.empty(lead + (s1 - s0, N), dtype=torch.int32,
@@ -423,17 +433,18 @@ def solve_scan_cuda(inp: KernelInputs, n_max: int, E: int, P: int,
 
 
 def _packed_inputs(buf: torch.Tensor, T, D, Z, C, G, E, P, K, M,
-                   Q) -> KernelInputs:
-    """The arena's inputs: one unpack_bits launch, then views."""
+                   Q, F=1) -> KernelInputs:
+    """The arena's inputs: one unpack_bits launch, then views (the
+    ``fuse`` flags too when F > 1)."""
     _need(buf, "buf", torch.int64)
-    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, K, M, 1, Q))
-    n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P, K, M, 1, Q))
+    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, K, M, F, Q))
+    n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P, K, M, F, Q))
     if buf.numel() != n_i64 + nwords(n_bits):
         raise ValueError(f"arena has {buf.numel()} words, the statics "
                          f"need {n_i64 + nwords(n_bits)}")
     bool_flat = unpack_bits(buf[n_i64:], n_bits)
     return _unpack_inputs(buf[:n_i64], bool_flat, T, D, Z, C, G, E, P, K, M,
-                          1, Q)
+                          F, Q)
 
 
 def solve_scan_packed1_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E, P,
@@ -569,35 +580,130 @@ def solve_scan_suffix_cuda(buf: torch.Tensor, bank: Carry, *, T, D, Z, C,
 # ---------------------------------------------------------------------------
 
 def _packed_inputs_lanes(bufs: torch.Tensor, T, D, Z, C, G, E, P, K, M,
-                         Q) -> KernelInputs:
+                         Q, F=1) -> KernelInputs:
     """The [B, W] stack's inputs: one lane-axis unpack_bits launch, then
-    [B, ...] views (each lane's i64 fields W words apart)."""
+    [B, ...] views (each lane's i64 fields W words apart; the ``fuse``
+    flags too when F > 1)."""
     _need(bufs, "bufs", torch.int64)
     if bufs.dim() != 2:
         raise ValueError(f"bufs must be [B, W], got {tuple(bufs.shape)}")
-    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, K, M, 1, Q))
-    n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P, K, M, 1, Q))
+    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, K, M, F, Q))
+    n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P, K, M, F, Q))
     if bufs.shape[1] != n_i64 + nwords(n_bits):
         raise ValueError(f"arenas have {bufs.shape[1]} words, the statics "
                          f"need {n_i64 + nwords(n_bits)}")
     bools = unpack_bits_lanes(bufs[:, n_i64:], n_bits)
     return _unpack_inputs_lanes(bufs[:, :n_i64], bools, T, D, Z, C, G, E, P,
-                                K, M, Q)
+                                K, M, Q, F)
 
 
 def solve_scan_packed1_many_cuda(bufs: torch.Tensor, *, T, D, Z, C, G, E, P,
-                                 n_max, K=0, V=0, M=0, Q=0) -> torch.Tensor:
+                                 n_max, K=0, V=0, M=0, Q=0,
+                                 F=1) -> torch.Tensor:
     """B packed solves on the card in one dispatch: one lane-axis
-    unpack_bits, 2*G lane-axis K2 launches, one lane-axis pack_outputs,
-    whatever B is; no synchronisation. Returns [B, Wout]."""
+    unpack_bits, 2*G lane-axis K2 launches (F > 1: 2*G/F lane-axis K5
+    launches, ``_fused_scan``), one lane-axis pack_outputs, whatever B
+    is; no synchronisation. Returns [B, Wout]."""
     B = bufs.shape[0]
-    inp = _packed_inputs_lanes(bufs, T, D, Z, C, G, E, P, K, M, Q)
-    st = ScanState(inp, carry0(inp, E + n_max, E, lanes=B), E=E, P=P, V=V,
-                   lanes=B)
-    for g in range(G):
-        ffd_slot_headroom(st, g)
-        ffd_group_commit(st, g)
+    inp = _packed_inputs_lanes(bufs, T, D, Z, C, G, E, P, K, M, Q, F)
+    carry = carry0(inp, E + n_max, E, lanes=B)
+    if F > 1:
+        st = _fused_scan(FusedState(inp, carry, E=E, P=P, Fu=F, lanes=B))
+    else:
+        st = ScanState(inp, carry, E=E, P=P, V=V, lanes=B)
+        for g in range(G):
+            ffd_slot_headroom(st, g)
+            ffd_group_commit(st, g)
     return pack_outputs_lanes(st.takes, st.leftover, st.carry)
+
+
+# ---------------------------------------------------------------------------
+# K5 wrappers: the fused block scan
+# ---------------------------------------------------------------------------
+
+class _FusedArgs(ctypes.Structure):
+    """Mirror of ``struct FusedArgs`` in csrc/fused.cu."""
+    _fields_ = [("f", _FfdArgs), ("fuse", ctypes.c_void_p),
+                ("Fu", ctypes.c_longlong),
+                ("fuse_lane_bytes", ctypes.c_longlong)]
+
+
+class FusedState(ScanState):
+    """A ``ScanState`` with Fu groups' scratch side by side (``cand``
+    [Fu*N, T], ``k`` [Fu*N]) and the ``fuse`` flags of the arena
+    (``inp.fuse``, [G] or [L, G] for lanes, each lane contiguous), plus
+    the ctypes argument block of the K5 kernels. No minValues floors."""
+
+    def __init__(self, inp: KernelInputs, carry: Carry, *, E: int, P: int,
+                 Fu: int, lanes: int = None):
+        G = inp.R.shape[-2]
+        if inp.mv_floor is not None:
+            raise ValueError("the fused scan takes no minValues floors")
+        if Fu < 2 or G % Fu:
+            raise ValueError(f"fusion width Fu={Fu} must be at least 2 and "
+                             f"divide G={G}")
+        super().__init__(inp, carry, E=E, P=P, lanes=lanes, Fu=Fu)
+        if inp.fuse is None:
+            raise ValueError("a fused scan needs the arena's fuse flags")
+        _need(inp.fuse, "fuse", torch.bool,
+              (G,) if lanes is None else (lanes, G), lanes=lanes is not None)
+        self.Fu = Fu
+        self.fargs = _FusedArgs(
+            f=self.args, fuse=inp.fuse.data_ptr(), Fu=Fu,
+            fuse_lane_bytes=0 if lanes is None else inp.fuse.stride(0))
+
+    def block_cand(self) -> torch.Tensor:
+        """``cand`` as [(L,) Fu, N, T]."""
+        N, T = self.carry.used.shape[-2], self.cand.shape[-1]
+        return self.cand.view(self.cand.shape[:-2] + (self.Fu, N, T))
+
+    def block_k(self) -> torch.Tensor:
+        """``k`` as [(L,) Fu, N]."""
+        return self.k.view(self.k.shape[:-1] + (self.Fu, -1))
+
+
+def _fused_launch(name: str, fs: FusedState, g0: int) -> None:
+    if g0 % fs.Fu:
+        raise ValueError(f"block start {g0} is not a multiple of Fu={fs.Fu}")
+    _in_window(fs, g0)
+    lib = _lib()
+    err = getattr(lib, f"karp_{name}")(ctypes.byref(fs.fargs), g0,
+                                       _stream())
+    LAUNCHES[name] += 1
+    _check(err, name)
+
+
+def ffd_fused_headroom(fs: FusedState, g0: int) -> None:
+    """Steps 1-3 of groups [g0, g0 + Fu) from the carry as it stands
+    (the block-start carry): fills ``fs.block_cand()`` and
+    ``fs.block_k()``."""
+    _fused_launch("ffd_fused_headroom", fs, g0)
+
+
+def ffd_fused_commit(fs: FusedState, g0: int) -> None:
+    """The block of groups [g0, g0 + Fu), each lane by its own branch:
+    updates the carry in place and writes ``fs.takes`` /
+    ``fs.leftover`` rows [g0, g0 + Fu)."""
+    _fused_launch("ffd_fused_commit", fs, g0)
+
+
+def _fused_scan(fs: FusedState) -> FusedState:
+    """Every block of the scan: two launches each, no synchronisation."""
+    for g0 in range(fs.s0, fs.s1, fs.Fu):
+        ffd_fused_headroom(fs, g0)
+        ffd_fused_commit(fs, g0)
+    return fs
+
+
+def solve_scan_packed1_fused_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E,
+                                  P, n_max, Q=0, F) -> torch.Tensor:
+    """The fused packed solve on the card (F > 1, K = 0): the one-lane
+    call of ``solve_scan_packed1_many_cuda``: unpack_bits, 2*G/F K5
+    launches, pack_outputs."""
+    _need(buf, "buf", torch.int64)
+    return solve_scan_packed1_many_cuda(
+        buf[None], T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, n_max=n_max, Q=Q,
+        F=F)[0]
 
 
 # ---------------------------------------------------------------------------

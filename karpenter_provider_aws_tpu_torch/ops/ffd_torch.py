@@ -30,7 +30,12 @@ groups up to the live bound, splicing its own entry carries over the
 bank's tail.
 
 K4, ``solve_scan_packed1_many``: B arenas of one statics bucket in one
-dispatch (the reference's vmap; a lane axis on the kernels). K6, the
+dispatch (the reference's vmap; a lane axis on the kernels). K5, the
+fused block scan (``solve_scan_packed1`` and ``_many`` with F > 1, the
+reference's ``_solve_fused``): G/F blocks of F groups; a block whose
+``fuse`` flags prove its groups pairwise disjoint runs every fill from
+the block-start carry, merges them, then opens new nodes group by group,
+and any other block runs F plain steps. K6, the
 pruned scan (``solve_scan_packed1_pruned`` and ``_many``): the G-axis
 variant of the scan, with a per-slot capacity bound in the carry and
 exact work only for the first S bound-positive slots; a trailing bail
@@ -82,6 +87,8 @@ class KernelInputs(NamedTuple):
     mv_floor: Optional[torch.Tensor] = None    # [P, K] int64
     mv_pairs_t: Optional[torch.Tensor] = None  # [K, M] int64
     mv_pairs_v: Optional[torch.Tensor] = None  # [K, M] int64 (pad = V)
+    #: [G] bool same_run_as_prev flags of a fused arena (F > 1), else None
+    fuse: Optional[torch.Tensor] = None
 
 
 class Carry(NamedTuple):
@@ -96,7 +103,8 @@ class Carry(NamedTuple):
 
 
 _BOOL_FIELDS = frozenset(("avail_zc", "F", "agz", "agc", "admit",
-                          "pool_types", "pool_agz", "pool_agc", "ex_compat"))
+                          "pool_types", "pool_agz", "pool_agc", "ex_compat",
+                          "fuse"))
 
 
 def kernel_inputs_from_numpy(arrays: dict, device) -> KernelInputs:
@@ -405,6 +413,117 @@ def _solve_scan_ref(inp: KernelInputs, n_max: int, E: int, P: int,
 
 
 # ---------------------------------------------------------------------------
+# plain versions of K5: the fused block scan
+# ---------------------------------------------------------------------------
+#
+# The reference's ``_solve_fused`` (ops/ffd_jax.py) in two parts, one per
+# CUDA kernel (csrc/fused.cu):
+#
+# - headroom: steps 1-3 of each of the block's Fu groups, all from the
+#   block-start carry (``_slot_headroom_ref`` per group);
+# - commit: the block. A block whose last Fu-1 ``fuse`` flags are all
+#   True (``blk_indep``; the first flag is ignored) is vectorized: each
+#   group's pool caps and greedy fill against the block-start state, the
+#   merge of the Fu fills (sums of used and pool_used, the narrowing of
+#   each slot by the groups that filled it), then the new nodes of each
+#   group in group order, each from its own remaining count. Any other
+#   block runs Fu plain group steps.
+
+def block_indep(fuse: torch.Tensor, Fu: int) -> torch.Tensor:
+    """[..., G/Fu] bool: the blocks that take the vectorized branch."""
+    return fuse.reshape(fuse.shape[:-1] + (-1, Fu))[..., 1:].all(dim=-1)
+
+
+def _fused_headroom_ref(inp: KernelInputs, carry: Carry, g0: int, Fu: int,
+                        *, E: int, P: int, V: int = 0):
+    """Steps 1-3 of groups [g0, g0 + Fu) from ``carry``: (cand [Fu, N, T],
+    k [Fu, N]). The plain version of ``ffd_fused_headroom``."""
+    parts = [_slot_headroom_ref(inp, carry, g, E=E, P=P, V=V)
+             for g in range(g0, g0 + Fu)]
+    return (torch.stack([c for c, _ in parts]),
+            torch.stack([k for _, k in parts]))
+
+
+def _vec_block_ref(inp: KernelInputs, carry: Carry, g0: int, Fu: int, *,
+                   E: int, P: int, V: int = 0):
+    """The vectorized branch (the reference's ``vec_block``): (new carry,
+    takes [Fu, N], n_rem [Fu])."""
+    fills = [_fill_phase_ref(inp, carry, g, E=E, P=P, V=V)
+             for g in range(g0, g0 + Fu)]
+    take_f = torch.stack([f[0] for f in fills])                  # [Fu, N]
+    cand_f = torch.stack([f[2] for f in fills])                  # [Fu, N, T]
+    R = inp.R[g0:g0 + Fu]
+    used = carry.used + (take_f[:, :, None] * R[:, None, :]).sum(dim=0)
+    open_ = carry.pool >= 0
+    filled_f = (take_f > 0) & open_[None, :]
+    any_filled = filled_f.any(dim=0)
+    fit_all = (used[:, None, :] <= inp.A[None, :, :]).all(dim=-1)
+    cand_sel = (filled_f[:, :, None] & cand_f).any(dim=0)
+    types = torch.where(any_filled[:, None], cand_sel & fit_all,
+                        carry.types)
+    agz_keep = torch.where(filled_f[:, :, None],
+                           inp.agz[g0:g0 + Fu][:, None, :], True).all(dim=0)
+    zones = torch.where(any_filled[:, None], carry.zones & agz_keep,
+                        carry.zones)
+    agc_keep = torch.where(filled_f[:, :, None],
+                           inp.agc[g0:g0 + Fu][:, None, :], True).all(dim=0)
+    ct = torch.where(any_filled[:, None], carry.ct & agc_keep, carry.ct)
+    pool = carry.pool.long()
+    seg = torch.where(open_, pool.clamp(0, P - 1), torch.full_like(pool, P))
+    pool_used = carry.pool_used
+    for i in range(Fu):
+        tbp = torch.zeros(P + 1, dtype=_I64, device=take_f.device)
+        tbp = tbp.index_add(0, seg, take_f[i])[:P]
+        pool_used = pool_used + tbp[:, None] * R[i][None, :]
+    pool_arr, alive, num_nodes = carry.pool, carry.alive, carry.num_nodes
+    takes, lefts = [], []
+    for i in range(Fu):
+        (tk, used, types, zones, ct, pool_arr, alive, num_nodes, pool_used,
+         lf, _) = _new_nodes_phase_ref(
+            inp, g0 + i, take_f[i], used, types, zones, ct, pool_arr, alive,
+            num_nodes, pool_used, fills[i][1], E=E, P=P, V=V)
+        takes.append(tk)
+        lefts.append(lf.reshape(1))
+    return (Carry(used=used, types=types, zones=zones, ct=ct, pool=pool_arr,
+                  alive=alive, num_nodes=num_nodes, pool_used=pool_used),
+            torch.stack(takes), torch.cat(lefts))
+
+
+def _fused_block_ref(inp: KernelInputs, carry: Carry, g0: int, Fu: int,
+                     indep: bool, *, E: int, P: int, V: int = 0):
+    """One block of Fu groups: (new carry, takes [Fu, N] int32, n_rem
+    [Fu]). The plain version of ``ffd_fused_headroom`` then
+    ``ffd_fused_commit``."""
+    if indep:
+        carry, takes, lefts = _vec_block_ref(inp, carry, g0, Fu, E=E, P=P,
+                                             V=V)
+        return carry, takes.to(torch.int32), lefts
+    takes, lefts = [], []
+    for g in range(g0, g0 + Fu):
+        carry, take, n_rem = _group_step_ref(inp, carry, g, E=E, P=P, V=V)
+        takes.append(take.to(torch.int32))
+        lefts.append(n_rem.reshape(1))
+    return carry, torch.stack(takes), torch.cat(lefts)
+
+
+def _solve_fused_ref(inp: KernelInputs, n_max: int, E: int, P: int,
+                     Fu: int, V: int = 0):
+    """Plain version of the fused block scan (the reference's
+    ``_solve_fused``): (takes [G, N] int32, leftover [G], final carry).
+    ``inp.fuse`` holds the flags; G is a multiple of Fu."""
+    G = inp.R.shape[0]
+    carry = carry0(inp, E + n_max, E)
+    indep = block_indep(inp.fuse, Fu).tolist()
+    takes, lefts = [], []
+    for b in range(G // Fu):
+        carry, tk, lf = _fused_block_ref(inp, carry, b * Fu, Fu, indep[b],
+                                         E=E, P=P, V=V)
+        takes.append(tk)
+        lefts.append(lf)
+    return torch.cat(takes), torch.cat(lefts), carry
+
+
+# ---------------------------------------------------------------------------
 # plain versions of K3: the checkpointed scan and the suffix re-solve
 # ---------------------------------------------------------------------------
 
@@ -469,12 +588,12 @@ def _solve_suffix_ref(inp: KernelInputs, bank: Carry, n_max: int, E: int,
     return takes, left, carry, bank
 
 
-def _packed_inputs_ref(buf, T, D, Z, C, G, E, P, K, M, Q):
-    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, K, M, 1, Q))
-    n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P, K, M, 1, Q))
+def _packed_inputs_ref(buf, T, D, Z, C, G, E, P, K, M, Q, F=1):
+    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, K, M, F, Q))
+    n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P, K, M, F, Q))
     bool_flat = _unpack_bits_ref(buf[n_i64:n_i64 + nwords(n_bits)], n_bits)
     return _unpack_inputs(buf[:n_i64], bool_flat, T, D, Z, C, G, E, P, K, M,
-                          1, Q)
+                          F, Q)
 
 
 def _as_arena(buf, device):
@@ -600,9 +719,9 @@ def _pack_outputs_ref(takes, leftover, carry: Carry) -> torch.Tensor:
 
 def _unpack_inputs(buf_i64: torch.Tensor, bool_flat: torch.Tensor,
                    T, D, Z, C, G, E, P, K=0, M=0, F=1, Q=0) -> KernelInputs:
-    """Views of the arena by the hostpack layouts. The Q>0 priority
-    section is dropped: decisions never read it (canonical group order
-    already encodes priority)."""
+    """Views of the arena by the hostpack layouts, the ``fuse`` flags
+    included when F > 1. The Q>0 priority section is dropped: decisions
+    never read it (canonical group order already encodes priority)."""
     vals = split(buf_i64, in_layout_i64(T, D, Z, C, G, E, P, K, M, F, Q))
     vals.update(split(bool_flat, in_layout_bool(T, D, Z, C, G, E, P, K, M,
                                                 F, Q)))
@@ -613,26 +732,41 @@ def _unpack_inputs(buf_i64: torch.Tensor, bool_flat: torch.Tensor,
     return KernelInputs(**vals)
 
 
+def _check_fuse(F: int, G: int, K: int) -> None:
+    """A fused arena (F > 1): G a multiple of F and no minValues floors
+    (the solver packs F = 1 when K > 0)."""
+    if F < 1 or G % F:
+        raise ValueError(f"fusion width F={F} does not divide G={G}")
+    if F > 1 and K:
+        raise ValueError(f"a fused arena (F={F}) carries no minValues "
+                         f"floors; got K={K}")
+
+
 def solve_scan_packed1(buf, *, T: int, D: int, Z: int, C: int, G: int,
                        E: int, P: int, n_max: int, K: int = 0, V: int = 0,
                        M: int = 0, F: int = 1, Q: int = 0,
                        device=None) -> torch.Tensor:
     """One int64 arena in, one int64 output buffer out (the reference's
-    ``solve_scan_packed1`` with F=1). ``buf`` is a numpy array or a
-    tensor; it runs on ``device`` (default: the tensor's device, else
-    cuda). CUDA runs the hand-written kernels; the CPU runs the plain
-    versions."""
-    if F != 1:
-        raise NotImplementedError(
-            "fused arenas (F>1) are the K5 kernel (ROADMAP.md queue 2); "
-            "pack with F=1")
+    ``solve_scan_packed1``; F > 1 is the fused block scan, K5). ``buf``
+    is a numpy array or a tensor; it runs on ``device`` (default: the
+    tensor's device, else cuda). CUDA runs the hand-written kernels; the
+    CPU runs the plain versions."""
+    _check_fuse(F, G, K)
     buf = _as_arena(buf, device)
     if buf.is_cuda:
+        if F > 1:
+            from .ffd_cuda import solve_scan_packed1_fused_cuda
+            return solve_scan_packed1_fused_cuda(
+                buf, T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, n_max=n_max, Q=Q,
+                F=F)
         from .ffd_cuda import solve_scan_packed1_cuda
         return solve_scan_packed1_cuda(buf, T=T, D=D, Z=Z, C=C, G=G, E=E,
                                        P=P, n_max=n_max, K=K, V=V, M=M, Q=Q)
-    inp = _packed_inputs_ref(buf, T, D, Z, C, G, E, P, K, M, Q)
-    takes, leftover, carry = _solve_scan_ref(inp, n_max, E, P, V)
+    inp = _packed_inputs_ref(buf, T, D, Z, C, G, E, P, K, M, Q, F)
+    if F > 1:
+        takes, leftover, carry = _solve_fused_ref(inp, n_max, E, P, F)
+    else:
+        takes, leftover, carry = _solve_scan_ref(inp, n_max, E, P, V)
     return _pack_outputs_ref(takes, leftover, carry)
 
 
@@ -665,13 +799,14 @@ def split_lanes(buf2d: torch.Tensor, layout) -> dict:
 
 
 def _unpack_inputs_lanes(bufs_i64: torch.Tensor, bools: torch.Tensor,
-                         T, D, Z, C, G, E, P, K=0, M=0, Q=0) -> KernelInputs:
+                         T, D, Z, C, G, E, P, K=0, M=0, Q=0,
+                         F=1) -> KernelInputs:
     """``_unpack_inputs`` over a lane axis: [B, ...] views of the i64
     rows of a [B, W] stack and of the [B, nbits] bool planes."""
     vals = split_lanes(bufs_i64, in_layout_i64(T, D, Z, C, G, E, P, K, M,
-                                               1, Q))
+                                               F, Q))
     vals.update(split_lanes(bools, in_layout_bool(T, D, Z, C, G, E, P, K, M,
-                                                  1, Q)))
+                                                  F, Q)))
     if K == 0:
         for nm in ("mv_floor", "mv_pairs_t", "mv_pairs_v"):
             vals.pop(nm, None)
@@ -687,16 +822,14 @@ def solve_scan_packed1_many(bufs, *, T: int, D: int, Z: int, C: int, G: int,
     reference's ``solve_scan_packed1_many``, a vmap of the packed body):
     a [B, W] stack of arenas in, a [B, Wout] stack of output buffers
     out, row b the output of ``solve_scan_packed1`` on arena b. CUDA
-    runs one lane-axis unpack, 2*G lane-axis scan launches and one
-    lane-axis pack whatever B is; the CPU runs the plain packed solve
-    lane by lane."""
-    if F != 1:
-        raise NotImplementedError(
-            "fused arenas (F>1) are the K5 kernel (ROADMAP.md queue 2); "
-            "pack with F=1")
+    runs one lane-axis unpack, 2*G lane-axis scan launches (2*G/F at
+    F > 1, each lane taking its own branch per block) and one lane-axis
+    pack whatever B is; the CPU runs the plain packed solve lane by
+    lane."""
+    _check_fuse(F, G, K)
     bufs = _as_arenas(bufs, device)
     st = dict(T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, n_max=n_max, K=K, V=V,
-              M=M, Q=Q)
+              M=M, F=F, Q=Q)
     if bufs.is_cuda:
         from .ffd_cuda import solve_scan_packed1_many_cuda
         return solve_scan_packed1_many_cuda(bufs, **st)

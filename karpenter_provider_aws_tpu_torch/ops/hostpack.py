@@ -15,6 +15,14 @@ from __future__ import annotations
 
 import numpy as np
 
+#: default fused-scan block width (groups batched per scan step when the
+#: encoder's run detection proves them pairwise pool/existing-disjoint):
+#: the one source for the solver knob (solver/cuda.py dev_fuse) and the
+#: plain scan's default. 4 cuts the scan's block count 4x on run-heavy
+#: snapshots (ops/ffd_torch.py ``_solve_fused_ref``; on the card
+#: csrc/fused.cu, two launches a block).
+DEV_FUSE = 4
+
 #: default exact-slot budget per pruned-kernel step: the one source for
 #: the kernel signature default (ops/ffd_torch.py) and the solver knob
 #: (solver/cuda.py dev_pruned_slots). The compat-aware bound pass counts

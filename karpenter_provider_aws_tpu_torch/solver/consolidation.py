@@ -272,14 +272,16 @@ class CUDAConsolidationEvaluator(ConsolidationEvaluator):
             return self._subset_fallback("group_cap")
 
         # padded union arena, reused verbatim while the encoder's version
-        # is unchanged (a version bump means some returned array moved)
+        # is unchanged (a version bump means some returned array moved);
+        # unfused: the subset lanes scan F = 1, as the reference's
+        # ndev=2 call here skips its fuse plan
         ver = self._sub_delta.version
         if (self._sub_prep is not None and self._sub_prep[0] is enc
                 and self._sub_prep[1] == ver):
             arrays, stt, tprice = self._sub_prep[2:]
         else:
             arrays, stt = solver._prep_device_inputs(enc, ex_alloc, ex_used,
-                                                     ex_compat)
+                                                     ex_compat, fuse=False)
             tprice = np.full(len(enc.types), BIG, dtype=np.int64)
             for ti, it in enumerate(enc.types):
                 p = it.cheapest_price()

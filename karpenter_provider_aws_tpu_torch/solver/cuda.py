@@ -21,6 +21,16 @@ the output buffer cross between host and device; the bank stays on the
 device. ``incremental=False`` encodes every snapshot from scratch and
 runs ``solve_scan_packed1``.
 
+The fused block scan (K5) follows the reference's plan
+(``_prep_device_inputs``): without minValues floors and with
+``dev_fuse_min_groups`` <= Gp <= ``dev_max_groups`` the arena is packed
+at F = ``dev_fuse`` (4) with the encoder's ``fuse`` flags (admit runs
+ANDed with existing-compat runs, the pad tail True), and the solve runs
+``solve_scan_packed1(F=4)``, recorded as ``kernel="fused"``, an
+incremental one too (the checkpointed scan is unfused). Single and
+batch dispatches record ``fuse``, ``scan_steps``, ``fused_blocks`` and
+``seq_blocks`` as the reference does.
+
 The G axis follows the reference's routing (solver/tpu.py): past the
 base scan's padded group cap (``dev_max_groups``, 4096) a solve runs the
 pruned scan (ops/ffd_torch.py ``solve_scan_packed1_pruned``, K6) up to
@@ -69,14 +79,15 @@ from ..apis.requirements import IN, Requirement, Requirements
 from ..apis.resources import Resources
 from ..models.delta import DeltaEncoder, full_existing_encode
 from ..models.encoding import SnapshotEncoding, encode_snapshot
-from ..models.encoding import canonical_pod_groups
+from ..models.encoding import canonical_pod_groups, independent_runs
 from ..ops import ffd, ffd_cuda
 from ..ops.consolidation_torch import subset_solve
-from ..ops.ffd_torch import (kernel_inputs_from_numpy, solve_scan_packed1,
+from ..ops.ffd_torch import (block_indep, kernel_inputs_from_numpy,
+                             solve_scan_packed1,
                              solve_scan_packed1_ckpt,
                              solve_scan_packed1_many,
                              solve_scan_packed1_pruned, solve_scan_suffix)
-from ..ops.hostpack import (DEV_PRUNED_SLOTS, pack_inputs1,
+from ..ops.hostpack import (DEV_FUSE, DEV_PRUNED_SLOTS, pack_inputs1,
                             pack_inputs1_state, patch_inputs1,
                             tier_leftovers, unpack_outputs1)
 from ..ops.topo import (TopoState, build_topo_encoding, fill_group_topo,
@@ -139,8 +150,7 @@ def topo_arrays(enc: SnapshotEncoding, tenc):
     D = enc.A.shape[1]
     G = len(enc.groups)
     z = np.zeros((0, D), np.int64)
-    arrays, stt = CUDASolver._prep_device_inputs(
-        enc, z, z, np.zeros((G, 0), bool))
+    arrays, stt = pad_device_inputs(enc, z, z, np.zeros((G, 0), bool))
     for k in ("mv_floor", "mv_pairs_t", "mv_pairs_v", "prio"):
         arrays.pop(k, None)
     Gp = stt["G"]
@@ -184,6 +194,108 @@ def safe_evcap(arrays: dict, rows: dict) -> int:
     top = int(n.max()) if n.size else 0
     P = np.asarray(arrays["pool_types"]).shape[0]
     return 1 << (top + P + 2 - 1).bit_length()
+
+
+def pad_device_inputs(enc: SnapshotEncoding, ex_alloc, ex_used, ex_compat):
+    """Pad one snapshot's encoding into the kernel's shape buckets: G, E
+    and P to powers of two (padded groups have n=0 and all-False rows,
+    padded existing rows are dead, padded pools admit nothing) and D to
+    8. Returns ``(arrays, statics)``; statics carry every pack/dispatch
+    static except n_max, with F = 1 (``CUDASolver._prep_device_inputs``
+    adds the fused-scan plan)."""
+    T, D = enc.A.shape
+    Z, C = len(enc.zones), enc.avail.shape[2]
+    P = len(enc.pools)
+    E = ex_alloc.shape[0]
+    G = len(enc.groups)
+    Gp = max(1, 1 << (G - 1).bit_length())
+    Ep = 1 << (E - 1).bit_length() if E else 0
+    Pp = max(1, 1 << (P - 1).bit_length())
+    Dp = max(8, D)
+
+    def padG(a):
+        return np.pad(a, [(0, Gp - G)] + [(0, 0)] * (a.ndim - 1))
+
+    def padD(a):
+        return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, Dp - D)])
+
+    arrays = dict(
+        A=padD(enc.A),
+        avail_zc=enc.avail.reshape(T, Z * C),
+        R=padG(padD(enc.R)), n=padG(enc.n), F=padG(enc.F),
+        agz=padG(enc.agz), agc=padG(enc.agc),
+        admit=np.pad(padG(enc.admit), [(0, 0), (0, Pp - P)]),
+        daemon=np.pad(padG(padD(enc.daemon)),
+                      [(0, 0), (0, Pp - P), (0, 0)]),
+    )
+    pool_types = np.zeros((Pp, T), bool)
+    pool_agz = np.zeros((Pp, Z), bool)
+    pool_agc = np.zeros((Pp, C), bool)
+    pool_limit = np.zeros((Pp, Dp), np.int64)  # limit 0: padded pools inert
+    pool_used0 = np.zeros((Pp, Dp), np.int64)
+    for p in enc.pools:
+        pool_types[p.index] = p.type_rows
+        pool_agz[p.index] = p.agz
+        pool_agc[p.index] = p.agc
+        lim = p.limit_vec if p.limit_vec is not None \
+            else np.full(D, -1, dtype=np.int64)
+        pool_limit[p.index, :D] = lim
+        pool_limit[p.index, D:] = -1
+        pool_used0[p.index, :D] = p.in_use_vec
+    arrays.update(pool_types=pool_types, pool_agz=pool_agz,
+                  pool_agc=pool_agc, pool_limit=pool_limit,
+                  pool_used0=pool_used0)
+    ex_alloc_p = np.zeros((Ep, Dp), np.int64)
+    ex_used_p = np.zeros((Ep, Dp), np.int64)
+    ex_compat_p = np.zeros((Gp, Ep), bool)
+    if E:
+        ex_alloc_p[:E, :D] = ex_alloc
+        ex_used_p[:E, :D] = ex_used
+        ex_compat_p[:G, :E] = ex_compat
+    arrays.update(ex_alloc=ex_alloc_p, ex_used0=ex_used_p,
+                  ex_compat=ex_compat_p)
+    K, V, M = enc.mv_K, enc.mv_V, enc.mv_M
+    if K:
+        mv_floor_p = np.zeros((Pp, K), np.int64)
+        mv_floor_p[:P] = enc.mv_floor
+        arrays.update(mv_floor=mv_floor_p, mv_pairs_t=enc.mv_pairs_t,
+                      mv_pairs_v=enc.mv_pairs_v)
+    Q = 0
+    if enc.prio is not None:
+        Q = 1
+        arrays["prio"] = padG(enc.prio)
+    return arrays, dict(T=T, D=Dp, Z=Z, C=C, G=Gp, E=Ep, P=Pp,
+                        K=K, V=V, M=M, F=1, Q=Q)
+
+
+def fuse_flags(enc: SnapshotEncoding, ex_compat, Gp: int) -> np.ndarray:
+    """The [Gp] ``fuse`` flags of the fused-scan plan: the encoder's
+    admit runs ANDed with the existing-compat runs (a block inside one
+    combined run is pairwise disjoint on both contention axes), the
+    padded tail True (its groups place nothing)."""
+    fuse = enc.fused_runs().copy()
+    if ex_compat.shape[1]:
+        fuse &= independent_runs(ex_compat)
+    return np.concatenate([fuse, np.ones(Gp - len(enc.groups), dtype=bool)])
+
+
+def dispatch_shape(Gp: int, Fu: int, fuse=None, fused_blocks: int = 0
+                   ) -> dict:
+    """The reference's dispatch evidence (solver/tpu.py
+    ``_record_dispatch``): the block width, the scan's step count and
+    its vectorized / sequential block split (``fused_blocks`` counted
+    from ``fuse`` when given, else as passed: a batch's per-lane mean)."""
+    steps = Gp // Fu if Fu > 1 else Gp
+    if fuse is not None and Fu > 1:
+        fused_blocks = fused_block_count(fuse, Fu)
+    return dict(fuse=Fu, scan_steps=steps, fused_blocks=fused_blocks,
+                seq_blocks=steps - fused_blocks)
+
+
+def fused_block_count(fuse: np.ndarray, Fu: int) -> int:
+    """How many of the Gp/Fu blocks take the vectorized branch (the
+    reference's ``_fused_block_count``)."""
+    return int(block_indep(torch.from_numpy(np.asarray(fuse)), Fu).sum())
 
 
 class CUDASolver(Solver):
@@ -244,6 +356,13 @@ class CUDASolver(Solver):
         self.dev_max_groups_pruned = 16384
         #: exact-slot budget S per pruned step
         self.dev_pruned_slots = DEV_PRUNED_SLOTS
+        #: fused-group block width of the base scan (K5): groups the
+        #: encoder proves pairwise pool/existing-disjoint fill dev_fuse
+        #: to a block. 0/1 disables. Gated per solve on no minValues
+        #: floors and dev_fuse_min_groups <= Gp <= dev_max_groups.
+        self.dev_fuse = DEV_FUSE
+        #: below this padded group count the unfused scan serves
+        self.dev_fuse_min_groups = 64
 
     def solve(self, snapshot: SchedulingSnapshot) -> SolveResult:
         """Slot growth (``_grow_if_exhausted``) is scoped to ONE solve."""
@@ -400,78 +519,22 @@ class CUDASolver(Solver):
                 for k, v in ffd_cuda.LAUNCHES.items()}
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _prep_device_inputs(enc: SnapshotEncoding, ex_alloc, ex_used,
-                            ex_compat):
-        """Pad one snapshot's encoding into the kernel's shape buckets:
-        G, E and P to powers of two (padded groups have n=0 and all-False
-        rows, padded existing rows are dead, padded pools admit nothing)
-        and D to 8. Returns ``(arrays, statics)``; statics carry every
-        pack/dispatch static except n_max. The arena is always unfused
-        (F=1)."""
-        T, D = enc.A.shape
-        Z, C = len(enc.zones), enc.avail.shape[2]
-        P = len(enc.pools)
-        E = ex_alloc.shape[0]
-        G = len(enc.groups)
-        Gp = max(1, 1 << (G - 1).bit_length())
-        Ep = 1 << (E - 1).bit_length() if E else 0
-        Pp = max(1, 1 << (P - 1).bit_length())
-        Dp = max(8, D)
-
-        def padG(a):
-            return np.pad(a, [(0, Gp - G)] + [(0, 0)] * (a.ndim - 1))
-
-        def padD(a):
-            return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, Dp - D)])
-
-        arrays = dict(
-            A=padD(enc.A),
-            avail_zc=enc.avail.reshape(T, Z * C),
-            R=padG(padD(enc.R)), n=padG(enc.n), F=padG(enc.F),
-            agz=padG(enc.agz), agc=padG(enc.agc),
-            admit=np.pad(padG(enc.admit), [(0, 0), (0, Pp - P)]),
-            daemon=np.pad(padG(padD(enc.daemon)),
-                          [(0, 0), (0, Pp - P), (0, 0)]),
-        )
-        pool_types = np.zeros((Pp, T), bool)
-        pool_agz = np.zeros((Pp, Z), bool)
-        pool_agc = np.zeros((Pp, C), bool)
-        pool_limit = np.zeros((Pp, Dp), np.int64)  # limit 0: padded pools inert
-        pool_used0 = np.zeros((Pp, Dp), np.int64)
-        for p in enc.pools:
-            pool_types[p.index] = p.type_rows
-            pool_agz[p.index] = p.agz
-            pool_agc[p.index] = p.agc
-            lim = p.limit_vec if p.limit_vec is not None \
-                else np.full(D, -1, dtype=np.int64)
-            pool_limit[p.index, :D] = lim
-            pool_limit[p.index, D:] = -1
-            pool_used0[p.index, :D] = p.in_use_vec
-        arrays.update(pool_types=pool_types, pool_agz=pool_agz,
-                      pool_agc=pool_agc, pool_limit=pool_limit,
-                      pool_used0=pool_used0)
-        ex_alloc_p = np.zeros((Ep, Dp), np.int64)
-        ex_used_p = np.zeros((Ep, Dp), np.int64)
-        ex_compat_p = np.zeros((Gp, Ep), bool)
-        if E:
-            ex_alloc_p[:E, :D] = ex_alloc
-            ex_used_p[:E, :D] = ex_used
-            ex_compat_p[:G, :E] = ex_compat
-        arrays.update(ex_alloc=ex_alloc_p, ex_used0=ex_used_p,
-                      ex_compat=ex_compat_p)
-        K, V, M = enc.mv_K, enc.mv_V, enc.mv_M
-        if K:
-            mv_floor_p = np.zeros((Pp, K), np.int64)
-            mv_floor_p[:P] = enc.mv_floor
-            arrays.update(mv_floor=mv_floor_p, mv_pairs_t=enc.mv_pairs_t,
-                          mv_pairs_v=enc.mv_pairs_v)
-        Q = 0
-        if enc.prio is not None:
-            Q = 1
-            arrays["prio"] = padG(enc.prio)
-        return arrays, dict(T=T, D=Dp, Z=Z, C=C, G=Gp, E=Ep, P=Pp,
-                            K=K, V=V, M=M, F=1, Q=Q)
+    def _prep_device_inputs(self, enc: SnapshotEncoding, ex_alloc, ex_used,
+                            ex_compat, fuse: bool = True):
+        """``pad_device_inputs`` plus the reference's fused-scan plan
+        (solver/tpu.py ``_prep_device_inputs``): with ``fuse``, no
+        minValues floors, ``dev_fuse`` > 1 and ``dev_fuse_min_groups`` <=
+        Gp <= ``dev_max_groups``, the arena carries the [Gp] ``fuse``
+        flags and F = ``dev_fuse``. The consolidation union arena passes
+        ``fuse=False`` (its subset lanes scan unfused, as the reference's
+        ``ndev=2`` call there). Returns ``(arrays, statics)``."""
+        arrays, stt = pad_device_inputs(enc, ex_alloc, ex_used, ex_compat)
+        Gp = stt["G"]
+        if (fuse and stt["K"] == 0 and self.dev_fuse > 1
+                and self.dev_fuse_min_groups <= Gp <= self.dev_max_groups):
+            arrays["fuse"] = fuse_flags(enc, ex_compat, Gp)
+            stt["F"] = min(self.dev_fuse, Gp)   # both pow2: F divides Gp
+        return arrays, stt
 
     def pack(self, enc, ex_alloc, ex_used, ex_compat):
         """(arena, statics) of one encoding — what the device solves."""
@@ -479,7 +542,7 @@ class CUDASolver(Solver):
                                                ex_compat)
         buf = pack_inputs1(arrays, stt["T"], stt["D"], stt["Z"], stt["C"],
                            stt["G"], stt["E"], stt["P"], stt["K"],
-                           stt["M"], 1, stt["Q"])
+                           stt["M"], stt["F"], stt["Q"])
         return buf, stt
 
     def _dispatch(self, buf: np.ndarray, **statics) -> np.ndarray:
@@ -550,10 +613,15 @@ class CUDASolver(Solver):
             cp[:] = False
             if E:
                 cp[:G, :E] = ex_compat
+            if "fuse" in arrays:
+                # the fused-scan plan ANDs the admit runs (unchanged in a
+                # rows-tier delta) with the existing-compat runs
+                arrays["fuse"][:] = fuse_flags(enc, ex_compat, stt["G"])
+                dirtyb = dirtyb + ["fuse"]
         if dirty64 or dirtyb:
             patch_inputs1(pc["buf"], pc["bflat"], arrays, dirty64, dirtyb,
                           stt["T"], stt["D"], stt["Z"], stt["C"], stt["G"],
-                          stt["E"], stt["P"], stt["K"], stt["M"], 1,
+                          stt["E"], stt["P"], stt["K"], stt["M"], stt["F"],
                           stt["Q"])
 
     def _arena_for(self, enc, ex_alloc, ex_used, ex_compat):
@@ -583,7 +651,7 @@ class CUDASolver(Solver):
         buf, bflat = pack_inputs1_state(arrays, stt["T"], stt["D"],
                                         stt["Z"], stt["C"], stt["G"],
                                         stt["E"], stt["P"], stt["K"],
-                                        stt["M"], 1, stt["Q"])
+                                        stt["M"], stt["F"], stt["Q"])
         self._pack_cache = None if dver is None else dict(
             enc=enc, arrays=arrays, stt=stt, buf=buf, bflat=bflat,
             version=dver)
@@ -604,7 +672,8 @@ class CUDASolver(Solver):
 
     @staticmethod
     def _ckpt_statics(stt: dict, n_bucket: int) -> dict:
-        """The ckpt/suffix solves' statics for this arena (F is 1)."""
+        """The solves' statics for this arena minus the fused width F
+        (the ckpt/suffix scans are unfused: eligibility needs F = 1)."""
         return dict(T=stt["T"], D=stt["D"], Z=stt["Z"], C=stt["C"],
                     G=stt["G"], E=stt["E"], P=stt["P"], K=stt["K"],
                     V=stt["V"], M=stt["M"], Q=stt["Q"], n_max=n_bucket)
@@ -676,7 +745,8 @@ class CUDASolver(Solver):
     def _run_device(self, enc, ex_alloc, ex_used, ex_compat):
         D = enc.A.shape[1]
         G, E = len(enc.groups), ex_alloc.shape[0]
-        _, stt, buf = self._arena_for(enc, ex_alloc, ex_used, ex_compat)
+        arrays, stt, buf = self._arena_for(enc, ex_alloc, ex_used,
+                                           ex_compat)
         T, Dp, Z, C = stt["T"], stt["D"], stt["Z"], stt["C"]
         Gp, Ep, Pp = stt["G"], stt["E"], stt["P"]
         if stt["Q"] and Gp > self.dev_max_groups:
@@ -684,10 +754,11 @@ class CUDASolver(Solver):
             return self._run_host(enc, ex_alloc, ex_used, ex_compat,
                                   "priority_cap")
         use_pruned = stt["K"] == 0 and Gp > self.dev_max_groups
+        Fu = stt["F"]
         before = dict(ffd_cuda.LAUNCHES)
         n_bucket, retries, bails = self._bucket, 0, 0
         ck_on = (self._delta is not None and not use_pruned
-                 and ckpt_eligible(Gp))
+                 and ckpt_eligible(Gp, Fu=Fu))
         self._solve_mode = "full"
         sreason, sinfo = ("disabled" if not ck_on else None), None
         while True:
@@ -722,7 +793,7 @@ class CUDASolver(Solver):
                                       n_bucket)
                 self._adopt_bank(buf, stt, n_bucket, bank, out, CKPT_CHUNK)
             elif out is None:
-                o_buf = self._dispatch(buf, F=1,
+                o_buf = self._dispatch(buf, F=Fu,
                                        **self._ckpt_statics(stt, n_bucket))
                 out = unpack_outputs1(o_buf, T, Dp, Z, C, Gp, Ep, Pp,
                                       n_bucket)
@@ -739,10 +810,11 @@ class CUDASolver(Solver):
             device=str(self.device), slot_bucket=n_bucket, retries=retries,
             groups=Gp, bails=bails, batch=1,
             kernel=("pruned" if use_pruned else "suffix" if suffix
-                    else "ckpt" if ck_on else "base"),
+                    else "ckpt" if ck_on else "fused" if Fu > 1 else "base"),
             reason=("pruned_bail" if bails else None) if use_pruned
             else None if suffix else sreason,
-            launches=self._launches_since(before))
+            launches=self._launches_since(before),
+            **dispatch_shape(Gp, Fu, arrays.get("fuse")))
         if sinfo is not None:
             self.last_dispatch_stats.update(sinfo)
         takes = out["takes"][:G]
@@ -887,7 +959,9 @@ class CUDASolver(Solver):
     def solve_batch(self, snapshots) -> List[SolveResult]:
         """Solve many independent snapshots, eligible ones B per dispatch
         (``_dispatch_many``: one lane-axis solve of a statics bucket).
-        Decisions are exactly ``[self.solve(s) for s in snapshots]``:
+        Decisions are exactly ``[self.solve(s) for s in snapshots]``;
+        a bucket of 64-4096 padded groups runs fused (F = 4), each lane
+        its own branch per block:
         ineligible items (no pods, preferences, topology, no instance
         types, minValues floors, padded groups past ``dev_max_groups``),
         a bucket of fewer than 2 items, and an item whose lane ran out of
@@ -917,10 +991,13 @@ class CUDASolver(Solver):
             before = dict(ffd_cuda.LAUNCHES)
             o = self._dispatch_many([it["buf"] for _, it in items],
                                     n_max=n_bucket, **statics)
+            fb = [it["fused_blocks"] for _, it in items]
             self.last_dispatch_stats = dict(
                 device=str(self.device), kernel="batch", reason=None,
                 bails=0, batch=len(items), groups=statics["G"],
-                slot_bucket=n_bucket, launches=self._launches_since(before))
+                slot_bucket=n_bucket, launches=self._launches_since(before),
+                **dispatch_shape(statics["G"], statics["F"],
+                                 fused_blocks=round(sum(fb) / len(fb))))
             for (i, it), o_buf in zip(items, o):
                 res = self._finish_batch_item(it, o_buf, statics, n_bucket)
                 # slot-bucket overflow: the single path re-solves with its
@@ -933,7 +1010,8 @@ class CUDASolver(Solver):
         """Encode one snapshot for the batched dispatch, or None when it
         must take the single-solve path (the reference's gates minus its
         router): pods, no preferences, no topology, T > 0, K = 0 and a
-        padded group count within ``dev_max_groups``."""
+        padded group count within ``dev_max_groups``. Packed with the
+        fused-scan plan; ``fused_blocks`` is its vectorized block count."""
         if not snapshot.pods:
             return None
         groups = canonical_pod_groups(snapshot.pods)
@@ -950,9 +1028,12 @@ class CUDASolver(Solver):
             return None
         buf = pack_inputs1(arrays, stt["T"], stt["D"], stt["Z"], stt["C"],
                            stt["G"], stt["E"], stt["P"], stt["K"], stt["M"],
-                           1, stt["Q"])
+                           stt["F"], stt["Q"])
+        fb = 0
+        if stt["F"] > 1:
+            fb = fused_block_count(arrays["fuse"], stt["F"])
         return dict(enc=enc, existing=existing, buf=buf, statics=stt,
-                    D=enc.A.shape[1], E=ex_alloc.shape[0])
+                    D=enc.A.shape[1], E=ex_alloc.shape[0], fused_blocks=fb)
 
     def _finish_batch_item(self, it, o_buf, statics, n_bucket):
         """Decode one row of the batched output; None when the item

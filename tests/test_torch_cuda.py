@@ -1,7 +1,9 @@
 """The CUDA kernels of the port held against their plain PyTorch versions
 on the card, at small shapes. Tolerance: exact (integer math). K1-K3
 (the packed scan, the bank), the K1 and K2 kernels on their lane axis
-and the batched packed solve (K4), the pruned scan's kernels (K6), the
+and the batched packed solve (K4), the fused block scan's kernels (K5;
+block by block, whole solves, lanes that branch differently, the
+solver), the pruned scan's kernels (K6), the
 K7 consolidation kernels, the K9 topology kernels and K8, the
 preemption search (its hazard tables and a round through
 ``Provisioner.reconcile``).
@@ -461,6 +463,115 @@ def test_packed_many_on_card(cuda_device, B):
         plain = ft.solve_scan_packed1(bufs[b].cpu(),
                                       **examples.solve_statics(st))
         assert torch.equal(got[b].cpu(), plain)
+
+
+# ---------------------------------------------------------------------------
+# K5: the fused block scan
+# ---------------------------------------------------------------------------
+
+def _fused_inputs(arrays, st, dev):
+    """(arena on ``dev``, its KernelInputs with the fuse flags)."""
+    buf = torch.from_numpy(pack_inputs1(arrays, *examples.pack_statics(st)))
+    buf = buf.to(dev)
+    return buf, ft._packed_inputs_ref(
+        buf, *(st[k] for k in "T D Z C G E P K M Q F".split()))
+
+
+@pytest.mark.parametrize("case", examples.FUSED_CASES)
+def test_fused_kernels_block_by_block(cuda_device, case):
+    """Both K5 kernels of each block from the plain block-start carry:
+    the per-group candidates and headroom after the first, the carry,
+    takes and leftover of the block after the second; both branches."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    arrays, st = examples.fused_case(case)
+    _, inp = _fused_inputs(arrays, st, cuda_device)
+    E, P, Fu = st["E"], st["P"], st["F"]
+    carry = ft.carry0(inp, E + st["n_max"], E)
+    fs = ffd_cuda.FusedState(inp, ft.Carry(*[t.clone() for t in carry]),
+                             E=E, P=P, Fu=Fu)
+    indep = ft.block_indep(inp.fuse, Fu).tolist()
+    assert True in indep and False in indep
+    for g0 in range(0, st["G"], Fu):
+        for dst, src in zip(fs.carry, carry):
+            dst.copy_(src)
+        cand, k = ft._fused_headroom_ref(inp, carry, g0, Fu, E=E, P=P)
+        ffd_cuda.ffd_fused_headroom(fs, g0)
+        assert torch.equal(fs.block_cand(), cand), g0
+        assert torch.equal(fs.block_k(), k), g0
+        carry, takes, lefts = ft._fused_block_ref(inp, carry, g0, Fu,
+                                                  indep[g0 // Fu], E=E, P=P)
+        ffd_cuda.ffd_fused_commit(fs, g0)
+        for f, got, want in zip(ft.Carry._fields, fs.carry, carry):
+            assert torch.equal(got, want), (g0, f)
+        assert torch.equal(fs.takes[g0:g0 + Fu], takes), g0
+        assert torch.equal(fs.leftover[g0:g0 + Fu], lefts), g0
+
+
+@pytest.mark.parametrize("case", examples.FUSED_CASES)
+@pytest.mark.parametrize("width", [dict(), dict(T=300, G=32, n_max=48,
+                                                D=8)])
+def test_fused_packed_solve(cuda_device, case, width):
+    """The fused packed solve on the card equals the plain one on the
+    CPU, word for word, in 1 + 2*G/F + 1 launches."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    arrays, st = examples.fused_case(case, **width)
+    buf = pack_inputs1(arrays, *examples.pack_statics(st))
+    ffd_cuda.reset_launches()
+    got = ft.solve_scan_packed1(buf, device=cuda_device,
+                                **examples.solve_statics(st))
+    blocks = st["G"] // st["F"]
+    assert ffd_cuda.LAUNCHES == dict(dict.fromkeys(ffd_cuda.LAUNCHES, 0),
+                                     unpack_bits=1, ffd_fused_headroom=blocks,
+                                     ffd_fused_commit=blocks, pack_outputs=1)
+    want = ft.solve_scan_packed1(buf, device="cpu",
+                                 **examples.solve_statics(st))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_fused_many_on_card(cuda_device):
+    """Three striped lanes whose blocks branch differently, in one
+    lane-axis dispatch: each row the plain single solve of its arena."""
+    import numpy as np
+
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    arrays, st = examples.fused_case("striped")
+    lanes = []
+    for flip in (None, 1, 5):
+        a = {k: np.array(v) for k, v in arrays.items()}
+        if flip is not None:
+            a["fuse"][flip] = ~a["fuse"][flip]
+            a["n"] = np.roll(a["n"], flip)
+        lanes.append(a)
+    bufs = _stack(lanes, st, cuda_device)
+    ffd_cuda.reset_launches()
+    got = ft.solve_scan_packed1_many(bufs, **examples.solve_statics(st))
+    assert ffd_cuda.LAUNCHES["ffd_fused_commit"] == st["G"] // st["F"]
+    assert ffd_cuda.LAUNCHES["ffd_group_commit"] == 0
+    for b in range(3):
+        plain = ft.solve_scan_packed1(bufs[b].cpu(),
+                                      **examples.solve_statics(st))
+        assert torch.equal(got[b].cpu(), plain)
+
+
+def test_fused_solver_on_card(cuda_device):
+    """The striped cluster at 2,000 pods through ``CUDASolver()``: the
+    fused kernels serve it, and the decisions equal the plain versions'
+    and the unfused solve's on the card."""
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    snap = examples.striped_cluster(fenv.Environment(), n_pods=2000)
+    gpu = CUDASolver(incremental=False)
+    got = gpu.solve(snap)
+    ds = gpu.last_dispatch_stats
+    assert (ds["kernel"], ds["fuse"]) == ("fused", 4)
+    assert ds["fused_blocks"] >= 22
+    assert ds["launches"]["ffd_fused_commit"] == ds["scan_steps"]
+    unfused = CUDASolver(incremental=False)
+    unfused.dev_fuse = 1
+    assert got.decision_fingerprint() == \
+        unfused.solve(snap).decision_fingerprint()
+    assert got.decision_fingerprint() == CUDASolver(
+        device="cpu", incremental=False).solve(snap).decision_fingerprint()
 
 
 # ---------------------------------------------------------------------------

@@ -171,8 +171,20 @@ def test_i32_words_and_bits_round_trip():
 
 
 def test_fused_arena_refused():
+    """The fused scan (F > 1) runs now; what stays refused is a fused
+    arena with minValues floors (the solver packs F = 1 when K > 0) and
+    a width that does not divide G, on the single and the lane-axis
+    entry point alike."""
+    arrays, st = _case("min_values")
+    buf = hp_torch.pack_inputs1(arrays, *examples.pack_statics(st))
+    with pytest.raises(ValueError, match="minValues"):
+        ffd_torch.solve_scan_packed1(buf, device="cpu", F=4,
+                                     **examples.solve_statics(st))
+    with pytest.raises(ValueError, match="minValues"):
+        ffd_torch.solve_scan_packed1_many(buf[None], device="cpu", F=4,
+                                          **examples.solve_statics(st))
     arrays, st = _case("base")
     buf = hp_torch.pack_inputs1(arrays, *examples.pack_statics(st))
-    with pytest.raises(NotImplementedError, match="K5"):
-        ffd_torch.solve_scan_packed1(buf, device="cpu", F=4,
+    with pytest.raises(ValueError, match="divide"):
+        ffd_torch.solve_scan_packed1(buf, device="cpu", F=3,
                                      **examples.solve_statics(st))
