@@ -101,6 +101,28 @@ Phases (any failure exits non-zero before the result line):
    to the card's solve at ``dev_fuse = 1`` and to the plain versions on
    the CPU; the variant with 100 existing nodes; 10 incremental rows-tier
    ticks, each a full fused solve equal to a solve from scratch;
+14. the mesh path (run before phase 10 too), the sharded scan (K10) on
+   the mesh cells (``examples.MESH_CELLS``: config 2 at 50,000 pods, the
+   type mesh; config 2 at 500,000 pods at its settled 1,024 slots with
+   ``dp2_min_slots`` 1,024, the pods x types shape on more than one
+   rank): (a) at world size 1 on NCCL, after a warm-up solve settles the
+   slot bucket, each K10 kernel of the first four group steps of each
+   cell against its plain part from the same entry state (the fill in
+   one launch and in its three phases); each kernel on later slot shards
+   (``examples.MESH_LATER_SHARDS``, slot0 > 0, earlier-shard prefixes
+   small and wrapping); then ``CUDASolver(mesh=comm, force_mesh=True)`` timed
+   beside the single-device ``CUDASolver`` (K2) on the same snapshot,
+   counters set to 0 just before and read just after, decisions equal;
+   the pipeline fuzz's minValues snapshots (``examples.MESH_MV_SEEDS``)
+   on the type mesh, kernels checked and decisions equal;
+   (b) four ranks sharing the card over gloo (``parallel/ranks.py``),
+   each solving both cells through ``CUDASolver(mesh=comm)`` (``tp`` on
+   1 x 4, ``dp2`` on 2 x 2), every rank's decisions equal to the
+   single-device solve, every K10 kernel launched on each rank, rank 0
+   and the last rank (the last slot and type shard) holding their
+   kernels against the plain parts over the first four steps of each
+   cell, fed by the same collectives; the minValues snapshots on
+   1 x 4, equal;
 10. kernel times with CUDA events at the main paths' shapes, beside the
    plain versions' times, the bound the shapes allow and, for the bank
    kernels, ``Tensor.copy_`` of the same bytes; the suffix solve's device
@@ -110,7 +132,9 @@ Phases (any failure exits non-zero before the result line):
    and 64, the K9 kernels at config 3's states, K8 at the preemption
    round's tables and at the wider waves', and the K5 kernels at the
    striped cluster's vectorized and sequential blocks, with one fused
-   packed solve's device time beside the same snapshot packed unfused.
+   packed solve's device time beside the same snapshot packed unfused,
+   and the K10 kernels at the type mesh's last group step of each mesh
+   cell at world size 1.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; a line before them holds the per-kernel
@@ -202,6 +226,12 @@ S13_ROUNDS = 5
 S13_TICKS = 10
 S13_MIN_VEC = 22
 
+#: the mesh path (K10): timed solves per cell after one warm-up, the
+#: ranks that share the card over gloo, and their collective timeout
+M14_ROUNDS = 5
+M14_RANKS = 4
+M14_TIMEOUT_S = 300
+
 #: the kernels of the warm-tick path
 K3_PATH = ("unpack_bits", "ffd_slot_headroom", "ffd_group_commit",
            "pack_outputs", "ffd_bank_store", "ffd_bank_load")
@@ -211,6 +241,7 @@ K7_REF = "karpenter_provider_aws_tpu/ops/consolidation_jax.py"
 K6_SRC = "karpenter_provider_aws_tpu_torch/csrc/pruned.cu"
 K9_SRC = "karpenter_provider_aws_tpu_torch/csrc/topo.cu"
 K5_SRC = "karpenter_provider_aws_tpu_torch/csrc/fused.cu"
+K10_SRC = "karpenter_provider_aws_tpu_torch/csrc/mesh.cu"
 K9_REF = "karpenter_provider_aws_tpu/ops/topo_jax.py"
 FFD_REF = "karpenter_provider_aws_tpu/ops/ffd_jax.py"
 
@@ -249,6 +280,10 @@ KERNELS = {
     "topo_record_plain": dict(source=K9_SRC, replaces=f"{K9_REF}:685"),
     "ffd_fused_headroom": dict(source=K5_SRC, replaces=f"{FFD_REF}:694"),
     "ffd_fused_commit": dict(source=K5_SRC, replaces=f"{FFD_REF}:743"),
+    "mesh_new_caps": dict(source=K10_SRC, replaces=f"{FFD_REF}:400"),
+    "mesh_slot_headroom": dict(source=K10_SRC, replaces=f"{FFD_REF}:488"),
+    "mesh_fill": dict(source=K10_SRC, replaces=f"{FFD_REF}:469"),
+    "mesh_commit": dict(source=K10_SRC, replaces=f"{FFD_REF}:534"),
 }
 #: the K1 kernels on their lane axis (the batch path), one record per
 #: batch width: the kernel, its width, and the reference's vmap they
@@ -1968,6 +2003,246 @@ def fused_phase(cmp, device=None, n_pods=S13_PODS, n_sigs=S13_SIGS,
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the mesh path (K10)
+# ---------------------------------------------------------------------------
+
+def take_checks(cmp, records, label):
+    """Fold a ``mesh_kernel_check`` record list into ``cmp``; raise on a
+    kernel launch whose buffers differ from its plain part's."""
+    for name, args, diffs, err in records:
+        cmp.err[name] = max(cmp.err[name], err)
+        cmp.checks[name] += 1
+        if diffs:
+            raise AssertionError(f"{label}: {name}{args} kernel != plain in "
+                                 f"{diffs} (max abs diff {err})")
+
+
+def timed_solves(solver, snap, rounds, dev):
+    """One warm-up, then ``rounds`` timed solves (ms, ending in a
+    synchronise); returns (times, the last result)."""
+    import torch
+    solver.solve(snap)
+    times, res = [], None
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        res = solver.solve(snap)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, res
+
+
+def p50_p99(times):
+    xs = sorted(times)
+    return (statistics.median(xs),
+            xs[min(len(xs) - 1, int(round(0.99 * (len(xs) - 1))))])
+
+
+def mesh_phase(cmp, device=None, cells=None, rounds=M14_ROUNDS,
+               ranks=M14_RANKS):
+    """Phase 14 (module docstring). Returns (the K10 launches of (a)'s
+    main-path runs, a summary, the states kept for the timing phase)."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.models.delta import \
+        full_existing_encode
+    from karpenter_provider_aws_tpu_torch.models.encoding import \
+        encode_snapshot
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    from karpenter_provider_aws_tpu_torch.parallel import (
+        MeshComm, pick_backend, run_ranks, solve_scan_sharded)
+    cells = examples.MESH_CELLS if cells is None else cells
+    on_card = device is None
+    dev = torch.device("cuda" if on_card else device)
+    backend = pick_backend(1, dev)
+    summary, kept, want = {}, {}, {}
+    launches = {k: 0 for k in fc.LAUNCHES}
+    # ---- (a) world size 1 ----
+    tmp = tempfile.mkdtemp(prefix="karp_mesh1_")
+    dist.init_process_group(
+        backend, init_method=f"file://{os.path.join(tmp, 'rdzv')}",
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        if on_card:
+            probe = torch.ones(1, device=dev)
+            dist.all_reduce(probe)
+            torch.cuda.synchronize()
+        comm = MeshComm()
+        env = fenv.Environment()
+        for name, n_pods, dp2_min in cells:
+            fenv.reset_pod_counter()
+            t0 = time.perf_counter()
+            snap = examples.config2(env, n_pods)
+            t_build = time.perf_counter() - t0
+            single = examples.mesh_cell_solver(None, device=device)
+            s_times, s_res = timed_solves(single, snap, rounds, dev)
+            want[name] = examples._fp_digest(s_res)
+            solver = examples.mesh_cell_solver(comm, dp2_min, device)
+            solver.solve(snap)              # warm-up: the bucket settles
+            enc = encode_snapshot(snap)
+            arrays, stt = solver._prep_device_inputs(
+                enc, *full_existing_encode(enc, []), mesh=True)
+            n_max = solver._bucket
+            for split in (False, True):
+                records = []
+                solve_scan_sharded(
+                    arrays, comm, n_max, stt["E"], stt["P"], stt["V"],
+                    device=dev, split_fill=split,
+                    check=examples.mesh_kernel_check(0, records))
+                if {r[0] for r in records} != set(mc.KERNELS):
+                    raise AssertionError(f"{name}: kernels checked "
+                                         f"{sorted({r[0] for r in records})}")
+                take_checks(cmp, records, f"mesh {name} split={split}")
+            fc.reset_launches()
+            m_times = []
+            res = None
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                res = solver.solve(snap)
+                if on_card:
+                    torch.cuda.synchronize()
+                m_times.append((time.perf_counter() - t0) * 1e3)
+            got = dict(fc.LAUNCHES)
+            for k in launches:
+                launches[k] += got[k]
+            # the plain parts (a CPU rehearsal) count no launches
+            missing = [k for k in mc.KERNELS if got[k] <= 0 and on_card]
+            if missing:
+                raise AssertionError(f"K10 kernels never launched on the "
+                                     f"{name} cell: {missing}")
+            if examples._fp_digest(res) != want[name]:
+                raise AssertionError(f"mesh {name}: decisions differ from "
+                                     f"the single-device solve")
+            placed = sum(len(n.pod_names) for n in res.new_nodes)
+            if placed + len(res.existing_assignments) + \
+                    len(res.unschedulable) != n_pods:
+                raise AssertionError(f"mesh {name}: pods unaccounted")
+            ds = dict(solver.last_dispatch_stats)
+            sp50, sp99 = p50_p99(s_times)
+            mp50, mp99 = p50_p99(m_times)
+            summary[name] = dict(
+                pods=n_pods, build_s=t_build, nodes=len(res.new_nodes),
+                slot_bucket=ds["slot_bucket"], groups=ds["groups"],
+                mesh_kernel=ds["mesh_kernel"], placement=ds["placement"],
+                backend=backend, collectives_per_solve=ds["collectives"],
+                collective_ms_per_step=ds["collective_ms"] / ds["groups"],
+                single_p50_ms=sp50, single_p99_ms=sp99, mesh_p50_ms=mp50,
+                mesh_p99_ms=mp99, split=dict(solver.last_phase_stats),
+                launches_per_solve={k: ds["launches"][k]
+                                    for k in mc.KERNELS})
+            kept[name] = (arrays, stt, n_max)
+            log(f"[mesh] (a) {name}: {n_pods} pods, {len(res.new_nodes)} "
+                f"nodes, world 1 on {backend}; {json.dumps(summary[name])}")
+        # later slot shards: slot0 > 0 and earlier-shard prefixes, small
+        # and wrapping (the code only a slot split runs)
+        for case, ndp, dp_idx in examples.MESH_LATER_SHARDS:
+            for before in examples.MESH_BEFORES:
+                records, st = examples.mesh_shard_check(case, ndp, dp_idx,
+                                                        before, device=dev)
+                if st.slot0 <= 0 or {r[0] for r in records} != \
+                        set(mc.KERNELS):
+                    raise AssertionError(f"later shard {case} {ndp}/{dp_idx}")
+                take_checks(cmp, records,
+                            f"later shard {case} {ndp}/{dp_idx} {before}")
+        log(f"[mesh] (a) later slot shards {examples.MESH_LATER_SHARDS} x "
+            f"prefixes {sorted(examples.MESH_BEFORES)}: every kernel == "
+            f"its plain part")
+        # the minValues snapshots: the type mesh with its h1 maxima
+        api = examples.pipeline_api()
+        for seed in examples.MESH_MV_SEEDS:
+            fenv.reset_pod_counter()
+            snap = examples.min_values_scenario(api, env, seed)
+            key = ("min_values", seed)
+            want[key] = examples._fp_digest(
+                examples.mesh_cell_solver(None, device=device).solve(snap))
+            solver = examples.mesh_cell_solver(comm, device=device)
+            enc = encode_snapshot(snap)
+            arrays, stt = solver._prep_device_inputs(
+                enc, *full_existing_encode(enc, []), mesh=True)
+            if not stt["K"]:
+                raise AssertionError(f"min_values {seed}: no floors")
+            records = []
+            solve_scan_sharded(arrays, comm, solver._bucket, stt["E"],
+                               stt["P"], stt["V"], device=dev,
+                               check=examples.mesh_kernel_check(0, records))
+            take_checks(cmp, records, f"mesh min_values {seed}")
+            if examples._fp_digest(solver.solve(snap)) != want[key]:
+                raise AssertionError(f"mesh min_values {seed}: decisions "
+                                     f"differ from the single-device solve")
+            log(f"[mesh] (a) min_values {seed}: {len(snap.pods)} pods, "
+                f"K = {stt['K']}, V = {stt['V']}, {len(records)} launches "
+                f"checked, decisions == the single-device solve")
+    finally:
+        dist.destroy_process_group()
+    # ---- (b) ranks sharing the card over gloo ----
+    t0 = time.perf_counter()
+    outs = run_ranks(examples.mesh_cell_rank, ranks,
+                     pick_backend(ranks, dev), M14_TIMEOUT_S,
+                     args=(cells, rounds, device), deadline_s=900,
+                     threads=2, build=on_card)
+    t_ranks = time.perf_counter() - t0
+    shapes = {"tp": ("tp", 1, ranks), "dp2": ("dp2", 2, ranks // 2)}
+    for name, _n, _s in cells:
+        for rank, out in enumerate(outs):
+            r = out[name]
+            st = r["stats"]
+            if r["fp"] != want[name]:
+                raise AssertionError(f"rank {rank} {name}: decisions differ "
+                                     f"from the single-device solve")
+            if (st["mesh_kernel"], st["ndp"], st["ntp"]) != shapes[name]:
+                raise AssertionError(f"rank {rank} {name}: shape {st}")
+            if st["backend"] != "gloo":
+                raise AssertionError(f"rank {rank} {name}: {st}")
+            missing = [k for k in mc.KERNELS
+                       if r["launches"][k] <= 0 and on_card]
+            if missing:
+                raise AssertionError(f"rank {rank} {name}: K10 kernels never "
+                                     f"launched: {missing}")
+            if r["accounted"] != r["pods"]:
+                raise AssertionError(f"rank {rank} {name}: pods unaccounted")
+        for rank in (0, ranks - 1):
+            recs = outs[rank][name]["checks"]
+            if {x[0] for x in recs} != set(mc.KERNELS):
+                raise AssertionError(f"rank {rank} {name}: kernels checked "
+                                     f"{sorted({x[0] for x in recs})}")
+            take_checks(cmp, recs, f"rank {rank} {name}")
+        p50, p99 = p50_p99([t for o in outs for t in o[name]["times_ms"]])
+        summary[name].update(
+            ranks_p50_ms=p50, ranks_p99_ms=p99,
+            ranks_collective_ms_per_step=statistics.median(
+                o[name]["collective_ms_per_step"] for o in outs),
+            ranks_collectives_per_solve=outs[0][name]["collectives"],
+            ranks_launches=outs[0][name]["launches"],
+            ranks_checks=len(recs),
+            ranks_fill_phases=sorted({x[1][1] for x in recs
+                                      if x[0] == "mesh_fill"}))
+        log(f"[mesh] (b) {name}: {ranks} ranks over gloo on one card "
+            f"({json.dumps(outs[0][name]['stats'])}); solve p50 {p50:.3f} "
+            f"ms p99 {p99:.3f} ms (single-device p50 "
+            f"{summary[name]['single_p50_ms']:.3f}); collectives "
+            f"{summary[name]['ranks_collective_ms_per_step']:.3f} ms/step; "
+            f"ranks 0 and {ranks - 1} checked {len(recs)} launches each; "
+            f"every rank's decisions == the single-device solve")
+    for seed in examples.MESH_MV_SEEDS:
+        key = ("min_values", seed)
+        for rank, out in enumerate(outs):
+            st = out[key]["stats"]
+            if out[key]["fp"] != want[key] or (
+                    st["mesh_kernel"], st["ndp"], st["ntp"]) != shapes["tp"]:
+                raise AssertionError(f"rank {rank} min_values {seed}: {st}")
+        log(f"[mesh] (b) min_values {seed}: every rank on 1 x {ranks} == "
+            f"the single-device solve")
+    summary["ranks_wall_s"] = t_ranks
+    return launches, summary, kept
+
+
+# ---------------------------------------------------------------------------
 # phase 10: timing and bounds
 # ---------------------------------------------------------------------------
 
@@ -2618,6 +2893,110 @@ def k8_times(tables, wide, launches):
                  bytes=nbytes, ops=ops)], by_g
 
 
+def k10_times(kept, launches):
+    """The K10 kernels at world size 1 (the type mesh, every type and
+    slot on one rank) at the last group step of each mesh cell, from the
+    kernels' own scan of the earlier steps, beside their plain parts on
+    the same CUDA state. Bytes: each input the kernel reads, once, and
+    each output it writes; operations: the candidate tests and 64-bit
+    quotients this state needs (headroom: every (slot, type) test plus D
+    quotients a candidate cell; caps: every (group, pool, type) test and
+    quotient; fill: a few per slot and pool; commit: the fit test of
+    every filled slot's types plus the new-node pass over the types).
+    The records carry the tp cell; the dp2 cell's times (at its 1,024
+    slots) and the fill's three phases are logged beside them."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    from karpenter_provider_aws_tpu_torch.ops.ffd_torch import KernelInputs
+    from karpenter_provider_aws_tpu_torch.parallel import mesh as pm
+    dev = torch.device("cuda")
+    cells = {}
+    for name, (arrays, stt, n_max) in kept.items():
+        E, P, V = stt["E"], stt["P"], stt["V"]
+        N = E + n_max
+        lay = pm.MeshComm()
+        T = arrays["A"].shape[0]
+        names = [f for f in pm.FIELDS if arrays.get(f) is not None]
+        inp = KernelInputs(**pm._shard_inputs(arrays, lay, names, T, N, None,
+                                              V, dev))
+        st = mc.MeshState(inp, E=E, P=P, V=V, N=N, slot0=0)
+        mc.mesh_new_caps(st)
+        g = st.G - 1
+        for h in range(g):
+            mc.mesh_slot_headroom(st, h)
+            mc.mesh_fill(st, h, mc.PHASE_ALL)
+            mc.mesh_commit(st, h)
+
+        def snap():
+            return {k: t.clone() for k, t in st.buffers().items()}
+
+        def restore(saved):
+            for k, t in st.buffers().items():
+                t.copy_(saved[k])
+
+        s0 = snap()
+        mc.mesh_slot_headroom(st, g)
+        s1 = snap()
+        ncand = int(st.cand.sum())
+        phases = {}
+        for ph, nm in ((mc.PHASE_A, "a"), (mc.PHASE_B, "b"),
+                       (mc.PHASE_C, "c")):
+            pre = snap()
+            phases[nm] = (time_launches(lambda ph=ph: mc.mesh_fill(st, g, ph),
+                                        setup=lambda p=pre: restore(p)),
+                          pre)
+            restore(pre)
+            mc.mesh_fill(st, g, ph)
+        restore(s1)
+        mc.mesh_fill(st, g, mc.PHASE_ALL)
+        s2 = snap()
+        take = st.k
+        nfill = int(((take > 0) & (st.carry.pool >= 0)).sum())
+        Tl, D, G, Nl, K, M = st.T, st.D, st.G, st.Nl, st.K, st.M
+        Z, C = inp.agz.shape[1], inp.agc.shape[1]
+        ZC = Z * C
+        work = {
+            "mesh_new_caps": (
+                lambda: mc.mesh_new_caps(st), lambda: mc._new_caps_ref(st),
+                s0, 8 * Tl * D + Tl * ZC + G * Tl + P * Tl + 8 * G * P * D
+                + 8 * G * D + (G + P) * (Z + C) + 16 * K * M
+                + 8 * G * P * (1 + K * V), G * P * Tl * (D + ZC)),
+            "mesh_slot_headroom": (
+                lambda: mc.mesh_slot_headroom(st, g),
+                lambda: mc._slot_headroom_mesh_ref(st, g), s0,
+                8 * Nl * D + 2 * Nl * Tl + Nl * (Z + C) + 4 * Nl
+                + 8 * Tl * D + Tl * ZC + Tl + 8 * Nl * (1 + K * V),
+                Nl * Tl + ncand * D),
+            "mesh_fill": (
+                lambda: mc.mesh_fill(st, g, mc.PHASE_ALL),
+                lambda: mc._fill_ref(st, g, mc.PHASE_ALL), s1,
+                16 * Nl + 6 * Nl + 16 * E * D + 8 * (P + 1) + 8 * P * D,
+                Nl * (P + 3)),
+            "mesh_commit": (
+                lambda: mc.mesh_commit(st, g),
+                lambda: mc._commit_mesh_ref(st, g), s2,
+                12 * Nl + 16 * Nl * D + 3 * Nl * Tl + 8 * Tl * D
+                + 2 * Nl * (Z + C) + 4 * Nl + 8 * P * (1 + D),
+                nfill * Tl * D + P * Tl * (D + ZC)),
+        }
+        cells[name] = {}
+        for k, (fn, ref, pre, nbytes, ops) in work.items():
+            ms = time_launches(fn, setup=lambda p=pre: restore(p))
+            pms = time_launches(ref, reps=10, setup=lambda p=pre: restore(p))
+            b, by = bound_ms(nbytes, ops)
+            cells[name][k] = dict(ms=ms, plain_ms=pms, bound_ms=b,
+                                  bound_by=by, bytes=nbytes, ops=ops)
+        cells[name]["fill_phases_ms"] = {nm: v[0] for nm, v in phases.items()}
+        cells[name]["shape"] = dict(T=Tl, N=Nl, G=G, P=P, step=g)
+    recs = []
+    for k in ("mesh_new_caps", "mesh_slot_headroom", "mesh_fill",
+              "mesh_commit"):
+        r = cells["tp"][k]
+        recs.append(dict(name=k, route="cuda", **KERNELS[k],
+                         launches=launches[k], library_ms=None, **r))
+    return recs, cells
+
+
 def k1_lane_times(arenas, launches_b):
     """The lane-axis K1 kernels at each batch width, beside the plain
     versions lane by lane."""
@@ -2700,7 +3079,7 @@ def warm_solve_times(d_buf, st, gl):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-6, 8, 9, 11, 12 and 13 with the "
+                    help="run phases 3-6, 8, 9, 11, 12, 13 and 14 with the "
                          "plain versions at a small size on the CPU (never "
                          "the default)")
     args = ap.parse_args()
@@ -2927,10 +3306,15 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[compare] after the fused phase: {cmp.checks} checks, "
         f"max_abs_err {cmp.err}")
+    # ---- phase 14: the mesh path (K10) ---------------------------------
+    launches_m14, m14, m14_states = mesh_phase(cmp)
+    torch.cuda.synchronize()
+    log(f"[compare] after the mesh phase: {cmp.checks} checks, "
+        f"max_abs_err {cmp.err}")
     launches = {k: launches_c2[k] + launches_w[k] + launches_k7.get(k, 0)
                 + launches_c7[k] + sum(lb[k] for lb in launches_b.values())
                 + launches_c3[k] + launches_p12[k] + launches_s13[k]
-                for k in launches_c2}
+                + launches_m14[k] for k in launches_c2}
 
     # ---- phase 10: kernel times --------------------------------------------
     inp, final, tk, lf = c2
@@ -2959,6 +3343,8 @@ def main() -> int:
     k5_recs, k5_branch = k5_times(
         s13_states[:3], (s13["fused_blocks"], s13["seq_blocks"]), launches)
     recs += k5_recs
+    k10_recs, k10_cells = k10_times(m14_states, launches)
+    recs += k10_recs
     for r in recs:
         r["max_abs_err"] = cmp.err[r["name"]]
         lib = "none" if r["library_ms"] is None else \
@@ -2971,7 +3357,7 @@ def main() -> int:
             f"{launches_c7[k]}, batch: "
             f"{ {b: lb[k] for b, lb in launches_b.items()} }, config 3: "
             f"{launches_c3[k]}, preemption: {launches_p12[k]}, striped: "
-            f"{launches_s13[k]}), bound "
+            f"{launches_s13[k]}, mesh: {launches_m14[k]}), bound "
             f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}, "
             f"{r['bytes']:.0f} B, {r['ops']:.0f} ops), plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib}")
@@ -3015,6 +3401,9 @@ def main() -> int:
     log(f"[time] striped cluster: one packed solve, device ms "
         f"{json.dumps(s13_dev)} (fused; the same snapshot packed unfused); "
         f"summary {json.dumps(s13)}")
+    log(f"[time] K10 at world size 1, the last group step of each mesh "
+        f"cell: {json.dumps(k10_cells)}")
+    log(f"[time] mesh cells: {json.dumps(m14)}")
     log(f"[time] K8 by the wave's signatures G (B = 64, E = "
         f"{P12_NODES}): {json.dumps(k8_by_g)}")
     log(f"[time] preemption: plan p50 {p12['plan']['p50_ms']:.3f} ms, "
@@ -3033,10 +3422,11 @@ def main() -> int:
 
 
 def rehearsal(n_pods: int, rounds: int) -> int:
-    """Phases 3-6, 8, 9, 11, 12 and 13 with the plain versions on the CPU,
-    at a small size (config 7 cut to ``n_pods`` pods, one signature per
-    5; config 3 cut to ``n_pods`` pods; the preemption cluster to 40
-    nodes; the striped cluster to 400 pods over 100 signatures)."""
+    """Phases 3-6, 8, 9, 11, 12, 13 and 14 with the plain versions on the
+    CPU, at a small size (config 7 cut to ``n_pods`` pods, one signature
+    per 5; config 3 cut to ``n_pods`` pods; the preemption cluster to 40
+    nodes; the striped cluster to 400 pods over 100 signatures; the mesh
+    cells to 400 pods, the dp2 cell with no slot floor)."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.fake import environment as fenv
@@ -3074,6 +3464,8 @@ def rehearsal(n_pods: int, rounds: int) -> int:
     preempt_phase(cmp, device="cpu", n_nodes=40, rounds=2, reconciles=2)
     fused_phase(cmp, device="cpu", n_pods=400, n_sigs=100, rounds=1,
                 ticks=3, min_vec=1)
+    mesh_phase(cmp, device="cpu", cells=(("tp", 400, None),
+                                         ("dp2", 400, 0)), rounds=1)
     log(json.dumps({"ok": True, "device": {"platform": "cpu",
                                            "kind": "cpu", "count": 1}}))
     return 0

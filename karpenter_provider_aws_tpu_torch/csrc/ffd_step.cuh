@@ -1,5 +1,6 @@
 // The steps of one FFD group fill as device functions, shared by the K2
-// kernels (ffd_scan.cu) and the fused block kernels (fused.cu).
+// kernels (ffd_scan.cu), the fused block kernels (fused.cu) and the
+// per-rank kernels of the sharded scan (mesh.cu).
 //
 // Each function reads the group's scratch through the FfdArgs it is
 // given: cand [N, T] and k [N] (headroom, then take). A caller that keeps
@@ -116,12 +117,15 @@ __device__ __forceinline__ void slot_headroom_warps(const FfdArgs& a,
     }
 }
 
-// Steps 4-5 of group g on one block: the pool-limit caps over each
-// pool's slot prefix, then the greedy prefix fill; k[s] becomes take[s].
-// Reads the carry's pool and pool_used as they stand. Returns n_rem to
-// every thread. Each thread owns the slot chunk [lo, hi).
-__device__ __forceinline__ i64 commit_fill(const FfdArgs& a, i64 g, i64 lo,
-                                           i64 hi, i64* tmp) {
+// Step 4 of group g on one block: the pool-limit caps over each pool's
+// slot prefix; k[s] of a capped pool's slot becomes its capped value.
+// Reads the carry's pool and pool_used as they stand. Each thread owns the
+// slot chunk [lo, hi). `before` (nullable) holds, per pool, the sum of k
+// over the slots ahead of this block's (a slot-sharded mesh's earlier
+// shards, parallel/mesh.py); null means none.
+__device__ __forceinline__ void commit_pool_caps(const FfdArgs& a, i64 g,
+                                                 i64 lo, i64 hi, i64* tmp,
+                                                 const i64* before = nullptr) {
     const i64 D = a.D, P = a.P;
     const i64* R = a.R + g * D;
     for (i64 pi = 0; pi < P; ++pi) {
@@ -135,6 +139,7 @@ __device__ __forceinline__ i64 commit_fill(const FfdArgs& a, i64 g, i64 lo,
             if (a.pool[s] == pi) local = wadd(local, a.k[s]);
         i64 tot;
         i64 cum = block_excl_scan(local, tmp, &tot);
+        if (before) cum = wadd(cum, before[pi]);
         for (i64 s = lo; s < hi; ++s) {
             if (a.pool[s] != pi) continue;
             i64 kp = a.k[s];
@@ -145,11 +150,19 @@ __device__ __forceinline__ i64 commit_fill(const FfdArgs& a, i64 g, i64 lo,
         }
         __syncthreads();
     }
-    i64 n_rem = a.n[g];
+}
+
+// Step 5 of group g on one block: the greedy prefix fill; k[s] becomes
+// take[s]. `before` is the sum of k over the slots ahead of this block's
+// (0 on one device). Returns the block's total take to every thread.
+__device__ __forceinline__ i64 commit_greedy(const FfdArgs& a, i64 g, i64 lo,
+                                             i64 hi, i64* tmp,
+                                             i64 before = 0) {
+    const i64 n_rem = a.n[g];
     i64 local = 0;
     for (i64 s = lo; s < hi; ++s) local = wadd(local, a.k[s]);
     i64 tot;
-    i64 cum = block_excl_scan(local, tmp, &tot);
+    i64 cum = wadd(block_excl_scan(local, tmp, &tot), before);
     i64 tsum = 0;
     for (i64 s = lo; s < hi; ++s) {
         i64 kk = a.k[s];
@@ -162,7 +175,16 @@ __device__ __forceinline__ i64 commit_fill(const FfdArgs& a, i64 g, i64 lo,
     }
     i64 taken;
     block_excl_scan(tsum, tmp, &taken);
-    return wsub(n_rem, taken);
+    return taken;
+}
+
+// Steps 4-5 of group g on one block: the pool-limit caps, then the greedy
+// prefix fill; k[s] becomes take[s]. Returns n_rem to every thread. Each
+// thread owns the slot chunk [lo, hi).
+__device__ __forceinline__ i64 commit_fill(const FfdArgs& a, i64 g, i64 lo,
+                                           i64 hi, i64* tmp) {
+    commit_pool_caps(a, g, lo, hi, tmp);
+    return wsub(a.n[g], commit_greedy(a, g, lo, hi, tmp));
 }
 
 // Step 6 for the nf groups g0 .. g0+nf-1 whose takes are the row blocks
@@ -171,9 +193,12 @@ __device__ __forceinline__ i64 commit_fill(const FfdArgs& a, i64 g, i64 lo,
 // filled narrows its types to (the filling groups' candidates) & fit,
 // its zones and capacity types to the AND of the filling groups'; the
 // per-pool take sums go into pool_used. nf == 1 is one plain group.
-// `tbp` holds nf * P shared entries.
+// `tbp` holds nf * P shared entries. `tbp_in` (nullable) replaces the
+// block's own per-pool sums in the pool_used update: a slot-sharded mesh
+// passes the sums reduced over every shard (parallel/mesh.py).
 __device__ __forceinline__ void commit_narrow(const FfdArgs& a, i64 g0,
-                                              i64 nf, i64* tbp) {
+                                              i64 nf, i64* tbp,
+                                              const i64* tbp_in = nullptr) {
     const i64 N = a.N, T = a.T, D = a.D, Z = a.Z, C = a.C, P = a.P;
     const int tid = threadIdx.x;
     for (i64 i = tid; i < N * D; i += blockDim.x) {
@@ -215,55 +240,75 @@ __device__ __forceinline__ void commit_narrow(const FfdArgs& a, i64 g0,
         }
     }
     __syncthreads();
+    const i64* sums = tbp_in ? tbp_in : tbp;
     for (i64 i = tid; i < P * D; i += blockDim.x) {
         const i64 p = i / D, d = i % D;
         i64 u = a.pool_used[i];
         for (i64 f = 0; f < nf; ++f)
-            u = wadd(u, wmul(tbp[f * P + p], a.R[(g0 + f) * D + d]));
+            u = wadd(u, wmul(sums[f * P + p], a.R[(g0 + f) * D + d]));
         a.pool_used[i] = u;
     }
     __syncthreads();
 }
 
+// Whether type t is a fresh-node candidate of group g in pool pi: allowed
+// by the group and the pool, with an available offering in their shared
+// zones x capacity types.
+__device__ __forceinline__ bool new_node_cand(const FfdArgs& a, i64 g, i64 pi,
+                                              i64 t) {
+    const i64 Z = a.Z, C = a.C;
+    if (!(a.F[g * a.T + t] && a.pool_types[pi * a.T + t])) return false;
+    for (i64 z = 0; z < Z; ++z) {
+        if (!(a.agz[g * Z + z] && a.pool_agz[pi * Z + z])) continue;
+        for (i64 cc = 0; cc < C; ++cc) {
+            if (a.agc[g * C + cc] && a.pool_agc[pi * C + cc]
+                && a.avail_zc[t * Z * C + z * C + cc])
+                return true;
+        }
+    }
+    return false;
+}
+
+// A slot-sharded mesh's view of the new-node phase (parallel/mesh.py):
+// the block holds the local slot rows [lo, lo + rows) of N slots whose
+// first E are existing nodes, and `caps` [P] are the group's new-node caps
+// already reduced over the type shards (minValues caps included).
+struct SlotWindow {
+    i64 lo, rows, N, E;
+    const i64* caps;
+};
+
 // Step 7 of group g on one block: new nodes, pool by pool, at slots
 // E + num_nodes onward (ordinal in num_nodes); k[s] (the take) gains each
 // opened slot's pods. Returns n_rem to every thread. `tmp` holds 33
 // shared entries, `sc` 8; `h1`/`sel` the K*V + K entries of the
-// minValues select (unused when K == 0).
+// minValues select (unused when K == 0 or with a window). With `w` the
+// slot ids are global, rows outside the window are another shard's, and
+// the caps come from the window.
 __device__ __forceinline__ i64 commit_new_nodes(const FfdArgs& a, i64 g,
                                                 i64 n_rem, i64* tmp, i64* sc,
-                                                i64* h1, i64* sel) {
-    const i64 N = a.N, T = a.T, D = a.D, Z = a.Z, C = a.C, P = a.P;
-    const i64 E = a.E, K = a.K, V = a.V, M = a.M;
+                                                i64* h1, i64* sel,
+                                                const SlotWindow* w = nullptr) {
+    const i64 T = a.T, D = a.D, Z = a.Z, C = a.C, P = a.P;
+    const i64 K = a.K, V = a.V, M = a.M;
+    const i64 N = w ? w->N : a.N, E = w ? w->E : a.E;
+    const i64 lo = w ? w->lo : 0, hi = w ? w->lo + w->rows : a.N;
     const i64* R = a.R + g * D;
     const int tid = threadIdx.x;
     for (i64 pi = 0; pi < P; ++pi) {
         const i64* dmn = a.daemon + (g * P + pi) * D;
         i64 cmax = 0;
         for (i64 t = tid; t < T; t += blockDim.x) {
-            bool c = a.F[g * T + t] && a.pool_types[pi * T + t];
-            if (c) {
-                bool off = false;
-                for (i64 z = 0; z < Z && !off; ++z) {
-                    if (!(a.agz[g * Z + z] && a.pool_agz[pi * Z + z]))
-                        continue;
-                    for (i64 cc = 0; cc < C; ++cc) {
-                        if (a.agc[g * C + cc] && a.pool_agc[pi * C + cc]
-                            && a.avail_zc[t * Z * C + z * C + cc]) {
-                            off = true;
-                            break;
-                        }
-                    }
-                }
-                c = off;
-            }
+            const bool c = new_node_cand(a, g, pi, t);
             i64 hr = c ? headroom(a.A + t * D, dmn, R, D) : 0;
             a.candn[t] = c;
             a.hrn[t] = hr;
             cmax = hr > cmax ? hr : cmax;
         }
         i64 cap = block_max(cmax, tmp);   // its barriers publish hrn/candn
-        if (K > 0) {
+        if (w) {
+            cap = w->caps[pi];
+        } else if (K > 0) {
             for (i64 i = tid; i < K * V; i += blockDim.x) h1[i] = 0;
             __syncthreads();
             for (i64 kk = 0; kk < K; ++kk) {
@@ -308,24 +353,28 @@ __device__ __forceinline__ i64 commit_new_nodes(const FfdArgs& a, i64 g,
         __syncthreads();
         const i64 q = sc[0], start = sc[1], last = sc[2], placed = sc[3];
         const i64 cp = sc[4];
-        for (i64 s = start + tid; s < start + q; s += blockDim.x) {
+        // this block's opened rows: global slots [s0, s1), row s - lo
+        const i64 s0 = start > lo ? start : lo;
+        const i64 s1 = start + q < hi ? start + q : hi;
+        for (i64 s = s0 + tid; s < s1; s += blockDim.x) {
             const i64 m_slot = (s - start == q - 1) ? last : cp;
-            a.k[s] = wadd(a.k[s], m_slot);
+            const i64 r = s - lo;
+            a.k[r] = wadd(a.k[r], m_slot);
             for (i64 d = 0; d < D; ++d)
-                a.used[s * D + d] = wadd(a.used[s * D + d],
+                a.used[r * D + d] = wadd(a.used[r * D + d],
                                          wadd(wmul(m_slot, R[d]), dmn[d]));
             for (i64 z = 0; z < Z; ++z)
-                a.zones[s * Z + z] =
+                a.zones[r * Z + z] =
                     a.agz[g * Z + z] && a.pool_agz[pi * Z + z];
             for (i64 c = 0; c < C; ++c)
-                a.ct[s * C + c] = a.agc[g * C + c] && a.pool_agc[pi * C + c];
-            a.pool[s] = (int)pi;
-            a.alive[s] = 1;
+                a.ct[r * C + c] = a.agc[g * C + c] && a.pool_agc[pi * C + c];
+            a.pool[r] = (int)pi;
+            a.alive[r] = 1;
         }
-        for (i64 i = tid; i < q * T; i += blockDim.x) {
-            const i64 s = start + i / T, t = i % T;
+        for (i64 i = tid; i < (s1 - s0) * T; i += blockDim.x) {
+            const i64 s = s0 + i / T, t = i % T;
             const i64 m_slot = (s - start == q - 1) ? last : cp;
-            a.types[s * T + t] = a.candn[t] && a.hrn[t] >= m_slot;
+            a.types[(s - lo) * T + t] = a.candn[t] && a.hrn[t] >= m_slot;
         }
         for (i64 d = tid; d < D; d += blockDim.x)
             a.pool_used[pi * D + d] = wadd(a.pool_used[pi * D + d],

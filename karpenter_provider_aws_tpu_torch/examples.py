@@ -1471,3 +1471,594 @@ def preempt_cluster(ns, n_nodes: int, per_node: int, seed: int, *,
         kube.create(p)
     return SimpleNamespace(kube=kube, env=env, nodes=nodes, wave=hi,
                            never=nv, topo=tp)
+
+
+# ---------------------------------------------------------------------------
+# the sharded scan (K10): kernel-input cases, the pipeline fuzz, and the
+# bodies of spawned mesh ranks (parallel/ranks.py imports them by name)
+# ---------------------------------------------------------------------------
+
+def mesh_rand_arrays(seed: int, T: int, D: int, Z: int, C: int, G: int,
+                     E: int, P: int) -> Dict:
+    """Seeded random kernel inputs at an arbitrary shape: a numpy copy of
+    the reference repository's ``tests/test_mesh_solve.py``
+    ``_rand_inputs`` (the same arrays for the same seed)."""
+    rng = np.random.RandomState(seed)
+    lim = np.where(rng.rand(P, D) < 0.5,
+                   rng.randint(1 << 6, 1 << 12, size=(P, D)),
+                   -1).astype(np.int64)
+    return dict(
+        A=rng.randint(1, 1 << 16, size=(T, D)).astype(np.int64),
+        avail_zc=rng.rand(T, Z * C) < 0.8,
+        R=rng.randint(1, 1 << 8, size=(G, D)).astype(np.int64),
+        n=rng.randint(1, 40, size=(G,)).astype(np.int64),
+        F=rng.rand(G, T) < 0.7,
+        agz=np.ones((G, Z), bool),
+        agc=np.ones((G, C), bool),
+        admit=rng.rand(G, P) < 0.9,
+        daemon=np.zeros((G, P, D), np.int64),
+        pool_types=rng.rand(P, T) < 0.9,
+        pool_agz=np.ones((P, Z), bool),
+        pool_agc=np.ones((P, C), bool),
+        pool_limit=lim,
+        pool_used0=np.zeros((P, D), np.int64),
+        ex_alloc=rng.randint(1 << 10, 1 << 16, size=(E, D)).astype(np.int64),
+        ex_used0=np.zeros((E, D), np.int64),
+        ex_compat=rng.rand(G, E) < 0.5)
+
+
+def mesh_fixture_arrays() -> Dict:
+    """The reference repository's ``tests/test_mesh_solve.py`` module
+    fixture (T=45, D=4, Z=3, C=2, G=12, E=2, P=2; n_max 64), in numpy."""
+    rng = np.random.RandomState(5)
+    T, D, Z, C, G, E, P = 45, 4, 3, 2, 12, 2, 2
+    return dict(
+        A=rng.randint(1, 1 << 16, size=(T, D)).astype(np.int64),
+        avail_zc=rng.rand(T, Z * C) < 0.8,
+        R=rng.randint(1, 1 << 8, size=(G, D)).astype(np.int64),
+        n=rng.randint(1, 40, size=(G,)).astype(np.int64),
+        F=rng.rand(G, T) < 0.7,
+        agz=np.ones((G, Z), bool),
+        agc=np.ones((G, C), bool),
+        admit=np.ones((G, P), bool),
+        daemon=np.zeros((G, P, D), np.int64),
+        pool_types=rng.rand(P, T) < 0.9,
+        pool_agz=np.ones((P, Z), bool),
+        pool_agc=np.ones((P, C), bool),
+        pool_limit=np.full((P, D), -1, np.int64),
+        pool_used0=np.zeros((P, D), np.int64),
+        ex_alloc=rng.randint(1 << 10, 1 << 16, size=(E, D)).astype(np.int64),
+        ex_used0=np.zeros((E, D), np.int64),
+        ex_compat=rng.rand(G, E) < 0.5)
+
+
+#: the sharded scan's cases: the reference's mesh test shapes (its module
+#: fixture, its fuzz shapes at their seeds), the fixture with minValues
+#: floors (type mesh only), and a fuzz shape with the hazards: groups of
+#: n = 0, a group with no candidate type, a zero request row (BIG
+#: headroom on 40 open slots: wrapping prefixes, negative takes) and a
+#: zero-R column; two types over four ranks (two shards all padding); and
+#: more existing nodes than a slot shard holds, small ones, under pool
+#: limits (a later slot shard starts inside the existing rows, and new
+#: nodes of a limited pool sit on two shards of the 4 x 1 layout)
+MESH_CASES = ("fixture", "fuzz_e0", "fuzz_wide", "min_values", "hazards",
+              "few_types", "existing_split")
+
+#: the layouts a case runs on 4 ranks: the type mesh (1 x 4), pods x
+#: types (2 x 2) and the slot split alone (4 x 1)
+MESH_LAYOUTS = (("tp", 1), ("dp2", 2), ("dp4", 4))
+
+
+def mesh_case(name: str) -> Tuple[Dict, Dict]:
+    """(arrays, statics n_max/E/P/V) of one sharded-scan case."""
+    if name not in MESH_CASES:
+        raise ValueError(f"unknown mesh case {name!r}; one of {MESH_CASES}")
+    if name in ("fixture", "min_values"):
+        arrays = mesh_fixture_arrays()
+        st = dict(n_max=64, E=2, P=2, V=0)
+        if name == "min_values":
+            rng = np.random.RandomState(11)
+            T, P, K, V = 45, 2, 2, 3
+            arrays.update(
+                mv_floor=rng.randint(1, 4, size=(P, K)).astype(np.int64),
+                mv_pairs_t=np.tile(np.arange(T, dtype=np.int64), (K, 1)),
+                mv_pairs_v=rng.randint(0, V, size=(K, T)).astype(np.int64))
+            st["V"] = V
+        return arrays, st
+    if name == "fuzz_e0":
+        return (mesh_rand_arrays(38, T=17, D=4, Z=2, C=2, G=7, E=0, P=1),
+                dict(n_max=33, E=0, P=1, V=0))
+    if name == "few_types":
+        return (mesh_rand_arrays(91, T=2, D=4, Z=2, C=2, G=5, E=1, P=1),
+                dict(n_max=20, E=1, P=1, V=0))
+    if name == "existing_split":
+        arrays = mesh_rand_arrays(23, T=37, D=4, Z=2, C=2, G=9, E=40, P=2)
+        rng = np.random.RandomState(24)
+        arrays["ex_alloc"] = rng.randint(1 << 8, 1 << 10, size=(40, 4)
+                                         ).astype(np.int64)
+        arrays["A"] = rng.randint(300, 900, size=(37, 4)).astype(np.int64)
+        # pool 0's limit binds after 11 nodes; pool 1 opens the next 5
+        arrays["pool_limit"] = np.array([[3000, -1, -1, -1],
+                                         [-1, 5000, -1, -1]], np.int64)
+        return arrays, dict(n_max=24, E=40, P=2, V=0)
+    arrays = mesh_rand_arrays(69, T=101, D=4, Z=3, C=2, G=20, E=5, P=3)
+    if name == "hazards":
+        # group 0 opens ~40 nodes (about one pod fits a node), so the zero
+        # request row of group 9 (admitted everywhere) sees BIG headroom
+        # on more than 16 open slots: its prefixes wrap int64
+        arrays["R"][0] = 30000
+        arrays["n"][[0, 9]] = 39
+        arrays["n"][[3, 7]] = 0
+        arrays["F"][5] = False
+        arrays["R"][9] = 0
+        arrays["admit"][9] = True
+        arrays["R"][11, 1] = 0
+    return arrays, dict(n_max=50, E=5, P=3, V=0)
+
+
+def mesh_outputs(takes, leftover, carry) -> Dict:
+    """A sharded solve's outputs as numpy arrays (num_nodes as [1])."""
+    out = dict(takes=takes, leftover=leftover, **carry._asdict())
+    return {k: np.asarray(v.cpu()).reshape(1) if k == "num_nodes"
+            else np.asarray(v.cpu()) for k, v in out.items()}
+
+
+def pipeline_api(pkg=None):
+    """The objects the pipeline fuzz is built from, as a namespace: the
+    ``labels``, ``objects``, ``resources`` and fake ``environment``
+    modules and ``solver.types``. By default this package's; a test
+    passes the reference package's modules in the same shape."""
+    from types import SimpleNamespace
+    if pkg is not None:
+        return pkg
+    from .apis import labels as L
+    from .apis import objects as obj
+    from .apis import resources as res
+    from .fake import environment as env
+    from .solver import types as types_
+    return SimpleNamespace(L=L, obj=obj, res=res, env=env, types=types_)
+
+
+def fuzz_scenario(ns, env, seed: int):
+    """The pipeline fuzz's seeded scenario (the reference repository's
+    ``tests/test_solver_equivalence.py`` generator): one to three pools
+    (category / capacity-type requirements, taints, CPU limits, weights),
+    one to five pod signatures (selectors, tolerations), up to three
+    existing nodes; built from ``ns`` (``pipeline_api``)."""
+    import random
+    L = ns.L
+    rng = random.Random(seed)
+    pools = []
+    for i in range(rng.randint(1, 3)):
+        reqs = []
+        if rng.random() < 0.4:
+            reqs.append({"key": L.INSTANCE_CATEGORY, "operator": "In",
+                         "values": rng.sample(["c", "m", "r", "t"], 2)})
+        if rng.random() < 0.3:
+            reqs.append({"key": L.CAPACITY_TYPE, "operator": "In",
+                         "values": [rng.choice(["spot", "on-demand"])]})
+        taints = [ns.obj.Taint("dedicated", "NoSchedule", "x")] \
+            if rng.random() < 0.3 else []
+        limits = {"cpu": str(rng.randint(8, 64))} \
+            if rng.random() < 0.3 else None
+        pools.append(env.nodepool(
+            f"pool-{seed}-{i}", requirements=reqs, taints=taints,
+            limits=limits, weight=rng.randint(0, 100)))
+    pods = []
+    for j in range(rng.randint(1, 5)):
+        kw = {}
+        if rng.random() < 0.4:
+            kw["node_selector"] = rng.choice([
+                {L.ARCH: "arm64"}, {L.ARCH: "amd64"},
+                {L.ZONE: "us-west-2b"},
+                {L.CAPACITY_TYPE: "spot"},
+                {L.INSTANCE_SIZE: "2xlarge"},
+            ])
+        if rng.random() < 0.3:
+            kw["tolerations"] = [ns.obj.Toleration(key="dedicated",
+                                                   operator="Exists")]
+        pods += ns.env.make_pods(
+            rng.randint(1, 60),
+            cpu=rng.choice(["100m", "250m", "500m", "1", "2", "7"]),
+            memory=rng.choice(["128Mi", "1Gi", "4Gi", "30Gi"]),
+            prefix=f"r{seed}-{j}", **kw)
+    zones = [z.name for z in
+             (env.ec2.zones if hasattr(env, "ec2") else env.zones)]
+    existing = []
+    for e in range(rng.randint(0, 3)):
+        existing.append(ns.types.ExistingNode(
+            name=f"ex-{seed}-{e}",
+            labels={L.ARCH: rng.choice(["amd64", "arm64"]), L.OS: "linux",
+                    L.ZONE: rng.choice(zones)},
+            allocatable=ns.res.Resources.parse({
+                "cpu": str(rng.randint(2, 16)),
+                "memory": f"{rng.randint(4, 64)}Gi", "pods": 58})))
+    return env.snapshot(pods, pools, existing_nodes=existing)
+
+
+def min_values_scenario(ns, env, seed: int):
+    """The pipeline fuzz's minValues shape (the reference repository's
+    ``tests/test_solver_equivalence.py`` ``test_min_values_floors`` and
+    ``_two_keys``): a pool whose family (and, for odd seeds, size) must
+    keep several values on every node, at the fuzz's size."""
+    import random
+    L = ns.L
+    rng = random.Random(seed)
+    reqs = [{"key": L.INSTANCE_FAMILY, "operator": "Exists",
+             "minValues": rng.randint(2, 5)}]
+    if seed % 2:
+        reqs.append({"key": L.INSTANCE_SIZE, "operator": "Exists",
+                     "minValues": 2})
+    pods = ns.env.make_pods(rng.randint(20, 120), cpu="500m",
+                            memory="1Gi", prefix=f"mv{seed}a") \
+        + ns.env.make_pods(rng.randint(5, 40), cpu="2", memory="4Gi",
+                           prefix=f"mv{seed}b")
+    return env.snapshot(pods, [env.nodepool(f"mv-{seed}",
+                                            requirements=reqs)])
+
+
+def priority_scenario(ns, env, seed: int):
+    """Signatures spread over three PriorityClasses (one the global
+    default) under a pool whose CPU limit binds, a few existing nodes
+    (the port's ``tests/test_torch_pipeline.py`` priority scenario).
+    Returns the snapshot with its ``priority_classes`` set (Q = 1)."""
+    import random
+    L = ns.L
+    rng = random.Random(seed)
+    pcs = [ns.obj.PriorityClass("low", value=1),
+           ns.obj.PriorityClass("mid", value=50, global_default=True),
+           ns.obj.PriorityClass("high", value=1000)]
+    pods = []
+    for j in range(rng.randint(4, 8)):
+        grp = ns.env.make_pods(
+            rng.randint(1, 40), cpu=rng.choice(["250m", "500m", "1", "2"]),
+            memory=rng.choice(["512Mi", "1Gi", "4Gi"]),
+            prefix=f"q{seed}-{j}")
+        cls = rng.choice(["low", "mid", "high", ""])
+        for p in grp:
+            p.priority_class_name = cls
+        pods += grp
+    ns.obj.resolve_pod_priorities(pods, pcs)
+    existing = [ns.types.ExistingNode(
+        name=f"qx-{seed}-{e}", labels={L.ARCH: "amd64", L.OS: "linux"},
+        allocatable=ns.res.Resources.parse({
+            "cpu": str(rng.randint(2, 8)), "memory": "16Gi", "pods": 58}))
+        for e in range(rng.randint(0, 3))]
+    snap = env.snapshot(pods, [env.nodepool(
+        f"prio-{seed}", limits={"cpu": str(rng.randint(8, 40))})],
+        existing_nodes=existing)
+    snap.priority_classes = pcs
+    return snap
+
+
+#: the solver cases of a mesh: the pipeline fuzz's seeds, its minValues
+#: shape, a priority snapshot and a small pods x types snapshot
+MESH_FUZZ_SEEDS = tuple(range(20))
+
+
+def mesh_dp2_snapshot(ns, env, n_pods: int = 300):
+    """A small snapshot that the pods x types shape takes when its slot
+    floor is 0: config 2's pod mix at ``n_pods``, one pool with a CPU
+    limit that binds (the pool caps' prefixes cross the slot shards)."""
+    L = ns.L
+    mk = ns.env.make_pods
+    n_small, n_med = int(n_pods * 0.6), int(n_pods * 0.25)
+    pods = (mk(n_small, cpu="250m", memory="512Mi", prefix="dps")
+            + mk(n_med, cpu="1", memory="2Gi", prefix="dpm")
+            + mk(n_pods - n_small - n_med, cpu="2", memory="4Gi",
+                 prefix="dpt", node_selector={L.CAPACITY_TYPE: "spot"}))
+    return env.snapshot(pods, [env.nodepool("dp2-pool",
+                                            limits={"cpu": "160"})])
+
+
+def _fp_digest(res) -> str:
+    import hashlib
+    return hashlib.sha256(repr(res.decision_fingerprint()).encode()
+                          ).hexdigest()
+
+
+def _mesh_stats(solver) -> Dict:
+    s = solver.last_dispatch_stats
+    return {k: s.get(k) for k in ("kernel", "mesh_kernel", "ndp", "ntp",
+                                  "backend", "placement", "reason",
+                                  "launches")}
+
+
+def mesh_cases_rank(rank: int, world: int, names=MESH_CASES,
+                    layouts=MESH_LAYOUTS, device: str = "cpu") -> Dict:
+    """A spawned rank's body: every sharded-scan case on every layout,
+    by the per-rank kernels (their plain parts on the CPU) and by the
+    plain version; {(case, layout, plain): outputs}."""
+    from .parallel.mesh import MeshComm, solve_scan_sharded, \
+        solve_scan_sharded2
+    comm = MeshComm()
+    out = {}
+    for name in names:
+        arrays, st = mesh_case(name)
+        for lay, ndp in layouts:
+            if ndp > 1 and st["V"]:
+                continue
+            for plain in (False, True):
+                if ndp == 1:
+                    r = solve_scan_sharded(arrays, comm, st["n_max"], st["E"],
+                                           st["P"], st["V"], device=device,
+                                           plain=plain)
+                else:
+                    r = solve_scan_sharded2(arrays, comm.layout(ndp),
+                                            st["n_max"], st["E"], st["P"],
+                                            device=device, plain=plain)
+                out[(name, lay, plain)] = mesh_outputs(*r)
+    return out
+
+
+def mesh_solver_rank(rank: int, world: int, seeds=MESH_FUZZ_SEEDS,
+                     warm_pods: int = 2000) -> Dict:
+    """A spawned rank's body: ``CUDASolver(device="cpu", mesh=comm)`` on
+    the pipeline fuzz's seeds, its minValues shape, a priority snapshot
+    and a small pods x types snapshot (decision fingerprints and the
+    dispatch evidence), then three warm ticks of a small warm cluster
+    (placement full, patch after a rows tick, reuse after a clean one),
+    each against a single-device solve from scratch on the same
+    snapshot."""
+    from .fake.environment import Environment, reset_pod_counter
+    from .parallel.mesh import MeshComm
+    from .solver import CUDASolver
+    comm = MeshComm()
+    api = pipeline_api()
+    env = Environment()
+    solver = CUDASolver(device="cpu", mesh=comm)
+    out: Dict = {}
+
+    def run(key, build, s=solver):
+        reset_pod_counter()
+        res = s.solve(build())
+        out[key] = (res.decision_fingerprint(), _mesh_stats(s))
+
+    for seed in seeds:
+        run(("fuzz", seed), lambda: fuzz_scenario(api, env, seed))
+    for seed in (0, 1):
+        run(("min_values", seed), lambda: min_values_scenario(api, env, seed))
+    run(("priority", 0), lambda: priority_scenario(api, env, 0))
+    run(("dp2", 0), lambda: mesh_dp2_snapshot(api, env),
+        CUDASolver(device="cpu", mesh=comm, dp2_min_slots=0))
+    snapshot, tick = warm_cluster(pods=warm_pods)
+    warm = CUDASolver(device="cpu", mesh=comm)
+    ticks = []
+    for t in range(3):
+        if t == 1:
+            tick(binds=True)
+        snap = snapshot()
+        res = warm.solve(snap)
+        fresh = CUDASolver(device="cpu", incremental=False).solve(snap)
+        ticks.append(dict(
+            same=res.decision_fingerprint() == fresh.decision_fingerprint(),
+            cache=warm.last_phase_stats.get("cache"), **_mesh_stats(warm)))
+    out["warm"] = ticks
+    return out
+
+
+def mesh_fail_rank(rank: int, world: int) -> None:
+    """A spawned rank's body: a sharded solve in which rank 1 raises at
+    its second group step (the others then wait in a collective)."""
+    from .parallel.mesh import MeshComm, solve_scan_sharded
+
+    def fail(name, args, st, ref):
+        if rank == 1 and name == "mesh_commit" and args[0] == 1:
+            raise RuntimeError("rank 1 fails mid-solve")
+
+    arrays, st = mesh_case("fixture")
+    solve_scan_sharded(arrays, MeshComm(), st["n_max"], st["E"], st["P"],
+                       device="cpu", check=fail)
+
+
+def config2(env, n_pods: int = 50_000):
+    """BASELINE config 2 (a copy of the reference repository's
+    ``bench.build_config2``): 60% small, 25% medium, 10% spot-pinned and
+    5% arm64-pinned pods under one pool over the full catalog."""
+    from .apis import labels as L
+    from .fake.environment import make_pods as mk
+    n_small, n_med = int(n_pods * 0.60), int(n_pods * 0.25)
+    n_spot = int(n_pods * 0.10)
+    n_arm = n_pods - n_small - n_med - n_spot
+    pods = (mk(n_small, cpu="250m", memory="512Mi", prefix="small")
+            + mk(n_med, cpu="1", memory="2Gi", prefix="med")
+            + mk(n_spot, cpu="2", memory="4Gi", prefix="spot",
+                 node_selector={L.CAPACITY_TYPE: "spot"})
+            + mk(n_arm, cpu="500m", memory="1Gi", prefix="arm",
+                 node_selector={L.ARCH: "arm64"}))
+    return env.snapshot(pods, [env.nodepool("bench-pool")])
+
+
+#: the mesh cells: (name, config-2 pods, the mesh solver's dp2_min_slots
+#: (None: the default 2,048)). Both run at the slot bucket their solves
+#: settle at: 256 at 50,000 pods, 1,024 at 500,000 (960 nodes), where the
+#: default floor keeps the type mesh, as the reference's routing does; a
+#: floor of 1,024 puts the 500,000-pod cell on the pods x types mesh.
+MESH_CELLS = (("tp", 50_000, None), ("dp2", 500_000, 1024))
+
+#: the minValues snapshots of the card's mesh phase (the pipeline fuzz's
+#: minValues shape at the fuzz's size: the type mesh with h1 maxima)
+MESH_MV_SEEDS = (0, 1)
+
+
+def mesh_cell_solver(comm, dp2_min_slots=None, device=None):
+    """The mesh solver of a cell (``MESH_CELLS``), or with ``comm=None``
+    the single-device solver."""
+    from .solver import CUDASolver
+    if comm is None:
+        return CUDASolver(incremental=False, device=device)
+    kw = {} if dp2_min_slots is None else dict(dp2_min_slots=dp2_min_slots)
+    return CUDASolver(mesh=comm, force_mesh=True, device=device, **kw)
+
+
+def mesh_kernel_check(rank: int, records: list, check_ranks=(0,)):
+    """A ``check`` hook for ``dispatch_mesh``: on the ranks of
+    ``check_ranks``, every kernel launch's buffers against its plain
+    part's, appended to ``records`` as (kernel, args, differing buffers,
+    max |diff|); None on the other ranks (they only join the
+    collectives)."""
+    import torch
+    if rank not in check_ranks:
+        return None
+
+    def check(name, args, st, ref):
+        if st.device.type == "cuda":
+            torch.cuda.synchronize()
+        diffs, err = [], 0
+        for nm, t in st.buffers().items():
+            r = ref.buffers()[nm]
+            if not torch.equal(t, r):
+                diffs.append(nm)
+                err = max(err, int((t.long() - r.long()).abs().max()))
+        records.append((name, tuple(int(a) for a in args), diffs, err))
+    return check
+
+
+class ShardStub:
+    """One process's stand-in for the layout of slot shard ``dp_idx`` of
+    ``ndp`` (one type shard), for holding that shard's kernels against
+    their plain parts with no process group: the max over the type shards
+    is the identity, the dp sums add nothing, and the earlier shards'
+    prefixes are the given numbers (``before``: the P pools', then the
+    fill's), wrapping ones included. Decisions under it mean nothing;
+    each launch's agreement with its plain part does."""
+
+    def __init__(self, ndp: int, dp_idx: int, before):
+        self.ndp, self.ntp, self.dp_idx, self.tp_idx = ndp, 1, dp_idx, 0
+        self.before = [int(b) for b in before]
+        self._base, self.calls, self.seconds = self, 0, 0.0
+        self._pools_next = True
+
+    def axis_max(self, x):
+        return x
+
+    def dp_sum(self, x):
+        return x
+
+    def dp_before(self, x):
+        """The pools' prefixes, then the fill's, by turns (the order of
+        the step loop's two all_gathers)."""
+        import torch
+        vals = self.before[:-1] if self._pools_next else self.before[-1:]
+        self._pools_next = not self._pools_next
+        return torch.tensor(vals, dtype=x.dtype, device=x.device)
+
+
+#: the slot shards a card test holds against their plain parts: (case,
+#: ndp, dp index); each starts inside the existing rows or past them
+MESH_LATER_SHARDS = (("existing_split", 2, 1), ("existing_split", 4, 2),
+                     ("existing_split", 4, 3), ("hazards", 2, 1))
+
+#: the earlier shards' prefixes those checks feed (per pool, then the
+#: fill's), small and at the edge of int64 (the sums wrap)
+MESH_BEFORES = {"small": lambda P: [3 * (p + 1) for p in range(P)] + [7],
+                "wrap": lambda P: [(1 << 63) - 2 - p for p in range(P)]
+                + [(1 << 63) - 5]}
+
+
+def mesh_shard_check(case: str, ndp: int, dp_idx: int, before: str,
+                     device="cpu"):
+    """Every kernel launch of the first four group steps of slot shard
+    ``dp_idx`` of ``ndp`` of a ``MESH_CASES`` case (slot0 > 0, the fill in
+    its three phases) against its plain part from the same entry state,
+    under a ``ShardStub`` with the ``MESH_BEFORES`` prefixes. Returns
+    (the ``mesh_kernel_check`` records, the shard's state)."""
+    import torch
+
+    from .ops import mesh_cuda as mc
+    from .ops.ffd_torch import KernelInputs
+    from .parallel import mesh as pm
+    arrays, st = mesh_case(case)
+    if st["V"]:
+        raise ValueError(f"{case}: the slot split takes no minValues floors")
+    lay = ShardStub(ndp, dp_idx, MESH_BEFORES[before](st["P"]))
+    N = st["E"] + st["n_max"]
+    Np = -(-N // ndp) * ndp
+    T = np.asarray(arrays["A"]).shape[0]
+    names = [f for f in pm.FIELDS if arrays.get(f) is not None]
+    inp = KernelInputs(**pm._shard_inputs(arrays, lay, names, T, Np, Np, 0,
+                                          torch.device(device)))
+    state = mc.MeshState(inp, E=st["E"], P=st["P"], V=0, N=N,
+                         slot0=dp_idx * (Np // ndp))
+    records: list = []
+    pm._mesh_scan(state, lay, check=mesh_kernel_check(0, records))
+    return records, state
+
+
+def mesh_cell_rank(rank: int, world: int, cells=MESH_CELLS,
+                   rounds: int = 3, device=None,
+                   mv_seeds=MESH_MV_SEEDS) -> Dict:
+    """A spawned rank's body on the card (several ranks may share it):
+    per mesh cell, a warm-up ``CUDASolver(mesh=comm).solve`` (its slot
+    bucket settles), one dispatch at that bucket whose first four group
+    steps rank 0 and the last rank (the last slot and type shard) hold
+    kernel by kernel against the plain parts, then ``rounds`` timed
+    solves with the launch counters set to 0 just before and read just
+    after. Returns per cell
+    the decision digest, the dispatch evidence, the solve times (ms), the
+    collectives' time per step, the launches and the kernel checks; then
+    per ``mv_seeds`` one minValues snapshot's decision digest and
+    evidence (``("min_values", seed)``)."""
+    import statistics
+    import time
+
+    import torch
+
+    from .fake.environment import Environment, reset_pod_counter
+    from .models.delta import full_existing_encode
+    from .models.encoding import encode_snapshot
+    from .ops import ffd_cuda
+    from .ops import mesh_cuda as mc
+    from .parallel.mesh import MeshComm, dispatch_mesh
+    comm = MeshComm()
+    env = Environment()
+    out: Dict = {}
+
+    def sync(dev):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for name, n_pods, dp2_min in cells:
+        reset_pod_counter()
+        snap = config2(env, n_pods)
+        solver = mesh_cell_solver(comm, dp2_min, device)
+        dev = solver.device
+        solver.solve(snap)                       # warm-up
+        enc = encode_snapshot(snap)
+        arrays, stt = solver._prep_device_inputs(
+            enc, *full_existing_encode(enc, []), mesh=True)
+        records: list = []
+        dispatch_mesh(arrays, comm=comm, n_max=solver._bucket, E=stt["E"],
+                      P=stt["P"], V=stt["V"], cache={},
+                      dp2_min_slots=solver.dp2_min_slots, device=dev,
+                      check=mesh_kernel_check(rank, records,
+                                              (0, world - 1)))
+        sync(dev)
+        ffd_cuda.reset_launches()
+        times, coll = [], []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            res = solver.solve(snap)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            s = solver.last_dispatch_stats
+            coll.append(s["collective_ms"] / s["groups"])
+        launches = {k: ffd_cuda.LAUNCHES[k] for k in mc.KERNELS}
+        placed = sum(len(n.pod_names) for n in res.new_nodes)
+        out[name] = dict(
+            fp=_fp_digest(res), stats=_mesh_stats(solver), times_ms=times,
+            collective_ms_per_step=statistics.median(coll),
+            collectives=solver.last_dispatch_stats["collectives"],
+            launches=launches, checks=records, pods=n_pods,
+            accounted=placed + len(res.existing_assignments)
+            + len(res.unschedulable), nodes=len(res.new_nodes),
+            slot_bucket=solver.last_dispatch_stats["slot_bucket"],
+            groups=solver.last_dispatch_stats["groups"])
+    api = pipeline_api()
+    for seed in mv_seeds:
+        reset_pod_counter()
+        solver = mesh_cell_solver(comm, device=device)
+        res = solver.solve(min_values_scenario(api, env, seed))
+        out[("min_values", seed)] = dict(fp=_fp_digest(res),
+                                         stats=_mesh_stats(solver))
+    return out

@@ -8,7 +8,9 @@
 ``subset_summary``; wrappers in ``ops/consolidation_cuda.py``) and
 ``csrc/pruned.cu`` (K6: ``ffd_pruned_select``, ``ffd_pruned_headroom``,
 ``ffd_pruned_commit``) and ``csrc/topo.cu`` (K9: ``topo_group_start``,
-``topo_pour``, ``topo_record_plain``; wrappers in ``ops/topo_cuda.py``) are
+``topo_pour``, ``topo_record_plain``; wrappers in ``ops/topo_cuda.py``) and
+``csrc/mesh.cu`` (K10: ``mesh_new_caps``, ``mesh_slot_headroom``,
+``mesh_fill``, ``mesh_commit``; wrappers in ``ops/mesh_cuda.py``) are
 compiled with ``nvcc`` for ``sm_90a`` into one shared library with a
 plain C interface, loaded with ctypes. The build runs at first use, into
 ``_build/`` inside this package, keyed by a hash of the sources; a failed
@@ -47,7 +49,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("packed_io.cu", "ffd_scan.cu", "ckpt.cu", "consolidation.cu",
-           "pruned.cu", "topo.cu", "fused.cu")
+           "pruned.cu", "topo.cu", "fused.cu", "mesh.cu")
 HEADERS = ("ffd_common.cuh", "ffd_step.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -65,7 +67,9 @@ LAUNCHES: Dict[str, int] = {"unpack_bits": 0, "ffd_slot_headroom": 0,
                             "ffd_pruned_headroom": 0,
                             "ffd_pruned_commit": 0, "topo_group_start": 0,
                             "topo_pour": 0, "topo_record_plain": 0,
-                            "ffd_fused_headroom": 0, "ffd_fused_commit": 0}
+                            "ffd_fused_headroom": 0, "ffd_fused_commit": 0,
+                            "mesh_new_caps": 0, "mesh_slot_headroom": 0,
+                            "mesh_fill": 0, "mesh_commit": 0}
 
 _LIB = None
 _BUILD_INFO: dict = {}
@@ -154,6 +158,10 @@ def _lib():
             for fn in (lib.karp_ffd_fused_headroom,
                        lib.karp_ffd_fused_commit):
                 fn.argtypes = [vp, ll, vp]
+            lib.karp_mesh_new_caps.argtypes = [vp, vp]
+            for fn in (lib.karp_mesh_slot_headroom, lib.karp_mesh_commit):
+                fn.argtypes = [vp, ll, vp]
+            lib.karp_mesh_fill.argtypes = [vp, ll, ctypes.c_int, vp]
             lib.karp_error_string.argtypes = [ctypes.c_int]
             lib.karp_error_string.restype = ctypes.c_char_p
             for fn in (lib.karp_unpack_bits, lib.karp_pack_outputs,
@@ -166,7 +174,9 @@ def _lib():
                        lib.karp_ffd_pruned_commit, lib.karp_topo_group_start,
                        lib.karp_topo_pour, lib.karp_topo_record_plain,
                        lib.karp_ffd_fused_headroom,
-                       lib.karp_ffd_fused_commit):
+                       lib.karp_ffd_fused_commit, lib.karp_mesh_new_caps,
+                       lib.karp_mesh_slot_headroom, lib.karp_mesh_fill,
+                       lib.karp_mesh_commit):
                 fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB

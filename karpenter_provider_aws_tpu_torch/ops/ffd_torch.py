@@ -41,6 +41,13 @@ variant of the scan, with a per-slot capacity bound in the carry and
 exact work only for the first S bound-positive slots; a trailing bail
 word marks the inputs where the pruning could have mattered.
 
+K10, the sharded scan (the reference's ``_solve`` with ``axis="tp"`` and
+``_solve_dp``): the plain versions of a mesh rank's whole scan, with the
+reference's collectives one by one through a ``MeshComm``
+(parallel/mesh.py): ``_solve_scan_ref(comm=)`` on a type shard and
+``_solve_dp_ref`` on a (slot, type) shard. The per-rank kernels and
+their plain parts are in ``ops/mesh_cuda.py``.
+
 ``solve_scan`` / ``solve_scan_packed1`` / ``solve_scan_packed1_ckpt`` /
 ``solve_scan_suffix`` / ``solve_scan_packed1_many`` /
 ``solve_scan_packed1_pruned`` / ``_many`` dispatch on the tensor's
@@ -228,10 +235,19 @@ def _mv_cap(h1: torch.Tensor, f: torch.Tensor, V: int) -> torch.Tensor:
     return capk.amin(dim=-1).clamp(min=0)
 
 
+def _axis_max(x: torch.Tensor, comm) -> torch.Tensor:
+    """The max over the type shards of a mesh (the reference's
+    ``_axis_max``): ``comm.axis_max``, the identity without a mesh."""
+    return x if comm is None else comm.axis_max(x)
+
+
 def _slot_headroom_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
-                       P: int, V: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                       P: int, V: int, comm=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Steps 1-3 for group g: (cand [N, T] bool, k [N] int64). The plain
-    version of the ``ffd_slot_headroom`` kernel."""
+    version of the ``ffd_slot_headroom`` kernel. With ``comm`` (a type-
+    sharded mesh, parallel/mesh.py) the types are the rank's shard and
+    k and the minValues maxima are maxed over the shards."""
     R, F, agz, agc = inp.R[g], inp.F[g], inp.agz[g], inp.agc[g]
     N = carry.used.shape[0]
     zc = ((carry.zones & agz)[:, :, None]
@@ -243,7 +259,8 @@ def _slot_headroom_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
     adm_open = open_ & inp.admit[g][pool_clipped]
     cand = carry.types & F[None, :] & off_ok & adm_open[:, None]
     hr = _headroom(inp.A[None, :, :], carry.used[:, None, :], R)  # [N, T]
-    k = torch.where(cand, hr, torch.zeros_like(hr)).amax(dim=1)
+    k = _axis_max(torch.where(cand, hr, torch.zeros_like(hr)).amax(dim=1),
+                  comm)
     if E:
         ex_ok = carry.alive[:E] & inp.ex_compat[g]
         k_ex = _headroom(inp.ex_alloc, carry.used[:E], R)
@@ -251,7 +268,7 @@ def _slot_headroom_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
                        k[E:]])
     if inp.mv_floor is not None:
         hr1 = torch.where(cand, hr + 1, torch.zeros_like(hr))
-        h1 = _mv_h1(hr1, inp.mv_pairs_t, inp.mv_pairs_v, V)
+        h1 = _axis_max(_mv_h1(hr1, inp.mv_pairs_t, inp.mv_pairs_v, V), comm)
         f = torch.where(open_[:, None], inp.mv_floor[pool_clipped],
                         torch.zeros_like(inp.mv_floor[pool_clipped]))
         cap = _mv_cap(h1, f, V)
@@ -281,28 +298,33 @@ def _prefix_fill_ref(inp: KernelInputs, carry: Carry, g: int, k, *,
 
 
 def _fill_phase_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
-                    P: int, V: int):
+                    P: int, V: int, comm=None):
     """Steps 1-5 of one group fill, without touching the carry: returns
     (take [N], n_rem, cand [N, T])."""
-    cand, k = _slot_headroom_ref(inp, carry, g, E=E, P=P, V=V)
+    cand, k = _slot_headroom_ref(inp, carry, g, E=E, P=P, V=V, comm=comm)
     take, n_rem = _prefix_fill_ref(inp, carry, g, k, P=P)
     return take, n_rem, cand
 
 
 def _new_nodes_phase_ref(inp: KernelInputs, g: int, take, used, types,
                          zones, ct, pool, alive, num_nodes, pool_used,
-                         n_rem, *, E: int, P: int, V: int, cap_hint=None):
+                         n_rem, *, E: int, P: int, V: int, cap_hint=None,
+                         comm=None, slots=None, N: Optional[int] = None,
+                         caps=None):
     """Step 7 of one group fill: open new nodes pool by pool (slot
     indices are ordinal in ``num_nodes``). With ``cap_hint`` [N, D] (the
     pruned scan) each opened slot's row becomes the pool's candidate
     column max of A (0 when nothing is a candidate); it is returned last
-    (None without it)."""
+    (None without it). A mesh rank (parallel/mesh.py) passes ``comm``
+    (each pool's cap is maxed over the type shards), ``slots`` (the
+    global ids of its slot rows) and the true slot count ``N``; ``caps``
+    [P] gives the caps already reduced (the per-rank kernels' form)."""
     R, F = inp.R[g], inp.F[g]
     agz, agc, admit, daemon = inp.agz[g], inp.agc[g], inp.admit[g], \
         inp.daemon[g]
-    N = used.shape[0]
+    N = used.shape[0] if N is None else N
     C = agc.shape[0]
-    slot = torch.arange(N, device=used.device)
+    slot = torch.arange(N, device=used.device) if slots is None else slots
     for pi in range(P):
         agz_p = agz & inp.pool_agz[pi]
         agc_p = agc & inp.pool_agc[pi]
@@ -311,10 +333,14 @@ def _new_nodes_phase_ref(inp: KernelInputs, g: int, take, used, types,
         cand_new = F & inp.pool_types[pi] & off_p
         hr = _headroom(inp.A, daemon[pi][None, :], R)
         hr = torch.where(cand_new, hr, torch.zeros_like(hr))
-        cap = hr.amax()
-        if inp.mv_floor is not None:
-            h1n = _mv_h1(torch.where(cand_new, hr + 1, torch.zeros_like(hr)),
-                         inp.mv_pairs_t, inp.mv_pairs_v, V)
+        if caps is not None:
+            cap = caps[pi]
+        else:
+            cap = _axis_max(hr.amax(), comm)
+        if inp.mv_floor is not None and caps is None:
+            h1n = _axis_max(_mv_h1(torch.where(cand_new, hr + 1,
+                                               torch.zeros_like(hr)),
+                                   inp.mv_pairs_t, inp.mv_pairs_v, V), comm)
             cap = torch.minimum(cap, _mv_cap(h1n, inp.mv_floor[pi], V))
         budget = _pool_budget(inp.pool_limit[pi], pool_used[pi], R)
         zero = torch.zeros_like(cap)
@@ -355,17 +381,19 @@ def _new_nodes_phase_ref(inp: KernelInputs, g: int, take, used, types,
 
 
 def _group_step_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
-                    P: int, V: int):
+                    P: int, V: int, comm=None):
     """One whole group step (steps 1-7): (new carry, take [N], n_rem).
-    The plain version of ``ffd_slot_headroom`` then ``ffd_group_commit``."""
-    take, n_rem, cand = _fill_phase_ref(inp, carry, g, E=E, P=P, V=V)
+    The plain version of ``ffd_slot_headroom`` then ``ffd_group_commit``;
+    with ``comm``, of a type-sharded mesh rank's step."""
+    take, n_rem, cand = _fill_phase_ref(inp, carry, g, E=E, P=P, V=V,
+                                        comm=comm)
     new, take, n_rem, _ = _commit_ref(inp, carry, g, take, n_rem, cand,
-                                      E=E, P=P, V=V)
+                                      E=E, P=P, V=V, comm=comm)
     return new, take, n_rem
 
 
 def _commit_ref(inp: KernelInputs, carry: Carry, g: int, take, n_rem, cand,
-                *, E: int, P: int, V: int, cap_hint=None):
+                *, E: int, P: int, V: int, cap_hint=None, comm=None):
     """Steps 6-7 after the fill: the narrowing of the filled open slots
     (to ``cand`` [N, T] and the new aggregate), the pool accounting and
     the new nodes: (new carry, take [N], n_rem, cap_hint)."""
@@ -387,20 +415,28 @@ def _commit_ref(inp: KernelInputs, carry: Carry, g: int, take, n_rem, cand,
     (take, used, types, zones, ct, pool_arr, alive, num_nodes, pool_used,
      n_rem, cap_hint) = _new_nodes_phase_ref(
         inp, g, take, used, types, zones, ct, carry.pool, carry.alive,
-        carry.num_nodes, pool_used, n_rem, E=E, P=P, V=V, cap_hint=cap_hint)
+        carry.num_nodes, pool_used, n_rem, E=E, P=P, V=V, cap_hint=cap_hint,
+        comm=comm)
     return (Carry(used=used, types=types, zones=zones, ct=ct, pool=pool_arr,
                   alive=alive, num_nodes=num_nodes, pool_used=pool_used),
             take, n_rem, cap_hint)
 
 
 def _solve_scan_ref(inp: KernelInputs, n_max: int, E: int, P: int,
-                    V: int = 0):
-    """Plain version of the whole scan: a Python loop over groups."""
+                    V: int = 0, comm=None):
+    """Plain version of the whole scan: a Python loop over groups. With
+    ``comm`` it is a rank of the type-sharded mesh (the reference's
+    ``_solve`` with ``axis="tp"``): ``inp`` holds the rank's type shard
+    (A, avail_zc, F, pool_types; the minValues pairs localized to it),
+    the slots are replicated, and the four maxima over types (k, its
+    minValues maxima h1, each pool's new-node cap and its h1n) ride
+    ``comm.axis_max``."""
     G = inp.R.shape[0]
     carry = carry0(inp, E + n_max, E)
     takes, lefts = [], []
     for g in range(G):
-        carry, take, n_rem = _group_step_ref(inp, carry, g, E=E, P=P, V=V)
+        carry, take, n_rem = _group_step_ref(inp, carry, g, E=E, P=P, V=V,
+                                             comm=comm)
         takes.append(take.to(torch.int32))
         lefts.append(n_rem.reshape(1))
     N = E + n_max
@@ -410,6 +446,136 @@ def _solve_scan_ref(inp: KernelInputs, n_max: int, E: int, P: int,
     left_t = torch.cat(lefts) if lefts else \
         torch.zeros(0, dtype=_I64, device=dev)
     return takes_t, left_t, carry
+
+
+# ---------------------------------------------------------------------------
+# plain versions of K10: the pods x types sharded scan
+# ---------------------------------------------------------------------------
+#
+# The reference's ``_fill_phase_dp``, ``dp_group_step`` and ``_solve_dp``
+# (ops/ffd_jax.py), line for line, on one rank of a ("dp", "tp") mesh
+# (parallel/mesh.py ``MeshComm``): the types are the rank's tp shard, the
+# slots its dp shard (global ids ``slots``), the existing tables cut to
+# those slots. The ``[:E]`` updates are ``slots < E`` masks, exclusive
+# prefixes are the local cumsum plus the earlier shards' totals
+# (``comm.dp_before``) and totals are sums over dp (``comm.dp_sum``).
+# No minValues floors (the reference's callers take the type mesh).
+
+def _dp_prefix(x: torch.Tensor, comm) -> torch.Tensor:
+    """Exclusive prefix of a dp-sharded [Nl] vector in global slot order
+    (the reference's ``_dp_prefix``): local exclusive cumsum plus the
+    summed totals of the earlier shards."""
+    local = torch.cumsum(x, 0) - x
+    return local if comm is None else local + comm.dp_before(
+        x.sum().reshape(1))[0]
+
+
+def _dp_sum(x: torch.Tensor, comm) -> torch.Tensor:
+    """Sum over the dp shards (the reference's ``_dp_sum``)."""
+    return x if comm is None else comm.dp_sum(x)
+
+
+def _fill_phase_dp_ref(inp: KernelInputs, carry: Carry, g: int, comm, *,
+                       P: int, E: int, slots: torch.Tensor):
+    """``_fill_phase`` on a dp slot shard: (take [Nl], n_rem, cand
+    [Nl, Tl])."""
+    R, n_rem = inp.R[g], inp.n[g]
+    # steps 1-3 over the local types; k maxed over the type shards
+    cand, k = _slot_headroom_ref(inp, carry, g, E=0, P=P, V=0, comm=comm)
+    is_ex = slots < E
+    ex_ok = is_ex & carry.alive & inp.ex_compat[g]
+    k_ex = torch.where(ex_ok, _headroom(inp.ex_alloc, carry.used, R),
+                       torch.zeros_like(k))
+    k = torch.where(is_ex, k_ex, k)
+    # pool limit budgets: cap per-pool prefix fills
+    for pi in range(P):
+        has_limit = bool((inp.pool_limit[pi] >= 0).any())
+        budget = _pool_budget(inp.pool_limit[pi], carry.pool_used[pi], R)
+        rows = carry.pool == pi
+        kp = torch.where(rows, k, torch.zeros_like(k))
+        cum = _dp_prefix(kp, comm)
+        capped = torch.minimum(kp, budget - cum).clamp(min=0)
+        k = torch.where(rows & has_limit, capped, k)
+    # greedy prefix fill
+    cum = _dp_prefix(k, comm)
+    take = torch.minimum((n_rem - cum).clamp(min=0), k)
+    n_rem = n_rem - _dp_sum(take.sum().reshape(1), comm)[0]
+    return take, n_rem, cand
+
+
+def _dp_group_step_ref(inp: KernelInputs, carry: Carry, g: int, comm, *,
+                       P: int, E: int, N: int, slots: torch.Tensor):
+    """One step of the 2-D sharded fill (the reference's
+    ``dp_group_step``): (new carry, take [Nl], n_rem)."""
+    R = inp.R[g]
+    take, n_rem, cand = _fill_phase_dp_ref(inp, carry, g, comm, P=P, E=E,
+                                           slots=slots)
+    used = carry.used + take[:, None] * R[None, :]
+    filled_open = (take > 0) & (carry.pool >= 0)
+    fit_all = (used[:, None, :] <= inp.A[None, :, :]).all(dim=-1)
+    types = torch.where(filled_open[:, None], cand & fit_all, carry.types)
+    zones = torch.where(filled_open[:, None], carry.zones & inp.agz[g][None],
+                        carry.zones)
+    ct = torch.where(filled_open[:, None], carry.ct & inp.agc[g][None],
+                     carry.ct)
+    pool = carry.pool.long()
+    seg = torch.where(pool >= 0, pool.clamp(0, P - 1),
+                      torch.full_like(pool, P))
+    take_by_pool = torch.zeros(P + 1, dtype=_I64, device=take.device)
+    take_by_pool = _dp_sum(take_by_pool.index_add(0, seg, take)[:P], comm)
+    pool_used = carry.pool_used + take_by_pool[:, None] * R[None, :]
+    (take, used, types, zones, ct, pool_arr, alive, num_nodes, pool_used,
+     n_rem, _) = _new_nodes_phase_ref(
+        inp, g, take, used, types, zones, ct, carry.pool, carry.alive,
+        carry.num_nodes, pool_used, n_rem, E=E, P=P, V=0, comm=comm,
+        slots=slots, N=N)
+    return (Carry(used=used, types=types, zones=zones, ct=ct, pool=pool_arr,
+                  alive=alive, num_nodes=num_nodes, pool_used=pool_used),
+            take, n_rem)
+
+
+def carry0_dp(inp: KernelInputs, slots: torch.Tensor, E: int) -> Carry:
+    """A dp shard's initial state (the reference's ``_solve_dp`` carry0):
+    the rows whose global id is below E are existing nodes with their
+    used vectors, every other row free."""
+    is_ex = slots < E
+    Nl = slots.shape[0]
+    T, D = inp.A.shape
+    Z, C = inp.agz.shape[1], inp.agc.shape[1]
+    dev = inp.A.device
+    return Carry(
+        used=torch.where(is_ex[:, None], inp.ex_used0,
+                         torch.zeros_like(inp.ex_used0)),
+        types=torch.zeros((Nl, T), dtype=torch.bool, device=dev),
+        zones=torch.zeros((Nl, Z), dtype=torch.bool, device=dev),
+        ct=torch.zeros((Nl, C), dtype=torch.bool, device=dev),
+        pool=torch.where(is_ex, -2, -1).to(torch.int32),
+        alive=is_ex.clone(),
+        num_nodes=torch.zeros(1, dtype=torch.int32, device=dev),
+        pool_used=inp.pool_used0.clone())
+
+
+def _solve_dp_ref(inp: KernelInputs, comm, n_max: int, E: int, P: int,
+                  slot0: int):
+    """The 2-D sharded scan on one rank (the reference's ``_solve_dp``):
+    ``inp`` is the rank's shard (types over tp; ``ex_alloc`` /
+    ``ex_used0`` [Nl, D] and ``ex_compat`` [G, Nl] the rank's slot rows
+    of the slot-padded tables), ``slot0`` the global id of its first
+    slot. Returns (takes [G, Nl] int32, leftover [G], the shard's final
+    carry)."""
+    if inp.mv_floor is not None:
+        raise ValueError("the 2-D mesh scan takes no minValues floors")
+    Nl = inp.ex_used0.shape[0]
+    slots = slot0 + torch.arange(Nl, device=inp.A.device)
+    carry = carry0_dp(inp, slots, E)
+    takes, lefts = [], []
+    for g in range(inp.R.shape[0]):
+        carry, take, n_rem = _dp_group_step_ref(inp, carry, g, comm, P=P,
+                                                E=E, N=E + n_max,
+                                                slots=slots)
+        takes.append(take.to(torch.int32))
+        lefts.append(n_rem.reshape(1))
+    return torch.stack(takes), torch.cat(lefts), carry
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,361 @@
+"""K10, the sharded scan: one rank's state and its four kernels.
+
+``csrc/mesh.cu`` holds the per-rank kernels of the reference's
+``shard_map`` scans (``ops/ffd_jax.py`` ``_solve`` with ``axis="tp"`` and
+``_solve_dp``; ``parallel/mesh.py`` ``solve_scan_sharded`` and
+``solve_scan_sharded2``): ``mesh_new_caps`` once per solve, then per group
+``mesh_slot_headroom``, ``mesh_fill`` (phases a, b, c, or all three at
+once on a mesh without a slot split) and ``mesh_commit``. The collectives
+between the launches belong to the step loop (parallel/mesh.py
+``_mesh_scan``); this module holds what one rank computes.
+
+``MeshState`` is one rank's shard on one device: the shard's inputs
+(types ``[tp*Tl, (tp+1)*Tl)``, slots ``[dp*Nl, (dp+1)*Nl)``), its carry,
+the step scratch (``cand``, ``kh`` = k then the minValues maxima h1), the
+new-node caps, the fill phases' sums (``red``, reduced in place over the
+slot shards) and the earlier shards' prefixes (``before``), and the
+outputs. Each wrapper checks the state's tensors, launches on
+``torch.cuda.current_stream()``, adds one to its entry of ``LAUNCHES``
+(the kernel library's counters, ``ops/ffd_cuda.py``) and raises when the
+C entry returns a CUDA error. A state on CUDA launches the kernel or
+raises; only a state on the CPU takes the plain part (``*_ref`` below,
+the same arithmetic in PyTorch ops that also run on CUDA tensors, which
+is how the card holds a kernel against it).
+
+Importing this module needs neither nvcc nor a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .ffd_cuda import (_FfdArgs, _PTR_FIELDS, _check, _lib, _need, _stream,
+                       LAUNCHES)
+from .ffd_torch import (BIG, Carry, KernelInputs, _headroom, _mv_cap,
+                        _mv_h1, _new_nodes_phase_ref, _pool_budget,
+                        _slot_headroom_ref, carry0_dp)
+
+_I64 = torch.int64
+
+#: mesh_fill's phases: (a) overlay and pool sums, (b) pool caps and the
+#: fill sum, (c) greedy fill and take-by-pool, or all three (no slot split)
+PHASE_A, PHASE_B, PHASE_C, PHASE_ALL = 0, 1, 2, 3
+
+#: the kernels of this module, in launch order
+KERNELS = ("mesh_new_caps", "mesh_slot_headroom", "mesh_fill",
+           "mesh_commit")
+
+
+class _MeshArgs(ctypes.Structure):
+    """Mirror of ``struct MeshArgs`` in csrc/mesh.cu."""
+    _fields_ = [("f", _FfdArgs), ("h1", ctypes.c_void_p),
+                ("caps", ctypes.c_void_p), ("red", ctypes.c_void_p),
+                ("before", ctypes.c_void_p),
+                ("tbp", ctypes.c_void_p), ("slot0", ctypes.c_longlong),
+                ("N", ctypes.c_longlong), ("E", ctypes.c_longlong)]
+
+
+class MeshState:
+    """One rank's shard of a sharded scan and its scratch (module
+    docstring). ``inp`` is the rank's shard on one device: A / avail_zc
+    [Tl, ...], F / pool_types [..., Tl], ex_alloc / ex_used0 [Nl, D] and
+    ex_compat [G, Nl] (the rank's rows of the slot-padded tables), the
+    minValues pairs localized to the shard's types; ``slot0`` is the
+    global id of its first slot row, ``N`` the true slot count E + n_max.
+    """
+
+    def __init__(self, inp: KernelInputs, *, E: int, P: int, V: int, N: int,
+                 slot0: int):
+        dev = inp.A.device
+        self.inp, self.E, self.P, self.V, self.N = inp, E, P, V, N
+        self.slot0 = slot0
+        Tl, D = inp.A.shape
+        G = inp.R.shape[0]
+        Nl = inp.ex_used0.shape[0]
+        K = 0 if inp.mv_floor is None else inp.mv_floor.shape[1]
+        self.T, self.D, self.G, self.Nl, self.K = Tl, D, G, Nl, K
+        self.M = 0 if K == 0 else inp.mv_pairs_t.shape[1]
+        self.slots = slot0 + torch.arange(Nl, device=dev)
+        self.carry = carry0_dp(inp, self.slots, E)
+        kv = K * V
+        self.cand = torch.zeros((Nl, Tl), dtype=torch.bool, device=dev)
+        self.kh = torch.zeros(Nl * (1 + kv), dtype=_I64, device=dev)
+        self.caps = torch.zeros(G * P * (1 + kv), dtype=_I64, device=dev)
+        self.red = torch.zeros(P + 1, dtype=_I64, device=dev)
+        self.before = torch.zeros(P + 1, dtype=_I64, device=dev)
+        self.hrn = torch.zeros(Tl, dtype=_I64, device=dev)
+        self.candn = torch.zeros(Tl, dtype=torch.bool, device=dev)
+        self.takes = torch.zeros((G, Nl), dtype=torch.int32, device=dev)
+        self.leftover = torch.zeros(G, dtype=_I64, device=dev)
+        self._args = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.inp.A.device
+
+    @property
+    def k(self) -> torch.Tensor:
+        """[Nl] the step's headroom, then its take (a view of ``kh``)."""
+        return self.kh[:self.Nl]
+
+    @property
+    def h1(self) -> torch.Tensor:
+        """[Nl, K, V] the minValues maxima of the step (a view of ``kh``)."""
+        return self.kh[self.Nl:].view(self.Nl, self.K, self.V)
+
+    def buffers(self) -> dict:
+        """Every tensor a kernel writes (the carry, the scratch that
+        carries between kernels and the outputs), by name."""
+        out = {f"carry.{nm}": t for nm, t in zip(Carry._fields, self.carry)}
+        out.update(cand=self.cand, kh=self.kh, caps=self.caps,
+                   red=self.red, before=self.before, takes=self.takes,
+                   leftover=self.leftover)
+        return out
+
+    def clone(self) -> "MeshState":
+        """A copy with its own buffers (the inputs shared): the plain
+        parts run on it beside the kernels."""
+        c = MeshState.__new__(MeshState)
+        c.__dict__.update(self.__dict__)
+        c.carry = Carry(*[t.clone() for t in self.carry])
+        for nm in ("cand", "kh", "caps", "red", "before", "hrn",
+                   "candn", "takes", "leftover"):
+            setattr(c, nm, getattr(self, nm).clone())
+        c._args = None
+        return c
+
+    def args(self) -> _MeshArgs:
+        """The ctypes argument block of the kernels (built once)."""
+        if self._args is None:
+            self._args = self._build_args()
+        return self._args
+
+    def _build_args(self) -> _MeshArgs:
+        inp, c = self.inp, self.carry
+        Tl, D, G, Nl, K, P = self.T, self.D, self.G, self.Nl, self.K, \
+            self.P
+        Z, C = inp.agz.shape[1], inp.agc.shape[1]
+        i64, b = torch.int64, torch.bool
+        for nm, dt, shp in (
+                ("A", i64, (Tl, D)), ("avail_zc", b, (Tl, Z * C)),
+                ("R", i64, (G, D)), ("n", i64, (G,)), ("F", b, (G, Tl)),
+                ("agz", b, (G, Z)), ("agc", b, (G, C)),
+                ("admit", b, (G, P)), ("daemon", i64, (G, P, D)),
+                ("pool_types", b, (P, Tl)), ("pool_agz", b, (P, Z)),
+                ("pool_agc", b, (P, C)), ("pool_limit", i64, (P, D)),
+                ("ex_alloc", i64, (Nl, D)), ("ex_compat", b, (G, Nl))):
+            _need(getattr(inp, nm), nm, dt, shp)
+        if K:
+            _need(inp.mv_floor, "mv_floor", i64, (P, K))
+            _need(inp.mv_pairs_t, "mv_pairs_t", i64, (K, self.M))
+            _need(inp.mv_pairs_v, "mv_pairs_v", i64, (K, self.M))
+        for nm, t in self.buffers().items():
+            _need(t, nm, t.dtype)
+        src = dict(inp._asdict())
+        src.update(c._asdict())
+        src.update(cand=self.cand, k=self.kh, hrn=self.hrn,
+                   candn=self.candn, takes=self.takes,
+                   leftover=self.leftover)
+        ptrs = {f: (src[f].data_ptr() if src.get(f) is not None
+                    and src[f].numel() else None) for f in _PTR_FIELDS}
+        f = _FfdArgs(**ptrs, T=Tl, D=D, Z=Z, C=C, G=G, E=0, P=P, N=Nl, K=K,
+                     M=self.M, V=self.V, G0=0, L=1)
+        return _MeshArgs(
+            f=f, h1=(self.kh.data_ptr() + Nl * 8) if K * self.V else None,
+            caps=self.caps.data_ptr(), red=self.red.data_ptr(),
+            before=self.before.data_ptr(),
+            tbp=self.red.data_ptr(), slot0=self.slot0, N=self.N, E=self.E)
+
+
+def _launch(name: str, st: MeshState, *args) -> None:
+    if not st.device.type == "cuda":
+        raise ValueError(f"{name} needs a CUDA state, got {st.device}")
+    a = st.args()
+    lib = _lib()
+    err = getattr(lib, f"karp_{name}")(ctypes.byref(a), *args, _stream())
+    LAUNCHES[name] += 1
+    _check(err, name)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers: a CUDA state launches the kernel, a CPU state the plain part
+# ---------------------------------------------------------------------------
+
+def mesh_new_caps(st: MeshState) -> None:
+    """The rank's new-node cap of every (group, pool) over its types into
+    ``st.caps[:G*P]``, and with minValues floors the per-value maxima
+    h1n [G, P, K, V] after them (before the max over the type shards)."""
+    if st.device.type == "cpu":
+        return _new_caps_ref(st)
+    _launch("mesh_new_caps", st)
+
+
+def mesh_slot_headroom(st: MeshState, g: int) -> None:
+    """Steps 1-3 of group g on the rank's shard: ``st.cand`` [Nl, Tl],
+    ``st.k`` (the max over the local types) and ``st.h1``."""
+    if st.device.type == "cpu":
+        return _slot_headroom_mesh_ref(st, g)
+    _launch("mesh_slot_headroom", st, g)
+
+
+def mesh_fill(st: MeshState, g: int, phase: int) -> None:
+    """One phase of group g's fill on the rank's slots (module
+    docstring); ``st.k`` becomes the take after phase c."""
+    if phase not in (PHASE_A, PHASE_B, PHASE_C, PHASE_ALL):
+        raise ValueError(f"unknown mesh_fill phase {phase}")
+    if st.device.type == "cpu":
+        return _fill_ref(st, g, phase)
+    _launch("mesh_fill", st, g, phase)
+
+
+def mesh_commit(st: MeshState, g: int) -> None:
+    """Group g's new-node caps from the caps reduced over the type shards
+    (with floors, min(cap, the minValues cap of the reduced h1n)), its
+    narrowing (with the reduced take-by-pool in ``st.red``), new nodes on
+    the rank's slots and its takes row and leftover."""
+    if st.device.type == "cpu":
+        return _commit_mesh_ref(st, g)
+    _launch("mesh_commit", st, g)
+
+
+# ---------------------------------------------------------------------------
+# the plain parts (CPU and CUDA tensors alike)
+# ---------------------------------------------------------------------------
+
+def _new_caps_ref(st: MeshState) -> None:
+    """Plain version of ``mesh_new_caps``."""
+    inp, P, K, V = st.inp, st.P, st.K, st.V
+    Z, C = inp.agz.shape[1], inp.agc.shape[1]
+    caps, h1n = [], []
+    for g in range(st.G):
+        zc = ((inp.agz[g][None, :, None] & inp.pool_agz[:, :, None])
+              & (inp.agc[g][None, None, :] & inp.pool_agc[:, None, :])
+              ).reshape(P, Z * C)
+        off = (zc[:, None, :] & inp.avail_zc[None, :, :]).any(dim=-1)
+        cand = inp.F[g][None, :] & inp.pool_types & off              # [P, Tl]
+        hr = _headroom(inp.A[None, :, :], inp.daemon[g][:, None, :],
+                       inp.R[g])
+        hr = torch.where(cand, hr, torch.zeros_like(hr))
+        caps.append(hr.amax(dim=1))
+        if K:
+            h1n.append(_mv_h1(torch.where(cand, hr + 1, torch.zeros_like(hr)),
+                              inp.mv_pairs_t, inp.mv_pairs_v, V))
+    GP = st.G * P
+    st.caps[:GP] = torch.stack(caps).reshape(-1)
+    if K:
+        st.caps[GP:] = torch.stack(h1n).reshape(-1)
+
+
+def _slot_headroom_mesh_ref(st: MeshState, g: int) -> None:
+    """Plain version of ``mesh_slot_headroom``."""
+    inp = st.inp
+    cand, k = _slot_headroom_ref(inp._replace(mv_floor=None), st.carry, g,
+                                 E=0, P=st.P, V=0)
+    st.cand.copy_(cand)
+    st.k.copy_(k)
+    if st.K:
+        hr = _headroom(inp.A[None, :, :], st.carry.used[:, None, :],
+                       inp.R[g])
+        st.h1.copy_(_mv_h1(torch.where(cand, hr + 1, torch.zeros_like(hr)),
+                           inp.mv_pairs_t, inp.mv_pairs_v, st.V))
+
+
+def _pool_sums(pool: torch.Tensor, x: torch.Tensor, P: int) -> torch.Tensor:
+    """[P + 1] sums of x by pool (segment P: rows that are no pool's)."""
+    pool = pool.long()
+    seg = torch.where(pool >= 0, pool.clamp(0, P - 1),
+                      torch.full_like(pool, P))
+    return torch.zeros(P + 1, dtype=_I64, device=x.device).index_add(0, seg,
+                                                                     x)
+
+
+def _fill_ref(st: MeshState, g: int, phase: int) -> None:
+    """Plain version of ``mesh_fill``."""
+    inp, c, P, E = st.inp, st.carry, st.P, st.E
+    R, n = inp.R[g], inp.n[g]
+    k = st.k.clone()
+    if phase in (PHASE_A, PHASE_ALL):
+        is_ex = st.slots < E
+        ex_ok = is_ex & c.alive & inp.ex_compat[g]
+        k_ex = torch.where(ex_ok, _headroom(inp.ex_alloc, c.used, R),
+                           torch.zeros_like(k))
+        k = torch.where(is_ex, k_ex, k)
+        if st.K:
+            open_ = c.pool >= 0
+            pc = c.pool.long().clamp(0, P - 1)
+            f = torch.where(open_[:, None], inp.mv_floor[pc],
+                            torch.zeros_like(inp.mv_floor[pc]))
+            cap = _mv_cap(st.h1, f, st.V)
+            k = torch.minimum(k, torch.where(open_, cap,
+                                             torch.full_like(cap, BIG)))
+        if phase == PHASE_A:
+            st.red[:P] = _pool_sums(c.pool, k, P)[:P]
+            st.k.copy_(k)
+            return
+    if phase in (PHASE_B, PHASE_ALL):
+        for pi in range(P):
+            if not bool((inp.pool_limit[pi] >= 0).any()):
+                continue
+            budget = _pool_budget(inp.pool_limit[pi], c.pool_used[pi], R)
+            rows = c.pool == pi
+            kp = torch.where(rows, k, torch.zeros_like(k))
+            cum = torch.cumsum(kp, 0) - kp
+            if phase == PHASE_B:
+                cum = cum + st.before[pi]
+            k = torch.where(rows, torch.minimum(kp, budget - cum).clamp(min=0),
+                            k)
+        if phase == PHASE_B:
+            st.red[0] = k.sum()
+            st.k.copy_(k)
+            return
+    cum = torch.cumsum(k, 0) - k
+    if phase == PHASE_C:
+        cum = cum + st.before[P]
+    take = torch.minimum((n - cum).clamp(min=0), k)
+    st.k.copy_(take)
+    st.red.copy_(_pool_sums(c.pool, take, P))
+
+
+def _commit_mesh_ref(st: MeshState, g: int) -> None:
+    """Plain version of ``mesh_commit``."""
+    inp, c, G, P, K, V = st.inp, st.carry, st.G, st.P, st.K, st.V
+    R = inp.R[g]
+    cap = st.caps[g * P:(g + 1) * P]
+    if K:
+        h1n = st.caps[G * P:].view(G, P, K, V)[g]
+        cap = torch.minimum(cap, _mv_cap(h1n, inp.mv_floor, V))
+    take = st.k.clone()
+    n_rem = inp.n[g] - st.red.sum()
+    used = c.used + take[:, None] * R[None, :]
+    filled_open = (take > 0) & (c.pool >= 0)
+    fit_all = (used[:, None, :] <= inp.A[None, :, :]).all(dim=-1)
+    types = torch.where(filled_open[:, None], st.cand & fit_all, c.types)
+    zones = torch.where(filled_open[:, None], c.zones & inp.agz[g][None],
+                        c.zones)
+    ct = torch.where(filled_open[:, None], c.ct & inp.agc[g][None], c.ct)
+    pool_used = c.pool_used + st.red[:P, None] * R[None, :]
+    (take, used, types, zones, ct, pool, alive, num_nodes, pool_used, n_rem,
+     _) = _new_nodes_phase_ref(
+        inp, g, take, used, types, zones, ct, c.pool, c.alive, c.num_nodes,
+        pool_used, n_rem, E=st.E, P=P, V=V, slots=st.slots, N=st.N,
+        caps=cap)
+    for dst, src in zip(c, (used, types, zones, ct, pool, alive, num_nodes,
+                            pool_used)):
+        dst.copy_(src)
+    st.k.copy_(take)
+    st.takes[g] = take.to(torch.int32)
+    st.leftover[g] = n_rem
+
+
+#: the plain part of each kernel, for the card's kernel-against-plain check
+PLAIN = dict(mesh_new_caps=_new_caps_ref,
+             mesh_slot_headroom=_slot_headroom_mesh_ref,
+             mesh_fill=_fill_ref, mesh_commit=_commit_mesh_ref)
+
+#: the wrapper of each kernel
+WRAPPERS = dict(mesh_new_caps=mesh_new_caps,
+                mesh_slot_headroom=mesh_slot_headroom, mesh_fill=mesh_fill,
+                mesh_commit=mesh_commit)
+

@@ -58,6 +58,23 @@ again on the device at ``safe_evcap`` (``reason="topo_bail"``). The
 decode replays each topology group's placement runs from its event log
 (``_runs_from_events``).
 
+The sharded scan (K10) follows the reference's mesh route (solver/tpu.py
+``_dispatch_mesh``): ``CUDASolver(mesh=comm)`` with a ``MeshComm``
+(parallel/mesh.py) of more than one rank, or ``force_mesh=True`` at one,
+solves SPMD: every rank calls ``solve`` on the same snapshot, runs its
+shard of the scan (``dispatch_mesh``: the type mesh, or pods x types past
+``dp2_min_slots`` slots without minValues floors) and decodes the same
+gathered outputs. As in the reference the mesh arena carries no priority
+section (Q = 0; the canonical group order already encodes priority), no
+fused plan, no checkpoint bank and no pruned scan (past
+``dev_max_groups`` the host engine serves, ``reason="group_cap"``); the
+resident shard is patched with the delta's dirty fields (arrays only, no
+packed arena). ``last_dispatch_stats`` records ``kernel="mesh"``,
+``mesh_kernel`` (tp / dp2), ``ndp``, ``ntp``, ``backend``, ``placement``
+(full / patch / reuse) and the collectives. Batches,
+consolidation and preemption dispatches run single-device on each rank,
+replicated (``mesh="replicated"``).
+
 There is no router, host twin or oracle fallback here: on a CUDA device
 a solve the kernels take runs them or raises, and nothing catches a
 kernel failure. ``device="cpu"`` runs the plain PyTorch versions of the
@@ -93,6 +110,7 @@ from ..ops.hostpack import (DEV_FUSE, DEV_PRUNED_SLOTS, pack_inputs1,
 from ..ops.topo import (TopoState, build_topo_encoding, fill_group_topo,
                         record_plain_fill)
 from ..ops.topo_torch import K_ANTIRUN, K_CYC, dispatch_topo
+from ..parallel.mesh import DP2_MIN_SLOTS, dispatch_mesh
 from ..scheduling.preempt_torch import preempt_solve
 from .incremental import CKPT_CHUNK, ckpt_eligible, live_bound, suffix_plan
 from .types import (ExistingNode, NewNodeClaim, SchedulingSnapshot,
@@ -268,6 +286,20 @@ def pad_device_inputs(enc: SnapshotEncoding, ex_alloc, ex_used, ex_compat):
                         K=K, V=V, M=M, F=1, Q=Q)
 
 
+def _unpad(out: dict, G: int, E: int, Ep: int, n_bucket: int, D: int):
+    """(takes [G, E + n_bucket], leftover [G], final) of one padded
+    solve's outputs: padded groups, the dead padded existing rows
+    [E, Ep) and the padded dims dropped."""
+    takes = out["takes"][:G]
+    takes = np.concatenate([takes[:, :E], takes[:, Ep:]], axis=1)
+    sm = _slotmap(E, Ep, Ep + n_bucket)
+    final = dict(
+        types=out["types"][sm], zones=out["zones"][sm],
+        ct=out["ct"][sm], pool=out["pool"][sm],
+        alive=out["alive"][sm], used=out["used"][sm][:, :D], E=E)
+    return takes, out["leftover"][:G], final
+
+
 def fuse_flags(enc: SnapshotEncoding, ex_compat, Gp: int) -> np.ndarray:
     """The [Gp] ``fuse`` flags of the fused-scan plan: the encoder's
     admit runs ANDed with the existing-compat runs (a block inside one
@@ -302,7 +334,9 @@ class CUDASolver(Solver):
     name = "cuda"
 
     def __init__(self, n_max: int = 2048, device=None,
-                 incremental: bool = True):
+                 incremental: bool = True, *, mesh=None,
+                 force_mesh: bool = False, dp: int = None,
+                 dp2_min_slots: int = DP2_MIN_SLOTS):
         """n_max sizes the new-node slot arrays per solve. It is a
         CAPACITY, not a decision bound: a solve that exhausts every slot
         with pods left over grows n_max (x4, capped at the pod count) and
@@ -311,8 +345,23 @@ class CUDASolver(Solver):
 
         incremental: keep the last solve's encoding, packed arena and
         checkpoint bank RESIDENT and serve steady-state ticks by patching
-        them (module docstring); off is the from-scratch path."""
+        them (module docstring); off is the from-scratch path.
+
+        mesh: a ``parallel.mesh.MeshComm``; with more than one rank (or
+        ``force_mesh``) solves run the sharded scan (module docstring),
+        ``dp`` and ``dp2_min_slots`` as ``dispatch_mesh`` takes them. A
+        rank's device defaults to ``cuda:{rank % device_count}``."""
+        if mesh is not None and device is None:
+            _device.resolve("cuda")   # raises without a card
+            device = f"cuda:{mesh.rank % torch.cuda.device_count()}"
         self.device = _device.resolve(device)
+        #: the mesh communicator (None: one device)
+        self.mesh = mesh
+        self.force_mesh = force_mesh
+        self.dp = dp
+        self.dp2_min_slots = dp2_min_slots
+        #: the mesh dispatch's cache: the resident shard, its placement
+        self._mesh_cache: dict = {}
         self.n_max = n_max
         #: incremental encoder (None = from scratch every solve)
         self._delta = DeltaEncoder() if incremental else None
@@ -469,10 +518,18 @@ class CUDASolver(Solver):
             self.last_phase_stats["patched_rows"] = d.patched_rows
         return res
 
+    @property
+    def on_mesh(self) -> bool:
+        """Whether solves run the sharded scan (a mesh of more than one
+        rank, or one forced)."""
+        return self.mesh is not None and (self.mesh.world > 1
+                                          or self.force_mesh)
+
     def _dev_group_cap(self, enc: SnapshotEncoding) -> int:
         """Effective device group cap for this snapshot: the pruned
-        kernel's envelope without minValues floors, else the base's."""
-        if enc.mv_K == 0:
+        kernel's envelope without minValues floors (and off a mesh), else
+        the base's."""
+        if enc.mv_K == 0 and not self.on_mesh:
             return self.dev_max_groups_pruned
         return self.dev_max_groups
 
@@ -520,15 +577,22 @@ class CUDASolver(Solver):
 
     # ------------------------------------------------------------------
     def _prep_device_inputs(self, enc: SnapshotEncoding, ex_alloc, ex_used,
-                            ex_compat, fuse: bool = True):
+                            ex_compat, fuse: bool = True,
+                            mesh: bool = False):
         """``pad_device_inputs`` plus the reference's fused-scan plan
         (solver/tpu.py ``_prep_device_inputs``): with ``fuse``, no
         minValues floors, ``dev_fuse`` > 1 and ``dev_fuse_min_groups`` <=
         Gp <= ``dev_max_groups``, the arena carries the [Gp] ``fuse``
         flags and F = ``dev_fuse``. The consolidation union arena passes
         ``fuse=False`` (its subset lanes scan unfused, as the reference's
-        ``ndev=2`` call there). Returns ``(arrays, statics)``."""
+        ``ndev=2`` call there). ``mesh``: the sharded scan's arrays, without
+        the priority section (Q = 0) and unfused. Returns ``(arrays,
+        statics)``."""
         arrays, stt = pad_device_inputs(enc, ex_alloc, ex_used, ex_compat)
+        if mesh:
+            arrays.pop("prio", None)
+            stt["Q"] = 0
+            return arrays, stt
         Gp = stt["G"]
         if (fuse and stt["K"] == 0 and self.dev_fuse > 1
                 and self.dev_fuse_min_groups <= Gp <= self.dev_max_groups):
@@ -584,7 +648,8 @@ class CUDASolver(Solver):
         current delta: re-pad only the dirty fields (the delta's
         dirty_fields() vocabulary) and patch their sections of the
         packed buffer in place (hostpack ``patch_inputs1``). Only fields
-        a ``rows``-tier delta can move are handled."""
+        a ``rows``-tier delta can move are handled. Returns the dirty
+        field names (a mesh entry has no packed arena to patch)."""
         arrays, stt = pc["arrays"], pc["stt"]
         D = len(enc.dims)
         G, E = len(enc.groups), ex_alloc.shape[0]
@@ -618,19 +683,23 @@ class CUDASolver(Solver):
                 # rows-tier delta) with the existing-compat runs
                 arrays["fuse"][:] = fuse_flags(enc, ex_compat, stt["G"])
                 dirtyb = dirtyb + ["fuse"]
-        if dirty64 or dirtyb:
+        if (dirty64 or dirtyb) and pc["buf"] is not None:
             patch_inputs1(pc["buf"], pc["bflat"], arrays, dirty64, dirtyb,
                           stt["T"], stt["D"], stt["Z"], stt["C"], stt["G"],
                           stt["E"], stt["P"], stt["K"], stt["M"], stt["F"],
                           stt["Q"])
+        return dirty64 + dirtyb
 
     def _arena_for(self, enc, ex_alloc, ex_used, ex_compat):
-        """(arrays, stt, buf): the resident packed arena when the delta
-        tier proves the shape class unchanged (same resident encoding
-        object, same padded E bucket) — reused as is on a clean tick,
-        patched in its dirty sections otherwise — else a fresh pack. A
-        buffer lagging the encoder by more than one version (solves
-        refused in between) is re-packed, never patched."""
+        """(arrays, stt, buf, dirty): the resident packed arena when the
+        delta tier proves the shape class unchanged (same resident
+        encoding object, same padded E bucket) — reused as is on a clean
+        tick, patched in its dirty sections otherwise — else a fresh
+        pack. A buffer lagging the encoder by more than one version
+        (solves refused in between) is re-packed, never patched. On a
+        mesh only the arrays are kept (``buf`` None), and ``dirty`` is
+        the fields that moved since the last dispatch (None: unknown, the
+        resident shard is placed whole)."""
         E = ex_alloc.shape[0]
         d = self._last_delta
         dver = self._delta.version if self._delta is not None else None
@@ -641,21 +710,24 @@ class CUDASolver(Solver):
                 and pc["stt"]["E"] == (1 << (E - 1).bit_length()
                                        if E else 0)
                 and pc["version"] in (dver, dver - 1)):
+            dirty = []
             if pc["version"] != dver:
-                self._patch_pack_cache(pc, enc, ex_alloc, ex_used,
-                                       ex_compat, d)
+                dirty = self._patch_pack_cache(pc, enc, ex_alloc, ex_used,
+                                               ex_compat, d)
                 pc["version"] = dver
-            return pc["arrays"], pc["stt"], pc["buf"]
+            return pc["arrays"], pc["stt"], pc["buf"], dirty
         arrays, stt = self._prep_device_inputs(enc, ex_alloc, ex_used,
-                                               ex_compat)
-        buf, bflat = pack_inputs1_state(arrays, stt["T"], stt["D"],
-                                        stt["Z"], stt["C"], stt["G"],
-                                        stt["E"], stt["P"], stt["K"],
-                                        stt["M"], stt["F"], stt["Q"])
+                                               ex_compat, mesh=self.on_mesh)
+        buf = bflat = None
+        if not self.on_mesh:
+            buf, bflat = pack_inputs1_state(arrays, stt["T"], stt["D"],
+                                            stt["Z"], stt["C"], stt["G"],
+                                            stt["E"], stt["P"], stt["K"],
+                                            stt["M"], stt["F"], stt["Q"])
         self._pack_cache = None if dver is None else dict(
             enc=enc, arrays=arrays, stt=stt, buf=buf, bflat=bflat,
             version=dver)
-        return arrays, stt, buf
+        return arrays, stt, buf, None
 
     # -- incremental solve (checkpointed scan prefix reuse) ------------
     def _bank_prev_token(self):
@@ -743,10 +815,12 @@ class CUDASolver(Solver):
                                  suffix_groups=SUF * CK)
 
     def _run_device(self, enc, ex_alloc, ex_used, ex_compat):
+        if self.on_mesh:
+            return self._run_mesh(enc, ex_alloc, ex_used, ex_compat)
         D = enc.A.shape[1]
         G, E = len(enc.groups), ex_alloc.shape[0]
-        arrays, stt, buf = self._arena_for(enc, ex_alloc, ex_used,
-                                           ex_compat)
+        arrays, stt, buf, _ = self._arena_for(enc, ex_alloc, ex_used,
+                                              ex_compat)
         T, Dp, Z, C = stt["T"], stt["D"], stt["Z"], stt["C"]
         Gp, Ep, Pp = stt["G"], stt["E"], stt["P"]
         if stt["Q"] and Gp > self.dev_max_groups:
@@ -817,15 +891,51 @@ class CUDASolver(Solver):
             **dispatch_shape(Gp, Fu, arrays.get("fuse")))
         if sinfo is not None:
             self.last_dispatch_stats.update(sinfo)
-        takes = out["takes"][:G]
-        # slot axis: drop padded existing rows (E..Ep) — they are dead
-        takes = np.concatenate([takes[:, :E], takes[:, Ep:]], axis=1)
-        sm = _slotmap(E, Ep, Ep + n_bucket)
-        final = dict(
-            types=out["types"][sm], zones=out["zones"][sm],
-            ct=out["ct"][sm], pool=out["pool"][sm],
-            alive=out["alive"][sm], used=out["used"][sm][:, :D], E=E)
-        return takes, out["leftover"][:G], final
+        return _unpad(out, G, E, Ep, n_bucket, D)
+
+    def _run_mesh(self, enc, ex_alloc, ex_used, ex_compat):
+        """The sharded solve on this rank (parallel/mesh.py
+        ``dispatch_mesh``), SPMD with the other ranks of ``self.mesh``:
+        the arrays-only resident arena and its dirty fields, the slot
+        bucket's x4 retry, the gathered outputs (the same on every rank)."""
+        D = enc.A.shape[1]
+        G, E = len(enc.groups), ex_alloc.shape[0]
+        arrays, stt, _, dirty = self._arena_for(enc, ex_alloc, ex_used,
+                                                ex_compat)
+        Gp, Ep, Pp = stt["G"], stt["E"], stt["P"]
+        self._solve_mode = "full"
+        before = dict(ffd_cuda.LAUNCHES)
+        n_bucket, retries = self._bucket, 0
+        while True:
+            out = dispatch_mesh(arrays, comm=self.mesh, n_max=n_bucket, E=Ep,
+                                P=Pp, V=stt["V"], cache=self._mesh_cache,
+                                dirty=dirty, dp=self.dp,
+                                dp2_min_slots=self.dp2_min_slots,
+                                device=self.device)
+            exhausted = (out["leftover"].sum() > 0
+                         and int(out["num_nodes"][0]) >= n_bucket)
+            if not exhausted or n_bucket >= self.n_max:
+                break
+            n_bucket = min(n_bucket * 4, self.n_max)
+            retries += 1
+        self._bucket = self._settle_bucket(n_bucket,
+                                           int(out["num_nodes"][0]))
+        m = self._mesh_cache["last_mesh"]
+        self.last_dispatch_stats = dict(
+            device=str(self.device), slot_bucket=n_bucket, retries=retries,
+            groups=Gp, bails=0, batch=1, kernel="mesh", reason=None,
+            mesh_kernel=m["kernel"], ndp=m["ndp"], ntp=m["ntp"],
+            backend=m["backend"],
+            placement=self._mesh_cache["last_placement"]["mode"],
+            collectives=m["collectives"],
+            collective_ms=m["collective_s"] * 1e3,
+            launches=self._launches_since(before), **dispatch_shape(Gp, 1))
+        return _unpad(out, G, E, Ep, n_bucket, D)
+
+    def _replicated(self) -> dict:
+        """The evidence of a single-device dispatch on a mesh rank: every
+        rank runs it on its own device, with the same result."""
+        return {"mesh": "replicated"} if self.mesh is not None else {}
 
     # -- the topology pour (K9) -----------------------------------------
     #: event-log capacity and jump period bound of the device pour; a
@@ -945,7 +1055,8 @@ class CUDASolver(Solver):
             device=str(self.device), kernel="topo",
             reason="topo_bail" if bails else None, bails=bails, evcap=evcap,
             batch=1, groups=arrays["n"].shape[0], slot_bucket=n_bucket,
-            retries=retries, launches=self._launches_since(before))
+            retries=retries, launches=self._launches_since(before),
+            **self._replicated())
         ev = {k[3:]: v for k, v in out.items() if k.startswith("ev_")}
         run_log = {g.index: _runs_from_events(ev, g.index)
                    for g in enc.groups if rows["has_topo"][g.index]}
@@ -997,7 +1108,8 @@ class CUDASolver(Solver):
                 bails=0, batch=len(items), groups=statics["G"],
                 slot_bucket=n_bucket, launches=self._launches_since(before),
                 **dispatch_shape(statics["G"], statics["F"],
-                                 fused_blocks=round(sum(fb) / len(fb))))
+                                 fused_blocks=round(sum(fb) / len(fb))),
+                **self._replicated())
             for (i, it), o_buf in zip(items, o):
                 res = self._finish_batch_item(it, o_buf, statics, n_bucket)
                 # slot-bucket overflow: the single path re-solves with its
@@ -1048,15 +1160,8 @@ class CUDASolver(Solver):
         if (out["leftover"].sum() > 0
                 and int(out["num_nodes"][0]) >= n_bucket):
             return None
-        takes = out["takes"][:G]
-        takes = np.concatenate([takes[:, :E], takes[:, Ep:]], axis=1)
-        sm = _slotmap(E, Ep, Ep + n_bucket)
-        final = dict(
-            types=out["types"][sm], zones=out["zones"][sm],
-            ct=out["ct"][sm], pool=out["pool"][sm],
-            alive=out["alive"][sm], used=out["used"][sm][:, :D], E=E)
-        return self._decode(enc, it["existing"], takes,
-                            out["leftover"][:G], final)
+        takes, leftover, final = _unpad(out, G, E, Ep, n_bucket, D)
+        return self._decode(enc, it["existing"], takes, leftover, final)
 
     # -- consolidation's whole-fleet search ------------------------------
     #: the solver interface's flag for a subset kernel; the reference's
@@ -1066,9 +1171,11 @@ class CUDASolver(Solver):
     def arena_epoch(self):
         """Coherence token for caches derived from this solver's resident
         encoding (consolidation ``_base_tables``): the delta encoder's
-        structural epoch (None when incremental is off), and 0 in place
-        of the reference's mesh generation (no mesh here)."""
-        return (self._delta.epoch if self._delta is not None else None, 0)
+        structural epoch (None when incremental is off), and the mesh's
+        resident generation (bumped by every full placement; 0 off a
+        mesh)."""
+        return (self._delta.epoch if self._delta is not None else None,
+                self._mesh_cache.get("resident_gen", 0))
 
     def dispatch_subsets(self, arrays: dict, *, tprice, gid, n, dead, keep,
                          removed_price, n_max: int, E: int,
@@ -1099,7 +1206,7 @@ class CUDASolver(Solver):
         self.last_dispatch_stats = dict(
             device=str(self.device), kernel="subset", batch=len(out),
             groups=int(np.asarray(gid).shape[1]),
-            launches=self._launches_since(before))
+            launches=self._launches_since(before), **self._replicated())
         return out
 
     # -- the preemption victim-set search (K8) ---------------------------
@@ -1123,7 +1230,7 @@ class CUDASolver(Solver):
         self.last_dispatch_stats = dict(
             device=str(self.device), kernel="preempt", batch=B, fuse=1,
             scan_steps=G, fused_blocks=0, seq_blocks=G,
-            launches=self._launches_since(before))
+            launches=self._launches_since(before), **self._replicated())
         return out
 
     # ------------------------------------------------------------------

@@ -30,6 +30,18 @@ from karpenter_provider_aws_tpu_torch import examples
 from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
 from karpenter_provider_aws_tpu_torch.solver import CUDASolver
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain scan is thousands of small tensor ops: one intra-op
+    thread runs them fastest, and several test workers on one host then
+    do not oversubscribe the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 #: three example cases of one statics bucket with different contents
 LANE_CASES = ("base", "daemon", "pool_limits")
 

@@ -54,6 +54,18 @@ from karpenter_provider_aws_tpu_torch.solver import CUDASolver
 from karpenter_provider_aws_tpu_torch.solver.consolidation import \
     CUDAConsolidationEvaluator
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain scan is thousands of small tensor ops: one intra-op
+    thread runs them fastest, and several test workers on one host then
+    do not oversubscribe the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 REF = types.SimpleNamespace(L=L_ref, obj=obj_ref, res=res_ref, env=env_ref,
                             types=types_ref, Query=RefQuery)
 PORT = types.SimpleNamespace(L=L_port, obj=obj_port, res=res_port,

@@ -28,6 +28,18 @@ from karpenter_provider_aws_tpu_torch.ops.hostpack import (in_layout_bool,
                                                            nwords,
                                                            pack_inputs1)
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain scan is thousands of small tensor ops: one intra-op
+    thread runs them fastest, and several test workers on one host then
+    do not oversubscribe the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 pytestmark = pytest.mark.cuda
 
 
@@ -801,3 +813,64 @@ def test_preempt_round_on_card(cuda_device):
                     sorted(res.preempted.items()), v.leftovers,
                     [p.full_name() for p in v.victims]))
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("case", examples.MESH_CASES)
+def test_mesh_kernels_step_by_step(cuda_device, case, split):
+    """K10 at world size 1: every kernel launch of the first four group
+    steps (and the caps) against its plain part from the same entry
+    state, the fill in one launch and in its three phases; the whole
+    solve against the single-device plain scan."""
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    from karpenter_provider_aws_tpu_torch.parallel import mesh as pm
+    arrays, st = examples.mesh_case(case)
+    records = []
+    got = examples.mesh_outputs(*pm.solve_scan_sharded(
+        arrays, None, st["n_max"], st["E"], st["P"], st["V"],
+        device=cuda_device, check=examples.mesh_kernel_check(0, records),
+        split_fill=split))
+    assert {r[0] for r in records} == set(mc.KERNELS)
+    bad = [r for r in records if r[2]]
+    assert not bad, bad[:3]
+    want = examples.mesh_outputs(*ft._solve_scan_ref(
+        ft.kernel_inputs_from_numpy(arrays, "cpu"), st["n_max"], st["E"],
+        st["P"], st["V"]))
+    for k in want:
+        assert (got[k] == want[k]).all(), k
+
+
+@pytest.mark.parametrize("before", sorted(examples.MESH_BEFORES))
+@pytest.mark.parametrize("case,ndp,dp_idx", examples.MESH_LATER_SHARDS)
+def test_mesh_kernels_on_a_later_slot_shard(cuda_device, case, ndp, dp_idx,
+                                            before):
+    """K10 on a later slot shard (slot0 > 0) with earlier-shard prefixes,
+    small and wrapping: every launch of the first four group steps against
+    its plain part (the pool caps and greedy fill after a prefix, the
+    new-node window at lo > 0, the existing-row overlay by global slot
+    id)."""
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    records, st = examples.mesh_shard_check(case, ndp, dp_idx, before,
+                                            device=cuda_device)
+    assert st.slot0 > 0
+    assert {r[0] for r in records} == set(mc.KERNELS)
+    bad = [r for r in records if r[2]]
+    assert not bad, bad[:3]
+
+
+def test_mesh_solver_on_card_matches_k2(cuda_device):
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.parallel import MeshComm
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    env = fenv.Environment()
+    for seed in (0, 3, 7):
+        fenv.reset_pod_counter()
+        snap = examples.fuzz_scenario(examples.pipeline_api(), env, seed)
+        want = CUDASolver().solve(snap).decision_fingerprint()
+        s = CUDASolver(mesh=MeshComm(), force_mesh=True)
+        assert s.solve(snap).decision_fingerprint() == want
+        st = s.last_dispatch_stats
+        assert (st["kernel"], st["mesh_kernel"]) == ("mesh", "tp")
+        assert all(st["launches"][k] > 0 for k in (
+            "mesh_new_caps", "mesh_slot_headroom", "mesh_fill",
+            "mesh_commit"))

@@ -17,6 +17,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 import karpenter_provider_aws_tpu.apis.labels as L_ref
 import karpenter_provider_aws_tpu.apis.resources as res_ref
@@ -36,6 +37,18 @@ from karpenter_provider_aws_tpu_torch.models import delta as delta_port
 from karpenter_provider_aws_tpu_torch.models import encoding as encoding_port
 from karpenter_provider_aws_tpu_torch.ops import hostpack as hp_port
 from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain scan is thousands of small tensor ops: one intra-op
+    thread runs them fastest, and several test workers on one host then
+    do not oversubscribe the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
 
 REF = types.SimpleNamespace(L=L_ref, res=res_ref, env=env_ref,
                             types=types_ref, delta=delta_ref,
@@ -182,9 +195,10 @@ def test_delta_encoder_and_arena_patch_match_reference(both_counters):
 
         # the resident arena, patched (or re-packed) by each solver
         ref_solver._last_delta, port_solver._last_delta = d_r, d_p
-        _, stt_r, buf_r, _ = ref_solver._arena_for(enc_r, *tabs_r, 1)
-        _, stt_p, buf_p = port_solver._arena_for(enc_p, *tabs_p)
+        _, stt_r, buf_r, dirty_r = ref_solver._arena_for(enc_r, *tabs_r, 1)
+        _, stt_p, buf_p, dirty_p = port_solver._arena_for(enc_p, *tabs_p)
         assert stt_p == stt_r, step
+        assert dirty_p == dirty_r, step
         np.testing.assert_array_equal(buf_p, buf_r, err_msg=step)
         want_buf, _ = port_solver.pack(
             fresh, *PORT.delta.full_existing_encode(fresh, ex_port))

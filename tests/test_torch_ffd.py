@@ -21,6 +21,17 @@ from karpenter_provider_aws_tpu_torch.ops import ffd_torch
 from karpenter_provider_aws_tpu_torch.ops import hostpack as hp_torch
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain scan is thousands of small tensor ops: one intra-op
+    thread runs them fastest, and several test workers on one host then
+    do not oversubscribe the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def _case(name):
     return examples.example_case(name, base=_example_arrays)
 

@@ -27,6 +27,18 @@ import karpenter_provider_aws_tpu_torch.solver.types as types_port
 from karpenter_provider_aws_tpu.solver import CPUSolver
 from karpenter_provider_aws_tpu_torch.solver import CUDASolver
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain scan is thousands of small tensor ops: one intra-op
+    thread runs them fastest, and several test workers on one host then
+    do not oversubscribe the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 REF = types.SimpleNamespace(L=L_ref, obj=obj_ref, res=res_ref, env=env_ref,
                             types=types_ref)
 PORT = types.SimpleNamespace(L=L_port, obj=obj_port, res=res_port,
@@ -381,7 +393,8 @@ def test_port_imports_no_jax():
         "          'ops.consolidation_torch', 'ops.consolidation_cuda',\n"
         "          'solver.consolidation', 'controllers.disruption',\n"
         "          'scheduling.preempt', 'scheduling.preempt_torch',\n"
-        "          'controllers.provisioning', 'state.cluster'):\n"
+        "          'controllers.provisioning', 'state.cluster',\n"
+        "          'parallel.mesh', 'parallel.ranks', 'ops.mesh_cuda'):\n"
         "    assert pkg.__name__ + '.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0].startswith('jax')\n"
         "       or m == 'karpenter_provider_aws_tpu'\n"

@@ -66,6 +66,18 @@ from karpenter_provider_aws_tpu_torch.scheduling.preempt_torch import \
 from karpenter_provider_aws_tpu_torch.solver import CUDASolver
 from karpenter_provider_aws_tpu_torch.state.cluster import ClusterState
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain scan is thousands of small tensor ops: one intra-op
+    thread runs them fastest, and several test workers on one host then
+    do not oversubscribe the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 REF = types.SimpleNamespace(O=O_ref, L=L_ref, Resources=Res_ref,
                             Requirements=Req_ref, FakeKube=kube_ref.FakeKube,
                             Environment=Env_ref)

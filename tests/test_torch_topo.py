@@ -62,6 +62,18 @@ from karpenter_provider_aws_tpu_torch.ops import topo_torch as tt
 from karpenter_provider_aws_tpu_torch.solver import CUDASolver
 from karpenter_provider_aws_tpu_torch.solver import cuda as cuda_port
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain scan is thousands of small tensor ops: one intra-op
+    thread runs them fastest, and several test workers on one host then
+    do not oversubscribe the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 REF_API = types.SimpleNamespace(
     make_pods=env_ref.make_pods, L=L_ref, Resources=Res_ref,
     TopologySpreadConstraint=TSC_ref, PodAffinityTerm=PAT_ref,

@@ -15,6 +15,7 @@ has no counterpart here: the port has no host twin.
 import types
 
 import pytest
+import torch
 
 import karpenter_provider_aws_tpu.apis.resources as res_ref
 import karpenter_provider_aws_tpu.fake.environment as env_ref
@@ -25,6 +26,18 @@ import karpenter_provider_aws_tpu_torch.solver.types as types_port
 from karpenter_provider_aws_tpu.solver import CPUSolver
 from karpenter_provider_aws_tpu_torch import examples
 from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The plain scan is thousands of small tensor ops: one intra-op
+    thread runs them fastest, and several test workers on one host then
+    do not oversubscribe the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
 
 REF = types.SimpleNamespace(res=res_ref, env=env_ref, types=types_ref)
 PORT = types.SimpleNamespace(res=res_port, env=env_port, types=types_port)
