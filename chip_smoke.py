@@ -123,6 +123,30 @@ Phases (any failure exits non-zero before the result line):
    kernels against the plain parts over the first four steps of each
    cell, fed by the same collectives; the minValues snapshots on
    1 x 4, equal;
+15. the distributed path (run before phase 10 too), the multi-process
+   mesh (K11, ``parallel/distmesh.py``) at the reference's multi-host
+   ceiling (``examples.DIST_CEILING_SHAPE``: 64 groups x 15,626+ pods,
+   1,000,064+ pods over 812 types, N = 4,224 slots, seed 7) and on its
+   smoke workload, each host placing only its own slab: (a)
+   ``dispatch_dist`` at world size 1 on NCCL, the first four group steps
+   of each workload checked launch by launch against the plain parts,
+   then ticks 0 (full), 1 (patch) and timed patch ticks with the counters
+   set to 0 just before and read just after (1 + 5*G K10 launches a
+   solve: the fill in its three phases); (b) ``MeshGroup(workers=1,
+   local_devices=2)``: 2 hosts x 2 rank processes sharing the card over
+   gloo, the ceiling's ticks 0 and 1 and timed patch ticks, ranks 0 and 3
+   holding their first steps against the plain parts, each rank's slot
+   tables 2,112 rows (its host's slab), the launches each rank reports;
+   (d) ``solve_batch`` of 5 and 64 packed lanes over the 4 ranks (K4),
+   each lane equal to its single solve on the card and to the plain
+   versions; (e) a rank killed between ticks: one full degraded solve on
+   the card, then patch, batch routing refused, then the supervised
+   regroup (canary) and distributed full and patch ticks; (c)
+   ``MeshGroup(workers=3)``: 4 hosts x 1 rank, four slabs, the smoke
+   workload. Every fingerprint equals the card's single-device oracle
+   (``distmesh.oracle_out``), ticks 0 and 1 also the plain
+   ``_solve_scan_ref`` on the CPU (computed from the start in a process
+   of its own, two threads);
 10. kernel times with CUDA events at the main paths' shapes, beside the
    plain versions' times, the bound the shapes allow and, for the bank
    kernels, ``Tensor.copy_`` of the same bytes; the suffix solve's device
@@ -134,7 +158,9 @@ Phases (any failure exits non-zero before the result line):
    striped cluster's vectorized and sequential blocks, with one fused
    packed solve's device time beside the same snapshot packed unfused,
    and the K10 kernels at the type mesh's last group step of each mesh
-   cell at world size 1.
+   cell at world size 1, and K11 as one group step (five launches) of
+   rank 0's shard of the 2 x 2 ceiling layout (2,112 slots x 406 types)
+   at its last group step.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; a line before them holds the per-kernel
@@ -232,6 +258,15 @@ M14_ROUNDS = 5
 M14_RANKS = 4
 M14_TIMEOUT_S = 300
 
+#: the distributed path (K11): timed patch ticks after the checked full
+#: and patch ticks, the rank processes' reply and collective deadline,
+#: the regroup's backoff and its budget, and the routed batch widths
+D15_ROUNDS = 5
+D15_TIMEOUT_S = 300
+D15_BACKOFF_S = 0.5
+D15_REGROUP_BUDGET_S = 180
+D15_BATCHES = (5, 64)
+
 #: the kernels of the warm-tick path
 K3_PATH = ("unpack_bits", "ffd_slot_headroom", "ffd_group_commit",
            "pack_outputs", "ffd_bank_store", "ffd_bank_load")
@@ -284,6 +319,11 @@ KERNELS = {
     "mesh_slot_headroom": dict(source=K10_SRC, replaces=f"{FFD_REF}:488"),
     "mesh_fill": dict(source=K10_SRC, replaces=f"{FFD_REF}:469"),
     "mesh_commit": dict(source=K10_SRC, replaces=f"{FFD_REF}:534"),
+    # K11: one group step of K10's kernels (the fill in its three
+    # phases) on a rank's slab-placed shard of the distributed dispatch
+    "dist2_step": dict(
+        source=K10_SRC,
+        replaces="karpenter_provider_aws_tpu/parallel/distmesh.py:413"),
 }
 #: the K1 kernels on their lane axis (the batch path), one record per
 #: batch width: the kernel, its width, and the reference's vmap they
@@ -2006,12 +2046,14 @@ def fused_phase(cmp, device=None, n_pods=S13_PODS, n_sigs=S13_SIGS,
 # phase 14: the mesh path (K10)
 # ---------------------------------------------------------------------------
 
-def take_checks(cmp, records, label):
-    """Fold a ``mesh_kernel_check`` record list into ``cmp``; raise on a
-    kernel launch whose buffers differ from its plain part's."""
+def take_checks(cmp, records, label, also=None):
+    """Fold a ``mesh_kernel_check`` record list into ``cmp`` (and into
+    the record ``also``); raise on a kernel launch whose buffers differ
+    from its plain part's."""
     for name, args, diffs, err in records:
-        cmp.err[name] = max(cmp.err[name], err)
-        cmp.checks[name] += 1
+        for k in (name, also) if also else (name,):
+            cmp.err[k] = max(cmp.err[k], err)
+            cmp.checks[k] += 1
         if diffs:
             raise AssertionError(f"{label}: {name}{args} kernel != plain in "
                                  f"{diffs} (max abs diff {err})")
@@ -2240,6 +2282,370 @@ def mesh_phase(cmp, device=None, cells=None, rounds=M14_ROUNDS,
             f"the single-device solve")
     summary["ranks_wall_s"] = t_ranks
     return launches, summary, kept
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the distributed path (K11)
+# ---------------------------------------------------------------------------
+
+def plain_fingerprint(shape, seed, tick):
+    """The fingerprint of the plain single-device scan (``_solve_scan_ref``)
+    of a seeded tick, on the CPU."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    from karpenter_provider_aws_tpu_torch.parallel import distmesh as dm
+    from karpenter_provider_aws_tpu_torch.parallel.mesh import _out_dict
+    arrays, st = dm.tick_arrays(shape, seed, tick)
+    out = _out_dict(*ft._solve_scan_ref(
+        ft.kernel_inputs_from_numpy(arrays, "cpu"), st["n_max"], st["E"],
+        st["P"]), arrays["A"].shape[0])
+    return dm.result_fingerprint(out)
+
+
+def plain_fingerprints(shapes, seed, threads=0):
+    """``plain_fingerprint`` of ticks 0 and 1 of each (name, shape) of
+    ``shapes`` with ``threads`` intra-op threads (0: torch's default);
+    returns ({(name, tick): fingerprint}, seconds). ``main`` runs it in a
+    process of its own from the start, beside the earlier phases."""
+    import torch
+    if threads:
+        torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    out = {(name, t): plain_fingerprint(shape, seed, t)
+           for name, shape in shapes for t in (0, 1)}
+    return out, time.perf_counter() - t0
+
+
+def check_launches(launches, G, label, per=1):
+    """A distributed solve's K10 launches: 1 + 5*G per rank and solve
+    (the caps, then per group step the headroom, the fill's three phases
+    and the commit), ``per`` solves; raise otherwise."""
+    want = dict(mesh_new_caps=per, mesh_slot_headroom=per * G,
+                mesh_fill=3 * per * G, mesh_commit=per * G)
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: K10 launches {got}, want {want}")
+
+
+def group_logs(log_dir):
+    """The tails of a mesh group's rank logs (for a failure's message)."""
+    out = []
+    for name in sorted(os.listdir(log_dir)) if os.path.isdir(log_dir) \
+            else ():
+        with open(os.path.join(log_dir, name), errors="replace") as f:
+            out.append(f"--- {name}\n" + "".join(f.readlines()[-30:]))
+    return "\n".join(out)
+
+
+def dist_phase(cmp, device=None, ceiling=None, smoke=None,
+               rounds=D15_ROUNDS, batches=D15_BATCHES, plain=None):
+    """Phase 15 (module docstring). ``plain``: ``plain_fingerprints`` of
+    (``smoke``, ``ceiling``), computed here when not given. Returns (the
+    K10 launches of its main-path runs by kernel, in this process and
+    reported by the rank processes, the K4 lane launches of the routed
+    batches, a summary, the state kept for the timing phase)."""
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.fleet import MeshGroup
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    from karpenter_provider_aws_tpu_torch.ops.hostpack import pack_inputs1
+    from karpenter_provider_aws_tpu_torch.parallel import distmesh as dm
+    from karpenter_provider_aws_tpu_torch.parallel import pick_backend
+    from karpenter_provider_aws_tpu_torch.utils.metrics import Metrics
+    ceiling = examples.DIST_CEILING_SHAPE if ceiling is None else ceiling
+    smoke = examples.DIST_SMOKE_SHAPE if smoke is None else smoke
+    on_card = device is None
+    dev = torch.device("cuda" if on_card else device)
+    seed = examples.DIST_SEED
+    dirty = list(dm.DIRTY_FIELDS)
+    launches = {k: 0 for k in fc.LAUNCHES}
+    batch_launches = {k: 0 for k in fc.LAUNCHES}
+    summary, oracle = {}, {}
+
+    def add(into, got):
+        for k, v in got.items():
+            into[k] = into.get(k, 0) + v
+
+    def want_fp(shape, tick):
+        key = (shape["G"], shape["T"], shape["n_max"], tick)
+        if key not in oracle:
+            arrays, st = dm.tick_arrays(shape, seed, tick)
+            oracle[key] = dm.result_fingerprint(
+                dm.oracle_out(arrays, device=dev, **st))
+        return oracle[key]
+
+    # the plain single-device scan on the CPU, of the ticks held to it
+    if plain is None:
+        plain = plain_fingerprints((("smoke", smoke), ("ceiling", ceiling)),
+                                   seed)
+    plain, t_plain = plain
+    arrays0, _ = dm.tick_arrays(ceiling, seed, 0)
+    pods = int(np.asarray(arrays0["n"]).sum())
+    log(f"[dist] ceiling {ceiling}: {pods} pods; plain scans of ticks 0 "
+        f"and 1 on the CPU in {t_plain:.1f} s")
+
+    # ---- (a) world size 1 (NCCL on the card) ----
+    tmp = tempfile.mkdtemp(prefix="karp_dist1_")
+    dist.init_process_group(
+        pick_backend(1, dev), init_method=f"file://{os.path.join(tmp, 'r')}",
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        comm = dm.dist_mesh2(nproc=1)
+        backend = comm.backend
+        for name, shape in (("smoke", smoke), ("ceiling", ceiling)):
+            Np, lo, hi = dm.slab_rows(shape["n_max"], shape["E"], comm.ndp)
+            records = []
+            arrays, st = dm.tick_arrays(shape, seed, 0, slab=(lo, hi, Np))
+            dm.dispatch_dist(arrays, comm=comm, cache={}, device=dev,
+                             check=examples.mesh_kernel_check(0, records),
+                             **st)
+            if {r[0] for r in records} != set(mc.KERNELS) or \
+                    {r[1][1] for r in records if r[0] == "mesh_fill"} != \
+                    {mc.PHASE_A, mc.PHASE_B, mc.PHASE_C}:
+                raise AssertionError(f"dist (a) {name}: checked "
+                                     f"{sorted({r[0] for r in records})}")
+            take_checks(cmp, records, f"dist (a) {name}", also="dist2_step")
+            cache, times, splits = {}, [], []
+            for i in range(2 + rounds):   # the oracles, off the main path
+                want_fp(shape, i)
+            fc.reset_launches()
+            for i in range(2 + rounds):
+                arrays, st = dm.tick_arrays(shape, seed, i,
+                                            slab=(lo, hi, Np))
+                t0 = time.perf_counter()
+                out = dm.dispatch_dist(arrays, comm=comm, cache=cache,
+                                       device=dev, dirty=dirty if i else None,
+                                       **st)
+                times.append((time.perf_counter() - t0) * 1e3)
+                splits.append(dict(cache["last_timing"]))
+                mode = cache["last_placement"]["mode"]
+                if mode != ("patch" if i else "full"):
+                    raise AssertionError(f"dist (a) {name} tick {i}: {mode}")
+                fp = dm.result_fingerprint(out)
+                if fp != want_fp(shape, i) or (i < 2 and fp != plain[
+                        (name, i)]):
+                    raise AssertionError(f"dist (a) {name} tick {i}: "
+                                         f"fingerprint differs")
+            got = dict(fc.LAUNCHES)
+            if on_card:
+                check_launches(got, shape["G"], f"dist (a) {name}",
+                               per=2 + rounds)
+            add(launches, got)
+            p50, p99 = p50_p99(times[2:])
+            summary[f"a_{name}"] = dict(
+                backend=backend, world=1, full_ms=times[0],
+                patch_ms=times[1], patch_p50_ms=p50, patch_p99_ms=p99,
+                split_p50_ms={k: 1e3 * statistics.median(
+                    s[k] for s in splits[2:]) for k in splits[0]},
+                collectives=cache["last_mesh"]["collectives"],
+                launches={k: got[k] for k in mc.KERNELS})
+            log(f"[dist] (a) {name} at world 1 on {backend}: every K10 "
+                f"launch of the first 4 steps == its plain part; "
+                f"{json.dumps(summary[f'a_{name}'])}; fingerprints == the "
+                f"card's oracle and (ticks 0, 1) the plain scan on the CPU")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- (b) 2 hosts x 2 ranks sharing the card over gloo ----
+    log_dir = tempfile.mkdtemp(prefix="karp_dist_logs_")
+    m = Metrics()
+    mg = MeshGroup(workers=1, local_devices=2, device=device, metrics=m,
+                   reply_timeout_s=D15_TIMEOUT_S,
+                   regroup_backoff_s=D15_BACKOFF_S, log_dir=log_dir)
+    try:
+        t0 = time.perf_counter()
+        mg.start()
+        t_form = time.perf_counter() - t0
+        if not mg.alive():
+            raise AssertionError("the 2 x 2 mesh group did not form")
+        info = dict(mg.mesh_info)
+        if (info["dp"], info["tp"], info["world"]) != (2, 2, 4):
+            raise AssertionError(f"2 x 2 layout: {info}")
+        G = ceiling["G"]
+        Nl = (ceiling["E"] + ceiling["n_max"]) // 2
+        times, walls, splits, colls = [], [], [], []
+        rank_launches = [dict() for _ in range(4)]
+        for i in range(2 + rounds):
+            t0 = time.perf_counter()
+            r = mg.solve_seeded(ceiling, seed, i, dirty=dirty if i else None,
+                                check_ranks=(0, 3) if i == 0 else ())
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not r["distributed"] or r["mode"] != ("patch" if i else
+                                                     "full"):
+                raise AssertionError(f"dist (b) tick {i}: {r['mode']} "
+                                     f"distributed={r['distributed']}")
+            if r["fingerprint"] != want_fp(ceiling, i) or (
+                    i < 2 and r["fingerprint"] != plain[("ceiling", i)]):
+                raise AssertionError(f"dist (b) tick {i}: fingerprint "
+                                     f"differs")
+            for rk in r["ranks"]:
+                add(rank_launches[rk["rank"]], rk["launches"])
+                if set(rk["slot_rows"].values()) != {Nl}:
+                    raise AssertionError(f"dist (b) rank {rk['rank']}: slot "
+                                         f"rows {rk['slot_rows']} != {Nl}")
+                if "checks" in rk:
+                    take_checks(cmp, [tuple(x) for x in rk["checks"]],
+                                f"dist (b) rank {rk['rank']}",
+                                also="dist2_step")
+            if i == 0:
+                checked = {rk["rank"]: {x[0] for x in rk["checks"]}
+                           for rk in r["ranks"] if "checks" in rk}
+                if checked != {0: set(mc.KERNELS), 3: set(mc.KERNELS)}:
+                    raise AssertionError(f"dist (b) checks {checked}")
+            walls.append(statistics.median(rk["wall_s"] * 1e3
+                                           for rk in r["ranks"]))
+            splits.append(r["timing"])
+            colls.append(r["ranks"][0]["mesh"])
+        for rk, got in enumerate(rank_launches):
+            if on_card:
+                check_launches(got, G, f"dist (b) rank {rk}", per=2 + rounds)
+            add(launches, got)
+        p50, p99 = p50_p99(times[2:])
+        summary["b_ceiling"] = dict(
+            layout=info, form_s=t_form, pods=pods, full_ms=times[0],
+            patch_ms=times[1], patch_p50_ms=p50, patch_p99_ms=p99,
+            rank_dispatch_p50_ms=statistics.median(walls[2:]),
+            split_p50_ms={k: 1e3 * statistics.median(s[k]
+                                                     for s in splits[2:])
+                          for k in splits[0]},
+            collectives=colls[-1]["collectives"],
+            collective_ms_per_step=1e3 * statistics.median(
+                c["collective_s"] for c in colls[2:]) / G,
+            slot_rows_per_rank=Nl,
+            launches_per_rank={k: rank_launches[0].get(k, 0)
+                               for k in mc.KERNELS})
+        log(f"[dist] (b) ceiling on 2 x 2 gloo ranks sharing the card: "
+            f"{json.dumps(summary['b_ceiling'])}; ranks 0 and 3 held their "
+            f"first 4 steps against the plain parts; every tick == the "
+            f"card's oracle, ticks 0 and 1 == the plain scan on the CPU")
+
+        # ---- (d) SolveBatch lanes routed over the ranks ----
+        dims = {k: smoke[k] for k in ("T", "D", "Z", "C", "G", "E", "P")}
+        kv = dict(dims, n_max=smoke["n_max"])
+        for B in batches:
+            lanes = [pack_inputs1(dm.tick_arrays(smoke, 100 + i, 0)[0],
+                                  **dims) for i in range(B)]
+            stack = np.stack(lanes)
+            t0 = time.perf_counter()
+            got = mg.solve_batch(stack, kv)
+            t_b = (time.perf_counter() - t0) * 1e3
+            if got is None:
+                raise AssertionError(f"dist (d) B={B}: routing refused")
+            for i in range(B):
+                one = ft.solve_scan_packed1(stack[i], device=dev, **kv)
+                cpu = ft.solve_scan_packed1(stack[i], device="cpu", **kv)
+                if not (np.array_equal(got[i], one.cpu().numpy())
+                        and np.array_equal(got[i], cpu.numpy())):
+                    raise AssertionError(f"dist (d) B={B} lane {i} differs")
+            for rb in mg.last_batch:
+                add(batch_launches, rb["launches"])
+            summary[f"d_batch_{B}"] = dict(
+                wall_ms=t_b, spans=[rb["span"] for rb in mg.last_batch],
+                launches=[rb["launches"] for rb in mg.last_batch])
+            log(f"[dist] (d) solve_batch B={B} over 4 ranks: "
+                f"{json.dumps(summary[f'd_batch_{B}'])}; every lane == its "
+                f"single solve on the card and the plain versions")
+
+        # ---- (e) a rank killed between ticks, then the regroup ----
+        t = 2 + rounds
+        mg._procs[-1].kill()
+        mg._procs[-1].wait(timeout=10)
+        fc.reset_launches()
+        seen = []   # (tick, result): held to the oracles after the loop
+        for _ in range(2):
+            seen.append((t, mg.solve_seeded(ceiling, seed, t, dirty=dirty)))
+            t += 1
+        modes = [r["mode"] for _, r in seen]
+        if modes != ["full", "patch"] or any(r["distributed"]
+                                             for _, r in seen) or \
+                mg.solve_batch(np.zeros((1, 4), np.int64), kv) is not None:
+            raise AssertionError(f"dist (e) degraded ticks {modes}")
+        t0 = time.perf_counter()
+        while True:
+            seen.append((t, mg.solve_seeded(ceiling, seed, t, dirty=dirty)))
+            t += 1
+            if seen[-1][1]["distributed"]:
+                break
+            if time.perf_counter() - t0 > D15_REGROUP_BUDGET_S:
+                raise AssertionError("dist (e) regroup over budget")
+        t_regroup = time.perf_counter() - t0
+        seen.append((t, mg.solve_seeded(ceiling, seed, t, dirty=dirty)))
+        add(launches, dict(fc.LAUNCHES))   # the degraded local solves
+        r, r2 = seen[-2][1], seen[-1][1]
+        if (r["mode"], r2["mode"], r2["distributed"]) != \
+                ("full", "patch", True):
+            raise AssertionError(f"dist (e) after the regroup: {r['mode']} "
+                                 f"{r2['mode']}")
+        for tick, rr in seen:
+            if rr["fingerprint"] != want_fp(ceiling, tick):
+                raise AssertionError(f"dist (e) tick {tick}: fingerprint")
+            for rk in rr.get("ranks", ()):
+                add(launches, rk["launches"])
+        counts = {k: m.counter(f"karpenter_solver_distmesh_{k}_total",
+                               labels={"reason": "worker_lost"})
+                  for k in ("degraded", "recovered")}
+        if counts != {"degraded": 1, "recovered": 1}:
+            raise AssertionError(f"dist (e) counters {counts}")
+        summary["e_chaos"] = dict(degraded_modes=modes, ticks=len(seen),
+                                  regroup_s=t_regroup,
+                                  regroup_ms=m.histograms.get(
+                                      ("karpenter_solver_distmesh_regroup_ms",
+                                       ())), epoch=mg.epoch)
+        log(f"[dist] (e) rank killed: one full degraded solve on "
+            f"{mg.device}, then patch, batch routing refused; regrouped in "
+            f"{t_regroup:.1f} s (canary passed), then distributed full and "
+            f"patch; {json.dumps(summary['e_chaos'])}")
+    except Exception:
+        log(group_logs(log_dir))
+        raise
+    finally:
+        mg.stop()
+
+    # ---- (c) 4 hosts x 1 rank: four slabs ----
+    mg = MeshGroup(workers=3, local_devices=1, device=device,
+                   reply_timeout_s=D15_TIMEOUT_S, log_dir=log_dir)
+    try:
+        mg.start()
+        if not mg.alive() or (mg.mesh_info["dp"], mg.mesh_info["tp"]) != \
+                (4, 1):
+            raise AssertionError(f"4 x 1 group: {mg.mesh_info}")
+        Nl = -(-(smoke["E"] + smoke["n_max"]) // 4)
+        for i in range(3):
+            r = mg.solve_seeded(smoke, seed, i, dirty=dirty if i else None,
+                                check_ranks=(0, 3) if i == 0 else ())
+            if not r["distributed"] or r["fingerprint"] != \
+                    want_fp(smoke, i) or (i < 2 and r["fingerprint"] !=
+                                          plain[("smoke", i)]):
+                raise AssertionError(f"dist (c) tick {i}: {r['mode']}")
+            for rk in r["ranks"]:
+                add(launches, rk["launches"])
+                if set(rk["slot_rows"].values()) != {Nl}:
+                    raise AssertionError(f"dist (c) slot rows {rk}")
+                if "checks" in rk:
+                    take_checks(cmp, [tuple(x) for x in rk["checks"]],
+                                f"dist (c) rank {rk['rank']}",
+                                also="dist2_step")
+        summary["c_smoke_4x1"] = dict(layout=dict(mg.mesh_info),
+                                      collectives=r["ranks"][0]["mesh"][
+                                          "collectives"])
+        log(f"[dist] (c) smoke on 4 x 1 gloo ranks (four slabs of {Nl} "
+            f"rows): ticks 0-2 == the card's oracle; "
+            f"{json.dumps(summary['c_smoke_4x1'])}")
+    except Exception:
+        log(group_logs(log_dir))
+        raise
+    finally:
+        mg.stop()
+    # the timing phase's state: host 0's slab of the ceiling's tick 0
+    Np, lo, hi = dm.slab_rows(ceiling["n_max"], ceiling["E"], 2, 2, 0)
+    kept = dm.tick_arrays(ceiling, seed, 0, slab=(lo, hi, Np))
+    return launches, batch_launches, summary, kept
 
 
 # ---------------------------------------------------------------------------
@@ -2893,17 +3299,45 @@ def k8_times(tables, wide, launches):
                  bytes=nbytes, ops=ops)], by_g
 
 
+def k10_cost(st, ncand, nfill):
+    """Bytes and operations of each K10 kernel on a rank's state ``st``
+    at one group step with ``ncand`` candidate (slot, type) cells and
+    ``nfill`` filled open slots. Bytes: each input the kernel reads, once,
+    and each output it writes; operations: the candidate tests and 64-bit
+    quotients this state needs (headroom: every (slot, type) test plus D
+    quotients a candidate cell; caps: every (group, pool, type) test and
+    quotient; fill: a few per slot and pool; commit: the fit test of
+    every filled slot's types plus the new-node pass over the types)."""
+    inp = st.inp
+    Tl, D, G, Nl, K, M, V, E, P = (st.T, st.D, st.G, st.Nl, st.K, st.M,
+                                   st.V, st.E, st.P)
+    Z, C = inp.agz.shape[1], inp.agc.shape[1]
+    ZC = Z * C
+    return {
+        "mesh_new_caps": (
+            8 * Tl * D + Tl * ZC + G * Tl + P * Tl + 8 * G * P * D
+            + 8 * G * D + (G + P) * (Z + C) + 16 * K * M
+            + 8 * G * P * (1 + K * V), G * P * Tl * (D + ZC)),
+        "mesh_slot_headroom": (
+            8 * Nl * D + 2 * Nl * Tl + Nl * (Z + C) + 4 * Nl
+            + 8 * Tl * D + Tl * ZC + Tl + 8 * Nl * (1 + K * V),
+            Nl * Tl + ncand * D),
+        "mesh_fill": (
+            16 * Nl + 6 * Nl + 16 * min(E, Nl) * D + 8 * (P + 1)
+            + 8 * P * D, Nl * (P + 3)),
+        "mesh_commit": (
+            12 * Nl + 16 * Nl * D + 3 * Nl * Tl + 8 * Tl * D
+            + 2 * Nl * (Z + C) + 4 * Nl + 8 * P * (1 + D),
+            nfill * Tl * D + P * Tl * (D + ZC)),
+    }
+
+
 def k10_times(kept, launches):
     """The K10 kernels at world size 1 (the type mesh, every type and
     slot on one rank) at the last group step of each mesh cell, from the
     kernels' own scan of the earlier steps, beside their plain parts on
-    the same CUDA state. Bytes: each input the kernel reads, once, and
-    each output it writes; operations: the candidate tests and 64-bit
-    quotients this state needs (headroom: every (slot, type) test plus D
-    quotients a candidate cell; caps: every (group, pool, type) test and
-    quotient; fill: a few per slot and pool; commit: the fit test of
-    every filled slot's types plus the new-node pass over the types).
-    The records carry the tp cell; the dp2 cell's times (at its 1,024
+    the same CUDA state; bytes and operations by ``k10_cost``. The
+    records carry the tp cell; the dp2 cell's times (at its 1,024
     slots) and the fill's three phases are logged beside them."""
     import torch
     from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
@@ -2952,35 +3386,25 @@ def k10_times(kept, launches):
         s2 = snap()
         take = st.k
         nfill = int(((take > 0) & (st.carry.pool >= 0)).sum())
-        Tl, D, G, Nl, K, M = st.T, st.D, st.G, st.Nl, st.K, st.M
-        Z, C = inp.agz.shape[1], inp.agc.shape[1]
-        ZC = Z * C
+        cost = k10_cost(st, ncand, nfill)
         work = {
             "mesh_new_caps": (
                 lambda: mc.mesh_new_caps(st), lambda: mc._new_caps_ref(st),
-                s0, 8 * Tl * D + Tl * ZC + G * Tl + P * Tl + 8 * G * P * D
-                + 8 * G * D + (G + P) * (Z + C) + 16 * K * M
-                + 8 * G * P * (1 + K * V), G * P * Tl * (D + ZC)),
+                s0),
             "mesh_slot_headroom": (
                 lambda: mc.mesh_slot_headroom(st, g),
-                lambda: mc._slot_headroom_mesh_ref(st, g), s0,
-                8 * Nl * D + 2 * Nl * Tl + Nl * (Z + C) + 4 * Nl
-                + 8 * Tl * D + Tl * ZC + Tl + 8 * Nl * (1 + K * V),
-                Nl * Tl + ncand * D),
+                lambda: mc._slot_headroom_mesh_ref(st, g), s0),
             "mesh_fill": (
                 lambda: mc.mesh_fill(st, g, mc.PHASE_ALL),
-                lambda: mc._fill_ref(st, g, mc.PHASE_ALL), s1,
-                16 * Nl + 6 * Nl + 16 * E * D + 8 * (P + 1) + 8 * P * D,
-                Nl * (P + 3)),
+                lambda: mc._fill_ref(st, g, mc.PHASE_ALL), s1),
             "mesh_commit": (
                 lambda: mc.mesh_commit(st, g),
-                lambda: mc._commit_mesh_ref(st, g), s2,
-                12 * Nl + 16 * Nl * D + 3 * Nl * Tl + 8 * Tl * D
-                + 2 * Nl * (Z + C) + 4 * Nl + 8 * P * (1 + D),
-                nfill * Tl * D + P * Tl * (D + ZC)),
+                lambda: mc._commit_mesh_ref(st, g), s2),
         }
+        Tl, G, Nl = st.T, st.G, st.Nl
         cells[name] = {}
-        for k, (fn, ref, pre, nbytes, ops) in work.items():
+        for k, (fn, ref, pre) in work.items():
+            nbytes, ops = cost[k]
             ms = time_launches(fn, setup=lambda p=pre: restore(p))
             pms = time_launches(ref, reps=10, setup=lambda p=pre: restore(p))
             b, by = bound_ms(nbytes, ops)
@@ -2995,6 +3419,95 @@ def k10_times(kept, launches):
         recs.append(dict(name=k, route="cuda", **KERNELS[k],
                          launches=launches[k], library_ms=None, **r))
     return recs, cells
+
+
+def k11_times(kept, launches):
+    """K11 at the ceiling: one group step of K10's kernels (the headroom,
+    the fill's three phases, the commit) on rank 0's shard of the 2 x 2
+    layout, cut from host 0's slab (Nl = 2,112 slots, Tl = 406 types), at
+    the last group step, from the kernels' own scan of the earlier steps
+    under a ``ShardStub`` (no process group: the type max is the
+    identity, the earlier shards' prefixes 0), beside the same step of
+    the plain parts on the same CUDA state. Bound: ``k10_cost`` of the
+    headroom, the fill (once: the function of its three launches) and
+    the commit. ``launches``: the K10 launches of phase 15's main-path
+    runs (in this process and on the ranks); the record's times and
+    bound are the step's over its five launches, the step's own in the
+    returned shape."""
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    from karpenter_provider_aws_tpu_torch.ops.ffd_torch import KernelInputs
+    from karpenter_provider_aws_tpu_torch.parallel import mesh as pm
+    dev = torch.device("cuda")
+    arrays, stt = kept
+    E, P, n_max = stt["E"], stt["P"], stt["n_max"]
+    N = E + n_max
+    Np = -(-N // 2) * 2
+    lay = examples.ShardStub(2, 0, [0] * (P + 1), ntp=2, tp_idx=0)
+    T = arrays["A"].shape[0]
+    names = [f for f in pm.FIELDS if arrays.get(f) is not None]
+    inp = KernelInputs(**pm._shard_inputs(arrays, lay, names, -(-T // 2) * 2,
+                                          Np, Np, 0, dev))
+    st = mc.MeshState(inp, E=E, P=P, V=0, N=N, slot0=0)
+
+    def step(g, fns):
+        fns["mesh_slot_headroom"](st, g)
+        fns["mesh_fill"](st, g, mc.PHASE_A)
+        st.before.zero_()
+        fns["mesh_fill"](st, g, mc.PHASE_B)
+        fns["mesh_fill"](st, g, mc.PHASE_C)
+        fns["mesh_commit"](st, g)
+
+    mc.mesh_new_caps(st)
+    g = st.G - 1
+    for h in range(g):
+        step(h, mc.WRAPPERS)
+    saved = {k: t.clone() for k, t in st.buffers().items()}
+
+    def restore():
+        for k, t in st.buffers().items():
+            t.copy_(saved[k])
+
+    # each launch of the step alone, from its own entry state
+    pre, each = {}, {}
+    for nm, fn in (("mesh_slot_headroom",
+                    lambda: mc.mesh_slot_headroom(st, g)),
+                   ("mesh_fill_a", lambda: mc.mesh_fill(st, g, mc.PHASE_A)),
+                   ("mesh_fill_b", lambda: mc.mesh_fill(st, g, mc.PHASE_B)),
+                   ("mesh_fill_c", lambda: mc.mesh_fill(st, g, mc.PHASE_C)),
+                   ("mesh_commit", lambda: mc.mesh_commit(st, g))):
+        pre[nm] = ({k: t.clone() for k, t in st.buffers().items()}, fn)
+        if nm == "mesh_fill_b":
+            st.before.zero_()
+        if nm == "mesh_fill_a":
+            ncand = int(st.cand.sum())
+        if nm == "mesh_commit":
+            nfill = int(((st.k > 0) & (st.carry.pool >= 0)).sum())
+        fn()
+    for nm, (state, fn) in pre.items():
+        def put(state=state):
+            for k, t in st.buffers().items():
+                t.copy_(state[k])
+        each[nm] = time_launches(fn, setup=put) * 1e3
+    restore()
+    cost = k10_cost(st, ncand, nfill)
+    nbytes = sum(cost[k][0] for k in ("mesh_slot_headroom", "mesh_fill",
+                                      "mesh_commit"))
+    ops = sum(cost[k][1] for k in ("mesh_slot_headroom", "mesh_fill",
+                                   "mesh_commit"))
+    ms = time_launches(lambda: step(g, mc.WRAPPERS), setup=restore)
+    pms = time_launches(lambda: step(g, mc.PLAIN), reps=10, setup=restore)
+    b, by = bound_ms(nbytes, ops)
+    # the record is per launch (the step's mean), as its launch count is
+    rec = dict(name="dist2_step", route="cuda", **KERNELS["dist2_step"],
+               launches=sum(launches.get(k, 0) for k in mc.KERNELS),
+               ms=ms / 5, plain_ms=pms / 5, bound_ms=b / 5, bound_by=by,
+               library_ms=None, bytes=nbytes / 5, ops=ops / 5)
+    shape = dict(T=st.T, N=st.Nl, G=st.G, P=P, step=g, ncand=ncand,
+                 nfill=nfill, step_us=ms * 1e3, plain_step_us=pms * 1e3,
+                 bound_step_us=b * 1e3, us_each=each)
+    return [rec], shape
 
 
 def k1_lane_times(arenas, launches_b):
@@ -3079,7 +3592,7 @@ def warm_solve_times(d_buf, st, gl):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-6, 8, 9, 11, 12, 13 and 14 with the "
+                    help="run phases 3-6, 8, 9 and 11-15 with the "
                          "plain versions at a small size on the CPU (never "
                          "the default)")
     args = ap.parse_args()
@@ -3130,6 +3643,15 @@ def main() -> int:
         if any(w in line for w in ("registers", "smem", "spill",
                                    "Compiling entry")):
             log(f"[ptxas] {line.strip()}")
+
+    # the plain scans phase 15 holds the distributed ticks to: on the CPU,
+    # in a process of their own (two threads) beside the earlier phases
+    import multiprocessing
+    plain_pool = multiprocessing.get_context("spawn").Pool(1)
+    plain_job = plain_pool.apply_async(plain_fingerprints, (
+        (("smoke", examples.DIST_SMOKE_SHAPE),
+         ("ceiling", examples.DIST_CEILING_SHAPE)), examples.DIST_SEED, 2))
+    plain_pool.close()
 
     # ---- phase 3: kernels against plain versions --------------------------
     fenv.reset_pod_counter()
@@ -3311,10 +3833,27 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[compare] after the mesh phase: {cmp.checks} checks, "
         f"max_abs_err {cmp.err}")
+    # ---- phase 15: the distributed path (K11) ------------------------------
+    launches_d15, launches_d15b, d15, d15_state = dist_phase(
+        cmp, plain=plain_job.get(timeout=1200))
+    plain_pool.join()
+    missing = [k for k in ("mesh_new_caps", "mesh_slot_headroom",
+                           "mesh_fill", "mesh_commit")
+               if launches_d15[k] <= 0]
+    missing += [k for k in ("unpack_bits", "ffd_slot_headroom",
+                            "ffd_group_commit", "pack_outputs")
+                if launches_d15b.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the distributed "
+                             f"path: {missing}")
+    torch.cuda.synchronize()
+    log(f"[compare] after the distributed phase: {cmp.checks} checks, "
+        f"max_abs_err {cmp.err}")
     launches = {k: launches_c2[k] + launches_w[k] + launches_k7.get(k, 0)
                 + launches_c7[k] + sum(lb[k] for lb in launches_b.values())
                 + launches_c3[k] + launches_p12[k] + launches_s13[k]
-                + launches_m14[k] for k in launches_c2}
+                + launches_m14[k] + launches_d15.get(k, 0)
+                + launches_d15b.get(k, 0) for k in launches_c2}
 
     # ---- phase 10: kernel times --------------------------------------------
     inp, final, tk, lf = c2
@@ -3345,19 +3884,26 @@ def main() -> int:
     recs += k5_recs
     k10_recs, k10_cells = k10_times(m14_states, launches)
     recs += k10_recs
+    k11_recs, k11_shape = k11_times(d15_state, launches_d15)
+    recs += k11_recs
     for r in recs:
         r["max_abs_err"] = cmp.err[r["name"]]
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms'] * 1e3:.2f} us (Tensor.copy_ x8)"
         k = r["name"].split("_lanes_")[0]
+        if k == "dist2_step":   # K11: one step of the K10 kernels
+            where = "the distributed path's K10 launches"
+        else:
+            where = (
+                f"config 2: {launches_c2[k]}, warm tick: {launches_w[k]}, "
+                f"consolidation: {launches_k7.get(k, 0)}, config 7: "
+                f"{launches_c7[k]}, batch: "
+                f"{ {b: lb[k] for b, lb in launches_b.items()} }, config "
+                f"3: {launches_c3[k]}, preemption: {launches_p12[k]}, "
+                f"striped: {launches_s13[k]}, mesh: {launches_m14[k]}, "
+                f"dist: {launches_d15.get(k, 0) + launches_d15b.get(k, 0)}")
         log(f"[time] {r['name']}: {r['ms'] * 1e3:.2f} us/launch, "
-            f"{r['launches']} launches in the main-path runs (config 2: "
-            f"{launches_c2[k]}, warm tick: {launches_w[k]}, "
-            f"consolidation: {launches_k7.get(k, 0)}, config 7: "
-            f"{launches_c7[k]}, batch: "
-            f"{ {b: lb[k] for b, lb in launches_b.items()} }, config 3: "
-            f"{launches_c3[k]}, preemption: {launches_p12[k]}, striped: "
-            f"{launches_s13[k]}, mesh: {launches_m14[k]}), bound "
+            f"{r['launches']} launches in the main-path runs ({where}), bound "
             f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}, "
             f"{r['bytes']:.0f} B, {r['ops']:.0f} ops), plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib}")
@@ -3404,6 +3950,8 @@ def main() -> int:
     log(f"[time] K10 at world size 1, the last group step of each mesh "
         f"cell: {json.dumps(k10_cells)}")
     log(f"[time] mesh cells: {json.dumps(m14)}")
+    log(f"[time] K11 at the ceiling, one step of rank 0's 2 x 2 shard: "
+        f"{json.dumps(k11_shape)}; distributed path: {json.dumps(d15)}")
     log(f"[time] K8 by the wave's signatures G (B = 64, E = "
         f"{P12_NODES}): {json.dumps(k8_by_g)}")
     log(f"[time] preemption: plan p50 {p12['plan']['p50_ms']:.3f} ms, "
@@ -3422,11 +3970,12 @@ def main() -> int:
 
 
 def rehearsal(n_pods: int, rounds: int) -> int:
-    """Phases 3-6, 8, 9, 11, 12, 13 and 14 with the plain versions on the
-    CPU, at a small size (config 7 cut to ``n_pods`` pods, one signature
-    per 5; config 3 cut to ``n_pods`` pods; the preemption cluster to 40
-    nodes; the striped cluster to 400 pods over 100 signatures; the mesh
-    cells to 400 pods, the dp2 cell with no slot floor)."""
+    """Phases 3-6, 8, 9 and 11-15 with the plain versions on the CPU, at
+    a small size (config 7 cut to ``n_pods`` pods, one signature per 5;
+    config 3 cut to ``n_pods`` pods; the preemption cluster to 40 nodes;
+    the striped cluster to 400 pods over 100 signatures; the mesh cells
+    to 400 pods, the dp2 cell with no slot floor; the distributed
+    ceiling to 4 groups x 64 types over 256 slots)."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.fake import environment as fenv
@@ -3466,6 +4015,9 @@ def rehearsal(n_pods: int, rounds: int) -> int:
                 ticks=3, min_vec=1)
     mesh_phase(cmp, device="cpu", cells=(("tp", 400, None),
                                          ("dp2", 400, 0)), rounds=1)
+    dist_phase(cmp, device="cpu", ceiling=dict(
+        examples.DIST_CEILING_SHAPE, G=4, T=64, n_max=256), rounds=1,
+        batches=(5,))
     log(json.dumps({"ok": True, "device": {"platform": "cpu",
                                            "kind": "cpu", "count": 1}}))
     return 0

@@ -20,6 +20,9 @@ the preemption kernel's (K8) hazard tables, and ``preempt_cluster`` a
 running cluster, in either package's objects, whose next provisioning
 round must preempt. ``fused_case`` makes the fused block scan's (K5)
 arena cases, and ``striped_cluster`` its 50,000-pod cell.
+``dist_ticks_rank`` is the multi-process mesh's (K11) rank body over the
+reference's multi-host shapes (``DIST_SMOKE_SHAPE``,
+``DIST_CEILING_SHAPE``).
 """
 
 from __future__ import annotations
@@ -1916,15 +1919,19 @@ def mesh_kernel_check(rank: int, records: list, check_ranks=(0,)):
 
 class ShardStub:
     """One process's stand-in for the layout of slot shard ``dp_idx`` of
-    ``ndp`` (one type shard), for holding that shard's kernels against
-    their plain parts with no process group: the max over the type shards
-    is the identity, the dp sums add nothing, and the earlier shards'
-    prefixes are the given numbers (``before``: the P pools', then the
-    fill's), wrapping ones included. Decisions under it mean nothing;
-    each launch's agreement with its plain part does."""
+    ``ndp`` (and type shard ``tp_idx`` of ``ntp``, default one), for
+    holding that shard's kernels against their plain parts, or timing
+    them, with no process group: the max over the type shards is the
+    identity, the dp sums add nothing, and the earlier shards' prefixes
+    are the given numbers (``before``: the P pools', then the fill's),
+    wrapping ones included. Decisions under it mean nothing; each
+    launch's agreement with its plain part does."""
 
-    def __init__(self, ndp: int, dp_idx: int, before):
-        self.ndp, self.ntp, self.dp_idx, self.tp_idx = ndp, 1, dp_idx, 0
+    def __init__(self, ndp: int, dp_idx: int, before, ntp: int = 1,
+                 tp_idx: int = 0):
+        self.ndp, self.ntp, self.dp_idx, self.tp_idx = ndp, ntp, dp_idx, \
+            tp_idx
+        self.rank = dp_idx * ntp + tp_idx
         self.before = [int(b) for b in before]
         self._base, self.calls, self.seconds = self, 0, 0.0
         self._pools_next = True
@@ -2061,4 +2068,82 @@ def mesh_cell_rank(rank: int, world: int, cells=MESH_CELLS,
         res = solver.solve(min_values_scenario(api, env, seed))
         out[("min_values", seed)] = dict(fp=_fp_digest(res),
                                          stats=_mesh_stats(solver))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the multi-process mesh (K11): the reference's multi-host shapes and a
+# rank body that places only its host's slabs
+# ---------------------------------------------------------------------------
+
+#: the reference's multi-host driver shapes (``hack/multihost.py:38-44``):
+#: the smoke workload, and the ceiling of 64 groups x >= 15,626 pods (at
+#: least 1,000,064 pods, twice the single-process 500,032) over the
+#: 812-type catalog, N = 4,224 slots; seed 7
+DIST_SMOKE_SHAPE = dict(G=6, T=11, n_max=64, E=24, P=2, Z=3, C=2, D=4,
+                        pods_per_group=17)
+DIST_CEILING_SHAPE = dict(G=64, T=812, n_max=4096, E=128, P=1, Z=3, C=2,
+                          D=4, pods_per_group=15626)
+DIST_SEED = 7
+
+#: (hosts, ranks per host) over four ranks: 2 x 2 and 4 x 1 (four slabs)
+DIST_LAYOUTS = ((2, 2), (4, 1))
+
+#: the tick sequence of a rank body: (tick, dirty): full, patch, patch,
+#: then tick 2 again with nothing dirty (reuse)
+DIST_TICKS = ((0, None), (1, ("n", "ex_used0")), (2, ("n", "ex_used0")),
+              (2, ()))
+
+
+def dist_ticks_rank(rank: int, world: int, shape=None, seed: int = DIST_SEED,
+                    layouts=DIST_LAYOUTS, ticks=DIST_TICKS,
+                    device: str = "cpu", check_ranks=()) -> Dict:
+    """A spawned rank's body: per (hosts, L) layout of ``layouts`` the
+    rank is local rank ``rank % L`` of host ``rank // L``; it builds only
+    its host's slabs of each tick (``distmesh.tick_arrays(slab=)``) and
+    runs ``dispatch_dist`` on the layout ``distmesh.dist_dp`` gives, the
+    shard resident across the ``ticks``. The first tick of a rank in
+    ``check_ranks`` holds its first steps' launches against the plain
+    parts. Returns {(hosts, L): [per tick: fingerprint, placement, slab,
+    the placed slot fields' rows, timing keys, layout, checks]} and
+    {("oracle", tick): the single-device oracle's fingerprint, computed
+    inside the process group}."""
+    from .parallel import distmesh as dm
+    from .parallel.mesh import MeshComm
+    shape = DIST_SMOKE_SHAPE if shape is None else shape
+    base = MeshComm()
+    out: Dict = {}
+    for hosts, L in layouts:
+        if hosts * L != world:
+            raise ValueError(f"{hosts} x {L} ranks on a world of {world}")
+        ndp = dm.dist_dp(world, hosts)
+        lay = base.layout(ndp)
+        cache: dict = {}
+        runs = []
+        for tick, dirty in ticks:
+            Np, lo, hi = dm.slab_rows(shape["n_max"], shape["E"], ndp,
+                                      hosts, rank // L)
+            arrays, st = dm.tick_arrays(shape, seed, tick, slab=(lo, hi, Np))
+            records = [] if rank in check_ranks and not runs else None
+            res = dm.dispatch_dist(
+                arrays, comm=lay, cache=cache, device=device,
+                dirty=None if dirty is None else list(dirty),
+                check=None if records is None else
+                mesh_kernel_check(0, records), **st)
+            d = cache["resident"]["dev"]
+            runs.append(dict(
+                tick=tick, fp=dm.result_fingerprint(res),
+                mode=cache["last_placement"]["mode"],
+                fields=sorted(cache["last_placement"]["fields"]),
+                slab=(lo, hi, Np), slot0=lay.dp_idx * d["ex_used0"].shape[0],
+                rows={f: int(d[f].shape[1 if f == "ex_compat" else 0])
+                      for f in ("ex_alloc", "ex_used0", "ex_compat")},
+                timing=sorted(cache["last_timing"]),
+                mesh=dict(cache["last_mesh"]), tick_seq=cache.get("tick_seq"),
+                checks=records))
+        out[(hosts, L)] = runs
+    for tick in sorted({t for t, _ in ticks}):
+        arrays, st = dm.tick_arrays(shape, seed, tick)
+        out[("oracle", tick)] = dm.result_fingerprint(
+            dm.oracle_out(arrays, device=device, **st))
     return out

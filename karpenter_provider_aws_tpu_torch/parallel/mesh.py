@@ -39,19 +39,22 @@ is in the reference.
 
 ``dispatch_mesh`` picks the shape as the reference does and keeps each
 rank's shard resident across ticks (``_place_resident``: ``full`` /
-``patch`` / ``reuse``). Where the reference reads ``KARP_MESH_DP`` and
-``KARP_MESH_DP2_MIN_SLOTS`` from the environment, the port takes
-``dp=`` and ``dp2_min_slots=`` as arguments and reads no environment
-variable. The ``sum_only`` emulation of the reference (an all_gather for
-the max, for a TPU backend that cannot lower an int64 Max all-reduce) is
-not ported: NCCL and gloo both reduce int64 with MAX. The batch lanes
-over devices (``shard_batch`` / ``shard_lanes``) are not ported either.
+``patch`` / ``reuse``); a slot table may arrive as its host's slab
+(``LocalSlab``, the distributed tier's input, ``distmesh.py``), from
+which a rank cuts its rows and never more. Where the reference reads
+``KARP_MESH_DP`` and ``KARP_MESH_DP2_MIN_SLOTS`` from the environment,
+the port takes ``dp=`` and ``dp2_min_slots=`` as arguments and reads no
+environment variable. The ``sum_only`` emulation of the reference (an
+all_gather for the max, for a TPU backend that cannot lower an int64 Max
+all-reduce) is not ported: NCCL and gloo both reduce int64 with MAX.
+The batch lanes over devices (``shard_batch`` / ``shard_lanes``) are not
+ported here (``fleet/meshgroup.py`` splits K4 lanes over its ranks).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,12 +86,16 @@ def _default_dp(ndev: int) -> int:
 
 class MeshComm:
     """A ``(ndp, ntp)`` layout over the initialized default process
-    group (module docstring). Without one (or at world size 1) every
-    collective is the identity. ``seconds`` and ``calls`` add up the
-    host wall clock spent in collectives."""
+    group (module docstring). Without one (or at world size 1, or
+    ``solo``: ``MeshComm.single()``) every collective is the identity.
+    ``seconds`` and ``calls`` add up the host wall clock spent in
+    collectives."""
 
-    def __init__(self, ndp: int = 1, _base: "MeshComm" = None):
-        init = dist.is_available() and dist.is_initialized()
+    def __init__(self, ndp: int = 1, _base: "MeshComm" = None, *,
+                 solo: bool = False):
+        solo = solo or (_base is not None and _base.solo)
+        init = not solo and dist.is_available() and dist.is_initialized()
+        self.solo = solo
         self.world = dist.get_world_size() if init else 1
         self.rank = dist.get_rank() if init else 0
         if ndp < 1 or self.world % ndp:
@@ -114,6 +121,13 @@ class MeshComm:
         if _base is None:
             self._layouts: Dict[int, MeshComm] = {ndp: self}
             self.seconds, self.calls = 0.0, 0
+
+    @classmethod
+    def single(cls) -> "MeshComm":
+        """One rank, whatever process group this process belongs to: the
+        layout of a single-device solve beside a mesh (the reference's
+        ``ndev=1`` oracle)."""
+        return cls(solo=True)
 
     @property
     def key(self) -> tuple:
@@ -180,6 +194,19 @@ class MeshComm:
     def dp_gather(self, x: torch.Tensor) -> List[torch.Tensor]:
         return [x] if self.ndp == 1 else \
             self._all_gather(x, self.dp_group, self.ndp)
+
+
+class LocalSlab(NamedTuple):
+    """A host's slab of a slot-sharded table (the reference's
+    ``distmesh.LocalSlab``): rows [lo, hi) along ``axis`` of a logical
+    array of ``global_shape`` that already spans the padded slot range
+    (rows past the true table are zeros). ``ex_alloc`` and ``ex_used0``
+    are sharded on axis 0, ``ex_compat`` on axis 1."""
+    array: np.ndarray
+    lo: int
+    hi: int
+    axis: int
+    global_shape: Tuple[int, ...]
 
 
 def _as_comm(comm: Optional[MeshComm]) -> MeshComm:
@@ -275,6 +302,49 @@ def _cut(name: str, a: np.ndarray, lay: MeshComm, Tl: int, Nl: int,
     return a
 
 
+#: the slot-sharded fields and their slot axis
+SLOT_AXIS = {"ex_alloc": 0, "ex_used0": 0, "ex_compat": 1}
+
+
+def _cut_slab(name: str, s: LocalSlab, lay: MeshComm, Nl: int
+              ) -> np.ndarray:
+    """This rank's shard of a field that arrives as its host's slab (the
+    counterpart of the reference's ``commit_global`` on a LocalSlab): the
+    rank's global slot rows [dp*Nl, (dp+1)*Nl), remapped to slab-local
+    rows. Raises when the rows fall outside the slab, or when the slab's
+    logical shape does not span the layout's padded slot range (the
+    layout and the slab geometry drifted); never pads."""
+    axis = SLOT_AXIS.get(name)
+    if axis is None or s.axis != axis:
+        raise ValueError(f"{name} is not slot-sharded on axis {s.axis}")
+    start, stop = lay.dp_idx * Nl, (lay.dp_idx + 1) * Nl
+    gshape = tuple(int(x) for x in s.global_shape)
+    if gshape[axis] != lay.ndp * Nl:
+        raise ValueError(f"{name}: slab of global shape {gshape} does not "
+                         f"span the {lay.ndp} x {Nl} padded slot rows")
+    if start < s.lo or stop > s.hi:
+        raise ValueError(f"rank {lay.rank} wants global rows [{start},"
+                         f"{stop}) of {name} outside local slab "
+                         f"[{s.lo},{s.hi})")
+    a = np.asarray(s.array)
+    if a.shape[axis] != s.hi - s.lo:
+        raise ValueError(f"{name}: slab holds {a.shape[axis]} rows for "
+                         f"[{s.lo},{s.hi})")
+    idx = [slice(None)] * a.ndim
+    idx[axis] = slice(start - s.lo, stop - s.lo)
+    return a[tuple(idx)]
+
+
+def _shape_key(a) -> tuple:
+    """A field's entry in the resident key: a slab by its geometry and
+    its array's shape, anything else by its shape."""
+    if isinstance(a, LocalSlab):
+        return ("slab", int(a.lo), int(a.hi), int(a.axis),
+                tuple(int(x) for x in a.global_shape),
+                tuple(np.asarray(a.array).shape))
+    return tuple(np.asarray(a).shape)
+
+
 def _upload(fields: Dict[str, np.ndarray], device: torch.device
             ) -> Dict[str, torch.Tensor]:
     """The shard on ``device`` (one host-to-device copy on CUDA); bool
@@ -286,9 +356,15 @@ def _upload(fields: Dict[str, np.ndarray], device: torch.device
 
 def _shard_inputs(arrays: dict, lay: MeshComm, names, Tp: int, Np_cut: int,
                   Np_prep: Optional[int], V: int, device) -> dict:
+    """This rank's shard of the ``names`` fields, placed on ``device`` in
+    one host-to-device copy. A field given whole is prepped and cut
+    (``_prep_field``, ``_cut``); a slot field given as its host's slab is
+    cut from the slab (``_cut_slab``)."""
     Tl, Nl = Tp // lay.ntp, Np_cut // lay.ndp
-    return _upload({nm: _cut(nm, _prep_field(nm, arrays[nm], Tp, Np_prep),
-                             lay, Tl, Nl, arrays, V)
+    return _upload({nm: _cut_slab(nm, arrays[nm], lay, Nl)
+                    if isinstance(arrays[nm], LocalSlab) else
+                    _cut(nm, _prep_field(nm, arrays[nm], Tp, Np_prep), lay,
+                         Tl, Nl, arrays, V)
                     for nm in names}, device)
 
 
@@ -474,10 +550,11 @@ def _place_resident(arrays: dict, lay: MeshComm, kern: str, Tp: int,
     the previous dispatch against this cache, so only the listed ones are
     re-prepped, re-cut and re-placed, provided the resident key (kernel,
     layout, statics, field shapes) matches exactly; a changed key places
-    everything."""
+    everything. Slot fields may arrive as their host's slabs
+    (``LocalSlab``); the key then holds the slab geometry."""
     fields = [f for f in FIELDS if arrays.get(f) is not None]
     key = (statics_key, Tp, Np,
-           tuple((f, tuple(np.asarray(arrays[f]).shape)) for f in fields))
+           tuple((f, _shape_key(arrays[f])) for f in fields))
     Np_cut = N if Np is None else Np
     res = cache.get("resident")
     if dirty is not None and res is not None and res["key"] == key:

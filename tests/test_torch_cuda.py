@@ -6,7 +6,8 @@ block by block, whole solves, lanes that branch differently, the
 solver), the pruned scan's kernels (K6), the
 K7 consolidation kernels, the K9 topology kernels and K8, the
 preemption search (its hazard tables and a round through
-``Provisioner.reconcile``).
+``Provisioner.reconcile``), the K10 mesh kernels, and K11's distributed
+dispatch at 1 x 1 (a shard cut from its host's slab).
 
 Every test here needs a CUDA card: the ``cuda_device`` fixture skips
 otherwise, so the CPU suite collects the same tests and skips them. On a
@@ -874,3 +875,46 @@ def test_mesh_solver_on_card_matches_k2(cuda_device):
         assert all(st["launches"][k] > 0 for k in (
             "mesh_new_caps", "mesh_slot_headroom", "mesh_fill",
             "mesh_commit"))
+
+
+@pytest.mark.parametrize("shape", ["smoke", "canary"])
+def test_dist_dispatch_on_card(cuda_device, shape):
+    """K11 at 1 x 1 on the card: the rank's shard cut from its host's
+    slab and placed on the card, the fill in its three phases, every K10
+    launch of the first four group steps against its plain part, and the
+    ticks (full, patch) equal to the plain versions' dispatch on the CPU;
+    a slab that does not cover the rank's rows raises."""
+    from karpenter_provider_aws_tpu_torch.fleet.canary import \
+        MESH_CANARY_SHAPE
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    from karpenter_provider_aws_tpu_torch.parallel import distmesh as dm
+    sh = examples.DIST_SMOKE_SHAPE if shape == "smoke" else MESH_CANARY_SHAPE
+    comm = dm.dist_mesh2()
+    Np, lo, hi = dm.slab_rows(sh["n_max"], sh["E"], comm.ndp)
+    cache, records = {}, []
+    for tick in (0, 1):
+        arrays, st = dm.tick_arrays(sh, 7, tick, slab=(lo, hi, Np))
+        fc.reset_launches()
+        out = dm.dispatch_dist(
+            arrays, comm=comm, cache=cache, device=cuda_device,
+            dirty=None if tick == 0 else list(dm.DIRTY_FIELDS),
+            check=examples.mesh_kernel_check(0, records) if tick == 0
+            else None, **st)
+        assert cache["last_placement"]["mode"] == ("patch" if tick
+                                                   else "full")
+        G = sh["G"]
+        assert {k: fc.LAUNCHES[k] for k in mc.KERNELS} == dict(
+            mesh_new_caps=1, mesh_slot_headroom=G, mesh_fill=3 * G,
+            mesh_commit=G)
+        res = cache["resident"]["dev"]
+        assert res["ex_used0"].is_cuda and res["ex_used0"].shape[0] == Np
+        plain, _ = dm.tick_arrays(sh, 7, tick)
+        want = dm.oracle_out(plain, device="cpu", **st)
+        assert dm.result_fingerprint(out) == dm.result_fingerprint(want)
+    assert {r[0] for r in records} == set(mc.KERNELS)
+    bad = [r for r in records if r[2]]
+    assert not bad, bad[:3]
+    half, st = dm.tick_arrays(sh, 7, 0, slab=(0, Np // 2, Np))
+    with pytest.raises(ValueError, match="outside local slab"):
+        dm.dispatch_dist(half, comm=comm, cache={}, device=cuda_device, **st)
