@@ -55,17 +55,21 @@ Phases (any failure exits non-zero before the result line):
    with every simulate by ``CUDASolver(device="cpu")``;
 8. the G-axis path: each K6 kernel against its plain part over 512 group
    steps of BASELINE config 7 (``examples.config7``, 50,000 pods, 10,000
-   signatures) from the first carry, from a mid-scan carry and at S = 1;
-   then ``CUDASolver()`` solves config 7 on the pruned kernels (one
-   warm-up, timed rounds, counters set to 0 just before and read just
-   after) with 0 bails, fingerprint-equal to the host engine on the CPU;
+   signatures) from the first carry, from a mid-scan carry and at S = 1
+   (the headroom launch's new-node tables included); the host's enqueue
+   of the G steps without a synchronise beside the card's span; then
+   ``CUDASolver()`` solves config 7 on the pruned kernels (one warm-up,
+   timed rounds, counters set to 0 just before and read just after)
+   with 0 bails, fingerprint-equal to the host engine on the CPU;
    a forced S = 1 solve must bail and be re-solved on the card with
    every slot selected (``reason="pruned_bail"``), fingerprint-equal;
 9. the batch path: ``CUDASolver().solve_batch`` on
    ``examples.batch_snapshots`` at B = 8 and 64 (Gp = 128, so F = 4), one
    fused ``_dispatch_many`` of 1 + 2*Gp/4 + 1 launches each, every lane's
    output row byte-equal to its single solve on the card and to the
-   plain versions;
+   plain versions; both K5 kernels block by block on the batch's lanes
+   at the cluster size the dispatch takes (every block at B = 8, the
+   first four at B = 64);
 11. the topology path (run before phase 10, so that its launches and its
    kernels join phase 10's records): every topology group's
    ``topo_group_start`` and ``topo_pour`` and every other group's
@@ -95,7 +99,8 @@ Phases (any failure exits non-zero before the result line):
    (``examples.striped_cluster``: 50,000 pods over 500 signatures, each
    pinned to one of five family NodePools; Gp = 512, F = 4) through
    ``CUDASolver(incremental=False)``: both K5 kernels block by block
-   against their plain parts on the solver's arena, then one warm-up and
+   against their plain parts on the solver's arena (the commit on the
+   cluster size a single solve takes), then one warm-up and
    timed solves (counters set to 0 just before and read just after) of
    1 + 2*128 + 1 launches with 22+ vectorized blocks, fingerprint-equal
    to the card's solve at ``dev_fuse = 1`` and to the plain versions on
@@ -217,11 +222,13 @@ C7_PODS = 50_000
 C7_SIGS = 10_000
 C7_ROUNDS = 3
 C7_WINDOW = 512
+C7_ENQUEUE_STEPS = 64
 
 #: the batch path: lanes per solve_batch (examples.batch_snapshots) and
 #: timed rounds after one warm-up
 BATCH_SIZES = (8, 64)
 BATCH_ROUNDS = 5
+BATCH_CHECK_BLOCKS = 4
 
 #: the topology path: BASELINE config 3 at its published size and the
 #: timed solves after one warm-up
@@ -1017,7 +1024,8 @@ def consolidation_phase(cmp=None, device=None, fleet=C4_FLEET,
 def check_pruned_window(label, inp, carry, g0, steps, st, S, cmp,
                         keep=()):
     """Each K6 kernel against its plain part over groups [g0, g0+steps)
-    from ``carry`` (not modified): the plain parts carry the state, and
+    from ``carry`` (not modified), the headroom launch's new-node table
+    included: the plain parts carry the state, and
     each step the kernels start from the plain carry. Returns the plain
     carry after the window and the states (g, carry) at the steps in
     ``keep`` (for the timing phase)."""
@@ -1039,11 +1047,14 @@ def check_pruned_window(label, inp, carry, g0, steps, st, S, cmp,
         cmp("ffd_pruned_select", ps.sel, sel, f"{label} g={g} sel")
         cmp("ffd_pruned_select", ps.cnt, cnt, f"{label} g={g} cnt")
         cand_s, k_s = ft._pruned_headroom_ref(inp, carry, g, sel)
+        tab = ft._new_node_table_ref(inp, g, P=P, cap_row=True)
         fc.ffd_pruned_headroom(ps, g)
         cmp("ffd_pruned_headroom", ps.cand, cand_s, f"{label} g={g} cand")
         cmp("ffd_pruned_headroom", ps.ks, k_s, f"{label} g={g} ks")
+        for nm, got, want in zip(ft.NewNodeTable._fields, ps.table(), tab):
+            cmp("ffd_pruned_headroom", got, want, f"{label} g={g} {nm}")
         carry, take, n_rem = ft._pruned_commit_ref(
-            inp, carry, g, sel, cnt, cand_s, k_s, E=E, P=P, S=S)
+            inp, carry, g, sel, cnt, cand_s, k_s, tab, E=E, P=P, S=S)
         fc.ffd_pruned_commit(ps, g)
         for f, got, want in zip(ft.CarryP._fields, ps.carry, carry):
             cmp("ffd_pruned_commit", got, want, f"{label} g={g} {f}")
@@ -1096,7 +1107,7 @@ def g_axis_phase(cmp, device=None, n_pods=C7_PODS, n_sigs=C7_SIGS,
     S = min(solver.dev_pruned_slots, N)
     log(f"[config7] {n_pods} pods, {len(enc.groups)} signatures, built in "
         f"{build_s:.2f} s; statics {st}, S {S}, arena {buf.size} words")
-    states, plain_bail = [], None
+    states, plain_bail, enqueue = [], None, None
     if solver.device.type == "cuda":
         inp = ft._packed_inputs_ref(torch.from_numpy(buf).to(solver.device),
                                     T, D, Z, C, G, E, P, 0, 0, 0)
@@ -1124,6 +1135,40 @@ def g_axis_phase(cmp, device=None, n_pods=C7_PODS, n_sigs=C7_SIGS,
             f"the first carry and from group {g_mid} (S={S}), and from the "
             f"first carry at S=1 (bail after the window: {plain_bail}); "
             f"checks {dict((k, cmp.checks[k]) for k in KERNELS if 'pruned' in k)}")
+        # the host's enqueue of the G steps (three ctypes launches a step,
+        # no synchronise) beside the span the card takes for them; then
+        # the host's own cost a step, the first C7_ENQUEUE_STEPS enqueued
+        # behind a sleep kernel, so that a full launch queue never blocks
+        # the host and the card never paces it
+        ps = fc.PrunedState(inp, ft.carry0_pruned(inp, N, E), E=E, P=P,
+                            S=S)
+
+        def steps(n):
+            t0 = time.perf_counter()
+            for g in range(n):
+                fc.ffd_pruned_select(ps, g)
+                fc.ffd_pruned_headroom(ps, g)
+                fc.ffd_pruned_commit(ps, g)
+            return (time.perf_counter() - t0) * 1e6 / n
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        loop_us = steps(G)
+        ev[1].record()
+        torch.cuda.synchronize()
+        for dst, src in zip(ps.carry, ft.carry0_pruned(inp, N, E)):
+            dst.copy_(src)
+        torch.cuda._sleep(200_000_000)
+        host_us = steps(C7_ENQUEUE_STEPS)
+        torch.cuda.synchronize()
+        enqueue = dict(loop_us_per_step=loop_us,
+                       span_us_per_step=ev[0].elapsed_time(ev[1]) * 1e3 / G,
+                       host_us_per_step=host_us, steps=G,
+                       host_steps=C7_ENQUEUE_STEPS)
+        log(f"[config7] the {G} steps enqueued at {loop_us:.2f} us a step, "
+            f"the card's span {enqueue['span_us_per_step']:.2f} us a step; "
+            f"the host alone (behind a sleep kernel, {C7_ENQUEUE_STEPS} "
+            f"steps) {host_us:.2f} us a step")
         del inp, ps, c0, fin
 
     fc.reset_launches()
@@ -1194,7 +1239,7 @@ def g_axis_phase(cmp, device=None, n_pods=C7_PODS, n_sigs=C7_SIGS,
                    bails=sum(d["bails"] for d in stats),
                    slot_bucket=stats[-1]["slot_bucket"], groups=G,
                    signatures=len(enc.groups), host_engine_ms=host_ms,
-                   cold=cold,
+                   cold=cold, enqueue=enqueue,
                    s1=dict(kernel=d1["kernel"], reason=d1["reason"],
                            bails=d1["bails"], wall_ms=s1_ms,
                            commit_launches=d1["launches"][
@@ -1280,11 +1325,12 @@ def batch_phase(cmp, device=None, sizes=BATCH_SIZES, rounds=BATCH_ROUNDS,
         bufs, statics, rows = calls[-1]
         T, D, Z, C, G, E, P = (statics[k] for k in "T D Z C G E P".split())
         d_bufs = torch.from_numpy(np.stack(bufs)).to(solver.device)
-        outs, indep = [], []
+        outs, indep, per = [], [], []
         for b in range(B):
             one = ft.solve_scan_packed1(d_bufs[b], **statics).cpu().numpy()
             inp = ft._packed_inputs_ref(d_bufs[b], T, D, Z, C, G, E, P, 0, 0,
                                         0, statics["F"])
+            per.append(inp)
             indep.append(ft.block_indep(inp.fuse, statics["F"]))
             outs.append(ft._solve_fused_ref(inp, statics["n_max"], E, P,
                                             statics["F"]))
@@ -1298,19 +1344,34 @@ def batch_phase(cmp, device=None, sizes=BATCH_SIZES, rounds=BATCH_ROUNDS,
             raise AssertionError(f"B={B}: lanes with equal rows")
         indep = torch.stack(indep)
         k1 = k1_lane_state(d_bufs, statics, outs)
+        cluster = None
         if solver.device.type == "cuda":
             check_k1_lanes(B, k1, cmp)
+            # both K5 kernels block by block on the batch's lanes, at the
+            # cluster size the dispatch took (every block at B = 8, the
+            # first BATCH_CHECK_BLOCKS at B = 64)
+            stacked = ft.KernelInputs(*[None if f[0] is None else
+                                        torch.stack(f) for f in zip(*per)])
+            _, _, cluster = check_fused_blocks(
+                f"batch B={B}", stacked, statics, cmp, lanes=B,
+                blocks=None if B <= 8 else BATCH_CHECK_BLOCKS)
+            if cluster != fc.fused_cluster(B, Fu, P, statics["D"],
+                                           E + statics["n_max"]):
+                raise AssertionError("the check's cluster size is not the "
+                                     "dispatch's")
         summaries[B] = dict(
             p50_ms=statistics.median(times), p99_ms=pct(times, 0.99),
             single_p50_ms=statistics.median(stimes), rounds=rounds,
             groups=Gp, slot_bucket=statics["n_max"], fuse=Fu,
+            cluster=cluster,
             fused_blocks=ld["fused_blocks"], seq_blocks=ld["seq_blocks"],
             lanes_vectorized_per_block=indep.sum(0).tolist(),
             launches_per_batch=lw)
         all_launches[B] = launches
         arenas[B] = (k1, statics)
         log(f"[batch] B={B}: solve_batch p50 {summaries[B]['p50_ms']:.3f} "
-            f"ms p99 {summaries[B]['p99_ms']:.3f} ms vs {B} single solves "
+            f"ms p99 {summaries[B]['p99_ms']:.3f} ms (commit cluster "
+            f"{cluster}) vs {B} single solves "
             f"p50 {summaries[B]['single_p50_ms']:.3f} ms; one fused "
             f"dispatch of {lw} launches ({ld['fused_blocks']} vectorized "
             f"blocks a lane on average, lanes vectorized per block "
@@ -1745,16 +1806,19 @@ def lane_inputs(inp, b):
     return type(inp)(*[None if f is None else f[b] for f in inp])
 
 
-def check_fused_blocks(label, inp, st, cmp, lanes=None, keep=()):
+def check_fused_blocks(label, inp, st, cmp, lanes=None, keep=(),
+                       cluster=None, blocks=None):
     """Both K5 kernels block by block against their plain parts, from the
-    plain block-start carry of every lane: each group's candidates and
-    headroom after ``ffd_fused_headroom`` (copied out before the commit,
-    which turns k into takes and rewrites a sequential block's rows), the
-    block's carry, takes and leftover after ``ffd_fused_commit``.
-    ``inp`` is the arena's KernelInputs on the card (lane axis when
-    ``lanes``). Returns (the
-    final plain carries, the block-start states of the blocks in
-    ``keep``: (g0, carry, branch) of lane 0, for the timing phase)."""
+    plain block-start carry of every lane: each group's candidates,
+    headroom and new-node tables after ``ffd_fused_headroom`` (copied out
+    before the commit, which turns k into takes and rewrites a sequential
+    block's rows), the block's carry, takes and leftover after
+    ``ffd_fused_commit`` on ``cluster`` CTAs a lane (None: the card's
+    rule). ``inp`` is the arena's KernelInputs on the card (lane axis when
+    ``lanes``); ``blocks`` limits the check to the first blocks. Returns
+    (the final plain carries, the block-start states of the blocks in
+    ``keep``: (g0, carry, branch) of lane 0, for the timing phase, the
+    cluster size)."""
     import torch
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
     from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
@@ -1764,13 +1828,13 @@ def check_fused_blocks(label, inp, st, cmp, lanes=None, keep=()):
                                        for b in range(L)]
     carries = [ft.carry0(x, N, E) for x in per]
     fs = fc.FusedState(inp, ft.carry0(inp, N, E, lanes=lanes), E=E, P=P,
-                       Fu=Fu, lanes=lanes)
+                       Fu=Fu, lanes=lanes, cluster=cluster)
     indep = [ft.block_indep(x.fuse, Fu).tolist() for x in per]
 
     def lane(t, b):
         return t if lanes is None else t[b]
     kept = []
-    for g0 in range(0, st["G"], Fu):
+    for g0 in range(0, st["G"] if blocks is None else blocks * Fu, Fu):
         bi = g0 // Fu
         for b in range(L):
             for dst, src in zip(fs.carry, carries[b]):
@@ -1780,22 +1844,26 @@ def check_fused_blocks(label, inp, st, cmp, lanes=None, keep=()):
                          indep[0][bi]))
         fc.ffd_fused_headroom(fs, g0)
         got_cand, got_k = fs.block_cand().clone(), fs.block_k().clone()
+        got_tab = [t.clone() for t in fs.block_table()]
         fc.ffd_fused_commit(fs, g0)
         for b in range(L):
             cand, k = ft._fused_headroom_ref(per[b], carries[b], g0, Fu, E=E,
                                              P=P)
+            tab = ft._fused_table_ref(per[b], g0, Fu, P=P)
             what = f"{label} lane {b} block {bi}"
             cmp("ffd_fused_headroom", lane(got_cand, b), cand, f"{what} cand")
             cmp("ffd_fused_headroom", lane(got_k, b), k, f"{what} k")
+            for nm, got, want in zip(ft.NewNodeTable._fields, got_tab, tab):
+                cmp("ffd_fused_headroom", lane(got, b), want, f"{what} {nm}")
             carries[b], takes, lefts = ft._fused_block_ref(
-                per[b], carries[b], g0, Fu, indep[b][bi], E=E, P=P)
+                per[b], carries[b], g0, Fu, indep[b][bi], tab, E=E, P=P)
             for f, got, want in zip(ft.Carry._fields, fs.carry, carries[b]):
                 cmp("ffd_fused_commit", lane(got, b), want, f"{what} {f}")
             cmp("ffd_fused_commit", lane(fs.takes, b)[g0:g0 + Fu], takes,
                 f"{what} takes")
             cmp("ffd_fused_commit", lane(fs.leftover, b)[g0:g0 + Fu], lefts,
                 f"{what} leftover")
-    return carries, kept
+    return carries, kept, fs.cluster
 
 
 def fused_arena(arrays_list, st, dev):
@@ -1822,9 +1890,10 @@ def fused_arena(arrays_list, st, dev):
 def check_fused_cases(cmp, dev):
     """Phase 3's K5 checks: every ``examples.FUSED_CASES`` arena (at its
     own width, and "striped" at the catalog's 812 types) block by block
-    without a lane axis and the whole packed solve against the plain
-    one; then the lane axis with one lane and with three lanes whose
-    blocks branch differently. Returns the number of arenas checked."""
+    without a lane axis, the commit on 1, 2 and 8 CTAs, and the whole
+    packed solve against the plain one; then the lane axis with one lane
+    and with three lanes whose blocks branch differently. Returns the
+    number of arenas checked."""
     import numpy as np
     import torch
     from karpenter_provider_aws_tpu_torch import examples
@@ -1836,7 +1905,9 @@ def check_fused_cases(cmp, dev):
         label = f"{name}{'-812' if kw else ''} F={st['F']}"
         bufs, inp = fused_arena([arrays], st, dev)
         one = lane_inputs(inp, 0)
-        check_fused_blocks(label, one, st, cmp)
+        for cs in (1, 2, 8):
+            check_fused_blocks(f"{label} cluster={cs}", one, st, cmp,
+                               cluster=cs)
         whole = ft.solve_scan_packed1(bufs[0], **examples.solve_statics(st))
         plain = ft._pack_outputs_ref(*ft._solve_fused_ref(
             one, st["n_max"], st["E"], st["P"], st["F"]))
@@ -1940,7 +2011,7 @@ def fused_phase(cmp, device=None, n_pods=S13_PODS, n_sigs=S13_SIGS,
         f"{per_solve}")
     unfused = CUDASolver(device=device, incremental=False)
     unfused.dev_fuse = 1
-    states = None
+    states, cluster = None, None
     if on_card:
         d_buf = torch.from_numpy(buf).to(solver.device)
         inp = ft._packed_inputs_ref(d_buf, *(st[k] for k in
@@ -1948,7 +2019,8 @@ def fused_phase(cmp, device=None, n_pods=S13_PODS, n_sigs=S13_SIGS,
         ind = ft.block_indep(inp.fuse, st["F"]).tolist()
         keep = [b for b, v in enumerate(ind) if v][:4] + \
             [b for b, v in enumerate(ind) if not v][:4]
-        _, kept = check_fused_blocks("striped", inp, st, cmp, keep=keep)
+        _, kept, cluster = check_fused_blocks("striped", inp, st, cmp,
+                                              keep=keep)
         out = ft.solve_scan_packed1(d_buf, **examples.solve_statics(st))
         plain = ft._pack_outputs_ref(*ft._solve_fused_ref(
             inp, st["n_max"], st["E"], st["P"], st["F"]))
@@ -1959,8 +2031,9 @@ def fused_phase(cmp, device=None, n_pods=S13_PODS, n_sigs=S13_SIGS,
                   dict(st1, n_max=st["n_max"]))
         torch.cuda.synchronize()
         log(f"[striped] K5 kernels == plain parts block by block on the "
-            f"solver's arena ({blocks} blocks); the packed solve == the "
-            f"plain packed solve on the card")
+            f"solver's arena ({blocks} blocks, the commit on a cluster of "
+            f"{cluster} CTAs); the packed solve == the plain packed solve "
+            f"on the card")
     if unfused.solve(snap).decision_fingerprint() != \
             res.decision_fingerprint():
         raise AssertionError("fused decisions differ from the unfused "
@@ -2018,7 +2091,7 @@ def fused_phase(cmp, device=None, n_pods=S13_PODS, n_sigs=S13_SIGS,
         rounds=rounds, split_ms={k: splits[k] for k in (
             "group_ms", "encode_ms", "kernel_ms", "decode_ms")},
         groups=st["G"], slot_bucket=st["n_max"], fuse=ds["fuse"],
-        scan_steps=blocks, fused_blocks=ds["fused_blocks"],
+        cluster=cluster, scan_steps=blocks, fused_blocks=ds["fused_blocks"],
         seq_blocks=ds["seq_blocks"], launches_per_solve=per_solve,
         plain_cpu_s=plain_s,
         existing=dict(p50_ms=statistics.median(walls_ex),
@@ -2027,7 +2100,8 @@ def fused_phase(cmp, device=None, n_pods=S13_PODS, n_sigs=S13_SIGS,
         ticks=dict(p50_ms=statistics.median(tick_walls),
                    p99_ms=pct(tick_walls, 0.99), count=ticks))
     log(f"[striped] solve p50 {summary['p50_ms']:.3f} ms p99 "
-        f"{summary['p99_ms']:.3f} ms over {rounds}; split "
+        f"{summary['p99_ms']:.3f} ms over {rounds} (commit cluster "
+        f"{cluster}); split "
         f"{json.dumps(summary['split_ms'])}; fingerprint == dev_fuse=1 on "
         f"{solver.device} and == plain versions on the CPU "
         f"({plain_s:.1f} s)")
@@ -2974,8 +3048,10 @@ def k6_times(c7, launches):
         restore()
         sel, cnt = ft._pruned_select_ref(inp, carry, g, E=E, P=P, S=S)
         cand_s, k_s = ft._pruned_headroom_ref(inp, carry, g, sel)
-        nxt, take, _ = ft._pruned_commit_ref(inp, carry, g, sel, cnt,
-                                             cand_s, k_s, E=E, P=P, S=S)
+        nxt, take, _ = ft._pruned_commit_ref(
+            inp, carry, g, sel, cnt, cand_s, k_s,
+            ft._new_node_table_ref(inp, g, P=P, cap_row=True), E=E, P=P,
+            S=S)
         n_sel = int(cnt[0])
         # the rows the select's type screen reads: open, admitted, alive,
         # bound-positive, with a zone and a capacity-type overlap
@@ -2989,6 +3065,7 @@ def k6_times(c7, launches):
                         & (qb.amin(-1) > 0)
                         & (carry.zones & inp.agz[g]).any(1)
                         & (carry.ct & inp.agc[g]).any(1)).sum())
+        tab = ft._new_node_table_ref(inp, g, P=P, cap_row=True)
         fc.ffd_pruned_select(ps, g)
         acc["ffd_pruned_select"].append((
             time_launches(lambda: fc.ffd_pruned_select(ps, g)),
@@ -2999,33 +3076,47 @@ def k6_times(c7, launches):
             N * D + screened * T))
         acc["ffd_pruned_headroom"].append((
             time_launches(lambda: fc.ffd_pruned_headroom(ps, g)),
-            time_launches(lambda: ft._pruned_headroom_ref(
-                inp, carry, g, sel), reps=10),
+            time_launches(lambda: (ft._pruned_headroom_ref(
+                inp, carry, g, sel), ft._new_node_table_ref(
+                    inp, g, P=P, cap_row=True)), reps=10),
+            # the selected rows; the catalog, F, offerings, pool tables and
+            # daemon rows once; writes: the candidate rows and headrooms,
+            # the table (candn, hrn, caps, cap_hint rows)
             n_sel * (T + D * 8 + Z + C + 4) + T * D * 8 + T + T * Z * C
-            + D * 8 + Z + C + S * T + S * 8 + 4,
-            int(cand_s.sum()) * D + n_sel * T * Z * C))
+            + D * 8 + Z + C + P * (T + Z + C + D * 8) + S * T + S * 8 + 4
+            + P * (9 * T + 8 + D * 8),
+            int(cand_s.sum()) * D + n_sel * T * Z * C
+            + P * T * (2 * D + Z * C)))
 
-        def setup(restore=restore, sel=sel, cnt=cnt, cand_s=cand_s,
-                  k_s=k_s):
-            restore()
+        def setup(ps=ps, carry=carry, sel=sel, cnt=cnt, cand_s=cand_s,
+                  k_s=k_s, tab=tab):
+            for dst, src in zip(ps.carry, carry):
+                dst.copy_(src)
             ps.sel.copy_(sel)
             ps.cnt.copy_(cnt)
             ps.cand.copy_(cand_s)
             ps.ks.copy_(k_s)
+            for dst, src in zip(ps.table(), tab):
+                dst.copy_(src)
         n_take = int((take[E:] > 0).sum())
-        new = int(nxt.num_nodes) - int(carry.num_nodes)
+        opened = (carry.pool == -1) & (nxt.pool >= 0)
+        new = int(opened.sum())
+        newp = len(set(nxt.pool[opened].tolist()))
+        # k (the selection, the existing rows), used (read + write), pool,
+        # A for the takers' fit, the takers' candidate rows, the table's
+        # caps and cap_hint rows and the opened pools' rows, pool limits
+        # and usage, the narrowed and new rows, takes, leftover
+        nbytes = (2 * N * 8 + S * 12 + E * D * 8 + 2 * N * D * 8 + N * 4
+                  + (T * D * 8 if n_take else 0) + 2 * n_take * T
+                  + P * (8 + D * 8) + newp * 9 * T + 3 * P * D * 8
+                  + new * (T + Z + C + 2 * D * 8 + 5) + N * 4 + 8)
+        ops = n_take * T * D + new * T + 4 * N + P * D
         acc["ffd_pruned_commit"].append((
             time_launches(lambda: fc.ffd_pruned_commit(ps, g), setup=setup),
             time_launches(lambda: ft._pruned_commit_ref(
-                inp, carry, g, sel, cnt, cand_s, k_s, E=E, P=P, S=S),
+                inp, carry, g, sel, cnt, cand_s, k_s, tab, E=E, P=P, S=S),
                 reps=10),
-            # k, used (read + write), pool, A, F/pool_types/offerings,
-            # pool budgets, the selection, the narrowed and new rows,
-            # takes, leftover
-            2 * N * 8 + 2 * N * D * 8 + N * 4 + T * D * 8
-            + T * (2 + Z * C) + 2 * P * D * 8 + n_sel * (T + 12)
-            + n_take * T + new * (T + Z + C + D * 8 + 5) + N * 4 + 8,
-            n_take * T * D + P * T * (D + Z * C) + 4 * N + new * T * D))
+            nbytes, ops))
     out = []
     for name, rows in acc.items():
         ms, pms, nbytes, ops = (statistics.fmean(r[i] for r in rows)
@@ -3185,6 +3276,8 @@ def k5_times(states, mix, launches):
     T, D, Z, C, E, P, Fu = (st[k] for k in "T D Z C E P F".split())
     N = E + st["n_max"]
     fs = fc.FusedState(inp, ft.carry0(inp, N, E), E=E, P=P, Fu=Fu)
+    log(f"[time] K5 at the striped cluster's blocks: the commit on a "
+        f"cluster of {fs.cluster} CTAs")
     acc = {(k, v): [] for k in ("ffd_fused_headroom", "ffd_fused_commit")
            for v in (True, False)}
     for g0, carry, vec in kept:
@@ -3194,25 +3287,30 @@ def k5_times(states, mix, launches):
         restore()
         fc.ffd_fused_headroom(fs, g0)
         cand, k = fs.cand.clone(), fs.k.clone()
-        nxt, takes, _ = ft._fused_block_ref(inp, carry, g0, Fu, vec, E=E,
-                                            P=P)
+        tab = ft._fused_table_ref(inp, g0, Fu, P=P)
+        nxt, takes, _ = ft._fused_block_ref(inp, carry, g0, Fu, vec, tab,
+                                            E=E, P=P)
         pcand, _ = ft._fused_headroom_ref(inp, carry, g0, Fu, E=E, P=P)
         n_cand = int(pcand.sum())
         acc[("ffd_fused_headroom", vec)].append((
             time_launches(lambda: fc.ffd_fused_headroom(fs, g0),
                           setup=restore),
-            time_launches(lambda: ft._fused_headroom_ref(
-                inp, carry, g0, Fu, E=E, P=P), reps=5),
+            time_launches(lambda: (ft._fused_headroom_ref(
+                inp, carry, g0, Fu, E=E, P=P), ft._fused_table_ref(
+                    inp, g0, Fu, P=P)), reps=5),
             # read once: types, used, zones, ct, pool, alive, the catalog
-            # (A, offerings), each group's F, admit, R, zone/ct masks and
-            # existing-compat row, the existing allocatable; write: the Fu
-            # candidate rows and headrooms
+            # (A, offerings), each group's F, admit, R, zone/ct masks,
+            # daemon rows and existing-compat row, the pool tables, the
+            # existing allocatable; write: the Fu candidate rows and
+            # headrooms, the Fu x P tables (candn, hrn, caps)
             N * T + N * D * 8 + N * (Z + C + 5) + T * D * 8 + T * Z * C
-            + Fu * (T + P + D * 8 + Z + C + E) + E * D * 8
-            + Fu * N * T + Fu * N * 8,
+            + Fu * (T + P + D * 8 + Z + C + E + P * D * 8)
+            + P * (T + Z + C) + E * D * 8
+            + Fu * N * T + Fu * N * 8 + Fu * P * (9 * T + 8),
             # one quotient per (candidate cell, dim), one offering test per
-            # (slot, type, zone, capacity type), per group
-            n_cand * D + Fu * N * T * Z * C))
+            # (slot, type, zone, capacity type), per group; the tables' per
+            # (group, pool, type)
+            n_cand * D + Fu * N * T * Z * C + Fu * P * T * (D + Z * C)))
 
         def setup(restore=restore, cand=cand, k=k):
             restore()
@@ -3220,23 +3318,27 @@ def k5_times(states, mix, launches):
             fs.k.copy_(k)
         touched = int((nxt.types != carry.types).any(dim=1).sum()) \
             + int((takes > 0).sum())
-        # read: k, the filled rows' candidates, pool, used, the catalog
-        # (A, F of each group, pool types, offerings), pool tables,
+        opened = (carry.pool == -1) & (nxt.pool >= 0)
+        new = int(opened.sum())
+        newp = len(set(nxt.pool[opened].tolist()))
+        # read: k, the filled rows' candidates, pool, used, A, the
+        # tables' caps and the opened pools' rows, pool limits and usage,
         # daemon, R; write: used, the touched type rows, zones/ct, pool,
         # takes, leftover. A sequential block also recomputes groups
-        # 1..Fu-1's headroom over N x T (its operations; its reads are
-        # the carry's, counted once)
+        # 1..Fu-1's headroom over N x T (its operations, and F and the
+        # offerings; its other reads are the carry's, counted once)
         nbytes = (Fu * N * 8 + touched * T + N * 4 + 2 * N * D * 8
-                  + T * D * 8 + T * (Fu + 1 + Z * C) + 2 * P * D * 8
+                  + T * D * 8 + 3 * P * D * 8 + Fu * P * 8 + newp * 9 * T
                   + Fu * P * D * 8 + Fu * D * 8 + touched * (T + Z + C)
-                  + Fu * N * 4 + Fu * 8)
-        ops = touched * T * D + Fu * P * T * (D + Z * C) + 4 * N * Fu
+                  + Fu * N * 4 + Fu * 8
+                  + (0 if vec else T * (Fu + Z * C)))
+        ops = touched * T * D + new * T + 4 * N * Fu + Fu * P * D
         if not vec:
             ops += (Fu - 1) * (n_cand // Fu * D + N * T * Z * C)
         acc[("ffd_fused_commit", vec)].append((
             time_launches(lambda: fc.ffd_fused_commit(fs, g0), setup=setup),
             time_launches(lambda: ft._fused_block_ref(
-                inp, carry, g0, Fu, vec, E=E, P=P), reps=5),
+                inp, carry, g0, Fu, vec, tab, E=E, P=P), reps=5),
             nbytes, ops))
     out, per_branch = [], {}
     w = {True: mix[0] / (mix[0] + mix[1]), False: mix[1] / (mix[0] + mix[1])}
@@ -3918,11 +4020,37 @@ def main() -> int:
     log(f"[time] config 7 pruned solve: device ms from the per-launch times "
         f"x launches per solve {c7_dev:.3f} (wall p50 {c7['p50_ms']:.3f}); "
         f"summary {json.dumps(c7)}")
+    step = {k: per[k] * 1e3 for k in ("ffd_pruned_select",
+                                      "ffd_pruned_headroom",
+                                      "ffd_pruned_commit")}
+    enq = c7["enqueue"]
+    pacer = "host" if enq["host_us_per_step"] > sum(step.values()) \
+        else "card"
+    log(f"[time] config 7 step: {json.dumps(step)} us, "
+        f"{sum(step.values()):.2f} us of kernels a step; the host alone "
+        f"enqueues a step in {enq['host_us_per_step']:.2f} us, the loop of "
+        f"G steps ran at {enq['loop_us_per_step']:.2f} us a step and the "
+        f"card spanned {enq['span_us_per_step']:.2f} us a step: paced by "
+        f"the {pacer}")
     for B, (k1, statics) in batch_arenas.items():
         dev_ms = solve_device_ms(lambda: ft.solve_scan_packed1_many(
             k1[0], **statics), reps=5)
         log(f"[time] batch B={B}: one solve_scan_packed1_many device ms "
             f"{dev_ms:.3f}; summary {json.dumps(batch[B])}")
+        # the same dispatch with the commit's cluster size forced, beside
+        # the rule's: the outputs must not move
+        want = ft.solve_scan_packed1_many(k1[0], **statics)
+        by_cs = {}
+        for cs in (1, 2, 4, 8):
+            def forced(cs=cs):
+                return fc.solve_scan_packed1_many_cuda(k1[0], **statics,
+                                                       cluster=cs)
+            if not torch.equal(forced(), want):
+                raise AssertionError(f"B={B}: cluster {cs} changed the "
+                                     "outputs")
+            by_cs[cs] = solve_device_ms(forced, reps=5)
+        log(f"[time] batch B={B}: device ms by the commit's cluster size "
+            f"{json.dumps(by_cs)} (the rule's: {batch[B]['cluster']})")
     c3_dev = sum(per[k] * n for k, n in c3["launches_per_solve"].items()
                  if n and k in per)
     inp3, rows3, st3, _ = c3_states

@@ -1,6 +1,7 @@
 // The steps of one FFD group fill as device functions, shared by the K2
-// kernels (ffd_scan.cu), the fused block kernels (fused.cu) and the
-// per-rank kernels of the sharded scan (mesh.cu).
+// kernels (ffd_scan.cu), the fused block kernels (fused.cu), the pruned
+// scan's kernels (pruned.cu) and the per-rank kernels of the sharded scan
+// (mesh.cu).
 //
 // Each function reads the group's scratch through the FfdArgs it is
 // given: cand [N, T] and k [N] (headroom, then take). A caller that keeps
@@ -80,16 +81,17 @@ __device__ __forceinline__ void slot_headroom_block(const FfdArgs& a, i64 g,
     if (threadIdx.x == 0) a.k[s] = k;
 }
 
-// Steps 1-3 of group g for every slot on one block, one warp per slot
-// (no minValues floors: K == 0). The same cand and k as
-// slot_headroom_block; the caller puts a barrier before reading them.
-__device__ __forceinline__ void slot_headroom_warps(const FfdArgs& a,
-                                                    i64 g) {
+// Steps 1-3 of group g for the slots [lo, hi) on one block, one warp per
+// slot (no minValues floors: K == 0), into the group's rows cand [N, T]
+// and k [N]; the caller puts a barrier before reading them.
+__device__ __forceinline__ void slot_headroom_warps(const FfdArgs& a, i64 g,
+                                                    u8* cand, i64* k,
+                                                    i64 lo, i64 hi) {
     const i64 T = a.T, D = a.D, P = a.P;
     const i64* R = a.R + g * D;
     const int wl = threadIdx.x & 31;
     const int nwarps = blockDim.x >> 5;
-    for (i64 s = threadIdx.x >> 5; s < a.N; s += nwarps) {
+    for (i64 s = lo + (threadIdx.x >> 5); s < hi; s += nwarps) {
         const i64* used = a.used + s * D;
         const int pool = a.pool[s];
         const i64 pc = pool < 0 ? 0 : (pool > P - 1 ? P - 1 : pool);
@@ -98,7 +100,7 @@ __device__ __forceinline__ void slot_headroom_warps(const FfdArgs& a,
         for (i64 t = wl; t < T; t += 32) {
             bool c = adm_open && a.types[s * T + t] && a.F[g * T + t]
                 && offering_ok(a, g, s, t);
-            a.cand[s * T + t] = c;
+            cand[s * T + t] = c;
             if (c) {
                 i64 hr = headroom(a.A + t * D, used, R, D);
                 kmax = hr > kmax ? hr : kmax;
@@ -112,7 +114,7 @@ __device__ __forceinline__ void slot_headroom_warps(const FfdArgs& a,
             if (s < a.E)
                 kmax = (a.alive[s] && a.ex_compat[g * a.E + s])
                     ? headroom(a.ex_alloc + s * D, used, R, D) : 0;
-            a.k[s] = kmax;
+            k[s] = kmax;
         }
     }
 }
@@ -391,4 +393,525 @@ __device__ __forceinline__ void commit_outputs(const FfdArgs& a, i64 g,
     for (i64 s = threadIdx.x; s < a.N; s += blockDim.x)
         a.takes[(g - a.G0) * a.N + s] = (int)a.k[s];
     if (threadIdx.x == 0) a.leftover[g - a.G0] = n_rem;
+}
+
+// ---------------------------------------------------------------------------
+// The new-node table (the fused and pruned scans, no minValues floors)
+// ---------------------------------------------------------------------------
+//
+// What step 7 reads that no carry changes: for group g and pool pi, the
+// fresh-node candidates candn [T], their headroom hrn [T] over the
+// daemon overhead (0 elsewhere), the cap (the max of hrn) and, for the
+// pruned scan, the opened rows' cap_hint row (the candidates' column max
+// of A, 0-floored). The wide launch before each commit writes it, with
+// table_blocks(T) blocks per (group, pool), each over kTableTypes types
+// and each writing its partial cap and cap_hint row (the max over the
+// partials is the table's, as every chunk holds a type); the commit's
+// step 7 is then its scalars (one thread's walk over the pools) and one
+// parallel pass over the opened rows, with no T-pass and no reduction
+// over types.
+
+// Words of new_node_scalars' output for P pools: the first opened slot,
+// the number opened, then (q, start, last, cap) per pool.
+__host__ __device__ __forceinline__ i64 nn_words(i64 P) { return 2 + 4 * P; }
+
+// Types a table block covers, and the table blocks of one (group, pool).
+constexpr i64 kTableTypes = 256;
+__host__ __device__ __forceinline__ i64 table_blocks(i64 T) {
+    return (T + kTableTypes - 1) / kTableTypes;
+}
+
+// Chunk c of the table of group g, pool pi on one block: candn/hrn over
+// the chunk's types, the partial cap *cap and, when cap_row is non-null,
+// the partial cap_hint row cap_row [D]. `red` holds 33 shared entries,
+// `colmax` D (only with cap_row).
+__device__ __forceinline__ void new_node_table_block(const FfdArgs& a, i64 g,
+                                                     i64 pi, i64 c, u8* candn,
+                                                     i64* hrn, i64* cap,
+                                                     i64* cap_row, i64* red,
+                                                     long long* colmax) {
+    constexpr i64 kMin = -9223372036854775807LL - 1;
+    const i64 T = a.T, D = a.D;
+    const i64 t0 = c * kTableTypes;
+    const i64 t1 = t0 + kTableTypes < T ? t0 + kTableTypes : T;
+    const i64* R = a.R + g * D;
+    const i64* dmn = a.daemon + (g * a.P + pi) * D;
+    if (cap_row)
+        for (i64 d = threadIdx.x; d < D; d += blockDim.x) colmax[d] = kMin;
+    i64 kmax = 0;
+    for (i64 t = t0 + threadIdx.x; t < t1; t += blockDim.x) {
+        const bool ok = new_node_cand(a, g, pi, t);
+        const i64 hr = ok ? headroom(a.A + t * D, dmn, R, D) : 0;
+        candn[t] = ok;
+        hrn[t] = hr;
+        kmax = hr > kmax ? hr : kmax;
+    }
+    const i64 m = block_max(kmax, red);   // its barriers order colmax's init
+    if (threadIdx.x == 0) *cap = m;
+    if (!cap_row) return;
+    for (i64 d0 = 0; d0 < D; d0 += 8) {   // eight columns a pass
+        i64 v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = kMin;
+        for (i64 t = t0 + threadIdx.x; t < t1; t += blockDim.x) {
+            const bool ok = candn[t];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const i64 x = d0 + j < D ? (ok ? a.A[t * D + d0 + j] : 0)
+                                         : kMin;
+                v[j] = x > v[j] ? x : v[j];
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            for (int off = 16; off > 0; off >>= 1) {
+                const i64 o = __shfl_xor_sync(0xffffffffu, v[j], off);
+                v[j] = o > v[j] ? o : v[j];
+            }
+            if ((threadIdx.x & 31) == 0 && d0 + j < D)
+                atomicMax(&colmax[d0 + j], (long long)v[j]);
+        }
+    }
+    __syncthreads();
+    for (i64 d = threadIdx.x; d < D; d += blockDim.x) cap_row[d] = colmax[d];
+}
+
+// The shared inputs and scratch of new_node_scalars for the groups
+// g0 .. g0+nf-1: pool usage pu [P, D] (updated in place), limits lim
+// [P, D], the limited-pool flags [P], the request rows rq [nf, D], admit
+// [nf, P], the caps [nf, P] (the max over the table blocks' partials),
+// the remaining counts nrem [nf], num_nodes nn [1], and a group's budgets
+// bud [P] and placed counts placed [P]. Staging them with every thread's
+// loads at once leaves the one thread that walks the pools no global load.
+struct NewNodeStage {
+    i64 *pu, *lim, *limited, *rq, *adm, *cap, *nrem, *nn, *bud, *placed;
+};
+
+__host__ __device__ __forceinline__ i64 nn_stage_words(i64 P, i64 D,
+                                                       i64 nf) {
+    return 2 * P * D + 3 * P + nf * D + 2 * nf * P + nf + 1;
+}
+
+__device__ __forceinline__ NewNodeStage nn_stage_at(i64* w, i64 P, i64 D,
+                                                    i64 nf) {
+    NewNodeStage st;
+    st.pu = w;
+    st.lim = st.pu + P * D;
+    st.limited = st.lim + P * D;
+    st.rq = st.limited + P;
+    st.adm = st.rq + nf * D;
+    st.cap = st.adm + nf * P;
+    st.nrem = st.cap + nf * P;
+    st.nn = st.nrem + nf;
+    st.bud = st.nn + 1;
+    st.placed = st.bud + P;
+    return st;
+}
+
+// Stage the new-node inputs of groups g0 .. g0+nf-1 (all threads of the
+// block; the caller puts a barrier after): pu = pool_used plus, with
+// `takes` [nf, P] (the groups' takes by pool), the sum of takes times R;
+// `capn` [nf, P, table_blocks(T)] the groups' partial caps; nrem = n minus
+// `taken` [nf] (the groups' fills). Each thread starts its loads before
+// its stores.
+__device__ __forceinline__ void nn_stage(const FfdArgs& a, i64 g0, i64 nf,
+                                         const i64* capn, const i64* takes,
+                                         const i64* taken,
+                                         const NewNodeStage& st) {
+    const i64 P = a.P, D = a.D, TB = table_blocks(a.T);
+    i64 n_all = P * D > nf * P ? P * D : nf * P;
+    n_all = n_all > nf * D ? n_all : nf * D;
+    for (i64 i = threadIdx.x; i < n_all; i += blockDim.x) {
+        i64 pu = 0, lim = 0, rq = 0, adm = 0, cap = 0, nr = 0;
+        bool has = false;
+        if (i < P * D) {
+            const int q = (int)i / (int)D, d = (int)i - q * (int)D;
+            pu = a.pool_used[i];
+            lim = __ldg(&a.pool_limit[i]);
+            if (takes)
+                for (i64 f = 0; f < nf; ++f)
+                    pu = wadd(pu, wmul(takes[f * P + q],
+                                       __ldg(&a.R[(g0 + f) * D + d])));
+        }
+        if (i < nf * D) rq = __ldg(&a.R[g0 * D + i]);
+        if (i < nf * P) {
+            adm = __ldg(&a.admit[g0 * P + i]);
+            for (i64 b = 0; b < TB; ++b) {
+                const i64 c = __ldg(&capn[i * TB + b]);
+                cap = c > cap ? c : cap;
+            }
+        }
+        if (i < P)
+            for (i64 d = 0; d < D; ++d)
+                has |= __ldg(&a.pool_limit[i * D + d]) >= 0;
+        if (i < nf) nr = wsub(__ldg(&a.n[g0 + i]), taken[i]);
+        if (i < P * D) {
+            st.pu[i] = pu;
+            st.lim[i] = lim;
+        }
+        if (i < nf * D) st.rq[i] = rq;
+        if (i < nf * P) {
+            st.adm[i] = adm;
+            st.cap[i] = cap;
+        }
+        if (i < P) st.limited[i] = has;
+        if (i < nf) st.nrem[i] = nr;
+    }
+    if (threadIdx.x == 0) st.nn[0] = a.num_nodes[0];
+}
+
+// The scalars of step 7 of the staged groups 0 .. nf-1 in order, on all
+// threads of the block: per group, every pool's budget at once (a pool's
+// budget reads only its own usage, which no other pool of the group
+// changes), then thread 0's walk over the pools (can_place, q, placed, the
+// opened run's start and last slot, num_nodes, n_rem; a negative
+// can_place places a negative count, as the reference's wrapping int64
+// does), then the placed pods' usage at once. Writes nn_words(P) words a
+// group to sc, each group's remaining count to left[f] and num_nodes to
+// st.nn (thread 0); ends at a barrier.
+__device__ __forceinline__ void new_node_scalars(const NewNodeStage& st,
+                                                 i64 nf, i64 P, i64 D, i64 N,
+                                                 i64 E, i64* sc, i64* left) {
+    for (i64 f = 0; f < nf; ++f) {
+        const i64* R = st.rq + f * D;
+        for (i64 pi = threadIdx.x; pi < P; pi += blockDim.x)
+            st.bud[pi] = st.limited[pi]
+                ? pool_budget(st.lim + pi * D, st.pu + pi * D, R, D)
+                : KARP_BIG;
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            i64 n_rem = st.nrem[f], nn = st.nn[0];
+            i64* w0 = sc + f * nn_words(P);
+            w0[0] = E + nn;
+            for (i64 pi = 0; pi < P; ++pi) {
+                const i64 cap = st.cap[f * P + pi], budget = st.bud[pi];
+                i64 can_place = 0;
+                if (st.adm[f * P + pi] && cap >= 1)
+                    can_place = n_rem < budget ? n_rem : budget;
+                i64 q = can_place > 0
+                    ? ceildiv(can_place, cap > 1 ? cap : 1) : 0;
+                const i64 free_slots = N - E - nn;
+                q = q < free_slots ? q : free_slots;
+                const i64 qc = wmul(q, cap);
+                const i64 placed = can_place < qc ? can_place : qc;
+                i64* w = w0 + 2 + 4 * pi;
+                w[0] = q;
+                w[1] = E + nn;
+                w[2] = wsub(placed, wmul(cap, q - 1));   // the last slot
+                w[3] = cap;                                 // every other
+                st.placed[pi] = placed;
+                nn += q;
+                n_rem = wsub(n_rem, placed);
+            }
+            w0[1] = E + nn - w0[0];
+            st.nn[0] = nn;
+            left[f] = n_rem;
+        }
+        __syncthreads();
+        for (i64 i = threadIdx.x; i < P * D; i += blockDim.x) {
+            const int pi = (int)i / (int)D;
+            const i64 placed = st.placed[pi];
+            if (placed)
+                st.pu[i] = wadd(st.pu[i], wmul(placed, R[i - pi * D]));
+        }
+        __syncthreads();
+    }
+}
+
+// The pods slot s takes from step 7 (0 when it was not opened), and its
+// pool in *pool.
+__device__ __forceinline__ i64 opened_pods(const i64* sc, i64 P, i64 s,
+                                           i64* pool) {
+    if (s < sc[0] || s >= sc[0] + sc[1]) return 0;
+    for (i64 pi = 0; pi < P; ++pi) {
+        const i64* w = sc + 2 + 4 * pi;
+        if (s >= w[1] && s < w[1] + w[0]) {
+            *pool = pi;
+            return s - w[1] == w[0] - 1 ? w[2] : w[3];
+        }
+    }
+    return 0;   // unreachable: the runs tile [sc[0], sc[0] + sc[1])
+}
+
+// The opened rows of step 7 of group g inside the slot window [lo, hi),
+// from new_node_scalars' output sc and the table candn/hrn [P, T] (and,
+// with cap_hint, the partial rows cap_row [P, table_blocks(T), D]): used,
+// types, zones, ct, pool, alive (and cap_hint). Threads tid of nthr
+// stride over the rows and over the (row, type) cells. k and takes are
+// the caller's (new_node_take).
+__device__ __forceinline__ void new_node_rows(const FfdArgs& a, i64 g,
+                                              const i64* sc, const u8* candn,
+                                              const i64* hrn,
+                                              const i64* cap_row,
+                                              i64* cap_hint, i64 lo, i64 hi,
+                                              int tid, int nthr) {
+    const i64 T = a.T, D = a.D, Z = a.Z, C = a.C, P = a.P;
+    const i64 s0 = sc[0] > lo ? sc[0] : lo;
+    const i64 s1 = sc[0] + sc[1] < hi ? sc[0] + sc[1] : hi;
+    if (s0 >= s1) return;
+    const i64* R = a.R + g * D;
+    for (i64 s = s0 + tid; s < s1; s += nthr) {
+        i64 pi = 0;
+        const i64 m = opened_pods(sc, P, s, &pi);
+        const i64* dmn = a.daemon + (g * P + pi) * D;
+        for (i64 d = 0; d < D; ++d) {
+            a.used[s * D + d] = wadd(a.used[s * D + d],
+                                     wadd(wmul(m, R[d]), dmn[d]));
+            if (!cap_hint) continue;
+            const i64 TB = table_blocks(T);
+            i64 v = cap_row[pi * TB * D + d];
+            for (i64 c = 1; c < TB; ++c) {
+                const i64 x = cap_row[(pi * TB + c) * D + d];
+                v = x > v ? x : v;
+            }
+            cap_hint[s * D + d] = v;
+        }
+        for (i64 z = 0; z < Z; ++z)
+            a.zones[s * Z + z] = a.agz[g * Z + z] && a.pool_agz[pi * Z + z];
+        for (i64 c = 0; c < C; ++c)
+            a.ct[s * C + c] = a.agc[g * C + c] && a.pool_agc[pi * C + c];
+        a.pool[s] = (int)pi;
+        a.alive[s] = 1;
+    }
+    for (i64 i = tid; i < (s1 - s0) * T; i += nthr) {
+        const i64 s = s0 + i / T, t = i % T;
+        i64 pi = 0;
+        const i64 m = opened_pods(sc, P, s, &pi);
+        a.types[s * T + t] = candn[pi * T + t] && hrn[pi * T + t] >= m;
+    }
+}
+
+// Slot s's final take of group g: k[s] (the group's k row) plus what
+// step 7 opened there, written back to k and to the takes row.
+__device__ __forceinline__ void new_node_take(const FfdArgs& a, i64* k,
+                                              i64 g, const i64* sc, i64 s) {
+    i64 pi = 0;
+    const i64 v = wadd(k[s], opened_pods(sc, a.P, s, &pi));
+    k[s] = v;
+    a.takes[(g - a.G0) * a.N + s] = (int)v;
+}
+
+// ---------------------------------------------------------------------------
+// Steps 4-5 with few barriers (the fused and pruned commits)
+// ---------------------------------------------------------------------------
+
+// Most components a scan carries at once (the shared scratch's width).
+constexpr int kScanW = 8;
+
+// Block-wide exclusive scans of W <= kScanW wrapping sums at once: v
+// holds this thread's values and becomes the sum over the threads before
+// it; tmp[32 * kScanW + w] gets component w's block total. Warp shuffles
+// and two barriers; the caller puts a barrier before tmp is used again.
+template <int W>
+__device__ __forceinline__ void block_scan_w(u64 (&v)[W], u64* tmp) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    u64 own[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+        own[w] = v[w];
+        for (int off = 1; off < 32; off <<= 1) {
+            const u64 o = __shfl_up_sync(0xffffffffu, v[w], off);
+            if (lane >= off) v[w] += o;
+        }
+        if (lane == 31) tmp[warp * kScanW + w] = v[w];
+    }
+    __syncthreads();
+    if (warp == 0) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+            const u64 x = lane < nwarps ? tmp[lane * kScanW + w] : 0;
+            u64 xi = x;
+            for (int off = 1; off < 32; off <<= 1) {
+                const u64 o = __shfl_up_sync(0xffffffffu, xi, off);
+                if (lane >= off) xi += o;
+            }
+            if (lane < nwarps) tmp[lane * kScanW + w] = xi - x;
+            if (lane == 31) tmp[32 * kScanW + w] = xi;
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+        v[w] = tmp[warp * kScanW + w] + v[w] - own[w];
+}
+
+// A one-block commit's exchange of scan totals: nothing comes before the
+// block (fused.cu's cluster exchange adds the earlier CTAs' totals).
+struct BlockExchange {
+    template <int W>
+    __device__ __forceinline__ void add_before(u64 (&)[W], const u64*, int) {
+    }
+};
+
+// Steps 4-5 of the groups i0 .. i0+nf-1 of a block (group i's k row at
+// a.k + i*N: group_view's layout; a plain step is nf = 1, i0 = 0) over
+// each thread's slot chunk [lo, hi), every group against the pool state
+// as it stands: the pool-limit caps of the (group, limited pool) pairs
+// in `comp` [ncomp] (f * P + pi, the groups counted from i0), then the
+// greedy fills, WC and WG components a scan; k becomes take. The take
+// total of group i is added to tks[i] (shared, zeroed by the caller).
+// `scan` holds 33 * kScanW shared entries, `bud` kScanW. `X` adds the
+// totals of the slots before this block (a cluster's earlier CTAs). Ends
+// at a barrier.
+template <int WC, int WG, class X>
+__device__ __forceinline__ void fill_groups(const FfdArgs& a, i64 g0, i64 i0,
+                                            i64 nf, i64 lo, i64 hi,
+                                            const int* comp, int ncomp,
+                                            u64* scan, i64* bud, X& xch,
+                                            unsigned long long* tks) {
+    const i64 N = a.N, D = a.D, P = a.P;
+    for (i64 b = 0; b < ncomp; b += WC) {      // pool-limit caps
+        const i64 nb = ncomp - b < WC ? ncomp - b : WC;
+        if (threadIdx.x < nb) {
+            const int c = comp[b + threadIdx.x], pi = c % (int)P;
+            bud[threadIdx.x] = pool_budget(a.pool_limit + pi * D,
+                                           a.pool_used + pi * D,
+                                           a.R + (g0 + i0 + c / P) * D, D);
+        }
+        u64 v[WC];
+#pragma unroll
+        for (int j = 0; j < WC; ++j) {
+            v[j] = 0;
+            if (j < nb) {
+                const int c = comp[b + j], pi = c % (int)P;
+                const i64* k = a.k + (i0 + c / P) * N;
+                for (i64 s = lo; s < hi; ++s)
+                    if (a.pool[s] == pi) v[j] += (u64)k[s];
+            }
+        }
+        block_scan_w(v, scan);                      // publishes bud
+        xch.add_before(v, scan + 32 * kScanW, (int)nb);
+#pragma unroll
+        for (int j = 0; j < WC; ++j) {
+            if (j >= nb) continue;
+            const int c = comp[b + j], pi = c % (int)P;
+            i64* k = a.k + (i0 + c / P) * N;
+            i64 cum = (i64)v[j];
+            for (i64 s = lo; s < hi; ++s) {
+                if (a.pool[s] != pi) continue;
+                const i64 kp = k[s];
+                const i64 room = wsub(bud[j], cum);
+                const i64 c2 = kp < room ? kp : room;
+                cum = wadd(cum, kp);
+                k[s] = c2 < 0 ? 0 : c2;
+            }
+        }
+        __syncthreads();
+    }
+    for (i64 b = 0; b < nf; b += WG) {         // greedy prefix fills
+        const i64 nb = nf - b < WG ? nf - b : WG;
+        u64 v[WG];
+#pragma unroll
+        for (int j = 0; j < WG; ++j) {
+            v[j] = 0;
+            if (j < nb) {
+                const i64* k = a.k + (i0 + b + j) * N;
+                for (i64 s = lo; s < hi; ++s) v[j] += (u64)k[s];
+            }
+        }
+        block_scan_w(v, scan);
+        xch.add_before(v, scan + 32 * kScanW, (int)nb);
+#pragma unroll
+        for (int j = 0; j < WG; ++j) {
+            if (j >= nb) continue;
+            i64* k = a.k + (i0 + b + j) * N;
+            const i64 n_rem = a.n[g0 + i0 + b + j];
+            i64 cum = (i64)v[j];
+            u64 tsum = 0;
+            for (i64 s = lo; s < hi; ++s) {
+                const i64 kk = k[s];
+                i64 x = wsub(n_rem, cum);
+                x = x < 0 ? 0 : x;
+                const i64 take = x < kk ? x : kk;
+                cum = wadd(cum, kk);
+                k[s] = take;
+                tsum += (u64)take;
+            }
+            for (int off = 16; off > 0; off >>= 1)
+                tsum += __shfl_xor_sync(0xffffffffu, tsum, off);
+            if ((threadIdx.x & 31) == 0 && tsum)
+                atomicAdd(&tks[i0 + b + j], tsum);
+        }
+        __syncthreads();
+    }
+}
+
+// The pool-cap components of the groups g0 .. g0+nf-1: the pairs
+// (group f, pool pi), as f * P + pi in pool order within each group, of a
+// limited pool (a limit in some dimension) that the group admits. A pool
+// the group does not admit has k = 0 on every one of its slots, so its
+// caps change nothing. Warp 0 tests 32 pools at once and compacts them by
+// ballot into comp; it writes their number to *ncomp. Other threads
+// return.
+__device__ __forceinline__ void cap_components(const FfdArgs& a, i64 g0,
+                                               i64 nf, int* comp,
+                                               int* ncomp) {
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int n = 0;
+    for (i64 f = 0; f < nf; ++f) {
+        for (i64 base = 0; base < a.P; base += 32) {
+            const i64 q = base + lane;
+            bool has = false;
+            if (q < a.P && __ldg(&a.admit[(g0 + f) * a.P + q]))
+                for (i64 d = 0; d < a.D; ++d)
+                    has |= __ldg(&a.pool_limit[q * a.D + d]) >= 0;
+            const unsigned m = __ballot_sync(0xffffffffu, has);
+            if (has)
+                comp[n + __popc(m & ((1u << lane) - 1))] = (int)(f * a.P + q);
+            n += __popc(m);
+        }
+    }
+    if (lane == 0) *ncomp = n;
+}
+
+// Takers a narrowing pass stages at once.
+constexpr int kNarrowRows = 64;
+
+// Step 6's flat pass over the takers' (slot, type) cells: for taker j of
+// ntk, at slot slot_of(j), types[s, t] = cand_of(j, s, t) && the taker's
+// used row fits A[t]. A thread per type holds A's row in registers (D <=
+// 8) and walks the takers, whose used rows are staged kNarrowRows at a
+// time in `tu` [kNarrowRows * D] of shared memory. Ends at a barrier,
+// also with no taker.
+template <class SlotOf, class CandOf>
+__device__ __forceinline__ void narrow_cells(const FfdArgs& a, int ntk,
+                                             SlotOf slot_of, CandOf cand_of,
+                                             i64* tu) {
+    const i64 T = a.T, D = a.D;
+    for (int b0 = 0; b0 < ntk; b0 += kNarrowRows) {
+        const int nb = ntk - b0 < kNarrowRows ? ntk - b0 : kNarrowRows;
+        for (i64 i = threadIdx.x; i < nb * D; i += blockDim.x) {
+            const int j = (int)i / (int)D;
+            tu[i] = a.used[slot_of(b0 + j) * D + (i - j * D)];
+        }
+        __syncthreads();
+        for (i64 t = threadIdx.x; t < T; t += blockDim.x) {
+            if (D <= 8) {
+                i64 av[8];
+#pragma unroll
+                for (int d = 0; d < 8; ++d)
+                    av[d] = d < D ? __ldg(&a.A[t * D + d]) : 0;
+                for (int j = 0; j < nb; ++j) {
+                    bool fit = true;
+#pragma unroll
+                    for (int d = 0; d < 8; ++d)
+                        fit &= d >= D || tu[j * D + d] <= av[d];
+                    const i64 s = slot_of(b0 + j);
+                    a.types[s * T + t] = fit && cand_of(b0 + j, s, t);
+                }
+            } else {
+                for (int j = 0; j < nb; ++j) {
+                    bool fit = true;
+                    for (i64 d = 0; d < D; ++d)
+                        fit &= tu[j * D + d] <= a.A[t * D + d];
+                    const i64 s = slot_of(b0 + j);
+                    a.types[s * T + t] = fit && cand_of(b0 + j, s, t);
+                }
+            }
+        }
+        __syncthreads();
+    }
+    if (ntk == 0) __syncthreads();
 }

@@ -29,39 +29,58 @@
 //   the candidate row cand [S, T] (types & F & an offering in the narrowed
 //   zone x capacity-type product) and reduce the exact headroom ks [S]
 //   with ffd_common.cuh's headroom(); rows past n_sel write False and 0.
-// ffd_pruned_commit: one block of 1024 threads per lane, the base commit
-//   (ffd_group_commit) without minValues floors: k from the selection and
-//   the existing rows, pool caps and the greedy fill by block scans with
-//   wrapping 64-bit sums (an all-zero request row gives k = BIG on every
-//   selected slot, and eight of them wrap int64 as the reference does),
-//   the bail flag, the narrowing of the selected takers only (no other
-//   open slot can take), the pool accounting, and new nodes pool by pool,
-//   each opened slot's cap_hint row the pool's candidate column max of A.
-//   cap_hint is never refreshed from a narrowed mask: that would change
-//   which slots the bound pass proves full, and so the bail pattern.
+//   P * table_blocks(T) more blocks per lane write the group's new-node
+//   table, a chunk of 256 types of one pool each (ffd_step.cuh
+//   new_node_table_block): candn/hrn [P, T], the partial caps capn and
+//   the opened rows' partial cap_hint rows cap_row. None of it reads the
+//   carry, so it rides this launch beside the selected rows.
+// ffd_pruned_commit: one block per lane, the base commit without
+//   minValues floors, with one copy of the lane's arguments in shared
+//   memory. k from the selection and the existing rows; the pool-limit
+//   caps of the limited pools the group admits and the greedy fill by
+//   warp-shuffle scans of several components at once (ffd_step.cuh
+//   fill_groups; an all-zero request row gives k = BIG on every selected
+//   slot, and eight of them wrap int64 as the reference does), the take
+//   total by one warp-reduced sum; the bail flag; the narrowing of the
+//   selected takers (no other open slot can take) as one flat pass over
+//   the (taker, type) cells after compacting them; the pool accounting;
+//   then the new nodes from the table: the inputs staged in shared
+//   memory, the pool budgets at once, thread 0's walk over the pools
+//   (ffd_step.cuh new_node_scalars) and one pass over every opened row
+//   and its cap_hint row. cap_hint is never refreshed from a narrowed
+//   mask: that would change which slots the bound pass proves full, and
+//   so the bail pattern. Block size: 1,024 threads. At config 7 (N = 256,
+//   S <= 64) a 256-thread block has one thread a slot, but the narrowing's
+//   flat pass over up to 64 takers x 812 types wants more. On the H100
+//   80GB HBM3 (700 W) the two sizes take the same time a launch (19.0 and
+//   19.1 us, each build timed twice) and config 7's solves spent less in
+//   the kernel on 1,024 (PERF.md, section 6).
 //
 // What bounds them on this card: at config 7 (N = 256, T = 812, D = 8,
 //   S = 64) a step moves ~0.3 MB (types read by the select's screen, the
-//   selected rows' candidates) and does ~1e5 integer operations, a
-//   fraction of a microsecond at the card's rates; each launch costs its
-//   latency, and the commit the latency of one block walking its barriers
-//   (PERF.md has the times). A later PR would run the G steps as one
-//   persistent launch or one CUDA graph.
+//   selected rows' candidates, the table) and does ~1e5 integer
+//   operations, a fraction of a microsecond at the card's rates; each
+//   launch costs its latency, and the commit the latency of one block
+//   walking its barriers (about ten now; PERF.md has the times). A later
+//   PR would run the G steps as one persistent launch or one CUDA graph.
 #include <cuda_runtime.h>
 
-#include "ffd_common.cuh"
+#include "ffd_step.cuh"
 
 // Outside the unnamed namespace: the exported entry points take it, and a
 // type of that namespace would give them internal linkage.
 struct PrunedArgs {
-    FfdArgs f;        // the base scan's fields; f.cand is [S, T], f.k [N]
+    FfdArgs f;        // the base scan's fields; f.cand is [S, T], f.k [N],
+                      // f.candn / f.hrn the table's [P, T]
     i64* cap_hint;    // [N, D]
     u8* bail;         // [1]
     int* sel;         // [S] selected slots, slot order, -1 past n_sel
     int* cnt;         // [2] n_sel, n_pos
     i64* ks;          // [S] exact headroom of the selected rows
+    i64* capn;        // [P, table_blocks(T)] the table's partial caps
+    i64* cap_row;     // [P, table_blocks(T), D] its partial cap_hint rows
     i64 S;
-    i64 lane_bytes[5];   // lane strides of cap_hint, bail, sel, cnt, ks
+    i64 lane_bytes[7];   // lane strides of cap_hint .. cap_row
 };
 
 namespace {
@@ -69,9 +88,8 @@ namespace {
 constexpr int kSelectThreads = 1024;
 constexpr int kHeadroomThreads = 256;
 constexpr int kCommitThreads = 1024;
-constexpr i64 kI64Min = -9223372036854775807LL - 1;
 
-// The arguments of lane `lane`: the base fields by lane_view, the five
+// The arguments of lane `lane`: the base fields by lane_view, the seven
 // pruned pointers (consecutive 8-byte members) by their own strides.
 __device__ __forceinline__ PrunedArgs pruned_view(const PrunedArgs& p,
                                                   unsigned lane) {
@@ -79,7 +97,7 @@ __device__ __forceinline__ PrunedArgs pruned_view(const PrunedArgs& p,
     v.f = lane_view(p.f, lane);
     unsigned char** q = reinterpret_cast<unsigned char**>(&v.cap_hint);
 #pragma unroll
-    for (int i = 0; i < 5; ++i)
+    for (int i = 0; i < 7; ++i)
         if (q[i]) q[i] += lane * p.lane_bytes[i];
     return v;
 }
@@ -153,12 +171,21 @@ ffd_pruned_select_kernel(PrunedArgs args, i64 g) {
 
 __global__ void __launch_bounds__(kHeadroomThreads)
 ffd_pruned_headroom_kernel(PrunedArgs args, i64 g) {
+    extern __shared__ long long colmax[];   // [D] of a table block
     __shared__ i64 red[33];
     const unsigned lane = grid_lane();
     if (lane >= args.f.L) return;   // the (y, z) grid's spare lanes
     const PrunedArgs p = pruned_view(args, lane);
     const FfdArgs& a = p.f;
     const i64 i = blockIdx.x, T = a.T, D = a.D;
+    if (i >= p.S) {                 // chunk c of the table of pool pi
+        const i64 TB = table_blocks(T), pi = (i - p.S) / TB;
+        const i64 c = (i - p.S) % TB;
+        new_node_table_block(a, g, pi, c, a.candn + pi * T, a.hrn + pi * T,
+                             p.capn + pi * TB + c,
+                             p.cap_row + (pi * TB + c) * D, red, colmax);
+        return;
+    }
     u8* cand = a.cand + i * T;
     if (i >= p.cnt[0]) {            // past the selection: an empty row
         for (i64 t = threadIdx.x; t < T; t += blockDim.x) cand[t] = 0;
@@ -182,203 +209,102 @@ ffd_pruned_headroom_kernel(PrunedArgs args, i64 g) {
     if (threadIdx.x == 0) p.ks[i] = k;
 }
 
+// Dynamic shared words of the commit: new_node_scalars' output and its
+// staged inputs, the per-pool takes, the takers' staged used rows, then
+// ints: the takers' selected rows and slots, the pool-cap components.
+__host__ __device__ __forceinline__ size_t pruned_commit_smem(i64 P, i64 D,
+                                                              i64 S) {
+    return (size_t)(nn_words(P) + nn_stage_words(P, D, 1) + P
+                    + kNarrowRows * D) * sizeof(i64)
+        + (size_t)(2 * S + P) * sizeof(int);
+}
+
 __global__ void __launch_bounds__(kCommitThreads)
 ffd_pruned_commit_kernel(PrunedArgs args, i64 g) {
-    extern __shared__ i64 dyn[];   // take_by_pool [P]
-    __shared__ i64 tmp[33];
-    __shared__ i64 sc[8];          // broadcast scalars of the new-node phase
-    const PrunedArgs p = pruned_view(args, blockIdx.x);
+    extern __shared__ i64 dyn[];
+    __shared__ u64 scan[33 * kScanW];
+    __shared__ i64 bud[kScanW];
+    __shared__ unsigned long long taken[1];
+    __shared__ int counts[2];      // pool-cap components, takers
+    __shared__ PrunedArgs sp;      // the lane's view, one copy a block
+    if (threadIdx.x == 0) sp = pruned_view(args, blockIdx.x);
+    __syncthreads();
+    const PrunedArgs& p = sp;
     const FfdArgs& a = p.f;
     const i64 N = a.N, T = a.T, D = a.D, Z = a.Z, C = a.C, P = a.P;
     const i64 E = a.E, S = p.S;
     const i64* R = a.R + g * D;
     const int tid = threadIdx.x;
-    const i64 chunk = (N + blockDim.x - 1) / blockDim.x;
-    const i64 lo = tid * chunk, hi = lo + chunk < N ? lo + chunk : N;
+    const i64 chunk = (N + kCommitThreads - 1) / kCommitThreads;
+    const i64 lo = tid * chunk < N ? tid * chunk : N;
+    const i64 hi = lo + chunk < N ? lo + chunk : N;
     const i64 nsel = p.cnt[0];
-    i64* tbp = dyn;
+    i64* sc = dyn;
+    const NewNodeStage stage = nn_stage_at(sc + nn_words(P), P, D, 1);
+    unsigned long long* tbp = (unsigned long long*)(
+        sc + nn_words(P) + nn_stage_words(P, D, 1));
+    i64* tu = (i64*)(tbp + P);                    // [kNarrowRows, D]
+    int* tk = (int*)(tu + kNarrowRows * D);       // takers' selected rows
+    int* tks = tk + S;                            // and their slots
+    int* comp = tks + S;                          // pool-cap components
 
-    // ---- k: the selected rows' exact headroom, then the existing rows' --
-    for (i64 s = tid; s < N; s += blockDim.x) a.k[s] = 0;
-    __syncthreads();
-    for (i64 i = tid; i < nsel; i += blockDim.x) a.k[p.sel[i]] = p.ks[i];
-    for (i64 s = tid; s < E; s += blockDim.x) {
-        a.k[s] = (a.alive[s] && a.ex_compat[g * E + s])
+    // ---- k: the existing rows' headroom, then the selected rows' --------
+    for (i64 s = tid; s < N; s += kCommitThreads) {
+        a.k[s] = (s < E && a.alive[s] && a.ex_compat[g * E + s])
             ? headroom(a.ex_alloc + s * D, a.used + s * D, R, D) : 0;
     }
+    for (i64 q = tid; q < P; q += kCommitThreads) tbp[q] = 0;
+    cap_components(a, g, 1, comp, &counts[0]);
+    if (tid == 0) {
+        counts[1] = 0;
+        taken[0] = 0;
+    }
+    __syncthreads();
+    for (i64 i = tid; i < nsel; i += kCommitThreads) a.k[p.sel[i]] = p.ks[i];
     __syncthreads();
 
-    // ---- pool-limit caps over each pool's slot prefix -------------------
-    for (i64 pi = 0; pi < P; ++pi) {
-        const i64* lim = a.pool_limit + pi * D;
-        bool has_limit = false;
-        for (i64 d = 0; d < D; ++d) has_limit |= lim[d] >= 0;
-        if (!has_limit) continue;
-        const i64 budget = pool_budget(lim, a.pool_used + pi * D, R, D);
-        i64 local = 0;
-        for (i64 s = lo; s < hi; ++s)
-            if (a.pool[s] == pi) local = wadd(local, a.k[s]);
-        i64 tot;
-        i64 cum = block_excl_scan(local, tmp, &tot);
-        for (i64 s = lo; s < hi; ++s) {
-            if (a.pool[s] != pi) continue;
-            i64 kp = a.k[s];
-            i64 room = wsub(budget, cum);
-            i64 c = kp < room ? kp : room;
-            cum = wadd(cum, kp);
-            a.k[s] = c < 0 ? 0 : c;
-        }
-        __syncthreads();
-    }
-
-    // ---- greedy prefix fill; k[s] becomes take[s] -----------------------
-    i64 n_rem = a.n[g];
-    {
-        i64 local = 0;
-        for (i64 s = lo; s < hi; ++s) local = wadd(local, a.k[s]);
-        i64 tot;
-        i64 cum = block_excl_scan(local, tmp, &tot);
-        i64 tsum = 0;
-        for (i64 s = lo; s < hi; ++s) {
-            i64 kk = a.k[s];
-            i64 x = wsub(n_rem, cum);
-            x = x < 0 ? 0 : x;
-            i64 take = x < kk ? x : kk;
-            cum = wadd(cum, kk);
-            a.k[s] = take;
-            tsum = wadd(tsum, take);
-        }
-        i64 taken;
-        block_excl_scan(tsum, tmp, &taken);
-        n_rem = wsub(n_rem, taken);
-    }
+    // ---- pool caps and the greedy fill; k[s] becomes take[s] ------------
+    BlockExchange none;
+    fill_groups<kScanW, 1>(a, g, 0, 1, lo, hi, comp, counts[0], scan, bud,
+                           none, taken);
+    const i64 n_rem = wsub(a.n[g], (i64)taken[0]);
     // pruning was insufficient: pods remain and an unselected bound-
     // positive slot existed (the scan would have consulted it next)
     if (tid == 0 && p.cnt[1] > S && n_rem > 0) p.bail[0] = 1;
 
     // ---- narrowing of the selected takers + pool accounting -------------
-    for (i64 i = tid; i < N * D; i += blockDim.x) {
-        i64 s = i / D, d = i % D;
-        a.used[i] = wadd(a.used[i], wmul(a.k[s], R[d]));
+    for (i64 s = tid; s < N; s += kCommitThreads) {      // a zero take changes nothing
+        const i64 t = a.k[s];
+        if (t)
+            for (i64 d = 0; d < D; ++d)
+                a.used[s * D + d] = wadd(a.used[s * D + d], wmul(t, R[d]));
     }
-    for (i64 q = tid; q < P; q += blockDim.x) tbp[q] = 0;
-    __syncthreads();
-    for (i64 i = 0; i < nsel; ++i) {         // uniform branch per row
-        const i64 s = p.sel[i];
-        if (!(a.k[s] > 0)) continue;
-        const i64* us = a.used + s * D;
-        for (i64 t = tid; t < T; t += blockDim.x) {
-            bool fit = true;
-            for (i64 d = 0; d < D; ++d) fit &= us[d] <= a.A[t * D + d];
-            a.types[s * T + t] = a.cand[i * T + t] && fit;
-        }
-    }
-    for (i64 i = tid; i < nsel; i += blockDim.x) {
+    for (i64 i = tid; i < nsel; i += kCommitThreads) {
         const i64 s = p.sel[i];
         if (!(a.k[s] > 0)) continue;
         for (i64 z = 0; z < Z; ++z) a.zones[s * Z + z] &= a.agz[g * Z + z];
         for (i64 c = 0; c < C; ++c) a.ct[s * C + c] &= a.agc[g * C + c];
         const int pool = a.pool[s];
-        const i64 pc = pool > P - 1 ? P - 1 : pool;
-        atomicAdd((unsigned long long*)&tbp[pc], (unsigned long long)a.k[s]);
+        atomicAdd(&tbp[pool > P - 1 ? P - 1 : pool],
+                  (unsigned long long)a.k[s]);
+        const int j = atomicAdd(&counts[1], 1);
+        tk[j] = (int)i;
+        tks[j] = (int)s;
     }
     __syncthreads();
-    for (i64 i = tid; i < P * D; i += blockDim.x) {
-        i64 q = i / D, d = i % D;
-        a.pool_used[i] = wadd(a.pool_used[i], wmul(tbp[q], R[d]));
-    }
-    __syncthreads();
+    nn_stage(a, g, 1, p.capn, (const i64*)tbp, (const i64*)taken, stage);
+    narrow_cells(a, counts[1], [&](int j) { return (i64)tks[j]; },
+                 [&](int j, i64, i64 t) {
+                     return __ldg(&a.cand[tk[j] * T + t]) != 0;
+                 }, tu);
 
-    // ---- new nodes, pool by pool, with their cap_hint rows --------------
-    for (i64 pi = 0; pi < P; ++pi) {
-        const i64* dmn = a.daemon + (g * P + pi) * D;
-        i64 cmax = 0;
-        for (i64 t = tid; t < T; t += blockDim.x) {
-            bool c = a.F[g * T + t] && a.pool_types[pi * T + t];
-            if (c) {
-                bool off = false;
-                for (i64 z = 0; z < Z && !off; ++z) {
-                    if (!(a.agz[g * Z + z] && a.pool_agz[pi * Z + z]))
-                        continue;
-                    for (i64 cc = 0; cc < C; ++cc) {
-                        if (a.agc[g * C + cc] && a.pool_agc[pi * C + cc]
-                            && a.avail_zc[t * Z * C + z * C + cc]) {
-                            off = true;
-                            break;
-                        }
-                    }
-                }
-                c = off;
-            }
-            i64 hr = c ? headroom(a.A + t * D, dmn, R, D) : 0;
-            a.candn[t] = c;
-            a.hrn[t] = hr;
-            cmax = hr > cmax ? hr : cmax;
-        }
-        const i64 cap = block_max(cmax, tmp);   // publishes hrn/candn
-        if (tid == 0) {
-            const i64 budget = pool_budget(a.pool_limit + pi * D,
-                                           a.pool_used + pi * D, R, D);
-            i64 can_place = 0;
-            if (a.admit[g * P + pi] && cap >= 1)
-                can_place = n_rem < budget ? n_rem : budget;
-            i64 q = can_place > 0 ? ceildiv(can_place, cap > 1 ? cap : 1) : 0;
-            const i64 nn = a.num_nodes[0];
-            const i64 free_slots = N - E - nn;
-            q = q < free_slots ? q : free_slots;
-            i64 qc = wmul(q, cap);
-            const i64 placed = can_place < qc ? can_place : qc;
-            sc[0] = q;
-            sc[1] = E + nn;                                   // start
-            sc[2] = wsub(placed, wmul(cap, q - 1));           // last slot
-            sc[3] = placed;
-            sc[4] = cap;
-            a.num_nodes[0] = (int)(nn + q);
-        }
-        __syncthreads();
-        const i64 q = sc[0], start = sc[1], last = sc[2], placed = sc[3];
-        const i64 cp = sc[4];
-        if (q > 0) {   // uniform: the opened slots' bound, column by column
-            for (i64 d = 0; d < D; ++d) {
-                i64 m = kI64Min;
-                for (i64 t = tid; t < T; t += blockDim.x) {
-                    const i64 v = a.candn[t] ? a.A[t * D + d] : 0;
-                    m = v > m ? v : m;
-                }
-                const i64 cm = block_max(m, tmp);
-                for (i64 s = start + tid; s < start + q; s += blockDim.x)
-                    p.cap_hint[s * D + d] = cm;
-            }
-        }
-        for (i64 s = start + tid; s < start + q; s += blockDim.x) {
-            const i64 m_slot = (s - start == q - 1) ? last : cp;
-            a.k[s] = wadd(a.k[s], m_slot);
-            for (i64 d = 0; d < D; ++d)
-                a.used[s * D + d] = wadd(a.used[s * D + d],
-                                         wadd(wmul(m_slot, R[d]), dmn[d]));
-            for (i64 z = 0; z < Z; ++z)
-                a.zones[s * Z + z] = a.agz[g * Z + z] && a.pool_agz[pi * Z + z];
-            for (i64 c = 0; c < C; ++c)
-                a.ct[s * C + c] = a.agc[g * C + c] && a.pool_agc[pi * C + c];
-            a.pool[s] = (int)pi;
-            a.alive[s] = 1;
-        }
-        for (i64 i = tid; i < q * T; i += blockDim.x) {
-            const i64 s = start + i / T, t = i % T;
-            const i64 m_slot = (s - start == q - 1) ? last : cp;
-            a.types[s * T + t] = a.candn[t] && a.hrn[t] >= m_slot;
-        }
-        for (i64 d = tid; d < D; d += blockDim.x)
-            a.pool_used[pi * D + d] = wadd(a.pool_used[pi * D + d],
-                                           wmul(placed, R[d]));
-        n_rem = wsub(n_rem, placed);
-        __syncthreads();
-    }
-
-    // ---- outputs ---------------------------------------------------------
-    for (i64 s = tid; s < N; s += blockDim.x)
-        a.takes[(g - a.G0) * N + s] = (int)a.k[s];
-    if (tid == 0) a.leftover[g - a.G0] = n_rem;
+    // ---- new nodes from the table: the scalars, then one pass -----------
+    new_node_scalars(stage, 1, P, D, N, E, sc, a.leftover + (g - a.G0));
+    new_node_rows(a, g, sc, a.candn, a.hrn, p.cap_row, p.cap_hint, 0, N,
+                  tid, kCommitThreads);
+    for (i64 s = tid; s < N; s += kCommitThreads) new_node_take(a, a.k, g, sc, s);
+    for (i64 i = tid; i < P * D; i += kCommitThreads) a.pool_used[i] = stage.pu[i];
+    if (tid == 0) a.num_nodes[0] = (int)stage.nn[0];
 }
 
 int set_smem(const void* fn, size_t smem) {
@@ -399,20 +325,26 @@ int karp_ffd_pruned_select(const PrunedArgs* p, long long g, void* stream) {
 
 int karp_ffd_pruned_headroom(const PrunedArgs* p, long long g,
                              void* stream) {
-    dim3 grid((unsigned)p->S);
+    // S rows, then the table: table_blocks(T) blocks for each of P pools
+    dim3 grid((unsigned)(p->S + p->f.P * table_blocks(p->f.T)));
     lane_grid(p->f.L, &grid);
-    ffd_pruned_headroom_kernel<<<grid, kHeadroomThreads, 0,
+    const size_t smem = (size_t)p->f.D * sizeof(i64);
+    int err = set_smem((const void*)ffd_pruned_headroom_kernel, smem);
+    if (err) return err;
+    ffd_pruned_headroom_kernel<<<grid, kHeadroomThreads, smem,
                                  (cudaStream_t)stream>>>(*p, g);
     return (int)cudaGetLastError();
 }
 
 int karp_ffd_pruned_commit(const PrunedArgs* p, long long g, void* stream) {
-    size_t smem = (size_t)p->f.P * sizeof(i64);
-    int err = set_smem((const void*)ffd_pruned_commit_kernel, smem);
+    const size_t smem = pruned_commit_smem(p->f.P, p->f.D, p->S);
+    const unsigned L = (unsigned)p->f.L;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int err = set_smem((const void*)ffd_pruned_commit_kernel, smem);
     if (err) return err;
-    ffd_pruned_commit_kernel<<<(unsigned)p->f.L, kCommitThreads, smem,
-                               (cudaStream_t)stream>>>(*p, g);
+    ffd_pruned_commit_kernel<<<L, kCommitThreads, smem, st>>>(*p, g);
     return (int)cudaGetLastError();
 }
+
 
 }  // extern "C"

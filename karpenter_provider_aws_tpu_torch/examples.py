@@ -151,7 +151,8 @@ FUSE = 4
 #: four pools with disjoint types whose groups admit one each, with
 #: existing nodes, and whose flags are the solver's plan (admit runs
 #: ANDed with existing-compat runs)
-FUSED_CASES = tuple(c for c in CASES if c != "min_values") + ("striped",)
+FUSED_CASES = tuple(c for c in CASES if c != "min_values") + (
+    "striped", "wrap_n_rem")
 
 
 def fused_case(name: str, base: Callable = example_arrays, G: int = 8,
@@ -162,7 +163,11 @@ def fused_case(name: str, base: Callable = example_arrays, G: int = 8,
         raise ValueError(f"unknown fused case {name!r}; one of "
                          f"{FUSED_CASES}")
     if name != "striped":
-        arrays, st = example_case(name, base=base, G=G, **kw)
+        if name == "wrap_n_rem":   # the pruned case with fuse flags
+            arrays, st = pruned_case(name, base=base, G=max(G, 16), **kw)
+            G = st["G"]
+        else:
+            arrays, st = example_case(name, base=base, G=G, **kw)
         rng = np.random.RandomState(7)
         fuse = np.ones(G, bool)
         fuse[0::FUSE] = rng.rand(G // FUSE) < 0.5   # never read
@@ -252,9 +257,16 @@ def striped_cluster(env, n_pods: int = 50_000, n_sigs: int = 500,
 #: the pruned scan's parity cases: existing nodes (one over-committed),
 #: two pools with binding limits, daemon overhead, an all-zero request
 #: row met by eight or more compatible open slots (k = BIG on each, so
-#: the prefix wraps int64), and the plain shape. The request rows are
-#: scaled so a node holds tens of pods and a group's fill spans slots.
-PRUNED_CASES = ("plain", "existing", "pool_limits", "daemon", "zero_r_row")
+#: the prefix wraps int64), the plain shape, and "wrap_n_rem": request
+#: rows with no positive entry (one negative) met by enough open slots
+#: that the fill's wrapping sums leave n_rem negative when the new-node
+#: phase runs, over three pools: one whose limit binds mid-scan, one
+#: unlimited, one whose limit is already exceeded (budget 0). The phase
+#: then places a negative count, which moves pool_used (through the
+#: negative entry) and n_rem. The request rows are scaled so a node holds
+#: tens of pods and a group's fill spans slots.
+PRUNED_CASES = ("plain", "existing", "pool_limits", "daemon", "zero_r_row",
+                "wrap_n_rem")
 
 
 def pruned_case(name: str, base: Callable = example_arrays, G: int = 16,
@@ -270,6 +282,8 @@ def pruned_case(name: str, base: Callable = example_arrays, G: int = 16,
         kw["E"] = 6
     elif name == "pool_limits":
         kw["P"] = 2
+    elif name == "wrap_n_rem":
+        kw.update(P=3, n_max=max(n_max, 24))
     arrays, st = base(**kw)
     E, P = st["E"], st["P"]
     arrays["R"] = arrays["R"] * 64
@@ -297,6 +311,19 @@ def pruned_case(name: str, base: Callable = example_arrays, G: int = 16,
         arrays["R"][G - 1] = 0
         arrays["n"][G - 1] = 40
         arrays["F"][G - 1] = True
+    elif name == "wrap_n_rem":
+        lim = np.full((P, D), -1, np.int64)
+        lim[0, 0] = int(arrays["R"][:, 0].sum() * 2)
+        lim[2, 0] = 1 << 10
+        used0 = np.zeros((P, D), np.int64)
+        used0[2] = 1 << 12
+        arrays.update(pool_limit=lim, pool_used0=used0,
+                      admit=np.ones((G, P), bool))
+        for g in (G - 5, G - 1):
+            arrays["R"][g] = 0
+            arrays["R"][g, 1] = -3
+            arrays["n"][g] = 40
+            arrays["F"][g] = True
     statics = dict(T=T, D=D, Z=Z, C=C, G=G, E=E, P=P, K=0, M=0, V=0, Q=0,
                    n_max=st["n_max"])
     return arrays, statics

@@ -158,6 +158,7 @@ def _lib():
             for fn in (lib.karp_ffd_fused_headroom,
                        lib.karp_ffd_fused_commit):
                 fn.argtypes = [vp, ll, vp]
+            lib.karp_ffd_fused_cluster.argtypes = [vp]
             lib.karp_mesh_new_caps.argtypes = [vp, vp]
             for fn in (lib.karp_mesh_slot_headroom, lib.karp_mesh_commit):
                 fn.argtypes = [vp, ll, vp]
@@ -174,7 +175,8 @@ def _lib():
                        lib.karp_ffd_pruned_commit, lib.karp_topo_group_start,
                        lib.karp_topo_pour, lib.karp_topo_record_plain,
                        lib.karp_ffd_fused_headroom,
-                       lib.karp_ffd_fused_commit, lib.karp_mesh_new_caps,
+                       lib.karp_ffd_fused_commit, lib.karp_ffd_fused_cluster,
+                       lib.karp_mesh_new_caps,
                        lib.karp_mesh_slot_headroom, lib.karp_mesh_fill,
                        lib.karp_mesh_commit):
                 fn.restype = ctypes.c_int
@@ -323,11 +325,14 @@ class ScanState:
     ``cand_rows`` sizes the candidate scratch ``cand`` (default N rows;
     the pruned scan keeps S selected rows there). ``Fu`` keeps that many
     groups' scratch side by side (the fused scan): ``cand`` [Fu*N, T]
-    and ``k`` [Fu*N], group i's rows at i*N."""
+    and ``k`` [Fu*N], group i's rows at i*N. ``table_rows`` widens the
+    one-pool new-node scratch ``candn`` / ``hrn`` [T] to the new-node
+    table [table_rows, T] (the pruned scan: P rows; the fused scan: Fu*P,
+    group i's pools at i*P)."""
 
     def __init__(self, inp: KernelInputs, carry: Carry, *, E: int, P: int,
                  V: int = 0, s0: int = 0, s1: int = None, lanes: int = None,
-                 cand_rows: int = None, Fu: int = 1):
+                 cand_rows: int = None, Fu: int = 1, table_rows: int = None):
         dev = inp.A.device
         L = 1 if lanes is None else lanes
         lead = () if lanes is None else (L,)
@@ -384,8 +389,9 @@ class ScanState:
                                               cand_rows), T),
                                 dtype=b, device=dev)
         self.k = torch.empty(lead + (Fu * N,), dtype=i64, device=dev)
-        self.hrn = torch.empty(lead + (T,), dtype=i64, device=dev)
-        self.candn = torch.empty(lead + (T,), dtype=b, device=dev)
+        rows = () if table_rows is None else (table_rows,)
+        self.hrn = torch.empty(lead + rows + (T,), dtype=i64, device=dev)
+        self.candn = torch.empty(lead + rows + (T,), dtype=b, device=dev)
         self.takes = torch.empty(lead + (s1 - s0, N), dtype=torch.int32,
                                  device=dev)
         self.leftover = torch.empty(lead + (s1 - s0,), dtype=i64,
@@ -608,17 +614,19 @@ def _packed_inputs_lanes(bufs: torch.Tensor, T, D, Z, C, G, E, P, K, M,
 
 
 def solve_scan_packed1_many_cuda(bufs: torch.Tensor, *, T, D, Z, C, G, E, P,
-                                 n_max, K=0, V=0, M=0, Q=0,
-                                 F=1) -> torch.Tensor:
+                                 n_max, K=0, V=0, M=0, Q=0, F=1,
+                                 cluster=None) -> torch.Tensor:
     """B packed solves on the card in one dispatch: one lane-axis
     unpack_bits, 2*G lane-axis K2 launches (F > 1: 2*G/F lane-axis K5
-    launches, ``_fused_scan``), one lane-axis pack_outputs, whatever B
+    launches, ``_fused_scan``, the commit on ``cluster`` CTAs a lane, by
+    default ``fused_cluster``'s), one lane-axis pack_outputs, whatever B
     is; no synchronisation. Returns [B, Wout]."""
     B = bufs.shape[0]
     inp = _packed_inputs_lanes(bufs, T, D, Z, C, G, E, P, K, M, Q, F)
     carry = carry0(inp, E + n_max, E, lanes=B)
     if F > 1:
-        st = _fused_scan(FusedState(inp, carry, E=E, P=P, Fu=F, lanes=B))
+        st = _fused_scan(FusedState(inp, carry, E=E, P=P, Fu=F, lanes=B,
+                                    cluster=cluster))
     else:
         st = ScanState(inp, carry, E=E, P=P, V=V, lanes=B)
         for g in range(G):
@@ -634,33 +642,56 @@ def solve_scan_packed1_many_cuda(bufs: torch.Tensor, *, T, D, Z, C, G, E, P,
 class _FusedArgs(ctypes.Structure):
     """Mirror of ``struct FusedArgs`` in csrc/fused.cu."""
     _fields_ = [("f", _FfdArgs), ("fuse", ctypes.c_void_p),
-                ("Fu", ctypes.c_longlong),
-                ("fuse_lane_bytes", ctypes.c_longlong)]
+                ("capn", ctypes.c_void_p), ("Fu", ctypes.c_longlong),
+                ("fuse_lane_bytes", ctypes.c_longlong),
+                ("capn_lane_bytes", ctypes.c_longlong),
+                ("cluster", ctypes.c_longlong)]
 
 
 class FusedState(ScanState):
     """A ``ScanState`` with Fu groups' scratch side by side (``cand``
-    [Fu*N, T], ``k`` [Fu*N]) and the ``fuse`` flags of the arena
-    (``inp.fuse``, [G] or [L, G] for lanes, each lane contiguous), plus
-    the ctypes argument block of the K5 kernels. No minValues floors."""
+    [Fu*N, T], ``k`` [Fu*N]), the new-node tables of the block's groups
+    (``candn`` / ``hrn`` [Fu*P, T], the partial caps ``capn`` [Fu, P,
+    table_blocks(T)]) and the ``fuse``
+    flags of the arena (``inp.fuse``, [G] or [L, G] for lanes, each lane
+    contiguous), plus the ctypes argument block of the K5 kernels. No
+    minValues floors.
+
+    ``cluster`` is the commit's CTAs per lane (1, 2, 4 or 8); by default
+    the fixed rule of ``csrc/fused.cu`` (``karp_ffd_fused_cluster``) picks
+    it from the lane count and the card's occupancy."""
 
     def __init__(self, inp: KernelInputs, carry: Carry, *, E: int, P: int,
-                 Fu: int, lanes: int = None):
+                 Fu: int, lanes: int = None, cluster: int = None):
         G = inp.R.shape[-2]
         if inp.mv_floor is not None:
             raise ValueError("the fused scan takes no minValues floors")
         if Fu < 2 or G % Fu:
             raise ValueError(f"fusion width Fu={Fu} must be at least 2 and "
                              f"divide G={G}")
-        super().__init__(inp, carry, E=E, P=P, lanes=lanes, Fu=Fu)
+        if cluster not in (None, 1, 2, 4, 8):
+            raise ValueError(f"cluster={cluster} is not 1, 2, 4 or 8")
+        super().__init__(inp, carry, E=E, P=P, lanes=lanes, Fu=Fu,
+                         table_rows=Fu * P)
         if inp.fuse is None:
             raise ValueError("a fused scan needs the arena's fuse flags")
         _need(inp.fuse, "fuse", torch.bool,
               (G,) if lanes is None else (lanes, G), lanes=lanes is not None)
         self.Fu = Fu
+        lead = () if lanes is None else (lanes,)
+        self.capn = torch.empty(
+            lead + (Fu, P, table_blocks(inp.A.shape[-2])),
+            dtype=torch.int64, device=inp.A.device)
         self.fargs = _FusedArgs(
-            f=self.args, fuse=inp.fuse.data_ptr(), Fu=Fu,
-            fuse_lane_bytes=0 if lanes is None else inp.fuse.stride(0))
+            f=self.args, fuse=inp.fuse.data_ptr(),
+            capn=self.capn.data_ptr(), Fu=Fu,
+            fuse_lane_bytes=0 if lanes is None else inp.fuse.stride(0),
+            capn_lane_bytes=0 if lanes is None else self.capn[0].numel() * 8,
+            cluster=1)
+        if cluster is None:
+            cluster = fused_cluster(lanes or 1, Fu, P, inp.A.shape[-1],
+                                    carry.used.shape[-2])
+        self.cluster = self.fargs.cluster = cluster
 
     def block_cand(self) -> torch.Tensor:
         """``cand`` as [(L,) Fu, N, T]."""
@@ -670,6 +701,36 @@ class FusedState(ScanState):
     def block_k(self) -> torch.Tensor:
         """``k`` as [(L,) Fu, N]."""
         return self.k.view(self.k.shape[:-1] + (self.Fu, -1))
+
+    def block_table(self):
+        """The block's new-node tables: (candn [(L,) Fu, P, T], hrn
+        [(L,) Fu, P, T], cap [(L,) Fu, P], the max over the table blocks'
+        partial caps, which the commit takes)."""
+        T = self.hrn.shape[-1]
+        lead = self.hrn.shape[:-2]
+        shp = lead + (self.Fu, -1, T)
+        return (self.candn.view(shp), self.hrn.view(shp),
+                self.capn.amax(-1))
+
+
+_CLUSTERS = {}
+
+
+def fused_cluster(L: int, Fu: int, P: int, D: int, N: int) -> int:
+    """The commit's CTAs per lane for L lanes of Fu groups, P pools, D
+    resources and N slots: the largest of 8, 4, 2, 1 whose L clusters the
+    card holds at once (``karp_ffd_fused_cluster``, csrc/fused.cu). The
+    commit's shared memory, and so the answer, depends on these shapes
+    alone; the card is asked once for each of them and each device."""
+    key = (torch.cuda.current_device(), L, Fu, P, D, N)
+    if key not in _CLUSTERS:
+        a = _FusedArgs(Fu=Fu)
+        a.f.L, a.f.P, a.f.D, a.f.N = L, P, D, N
+        cs = _lib().karp_ffd_fused_cluster(ctypes.byref(a))
+        if cs < 0:
+            _check(-cs, "ffd_fused_commit (cluster size)")
+        _CLUSTERS[key] = cs
+    return _CLUSTERS[key]
 
 
 def _fused_launch(name: str, fs: FusedState, g0: int) -> None:
@@ -685,14 +746,15 @@ def _fused_launch(name: str, fs: FusedState, g0: int) -> None:
 
 def ffd_fused_headroom(fs: FusedState, g0: int) -> None:
     """Steps 1-3 of groups [g0, g0 + Fu) from the carry as it stands
-    (the block-start carry): fills ``fs.block_cand()`` and
-    ``fs.block_k()``."""
+    (the block-start carry), and their new-node tables: fills
+    ``fs.block_cand()``, ``fs.block_k()`` and ``fs.block_table()``."""
     _fused_launch("ffd_fused_headroom", fs, g0)
 
 
 def ffd_fused_commit(fs: FusedState, g0: int) -> None:
-    """The block of groups [g0, g0 + Fu), each lane by its own branch:
-    updates the carry in place and writes ``fs.takes`` /
+    """The block of groups [g0, g0 + Fu), each lane by its own branch, on
+    a cluster of ``fs.cluster`` CTAs a lane, its new nodes read from the
+    tables: updates the carry in place and writes ``fs.takes`` /
     ``fs.leftover`` rows [g0, g0 + Fu)."""
     _fused_launch("ffd_fused_commit", fs, g0)
 
@@ -720,7 +782,12 @@ def solve_scan_packed1_fused_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E,
 # K6 wrappers: the pruned scan
 # ---------------------------------------------------------------------------
 
-_PRUNED_FIELDS = ("cap_hint", "bail", "sel", "cnt", "ks")
+_PRUNED_FIELDS = ("cap_hint", "bail", "sel", "cnt", "ks", "capn", "cap_row")
+
+def table_blocks(T: int) -> int:
+    """The new-node table's blocks per (group, pool): one per 256 types
+    (csrc/ffd_step.cuh table_blocks), each with its partial cap."""
+    return -(-T // 256)
 
 
 class _PrunedArgs(ctypes.Structure):
@@ -737,7 +804,8 @@ class PrunedState:
     selected rows, its ``k`` the per-slot headroom and take), the bound
     ``cap_hint`` and the ``bail`` flag of the carry (updated in place),
     the selection scratch (``sel`` [S] slots, ``cnt`` [2] = (n_sel,
-    n_pos), ``ks`` [S] exact headroom) and the ctypes argument block."""
+    n_pos), ``ks`` [S] exact headroom), the group's new-node table
+    (``table()``) and the ctypes argument block."""
 
     def __init__(self, inp: KernelInputs, carry: CarryP, *, E: int, P: int,
                  S: int, lanes: int = None):
@@ -750,7 +818,7 @@ class PrunedState:
         lead = () if lanes is None else (L,)
         D = inp.A.shape[-1]
         self.scan = ScanState(inp, Carry(*carry[:8]), E=E, P=P, lanes=lanes,
-                              cand_rows=S)
+                              cand_rows=S, table_rows=P)
         _need(carry.cap_hint, "cap_hint", torch.int64, lead + (N, D))
         _need(carry.bail, "bail", torch.bool, lead + (1,))
         dev = inp.A.device
@@ -758,8 +826,14 @@ class PrunedState:
         self.sel = torch.empty(lead + (S,), dtype=torch.int32, device=dev)
         self.cnt = torch.empty(lead + (2,), dtype=torch.int32, device=dev)
         self.ks = torch.empty(lead + (S,), dtype=torch.int64, device=dev)
+        TB = table_blocks(inp.A.shape[-2])
+        self.capn = torch.empty(lead + (P, TB), dtype=torch.int64,
+                                device=dev)
+        self.cap_row = torch.empty(lead + (P, TB, D), dtype=torch.int64,
+                                   device=dev)
         bufs = dict(cap_hint=carry.cap_hint, bail=carry.bail, sel=self.sel,
-                    cnt=self.cnt, ks=self.ks)
+                    cnt=self.cnt, ks=self.ks, capn=self.capn,
+                    cap_row=self.cap_row)
         self.args = _PrunedArgs(f=self.scan.args, S=S,
                                 **{k: t.data_ptr() for k, t in bufs.items()})
         for i, f in enumerate(_PRUNED_FIELDS):
@@ -779,6 +853,13 @@ class PrunedState:
     def cand(self) -> torch.Tensor:
         return self.scan.cand
 
+    def table(self):
+        """The group's new-node table: (candn [(L,) P, T], hrn [(L,) P,
+        T], cap [(L,) P], cap_row [(L,) P, D]); cap and cap_row are the
+        max over the table blocks' partials, which the commit takes."""
+        return (self.scan.candn, self.scan.hrn, self.capn.amax(-1),
+                self.cap_row.amax(-2))
+
 
 def _pruned_launch(name: str, ps: PrunedState, g: int) -> None:
     _in_window(ps.scan, g)
@@ -797,14 +878,15 @@ def ffd_pruned_select(ps: PrunedState, g: int) -> None:
 
 def ffd_pruned_headroom(ps: PrunedState, g: int) -> None:
     """The exact candidate rows ``ps.cand`` [S, T] and headroom ``ps.ks``
-    [S] of the selected slots (rows past n_sel: False and 0)."""
+    [S] of the selected slots (rows past n_sel: False and 0), and the
+    group's new-node table ``ps.table()``."""
     _pruned_launch("ffd_pruned_headroom", ps, g)
 
 
 def ffd_pruned_commit(ps: PrunedState, g: int) -> None:
-    """The fill, the bail flag, the narrowing and the new nodes for
-    group g: updates the carry in place and writes ``ps.takes[g]`` and
-    ``ps.leftover[g]``."""
+    """The fill, the bail flag, the narrowing and the new nodes (read
+    from the table) for group g: updates the carry in place and writes
+    ``ps.takes[g]`` and ``ps.leftover[g]``."""
     _pruned_launch("ffd_pruned_commit", ps, g)
 
 

@@ -306,11 +306,49 @@ def _fill_phase_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
     return take, n_rem, cand
 
 
+class NewNodeTable(NamedTuple):
+    """The new-node table of one group (with a leading axis, of several):
+    per pool, what depends on no carry. The fused and pruned scans' wide
+    launches write it; their commits read it."""
+    candn: torch.Tensor              # [P, T] bool fresh-node candidates
+    hrn: torch.Tensor                # [P, T] int64 their headroom, 0 elsewhere
+    cap: torch.Tensor                # [P] int64 max of hrn
+    cap_row: Optional[torch.Tensor]  # [P, D] int64 candidates' column max of
+    #                                  A, 0-floored (the pruned scan's bound)
+
+
+def _new_node_table_ref(inp: KernelInputs, g: int, *, P: int,
+                        cap_row: bool = False) -> NewNodeTable:
+    """The new-node table of group g over the P pools: the reference's
+    ``cand_new``, ``hr`` and ``cap`` of ``_new_nodes_phase``
+    (ops/ffd_jax.py:393-404, no minValues floors) and, with ``cap_row``,
+    the pruned scan's ``cap_row`` (:1033). The plain version of the
+    table blocks of ``ffd_pruned_headroom`` / ``ffd_fused_headroom``."""
+    R, F, agz, agc = inp.R[g], inp.F[g], inp.agz[g], inp.agc[g]
+    agz_p = agz[None, :] & inp.pool_agz[:P]                        # [P, Z]
+    agc_p = agc[None, :] & inp.pool_agc[:P]                        # [P, C]
+    zc_p = (agz_p[:, :, None] & agc_p[:, None, :]).reshape(P, -1)
+    off_p = (inp.avail_zc[None, :, :] & zc_p[:, None, :]).any(dim=-1)
+    candn = F[None, :] & inp.pool_types[:P] & off_p                # [P, T]
+    hr = _headroom(inp.A[None, :, :], inp.daemon[g][:P, None, :], R)
+    hrn = torch.where(candn, hr, torch.zeros_like(hr))
+    row = None
+    if cap_row:
+        row = torch.where(candn[:, :, None], inp.A[None, :, :],
+                          torch.zeros_like(inp.A)[None]).amax(dim=1)
+    return NewNodeTable(candn, hrn, hrn.amax(dim=1), row)
+
+
+def _table_row(tab: NewNodeTable, i: int) -> NewNodeTable:
+    """Row i of a table with a leading group axis."""
+    return NewNodeTable(*[None if x is None else x[i] for x in tab])
+
+
 def _new_nodes_phase_ref(inp: KernelInputs, g: int, take, used, types,
                          zones, ct, pool, alive, num_nodes, pool_used,
                          n_rem, *, E: int, P: int, V: int, cap_hint=None,
                          comm=None, slots=None, N: Optional[int] = None,
-                         caps=None):
+                         caps=None, table: Optional[NewNodeTable] = None):
     """Step 7 of one group fill: open new nodes pool by pool (slot
     indices are ordinal in ``num_nodes``). With ``cap_hint`` [N, D] (the
     pruned scan) each opened slot's row becomes the pool's candidate
@@ -318,30 +356,33 @@ def _new_nodes_phase_ref(inp: KernelInputs, g: int, take, used, types,
     (None without it). A mesh rank (parallel/mesh.py) passes ``comm``
     (each pool's cap is maxed over the type shards), ``slots`` (the
     global ids of its slot rows) and the true slot count ``N``; ``caps``
-    [P] gives the caps already reduced (the per-rank kernels' form)."""
-    R, F = inp.R[g], inp.F[g]
+    [P] gives the caps already reduced (the per-rank kernels' form).
+    ``table`` (the fused and pruned scans, no minValues floors) gives
+    each pool's candidates, headroom, cap and cap_hint row as the wide
+    launches wrote them; without it the phase computes the table
+    (``_new_node_table_ref``), then each pool's cap over the shards, the
+    given ``caps`` and the minValues caps."""
+    R = inp.R[g]
     agz, agc, admit, daemon = inp.agz[g], inp.agc[g], inp.admit[g], \
         inp.daemon[g]
     N = used.shape[0] if N is None else N
-    C = agc.shape[0]
     slot = torch.arange(N, device=used.device) if slots is None else slots
+    computed = table is None
+    if computed:
+        table = _new_node_table_ref(inp, g, P=P,
+                                    cap_row=cap_hint is not None)
     for pi in range(P):
         agz_p = agz & inp.pool_agz[pi]
         agc_p = agc & inp.pool_agc[pi]
-        zc_p = (agz_p[:, None] & agc_p[None, :]).reshape(-1)
-        off_p = (inp.avail_zc & zc_p[None, :]).any(dim=1)
-        cand_new = F & inp.pool_types[pi] & off_p
-        hr = _headroom(inp.A, daemon[pi][None, :], R)
-        hr = torch.where(cand_new, hr, torch.zeros_like(hr))
-        if caps is not None:
-            cap = caps[pi]
-        else:
-            cap = _axis_max(hr.amax(), comm)
-        if inp.mv_floor is not None and caps is None:
-            h1n = _axis_max(_mv_h1(torch.where(cand_new, hr + 1,
-                                               torch.zeros_like(hr)),
-                                   inp.mv_pairs_t, inp.mv_pairs_v, V), comm)
-            cap = torch.minimum(cap, _mv_cap(h1n, inp.mv_floor[pi], V))
+        cand_new, hr, cap = table.candn[pi], table.hrn[pi], table.cap[pi]
+        if computed:
+            cap = caps[pi] if caps is not None else _axis_max(cap, comm)
+            if inp.mv_floor is not None and caps is None:
+                h1n = _axis_max(_mv_h1(torch.where(cand_new, hr + 1,
+                                                   torch.zeros_like(hr)),
+                                       inp.mv_pairs_t, inp.mv_pairs_v, V),
+                                comm)
+                cap = torch.minimum(cap, _mv_cap(h1n, inp.mv_floor[pi], V))
         budget = _pool_budget(inp.pool_limit[pi], pool_used[pi], R)
         zero = torch.zeros_like(cap)
         can_place = torch.where(admit[pi] & (cap >= 1),
@@ -366,10 +407,8 @@ def _new_nodes_phase_ref(inp: KernelInputs, g: int, take, used, types,
         zones = torch.where(is_new[:, None], agz_p[None, :], zones)
         ct = torch.where(is_new[:, None], agc_p[None, :], ct)
         if cap_hint is not None:
-            cap_row = torch.where(cand_new[:, None], inp.A,
-                                  torch.zeros_like(inp.A)).amax(dim=0)
-            cap_hint = torch.where(is_new[:, None], cap_row[None, :],
-                                   cap_hint)
+            cap_hint = torch.where(is_new[:, None],
+                                   table.cap_row[pi][None, :], cap_hint)
         pool = torch.where(is_new, torch.full_like(pool, pi), pool)
         alive = alive | is_new
         num_nodes = num_nodes + q.to(torch.int32)
@@ -393,10 +432,12 @@ def _group_step_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
 
 
 def _commit_ref(inp: KernelInputs, carry: Carry, g: int, take, n_rem, cand,
-                *, E: int, P: int, V: int, cap_hint=None, comm=None):
+                *, E: int, P: int, V: int, cap_hint=None, comm=None,
+                table: Optional[NewNodeTable] = None):
     """Steps 6-7 after the fill: the narrowing of the filled open slots
     (to ``cand`` [N, T] and the new aggregate), the pool accounting and
-    the new nodes: (new carry, take [N], n_rem, cap_hint)."""
+    the new nodes (from ``table`` when given): (new carry, take [N],
+    n_rem, cap_hint)."""
     R = inp.R[g]
     used = carry.used + take[:, None] * R[None, :]
     filled_open = (take > 0) & (carry.pool >= 0)
@@ -416,7 +457,7 @@ def _commit_ref(inp: KernelInputs, carry: Carry, g: int, take, n_rem, cand,
      n_rem, cap_hint) = _new_nodes_phase_ref(
         inp, g, take, used, types, zones, ct, carry.pool, carry.alive,
         carry.num_nodes, pool_used, n_rem, E=E, P=P, V=V, cap_hint=cap_hint,
-        comm=comm)
+        comm=comm, table=table)
     return (Carry(used=used, types=types, zones=zones, ct=ct, pool=pool_arr,
                   alive=alive, num_nodes=num_nodes, pool_used=pool_used),
             take, n_rem, cap_hint)
@@ -586,14 +627,17 @@ def _solve_dp_ref(inp: KernelInputs, comm, n_max: int, E: int, P: int,
 # CUDA kernel (csrc/fused.cu):
 #
 # - headroom: steps 1-3 of each of the block's Fu groups, all from the
-#   block-start carry (``_slot_headroom_ref`` per group);
-# - commit: the block. A block whose last Fu-1 ``fuse`` flags are all
-#   True (``blk_indep``; the first flag is ignored) is vectorized: each
-#   group's pool caps and greedy fill against the block-start state, the
-#   merge of the Fu fills (sums of used and pool_used, the narrowing of
-#   each slot by the groups that filled it), then the new nodes of each
-#   group in group order, each from its own remaining count. Any other
-#   block runs Fu plain group steps.
+#   block-start carry (``_slot_headroom_ref`` per group), and the new-node
+#   table of each (group, pool), which reads no carry
+#   (``_fused_table_ref``);
+# - commit: the block, its new nodes read from the table. A block whose
+#   last Fu-1 ``fuse`` flags are all True (``blk_indep``; the first flag
+#   is ignored) is vectorized: each group's pool caps and greedy fill
+#   against the block-start state, the merge of the Fu fills (sums of
+#   used and pool_used, the narrowing of each slot by the groups that
+#   filled it), then the new nodes of each group in group order, each
+#   from its own remaining count. Any other block runs Fu plain group
+#   steps.
 
 def block_indep(fuse: torch.Tensor, Fu: int) -> torch.Tensor:
     """[..., G/Fu] bool: the blocks that take the vectorized branch."""
@@ -603,15 +647,25 @@ def block_indep(fuse: torch.Tensor, Fu: int) -> torch.Tensor:
 def _fused_headroom_ref(inp: KernelInputs, carry: Carry, g0: int, Fu: int,
                         *, E: int, P: int, V: int = 0):
     """Steps 1-3 of groups [g0, g0 + Fu) from ``carry``: (cand [Fu, N, T],
-    k [Fu, N]). The plain version of ``ffd_fused_headroom``."""
+    k [Fu, N]). With ``_fused_table_ref``, the plain version of
+    ``ffd_fused_headroom``."""
     parts = [_slot_headroom_ref(inp, carry, g, E=E, P=P, V=V)
              for g in range(g0, g0 + Fu)]
     return (torch.stack([c for c, _ in parts]),
             torch.stack([k for _, k in parts]))
 
 
-def _vec_block_ref(inp: KernelInputs, carry: Carry, g0: int, Fu: int, *,
-                   E: int, P: int, V: int = 0):
+def _fused_table_ref(inp: KernelInputs, g0: int, Fu: int, *,
+                     P: int) -> NewNodeTable:
+    """The new-node tables of groups [g0, g0 + Fu): candn / hrn [Fu, P, T],
+    cap [Fu, P], no cap_row. The table blocks of ``ffd_fused_headroom``."""
+    tabs = [_new_node_table_ref(inp, g, P=P) for g in range(g0, g0 + Fu)]
+    return NewNodeTable(*[torch.stack(x) for x in list(zip(*tabs))[:3]],
+                        None)
+
+
+def _vec_block_ref(inp: KernelInputs, carry: Carry, g0: int, Fu: int,
+                   tab: NewNodeTable, *, E: int, P: int, V: int = 0):
     """The vectorized branch (the reference's ``vec_block``): (new carry,
     takes [Fu, N], n_rem [Fu])."""
     fills = [_fill_phase_ref(inp, carry, g, E=E, P=P, V=V)
@@ -647,7 +701,8 @@ def _vec_block_ref(inp: KernelInputs, carry: Carry, g0: int, Fu: int, *,
         (tk, used, types, zones, ct, pool_arr, alive, num_nodes, pool_used,
          lf, _) = _new_nodes_phase_ref(
             inp, g0 + i, take_f[i], used, types, zones, ct, pool_arr, alive,
-            num_nodes, pool_used, fills[i][1], E=E, P=P, V=V)
+            num_nodes, pool_used, fills[i][1], E=E, P=P, V=V,
+            table=_table_row(tab, i))
         takes.append(tk)
         lefts.append(lf.reshape(1))
     return (Carry(used=used, types=types, zones=zones, ct=ct, pool=pool_arr,
@@ -656,17 +711,21 @@ def _vec_block_ref(inp: KernelInputs, carry: Carry, g0: int, Fu: int, *,
 
 
 def _fused_block_ref(inp: KernelInputs, carry: Carry, g0: int, Fu: int,
-                     indep: bool, *, E: int, P: int, V: int = 0):
-    """One block of Fu groups: (new carry, takes [Fu, N] int32, n_rem
-    [Fu]). The plain version of ``ffd_fused_headroom`` then
-    ``ffd_fused_commit``."""
+                     indep: bool, tab: NewNodeTable, *, E: int, P: int,
+                     V: int = 0):
+    """One block of Fu groups with its new-node tables ``tab``
+    (``_fused_table_ref``): (new carry, takes [Fu, N] int32, n_rem
+    [Fu]). The plain version of ``ffd_fused_commit``."""
     if indep:
-        carry, takes, lefts = _vec_block_ref(inp, carry, g0, Fu, E=E, P=P,
-                                             V=V)
+        carry, takes, lefts = _vec_block_ref(inp, carry, g0, Fu, tab, E=E,
+                                             P=P, V=V)
         return carry, takes.to(torch.int32), lefts
     takes, lefts = [], []
-    for g in range(g0, g0 + Fu):
-        carry, take, n_rem = _group_step_ref(inp, carry, g, E=E, P=P, V=V)
+    for i, g in enumerate(range(g0, g0 + Fu)):
+        take, n_rem, cand = _fill_phase_ref(inp, carry, g, E=E, P=P, V=V)
+        carry, take, n_rem, _ = _commit_ref(inp, carry, g, take, n_rem, cand,
+                                            E=E, P=P, V=V,
+                                            table=_table_row(tab, i))
         takes.append(take.to(torch.int32))
         lefts.append(n_rem.reshape(1))
     return carry, torch.stack(takes), torch.cat(lefts)
@@ -682,8 +741,9 @@ def _solve_fused_ref(inp: KernelInputs, n_max: int, E: int, P: int,
     indep = block_indep(inp.fuse, Fu).tolist()
     takes, lefts = [], []
     for b in range(G // Fu):
-        carry, tk, lf = _fused_block_ref(inp, carry, b * Fu, Fu, indep[b],
-                                         E=E, P=P, V=V)
+        carry, tk, lf = _fused_block_ref(
+            inp, carry, b * Fu, Fu, indep[b],
+            _fused_table_ref(inp, b * Fu, Fu, P=P), E=E, P=P, V=V)
         takes.append(tk)
         lefts.append(lf)
     return torch.cat(takes), torch.cat(lefts), carry
@@ -1019,11 +1079,14 @@ def solve_scan_packed1_many(bufs, *, T: int, D: int, Z: int, C: int, G: int,
 #   and whose existing-row k it overwrites afterwards, so they change no
 #   output.
 # - headroom: the exact candidate row and headroom of each selected slot.
+#   With it, the group's new-node table over the pools
+#   (``_new_node_table_ref`` with ``cap_row``), which reads no carry.
 # - commit: k of the selected rows, then of the existing rows; the base
 #   step's pool caps, greedy fill, narrowing (only selected slots can
-#   take) and new nodes, each opened slot's cap_hint row the pool's
-#   candidate column max of A; the sticky bail flag when pods remain
-#   after the fill while more than S slots were bound-positive.
+#   take) and new nodes read from the table, each opened slot's cap_hint
+#   row the pool's candidate column max of A; the sticky bail flag when
+#   pods remain after the fill while more than S slots were
+#   bound-positive.
 
 class CarryP(NamedTuple):
     """The pruned scan's carry: ``Carry``'s fields plus the bound."""
@@ -1098,9 +1161,11 @@ def _pruned_headroom_ref(inp: KernelInputs, carry: CarryP, g: int,
 
 def _pruned_commit_ref(inp: KernelInputs, carry: CarryP, g: int,
                        sel: torch.Tensor, cnt: torch.Tensor,
-                       cand_s: torch.Tensor, k_s: torch.Tensor, *, E: int,
-                       P: int, S: int):
-    """The commit part: (new CarryP, take [N], n_rem)."""
+                       cand_s: torch.Tensor, k_s: torch.Tensor,
+                       tab: NewNodeTable, *, E: int, P: int, S: int):
+    """The commit part, its new nodes read from the group's table ``tab``
+    (``_new_node_table_ref`` with ``cap_row``): (new CarryP, take [N],
+    n_rem)."""
     N, T = carry.types.shape
     R = inp.R[g]
     rows = sel[sel >= 0].long()
@@ -1119,7 +1184,8 @@ def _pruned_commit_ref(inp: KernelInputs, carry: CarryP, g: int,
     # cap_hint stays stale-high for narrowed slots (the host discipline)
     new, take, n_rem, cap_hint = _commit_ref(inp, base, g, take, n_rem,
                                              cand, E=E, P=P, V=0,
-                                             cap_hint=carry.cap_hint)
+                                             cap_hint=carry.cap_hint,
+                                             table=tab)
     return CarryP(*new, cap_hint=cap_hint, bail=bail), take, n_rem
 
 
@@ -1129,8 +1195,9 @@ def _pruned_group_step_ref(inp: KernelInputs, carry: CarryP, g: int, *,
     (new CarryP, take [N], n_rem)."""
     sel, cnt = _pruned_select_ref(inp, carry, g, E=E, P=P, S=S)
     cand_s, k_s = _pruned_headroom_ref(inp, carry, g, sel)
-    return _pruned_commit_ref(inp, carry, g, sel, cnt, cand_s, k_s, E=E,
-                              P=P, S=S)
+    tab = _new_node_table_ref(inp, g, P=P, cap_row=True)
+    return _pruned_commit_ref(inp, carry, g, sel, cnt, cand_s, k_s, tab,
+                              E=E, P=P, S=S)
 
 
 def _solve_pruned_ref(inp: KernelInputs, n_max: int, E: int, P: int,

@@ -2,8 +2,11 @@
 on the card, at small shapes. Tolerance: exact (integer math). K1-K3
 (the packed scan, the bank), the K1 and K2 kernels on their lane axis
 and the batched packed solve (K4), the fused block scan's kernels (K5;
-block by block, whole solves, lanes that branch differently, the
-solver), the pruned scan's kernels (K6), the
+block by block with the commit on 1, 2 and 8 CTAs, slot chunks that
+straddle CTA boundaries, tables of several blocks, whole solves, B = 3,
+8 and 64 lanes that branch differently, the solver), the pruned scan's
+kernels (K6, the new-node tables included, the commit at 256 and 1,024
+threads), the
 K7 consolidation kernels, the K9 topology kernels and K8, the
 preemption search (its hazard tables and a round through
 ``Provisioner.reconcile``), the K10 mesh kernels, and K11's distributed
@@ -490,34 +493,102 @@ def _fused_inputs(arrays, st, dev):
         buf, *(st[k] for k in "T D Z C G E P K M Q F".split()))
 
 
-@pytest.mark.parametrize("case", examples.FUSED_CASES)
-def test_fused_kernels_block_by_block(cuda_device, case):
-    """Both K5 kernels of each block from the plain block-start carry:
-    the per-group candidates and headroom after the first, the carry,
-    takes and leftover of the block after the second; both branches."""
+def _fused_blocks_on_card(dev, arrays, st, cluster, lanes=None):
+    """Both K5 kernels of every block from the plain block-start carry of
+    every lane, on ``cluster`` CTAs a lane (None: the card's rule): the
+    per-group candidates, headroom and new-node tables after the first,
+    the carry, takes and leftover of the block after the second.
+    ``arrays`` is one arena's (or, with ``lanes``, a list of them).
+    Returns, per block, (whether lane 0 took the vectorized branch, lane
+    0's plain entry and exit carries and takes)."""
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
-    arrays, st = examples.fused_case(case)
-    _, inp = _fused_inputs(arrays, st, cuda_device)
     E, P, Fu = st["E"], st["P"], st["F"]
-    carry = ft.carry0(inp, E + st["n_max"], E)
-    fs = ffd_cuda.FusedState(inp, ft.Carry(*[t.clone() for t in carry]),
-                             E=E, P=P, Fu=Fu)
-    indep = ft.block_indep(inp.fuse, Fu).tolist()
-    assert True in indep and False in indep
+    N = E + st["n_max"]
+    per = [_fused_inputs(a, st, dev)[1]
+           for a in (arrays if lanes else [arrays])]
+    carries = [ft.carry0(x, N, E) for x in per]
+    inp = per[0] if lanes is None else ft.KernelInputs(*[
+        None if f[0] is None else torch.stack(f) for f in zip(*per)])
+    fs = ffd_cuda.FusedState(inp, ft.carry0(inp, N, E, lanes=lanes), E=E,
+                             P=P, Fu=Fu, lanes=lanes, cluster=cluster)
+    assert cluster is None or fs.cluster == cluster
+    indep = [ft.block_indep(x.fuse, Fu).tolist() for x in per]
+
+    def lane(t, b):
+        return t if lanes is None else t[b]
+    seen = []
     for g0 in range(0, st["G"], Fu):
-        for dst, src in zip(fs.carry, carry):
-            dst.copy_(src)
-        cand, k = ft._fused_headroom_ref(inp, carry, g0, Fu, E=E, P=P)
+        for b, c in enumerate(carries):
+            for dst, src in zip(fs.carry, c):
+                lane(dst, b).copy_(src)
         ffd_cuda.ffd_fused_headroom(fs, g0)
-        assert torch.equal(fs.block_cand(), cand), g0
-        assert torch.equal(fs.block_k(), k), g0
-        carry, takes, lefts = ft._fused_block_ref(inp, carry, g0, Fu,
-                                                  indep[g0 // Fu], E=E, P=P)
+        got_cand, got_k = fs.block_cand().clone(), fs.block_k().clone()
+        got_tab = [t.clone() for t in fs.block_table()]
         ffd_cuda.ffd_fused_commit(fs, g0)
-        for f, got, want in zip(ft.Carry._fields, fs.carry, carry):
-            assert torch.equal(got, want), (g0, f)
-        assert torch.equal(fs.takes[g0:g0 + Fu], takes), g0
-        assert torch.equal(fs.leftover[g0:g0 + Fu], lefts), g0
+        for b, x in enumerate(per):
+            what = (g0, b)
+            cand, k = ft._fused_headroom_ref(x, carries[b], g0, Fu, E=E,
+                                             P=P)
+            tab = ft._fused_table_ref(x, g0, Fu, P=P)
+            assert torch.equal(lane(got_cand, b), cand), what
+            assert torch.equal(lane(got_k, b), k), what
+            for got, want in zip(got_tab, tab[:3]):
+                assert torch.equal(lane(got, b), want), what
+            entry = carries[b]
+            carries[b], takes, lefts = ft._fused_block_ref(
+                x, entry, g0, Fu, indep[b][g0 // Fu], tab, E=E, P=P)
+            for f, got, want in zip(ft.Carry._fields, fs.carry, carries[b]):
+                assert torch.equal(lane(got, b), want), (what, f)
+            assert torch.equal(lane(fs.takes, b)[g0:g0 + Fu], takes), what
+            assert torch.equal(lane(fs.leftover, b)[g0:g0 + Fu], lefts), what
+            if b == 0:
+                seen.append((indep[0][g0 // Fu], entry, carries[0], takes))
+    return seen
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 8])
+@pytest.mark.parametrize("case", examples.FUSED_CASES)
+def test_fused_kernels_block_by_block(cuda_device, case, cluster):
+    """Both K5 kernels of each block from the plain block-start carry,
+    with the commit on 1, 2 and 8 CTAs: the per-group candidates,
+    headroom and new-node tables after the first, the carry, takes and
+    leftover of the block after the second; both branches."""
+    arrays, st = examples.fused_case(case)
+    seen = _fused_blocks_on_card(cuda_device, arrays, st, cluster)
+    branches = {v for v, *_ in seen}
+    assert branches == {True, False}
+
+
+@pytest.mark.parametrize("case", ["striped", "wrap_n_rem"])
+def test_fused_kernels_wide_table(cuda_device, case):
+    """600 types: three table blocks a (group, pool), whose partial caps
+    the commit reduces; the commit on 8 CTAs."""
+    arrays, st = examples.fused_case(case, T=600)
+    _fused_blocks_on_card(cuda_device, arrays, st, 8)
+
+
+@pytest.mark.parametrize("n_max,cluster", [(6, 2), (6, 8), (14, 8), (38, 8)])
+def test_fused_cluster_chunks_straddle(cuda_device, n_max, cluster):
+    """N = E + n_max slots that do not split evenly over the cluster's
+    CTAs (8 CTAs of 3 or 5 slots, the last CTAs short or empty): some
+    sequential block fills slots on both sides of a CTA boundary, and
+    some block opens a run of new nodes across one; every launch equals
+    its plain part (both properties are the plain scan's, which
+    tests/test_torch_newnode.py checks on the CPU)."""
+    arrays, st = examples.fused_case("striped", n_max=n_max)
+    N = st["E"] + n_max
+    chunk = -(-N // cluster)
+    assert N % cluster
+    seen = _fused_blocks_on_card(cuda_device, arrays, st, cluster)
+    straddle_fill = straddle_open = False
+    for vec, entry, out, takes in seen:
+        filled = torch.nonzero((takes > 0).any(0)).reshape(-1)
+        if not vec and filled.numel():
+            straddle_fill |= len({int(s) // chunk for s in filled}) > 1
+        opened = torch.nonzero((entry.pool == -1) & (out.pool >= 0))
+        if opened.numel():
+            straddle_open |= len({int(s) // chunk for s in opened}) > 1
+    assert straddle_fill and straddle_open
 
 
 @pytest.mark.parametrize("case", examples.FUSED_CASES)
@@ -541,29 +612,49 @@ def test_fused_packed_solve(cuda_device, case, width):
     assert torch.equal(got.cpu(), want)
 
 
-def test_fused_many_on_card(cuda_device):
-    """Three striped lanes whose blocks branch differently, in one
-    lane-axis dispatch: each row the plain single solve of its arena."""
+def _mixed_lanes(B):
+    """B striped lanes whose blocks branch differently: every lane flips
+    one block's flags (or none) and rolls the counts."""
     import numpy as np
-
-    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
     arrays, st = examples.fused_case("striped")
     lanes = []
-    for flip in (None, 1, 5):
+    for b in range(B):
         a = {k: np.array(v) for k, v in arrays.items()}
+        flip = (None, 1, 5, 6, 9, 10, 13, 14)[b % 8]
         if flip is not None:
             a["fuse"][flip] = ~a["fuse"][flip]
-            a["n"] = np.roll(a["n"], flip)
+        a["n"] = np.roll(a["n"], b)
         lanes.append(a)
+    return lanes, st
+
+
+@pytest.mark.parametrize("B", [3, 8, 64])
+def test_fused_many_on_card(cuda_device, B):
+    """B striped lanes whose blocks branch differently, in one lane-axis
+    dispatch (the cluster size by the card's rule): each row the plain
+    single solve of its arena."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    lanes, st = _mixed_lanes(B)
     bufs = _stack(lanes, st, cuda_device)
+    ind = torch.stack([ft.block_indep(torch.from_numpy(a["fuse"]), st["F"])
+                       for a in lanes])
+    assert (ind.any(0) & ~ind.all(0)).any()
     ffd_cuda.reset_launches()
     got = ft.solve_scan_packed1_many(bufs, **examples.solve_statics(st))
     assert ffd_cuda.LAUNCHES["ffd_fused_commit"] == st["G"] // st["F"]
     assert ffd_cuda.LAUNCHES["ffd_group_commit"] == 0
-    for b in range(3):
+    for b in range(B):
         plain = ft.solve_scan_packed1(bufs[b].cpu(),
                                       **examples.solve_statics(st))
-        assert torch.equal(got[b].cpu(), plain)
+        assert torch.equal(got[b].cpu(), plain), b
+
+
+@pytest.mark.parametrize("B", [8, 64])
+def test_fused_mixed_lanes_block_by_block(cuda_device, B):
+    """The B = 8 and 64 lanes of mixed branches block by block at the
+    cluster size the card's rule picks for them."""
+    lanes, st = _mixed_lanes(B)
+    _fused_blocks_on_card(cuda_device, lanes, st, None, lanes=B)
 
 
 def test_fused_solver_on_card(cuda_device):
@@ -591,18 +682,16 @@ def test_fused_solver_on_card(cuda_device):
 # K6: the pruned scan
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("S", [1, 2, 64])
-@pytest.mark.parametrize("case", examples.PRUNED_CASES)
-def test_pruned_kernels_step_by_step(cuda_device, case, S):
-    """Each of the three kernels against its plain part, group by group
-    from the plain carry."""
+def _pruned_steps_on_card(dev, arrays, st, S):
+    """Each of the three K6 kernels against its plain part, group by
+    group from the plain carry, the headroom launch's new-node table
+    included."""
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
-    arrays, st = examples.pruned_case(case)
     T, D, Z, C, G, E, P = (st[k] for k in "T D Z C G E P".split())
     N = E + st["n_max"]
     S = min(S, N)
     buf = torch.from_numpy(pack_inputs1(arrays, *examples.pack_statics(
-        st))).to(cuda_device)
+        st))).to(dev)
     inp = ft._packed_inputs_ref(buf, T, D, Z, C, G, E, P, 0, 0, 0)
     carry = ft.carry0_pruned(inp, N, E)
     ps = ffd_cuda.PrunedState(inp, ft.CarryP(*[t.clone() for t in carry]),
@@ -614,15 +703,35 @@ def test_pruned_kernels_step_by_step(cuda_device, case, S):
         ffd_cuda.ffd_pruned_select(ps, g)
         assert torch.equal(ps.sel, sel) and torch.equal(ps.cnt, cnt), g
         cand_s, k_s = ft._pruned_headroom_ref(inp, carry, g, sel)
+        tab = ft._new_node_table_ref(inp, g, P=P, cap_row=True)
         ffd_cuda.ffd_pruned_headroom(ps, g)
         assert torch.equal(ps.cand, cand_s) and torch.equal(ps.ks, k_s), g
+        for got, want in zip(ps.table(), tab):
+            assert torch.equal(got, want), g
         carry, take, n_rem = ft._pruned_commit_ref(
-            inp, carry, g, sel, cnt, cand_s, k_s, E=E, P=P, S=S)
+            inp, carry, g, sel, cnt, cand_s, k_s, tab, E=E, P=P, S=S)
         ffd_cuda.ffd_pruned_commit(ps, g)
         for f, got, want in zip(ft.CarryP._fields, ps.carry, carry):
             assert torch.equal(got, want), (g, f)
         assert torch.equal(ps.takes[g], take.to(torch.int32)), g
         assert torch.equal(ps.leftover[g:g + 1], n_rem.reshape(1)), g
+
+
+@pytest.mark.parametrize("S", [1, 2, 64])
+@pytest.mark.parametrize("case", examples.PRUNED_CASES)
+def test_pruned_kernels_step_by_step(cuda_device, case, S):
+    """Each of the three kernels against its plain part, group by group
+    from the plain carry, the headroom launch's new-node table included."""
+    arrays, st = examples.pruned_case(case)
+    _pruned_steps_on_card(cuda_device, arrays, st, S)
+
+
+@pytest.mark.parametrize("case", ["pool_limits", "wrap_n_rem"])
+def test_pruned_kernels_wide_table(cuda_device, case):
+    """600 types: three table blocks a pool, whose partial caps and
+    cap_hint rows the commit reduces."""
+    arrays, st = examples.pruned_case(case, T=600)
+    _pruned_steps_on_card(cuda_device, arrays, st, 64)
 
 
 @pytest.mark.parametrize("S", [1, 64])

@@ -197,8 +197,9 @@ def test_fused_scan_byte_identical(case):
 def test_fused_parts_compose():
     """The two parts of a block (the plain versions of the two K5
     kernels) compose to the whole scan: the headroom part from the
-    block-start carry is each group's own ``_slot_headroom_ref``, and
-    the block commit chains to ``_solve_fused_ref``'s result."""
+    block-start carry is each group's own ``_slot_headroom_ref``, its
+    table each group's own ``_new_node_table_ref``, and the block commit
+    chains to ``_solve_fused_ref``'s result."""
     arrays, st = examples.fused_case("striped")
     inp = ft.kernel_inputs_from_numpy(arrays, "cpu")
     E, P, G = st["E"], st["P"], st["G"]
@@ -212,8 +213,14 @@ def test_fused_parts_compose():
             c1, k1 = ft._slot_headroom_ref(inp, carry, b * FU + i, E=E, P=P,
                                            V=0)
             assert torch.equal(cand[i], c1) and torch.equal(k[i], k1)
+        tab = ft._fused_table_ref(inp, b * FU, FU, P=P)
+        for i in range(FU):
+            one = ft._new_node_table_ref(inp, b * FU + i, P=P)
+            assert torch.equal(tab.candn[i], one.candn)
+            assert torch.equal(tab.hrn[i], one.hrn)
+            assert torch.equal(tab.cap[i], one.cap)
         carry, tk, _ = ft._fused_block_ref(inp, carry, b * FU, FU, indep[b],
-                                           E=E, P=P)
+                                           tab, E=E, P=P)
         takes.append(tk)
     t_all, _, final = ft._solve_fused_ref(inp, st["n_max"], E, P, FU)
     assert torch.equal(torch.cat(takes), t_all)
