@@ -28,8 +28,10 @@ Phases (any failure exits non-zero before the result line):
    of ``examples.absorb_case`` / ``subset_case``; both K5 kernels
    (``ffd_fused_headroom``, ``ffd_fused_commit``) block by block on every
    ``examples.FUSED_CASES`` arena at F = 4 (each with a vectorized and a
-   sequential block; "striped" also at the catalog's 812 types), and on
-   the lane axis with one lane and with three lanes that branch apart;
+   sequential block; "striped" also at the catalog's 812 types), on
+   the lane axis with one lane and with three lanes that branch apart,
+   and one fused dispatch of 65,552 lanes (more than grid y holds),
+   each lane equal to the plain solve of its arena;
 4. the config-2 path: ``CUDASolver(incremental=False)`` solves config 2
    from scratch through ``Solver.solve`` (one warm-up, then timed rounds)
    with every launch counter set to 0 just before and read just after;
@@ -53,11 +55,13 @@ Phases (any failure exits non-zero before the result line):
    plain versions' on the same CUDA tensors, and every decision the plain
    path's: the plain rows (a, b) or the plain evaluator on the CPU (c),
    with every simulate by ``CUDASolver(device="cpu")``;
-8. the G-axis path: each K6 kernel against its plain part over 512 group
-   steps of BASELINE config 7 (``examples.config7``, 50,000 pods, 10,000
+8. the G-axis path: both K6 kernels (``ffd_pruned_probe``,
+   ``ffd_pruned_commit``) against their plain parts over 512 group steps
+   of BASELINE config 7 (``examples.config7``, 50,000 pods, 10,000
    signatures) from the first carry, from a mid-scan carry and at S = 1
-   (the headroom launch's new-node tables included); the host's enqueue
-   of the G steps without a synchronise beside the card's span; then
+   (the probe's selection, candidates, headroom and new-node tables);
+   the host's enqueue of the G steps (two launches a step) without a
+   synchronise beside the card's span; then
    ``CUDASolver()`` solves config 7 on the pruned kernels (one warm-up,
    timed rounds, counters set to 0 just before and read just after)
    with 0 bails, fingerprint-equal to the host engine on the CPU;
@@ -157,7 +161,9 @@ Phases (any failure exits non-zero before the result line):
    kernels, ``Tensor.copy_`` of the same bytes; the suffix solve's device
    time beside the checkpointed full solve's on the warm arena; the K2
    kernels on the lane axis at the whole-fleet round's 2,048 lanes; the
-   K6 kernels at config 7's states, the lane-axis K1 kernels at B = 8
+   K6 kernels at config 7's states (and config 7's step split, two
+   launches a step, beside the figures of three), the lane-axis K1
+   kernels at B = 8
    and 64, the K9 kernels at config 3's states, K8 at the preemption
    round's tables and at the wider waves', and the K5 kernels at the
    striped cluster's vectorized and sequential blocks, with one fused
@@ -223,6 +229,11 @@ C7_SIGS = 10_000
 C7_ROUNDS = 3
 C7_WINDOW = 512
 C7_ENQUEUE_STEPS = 64
+C7_ENQUEUE_REPS = 5
+#: config 7's step before ffd_pruned_probe (select, headroom and commit,
+#: three launches), printed beside this run's split
+C7_STEP_BEFORE = dict(kernels_us=46.00, loop_us=36.35, host_us=28.47,
+                      source="PERF.md section 5, H100 80GB HBM3 at 700 W")
 
 #: the batch path: lanes per solve_batch (examples.batch_snapshots) and
 #: timed rounds after one warm-up
@@ -314,8 +325,8 @@ KERNELS = {
         replaces="karpenter_provider_aws_tpu/scheduling/preempt_jax.py:39"),
     "subset_gather": dict(source=K7_SRC, replaces=f"{K7_REF}:232"),
     "subset_summary": dict(source=K7_SRC, replaces=f"{K7_REF}:253"),
-    "ffd_pruned_select": dict(source=K6_SRC, replaces=f"{FFD_REF}:910"),
-    "ffd_pruned_headroom": dict(source=K6_SRC, replaces=f"{FFD_REF}:939"),
+    "ffd_pruned_probe": dict(source=K6_SRC,
+                             replaces=f"{FFD_REF}:910, {FFD_REF}:939"),
     "ffd_pruned_commit": dict(source=K6_SRC, replaces=f"{FFD_REF}:957"),
     "topo_group_start": dict(source=K9_SRC, replaces=f"{K9_REF}:281"),
     "topo_pour": dict(source=K9_SRC, replaces=f"{K9_REF}:669"),
@@ -1023,12 +1034,13 @@ def consolidation_phase(cmp=None, device=None, fleet=C4_FLEET,
 
 def check_pruned_window(label, inp, carry, g0, steps, st, S, cmp,
                         keep=()):
-    """Each K6 kernel against its plain part over groups [g0, g0+steps)
-    from ``carry`` (not modified), the headroom launch's new-node table
-    included: the plain parts carry the state, and
-    each step the kernels start from the plain carry. Returns the plain
-    carry after the window and the states (g, carry) at the steps in
-    ``keep`` (for the timing phase)."""
+    """Both K6 kernels against their plain parts over groups [g0,
+    g0+steps) from ``carry`` (not modified): the probe (selection,
+    candidates, headroom and the new-node table) against
+    ``_pruned_probe_ref``, then the commit. The plain parts carry the
+    state, and each step the kernels start from the plain carry. Returns
+    the plain carry after the window and the states (g, carry) at the
+    steps in ``keep`` (for the timing phase)."""
     import torch
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
     from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
@@ -1042,17 +1054,14 @@ def check_pruned_window(label, inp, carry, g0, steps, st, S, cmp,
             kept.append((g, ft.CarryP(*[t.clone() for t in carry])))
         for dst, src in zip(ps.carry, carry):
             dst.copy_(src)
-        sel, cnt = ft._pruned_select_ref(inp, carry, g, E=E, P=P, S=S)
-        fc.ffd_pruned_select(ps, g)
-        cmp("ffd_pruned_select", ps.sel, sel, f"{label} g={g} sel")
-        cmp("ffd_pruned_select", ps.cnt, cnt, f"{label} g={g} cnt")
-        cand_s, k_s = ft._pruned_headroom_ref(inp, carry, g, sel)
-        tab = ft._new_node_table_ref(inp, g, P=P, cap_row=True)
-        fc.ffd_pruned_headroom(ps, g)
-        cmp("ffd_pruned_headroom", ps.cand, cand_s, f"{label} g={g} cand")
-        cmp("ffd_pruned_headroom", ps.ks, k_s, f"{label} g={g} ks")
+        sel, cnt, cand_s, k_s, tab = ft._pruned_probe_ref(inp, carry, g, E=E,
+                                                          P=P, S=S)
+        fc.ffd_pruned_probe(ps, g)
+        for nm, got, want in (("sel", ps.sel, sel), ("cnt", ps.cnt, cnt),
+                              ("cand", ps.cand, cand_s), ("ks", ps.ks, k_s)):
+            cmp("ffd_pruned_probe", got, want, f"{label} g={g} {nm}")
         for nm, got, want in zip(ft.NewNodeTable._fields, ps.table(), tab):
-            cmp("ffd_pruned_headroom", got, want, f"{label} g={g} {nm}")
+            cmp("ffd_pruned_probe", got, want, f"{label} g={g} {nm}")
         carry, take, n_rem = ft._pruned_commit_ref(
             inp, carry, g, sel, cnt, cand_s, k_s, tab, E=E, P=P, S=S)
         fc.ffd_pruned_commit(ps, g)
@@ -1119,10 +1128,7 @@ def g_axis_phase(cmp, device=None, n_pods=C7_PODS, n_sigs=C7_SIGS,
         states += kept
         ps = fc.PrunedState(inp, ft.carry0_pruned(inp, N, E), E=E, P=P,
                             S=S)
-        for g in range(g_mid):
-            fc.ffd_pruned_select(ps, g)
-            fc.ffd_pruned_headroom(ps, g)
-            fc.ffd_pruned_commit(ps, g)
+        fc.pruned_steps(ps, 0, g_mid)
         _, kept = check_pruned_window(
             "config7 mid", inp, ps.carry, g_mid, window, st, S, cmp,
             keep=range(g_mid, g_mid + window, window // 4))
@@ -1135,20 +1141,17 @@ def g_axis_phase(cmp, device=None, n_pods=C7_PODS, n_sigs=C7_SIGS,
             f"the first carry and from group {g_mid} (S={S}), and from the "
             f"first carry at S=1 (bail after the window: {plain_bail}); "
             f"checks {dict((k, cmp.checks[k]) for k in KERNELS if 'pruned' in k)}")
-        # the host's enqueue of the G steps (three ctypes launches a step,
-        # no synchronise) beside the span the card takes for them; then
-        # the host's own cost a step, the first C7_ENQUEUE_STEPS enqueued
-        # behind a sleep kernel, so that a full launch queue never blocks
-        # the host and the card never paces it
+        # the host's enqueue of the G steps (the scan's loop: two ctypes
+        # launches a step, no synchronise) beside the span the card takes
+        # for them; then the host's own cost a step, the first
+        # C7_ENQUEUE_STEPS enqueued behind a sleep kernel, so that a full
+        # launch queue never blocks the host and the card never paces it
         ps = fc.PrunedState(inp, ft.carry0_pruned(inp, N, E), E=E, P=P,
                             S=S)
 
         def steps(n):
             t0 = time.perf_counter()
-            for g in range(n):
-                fc.ffd_pruned_select(ps, g)
-                fc.ffd_pruned_headroom(ps, g)
-                fc.ffd_pruned_commit(ps, g)
+            fc.pruned_steps(ps, 0, n)
             return (time.perf_counter() - t0) * 1e6 / n
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
@@ -1156,19 +1159,30 @@ def g_axis_phase(cmp, device=None, n_pods=C7_PODS, n_sigs=C7_SIGS,
         loop_us = steps(G)
         ev[1].record()
         torch.cuda.synchronize()
-        for dst, src in zip(ps.carry, ft.carry0_pruned(inp, N, E)):
-            dst.copy_(src)
-        torch.cuda._sleep(200_000_000)
-        host_us = steps(C7_ENQUEUE_STEPS)
-        torch.cuda.synchronize()
+        # host_us_per_step is the first window, taken as C7_STEP_BEFORE's
+        # one window was; the further windows show the spread beside it
+        host = []
+        for _ in range(C7_ENQUEUE_REPS):
+            for dst, src in zip(ps.carry, ft.carry0_pruned(inp, N, E)):
+                dst.copy_(src)
+            torch.cuda._sleep(200_000_000)
+            host.append(steps(C7_ENQUEUE_STEPS))
+            torch.cuda.synchronize()
+        host_us = host[0]
         enqueue = dict(loop_us_per_step=loop_us,
                        span_us_per_step=ev[0].elapsed_time(ev[1]) * 1e3 / G,
-                       host_us_per_step=host_us, steps=G,
-                       host_steps=C7_ENQUEUE_STEPS)
-        log(f"[config7] the {G} steps enqueued at {loop_us:.2f} us a step, "
+                       host_us_per_step=host_us, host_us_windows=host,
+                       host_us_median=statistics.median(host),
+                       steps=G, host_steps=C7_ENQUEUE_STEPS,
+                       cluster=ps.cluster, rows=ps.rows)
+        log(f"[config7] the probe on {ps.rows} selecting clusters of "
+            f"{ps.cluster} CTAs a lane; the {G} "
+            f"steps enqueued at {loop_us:.2f} us a step, "
             f"the card's span {enqueue['span_us_per_step']:.2f} us a step; "
-            f"the host alone (behind a sleep kernel, {C7_ENQUEUE_STEPS} "
-            f"steps) {host_us:.2f} us a step")
+            f"the host alone (behind a sleep kernel, the first window of "
+            f"{C7_ENQUEUE_STEPS} steps) {host_us:.2f} us a step; "
+            f"{C7_ENQUEUE_REPS} windows {[round(h, 2) for h in host]}, "
+            f"median {enqueue['host_us_median']:.2f}")
         del inp, ps, c0, fin
 
     fc.reset_launches()
@@ -1190,9 +1204,9 @@ def g_axis_phase(cmp, device=None, n_pods=C7_PODS, n_sigs=C7_SIGS,
         raise AssertionError(f"config 7 solves not all served by the "
                              f"pruned kernel without a bail: {kinds}")
     if solver.device.type == "cuda":
-        missing = [k for k in ("unpack_bits", "ffd_pruned_select",
-                               "ffd_pruned_headroom", "ffd_pruned_commit",
-                               "pack_outputs") if launches[k] <= 0]
+        missing = [k for k in ("unpack_bits", "ffd_pruned_probe",
+                               "ffd_pruned_commit", "pack_outputs")
+                   if launches[k] <= 0]
         if missing:
             raise AssertionError(f"kernels never launched on the G-axis "
                                  f"path: {missing}")
@@ -1935,7 +1949,27 @@ def check_fused_cases(cmp, dev):
                 st["F"]))
             cmp("pack_outputs", many[b], plain,
                 f"striped-812 lanes={B} lane {b} packed solve")
-    return len(cases) + 2
+    # more lanes than grid y's 65,535 blocks (hazard 57: the fused
+    # commit's clusters spread the lane over grid y and z): 16 mixed
+    # striped lanes repeated 4,097 times in one dispatch, each lane equal
+    # to the plain solve of its arena
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops.hostpack import pack_inputs1
+    lanes, st = examples.fused_mixed_lanes(16)
+    small = torch.from_numpy(np.stack([
+        pack_inputs1(a, *examples.pack_statics(st)) for a in lanes]))
+    reps = examples.FUSED_WIDE_REPS
+    before = fc.LAUNCHES["ffd_fused_commit"]
+    wide = ft.solve_scan_packed1_many(small.repeat(reps, 1).to(dev),
+                                      **examples.solve_statics(st))
+    if fc.LAUNCHES["ffd_fused_commit"] - before != st["G"] // st["F"]:
+        raise AssertionError("the wide fused round was not one dispatch")
+    plain = torch.stack([ft.solve_scan_packed1(
+        small[b], **examples.solve_statics(st)) for b in range(16)])
+    cmp("ffd_fused_commit", wide, plain.repeat(reps, 1).to(dev),
+        f"fused round of {16 * reps} lanes")
+    del wide
+    return len(cases) + 3
 
 
 def fused_phase(cmp, device=None, n_pods=S13_PODS, n_sigs=S13_SIGS,
@@ -2301,7 +2335,7 @@ def mesh_phase(cmp, device=None, cells=None, rounds=M14_ROUNDS,
     outs = run_ranks(examples.mesh_cell_rank, ranks,
                      pick_backend(ranks, dev), M14_TIMEOUT_S,
                      args=(cells, rounds, device), deadline_s=900,
-                     threads=2, build=on_card)
+                     threads=2, build=on_card, device=dev)
     t_ranks = time.perf_counter() - t0
     shapes = {"tp": ("tp", 1, ranks), "dp2": ("dp2", 2, ranks // 2)}
     for name, _n, _s in cells:
@@ -3035,25 +3069,23 @@ def k6_times(c7, launches):
     buf, st, S, states = c7
     T, D, Z, C, G, E, P = (st[k] for k in "T D Z C G E P".split())
     N = E + st["n_max"]
+    TB = fc.table_blocks(T)
     inp = ft._packed_inputs_ref(torch.from_numpy(buf).cuda(), T, D, Z, C,
                                 G, E, P, 0, 0, 0)
     ps = fc.PrunedState(inp, ft.carry0_pruned(inp, N, E), E=E, P=P, S=S)
-    acc = {k: [] for k in ("ffd_pruned_select", "ffd_pruned_headroom",
-                           "ffd_pruned_commit")}
+    acc = {k: [] for k in ("ffd_pruned_probe", "ffd_pruned_commit")}
     slot = torch.arange(N, device=inp.A.device)
     for g, carry in states:
         def restore(carry=carry):
             for dst, src in zip(ps.carry, carry):
                 dst.copy_(src)
         restore()
-        sel, cnt = ft._pruned_select_ref(inp, carry, g, E=E, P=P, S=S)
-        cand_s, k_s = ft._pruned_headroom_ref(inp, carry, g, sel)
+        sel, cnt, cand_s, k_s, tab = ft._pruned_probe_ref(inp, carry, g, E=E,
+                                                          P=P, S=S)
         nxt, take, _ = ft._pruned_commit_ref(
-            inp, carry, g, sel, cnt, cand_s, k_s,
-            ft._new_node_table_ref(inp, g, P=P, cap_row=True), E=E, P=P,
-            S=S)
+            inp, carry, g, sel, cnt, cand_s, k_s, tab, E=E, P=P, S=S)
         n_sel = int(cnt[0])
-        # the rows the select's type screen reads: open, admitted, alive,
+        # the rows the screen's type overlap needs: open, admitted, alive,
         # bound-positive, with a zone and a capacity-type overlap
         R = inp.R[g]
         pool = carry.pool.long()
@@ -3065,27 +3097,23 @@ def k6_times(c7, launches):
                         & (qb.amin(-1) > 0)
                         & (carry.zones & inp.agz[g]).any(1)
                         & (carry.ct & inp.agc[g]).any(1)).sum())
-        tab = ft._new_node_table_ref(inp, g, P=P, cap_row=True)
-        fc.ffd_pruned_select(ps, g)
-        acc["ffd_pruned_select"].append((
-            time_launches(lambda: fc.ffd_pruned_select(ps, g)),
-            time_launches(lambda: ft._pruned_select_ref(
+        fc.ffd_pruned_probe(ps, g)
+        acc["ffd_pruned_probe"].append((
+            time_launches(lambda: fc.ffd_pruned_probe(ps, g)),
+            time_launches(lambda: ft._pruned_probe_ref(
                 inp, carry, g, E=E, P=P, S=S), reps=10),
-            2 * N * D * 8 + N * (4 + 1 + Z + C) + P + D * 8 + Z + C + T
-            + screened * T + S * 4 + 8,
-            N * D + screened * T))
-        acc["ffd_pruned_headroom"].append((
-            time_launches(lambda: fc.ffd_pruned_headroom(ps, g)),
-            time_launches(lambda: (ft._pruned_headroom_ref(
-                inp, carry, g, sel), ft._new_node_table_ref(
-                    inp, g, P=P, cap_row=True)), reps=10),
-            # the selected rows; the catalog, F, offerings, pool tables and
-            # daemon rows once; writes: the candidate rows and headrooms,
-            # the table (candn, hrn, caps, cap_hint rows)
-            n_sel * (T + D * 8 + Z + C + 4) + T * D * 8 + T + T * Z * C
-            + D * 8 + Z + C + P * (T + Z + C + D * 8) + S * T + S * 8 + 4
-            + P * (9 * T + 8 + D * 8),
-            int(cand_s.sum()) * D + n_sel * T * Z * C
+            # reads, each once: every slot's pool, alive, cap_hint, used,
+            # zones and ct, the screened rows' types, the group's R, agz,
+            # agc, admit and F rows; the catalog A and offerings; the pool
+            # tables and daemon rows. Writes: sel, cnt, the candidate rows
+            # and headrooms, the table (candn, hrn, the partial caps and
+            # cap_hint rows)
+            2 * N * D * 8 + N * (4 + 1 + Z + C) + screened * T + D * 8 + Z
+            + C + P + T + T * D * 8 + T * Z * C + P * (T + Z + C + D * 8)
+            + S * 4 + 8 + S * T + S * 8 + P * (9 * T + TB * 8 + TB * D * 8),
+            # the bound pass and the screen's overlap, the selected rows'
+            # offerings and headroom, the table's candidates and headroom
+            N * D + screened * T + int(cand_s.sum()) * D + n_sel * T * Z * C
             + P * T * (2 * D + Z * C)))
 
         def setup(ps=ps, carry=carry, sel=sel, cnt=cnt, cand_s=cand_s,
@@ -4020,8 +4048,7 @@ def main() -> int:
     log(f"[time] config 7 pruned solve: device ms from the per-launch times "
         f"x launches per solve {c7_dev:.3f} (wall p50 {c7['p50_ms']:.3f}); "
         f"summary {json.dumps(c7)}")
-    step = {k: per[k] * 1e3 for k in ("ffd_pruned_select",
-                                      "ffd_pruned_headroom",
+    step = {k: per[k] * 1e3 for k in ("ffd_pruned_probe",
                                       "ffd_pruned_commit")}
     enq = c7["enqueue"]
     pacer = "host" if enq["host_us_per_step"] > sum(step.values()) \
@@ -4031,7 +4058,11 @@ def main() -> int:
         f"enqueues a step in {enq['host_us_per_step']:.2f} us, the loop of "
         f"G steps ran at {enq['loop_us_per_step']:.2f} us a step and the "
         f"card spanned {enq['span_us_per_step']:.2f} us a step: paced by "
-        f"the {pacer}")
+        f"the {pacer}; before the probe (three launches a step, "
+        f"{C7_STEP_BEFORE['source']}): kernels "
+        f"{C7_STEP_BEFORE['kernels_us']} us, loop "
+        f"{C7_STEP_BEFORE['loop_us']} us, host alone "
+        f"{C7_STEP_BEFORE['host_us']} us")
     for B, (k1, statics) in batch_arenas.items():
         dev_ms = solve_device_ms(lambda: ft.solve_scan_packed1_many(
             k1[0], **statics), reps=5)

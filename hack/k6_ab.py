@@ -2,7 +2,7 @@
 
 Runs ``chip_smoke.py``'s config-7 phase (``g_axis_phase``: the kernels
 held against their plain parts, then config 7 solved through
-``CUDASolver``) and its per-launch timing of the three K6 kernels
+``CUDASolver``) and its per-launch timing of the K6 kernels
 (``k6_times``), and prints one line ``AB <tag> {json}``: microseconds a
 launch per kernel, the solve's p50 and kernel split in ms, and the host's
 enqueue per step. To compare two builds, run it on both checkouts in one

@@ -19,8 +19,9 @@
 //   which reads no carry.
 //
 // ffd_fused_commit (the block): one thread-block cluster of CS CTAs of
-//   512 threads per lane (grid (CS, L), launched by cudaLaunchKernelEx
-//   with a cluster dimension; 1,024 threads spilled registers, and each
+//   512 threads per lane (grid x = CS, the lane on grid y and z by
+//   lane_grid, so any L launches; by cudaLaunchKernelEx with a cluster
+//   dimension; 1,024 threads spilled registers, and each
 //   CTA holds one copy of the lane's arguments in shared memory, not one
 //   per thread). CTA r owns the slot chunk [r*ceil(N/CS),
 //   ...): its slots' recomputed headroom, fills and narrowing and the
@@ -280,9 +281,13 @@ ffd_fused_commit_kernel(FusedArgs args, i64 g0) {
     __shared__ u64 scan[33 * kScanW];
     __shared__ i64 bud[kScanW];
     __shared__ FfdArgs sa;         // the lane's view, one copy a CTA
+    const unsigned lane = grid_lane();
+    // The (y, z) grid's spare lanes. A cluster spans grid x only, so all
+    // its CTAs share one lane and leave together: no cluster.sync() below
+    // is reached by part of a cluster.
+    if (lane >= args.f.L) return;
     cg::cluster_group cl = cg::this_cluster();
     const i64 CS = cl.num_blocks(), rank = cl.block_rank();
-    const unsigned lane = blockIdx.y;
     if (threadIdx.x == 0) sa = lane_view(args.f, lane);
     __syncthreads();
     const FfdArgs& a = sa;
@@ -382,7 +387,8 @@ int karp_ffd_fused_cluster(const FusedArgs* a) {
         int err = set_smem((const void*)ffd_fused_commit_kernel, smem);
         if (err) return -err;
         cudaLaunchConfig_t cfg = {};
-        cfg.gridDim = dim3((unsigned)cs, (unsigned)a->f.L, 1);
+        cfg.gridDim = dim3((unsigned)cs);
+        lane_grid(a->f.L, &cfg.gridDim);
         cfg.blockDim = dim3(kCommitThreads, 1, 1);
         cfg.dynamicSmemBytes = smem;
         cudaLaunchAttribute attr[1];
@@ -403,12 +409,13 @@ int karp_ffd_fused_cluster(const FusedArgs* a) {
 
 int karp_ffd_fused_commit(const FusedArgs* a, long long g0, void* stream) {
     const i64 cs = a->cluster;
-    if (cs < 1 || cs > 8 || a->f.L > 65535) return (int)cudaErrorInvalidValue;
+    if (cs < 1 || cs > 8) return (int)cudaErrorInvalidValue;
     const size_t smem = commit_smem(a, cs);
     int err = set_smem((const void*)ffd_fused_commit_kernel, smem);
     if (err) return err;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)cs, (unsigned)a->f.L, 1);
+    cfg.gridDim = dim3((unsigned)cs);   // the lane on y and z, as lane_grid
+    lane_grid(a->f.L, &cfg.gridDim);
     cfg.blockDim = dim3(kCommitThreads, 1, 1);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = (cudaStream_t)stream;

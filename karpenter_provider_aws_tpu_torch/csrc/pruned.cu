@@ -1,4 +1,4 @@
-// K6, the pruned scan (the G-axis kernel), as three kernels per group step.
+// K6, the pruned scan (the G-axis kernel), as two kernels per group step.
 //
 // Replaces karpenter_provider_aws_tpu/ops/ffd_jax.py:solve_scan_packed1_pruned
 // and solve_scan_packed1_pruned_many (_packed1_pruned_body, _solve_pruned,
@@ -17,23 +17,59 @@
 // own strides): L independent pruned solves of one shape in each launch,
 // each lane with its own carry, selection and bail flag.
 //
-// ffd_pruned_select: one block of 1024 threads per lane. One warp per slot
-//   tests the slot (not existing, alive, open and admitted, k_bound =
-//   min_d floor((cap_hint - used) / R) > 0 with BIG where R = 0, and an
-//   overlap of types & F, zones & agz and ct & agc); the flags go to
-//   k [N] as scratch, then a block-wide exclusive scan over contiguous
-//   slot chunks compacts the first S into sel [S] in slot order (-1
-//   past them) and writes cnt = (n_sel, n_pos).
-// ffd_pruned_headroom: one block of 256 threads per (selected row, lane),
-//   the lane on grid y and z (lane_grid). Threads stride over T and write
-//   the candidate row cand [S, T] (types & F & an offering in the narrowed
-//   zone x capacity-type product) and reduce the exact headroom ks [S]
-//   with ffd_common.cuh's headroom(); rows past n_sel write False and 0.
-//   P * table_blocks(T) more blocks per lane write the group's new-node
-//   table, a chunk of 256 types of one pool each (ffd_step.cuh
-//   new_node_table_block): candn/hrn [P, T], the partial caps capn and
-//   the opened rows' partial cap_hint rows cap_row. None of it reads the
-//   carry, so it rides this launch beside the selected rows.
+// ffd_pruned_probe (ffd_jax.py:910-946: the bound pass, the compatibility
+//   screen, the first S slots in slot order, their exact candidates and
+//   headroom; and the group's new-node table): thread-block clusters of
+//   CS CTAs of 1,024 threads, NR selecting clusters and TC table
+//   clusters a lane (grid x = CS * (NR + TC), the lane on grid y and z by
+//   lane_grid, launched by cudaLaunchKernelEx with a cluster dimension of
+//   CS). Every pointer comes from the __grid_constant__ parameter moved
+//   by the lane's stride; no thread copies the argument struct. Each
+//   selecting cluster:
+//   - screens every slot: CTA c owns the slot chunk [c*ceil(N/CS), ...),
+//     one warp a slot (N = 256 on 8 CTAs: one slot for each of the 32
+//     warps). What a lane reads of the group is loaded once before the
+//     slots (its admit entry, request value, zone x capacity-type pair,
+//     eight F words); a slot's loads are split over the warp's lanes and
+//     issued together (pool, alive, one (cap_hint, used) pair a lane per
+//     resource, one zone x capacity-type pair a lane, the types & F
+//     overlap in 4-byte words when the rows are 4-byte aligned, as
+//     T = 812 is). floor((cap_hint - used) / R) >= 1 is cap_hint - used
+//     >= R for R > 0, so the bound pass divides nothing. The slot's value,
+//     its zone x capacity-type mask when it is flagged and 0 when not, is
+//     stored into every CTA of the cluster over distributed shared memory
+//     (map_shared_rank), after a split cluster barrier begun at entry has
+//     shown that every CTA of the cluster started; one cluster.sync()
+//     then publishes them, and no CTA touches another's shared memory
+//     after it;
+//   - selects in every CTA at once: each warp counts the flags of its
+//     words of 32 slots by ballots, then ranks them after the lower
+//     warps' counts. Cluster r keeps the ranks i = r (mod NR) below S,
+//     kProbeRows a pass, with each row's mask; its rows past n_sel get
+//     -1; its CTA 0 writes those entries of sel and, in cluster 0, cnt;
+//   - computes its rows: the types in chunks of 32 (chunk k: CTA k mod
+//     CS), a warp a (row, chunk), a lane a type whose loads are issued
+//     together (the slot's type, F, the offerings as 4-byte words, the
+//     allocatable row), cand [S, T] = types & F & an offering in the
+//     narrowed zone x capacity-type product, and the exact headroom
+//     (headroom() of ffd_common.cuh, each floor quotient from the fp64
+//     product with 1 / R, corrected by one and proven by its int64
+//     remainder, else floordiv); the warp's maximum goes into ks [S] by a
+//     global atomicMax (its cluster's rows zeroed before the barrier).
+//     Rows past n_sel write False and 0. (An earlier build took the
+//     maxima by 64-bit atomicMax into another CTA's shared memory, before
+//     the start barrier below existed, and lost maxima on the card; they
+//     go to ks.)
+//   The TC = ceil(P * table_blocks(T) / CS) table clusters write the
+//   group's new-node table, one chunk of 256 types of one pool a CTA, by
+//   ffd_step.cuh new_node_table_block (the code K5's table blocks run):
+//   candn/hrn [P, T], the partial caps capn and the opened rows' partial
+//   cap_hint rows cap_row, from one shared copy of the lane's arguments.
+//   None of it reads the carry, so it runs on other SMs while the
+//   selecting clusters screen; they never reach a cluster barrier. CS
+//   and NR follow a fixed rule (karp_ffd_pruned_cluster): the first of
+//   (8, 4), (8, 2), (8, 1), (4, 1), (2, 1) whose L * (NR + TC) clusters
+//   the card holds at once, else (1, 1).
 // ffd_pruned_commit: one block per lane, the base commit without
 //   minValues floors, with one copy of the lane's arguments in shared
 //   memory. k from the selection and the existing rows; the pool-limit
@@ -57,15 +93,24 @@
 //   the kernel on 1,024 (PERF.md, section 6).
 //
 // What bounds them on this card: at config 7 (N = 256, T = 812, D = 8,
-//   S = 64) a step moves ~0.3 MB (types read by the select's screen, the
+//   S = 64) a step moves ~0.3 MB (types read by the probe's screen, the
 //   selected rows' candidates, the table) and does ~1e5 integer
 //   operations, a fraction of a microsecond at the card's rates; each
-//   launch costs its latency, and the commit the latency of one block
-//   walking its barriers (about ten now; PERF.md has the times). A later
-//   PR would run the G steps as one persistent launch or one CUDA graph.
+//   launch costs its latency, and each kernel the latency of its chains
+//   of dependent loads and barriers and, on 1,024-thread CTAs, its
+//   instruction count (clock stamps of an instrumented build found the
+//   screen and the rows issue-bound, not waiting on memory). The probe
+//   pays one chain a slot, one cluster barrier and few divisions where
+//   the two kernels it replaced paid eight chains a warp, a second
+//   launch and an int64 division a (type, resource); PERF.md has the
+//   times. A later PR would run the G steps as one persistent launch or
+//   one CUDA graph.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "ffd_step.cuh"
+
+namespace cg = cooperative_groups;
 
 // Outside the unnamed namespace: the exported entry points take it, and a
 // type of that namespace would give them internal linkage.
@@ -81,13 +126,16 @@ struct PrunedArgs {
     i64* cap_row;     // [P, table_blocks(T), D] its partial cap_hint rows
     i64 S;
     i64 lane_bytes[7];   // lane strides of cap_hint .. cap_row
+    i64 cluster;      // CTAs a cluster in ffd_pruned_probe (1, 2, 4, 8)
+    i64 rows;         // its selecting clusters a lane (1, 2, 4)
 };
 
 namespace {
 
-constexpr int kSelectThreads = 1024;
-constexpr int kHeadroomThreads = 256;
+constexpr int kProbeThreads = 1024;
+constexpr int kProbeRows = 256;  // selected rows a probe pass takes
 constexpr int kCommitThreads = 1024;
+constexpr unsigned kFull = 0xffffffffu;
 
 // The arguments of lane `lane`: the base fields by lane_view, the seven
 // pruned pointers (consecutive 8-byte members) by their own strides.
@@ -102,111 +150,414 @@ __device__ __forceinline__ PrunedArgs pruned_view(const PrunedArgs& p,
     return v;
 }
 
-__global__ void __launch_bounds__(kSelectThreads)
-ffd_pruned_select_kernel(PrunedArgs args, i64 g) {
-    __shared__ i64 tmp[33];
-    const PrunedArgs p = pruned_view(args, blockIdx.x);
-    const FfdArgs& a = p.f;
-    const i64 N = a.N, T = a.T, D = a.D, Z = a.Z, C = a.C, P = a.P;
-    const i64 E = a.E, S = p.S;
-    const i64* R = a.R + g * D;
-    const int tid = threadIdx.x, wl = tid & 31;
-    const int warp = tid >> 5, nwarps = blockDim.x >> 5;
+// Lane `lane`'s pointer of an FfdArgs or PrunedArgs field, computed
+// from the kernel's __grid_constant__ parameter (read in place, no copy):
+// the field moved by its lane stride (a field the lanes share has
+// stride 0).
+template <typename T>
+__device__ __forceinline__ T* lane_ptr(T* p, i64 stride, unsigned lane) {
+    return reinterpret_cast<T*>(reinterpret_cast<size_t>(p)
+                                + (size_t)(lane * stride));
+}
+#define LANE_F(x, field, i) lane_ptr(x.f.field, x.f.lane_bytes[i], lane)
+#define LANE_P(x, field, i) lane_ptr(x.field, x.lane_bytes[i], lane)
 
-    // ---- bound pass + compatibility screen: one warp per slot ----------
-    // every lane of a warp reads the same slot, so `ok` is warp-uniform
-    for (i64 s = warp; s < N; s += nwarps) {
-        const int pool = a.pool[s];
-        bool ok = s >= E && a.alive[s] && pool >= 0
-            && a.admit[g * P + (pool > P - 1 ? P - 1 : pool)];
-        if (ok) {
-            i64 m = KARP_BIG;
-            for (i64 d = 0; d < D; ++d) {
-                const i64 r = R[d];
-                if (r > 0) {
-                    i64 q = floordiv(wsub(p.cap_hint[s * D + d],
-                                          a.used[s * D + d]), r);
-                    if (q < m) m = q;
-                }
+// Positions of the FfdArgs pointer fields the probe reads (their order in
+// ffd_common.cuh), and of PrunedArgs' own.
+enum : int {
+    kA = 0, kAvailZC = 1, kR = 2, kF = 4, kAgz = 5, kAgc = 6,
+    kAdmit = 7, kDaemon = 8, kPoolTypes = 9, kPoolAgz = 10, kPoolAgc = 11,
+    kUsed = 18, kTypes = 19, kZones = 20, kCt = 21, kPool = 22, kAlive = 23,
+    kCand = 26, kHrn = 28, kCandn = 29
+};
+enum : int { kCapHint = 0, kSel = 2, kCnt = 3, kKs = 4, kCapn = 5,
+             kCapRow = 6 };
+
+// The headroom's registers: up to kDR resources of a type's allocatable
+// row are loaded at once; a wider D takes the rest in a loop.
+constexpr int kDR = 8;
+// Offering bytes of a type loaded at once (Z*C beyond it: a loop).
+constexpr int kZCR = 16;
+// F words (4 types each) a lane of the screen holds: T <= 32 * 4 * kFW
+// reads the overlap by words, a wider T by bytes.
+constexpr int kFW = 8;
+
+// floor(n / r) for r > 0, exact, with rinv = 1.0 / r: the fp64 product
+// n * rinv, floored and moved by one if its int64 remainder says so,
+// kept when that remainder then lies in [0, r), else floordiv. With
+// r < 2^52 and |n * rinv| < 2^62 the fp64 floor is off by at most ~2^10,
+// so (q* - q) * r cannot wrap int64 and a remainder in [0, r) proves
+// q = q*; the one step corrects the usual error of one.
+__device__ __forceinline__ i64 floordiv_recip(i64 n, i64 r, double rinv) {
+    if (r < (1LL << 52)) {
+        const double z = floor((double)n * rinv);
+        if (fabs(z) < 4.0e18) {
+            i64 q = (i64)z;
+            i64 rem = wsub(n, wmul(q, r));
+            if (rem < 0) {
+                --q;
+                rem = wadd(rem, r);
+            } else if (rem >= r) {
+                ++q;
+                rem = wsub(rem, r);
             }
-            ok = m > 0;
+            if (rem >= 0 && rem < r) return q;
         }
-        if (ok) {
-            bool zo = false, co = false;
-            for (i64 z = 0; z < Z; ++z)
-                zo |= a.zones[s * Z + z] && a.agz[g * Z + z];
-            for (i64 c = 0; c < C; ++c)
-                co |= a.ct[s * C + c] && a.agc[g * C + c];
-            ok = zo && co;
-        }
-        if (ok) {
-            bool hit = false;
-            for (i64 t = wl; t < T; t += 32)
-                hit |= a.types[s * T + t] && a.F[g * T + t];
-            ok = __any_sync(0xffffffffu, hit);
-        }
-        if (wl == 0) a.k[s] = ok;
     }
-    __syncthreads();
-
-    // ---- the first S flagged slots, in slot order ------------------------
-    const i64 chunk = (N + blockDim.x - 1) / blockDim.x;
-    const i64 lo = tid * chunk, hi = lo + chunk < N ? lo + chunk : N;
-    i64 local = 0;
-    for (i64 s = lo; s < hi; ++s) local += a.k[s];
-    i64 total;
-    i64 rank = block_excl_scan(local, tmp, &total);
-    for (i64 s = lo; s < hi; ++s) {
-        if (!a.k[s]) continue;
-        if (rank < S) p.sel[rank] = (int)s;
-        ++rank;
-    }
-    const i64 nsel = total < S ? total : S;
-    for (i64 i = nsel + tid; i < S; i += blockDim.x) p.sel[i] = -1;
-    if (tid == 0) {
-        p.cnt[0] = (int)nsel;
-        p.cnt[1] = (int)total;
-    }
+    return floordiv(n, r);
 }
 
-__global__ void __launch_bounds__(kHeadroomThreads)
-ffd_pruned_headroom_kernel(PrunedArgs args, i64 g) {
-    extern __shared__ long long colmax[];   // [D] of a table block
-    __shared__ i64 red[33];
-    const unsigned lane = grid_lane();
-    if (lane >= args.f.L) return;   // the (y, z) grid's spare lanes
-    const PrunedArgs p = pruned_view(args, lane);
-    const FfdArgs& a = p.f;
-    const i64 i = blockIdx.x, T = a.T, D = a.D;
-    if (i >= p.S) {                 // chunk c of the table of pool pi
-        const i64 TB = table_blocks(T), pi = (i - p.S) / TB;
-        const i64 c = (i - p.S) % TB;
-        new_node_table_block(a, g, pi, c, a.candn + pi * T, a.hrn + pi * T,
-                             p.capn + pi * TB + c,
-                             p.cap_row + (pi * TB + c) * D, red, colmax);
-        return;
-    }
-    u8* cand = a.cand + i * T;
-    if (i >= p.cnt[0]) {            // past the selection: an empty row
-        for (i64 t = threadIdx.x; t < T; t += blockDim.x) cand[t] = 0;
-        if (threadIdx.x == 0) p.ks[i] = 0;
-        return;
-    }
-    const i64 s = p.sel[i];
-    const i64* R = a.R + g * D;
-    const i64* used = a.used + s * D;
-    i64 kmax = 0;
-    for (i64 t = threadIdx.x; t < T; t += blockDim.x) {
-        const bool c = a.types[s * T + t] && a.F[g * T + t]
-            && offering_ok(a, g, s, t);
-        cand[t] = c;
-        if (c) {
-            const i64 hr = headroom(a.A + t * D, used, R, D);
-            kmax = hr > kmax ? hr : kmax;
+// headroom() of ffd_common.cuh with the first kDR allocatable values in
+// `av` (loaded by the caller, the rest from `cap`), on floordiv_recip
+// (rinv[d] = 1.0 / R[d] where R[d] > 0): the same value.
+__device__ __forceinline__ i64 headroom_regs(const i64* av, const i64* cap,
+                                             const i64* base, const i64* R,
+                                             const double* rinv, int D) {
+    i64 m = KARP_BIG;
+#pragma unroll
+    for (int d = 0; d < kDR; ++d) {
+        if (d < D && R[d] > 0) {
+            const i64 q = floordiv_recip(wsub(av[d], base[d]), R[d],
+                                         rinv[d]);
+            m = q < m ? q : m;
         }
     }
-    const i64 k = block_max(kmax, red);
-    if (threadIdx.x == 0) p.ks[i] = k;
+    for (int d = kDR; d < D; ++d) {
+        if (R[d] > 0) {
+            const i64 q = floordiv_recip(wsub(cap[d], base[d]), R[d],
+                                         rinv[d]);
+            m = q < m ? q : m;
+        }
+    }
+    return m < 0 ? 0 : m;
+}
+
+// Whether the offerings row `row` [ZC] has an available offering among
+// the zone x capacity-type pairs of `mask` (bit z*C + c; ZC <= 64); its
+// first kZCR bytes are in `ab` (loaded by the caller).
+__device__ __forceinline__ bool offer_regs(const u8* ab, const u8* row,
+                                           u64 mask, i64 ZC) {
+    unsigned hit = 0;
+#pragma unroll
+    for (int q = 0; q < kZCR; ++q) hit |= (unsigned)((mask >> q) & 1) & ab[q];
+    for (i64 q = kZCR; q < ZC; ++q)
+        hit |= (unsigned)((mask >> q) & 1) & row[q];
+    return hit != 0;
+}
+
+// The zone x capacity-type mask (bit z*C + c) of rows x and y, one pair a
+// lane: zx[z] & zy[z] & cx[c] & cy[c] (ZC <= 64). Warp-collective.
+__device__ __forceinline__ u64 zc_mask(const u8* zx, const u8* zy,
+                                       const u8* cx, const u8* cy, i64 Z,
+                                       i64 C) {
+    const int wl = threadIdx.x & 31;
+    u64 mask = 0;
+    for (i64 q0 = 0; q0 < Z * C; q0 += 32) {
+        const i64 q = q0 + wl;
+        bool b = false;
+        if (q < Z * C) {
+            const i64 z = q / C, c = q % C;
+            b = (zx[z] & zy[z] & cx[c] & cy[c]) != 0;
+        }
+        mask |= (u64)__ballot_sync(kFull, b) << q0;
+    }
+    return mask;
+}
+
+// The probe's dynamic shared memory: R [D], the table's column maxima
+// [D], the reciprocals 1.0 / R [D] (doubles), then the selecting CTAs'
+// per-slot values fl [N]
+// (each slot's zone x capacity-type mask when it is flagged, else 0;
+// every CTA of the cluster holds all N), a pass's zone x capacity-type
+// masks zcm [kProbeRows] (in a table CTA: new_node_table_block's 33
+// reduction words) and the same as byte lanes zcb [kProbeRows, 4] (bit q
+// of the mask as byte q, for Z*C <= 16), and its slots rows [kProbeRows].
+struct ProbeSmem {
+    i64 *R, *colmax;
+    double* rinv;
+    u64 *fl, *zcm;
+    unsigned* zcb;
+    int* rows;
+};
+
+__host__ __device__ __forceinline__ size_t probe_smem(i64 N, i64 D) {
+    return (size_t)(3 * D + N + kProbeRows) * sizeof(i64)
+        + (size_t)kProbeRows * (4 * sizeof(unsigned) + sizeof(int));
+}
+
+__device__ __forceinline__ ProbeSmem probe_at(i64* w, int N, int D) {
+    ProbeSmem m;
+    m.R = w;
+    m.colmax = m.R + D;
+    m.rinv = (double*)(m.colmax + D);
+    m.fl = (u64*)(m.rinv + D);
+    m.zcm = m.fl + N;
+    m.zcb = (unsigned*)(m.zcm + kProbeRows);
+    m.rows = (int*)(m.zcb + 4 * kProbeRows);
+    return m;
+}
+
+// ffd_pruned_probe (file comment). The lane's first NR = args.rows
+// clusters of CS CTAs each screen every slot and select; cluster r then
+// computes the selected rows i = r (mod NR). The lane's further clusters
+// write the table, one chunk a CTA.
+__global__ void __launch_bounds__(kProbeThreads)
+ffd_pruned_probe_kernel(const __grid_constant__ PrunedArgs args, i64 g64) {
+    extern __shared__ i64 pdyn[];
+    __shared__ FfdArgs ta;                    // a table CTA's lane view
+    __shared__ int npos_sh[1];
+    __shared__ int wcnt[kProbeThreads / 32];   // flags a warp's words hold
+    const unsigned lane = grid_lane();
+    // The (y, z) grid's spare lanes. A cluster spans grid x only, so all
+    // its CTAs share one lane and leave together: the cluster barrier
+    // below is never reached by part of a cluster.
+    if (lane >= args.f.L) return;
+    cg::cluster_group cl = cg::this_cluster();
+    const int CS = (int)cl.num_blocks(), NR = (int)args.rows;
+    const int g = (int)g64;
+    const int N = (int)args.f.N, T = (int)args.f.T, D = (int)args.f.D;
+    const int Z = (int)args.f.Z, C = (int)args.f.C, P = (int)args.f.P;
+    const int E = (int)args.f.E, S = (int)args.S, ZC = Z * C;
+    const int tid = threadIdx.x, wl = tid & 31, warp = tid >> 5;
+    constexpr int nwarps = kProbeThreads / 32;
+    const ProbeSmem m = probe_at(pdyn, N, D);
+    const int ci = (int)blockIdx.x / CS;   // the cluster of the lane
+    if (ci >= NR) {                        // a table cluster: chunk j
+        const int TB = (int)table_blocks(T), j = blockIdx.x - NR * CS;
+        if (j >= P * TB) return;
+        if (tid == 0) ta = lane_view(args.f, lane);
+        __syncthreads();
+        new_node_table_block(ta, g, j / TB, j % TB, ta.candn + j / TB * T,
+                             ta.hrn + j / TB * T,
+                             LANE_P(args, capn, kCapn) + j,
+                             LANE_P(args, cap_row, kCapRow) + j * D,
+                             (i64*)m.zcm, (long long*)m.colmax);
+        return;
+    }
+    // Distributed shared memory may be written only once every CTA of the
+    // cluster has started: arrive here, wait just before the screen's
+    // first store into another CTA (the group's loads run in between).
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+    const int rank = (int)cl.block_rank();
+    const i64* R = LANE_F(args, R, kR) + g * D;
+    const u8* Fg = LANE_F(args, F, kF) + g * T;
+    const u8* agz = LANE_F(args, agz, kAgz) + g * Z;
+    const u8* agc = LANE_F(args, agc, kAgc) + g * C;
+    const u8* admit = LANE_F(args, admit, kAdmit) + g * P;
+    const i64* used = LANE_F(args, used, kUsed);
+    const u8* types = LANE_F(args, types, kTypes);
+    const u8* zones = LANE_F(args, zones, kZones);
+    const u8* ct = LANE_F(args, ct, kCt);
+    const int* poolv = LANE_F(args, pool, kPool);
+    const u8* alivev = LANE_F(args, alive, kAlive);
+    const i64* cap_hint = LANE_P(args, cap_hint, kCapHint);
+    i64* ks = LANE_P(args, ks, kKs);
+    if (rank == 0)   // this cluster's rows of ks, for the atomics below
+        for (int i = ci + NR * tid; i < S; i += NR * kProbeThreads) ks[i] = 0;
+
+    // ---- bound pass + compatibility screen: one warp a slot -------------
+    // What a lane reads of the group is loaded once: its admit entry,
+    // request value, zone x capacity-type pair and F words. A slot's
+    // loads are split over the warp's lanes and issued together, then
+    // reduced; `ok` is warp-uniform. floor((cap_hint - used) / R) >= 1 is
+    // cap_hint - used >= R for R > 0: no division. The slot's value (its
+    // zone x capacity-type mask when flagged, else 0) goes to every CTA
+    // of the cluster.
+    const int cchunk = (N + CS - 1) / CS;
+    const int c0 = rank * cchunk < N ? rank * cchunk : N;
+    const int c1 = c0 + cchunk < N ? c0 + cchunk : N;
+    const int zq = ZC <= 32 && wl < ZC ? wl / C : 0;
+    const int cq = ZC <= 32 && wl < ZC ? wl % C : 0;
+    const u8 adm = wl < P ? admit[wl] : 0;
+    const i64 r = wl < D ? R[wl] : 0;
+    const bool gpair = ZC <= 32 && wl < ZC && (agz[zq] & agc[cq]) != 0;
+    const bool words = (T & 3) == 0 && ((size_t)types & 3) == 0
+        && ((size_t)Fg & 3) == 0 && T <= 32 * 4 * kFW;
+    unsigned fw[kFW];
+#pragma unroll
+    for (int k = 0; k < kFW; ++k)
+        fw[k] = words && (wl + 32 * k) * 4 < T
+            ? ((const unsigned*)Fg)[wl + 32 * k] : 0;
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    for (int s = c0 + warp; s < c1; s += nwarps) {
+        const int pool = poolv[s];
+        const bool alive = alivev[s];
+        const i64 ch = wl < D ? cap_hint[s * D + wl] : 0;
+        const i64 us = wl < D ? used[s * D + wl] : 0;
+        const u8 zs = gpair ? zones[s * Z + zq] : 0;
+        const u8 cs = gpair ? ct[s * C + cq] : 0;
+        bool hit = false;
+        if (words) {   // 4 types a load: the rows' bytes are 0 or 1
+            const unsigned* tw = (const unsigned*)(types + s * T);
+#pragma unroll
+            for (int k = 0; k < kFW; ++k)
+                if ((wl + 32 * k) * 4 < T)
+                    hit |= (tw[wl + 32 * k] & fw[k]) != 0;
+        } else {
+            for (int t = wl; t < T; t += 32)
+                hit |= (types[s * T + t] & Fg[t]) != 0;
+        }
+        bool pos = !(r > 0 && wsub(ch, us) < r);
+        for (int d = wl + 32; d < D; d += 32)
+            pos &= !(R[d] > 0
+                     && wsub(cap_hint[s * D + d], used[s * D + d]) < R[d]);
+        u64 mk;
+        if (ZC <= 32) {
+            mk = __ballot_sync(kFull, gpair && (zs & cs) != 0);
+        } else if (ZC <= 64) {
+            mk = zc_mask(zones + s * Z, agz, ct + s * C, agc, Z, C);
+        } else {   // the any-overlaps alone; the rows take offering_ok
+            bool zo = false, co = false;
+            for (int z = wl; z < Z; z += 32)
+                zo |= (zones[s * Z + z] & agz[z]) != 0;
+            for (int c = wl; c < C; c += 32)
+                co |= (ct[s * C + c] & agc[c]) != 0;
+            mk = __any_sync(kFull, zo) & __any_sync(kFull, co);
+        }
+        const int pc = pool > P - 1 ? P - 1 : (pool < 0 ? 0 : pool);
+        const u8 adm_p = __shfl_sync(kFull, adm, pc & 31);
+        const bool ok = (__all_sync(kFull, pos) & __any_sync(kFull, hit))
+            && mk && s >= E && alive && pool >= 0
+            && (P <= 32 ? adm_p : admit[pc]);
+        if (wl < CS)
+            cl.map_shared_rank(m.fl, (unsigned)wl)[s] = ok ? mk : 0;
+    }
+    for (int d = tid; d < D; d += kProbeThreads) {
+        m.R[d] = R[d];
+        m.rinv[d] = R[d] > 0 ? 1.0 / (double)R[d] : 0.0;
+    }
+    cl.sync();   // every slot's value is in every CTA of the cluster; its
+                 // rows of ks are 0. No CTA touches another's shared
+                 // memory after this barrier.
+
+    // ---- the selection and this cluster's rows, in passes ---------------
+    // the flagged slots ranked by ballots and popcounts over the values;
+    // cluster ci takes the rows i = ci + NR * jj, kProbeRows of them (jj)
+    // a pass. A row's candidates and headroom are split over the cluster
+    // in chunks of 32 types (chunk k: CTA k mod CS), a warp a (row,
+    // chunk), the row's maximum into ks by global atomics.
+    u8* candv = LANE_F(args, cand, kCand);
+    int* sel = LANE_P(args, sel, kSel);
+    const u8* avail = LANE_F(args, avail_zc, kAvailZC);
+    const i64* A = LANE_F(args, A, kA);
+    const int nk = (T + 31) / 32;                              // chunks
+    const int nu = nk > rank ? (nk - rank + CS - 1) / CS : 0;   // this CTA's
+    const int nrow = ci < S ? (S - ci + NR - 1) / NR : 0;     // its rows
+    const bool zwords = ZC <= 16 && (ZC & 3) == 0 && ((size_t)avail & 3) == 0;
+    const int nwd = (N + 31) / 32;                         // slot words
+    const int wpw = (nwd + nwarps - 1) / nwarps;           // a warp's
+    const int lgNR = NR == 4 ? 2 : NR == 2 ? 1 : 0;
+    for (int q0 = 0; q0 < nrow; q0 += kProbeRows) {
+        const int nb = nrow - q0 < kProbeRows ? nrow - q0 : kProbeRows;
+        // each warp counts its contiguous words of 32 slots, then ranks
+        // their flags after the lower warps' counts
+        const int wa = warp * wpw;
+        const int wb = wa + wpw < nwd ? wa + wpw : nwd;
+        int cnt = 0;
+        for (int w = wa; w < wb; ++w) {
+            const int s = 32 * w + wl;
+            cnt += __popc(__ballot_sync(kFull, s < N && m.fl[s] != 0));
+        }
+        if (wl == 0) wcnt[warp] = cnt;
+        __syncthreads();
+        int before = wl < warp ? wcnt[wl] : 0, all = wcnt[wl];
+        for (int off = 16; off > 0; off >>= 1) {
+            before += __shfl_xor_sync(kFull, before, off);
+            all += __shfl_xor_sync(kFull, all, off);
+        }
+        for (int w = wa; w < wb; ++w) {
+            const int s = 32 * w + wl;
+            const u64 v = s < N ? m.fl[s] : 0;
+            const unsigned bal = __ballot_sync(kFull, v != 0);
+            const int rk = before + __popc(bal & ((1u << wl) - 1));
+            const int jj = (rk >> lgNR) - q0;
+            if (v && rk < S && (rk & (NR - 1)) == ci && jj >= 0 && jj < nb) {
+                m.rows[jj] = s;
+                m.zcm[jj] = v;
+                unsigned* zb = m.zcb + 4 * jj;   // the mask as byte lanes
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    unsigned x = 0;
+#pragma unroll
+                    for (int b = 0; b < 4; ++b)
+                        x |= (unsigned)((v >> (4 * k + b)) & 1) << (8 * b);
+                    zb[k] = x;
+                }
+            }
+            before += __popc(bal);
+        }
+        if (tid == 0) npos_sh[0] = all;
+        for (int jj = tid; jj < nb; jj += kProbeThreads)   // past n_sel
+            if (ci + NR * (q0 + jj) >= all) m.rows[jj] = -1;
+        __syncthreads();
+        const int npos = npos_sh[0], nsel = npos < S ? npos : S;
+        if (rank == 0) {
+            for (int jj = tid; jj < nb; jj += kProbeThreads)
+                sel[ci + NR * (q0 + jj)] = m.rows[jj];
+            if (tid == 0 && ci == 0 && q0 == 0) {
+                int* cnt = LANE_P(args, cnt, kCnt);
+                cnt[0] = nsel;
+                cnt[1] = npos;
+            }
+        }
+        for (int u = warp; u < nb * nu; u += nwarps) {
+            const int jj = u / nu;
+            const int t = (rank + (u - jj * nu) * CS) * 32 + wl;
+            const bool in = t < T;
+            const int s = m.rows[jj];              // warp-uniform
+            const int i = ci + NR * (q0 + jj);
+            u8* cand = candv + (size_t)i * T;
+            if (s < 0) {                           // past the selection
+                if (in) cand[t] = 0;
+                continue;
+            }
+            // every load of the cell at once: the slot's type, F, the
+            // offerings, the allocatable
+            u8 tf = 0, ab[kZCR];
+            unsigned aw[4];
+            i64 av[kDR];
+            if (in) tf = types[s * T + t] & Fg[t];
+            if (zwords) {
+#pragma unroll
+                for (int w = 0; w < 4; ++w)
+                    aw[w] = in && 4 * w < ZC
+                        ? ((const unsigned*)(avail + t * ZC))[w] : 0;
+            } else {
+#pragma unroll
+                for (int q = 0; q < kZCR; ++q)
+                    ab[q] = in && q < ZC ? avail[t * ZC + q] : 0;
+            }
+#pragma unroll
+            for (int d = 0; d < kDR; ++d)
+                av[d] = in && d < D ? A[t * D + d] : 0;
+            i64 km = 0;
+            if (in) {
+                bool c = tf != 0;
+                if (c) {
+                    if (zwords) {
+                        const unsigned* zb = m.zcb + 4 * jj;
+                        c = ((aw[0] & zb[0]) | (aw[1] & zb[1])
+                             | (aw[2] & zb[2]) | (aw[3] & zb[3])) != 0;
+                    } else if (ZC <= 64) {
+                        c = offer_regs(ab, avail + t * ZC, m.zcm[jj], ZC);
+                    } else {
+                        c = offering_ok(lane_view(args.f, lane), g, s, t);
+                    }
+                }
+                cand[t] = c;
+                if (c)
+                    km = headroom_regs(av, A + t * D, used + s * D, m.R,
+                                       m.rinv, D);
+            }
+            for (int off = 16; off > 0; off >>= 1) {
+                const i64 o = __shfl_xor_sync(kFull, km, off);
+                km = o > km ? o : km;
+            }
+            if (wl == 0 && km > 0)
+                atomicMax((long long*)&ks[i], (long long)km);
+        }
+        __syncthreads();   // the next pass rewrites the rows
+    }
 }
 
 // Dynamic shared words of the commit: new_node_scalars' output and its
@@ -313,27 +664,74 @@ int set_smem(const void* fn, size_t smem) {
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// Clusters of one lane in the probe: nr selecting ones, then the table's
+// P * table_blocks(T) chunks on cs CTAs each.
+i64 probe_clusters(const PrunedArgs* p, i64 cs, i64 nr) {
+    return nr + (p->f.P * table_blocks(p->f.T) + cs - 1) / cs;
+}
+
+// The probe's launch on clusters of cs CTAs, nr of them selecting a lane;
+// `attr` holds the cluster dimension the configuration points at.
+cudaLaunchConfig_t probe_config(const PrunedArgs* p, i64 cs, i64 nr,
+                                cudaLaunchAttribute* attr,
+                                cudaStream_t stream) {
+    dim3 grid((unsigned)(cs * probe_clusters(p, cs, nr)));
+    lane_grid(p->f.L, &grid);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kProbeThreads, 1, 1);
+    cfg.dynamicSmemBytes = probe_smem(p->f.N, p->f.D);
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+}
+
 }  // namespace
 
 extern "C" {
 
-int karp_ffd_pruned_select(const PrunedArgs* p, long long g, void* stream) {
-    ffd_pruned_select_kernel<<<(unsigned)p->f.L, kSelectThreads, 0,
-                               (cudaStream_t)stream>>>(*p, g);
+int karp_ffd_pruned_probe(const PrunedArgs* p, long long g, void* stream) {
+    const i64 cs = p->cluster, nr = p->rows;
+    if ((cs != 1 && cs != 2 && cs != 4 && cs != 8)
+        || (nr != 1 && nr != 2 && nr != 4))
+        return (int)cudaErrorInvalidValue;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = probe_config(p, cs, nr, attr,
+                                                (cudaStream_t)stream);
+    int err = set_smem((const void*)ffd_pruned_probe_kernel,
+                       cfg.dynamicSmemBytes);
+    if (err) return err;
+    err = (int)cudaLaunchKernelEx(&cfg, ffd_pruned_probe_kernel, *p, (i64)g);
+    if (err) return err;
     return (int)cudaGetLastError();
 }
 
-int karp_ffd_pruned_headroom(const PrunedArgs* p, long long g,
-                             void* stream) {
-    // S rows, then the table: table_blocks(T) blocks for each of P pools
-    dim3 grid((unsigned)(p->S + p->f.P * table_blocks(p->f.T)));
-    lane_grid(p->f.L, &grid);
-    const size_t smem = (size_t)p->f.D * sizeof(i64);
-    int err = set_smem((const void*)ffd_pruned_headroom_kernel, smem);
-    if (err) return err;
-    ffd_pruned_headroom_kernel<<<grid, kHeadroomThreads, smem,
-                                 (cudaStream_t)stream>>>(*p, g);
-    return (int)cudaGetLastError();
+// The probe's shape for the lanes of `p`, as cs + 16 * nr: the first of
+// (8, 4), (8, 2), (8, 1), (4, 1), (2, 1) CTAs a cluster and selecting
+// clusters a lane whose L * probe_clusters clusters the card holds at
+// once; (1, 1) when none does. Negative: a CUDA error, negated.
+int karp_ffd_pruned_cluster(const PrunedArgs* p) {
+    const int shapes[5][2] = {{8, 4}, {8, 2}, {8, 1}, {4, 1}, {2, 1}};
+    for (const auto& sh : shapes) {
+        cudaLaunchAttribute attr[1];
+        const cudaLaunchConfig_t cfg = probe_config(p, sh[0], sh[1], attr,
+                                                    0);
+        int err = set_smem((const void*)ffd_pruned_probe_kernel,
+                           cfg.dynamicSmemBytes);
+        if (err) return -err;
+        int n = 0;
+        err = (int)cudaOccupancyMaxActiveClusters(
+            &n, (const void*)ffd_pruned_probe_kernel, &cfg);
+        if (err) return -err;
+        if (n >= p->f.L * probe_clusters(p, sh[0], sh[1]))
+            return sh[0] + 16 * sh[1];
+    }
+    return 1 + 16;
 }
 
 int karp_ffd_pruned_commit(const PrunedArgs* p, long long g, void* stream) {

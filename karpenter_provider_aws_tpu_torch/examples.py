@@ -491,6 +491,27 @@ def subset_case(hazard: str, seed: int, Gu: int = 6, Ep: int = 16,
     return arena, tprice, lanes, dict(n_max=2, E=Ep, P=P)
 
 
+#: a fused round wider than grid y holds (hazard 57): the 16 lanes of
+#: ``fused_mixed_lanes(16)``, each repeated this many times (65,552)
+FUSED_WIDE_REPS = 4097
+
+
+def fused_mixed_lanes(B: int) -> Tuple[list, Dict]:
+    """B striped lanes whose blocks branch differently: lane b flips one
+    block's flags (or none, the cycle of eight below) and rolls the
+    counts by b. Returns (the lanes' arrays, the statics)."""
+    arrays, st = fused_case("striped")
+    lanes = []
+    for b in range(B):
+        a = {k: np.array(v) for k, v in arrays.items()}
+        flip = (None, 1, 5, 6, 9, 10, 13, 14)[b % 8]
+        if flip is not None:
+            a["fuse"][flip] = ~a["fuse"][flip]
+        a["n"] = np.roll(a["n"], b)
+        lanes.append(a)
+    return lanes, st
+
+
 def tile_lanes(lanes: dict, reps: int) -> dict:
     """Subset lanes repeated ``reps`` times along the lane axis (a round
     wider than a grid axis holds, from a small case)."""

@@ -3,8 +3,9 @@
 ``csrc/consolidation.cu`` is built into the one kernel library of
 ``ops/ffd_cuda.py``. Each wrapper checks device, dtype, shape and
 contiguity, allocates its outputs and scratch with ``torch.empty``,
-launches on the current stream, adds one to its entry of
-``ffd_cuda.LAUNCHES`` and raises when the C entry returns a CUDA error.
+launches on its tensors' device, on that device's current stream
+(``ffd_cuda._launch``), adds one to its entry of ``ffd_cuda.LAUNCHES``
+and raises when the C entry returns a CUDA error.
 Nothing here falls back to the plain versions in
 ``ops/consolidation_torch.py``.
 
@@ -27,7 +28,7 @@ import ctypes
 import torch
 
 from . import ffd_cuda
-from .ffd_cuda import LAUNCHES, ScanState, _check, _lib, _need, _stream
+from .ffd_cuda import LAUNCHES, ScanState, _launch, _lib, _need
 from .ffd_torch import KernelInputs, carry0
 
 #: the largest lane carry ``used`` [E, D] kept in shared memory (bytes);
@@ -128,11 +129,8 @@ def consol_absorb(mode: str, *, ex_alloc, ex_used0, compat, R, n, gid=None,
         price_cap=_ptr(price_cap), used_scratch=_ptr(scratch),
         leftover=_ptr(leftover), out=_ptr(out), B=B, G=G, E=E, D=D, Sc=Sc,
         T=T, P=P, used_in_smem=int(smem))
-    name = f"consol_absorb_{mode}"
-    err = _lib().karp_consol_absorb(ctypes.byref(args), _MODES[mode],
-                                    _stream())
-    LAUNCHES[name] += 1
-    _check(err, name)
+    _launch(f"consol_absorb_{mode}", _lib().karp_consol_absorb,
+            (ctypes.byref(args), _MODES[mode]), n)
     return out
 
 
@@ -162,10 +160,8 @@ def preempt_absorb(ex_alloc, ex_used0, ex_compat, R, n,
         compat=_ptr(ex_compat), R=_ptr(R), n=_ptr(n), freed=_ptr(freed),
         used_scratch=_ptr(scratch), total=_ptr(total), B=B, G=G, E=E, D=D,
         used_in_smem=int(smem))
-    err = _lib().karp_consol_absorb(ctypes.byref(args), _MODE_PREEMPT,
-                                    _stream())
-    LAUNCHES["consol_absorb_preempt"] += 1
-    _check(err, "consol_absorb_preempt")
+    _launch("consol_absorb_preempt", _lib().karp_consol_absorb,
+            (ctypes.byref(args), _MODE_PREEMPT), freed)
     return total
 
 
@@ -207,9 +203,8 @@ def subset_gather(arena: KernelInputs, gid, n, dead, keep) -> KernelInputs:
         gid=_ptr(gid), dead=_ptr(dead), keep=_ptr(keep),
         **{"o_" + f: _ptr(t) for f, t in o.items()},
         B=B, Gq=Gq, T=T, ZC=Z * C, D=D, Z=Z, C=C, P=P, E=E)
-    err = _lib().karp_subset_gather(ctypes.byref(args), _stream())
-    LAUNCHES["subset_gather"] += 1
-    _check(err, "subset_gather")
+    _launch("subset_gather", _lib().karp_subset_gather,
+            (ctypes.byref(args),), gid)
     return arena._replace(n=n, **o)
 
 
@@ -234,9 +229,8 @@ def subset_summary(leftover, num_nodes, types, keep, tprice, removed_price,
         types=_ptr(types), keep=_ptr(keep), tprice=_ptr(tprice),
         removed_price=_ptr(removed_price), out=_ptr(out), B=B, Gq=Gq, N=N,
         T=T, E=E)
-    err = _lib().karp_subset_summary(ctypes.byref(args), _stream())
-    LAUNCHES["subset_summary"] += 1
-    _check(err, "subset_summary")
+    _launch("subset_summary", _lib().karp_subset_summary,
+            (ctypes.byref(args),), types)
     return out
 
 
@@ -252,11 +246,10 @@ def subset_solve_cuda(arena: KernelInputs, tprice, gid, n, dead, keep,
         raise ValueError(f"arena has {arena.ex_compat.shape[1]} existing "
                          f"rows, E={E}")
     B, Gq = gid.shape
-    lanes = subset_gather(arena, gid, n, dead, keep)
-    carry = carry0(lanes, E + n_max, E, lanes=B)
-    st = ScanState(lanes, carry, E=E, P=P, lanes=B)
-    for g in range(Gq):
-        ffd_cuda.ffd_slot_headroom(st, g)
-        ffd_cuda.ffd_group_commit(st, g)
-    return subset_summary(st.leftover, carry.num_nodes, carry.types, keep,
-                          tprice, removed_price, E)
+    with ffd_cuda.on_device(ffd_cuda._device(gid)):
+        lanes = subset_gather(arena, gid, n, dead, keep)
+        carry = carry0(lanes, E + n_max, E, lanes=B)
+        st = ScanState(lanes, carry, E=E, P=P, lanes=B)
+        ffd_cuda.k2_steps(st, 0, Gq)
+        return subset_summary(st.leftover, carry.num_nodes, carry.types,
+                              keep, tprice, removed_price, E)

@@ -6,9 +6,9 @@
 ``csrc/ckpt.cu`` (K3: ``ffd_bank_store``, ``ffd_bank_load``),
 ``csrc/consolidation.cu`` (K7: ``consol_absorb``, ``subset_gather``,
 ``subset_summary``; wrappers in ``ops/consolidation_cuda.py``) and
-``csrc/pruned.cu`` (K6: ``ffd_pruned_select``, ``ffd_pruned_headroom``,
-``ffd_pruned_commit``) and ``csrc/topo.cu`` (K9: ``topo_group_start``,
-``topo_pour``, ``topo_record_plain``; wrappers in ``ops/topo_cuda.py``) and
+``csrc/pruned.cu`` (K6: ``ffd_pruned_probe``, ``ffd_pruned_commit``) and
+``csrc/topo.cu`` (K9: ``topo_group_start``, ``topo_pour``,
+``topo_record_plain``; wrappers in ``ops/topo_cuda.py``) and
 ``csrc/mesh.cu`` (K10: ``mesh_new_caps``, ``mesh_slot_headroom``,
 ``mesh_fill``, ``mesh_commit``; wrappers in ``ops/mesh_cuda.py``) are
 compiled with ``nvcc`` for ``sm_90a`` into one shared library with a
@@ -17,16 +17,20 @@ plain C interface, loaded with ctypes. The build runs at first use, into
 build raises with nvcc's output.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs and scratch with ``torch.empty``, launches on
-``torch.cuda.current_stream()``, adds one to its entry of ``LAUNCHES``
-and raises when the C entry returns a CUDA error. Nothing here falls
-back to the plain versions in ``ops/ffd_torch.py``.
+outputs and scratch with ``torch.empty``, launches on the device its
+tensors live on, on that device's current stream (``_launch``), adds one
+to its entry of ``LAUNCHES`` and raises when the C entry returns a CUDA
+error. A loop of launches (a scan) enters the device's guard once
+(``launching``) and hands its stream to each launch; a wrapper called on
+its own enters the guard only when its device is not the current one.
+Nothing here falls back to the plain versions in ``ops/ffd_torch.py``.
 
 Importing this module needs neither nvcc nor a GPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -63,8 +67,7 @@ LAUNCHES: Dict[str, int] = {"unpack_bits": 0, "ffd_slot_headroom": 0,
                             "consol_absorb_prescreen": 0,
                             "consol_absorb_dense": 0,
                             "consol_absorb_preempt": 0, "subset_gather": 0,
-                            "subset_summary": 0, "ffd_pruned_select": 0,
-                            "ffd_pruned_headroom": 0,
+                            "subset_summary": 0, "ffd_pruned_probe": 0,
                             "ffd_pruned_commit": 0, "topo_group_start": 0,
                             "topo_pour": 0, "topo_record_plain": 0,
                             "ffd_fused_headroom": 0, "ffd_fused_commit": 0,
@@ -148,10 +151,10 @@ def _lib():
             lib.karp_consol_absorb.argtypes = [vp, ctypes.c_int, vp]
             lib.karp_subset_gather.argtypes = [vp, vp]
             lib.karp_subset_summary.argtypes = [vp, vp]
-            for fn in (lib.karp_ffd_pruned_select,
-                       lib.karp_ffd_pruned_headroom,
+            for fn in (lib.karp_ffd_pruned_probe,
                        lib.karp_ffd_pruned_commit):
                 fn.argtypes = [vp, ll, vp]
+            lib.karp_ffd_pruned_cluster.argtypes = [vp]
             for fn in (lib.karp_topo_group_start, lib.karp_topo_pour,
                        lib.karp_topo_record_plain):
                 fn.argtypes = [vp, vp, ll, vp]
@@ -170,9 +173,9 @@ def _lib():
                        lib.karp_ffd_group_commit,
                        lib.karp_ffd_bank_store, lib.karp_ffd_bank_load,
                        lib.karp_consol_absorb, lib.karp_subset_gather,
-                       lib.karp_subset_summary, lib.karp_ffd_pruned_select,
-                       lib.karp_ffd_pruned_headroom,
-                       lib.karp_ffd_pruned_commit, lib.karp_topo_group_start,
+                       lib.karp_subset_summary, lib.karp_ffd_pruned_probe,
+                       lib.karp_ffd_pruned_commit,
+                       lib.karp_ffd_pruned_cluster, lib.karp_topo_group_start,
                        lib.karp_topo_pour, lib.karp_topo_record_plain,
                        lib.karp_ffd_fused_headroom,
                        lib.karp_ffd_fused_commit, lib.karp_ffd_fused_cluster,
@@ -196,8 +199,47 @@ def _check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed: error {err} ({msg})")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _device(t: torch.Tensor) -> torch.device:
+    """The device of a launch: that of the tensors it reads and writes."""
+    return t.device
+
+
+def on_device(dev: torch.device):
+    """A guard that makes ``dev`` the current CUDA device, or a null
+    context when it already is (the kernel library launches on the
+    current device)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def _stream(dev: torch.device) -> int:
+    """The current stream of ``dev``."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+@contextlib.contextmanager
+def launching(at: torch.Tensor):
+    """The guard of a loop of launches on the device of ``at``: entered
+    once, it yields that device's current stream for the loop to hand to
+    each launch (``stream=``)."""
+    dev = _device(at)
+    with on_device(dev):
+        yield _stream(dev)
+
+
+def _launch(name: str, fn, args: tuple, at, stream=None) -> None:
+    """``fn(*args, stream)``, one kernel launch, counted in ``LAUNCHES``
+    and checked. Inside a loop's guard the caller passes the ``stream``
+    that ``launching`` gave it; a wrapper called on its own passes None
+    and launches on the device of tensor ``at``, under its guard."""
+    if stream is None:
+        with launching(at) as stream:
+            err = fn(*args, stream)
+    else:
+        err = fn(*args, stream)
+    LAUNCHES[name] += 1
+    _check(err, name)
 
 
 def _need(t: torch.Tensor, name: str, dtype, shape=None,
@@ -234,12 +276,10 @@ def unpack_bits_lanes(words: torch.Tensor, nbits: int) -> torch.Tensor:
     whatever L is (kernel)."""
     L = words.shape[0]
     _need(words, "words", torch.int64, (L, nwords(nbits)), lanes=True)
-    lib = _lib()
     out = torch.empty((L, nbits), dtype=torch.bool, device=words.device)
-    err = lib.karp_unpack_bits(words.data_ptr(), nbits, out.data_ptr(), L,
-                               words.stride(0), _stream())
-    LAUNCHES["unpack_bits"] += 1
-    _check(err, "unpack_bits")
+    _launch("unpack_bits", _lib().karp_unpack_bits,
+            (words.data_ptr(), nbits, out.data_ptr(), L, words.stride(0)),
+            words)
     return out
 
 
@@ -271,14 +311,11 @@ def pack_outputs_lanes(takes: torch.Tensor, leftover: torch.Tensor,
     out[:, :i64.shape[1]] = i64
     ptrs = (ctypes.c_void_p * 4)(*[s.data_ptr() for s in segs])
     seg_lens = (ctypes.c_longlong * 4)(*lens)
-    lib = _lib()
     # each lane's segments are contiguous [L, ...] fields: lane strides
     # are their lengths, the takes' is n32, the output row's is w
-    err = lib.karp_pack_outputs(takes.data_ptr(), n32, ptrs, seg_lens,
-                                out[:, i64.shape[1]:].data_ptr(), L, n32,
-                                seg_lens, w, _stream())
-    LAUNCHES["pack_outputs"] += 1
-    _check(err, "pack_outputs")
+    _launch("pack_outputs", _lib().karp_pack_outputs,
+            (takes.data_ptr(), n32, ptrs, seg_lens,
+             out[:, i64.shape[1]:].data_ptr(), L, n32, seg_lens, w), takes)
     return out
 
 
@@ -417,24 +454,30 @@ def _in_window(st: ScanState, g: int) -> None:
                          f"[{st.s0}, {st.s1})")
 
 
-def ffd_slot_headroom(st: ScanState, g: int) -> None:
-    """Steps 1-3 for group g: fills ``st.cand`` [N, T] and ``st.k`` [N]."""
+def ffd_slot_headroom(st: ScanState, g: int, stream: int = None) -> None:
+    """Steps 1-3 for group g: fills ``st.cand`` [N, T] and ``st.k`` [N].
+    ``stream``: the stream of the caller's ``launching`` guard."""
     _in_window(st, g)
-    lib = _lib()
-    err = lib.karp_ffd_slot_headroom(ctypes.byref(st.args), g, _stream())
-    LAUNCHES["ffd_slot_headroom"] += 1
-    _check(err, "ffd_slot_headroom")
+    _launch("ffd_slot_headroom", _lib().karp_ffd_slot_headroom,
+            (ctypes.byref(st.args), g), st.k, stream)
 
 
-def ffd_group_commit(st: ScanState, g: int) -> None:
+def ffd_group_commit(st: ScanState, g: int, stream: int = None) -> None:
     """Steps 4-7 for group g: updates the carry in place and writes
     ``st.takes[g - s0]`` and ``st.leftover[g - s0]`` (``st.k`` becomes
     take)."""
     _in_window(st, g)
-    lib = _lib()
-    err = lib.karp_ffd_group_commit(ctypes.byref(st.args), g, _stream())
-    LAUNCHES["ffd_group_commit"] += 1
-    _check(err, "ffd_group_commit")
+    _launch("ffd_group_commit", _lib().karp_ffd_group_commit,
+            (ctypes.byref(st.args), g), st.k, stream)
+
+
+def k2_steps(st: ScanState, g0: int, g1: int) -> None:
+    """Groups [g0, g1) of a K2 scan, two launches each, under one guard
+    of the state's device; no synchronisation."""
+    with launching(st.k) as stream:
+        for g in range(g0, g1):
+            ffd_slot_headroom(st, g, stream)
+            ffd_group_commit(st, g, stream)
 
 
 def solve_scan_cuda(inp: KernelInputs, n_max: int, E: int, P: int,
@@ -442,9 +485,7 @@ def solve_scan_cuda(inp: KernelInputs, n_max: int, E: int, P: int,
     """The whole scan on the card: 2*G launches on the current stream,
     no synchronisation inside the loop."""
     st = ScanState(inp, carry0(inp, E + n_max, E), E=E, P=P, V=V)
-    for g in range(inp.R.shape[0]):
-        ffd_slot_headroom(st, g)
-        ffd_group_commit(st, g)
+    k2_steps(st, 0, inp.R.shape[0])
     return st.takes, st.leftover, st.carry
 
 
@@ -511,27 +552,23 @@ class BankState:
             self.args.row_bytes[i] = c.numel() * c.element_size()
 
 
-def ffd_bank_store(bs: BankState, j: int, count: int = 1) -> None:
+def ffd_bank_store(bs: BankState, j: int, count: int = 1,
+                   stream: int = None) -> None:
     """The working carry into bank rows [j, j + count), every field in
     one launch (count > 1: the pad re-stamp of a suffix re-solve)."""
     if not (0 <= j and count >= 1 and j + count <= bs.rows):
         raise ValueError(f"bank rows [{j}, {j + count}) outside "
                          f"[0, {bs.rows})")
-    lib = _lib()
-    err = lib.karp_ffd_bank_store(ctypes.byref(bs.args), j, count,
-                                  _stream())
-    LAUNCHES["ffd_bank_store"] += 1
-    _check(err, "ffd_bank_store")
+    _launch("ffd_bank_store", _lib().karp_ffd_bank_store,
+            (ctypes.byref(bs.args), j, count), bs.carry.used, stream)
 
 
-def ffd_bank_load(bs: BankState, j: int) -> None:
+def ffd_bank_load(bs: BankState, j: int, stream: int = None) -> None:
     """Bank row j into the working carry, every field in one launch."""
     if not 0 <= j < bs.rows:
         raise ValueError(f"bank row {j} outside [0, {bs.rows})")
-    lib = _lib()
-    err = lib.karp_ffd_bank_load(ctypes.byref(bs.args), j, _stream())
-    LAUNCHES["ffd_bank_load"] += 1
-    _check(err, "ffd_bank_load")
+    _launch("ffd_bank_load", _lib().karp_ffd_bank_load,
+            (ctypes.byref(bs.args), j), bs.carry.used, stream)
 
 
 def solve_scan_packed1_ckpt_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E,
@@ -546,11 +583,12 @@ def solve_scan_packed1_ckpt_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E,
     inp = _packed_inputs(buf, T, D, Z, C, G, E, P, K, M, Q)
     st = ScanState(inp, carry0(inp, E + n_max, E), E=E, P=P, V=V)
     bs = BankState(st.carry, empty_bank(st.carry, G // CK))
-    for g in range(G):
-        if g % CK == 0:
-            ffd_bank_store(bs, g // CK)
-        ffd_slot_headroom(st, g)
-        ffd_group_commit(st, g)
+    with launching(st.k) as stream:
+        for g in range(G):
+            if g % CK == 0:
+                ffd_bank_store(bs, g // CK, stream=stream)
+            ffd_slot_headroom(st, g, stream)
+            ffd_group_commit(st, g, stream)
     return pack_outputs(st.takes, st.leftover, st.carry), bs.bank
 
 
@@ -579,15 +617,16 @@ def solve_scan_suffix_cuda(buf: torch.Tensor, bank: Carry, *, T, D, Z, C,
                     for nm, b in zip(Carry._fields, bank)])
     bs = BankState(carry, bank)
     jr, s0 = GL // CK - SUF, GL - SUF * CK
-    ffd_bank_load(bs, jr)
     st = ScanState(inp, carry, E=E, P=P, V=V, s0=s0, s1=GL)
-    for g in range(s0, GL):
-        if (g - s0) % CK == 0:
-            ffd_bank_store(bs, jr + (g - s0) // CK)
-        ffd_slot_headroom(st, g)
-        ffd_group_commit(st, g)
-    if NC > GL // CK:
-        ffd_bank_store(bs, GL // CK, NC - GL // CK)
+    with launching(st.k) as stream:
+        ffd_bank_load(bs, jr, stream)
+        for g in range(s0, GL):
+            if (g - s0) % CK == 0:
+                ffd_bank_store(bs, jr + (g - s0) // CK, stream=stream)
+            ffd_slot_headroom(st, g, stream)
+            ffd_group_commit(st, g, stream)
+        if NC > GL // CK:
+            ffd_bank_store(bs, GL // CK, NC - GL // CK, stream)
     return pack_outputs(st.takes, st.leftover, st.carry), bank
 
 
@@ -629,9 +668,7 @@ def solve_scan_packed1_many_cuda(bufs: torch.Tensor, *, T, D, Z, C, G, E, P,
                                     cluster=cluster))
     else:
         st = ScanState(inp, carry, E=E, P=P, V=V, lanes=B)
-        for g in range(G):
-            ffd_slot_headroom(st, g)
-            ffd_group_commit(st, g)
+        k2_steps(st, 0, G)
     return pack_outputs_lanes(st.takes, st.leftover, st.carry)
 
 
@@ -690,7 +727,7 @@ class FusedState(ScanState):
             cluster=1)
         if cluster is None:
             cluster = fused_cluster(lanes or 1, Fu, P, inp.A.shape[-1],
-                                    carry.used.shape[-2])
+                                    carry.used.shape[-2], _device(self.k))
         self.cluster = self.fargs.cluster = cluster
 
     def block_cand(self) -> torch.Tensor:
@@ -716,54 +753,68 @@ class FusedState(ScanState):
 _CLUSTERS = {}
 
 
-def fused_cluster(L: int, Fu: int, P: int, D: int, N: int) -> int:
+def _cluster_rule(cache: dict, key: tuple, fn, args, dev: torch.device,
+                  name: str) -> int:
+    """A cluster shape from the card's occupancy rule ``fn(args)`` (a
+    negative answer is a CUDA error), asked once for each ``key`` on the
+    device ``dev``, under its guard."""
+    key = (dev.index,) + key
+    if key not in cache:
+        with on_device(dev):
+            cs = fn(ctypes.byref(args))
+        if cs < 0:
+            _check(-cs, f"{name} (cluster size)")
+        cache[key] = cs
+    return cache[key]
+
+
+def fused_cluster(L: int, Fu: int, P: int, D: int, N: int,
+                  device=None) -> int:
     """The commit's CTAs per lane for L lanes of Fu groups, P pools, D
     resources and N slots: the largest of 8, 4, 2, 1 whose L clusters the
     card holds at once (``karp_ffd_fused_cluster``, csrc/fused.cu). The
     commit's shared memory, and so the answer, depends on these shapes
-    alone; the card is asked once for each of them and each device."""
-    key = (torch.cuda.current_device(), L, Fu, P, D, N)
-    if key not in _CLUSTERS:
-        a = _FusedArgs(Fu=Fu)
-        a.f.L, a.f.P, a.f.D, a.f.N = L, P, D, N
-        cs = _lib().karp_ffd_fused_cluster(ctypes.byref(a))
-        if cs < 0:
-            _check(-cs, "ffd_fused_commit (cluster size)")
-        _CLUSTERS[key] = cs
-    return _CLUSTERS[key]
+    alone; the card is asked once for each of them and each device
+    (``device``: the state's; default the current one)."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    a = _FusedArgs(Fu=Fu)
+    a.f.L, a.f.P, a.f.D, a.f.N = L, P, D, N
+    return _cluster_rule(_CLUSTERS, (L, Fu, P, D, N),
+                         _lib().karp_ffd_fused_cluster, a, dev,
+                         "ffd_fused_commit")
 
 
-def _fused_launch(name: str, fs: FusedState, g0: int) -> None:
+def _fused_launch(name: str, fs: FusedState, g0: int, stream) -> None:
     if g0 % fs.Fu:
         raise ValueError(f"block start {g0} is not a multiple of Fu={fs.Fu}")
     _in_window(fs, g0)
-    lib = _lib()
-    err = getattr(lib, f"karp_{name}")(ctypes.byref(fs.fargs), g0,
-                                       _stream())
-    LAUNCHES[name] += 1
-    _check(err, name)
+    _launch(name, getattr(_lib(), f"karp_{name}"),
+            (ctypes.byref(fs.fargs), g0), fs.k, stream)
 
 
-def ffd_fused_headroom(fs: FusedState, g0: int) -> None:
+def ffd_fused_headroom(fs: FusedState, g0: int, stream: int = None) -> None:
     """Steps 1-3 of groups [g0, g0 + Fu) from the carry as it stands
     (the block-start carry), and their new-node tables: fills
     ``fs.block_cand()``, ``fs.block_k()`` and ``fs.block_table()``."""
-    _fused_launch("ffd_fused_headroom", fs, g0)
+    _fused_launch("ffd_fused_headroom", fs, g0, stream)
 
 
-def ffd_fused_commit(fs: FusedState, g0: int) -> None:
+def ffd_fused_commit(fs: FusedState, g0: int, stream: int = None) -> None:
     """The block of groups [g0, g0 + Fu), each lane by its own branch, on
     a cluster of ``fs.cluster`` CTAs a lane, its new nodes read from the
     tables: updates the carry in place and writes ``fs.takes`` /
     ``fs.leftover`` rows [g0, g0 + Fu)."""
-    _fused_launch("ffd_fused_commit", fs, g0)
+    _fused_launch("ffd_fused_commit", fs, g0, stream)
 
 
 def _fused_scan(fs: FusedState) -> FusedState:
-    """Every block of the scan: two launches each, no synchronisation."""
-    for g0 in range(fs.s0, fs.s1, fs.Fu):
-        ffd_fused_headroom(fs, g0)
-        ffd_fused_commit(fs, g0)
+    """Every block of the scan: two launches each, under one guard of
+    the state's device; no synchronisation."""
+    with launching(fs.k) as stream:
+        for g0 in range(fs.s0, fs.s1, fs.Fu):
+            ffd_fused_headroom(fs, g0, stream)
+            ffd_fused_commit(fs, g0, stream)
     return fs
 
 
@@ -795,7 +846,9 @@ class _PrunedArgs(ctypes.Structure):
     _fields_ = ([("f", _FfdArgs)]
                 + [(f, ctypes.c_void_p) for f in _PRUNED_FIELDS]
                 + [("S", ctypes.c_longlong),
-                   ("lane_bytes", ctypes.c_longlong * len(_PRUNED_FIELDS))])
+                   ("lane_bytes", ctypes.c_longlong * len(_PRUNED_FIELDS)),
+                   ("cluster", ctypes.c_longlong),
+                   ("rows", ctypes.c_longlong)])
 
 
 class PrunedState:
@@ -805,15 +858,26 @@ class PrunedState:
     ``cap_hint`` and the ``bail`` flag of the carry (updated in place),
     the selection scratch (``sel`` [S] slots, ``cnt`` [2] = (n_sel,
     n_pos), ``ks`` [S] exact headroom), the group's new-node table
-    (``table()``) and the ctypes argument block."""
+    (``table()``) and the ctypes argument block.
+
+    ``cluster`` is the probe's CTAs a cluster (1, 2, 4 or 8) and
+    ``rows`` its selecting clusters a lane (1, 2 or 4); by default the
+    fixed rule of ``csrc/pruned.cu`` (``karp_ffd_pruned_cluster``) picks
+    both from the lane count, the shapes and the card's occupancy (a
+    given ``cluster`` alone takes ``rows`` 1)."""
 
     def __init__(self, inp: KernelInputs, carry: CarryP, *, E: int, P: int,
-                 S: int, lanes: int = None):
+                 S: int, lanes: int = None, cluster: int = None,
+                 rows: int = None):
         if inp.mv_floor is not None:
             raise ValueError("the pruned scan takes no minValues floors")
         N = carry.used.shape[-2]
         if not 1 <= S <= N:
             raise ValueError(f"S={S} must lie in [1, N={N}]")
+        if cluster not in (None, 1, 2, 4, 8):
+            raise ValueError(f"cluster={cluster} is not 1, 2, 4 or 8")
+        if rows not in (None, 1, 2, 4):
+            raise ValueError(f"rows={rows} is not 1, 2 or 4")
         L = 1 if lanes is None else lanes
         lead = () if lanes is None else (L,)
         D = inp.A.shape[-1]
@@ -834,12 +898,22 @@ class PrunedState:
         bufs = dict(cap_hint=carry.cap_hint, bail=carry.bail, sel=self.sel,
                     cnt=self.cnt, ks=self.ks, capn=self.capn,
                     cap_row=self.cap_row)
-        self.args = _PrunedArgs(f=self.scan.args, S=S,
+        self.args = _PrunedArgs(f=self.scan.args, S=S, cluster=1, rows=1,
                                 **{k: t.data_ptr() for k, t in bufs.items()})
         for i, f in enumerate(_PRUNED_FIELDS):
             t = bufs[f]
             self.args.lane_bytes[i] = 0 if lanes is None else \
                 t[0].numel() * t.element_size()
+        if cluster is None:
+            a = self.scan.args
+            shape = _cluster_rule(
+                _PROBE_CLUSTERS, (L, a.N, S, a.T, a.D, a.Z, a.C, P),
+                _lib().karp_ffd_pruned_cluster, self.args,
+                _device(self.ks), "ffd_pruned_probe")
+            cluster, rule_rows = shape % 16, shape // 16
+            rows = rule_rows if rows is None else rows
+        self.cluster = self.args.cluster = cluster
+        self.rows = self.args.rows = 1 if rows is None else rows
 
     @property
     def takes(self) -> torch.Tensor:
@@ -861,50 +935,61 @@ class PrunedState:
                 self.cap_row.amax(-2))
 
 
-def _pruned_launch(name: str, ps: PrunedState, g: int) -> None:
+_PROBE_CLUSTERS = {}
+
+
+def _pruned_launch(name: str, ps: PrunedState, g: int, stream) -> None:
     _in_window(ps.scan, g)
-    lib = _lib()
-    err = getattr(lib, f"karp_{name}")(ctypes.byref(ps.args), g, _stream())
-    LAUNCHES[name] += 1
-    _check(err, name)
+    _launch(name, getattr(_lib(), f"karp_{name}"),
+            (ctypes.byref(ps.args), g), ps.ks, stream)
 
 
-def ffd_pruned_select(ps: PrunedState, g: int) -> None:
-    """The bound pass and the compatibility screen for group g: fills
-    ``ps.sel`` with the first S bound-positive compatible open slots in
-    slot order (-1 past them) and ``ps.cnt`` with (n_sel, n_pos)."""
-    _pruned_launch("ffd_pruned_select", ps, g)
+def ffd_pruned_probe(ps: PrunedState, g: int, stream: int = None) -> None:
+    """The bound pass, the compatibility screen and the selection for
+    group g (``ps.sel``: the first S bound-positive compatible open slots
+    in slot order, -1 past them; ``ps.cnt`` = (n_sel, n_pos)), the exact
+    candidate rows ``ps.cand`` [S, T] and headroom ``ps.ks`` [S] of the
+    selected slots (rows past n_sel: False and 0), and the group's
+    new-node table ``ps.table()``: one launch, ``ps.rows`` selecting
+    clusters of ``ps.cluster`` CTAs a lane and the table's."""
+    _pruned_launch("ffd_pruned_probe", ps, g, stream)
 
 
-def ffd_pruned_headroom(ps: PrunedState, g: int) -> None:
-    """The exact candidate rows ``ps.cand`` [S, T] and headroom ``ps.ks``
-    [S] of the selected slots (rows past n_sel: False and 0), and the
-    group's new-node table ``ps.table()``."""
-    _pruned_launch("ffd_pruned_headroom", ps, g)
-
-
-def ffd_pruned_commit(ps: PrunedState, g: int) -> None:
+def ffd_pruned_commit(ps: PrunedState, g: int, stream: int = None) -> None:
     """The fill, the bail flag, the narrowing and the new nodes (read
     from the table) for group g: updates the carry in place and writes
     ``ps.takes[g]`` and ``ps.leftover[g]``."""
-    _pruned_launch("ffd_pruned_commit", ps, g)
+    _pruned_launch("ffd_pruned_commit", ps, g, stream)
+
+
+def pruned_steps(ps: PrunedState, g0: int, g1: int) -> None:
+    """Groups [g0, g1) of a pruned scan: ``ffd_pruned_probe`` then
+    ``ffd_pruned_commit`` each, under one guard of the state's device, on
+    its current stream; no synchronisation."""
+    if g0 < g1:
+        _in_window(ps.scan, g0)
+        _in_window(ps.scan, g1 - 1)
+    lib = _lib()
+    probe, commit = lib.karp_ffd_pruned_probe, lib.karp_ffd_pruned_commit
+    args = ctypes.byref(ps.args)
+    with launching(ps.ks) as stream:
+        for g in range(g0, g1):
+            _launch("ffd_pruned_probe", probe, (args, g), None, stream)
+            _launch("ffd_pruned_commit", commit, (args, g), None, stream)
 
 
 def _pruned_scan(inp: KernelInputs, *, G, E, P, n_max, S, lanes=None
                  ) -> PrunedState:
     ps = PrunedState(inp, carry0_pruned(inp, E + n_max, E, lanes=lanes),
                      E=E, P=P, S=S, lanes=lanes)
-    for g in range(G):
-        ffd_pruned_select(ps, g)
-        ffd_pruned_headroom(ps, g)
-        ffd_pruned_commit(ps, g)
+    pruned_steps(ps, 0, G)
     return ps
 
 
 def solve_scan_packed1_pruned_many_cuda(bufs: torch.Tensor, *, T, D, Z, C,
                                         G, E, P, n_max, S) -> torch.Tensor:
     """B pruned solves on the card in one dispatch (B = 1: a single
-    solve): one lane-axis unpack_bits, three lane-axis launches per group
+    solve): one lane-axis unpack_bits, two lane-axis launches per group
     step, one lane-axis pack_outputs; each row ends with its lane's bail
     word; no synchronisation."""
     B = bufs.shape[0]

@@ -323,7 +323,7 @@ def _new_node_table_ref(inp: KernelInputs, g: int, *, P: int,
     ``cand_new``, ``hr`` and ``cap`` of ``_new_nodes_phase``
     (ops/ffd_jax.py:393-404, no minValues floors) and, with ``cap_row``,
     the pruned scan's ``cap_row`` (:1033). The plain version of the
-    table blocks of ``ffd_pruned_headroom`` / ``ffd_fused_headroom``."""
+    table blocks of ``ffd_pruned_probe`` / ``ffd_fused_headroom``."""
     R, F, agz, agc = inp.R[g], inp.F[g], inp.agz[g], inp.agc[g]
     agz_p = agz[None, :] & inp.pool_agz[:P]                        # [P, Z]
     agc_p = agc[None, :] & inp.pool_agc[:P]                        # [P, C]
@@ -1066,8 +1066,9 @@ def solve_scan_packed1_many(bufs, *, T: int, D: int, Z: int, C: int, G: int,
 # K6: the pruned scan (the G-axis kernel), plain versions and dispatch
 # ---------------------------------------------------------------------------
 #
-# The reference's ``pruned_group_step`` (ops/ffd_jax.py) in three parts,
-# one per CUDA kernel (csrc/pruned.cu):
+# The reference's ``pruned_group_step`` (ops/ffd_jax.py) in three parts;
+# select and headroom (with the table) are the probe kernel's
+# (``_pruned_probe_ref``), commit the commit kernel's (csrc/pruned.cu):
 #
 # - select: the bound pass over each slot's stale-high ``cap_hint``
 #   (k_bound = min_d floor((cap_hint - used) / R), BIG where R = 0), the
@@ -1159,6 +1160,17 @@ def _pruned_headroom_ref(inp: KernelInputs, carry: CarryP, g: int,
     return cand_s, k_s
 
 
+def _pruned_probe_ref(inp: KernelInputs, carry: CarryP, g: int, *, E: int,
+                      P: int, S: int):
+    """The probe part, what ``ffd_pruned_probe`` writes: the select part,
+    then the headroom part of its selection, then the group's new-node
+    table: (sel [S], cnt [2], cand_s [S, T], k_s [S], the table)."""
+    sel, cnt = _pruned_select_ref(inp, carry, g, E=E, P=P, S=S)
+    cand_s, k_s = _pruned_headroom_ref(inp, carry, g, sel)
+    return (sel, cnt, cand_s, k_s,
+            _new_node_table_ref(inp, g, P=P, cap_row=True))
+
+
 def _pruned_commit_ref(inp: KernelInputs, carry: CarryP, g: int,
                        sel: torch.Tensor, cnt: torch.Tensor,
                        cand_s: torch.Tensor, k_s: torch.Tensor,
@@ -1193,11 +1205,8 @@ def _pruned_group_step_ref(inp: KernelInputs, carry: CarryP, g: int, *,
                            E: int, P: int, S: int):
     """One pruned group step (the reference's ``pruned_group_step``):
     (new CarryP, take [N], n_rem)."""
-    sel, cnt = _pruned_select_ref(inp, carry, g, E=E, P=P, S=S)
-    cand_s, k_s = _pruned_headroom_ref(inp, carry, g, sel)
-    tab = _new_node_table_ref(inp, g, P=P, cap_row=True)
-    return _pruned_commit_ref(inp, carry, g, sel, cnt, cand_s, k_s, tab,
-                              E=E, P=P, S=S)
+    return _pruned_commit_ref(inp, carry, g, *_pruned_probe_ref(
+        inp, carry, g, E=E, P=P, S=S), E=E, P=P, S=S)
 
 
 def _solve_pruned_ref(inp: KernelInputs, n_max: int, E: int, P: int,
@@ -1247,7 +1256,7 @@ def solve_scan_packed1_pruned_many(bufs, *, T: int, D: int, Z: int, C: int,
     """B pruned solves of one statics bucket in one dispatch (the
     reference's ``solve_scan_packed1_pruned_many``): [B, W] in, [B,
     Wout + 1] out, each lane with its OWN trailing bail word. CUDA runs
-    the hand-written kernels (three lane-axis launches per group step);
+    the hand-written kernels (two lane-axis launches per group step);
     the CPU runs the plain versions lane by lane."""
     bufs = _as_arenas(bufs, device)
     S = min(S, E + n_max)

@@ -14,8 +14,9 @@ between the launches belong to the step loop (parallel/mesh.py
 the step scratch (``cand``, ``kh`` = k then the minValues maxima h1), the
 new-node caps, the fill phases' sums (``red``, reduced in place over the
 slot shards) and the earlier shards' prefixes (``before``), and the
-outputs. Each wrapper checks the state's tensors, launches on
-``torch.cuda.current_stream()``, adds one to its entry of ``LAUNCHES``
+outputs. Each wrapper checks the state's tensors, launches on the
+state's device, on its current stream (``ffd_cuda._launch``; the step
+loop enters the device's guard once), adds one to its entry of ``LAUNCHES``
 (the kernel library's counters, ``ops/ffd_cuda.py``) and raises when the
 C entry returns a CUDA error. A state on CUDA launches the kernel or
 raises; only a state on the CPU takes the plain part (``*_ref`` below,
@@ -31,8 +32,8 @@ import ctypes
 
 import torch
 
-from .ffd_cuda import (_FfdArgs, _PTR_FIELDS, _check, _lib, _need, _stream,
-                       LAUNCHES)
+from .ffd_cuda import LAUNCHES, _FfdArgs, _PTR_FIELDS, _lib, _need
+from .ffd_cuda import _launch as _launch_kernel
 from .ffd_torch import (BIG, Carry, KernelInputs, _headroom, _mv_cap,
                         _mv_h1, _new_nodes_phase_ref, _pool_budget,
                         _slot_headroom_ref, carry0_dp)
@@ -172,11 +173,8 @@ class MeshState:
 def _launch(name: str, st: MeshState, *args) -> None:
     if not st.device.type == "cuda":
         raise ValueError(f"{name} needs a CUDA state, got {st.device}")
-    a = st.args()
-    lib = _lib()
-    err = getattr(lib, f"karp_{name}")(ctypes.byref(a), *args, _stream())
-    LAUNCHES[name] += 1
-    _check(err, name)
+    _launch_kernel(name, getattr(_lib(), f"karp_{name}"),
+                   (ctypes.byref(st.args()),) + args, st.kh)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 ``csrc/topo.cu`` is built into the one kernel library of
 ``ops/ffd_cuda.py``. Each wrapper checks its inputs (``TopoScanState``),
-launches on the current stream, adds one to its entry of
+launches on the state's device, on its current stream
+(``ffd_cuda._launch``), adds one to its entry of
 ``ffd_cuda.LAUNCHES`` and raises when the C entry returns a CUDA error.
 Nothing here falls back to the plain versions in ``ops/topo_torch.py``.
 
@@ -15,7 +16,8 @@ Nothing here falls back to the plain versions in ``ops/topo_torch.py``.
 
 ``solve_scan_topo_cuda`` drives one scan: the K2 ``ScanState`` and the
 ``TopoScanState`` share one carry on the device, which every kernel updates
-in place; per group two or three launches, no synchronisation.
+in place; per group two or three launches under one guard of the
+state's device, no synchronisation.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ import ctypes
 
 import torch
 
-from .ffd_cuda import (LAUNCHES, ScanState, _check, _lib, _need, _stream,
-                       ffd_group_commit, ffd_slot_headroom)
+from .ffd_cuda import (LAUNCHES, ScanState, _launch, _lib, _need,
+                       ffd_group_commit, ffd_slot_headroom, launching)
 from .ffd_torch import KernelInputs, carry0
 from .topo_torch import TopoGroupRows, empty_events
 
@@ -110,33 +112,33 @@ class TopoScanState:
         self.args = _TopoArgs(**ptrs, GZ=GZ, GH=GH, EVCAP=EVCAP, PMAX=PMAX)
 
 
-def _launch(name: str, ts: TopoScanState, g: int) -> None:
+def _topo_launch(name: str, ts: TopoScanState, g: int, stream) -> None:
     if not 0 <= g < ts.st.s1:
         raise ValueError(f"group {g} outside [0, {ts.st.s1})")
-    fn = getattr(_lib(), f"karp_{name}")
-    err = fn(ctypes.byref(ts.st.args), ctypes.byref(ts.args), g, _stream())
-    LAUNCHES[name] += 1
-    _check(err, name)
+    _launch(name, getattr(_lib(), f"karp_{name}"),
+            (ctypes.byref(ts.st.args), ctypes.byref(ts.args), g), ts.take,
+            stream)
 
 
-def topo_group_start(ts: TopoScanState, g: int) -> None:
+def topo_group_start(ts: TopoScanState, g: int, stream: int = None) -> None:
     """Topology group g's group-start state: ``st.cand`` [N, T],
-    ``ts.rem`` [N] and the per-pool statics (kernel)."""
-    _launch("topo_group_start", ts, g)
+    ``ts.rem`` [N] and the per-pool statics (kernel). ``stream``: the
+    stream of the caller's ``launching`` guard."""
+    _topo_launch("topo_group_start", ts, g, stream)
 
 
-def topo_pour(ts: TopoScanState, g: int) -> None:
+def topo_pour(ts: TopoScanState, g: int, stream: int = None) -> None:
     """Topology group g's event loop and narrowing from its group-start
     state: updates the carry and counters in place and writes
     ``st.takes[g]``, ``st.leftover[g]``, the group's event-log row,
     ``ev["n"][g]`` and ``bail[g]`` (kernel)."""
-    _launch("topo_pour", ts, g)
+    _topo_launch("topo_pour", ts, g, stream)
 
 
-def topo_record_plain(ts: TopoScanState, g: int) -> None:
+def topo_record_plain(ts: TopoScanState, g: int, stream: int = None) -> None:
     """The membership counters of group g, a group without topology whose
     K2 step wrote ``st.takes[g]`` (kernel)."""
-    _launch("topo_record_plain", ts, g)
+    _topo_launch("topo_record_plain", ts, g, stream)
 
 
 def topo_state(inp: KernelInputs, rows: TopoGroupRows, cz0, ch0, *,
@@ -161,14 +163,15 @@ def solve_scan_topo_cuda(inp: KernelInputs, rows: TopoGroupRows, cz0, ch0,
     ts = topo_state(inp, rows, cz0, ch0, n_max=n_max, P=P, EVCAP=EVCAP,
                     PMAX=PMAX)
     st = ts.st
-    for g, topo in enumerate(rows.has_topo.tolist()):
-        if topo:
-            topo_group_start(ts, g)
-            topo_pour(ts, g)
-        else:
-            ffd_slot_headroom(st, g)
-            ffd_group_commit(st, g)
-            topo_record_plain(ts, g)
+    with launching(ts.take) as stream:
+        for g, topo in enumerate(rows.has_topo.tolist()):
+            if topo:
+                topo_group_start(ts, g, stream)
+                topo_pour(ts, g, stream)
+            else:
+                ffd_slot_headroom(st, g, stream)
+                ffd_group_commit(st, g, stream)
+                topo_record_plain(ts, g, stream)
     return (st.takes.to(torch.int64), st.leftover, ts.ev, ts.zfix, ts.bail,
             st.carry)
 

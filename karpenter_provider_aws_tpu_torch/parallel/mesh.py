@@ -53,6 +53,7 @@ ported here (``fleet/meshgroup.py`` splits K4 lanes over its ranks).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -62,6 +63,7 @@ import torch.distributed as dist
 
 from .. import device as _device
 from ..ops import mesh_cuda as mc
+from ..ops.ffd_cuda import on_device
 from ..ops.ffd_torch import (Carry, KernelInputs, _BOOL_FIELDS, _solve_dp_ref,
                              _solve_scan_ref)
 
@@ -400,22 +402,26 @@ def _mesh_scan(st: mc.MeshState, lay: MeshComm, *, check=None,
     same decisions on one slot shard), else in one launch. Returns
     per-solve counts: steps, collectives and their seconds."""
     c0, s0 = lay._base.calls, lay._base.seconds
-    _checked("mesh_new_caps", st, (), check)
-    lay.axis_max(st.caps)
-    for g in range(st.G):
-        chk = check if g < CHECK_STEPS else None
-        _checked("mesh_slot_headroom", st, (g,), chk)
-        lay.axis_max(st.kh)
-        if lay.ndp == 1 and not split_fill:
-            _checked("mesh_fill", st, (g, mc.PHASE_ALL), chk)
-        else:
-            _checked("mesh_fill", st, (g, mc.PHASE_A), chk)
-            st.before[:st.P] = lay.dp_before(st.red[:st.P])
-            _checked("mesh_fill", st, (g, mc.PHASE_B), chk)
-            st.before[st.P:] = lay.dp_before(st.red[:1])
-            _checked("mesh_fill", st, (g, mc.PHASE_C), chk)
-            lay.dp_sum(st.red)
-        _checked("mesh_commit", st, (g,), chk)
+    # the launches go to the state's device: its guard once for the loop
+    guard = on_device(st.device) if st.device.type == "cuda" else \
+        contextlib.nullcontext()
+    with guard:
+        _checked("mesh_new_caps", st, (), check)
+        lay.axis_max(st.caps)
+        for g in range(st.G):
+            chk = check if g < CHECK_STEPS else None
+            _checked("mesh_slot_headroom", st, (g,), chk)
+            lay.axis_max(st.kh)
+            if lay.ndp == 1 and not split_fill:
+                _checked("mesh_fill", st, (g, mc.PHASE_ALL), chk)
+            else:
+                _checked("mesh_fill", st, (g, mc.PHASE_A), chk)
+                st.before[:st.P] = lay.dp_before(st.red[:st.P])
+                _checked("mesh_fill", st, (g, mc.PHASE_B), chk)
+                st.before[st.P:] = lay.dp_before(st.red[:1])
+                _checked("mesh_fill", st, (g, mc.PHASE_C), chk)
+                lay.dp_sum(st.red)
+            _checked("mesh_commit", st, (g,), chk)
     return dict(steps=st.G, collectives=lay._base.calls - c0,
                 collective_s=lay._base.seconds - s0)
 

@@ -44,10 +44,16 @@ def pick_backend(world: int, device) -> str:
 
 
 def _rank_main(rank: int, fn: Callable, world: int, backend: str,
-               tmp: str, timeout_s: float, threads: int, args: tuple) -> None:
+               tmp: str, timeout_s: float, threads: int, args: tuple,
+               device=None) -> None:
     if threads:
         torch.set_num_threads(threads)
     try:
+        if backend == "nccl" or (device is not None
+                                 and torch.device(device).type == "cuda"):
+            # a CUDA rank: its card current, as CUDASolver(mesh=) places
+            # rank r (cuda:{r % device_count}) and distmesh.init_process
+            torch.cuda.set_device(rank % torch.cuda.device_count())
         dist.init_process_group(
             backend, init_method=f"file://{os.path.join(tmp, 'rdzv')}",
             world_size=world, rank=rank,
@@ -73,12 +79,13 @@ class RanksFailed(RuntimeError):
 def run_ranks(fn: Callable, world: int, backend: str = "gloo",
               timeout_s: float = 60.0, *, args: tuple = (),
               deadline_s: float = None, threads: int = 1,
-              build: bool = False) -> List[Any]:
+              build: bool = False, device=None) -> List[Any]:
     """Run ``fn(rank, world, *args)`` on ``world`` spawned ranks (module
     docstring). ``timeout_s`` is the process group's collective timeout;
     ``deadline_s`` (default 4 x ``timeout_s``) bounds the whole join.
     ``threads`` pins each rank's intra-op threads (0 leaves torch's
-    default)."""
+    default). A CUDA rank (the nccl backend, or a CUDA ``device``) makes
+    ``cuda:{rank % device_count}`` its current device first."""
     if build:
         from ..ops import ffd_cuda
         ffd_cuda.build()
@@ -87,7 +94,7 @@ def run_ranks(fn: Callable, world: int, backend: str = "gloo",
     try:
         ctx = mp.start_processes(
             _rank_main, args=(fn, world, backend, tmp, timeout_s, threads,
-                              tuple(args)),
+                              tuple(args), device),
             nprocs=world, join=False, start_method="spawn")
         procs = ctx.processes
         end = time.monotonic() + deadline_s

@@ -615,17 +615,7 @@ def test_fused_packed_solve(cuda_device, case, width):
 def _mixed_lanes(B):
     """B striped lanes whose blocks branch differently: every lane flips
     one block's flags (or none) and rolls the counts."""
-    import numpy as np
-    arrays, st = examples.fused_case("striped")
-    lanes = []
-    for b in range(B):
-        a = {k: np.array(v) for k, v in arrays.items()}
-        flip = (None, 1, 5, 6, 9, 10, 13, 14)[b % 8]
-        if flip is not None:
-            a["fuse"][flip] = ~a["fuse"][flip]
-        a["n"] = np.roll(a["n"], b)
-        lanes.append(a)
-    return lanes, st
+    return examples.fused_mixed_lanes(B)
 
 
 @pytest.mark.parametrize("B", [3, 8, 64])
@@ -647,6 +637,26 @@ def test_fused_many_on_card(cuda_device, B):
         plain = ft.solve_scan_packed1(bufs[b].cpu(),
                                       **examples.solve_statics(st))
         assert torch.equal(got[b].cpu(), plain), b
+
+
+def test_fused_round_past_grid_y(cuda_device):
+    """65,552 lanes (16 mixed striped lanes repeated 4,097 times), more
+    than grid y's 65,535 blocks: the fused commit's clusters spread the
+    lane over grid y and z, and the cluster rule answers for the real
+    lane count (hazard 57). One dispatch; each lane equals the plain
+    solve of its arena."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    lanes, st = _mixed_lanes(16)
+    small = _stack(lanes, st, "cpu")
+    reps = examples.FUSED_WIDE_REPS
+    ffd_cuda.reset_launches()
+    got = ft.solve_scan_packed1_many(small.repeat(reps, 1).to(cuda_device),
+                                     **examples.solve_statics(st))
+    assert ffd_cuda.LAUNCHES["ffd_fused_commit"] == st["G"] // st["F"]
+    plain = torch.stack([ft.solve_scan_packed1(
+        small[b], **examples.solve_statics(st)) for b in range(16)])
+    assert got.shape[0] == 16 * reps > 65535
+    assert torch.equal(got.cpu(), plain.repeat(reps, 1))
 
 
 @pytest.mark.parametrize("B", [8, 64])
@@ -682,54 +692,139 @@ def test_fused_solver_on_card(cuda_device):
 # K6: the pruned scan
 # ---------------------------------------------------------------------------
 
-def _pruned_steps_on_card(dev, arrays, st, S):
-    """Each of the three K6 kernels against its plain part, group by
-    group from the plain carry, the headroom launch's new-node table
-    included."""
+def _pruned_steps_on_card(dev, arrays, st, S, cluster=None, lanes=None,
+                          rows=None):
+    """Both K6 kernels against their plain parts, group by group from
+    the plain carry: the probe (selection, candidates, headroom and the
+    new-node table) against ``_pruned_probe_ref``, then the commit, the
+    probe on ``rows`` selecting clusters of ``cluster`` CTAs a lane
+    (None: the card's rule). ``arrays``
+    is one arena's (or, with ``lanes``, a list of them, each lane from
+    its own plain carry). Returns the probe's outputs of every step of
+    lane 0, for comparing cluster sizes."""
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
     T, D, Z, C, G, E, P = (st[k] for k in "T D Z C G E P".split())
     N = E + st["n_max"]
     S = min(S, N)
-    buf = torch.from_numpy(pack_inputs1(arrays, *examples.pack_statics(
-        st))).to(dev)
-    inp = ft._packed_inputs_ref(buf, T, D, Z, C, G, E, P, 0, 0, 0)
-    carry = ft.carry0_pruned(inp, N, E)
-    ps = ffd_cuda.PrunedState(inp, ft.CarryP(*[t.clone() for t in carry]),
-                              E=E, P=P, S=S)
+    per = []
+    for a in (arrays if lanes else [arrays]):
+        buf = torch.from_numpy(pack_inputs1(a, *examples.pack_statics(
+            st))).to(dev)
+        per.append(ft._packed_inputs_ref(buf, T, D, Z, C, G, E, P, 0, 0, 0))
+    inp = per[0] if lanes is None else ft.KernelInputs(*[
+        None if f[0] is None else torch.stack(f) for f in zip(*per)])
+    carries = [ft.carry0_pruned(x, N, E) for x in per]
+    ps = ffd_cuda.PrunedState(inp, ft.carry0_pruned(inp, N, E, lanes=lanes),
+                              E=E, P=P, S=S, lanes=lanes, cluster=cluster,
+                              rows=rows)
+    assert cluster is None or ps.cluster == cluster
+    assert rows is None or ps.rows == rows
+
+    def lane(t, b):
+        return t if lanes is None else t[b]
+    seen = []
     for g in range(G):
-        for dst, src in zip(ps.carry, carry):
-            dst.copy_(src)
-        sel, cnt = ft._pruned_select_ref(inp, carry, g, E=E, P=P, S=S)
-        ffd_cuda.ffd_pruned_select(ps, g)
-        assert torch.equal(ps.sel, sel) and torch.equal(ps.cnt, cnt), g
-        cand_s, k_s = ft._pruned_headroom_ref(inp, carry, g, sel)
-        tab = ft._new_node_table_ref(inp, g, P=P, cap_row=True)
-        ffd_cuda.ffd_pruned_headroom(ps, g)
-        assert torch.equal(ps.cand, cand_s) and torch.equal(ps.ks, k_s), g
-        for got, want in zip(ps.table(), tab):
-            assert torch.equal(got, want), g
-        carry, take, n_rem = ft._pruned_commit_ref(
-            inp, carry, g, sel, cnt, cand_s, k_s, tab, E=E, P=P, S=S)
+        for b, c in enumerate(carries):
+            for dst, src in zip(ps.carry, c):
+                lane(dst, b).copy_(src)
+        ffd_cuda.ffd_pruned_probe(ps, g)
+        got = [ps.sel.clone(), ps.cnt.clone(), ps.cand.clone(),
+               ps.ks.clone()] + [t.clone() for t in ps.table()]
+        seen.append([lane(x, 0) for x in got])
         ffd_cuda.ffd_pruned_commit(ps, g)
-        for f, got, want in zip(ft.CarryP._fields, ps.carry, carry):
-            assert torch.equal(got, want), (g, f)
-        assert torch.equal(ps.takes[g], take.to(torch.int32)), g
-        assert torch.equal(ps.leftover[g:g + 1], n_rem.reshape(1)), g
+        for b, x in enumerate(per):
+            sel, cnt, cand_s, k_s, tab = ft._pruned_probe_ref(
+                x, carries[b], g, E=E, P=P, S=S)
+            for i, want in enumerate((sel, cnt, cand_s, k_s) + tuple(tab)):
+                assert torch.equal(lane(got[i], b), want), (g, b, i)
+            carries[b], take, n_rem = ft._pruned_commit_ref(
+                x, carries[b], g, sel, cnt, cand_s, k_s, tab, E=E, P=P, S=S)
+            for f, kg, want in zip(ft.CarryP._fields, ps.carry, carries[b]):
+                assert torch.equal(lane(kg, b), want), (g, b, f)
+            assert torch.equal(lane(ps.takes, b)[g], take.to(torch.int32))
+            assert torch.equal(lane(ps.leftover, b)[g:g + 1],
+                               n_rem.reshape(1)), (g, b)
+    return seen
 
 
 @pytest.mark.parametrize("S", [1, 2, 64])
 @pytest.mark.parametrize("case", examples.PRUNED_CASES)
 def test_pruned_kernels_step_by_step(cuda_device, case, S):
-    """Each of the three kernels against its plain part, group by group
-    from the plain carry, the headroom launch's new-node table included."""
+    """Both kernels against their plain parts, group by group from the
+    plain carry: the probe's selection, candidates, headroom and
+    new-node table, then the commit."""
     arrays, st = examples.pruned_case(case)
     _pruned_steps_on_card(cuda_device, arrays, st, S)
+
+
+@pytest.mark.parametrize("S", [1, 4, 64])
+@pytest.mark.parametrize("case", examples.PRUNED_CASES)
+def test_pruned_probe_cluster_sizes_agree(cuda_device, case, S):
+    """The probe on 1, 2 and 8 CTAs a cluster with one selecting cluster
+    a lane, and on 8 and 2 CTAs with 4 (the slots' chunks, the selected
+    rows and the type chunks split several ways; hazard 59), writes
+    identical outputs at every step, each equal to the plain part."""
+    arrays, st = examples.pruned_case(case)
+    seen = [_pruned_steps_on_card(cuda_device, arrays, st, S, cluster=cs,
+                                  rows=nr)
+            for cs, nr in ((1, 1), (2, 1), (8, 1), (8, 4), (2, 4))]
+    for other in seen[1:]:
+        for a, b in zip(seen[0], other):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("case", examples.PRUNED_CASES)
+def test_pruned_probe_unaligned_rows(cuda_device, case):
+    """27 types: a slot's type row is not 4-byte aligned, so the probe's
+    screen reads it byte by byte; on 1 and 8 CTAs."""
+    arrays, st = examples.pruned_case(case, T=27)
+    for cs, nr in ((1, 1), (8, 4)):
+        _pruned_steps_on_card(cuda_device, arrays, st, 4, cluster=cs,
+                              rows=nr)
+
+
+@pytest.mark.parametrize("shape", [dict(D=10, Z=5, C=4), dict(Z=9, C=4),
+                                   dict(D=3, Z=13, C=5), dict(T=1030)])
+@pytest.mark.parametrize("case", ["plain", "pool_limits", "zero_r_row"])
+def test_pruned_probe_wide_rows(cuda_device, case, shape):
+    """Rows wider than the probe's registers: 10 resources (the headroom's
+    loop past eight) with 20 zone x capacity-type pairs (the offerings'
+    bytes past sixteen); 36 pairs (two ballots a mask); 65 pairs (the
+    masks give way to the any-overlaps and offering_ok); 1,030 types
+    (the screen's overlap by bytes past 1,024). On the card's rule and on
+    2 CTAs with 4 selecting clusters."""
+    arrays, st = examples.pruned_case(case, **shape)
+    for cs, nr in ((None, None), (2, 4)):
+        _pruned_steps_on_card(cuda_device, arrays, st, 64, cluster=cs,
+                              rows=nr)
+
+
+@pytest.mark.parametrize("case", ["plain", "existing", "wrap_n_rem"])
+def test_pruned_probe_passes(cuda_device, case):
+    """S = N = 300 + E slots on one selecting cluster: its rows take two
+    passes of 256; on 2 selecting clusters, one pass each."""
+    arrays, st = examples.pruned_case(case, n_max=300)
+    for cs, nr in ((8, 1), (2, 2)):
+        _pruned_steps_on_card(cuda_device, arrays, st, st["E"] + 300,
+                              cluster=cs, rows=nr)
+
+
+def test_pruned_kernels_on_lanes(cuda_device):
+    """Three lanes of different contents (``examples.pruned_lanes``) step
+    by step, each lane from its own plain carry, at the card's cluster
+    size and on 8 CTAs."""
+    lanes, st = examples.pruned_lanes()
+    for cs in (None, 8):
+        _pruned_steps_on_card(cuda_device, lanes, st,
+                              examples.PRUNED_LANES_S, cluster=cs,
+                              lanes=len(lanes))
 
 
 @pytest.mark.parametrize("case", ["pool_limits", "wrap_n_rem"])
 def test_pruned_kernels_wide_table(cuda_device, case):
     """600 types: three table blocks a pool, whose partial caps and
-    cap_hint rows the commit reduces."""
+    cap_hint rows the commit reduces; 150 type words a slot row in the
+    probe's screen."""
     arrays, st = examples.pruned_case(case, T=600)
     _pruned_steps_on_card(cuda_device, arrays, st, 64)
 
@@ -762,6 +857,27 @@ def test_pruned_many_on_card(cuda_device):
         plain = ft.solve_scan_packed1_pruned(bufs[b].cpu(), S=S,
                                              **examples.pruned_statics(st))
         assert torch.equal(got[b].cpu(), plain)
+
+
+def test_pruned_many_past_grid_y(cuda_device):
+    """65,553 lanes (the three ``pruned_lanes`` arenas repeated 21,851
+    times), more than grid y's 65,535 blocks: the probe's clusters take
+    the lane on grid y and z (hazard 60). One dispatch; each lane equals
+    the plain solve of its arena, bail word included."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    lanes, st = examples.pruned_lanes()
+    S = examples.PRUNED_LANES_S
+    small = _stack(lanes, st, "cpu")
+    reps = 21851
+    ffd_cuda.reset_launches()
+    got = ft.solve_scan_packed1_pruned_many(
+        small.repeat(reps, 1).to(cuda_device), S=S,
+        **examples.pruned_statics(st))
+    assert ffd_cuda.LAUNCHES["ffd_pruned_probe"] == st["G"]
+    plain = torch.stack([ft.solve_scan_packed1_pruned(
+        small[b], S=S, **examples.pruned_statics(st)) for b in range(3)])
+    assert got.shape[0] == 3 * reps > 65535
+    assert torch.equal(got.cpu(), plain.repeat(reps, 1))
 
 
 def test_pruned_bail_resolves_on_card(cuda_device):
