@@ -439,6 +439,10 @@ def check_arena(label, buf_np, st, cmp, dev):
         fc.ffd_slot_headroom(state, g)
         cmp("ffd_slot_headroom", state.cand, cand, f"{label} g={g} cand")
         cmp("ffd_slot_headroom", state.k, k, f"{label} g={g} k")
+        if not K:
+            for nm, got, want in zip(("candn", "hrn", "cap"), state.table(),
+                                     ft._new_node_table_ref(inp, g, P=P)):
+                cmp("ffd_slot_headroom", got, want, f"{label} g={g} {nm}")
         carry, take, n_rem = ft._group_step_ref(inp, carry, g, E=E, P=P,
                                                 V=V)
         fc.ffd_group_commit(state, g)
@@ -681,6 +685,13 @@ def check_subset_lanes(label, arena, tprice, lanes, st, cmp, nlanes=None):
         cmp("ffd_slot_headroom", state.k, torch.stack(ks),
             f"{label} lanes g={g} k")
         del cands
+        tabs = [ft._new_node_table_ref(ct.lane_inputs(sub, b), g, P=P)
+                for b in range(B)]
+        for nm, got, i in zip(("candn", "hrn", "cap"), state.table(),
+                              range(3)):
+            cmp("ffd_slot_headroom", got, torch.stack([x[i] for x in tabs]),
+                f"{label} lanes g={g} {nm}")
+        del tabs
         fc.ffd_group_commit(state, g)
         takes, lefts = [], []
         for b in range(B):
@@ -962,7 +973,7 @@ def consolidation_phase(cmp=None, device=None, fleet=C4_FLEET,
     add(rec.pop("launches"))
     recs["prefix"] = rec
     if cmp is not None:
-        rows, _ = subset_rows_check("prefix", sub, cmp, dev)
+        rows, caps["prefix"] = subset_rows_check("prefix", sub, cmp, dev)
         plain = examples.multi_consolidation(
             RowsEvaluator(rows, None), plain_solver, base, pre, pq)
         if plain != got:
@@ -2817,25 +2828,24 @@ def kernel_times(c2, launches):
             lambda: ft._slot_headroom_ref(inp, cg, g, E=E, P=P, V=0),
             reps=10))
         cand, _ = ft._slot_headroom_ref(inp, cg, g, E=E, P=P, V=0)
-        n_cand = int(cand.sum())
-        # read: types, F, avail, A, used, zones, ct, pool, admit, R;
-        # write: cand, k
-        by_l.append(N * T + T + T * Z * C + T * D * 8 + N * D * 8
-                    + N * (Z + C + 4) + P + D * 8 + N * T + N * 8)
-        # one 64-bit quotient per (candidate cell, dim), one offering
-        # test per (slot, type, zone, capacity type)
-        op_l.append(n_cand * D + N * T * Z * C)
+        nbytes, ops = k2_cost(inp, cg, g, P, cand)[0]
+        by_l.append(nbytes)
+        op_l.append(ops)
     recs["ffd_slot_headroom"] = (statistics.fmean(ms_l),
                                  statistics.fmean(pms_l),
                                  statistics.fmean(by_l),
                                  statistics.fmean(op_l))
 
     # K2 phase 2: restore the group's entry carry and its phase-1 result
-    # before each launch (outside the timed events)
+    # (candidates, headroom, the new-node table) before each launch,
+    # outside the timed events
     ms_l, pms_l, by_l, op_l = [], [], [], []
     for g in range(G):
         cg = carries[g]
-        cand, k = ft._slot_headroom_ref(inp, cg, g, E=E, P=P, V=0)
+        for dst, src in zip(state.carry, cg):
+            dst.copy_(src)
+        fc.ffd_slot_headroom(state, g)
+        cand, k = state.cand.clone(), state.k.clone()
 
         def setup(cg=cg, cand=cand, k=k):
             for dst, src in zip(state.carry, cg):
@@ -2847,15 +2857,9 @@ def kernel_times(c2, launches):
         pms_l.append(time_launches(
             lambda: ft._group_step_ref(inp, cg, g, E=E, P=P, V=0), reps=10))
         nxt = carries[g + 1] if g + 1 < G else final
-        touched = int((nxt.types != cg.types).any(dim=1).sum()) \
-            + int((takes[g] > 0).sum())
-        # read: k, pool, used, A, F, pool_types, avail, daemon, R, the cand
-        # rows of filled slots; write: used, the touched type rows,
-        # zones/ct, takes, leftover
-        by_l.append(N * 8 + N * 4 + N * D * 8 + T * D * 8 + T * (2 + Z * C)
-                    + P * D * 8 + D * 8 + touched * T
-                    + N * D * 8 + touched * (T + Z + C) + N * 4 + 8)
-        op_l.append(touched * T * D + P * T * (D + Z * C) + 4 * N)
+        nbytes, ops = k2_cost(inp, cg, g, P, cand, nxt, takes[g])[1]
+        by_l.append(nbytes)
+        op_l.append(ops)
     recs["ffd_group_commit"] = (statistics.fmean(ms_l),
                                 statistics.fmean(pms_l),
                                 statistics.fmean(by_l),
@@ -3000,53 +3004,10 @@ def k7_times(caps, launches):
                arena, t["gid"], t["n"], t["dead"], t["keep"]), reps=3),
            gather_in + gather_out, 0)
 
-    # the K2 kernels on the lane axis at group 0 of the round
-    lanes = cc.subset_gather(arena, t["gid"], t["n"], t["dead"], t["keep"])
-    st = fc.ScanState(lanes, ft.carry0(lanes, N, E, lanes=B), E=E, P=P,
-                      lanes=B)
-    c0 = ft.Carry(*[x.clone() for x in st.carry])
-    fc.ffd_slot_headroom(st, 0)
-    cand0, k0 = st.cand.clone(), st.k.clone()
-    hr_ms = time_launches(lambda: fc.ffd_slot_headroom(st, 0), reps=20)
-
-    def restore():
-        for dst, src in zip(st.carry, c0):
-            dst.copy_(src)
-        st.cand.copy_(cand0)
-        st.k.copy_(k0)
-    cm_ms = time_launches(lambda: fc.ffd_group_commit(st, 0), reps=20,
-                          setup=restore)
-    nl = 32                       # plain: 32 lanes timed, scaled to B
-    sub = [ct.lane_inputs(lanes, b) for b in range(nl)]
-    subc = [ft.Carry(*[x[b] for x in c0]) for b in range(nl)]
-    p_hr = time_launches(lambda: [ft._slot_headroom_ref(
-        sub[b], subc[b], 0, E=E, P=P, V=0) for b in range(nl)], reps=2)
-    p_cm = time_launches(lambda: [ft._group_step_ref(
-        sub[b], subc[b], 0, E=E, P=P, V=0) for b in range(nl)], reps=2)
-    ZC = Z * C
-    hr_bytes = T * D * 8 + B * (N * T + T + T * ZC + N * D * 8
-                                + N * (Z + C + 4) + P + D * 8 + N * T + N * 8)
-    n_cand = int(cand0.sum())
-    hr_ops = n_cand * D + B * N * T * ZC
-    touched = int((st.k > 0).sum())
-    cm_bytes = T * D * 8 + B * (N * 8 + N * 4 + 2 * N * D * 8 + T * (2 + ZC)
-                                + P * D * 8 + D * 8 + N * 4 + 8) \
-        + touched * (2 * T + Z + C)
-    cm_ops = touched * T * D + B * (P * T * (D + ZC) + 4 * N)
-    lane = dict(lanes=B, groups=Gq, N=N, T=T,
-                ffd_slot_headroom=dict(ms=hr_ms, plain_ms=p_hr * B / nl,
-                                       bound_ms=bound_ms(hr_bytes, hr_ops)),
-                ffd_group_commit=dict(ms=cm_ms, plain_ms=p_cm * B / nl,
-                                      bound_ms=bound_ms(cm_bytes, cm_ops)))
-    del sub, subc
-
-    # the summary on the scanned lanes
-    restore()
-    fc.ffd_group_commit(st, 0)
-    del c0, cand0, k0
-    for g in range(1, Gq):
-        fc.ffd_slot_headroom(st, g)
-        fc.ffd_group_commit(st, g)
+    # the K2 kernels on the lane axis at both subset rounds' shapes; the
+    # whole-fleet round's scan, then its summary
+    lane = {"fleet": k2_lane_times(caps["fleet"], (0,))}
+    st, _ = k2_lane_scan(caps["fleet"])
     args = (st.leftover, st.carry.num_nodes, st.carry.types, t["keep"], tp,
             t["removed_price"], E)
     record("subset_summary",
@@ -3054,9 +3015,154 @@ def k7_times(caps, launches):
            time_launches(lambda: ct._subset_summary_ref(*args), reps=10),
            8 * B * Gq + 4 * B + 2 * B * T + 8 * T + 8 * B + 40 * B,
            2 * B * T)
-    del st, lanes
+    del st
+    torch.cuda.empty_cache()
+    Gp = caps["prefix"][2]["gid"].shape[1]
+    lane["prefix"] = k2_lane_times(caps["prefix"],
+                                   sorted({0, Gp // 4, Gp // 2, 3 * Gp // 4}))
     torch.cuda.empty_cache()
     return recs, lane
+
+
+def k2_cost(inp, c0, g, P, cand, c1=None, take=None):
+    """((bytes, ops) of ffd_slot_headroom, (bytes, ops) of
+    ffd_group_commit) of one group step from its data, one lane or a
+    lane axis (``inp``/``c0`` lane-stacked): the entry carry ``c0``, the
+    headroom's candidates ``cand``, and for the commit the exit carry
+    ``c1`` and the takes ``take`` (else its cost is None). Each input
+    the function needs read once, each output written once. The
+    headroom: every row's pool and its candidate row and k written; the
+    type rows, zones, capacity types and used of the open rows whose
+    pool the group admits (one offering test per (type, zone, capacity
+    type) and one 64-bit quotient per (candidate cell, dim)); alive and
+    ex_compat of the existing rows, and the used and allocatable rows of
+    those that are alive and compatible (their D quotients); the new-node
+    table of every pool. The commit: the fill over every row's k and
+    pool, the takes written; each touched row's used, zones and capacity
+    types read and written and its types written, from its candidate
+    row (narrowed) or its pool's table row (opened); the pools' caps and
+    budgets."""
+    import torch
+    T, D = inp.A.shape
+    Z, C = inp.agz.shape[-1], inp.agc.shape[-1]
+    ZC, TB = Z * C, -(-T // 256)
+    E = inp.ex_alloc.shape[-2]
+    pool = c0.pool.long()
+    B = pool.numel() // pool.shape[-1]
+    N = pool.shape[-1]
+    adm = (pool >= 0) & torch.gather(inp.admit[..., g, :], -1,
+                                     pool.clamp(0, P - 1))
+    n_adm = int(adm.sum())
+    ex_ok = int((c0.alive[..., :E] & inp.ex_compat[..., g, :]).sum())
+    n_cand = int(cand.sum())
+    hr_bytes = T * D * 8 + P * T \
+        + B * (N * 4 + T + T * ZC + P + D * 8 + Z + C + N * T + N * 8
+               + E * 2 + P * (D * 8 + Z + C) + P * T * 9 + P * TB * 8) \
+        + n_adm * (T + Z + C + D * 8) + ex_ok * D * 16
+    hr_ops = n_cand * D + n_adm * T * ZC + ex_ok * D \
+        + B * P * T * (D + ZC)
+    if c1 is None:
+        return (hr_bytes, hr_ops), None
+    opened = (c0.pool < 0) & (c1.pool >= 0)
+    n_open = int(opened.sum())
+    narrowed = int(((c1.types != c0.types).any(-1) & ~opened).sum())
+    touched = int(((c1.types != c0.types).any(-1) | (take > 0)
+                   | opened).sum())
+    lead = pool.shape[:-1]
+    pools = torch.zeros(*lead, P + 1, dtype=torch.bool, device=pool.device)
+    pools.scatter_(-1, torch.where(opened, c1.pool.long(), P), True)
+    n_pools = int(pools[..., :P].sum())
+    cm_bytes = T * D * 8 + B * (N * 8 + N * 4 + N * 4 + 8 + P * TB * 8
+                                + 4 * P * D * 8 + D * 8) \
+        + touched * (T + 2 * (Z + C) + 2 * D * 8) + narrowed * T \
+        + n_pools * T * 9
+    cm_ops = (narrowed + n_open) * T * D + B * 4 * N
+    return (hr_bytes, hr_ops), (cm_bytes, cm_ops)
+
+
+def k2_lane_scan(cap, upto=None, at=()):
+    """The captured subset round's lanes on the card and its K2 scan by
+    the kernels, groups [0, upto) (default all): (state, {g: the entry
+    carry of each group g in ``at``})."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    arena, _, t, kw = cap
+    E, P, N = kw["E"], kw["P"], kw["E"] + kw["n_max"]
+    B, Gq = t["gid"].shape
+    lanes = cc.subset_gather(arena, t["gid"], t["n"], t["dead"], t["keep"])
+    st = fc.ScanState(lanes, ft.carry0(lanes, N, E, lanes=B), E=E, P=P,
+                      lanes=B)
+    entry = {}
+    for g in range(Gq if upto is None else upto):
+        if g in at:
+            entry[g] = ft.Carry(*[x.clone() for x in st.carry])
+        fc.ffd_slot_headroom(st, g)
+        fc.ffd_group_commit(st, g)
+    return st, entry
+
+
+def k2_lane_times(cap, groups):
+    """Both K2 kernels on the lane axis at a captured subset round's
+    shape: each timed at the entry carry of every group in ``groups``
+    (the kernels' own scan up to there), beside its plain version (32
+    lanes timed, scaled to B) and its bound (``k2_cost``, from these
+    groups' data); means over the groups. The commit's shape is the
+    rule's for B lanes."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    arena, _, t, kw = cap
+    E, P, N = kw["E"], kw["P"], kw["E"] + kw["n_max"]
+    B, Gq = t["gid"].shape
+    T, D = arena.A.shape
+    Z, C = arena.agz.shape[1], arena.agc.shape[1]
+    st, entry = k2_lane_scan(cap, max(groups) + 1, set(groups))
+    hr, cm, p_hr, p_cm, hb, cb = [], [], [], [], [], []
+    nl = min(32, B)               # plain: nl lanes timed, scaled to B
+    for g in groups:
+        c0 = entry[g]
+        for dst, src in zip(st.carry, c0):
+            dst.copy_(src)
+        fc.ffd_slot_headroom(st, g)
+        cand0, k0 = st.cand.clone(), st.k.clone()
+        hr.append(time_launches(lambda: fc.ffd_slot_headroom(st, g),
+                                reps=20))
+
+        def restore(c0=c0, cand0=cand0, k0=k0):
+            for dst, src in zip(st.carry, c0):
+                dst.copy_(src)
+            st.cand.copy_(cand0)
+            st.k.copy_(k0)
+        cm.append(time_launches(lambda: fc.ffd_group_commit(st, g), reps=20,
+                                setup=restore))
+        restore()
+        fc.ffd_group_commit(st, g)
+        (hbn, hop), (cbn, cop) = k2_cost(st.inp, c0, g, P, cand0,
+                                         st.carry, st.k)
+        hb.append(bound_ms(hbn, hop))
+        cb.append(bound_ms(cbn, cop))
+        sub = [ct.lane_inputs(st.inp, b) for b in range(nl)]
+        subc = [ft.Carry(*[x[b] for x in c0]) for b in range(nl)]
+        p_hr.append(time_launches(lambda: [ft._slot_headroom_ref(
+            sub[b], subc[b], g, E=E, P=P, V=0) for b in range(nl)],
+            reps=2) * B / nl)
+        p_cm.append(time_launches(lambda: [ft._group_step_ref(
+            sub[b], subc[b], g, E=E, P=P, V=0) for b in range(nl)],
+            reps=2) * B / nl)
+        del sub, subc, cand0, k0, restore
+    mean = statistics.fmean
+    out = dict(lanes=B, groups=Gq, timed_groups=list(groups), N=N, T=T,
+               commit_shape=[getattr(st, "cluster", None),
+                             getattr(st, "threads", None)])
+    for name, ms, pms, bd in (("ffd_slot_headroom", hr, p_hr, hb),
+                              ("ffd_group_commit", cm, p_cm, cb)):
+        out[name] = dict(ms=mean(ms), plain_ms=mean(pms),
+                         bound_ms=[mean(b[0] for b in bd), bd[0][1]],
+                         ms_by_group=ms)
+    del st, entry
+    return out
 
 
 def k6_times(c7, launches):
@@ -4037,8 +4143,15 @@ def main() -> int:
             f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}, "
             f"{r['bytes']:.0f} B, {r['ops']:.0f} ops), plain "
             f"{r['plain_ms'] * 1e3:.1f} us, library {lib}")
-    log(f"[time] K2 on the lane axis at the whole-fleet round: "
-        f"{json.dumps(lane)}")
+    for key, what in (("fleet", "(a) the whole-fleet round"),
+                      ("prefix", "(b) the prefix round")):
+        per_r = c4[key]["launches_per_round"]
+        n_k2 = per_r.get("ffd_group_commit", 0) * (c4[key]["rounds"] + 1)
+        log(f"[time] K2 on the lane axis at {what} ({n_k2:.0f} launches of "
+            f"each kernel in its runs; the round's p50 "
+            f"{c4[key]['p50_ms']:.3f} ms, median split "
+            f"{json.dumps(c4[key].get('median_split_ms'))}): "
+            f"{json.dumps(lane[key])}")
     sol = warm_solve_times(d_bufw, stw, glw)
     log(f"[time] warm arena (n_max 16) solve device ms: "
         f"{json.dumps(sol)}")

@@ -82,8 +82,9 @@ struct FfdArgs {
     // per-group scratch
     u8* cand;               // [N, T]
     i64* k;                 // [N]   headroom, then take
-    i64* hrn;               // [T]   fresh-node headroom of one pool
-    u8* candn;              // [T]   fresh-node candidates of one pool
+    i64* hrn;               // [P, T] the group's new-node table: fresh-
+    u8* candn;              // [P, T] node headroom and candidates (row 0
+                            //   the one-pool scratch of commit_new_nodes)
     // outputs, over the scanned group window [G0, G0 + rows)
     int* takes;             // [rows, N]
     i64* leftover;          // [rows]
@@ -103,6 +104,21 @@ __device__ __forceinline__ FfdArgs lane_view(const FfdArgs& a, i64 lane) {
     for (int i = 0; i < KARP_FFD_PTRS; ++i)
         if (p[i]) p[i] += lane * a.lane_bytes[i];
     return v;
+}
+
+// lane_view(a, lane) into *out (shared memory) by the whole block, one
+// 8-byte word a thread (every field is 8 bytes wide); the caller puts a
+// barrier before reading it.
+__device__ __forceinline__ void lane_view_block(const FfdArgs& a, i64 lane,
+                                                FfdArgs* out) {
+    constexpr int kWords = sizeof(FfdArgs) / sizeof(i64);
+    const i64* src = reinterpret_cast<const i64*>(&a);
+    i64* dst = reinterpret_cast<i64*>(out);
+    for (int i = threadIdx.x; i < kWords; i += blockDim.x) {
+        i64 v = src[i];
+        if (i < KARP_FFD_PTRS && v) v += lane * a.lane_bytes[i];
+        dst[i] = v;
+    }
 }
 
 __device__ __forceinline__ i64 wadd(i64 a, i64 b) {

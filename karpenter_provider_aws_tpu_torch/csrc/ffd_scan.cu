@@ -8,84 +8,251 @@
 // with no synchronisation in between.
 //
 // The lane axis (FfdArgs.L, lane_bytes; ffd_common.cuh): L independent
-// solves of one shape in each launch. The lane rides grid y and z of the
-// headroom grid (lane_grid; y alone holds 65,535 blocks) and grid x of
-// the commit grid. The kernel bodies read the lane's own view of the
-// arguments and are otherwise those of a single solve; a consolidation
+// solves of one shape in each launch, the lane on grid y and z of both
+// kernels (lane_grid; y alone holds 65,535 blocks). Every CTA reads its
+// lane's arguments from the __grid_constant__ parameter once, into one
+// shared copy (no thread copies the argument struct). A consolidation
 // subset round (consolidation.cu) runs its B lanes this way, 2*G
-// launches whatever B is.
+// launches whatever B is. Each lane has its own new-node table
+// (ScanArgs.capn, FfdArgs.candn / hrn [P, T]): a subset lane's F carries
+// its own `keep` mask.
 //
-// ffd_slot_headroom (steps 1-3): one block per slot row. The block's
-//   threads stride over the T instance types, compute the candidate mask
-//   (a boolean any-reduction over zone x capacity-type offerings, never an
-//   integer matmul) and the headroom min_d floor((A - used) / R), write
-//   cand[s, :] and reduce k[s] as a block max. Existing rows (s < E) take
-//   their own allocatable's headroom. With minValues floors (K > 0) the
-//   block also runs the per-(key, value) segment max in shared memory
-//   (64-bit atomicMax) and the f-th-largest select.
-//   What bounds it on this card: at the 50k-pod, 812-type shape a launch
-//   moves about 0.5 MB and divides only on candidate cells and on dims
-//   with R > 0 (3 of the 8 padded dims), so neither bytes nor the
-//   emulated 64-bit divides (Hopper has no hardware one) come near the
-//   measured time: a launch costs its latency, one wave of N blocks
-//   (PERF.md has the times). The design keeps every slot row in one
-//   block so the k[s] max needs no second pass.
+// Both kernels branch once per launch on the minValues floors, uniformly:
 //
-// ffd_group_commit (steps 4-7): one block of 1024 threads per lane.
-//   Pool-limit caps and the greedy fill use block-wide exclusive scans
-//   over the N slots (each thread owns a contiguous chunk; wrapping
-//   64-bit sums); then the narrowing of filled slots over N x T, the
-//   per-pool accounting, and the
-//   new-node phase pool by pool (block max over T, q, slot writes). It
-//   writes takes[g - G0, :] as int32 and leftover[g - G0] (G0 is the
-//   first group of the scanned window: 0 for a full scan, the resume
-//   group of a suffix re-solve, csrc/ckpt.cu). One block is a serial
-//   section by design: the scan's order is the decision order. What
-//   bounds it: the latency of one block walking a few dozen barriers and
-//   the N-slot loop of the narrowing, not bytes or operations (PERF.md).
+// ffd_slot_headroom, K == 0: the slot rows on warps (ffd_step.cuh
+//   slot_headroom_warps), CTAs of 256 threads, in the layout k2_layout
+//   picks from L * N: with few rows (one lane) up to 8 warps a row split
+//   its types, with many (a round of 2,048 lanes) each warp takes up to
+//   16 rows. A row whose pool does not take the group (existing nodes,
+//   free slots) skips the type loop: its first warp zeroes the candidate
+//   row by 16-byte stores over the row's aligned middle (T = 812 rows
+//   start at every 4-byte offset mod 16) and, on an existing row, takes
+//   its allocatable's headroom across its lanes, loaded with the row's
+//   first loads. An admitted open row's warps stride over the types (the
+//   candidate test, an any-reduction over zone x capacity-type
+//   offerings, and the headroom min_d floor((A - used) / R)); with
+//   several warps a row their maxima meet in k by 64-bit atomicMax. The
+//   same launch's further P * table_blocks(T) CTAs a lane write the
+//   group's new-node table (ffd_step.cuh new_node_table_block, the code
+//   K5's and K6's table blocks run): candn / hrn [P, T] and the partial
+//   caps capn [P, table_blocks(T)]; they read no carry.
+// ffd_slot_headroom, K > 0: one CTA a slot row (slot_headroom_block):
+//   the block max over the types, then the per-(key, value) segment max
+//   in shared memory and the f-th-largest select; no table (the commit's
+//   minValues caps need the pool's h1, which it computes).
 //
-// The step bodies live in ffd_step.cuh, shared with the fused block
-// kernels (fused.cu).
+// ffd_group_commit, K == 0: a thread-block cluster of CS CTAs of NT
+//   threads a lane, composed from the pieces the fused commit runs with
+//   Fu = 1 (ffd_cluster.cuh, ffd_step.cuh), CTA r owning the slot chunk
+//   [r*ceil(N/CS), ...): the pool-limit caps of the limited pools the
+//   group admits and the greedy fill by warp-shuffle scans (fill_groups,
+//   the CTAs' totals exchanged over distributed shared memory); each
+//   CTA's slot pass of the narrowing (narrow_slots: used, zones, capacity
+//   types, per-pool takes, its takers compacted); then, after a cluster
+//   barrier, the takers' (slot, type) cells dealt round-robin to the
+//   CTAs (narrow_cells); then the new nodes from the table: CTA 0 stages
+//   the inputs, takes the pool budgets at once and its thread 0 walks the
+//   pools (new_node_scalars), and the opened rows are written by the
+//   whole cluster (commit_tail, spread). The filled and opened slots sit
+//   in one or two CTAs' chunks (new nodes open at E + num_nodes onward),
+//   so both passes run on every CTA instead of those. It writes takes[g -
+//   G0, :] as int32 and leftover[g - G0] (G0 is the first group of the
+//   scanned window: 0 for a full scan, the resume group of a suffix
+//   re-solve, csrc/ckpt.cu).
+// ffd_group_commit, K > 0: one CTA a lane (CS = 1) runs the block
+//   commit with the minValues caps: the block-wide scans of the fill
+//   (commit_fill), the narrowing slot by slot (commit_narrow) and the
+//   new-node phase pool by pool with its T-pass (commit_new_nodes, on
+//   row 0 of the table's buffers).
 //
-// A later PR would: compute the quotient in fp64 and correct it with one
-//   int64 multiply-compare (exact, and off the emulated divide); and fuse
-//   the scan into one persistent launch per solve (a cluster or a grid
-//   barrier between the phases) instead of 2*G launches.
+// The commit's shape follows a fixed rule on the lane count
+// (karp_ffd_k2_cluster): the first of (CS, NT) = (8, 512), (4, 512),
+// (2, 512), (1, 512) whose L clusters the card holds at once and whose
+// shared memory fits, else (1, 256); K > 0 takes only CS = 1. One lane
+// gets a cluster of 8 CTAs; a round of thousands of lanes one CTA of 256
+// threads each. A refused launch returns its error; nothing retries at
+// another size.
+//
+// What bounds them on this card (PERF.md has the times): at one lane,
+// latency: each launch's own cost (~5 us of the commit's) and the
+// commit's chain of barriers and of loads each used as soon as it
+// arrives (clock stamps of an instrumented build: before the cluster
+//   took the narrowing and the opened rows, the CTA holding 32 takers
+//   spent 25-30 us on their cells and the one holding 23 opened rows
+//   16-19 us on theirs, while the other six waited); on thousands of
+// lanes the headroom's bytes, the candidate rows (N x T a lane) it must
+// write.
 #include <cuda_runtime.h>
 
-#include "ffd_step.cuh"
+#include "ffd_cluster.cuh"
+
+// Outside the unnamed namespace: the exported entry points take it, and a
+// type of that namespace would give them internal linkage.
+struct ScanArgs {
+    FfdArgs f;              // the scan's fields; f.candn / f.hrn the new-
+                            // node table [P, T] a lane (K > 0: row 0 is
+                            // the commit's scratch)
+    i64* capn;              // [P, table_blocks(T)] the table's partial caps
+    i64 capn_lane_bytes;    // its lane stride
+    i64 cluster;            // CTAs a lane of ffd_group_commit (1, 2, 4, 8)
+    i64 threads;            // its threads a CTA (256, 512)
+    i64 rows;               // slot rows a warp of ffd_slot_headroom at
+                            // K == 0, or
+    i64 warps;              // its warps a slot row (0 and 0: the rule,
+                            // k2_layout)
+};
 
 namespace {
 
-constexpr int kHeadroomThreads = 256;
-constexpr int kCommitThreads = 1024;
+namespace cg = cooperative_groups;
 
-__global__ void __launch_bounds__(kHeadroomThreads)
-ffd_slot_headroom_kernel(FfdArgs args, i64 g) {
-    extern __shared__ i64 dyn[];   // h1 [K*V], sel [K]
-    __shared__ i64 red[33];
-    const unsigned lane = grid_lane();
-    if (lane >= args.L) return;   // the (y, z) grid's spare lanes
-    slot_headroom_block(lane_view(args, lane), g, blockIdx.x, red, dyn);
+constexpr int kHeadroomThreads = 256;
+
+// How the headroom's warps take the slot rows: `rows` rows a warp, or
+// `warps` warps a row (1, 2, 4 or 8) splitting its types.
+struct RowLayout {
+    i64 rows, warps;
+};
+
+// Slot rows a CTA of the headroom takes under layout l.
+__host__ __device__ __forceinline__ i64 block_rows(RowLayout l) {
+    return l.warps > 1 ? (kHeadroomThreads / 32) / l.warps
+                       : l.rows * (kHeadroomThreads / 32);
 }
 
-__global__ void __launch_bounds__(kCommitThreads)
-ffd_group_commit_kernel(FfdArgs args, i64 g) {
-    extern __shared__ i64 dyn[];   // take_by_pool [P], h1 [K*V], sel [K]
-    const FfdArgs a = lane_view(args, blockIdx.x);
-    __shared__ i64 tmp[33];
-    __shared__ i64 sc[8];          // broadcast scalars of the new-node phase
-    const i64 N = a.N;
-    const i64 chunk = (N + blockDim.x - 1) / blockDim.x;
-    const i64 lo = threadIdx.x * chunk, hi = lo + chunk < N ? lo + chunk : N;
-    i64* tbp = dyn;
-    i64* h1 = dyn + a.P;
-    i64* sel = h1 + a.K * a.V;
+// The headroom's layout for L lanes of N slots, about two waves of the
+// card's resident warps (the H100 holds 8,448 at once) over the L * N
+// rows: with more rows than 16,384, rows a warp (at most 16); with fewer,
+// as many warps a row (at most 8) as keep within the same count.
+RowLayout k2_layout(i64 L, i64 N) {
+    const i64 n = L * N, r = (n + 16383) / 16384;
+    RowLayout l{r < 1 ? 1 : (r > 16 ? 16 : r), 1};
+    while (l.warps < 8 && n * 2 * l.warps <= 16384) l.warps *= 2;
+    return l;
+}
 
-    i64 n_rem = commit_fill(a, g, lo, hi, tmp);          // steps 4-5
-    commit_narrow(a, g, 1, tbp);                         // step 6
-    n_rem = commit_new_nodes(a, g, n_rem, tmp, sc, h1, sel);   // step 7
-    commit_outputs(a, g, n_rem);
+__global__ void __launch_bounds__(kHeadroomThreads)
+ffd_slot_headroom_kernel(const __grid_constant__ ScanArgs args, i64 g,
+                         RowLayout lay) {
+    extern __shared__ i64 dyn[];   // h1 [K*V], sel [K]
+    __shared__ i64 red[33];
+    __shared__ FfdArgs sa;         // the lane's view, one copy a CTA
+    const unsigned lane = grid_lane();
+    if (lane >= args.f.L) return;  // the (y, z) grid's spare lanes
+    lane_view_block(args.f, lane, &sa);
+    __syncthreads();
+    const FfdArgs& a = sa;
+    if (a.K > 0) {
+        slot_headroom_block(a, g, blockIdx.x, red, dyn);
+        return;
+    }
+    const i64 N = a.N, T = a.T;
+    const i64 rb = block_rows(lay), nrb = (N + rb - 1) / rb;
+    if (blockIdx.x >= nrb) {       // chunk c of the table of pool pi
+        const i64 TB = table_blocks(T), j = blockIdx.x - nrb;
+        const i64 pi = j / TB, c = j % TB;
+        i64* capn = (i64*)((unsigned char*)args.capn
+                           + lane * args.capn_lane_bytes);
+        new_node_table_block(a, g, pi, c, a.candn + pi * T, a.hrn + pi * T,
+                             capn + j, nullptr, red, nullptr);
+        return;
+    }
+    const i64 lo = blockIdx.x * rb, hi = lo + rb < N ? lo + rb : N;
+    slot_headroom_warps(a, g, a.cand, a.k, lo, hi, (int)lay.warps);
+}
+
+// Dynamic shared bytes of the commit on CTAs of `chunk` slots: the
+// cluster commit's layout at K == 0; take_by_pool [P], h1 [K*V] and sel
+// [K] at K > 0.
+size_t commit_smem(const FfdArgs& f, i64 cs) {
+    if (f.K > 0) return (size_t)(f.P + f.K * f.V + f.K) * sizeof(i64);
+    return cluster_commit_smem(1, f.P, f.D, (f.N + cs - 1) / cs);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(NT)
+ffd_group_commit_kernel(const __grid_constant__ ScanArgs args, i64 g) {
+    extern __shared__ i64 dyn[];
+    __shared__ u64 scan[33 * kScanW];
+    __shared__ i64 bud[kScanW];
+    __shared__ FfdArgs sa;         // the lane's view, one copy a CTA
+    const unsigned lane = grid_lane();
+    // The (y, z) grid's spare lanes. A cluster spans grid x only, so all
+    // its CTAs share one lane and leave together: no cluster.sync() below
+    // is reached by part of a cluster.
+    if (lane >= args.f.L) return;
+    lane_view_block(args.f, lane, &sa);
+    __syncthreads();
+    const FfdArgs& a = sa;
+    const i64 N = a.N, P = a.P;
+    const int tid = threadIdx.x;
+    if (a.K > 0) {                 // one CTA a lane (karp_ffd_group_commit)
+        const i64 chunk = (N + NT - 1) / NT;
+        const i64 lo = tid * chunk < N ? tid * chunk : N;
+        const i64 hi = lo + chunk < N ? lo + chunk : N;
+        i64* tbp = dyn;
+        i64* h1 = dyn + P;
+        i64* sel = h1 + a.K * a.V;
+        i64* tmp = (i64*)scan;     // 33 entries
+        i64 n_rem = commit_fill(a, g, lo, hi, tmp);                // 4-5
+        commit_narrow(a, g, 1, tbp);                               // 6
+        n_rem = commit_new_nodes(a, g, n_rem, tmp, bud, h1, sel);  // 7
+        commit_outputs(a, g, n_rem);
+        return;
+    }
+    cg::cluster_group cl = cg::this_cluster();
+    const i64 CS = cl.num_blocks(), rank = cl.block_rank();
+    // the CTA's slots [c0, c1), and the thread's chunk of them [lo, hi)
+    const i64 cchunk = (N + CS - 1) / CS;
+    const i64 c0 = rank * cchunk < N ? rank * cchunk : N;
+    const i64 c1 = c0 + cchunk < N ? c0 + cchunk : N;
+    const i64 tchunk = (c1 - c0 + NT - 1) / NT;
+    const i64 lo = c0 + tid * tchunk < c1 ? c0 + tid * tchunk : c1;
+    const i64 hi = lo + tchunk < c1 ? lo + tchunk : c1;
+    CommitSmem m = commit_smem_at(dyn, 1, P, a.D, cchunk);
+    const i64* capn = (const i64*)((const unsigned char*)args.capn
+                                   + lane * args.capn_lane_bytes);
+    __shared__ int pre[9];         // the CTAs' taker counts, as a prefix
+    for (i64 w = tid; w < P + 1; w += NT) m.tbp[w] = 0;   // tbp, tks
+    if (tid == 0) m.ntk[0] = 0;
+    cap_components(a, g, 1, m.comp, m.ncomp);
+    __syncthreads();
+    fill_groups<kScanW, 1>(a, g, 0, 1, lo, hi, m.comp, m.ncomp[0], scan,
+                           bud, m.xch, m.tks);
+    narrow_slots(a, g, 0, 1, c0, c1, m.tk, m.tkm, m.ntk, m.tbp);
+    // The takers' cells over the whole cluster (the filled slots sit in a
+    // few CTAs' chunks; ffd_cluster.cuh says why only this commit deals
+    // them): after a cluster barrier (every CTA's takers and used rows),
+    // CTA r takes the cluster's takers r, r + CS, ... from their CTAs'
+    // lists into its own (tkm's words: one group, no masks).
+    cl.sync();
+    if (tid == 0) {
+        int acc = 0;
+        for (int q = 0; q < (int)CS; ++q) {
+            pre[q] = acc;
+            acc += *cl.map_shared_rank(m.ntk, (unsigned)q);
+        }
+        pre[CS] = acc;
+    }
+    __syncthreads();
+    int* mine = reinterpret_cast<int*>(m.tkm);
+    const int nmine = pre[CS] > rank
+        ? (int)((pre[CS] - rank + CS - 1) / CS) : 0;
+    for (int jj = tid; jj < nmine; jj += NT) {
+        const int j = (int)(rank + CS * jj);
+        int q = 0;
+        while (j >= pre[q + 1]) ++q;
+        mine[jj] = cl.map_shared_rank(m.tk, (unsigned)q)[j - pre[q]];
+    }
+    __syncthreads();
+    const i64 T = a.T;
+    narrow_cells(a, nmine, [&](int jj) { return (i64)mine[jj]; },
+                 [&](int, i64 s, i64 t) {
+                     return __ldg(&a.cand[s * T + t]) != 0;
+                 }, m.tu);
+    commit_tail(a, g, 0, 1, 1, c0, c1, capn, m.tbp, m.xch, m.stage, m.sc,
+                true);
+    cl.sync();   // no CTA leaves while another may read its shared memory
 }
 
 int set_smem(const void* fn, size_t smem) {
@@ -94,28 +261,111 @@ int set_smem(const void* fn, size_t smem) {
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+const void* commit_fn(i64 threads) {
+    return threads == 512 ? (const void*)ffd_group_commit_kernel<512>
+                          : (const void*)ffd_group_commit_kernel<256>;
+}
+
+// The commit's launch on clusters of cs CTAs of `threads`; `attr` holds
+// the cluster dimension the configuration points at.
+cudaLaunchConfig_t commit_config(const ScanArgs* a, i64 cs, i64 threads,
+                                 cudaLaunchAttribute* attr,
+                                 cudaStream_t stream) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)cs);   // the lane on y and z
+    lane_grid(a->f.L, &cfg.gridDim);
+    cfg.blockDim = dim3((unsigned)threads, 1, 1);
+    cfg.dynamicSmemBytes = commit_smem(a->f, cs);
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+}
+
 }  // namespace
 
 extern "C" {
 
-int karp_ffd_slot_headroom(const FfdArgs* a, long long g, void* stream) {
-    size_t smem = (size_t)(a->K * a->V + a->K) * sizeof(i64);
+int karp_ffd_slot_headroom(const ScanArgs* a, long long g, void* stream) {
+    const FfdArgs& f = a->f;
+    const size_t smem = f.K > 0 ? (size_t)(f.K * f.V + f.K) * sizeof(i64)
+                                : 0;
     int err = set_smem((const void*)ffd_slot_headroom_kernel, smem);
     if (err) return err;
-    dim3 grid((unsigned)a->N);
-    lane_grid(a->L, &grid);
+    RowLayout lay = k2_layout(f.L, f.N);
+    if (a->rows > 0 || a->warps > 0)
+        lay = RowLayout{a->rows > 0 ? a->rows : 1,
+                        a->warps > 0 ? a->warps : 1};
+    if (lay.rows > 1 && lay.warps > 1) return (int)cudaErrorInvalidValue;
+    const i64 rb = block_rows(lay);
+    dim3 grid((unsigned)(f.K > 0 ? f.N
+                         : (f.N + rb - 1) / rb + f.P * table_blocks(f.T)));
+    lane_grid(f.L, &grid);
     ffd_slot_headroom_kernel<<<grid, kHeadroomThreads, smem,
-                               (cudaStream_t)stream>>>(*a, g);
+                               (cudaStream_t)stream>>>(*a, (i64)g, lay);
     return (int)cudaGetLastError();
 }
 
-int karp_ffd_group_commit(const FfdArgs* a, long long g, void* stream) {
-    size_t smem = (size_t)(a->P + a->K * a->V + a->K) * sizeof(i64);
-    int err = set_smem((const void*)ffd_group_commit_kernel, smem);
+int karp_ffd_group_commit(const ScanArgs* a, long long g, void* stream) {
+    const i64 cs = a->cluster, nt = a->threads;
+    if ((cs != 1 && cs != 2 && cs != 4 && cs != 8) || (nt != 256 && nt != 512)
+        || (a->f.K > 0 && cs != 1))
+        return (int)cudaErrorInvalidValue;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = commit_config(a, cs, nt, attr,
+                                                 (cudaStream_t)stream);
+    int err = set_smem(commit_fn(nt), cfg.dynamicSmemBytes);
     if (err) return err;
-    ffd_group_commit_kernel<<<(unsigned)a->L, kCommitThreads, smem,
-                              (cudaStream_t)stream>>>(*a, g);
+    err = nt == 512
+        ? (int)cudaLaunchKernelEx(&cfg, ffd_group_commit_kernel<512>, *a,
+                                  (i64)g)
+        : (int)cudaLaunchKernelEx(&cfg, ffd_group_commit_kernel<256>, *a,
+                                  (i64)g);
+    if (err) return err;
     return (int)cudaGetLastError();
+}
+
+// The commit's shape for the lanes of `a`, as cs + 16 * (threads == 512):
+// the first of (8, 512), (4, 512), (2, 512), (1, 512) whose L clusters
+// the card holds at once and whose shared memory fits a CTA; (1, 256)
+// when none does. K > 0 takes CS = 1 only. Negative: a CUDA error,
+// negated.
+int karp_ffd_k2_cluster(const ScanArgs* a) {
+    const int shapes[4][2] = {{8, 512}, {4, 512}, {2, 512}, {1, 512}};
+    int dev = 0, optin = 0, nsm = 0;
+    int err = (int)cudaGetDevice(&dev);
+    if (!err)
+        err = (int)cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (!err)
+        err = (int)cudaDeviceGetAttribute(
+            &nsm, cudaDevAttrMultiProcessorCount, dev);
+    if (err) return -err;
+    for (const auto& sh : shapes) {
+        if (a->f.K > 0 && sh[0] != 1) continue;
+        cudaLaunchAttribute attr[1];
+        const cudaLaunchConfig_t cfg = commit_config(a, sh[0], sh[1], attr,
+                                                     0);
+        if (cfg.dynamicSmemBytes > (size_t)optin) continue;
+        err = set_smem(commit_fn(sh[1]), cfg.dynamicSmemBytes);
+        if (err) return -err;
+        int n = 0;
+        if (sh[0] == 1) {
+            err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, commit_fn(sh[1]), sh[1], cfg.dynamicSmemBytes);
+            n *= nsm;
+        } else {
+            err = (int)cudaOccupancyMaxActiveClusters(
+                &n, commit_fn(sh[1]), &cfg);
+        }
+        if (err) return -err;
+        if (n >= a->f.L) return sh[0] + 16 * (sh[1] == 512);
+    }
+    return 1;
 }
 
 }  // extern "C"

@@ -81,40 +81,98 @@ __device__ __forceinline__ void slot_headroom_block(const FfdArgs& a, i64 g,
     if (threadIdx.x == 0) a.k[s] = k;
 }
 
-// Steps 1-3 of group g for the slots [lo, hi) on one block, one warp per
-// slot (no minValues floors: K == 0), into the group's rows cand [N, T]
-// and k [N]; the caller puts a barrier before reading them.
+// Zeroes the n bytes at p on one warp: single bytes up to the first
+// 16-byte boundary, 16-byte stores over the aligned middle, single bytes
+// after it (a candidate row of T = 812 starts at every 4-byte offset
+// mod 16 as s moves, so each row takes its own head and tail).
+__device__ __forceinline__ void zero_bytes_warp(u8* p, i64 n) {
+    const int wl = threadIdx.x & 31;
+    i64 head = (i64)((16 - ((size_t)p & 15)) & 15);
+    head = head < n ? head : n;
+    const i64 nv = (n - head) >> 4;
+    if (wl < head) p[wl] = 0;
+    uint4* v = reinterpret_cast<uint4*>(p + head);
+    for (i64 i = wl; i < nv; i += 32) v[i] = make_uint4(0u, 0u, 0u, 0u);
+    const i64 t0 = head + (nv << 4);
+    if (t0 + wl < n) p[t0 + wl] = 0;
+}
+
+// Steps 1-3 of group g for the slots [lo, hi) on one block (no minValues
+// floors: K == 0), into the group's rows cand [N, T] and k [N]; the
+// caller puts a barrier before reading them. `wr` (1, 2, 4 or 8,
+// dividing the block's warps) warps take a slot row together, splitting
+// its types; with wr > 1 the block zeroes its rows of k, waits at a
+// barrier, and each warp's maximum goes in by a 64-bit atomicMax. A row
+// whose pool does not take the group (an existing node, a free slot, a
+// pool the group does not admit) skips the type loop: its first warp
+// zeroes the candidate row by wide stores and, on an existing row,
+// computes its allocatable's headroom across its lanes from loads issued
+// with the row's first ones (D <= 32; a wider D loops).
 __device__ __forceinline__ void slot_headroom_warps(const FfdArgs& a, i64 g,
                                                     u8* cand, i64* k,
-                                                    i64 lo, i64 hi) {
-    const i64 T = a.T, D = a.D, P = a.P;
+                                                    i64 lo, i64 hi,
+                                                    int wr = 1) {
+    const i64 T = a.T, D = a.D, P = a.P, E = a.E;
     const i64* R = a.R + g * D;
-    const int wl = threadIdx.x & 31;
-    const int nwarps = blockDim.x >> 5;
-    for (i64 s = lo + (threadIdx.x >> 5); s < hi; s += nwarps) {
+    const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int sub = warp % wr, ngrp = (blockDim.x >> 5) / wr;
+    const i64 rl = wl < D ? R[wl] : 0;       // this lane's request value
+    if (wr > 1) {
+        for (i64 s = lo + threadIdx.x; s < hi; s += blockDim.x) k[s] = 0;
+        __syncthreads();
+    }
+    for (i64 s = lo + warp / wr; s < hi; s += ngrp) {
         const i64* used = a.used + s * D;
+        const bool ex = s < E;               // warp-uniform
         const int pool = a.pool[s];
+        i64 ul = 0, al = 0;
+        u8 ok = 0;
+        if (ex && sub == 0) {
+            ok = a.alive[s] & a.ex_compat[g * E + s];
+            if (wl < D) {
+                ul = used[wl];
+                al = a.ex_alloc[s * D + wl];
+            }
+        }
         const i64 pc = pool < 0 ? 0 : (pool > P - 1 ? P - 1 : pool);
         const bool adm_open = pool >= 0 && a.admit[g * P + pc];
         i64 kmax = 0;
-        for (i64 t = wl; t < T; t += 32) {
-            bool c = adm_open && a.types[s * T + t] && a.F[g * T + t]
-                && offering_ok(a, g, s, t);
-            cand[s * T + t] = c;
-            if (c) {
-                i64 hr = headroom(a.A + t * D, used, R, D);
-                kmax = hr > kmax ? hr : kmax;
+        if (!adm_open) {
+            if (sub == 0) zero_bytes_warp(cand + s * T, T);
+        } else {
+            for (i64 t = sub * 32 + wl; t < T; t += 32 * wr) {
+                bool c = a.types[s * T + t] && a.F[g * T + t]
+                    && offering_ok(a, g, s, t);
+                cand[s * T + t] = c;
+                if (c) {
+                    i64 hr = headroom(a.A + t * D, used, R, D);
+                    kmax = hr > kmax ? hr : kmax;
+                }
+            }
+            for (int off = 16; off > 0; off >>= 1) {
+                i64 o = __shfl_xor_sync(0xffffffffu, kmax, off);
+                kmax = o > kmax ? o : kmax;
             }
         }
-        for (int off = 16; off > 0; off >>= 1) {
-            i64 o = __shfl_xor_sync(0xffffffffu, kmax, off);
-            kmax = o > kmax ? o : kmax;
+        if (ex && sub == 0) {                // the allocatable's headroom
+            i64 m = rl > 0 ? floordiv(wsub(al, ul), rl) : KARP_BIG;
+            for (i64 d = wl + 32; d < D; d += 32)
+                if (R[d] > 0) {
+                    const i64 q = floordiv(
+                        wsub(a.ex_alloc[s * D + d], used[d]), R[d]);
+                    m = q < m ? q : m;
+                }
+            for (int off = 16; off > 0; off >>= 1) {
+                const i64 o = __shfl_xor_sync(0xffffffffu, m, off);
+                m = o < m ? o : m;
+            }
+            kmax = ok ? (m < 0 ? 0 : m) : 0;
         }
         if (wl == 0) {
-            if (s < a.E)
-                kmax = (a.alive[s] && a.ex_compat[g * a.E + s])
-                    ? headroom(a.ex_alloc + s * D, used, R, D) : 0;
-            k[s] = kmax;
+            if (wr == 1)
+                k[s] = kmax;
+            else if (kmax > 0 && (sub == 0 || !ex))
+                atomicMax((long long*)&k[s], (long long)kmax);
         }
     }
 }

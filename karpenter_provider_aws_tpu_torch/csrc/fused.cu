@@ -53,6 +53,8 @@
 //     1..Fu-1 recompute steps 1-3 of the CTA's slots, one warp per slot
 //     (ffd_step.cuh slot_headroom_warps), and commit in turn: the
 //     reference's seq_block, Fu plain steps.
+//   The cluster's exchange, the narrowing and the new-node tail are
+//   ffd_cluster.cuh's, which the base group commit (ffd_scan.cu) runs too.
 //   The cluster size CS follows a fixed rule on the lane count L
 //   (karp_ffd_fused_cluster): the largest of 8, 4, 2, 1 whose L clusters
 //   the card holds at once (cudaOccupancyMaxActiveClusters), so 8 while a
@@ -70,7 +72,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "ffd_step.cuh"
+#include "ffd_cluster.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -114,167 +116,6 @@ ffd_fused_headroom_kernel(FusedArgs args, i64 g0) {
     slot_headroom_block(group_view(a, i), g0 + i, s, red, nullptr);
 }
 
-// Words a CTA publishes at once: the scans' kScanW totals, or the per-
-// (group, pool) takes and the per-group take totals.
-__host__ __device__ __forceinline__ i64 fused_xw(i64 Fu, i64 P) {
-    return Fu * P + Fu > kScanW ? Fu * P + Fu : kScanW;
-}
-
-// Dynamic shared bytes of the commit: the new-node scalars of Fu groups
-// and their staged inputs, the takes by (group, pool) and the take
-// totals, two publish buffers and the offsets and totals read back, the
-// narrowing's staged used rows, then ints: the CTA's takers and their
-// groups' masks, the pool-cap components and their counts, the takers'
-// counts.
-__host__ __device__ __forceinline__ size_t fused_commit_smem(i64 Fu, i64 P,
-                                                             i64 D,
-                                                             i64 chunk) {
-    return (size_t)(Fu * nn_words(P) + nn_stage_words(P, D, Fu) + Fu * P
-                    + Fu + 4 * fused_xw(Fu, P) + kNarrowRows * D)
-        * sizeof(i64) + (size_t)(2 * chunk + Fu * P + 2 * Fu) * sizeof(int);
-}
-
-// The cluster's exchange: each CTA publishes n words, then cluster.sync(),
-// then every CTA reads every rank's words: off[w] the sum over the ranks
-// before it, tot[w] over all. Two publish buffers alternate, so one
-// cluster.sync() per exchange orders a buffer's reuse after its readers.
-struct ClusterExchange {
-    i64* buf[2];
-    i64* off;
-    i64* tot;
-    int u;
-
-    __device__ void run(int n) {
-        cg::cluster_group cl = cg::this_cluster();
-        cl.sync();
-        const unsigned r = cl.block_rank(), cs = cl.num_blocks();
-        for (int w = threadIdx.x; w < n; w += blockDim.x) {
-            u64 o = 0, t = 0;
-            for (unsigned q = 0; q < cs; ++q) {
-                const u64 v = (u64)cl.map_shared_rank(buf[u], q)[w];
-                t += v;
-                if (q < r) o += v;
-            }
-            off[w] = (i64)o;
-            tot[w] = (i64)t;
-        }
-        __syncthreads();
-        u ^= 1;
-    }
-
-    // fill_groups' hook: the CTA's scan totals in, the earlier CTAs'
-    // totals added to each thread's prefixes
-    template <int W>
-    __device__ void add_before(u64 (&v)[W], const u64* totals, int n) {
-        for (int w = threadIdx.x; w < n; w += blockDim.x)
-            buf[u][w] = (i64)totals[w];
-        run(n);
-#pragma unroll
-        for (int j = 0; j < W; ++j)
-            if (j < n) v[j] += (u64)off[j];
-    }
-};
-
-// Step 6 of the groups i0 .. i0+nf-1 (k rows: takes) on the CTA's slots
-// [c0, c1): used += the takes times R; each open slot that some group
-// filled is compacted into tk (and the mask of its filling groups into
-// tkm), its zones and capacity types ANDed with the filling groups', its
-// take added to tbp [Fu, P]; then one flat pass over the takers' (slot,
-// type) cells narrows types to (the filling groups' candidates) & fit.
-// `ntk` is a shared counter at 0; `tu` the pass's staged used rows.
-__device__ __forceinline__ void narrow_groups(const FfdArgs& a, i64 g0,
-                                              i64 i0, i64 nf, i64 c0, i64 c1,
-                                              int* tk, unsigned* tkm,
-                                              int* ntk, i64* tu,
-                                              unsigned long long* tbp) {
-    const i64 N = a.N, T = a.T, D = a.D, Z = a.Z, C = a.C, P = a.P;
-    const int tid = threadIdx.x, nthr = blockDim.x;
-    for (i64 s = c0 + tid; s < c1; s += nthr) {
-        bool nonzero = false;                // a zero take changes nothing
-        for (i64 f = i0; f < i0 + nf; ++f) nonzero |= a.k[f * N + s] != 0;
-        if (!nonzero) continue;
-        for (i64 d = 0; d < D; ++d) {
-            i64 u = a.used[s * D + d];
-            for (i64 f = i0; f < i0 + nf; ++f)
-                u = wadd(u, wmul(a.k[f * N + s], a.R[(g0 + f) * D + d]));
-            a.used[s * D + d] = u;
-        }
-        const int pool = a.pool[s];
-        if (pool < 0) continue;
-        const i64 pc = pool > P - 1 ? P - 1 : pool;
-        unsigned mask = 0;
-        for (i64 f = i0; f < i0 + nf; ++f) {
-            const i64 take = a.k[f * N + s];
-            if (take <= 0) continue;
-            mask |= 1u << (f - i0);
-            const i64 g = g0 + f;
-            for (i64 z = 0; z < Z; ++z) a.zones[s * Z + z] &= a.agz[g * Z + z];
-            for (i64 c = 0; c < C; ++c) a.ct[s * C + c] &= a.agc[g * C + c];
-            atomicAdd(&tbp[f * P + pc], (unsigned long long)take);
-        }
-        if (mask) {
-            const int j = atomicAdd(ntk, 1);
-            tk[j] = (int)s;
-            tkm[j] = mask;
-        }
-    }
-    __syncthreads();
-    narrow_cells(a, *ntk, [&](int j) { return (i64)tk[j]; },
-                 [&](int j, i64 s, i64 t) {
-                     bool c = false;
-                     for (unsigned m = tkm[j]; m; m &= m - 1) {
-                         const i64 f = i0 + __ffs((int)m) - 1;
-                         c |= __ldg(&a.cand[(f * N + s) * T + t]) != 0;
-                     }
-                     return c;
-                 }, tu);
-}
-
-// After the fills and the narrowing of groups i0 .. i0+nf-1: the
-// cluster's takes by (group, pool) and take totals; on CTA 0, the staged
-// new-node inputs (pool_used plus the takes times R), its thread 0's
-// new-node scalars (into sc, num_nodes and leftover) and the pool_used
-// write-back; then every CTA's opened rows and takes rows on [c0, c1).
-__device__ __forceinline__ void commit_tail(const FfdArgs& a, i64 g0, i64 i0,
-                                            i64 nf, i64 Fu, i64 c0, i64 c1,
-                                            const i64* capn,
-                                            unsigned long long* tbp,
-                                            ClusterExchange& xch,
-                                            const NewNodeStage& stage,
-                                            i64* sc) {
-    const i64 N = a.N, P = a.P, D = a.D, T = a.T, W = Fu * P + Fu;
-    const int tid = threadIdx.x, nthr = blockDim.x;
-    cg::cluster_group cl = cg::this_cluster();
-    const unsigned rank = cl.block_rank();
-    for (i64 w = tid; w < W; w += nthr) xch.buf[xch.u][w] = (i64)tbp[w];
-    xch.run((int)W);     // xch.tot: the cluster's tbp [Fu, P], totals [Fu]
-    if (rank == 0) {
-        nn_stage(a, g0 + i0, nf, capn + i0 * P * table_blocks(T),
-                 xch.tot + i0 * P, xch.tot + Fu * P + i0, stage);
-        __syncthreads();
-        new_node_scalars(stage, nf, P, D, N, a.E, sc + i0 * nn_words(P),
-                         a.leftover + (g0 + i0 - a.G0));
-        for (i64 i = tid; i < P * D; i += nthr) a.pool_used[i] = stage.pu[i];
-        if (tid == 0) a.num_nodes[0] = (int)stage.nn[0];
-    }
-    cl.sync();           // CTA 0's scalars, pool_used and num_nodes
-    const i64 nw = nf * nn_words(P);
-    if (rank != 0) {
-        const i64* src = cl.map_shared_rank(sc, 0);
-        for (i64 w = i0 * nn_words(P) + tid; w < i0 * nn_words(P) + nw;
-             w += nthr)
-            sc[w] = src[w];
-        __syncthreads();
-    }
-    for (i64 f = i0; f < i0 + nf; ++f) {
-        const i64* sf = sc + f * nn_words(P);
-        new_node_rows(a, g0 + f, sf, a.candn + f * P * T, a.hrn + f * P * T,
-                      nullptr, nullptr, c0, c1, tid, nthr);
-        for (i64 s = c0 + tid; s < c1; s += nthr)
-            new_node_take(a, a.k + f * N, g0 + f, sf, s);
-    }
-}
-
 __global__ void __launch_bounds__(kCommitThreads)
 ffd_fused_commit_kernel(FusedArgs args, i64 g0) {
     extern __shared__ i64 dyn[];
@@ -303,22 +144,18 @@ ffd_fused_commit_kernel(FusedArgs args, i64 g0) {
     const i64 tchunk = (c1 - c0 + kCommitThreads - 1) / kCommitThreads;
     const i64 lo = c0 + tid * tchunk < c1 ? c0 + tid * tchunk : c1;
     const i64 hi = lo + tchunk < c1 ? lo + tchunk : c1;
-    i64* sc = dyn;                                     // [Fu, nn_words(P)]
-    const NewNodeStage stage = nn_stage_at(sc + Fu * nn_words(P), P, a.D,
-                                           Fu);
-    unsigned long long* tbp = (unsigned long long*)(
-        sc + Fu * nn_words(P) + nn_stage_words(P, a.D, Fu));  // [Fu, P], [Fu]
-    unsigned long long* tks = tbp + Fu * P;
-    const i64 xw = fused_xw(Fu, P);
-    ClusterExchange xch{{(i64*)(tks + Fu), (i64*)(tks + Fu) + xw},
-                        (i64*)(tks + Fu) + 2 * xw, (i64*)(tks + Fu) + 3 * xw,
-                        0};
-    i64* tu = (i64*)(tks + Fu) + 4 * xw;               // [kNarrowRows, D]
-    int* tk = (int*)(tu + kNarrowRows * a.D);          // [cchunk]
-    unsigned* tkm = (unsigned*)(tk + cchunk);          // [cchunk]
-    int* comp = (int*)(tkm + cchunk);                  // [Fu, P] pool caps
-    int* ncomp = comp + Fu * P;                        // [Fu]
-    int* ntk = ncomp + Fu;                             // [Fu]
+    CommitSmem m = commit_smem_at(dyn, Fu, P, a.D, cchunk);
+    i64* sc = m.sc;
+    const NewNodeStage& stage = m.stage;
+    unsigned long long* tbp = m.tbp;                   // [Fu, P], [Fu]
+    unsigned long long* tks = m.tks;
+    ClusterExchange& xch = m.xch;
+    i64* tu = m.tu;
+    int* tk = m.tk;
+    unsigned* tkm = m.tkm;
+    int* comp = m.comp;
+    int* ncomp = m.ncomp;
+    int* ntk = m.ntk;
     for (i64 w = tid; w < Fu * P + Fu; w += kCommitThreads) tbp[w] = 0;
     for (i64 w = tid; w < Fu; w += kCommitThreads) ntk[w] = 0;
     bool indep = true;
@@ -362,7 +199,8 @@ int set_smem(const void* fn, size_t smem) {
 }
 
 size_t commit_smem(const FusedArgs* a, i64 cs) {
-    return fused_commit_smem(a->Fu, a->f.P, a->f.D, (a->f.N + cs - 1) / cs);
+    return cluster_commit_smem(a->Fu, a->f.P, a->f.D,
+                               (a->f.N + cs - 1) / cs);
 }
 
 }  // namespace

@@ -54,7 +54,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("packed_io.cu", "ffd_scan.cu", "ckpt.cu", "consolidation.cu",
            "pruned.cu", "topo.cu", "fused.cu", "mesh.cu")
-HEADERS = ("ffd_common.cuh", "ffd_step.cuh")
+HEADERS = ("ffd_common.cuh", "ffd_step.cuh", "ffd_cluster.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -146,6 +146,7 @@ def _lib():
                                               ll, vp]
             lib.karp_ffd_slot_headroom.argtypes = [vp, ll, vp]
             lib.karp_ffd_group_commit.argtypes = [vp, ll, vp]
+            lib.karp_ffd_k2_cluster.argtypes = [vp]
             lib.karp_ffd_bank_store.argtypes = [vp, ll, ll, vp]
             lib.karp_ffd_bank_load.argtypes = [vp, ll, vp]
             lib.karp_consol_absorb.argtypes = [vp, ctypes.c_int, vp]
@@ -170,7 +171,7 @@ def _lib():
             lib.karp_error_string.restype = ctypes.c_char_p
             for fn in (lib.karp_unpack_bits, lib.karp_pack_outputs,
                        lib.karp_ffd_slot_headroom,
-                       lib.karp_ffd_group_commit,
+                       lib.karp_ffd_group_commit, lib.karp_ffd_k2_cluster,
                        lib.karp_ffd_bank_store, lib.karp_ffd_bank_load,
                        lib.karp_consol_absorb, lib.karp_subset_gather,
                        lib.karp_subset_summary, lib.karp_ffd_pruned_probe,
@@ -323,6 +324,12 @@ def pack_outputs_lanes(takes: torch.Tensor, leftover: torch.Tensor,
 # K2 wrappers
 # ---------------------------------------------------------------------------
 
+def table_blocks(T: int) -> int:
+    """The new-node table's blocks per (group, pool): one per 256 types
+    (csrc/ffd_step.cuh table_blocks), each with its partial cap."""
+    return -(-T // 256)
+
+
 _PTR_FIELDS = ("A", "avail_zc", "R", "n", "F", "agz", "agc", "admit",
                "daemon", "pool_types", "pool_agz", "pool_agc", "pool_limit",
                "ex_alloc", "ex_compat", "mv_floor", "mv_pairs_t",
@@ -362,14 +369,26 @@ class ScanState:
     ``cand_rows`` sizes the candidate scratch ``cand`` (default N rows;
     the pruned scan keeps S selected rows there). ``Fu`` keeps that many
     groups' scratch side by side (the fused scan): ``cand`` [Fu*N, T]
-    and ``k`` [Fu*N], group i's rows at i*N. ``table_rows`` widens the
-    one-pool new-node scratch ``candn`` / ``hrn`` [T] to the new-node
-    table [table_rows, T] (the pruned scan: P rows; the fused scan: Fu*P,
-    group i's pools at i*P)."""
+    and ``k`` [Fu*N], group i's rows at i*N. ``candn`` / ``hrn`` hold the
+    new-node table [table_rows, T] (default P rows: the group's table,
+    which ``ffd_slot_headroom`` writes at K == 0 and ``table()`` reads;
+    the fused scan: Fu*P, group i's pools at i*P) and ``capn`` its
+    partial caps [table_rows, table_blocks(T)]; each lane has its own.
+
+    ``cluster`` and ``threads`` are ``ffd_group_commit``'s CTAs a lane
+    (1, 2, 4, 8) and threads a CTA (256, 512); by default the fixed rule
+    of ``csrc/ffd_scan.cu`` (``k2_shape``) picks both from the lane count,
+    the shapes and the card's occupancy when the commit first launches.
+    With minValues floors the commit runs on one CTA a lane. ``rows``
+    (1-16) is ``ffd_slot_headroom``'s slot rows a warp or ``warps`` (1,
+    2, 4, 8) its warps a slot row, not both above 1 (default the kernel's
+    rule on the lane and slot counts, ``k2_layout``)."""
 
     def __init__(self, inp: KernelInputs, carry: Carry, *, E: int, P: int,
                  V: int = 0, s0: int = 0, s1: int = None, lanes: int = None,
-                 cand_rows: int = None, Fu: int = 1, table_rows: int = None):
+                 cand_rows: int = None, Fu: int = 1, table_rows: int = None,
+                 cluster: int = None, threads: int = None, rows: int = None,
+                 warps: int = None):
         dev = inp.A.device
         L = 1 if lanes is None else lanes
         lead = () if lanes is None else (L,)
@@ -387,6 +406,20 @@ class ScanState:
         M = 0 if inp.mv_pairs_t is None else inp.mv_pairs_t.shape[-1]
         if T == 0:
             raise ValueError("the scan kernels need T > 0")
+        if cluster not in (None, 1, 2, 4, 8):
+            raise ValueError(f"cluster={cluster} is not 1, 2, 4 or 8")
+        if threads not in (None, 256, 512):
+            raise ValueError(f"threads={threads} is not 256 or 512")
+        if K and cluster not in (None, 1):
+            raise ValueError("with minValues floors the commit runs on one "
+                             "CTA a lane")
+        if rows is not None and not 1 <= rows <= 16:
+            raise ValueError(f"rows={rows} must lie in [1, 16]")
+        if warps not in (None, 1, 2, 4, 8):
+            raise ValueError(f"warps={warps} is not 1, 2, 4 or 8")
+        if (rows or 1) > 1 and (warps or 1) > 1:
+            raise ValueError("a warp takes several rows or a row several "
+                             "warps, not both")
         i64, b = torch.int64, torch.bool
         lane_bytes = {}
 
@@ -426,9 +459,11 @@ class ScanState:
                                               cand_rows), T),
                                 dtype=b, device=dev)
         self.k = torch.empty(lead + (Fu * N,), dtype=i64, device=dev)
-        rows = () if table_rows is None else (table_rows,)
-        self.hrn = torch.empty(lead + rows + (T,), dtype=i64, device=dev)
-        self.candn = torch.empty(lead + rows + (T,), dtype=b, device=dev)
+        trows = P if table_rows is None else table_rows
+        self.hrn = torch.empty(lead + (trows, T), dtype=i64, device=dev)
+        self.candn = torch.empty(lead + (trows, T), dtype=b, device=dev)
+        self.capn = torch.empty(lead + (trows, table_blocks(T)), dtype=i64,
+                                device=dev)
         self.takes = torch.empty(lead + (s1 - s0, N), dtype=torch.int32,
                                  device=dev)
         self.leftover = torch.empty(lead + (s1 - s0,), dtype=i64,
@@ -446,6 +481,68 @@ class ScanState:
                              K=K, M=M, V=V, G0=s0, L=L)
         for i, f in enumerate(_PTR_FIELDS):
             self.args.lane_bytes[i] = lane_bytes.get(f, 0)
+        self.cluster, self.threads = cluster, threads
+        self.rows, self.warps = rows, warps
+        self._kargs = None
+
+    @property
+    def kargs(self) -> "_ScanArgs":
+        """The K2 kernels' argument block (``struct ScanArgs``), built at
+        the first launch: the commit's shape from the rule unless given."""
+        if self._kargs is None:
+            a = self.args
+            if self.cluster is None or self.threads is None:
+                cs, nt = k2_shape(a.L, a.K, a.V, a.P, a.D, a.N,
+                                  _device(self.k))
+                self.cluster = cs if self.cluster is None else self.cluster
+                self.threads = nt if self.threads is None else self.threads
+            self._kargs = _ScanArgs(
+                f=a, capn=self.capn.data_ptr(),
+                capn_lane_bytes=0 if self.lanes is None else
+                self.capn[0].numel() * 8,
+                cluster=self.cluster, threads=self.threads,
+                rows=self.rows or 0, warps=self.warps or 0)
+        return self._kargs
+
+    def table(self):
+        """The group's new-node table as ``ffd_slot_headroom`` wrote it
+        (K == 0): (candn [(L,) P, T], hrn [(L,) P, T], cap [(L,) P], the
+        max over the table blocks' partial caps, which the commit
+        takes)."""
+        return self.candn, self.hrn, self.capn.amax(-1)
+
+
+class _ScanArgs(ctypes.Structure):
+    """Mirror of ``struct ScanArgs`` in csrc/ffd_scan.cu."""
+    _fields_ = [("f", _FfdArgs), ("capn", ctypes.c_void_p),
+                ("capn_lane_bytes", ctypes.c_longlong),
+                ("cluster", ctypes.c_longlong),
+                ("threads", ctypes.c_longlong),
+                ("rows", ctypes.c_longlong),
+                ("warps", ctypes.c_longlong)]
+
+
+_K2_SHAPES = {}
+
+
+def k2_shape(L: int, K: int, V: int, P: int, D: int, N: int,
+             device=None):
+    """``ffd_group_commit``'s (CTAs a lane, threads a CTA) for L lanes of
+    P pools, D resources and N slots, with K minValues floors over V
+    values (K > 0: its shared memory holds them) or none: the first of
+    (8, 512), (4, 512), (2, 512), (1, 512) whose L clusters the card
+    holds at once and whose shared memory fits, else (1, 256); K > 0
+    only CTAs of one (``karp_ffd_k2_cluster``, csrc/ffd_scan.cu). The
+    card is asked once for each shape and each device (``device``: the
+    state's; default the current one)."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    a = _ScanArgs()
+    a.f.L, a.f.K, a.f.V, a.f.P, a.f.D, a.f.N = L, K, V, P, D, N
+    code = _cluster_rule(_K2_SHAPES, (L, K, V, P, D, N),
+                         _lib().karp_ffd_k2_cluster, a, dev,
+                         "ffd_group_commit")
+    return code % 16, 512 if code // 16 else 256
 
 
 def _in_window(st: ScanState, g: int) -> None:
@@ -455,20 +552,25 @@ def _in_window(st: ScanState, g: int) -> None:
 
 
 def ffd_slot_headroom(st: ScanState, g: int, stream: int = None) -> None:
-    """Steps 1-3 for group g: fills ``st.cand`` [N, T] and ``st.k`` [N].
-    ``stream``: the stream of the caller's ``launching`` guard."""
+    """Steps 1-3 for group g: fills ``st.cand`` [N, T] and ``st.k`` [N]
+    and, without minValues floors, the group's new-node table
+    (``st.table()``). ``stream``: the stream of the caller's
+    ``launching`` guard."""
     _in_window(st, g)
     _launch("ffd_slot_headroom", _lib().karp_ffd_slot_headroom,
-            (ctypes.byref(st.args), g), st.k, stream)
+            (ctypes.byref(st.kargs), g), st.k, stream)
 
 
 def ffd_group_commit(st: ScanState, g: int, stream: int = None) -> None:
-    """Steps 4-7 for group g: updates the carry in place and writes
-    ``st.takes[g - s0]`` and ``st.leftover[g - s0]`` (``st.k`` becomes
-    take)."""
+    """Steps 4-7 for group g, its new nodes read from the table the
+    headroom launch wrote (K == 0; with minValues floors the commit
+    computes each pool's table and caps itself): updates the carry in
+    place and writes ``st.takes[g - s0]`` and ``st.leftover[g - s0]``
+    (``st.k`` becomes take), on ``st.cluster`` CTAs of ``st.threads`` a
+    lane."""
     _in_window(st, g)
     _launch("ffd_group_commit", _lib().karp_ffd_group_commit,
-            (ctypes.byref(st.args), g), st.k, stream)
+            (ctypes.byref(st.kargs), g), st.k, stream)
 
 
 def k2_steps(st: ScanState, g0: int, g1: int) -> None:
@@ -716,9 +818,7 @@ class FusedState(ScanState):
               (G,) if lanes is None else (lanes, G), lanes=lanes is not None)
         self.Fu = Fu
         lead = () if lanes is None else (lanes,)
-        self.capn = torch.empty(
-            lead + (Fu, P, table_blocks(inp.A.shape[-2])),
-            dtype=torch.int64, device=inp.A.device)
+        self.capn = self.capn.view(lead + (Fu, P, -1))
         self.fargs = _FusedArgs(
             f=self.args, fuse=inp.fuse.data_ptr(),
             capn=self.capn.data_ptr(), Fu=Fu,
@@ -835,11 +935,6 @@ def solve_scan_packed1_fused_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E,
 
 _PRUNED_FIELDS = ("cap_hint", "bail", "sel", "cnt", "ks", "capn", "cap_row")
 
-def table_blocks(T: int) -> int:
-    """The new-node table's blocks per (group, pool): one per 256 types
-    (csrc/ffd_step.cuh table_blocks), each with its partial cap."""
-    return -(-T // 256)
-
 
 class _PrunedArgs(ctypes.Structure):
     """Mirror of ``struct PrunedArgs`` in csrc/pruned.cu."""
@@ -891,8 +986,7 @@ class PrunedState:
         self.cnt = torch.empty(lead + (2,), dtype=torch.int32, device=dev)
         self.ks = torch.empty(lead + (S,), dtype=torch.int64, device=dev)
         TB = table_blocks(inp.A.shape[-2])
-        self.capn = torch.empty(lead + (P, TB), dtype=torch.int64,
-                                device=dev)
+        self.capn = self.scan.capn
         self.cap_row = torch.empty(lead + (P, TB, D), dtype=torch.int64,
                                    device=dev)
         bufs = dict(cap_hint=carry.cap_hint, bail=carry.bail, sel=self.sel,

@@ -431,13 +431,13 @@ def _group_step_ref(inp: KernelInputs, carry: Carry, g: int, *, E: int,
     return new, take, n_rem
 
 
-def _commit_ref(inp: KernelInputs, carry: Carry, g: int, take, n_rem, cand,
-                *, E: int, P: int, V: int, cap_hint=None, comm=None,
-                table: Optional[NewNodeTable] = None):
-    """Steps 6-7 after the fill: the narrowing of the filled open slots
-    (to ``cand`` [N, T] and the new aggregate), the pool accounting and
-    the new nodes (from ``table`` when given): (new carry, take [N],
-    n_rem, cap_hint)."""
+def _narrow_ref(inp: KernelInputs, carry: Carry, g: int, take, cand, *,
+                P: int):
+    """Step 6 after the fill: used += take * R; each filled open slot's
+    types narrowed to ``cand`` [N, T] and the new aggregate's fit, its
+    zones and capacity types ANDed with the group's; the per-pool takes
+    into pool_used. (used, types, zones, ct, pool_used); the plain version
+    of the commits' narrowing (``commit_narrow``, ``narrow_groups``)."""
     R = inp.R[g]
     used = carry.used + take[:, None] * R[None, :]
     filled_open = (take > 0) & (carry.pool >= 0)
@@ -453,6 +453,18 @@ def _commit_ref(inp: KernelInputs, carry: Carry, g: int, take, n_rem, cand,
     take_by_pool = torch.zeros(P + 1, dtype=_I64, device=take.device)
     take_by_pool = take_by_pool.index_add(0, seg, take)[:P]
     pool_used = carry.pool_used + take_by_pool[:, None] * R[None, :]
+    return used, types, zones, ct, pool_used
+
+
+def _commit_ref(inp: KernelInputs, carry: Carry, g: int, take, n_rem, cand,
+                *, E: int, P: int, V: int, cap_hint=None, comm=None,
+                table: Optional[NewNodeTable] = None):
+    """Steps 6-7 after the fill: the narrowing of the filled open slots
+    (``_narrow_ref``), the pool accounting and the new nodes (from
+    ``table`` when given, as the K2 commit reads the table its headroom
+    launch wrote): (new carry, take [N], n_rem, cap_hint)."""
+    used, types, zones, ct, pool_used = _narrow_ref(inp, carry, g, take,
+                                                    cand, P=P)
     (take, used, types, zones, ct, pool_arr, alive, num_nodes, pool_used,
      n_rem, cap_hint) = _new_nodes_phase_ref(
         inp, g, take, used, types, zones, ct, carry.pool, carry.alive,

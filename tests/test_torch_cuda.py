@@ -1,7 +1,9 @@
 """The CUDA kernels of the port held against their plain PyTorch versions
 on the card, at small shapes. Tolerance: exact (integer math). K1-K3
-(the packed scan, the bank), the K1 and K2 kernels on their lane axis
-and the batched packed solve (K4), the fused block scan's kernels (K5;
+(the packed scan, the bank; K2's new-node table too, its commit forced
+onto every shape of its rule and its headroom onto several row
+layouts), the K1 and K2 kernels on their lane axis (2,048 lanes, the
+minValues branch included) and the batched packed solve (K4), the fused block scan's kernels (K5;
 block by block with the commit on 1, 2 and 8 CTAs, slot chunks that
 straddle CTA boundaries, tables of several blocks, whole solves, B = 3,
 8 and 64 lanes that branch differently, the solver), the pruned scan's
@@ -84,7 +86,8 @@ def test_unpack_bits(cuda_device, case):
 @pytest.mark.parametrize("case", examples.CASES)
 def test_group_kernels_step_by_step(cuda_device, case):
     """Each group's two kernels from the plain carry, against the plain
-    step: cand and k after phase 1; carry, takes, leftover after 2."""
+    step: cand, k and (no minValues floors) the new-node table after
+    phase 1; carry, takes, leftover after 2."""
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
     buf, st, n_i64, n_bits = _arena(case, cuda_device)
     inp = _inputs(buf, st, n_i64, n_bits)
@@ -99,6 +102,9 @@ def test_group_kernels_step_by_step(cuda_device, case):
         ffd_cuda.ffd_slot_headroom(state, g)
         assert torch.equal(state.cand, cand), g
         assert torch.equal(state.k, k), g
+        if not st["K"]:
+            _assert_table(state.table(), ft._new_node_table_ref(inp, g, P=P),
+                          g)
         carry, take, n_rem = ft._group_step_ref(inp, carry, g, E=E, P=P,
                                                 V=V)
         ffd_cuda.ffd_group_commit(state, g)
@@ -106,6 +112,13 @@ def test_group_kernels_step_by_step(cuda_device, case):
             assert torch.equal(got, want), (g, f)
         assert torch.equal(state.takes[g], take.to(torch.int32)), g
         assert int(state.leftover[g]) == int(n_rem), g
+
+
+def _assert_table(got, want, what):
+    """The headroom launch's new-node table (candn, hrn, cap) against
+    the plain table."""
+    for nm, a, b in zip(("candn", "hrn", "cap"), got, want):
+        assert torch.equal(a, b), (what, nm)
 
 
 @pytest.mark.parametrize("case", ["base", "two_pools", "slots_run_out"])
@@ -263,7 +276,8 @@ def _t(dev, *arrays):
                                   "two_pools"])
 def test_lane_axis_one_lane_is_the_plain_scan(cuda_device, case):
     """lanes=1 (every field per lane, stride of one solve) gives the
-    bytes of the scan without a lane axis."""
+    bytes of the scan without a lane axis, and the same new-node table
+    after each headroom launch."""
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
     buf, st, n_i64, n_bits = _arena(case, cuda_device)
     inp = _inputs(buf, st, n_i64, n_bits)
@@ -279,11 +293,99 @@ def test_lane_axis_one_lane_is_the_plain_scan(cuda_device, case):
     for g in range(st["G"]):
         for s in (one, lanes):
             ffd_cuda.ffd_slot_headroom(s, g)
+        if not st["K"]:
+            _assert_table([x[0] for x in lanes.table()], one.table(), g)
+        for s in (one, lanes):
             ffd_cuda.ffd_group_commit(s, g)
     for a, b in zip(one.carry, lanes.carry):
         assert torch.equal(a, b[0])
     assert torch.equal(one.takes, lanes.takes[0])
     assert torch.equal(one.leftover, lanes.leftover[0])
+
+
+# every shape the commit's rule can pick, and the headroom's rows a warp
+K2_SHAPES = [(8, 512), (4, 512), (2, 512), (1, 512), (1, 256)]
+LAYOUTS = [dict(rows=1), dict(warps=8), dict(rows=3), dict(warps=2),
+           dict(rows=16)]
+
+
+def test_k2_shape_rule_by_lane_count(cuda_device):
+    """The commit's rule: a cluster of 8 CTAs of 512 threads at one lane,
+    one CTA of 256 threads a lane at 2,048 lanes, one CTA a lane with
+    minValues floors; asked once a shape and device."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    assert ffd_cuda.k2_shape(1, 0, 0, 1, 8, 256, cuda_device) == (8, 512)
+    assert ffd_cuda.k2_shape(2048, 0, 0, 2, 8, 1026, cuda_device) == (1, 256)
+    assert ffd_cuda.k2_shape(1, 2, 3, 1, 8, 256, cuda_device)[0] == 1
+
+
+@pytest.mark.parametrize("case", ["existing", "min_values", "pool_limits",
+                                  "slots_run_out", "two_pools"])
+def test_k2_commit_shapes_agree(cuda_device, case):
+    """The whole scan step by step with the commit forced onto every
+    (CTAs, threads) shape of the rule (one CTA only with minValues
+    floors) and the headroom at 1, 3 and 16 rows a warp and at 2 and 8
+    warps a row: every launch equals the plain step. n_max = 37 slots do
+    not split evenly over 2, 4 or 8 CTAs."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    inp = _inputs(*_arena(case, cuda_device, n_max=37))
+    st = _arena(case, "cpu", n_max=37)[1]
+    E, P, V, G = st["E"], st["P"], st["V"], st["G"]
+    N = E + st["n_max"]
+    shapes = [(1, 512), (1, 256)] if st["K"] else K2_SHAPES
+    for i, (cs, nt) in enumerate(shapes):
+        carry = ft.carry0(inp, N, E)
+        state = ffd_cuda.ScanState(inp, ft.carry0(inp, N, E), E=E, P=P, V=V,
+                                   cluster=cs, threads=nt,
+                                   **LAYOUTS[i % len(LAYOUTS)])
+        for g in range(G):
+            ffd_cuda.ffd_slot_headroom(state, g)
+            ffd_cuda.ffd_group_commit(state, g)
+            assert (state.cluster, state.threads) == (cs, nt)
+            carry, take, n_rem = ft._group_step_ref(inp, carry, g, E=E,
+                                                    P=P, V=V)
+            for f, got, want in zip(ft.Carry._fields, state.carry, carry):
+                assert torch.equal(got, want), (cs, nt, g, f)
+            assert torch.equal(state.takes[g], take.to(torch.int32))
+            assert int(state.leftover[g]) == int(n_rem), (cs, nt, g)
+
+
+@pytest.mark.parametrize("case", ["existing", "min_values", "two_pools"])
+def test_k2_round_of_2048_lanes(cuda_device, case):
+    """2,048 lanes of one arena whose pod counts differ lane by lane
+    (seven patterns), through the rule's own shapes (one CTA of 256
+    threads a lane at this lane count, several rows a warp): each lane's
+    takes, leftover and carry equal the plain scan of its pattern; the
+    minValues case takes the K > 0 branch of both kernels."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    B, npat = 2048, 7
+    buf, st, n_i64, n_bits = _arena(case, cuda_device, n_max=24)
+    inp = _inputs(buf, st, n_i64, n_bits)
+    E, P, V, G = st["E"], st["P"], st["V"], st["G"]
+    N = E + st["n_max"]
+    pat = torch.arange(B, device=cuda_device) % npat
+    n_l = (inp.n[None, :] * (pat[:, None] + 1)) // 3
+    fields = ("avail_zc", "R", "F", "agz", "agc", "admit", "daemon",
+              "ex_alloc", "ex_compat")
+    lane_inp = inp._replace(n=n_l.contiguous(), **{
+        f: getattr(inp, f)[None].expand((B,) + getattr(inp, f).shape)
+        .contiguous() for f in fields})
+    state = ffd_cuda.ScanState(lane_inp, ft.carry0(inp, N, E, lanes=B),
+                               E=E, P=P, V=V, lanes=B)
+    ffd_cuda.k2_steps(state, 0, G)
+    assert state.cluster == 1
+    for p in range(npat):
+        takes, left, carry = ft._solve_scan_ref(
+            inp._replace(n=n_l[p]), st["n_max"], E, P, V)
+        idx = torch.nonzero(pat == p).reshape(-1)
+        assert torch.equal(state.takes[idx],
+                           takes.to(torch.int32)[None].expand(
+                               (idx.numel(),) + takes.shape)), p
+        assert torch.equal(state.leftover[idx],
+                           left[None].expand(idx.numel(), -1)), p
+        for f, got, want in zip(ft.Carry._fields, state.carry, carry):
+            assert torch.equal(got[idx], want[None].expand(
+                (idx.numel(),) + want.shape)), (p, f)
 
 
 @pytest.mark.parametrize("hazard", examples.SUBSET_HAZARDS)
@@ -310,11 +412,14 @@ def test_subset_kernels_match_plain(cuda_device, hazard):
     carries = [ft.carry0(ct.lane_inputs(sub, b), N, E) for b in range(B)]
     for g in range(sub.R.shape[1]):
         ffd_cuda.ffd_slot_headroom(state, g)
+        tab = state.table()
         for b in range(B):
             cand, k = ft._slot_headroom_ref(ct.lane_inputs(sub, b),
                                             carries[b], g, E=E, P=P, V=0)
             assert torch.equal(state.cand[b], cand), (g, b)
             assert torch.equal(state.k[b], k), (g, b)
+            _assert_table([x[b] for x in tab], ft._new_node_table_ref(
+                ct.lane_inputs(sub, b), g, P=P), (g, b))
         ffd_cuda.ffd_group_commit(state, g)
         for b in range(B):
             carries[b], take, n_rem = ft._group_step_ref(
