@@ -116,8 +116,9 @@ Phases (any failure exits non-zero before the result line):
    ``dp2_min_slots`` 1,024, the pods x types shape on more than one
    rank): (a) at world size 1 on NCCL, after a warm-up solve settles the
    slot bucket, each K10 kernel of the first four group steps of each
-   cell against its plain part from the same entry state (the fill in
-   one launch and in its three phases); each kernel on later slot shards
+   cell against its plain part from the same entry state, every buffer
+   it writes (the headroom's new-node table too; the fill in one launch
+   and in its three phases); each kernel on later slot shards
    (``examples.MESH_LATER_SHARDS``, slot0 > 0, earlier-shard prefixes
    small and wrapping); then ``CUDASolver(mesh=comm, force_mesh=True)`` timed
    beside the single-device ``CUDASolver`` (K2) on the same snapshot,
@@ -169,9 +170,10 @@ Phases (any failure exits non-zero before the result line):
    striped cluster's vectorized and sequential blocks, with one fused
    packed solve's device time beside the same snapshot packed unfused,
    and the K10 kernels at the type mesh's last group step of each mesh
-   cell at world size 1, and K11 as one group step (five launches) of
-   rank 0's shard of the 2 x 2 ceiling layout (2,112 slots x 406 types)
-   at its last group step.
+   cell at world size 1 (N = 256 and 1,024), and K11 as one group step
+   (five launches) of rank 0's shard of the 2 x 2 ceiling layout (2,112
+   slots x 406 types) at its last group step, each launch's time and the
+   headroom's and the commit's bounds beside it.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; a line before them holds the per-kernel
@@ -3535,37 +3537,47 @@ def k8_times(tables, wide, launches):
                  bytes=nbytes, ops=ops)], by_g
 
 
-def k10_cost(st, ncand, nfill):
+def k10_cost(st, g, c0, c1, take):
     """Bytes and operations of each K10 kernel on a rank's state ``st``
-    at one group step with ``ncand`` candidate (slot, type) cells and
-    ``nfill`` filled open slots. Bytes: each input the kernel reads, once,
-    and each output it writes; operations: the candidate tests and 64-bit
-    quotients this state needs (headroom: every (slot, type) test plus D
-    quotients a candidate cell; caps: every (group, pool, type) test and
-    quotient; fill: a few per slot and pool; commit: the fit test of
-    every filled slot's types plus the new-node pass over the types)."""
+    at group step g, from its data: the entry carry ``c0``, the headroom's
+    candidates ``st.cand``, the fill's takes ``take`` and the commit's
+    exit carry ``c1``. Each input a kernel needs read once, each output
+    written once. The headroom and the commit count as K2's do
+    (``k2_cost`` on the shard, whose existing rows are the fill's: E = 0
+    in the kernels): the open rows whose pool the group admits and the
+    new-node table of every pool; the rows the commit touches (narrowed
+    from their candidate row, opened from their pool's table row), with
+    the caps and the take by pool reduced over the shards read in place
+    of the table's partial caps, and no fill. The caps: every (group,
+    pool, type) test and quotient; the fill: a few per slot and pool."""
     inp = st.inp
     Tl, D, G, Nl, K, M, V, E, P = (st.T, st.D, st.G, st.Nl, st.K, st.M,
                                    st.V, st.E, st.P)
     Z, C = inp.agz.shape[1], inp.agc.shape[1]
     ZC = Z * C
+    local = inp._replace(ex_alloc=inp.ex_alloc[:0],
+                         ex_compat=inp.ex_compat[:, :0])
+    hr, cm = k2_cost(local, c0, g, P, st.cand, c1, take)
+    TB = -(-Tl // 256)
     return {
         "mesh_new_caps": (
             8 * Tl * D + Tl * ZC + G * Tl + P * Tl + 8 * G * P * D
             + 8 * G * D + (G + P) * (Z + C) + 16 * K * M
             + 8 * G * P * (1 + K * V), G * P * Tl * (D + ZC)),
-        "mesh_slot_headroom": (
-            8 * Nl * D + 2 * Nl * Tl + Nl * (Z + C) + 4 * Nl
-            + 8 * Tl * D + Tl * ZC + Tl + 8 * Nl * (1 + K * V),
-            Nl * Tl + ncand * D),
+        "mesh_slot_headroom": hr,
         "mesh_fill": (
             16 * Nl + 6 * Nl + 16 * min(E, Nl) * D + 8 * (P + 1)
             + 8 * P * D, Nl * (P + 3)),
-        "mesh_commit": (
-            12 * Nl + 16 * Nl * D + 3 * Nl * Tl + 8 * Tl * D
-            + 2 * Nl * (Z + C) + 4 * Nl + 8 * P * (1 + D),
-            nfill * Tl * D + P * Tl * (D + ZC)),
+        "mesh_commit": (cm[0] - 8 * P * TB + 8 * P + 8 * (P + 1),
+                        cm[1] - 4 * Nl),
     }
+
+
+def commit_shape(st):
+    """The K10 commit's (CTAs, threads) on a MeshState; None where the
+    state has no such shape (one block of 1,024 threads before the
+    cluster commit, as ``hack/k10_ab.py`` finds it in an older tree)."""
+    return [getattr(st, "cluster", None), getattr(st, "threads", None)]
 
 
 def k10_times(kept, launches):
@@ -3577,7 +3589,8 @@ def k10_times(kept, launches):
     slots) and the fill's three phases are logged beside them."""
     import torch
     from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
-    from karpenter_provider_aws_tpu_torch.ops.ffd_torch import KernelInputs
+    from karpenter_provider_aws_tpu_torch.ops.ffd_torch import (Carry,
+                                                                KernelInputs)
     from karpenter_provider_aws_tpu_torch.parallel import mesh as pm
     dev = torch.device("cuda")
     cells = {}
@@ -3607,7 +3620,6 @@ def k10_times(kept, launches):
         s0 = snap()
         mc.mesh_slot_headroom(st, g)
         s1 = snap()
-        ncand = int(st.cand.sum())
         phases = {}
         for ph, nm in ((mc.PHASE_A, "a"), (mc.PHASE_B, "b"),
                        (mc.PHASE_C, "c")):
@@ -3620,9 +3632,12 @@ def k10_times(kept, launches):
         restore(s1)
         mc.mesh_fill(st, g, mc.PHASE_ALL)
         s2 = snap()
-        take = st.k
-        nfill = int(((take > 0) & (st.carry.pool >= 0)).sum())
-        cost = k10_cost(st, ncand, nfill)
+        take = st.k.clone()
+        mc.mesh_commit(st, g)
+        c1 = Carry(*[t.clone() for t in st.carry])
+        restore(s2)
+        cost = k10_cost(st, g, Carry(*[s0[f"carry.{nm}"]
+                                       for nm in Carry._fields]), c1, take)
         work = {
             "mesh_new_caps": (
                 lambda: mc.mesh_new_caps(st), lambda: mc._new_caps_ref(st),
@@ -3647,7 +3662,8 @@ def k10_times(kept, launches):
             cells[name][k] = dict(ms=ms, plain_ms=pms, bound_ms=b,
                                   bound_by=by, bytes=nbytes, ops=ops)
         cells[name]["fill_phases_ms"] = {nm: v[0] for nm, v in phases.items()}
-        cells[name]["shape"] = dict(T=Tl, N=Nl, G=G, P=P, step=g)
+        cells[name]["shape"] = dict(T=Tl, N=Nl, G=G, P=P, step=g,
+                                    commit=commit_shape(st))
     recs = []
     for k in ("mesh_new_caps", "mesh_slot_headroom", "mesh_fill",
               "mesh_commit"):
@@ -3669,11 +3685,13 @@ def k11_times(kept, launches):
     the commit. ``launches``: the K10 launches of phase 15's main-path
     runs (in this process and on the ranks); the record's times and
     bound are the step's over its five launches, the step's own in the
-    returned shape."""
+    returned shape, with each launch's time and the headroom's and the
+    commit's bounds."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
-    from karpenter_provider_aws_tpu_torch.ops.ffd_torch import KernelInputs
+    from karpenter_provider_aws_tpu_torch.ops.ffd_torch import (Carry,
+                                                                KernelInputs)
     from karpenter_provider_aws_tpu_torch.parallel import mesh as pm
     dev = torch.device("cuda")
     arrays, stt = kept
@@ -3716,18 +3734,19 @@ def k11_times(kept, launches):
         pre[nm] = ({k: t.clone() for k, t in st.buffers().items()}, fn)
         if nm == "mesh_fill_b":
             st.before.zero_()
-        if nm == "mesh_fill_a":
-            ncand = int(st.cand.sum())
-        if nm == "mesh_commit":
-            nfill = int(((st.k > 0) & (st.carry.pool >= 0)).sum())
         fn()
+    c1 = Carry(*[t.clone() for t in st.carry])   # the step's exit carry
     for nm, (state, fn) in pre.items():
         def put(state=state):
             for k, t in st.buffers().items():
                 t.copy_(state[k])
         each[nm] = time_launches(fn, setup=put) * 1e3
+    entry, before_commit = pre["mesh_slot_headroom"][0], pre["mesh_commit"][0]
     restore()
-    cost = k10_cost(st, ncand, nfill)
+    st.cand.copy_(before_commit["cand"])
+    cost = k10_cost(st, g, Carry(*[entry[f"carry.{nm}"]
+                                   for nm in Carry._fields]), c1,
+                    before_commit["kh"][:st.Nl])
     nbytes = sum(cost[k][0] for k in ("mesh_slot_headroom", "mesh_fill",
                                       "mesh_commit"))
     ops = sum(cost[k][1] for k in ("mesh_slot_headroom", "mesh_fill",
@@ -3740,9 +3759,15 @@ def k11_times(kept, launches):
                launches=sum(launches.get(k, 0) for k in mc.KERNELS),
                ms=ms / 5, plain_ms=pms / 5, bound_ms=b / 5, bound_by=by,
                library_ms=None, bytes=nbytes / 5, ops=ops / 5)
-    shape = dict(T=st.T, N=st.Nl, G=st.G, P=P, step=g, ncand=ncand,
-                 nfill=nfill, step_us=ms * 1e3, plain_step_us=pms * 1e3,
-                 bound_step_us=b * 1e3, us_each=each)
+    restore()
+    shape = dict(T=st.T, N=st.Nl, G=st.G, P=P, step=g,
+                 ncand=int(before_commit["cand"].sum()),
+                 commit=commit_shape(st), step_us=ms * 1e3,
+                 plain_step_us=pms * 1e3, bound_step_us=b * 1e3,
+                 us_each=each,
+                 bound_us_each={k: bound_ms(*cost[k])[0] * 1e3
+                                for k in ("mesh_slot_headroom",
+                                          "mesh_commit")})
     return [rec], shape
 
 

@@ -1,9 +1,11 @@
 // The commit of one or more groups on a thread-block cluster of CTAs a
-// lane, shared by the fused block commit (fused.cu, Fu groups a block)
-// and the base group commit (ffd_scan.cu, one group): the cluster's
+// lane, shared by the fused block commit (fused.cu, Fu groups a block),
+// the base group commit (ffd_scan.cu, one group) and the sharded scan's
+// commit (mesh.cu, one group on a rank's slot window): the cluster's
 // exchange of scan totals over distributed shared memory, the narrowing
-// of a CTA's slot chunk, the new-node tail from the table, and the
-// layout of the commit's dynamic shared memory.
+// of a CTA's slot chunk, the dealing of the takers over the cluster, the
+// new-node tail from the table, and the layout of the commit's dynamic
+// shared memory.
 //
 // CTA r of a cluster of CS owns the slot chunk [r*ceil(N/CS), ...): its
 // slots' fills and narrowing and the opened rows that fall there.
@@ -12,8 +14,8 @@
 // others' with map_shared_rank. pool_used, num_nodes and the new-node
 // scalars are CTA 0's, read by the others after a cluster.sync().
 //
-// Two forms of the narrowing's cells and the opened rows, one for each
-// commit. The base commit (one group a launch, ffd_scan.cu) deals the
+// Two forms of the narrowing's cells and the opened rows. The base and
+// mesh commits (one group a launch, ffd_scan.cu and mesh.cu) deal the
 // cluster's takers round-robin to its CTAs after one more cluster
 // barrier and writes the opened rows with the whole cluster (commit_tail
 // `spread`): its fills land in one or two CTAs' chunks, and at config 2
@@ -195,6 +197,43 @@ __device__ __forceinline__ void narrow_groups(const FfdArgs& a, i64 g0,
                  }, tu);
 }
 
+// The takers' cells over the whole cluster (the base and mesh commits:
+// their filled slots sit in a few CTAs' chunks, and the header says why
+// the fused commit does not deal them): after a cluster barrier (every
+// CTA's narrow_slots done: its takers `tk`, their count `ntk` and their
+// used rows), CTA r takes the cluster's takers r, r + CS, ... in CTA
+// order from their CTAs' lists into its own `mine`, and returns their
+// number. `pre` holds CS + 1 shared ints; `nthr` is the CTA's threads.
+// Ends at a barrier. The owners' lists must stay readable until every CTA
+// has passed a later cluster barrier (commit_tail's).
+__device__ __forceinline__ int deal_takers(int* tk, int* ntk, int* mine,
+                                           int* pre, int nthr) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cl = cg::this_cluster();
+    const i64 CS = cl.num_blocks(), rank = cl.block_rank();
+    const int tid = threadIdx.x;
+    cl.sync();
+    if (tid == 0) {
+        int acc = 0;
+        for (int q = 0; q < (int)CS; ++q) {
+            pre[q] = acc;
+            acc += *cl.map_shared_rank(ntk, (unsigned)q);
+        }
+        pre[CS] = acc;
+    }
+    __syncthreads();
+    const int nmine = pre[CS] > rank
+        ? (int)((pre[CS] - rank + CS - 1) / CS) : 0;
+    for (int jj = tid; jj < nmine; jj += nthr) {
+        const int j = (int)(rank + CS * jj);
+        int q = 0;
+        while (j >= pre[q + 1]) ++q;
+        mine[jj] = cl.map_shared_rank(tk, (unsigned)q)[j - pre[q]];
+    }
+    __syncthreads();
+    return nmine;
+}
+
 // After the fills and the narrowing of groups i0 .. i0+nf-1 (of Fu whose
 // tables are candn/hrn [Fu*P, T] and partial caps capn [Fu, P,
 // table_blocks(T)]): the cluster's takes by (group, pool) and take
@@ -204,25 +243,38 @@ __device__ __forceinline__ void narrow_groups(const FfdArgs& a, i64 g0,
 // and takes rows on [c0, c1). With `spread` (the last step of a launch:
 // no CTA reads another's carry rows afterwards) the opened rows are
 // written by the whole cluster, its threads striding over all N slots.
+// With a slot window `w` (a slot-sharded mesh, nf == 1; spread) the
+// launch's N rows are the global slots [w->lo, w->lo + N) of w->N, the
+// first w->E existing: the caps, the take by pool and the take total
+// are the window's (reduced over the shards), not the cluster's, so no
+// exchange runs and `capn` and `tbp` are not read; new nodes open at
+// global ids and only those inside the window are written.
 __device__ __forceinline__ void commit_tail(const FfdArgs& a, i64 g0, i64 i0,
                                             i64 nf, i64 Fu, i64 c0, i64 c1,
                                             const i64* capn,
                                             unsigned long long* tbp,
                                             ClusterExchange& xch,
                                             const NewNodeStage& stage,
-                                            i64* sc, bool spread = false) {
+                                            i64* sc, bool spread = false,
+                                            const SlotWindow* w = nullptr) {
     namespace cg = cooperative_groups;
     const i64 N = a.N, P = a.P, D = a.D, T = a.T, W = Fu * P + Fu;
     const int tid = threadIdx.x, nthr = blockDim.x;
     cg::cluster_group cl = cg::this_cluster();
     const unsigned rank = cl.block_rank();
-    for (i64 w = tid; w < W; w += nthr) xch.buf[xch.u][w] = (i64)tbp[w];
-    xch.run((int)W);     // xch.tot: the cluster's tbp [Fu, P], totals [Fu]
+    if (!w) {
+        for (i64 i = tid; i < W; i += nthr) xch.buf[xch.u][i] = (i64)tbp[i];
+        xch.run((int)W);  // xch.tot: the cluster's tbp [Fu, P], totals [Fu]
+    }
     if (rank == 0) {
-        nn_stage(a, g0 + i0, nf, capn + i0 * P * table_blocks(T),
-                 xch.tot + i0 * P, xch.tot + Fu * P + i0, stage);
+        if (w)
+            nn_stage(a, g0 + i0, nf, nullptr, w->tbp, nullptr, stage, w);
+        else
+            nn_stage(a, g0 + i0, nf, capn + i0 * P * table_blocks(T),
+                     xch.tot + i0 * P, xch.tot + Fu * P + i0, stage);
         __syncthreads();
-        new_node_scalars(stage, nf, P, D, N, a.E, sc + i0 * nn_words(P),
+        new_node_scalars(stage, nf, P, D, w ? w->N : N, w ? w->E : a.E,
+                         sc + i0 * nn_words(P),
                          a.leftover + (g0 + i0 - a.G0));
         for (i64 i = tid; i < P * D; i += nthr) a.pool_used[i] = stage.pu[i];
         if (tid == 0) a.num_nodes[0] = (int)stage.nn[0];
@@ -231,19 +283,20 @@ __device__ __forceinline__ void commit_tail(const FfdArgs& a, i64 g0, i64 i0,
     const i64 nw = nf * nn_words(P);
     if (rank != 0) {
         const i64* src = cl.map_shared_rank(sc, 0);
-        for (i64 w = i0 * nn_words(P) + tid; w < i0 * nn_words(P) + nw;
-             w += nthr)
-            sc[w] = src[w];
+        for (i64 i = i0 * nn_words(P) + tid; i < i0 * nn_words(P) + nw;
+             i += nthr)
+            sc[i] = src[i];
         __syncthreads();
     }
+    const i64 slot0 = w ? w->lo : 0;
     for (i64 f = i0; f < i0 + nf; ++f) {
         const i64* sf = sc + f * nn_words(P);
         const unsigned cs = cl.num_blocks();
         new_node_rows(a, g0 + f, sf, a.candn + f * P * T, a.hrn + f * P * T,
                       nullptr, nullptr, spread ? 0 : c0, spread ? N : c1,
                       spread ? (int)(rank * nthr) + tid : tid,
-                      spread ? (int)(cs * nthr) : nthr);
+                      spread ? (int)(cs * nthr) : nthr, slot0);
         for (i64 s = c0 + tid; s < c1; s += nthr)
-            new_node_take(a, a.k + f * N, g0 + f, sf, s);
+            new_node_take(a, a.k + f * N, g0 + f, sf, s, slot0);
     }
 }

@@ -106,32 +106,10 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kHeadroomThreads = 256;
+// The headroom's row layout (RowLayout, block_rows, k2_layout) is
+// ffd_step.cuh's: mesh.cu's headroom takes it too.
 
-// How the headroom's warps take the slot rows: `rows` rows a warp, or
-// `warps` warps a row (1, 2, 4 or 8) splitting its types.
-struct RowLayout {
-    i64 rows, warps;
-};
-
-// Slot rows a CTA of the headroom takes under layout l.
-__host__ __device__ __forceinline__ i64 block_rows(RowLayout l) {
-    return l.warps > 1 ? (kHeadroomThreads / 32) / l.warps
-                       : l.rows * (kHeadroomThreads / 32);
-}
-
-// The headroom's layout for L lanes of N slots, about two waves of the
-// card's resident warps (the H100 holds 8,448 at once) over the L * N
-// rows: with more rows than 16,384, rows a warp (at most 16); with fewer,
-// as many warps a row (at most 8) as keep within the same count.
-RowLayout k2_layout(i64 L, i64 N) {
-    const i64 n = L * N, r = (n + 16383) / 16384;
-    RowLayout l{r < 1 ? 1 : (r > 16 ? 16 : r), 1};
-    while (l.warps < 8 && n * 2 * l.warps <= 16384) l.warps *= 2;
-    return l;
-}
-
-__global__ void __launch_bounds__(kHeadroomThreads)
+__global__ void __launch_bounds__(kRowThreads)
 ffd_slot_headroom_kernel(const __grid_constant__ ScanArgs args, i64 g,
                          RowLayout lay) {
     extern __shared__ i64 dyn[];   // h1 [K*V], sel [K]
@@ -220,31 +198,10 @@ ffd_group_commit_kernel(const __grid_constant__ ScanArgs args, i64 g) {
     fill_groups<kScanW, 1>(a, g, 0, 1, lo, hi, m.comp, m.ncomp[0], scan,
                            bud, m.xch, m.tks);
     narrow_slots(a, g, 0, 1, c0, c1, m.tk, m.tkm, m.ntk, m.tbp);
-    // The takers' cells over the whole cluster (the filled slots sit in a
-    // few CTAs' chunks; ffd_cluster.cuh says why only this commit deals
-    // them): after a cluster barrier (every CTA's takers and used rows),
-    // CTA r takes the cluster's takers r, r + CS, ... from their CTAs'
-    // lists into its own (tkm's words: one group, no masks).
-    cl.sync();
-    if (tid == 0) {
-        int acc = 0;
-        for (int q = 0; q < (int)CS; ++q) {
-            pre[q] = acc;
-            acc += *cl.map_shared_rank(m.ntk, (unsigned)q);
-        }
-        pre[CS] = acc;
-    }
-    __syncthreads();
+    // the takers' cells dealt over the cluster (into tkm's words: one
+    // group, no masks)
     int* mine = reinterpret_cast<int*>(m.tkm);
-    const int nmine = pre[CS] > rank
-        ? (int)((pre[CS] - rank + CS - 1) / CS) : 0;
-    for (int jj = tid; jj < nmine; jj += NT) {
-        const int j = (int)(rank + CS * jj);
-        int q = 0;
-        while (j >= pre[q + 1]) ++q;
-        mine[jj] = cl.map_shared_rank(m.tk, (unsigned)q)[j - pre[q]];
-    }
-    __syncthreads();
+    const int nmine = deal_takers(m.tk, m.ntk, mine, pre, NT);
     const i64 T = a.T;
     narrow_cells(a, nmine, [&](int jj) { return (i64)mine[jj]; },
                  [&](int, i64 s, i64 t) {
@@ -305,7 +262,7 @@ int karp_ffd_slot_headroom(const ScanArgs* a, long long g, void* stream) {
     dim3 grid((unsigned)(f.K > 0 ? f.N
                          : (f.N + rb - 1) / rb + f.P * table_blocks(f.T)));
     lane_grid(f.L, &grid);
-    ffd_slot_headroom_kernel<<<grid, kHeadroomThreads, smem,
+    ffd_slot_headroom_kernel<<<grid, kRowThreads, smem,
                                (cudaStream_t)stream>>>(*a, (i64)g, lay);
     return (int)cudaGetLastError();
 }

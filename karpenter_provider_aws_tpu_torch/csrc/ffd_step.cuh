@@ -177,6 +177,33 @@ __device__ __forceinline__ void slot_headroom_warps(const FfdArgs& a, i64 g,
     }
 }
 
+// Threads of a CTA of the warp-row headroom (ffd_scan.cu and mesh.cu
+// launch it).
+constexpr int kRowThreads = 256;
+
+// How the headroom's warps take the slot rows: `rows` rows a warp, or
+// `warps` warps a row (1, 2, 4 or 8) splitting its types.
+struct RowLayout {
+    i64 rows, warps;
+};
+
+// Slot rows a CTA of the headroom takes under layout l.
+__host__ __device__ __forceinline__ i64 block_rows(RowLayout l) {
+    return l.warps > 1 ? (kRowThreads / 32) / l.warps
+                       : l.rows * (kRowThreads / 32);
+}
+
+// The headroom's layout for L lanes of N slots, about two waves of the
+// card's resident warps (the H100 holds 8,448 at once) over the L * N
+// rows: with more rows than 16,384, rows a warp (at most 16); with fewer,
+// as many warps a row (at most 8) as keep within the same count.
+inline RowLayout k2_layout(i64 L, i64 N) {
+    const i64 n = L * N, r = (n + 16383) / 16384;
+    RowLayout l{r < 1 ? 1 : (r > 16 ? 16 : r), 1};
+    while (l.warps < 8 && n * 2 * l.warps <= 16384) l.warps *= 2;
+    return l;
+}
+
 // Step 4 of group g on one block: the pool-limit caps over each pool's
 // slot prefix; k[s] of a capped pool's slot becomes its capped value.
 // Reads the carry's pool and pool_used as they stand. Each thread owns the
@@ -330,12 +357,15 @@ __device__ __forceinline__ bool new_node_cand(const FfdArgs& a, i64 g, i64 pi,
 }
 
 // A slot-sharded mesh's view of the new-node phase (parallel/mesh.py):
-// the block holds the local slot rows [lo, lo + rows) of N slots whose
-// first E are existing nodes, and `caps` [P] are the group's new-node caps
-// already reduced over the type shards (minValues caps included).
+// the launch holds the local slot rows [lo, lo + rows) of N slots whose
+// first E are existing nodes (global id = lo + local row), `caps` [P] are
+// the group's new-node caps already reduced over the type shards
+// (minValues caps included) and `tbp` [P + 1] its take by pool (the last
+// entry: rows of no pool) summed over the slot shards.
 struct SlotWindow {
     i64 lo, rows, N, E;
     const i64* caps;
+    const i64* tbp;
 };
 
 // Step 7 of group g on one block: new nodes, pool by pool, at slots
@@ -570,12 +600,15 @@ __device__ __forceinline__ NewNodeStage nn_stage_at(i64* w, i64 P, i64 D,
 // block; the caller puts a barrier after): pu = pool_used plus, with
 // `takes` [nf, P] (the groups' takes by pool), the sum of takes times R;
 // `capn` [nf, P, table_blocks(T)] the groups' partial caps; nrem = n minus
-// `taken` [nf] (the groups' fills). Each thread starts its loads before
-// its stores.
+// `taken` [nf] (the groups' fills). With a slot window `w` (one group:
+// a slot-sharded mesh) the caps are the window's and nrem is n minus the
+// sum of its take by pool; `capn` and `taken` are not read. Each thread
+// starts its loads before its stores.
 __device__ __forceinline__ void nn_stage(const FfdArgs& a, i64 g0, i64 nf,
                                          const i64* capn, const i64* takes,
                                          const i64* taken,
-                                         const NewNodeStage& st) {
+                                         const NewNodeStage& st,
+                                         const SlotWindow* w = nullptr) {
     const i64 P = a.P, D = a.D, TB = table_blocks(a.T);
     i64 n_all = P * D > nf * P ? P * D : nf * P;
     n_all = n_all > nf * D ? n_all : nf * D;
@@ -594,15 +627,26 @@ __device__ __forceinline__ void nn_stage(const FfdArgs& a, i64 g0, i64 nf,
         if (i < nf * D) rq = __ldg(&a.R[g0 * D + i]);
         if (i < nf * P) {
             adm = __ldg(&a.admit[g0 * P + i]);
-            for (i64 b = 0; b < TB; ++b) {
-                const i64 c = __ldg(&capn[i * TB + b]);
-                cap = c > cap ? c : cap;
+            if (w) {
+                cap = w->caps[i];
+            } else {
+                for (i64 b = 0; b < TB; ++b) {
+                    const i64 c = __ldg(&capn[i * TB + b]);
+                    cap = c > cap ? c : cap;
+                }
             }
         }
         if (i < P)
             for (i64 d = 0; d < D; ++d)
                 has |= __ldg(&a.pool_limit[i * D + d]) >= 0;
-        if (i < nf) nr = wsub(__ldg(&a.n[g0 + i]), taken[i]);
+        if (i < nf) {
+            i64 t = 0;
+            if (w)
+                for (i64 p = 0; p <= P; ++p) t = wadd(t, w->tbp[p]);
+            else
+                t = taken[i];
+            nr = wsub(__ldg(&a.n[g0 + i]), t);
+        }
         if (i < P * D) {
             st.pu[i] = pu;
             st.lim[i] = lim;
@@ -691,10 +735,11 @@ __device__ __forceinline__ i64 opened_pods(const i64* sc, i64 P, i64 s,
     return 0;   // unreachable: the runs tile [sc[0], sc[0] + sc[1])
 }
 
-// The opened rows of step 7 of group g inside the slot window [lo, hi),
+// The opened rows of step 7 of group g inside the row window [lo, hi),
 // from new_node_scalars' output sc and the table candn/hrn [P, T] (and,
 // with cap_hint, the partial rows cap_row [P, table_blocks(T), D]): used,
-// types, zones, ct, pool, alive (and cap_hint). Threads tid of nthr
+// types, zones, ct, pool, alive (and cap_hint). Row s is slot slot0 + s
+// (a slot-sharded mesh's global ids; 0 elsewhere). Threads tid of nthr
 // stride over the rows and over the (row, type) cells. k and takes are
 // the caller's (new_node_take).
 __device__ __forceinline__ void new_node_rows(const FfdArgs& a, i64 g,
@@ -702,15 +747,17 @@ __device__ __forceinline__ void new_node_rows(const FfdArgs& a, i64 g,
                                               const i64* hrn,
                                               const i64* cap_row,
                                               i64* cap_hint, i64 lo, i64 hi,
-                                              int tid, int nthr) {
+                                              int tid, int nthr,
+                                              i64 slot0 = 0) {
     const i64 T = a.T, D = a.D, Z = a.Z, C = a.C, P = a.P;
-    const i64 s0 = sc[0] > lo ? sc[0] : lo;
-    const i64 s1 = sc[0] + sc[1] < hi ? sc[0] + sc[1] : hi;
+    const i64 o0 = sc[0] - slot0, o1 = sc[0] + sc[1] - slot0;
+    const i64 s0 = o0 > lo ? o0 : lo;
+    const i64 s1 = o1 < hi ? o1 : hi;
     if (s0 >= s1) return;
     const i64* R = a.R + g * D;
     for (i64 s = s0 + tid; s < s1; s += nthr) {
         i64 pi = 0;
-        const i64 m = opened_pods(sc, P, s, &pi);
+        const i64 m = opened_pods(sc, P, slot0 + s, &pi);
         const i64* dmn = a.daemon + (g * P + pi) * D;
         for (i64 d = 0; d < D; ++d) {
             a.used[s * D + d] = wadd(a.used[s * D + d],
@@ -734,17 +781,18 @@ __device__ __forceinline__ void new_node_rows(const FfdArgs& a, i64 g,
     for (i64 i = tid; i < (s1 - s0) * T; i += nthr) {
         const i64 s = s0 + i / T, t = i % T;
         i64 pi = 0;
-        const i64 m = opened_pods(sc, P, s, &pi);
+        const i64 m = opened_pods(sc, P, slot0 + s, &pi);
         a.types[s * T + t] = candn[pi * T + t] && hrn[pi * T + t] >= m;
     }
 }
 
-// Slot s's final take of group g: k[s] (the group's k row) plus what
-// step 7 opened there, written back to k and to the takes row.
+// Row s's final take of group g: k[s] (the group's k row) plus what
+// step 7 opened at slot slot0 + s, written back to k and to the takes row.
 __device__ __forceinline__ void new_node_take(const FfdArgs& a, i64* k,
-                                              i64 g, const i64* sc, i64 s) {
+                                              i64 g, const i64* sc, i64 s,
+                                              i64 slot0 = 0) {
     i64 pi = 0;
-    const i64 v = wadd(k[s], opened_pods(sc, a.P, s, &pi));
+    const i64 v = wadd(k[s], opened_pods(sc, a.P, slot0 + s, &pi));
     k[s] = v;
     a.takes[(g - a.G0) * a.N + s] = (int)v;
 }

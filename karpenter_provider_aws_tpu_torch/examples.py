@@ -2012,12 +2012,14 @@ MESH_BEFORES = {"small": lambda P: [3 * (p + 1) for p in range(P)] + [7],
 
 
 def mesh_shard_check(case: str, ndp: int, dp_idx: int, before: str,
-                     device="cpu"):
+                     device="cpu", **state_kw):
     """Every kernel launch of the first four group steps of slot shard
     ``dp_idx`` of ``ndp`` of a ``MESH_CASES`` case (slot0 > 0, the fill in
     its three phases) against its plain part from the same entry state,
-    under a ``ShardStub`` with the ``MESH_BEFORES`` prefixes. Returns
-    (the ``mesh_kernel_check`` records, the shard's state)."""
+    under a ``ShardStub`` with the ``MESH_BEFORES`` prefixes; ``state_kw``
+    goes to the ``MeshState`` (``cluster``, ``threads``: the commit's
+    shape). Returns (the ``mesh_kernel_check`` records, the shard's
+    state)."""
     import torch
 
     from .ops import mesh_cuda as mc
@@ -2034,7 +2036,7 @@ def mesh_shard_check(case: str, ndp: int, dp_idx: int, before: str,
     inp = KernelInputs(**pm._shard_inputs(arrays, lay, names, T, Np, Np, 0,
                                           torch.device(device)))
     state = mc.MeshState(inp, E=st["E"], P=st["P"], V=0, N=N,
-                         slot0=dp_idx * (Np // ndp))
+                         slot0=dp_idx * (Np // ndp), **state_kw)
     records: list = []
     pm._mesh_scan(state, lay, check=mesh_kernel_check(0, records))
     return records, state

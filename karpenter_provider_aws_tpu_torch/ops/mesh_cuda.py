@@ -12,9 +12,16 @@ between the launches belong to the step loop (parallel/mesh.py
 ``MeshState`` is one rank's shard on one device: the shard's inputs
 (types ``[tp*Tl, (tp+1)*Tl)``, slots ``[dp*Nl, (dp+1)*Nl)``), its carry,
 the step scratch (``cand``, ``kh`` = k then the minValues maxima h1), the
-new-node caps, the fill phases' sums (``red``, reduced in place over the
-slot shards) and the earlier shards' prefixes (``before``), and the
-outputs. Each wrapper checks the state's tensors, launches on the
+group's new-node table over the rank's types (``candn`` / ``hrn`` [P,
+Tl] and the partial caps ``capn`` [P, table_blocks(Tl)], which the
+headroom launch writes without minValues floors and the commit reads;
+with floors row 0 is the commit's scratch), the new-node caps, the fill
+phases' sums (``red``, reduced in place over the slot shards) and the
+earlier shards' prefixes (``before``), and the outputs. Without
+minValues floors the commit runs on a thread-block cluster of
+``cluster`` CTAs of ``threads`` (K2's rule at one lane,
+``ffd_cuda.k2_shape``, asked for the state's device unless given).
+Each wrapper checks the state's tensors, launches on the
 state's device, on its current stream (``ffd_cuda._launch``; the step
 loop enters the device's guard once), adds one to its entry of ``LAUNCHES``
 (the kernel library's counters, ``ops/ffd_cuda.py``) and raises when the
@@ -32,10 +39,12 @@ import ctypes
 
 import torch
 
-from .ffd_cuda import LAUNCHES, _FfdArgs, _PTR_FIELDS, _lib, _need
+from .ffd_cuda import (LAUNCHES, _FfdArgs, _PTR_FIELDS, _lib, _need,
+                       k2_shape, table_blocks)
 from .ffd_cuda import _launch as _launch_kernel
-from .ffd_torch import (BIG, Carry, KernelInputs, _headroom, _mv_cap,
-                        _mv_h1, _new_nodes_phase_ref, _pool_budget,
+from .ffd_torch import (BIG, Carry, KernelInputs, NewNodeTable, _headroom,
+                        _mv_cap, _mv_h1, _new_node_table_ref,
+                        _new_nodes_phase_ref, _pool_budget,
                         _slot_headroom_ref, carry0_dp)
 
 _I64 = torch.int64
@@ -55,7 +64,9 @@ class _MeshArgs(ctypes.Structure):
                 ("caps", ctypes.c_void_p), ("red", ctypes.c_void_p),
                 ("before", ctypes.c_void_p),
                 ("tbp", ctypes.c_void_p), ("slot0", ctypes.c_longlong),
-                ("N", ctypes.c_longlong), ("E", ctypes.c_longlong)]
+                ("N", ctypes.c_longlong), ("E", ctypes.c_longlong),
+                ("capn", ctypes.c_void_p), ("cluster", ctypes.c_longlong),
+                ("threads", ctypes.c_longlong)]
 
 
 class MeshState:
@@ -65,10 +76,12 @@ class MeshState:
     ex_compat [G, Nl] (the rank's rows of the slot-padded tables), the
     minValues pairs localized to the shard's types; ``slot0`` is the
     global id of its first slot row, ``N`` the true slot count E + n_max.
+    ``cluster`` (1, 2, 4, 8) and ``threads`` (256, 512) force the
+    commit's shape; with minValues floors it runs on one CTA.
     """
 
     def __init__(self, inp: KernelInputs, *, E: int, P: int, V: int, N: int,
-                 slot0: int):
+                 slot0: int, cluster: int = None, threads: int = None):
         dev = inp.A.device
         self.inp, self.E, self.P, self.V, self.N = inp, E, P, V, N
         self.slot0 = slot0
@@ -78,6 +91,14 @@ class MeshState:
         K = 0 if inp.mv_floor is None else inp.mv_floor.shape[1]
         self.T, self.D, self.G, self.Nl, self.K = Tl, D, G, Nl, K
         self.M = 0 if K == 0 else inp.mv_pairs_t.shape[1]
+        if cluster not in (None, 1, 2, 4, 8):
+            raise ValueError(f"cluster={cluster} is not 1, 2, 4 or 8")
+        if threads not in (None, 256, 512):
+            raise ValueError(f"threads={threads} is not 256 or 512")
+        if K and cluster not in (None, 1):
+            raise ValueError("with minValues floors the commit runs on one "
+                             "CTA")
+        self.cluster, self.threads = cluster, threads
         self.slots = slot0 + torch.arange(Nl, device=dev)
         self.carry = carry0_dp(inp, self.slots, E)
         kv = K * V
@@ -86,8 +107,10 @@ class MeshState:
         self.caps = torch.zeros(G * P * (1 + kv), dtype=_I64, device=dev)
         self.red = torch.zeros(P + 1, dtype=_I64, device=dev)
         self.before = torch.zeros(P + 1, dtype=_I64, device=dev)
-        self.hrn = torch.zeros(Tl, dtype=_I64, device=dev)
-        self.candn = torch.zeros(Tl, dtype=torch.bool, device=dev)
+        self.hrn = torch.zeros((P, Tl), dtype=_I64, device=dev)
+        self.candn = torch.zeros((P, Tl), dtype=torch.bool, device=dev)
+        self.capn = torch.zeros((P, table_blocks(Tl)), dtype=_I64,
+                                device=dev)
         self.takes = torch.zeros((G, Nl), dtype=torch.int32, device=dev)
         self.leftover = torch.zeros(G, dtype=_I64, device=dev)
         self._args = None
@@ -110,10 +133,18 @@ class MeshState:
         """Every tensor a kernel writes (the carry, the scratch that
         carries between kernels and the outputs), by name."""
         out = {f"carry.{nm}": t for nm, t in zip(Carry._fields, self.carry)}
-        out.update(cand=self.cand, kh=self.kh, caps=self.caps,
+        out.update(cand=self.cand, kh=self.kh, candn=self.candn,
+                   hrn=self.hrn, capn=self.capn, caps=self.caps,
                    red=self.red, before=self.before, takes=self.takes,
                    leftover=self.leftover)
         return out
+
+    def table(self) -> NewNodeTable:
+        """The group's new-node table over the rank's types as the
+        headroom launch wrote it (no minValues floors): candn, hrn [P,
+        Tl] and the rank's own cap [P], the max over the partial caps
+        (the commit takes the caps reduced over the type shards)."""
+        return NewNodeTable(self.candn, self.hrn, self.capn.amax(-1), None)
 
     def clone(self) -> "MeshState":
         """A copy with its own buffers (the inputs shared): the plain
@@ -122,7 +153,7 @@ class MeshState:
         c.__dict__.update(self.__dict__)
         c.carry = Carry(*[t.clone() for t in self.carry])
         for nm in ("cand", "kh", "caps", "red", "before", "hrn",
-                   "candn", "takes", "leftover"):
+                   "candn", "capn", "takes", "leftover"):
             setattr(c, nm, getattr(self, nm).clone())
         c._args = None
         return c
@@ -163,11 +194,17 @@ class MeshState:
                     and src[f].numel() else None) for f in _PTR_FIELDS}
         f = _FfdArgs(**ptrs, T=Tl, D=D, Z=Z, C=C, G=G, E=0, P=P, N=Nl, K=K,
                      M=self.M, V=self.V, G0=0, L=1)
+        if self.cluster is None or self.threads is None:
+            cs, nt = k2_shape(1, K, self.V, P, D, Nl, self.device)
+            self.cluster = cs if self.cluster is None else self.cluster
+            self.threads = nt if self.threads is None else self.threads
         return _MeshArgs(
             f=f, h1=(self.kh.data_ptr() + Nl * 8) if K * self.V else None,
             caps=self.caps.data_ptr(), red=self.red.data_ptr(),
             before=self.before.data_ptr(),
-            tbp=self.red.data_ptr(), slot0=self.slot0, N=self.N, E=self.E)
+            tbp=self.red.data_ptr(), slot0=self.slot0, N=self.N, E=self.E,
+            capn=self.capn.data_ptr(), cluster=self.cluster,
+            threads=self.threads)
 
 
 def _launch(name: str, st: MeshState, *args) -> None:
@@ -192,7 +229,9 @@ def mesh_new_caps(st: MeshState) -> None:
 
 def mesh_slot_headroom(st: MeshState, g: int) -> None:
     """Steps 1-3 of group g on the rank's shard: ``st.cand`` [Nl, Tl],
-    ``st.k`` (the max over the local types) and ``st.h1``."""
+    ``st.k`` (the max over the local types) and, without minValues
+    floors, the group's new-node table over the rank's types
+    (``st.table()``); with floors ``st.h1``."""
     if st.device.type == "cpu":
         return _slot_headroom_mesh_ref(st, g)
     _launch("mesh_slot_headroom", st, g)
@@ -212,7 +251,8 @@ def mesh_commit(st: MeshState, g: int) -> None:
     """Group g's new-node caps from the caps reduced over the type shards
     (with floors, min(cap, the minValues cap of the reduced h1n)), its
     narrowing (with the reduced take-by-pool in ``st.red``), new nodes on
-    the rank's slots and its takes row and leftover."""
+    the rank's slots (from the table the headroom launch wrote; with
+    floors computed pool by pool) and its takes row and leftover."""
     if st.device.type == "cpu":
         return _commit_mesh_ref(st, g)
     _launch("mesh_commit", st, g)
@@ -246,6 +286,15 @@ def _new_caps_ref(st: MeshState) -> None:
         st.caps[GP:] = torch.stack(h1n).reshape(-1)
 
 
+def _partial_caps(hrn: torch.Tensor) -> torch.Tensor:
+    """[P, table_blocks(T)]: the max of each 256-type block of hrn [P, T]
+    (every hrn is at least 0, so a short last block pads with 0)."""
+    P, T = hrn.shape
+    TB = table_blocks(T)
+    pad = torch.zeros((P, TB * 256 - T), dtype=hrn.dtype, device=hrn.device)
+    return torch.cat([hrn, pad], 1).view(P, TB, 256).amax(-1)
+
+
 def _slot_headroom_mesh_ref(st: MeshState, g: int) -> None:
     """Plain version of ``mesh_slot_headroom``."""
     inp = st.inp
@@ -258,6 +307,11 @@ def _slot_headroom_mesh_ref(st: MeshState, g: int) -> None:
                        inp.R[g])
         st.h1.copy_(_mv_h1(torch.where(cand, hr + 1, torch.zeros_like(hr)),
                            inp.mv_pairs_t, inp.mv_pairs_v, st.V))
+        return
+    tab = _new_node_table_ref(inp, g, P=st.P)
+    st.candn.copy_(tab.candn)
+    st.hrn.copy_(tab.hrn)
+    st.capn.copy_(_partial_caps(tab.hrn))
 
 
 def _pool_sums(pool: torch.Tensor, x: torch.Tensor, P: int) -> torch.Tensor:
@@ -334,11 +388,21 @@ def _commit_mesh_ref(st: MeshState, g: int) -> None:
                         c.zones)
     ct = torch.where(filled_open[:, None], c.ct & inp.agc[g][None], c.ct)
     pool_used = c.pool_used + st.red[:P, None] * R[None, :]
+    # the new nodes from the table the headroom launch wrote, with the
+    # reduced caps; with floors the phase computes each pool's, and row 0
+    # of the table's buffers holds the last pool's (the kernel's scratch)
+    table = None
+    if K:
+        last = _new_node_table_ref(inp, g, P=P)
+        st.candn[0] = last.candn[P - 1]
+        st.hrn[0] = last.hrn[P - 1]
+    else:
+        table = NewNodeTable(st.candn, st.hrn, cap, None)
     (take, used, types, zones, ct, pool, alive, num_nodes, pool_used, n_rem,
      _) = _new_nodes_phase_ref(
         inp, g, take, used, types, zones, ct, c.pool, c.alive, c.num_nodes,
         pool_used, n_rem, E=st.E, P=P, V=V, slots=st.slots, N=st.N,
-        caps=cap)
+        caps=cap, table=table)
     for dst, src in zip(c, (used, types, zones, ct, pool, alive, num_nodes,
                             pool_used)):
         dst.copy_(src)

@@ -1146,12 +1146,24 @@ def test_preempt_round_on_card(cuda_device):
     assert out[0] == out[1]
 
 
+def _seen(records, names):
+    """``examples.mesh_kernel_check`` that also collects the names of the
+    buffers it compares."""
+    chk = examples.mesh_kernel_check(0, records)
+
+    def check(name, args, st, ref):
+        names.update(st.buffers())
+        chk(name, args, st, ref)
+    return check
+
+
 @pytest.mark.parametrize("split", [False, True])
 @pytest.mark.parametrize("case", examples.MESH_CASES)
 def test_mesh_kernels_step_by_step(cuda_device, case, split):
     """K10 at world size 1: every kernel launch of the first four group
     steps (and the caps) against its plain part from the same entry
-    state, the fill in one launch and in its three phases; the whole
+    state, every buffer a kernel writes (the headroom's new-node table
+    included), the fill in one launch and in its three phases; the whole
     solve against the single-device plain scan."""
     from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
     from karpenter_provider_aws_tpu_torch.parallel import mesh as pm
@@ -1159,9 +1171,10 @@ def test_mesh_kernels_step_by_step(cuda_device, case, split):
     records = []
     got = examples.mesh_outputs(*pm.solve_scan_sharded(
         arrays, None, st["n_max"], st["E"], st["P"], st["V"],
-        device=cuda_device, check=examples.mesh_kernel_check(0, records),
+        device=cuda_device, check=_seen(records, names := set()),
         split_fill=split))
     assert {r[0] for r in records} == set(mc.KERNELS)
+    assert {"candn", "hrn", "capn"} <= names   # the new-node table too
     bad = [r for r in records if r[2]]
     assert not bad, bad[:3]
     want = examples.mesh_outputs(*ft._solve_scan_ref(
@@ -1179,11 +1192,65 @@ def test_mesh_kernels_on_a_later_slot_shard(cuda_device, case, ndp, dp_idx,
     small and wrapping: every launch of the first four group steps against
     its plain part (the pool caps and greedy fill after a prefix, the
     new-node window at lo > 0, the existing-row overlay by global slot
-    id)."""
+    id), the new-node table among the buffers compared."""
     from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
     records, st = examples.mesh_shard_check(case, ndp, dp_idx, before,
                                             device=cuda_device)
     assert st.slot0 > 0
+    assert {r[0] for r in records} == set(mc.KERNELS)
+    assert {"candn", "hrn", "capn"} <= set(st.buffers())
+    bad = [r for r in records if r[2]]
+    assert not bad, bad[:3]
+
+
+MESH_SHAPES = [(1, 256), (1, 512), (2, 512), (4, 512), (8, 256), (8, 512)]
+
+
+@pytest.mark.parametrize("case,ndp,dp_idx",
+                         [("hazards", 1, 0), ("existing_split", 1, 0)]
+                         + list(examples.MESH_LATER_SHARDS))
+def test_mesh_commit_shapes_agree(cuda_device, case, ndp, dp_idx):
+    """The K10 commit forced onto every cluster shape (CTAs, threads),
+    at world size 1 and on later slot shards: every launch of the first
+    four group steps equals its plain part, and every shape's whole scan
+    writes the same outputs and carry as the rule's (8 x 512 here)."""
+    outs = []
+    for cs, nt in [(None, None)] + MESH_SHAPES:
+        kw = {} if cs is None else dict(cluster=cs, threads=nt)
+        records, st = examples.mesh_shard_check(case, ndp, dp_idx, "small",
+                                                device=cuda_device, **kw)
+        bad = [r for r in records if r[2]]
+        assert not bad, (cs, nt, bad[:3])
+        if cs is None:
+            assert (st.cluster, st.threads) == (8, 512)
+        outs.append([st.takes, st.leftover, *st.carry])
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+
+
+def test_mesh_min_values_commit_takes_the_block_branch(cuda_device):
+    """With minValues floors the K10 commit runs the block bodies on one
+    CTA: the rule gives a cluster of one, a forced larger cluster is
+    refused, and every launch of the first steps equals its plain part
+    (the commit's scratch row of the table included)."""
+    import numpy as np
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    from karpenter_provider_aws_tpu_torch.parallel import mesh as pm
+    arrays, st = examples.mesh_case("min_values")
+    N = st["E"] + st["n_max"]
+    lay = pm.MeshComm()
+    T = np.asarray(arrays["A"]).shape[0]
+    names = [f for f in pm.FIELDS if arrays.get(f) is not None]
+    inp = ft.KernelInputs(**pm._shard_inputs(arrays, lay, names, T, N, None,
+                                             st["V"], cuda_device))
+    with pytest.raises(ValueError, match="one CTA"):
+        mc.MeshState(inp, E=st["E"], P=st["P"], V=st["V"], N=N, slot0=0,
+                     cluster=2)
+    state = mc.MeshState(inp, E=st["E"], P=st["P"], V=st["V"], N=N, slot0=0)
+    records = []
+    pm._mesh_scan(state, lay, check=examples.mesh_kernel_check(0, records))
+    assert state.K > 0 and state.cluster == 1
     assert {r[0] for r in records} == set(mc.KERNELS)
     bad = [r for r in records if r[2]]
     assert not bad, bad[:3]

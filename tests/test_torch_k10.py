@@ -1,0 +1,399 @@
+"""The sharded scan's group step (K10) as its redesigned kernels compute
+it, held against the reference package on the CPU, with no spawned ranks:
+every rank of a layout runs in this process, step by step, and the
+collectives between the launches are done here by hand (the max over the
+type shards, the earlier slot shards' prefixes and the sum over them).
+
+Without minValues floors the headroom launch (csrc/mesh.cu
+``mesh_slot_headroom``) writes, beside the candidate rows, the group's
+new-node table over the rank's types; the commit (``mesh_commit``)
+narrows the filled open slots on a cluster of CTAs and opens new nodes
+from the table at global slot ids, with the caps reduced over the type
+shards and the take by pool reduced over the slot shards. Here:
+
+- the table the plain headroom writes (``mesh_cuda._slot_headroom_mesh_ref``)
+  against the reference's ``cand_new`` and ``hr`` of ``_new_nodes_phase``
+  (ops/ffd_jax.py:393-404) on its padded types (``_pad_types``), cut to
+  each rank's type shard, on every ``examples.MESH_CASES`` case without
+  floors (a shard of pad types alone in ``few_types``, the ``hazards``
+  rows) on the 1 x 4, 2 x 2 and 4 x 1 layouts; the max of each rank's
+  partial caps equals its own cap from ``_new_caps_ref``;
+- a plain model of the windowed cluster commit on CS = 1, 2, 4 and 8
+  CTAs (each CTA's slot pass compacts its takers, the takers' cells are
+  dealt round-robin over the cluster, new nodes open at global ids and
+  only the rows inside the rank's window are written) against
+  ``_commit_mesh_ref`` at every step of every rank, and the whole scan
+  built on it against the reference's JAX mesh (``solve_scan_sharded2``
+  on ``solve_mesh2(4, dp)``): later slot shards (slot0 > 0), opened runs
+  across a CTA chunk's edge and the shard's, Nl not a multiple of CS, a
+  shard with no taker, and the zero request row whose prefixes wrap.
+
+Tolerance: exact (int64 and bool).
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from karpenter_provider_aws_tpu.ops import ffd_jax
+from karpenter_provider_aws_tpu.ops.ffd_jax import KernelInputs as RefInputs
+from karpenter_provider_aws_tpu.parallel import mesh as ref_mesh
+from karpenter_provider_aws_tpu_torch import examples
+from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+from karpenter_provider_aws_tpu_torch.parallel import mesh as pm
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+#: (ndp, ntp) of four ranks: the type mesh, pods x types, the slot split
+LAYOUTS = {"1x4": (1, 4), "2x2": (2, 2), "4x1": (4, 1)}
+TABLE_CASES = [c for c in examples.MESH_CASES if c != "min_values"]
+FIELDS = ("takes", "leftover", "used", "types", "zones", "ct", "pool",
+          "alive", "num_nodes", "pool_used")
+
+
+# ---------------------------------------------------------------------------
+# every rank of a layout in one process
+# ---------------------------------------------------------------------------
+
+def _rank_states(arrays, st, ndp, ntp):
+    """{(dp, tp): MeshState} of every rank's shard, cut as the dispatch
+    cuts it (types padded to a multiple of ntp, slots to one of ndp)."""
+    E, P, N = st["E"], st["P"], st["E"] + st["n_max"]
+    Np = -(-N // ndp) * ndp
+    T = np.asarray(arrays["A"]).shape[0]
+    Tp = -(-T // ntp) * ntp
+    names = [f for f in pm.FIELDS if arrays.get(f) is not None]
+    out = {}
+    for dp in range(ndp):
+        for tp in range(ntp):
+            lay = examples.ShardStub(ndp, dp, [0] * (P + 1), ntp=ntp,
+                                     tp_idx=tp)
+            inp = ft.KernelInputs(**pm._shard_inputs(
+                arrays, lay, names, Tp, Np, Np if ndp > 1 else None, 0,
+                torch.device("cpu")))
+            out[(dp, tp)] = mc.MeshState(inp, E=E, P=P, V=0, N=N,
+                                         slot0=dp * (Np // ndp))
+    return out
+
+
+def _tp_max(states, ndp, ntp, get):
+    """The max over each slot row's type shards of ``get(state)``, in
+    place (``MeshComm.axis_max``)."""
+    for dp in range(ndp):
+        xs = [get(states[(dp, tp)]) for tp in range(ntp)]
+        m = torch.stack(xs).amax(0)
+        for x in xs:
+            x.copy_(m)
+
+
+def _dp_before(states, ndp, ntp, get, put):
+    """Each rank's sum of ``get`` over the earlier slot shards of its type
+    column, into ``put`` (``MeshComm.dp_before``; int64 sums wrap)."""
+    for tp in range(ntp):
+        acc = torch.zeros_like(get(states[(0, tp)]))
+        for dp in range(ndp):
+            s = states[(dp, tp)]
+            x = get(s).clone()
+            put(s).copy_(acc)
+            acc = acc + x
+
+
+def _dp_sum(states, ndp, ntp, get):
+    """The sum over each type column's slot shards, in place."""
+    for tp in range(ntp):
+        xs = [get(states[(dp, tp)]) for dp in range(ndp)]
+        tot = torch.stack(xs).sum(0)
+        for x in xs:
+            x.copy_(tot)
+
+
+def _lockstep_scan(states, ndp, ntp, commit):
+    """The step loop of ``parallel/mesh.py`` ``_mesh_scan`` over every
+    rank at once, on the plain parts, with ``commit(state, g)`` as each
+    rank's commit."""
+    ranks = list(states.values())
+    P, G = ranks[0].P, ranks[0].G
+    for s in ranks:
+        mc._new_caps_ref(s)
+    _tp_max(states, ndp, ntp, lambda s: s.caps)
+    for g in range(G):
+        for s in ranks:
+            mc._slot_headroom_mesh_ref(s, g)
+        _tp_max(states, ndp, ntp, lambda s: s.kh)
+        if ndp == 1:
+            for s in ranks:
+                mc._fill_ref(s, g, mc.PHASE_ALL)
+        else:
+            for s in ranks:
+                mc._fill_ref(s, g, mc.PHASE_A)
+            _dp_before(states, ndp, ntp, lambda s: s.red[:P],
+                       lambda s: s.before[:P])
+            for s in ranks:
+                mc._fill_ref(s, g, mc.PHASE_B)
+            _dp_before(states, ndp, ntp, lambda s: s.red[:1],
+                       lambda s: s.before[P:])
+            for s in ranks:
+                mc._fill_ref(s, g, mc.PHASE_C)
+            _dp_sum(states, ndp, ntp, lambda s: s.red)
+        for s in ranks:
+            commit(s, g)
+
+
+def _gathered(states, ndp, ntp, T, N):
+    """The layout's outputs as one solve's: ``types`` over the type
+    shards, then every slot-indexed output over the slot shards; padding
+    stripped."""
+    rows = []
+    for dp in range(ndp):
+        s = states[(dp, 0)]
+        types = torch.cat([states[(dp, tp)].carry.types
+                           for tp in range(ntp)], 1)
+        rows.append(dict(takes=s.takes, used=s.carry.used, types=types,
+                         zones=s.carry.zones, ct=s.carry.ct,
+                         pool=s.carry.pool, alive=s.carry.alive))
+    s0 = states[(0, 0)]
+    out = {k: torch.cat([r[k] for r in rows], 1 if k == "takes" else 0)
+           for k in rows[0]}
+    out["takes"] = out["takes"][:, :N]
+    out["types"] = out["types"][:N, :T]
+    for k in ("used", "zones", "ct", "pool", "alive"):
+        out[k] = out[k][:N]
+    out.update(leftover=s0.leftover, num_nodes=s0.carry.num_nodes,
+               pool_used=s0.carry.pool_used)
+    return {k: v.numpy().reshape(1) if k == "num_nodes" else v.numpy()
+            for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# the table
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _jax_tables(case: str):
+    """The reference's per-(group, pool) ``cand_new`` and ``hr`` of
+    ``_new_nodes_phase`` (ops/ffd_jax.py:393-404) on the case's types
+    padded for four type shards by the reference's ``_pad_types`` (a
+    padding for fewer shards is a prefix of it): [(candn [P, Tp], hrn
+    [P, Tp])] a group."""
+    arrays, st = examples.mesh_case(case)
+    inp, _ = ref_mesh._pad_types(
+        RefInputs(**{k: jnp.asarray(v) for k, v in arrays.items()}), 4)
+    Z, C = inp.agz.shape[1], inp.agc.shape[1]
+    out = []
+    for g in range(inp.R.shape[0]):
+        R, F, agz, agc = inp.R[g], inp.F[g], inp.agz[g], inp.agc[g]
+        cands, hrs = [], []
+        for pi in range(st["P"]):
+            zc_p = ((agz & inp.pool_agz[pi])[:, None]
+                    & (agc & inp.pool_agc[pi])[None, :]).reshape(Z * C)
+            cand_new = F & inp.pool_types[pi] & (inp.avail_zc
+                                                 & zc_p[None, :]).any(axis=1)
+            hr = jnp.where(cand_new, ffd_jax._headroom_vec(
+                inp.A, inp.daemon[g][pi][None, :], R), 0)
+            cands.append(np.asarray(cand_new))
+            hrs.append(np.asarray(hr))
+        out.append((np.stack(cands), np.stack(hrs)))
+    return out
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("case", TABLE_CASES)
+def test_mesh_table_matches_reference(case, layout):
+    """Every rank's table of every group equals the reference's cut to
+    the rank's types (pad types: no candidate, headroom 0), and the max
+    of its partial caps is the rank's own cap."""
+    arrays, st = examples.mesh_case(case)
+    ndp, ntp = LAYOUTS[layout]
+    P = st["P"]
+    want = _jax_tables(case)
+    states = _rank_states(arrays, st, ndp, ntp)
+    pad_shard = False
+    for (dp, tp), s in states.items():
+        mc._new_caps_ref(s)
+        Tl = s.T
+        cols = slice(tp * Tl, (tp + 1) * Tl)
+        pad_shard |= not bool(s.inp.A.any())
+        for g in range(s.G):
+            mc._slot_headroom_mesh_ref(s, g)
+            candn, hrn, cap, _ = s.table()
+            label = f"{case} {layout} rank ({dp}, {tp}) g={g}"
+            np.testing.assert_array_equal(candn.numpy(), want[g][0][:, cols],
+                                          err_msg=f"{label} candn")
+            np.testing.assert_array_equal(hrn.numpy(), want[g][1][:, cols],
+                                          err_msg=f"{label} hrn")
+            assert torch.equal(cap, s.caps[g * P:(g + 1) * P]), label
+            assert not bool(hrn[~candn].any()), label
+    # two of the four type shards of few_types hold pad types alone
+    assert pad_shard == (case == "few_types" and ntp == 4)
+
+
+# ---------------------------------------------------------------------------
+# the windowed cluster commit
+# ---------------------------------------------------------------------------
+
+def _window_commit_model(st, g, CS, seen):
+    """A plain model of ``mesh_commit`` at K == 0 on CS CTAs: CTA r's slot
+    pass over its local rows [r*ceil(Nl/CS), ...) (used += take * R where
+    the take is nonzero; a filled open slot's zones and capacity types
+    ANDed with the group's and the slot appended to the CTA's takers);
+    the cluster's takers in CTA order dealt round-robin (CTA r: takers r,
+    r + CS, ...), each taker's row narrowed to cand & fit; then CTA 0's
+    thread 0 walks the pools with the window's caps (reduced over the
+    type shards), pool usage plus the take by pool reduced over the slot
+    shards, n minus its sum, the true N and E, opening runs at global
+    ids; the opened rows inside [slot0, slot0 + Nl) are written. Updates
+    ``st`` in place and records in ``seen`` what the step reached."""
+    inp, c, P, Nl, slot0 = st.inp, st.carry, st.P, st.Nl, st.slot0
+    R, daemon = inp.R[g], inp.daemon[g]
+    take = st.k
+    chunk = -(-Nl // CS)
+    lists = []
+    for r in range(CS):
+        mine = []
+        for s in range(r * chunk, min(Nl, (r + 1) * chunk)):
+            if int(take[s]) == 0:
+                continue
+            c.used[s] += take[s] * R
+            if int(c.pool[s]) < 0 or int(take[s]) <= 0:
+                continue
+            c.zones[s] &= inp.agz[g]
+            c.ct[s] &= inp.agc[g]
+            mine.append(s)
+        lists.append(mine)
+    takers = [s for mine in lists for s in mine]
+    for r in range(CS):
+        for s in takers[r::CS]:
+            c.types[s] = st.cand[s] & (c.used[s][None, :] <= inp.A).all(-1)
+    seen["no_taker"] |= not takers
+    seen["takers_in_two_ctas"] |= sum(1 for m in lists if m) > 1
+    # the new-node scalars
+    zero = torch.zeros((), dtype=torch.int64)
+    tbp, caps = st.red, st.caps[g * P:(g + 1) * P]
+    pu = c.pool_used + tbp[:P, None] * R[None, :]
+    n_rem = inp.n[g] - tbp.sum()
+    nn = c.num_nodes[0].long()
+    runs = []
+    for pi in range(P):
+        cap = caps[pi]
+        budget = ft._pool_budget(inp.pool_limit[pi], pu[pi], R)
+        can_place = torch.minimum(n_rem, budget) \
+            if bool(inp.admit[g, pi]) and int(cap) >= 1 else zero
+        q = -torch.div(-can_place, cap.clamp(min=1), rounding_mode="floor") \
+            if int(can_place) > 0 else zero
+        q = torch.minimum(q, st.N - st.E - nn)
+        placed = torch.minimum(can_place, q * cap)
+        runs.append((pi, int(q), int(st.E + nn), placed - cap * (q - 1), cap))
+        pu[pi] += placed * R
+        nn = nn + q
+        n_rem = n_rem - placed
+    c.pool_used.copy_(pu)
+    c.num_nodes[0] = nn.to(torch.int32)
+    # the opened rows inside the window
+    for pi, q, start, last, cap in runs:
+        if q <= 0:
+            continue
+        lo, hi = start - slot0, start + q - slot0
+        if lo < Nl and hi > 0:
+            seen["opened"] |= True
+            seen["run_across_ctas"] |= (max(lo, 0) // chunk
+                                        != (min(hi, Nl) - 1) // chunk)
+            seen["run_across_shards"] |= lo < 0 or hi > Nl
+        for s in range(max(lo, 0), min(hi, Nl)):
+            m = last if s == hi - 1 else cap
+            c.used[s] += m * R + daemon[pi]
+            c.types[s] = st.candn[pi] & (st.hrn[pi] >= m)
+            c.zones[s] = inp.agz[g] & inp.pool_agz[pi]
+            c.ct[s] = inp.agc[g] & inp.pool_agc[pi]
+            c.pool[s] = pi
+            c.alive[s] = True
+            take[s] += m
+    st.takes[g] = take.to(torch.int32)
+    st.leftover[g] = n_rem
+    # the zero request row's prefixes wrap: takes near BIG, negative as
+    # int32
+    seen["wrapped"] |= bool((st.takes[g] < 0).any())
+    seen["later_shard"] |= slot0 > 0
+    seen["ragged"] |= Nl % CS != 0
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mesh(case: str, ndp: int):
+    arrays, st = examples.mesh_case(case)
+    inp = RefInputs(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    takes, leftover, carry = ref_mesh.solve_scan_sharded2(
+        inp, n_max=st["n_max"], E=st["E"], P=st["P"],
+        mesh=ref_mesh.solve_mesh2(4, dp=ndp))
+    out = dict(takes=takes, leftover=leftover, **carry._asdict())
+    return {k: np.asarray(v).reshape(1) if k == "num_nodes"
+            else np.asarray(v) for k, v in out.items()}
+
+
+MODEL_CASES = [(c, lay, cs) for c in ("hazards", "existing_split")
+               for lay in ("2x2", "4x1") for cs in (1, 2, 4, 8)]
+
+
+def _must_reach(case, layout, CS):
+    """What a model case's scan must reach besides a later slot shard, a
+    step where a shard has no taker and opened rows: on ``hazards`` the
+    wrapping zero request row, opened runs across the slot shards' edge
+    and, on a cluster, across a CTA chunk's and takers in two CTAs' chunks
+    (Nl = 28 and 14: not a multiple of 8, nor 14 of 4); on
+    ``existing_split`` (a later shard starts inside the existing rows)
+    the limited pool's runs across the 4 x 1 shards' edges, and on 4 or
+    8 CTAs across a CTA chunk's."""
+    if case == "hazards":
+        out = {"wrapped", "run_across_shards"}
+        if CS > 1:
+            out |= {"run_across_ctas", "takers_in_two_ctas"}
+        if CS == 8 or (CS == 4 and layout == "4x1"):
+            out.add("ragged")
+        return out
+    out = set()
+    if layout == "4x1":
+        out.add("run_across_shards")
+        if CS >= 4:
+            out.add("run_across_ctas")
+    return out
+
+
+@pytest.mark.parametrize("case,layout,CS", MODEL_CASES)
+def test_window_commit_model(case, layout, CS):
+    """At every step of every rank the model's commit equals
+    ``_commit_mesh_ref`` on the same entry state (every buffer the kernel
+    writes), and the scan built on it equals the reference's JAX mesh on
+    the same layout; the cases reach the window's hazards."""
+    arrays, st = examples.mesh_case(case)
+    ndp, ntp = LAYOUTS[layout]
+    states = _rank_states(arrays, st, ndp, ntp)
+    seen = dict(no_taker=False, takers_in_two_ctas=False, opened=False,
+                run_across_ctas=False, run_across_shards=False,
+                wrapped=False, later_shard=False, ragged=False)
+
+    def commit(s, g):
+        ref = s.clone()
+        mc._commit_mesh_ref(ref, g)
+        _window_commit_model(s, g, CS, seen)
+        for nm, t in s.buffers().items():
+            assert torch.equal(t, ref.buffers()[nm]), (g, s.slot0, nm)
+
+    _lockstep_scan(states, ndp, ntp, commit)
+    got = _gathered(states, ndp, ntp, np.asarray(arrays["A"]).shape[0],
+                    st["E"] + st["n_max"])
+    want = _jax_mesh(case, ndp)
+    for f in FIELDS:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    assert seen.pop("later_shard") and seen.pop("no_taker") \
+        and seen.pop("opened")
+    assert _must_reach(case, layout, CS) <= {k for k, v in seen.items()
+                                              if v}
