@@ -80,7 +80,12 @@ Phases (any failure exits non-zero before the result line):
    ``topo_record_plain`` of BASELINE config 3 (``examples.config3``,
    50,000 pods: 20 zone-spread deployments, one hostname anti-affinity
    deployment, plain pods) against the plain parts from the same entry
-   state; then ``CUDASolver()`` solves config 3 on the topology kernels
+   state at EVCAP 128, 1, 2 and the bail's re-dispatch capacity, and so
+   every group of every ``examples.TOPO_CASES`` kernel case (rows at the
+   last padded index, an undecided slot below a decided one, the anti
+   ladder filling 64 and 2,048 slots) and of ``rows_last`` with its
+   counter axes padded to 4,096 rows;
+   then ``CUDASolver()`` solves config 3 on the topology kernels
    (one warm-up, timed rounds, counters set to 0 just before and read
    just after) with 0 bails, fingerprint-equal to the host pour
    (``ops/topo.py``) on the CPU; a forced EVCAP = 1 solve bails and is
@@ -1463,7 +1468,8 @@ def topo_phase(cmp, device=None, n_pods=C3_PODS, rounds=C3_ROUNDS):
     from karpenter_provider_aws_tpu_torch.ops.topo import \
         build_topo_encoding
     from karpenter_provider_aws_tpu_torch.solver import CUDASolver
-    from karpenter_provider_aws_tpu_torch.solver.cuda import topo_arrays
+    from karpenter_provider_aws_tpu_torch.solver.cuda import (safe_evcap,
+                                                              topo_arrays)
 
     fenv.reset_pod_counter()
     t0 = time.perf_counter()
@@ -1488,11 +1494,43 @@ def topo_phase(cmp, device=None, n_pods=C3_PODS, rounds=C3_ROUNDS):
                 inp, trows, n_max=st["n_max"], P=st["P"], EVCAP=st["EVCAP"],
                 PMAX=st["PMAX"], states=states):
             cmp(kernel, got, want, f"config3 {what}")
+        # and at the bailing capacities and the bail's re-dispatch's
+        for evcap in (1, 2, safe_evcap(arrays, rows)):
+            for kernel, what, got, want in examples.topo_kernel_steps(
+                    inp, trows, n_max=st["n_max"], P=st["P"], EVCAP=evcap,
+                    PMAX=st["PMAX"]):
+                cmp(kernel, got, want, f"config3 EVCAP={evcap} {what}")
         torch.cuda.synchronize()
         log(f"[config3] every group's K9 kernel == its plain part from the "
-            f"same entry state; checks "
+            f"same entry state at EVCAP {st['EVCAP']}, 1, 2 and "
+            f"{safe_evcap(arrays, rows)}; checks "
             f"{ {k: cmp.checks[k] - n0[k] for k in KERNELS if 'topo' in k} }")
         states = (inp, trows, st, states)
+        # the kernel cases (rows at the last padded index, an undecided
+        # slot below a decided one, the ladder filling 64 and 2,048 slots),
+        # and rows_last on counter axes of 4,096 rows
+        n0 = dict(cmp.checks)
+        # (an older checkout timed by hack/k9_ab.py has no wide case)
+        wide = getattr(examples, "TOPO_WIDE_COUNTERS", None)
+        for case, counters in ([(c, None) for c in examples.TOPO_CASES]
+                               + ([("rows_last", wide)] if wide else [])):
+            a_c, r_c, s_c = (examples.topo_case(case, counters=counters)
+                             if counters else examples.topo_case(case))
+            if counters:
+                case = f"{case}@{counters}"
+            i_c = ft.kernel_inputs_from_numpy(a_c, solver.device)
+            t_c = tt.topo_rows_from_numpy(r_c, solver.device)
+            for evcap in (1, 2, 128, safe_evcap(a_c, r_c)):
+                for kernel, what, got, want in examples.topo_kernel_steps(
+                        i_c, t_c, n_max=s_c["n_max"], P=s_c["P"],
+                        EVCAP=evcap):
+                    cmp(kernel, got, want, f"{case} EVCAP={evcap} {what}")
+        torch.cuda.synchronize()
+        log(f"[topo cases] {len(examples.TOPO_CASES)} kernel cases and "
+            f"rows_last@{wide} at EVCAP 1, 2, 128 and their bails' "
+            f"re-dispatch capacity: every K9 kernel == its plain part; "
+            f"checks "
+            f"{ {k: cmp.checks[k] - n0[k] for k in KERNELS if 'topo' in k} }")
 
     fc.reset_launches()
     times, splits, stats = [], [], []
@@ -3314,7 +3352,9 @@ def k9_times(c3, launches):
     """The K9 kernels at config 3's states (every group's entry state from
     phase 11): each kernel's time beside its plain part's, and the bytes
     and operations of that state's work (each input read once, each
-    output written once; a pour's operations count its events)."""
+    output written once; a pour's operations count its events). The
+    pour's record also holds each group's time (``group_ms``: group,
+    events, µs) and group 0's apart from the others' mean."""
     import torch
     from karpenter_provider_aws_tpu_torch.ops import topo_cuda as tc
     from karpenter_provider_aws_tpu_torch.ops import topo_torch as tt
@@ -3329,6 +3369,7 @@ def k9_times(c3, launches):
                        n_max=N, P=P, EVCAP=EVCAP, PMAX=st["PMAX"])
     acc = {k: [] for k in ("topo_group_start", "topo_pour",
                            "topo_record_plain")}
+    groups = []
     for g, carry, cz, ch, zfix, x, r in states:
         def restore(carry=carry, cz=cz, ch=ch, zfix=zfix):
             for dst, src in zip(ts.st.carry, carry):
@@ -3383,6 +3424,7 @@ def k9_times(c3, launches):
                 inp, carry, cz, ch, zfix, g, rows, gs, P=P, EVCAP=EVCAP,
                 PMAX=st["PMAX"]), reps=3),
             nbytes, ops))
+        groups.append((g, int(r.ev_n), acc["topo_pour"][-1][0] * 1e3))
     out = []
     for name, rows_ in acc.items():
         ms, pms, nbytes, ops = (statistics.fmean(r[i] for r in rows_)
@@ -3392,6 +3434,12 @@ def k9_times(c3, launches):
                         launches=launches[name], ms=ms, plain_ms=pms,
                         bound_ms=b, bound_by=by, library_ms=None,
                         bytes=nbytes, ops=ops))
+        if name == "topo_pour" and groups:
+            out[-1].update(
+                group_ms=groups, group0_us=groups[0][2],
+                others_mean_us=statistics.fmean(x[2] for x in groups[1:])
+                if len(groups) > 1 else None)
+    log(f"[time] topo_pour by group (group, events, us): {groups}")
     del ts
     return out
 

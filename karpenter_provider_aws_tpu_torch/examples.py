@@ -1136,6 +1136,39 @@ def topo_scenario(env, name: str, api=None):
                 + mk(16, cpu="500m", memory="512Mi", prefix="fzs",
                      group="fzs", topology_spread=[zs(3, group="fzs"),
                                                    hs(2, group="fzs")]))
+    elif name == "und_first":
+        # a zone-free node in zone a (an earlier group's, undecided) below
+        # nodes pinned to zones b-d: a spread already at its skew in zone
+        # a fails that node's zone choice and pours on a pinned one
+        pods = (mk(1, cpu="1", memory="2Gi", prefix="uf0", group="uf0",
+                   node_selector={L.ZONE: "us-west-2a"})
+                + mk(5, cpu="500m", memory="1Gi", prefix="ufb", group="web",
+                     topology_spread=[zs(1, group="web")],
+                     pod_affinity=[Pat(topology_key=L.HOSTNAME, group="uf0",
+                                       anti=True)])
+                + mk(6, cpu="250m", memory="256Mi", prefix="ufs",
+                     group="web", topology_spread=[zs(1, group="web")]))
+    elif name == "rows_last":
+        # two spread deployments on their own counters and a hostname
+        # anti-affinity; the kernel case reverses the counter axes, so each
+        # group's rows sit at the end of the padded axes with the other
+        # deployment's counts in a row it does not list
+        pods = (mk(14, cpu="3", memory="4Gi", prefix="rla", group="rla",
+                   topology_spread=[zs(1, group="rla"), hs(3, group="rla")])
+                + mk(9, cpu="2", memory="4Gi", prefix="rlb", group="rlb",
+                     topology_spread=[zs(2, group="rlb")])
+                + mk(5, cpu="1", memory="2Gi", prefix="rlh", group="rlh",
+                     pod_affinity=[Pat(topology_key=L.HOSTNAME, group="rlh",
+                                       anti=True)]))
+    elif name == "wide_slots":
+        # a zone spread, then the cap-1 anti ladder filling every one of a
+        # 2,048-slot bucket's slots (pods left over)
+        pods = (mk(30, cpu="1", memory="2Gi", prefix="wsz", group="wsz",
+                   topology_spread=[zs(1, group="wsz")])
+                + mk(2100, cpu="500m", memory="512Mi", prefix="wsa",
+                     group="wsa",
+                     pod_affinity=[Pat(topology_key=L.HOSTNAME, group="wsa",
+                                       anti=True)]))
     else:
         raise ValueError(f"unknown topology scenario {name!r}")
     return env.snapshot(pods, pool, existing_nodes=existing)
@@ -1183,15 +1216,28 @@ TOPO_CASES = ("config3_small", "zone_skew2", "two_deployments",
               "zone_self_affinity",
               "cross_group_zone_anti", "cross_group_zone_affinity",
               "mixed_topo_plain", "two_pools_limits", "anti_budget",
-              "anti_slots", "fix_zones")
+              "anti_slots", "fix_zones", "und_first", "rows_last",
+              "wide_slots")
 TOPO_BUCKET = dict(Gp=8, Pp=2, GZp=8, GHp=8)
 TOPO_N_MAX = 64
+#: the cases at another slot bucket than TOPO_N_MAX
+TOPO_N_MAX_OF = dict(wide_slots=2048)
+#: the cases whose counter axes are reversed after padding (their rows at
+#: the last padded indices)
+TOPO_FLIPPED = ("rows_last",)
+#: a kernel case's counter axes padded past 2,048 rows
+#: (``topo_case(name, counters=TOPO_WIDE_COUNTERS)``): the pour's shared
+#: memory follows the rows a group lists, not the padded axes
+TOPO_WIDE_COUNTERS = 4096
 
 
-def topo_case(name: str, env=None):
+def topo_case(name: str, env=None, counters: int = None):
     """(arrays, rows, statics) of one kernel case: the scenario encoded by
     this package and padded to ``TOPO_BUCKET`` with ``TOPO_N_MAX`` new-node
-    slots; statics Z/P/GZ/GH/n_max (the caller adds EVCAP and PMAX)."""
+    slots (``TOPO_N_MAX_OF`` for a wider case), the counter axes of a
+    ``TOPO_FLIPPED`` case reversed; statics Z/P/GZ/GH/n_max (the caller
+    adds EVCAP and PMAX). ``counters`` pads both counter axes to that
+    many rows instead."""
     from .fake.environment import Environment, reset_pod_counter
     from .models.encoding import encode_snapshot
     from .ops.topo import build_topo_encoding
@@ -1201,7 +1247,9 @@ def topo_case(name: str, env=None):
     enc = encode_snapshot(snap)
     tenc = build_topo_encoding(enc, snap, [])
     arrays, rows, stt = topo_arrays(enc, tenc)
-    b = TOPO_BUCKET
+    b = dict(TOPO_BUCKET)
+    if counters:
+        b.update(GZp=counters, GHp=counters)
     assert len(arrays["n"]) <= b["Gp"] and stt["P"] <= b["Pp"] \
         and stt["GZ"] <= b["GZp"] and stt["GH"] <= b["GHp"], name
     arrays = {k: _pad_axes(a, {0: b["Gp"]} if k in _G_ARRAYS else {})
@@ -1212,8 +1260,21 @@ def topo_case(name: str, env=None):
     rows = {k: _pad_axes(a, {0: b["Gp"], 1: cols.get(k[:2], a.shape[-1])},
                          _ROW_FILL.get(k, 0))
             for k, a in rows.items()}
+    if name in TOPO_FLIPPED:
+        rows = {k: _flip_counters(k, a, b) for k, a in rows.items()}
     return arrays, rows, dict(stt, P=b["Pp"], GZ=b["GZp"], GH=b["GHp"],
-                              n_max=TOPO_N_MAX)
+                              n_max=TOPO_N_MAX_OF.get(name, TOPO_N_MAX))
+
+
+def _flip_counters(k, a, b):
+    """Row ``k`` of a kernel case with its counter axis reversed: counter
+    r becomes (padded size - 1 - r)."""
+    if k in ("member_z", "member_h"):
+        size = b["GZp"] if k == "member_z" else b["GHp"]
+        return np.where(a >= 0, size - 1 - a, a).astype(a.dtype)
+    if a.ndim == 2 and k[:3] in ("zs_", "za_", "hs_", "ha_"):
+        return np.ascontiguousarray(a[:, ::-1])
+    return a
 
 
 #: the kernel cases' re-padding to TOPO_BUCKET: the arrays with a group

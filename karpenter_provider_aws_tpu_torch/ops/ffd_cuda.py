@@ -159,6 +159,7 @@ def _lib():
             for fn in (lib.karp_topo_group_start, lib.karp_topo_pour,
                        lib.karp_topo_record_plain):
                 fn.argtypes = [vp, vp, ll, vp]
+            lib.karp_topo_pour_smem.argtypes = [vp, vp, vp, vp]
             for fn in (lib.karp_ffd_fused_headroom,
                        lib.karp_ffd_fused_commit):
                 fn.argtypes = [vp, ll, vp]
@@ -178,7 +179,7 @@ def _lib():
                        lib.karp_ffd_pruned_commit,
                        lib.karp_ffd_pruned_cluster, lib.karp_topo_group_start,
                        lib.karp_topo_pour, lib.karp_topo_record_plain,
-                       lib.karp_ffd_fused_headroom,
+                       lib.karp_topo_pour_smem, lib.karp_ffd_fused_headroom,
                        lib.karp_ffd_fused_commit, lib.karp_ffd_fused_cluster,
                        lib.karp_mesh_new_caps,
                        lib.karp_mesh_slot_headroom, lib.karp_mesh_fill,

@@ -10,14 +10,18 @@ Nothing here falls back to the plain versions in ``ops/topo_torch.py``.
 - ``topo_group_start``: a topology group's candidates, per-slot room and
   per-pool statics of opening a node;
 - ``topo_pour``: the group's whole event loop and its group-end
-  narrowing, in one block;
+  narrowing, in one block; its shared memory holds the counter rows a
+  group lists (``listed_rows``), sized by the most any topology group
+  lists, and a layout past the card's shared memory (or more than 64
+  zones) raises ``TopoLayoutError``;
 - ``topo_record_plain``: the membership counters after a group without
   topology ran the K2 kernels.
 
 ``solve_scan_topo_cuda`` drives one scan: the K2 ``ScanState`` and the
 ``TopoScanState`` share one carry on the device, which every kernel updates
 in place; per group two or three launches under one guard of the
-state's device, no synchronisation.
+state's device, no synchronisation after the one read of ``has_topo``
+and the listed rows' counts.
 """
 
 from __future__ import annotations
@@ -28,14 +32,14 @@ import torch
 
 from .ffd_cuda import (LAUNCHES, ScanState, _launch, _lib, _need,
                        ffd_group_commit, ffd_slot_headroom, launching)
-from .ffd_torch import KernelInputs, carry0
+from .ffd_torch import BIG, KernelInputs, carry0
 from .topo_torch import TopoGroupRows, empty_events
 
 _ROW_FIELDS = ("has_topo", "zone_needed", "min_mask", "zs_any", "zs_skew",
                "hs_any", "hs_skew", "za_any", "za_anti", "za_own", "ha_any",
                "ha_anti", "ha_own", "member_z", "member_h")
 _PTR_FIELDS = _ROW_FIELDS + (
-    "cz", "ch", "zfix", "take", "rem", "ok", "keep", "cand_new", "hr_new",
+    "cz", "ch", "zfix", "take", "rem", "und", "cand_new", "hr_new",
     "open_ok0", "availz_p", "cap_pz", "cap_any", "zcand_pz", "anti_bulk",
     "ev_slot", "ev_zone", "ev_len", "ev_kind", "ev_aux", "ev_n", "bail")
 
@@ -44,7 +48,30 @@ class _TopoArgs(ctypes.Structure):
     """Mirror of ``struct TopoArgs`` in csrc/topo.cu (8-byte fields)."""
     _fields_ = ([(f, ctypes.c_void_p) for f in _PTR_FIELDS]
                 + [(f, ctypes.c_longlong) for f in ("GZ", "GH", "EVCAP",
-                                                    "PMAX")])
+                                                    "PMAX", "NZ", "NH")])
+
+
+#: ``kLayoutTooLarge``: the pour's entry refuses a layout past the card's
+#: shared memory for one block, or more than 64 zones
+_LAYOUT_TOO_LARGE = -1
+
+
+class TopoLayoutError(ValueError):
+    """The pour's shared-memory layout does not fit one block of the
+    card (or the shape has more than 64 zones)."""
+
+
+def listed_rows(rows: TopoGroupRows):
+    """[G] the zone and the hostname counter rows each group's pour lists
+    (an enforced skew, an affinity term, a spread record or the
+    membership row): the rows the pour's shared memory holds."""
+    GZ, GH = rows.zs_any.shape[1], rows.hs_any.shape[1]
+    dev = rows.zs_any.device
+    mz = rows.member_z.long()[:, None] == torch.arange(GZ, device=dev)
+    mh = rows.member_h.long()[:, None] == torch.arange(GH, device=dev)
+    nz = ((rows.zs_skew < BIG) | rows.za_any | rows.zs_any | mz).sum(1)
+    nh = ((rows.hs_skew < BIG) | rows.ha_any | rows.hs_any | mh).sum(1)
+    return nz, nh
 
 
 class TopoScanState:
@@ -52,9 +79,13 @@ class TopoScanState:
     ``ScanState`` ``st`` whose carry, candidate scratch, takes and
     leftover it shares: the rows, the counters ``cz`` [GZ, Z], ``ch``
     [GH, N] and ``zfix`` [N] (updated in place), the per-group scratch
-    (``take``, ``rem``, ``ok``, ``keep``), the group-start statics, the
-    event log ``ev`` (``[G, EVCAP]`` rows at their fill values, ``n``
-    [G]) and ``bail`` [G], plus the ctypes argument block."""
+    (``take``, ``rem``, the pour's undecided words ``und``), the
+    group-start statics, the event log ``ev`` (``[G, EVCAP]`` rows at
+    their fill values, ``n`` [G]) and ``bail`` [G], plus the ctypes
+    argument block. ``nz`` / ``nh``: the most zone / hostname rows a
+    topology group lists (``listed_rows``), which size the pour's shared
+    memory; ``has_topo``: the rows' flags as a list (one read of the
+    device for both)."""
 
     def __init__(self, st: ScanState, rows: TopoGroupRows, cz, ch, zfix, *,
                  EVCAP: int, PMAX: int):
@@ -88,8 +119,8 @@ class TopoScanState:
         self.cz, self.ch, self.zfix = cz, ch, zfix
         self.take = torch.empty(N, dtype=i64, device=dev)
         self.rem = torch.empty(N, dtype=i64, device=dev)
-        self.ok = torch.empty(N, dtype=b, device=dev)
-        self.keep = torch.empty(T, dtype=b, device=dev)
+        self.und = torch.empty(2 * (-(-N // 32)), dtype=torch.int32,
+                               device=dev)
         self.cand_new = torch.empty((P, T), dtype=b, device=dev)
         self.hr_new = torch.empty((P, T), dtype=i64, device=dev)
         self.open_ok0 = torch.empty(P, dtype=b, device=dev)
@@ -109,13 +140,21 @@ class TopoScanState:
             else:
                 t = getattr(self, f)
             ptrs[f] = t.data_ptr() if t.numel() else None
-        self.args = _TopoArgs(**ptrs, GZ=GZ, GH=GH, EVCAP=EVCAP, PMAX=PMAX)
+        topo = rows.has_topo
+        nz, nh = (torch.cat([c.new_zeros(1), torch.where(topo, c, 0)]).max()
+                  for c in listed_rows(rows))
+        head = torch.cat([torch.stack([nz, nh]), topo.long()]).tolist()
+        self.nz, self.nh = head[:2]
+        self.has_topo = [bool(x) for x in head[2:]]
+        self.args = _TopoArgs(**ptrs, GZ=GZ, GH=GH, EVCAP=EVCAP, PMAX=PMAX,
+                              NZ=self.nz, NH=self.nh)
 
 
-def _topo_launch(name: str, ts: TopoScanState, g: int, stream) -> None:
+def _topo_launch(name: str, ts: TopoScanState, g: int, stream,
+                 entry=None) -> None:
     if not 0 <= g < ts.st.s1:
         raise ValueError(f"group {g} outside [0, {ts.st.s1})")
-    _launch(name, getattr(_lib(), f"karp_{name}"),
+    _launch(name, entry or getattr(_lib(), f"karp_{name}"),
             (ctypes.byref(ts.st.args), ctypes.byref(ts.args), g), ts.take,
             stream)
 
@@ -131,8 +170,25 @@ def topo_pour(ts: TopoScanState, g: int, stream: int = None) -> None:
     """Topology group g's event loop and narrowing from its group-start
     state: updates the carry and counters in place and writes
     ``st.takes[g]``, ``st.leftover[g]``, the group's event-log row,
-    ``ev["n"][g]`` and ``bail[g]`` (kernel)."""
-    _topo_launch("topo_pour", ts, g, stream)
+    ``ev["n"][g]`` and ``bail[g]`` (kernel). Raises TopoLayoutError,
+    launching nothing, when the listed rows' layout exceeds the card's
+    shared memory for one block or the shape has more than 64 zones."""
+
+    def entry(a, t, g, stream):
+        err = _lib().karp_topo_pour(a, t, g, stream)
+        if err == _LAYOUT_TOO_LARGE:
+            nbytes, limit = ctypes.c_longlong(), ctypes.c_longlong()
+            _lib().karp_topo_pour_smem(a, t, ctypes.byref(nbytes),
+                                       ctypes.byref(limit))
+            inp = ts.st.inp
+            raise TopoLayoutError(
+                f"the pour's layout takes {nbytes.value} bytes of shared "
+                f"memory for {ts.nz} zone and {ts.nh} hostname rows at "
+                f"Z={inp.agz.shape[1]}, D={inp.A.shape[1]}; one block of "
+                f"the card holds {limit.value}, and at most 64 zones")
+        return err
+
+    _topo_launch("topo_pour", ts, g, stream, entry)
 
 
 def topo_record_plain(ts: TopoScanState, g: int, stream: int = None) -> None:
@@ -148,7 +204,7 @@ def topo_state(inp: KernelInputs, rows: TopoGroupRows, cz0, ch0, *,
     st = ScanState(inp, carry0(inp, n_max, 0), E=0, P=P)
     zfix = torch.full((n_max,), -1, dtype=torch.int32, device=inp.A.device)
     return TopoScanState(st, rows, cz0.clone(), ch0.clone(), zfix, EVCAP=EVCAP,
-                     PMAX=PMAX)
+                         PMAX=PMAX)
 
 
 def solve_scan_topo_cuda(inp: KernelInputs, rows: TopoGroupRows, cz0, ch0,
@@ -158,13 +214,13 @@ def solve_scan_topo_cuda(inp: KernelInputs, rows: TopoGroupRows, cz0, ch0,
     ``topo_group_start`` and ``topo_pour``, per other group the K2 pair
     and ``topo_record_plain``. Returns the reference's outputs (takes
     [G, N] i64, leftover, events, zfix, bail, final Carry) on the card.
-    The only synchronisation is reading ``has_topo`` before the first
-    launch."""
+    The only synchronisation is one read of ``has_topo`` and the rows'
+    listed counts (the pour's layout) before the first launch."""
     ts = topo_state(inp, rows, cz0, ch0, n_max=n_max, P=P, EVCAP=EVCAP,
                     PMAX=PMAX)
     st = ts.st
     with launching(ts.take) as stream:
-        for g, topo in enumerate(rows.has_topo.tolist()):
+        for g, topo in enumerate(ts.has_topo):
             if topo:
                 topo_group_start(ts, g, stream)
                 topo_pour(ts, g, stream)

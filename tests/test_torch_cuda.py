@@ -1043,9 +1043,72 @@ def test_topo_kernels_step_by_step(cuda_device, case):
     assert n
 
 
+@pytest.mark.parametrize("evcap", [2, 128])
+@pytest.mark.parametrize("case", ["rows_last", "config3_small"])
+def test_topo_pour_wide_counter_axes(cuda_device, case, evcap):
+    """A kernel case with its counter axes padded to 4,096 rows (past
+    2,048: ``rows_last`` keeps its rows at the last index): every K9
+    kernel equal to its plain part from each group's entry state, and
+    the pour's shared memory that of the case at 8 rows (it follows the
+    rows a group lists, not the padded axes)."""
+    import ctypes
+
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import topo_cuda as tc
+    from karpenter_provider_aws_tpu_torch.ops import topo_torch as tt
+    smem = []
+    for counters in (None, examples.TOPO_WIDE_COUNTERS):
+        arrays, rows_np, st = examples.topo_case(case, counters=counters)
+        inp = ft.kernel_inputs_from_numpy(arrays, cuda_device)
+        rows = tt.topo_rows_from_numpy(rows_np, cuda_device)
+        if counters:
+            assert (st["GZ"], st["GH"]) == (counters, counters)
+            n = 0
+            for kernel, what, got, want in examples.topo_kernel_steps(
+                    inp, rows, n_max=st["n_max"], P=st["P"], EVCAP=evcap):
+                assert got.dtype == want.dtype and torch.equal(got, want), \
+                    (kernel, what)
+                n += 1
+            assert n
+        ts = tc.topo_state(
+            inp, rows, torch.zeros((st["GZ"], st["Z"]), dtype=torch.int64,
+                                   device=cuda_device),
+            torch.zeros((st["GH"], st["n_max"]), dtype=torch.int64,
+                        device=cuda_device),
+            n_max=st["n_max"], P=st["P"], EVCAP=evcap, PMAX=8)
+        nbytes, limit = ctypes.c_longlong(), ctypes.c_longlong()
+        assert fc._lib().karp_topo_pour_smem(
+            ctypes.byref(ts.st.args), ctypes.byref(ts.args),
+            ctypes.byref(nbytes), ctypes.byref(limit)) == 0
+        assert nbytes.value < 16_000 <= limit.value
+        smem.append((ts.nz, ts.nh, nbytes.value))
+    assert smem[0] == smem[1]
+
+
+def test_topo_pour_layout_too_large_raises(cuda_device):
+    """A layout past the card's shared memory for one block (the listed
+    zone rows set past what the host counted) raises TopoLayoutError and
+    launches nothing."""
+    from karpenter_provider_aws_tpu_torch.ops import topo_cuda as tc
+    _, _, st, inp, rows = _topo_inputs("config3_small", cuda_device)
+    ts = tc.topo_state(inp, rows, torch.zeros((st["GZ"], st["Z"]),
+                                              dtype=torch.int64,
+                                              device=cuda_device),
+                       torch.zeros((st["GH"], st["n_max"]),
+                                   dtype=torch.int64, device=cuda_device),
+                       n_max=st["n_max"], P=st["P"], EVCAP=128, PMAX=8)
+    ts.args.NZ = 1 << 16
+    g = ts.has_topo.index(True)
+    before = tc.LAUNCHES["topo_pour"]
+    with pytest.raises(tc.TopoLayoutError):
+        tc.topo_pour(ts, g)
+    assert tc.LAUNCHES["topo_pour"] == before
+
+
 @pytest.mark.parametrize("evcap", [1, 2, 128])
 @pytest.mark.parametrize("case", ["config3_small", "two_pools_limits",
-                                  "anti_budget", "anti_slots"])
+                                  "anti_budget", "anti_slots", "und_first",
+                                  "rows_last", "wide_slots"])
 def test_topo_scan_on_card(cuda_device, case, evcap):
     """The whole scan on the card against the plain scan on the CPU, every
     output, at the reference's EVCAP and at the two bailing ones."""
