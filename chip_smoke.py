@@ -3482,19 +3482,7 @@ def k5_times(states, mix, launches):
             time_launches(lambda: (ft._fused_headroom_ref(
                 inp, carry, g0, Fu, E=E, P=P), ft._fused_table_ref(
                     inp, g0, Fu, P=P)), reps=5),
-            # read once: types, used, zones, ct, pool, alive, the catalog
-            # (A, offerings), each group's F, admit, R, zone/ct masks,
-            # daemon rows and existing-compat row, the pool tables, the
-            # existing allocatable; write: the Fu candidate rows and
-            # headrooms, the Fu x P tables (candn, hrn, caps)
-            N * T + N * D * 8 + N * (Z + C + 5) + T * D * 8 + T * Z * C
-            + Fu * (T + P + D * 8 + Z + C + E + P * D * 8)
-            + P * (T + Z + C) + E * D * 8
-            + Fu * N * T + Fu * N * 8 + Fu * P * (9 * T + 8),
-            # one quotient per (candidate cell, dim), one offering test per
-            # (slot, type, zone, capacity type), per group; the tables' per
-            # (group, pool, type)
-            n_cand * D + Fu * N * T * Z * C + Fu * P * T * (D + Z * C)))
+            *k5_headroom_cost(st, n_cand)))
 
         def setup(restore=restore, cand=cand, k=k):
             restore()
@@ -3545,7 +3533,102 @@ def k5_times(states, mix, launches):
                         bound_ms=b, bound_by=by, library_ms=None,
                         bytes=nbytes, ops=ops))
     del fs
+    for B, fig in k5_batch_headroom_times().items():
+        per_branch[f"ffd_fused_headroom B={B}"] = fig
     return out, per_branch
+
+
+def k5_headroom_cost(st, n_cand, lanes=1):
+    """Bytes and operations of one ``ffd_fused_headroom`` launch at the
+    statics ``st`` (T D Z C E P F n_max) whose block has ``n_cand``
+    candidate cells over its groups and lanes: read once, types, used,
+    zones, ct, pool, alive, the catalog (A, offerings), each group's F,
+    admit, R, zone/ct masks, daemon rows and existing-compat row, the pool
+    tables, the existing allocatable; write the Fu candidate rows and
+    headrooms and the Fu x P tables (candn, hrn, caps); one quotient per
+    (candidate cell, dim), one offering test per (slot, type, zone,
+    capacity type) and group, the tables' per (group, pool, type). Each
+    lane reads and writes its own."""
+    T, D, Z, C, E, P, Fu = (st[k] for k in "T D Z C E P F".split())
+    N = E + st["n_max"]
+    nbytes = (N * T + N * D * 8 + N * (Z + C + 5) + T * D * 8 + T * Z * C
+              + Fu * (T + P + D * 8 + Z + C + E + P * D * 8)
+              + P * (T + Z + C) + E * D * 8
+              + Fu * N * T + Fu * N * 8 + Fu * P * (9 * T + 8))
+    ops = Fu * N * T * Z * C + Fu * P * T * (D + Z * C)
+    return lanes * nbytes, n_cand * D + lanes * ops
+
+
+def k5_batch_headroom_times(sizes=BATCH_SIZES, blocks=4, n_sigs=96):
+    """``ffd_fused_headroom`` at the batch cells' shapes (B lanes of
+    ``examples.batch_snapshots``: 96 signatures of 4 pods, three pools,
+    Gp = 128, F = 4): its time at the first ``blocks`` block starts, each
+    from every lane's plain block-start carry (the plain blocks chained
+    on the card), beside the plain headroom part over the B lanes and the
+    bound (``k5_headroom_cost``). Returns {B: figures}, means over the
+    blocks."""
+    import numpy as np
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    out = {}
+    for B in sizes:
+        fenv.reset_pod_counter()
+        snaps = examples.batch_snapshots(fenv.Environment(), batch=B,
+                                         n_sigs=n_sigs)
+        solver = CUDASolver(incremental=False)
+        calls = []
+        orig = solver._dispatch_many
+
+        def spy(bufs, orig=orig, calls=calls, **statics):
+            calls.append((bufs, statics))
+            return orig(bufs, **statics)
+        solver._dispatch_many = spy
+        solver.solve_batch(snaps)
+        bufs, st = calls[-1]
+        T, D, Z, C, G, E, P, Fu = (st[k] for k in "T D Z C G E P F".split())
+        N = E + st["n_max"]
+        d_bufs = torch.from_numpy(np.stack(bufs)).to("cuda")
+        per = [ft._packed_inputs_ref(d_bufs[b], T, D, Z, C, G, E, P, 0, 0,
+                                     0, Fu) for b in range(B)]
+        inp = ft.KernelInputs(*[None if f[0] is None else torch.stack(f)
+                                for f in zip(*per)])
+        carries = [ft.carry0(x, N, E) for x in per]
+        indep = [ft.block_indep(x.fuse, Fu).tolist() for x in per]
+        fs = fc.FusedState(inp, ft.carry0(inp, N, E, lanes=B), E=E, P=P,
+                           Fu=Fu, lanes=B)
+        rows = []
+        for g0 in range(0, blocks * Fu, Fu):
+            entry = [ft.Carry(*[t.clone() for t in c]) for c in carries]
+
+            def restore(entry=entry):
+                for b, c in enumerate(entry):
+                    for dst, src in zip(fs.carry, c):
+                        dst[b].copy_(src)
+            n_cand = sum(int(ft._fused_headroom_ref(
+                x, c, g0, Fu, E=E, P=P)[0].sum())
+                for x, c in zip(per, entry))
+            ms = time_launches(lambda: fc.ffd_fused_headroom(fs, g0),
+                               setup=restore)
+            pms = time_launches(lambda: [(ft._fused_headroom_ref(
+                x, c, g0, Fu, E=E, P=P), ft._fused_table_ref(
+                    x, g0, Fu, P=P)) for x, c in zip(per, entry)], reps=2)
+            rows.append((ms, pms, *k5_headroom_cost(st, n_cand, lanes=B)))
+            for b, x in enumerate(per):
+                tab = ft._fused_table_ref(x, g0, Fu, P=P)
+                carries[b] = ft._fused_block_ref(
+                    x, carries[b], g0, Fu, indep[b][g0 // Fu], tab, E=E,
+                    P=P)[0]
+        ms, pms, nbytes, ops = (statistics.fmean(r[i] for r in rows)
+                                for i in range(4))
+        out[B] = dict(us=ms * 1e3, plain_us=pms * 1e3,
+                      bound_us=bound_ms(nbytes, ops)[0] * 1e3, bytes=nbytes,
+                      ops=ops, blocks=blocks, N=N, T=T, P=P)
+        del fs
+    return out
 
 
 def k8_time(tables):
@@ -3712,6 +3795,7 @@ def k10_times(kept, launches):
         cells[name]["fill_phases_ms"] = {nm: v[0] for nm, v in phases.items()}
         cells[name]["shape"] = dict(T=Tl, N=Nl, G=G, P=P, step=g,
                                     commit=commit_shape(st))
+    cells["fill_shapes_us"] = fill_shape_times()
     recs = []
     for k in ("mesh_new_caps", "mesh_slot_headroom", "mesh_fill",
               "mesh_commit"):
@@ -3719,6 +3803,36 @@ def k10_times(kept, launches):
         recs.append(dict(name=k, route="cuda", **KERNELS[k],
                          launches=launches[k], library_ms=None, **r))
     return recs, cells
+
+
+def fill_shape_times():
+    """``mesh_fill`` at ``examples.FILL_SHAPES`` (the rank's rows of the
+    tp cell, the dp2 cell, K11's 2 x 2 shard and the world-1 ceiling, at
+    one pool and at eight with limits; K11's first shard with its 128
+    existing rows): each phase (a, b, c) and the
+    one-launch fill, microseconds a launch from the same entry state
+    (``examples.fill_state``, the small earlier-shard prefixes), and the
+    CTA's threads (``mesh_cuda.fill_threads``; 1,024 in a checkout
+    without the rule)."""
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    out = {}
+    for nl, P, E in examples.FILL_SHAPES:
+        st, g = examples.fill_state(nl, P, seed=nl + P, before="small", E=E,
+                                    device="cuda")
+        saved = {k: t.clone() for k, t in st.buffers().items()}
+
+        def restore(st=st, saved=saved):
+            for k, t in st.buffers().items():
+                t.copy_(saved[k])
+        row = {nm: time_launches(lambda ph=ph: mc.mesh_fill(st, g, ph),
+                                 setup=restore) * 1e3
+               for ph, nm in ((mc.PHASE_A, "a"), (mc.PHASE_B, "b"),
+                              (mc.PHASE_C, "c"), (mc.PHASE_ALL, "all"))}
+        row["threads"] = mc.fill_threads(nl) \
+            if hasattr(mc, "fill_threads") else 1024
+        out[f"{nl}x{P}" + (f"e{E}" if E else "")] = row
+    return out
 
 
 def k11_times(kept, launches):

@@ -19,11 +19,17 @@ launches a step, 64 steps) enqueued on the card (the host's time a step
 and the card's span) and behind a sleep kernel (the host alone, as
 ``chip_smoke.py`` phase 8 takes it for config 7); then, with no process
 group in this process, the ceiling on 2 hosts x 2 gloo ranks sharing the
-card (``MeshGroup``): its full tick and patch ticks. Prints one line
-``AB <tag> {json}``. To compare two builds, run it on both checkouts in
-one call to the card, in the order P N N P:
+card (``MeshGroup``): its full tick and patch ticks. ``k10_times`` also
+times each ``mesh_fill`` phase (a, b, c and the one-launch fill) at
+``examples.FILL_SHAPES`` (Nl = 256, 512, 2,112 and 4,224 rows, one pool
+and eight with limits; ``fill_shapes_us``). A third argument cuts the
+run to some of ``PARTS`` (``fill``: those fill times alone; ``k11``:
+K11's step alone). Prints one line ``AB <tag> {json}``. To compare two
+builds, run it on both checkouts in one call to the card, in the order
+P N N P:
 
     for v in p n n p; do python3 hack/k10_ab.py path/to/$v $v; done
+    for v in p n n p; do python3 hack/k10_ab.py path/to/$v $v fill,k11; done
 """
 import datetime
 import importlib.util
@@ -38,6 +44,12 @@ import time
 #: one warm-up; windows of the host-alone enqueue
 ROUNDS = 5
 HOST_REPS = 5
+
+#: what a run can be cut to (a third argument, comma-separated): the mesh
+#: cells with everything at world 1 and on 2 x 2 gloo ranks (the K10
+#: kernels at each cell, the fill's phases at ``examples.FILL_SHAPES``
+#: among them), K11's step alone, the fill's shapes alone
+PARTS = {"cells", "k11", "fill"}
 
 
 def main() -> int:
@@ -58,7 +70,20 @@ def main() -> int:
                            f"from {root}")
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
+    parts = set(sys.argv[3].split(",")) if len(sys.argv) > 3 else PARTS
+    if parts - PARTS:
+        raise ValueError(f"unknown parts {sorted(parts - PARTS)}; of "
+                         f"{sorted(PARTS)}")
+    here_examples(here)
     out = dict(card=cs.smi_line())
+    if "fill" in parts and "cells" not in parts:
+        out["fill_shapes_us"] = cs.fill_shape_times()
+    if "k11" in parts and "cells" not in parts:
+        _, out["k11"] = cs.k11_times(ceiling_slab(),
+                                     dict.fromkeys(cs.KERNELS, 0))
+    if "cells" not in parts:
+        print("AB", tag, json.dumps(out), flush=True)
+        return 0
     tmp = tempfile.mkdtemp(prefix="karp_k10ab_")
     dist.init_process_group(
         "nccl", init_method=f"file://{os.path.join(tmp, 'rdzv')}",
@@ -78,6 +103,24 @@ def main() -> int:
     out["ceiling_2x2"] = ceiling_2x2(cs)
     print("AB", tag, json.dumps(out), flush=True)
     return 0
+
+
+def here_examples(here):
+    """Give an older checkout's ``examples`` this tree's fill states
+    (``fill_state``, ``FILL_SHAPES``), which build a ``MeshState`` through
+    interfaces both trees have: this tree's examples.py loaded as a module
+    of the checkout's package."""
+    import importlib.util
+    from karpenter_provider_aws_tpu_torch import examples
+    if hasattr(examples, "fill_state"):
+        return
+    spec = importlib.util.spec_from_file_location(
+        "karpenter_provider_aws_tpu_torch._here_examples",
+        os.path.join(here, "karpenter_provider_aws_tpu_torch", "examples.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    examples.fill_state, examples.FILL_SHAPES = mod.fill_state, \
+        mod.FILL_SHAPES
 
 
 def mesh_cells(cs):

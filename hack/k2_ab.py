@@ -13,13 +13,17 @@ scan (K5, whose commit runs the same ``csrc/ffd_cluster.cuh``): ten
 solves after one warm-up, decisions held to the unfused solve's, one
 packed solve's device ms, and both K5 kernels by branch at four
 vectorized and four sequential blocks (``k5_times``, each block first
-held against the plain parts by ``check_fused_blocks``). Prints one line
-``AB <tag> {json}``: microseconds a launch at each shape, the rounds' and
-the striped solve's p50 and median split in ms, config 2's p50. To
-compare two builds, run it on both checkouts in one call to the card, in
-the order P N N P:
+held against the plain parts by ``check_fused_blocks``), the K5 headroom
+also at the batch cells' B = 8 and 64 lanes (``k5_batch_headroom_times``,
+``ffd_fused_headroom B=8`` / ``B=64`` under ``striped.us``). A third
+argument cuts the run to some of ``PARTS`` (``striped``: the K5 part
+alone). Prints one line ``AB <tag> {json}``: microseconds a launch at
+each shape, the rounds' and the striped solve's p50 and median split in
+ms, config 2's p50. To compare two builds, run it on both checkouts in
+one call to the card, in the order P N N P:
 
     for v in p n n p; do python3 hack/k2_ab.py path/to/$v $v; done
+    for v in p n n p; do python3 hack/k2_ab.py path/to/$v $v striped; done
 """
 import importlib.util
 import json
@@ -27,6 +31,10 @@ import os
 import statistics
 import sys
 import time
+
+#: what a run can be cut to (a third argument, comma-separated): config 2
+#: and config 4's rounds on K2, the striped cluster and batches on K5
+PARTS = {"k2", "striped"}
 
 
 def main() -> int:
@@ -60,6 +68,15 @@ def main() -> int:
         raise RuntimeError("needs a CUDA card")
     dev = torch.device("cuda")
     out = dict(card=cs.smi_line())
+    parts = set(sys.argv[3].split(",")) if len(sys.argv) > 3 else PARTS
+    if parts - PARTS:
+        raise ValueError(f"unknown parts {sorted(parts - PARTS)}; of "
+                         f"{sorted(PARTS)}")
+    if "striped" in parts:
+        out["striped"] = striped(cs, dev, cs.Compare())
+    if "k2" not in parts:
+        print("AB", tag, json.dumps(out), flush=True)
+        return 0
 
     # config 2: solves, then both kernels at each group's entry carry
     fenv.reset_pod_counter()
@@ -132,7 +149,6 @@ def main() -> int:
                       for k in ("ffd_slot_headroom", "ffd_group_commit")})
         del cap, sub, ev
         torch.cuda.empty_cache()
-    out["striped"] = striped(cs, dev, cmp)
     print("AB", tag, json.dumps(out), flush=True)
     return 0
 

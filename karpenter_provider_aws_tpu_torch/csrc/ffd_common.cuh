@@ -138,6 +138,20 @@ __device__ __forceinline__ i64 floordiv(i64 a, i64 b) {
     return q;
 }
 
+// floordiv(a, b) for b > 0 by an fp64 quotient and one int64 correction
+// where |a| and b are below 2^52 (the rounded quotient is then within one
+// of the floor, which the remainder's sign and size fix); the integer
+// division otherwise. Exact either way.
+__device__ __forceinline__ i64 floordiv_fp(i64 a, i64 b) {
+    constexpr i64 kLim = 1LL << 52;
+    if (a <= -kLim || a >= kLim || b >= kLim) return floordiv(a, b);
+    i64 q = (i64)floor((double)a / (double)b);
+    const i64 r = a - q * b;
+    q -= r < 0;
+    q += r >= b;
+    return q;
+}
+
 // ceil(a / b) for b > 0, as the reference's -(-a // b)
 __device__ __forceinline__ i64 ceildiv(i64 a, i64 b) {
     return -floordiv(-a, b);

@@ -207,12 +207,9 @@ inline RowLayout k2_layout(i64 L, i64 N) {
 // Step 4 of group g on one block: the pool-limit caps over each pool's
 // slot prefix; k[s] of a capped pool's slot becomes its capped value.
 // Reads the carry's pool and pool_used as they stand. Each thread owns the
-// slot chunk [lo, hi). `before` (nullable) holds, per pool, the sum of k
-// over the slots ahead of this block's (a slot-sharded mesh's earlier
-// shards, parallel/mesh.py); null means none.
+// slot chunk [lo, hi).
 __device__ __forceinline__ void commit_pool_caps(const FfdArgs& a, i64 g,
-                                                 i64 lo, i64 hi, i64* tmp,
-                                                 const i64* before = nullptr) {
+                                                 i64 lo, i64 hi, i64* tmp) {
     const i64 D = a.D, P = a.P;
     const i64* R = a.R + g * D;
     for (i64 pi = 0; pi < P; ++pi) {
@@ -226,7 +223,6 @@ __device__ __forceinline__ void commit_pool_caps(const FfdArgs& a, i64 g,
             if (a.pool[s] == pi) local = wadd(local, a.k[s]);
         i64 tot;
         i64 cum = block_excl_scan(local, tmp, &tot);
-        if (before) cum = wadd(cum, before[pi]);
         for (i64 s = lo; s < hi; ++s) {
             if (a.pool[s] != pi) continue;
             i64 kp = a.k[s];
@@ -240,16 +236,14 @@ __device__ __forceinline__ void commit_pool_caps(const FfdArgs& a, i64 g,
 }
 
 // Step 5 of group g on one block: the greedy prefix fill; k[s] becomes
-// take[s]. `before` is the sum of k over the slots ahead of this block's
-// (0 on one device). Returns the block's total take to every thread.
+// take[s]. Returns the block's total take to every thread.
 __device__ __forceinline__ i64 commit_greedy(const FfdArgs& a, i64 g, i64 lo,
-                                             i64 hi, i64* tmp,
-                                             i64 before = 0) {
+                                             i64 hi, i64* tmp) {
     const i64 n_rem = a.n[g];
     i64 local = 0;
     for (i64 s = lo; s < hi; ++s) local = wadd(local, a.k[s]);
     i64 tot;
-    i64 cum = wadd(block_excl_scan(local, tmp, &tot), before);
+    i64 cum = block_excl_scan(local, tmp, &tot);
     i64 tsum = 0;
     for (i64 s = lo; s < hi; ++s) {
         i64 kk = a.k[s];

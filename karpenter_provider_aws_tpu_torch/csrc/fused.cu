@@ -8,15 +8,23 @@
 // for the whole scan; the host enqueues 2*G/Fu launches on one stream
 // with no synchronisation in between and reads nothing back per block.
 //
-// ffd_fused_headroom (steps 1-3 of the block's Fu groups): one block of
-//   256 threads per (group of the block, slot), grid x = Fu*N, the lane
-//   on grid y and z (lane_grid). Every group reads the BLOCK-START carry;
-//   the body is ffd_slot_headroom's (ffd_step.cuh slot_headroom_block)
-//   with the group's own cand [N, T] and k [N] rows (group_view).
-//   Fu*P*table_blocks(T) more blocks write the new-node table of each
-//   (group, pool), a chunk of 256 types each (ffd_step.cuh
-//   new_node_table_block: candn/hrn [Fu, P, T], the partial caps capn),
-//   which reads no carry.
+// ffd_fused_headroom (steps 1-3 of the block's Fu groups): one CTA of 256
+//   threads per slot covering all Fu groups, grid x = N, the lane on grid
+//   y and z (lane_grid). Every group reads the BLOCK-START carry. The
+//   slot's pool, used row and types row are read once for the block
+//   (fused_slot_headroom), its lane's arguments copied once into shared
+//   memory: a group that does not take the slot's pool has its candidate
+//   row zeroed by 16-byte stores and no type loop; the groups that do
+//   share one pass over the types, each type's offering bits and
+//   allocatable row loaded once, each group with its own F row, zone x
+//   capacity-type mask, request row, candidate row and k (cand [Fu*N, T],
+//   k [Fu*N]); four groups a pass. Fu*P*table_blocks(T) more blocks write
+//   the new-node table of each (group, pool), a chunk of 256 types each
+//   (ffd_step.cuh new_node_table_block: candn/hrn [Fu, P, T], the partial
+//   caps capn), which reads no carry. At the striped
+//   shape (Fu = 4, N = 256, P = 8, T = 812) that is 256 + 128 blocks, one
+//   wave, where a CTA per (group, slot) takes 1,152 blocks (more than a
+//   wave), each re-reading the slot's rows.
 //
 // ffd_fused_commit (the block): one thread-block cluster of CS CTAs of
 //   512 threads per lane (grid x = CS, the lane on grid y and z by
@@ -62,8 +70,10 @@
 //   refused launch returns its error; nothing retries at another size.
 //
 // What bounds them on this card: like K2 (ffd_scan.cu), latency, not
-//   bytes or operations. The headroom launch is one wave of Fu*N +
-//   Fu*P*table_blocks(T) blocks; the commit walks about five cluster
+//   bytes or operations. The headroom launch is one wave of N +
+//   Fu*P*table_blocks(T) blocks; a slot's CTA waits at one barrier, two
+//   when some group takes its pool, and a type's loads go out together
+//   (PERF.md has its stamps); the commit walks about five cluster
 //   barriers a group, each CTA starting its loads before its stores, and a
 //   sequential lane's recomputed N x T headroom passes spread over the
 //   cluster's SMs. The design buys 2*G/Fu launches per solve in place of
@@ -95,15 +105,222 @@ constexpr int kHeadroomThreads = 256;
 constexpr int kCommitThreads = 512;
 constexpr int kFillW = 4;   // greedy scan components: a block's Fu groups
 
-__global__ void __launch_bounds__(kHeadroomThreads)
-ffd_fused_headroom_kernel(FusedArgs args, i64 g0) {
-    __shared__ i64 red[33];
+// Groups of a block whose headroom one pass over a slot's types covers
+// (the fused scan packs F = 4; a wider block takes several passes).
+constexpr int kHeadGroups = 4;
+
+// Widest request row the slot CTA stages in shared memory (its quotients
+// then read a type's allocatable row from registers); wider rows read
+// the global rows.
+constexpr int kHeadDims = 8;
+
+// Read-only loads issued where they are written (volatile): left to
+// itself the compiler sank a type's loads next to their uses, so each
+// waited for the one before it.
+__device__ __forceinline__ unsigned ld_pin_u8(const u8* p) {
+    unsigned v;
+    asm volatile("ld.global.nc.u8 %0, [%1];" : "=r"(v) : "l"(p));
+    return v;
+}
+__device__ __forceinline__ unsigned ld_pin_u32(const unsigned* p) {
+    unsigned v;
+    asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(p));
+    return v;
+}
+__device__ __forceinline__ i64 ld_pin_i64(const i64* p) {
+    i64 v;
+    asm volatile("ld.global.nc.s64 %0, [%1];" : "=l"(v) : "l"(p));
+    return v;
+}
+
+// Most zone x capacity-type pairs the slot CTA tests as bit masks (Z*C a
+// multiple of 4, four a load); other shapes take offering_ok.
+constexpr int kHeadPairs = 32;
+
+// The offering bits of one type's row of avail_zc (bit z*C + c), a
+// 4-byte-aligned row of ZC <= kHeadPairs bytes: its words loaded at once.
+__device__ __forceinline__ u64 offer_bits(const u8* row, i64 ZC) {
+    const unsigned* w = reinterpret_cast<const unsigned*>(row);
+    unsigned v[kHeadPairs / 4];
+#pragma unroll
+    for (int i = 0; i < kHeadPairs / 4; ++i)
+        v[i] = 4 * i < ZC ? ld_pin_u32(&w[i]) : 0u;
+    u64 m = 0;
+#pragma unroll
+    for (int i = 0; i < kHeadPairs / 4; ++i) {
+        const unsigned b = __vcmpne4(v[i], 0u);   // 0xff a nonzero byte
+        m |= (u64)((b & 1u) | ((b >> 7) & 2u) | ((b >> 14) & 4u)
+                   | ((b >> 21) & 8u)) << (4 * i);
+    }
+    return m;
+}
+
+// headroom() of an allocatable row held in registers (av [D], D <=
+// kHeadDims) over a used row u and a request row r in shared memory, its
+// quotients in fp64 with one int64 correction (floordiv_fp: the type
+// loop's 64-bit divisions were most of a candidate type's time).
+__device__ __forceinline__ i64 head_staged(const i64 (&av)[kHeadDims],
+                                           const i64* u, const i64* r,
+                                           i64 D) {
+    i64 m = KARP_BIG;
+#pragma unroll
+    for (int d = 0; d < kHeadDims; ++d) {
+        if (d >= D || r[d] <= 0) continue;
+        const i64 q = floordiv_fp(wsub(av[d], u[d]), r[d]);
+        m = q < m ? q : m;
+    }
+    return m < 0 ? 0 : m;
+}
+
+// Steps 1-3 of the groups g0 .. g0+nf-1 (nf <= kHeadGroups; group i's
+// rows at cand + ((i0 + i)*N + s)*T and k[(i0 + i)*N + s]) for
+// slot s on one CTA, from the carry as it stands, with no minValues
+// floors (K == 0). The slot's pool, used, zones, capacity types and
+// types rows are read once for all the groups, by few threads before one
+// barrier (every CTA of the launch starts at once, and they all read the
+// groups' rows): thread i tests group i's admission of the slot's pool,
+// warp 0 builds each group's zone x capacity-type mask of the slot (bits
+// z*C + c, by ballot) and warp 1 stages the used row and the groups'
+// request rows in shared memory. A group that does not take the slot's
+// pool (a free slot, an existing node, a pool it does not admit) has its
+// candidate row zeroed by a warp's 16-byte stores and skips the type
+// loop; the others share it, each type's loads (its types byte, its
+// allocatable row, its offering bits) issued at once and used for each
+// taking group with its F byte (offering_ok past the masks' shapes, the
+// global rows when D > kHeadDims). One W-wide block max gives each
+// group's k; an existing row takes its allocatable's headroom under each
+// group's compatibility instead. `red` holds (32 + blockDim.x) *
+// kHeadGroups shared entries, `zcm` and `sadm` kHeadGroups, `su`
+// kHeadDims, `sr` kHeadGroups * kHeadDims.
+__device__ __forceinline__ void fused_slot_headroom(const FfdArgs& a, i64 g0,
+                                                    i64 i0, int nf, i64 s,
+                                                    i64* red, u64* zcm,
+                                                    i64* su, i64* sr,
+                                                    u8* sadm) {
+    const i64 T = a.T, D = a.D, P = a.P, N = a.N, Z = a.Z, C = a.C;
+    u8* cand = a.cand + i0 * N * T;         // the groups' rows from i0
+    i64* kr = a.k + i0 * N;
+    const i64 ZC = Z * C;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int nwarps = blockDim.x >> 5;
+    const bool masks = ZC <= kHeadPairs && (ZC & 3) == 0
+        && ((size_t)a.avail_zc & 3) == 0;
+    const bool staged = D <= kHeadDims;
+    if (tid < nf) {                         // group tid's admission
+        const int pool = a.pool[s];
+        const i64 pc = pool < 0 ? 0 : (pool > P - 1 ? P - 1 : pool);
+        sadm[tid] = pool >= 0 && a.admit[(g0 + tid) * P + pc];
+    }
+    bool exo = false;                       // an existing row, compatible
+    i64 ev[kHeadDims];
+    if (tid < nf && s < a.E) {
+        exo = a.alive[s] && a.ex_compat[(g0 + tid) * a.E + s];
+#pragma unroll
+        for (int d = 0; d < kHeadDims; ++d)
+            ev[d] = d < D ? a.ex_alloc[s * D + d] : 0;
+    }
+    if (warp == 0 && masks) {
+        const int z = lane / (int)C, c = lane - z * (int)C;  // bit lane
+        const bool on = lane < ZC;
+        const u8 slot = on ? (u8)(a.zones[s * Z + z] & a.ct[s * C + c])
+                           : (u8)0;
+        u8 gb[kHeadGroups];
+#pragma unroll
+        for (int i = 0; i < kHeadGroups; ++i)
+            gb[i] = on && i < nf
+                ? (u8)(a.agz[(g0 + i) * Z + z] & a.agc[(g0 + i) * C + c])
+                : (u8)0;
+#pragma unroll
+        for (int i = 0; i < kHeadGroups; ++i) {
+            const unsigned mk = __ballot_sync(0xffffffffu, slot & gb[i]);
+            if (lane == i && i < nf) zcm[i] = mk;
+        }
+    } else if (warp == 1 && staged) {
+        if (lane < D) su[lane] = a.used[s * D + lane];
+        if (lane < nf * D) {
+            const int i = lane / (int)D, d = lane - i * (int)D;
+            sr[i * kHeadDims + d] = a.R[(g0 + i) * D + d];
+        }
+    }
+    __syncthreads();                        // sadm, zcm, su, sr
+    unsigned adm = 0;                       // bit i: group i takes the pool
+    for (int i = 0; i < nf; ++i) adm |= (unsigned)sadm[i] << i;
+    for (int i = warp; i < nf; i += nwarps)
+        if (!(adm >> i & 1)) zero_bytes_warp(cand + (i * N + s) * T, T);
+    if (adm) {                              // uniform over the CTA
+        // each thread's running maxima by group, in shared memory
+        i64* km = red + kHeadGroups * 32 + tid * kHeadGroups;
+        for (int i = 0; i < nf; ++i) km[i] = 0;
+        for (i64 t = tid; t < T; t += blockDim.x) {
+            const bool ty = ld_pin_u8(&a.types[s * T + t]) != 0;
+            i64 av[kHeadDims];
+#pragma unroll
+            for (int d = 0; d < kHeadDims; ++d)
+                av[d] = staged && d < D ? ld_pin_i64(&a.A[t * D + d]) : 0;
+            const u64 am = masks ? offer_bits(a.avail_zc + t * ZC, ZC) : 0;
+#pragma unroll 1
+            for (int i = 0; i < nf; ++i) {
+                if (!(adm >> i & 1)) continue;
+                const i64 g = g0 + i;
+                const bool c = ty && ld_pin_u8(&a.F[g * T + t])
+                    && (masks ? (am & zcm[i]) != 0 : offering_ok(a, g, s, t));
+                cand[(i * N + s) * T + t] = c;
+                if (c) {
+                    const i64 hr = staged
+                        ? head_staged(av, su, sr + i * kHeadDims, D)
+                        : headroom(a.A + t * D, a.used + s * D, a.R + g * D,
+                                   D);
+                    km[i] = hr > km[i] ? hr : km[i];
+                }
+            }
+        }
+#pragma unroll 1
+        for (int i = 0; i < nf; ++i) {
+            i64 v = km[i];
+            for (int off = 16; off > 0; off >>= 1) {
+                const i64 o = __shfl_xor_sync(0xffffffffu, v, off);
+                v = o > v ? o : v;
+            }
+            if (lane == 0) red[warp * kHeadGroups + i] = v;
+        }
+        __syncthreads();
+    }
+    if (tid < nf) {
+        const i64 g = g0 + tid;
+        i64 k = 0;
+        if (adm >> tid & 1)
+            for (int w = 0; w < nwarps; ++w) {
+                const i64 x = red[w * kHeadGroups + tid];
+                k = x > k ? x : k;
+            }
+        if (s < a.E)
+            k = !exo ? 0 : staged
+                ? head_staged(ev, su, sr + tid * kHeadDims, D)
+                : headroom(a.ex_alloc + s * D, a.used + s * D, a.R + g * D,
+                           D);
+        kr[tid * N + s] = k;
+    }
+}
+
+// Three CTAs an SM at most 85 registers a thread: the striped shape's 384
+// CTAs in one wave of the card's 132 SMs.
+__global__ void __launch_bounds__(kHeadroomThreads, 3)
+ffd_fused_headroom_kernel(const __grid_constant__ FusedArgs args, i64 g0) {
+    __shared__ i64 red[(32 + kHeadroomThreads) * kHeadGroups];
+    __shared__ u64 zcm[kHeadGroups];
+    __shared__ i64 su[kHeadDims], sr[kHeadGroups * kHeadDims];
+    __shared__ u8 sadm[kHeadGroups];
+    __shared__ FfdArgs sa;          // the lane's view, one copy a CTA (a
+                                    // copy a thread sat in local memory,
+                                    // ~1k cycles before the first barrier)
     const unsigned lane = grid_lane();
     if (lane >= args.f.L) return;   // the (y, z) grid's spare lanes
-    const FfdArgs a = lane_view(args.f, lane);
+    lane_view_block(args.f, lane, &sa);
+    __syncthreads();
+    const FfdArgs& a = sa;
     const i64 Fu = args.Fu, N = a.N, P = a.P, T = a.T;
-    if (blockIdx.x >= Fu * N) {     // chunk c of the table of (i, pi)
-        const i64 TB = table_blocks(T), j = blockIdx.x - Fu * N;
+    if (blockIdx.x >= N) {          // chunk c of the table of (i, pi)
+        const i64 TB = table_blocks(T), j = blockIdx.x - N;
         const i64 ip = j / TB, c = j % TB;   // ip = i * P + pi
         i64* capn = (i64*)((unsigned char*)args.capn
                            + lane * args.capn_lane_bytes);
@@ -112,8 +329,12 @@ ffd_fused_headroom_kernel(FusedArgs args, i64 g0) {
                              nullptr);
         return;
     }
-    const i64 i = blockIdx.x / N, s = blockIdx.x % N;
-    slot_headroom_block(group_view(a, i), g0 + i, s, red, nullptr);
+    const i64 s = blockIdx.x;
+    for (i64 i0 = 0; i0 < Fu; i0 += kHeadGroups) {
+        const int nf = (int)(Fu - i0 < kHeadGroups ? Fu - i0 : kHeadGroups);
+        if (i0) __syncthreads();    // the last pass's reads of the staging
+        fused_slot_headroom(a, g0 + i0, i0, nf, s, red, zcm, su, sr, sadm);
+    }
 }
 
 __global__ void __launch_bounds__(kCommitThreads)
@@ -192,6 +413,12 @@ ffd_fused_commit_kernel(FusedArgs args, i64 g0) {
     cl.sync();   // no CTA leaves while another may read its shared memory
 }
 
+// Blocks of ffd_fused_headroom a lane: one a slot, then the new-node
+// table's Fu * P * table_blocks(T) (ops/ffd_cuda.py mirrors it).
+inline i64 fused_headroom_blocks(i64 N, i64 Fu, i64 P, i64 T) {
+    return N + Fu * P * table_blocks(T);
+}
+
 int set_smem(const void* fn, size_t smem) {
     if (smem <= 48 * 1024) return 0;
     return (int)cudaFuncSetAttribute(
@@ -208,12 +435,17 @@ size_t commit_smem(const FusedArgs* a, i64 cs) {
 extern "C" {
 
 int karp_ffd_fused_headroom(const FusedArgs* a, long long g0, void* stream) {
-    dim3 grid((unsigned)(a->Fu * a->f.N
-                         + a->Fu * a->f.P * table_blocks(a->f.T)));
+    dim3 grid((unsigned)fused_headroom_blocks(a->f.N, a->Fu, a->f.P,
+                                              a->f.T));
     lane_grid(a->f.L, &grid);
     ffd_fused_headroom_kernel<<<grid, kHeadroomThreads, 0,
                                 (cudaStream_t)stream>>>(*a, g0);
     return (int)cudaGetLastError();
+}
+
+int karp_ffd_fused_headroom_blocks(long long N, long long Fu, long long P,
+                                   long long T) {
+    return (int)fused_headroom_blocks(N, Fu, P, T);
 }
 
 // The commit's cluster size for L lanes: the largest of 8, 4, 2, 1 whose

@@ -40,17 +40,24 @@
 //   reference's pmax of k (:309). K > 0: one CTA a slot row
 //   (slot_headroom_block), then h1 [Nl, K, V] after k in one buffer, so
 //   the same all_reduce also replaces the pmax of h1 (:319); no table.
-// mesh_fill (per step, one block, `phase`): (a) the existing-row overlay
-//   by global slot id (slots < E, :511-514), the minValues cap of the
-//   reduced h1, and the rank's per-pool sums of k (one dp all_gather of
-//   [P] gives every pool's earlier-shard prefix: the P pool prefixes of
-//   :516-523 sit on disjoint rows and read only the step's starting
-//   pool_used); (b) the pool caps (commit_pool_caps with those prefixes)
-//   and the rank's sum of the capped k (the second dp all_gather); (c)
-//   the greedy fill (commit_greedy) and the rank's [P + 1] take-by-pool
+// mesh_fill (per step, one CTA of fill_threads(Nl) threads, `phase`): (a)
+//   the existing-row overlay by global slot id (slots < E, :511-514), the
+//   minValues cap of the reduced h1, and the rank's per-pool sums of k
+//   (one dp all_gather of [P] gives every pool's earlier-shard prefix:
+//   the P pool prefixes of :516-523 sit on disjoint rows and read only the
+//   step's starting pool_used); (b) the pool caps (the limited pools the
+//   group admits, listed by each warp's lanes with a ballot, their
+//   prefixes from one W-wide scan plus those earlier prefixes) and the
+//   rank's sum of the capped k (the second dp all_gather); (c) the greedy fill and the rank's [P + 1] take-by-pool
 //   sums, whose dp all_reduce(SUM) replaces the reference's two psums
-//   (:556 and :560; the pods placed are the sum of all P + 1). `phase`
-//   3 runs (a)-(c) in one launch with no earlier shards (ndp == 1).
+//   (:556 and :560; the pods placed are the sum of all P + 1). `phase` 3
+//   runs (a)-(c) in one launch with no earlier shards (ndp == 1). A
+//   thread holds a contiguous run of rows in registers (fill_rows(Nl),
+//   up to kFillRows a tile; a build of the kernel for each count), loaded
+//   once a launch; each phase is one pass over them (its prefixes by
+//   W-wide scans of one barrier each, the last tile's totals carried
+//   into the next), k is stored once, and the sums go through warp
+//   shuffles into each warp's shared partials and one barrier.
 // mesh_commit (per step), K == 0: the base group commit's cluster form
 //   (ffd_scan.cu, ffd_cluster.cuh) over the rank's slot window, on a
 //   cluster of CS CTAs of NT threads (K2's rule at one lane,
@@ -78,8 +85,13 @@
 // What bounds them on this card: the shard's bytes over 3.35 TB/s are a
 // fraction of a microsecond (about one for the headroom's candidate rows
 // at Nl = 4,224); each launch costs its latency, and a step's collectives
-// cost more than its kernels. The commit's cost is its chain of cluster
-// barriers and dependent loads and, with many takers, the dealt cells:
+// cost more than its kernels. The fill reads and writes a few words a
+// row: its cost is its launch, its first loads and its barriers (one to
+// three a phase; a 1,024-thread block running P block reductions in phase
+// (a), one block scan a limited pool in (b) and a global atomic a row in
+// (c) took 7-50 us; PERF.md has the stamps). The commit's cost is its
+// chain of cluster barriers and dependent loads and, with many takers,
+// the dealt cells:
 // clock stamps at the 500k cell (Nl = 1,024, 571 takers) put about 48 us
 // of its ~117 in each CTA's cells and 33 in the new-node tail (PERF.md).
 // The headroom's warp rows take 80 registers a thread (one CTA a row took
@@ -115,7 +127,6 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int kWideThreads = 256;
-constexpr int kBlockThreads = 1024;
 constexpr int kPhaseAll = 3;
 
 int set_smem(const void* fn, size_t smem) {
@@ -149,18 +160,6 @@ __device__ __forceinline__ i64 mv_cap_serial(const i64* h1, const i64* f,
         cap = c < cap ? c : cap;
     }
     return cap < 0 ? 0 : cap;
-}
-
-// The rank's sum of k over its slot chunk [lo, hi) whose pool is `pool`
-// (any pool when pool < -2), as a block total.
-__device__ __forceinline__ i64 block_k_sum(const FfdArgs& a, i64 lo, i64 hi,
-                                           i64 pool, i64* tmp) {
-    i64 local = 0;
-    for (i64 s = lo; s < hi; ++s)
-        if (pool < -2 || a.pool[s] == pool) local = wadd(local, a.k[s]);
-    i64 tot;
-    block_excl_scan(local, tmp, &tot);
-    return tot;
 }
 
 __global__ void __launch_bounds__(kWideThreads)
@@ -247,55 +246,415 @@ mesh_slot_headroom_kernel(const __grid_constant__ MeshArgs m, i64 g,
         m.h1[s * K * V + i] = dyn[i];
 }
 
-__global__ void __launch_bounds__(kBlockThreads)
-mesh_fill_kernel(MeshArgs m, i64 g, int phase) {
-    __shared__ i64 tmp[33];
+// Most rows a thread of mesh_fill holds in registers: the rank's rows go
+// in tiles of blockDim.x * R, a thread taking a contiguous run of at most
+// R rows of a tile, R = fill_rows(Nl) (one tile up to 4,096 rows; 16 rows
+// a thread spilled registers under the 512-thread CTA's 128 and took the
+// 4,224-row fill from 12-13 us to 11-25).
+constexpr int kFillRows = 8;
+
+// Most warps of the fill's CTA, and the scan components it posts at once.
+constexpr int kFillWarps = 16;
+
+// mesh_fill's threads for Nl rows (one CTA): 256 up to 2,048 rows (at
+// most 8 a thread), else 512.
+__host__ __device__ __forceinline__ int fill_threads(i64 N) {
+    return N <= 2048 ? 256 : 512;
+}
+
+// Rows a thread of mesh_fill holds for Nl rows: the power of two at or
+// above Nl / fill_threads(Nl), at most kFillRows (more rows take tiles).
+// Each count is its own build of the kernel, so a thread of a small rank
+// runs no predicated-off rows.
+__host__ __device__ __forceinline__ int fill_rows(i64 N) {
+    const i64 nt = fill_threads(N);
+    int r = 1;
+    while (r < kFillRows && (i64)r * nt < N) r <<= 1;
+    return r;
+}
+
+// Dynamic shared bytes of mesh_fill with nt threads, P pools and nex
+// existing rows in a tile: each warp's partial sums by segment [P + 1],
+// the pools' carried prefixes [P], the overlay's k of the existing rows.
+__host__ __device__ __forceinline__ size_t fill_smem(int nt, i64 P,
+                                                     i64 nex) {
+    return (size_t)((nt / 32) * (P + 1) + P + nex) * 8;
+}
+
+// One thread's rows of a fill tile: the local rows [lo, lo + n), their k
+// and pool in registers.
+template <int R>
+struct FillRows {
+    i64 k[R];
+    int pool[R];
+    i64 lo;
+    int n;
+};
+
+// Issues the loads of this thread's contiguous rows of the tile [t0, t1).
+template <int R>
+__device__ __forceinline__ void fill_load(const FfdArgs& a, i64 t0, i64 t1,
+                                          FillRows<R>& r) {
+    const int len = (int)(t1 - t0), nt = (int)blockDim.x;
+    const int per = (len + nt - 1) / nt;
+    const int lo = (int)threadIdx.x * per;
+    r.lo = t0 + (lo < len ? lo : len);
+    r.n = (lo + per < len ? lo + per : len) - (lo < len ? lo : len);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        if (j < r.n) {
+            r.k[j] = a.k[r.lo + j];
+            r.pool[j] = a.pool[r.lo + j];
+        }
+    }
+}
+
+// The rows of the tile [t0, t1) that are existing nodes: [t0, fill_ex_end).
+__device__ __forceinline__ i64 fill_ex_end(const MeshArgs& m, i64 t0,
+                                           i64 t1) {
+    const i64 ex1 = m.E - m.slot0;
+    return ex1 < t0 ? t0 : (ex1 > t1 ? t1 : ex1);
+}
+
+// Phase (a)'s k of existing row s: its allocatable's headroom under group
+// g when alive and compatible, else 0; the row's loads issued at once and
+// its quotients by floordiv_fp (the global rows past kFillDims).
+constexpr int kFillDims = 8;
+__device__ __forceinline__ i64 fill_ex_k(const FfdArgs& a, i64 g, i64 s) {
+    const i64 D = a.D;
+    const u8 alive = a.alive[s], compat = a.ex_compat[g * a.N + s];
+    if (D > kFillDims)
+        return alive && compat
+            ? headroom(a.ex_alloc + s * D, a.used + s * D, a.R + g * D, D)
+            : 0;
+    i64 al[kFillDims], us[kFillDims], rq[kFillDims];
+#pragma unroll
+    for (int d = 0; d < kFillDims; ++d) {
+        al[d] = d < D ? a.ex_alloc[s * D + d] : 0;
+        us[d] = d < D ? a.used[s * D + d] : 0;
+        rq[d] = d < D ? a.R[g * D + d] : 0;
+    }
+    i64 m = KARP_BIG;
+#pragma unroll
+    for (int d = 0; d < kFillDims; ++d) {
+        if (rq[d] <= 0) continue;
+        const i64 q = floordiv_fp(wsub(al[d], us[d]), rq[d]);
+        m = q < m ? q : m;
+    }
+    return alive && compat ? (m < 0 ? 0 : m) : 0;
+}
+
+// Phase (a) with minValues floors (the type mesh's one-launch fill): an
+// open row's k capped by its per-value maxima. Out of line: rare.
+__device__ __noinline__ i64 fill_mv_k(const MeshArgs& m, i64 s, int pool,
+                                      i64 k) {
     const FfdArgs& a = m.f;
-    const i64 N = a.N, D = a.D, P = a.P, K = a.K, V = a.V;
-    const i64* R = a.R + g * D;
-    const i64 chunk = (N + blockDim.x - 1) / blockDim.x;
-    const i64 lo = threadIdx.x * chunk, hi = lo + chunk < N ? lo + chunk : N;
-    if (phase == 0 || phase == kPhaseAll) {
-        for (i64 s = threadIdx.x; s < N; s += blockDim.x) {
-            i64 k = a.k[s];
+    const i64 P = a.P, K = a.K, V = a.V;
+    const i64 pc = pool > P - 1 ? P - 1 : pool;
+    const i64 cap = mv_cap_serial(m.h1 + s * K * V, a.mv_floor + pc * K, K,
+                                  V);
+    return cap < k ? cap : k;
+}
+
+// Phase (a)'s overlay of the tile [t0, t1), a row a thread striding over
+// the rows it changes, so a shard's existing rows are spread over the CTA:
+// the existing rows' k into `ovk` [the tile's existing rows] (their owners
+// take it after the barrier), and with minValues floors every open row's
+// capped k into k itself before the owners load it. Returns whether it
+// wrote anything (then the CTA has passed a barrier).
+__device__ __forceinline__ bool fill_overlay(const MeshArgs& m, i64 g,
+                                             i64 t0, i64 t1, i64* ovk) {
+    const FfdArgs& a = m.f;
+    const i64 ex1 = fill_ex_end(m, t0, t1);
+    if (ex1 == t0 && a.K == 0) return false;   // uniform over the CTA
+    for (i64 s = t0 + threadIdx.x; s < ex1; s += blockDim.x)
+        ovk[s - t0] = fill_ex_k(a, g, s);
+    if (a.K > 0)
+        for (i64 s = ex1 + threadIdx.x; s < t1; s += blockDim.x) {
             const int pool = a.pool[s];
-            if (m.slot0 + s < m.E) {
-                k = (a.alive[s] && a.ex_compat[g * N + s])
-                    ? headroom(a.ex_alloc + s * D, a.used + s * D, R, D) : 0;
-            } else if (K > 0 && pool >= 0) {
-                const i64 pc = pool > P - 1 ? P - 1 : pool;
-                const i64 cap = mv_cap_serial(m.h1 + s * K * V,
-                                              a.mv_floor + pc * K, K, V);
-                k = cap < k ? cap : k;
-            }
-            a.k[s] = k;
+            if (pool >= 0) a.k[s] = fill_mv_k(m, s, pool, a.k[s]);
         }
-        __syncthreads();
-        if (phase == 0) {
-            for (i64 pi = 0; pi < P; ++pi) {
-                const i64 tot = block_k_sum(a, lo, hi, pi, tmp);
-                if (threadIdx.x == 0) m.red[pi] = tot;
-            }
-            return;
-        }
-    }
-    if (phase == 1 || phase == kPhaseAll) {
-        commit_pool_caps(a, g, lo, hi, tmp,
-                         phase == kPhaseAll ? nullptr : m.before);
-        if (phase == 1) {
-            const i64 tot = block_k_sum(a, lo, hi, -3, tmp);
-            if (threadIdx.x == 0) m.red[0] = tot;
-            return;
-        }
-    }
-    commit_greedy(a, g, lo, hi, tmp, phase == kPhaseAll ? 0 : m.before[P]);
-    for (i64 p = threadIdx.x; p <= P; p += blockDim.x) m.red[p] = 0;
     __syncthreads();
-    for (i64 s = threadIdx.x; s < N; s += blockDim.x) {
-        const int pool = a.pool[s];
-        const i64 seg = pool < 0 ? P : (pool > P - 1 ? P - 1 : pool);
-        atomicAdd((unsigned long long*)&m.red[seg],
-                  (unsigned long long)a.k[s]);
+    return true;
+}
+
+// A W-wide exclusive scan over the CTA with one barrier: lane 31 of each
+// warp posts its warp's totals into one half of `tmp` (the halves by
+// turns, so a scan's posts never meet the reads of the one before it,
+// which a barrier between them has ended), and each thread adds up the
+// warps before its own. v becomes the sum over the threads before this
+// one, tot[w] component w's total. `tmp` holds 2 * kFillWarps * kScanW
+// shared entries.
+template <int W>
+__device__ __forceinline__ void fill_scan(u64 (&v)[W], u64 (&tot)[W],
+                                          u64* tmp, int& turn) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    u64* t = tmp + (turn & 1) * kFillWarps * kScanW;
+    ++turn;
+    u64 own[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+        own[w] = v[w];
+        for (int off = 1; off < 32; off <<= 1) {
+            const u64 o = __shfl_up_sync(0xffffffffu, v[w], off);
+            if (lane >= off) v[w] += o;
+        }
+        if (lane == 31) t[warp * W + w] = v[w];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+        u64 before = 0, all = 0;
+        for (int i = 0; i < nwarps; ++i) {
+            const u64 x = t[i * W + w];
+            before += i < warp ? x : 0;
+            all += x;
+        }
+        v[w] = before + v[w] - own[w];
+        tot[w] = all;
+    }
+}
+
+// Phase (b) on a tile for the pools of `pj` [W] (-9: none) whose budgets
+// are `bud` and whose prefixes before the tile `base` (the earlier
+// shards' and tiles'): one W-wide scan of each pool's k over the CTA's
+// rows, then each row of the pool capped at the budget left before it.
+// tot[w] gets pool pj[w]'s k over the tile.
+template <int W, int R>
+__device__ __forceinline__ void fill_caps(FillRows<R>& r, const int (&pj)[8],
+                                          const i64 (&bud)[8],
+                                          const u64 (&base)[8],
+                                          u64 (&tot)[W], u64* scan,
+                                          int& turn) {
+    u64 v[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) v[j] = 0;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        if (i >= r.n) continue;
+#pragma unroll
+        for (int j = 0; j < W; ++j)
+            if (r.pool[i] == pj[j]) v[j] += (u64)r.k[i];
+    }
+    fill_scan(v, tot, scan, turn);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+        if (pj[j] < 0) continue;
+        i64 cum = (i64)(v[j] + base[j]);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            if (i >= r.n || r.pool[i] != pj[j]) continue;
+            const i64 kp = r.k[i];
+            const i64 room = wsub(bud[j], cum);
+            const i64 c = kp < room ? kp : room;
+            cum = wadd(cum, kp);
+            r.k[i] = c < 0 ? 0 : c;
+        }
+    }
+}
+
+// Phase (b)'s pool caps on a tile, the pools to every warp's lanes 32 at a
+// time with no barrier: lane q tests pool base + q (a limit, and group g
+// admits it: a pool it does not admit has k = 0 on every row, so its cap
+// changes nothing) and takes its budget against pool_used as it stands,
+// its loads issued at once; a ballot lists the limited pools, eight a
+// scan, each pool's budget shuffled from its lane. A pool's prefix before
+// the tile is before[pool] on the first tile (0 without) and then its
+// carry in cb [P], which thread 0 keeps.
+template <int R>
+__device__ __forceinline__ void fill_pool_caps(const FfdArgs& a, i64 g,
+                                               FillRows<R>& r,
+                                               const i64* before, u64* cb,
+                                               bool first, u64* scan,
+                                               int& turn) {
+    const int lane = threadIdx.x & 31;
+    const i64 P = a.P, D = a.D;
+    const i64* Rg = a.R + g * D;
+    for (i64 base = 0; base < P; base += 32) {
+        const i64 q = base + lane;
+        bool has = false;
+        i64 bq = KARP_BIG;
+        if (q < P) {
+            const bool adm = a.admit[g * P + q];
+            const i64* lim = a.pool_limit + q * D;
+            const i64* used = a.pool_used + q * D;
+            for (i64 d0 = 0; d0 < D; d0 += kFillDims) {
+                i64 lv[kFillDims], uv[kFillDims], rv[kFillDims];
+#pragma unroll
+                for (int j = 0; j < kFillDims; ++j) {
+                    const bool in = d0 + j < D;
+                    lv[j] = in ? lim[d0 + j] : -1;
+                    uv[j] = in ? used[d0 + j] : 0;
+                    rv[j] = in ? Rg[d0 + j] : 0;
+                }
+#pragma unroll
+                for (int j = 0; j < kFillDims; ++j) {
+                    has |= lv[j] >= 0;
+                    if (lv[j] >= 0 && rv[j] > 0) {   // pool_budget's quotient
+                        const i64 room = wsub(lv[j], uv[j]);
+                        const i64 qd = floordiv_fp(room < 0 ? 0 : room, rv[j]);
+                        bq = qd < bq ? qd : bq;
+                    }
+                }
+            }
+            has &= adm;
+        }
+        unsigned lim = __ballot_sync(0xffffffffu, has);
+        while (lim) {                       // uniform over the CTA
+            int pj[8];
+            i64 bud[8];
+            u64 cbase[8];
+            int nb = 0;
+#pragma unroll
+            for (int w = 0; w < 8; ++w) {
+                const int b = lim ? __ffs(lim) - 1 : 0;
+                bud[w] = __shfl_sync(0xffffffffu, bq, b);
+                pj[w] = lim ? (int)(base + b) : -9;
+                cbase[w] = !lim ? 0 : !first ? cb[pj[w]]
+                    : (before ? (u64)before[pj[w]] : 0);
+                nb += lim != 0;
+                lim &= lim - 1;
+            }
+            if (nb == 1) {
+                u64 tot[1];
+                fill_caps<1, R>(r, pj, bud, cbase, tot, scan, turn);
+                if (threadIdx.x == 0) cb[pj[0]] = cbase[0] + tot[0];
+            } else {
+                u64 tot[8];
+                fill_caps<8, R>(r, pj, bud, cbase, tot, scan, turn);
+                if (threadIdx.x == 0)
+                    for (int w = 0; w < nb; ++w)
+                        cb[pj[w]] = cbase[w] + tot[w];
+            }
+        }
+    }
+}
+
+// Phase (c) on a tile: the greedy prefix fill of n pods; k becomes take.
+// `cc` is the fill's prefix before the tile (the earlier shards' and
+// tiles'); returns it past the tile.
+template <int R>
+__device__ __forceinline__ u64 fill_greedy(FillRows<R>& r, i64 n, u64 cc,
+                                           u64* scan, int& turn) {
+    u64 v[1] = {0}, tot[1];
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+        if (j < r.n) v[0] += (u64)r.k[j];
+    fill_scan(v, tot, scan, turn);
+    i64 cum = (i64)(v[0] + cc);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        if (j >= r.n) continue;
+        const i64 kk = r.k[j];
+        i64 x = wsub(n, cum);
+        x = x < 0 ? 0 : x;
+        cum = wadd(cum, kk);
+        r.k[j] = x < kk ? x : kk;
+    }
+    return cc + tot[0];
+}
+
+// The segment of a row of pool `pool`: its pool (clamped to P - 1), P for
+// rows of no pool; every row in segment 0 without by_pool.
+__device__ __forceinline__ int fill_seg(int pool, i64 P, bool by_pool) {
+    return !by_pool ? 0 : pool < 0 ? (int)P
+        : (pool > P - 1 ? (int)P - 1 : pool);
+}
+
+// Adds this thread's rows' k of the segments s0 .. s0+ns-1 (ns <= W) to
+// its warp's partials `wp`: summed over the warp by shuffles, then added
+// by lane 0 (the warp's own row: no atomics).
+template <int W, int R>
+__device__ __forceinline__ void fill_sums(const FillRows<R>& r, int s0, int ns,
+                                          i64 P, bool by_pool, u64* wp) {
+    u64 v[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) v[w] = 0;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        if (j >= r.n) continue;
+        const int seg = fill_seg(r.pool[j], P, by_pool) - s0;
+#pragma unroll
+        for (int w = 0; w < W; ++w)
+            if (seg == w) v[w] += (u64)r.k[j];
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+        if (w >= ns) continue;
+        for (int off = 16; off > 0; off >>= 1)
+            v[w] += __shfl_xor_sync(0xffffffffu, v[w], off);
+        if ((threadIdx.x & 31) == 0) wp[s0 + w] += v[w];
+    }
+}
+
+// One phase of group g's fill (or all three: kPhaseAll) on one CTA of
+// fill_threads(Nl) threads. Each tile's rows are loaded once, phase (a)'s
+// overlay computed beside the loads a row a thread and handed to the rows'
+// owners; every phase asked for runs on the rows in registers (each
+// reads only prefixes over earlier rows, which the scans' carries hold),
+// then k is stored once and the rows' sums go into the warps' partials;
+// after one barrier thread e writes red[e], the sum over the warps. A
+// phase waits at one barrier a scan, one for the overlay where the tile
+// holds existing rows, and the last. (Staging each tile through shared
+// memory for coalesced loads and stores cost more barriers than it saved.)
+template <int R>
+__global__ void __launch_bounds__(512)
+mesh_fill_kernel(const __grid_constant__ MeshArgs m, i64 g, int phase) {
+    extern __shared__ u64 fdyn[];
+    __shared__ u64 scan[2 * kFillWarps * kScanW];
+    const FfdArgs& a = m.f;
+    const i64 N = a.N, P = a.P, nseg = P + 1;
+    const int nwarps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+    const bool do_a = phase == 0 || phase == kPhaseAll;
+    const bool do_b = phase == 1 || phase == kPhaseAll;
+    const bool do_c = phase == 2 || phase == kPhaseAll;
+    const i64* before = phase == kPhaseAll ? nullptr : m.before;
+    const i64 n = do_c ? a.n[g] : 0;
+    u64 cc = do_c && before ? (u64)before[P] : 0;
+    u64* part = fdyn;                            // [nwarps, P + 1]
+    u64* cb = part + nwarps * nseg;              // [P]
+    i64* ovk = (i64*)(cb + P);                   // [a tile's existing rows]
+    u64* wp = part + warp * nseg;
+    for (i64 e = threadIdx.x & 31; e < nseg; e += 32) wp[e] = 0;
+    __syncwarp();
+    const i64 tile = (i64)blockDim.x * R;
+    const int nsum = phase == 0 ? (int)P : (phase == 1 ? 1 : (int)nseg);
+    int turn = 0;
+    for (i64 t0 = 0; t0 < N; t0 += tile) {
+        const i64 t1 = t0 + tile < N ? t0 + tile : N;
+        if (t0) __syncthreads();   // the last tile's cb and ovk are read
+        FillRows<R> r;
+        bool ov = false;
+        if (do_a && a.K > 0) ov = fill_overlay(m, g, t0, t1, ovk);
+        fill_load(a, t0, t1, r);
+        if (do_a && a.K == 0) ov = fill_overlay(m, g, t0, t1, ovk);
+        if (ov) {
+            const i64 ex1 = fill_ex_end(m, t0, t1);
+#pragma unroll
+            for (int j = 0; j < R; ++j)
+                if (j < r.n && r.lo + j < ex1) r.k[j] = ovk[r.lo + j - t0];
+        }
+        if (do_b) fill_pool_caps<R>(a, g, r, before, cb, t0 == 0, scan, turn);
+        if (do_c) cc = fill_greedy(r, n, cc, scan, turn);
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            if (j < r.n) a.k[r.lo + j] = r.k[j];
+        if (nsum == 1)
+            fill_sums<1, R>(r, 0, 1, P, phase != 1, wp);
+        else if (nsum == 2)
+            fill_sums<2, R>(r, 0, 2, P, true, wp);
+        else
+            for (int s0 = 0; s0 < nsum; s0 += kScanW)
+                fill_sums<kScanW, R>(r, s0, nsum - s0 < kScanW ? nsum - s0
+                                                            : kScanW,
+                                     P, true, wp);
+    }
+    __syncthreads();
+    for (i64 e = threadIdx.x; e < nsum; e += blockDim.x) {
+        u64 t = 0;
+        for (int w = 0; w < nwarps; ++w) t += part[w * nseg + e];
+        m.red[e] = (i64)t;
     }
 }
 
@@ -357,6 +716,16 @@ mesh_commit_kernel(const __grid_constant__ MeshArgs m, i64 g) {
     cl.sync();   // no CTA leaves while another may read its shared memory
 }
 
+// mesh_fill's build for R rows a thread (fill_rows) on nt threads.
+template <int R>
+int launch_fill(const MeshArgs* m, i64 g, int phase, int nt, size_t smem,
+                cudaStream_t stream) {
+    int err = set_smem((const void*)mesh_fill_kernel<R>, smem);
+    if (err) return err;
+    mesh_fill_kernel<R><<<1, nt, smem, stream>>>(*m, g, phase);
+    return (int)cudaGetLastError();
+}
+
 const void* commit_fn(i64 threads) {
     return threads == 512 ? (const void*)mesh_commit_kernel<512>
                           : (const void*)mesh_commit_kernel<256>;
@@ -391,10 +760,23 @@ int karp_mesh_slot_headroom(const MeshArgs* m, long long g, void* stream) {
 }
 
 int karp_mesh_fill(const MeshArgs* m, long long g, int phase, void* stream) {
-    mesh_fill_kernel<<<1, kBlockThreads, 0, (cudaStream_t)stream>>>(*m, g,
-                                                                    phase);
-    return (int)cudaGetLastError();
+    const int nt = fill_threads(m->f.N);
+    const i64 tile = (i64)nt * fill_rows(m->f.N), ex = m->E - m->slot0;
+    const i64 nex = ex < 0 ? 0 : (ex < tile ? ex : tile);
+    const size_t smem = fill_smem(nt, m->f.P, nex < m->f.N ? nex : m->f.N);
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (fill_rows(m->f.N)) {
+    case 1: return launch_fill<1>(m, g, phase, nt, smem, st);
+    case 2: return launch_fill<2>(m, g, phase, nt, smem, st);
+    case 4: return launch_fill<4>(m, g, phase, nt, smem, st);
+    default: return launch_fill<kFillRows>(m, g, phase, nt, smem, st);
+    }
 }
+
+// mesh_fill's threads and rows a thread for a rank of n rows
+// (ops/mesh_cuda.py mirrors both).
+int karp_mesh_fill_threads(long long n) { return fill_threads(n); }
+int karp_mesh_fill_rows(long long n) { return fill_rows(n); }
 
 int karp_mesh_commit(const MeshArgs* m, long long g, void* stream) {
     const i64 cs = m->cluster, nt = m->threads;

@@ -1231,6 +1231,27 @@ TOPO_FLIPPED = ("rows_last",)
 TOPO_WIDE_COUNTERS = 4096
 
 
+#: zone-spread constraints (one counter row each) of ``topo_wide_rows``'
+#: group: at Z = 4 the pour's shared memory passes one block's 227 KB past
+#: about 3,800 listed zone rows
+TOPO_LAYOUT_ROWS = 5000
+
+
+def topo_wide_rows(env, n_rows: int = TOPO_LAYOUT_ROWS, api=None):
+    """A snapshot whose one topology group lists ``n_rows`` zone counter
+    rows: six pods, each with ``n_rows`` zone-spread constraints (maxSkew
+    1) over distinct selectors, on one default pool. Past the pour's
+    layout (``TOPO_LAYOUT_ROWS``): the solver answers it on the host
+    pour."""
+    a = topo_api(api)
+    pods = a.make_pods(6, cpu="1", memory="2Gi", prefix="wide",
+                       topology_spread=[
+                           a.TopologySpreadConstraint(
+                               max_skew=1, topology_key=a.L.ZONE,
+                               group=f"w{i}") for i in range(n_rows)])
+    return env.snapshot(pods, [env.nodepool("d")])
+
+
 def topo_case(name: str, env=None, counters: int = None):
     """(arrays, rows, statics) of one kernel case: the scenario encoded by
     this package and padded to ``TOPO_BUCKET`` with ``TOPO_N_MAX`` new-node
@@ -2070,6 +2091,91 @@ MESH_LATER_SHARDS = (("existing_split", 2, 1), ("existing_split", 4, 2),
 MESH_BEFORES = {"small": lambda P: [3 * (p + 1) for p in range(P)] + [7],
                 "wrap": lambda P: [(1 << 63) - 2 - p for p in range(P)]
                 + [(1 << 63) - 5]}
+
+
+#: the fill (``mesh_fill``) states ``chip_smoke.py`` times: (the rank's
+#: rows, pools, existing rows at its head): the tp cell's shard (256), the
+#: dp2 cell's (512), K11's (2,112) and the world-1 ceiling's (4,224), P =
+#: 1 or 8 pools, every other one with a limit; and K11's first shard as
+#: the ceiling cuts it (128 existing nodes)
+FILL_SHAPES = ((256, 1, 0), (256, 8, 0), (512, 1, 0), (512, 8, 0),
+               (2112, 1, 0), (2112, 8, 0), (4224, 1, 0), (4224, 8, 0),
+               (2112, 1, 128))
+
+
+def fill_state(Nl: int, P: int, *, seed: int = 0, limited: bool = True,
+               E: int = 0, slot0: int = 0, before: str = None, K: int = 0,
+               V: int = 0, device="cpu"):
+    """A rank's ``MeshState`` at the entry of group 1's fill, made from
+    ``seed``: ``Nl`` slot rows with global ids from ``slot0``, the first
+    ``E`` global rows existing nodes (some dead, some incompatible, with
+    their used rows), the other rows free or open in one of ``P`` pools
+    (every other pool with a limit that binds inside the rows when
+    ``limited``; one pool the group does not admit), and the headroom
+    launch's k: 0 on free rows, existing rows and rows of a pool the group
+    does not admit (as that launch writes), else small, with 1 << 60 on a
+    few rows (a zero request row's headroom: prefixes that wrap int64).
+    ``before`` names ``MESH_BEFORES`` prefixes of earlier shards (None:
+    zeros); ``K`` / ``V`` add minValues floors and the step's per-value
+    maxima h1. The pool state's kernels read nothing else. Returns (the
+    state, the group)."""
+    import torch
+
+    from .ops import mesh_cuda as mc
+    from .ops.ffd_torch import KernelInputs
+    rng = np.random.RandomState(seed)
+    T, D, Z, C, G = 4, 4, 2, 2, 2
+    g = 1
+    R = rng.randint(1, 1 << 6, size=(G, D)).astype(np.int64)
+    admit = np.ones((G, P), bool)
+    if P > 1:
+        admit[g, P - 1] = False
+    lim = np.full((P, D), -1, np.int64)
+    if limited:
+        lim[::2, 1] = rng.randint(1 << 12, 1 << 14, size=len(lim[::2]))
+    ex_alloc = rng.randint(1 << 12, 1 << 16, size=(Nl, D)).astype(np.int64)
+    ex_used = (ex_alloc * rng.rand(Nl, D)).astype(np.int64)
+    arrays = dict(
+        A=rng.randint(1, 1 << 16, size=(T, D)).astype(np.int64),
+        avail_zc=np.ones((T, Z * C), bool), R=R,
+        n=np.array([0, max(1, Nl * 3)], np.int64),
+        F=np.ones((G, T), bool), agz=np.ones((G, Z), bool),
+        agc=np.ones((G, C), bool), admit=admit,
+        daemon=np.zeros((G, P, D), np.int64),
+        pool_types=np.ones((P, T), bool), pool_agz=np.ones((P, Z), bool),
+        pool_agc=np.ones((P, C), bool), pool_limit=lim,
+        pool_used0=rng.randint(0, 1 << 10, size=(P, D)).astype(np.int64),
+        ex_alloc=ex_alloc, ex_used0=ex_used,
+        ex_compat=rng.rand(G, Nl) < 0.7)
+    if K:
+        arrays.update(
+            mv_floor=rng.randint(0, V + 2, size=(P, K)).astype(np.int64),
+            mv_pairs_t=np.zeros((K, 1), np.int64),
+            mv_pairs_v=np.zeros((K, 1), np.int64))
+    dev = torch.device(device)
+    inp = KernelInputs(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                          for k, v in arrays.items()})
+    st = mc.MeshState(inp, E=E, P=P, V=V, N=max(E, slot0 + Nl), slot0=slot0)
+    ex = slot0 + np.arange(Nl) < E
+    pool = np.where(rng.rand(Nl) < 0.25, -1, rng.randint(0, P, size=Nl))
+    pool = np.where(ex, -2, pool).astype(np.int32)
+    alive = np.where(ex, rng.rand(Nl) < 0.8, pool >= 0)
+    k = rng.randint(0, 40, size=Nl).astype(np.int64)
+    k[rng.rand(Nl) < 0.03] = 1 << 60
+    k = np.where((pool >= 0) & admit[g, np.clip(pool, 0, P - 1)], k, 0)
+    c = st.carry
+    c.pool.copy_(torch.from_numpy(pool))
+    c.alive.copy_(torch.from_numpy(alive))
+    c.used.copy_(torch.from_numpy(np.where(
+        ex[:, None], ex_used, rng.randint(0, 1 << 10, size=(Nl, D)))))
+    st.k.copy_(torch.from_numpy(k))
+    if K:
+        st.h1.copy_(torch.from_numpy(rng.randint(
+            0, 60, size=(Nl, K, V)).astype(np.int64)))
+    if before is not None:
+        st.before.copy_(torch.tensor(MESH_BEFORES[before](P),
+                                     dtype=torch.int64))
+    return st, g
 
 
 def mesh_shard_check(case: str, ndp: int, dp_idx: int, before: str,

@@ -164,6 +164,9 @@ def _lib():
                        lib.karp_ffd_fused_commit):
                 fn.argtypes = [vp, ll, vp]
             lib.karp_ffd_fused_cluster.argtypes = [vp]
+            lib.karp_ffd_fused_headroom_blocks.argtypes = [ll, ll, ll, ll]
+            lib.karp_mesh_fill_threads.argtypes = [ll]
+            lib.karp_mesh_fill_rows.argtypes = [ll]
             lib.karp_mesh_new_caps.argtypes = [vp, vp]
             for fn in (lib.karp_mesh_slot_headroom, lib.karp_mesh_commit):
                 fn.argtypes = [vp, ll, vp]
@@ -183,7 +186,10 @@ def _lib():
                        lib.karp_ffd_fused_commit, lib.karp_ffd_fused_cluster,
                        lib.karp_mesh_new_caps,
                        lib.karp_mesh_slot_headroom, lib.karp_mesh_fill,
-                       lib.karp_mesh_commit):
+                       lib.karp_mesh_commit,
+                       lib.karp_ffd_fused_headroom_blocks,
+                       lib.karp_mesh_fill_threads,
+                       lib.karp_mesh_fill_rows):
                 fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
@@ -884,6 +890,13 @@ def fused_cluster(L: int, Fu: int, P: int, D: int, N: int,
     return _cluster_rule(_CLUSTERS, (L, Fu, P, D, N),
                          _lib().karp_ffd_fused_cluster, a, dev,
                          "ffd_fused_commit")
+
+
+def fused_headroom_blocks(N: int, Fu: int, P: int, T: int) -> int:
+    """Blocks of ``ffd_fused_headroom`` a lane (csrc/fused.cu
+    ``fused_headroom_blocks``): one CTA a slot covering all Fu groups,
+    then the new-node table's Fu * P * table_blocks(T)."""
+    return N + Fu * P * table_blocks(T)
 
 
 def _fused_launch(name: str, fs: FusedState, g0: int, stream) -> None:

@@ -17,7 +17,10 @@ Tl] and the partial caps ``capn`` [P, table_blocks(Tl)], which the
 headroom launch writes without minValues floors and the commit reads;
 with floors row 0 is the commit's scratch), the new-node caps, the fill
 phases' sums (``red``, reduced in place over the slot shards) and the
-earlier shards' prefixes (``before``), and the outputs. Without
+earlier shards' prefixes (``before``), and the outputs. ``mesh_fill``
+runs on one CTA of ``fill_threads(Nl)`` threads, each holding a
+contiguous run of up to ``fill_rows(Nl)`` of the rank's rows in
+registers. Without
 minValues floors the commit runs on a thread-block cluster of
 ``cluster`` CTAs of ``threads`` (K2's rule at one lane,
 ``ffd_cuda.k2_shape``, asked for the state's device unless given).
@@ -52,6 +55,10 @@ _I64 = torch.int64
 #: mesh_fill's phases: (a) overlay and pool sums, (b) pool caps and the
 #: fill sum, (c) greedy fill and take-by-pool, or all three (no slot split)
 PHASE_A, PHASE_B, PHASE_C, PHASE_ALL = 0, 1, 2, 3
+
+#: most rows a thread of ``mesh_fill`` holds in registers (csrc/mesh.cu
+#: ``kFillRows``): past threads x FILL_ROWS the rank's rows go in tiles
+FILL_ROWS = 8
 
 #: the kernels of this module, in launch order
 KERNELS = ("mesh_new_caps", "mesh_slot_headroom", "mesh_fill",
@@ -205,6 +212,23 @@ class MeshState:
             tbp=self.red.data_ptr(), slot0=self.slot0, N=self.N, E=self.E,
             capn=self.capn.data_ptr(), cluster=self.cluster,
             threads=self.threads)
+
+
+def fill_threads(n: int) -> int:
+    """``mesh_fill``'s threads (one CTA) for a rank of n slot rows
+    (csrc/mesh.cu ``fill_threads``): 256 up to 2,048 rows, at most 8 a
+    thread, else 512; past 512 x FILL_ROWS rows the CTA walks tiles."""
+    return 256 if n <= 2048 else 512
+
+
+def fill_rows(n: int) -> int:
+    """Rows a thread of ``mesh_fill`` holds for a rank of n slot rows
+    (csrc/mesh.cu ``fill_rows``, one build of the kernel each): the power
+    of two at or above n / ``fill_threads(n)``, at most ``FILL_ROWS``."""
+    nt, r = fill_threads(n), 1
+    while r < FILL_ROWS and r * nt < n:
+        r *= 2
+    return r
 
 
 def _launch(name: str, st: MeshState, *args) -> None:

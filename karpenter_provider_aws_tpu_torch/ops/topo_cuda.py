@@ -13,7 +13,8 @@ Nothing here falls back to the plain versions in ``ops/topo_torch.py``.
   narrowing, in one block; its shared memory holds the counter rows a
   group lists (``listed_rows``), sized by the most any topology group
   lists, and a layout past the card's shared memory (or more than 64
-  zones) raises ``TopoLayoutError``;
+  zones) raises ``TopoLayoutError``; ``pour_fits`` answers the same
+  question before a scan, for the solver's routing;
 - ``topo_record_plain``: the membership counters after a group without
   topology ran the K2 kernels.
 
@@ -30,8 +31,9 @@ import ctypes
 
 import torch
 
-from .ffd_cuda import (LAUNCHES, ScanState, _launch, _lib, _need,
-                       ffd_group_commit, ffd_slot_headroom, launching)
+from .ffd_cuda import (LAUNCHES, ScanState, _FfdArgs, _check, _launch, _lib,
+                       _need, ffd_group_commit, ffd_slot_headroom, launching,
+                       on_device)
 from .ffd_torch import BIG, KernelInputs, carry0
 from .topo_torch import TopoGroupRows, empty_events
 
@@ -72,6 +74,42 @@ def listed_rows(rows: TopoGroupRows):
     nz = ((rows.zs_skew < BIG) | rows.za_any | rows.zs_any | mz).sum(1)
     nh = ((rows.hs_skew < BIG) | rows.ha_any | rows.hs_any | mh).sum(1)
     return nz, nh
+
+
+def listed_max(rows: TopoGroupRows):
+    """The most zone and the most hostname counter rows a topology group
+    lists (``listed_rows`` over the groups with topology; 0 without any),
+    as two 0-d tensors on the rows' device: the NZ and NH that size the
+    pour's shared memory."""
+    topo = rows.has_topo
+    return tuple(torch.cat([c.new_zeros(1), torch.where(topo, c, 0)]).max()
+                 for c in listed_rows(rows))
+
+
+def pour_fits(rows: TopoGroupRows, *, Z: int, C: int, D: int, P: int,
+              PMAX: int, device) -> bool:
+    """Whether the pour on ``device`` can lay out a scan of these rows:
+    at most 64 zones, and the shared bytes the C entry
+    ``karp_topo_pour_smem`` counts for the rows the groups list
+    (``listed_max``) within the card's limit for one block. The solver
+    asks before the scan's first launch and sends a snapshot that does
+    not fit to the host pour. The plain pour on the CPU has no layout:
+    True there."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return True
+    if Z > 64:
+        return False
+    nz, nh = (int(x) for x in listed_max(rows))
+    f = _FfdArgs(D=D, Z=Z, C=C, P=P)
+    t = _TopoArgs(NZ=nz, NH=nh, PMAX=PMAX)
+    nbytes, limit = ctypes.c_longlong(), ctypes.c_longlong()
+    with on_device(dev):
+        _check(_lib().karp_topo_pour_smem(ctypes.byref(f), ctypes.byref(t),
+                                          ctypes.byref(nbytes),
+                                          ctypes.byref(limit)),
+               "topo_pour (layout)")
+    return nbytes.value <= limit.value
 
 
 class TopoScanState:
@@ -140,10 +178,9 @@ class TopoScanState:
             else:
                 t = getattr(self, f)
             ptrs[f] = t.data_ptr() if t.numel() else None
-        topo = rows.has_topo
-        nz, nh = (torch.cat([c.new_zeros(1), torch.where(topo, c, 0)]).max()
-                  for c in listed_rows(rows))
-        head = torch.cat([torch.stack([nz, nh]), topo.long()]).tolist()
+        nz, nh = listed_max(rows)
+        head = torch.cat([torch.stack([nz, nh]),
+                          rows.has_topo.long()]).tolist()
         self.nz, self.nh = head[:2]
         self.has_topo = [bool(x) for x in head[2:]]
         self.args = _TopoArgs(**ptrs, GZ=GZ, GH=GH, EVCAP=EVCAP, PMAX=PMAX,

@@ -50,9 +50,11 @@ Topology spread and required pod (anti-)affinity follow the reference's
 topology routing: inside the device pour's envelope (no existing nodes,
 no minValues floors, no duplicate counter terms in a group) the solve
 runs the topology scan (ops/topo_torch.py ``dispatch_topo``, K9) on
-unpacked inputs; outside it, with no instance types or past
-``dev_max_groups``, the host pour (ops/topo.py through ``_run_host``;
-``reason`` ``topo_envelope`` / ``no_types`` / ``group_cap``). A group
+unpacked inputs; outside it, with no instance types, past
+``dev_max_groups`` or where the pour cannot lay the groups' listed
+counter rows out in one block's shared memory (asked before the first
+launch), the host pour (ops/topo.py through ``_run_host``; ``reason``
+``topo_envelope`` / ``no_types`` / ``group_cap`` / ``topo_layout``). A group
 that overflows the event log bails, and the same inputs are solved
 again on the device at ``safe_evcap`` (``reason="topo_bail"``). The
 decode replays each topology group's placement runs from its event log
@@ -97,7 +99,7 @@ from ..apis.resources import Resources
 from ..models.delta import DeltaEncoder, full_existing_encode
 from ..models.encoding import SnapshotEncoding, encode_snapshot
 from ..models.encoding import canonical_pod_groups, independent_runs
-from ..ops import ffd, ffd_cuda
+from ..ops import ffd, ffd_cuda, topo_cuda
 from ..ops.consolidation_torch import subset_solve
 from ..ops.ffd_torch import (block_indep, kernel_inputs_from_numpy,
                              solve_scan_packed1,
@@ -109,7 +111,8 @@ from ..ops.hostpack import (DEV_FUSE, DEV_PRUNED_SLOTS, pack_inputs1,
                             tier_leftovers, unpack_outputs1)
 from ..ops.topo import (TopoState, build_topo_encoding, fill_group_topo,
                         record_plain_fill)
-from ..ops.topo_torch import K_ANTIRUN, K_CYC, dispatch_topo
+from ..ops.topo_torch import (K_ANTIRUN, K_CYC, dispatch_topo,
+                              topo_rows_from_numpy)
 from ..parallel.mesh import DP2_MIN_SLOTS, dispatch_mesh
 from ..scheduling.preempt_torch import preempt_solve
 from .incremental import CKPT_CHUNK, ckpt_eligible, live_bound, suffix_plan
@@ -484,14 +487,17 @@ class CUDASolver(Solver):
         elif tenc is not None:
             # the reference's topology routing (solver/tpu.py:303-345):
             # the device pour inside its envelope, else the host pour
+            topo_in = None
             if len(enc.groups) > self.dev_max_groups:
                 reason = "group_cap"
             elif not self._topo_lowerable(enc, tenc, existing):
                 reason = "topo_envelope"
             else:
-                reason = None
+                topo_in = topo_arrays(enc, tenc)
+                reason = None if self._pour_fits(*topo_in) \
+                    else "topo_layout"
             if reason is None:
-                takes, leftover, final = self._run_topo(enc, tenc)
+                takes, leftover, final = self._run_topo(enc, *topo_in)
             else:
                 takes, leftover, final = self._run_host(
                     enc, ex_alloc, ex_used, ex_compat, reason, tenc=tenc,
@@ -1015,16 +1021,27 @@ class CUDASolver(Solver):
                 rows["member_h"][g] = mh
         return rows, GZ, GH
 
-    def _run_topo(self, enc, tenc):
+    def _pour_fits(self, arrays, rows, stt) -> bool:
+        """Whether the device pour lays out the padded topology inputs of
+        ``topo_arrays`` (``topo_cuda.pour_fits`` on the host rows: the
+        listed counter rows' shared bytes within the card's limit, at most
+        64 zones), asked before the scan's first launch; a snapshot that
+        does not fit goes to the host pour (``reason="topo_layout"``)."""
+        return topo_cuda.pour_fits(
+            topo_rows_from_numpy(rows, "cpu"), Z=stt["Z"],
+            C=arrays["agc"].shape[1], D=arrays["A"].shape[1], P=stt["P"],
+            PMAX=self.TOPO_PMAX, device=self.device)
+
+    def _run_topo(self, enc, arrays, rows, stt):
         """The device pour (the reference's ``_run_jax_topo`` without its
-        resident cache): the padded inputs go to the device once per
-        solve and serve every slot-bucket retry. A group that overflows
-        the event log bails; the same inputs are then solved again on the
-        device at ``safe_evcap`` (``reason="topo_bail"``), where the
-        reference re-solves on its host pour. A second bail raises."""
+        resident cache) of ``topo_arrays``' padded inputs: they go to the
+        device once per solve and serve every slot-bucket retry. A group
+        that overflows the event log bails; the same inputs are then
+        solved again on the device at ``safe_evcap``
+        (``reason="topo_bail"``), where the reference re-solves on its
+        host pour. A second bail raises."""
         D = enc.A.shape[1]
         G = len(enc.groups)
-        arrays, rows, stt = topo_arrays(enc, tenc)
         self._solve_mode = "full"
         cache: dict = {}
         before = dict(ffd_cuda.LAUNCHES)

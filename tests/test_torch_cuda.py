@@ -11,8 +11,10 @@ kernels (K6, the new-node tables included, the commit at 256 and 1,024
 threads), the
 K7 consolidation kernels, the K9 topology kernels and K8, the
 preemption search (its hazard tables and a round through
-``Provisioner.reconcile``), the K10 mesh kernels, and K11's distributed
-dispatch at 1 x 1 (a shard cut from its host's slab).
+``Provisioner.reconcile``; a snapshot past the pour's layout routed to
+the host pour), the K10 mesh kernels (``mesh_fill``'s phases from 1 to
+9,000 rows), and K11's distributed dispatch at 1 x 1 (a shard cut from
+its host's slab).
 
 Every test here needs a CUDA card: the ``cuda_device`` fixture skips
 otherwise, so the CPU suite collects the same tests and skips them. On a
@@ -772,6 +774,91 @@ def test_fused_mixed_lanes_block_by_block(cuda_device, B):
     _fused_blocks_on_card(cuda_device, lanes, st, None, lanes=B)
 
 
+def _headroom_rows_seen(inp, carry, g0, Fu, P, lanes=None):
+    """Which kinds of slot rows a block's headroom meets: no group takes
+    the row's pool, some do, all do; existing rows."""
+    out = set()
+    pools = carry.pool if lanes is None else carry.pool.reshape(-1)
+    admit = inp.admit if lanes is None else inp.admit[0]
+    for s, pool in enumerate(pools.tolist()):
+        pc = min(max(pool, 0), P - 1)
+        adm = [pool >= 0 and bool(admit[g0 + i, pc]) for i in range(Fu)]
+        out.add("none" if not any(adm) else "all" if all(adm) else "some")
+    return out
+
+
+@pytest.mark.parametrize("shape", ["striped-812", "odd-n", "wide-zc"])
+def test_fused_headroom_slot_ctas(cuda_device, shape):
+    """``ffd_fused_headroom`` (one CTA a slot covering the block's Fu
+    groups) block by block against ``_fused_headroom_ref`` and the tables
+    against ``_fused_table_ref``, from the plain block-start carries of
+    the plain scan: the striped shape at 812 types, N = E + 37 slots (no
+    multiple of anything the launch splits by), 22 zones x 3 capacity
+    types (the offering test without the 64-bit masks); rows no group
+    takes (free, existing, an unadmitted pool) and rows some take."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    kw = {"striped-812": dict(T=812, D=8, G=32, n_max=64),
+          "odd-n": dict(n_max=37), "wide-zc": dict(Z=22, C=3)}[shape]
+    arrays, st = examples.fused_case("striped", **kw)
+    _, inp = _fused_inputs(arrays, st, cuda_device)
+    E, P, Fu, N = st["E"], st["P"], st["F"], st["E"] + st["n_max"]
+    cpu = inp   # the plain parts on the same card tensors
+    carry = ft.carry0(cpu, N, E)
+    fs = ffd_cuda.FusedState(inp, ft.carry0(inp, N, E), E=E, P=P, Fu=Fu)
+    indep = ft.block_indep(cpu.fuse, Fu).tolist()
+    kinds = set()
+    for g0 in range(0, st["G"], Fu):
+        for dst, src in zip(fs.carry, carry):
+            dst.copy_(src)
+        ffd_cuda.ffd_fused_headroom(fs, g0)
+        cand, k = ft._fused_headroom_ref(cpu, carry, g0, Fu, E=E, P=P)
+        tab = ft._fused_table_ref(cpu, g0, Fu, P=P)
+        assert torch.equal(fs.block_cand(), cand), g0
+        assert torch.equal(fs.block_k(), k), g0
+        for got, want in zip(fs.block_table(), tab[:3]):
+            assert torch.equal(got, want), g0
+        kinds |= _headroom_rows_seen(cpu, carry, g0, Fu, P)
+        carry, _, _ = ft._fused_block_ref(cpu, carry, g0, Fu,
+                                          indep[g0 // Fu], tab, E=E, P=P)
+    assert {"none", "some"} <= kinds and E > 0
+
+
+@pytest.mark.parametrize("Fu", [2, 8, 16])
+def test_fused_headroom_group_chunks(cuda_device, Fu):
+    """The headroom launch at 2, 8 and 16 groups a block (one pass over a
+    slot's types covers up to 4; 8 take two, 16 four) against
+    ``_fused_headroom_ref`` from the plain carry after 16 groups."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    arrays, st = examples.fused_case("striped", G=32)
+    _, inp = _fused_inputs(arrays, st, cuda_device)
+    E, P, N = st["E"], st["P"], st["E"] + st["n_max"]
+    cpu = inp   # the plain parts on the same card tensors
+    carry = ft.carry0(cpu, N, E)
+    tab = None
+    for g0 in range(0, 16, st["F"]):
+        tab = ft._fused_table_ref(cpu, g0, st["F"], P=P)
+        carry, _, _ = ft._fused_block_ref(
+            cpu, carry, g0, st["F"],
+            ft.block_indep(cpu.fuse, st["F"]).tolist()[g0 // st["F"]], tab,
+            E=E, P=P)
+    fs = ffd_cuda.FusedState(inp, ft.carry0(inp, N, E), E=E, P=P, Fu=Fu)
+    for dst, src in zip(fs.carry, carry):
+        dst.copy_(src)
+    ffd_cuda.ffd_fused_headroom(fs, 16)
+    cand, k = ft._fused_headroom_ref(cpu, carry, 16, Fu, E=E, P=P)
+    assert torch.equal(fs.block_cand(), cand)
+    assert torch.equal(fs.block_k(), k)
+    assert "none" in _headroom_rows_seen(cpu, carry, 16, Fu, P)
+
+
+def test_fused_headroom_blocks_rule_matches_the_card(cuda_device):
+    """The headroom grid's Python mirror equals the C rule."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    for shape in ((256, 4, 8, 812), (37, 4, 2, 48), (64, 16, 1, 257)):
+        assert ffd_cuda._lib().karp_ffd_fused_headroom_blocks(*shape) \
+            == ffd_cuda.fused_headroom_blocks(*shape)
+
+
 def test_fused_solver_on_card(cuda_device):
     """The striped cluster at 2,000 pods through ``CUDASolver()``: the
     fused kernels serve it, and the decisions equal the plain versions'
@@ -1105,6 +1192,30 @@ def test_topo_pour_layout_too_large_raises(cuda_device):
     assert tc.LAUNCHES["topo_pour"] == before
 
 
+def test_topo_layout_past_the_card_serves_host_pour(cuda_device):
+    """A topology group listing more zone rows than one block's shared
+    memory holds (``examples.TOPO_LAYOUT_ROWS`` zone-spread constraints of
+    distinct selectors): ``CUDASolver()`` answers it on the host pour
+    (``reason="topo_layout"``, no pour launched), with the decisions of
+    the plain pour on the CPU; config 3's small scenario still fits."""
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    snap = examples.topo_wide_rows(fenv.Environment())
+    gpu = CUDASolver()
+    ffd_cuda.reset_launches()
+    got = gpu.solve(snap)
+    d = gpu.last_dispatch_stats
+    assert (d["kernel"], d["reason"]) == ("host", "topo_layout")
+    assert ffd_cuda.LAUNCHES["topo_pour"] == 0
+    assert not got.unschedulable
+    assert got.decision_fingerprint() == CUDASolver(
+        device="cpu").solve(snap).decision_fingerprint()
+    small = examples.topo_scenario(fenv.Environment(), "config3_small")
+    gpu.solve(small)
+    assert gpu.last_dispatch_stats["kernel"] == "topo"
+
+
 @pytest.mark.parametrize("evcap", [1, 2, 128])
 @pytest.mark.parametrize("case", ["config3_small", "two_pools_limits",
                                   "anti_budget", "anti_slots", "und_first",
@@ -1245,6 +1356,50 @@ def test_mesh_kernels_step_by_step(cuda_device, case, split):
         st["P"], st["V"]))
     for k in want:
         assert (got[k] == want[k]).all(), k
+
+
+#: mesh_fill states on the card: (rows, pools, ``examples.fill_state``
+#: options): 1 to 9,000 rows (two tiles of the 512-thread CTA), one and
+#: eight pools, limited or not, a shard starting inside the existing rows,
+#: earlier-shard prefixes small and wrapping, minValues floors
+FILL_CARD_STATES = (
+    [(nl, p, dict(limited=lim)) for nl in (1, 33, 256, 2112, 4224, 9000)
+     for p in (1, 8) for lim in (True, False)]
+    + [(512, 8, {}), (100, 20, {}),
+       (300, 8, dict(E=100, slot0=50, before="wrap")),
+       (300, 8, dict(E=40, slot0=100, before="small")),
+       (2112, 8, dict(E=128, slot0=0, before="wrap")),
+       (256, 3, dict(K=2, V=3))])
+
+
+@pytest.mark.parametrize("nl,P,kw", FILL_CARD_STATES)
+def test_mesh_fill_phases_on_card(cuda_device, nl, P, kw):
+    """Each ``mesh_fill`` phase (a, b, c and all three in one launch)
+    against ``_fill_ref`` from the same entry state: every buffer, bytes
+    equal; the launch count one a call."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    for phase in (mc.PHASE_A, mc.PHASE_B, mc.PHASE_C, mc.PHASE_ALL):
+        st, g = examples.fill_state(nl, P, seed=nl + P + phase,
+                                    device=cuda_device, **kw)
+        want = st.clone()
+        mc._fill_ref(want, g, phase)
+        before = ffd_cuda.LAUNCHES["mesh_fill"]
+        mc.mesh_fill(st, g, phase)
+        assert ffd_cuda.LAUNCHES["mesh_fill"] == before + 1
+        for nm, t in st.buffers().items():
+            assert torch.equal(t, want.buffers()[nm]), (phase, nm)
+
+
+def test_mesh_fill_threads_rule_matches_the_card(cuda_device):
+    """The fill's CTA size and rows a thread: the Python mirrors equal the
+    C rules."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    for n in (1, 256, 257, 2048, 2049, 2112, 4224, 9000):
+        assert ffd_cuda._lib().karp_mesh_fill_threads(n) \
+            == mc.fill_threads(n)
+        assert ffd_cuda._lib().karp_mesh_fill_rows(n) == mc.fill_rows(n)
 
 
 @pytest.mark.parametrize("before", sorted(examples.MESH_BEFORES))

@@ -228,6 +228,113 @@ def test_fused_parts_compose():
         assert torch.equal(a, b), f
 
 
+def _slot_cta_model(inp, carry, g0, Fu, *, E, P, seen):
+    """``ffd_fused_headroom``'s slot CTA as csrc/fused.cu runs it
+    (``fused_slot_headroom``): for each slot the groups that take its pool
+    share one pass over the types, each with its own F row and zone x
+    capacity-type mask (bit z*C + c) tested against the type's offering
+    mask; the other groups' candidate rows are zero and their k 0; an
+    existing row's k is its allocatable's headroom under each group's
+    compatibility. Returns (cand [Fu, N, T], k [Fu, N])."""
+    N, T = carry.types.shape
+    Z, C = inp.agz.shape[1], inp.agc.shape[1]
+    bit = 1 << torch.arange(Z * C, dtype=torch.int64)
+    am = (inp.avail_zc.long() * bit).sum(-1)                        # [T]
+    cand = torch.zeros((Fu, N, T), dtype=torch.bool)
+    k = torch.zeros((Fu, N), dtype=torch.int64)
+    for s in range(N):
+        pool = int(carry.pool[s])
+        pc = min(max(pool, 0), P - 1)
+        adm = [pool >= 0 and bool(inp.admit[g0 + i, pc]) for i in range(Fu)]
+        seen["skipped" if not any(adm) else
+             "shared" if all(adm) else "partial"] = True
+        for i in range(Fu):
+            g = g0 + i
+            if adm[i]:
+                zc = ((carry.zones[s] & inp.agz[g])[:, None]
+                      & (carry.ct[s] & inp.agc[g])[None, :]).reshape(-1)
+                mask = int((zc.long() * bit).sum())
+                cand[i, s] = carry.types[s] & inp.F[g] & ((am & mask) != 0)
+                hr = ft._headroom(inp.A, carry.used[s][None, :], inp.R[g])
+                k[i, s] = torch.where(cand[i, s], hr, 0).max()
+            if s < E:
+                seen["existing"] = True
+                ok = bool(carry.alive[s] & inp.ex_compat[g, s])
+                k[i, s] = int(ft._headroom(inp.ex_alloc[s], carry.used[s],
+                                           inp.R[g])) if ok else 0
+    return cand, k
+
+
+def _floordiv_fp_model(a: int, b: int) -> int:
+    """csrc/ffd_common.cuh ``floordiv_fp``: below 2^52 an fp64 quotient
+    (IEEE division, as the card's) floored, then one correction by the
+    remainder's sign and size; the integer floor division otherwise."""
+    lim = 1 << 52
+    if a <= -lim or a >= lim or b >= lim:
+        return a // b
+    q = int(np.floor(np.float64(a) / np.float64(b)))
+    r = a - q * b
+    return q - (r < 0) + (r >= b)
+
+
+def test_fp64_quotient_is_exact():
+    """The slot CTA's fp64 quotient equals the floor division on random
+    and edge operands: multiples of b and one either side, negative
+    numerators (over-committed rows), b = 1, operands near 2^52 and past
+    it (the integer path)."""
+    rng = np.random.RandomState(3)
+    cases = [(int(a), int(b)) for a, b in zip(
+        rng.randint(-(1 << 52) + 1, 1 << 52, size=20000, dtype=np.int64),
+        rng.randint(1, 1 << 40, size=20000, dtype=np.int64))]
+    for _ in range(20000):
+        b = int(rng.randint(1, 1 << 26))
+        q = int(rng.randint(-(1 << 25), 1 << 25))
+        for d in (-1, 0, 1):
+            cases.append((q * b + d, b))
+    lim = 1 << 52
+    cases += [(lim - 1, 1), (-lim + 1, 1), (lim - 1, 3), (-lim + 1, 7),
+              (lim, 3), (-lim, 3), ((1 << 62) + 5, 7), (5, lim + 1),
+              (0, 1), (-1, 1 << 51), (1 << 51, (1 << 51) - 1)]
+    for a, b in cases:
+        assert _floordiv_fp_model(a, b) == a // b, (a, b)
+
+
+def test_fused_headroom_blocks_rule():
+    """The headroom launch's blocks a lane: one CTA a slot for all Fu
+    groups, then the tables' Fu * P * table_blocks(T) (the striped
+    cluster: 256 + 128, one wave of the card's 132 SMs)."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    assert fc.fused_headroom_blocks(256, 4, 8, 812) == 256 + 128
+    assert fc.fused_headroom_blocks(200, 4, 2, 48) == 200 + 8
+    assert fc.fused_headroom_blocks(64, 8, 1, 257) == 64 + 16
+
+
+@pytest.mark.parametrize("case", examples.FUSED_CASES)
+def test_fused_slot_cta_model_matches_plain(case):
+    """The model of the headroom's slot CTA equals ``_fused_headroom_ref``
+    at every block start of the plain fused scan (each block from the
+    plain block-start carry): slots no group takes (free, existing, a
+    pool the block does not admit), slots some groups take, existing
+    rows."""
+    arrays, st = examples.fused_case(case)
+    inp = ft.kernel_inputs_from_numpy(arrays, "cpu")
+    E, P, G = st["E"], st["P"], st["G"]
+    carry = ft.carry0(inp, E + st["n_max"], E)
+    indep = _indep(arrays)
+    seen = {}
+    for b in range(G // FU):
+        want = ft._fused_headroom_ref(inp, carry, b * FU, FU, E=E, P=P)
+        got = _slot_cta_model(inp, carry, b * FU, FU, E=E, P=P, seen=seen)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        tab = ft._fused_table_ref(inp, b * FU, FU, P=P)
+        carry, _, _ = ft._fused_block_ref(inp, carry, b * FU, FU, indep[b],
+                                          tab, E=E, P=P)
+    assert seen.get("skipped") and (seen.get("shared")
+                                    or seen.get("partial"))
+    if case == "striped":
+        assert seen.get("partial") and seen.get("existing")
+
+
 def test_fused_many_byte_identical():
     """The plain ``solve_scan_packed1_many(F=4)`` against the reference's
     vmap on three striped lanes whose blocks branch differently; each

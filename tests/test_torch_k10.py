@@ -397,3 +397,150 @@ def test_window_commit_model(case, layout, CS):
         and seen.pop("opened")
     assert _must_reach(case, layout, CS) <= {k for k, v in seen.items()
                                               if v}
+
+
+# ---------------------------------------------------------------------------
+# the one-CTA fill (mesh_fill) as the kernel runs it
+# ---------------------------------------------------------------------------
+
+def _w64(x: int) -> int:
+    """x wrapped to int64, as the kernel's unsigned sums wrap."""
+    return (x + (1 << 63)) % (1 << 64) - (1 << 63)
+
+
+def _fill_model(st, g, phase, nt, rows, seen=None):
+    """``mesh_fill`` as csrc/mesh.cu runs it on one CTA of ``nt`` threads
+    holding up to ``rows`` rows each: the rows in tiles of nt * rows, a
+    thread a contiguous chunk of ceil(tile / nt) rows; phase (a)'s overlay
+    row by row; phase (b) over the limited pools the group admits, eight
+    a scan (each thread's chunk sums, an exclusive scan over the threads,
+    plus the pool's carried prefix: the earlier shards' and tiles'), phase
+    (c) over one scan with the fill's carried prefix; k stored once a
+    tile, the sums by segment over every row. Writes ``st.k`` and the
+    entries of ``st.red`` the kernel writes."""
+    inp, c, P, N = st.inp, st.carry, st.P, st.Nl
+    do_a = phase in (mc.PHASE_A, mc.PHASE_ALL)
+    do_b = phase in (mc.PHASE_B, mc.PHASE_ALL)
+    do_c = phase in (mc.PHASE_C, mc.PHASE_ALL)
+    before = None if phase == mc.PHASE_ALL else st.before.tolist()
+    R = inp.R[g]
+    if do_a:   # the overlay is row by row: the plain part's own formula
+        ref = st.clone()
+        mc._fill_ref(ref, g, mc.PHASE_A)
+        k_a = ref.k.tolist()
+    k = st.k.tolist()
+    pool = c.pool.tolist()
+    lp = [q for q in range(P) if do_b and bool(inp.admit[g, q])
+          and bool((inp.pool_limit[q] >= 0).any())]
+    lb = [int(ft._pool_budget(inp.pool_limit[q], c.pool_used[q], R))
+          for q in lp]
+    cb = [before[q] if before else 0 for q in lp]
+    cc = before[P] if do_c and before else 0
+    n = int(inp.n[g])
+    sums = [0] * (P + 1)
+    tile = nt * rows
+    for t0 in range(0, N, tile):
+        t1 = min(t0 + tile, N)
+        per = -(-(t1 - t0) // nt)
+        chunks = [range(min(t0 + i * per, t1), min(t0 + (i + 1) * per, t1))
+                  for i in range(nt)]
+        assert all(len(ch) <= rows for ch in chunks)
+        if seen is not None:
+            seen["tiles"] = max(seen.get("tiles", 0), t0 // tile + 1)
+        if do_a:
+            for s in range(t0, t1):
+                k[s] = k_a[s]
+        for b0 in range(0, len(lp), 8):
+            comps = range(b0, min(b0 + 8, len(lp)))
+            if seen is not None and b0:
+                seen["scans"] = True
+            for j in comps:
+                local = [sum(k[s] for s in ch if pool[s] == lp[j])
+                         for ch in chunks]
+                excl = 0
+                for ch, v in zip(chunks, local):
+                    cum = _w64(excl + cb[j])
+                    for s in ch:
+                        if pool[s] != lp[j]:
+                            continue
+                        kp = k[s]
+                        room = _w64(lb[j] - cum)
+                        cum = _w64(cum + kp)
+                        k[s] = max(min(kp, room), 0)
+                    excl += v
+                cb[j] = _w64(cb[j] + excl)
+        if do_c:
+            excl = 0
+            for ch in chunks:
+                v = sum(k[s] for s in ch)
+                cum = _w64(excl + cc)
+                for s in ch:
+                    x = max(_w64(n - cum), 0)
+                    cum = _w64(cum + k[s])
+                    k[s] = min(x, k[s])
+                excl += v
+            cc = _w64(cc + excl)
+        for s in range(t0, t1):
+            seg = 0 if phase == mc.PHASE_B else (
+                P if pool[s] < 0 else min(pool[s], P - 1))
+            sums[seg] = _w64(sums[seg] + k[s])
+    st.k.copy_(torch.tensor(k, dtype=torch.int64))
+    nout = P if phase == mc.PHASE_A else (1 if phase == mc.PHASE_B
+                                          else P + 1)
+    st.red[:nout] = torch.tensor(sums[:nout], dtype=torch.int64)
+
+
+#: (rows of the rank, pools, state options) of the model's states
+FILL_MODEL_STATES = (
+    [(nl, p, dict(E=e)) for nl, p, e in examples.FILL_SHAPES]
+    + [(1, 1, {}), (33, 8, {}), (33, 3, dict(limited=False)),
+       (300, 8, dict(E=100, slot0=50, before="wrap")),
+       (300, 8, dict(E=40, slot0=100, before="small")),
+       (100, 20, {}), (9000, 2, dict(before="small"))])
+
+#: every phase of each state; with minValues floors only the one-launch
+#: fill (floors ride the type mesh, ndp == 1)
+FILL_MODEL_CASES = (
+    [(nl, p, kw, ph) for nl, p, kw in FILL_MODEL_STATES
+     for ph in (mc.PHASE_A, mc.PHASE_B, mc.PHASE_C, mc.PHASE_ALL)]
+    + [(64, 3, dict(K=2, V=3), mc.PHASE_ALL)])
+
+
+def test_fill_threads_rule():
+    """The fill's CTA: 256 threads up to 2,048 rows (at most 8 a thread),
+    512 past them; a thread's rows the power of two at or above the rows
+    over the threads, at most 8, so one tile holds the rank's rows up to
+    4,096, the world-1 ceiling's 4,224 take two tiles and 9,000 three."""
+    ns = (1, 256, 257, 512, 2048, 2049, 2112, 4096, 4224, 9000)
+    assert [mc.fill_threads(n) for n in ns] \
+        == [256] * 5 + [512] * 5
+    assert [mc.fill_rows(n) for n in ns] == [1, 1, 2, 2, 8, 8, 8, 8, 8, 8]
+    assert [-(-n // (mc.fill_threads(n) * mc.fill_rows(n))) for n in ns] \
+        == [1] * 8 + [2, 3]
+    for n in ns:
+        r = mc.fill_rows(n)
+        assert r == 1 or (r // 2) * mc.fill_threads(n) < n
+
+
+@pytest.mark.parametrize("nl,P,kw,phase", FILL_MODEL_CASES)
+def test_fill_model_matches_plain(nl, P, kw, phase):
+    """The model of the one-CTA fill equals ``_fill_ref`` on the same
+    entry state (k and red) at the card's CTA for the rank's rows and on
+    small CTAs whose tiles split the rows (the carried prefixes across
+    tiles); limited and unlimited pools, a shard starting inside the
+    existing rows, wrapping prefixes, minValues floors (the type mesh's
+    one-launch fill)."""
+    st, g = examples.fill_state(nl, P, seed=nl + P, **kw)
+    want = st.clone()
+    mc._fill_ref(want, g, phase)
+    shapes = [(mc.fill_threads(nl), mc.fill_rows(nl)), (4, 2), (32, 3)]
+    seen = {}
+    for nt, rows in shapes:
+        got = st.clone()
+        _fill_model(got, g, phase, nt, rows, seen)
+        assert torch.equal(got.k, want.k), (nt, rows)
+        assert torch.equal(got.red, want.red), (nt, rows)
+    if nl >= 33:
+        assert seen["tiles"] > 1
+    if P == 20 and phase in (mc.PHASE_B, mc.PHASE_ALL):
+        assert seen.get("scans")   # ten limited pools: two scans

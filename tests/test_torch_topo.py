@@ -420,6 +420,36 @@ def test_group_cap_serves_host_pour(both_counters):
         CPUSolver().solve(ref).decision_fingerprint()
 
 
+def test_layout_past_the_pour_serves_host_pour(both_counters):
+    """A snapshot whose listed counter rows the pour cannot lay out (the
+    predicate forced false: the plain pour on the CPU has no layout) is
+    answered by the host pour, ``reason="topo_layout"``, before any
+    launch, with the reference's decisions; the predicate reads the
+    padded host rows, and on the CPU the real one says the pour fits."""
+    from karpenter_provider_aws_tpu_torch.ops import topo_cuda as tc
+    from karpenter_provider_aws_tpu_torch.ops import topo_torch as tt
+    ref, port = _pair(lambda env, api: examples.config3(env, 600, api=api))
+    solver = CUDASolver(device="cpu")
+    asked = []
+
+    def refuse(arrays, rows, stt):
+        asked.append(tc.listed_max(tt.topo_rows_from_numpy(rows, "cpu")))
+        return False
+    real = solver._pour_fits
+    solver._pour_fits = refuse
+    before = dict(tc.LAUNCHES)
+    got = solver.solve(port)
+    d = solver.last_dispatch_stats
+    assert (d["kernel"], d["reason"]) == ("host", "topo_layout")
+    assert tc.LAUNCHES == before
+    assert [(int(z), int(h)) for z, h in asked] == [(1, 1)]
+    assert got.decision_fingerprint() == \
+        CPUSolver().solve(ref).decision_fingerprint()
+    solver._pour_fits = real
+    solver.solve(port)
+    assert solver.last_dispatch_stats["kernel"] == "topo"
+
+
 def test_unsupported_topology_key_raises(both_counters):
     env = _port_env()
     pods = env_port.make_pods(4, cpu="1", prefix="arch", topology_spread=[
