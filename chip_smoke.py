@@ -25,7 +25,8 @@ Phases (any failure exits non-zero before the result line):
    axis with one lane (config 2 and the warm arena) and with five; the
    K7 kernels (``consol_absorb`` in its three modes, ``subset_gather``,
    ``subset_summary``, whole subset rounds) on the synthetic hazard cases
-   of ``examples.absorb_case`` / ``subset_case``; both K5 kernels
+   of ``examples.absorb_case`` / ``subset_case`` (the gather also at the
+   odd shapes of ``examples.GATHER_SHAPES``); both K5 kernels
    (``ffd_fused_headroom``, ``ffd_fused_commit``) block by block on every
    ``examples.FUSED_CASES`` arena at F = 4 (each with a vectorized and a
    sequential block; "striped" also at the catalog's 812 types), on
@@ -75,8 +76,10 @@ Phases (any failure exits non-zero before the result line):
    at the cluster size the dispatch takes (every block at B = 8, the
    first four at B = 64);
 11. the topology path (run before phase 10, so that its launches and its
-   kernels join phase 10's records): every topology group's
-   ``topo_group_start`` and ``topo_pour`` and every other group's
+   kernels join phase 10's records): every chunk's ``topo_pool_statics``
+   (the pool statics of its topology groups, the offering words), every
+   topology group's ``topo_group_start`` and ``topo_pour`` and every
+   other group's
    ``topo_record_plain`` of BASELINE config 3 (``examples.config3``,
    50,000 pods: 20 zone-spread deployments, one hostname anti-affinity
    deployment, plain pods) against the plain parts from the same entry
@@ -87,7 +90,8 @@ Phases (any failure exits non-zero before the result line):
    counter axes padded to 4,096 rows;
    then ``CUDASolver()`` solves config 3 on the topology kernels
    (one warm-up, timed rounds, counters set to 0 just before and read
-   just after) with 0 bails, fingerprint-equal to the host pour
+   just after; one ``topo_pool_statics`` a solve) with 0 bails,
+   fingerprint-equal to the host pour
    (``ops/topo.py``) on the CPU; a forced EVCAP = 1 solve bails and is
    solved again on the card (``reason="topo_bail"``), fingerprint-equal;
 12. the preemption path (run before phase 10 too): K8
@@ -164,14 +168,15 @@ Phases (any failure exits non-zero before the result line):
    of its own, two threads);
 10. kernel times with CUDA events at the main paths' shapes, beside the
    plain versions' times, the bound the shapes allow and, for the bank
-   kernels, ``Tensor.copy_`` of the same bytes; the suffix solve's device
+   kernels, ``Tensor.copy_`` of the same bytes; the gather at rounds (a)
+   and (b); the suffix solve's device
    time beside the checkpointed full solve's on the warm arena; the K2
    kernels on the lane axis at the whole-fleet round's 2,048 lanes; the
    K6 kernels at config 7's states (and config 7's step split, two
    launches a step, beside the figures of three), the lane-axis K1
-   kernels at B = 8
-   and 64, the K9 kernels at config 3's states, K8 at the preemption
-   round's tables and at the wider waves', and the K5 kernels at the
+   kernels at B = 8 and 64, the K9 kernels at config 3's states (the
+   pool statics once), K8 at the preemption round's tables and at the
+   wider waves', and the K5 kernels at the
    striped cluster's vectorized and sequential blocks, with one fused
    packed solve's device time beside the same snapshot packed unfused,
    and the K10 kernels at the type mesh's last group step of each mesh
@@ -335,6 +340,7 @@ KERNELS = {
     "ffd_pruned_probe": dict(source=K6_SRC,
                              replaces=f"{FFD_REF}:910, {FFD_REF}:939"),
     "ffd_pruned_commit": dict(source=K6_SRC, replaces=f"{FFD_REF}:957"),
+    "topo_pool_statics": dict(source=K9_SRC, replaces=f"{K9_REF}:292"),
     "topo_group_start": dict(source=K9_SRC, replaces=f"{K9_REF}:281"),
     "topo_pour": dict(source=K9_SRC, replaces=f"{K9_REF}:669"),
     "topo_record_plain": dict(source=K9_SRC, replaces=f"{K9_REF}:685"),
@@ -729,8 +735,8 @@ def check_k7_synthetic(cmp, dev):
     """The K7 kernels on the seeded hazard cases of ``examples``: the
     three consol_absorb modes (E=32 with the carry in shared memory,
     E=4096 in the global scratch), and whole subset rounds piece by
-    piece, and one round of 65,552 lanes (more than grid y holds). Returns
-    the number of cases."""
+    piece, the gather at ``GATHER_SHAPES``, and one round of 65,552 lanes
+    (more than grid y holds). Returns the number of cases."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
@@ -769,6 +775,21 @@ def check_k7_synthetic(cmp, dev):
                 ct._subset_solve_ref(inp, tp, t["gid"], t["n"], t["dead"],
                                      t["keep"], t["removed_price"], **st),
                 f"{what} round")
+            cases += 1
+    # the gather at its odd shapes (rows of T and E not multiples of 16,
+    # D odd, Gq = 1 and 128, round (a)'s widths)
+    for i, shp in enumerate(examples.GATHER_SHAPES):
+        for hazard in examples.SUBSET_HAZARDS:
+            arena, _, lanes, _ = examples.subset_case(hazard, i, **shp)
+            inp = ft.kernel_inputs_from_numpy(arena, dev)
+            t = {k: torch.from_numpy(v).to(dev) for k, v in lanes.items()}
+            g_k = cc.subset_gather(inp, t["gid"], t["n"], t["dead"],
+                                   t["keep"])
+            g_p = ct._subset_gather_ref(inp, t["gid"], t["n"], t["dead"],
+                                        t["keep"])
+            for f in ct.LANE_FIELDS:
+                cmp("subset_gather", getattr(g_k, f), getattr(g_p, f),
+                    f"gather shape {i} {hazard} {f}")
             cases += 1
     # more lanes than grid y's 65,535 blocks (subset_gather and
     # ffd_slot_headroom spread the lane over grid y and z): 16 lanes tiled
@@ -1557,6 +1578,11 @@ def topo_phase(cmp, device=None, n_pods=C3_PODS, rounds=C3_ROUNDS):
                     topo_record_plain=Gp - n_topo,
                     ffd_slot_headroom=Gp - n_topo,
                     ffd_group_commit=Gp - n_topo)
+        # one statics launch a chunk of topology groups (an older
+        # checkout timed by hack/k9_ab.py has none)
+        if "topo_pool_statics" in fc.LAUNCHES:
+            want["topo_pool_statics"] = -(-n_topo // tt.statics_chunk(
+                st["P"], st["T"], st["Z"]))
         got = {k: per[k] for k in want}
         if got != want:
             raise AssertionError(f"config 3 launches per solve {got}, "
@@ -3027,22 +3053,21 @@ def k7_times(caps, launches):
                time_launches(lambda: ref(**kw), reps=5),
                *_absorb_cost(kw, dense))
 
+    # the gather at both rounds' shapes: the record at (a), (b) beside it
+    gathers = {key: gather_times(caps[key]) for key in ("fleet", "prefix")}
+    record("subset_gather", *gathers["fleet"][:2], gathers["fleet"][2], 0)
+    b_ms, b_pms, b_bytes = gathers["prefix"]
+    recs[-1].update(prefix_ms=b_ms, prefix_plain_ms=b_pms,
+                    prefix_bound_ms=bound_ms(b_bytes, 0)[0])
+    log(f"[time] subset_gather at round (b) "
+        f"({tuple(caps['prefix'][2]['gid'].shape)} lanes x groups): "
+        f"{b_ms * 1e3:.2f} us/launch, bound "
+        f"{bound_ms(b_bytes, 0)[0] * 1e3:.4f} us (bytes, {b_bytes} B), "
+        f"plain {b_pms * 1e3:.1f} us")
     arena, tp, t, kw = caps["fleet"]
     E, P, N = kw["E"], kw["P"], kw["E"] + kw["n_max"]
     B, Gq = t["gid"].shape
-    T, D = arena.A.shape
-    Gu = arena.R.shape[0]
-    Z, C = arena.agz.shape[1], arena.agc.shape[1]
-    row = 8 * D + T + Z + C + P + 8 * P * D + E   # one group's lane fields
-    gather_in = (T * Z * C + Gu * row + 16 * E * D
-                 + 4 * B * Gq + B * E + B * T)
-    gather_out = B * (T * Z * C + Gq * row + 16 * E * D)
-    record("subset_gather",
-           time_launches(lambda: cc.subset_gather(
-               arena, t["gid"], t["n"], t["dead"], t["keep"]), reps=20),
-           time_launches(lambda: ct._subset_gather_ref(
-               arena, t["gid"], t["n"], t["dead"], t["keep"]), reps=3),
-           gather_in + gather_out, 0)
+    T = arena.A.shape[0]
 
     # the K2 kernels on the lane axis at both subset rounds' shapes; the
     # whole-fleet round's scan, then its summary
@@ -3062,6 +3087,32 @@ def k7_times(caps, launches):
                                    sorted({0, Gp // 4, Gp // 2, 3 * Gp // 4}))
     torch.cuda.empty_cache()
     return recs, lane
+
+
+def gather_cost(arena, gid) -> int:
+    """The bytes ``subset_gather`` must move: the union arena's rows it
+    reads (once), the lanes' gid, dead and keep, and every lane field
+    written."""
+    B, Gq = gid.shape
+    T, D = arena.A.shape
+    Gu, E = arena.ex_compat.shape
+    Z, C, P = arena.agz.shape[1], arena.agc.shape[1], arena.admit.shape[1]
+    row = 8 * D + T + Z + C + P + 8 * P * D + E   # one group's lane fields
+    gather_in = (T * Z * C + Gu * row + 16 * E * D
+                 + 4 * B * Gq + B * E + B * T)
+    return gather_in + B * (T * Z * C + Gq * row + 16 * E * D)
+
+
+def gather_times(cap, reps=20):
+    """(ms, plain ms, bytes) of ``subset_gather`` on a captured round's
+    inputs (``subset_rows_check``'s (arena, tprice, lanes, statics))."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    arena, _, t, _ = cap
+    args = (arena, t["gid"], t["n"], t["dead"], t["keep"])
+    return (time_launches(lambda: cc.subset_gather(*args), reps=reps),
+            time_launches(lambda: ct._subset_gather_ref(*args), reps=3),
+            gather_cost(arena, t["gid"]))
 
 
 def k2_cost(inp, c0, g, P, cand, c1=None, take=None):
@@ -3352,9 +3403,11 @@ def k9_times(c3, launches):
     """The K9 kernels at config 3's states (every group's entry state from
     phase 11): each kernel's time beside its plain part's, and the bytes
     and operations of that state's work (each input read once, each
-    output written once; a pour's operations count its events). The
-    pour's record also holds each group's time (``group_ms``: group,
-    events, µs) and group 0's apart from the others' mean."""
+    output written once; a pour's operations count its events); the pool
+    statics once, as a scan launches them (one chunk of every topology
+    group). The pour's record also holds each group's time
+    (``group_ms``: group, events, µs) and group 0's apart from the
+    others' mean."""
     import torch
     from karpenter_provider_aws_tpu_torch.ops import topo_cuda as tc
     from karpenter_provider_aws_tpu_torch.ops import topo_torch as tt
@@ -3367,8 +3420,28 @@ def k9_times(c3, launches):
                        torch.zeros((GZ, Z), dtype=torch.int64, device=dev),
                        torch.zeros((GH, N), dtype=torch.int64, device=dev),
                        n_max=N, P=P, EVCAP=EVCAP, PMAX=st["PMAX"])
-    acc = {k: [] for k in ("topo_group_start", "topo_pour",
-                           "topo_record_plain")}
+    acc = {k: [] for k in ("topo_pool_statics", "topo_group_start",
+                           "topo_pour", "topo_record_plain")}
+    # the statics of chunk 0 (the offering words too), as a scan's first
+    # launch: read the arena's type and pool tables, the groups' rows;
+    # write the tables and the words. (An older checkout timed by
+    # hack/k9_ab.py computes them in each topo_group_start.)
+    hoisted = hasattr(tc, "topo_pool_statics")
+    n0 = min(ts.chunk, len(ts.topo_groups)) if hoisted else 0
+    if not hoisted:
+        del acc["topo_pool_statics"]
+    if n0:
+        acc["topo_pool_statics"].append((
+            time_launches(lambda: tc.topo_pool_statics(ts, 0)),
+            time_launches(lambda: tt._topo_pool_statics_ref(
+                inp, rows, ts.topo_groups[:n0], P=P), reps=5),
+            T * D * 8 + T * Z * C + P * (T + Z + C)
+            + n0 * (T + D * 8 + Z + C + P + P * D * 8 + 2 * GZ + 4 * GH
+                    + 4)
+            + n0 * (P * T * (1 + 8 + Z) + P * Z * 9 + P * 9 + 1) + T * 8,
+            n0 * P * T * (D + 2 * Z * C)))
+        tc.topo_pool_statics(ts, 0)
+    slot_ref = getattr(tt, "_topo_slot_start_ref", None)
     groups = []
     for g, carry, cz, ch, zfix, x, r in states:
         def restore(carry=carry, cz=cz, ch=ch, zfix=zfix):
@@ -3397,21 +3470,23 @@ def k9_times(c3, launches):
         na = int((carry.pool >= 0).sum())
         acc["topo_group_start"].append((
             time_launches(lambda: tc.topo_group_start(ts, g), setup=restore),
-            time_launches(lambda: tt._topo_group_start_ref(
-                inp, carry, g, rows, P=P), reps=5),
+            time_launches(lambda: slot_ref(inp, carry, g, P=P) if slot_ref
+                          else tt._topo_group_start_ref(inp, carry, g, rows,
+                                                        P=P), reps=5),
             # read: pool, the admitted slots' types, zones, ct and used, F,
-            # admit, offerings, A, R, the group's zone/ct masks, the pool
-            # tables, daemon, rows; write: cand, rem, the per-pool statics
+            # admit, offerings, A, R, the group's zone/ct masks; write:
+            # cand, rem
             N * 4 + na * (T + Z + C + D * 8) + T + P + T * Z * C
-            + T * D * 8 + D * 8 + Z + C + P * (T + Z + C) + P * D * 8
-            + 4 * (GZ + GH) + N * T + N * 8 + P * T * (1 + 8 + Z)
-            + P * Z * 9 + P * 9 + 1,
-            n_cand * D + na * T * Z * C + P * T * (D + 2 * Z * C)))
+            + T * D * 8 + D * 8 + Z + C + N * T + N * 8,
+            n_cand * D + na * T * Z * C))
 
-        def setup_pour(restore=restore, gs=gs):
+        def setup_pour(restore=restore, gs=gs, g=g):
             restore()
             ts.st.cand.copy_(gs.cand)
             ts.rem.copy_(gs.rem0)
+            if hoisted:
+                ts.load_statics(g, gs)
+                return
             for f in ("cand_new", "hr_new", "open_ok0", "availz_p",
                       "cap_pz", "cap_any", "zcand_pz"):
                 getattr(ts, f).copy_(getattr(gs, f))
@@ -3427,6 +3502,8 @@ def k9_times(c3, launches):
         groups.append((g, int(r.ev_n), acc["topo_pour"][-1][0] * 1e3))
     out = []
     for name, rows_ in acc.items():
+        if not rows_:
+            continue
         ms, pms, nbytes, ops = (statistics.fmean(r[i] for r in rows_)
                                 for i in range(4))
         b, by = bound_ms(nbytes, ops)
@@ -3442,6 +3519,54 @@ def k9_times(c3, launches):
     log(f"[time] topo_pour by group (group, events, us): {groups}")
     del ts
     return out
+
+
+def topo_scan_device_ms(c3, evcap=None, reps=10):
+    """Mean device ms of the launches of one topology scan of config 3
+    (``c3``: phase 11's timing states) at ``evcap`` (the phase's by
+    default): the state is made fresh before each scan, its one
+    synchronisation outside the events, and a sleep kernel ahead of the
+    launches lets the host enqueue them all before the start event fires.
+    (A whole ``solve_scan_topo`` call reads ``has_topo`` back first, so
+    its events time the host's enqueue.) An older checkout timed by
+    hack/k9_ab.py has no ``topo_scan``: its loop is written out here."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import topo_cuda as tc
+    inp, rows, st, _ = c3
+    dev = inp.A.device
+
+    def old_scan(ts):
+        with fc.launching(ts.take) as stream:
+            for g, topo in enumerate(ts.has_topo):
+                if topo:
+                    tc.topo_group_start(ts, g, stream)
+                    tc.topo_pour(ts, g, stream)
+                else:
+                    fc.ffd_slot_headroom(ts.st, g, stream)
+                    fc.ffd_group_commit(ts.st, g, stream)
+                    tc.topo_record_plain(ts, g, stream)
+    scan = getattr(tc, "topo_scan", old_scan)
+    total = 0.0
+    for i in range(reps + 1):
+        ts = tc.topo_state(
+            inp, rows,
+            torch.zeros((st["GZ"], st["Z"]), dtype=torch.int64, device=dev),
+            torch.zeros((st["GH"], st["n_max"]), dtype=torch.int64,
+                        device=dev),
+            n_max=st["n_max"], P=st["P"], EVCAP=evcap or st["EVCAP"],
+            PMAX=st["PMAX"])
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(20_000_000)
+        s.record()
+        scan(ts)
+        e.record()
+        torch.cuda.synchronize()
+        if i:                       # the first is a warm-up
+            total += s.elapsed_time(e)
+        del ts
+    return total / reps
 
 
 def k5_times(states, mix, launches):
@@ -4219,8 +4344,9 @@ def main() -> int:
 
     # ---- phase 11: the topology path (config 3 on the K9 kernels) ----------
     launches_c3, c3, c3_states = topo_phase(cmp)
-    missing = [k for k in ("topo_group_start", "topo_pour",
-                           "topo_record_plain", "ffd_slot_headroom",
+    missing = [k for k in ("topo_pool_statics", "topo_group_start",
+                           "topo_pour", "topo_record_plain",
+                           "ffd_slot_headroom",
                            "ffd_group_commit") if launches_c3[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the topology "
@@ -4392,9 +4518,12 @@ def main() -> int:
                         device=dev),
             n_max=st3["n_max"], P=st3["P"], EVCAP=st3["EVCAP"],
             PMAX=st3["PMAX"]), reps=5)
+    c3_launch = topo_scan_device_ms(c3_states)
     log(f"[time] config 3 topology solve: device ms from the per-launch "
-        f"times x launches per solve {c3_dev:.3f}; one solve_scan_topo "
-        f"device ms {c3_scan:.3f} (wall p50 {c3['p50_ms']:.3f}); summary "
+        f"times x launches per solve {c3_dev:.3f}; one scan's launches, "
+        f"device ms {c3_launch:.3f}; one whole solve_scan_topo call (it "
+        f"reads has_topo back, so its events time the host's enqueue) "
+        f"{c3_scan:.3f} (wall p50 {c3['p50_ms']:.3f}); summary "
         f"{json.dumps(c3)}")
     log(f"[time] K5 by branch at the striped cluster's blocks: "
         f"{json.dumps(k5_branch)}")

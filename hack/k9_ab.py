@@ -7,9 +7,11 @@ group's K9 kernel against its plain part from the same entry state, 11
 solves through ``CUDASolver()`` with their p50 and median split, the host
 pour's fingerprint, the EVCAP = 1 bail and its re-dispatch), then each
 K9 kernel at every group's entry state (``chip_smoke.k9_times``: each
-group's pour, the mean, group 0 apart), and the device time of one whole
-``solve_scan_topo`` at EVCAP 128 and at the bail's re-dispatch capacity
-(``solver.cuda.safe_evcap``). Prints one line ``AB <tag> {json}``. To
+group's pour, the mean, group 0 apart; the pool statics once), and the
+device time of one scan's launches (``chip_smoke.topo_scan_device_ms``)
+and of one whole ``solve_scan_topo`` call (which reads ``has_topo`` back,
+so its events time the host's enqueue) at EVCAP 128 and at the bail's
+re-dispatch capacity (``solver.cuda.safe_evcap``). Prints one line ``AB <tag> {json}``. To
 compare two builds, run it on both checkouts in one call to the card, in
 the order P N N P:
 
@@ -61,8 +63,13 @@ def main() -> int:
     arrays = {"n": inp.n.cpu().numpy(),
               "pool_types": inp.pool_types.cpu().numpy()}
     ev_safe = safe_evcap(arrays, {"has_topo": rows.has_topo.cpu().numpy()})
-    out["scan_device_ms"] = {f"EVCAP={st['EVCAP']}": scan(st["EVCAP"]),
-                             f"EVCAP={ev_safe}": scan(ev_safe)}
+    # one scan's launches on the card (the state made before the events)
+    # and one whole call (it reads has_topo back: the host's enqueue)
+    out["scan_device_ms"] = {
+        f"EVCAP={e}": cs.topo_scan_device_ms(c3, e) for e in
+        (st["EVCAP"], ev_safe)}
+    out["scan_call_ms"] = {f"EVCAP={st['EVCAP']}": scan(st["EVCAP"]),
+                           f"EVCAP={ev_safe}": scan(ev_safe)}
     print("AB", tag, json.dumps(out), flush=True)
     return 0
 

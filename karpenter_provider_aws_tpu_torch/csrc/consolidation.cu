@@ -39,10 +39,23 @@
 //   materialises every lane's KernelInputs from the one union arena,
 //   lane-major: R, F & keep, agz, agc, admit, daemon and ex_compat & ~dead
 //   gathered by the lane's group rows gid; avail_zc & keep; ex_alloc and
-//   ex_used0 zeroed on the lane's dead rows. Grid (x: chunks, y: lane),
-//   threads stride over each output field. The lanes then run the K2
-//   kernels on their lane axis (ffd_scan.cu). Bound: bytes (the lane
-//   tensors are written once).
+//   ex_used0 zeroed on the lane's dead rows. Bound: bytes (the lane
+//   tensors are written once; ex_alloc / ex_used0 are ~90% of them). Grid
+//   (x: X CTAs a lane, y/z: the lane); X by bytes (karp_subset_gather_
+//   grid: about four waves of the card's resident CTAs, each CTA writing
+//   at least kGatherCtaBytes), each field's rows cut into X contiguous
+//   slices. Every store is 16 bytes where the row allows it: a row is cut
+//   at its destination's 16-byte boundaries (single bytes or 8-byte words
+//   before the first and after the last), and its sources are read as 16-
+//   or 4-byte words where they share the destination's alignment, as
+//   bytes otherwise (a row of T = 812 bytes starts at every 4-byte offset
+//   mod 16). The byte fields AND words of the source with words of the
+//   mask (keep, or the complement of dead); avail_zc's mask is keep of the
+//   row's type, walked with a counter. The group rows go a warp a row, the
+//   gid loaded once; the existing rows 16 bytes a thread, the dead flag
+//   by the 32-bit row index. No 64-bit division per element: each lane's
+//   sizes are far below 2^31. The lanes then run the K2 kernels on their
+//   lane axis (ffd_scan.cu).
 //
 // subset_summary (:253-262): per lane the [5] row: total leftover, new
 //   nodes, and over the first new slot's type mask t0 = types[E] & keep
@@ -123,6 +136,10 @@ namespace {
 
 constexpr int kAbsorbThreads = 256;
 constexpr int kGatherThreads = 256;
+// the least bytes one CTA of the gather writes (its stores in flight), and
+// the waves of resident CTAs the grid aims at
+constexpr i64 kGatherCtaBytes = 16 * 1024;
+constexpr i64 kGatherWaves = 4;
 constexpr int kSummaryThreads = 256;
 
 // k of node row e for the current group (R in shared memory `Rg`);
@@ -259,41 +276,215 @@ consol_absorb_kernel(AbsorbArgs a) {
     if (tid == 0) a.out[b] = found || !any_active;
 }
 
+// 16 bytes at p, read as one 16-byte word (al 16), four 4-byte words (al
+// 4) or sixteen bytes (al 1): p's alignment
+__device__ __forceinline__ uint4 ld16(const u8* p, int al) {
+    if (al == 16) return *reinterpret_cast<const uint4*>(p);
+    uint4 v;
+    unsigned* w = reinterpret_cast<unsigned*>(&v);
+    if (al == 4) {
+        const unsigned* q = reinterpret_cast<const unsigned*>(p);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) w[i] = q[i];
+    } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            w[i] = (unsigned)p[4 * i] | (unsigned)p[4 * i + 1] << 8
+                | (unsigned)p[4 * i + 2] << 16 | (unsigned)p[4 * i + 3] << 24;
+    }
+    return v;
+}
+
+// the alignment ld16 reads src with, where dst is 16-byte aligned at the
+// same offset
+__device__ __forceinline__ int rel_align(const void* src, const void* dst) {
+    const size_t d = ((size_t)src - (size_t)dst) & 15;
+    return d == 0 ? 16 : ((d & 3) == 0 ? 4 : 1);
+}
+
+// The cut of a row of n bytes at dst: `head` bytes up to dst's first
+// 16-byte boundary, nv 16-byte words, then the tail.
+struct RowCut {
+    i64 head, nv, tail;
+};
+__device__ __forceinline__ RowCut row_cut(const void* dst, i64 n) {
+    RowCut c;
+    c.head = (i64)((16 - ((size_t)dst & 15)) & 15);
+    c.head = c.head < n ? c.head : n;
+    c.nv = (n - c.head) >> 4;
+    c.tail = n - c.head - (c.nv << 4);
+    return c;
+}
+
+// dst[i] = src[i] & mask[i] (inv: & ~mask[i]) for the n bytes of a row
+// on one warp; the bytes are 0 or 1, so the complement's 0xfe clears a 1.
+__device__ __forceinline__ void and_row_warp(u8* dst, const u8* src,
+                                             const u8* mask, bool inv,
+                                             i64 n) {
+    const int wl = threadIdx.x & 31;
+    const RowCut c = row_cut(dst, n);
+    const u8 flip = inv ? 0xff : 0;
+    if (wl < c.head) dst[wl] = src[wl] & (mask[wl] ^ flip);
+    const int as = rel_align(src + c.head, dst + c.head);
+    const int am = rel_align(mask + c.head, dst + c.head);
+    const unsigned fw = inv ? ~0u : 0u;
+    for (i64 k = wl; k < c.nv; k += 32) {
+        const i64 o = c.head + (k << 4);
+        const uint4 v = ld16(src + o, as), m = ld16(mask + o, am);
+        *reinterpret_cast<uint4*>(dst + o) = make_uint4(
+            v.x & (m.x ^ fw), v.y & (m.y ^ fw), v.z & (m.z ^ fw),
+            v.w & (m.w ^ fw));
+    }
+    const i64 t0 = c.head + (c.nv << 4);
+    if (wl < c.tail) dst[t0 + wl] = src[t0 + wl] & (mask[t0 + wl] ^ flip);
+}
+
+// dst[i] = src[i] for the n bytes of a short row on one warp
+__device__ __forceinline__ void copy_bytes_warp(u8* dst, const u8* src,
+                                                i64 n) {
+    for (i64 i = threadIdx.x & 31; i < n; i += 32) dst[i] = src[i];
+}
+
+// dst[i] = src[i] for the n 8-byte words of a row on one warp: 16-byte
+// words where dst and src share their alignment mod 16, a single word
+// before and after them
+__device__ __forceinline__ void copy_i64_warp(i64* dst, const i64* src,
+                                              i64 n) {
+    const int wl = threadIdx.x & 31;
+    if ((((size_t)dst ^ (size_t)src) & 15) != 0) {
+        for (i64 i = wl; i < n; i += 32) dst[i] = src[i];
+        return;
+    }
+    const i64 h = ((size_t)dst & 15) && n > 0 ? 1 : 0;
+    const i64 nv = (n - h) >> 1;
+    if (wl == 0 && h) dst[0] = src[0];
+    const uint4* s = reinterpret_cast<const uint4*>(src + h);
+    uint4* d = reinterpret_cast<uint4*>(dst + h);
+    for (i64 k = wl; k < nv; k += 32) d[k] = s[k];
+    if (wl == 0 && h + 2 * nv < n) dst[n - 1] = src[n - 1];
+}
+
+// [lo, hi) of slice x of X over n units
+__device__ __forceinline__ void slice(i64 n, i64 x, i64 X, i64* lo,
+                                      i64* hi) {
+    *lo = n * x / X;
+    *hi = n * (x + 1) / X;
+}
+
 __global__ void __launch_bounds__(kGatherThreads)
-subset_gather_kernel(GatherArgs a) {
+subset_gather_kernel(const __grid_constant__ GatherArgs a) {
     const unsigned lane = grid_lane();
     if (lane >= a.B) return;   // the (y, z) grid's spare lanes
-    const i64 b = lane;
-    const i64 i0 = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-    const i64 step = (i64)gridDim.x * blockDim.x;
+    const i64 b = lane, x = blockIdx.x, X = gridDim.x;
+    const int tid = threadIdx.x, nth = blockDim.x;
+    const int warp = tid >> 5, nwarp = nth >> 5;
     const i64 Gq = a.Gq, T = a.T, ZC = a.ZC, D = a.D, Z = a.Z, C = a.C;
     const i64 P = a.P, E = a.E;
-    const int* gid = a.gid + b * Gq;
     const u8* keep = a.keep + b * T;
     const u8* dead = a.dead + b * E;
-    for (i64 i = i0; i < T * ZC; i += step)
-        a.o_avail_zc[b * T * ZC + i] = a.avail_zc[i] && keep[i / ZC];
-    for (i64 i = i0; i < Gq * D; i += step)
-        a.o_R[b * Gq * D + i] = a.R[(i64)gid[i / D] * D + i % D];
-    for (i64 i = i0; i < Gq * T; i += step)
-        a.o_F[b * Gq * T + i] = a.F[(i64)gid[i / T] * T + i % T]
-            && keep[i % T];
-    for (i64 i = i0; i < Gq * Z; i += step)
-        a.o_agz[b * Gq * Z + i] = a.agz[(i64)gid[i / Z] * Z + i % Z];
-    for (i64 i = i0; i < Gq * C; i += step)
-        a.o_agc[b * Gq * C + i] = a.agc[(i64)gid[i / C] * C + i % C];
-    for (i64 i = i0; i < Gq * P; i += step)
-        a.o_admit[b * Gq * P + i] = a.admit[(i64)gid[i / P] * P + i % P];
-    for (i64 i = i0; i < Gq * P * D; i += step)
-        a.o_daemon[b * Gq * P * D + i] =
-            a.daemon[(i64)gid[i / (P * D)] * P * D + i % (P * D)];
-    for (i64 i = i0; i < Gq * E; i += step)
-        a.o_ex_compat[b * Gq * E + i] =
-            a.ex_compat[(i64)gid[i / E] * E + i % E] && !dead[i % E];
-    for (i64 i = i0; i < E * D; i += step) {
-        const bool gone = dead[i / D];
-        a.o_ex_alloc[b * E * D + i] = gone ? 0 : a.ex_alloc[i];
-        a.o_ex_used0[b * E * D + i] = gone ? 0 : a.ex_used0[i];
+    i64 lo, hi;
+
+    // avail_zc & keep[type]: the lane's T*ZC bytes cut at the
+    // destination's 16-byte boundaries; CTA x takes a slice of the 16-byte
+    // words, CTA 0 the head and the tail bytes
+    {
+        const i64 n = T * ZC;
+        u8* dst = a.o_avail_zc + b * n;
+        const RowCut c = row_cut(dst, n);
+        const unsigned zc = (unsigned)ZC;
+        if (x == 0) {
+            if (tid < c.head)
+                dst[tid] = a.avail_zc[tid] & keep[(unsigned)tid / zc];
+            const i64 t0 = c.head + (c.nv << 4);
+            if (tid < c.tail) {
+                const unsigned i = (unsigned)(t0 + tid);
+                dst[i] = a.avail_zc[i] & keep[i / zc];
+            }
+        }
+        const int as = rel_align(a.avail_zc + c.head, dst + c.head);
+        slice(c.nv, x, X, &lo, &hi);
+        for (i64 k = lo + tid; k < hi; k += nth) {
+            const unsigned o = (unsigned)(c.head + (k << 4));
+            const uint4 v = ld16(a.avail_zc + o, as);
+            // keep of each byte's type: a counter from o's type
+            unsigned t = o / zc, r = o - t * zc;
+            unsigned m[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+                if (keep[t]) m[j >> 2] |= 0xffu << (8 * (j & 3));
+                if (++r == zc) {
+                    r = 0;
+                    ++t;
+                }
+            }
+            *reinterpret_cast<uint4*>(dst + o) =
+                make_uint4(v.x & m[0], v.y & m[1], v.z & m[2], v.w & m[3]);
+        }
+    }
+
+    // the group rows of slice x: a warp a row, its gid loaded once
+    slice(Gq, x, X, &lo, &hi);
+    for (i64 q = lo + warp; q < hi; q += nwarp) {
+        const i64 r = b * Gq + q;
+        const i64 g = a.gid[r];
+        copy_i64_warp(a.o_R + r * D, a.R + g * D, D);
+        and_row_warp(a.o_F + r * T, a.F + g * T, keep, false, T);
+        copy_bytes_warp(a.o_agz + r * Z, a.agz + g * Z, Z);
+        copy_bytes_warp(a.o_agc + r * C, a.agc + g * C, C);
+        copy_bytes_warp(a.o_admit + r * P, a.admit + g * P, P);
+        copy_i64_warp(a.o_daemon + r * P * D, a.daemon + g * P * D, P * D);
+        and_row_warp(a.o_ex_compat + r * E, a.ex_compat + g * E, dead, true,
+                     E);
+    }
+
+    // the existing rows of slice x: ex_alloc and ex_used0, 0 on the lane's
+    // dead rows; 16 bytes (two words) a thread where the lane's table and
+    // the arena's share their alignment mod 16, the row of a word by 32-bit
+    // division
+    slice(E, x, X, &lo, &hi);
+    {
+        const i64 w0 = lo * D, w1 = hi * D;      // the slice's words
+        i64* da = a.o_ex_alloc + b * E * D;
+        i64* du = a.o_ex_used0 + b * E * D;
+        const unsigned d = (unsigned)D;
+        if (((((size_t)da ^ (size_t)a.ex_alloc)
+              | ((size_t)du ^ (size_t)a.ex_used0)
+              | ((size_t)da ^ (size_t)du)) & 15) == 0) {
+            // a first word before the 16-byte boundary, pairs, a last word
+            const i64 h = (((size_t)(da + w0) & 15) && w1 > w0) ? 1 : 0;
+            const i64 np = (w1 - w0 - h) >> 1;
+            if (tid == 0 && h) {
+                const bool gone = dead[(unsigned)w0 / d];
+                da[w0] = gone ? 0 : a.ex_alloc[w0];
+                du[w0] = gone ? 0 : a.ex_used0[w0];
+            }
+            const i64 p0 = w0 + h;
+#pragma unroll 4
+            for (i64 k = tid; k < np; k += nth) {
+                const unsigned i = (unsigned)(p0 + 2 * k);
+                const unsigned e = i / d;
+                const bool g0 = dead[e], g1 = dead[(i + 1 - e * d) == d
+                                                   ? e + 1 : e];
+                uint4 va = *reinterpret_cast<const uint4*>(a.ex_alloc + i);
+                uint4 vu = *reinterpret_cast<const uint4*>(a.ex_used0 + i);
+                if (g0) va.x = va.y = vu.x = vu.y = 0u;
+                if (g1) va.z = va.w = vu.z = vu.w = 0u;
+                *reinterpret_cast<uint4*>(da + i) = va;
+                *reinterpret_cast<uint4*>(du + i) = vu;
+            }
+            const i64 wl = p0 + 2 * np;
+            if (tid == 0 && wl < w1) {
+                const bool gone = dead[(unsigned)wl / d];
+                da[wl] = gone ? 0 : a.ex_alloc[wl];
+                du[wl] = gone ? 0 : a.ex_used0[wl];
+            }
+        } else {
+            for (i64 i = w0 + tid; i < w1; i += nth) {
+                const bool gone = dead[(unsigned)i / d];
+                da[i] = gone ? 0 : a.ex_alloc[i];
+                du[i] = gone ? 0 : a.ex_used0[i];
+            }
+        }
     }
 }
 
@@ -370,14 +561,44 @@ int karp_consol_absorb(const AbsorbArgs* a, int mode, void* stream) {
     }
 }
 
+// The gather's CTAs a lane (X) and the card's resident CTAs of the kernel
+// (slots): X = ceil(kGatherWaves * slots / B), at most the lane's bytes
+// over kGatherCtaBytes, at least 1 (ops/consolidation_cuda.py
+// gather_ctas is its mirror).
+int karp_subset_gather_grid(const GatherArgs* a, long long* X,
+                            long long* slots) {
+    // the resident CTAs of each device, asked once
+    static long long cached[64] = {0};
+    int dev = 0, sms = 0, per = 0;
+    int err = (int)cudaGetDevice(&dev);
+    if (err) return err;
+    if (dev >= 64 || cached[dev] == 0) {
+        err = (int)cudaDeviceGetAttribute(
+            &sms, cudaDevAttrMultiProcessorCount, dev);
+        if (!err)
+            err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per, subset_gather_kernel, kGatherThreads, 0);
+        if (err) return err;
+        if (dev < 64) cached[dev] = (long long)sms * per;
+    }
+    const i64 s = dev < 64 ? cached[dev] : (i64)sms * per;
+    const i64 lane_bytes = a->T * a->ZC + 16 * a->E * a->D
+        + a->Gq * (8 * a->D + a->T + a->Z + a->C + a->P + 8 * a->P * a->D
+                   + a->E);
+    const i64 B = a->B > 1 ? a->B : 1;
+    i64 x = (kGatherWaves * s + B - 1) / B;
+    const i64 most = lane_bytes / kGatherCtaBytes;
+    x = x < most ? x : most;
+    *X = x < 1 ? 1 : x;
+    *slots = s;
+    return 0;
+}
+
 int karp_subset_gather(const GatherArgs* a, void* stream) {
-    i64 most = a->T * a->ZC;
-    const i64 sizes[] = {a->Gq * a->D, a->Gq * a->T, a->Gq * a->P * a->D,
-                         a->Gq * a->E, a->E * a->D};
-    for (i64 s : sizes) most = s > most ? s : most;
-    i64 bx = (most + kGatherThreads - 1) / kGatherThreads;
-    bx = bx < 1 ? 1 : (bx > 64 ? 64 : bx);
-    dim3 grid((unsigned)bx);
+    long long X = 1, slots = 0;
+    const int err = karp_subset_gather_grid(a, &X, &slots);
+    if (err) return err;
+    dim3 grid((unsigned)X);
     lane_grid(a->B, &grid);
     subset_gather_kernel<<<grid, kGatherThreads, 0, (cudaStream_t)stream>>>(
         *a);

@@ -152,6 +152,63 @@ __device__ __forceinline__ i64 floordiv_fp(i64 a, i64 b) {
     return q;
 }
 
+// floordiv(a, b) for b > 0 by an fp64 product with rb = 1 / b (rounded;
+// the caller computes it once for many numerators) and one int64
+// correction each way, where |a| and b are below 2^52: the product is
+// then within one of the quotient (b = 1 is exact, b >= 2 leaves
+// |a / b| <= 2^51 and an error below 1/2), which the remainder's sign and
+// size fix. The integer division otherwise. Exact either way.
+__device__ __forceinline__ i64 floordiv_rcp(i64 a, i64 b, double rb) {
+    constexpr i64 kLim = 1LL << 52;
+    if (a <= -kLim || a >= kLim || b >= kLim) return floordiv(a, b);
+    i64 q = (i64)floor((double)a * rb);
+    const i64 r = a - q * b;
+    q -= r < 0;
+    q += r >= b;
+    return q;
+}
+
+// Widest request row a slot CTA stages in shared memory (its quotients
+// then read a type's allocatable row from registers); wider rows read
+// the global rows (fused.cu, topo.cu).
+constexpr int kHeadDims = 8;
+
+// Read-only loads issued where they are written (volatile): left to
+// itself the compiler sank a type's loads next to their uses, so each
+// waited for the one before it.
+__device__ __forceinline__ unsigned ld_pin_u8(const u8* p) {
+    unsigned v;
+    asm volatile("ld.global.nc.u8 %0, [%1];" : "=r"(v) : "l"(p));
+    return v;
+}
+__device__ __forceinline__ unsigned ld_pin_u32(const unsigned* p) {
+    unsigned v;
+    asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(p));
+    return v;
+}
+__device__ __forceinline__ i64 ld_pin_i64(const i64* p) {
+    i64 v;
+    asm volatile("ld.global.nc.s64 %0, [%1];" : "=l"(v) : "l"(p));
+    return v;
+}
+
+// headroom() of an allocatable row held in registers (av [D], D <=
+// kHeadDims) over a used row u and a request row r in shared memory, its
+// quotients in fp64 with one int64 correction (floordiv_fp: a type
+// loop's 64-bit divisions were most of a candidate type's time).
+__device__ __forceinline__ i64 head_staged(const i64 (&av)[kHeadDims],
+                                           const i64* u, const i64* r,
+                                           i64 D) {
+    i64 m = KARP_BIG;
+#pragma unroll
+    for (int d = 0; d < kHeadDims; ++d) {
+        if (d >= D || r[d] <= 0) continue;
+        const i64 q = floordiv_fp(wsub(av[d], u[d]), r[d]);
+        m = q < m ? q : m;
+    }
+    return m < 0 ? 0 : m;
+}
+
 // ceil(a / b) for b > 0, as the reference's -(-a // b)
 __device__ __forceinline__ i64 ceildiv(i64 a, i64 b) {
     return -floordiv(-a, b);

@@ -109,30 +109,6 @@ constexpr int kFillW = 4;   // greedy scan components: a block's Fu groups
 // (the fused scan packs F = 4; a wider block takes several passes).
 constexpr int kHeadGroups = 4;
 
-// Widest request row the slot CTA stages in shared memory (its quotients
-// then read a type's allocatable row from registers); wider rows read
-// the global rows.
-constexpr int kHeadDims = 8;
-
-// Read-only loads issued where they are written (volatile): left to
-// itself the compiler sank a type's loads next to their uses, so each
-// waited for the one before it.
-__device__ __forceinline__ unsigned ld_pin_u8(const u8* p) {
-    unsigned v;
-    asm volatile("ld.global.nc.u8 %0, [%1];" : "=r"(v) : "l"(p));
-    return v;
-}
-__device__ __forceinline__ unsigned ld_pin_u32(const unsigned* p) {
-    unsigned v;
-    asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(p));
-    return v;
-}
-__device__ __forceinline__ i64 ld_pin_i64(const i64* p) {
-    i64 v;
-    asm volatile("ld.global.nc.s64 %0, [%1];" : "=l"(v) : "l"(p));
-    return v;
-}
-
 // Most zone x capacity-type pairs the slot CTA tests as bit masks (Z*C a
 // multiple of 4, four a load); other shapes take offering_ok.
 constexpr int kHeadPairs = 32;
@@ -153,23 +129,6 @@ __device__ __forceinline__ u64 offer_bits(const u8* row, i64 ZC) {
                    | ((b >> 21) & 8u)) << (4 * i);
     }
     return m;
-}
-
-// headroom() of an allocatable row held in registers (av [D], D <=
-// kHeadDims) over a used row u and a request row r in shared memory, its
-// quotients in fp64 with one int64 correction (floordiv_fp: the type
-// loop's 64-bit divisions were most of a candidate type's time).
-__device__ __forceinline__ i64 head_staged(const i64 (&av)[kHeadDims],
-                                           const i64* u, const i64* r,
-                                           i64 D) {
-    i64 m = KARP_BIG;
-#pragma unroll
-    for (int d = 0; d < kHeadDims; ++d) {
-        if (d >= D || r[d] <= 0) continue;
-        const i64 q = floordiv_fp(wsub(av[d], u[d]), r[d]);
-        m = q < m ? q : m;
-    }
-    return m < 0 ? 0 : m;
 }
 
 // Steps 1-3 of the groups g0 .. g0+nf-1 (nf <= kHeadGroups; group i's

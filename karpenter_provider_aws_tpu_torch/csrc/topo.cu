@@ -1,25 +1,55 @@
-// K9, the topology group scan: the three kernels of a topology group.
+// K9, the topology group scan: the four kernels of a topology scan.
 //
 // Replaces karpenter_provider_aws_tpu/ops/topo_jax.py:solve_scan_topo
 // (dispatched by :730 dispatch_topo): a lax.scan over pod groups whose
 // topology groups run the pour's event loop in a lax.while_loop. Groups
 // without topology run the K2 kernels (ffd_scan.cu) and then
 // topo_record_plain; a topology group runs topo_group_start and then
-// topo_pour. All of them read and update one carry in device memory
+// topo_pour, after the launch of topo_pool_statics for its chunk of
+// topology groups (one a chunk, before the chunk's first group). The
+// group kernels read and update one carry in device memory
 // (FfdArgs: used/types/zones/ct/pool/alive/num_nodes/pool_used) plus the
 // topology counters (TopoArgs: cz [GZ, Z], ch [GH, N], zfix [N]); the host
 // enqueues the launches of a whole scan with no synchronisation between
 // them.
 //
-// topo_group_start (topo_jax.py:281-315): N + P blocks of 256 threads.
-//   Block s < N is slot row s: the candidate mask cand[s, :] (a boolean
-//   any-reduction over zone x capacity-type offerings, never an integer
-//   matmul) and the room rem[s] = max over candidates of the headroom,
-//   as ffd_slot_headroom. Block N + p is pool p's statics of opening a
-//   node: cand_new, hr_new (headroom over the pool's daemon row),
-//   availz_p, cap_pz, cap_any, zcand_pz, open_ok0; block N also writes
-//   the group's cap-1 anti-ladder gate. Bound: a launch costs its
-//   latency (one wave, ~0.3 MB at config 3's N = 256, T = 812).
+// topo_pool_statics (topo_jax.py:292-315): the carry-free half of a
+//   topology group's start, the per-pool statics of opening a node
+//   (cand_new, hr_new over the pool's daemon row, availz_p, cap_pz,
+//   cap_any, zcand_pz, open_ok0) and the group's cap-1 anti-ladder gate
+//   (anti_bulk). They read only the group's rows and the static arena, so
+//   one launch before a chunk's first group computes them for up to CH
+//   topology groups at once (one block of 512 threads a (group, pool),
+//   table row j of the chunk = the group's rank among the scan's topology
+//   groups mod CH; a type's loads issued at once, its quotients by
+//   floordiv_fp); the chunk's first launch also packs each type's
+//   offerings into one Z*C-bit word (offw [T], bit z*C + c) when Z*C <=
+//   64. The pour reads its group's row (srow [G]). Off the group chain;
+//   bound: bytes (a chunk writes P*T*(9 + Z) bytes a group).
+//
+// topo_group_start (topo_jax.py:281-291): N blocks of 512 threads, block
+//   s slot row s: the candidate mask cand[s, :] (a boolean any-reduction
+//   over zone x capacity-type offerings, never an integer matmul) and the
+//   room rem[s] = max over candidates of the headroom. A slot that is
+//   free, existing or of a pool the group does not admit stores its zero
+//   row with 16-byte stores and rem 0. In an open slot's block warp 0
+//   folds (zones & agz) x (ct & agc) into one Z*C-bit word by two ballots
+//   (each lane's four loads at once) and warp 1 stages the used row, R
+//   and 1 / R in shared memory; after the one barrier a thread takes two
+//   types (the row's type before its first 2-byte boundary and the one
+//   after its last pair apart): their types and F bytes and offering
+//   words, each type's offering test one AND of its word (offw) with the
+//   slot's, a candidate's headroom by fp64 reciprocal quotients with one
+//   int64 correction each way (floordiv_rcp, exact) over its allocatable
+//   row; a pair at a 4-byte boundary stores the next lane's pair with its
+//   own as one 4-byte word. A warp-shuffle max and one barrier give rem.
+//   Z*C past 64 keeps offering_ok's loop, D past 8 the global rows.
+//   Measured against other shapes in one call (PERF.md): four types a
+//   thread, a tile of the rows staged in shared memory a type a thread,
+//   eight lanes a type, two slots a block, all four types' rows loaded at
+//   once were each slower; the candidates' rows, read a candidate after
+//   another, pace the block. Bound: bytes (N*T + 8 N written); it costs
+//   its launch latency and its rounds of loads.
 //
 // topo_pour (topo_jax.py:335-683): ONE block of 512 threads for the
 //   group, which loops over its events until no pod is left, the group is
@@ -118,15 +148,16 @@ struct TopoArgs {
     i64* take;              // [N]
     i64* rem;               // [N]
     unsigned* und;          // [2, ceil(N / 32)] the pour's undecided words
-    // the group-start statics (topo_group_start -> topo_pour)
-    u8* cand_new;           // [P, T]
-    i64* hr_new;            // [P, T]
-    u8* open_ok0;           // [P]
-    u8* availz_p;           // [P, T, Z]
-    i64* cap_pz;            // [P, Z]
-    i64* cap_any;           // [P]
-    u8* zcand_pz;           // [P, Z]
-    u8* anti_bulk;          // [1]
+    // the pool statics of a chunk of CH topology groups (topo_pool_statics
+    // -> topo_pour), table row j the group of rank r0 + j
+    u8* cand_new;           // [CH, P, T]
+    i64* hr_new;            // [CH, P, T]
+    u8* open_ok0;           // [CH, P]
+    u8* availz_p;           // [CH, P, T, Z]
+    i64* cap_pz;            // [CH, P, Z]
+    i64* cap_any;           // [CH, P]
+    u8* zcand_pz;           // [CH, P, Z]
+    u8* anti_bulk;          // [CH]
     // outputs
     i64* ev_slot;           // [G, EVCAP]
     i64* ev_zone;
@@ -135,14 +166,24 @@ struct TopoArgs {
     i64* ev_aux;
     i64* ev_n;              // [G]
     u8* bail;               // [G]
+    // a topology group's table row (its rank mod CH; -1 for the others),
+    // the group of each rank, and the types' offering words (Z*C <= 64)
+    const int* srow;        // [G]
+    const int* tgid;        // [n_topo]
+    u64* offw;              // [T]
     // statics; NZ / NH: the most zone / hostname counter rows a topology
-    // group lists (the pour's shared memory holds that many listed rows)
-    i64 GZ, GH, EVCAP, PMAX, NZ, NH;
+    // group lists (the pour's shared memory holds that many listed rows);
+    // CH: the table rows of a chunk
+    i64 GZ, GH, EVCAP, PMAX, NZ, NH, CH;
 };
 
 namespace {
 
-constexpr int kStartThreads = 256;
+constexpr int kStaticsThreads = 512;
+// topo_group_start's block (two types a thread: 1,024 types a pass)
+constexpr int kStartThreads = 512;
+// the most zone x capacity-type pairs an offering word holds
+constexpr int kOfferBits = 64;
 constexpr int kPourThreads = 512;
 // the pour's rows of D held in registers (D beyond is read in place), and
 // the touched slots its narrowing stages at a time
@@ -169,112 +210,270 @@ __device__ __forceinline__ i64 clip_big(i64 x) {
     return x < 0 ? 0 : (x > KARP_BIG ? KARP_BIG : x);
 }
 
-// any capacity type offers type t in zone z
-__device__ __forceinline__ bool avail_any_ct(const FfdArgs& a, i64 t,
-                                             i64 z) {
-    const i64 C = a.C;
-    for (i64 c = 0; c < C; ++c)
-        if (a.avail_zc[t * a.Z * C + z * C + c]) return true;
-    return false;
+// ---------------------------------------------------------------------------
+// topo_pool_statics
+// ---------------------------------------------------------------------------
+
+// Block j * P + p < nr * P: pool p's statics for the chunk's table row j
+// (the topology group of rank r0 + j); the blocks after them, on the
+// chunk at rank 0 with Z*C <= kOfferBits, pack a type's offerings a
+// thread. Dynamic shared memory: the zone maxima [Z] (u64), R [D], the
+// daemon row [D], the zone flags [Z] (u32), the zones [Z] and capacity
+// types [C] the group and the pool both take (bytes).
+__global__ void __launch_bounds__(kStaticsThreads)
+topo_pool_statics_kernel(const __grid_constant__ FfdArgs a,
+                         const __grid_constant__ TopoArgs t, i64 r0,
+                         i64 nr) {
+    extern __shared__ unsigned long long sdyn[];
+    __shared__ i64 red[kStaticsThreads / 32];
+    const i64 T = a.T, D = a.D, Z = a.Z, C = a.C, P = a.P;
+    const int tid = threadIdx.x, nth = blockDim.x;
+    const i64 nb = nr * P;
+    if ((i64)blockIdx.x >= nb) {
+        const i64 tt = ((i64)blockIdx.x - nb) * nth + tid;
+        if (tt < T) {
+            const u8* row = a.avail_zc + tt * Z * C;
+            u64 w = 0;
+            for (i64 i = 0; i < Z * C; ++i) w |= (u64)(row[i] != 0) << i;
+            t.offw[tt] = w;
+        }
+        return;
+    }
+    const i64 j = (i64)blockIdx.x / P, p = (i64)blockIdx.x - j * P;
+    const i64 g = t.tgid[r0 + j];
+    const i64 row = j * P + p;      // the (group, pool) row of the tables
+    unsigned long long* scap = sdyn;
+    i64* sR = reinterpret_cast<i64*>(sdyn + Z);
+    i64* sdm = sR + D;
+    unsigned* szc = reinterpret_cast<unsigned*>(sdm + D);
+    u8* sgz = reinterpret_cast<u8*>(szc + Z);
+    u8* sgc = sgz + Z;
+    for (i64 z = tid; z < Z; z += nth) {
+        scap[z] = 0;
+        szc[z] = 0;
+        sgz[z] = a.agz[g * Z + z] && a.pool_agz[p * Z + z];
+    }
+    for (i64 c = tid; c < C; c += nth)
+        sgc[c] = a.agc[g * C + c] && a.pool_agc[p * C + c];
+    for (i64 d = tid; d < D; d += nth) {
+        sR[d] = a.R[g * D + d];
+        sdm[d] = a.daemon[(g * P + p) * D + d];
+    }
+    __syncthreads();
+    const bool staged = D <= kHeadDims;
+    i64 cmax = 0;
+    for (i64 tt = tid; tt < T; tt += nth) {
+        // the type's loads at once: its F and pool bytes, its allocatable
+        // row, its offerings (each zone's capacity types the group and the
+        // pool both take, by bitwise ORs: no branch between the loads)
+        const u8* av = a.avail_zc + tt * Z * C;
+        u8* az = t.availz_p + (row * T + tt) * Z;
+        const unsigned fp = ld_pin_u8(a.F + g * T + tt)
+            & ld_pin_u8(a.pool_types + p * T + tt);
+        i64 ar[kHeadDims];
+#pragma unroll
+        for (int d = 0; d < kHeadDims; ++d)
+            ar[d] = staged && d < D ? ld_pin_i64(a.A + tt * D + d) : 0;
+        unsigned off = 0;
+        for (i64 z = 0; z < Z; ++z) {
+            unsigned azz = 0;
+            for (i64 c = 0; c < C; ++c)
+                azz |= (ld_pin_u8(av + z * C + c) != 0) & sgc[c];
+            az[z] = (u8)azz;
+            off |= azz & sgz[z];
+        }
+        const bool cn = fp && off;
+        const i64 hr = staged ? head_staged(ar, sdm, sR, D)
+                              : headroom(a.A + tt * D, sdm, sR, D);
+        t.cand_new[row * T + tt] = cn;
+        t.hr_new[row * T + tt] = hr;
+        if (!cn) continue;
+        cmax = imax(cmax, hr);
+        for (i64 z = 0; z < Z; ++z) {
+            unsigned any = 0, azz = 0;
+            for (i64 c = 0; c < C; ++c) {
+                const unsigned v = ld_pin_u8(av + z * C + c) != 0;
+                any |= v;
+                azz |= v & sgc[c];
+            }
+            // hr is clipped to [0, BIG]: its unsigned max is its max
+            if (azz) atomicMax(&scap[z], (unsigned long long)hr);
+            if (any && hr >= 1) szc[z] = 1;
+        }
+    }
+    for (int o = 16; o > 0; o >>= 1)
+        cmax = imax(cmax, __shfl_xor_sync(~0u, cmax, o));
+    if ((tid & 31) == 0) red[tid >> 5] = cmax;
+    // the group's cap-1 hostname-anti ladder gate, on its pool-0 block: no
+    // zone spread, no zone affinity, no hostname spread, every hostname
+    // term a self anti-affinity, at least one
+    bool ok = true, any_ha = false;
+    if (p == 0) {
+        const i64 GZ = t.GZ, GH = t.GH;
+        for (i64 r = tid; r < GZ; r += nth)
+            ok &= !t.zs_any[g * GZ + r] && !t.za_any[g * GZ + r];
+        for (i64 h = tid; h < GH; h += nth) {
+            const i64 o = g * GH + h;
+            ok &= !t.hs_any[o];
+            if (t.ha_any[o]) {
+                any_ha = true;
+                ok &= t.ha_anti[o] && t.ha_own[o];
+            }
+        }
+    }
+    ok = __syncthreads_and(ok);     // and the barrier of red, scap, szc
+    any_ha = __syncthreads_or(any_ha);
+    for (i64 z = tid; z < Z; z += nth) {
+        t.cap_pz[row * Z + z] = (i64)scap[z];
+        t.zcand_pz[row * Z + z] = szc[z] && sgz[z];
+    }
+    if (tid == 0) {
+        i64 cap = 0;
+        for (int w = 0; w < nth / 32; ++w) cap = imax(cap, red[w]);
+        bool az = false, ac = false;
+        for (i64 z = 0; z < Z; ++z) az |= sgz[z] != 0;
+        for (i64 c = 0; c < C; ++c) ac |= sgc[c] != 0;
+        t.cap_any[row] = cap;
+        t.open_ok0[row] = a.admit[g * P + p] && az && ac && cap >= 1;
+        if (p == 0) t.anti_bulk[j] = ok && any_ha;
+    }
 }
 
 // ---------------------------------------------------------------------------
 // topo_group_start
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kStartThreads)
-topo_group_start_kernel(FfdArgs a, TopoArgs t, i64 g) {
-    __shared__ i64 red[33];
-    const i64 T = a.T, D = a.D, Z = a.Z, C = a.C, P = a.P, N = a.N;
-    const i64* R = a.R + g * D;
+// Zeroes the n bytes at p on the block: single bytes up to the first
+// 16-byte boundary, 16-byte stores over the middle, single bytes after
+// it (a candidate row of T = 812 starts at every 4-byte offset mod 16 as
+// s moves).
+__device__ __forceinline__ void zero_bytes_block(u8* p, i64 n) {
     const int tid = threadIdx.x;
-    if ((i64)blockIdx.x < N) {
-        const i64 s = blockIdx.x;
-        const int pool = a.pool[s];
-        const i64 pc = pool < 0 ? 0 : (pool > P - 1 ? P - 1 : pool);
-        const bool adm_open = pool >= 0 && a.admit[g * P + pc];
-        i64 kmax = 0;
-        for (i64 tt = tid; tt < T; tt += blockDim.x) {
-            const bool c = adm_open && a.types[s * T + tt]
-                && a.F[g * T + tt] && offering_ok(a, g, s, tt);
-            a.cand[s * T + tt] = c;
-            if (c) kmax = imax(kmax, headroom(a.A + tt * D,
-                                              a.used + s * D, R, D));
-        }
-        const i64 k = block_max(kmax, red);
-        if (tid == 0) t.rem[s] = k;
+    i64 head = (i64)((16 - ((size_t)p & 15)) & 15);
+    head = head < n ? head : n;
+    const i64 nv = (n - head) >> 4;
+    if (tid < head) p[tid] = 0;
+    uint4* v = reinterpret_cast<uint4*>(p + head);
+    for (i64 i = tid; i < nv; i += blockDim.x)
+        v[i] = make_uint4(0u, 0u, 0u, 0u);
+    const i64 t0 = head + (nv << 4);
+    if (t0 + tid < n) p[t0 + tid] = 0;
+}
+
+__global__ void __launch_bounds__(kStartThreads)
+topo_group_start_kernel(const __grid_constant__ FfdArgs a,
+                        const __grid_constant__ TopoArgs t, i64 g) {
+    __shared__ u64 s_zm;            // the slot's admitted pairs, bit z*C + c
+    __shared__ i64 su[kHeadDims], sr[kHeadDims];
+    __shared__ double srb[kHeadDims];
+    __shared__ i64 red[kStartThreads / 32];
+    const i64 T = a.T, D = a.D, Z = a.Z, C = a.C, P = a.P;
+    const i64 s = blockIdx.x;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    u8* crow = a.cand + s * T;
+    const int pool = a.pool[s];
+    const i64 pc = pool < 0 ? 0 : (pool > P - 1 ? P - 1 : pool);
+    if (!(pool >= 0 && a.admit[g * P + pc])) {   // uniform over the block
+        zero_bytes_block(crow, T);
+        if (tid == 0) t.rem[s] = 0;
         return;
     }
-    const i64 p = blockIdx.x - N;
-    const i64* dmn = a.daemon + (g * P + p) * D;
-    i64 cmax = 0;
-    for (i64 tt = tid; tt < T; tt += blockDim.x) {
-        bool off = false;
-        for (i64 z = 0; z < Z && !off; ++z) {
-            if (!(a.agz[g * Z + z] && a.pool_agz[p * Z + z])) continue;
-            for (i64 c = 0; c < C; ++c) {
-                if (a.agc[g * C + c] && a.pool_agc[p * C + c]
-                    && a.avail_zc[tt * Z * C + z * C + c]) {
-                    off = true;
-                    break;
+    const i64 ZC = Z * C;
+    const bool bits = ZC <= kOfferBits;
+    const bool staged = D <= kHeadDims;
+    if (warp == 0 && bits) {        // lanes over the pairs, two ballots
+        u64 m = 0;
+        for (int h = 0; h < 2; ++h) {
+            const int i = lane + 32 * h;
+            bool on = false;
+            if (i < ZC) {           // the four loads at once
+                const int z = i / (int)C, c = i - z * (int)C;
+                on = (a.zones[s * Z + z] & a.agz[g * Z + z]
+                      & a.ct[s * C + c] & a.agc[g * C + c]) != 0;
+            }
+            m |= (u64)__ballot_sync(~0u, on) << (32 * h);
+        }
+        if (lane == 0) s_zm = m;
+    } else if (warp == 1 && staged && lane < D) {
+        const i64 r = a.R[g * D + lane];
+        su[lane] = a.used[s * D + lane];
+        sr[lane] = r;
+        srb[lane] = r > 0 ? 1.0 / (double)r : 0.0;
+    }
+    __syncthreads();
+    const u64 zm = bits ? s_zm : 0;
+    const u8* trow = a.types + s * T;
+    const u8* frow = a.F + g * T;
+    // item 0: the row's type before its first 2-byte boundary; items 1 ..
+    // nw: pairs of types; item nw + 1: the type after the last pair
+    const i64 head = imin((i64)((size_t)crow & 1), T);
+    const i64 nw = (T - head) >> 1;
+    const bool tyw = (((size_t)trow ^ (size_t)crow) & 1) == 0;
+    i64 kmax = 0;
+    for (i64 w0 = 0; w0 < nw + 2; w0 += blockDim.x) {
+        const i64 w = w0 + tid;
+        const i64 t0 = w == 0 ? 0 : head + 2 * (w - 1);
+        const int n = w >= nw + 2 ? 0
+            : (int)(w == 0 ? head : (w <= nw ? 2 : T - t0));
+        unsigned word = 0;
+        if (n > 0) {
+            unsigned ty = 0, fw = 0;
+            if (n == 2 && tyw) {
+                ty = *reinterpret_cast<const unsigned short*>(trow + t0);
+            } else {
+                ty = trow[t0];
+            }
+            fw = frow[t0] | (n == 2 ? (unsigned)frow[t0 + 1] << 8 : 0u);
+            const u64 ow0 = bits ? t.offw[t0] : 0;
+            const u64 ow1 = bits && n == 2 ? t.offw[t0 + 1] : 0;
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                if (j >= n) break;
+                const i64 tt = t0 + j;
+                const bool c = ((ty >> (8 * j)) & 0xffu)
+                    && ((fw >> (8 * j)) & 0xffu)
+                    && (bits ? ((j ? ow1 : ow0) & zm) != 0
+                             : offering_ok(a, g, s, tt));
+                if (!c) continue;
+                word |= 1u << (8 * j);
+                i64 m = KARP_BIG;
+                if (staged) {
+                    for (i64 d = 0; d < D; ++d) {
+                        if (sr[d] <= 0) continue;
+                        m = imin(m, floordiv_rcp(wsub(a.A[tt * D + d], su[d]),
+                                                 sr[d], srb[d]));
+                    }
+                    m = m < 0 ? 0 : m;
+                } else {
+                    m = headroom(a.A + tt * D, a.used + s * D, a.R + g * D,
+                                 D);
                 }
+                kmax = imax(kmax, m);
             }
         }
-        const bool cn = a.F[g * T + tt] && a.pool_types[p * T + tt] && off;
-        const i64 hr = headroom(a.A + tt * D, dmn, R, D);
-        t.cand_new[p * T + tt] = cn;
-        t.hr_new[p * T + tt] = hr;
-        for (i64 z = 0; z < Z; ++z) {
-            bool az = false;
-            for (i64 c = 0; c < C; ++c)
-                az |= a.avail_zc[tt * Z * C + z * C + c]
-                    && a.agc[g * C + c] && a.pool_agc[p * C + c];
-            t.availz_p[(p * T + tt) * Z + z] = az;
-        }
-        if (cn) cmax = imax(cmax, hr);
-    }
-    const i64 cap_any = block_max(cmax, red);
-    for (i64 z = 0; z < Z; ++z) {
-        i64 m = 0, zc = 0;
-        // each thread reads back the rows it wrote above
-        for (i64 tt = tid; tt < T; tt += blockDim.x) {
-            if (!t.cand_new[p * T + tt]) continue;
-            const i64 hr = t.hr_new[p * T + tt];
-            if (t.availz_p[(p * T + tt) * Z + z]) m = imax(m, hr);
-            if (hr >= 1 && avail_any_ct(a, tt, z)) zc = 1;
-        }
-        const i64 mm = block_max(m, red);
-        const i64 zz = block_max(zc, red);
-        if (tid == 0) {
-            t.cap_pz[p * Z + z] = mm;
-            t.zcand_pz[p * Z + z] = zz && a.agz[g * Z + z]
-                && a.pool_agz[p * Z + z];
+        // a pair at a 4-byte boundary takes the next lane's pair into one
+        // 4-byte word (the lanes of a warp hold consecutive items)
+        const unsigned up = __shfl_down_sync(~0u, word, 1);
+        const int nup = __shfl_down_sync(~0u, n, 1);
+        const int ndown = __shfl_up_sync(~0u, n, 1);
+        const bool at4 = ((size_t)(crow + t0) & 3) == 0;
+        if (n == 2 && at4 && lane < 31 && nup == 2) {
+            *reinterpret_cast<unsigned*>(crow + t0) = word | up << 16;
+        } else if (n == 2 && !(!at4 && lane > 0 && ndown == 2)) {
+            *reinterpret_cast<unsigned short*>(crow + t0) =
+                (unsigned short)word;
+        } else if (n == 1) {
+            crow[t0] = word & 1u;
         }
     }
+    for (int o = 16; o > 0; o >>= 1)
+        kmax = imax(kmax, __shfl_xor_sync(~0u, kmax, o));
+    if (lane == 0) red[warp] = kmax;
+    __syncthreads();
     if (tid == 0) {
-        bool az = false, ac = false;
-        for (i64 z = 0; z < Z; ++z) az |= a.agz[g * Z + z] && a.pool_agz[p * Z + z];
-        for (i64 c = 0; c < C; ++c) ac |= a.agc[g * C + c] && a.pool_agc[p * C + c];
-        t.cap_any[p] = cap_any;
-        t.open_ok0[p] = a.admit[g * P + p] && az && ac && cap_any >= 1;
-        if (p == 0) {
-            // the cap-1 hostname-anti ladder: no zone spread, no zone
-            // affinity, no hostname spread, every hostname term a self
-            // anti-affinity, at least one
-            const i64 GZ = t.GZ, GH = t.GH;
-            bool ok = true, any_ha = false;
-            for (i64 r = 0; r < GZ; ++r)
-                ok &= !t.zs_any[g * GZ + r] && !t.za_any[g * GZ + r];
-            for (i64 h = 0; h < GH; ++h) {
-                const i64 o = g * GH + h;
-                ok &= !t.hs_any[o];
-                if (t.ha_any[o]) {
-                    any_ha = true;
-                    ok &= t.ha_anti[o] && t.ha_own[o];
-                }
-            }
-            t.anti_bulk[0] = ok && any_ha;
-        }
+        i64 k = 0;
+        for (int w = 0; w < kStartThreads / 32; ++w) k = imax(k, red[w]);
+        t.rem[s] = k;
     }
 }
 
@@ -416,6 +615,7 @@ struct Pour {
     const TopoArgs& t;
     PourSmem m;
     i64 g;
+    i64 sr;         // the group's row of the pool statics (srow[g])
 
     __device__ __forceinline__ i64 N() const { return a.N; }
     __device__ __forceinline__ i64 D() const { return a.D; }
@@ -423,6 +623,8 @@ struct Pour {
     __device__ __forceinline__ i64 C() const { return a.C; }
     __device__ __forceinline__ i64 P() const { return a.P; }
     __device__ __forceinline__ i64 RB() const { return 2 * t.PMAX; }
+    // pool p's (group, pool) row of the pool statics
+    __device__ __forceinline__ i64 pr(i64 p) const { return sr * a.P + p; }
     // the listed hostname row j's counters over the slots
     __device__ __forceinline__ i64* ch(int j) const {
         return t.ch + (i64)m.hrow[j] * a.N;
@@ -817,7 +1019,7 @@ __device__ void open_new(const Pour& q) {
             i64 bestkey = KARP_BIG;
             bool zvalid = false;
             for (i64 z = 0; z < Z; ++z) {
-                if (!(t.zcand_pz[x * Z + z] && m.zok[z])) continue;
+                if (!(t.zcand_pz[q.pr(x) * Z + z] && m.zok[z])) continue;
                 zvalid = true;
                 const i64 key = m.score[z] * Z + z;
                 if (key < bestkey) {
@@ -825,9 +1027,10 @@ __device__ void open_new(const Pour& q) {
                     best = z;
                 }
             }
-            const i64 cap = need_zone ? t.cap_pz[x * Z + best] : t.cap_any[x];
-            valid = t.open_ok0[x] && m.bud[x] >= 1 && N - nn > 0 && cap >= 1
-                && hcap_new >= 1 && (!need_zone || zvalid);
+            const i64 cap = need_zone ? t.cap_pz[q.pr(x) * Z + best]
+                                    : t.cap_any[q.pr(x)];
+            valid = t.open_ok0[q.pr(x)] && m.bud[x] >= 1 && N - nn > 0
+                && cap >= 1 && hcap_new >= 1 && (!need_zone || zvalid);
         }
         const unsigned b = __ballot_sync(~0u, valid);
         if (b) {
@@ -844,7 +1047,8 @@ __device__ void open_new(const Pour& q) {
     const i64 zi = need_zone ? zsel : -1;
     const i64 zc = zi < 0 ? 0 : zi;
     const i64 slot = nn;
-    const i64 capn = need_zone ? t.cap_pz[pi * Z + zc] : t.cap_any[pi];
+    const i64 capn = need_zone ? t.cap_pz[q.pr(pi) * Z + zc]
+                                : t.cap_any[q.pr(pi)];
     const i64 roomz = (need_zone && v[V_NEEDZ]) ? m.room[zc] : KARP_BIG;
     const i64 run = imax(imin(imin(capn, hcap_new),
                               imin(m.bud[pi], imin(v[V_NREM], roomz))), 1);
@@ -907,7 +1111,7 @@ topo_pour_kernel(const __grid_constant__ FfdArgs a,
     s_m.zfix = t.zfix;
     s_m.pool = a.pool;
     s_m.und = t.und;
-    const Pour q{a, t, s_m, g};
+    const Pour q{a, t, s_m, g, (i64)t.srow[g]};
     const PourSmem& m = q.m;
     i64* v = m.v;
 
@@ -1014,7 +1218,7 @@ topo_pour_kernel(const __grid_constant__ FfdArgs a,
             v[V_NEEDZ] = enf || zaa;
             v[V_NEEDZONE] = t.zone_needed[g];
             v[V_HAVETO] = veto;
-            v[V_ANTIB] = t.anti_bulk[0];
+            v[V_ANTIB] = t.anti_bulk[q.sr];
             v[V_NRUN] = 0;
             s_nt = 0;
             s_zflag = 0;
@@ -1245,8 +1449,9 @@ topo_pour_kernel(const __grid_constant__ FfdArgs a,
             const i64 mm = v[V_M], s0 = v[V_S0];
             // the new rows' candidates, row by row, coalesced over T
             for (i64 tt = tid; tt < T; tt += nth) {
-                const bool kp = t.cand_new[pi * T + tt]
-                    && (!need_zone || t.availz_p[(pi * T + tt) * Z + zc]);
+                const bool kp = t.cand_new[q.pr(pi) * T + tt]
+                    && (!need_zone
+                        || t.availz_p[(q.pr(pi) * T + tt) * Z + zc]);
                 for (i64 r = 0; r <= mm; ++r) a.cand[(slot + r) * T + tt] = kp;
             }
             const i64 jmh = v[V_JMH];
@@ -1419,9 +1624,26 @@ int set_smem(const void* fn, size_t smem) {
 
 extern "C" {
 
+// the pool statics of the topology groups of ranks [r0, r0 + nr), table
+// rows 0 .. nr - 1, and at r0 == 0 the offering words
+int karp_topo_pool_statics(const FfdArgs* a, const TopoArgs* t,
+                           long long r0, long long nr, void* stream) {
+    const bool words = r0 == 0 && a->Z * a->C <= kOfferBits;
+    const i64 nb = nr * a->P
+        + (words ? (a->T + kStaticsThreads - 1) / kStaticsThreads : 0);
+    if (nb <= 0) return 0;
+    const size_t smem = (size_t)(8 * (a->Z + 2 * a->D) + 5 * a->Z + a->C);
+    int err = set_smem((const void*)topo_pool_statics_kernel, smem);
+    if (err) return err;
+    topo_pool_statics_kernel<<<(unsigned)nb, kStaticsThreads, smem,
+                               (cudaStream_t)stream>>>(*a, *t, r0, nr);
+    return (int)cudaGetLastError();
+}
+
 int karp_topo_group_start(const FfdArgs* a, const TopoArgs* t, long long g,
                           void* stream) {
-    topo_group_start_kernel<<<(unsigned)(a->N + a->P), kStartThreads, 0,
+    if (a->N <= 0) return 0;
+    topo_group_start_kernel<<<(unsigned)a->N, kStartThreads, 0,
                               (cudaStream_t)stream>>>(*a, *t, g);
     return (int)cudaGetLastError();
 }

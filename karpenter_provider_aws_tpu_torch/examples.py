@@ -491,6 +491,20 @@ def subset_case(hazard: str, seed: int, Gu: int = 6, Ep: int = 16,
     return arena, tprice, lanes, dict(n_max=2, E=Ep, P=P)
 
 
+#: odd shapes of the gather (``subset_case`` keywords): rows of T and E
+#: bytes that are not multiples of 16 (so a lane's rows start at every
+#: offset), D odd (the lane tables' 16-byte words straddle rows and lanes),
+#: Gq = 1 and 128, a lane's bytes above and below a CTA's share, and round
+#: (a)'s widths
+GATHER_SHAPES = (
+    dict(T=813, D=7, Ep=37, Z=3, C=2, P=3, B=33, Gq=1),
+    dict(T=29, D=5, Ep=3, Z=2, C=3, P=2, B=7, Gq=3),
+    dict(T=17, D=1, Ep=1, Z=1, C=1, P=1, B=5, Gq=2),
+    dict(T=100, D=8, Ep=45, Z=4, C=3, P=2, B=9, Gq=128),
+    dict(T=812, D=8, Ep=1000, Z=4, C=3, P=1, B=6, Gq=128),
+    dict(T=812, D=8, Ep=1024, Z=4, C=3, P=1, B=40, Gq=1),
+)
+
 #: a fused round wider than grid y holds (hazard 57): the 16 lanes of
 #: ``fused_mixed_lanes(16)``, each repeated this many times (65,552)
 FUSED_WIDE_REPS = 4097
@@ -1319,11 +1333,14 @@ def topo_kernel_steps(inp, rows, *, n_max: int, P: int, EVCAP: int = 128,
     """Walk a topology scan with the plain parts on the inputs' (CUDA)
     device and, at every group's entry state, run that group's kernels
     from the same state: yields (kernel, what, kernel value, plain value)
-    for each output of ``topo_group_start``, ``topo_pour`` (carry,
+    for each output of ``topo_pool_statics`` (at a chunk's first group:
+    every row of the chunk, and at chunk 0 the offering words),
+    ``topo_group_start`` (candidates, room), ``topo_pour`` (carry,
     counters, take, leftover, event-log row, ev_n, bail) and
     ``topo_record_plain`` (counters). The plain parts carry the state.
-    ``states`` collects each group's entry state (g, carry, cz, ch, zfix,
-    the plain group start or the plain take, the plain pour or None)."""
+    ``states`` collects each group's entry state (g, carry, cz,
+    ch, zfix, the plain group start or the plain take, the plain pour or
+    None)."""
     import torch
 
     from .ops import ffd_torch as ft
@@ -1331,7 +1348,7 @@ def topo_kernel_steps(inp, rows, *, n_max: int, P: int, EVCAP: int = 128,
     from .ops import topo_torch as tt
     G = inp.R.shape[0]
     GZ, GH = rows.zs_any.shape[1], rows.hs_any.shape[1]
-    Z = inp.agz.shape[1]
+    Z, C = inp.agz.shape[1], inp.agc.shape[1]
     dev = inp.A.device
     cz = torch.zeros((GZ, Z), dtype=torch.int64, device=dev)
     ch = torch.zeros((GH, n_max), dtype=torch.int64, device=dev)
@@ -1351,26 +1368,32 @@ def topo_kernel_steps(inp, rows, *, n_max: int, P: int, EVCAP: int = 128,
     for g, topo in enumerate(rows.has_topo.tolist()):
         load(carry, cz, ch, zfix)
         if topo:
-            gs = tt._topo_group_start_ref(inp, carry, g, rows, P=P)
+            r = ts.rank[g]
+            if r % ts.chunk == 0:
+                c = r // ts.chunk
+                groups = ts.topo_groups[r:r + ts.chunk]
+                tab = tt._topo_pool_statics_ref(inp, rows, groups, P=P)
+                tc.topo_pool_statics(ts, c)
+                for j, gj in enumerate(groups):
+                    got = ts.statics(gj)
+                    for f in tt.PoolStatics._fields:
+                        yield "topo_pool_statics", \
+                            f"chunk={c} g={gj} {f}", getattr(got, f), \
+                            getattr(tab, f)[j]
+                if c == 0 and Z * C <= tt.OFFER_BITS:
+                    yield "topo_pool_statics", "offw", ts.offw, \
+                        tt._offer_words_ref(inp.avail_zc, Z, C)
+            cand, rem0 = tt._topo_slot_start_ref(inp, carry, g, P=P)
+            gs = tt.group_start_of(cand, rem0, tab, r % ts.chunk)
             tc.topo_group_start(ts, g)
-            for f, got in (("cand", st.cand), ("rem0", ts.rem),
-                           ("cand_new", ts.cand_new), ("hr_new", ts.hr_new),
-                           ("open_ok0", ts.open_ok0),
-                           ("availz_p", ts.availz_p), ("cap_pz", ts.cap_pz),
-                           ("cap_any", ts.cap_any),
-                           ("zcand_pz", ts.zcand_pz),
-                           ("anti_bulk", ts.anti_bulk[0])):
-                yield "topo_group_start", f"g={g} {f}", got, \
-                    getattr(gs, f)
+            yield "topo_group_start", f"g={g} cand", st.cand, cand
+            yield "topo_group_start", f"g={g} rem0", ts.rem, rem0
             r = tt._topo_pour_ref(inp, carry, cz, ch, zfix, g, rows, gs,
                                   P=P, EVCAP=EVCAP, PMAX=PMAX)
             # the pour starts from the plain group-start state
             st.cand.copy_(gs.cand)
             ts.rem.copy_(gs.rem0)
-            for f in ("cand_new", "hr_new", "open_ok0", "availz_p",
-                      "cap_pz", "cap_any", "zcand_pz"):
-                getattr(ts, f).copy_(getattr(gs, f))
-            ts.anti_bulk.copy_(gs.anti_bulk.reshape(1))
+            ts.load_statics(g, gs)
             tc.topo_pour(ts, g)
             for f, got, want in zip(ft.Carry._fields, st.carry, r.carry):
                 yield "topo_pour", f"g={g} {f}", got, want

@@ -15,7 +15,9 @@ Nothing here falls back to the plain versions in
 - ``preempt_absorb``: K8, the preemption victim-set search, as the fourth
   mode of the same kernel (``consol_absorb_preempt``): shared group rows,
   a per-lane refund, each lane's summed leftover out.
-- ``subset_gather``: every lane's KernelInputs from the union arena.
+- ``subset_gather``: every lane's KernelInputs from the union arena, X
+  CTAs a lane (``gather_ctas``: by bytes, about four waves of the card's
+  resident CTAs), each field's rows cut into X slices, 16-byte stores.
 - ``subset_summary``: the [B, 5] rows.
 - ``subset_solve_cuda``: gather, the K2 kernels on their lane axis
   (2·Gq launches), summary.
@@ -165,10 +167,52 @@ def preempt_absorb(ex_alloc, ex_used0, ex_compat, R, n,
     return total
 
 
+#: the gather's grid rule (csrc/consolidation.cu karp_subset_gather_grid):
+#: the waves of resident CTAs it aims at, the least bytes a CTA writes
+GATHER_WAVES = 4
+GATHER_CTA_BYTES = 16 * 1024
+
+
+def gather_lane_bytes(T: int, ZC: int, D: int, Z: int, C: int, P: int,
+                      E: int, Gq: int) -> int:
+    """The bytes ``subset_gather`` writes for one lane."""
+    return (T * ZC + 16 * E * D
+            + Gq * (8 * D + T + Z + C + P + 8 * P * D + E))
+
+
+def gather_ctas(B: int, lane_bytes: int, slots: int) -> int:
+    """The gather's CTAs a lane: ceil(GATHER_WAVES · slots / B) (``slots``:
+    the card's resident CTAs of the kernel), at most the lane's bytes over
+    GATHER_CTA_BYTES, at least 1; the C entry's rule."""
+    x = -(-GATHER_WAVES * slots // max(B, 1))
+    return max(1, min(x, lane_bytes // GATHER_CTA_BYTES))
+
+
+def subset_gather_grid(args) -> tuple:
+    """(X, slots) of the C entry for a ``_GatherArgs`` on the current
+    device: the CTAs a lane the launch takes, and the card's resident
+    CTAs of the kernel."""
+    X, slots = ctypes.c_longlong(), ctypes.c_longlong()
+    ffd_cuda._check(_lib().karp_subset_gather_grid(
+        ctypes.byref(args), ctypes.byref(X), ctypes.byref(slots)),
+        "subset_gather (grid)")
+    return X.value, slots.value
+
+
 def subset_gather(arena: KernelInputs, gid, n, dead, keep) -> KernelInputs:
     """Every lane's KernelInputs from the union ``arena``, lane-major: the
     fields of ``consolidation_torch.LANE_FIELDS`` gain a leading lane
     axis (``n`` is the lanes' own), the rest are the arena's."""
+    _need(n, "n", torch.int64, tuple(gid.shape))
+    args, o = gather_args(arena, gid, dead, keep)
+    _launch("subset_gather", _lib().karp_subset_gather,
+            (ctypes.byref(args),), gid)
+    return arena._replace(n=n, **o)
+
+
+def gather_args(arena: KernelInputs, gid, dead, keep):
+    """The gather's checked arguments and its fresh outputs: (``_GatherArgs``,
+    {field: [B, ...] tensor})."""
     i64, b = torch.int64, torch.bool
     T, D = arena.A.shape
     Gu, E = arena.ex_compat.shape
@@ -182,7 +226,6 @@ def subset_gather(arena: KernelInputs, gid, n, dead, keep) -> KernelInputs:
             ("ex_alloc", i64, (E, D)), ("ex_used0", i64, (E, D))):
         _need(getattr(arena, nm), nm, dt, shp)
     _need(gid, "gid", torch.int32, (B, Gq))
-    _need(n, "n", i64, (B, Gq))
     _need(dead, "dead", b, (B, E))
     _need(keep, "keep", b, (B, T))
     dev = gid.device
@@ -203,9 +246,7 @@ def subset_gather(arena: KernelInputs, gid, n, dead, keep) -> KernelInputs:
         gid=_ptr(gid), dead=_ptr(dead), keep=_ptr(keep),
         **{"o_" + f: _ptr(t) for f, t in o.items()},
         B=B, Gq=Gq, T=T, ZC=Z * C, D=D, Z=Z, C=C, P=P, E=E)
-    _launch("subset_gather", _lib().karp_subset_gather,
-            (ctypes.byref(args),), gid)
-    return arena._replace(n=n, **o)
+    return args, o
 
 
 def subset_summary(leftover, num_nodes, types, keep, tprice, removed_price,

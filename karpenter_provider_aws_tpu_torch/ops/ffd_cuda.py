@@ -7,8 +7,8 @@
 ``csrc/consolidation.cu`` (K7: ``consol_absorb``, ``subset_gather``,
 ``subset_summary``; wrappers in ``ops/consolidation_cuda.py``) and
 ``csrc/pruned.cu`` (K6: ``ffd_pruned_probe``, ``ffd_pruned_commit``) and
-``csrc/topo.cu`` (K9: ``topo_group_start``, ``topo_pour``,
-``topo_record_plain``; wrappers in ``ops/topo_cuda.py``) and
+``csrc/topo.cu`` (K9: ``topo_pool_statics``, ``topo_group_start``,
+``topo_pour``, ``topo_record_plain``; wrappers in ``ops/topo_cuda.py``) and
 ``csrc/mesh.cu`` (K10: ``mesh_new_caps``, ``mesh_slot_headroom``,
 ``mesh_fill``, ``mesh_commit``; wrappers in ``ops/mesh_cuda.py``) are
 compiled with ``nvcc`` for ``sm_90a`` into one shared library with a
@@ -68,7 +68,8 @@ LAUNCHES: Dict[str, int] = {"unpack_bits": 0, "ffd_slot_headroom": 0,
                             "consol_absorb_dense": 0,
                             "consol_absorb_preempt": 0, "subset_gather": 0,
                             "subset_summary": 0, "ffd_pruned_probe": 0,
-                            "ffd_pruned_commit": 0, "topo_group_start": 0,
+                            "ffd_pruned_commit": 0, "topo_pool_statics": 0,
+                            "topo_group_start": 0,
                             "topo_pour": 0, "topo_record_plain": 0,
                             "ffd_fused_headroom": 0, "ffd_fused_commit": 0,
                             "mesh_new_caps": 0, "mesh_slot_headroom": 0,
@@ -151,6 +152,7 @@ def _lib():
             lib.karp_ffd_bank_load.argtypes = [vp, ll, vp]
             lib.karp_consol_absorb.argtypes = [vp, ctypes.c_int, vp]
             lib.karp_subset_gather.argtypes = [vp, vp]
+            lib.karp_subset_gather_grid.argtypes = [vp, vp, vp]
             lib.karp_subset_summary.argtypes = [vp, vp]
             for fn in (lib.karp_ffd_pruned_probe,
                        lib.karp_ffd_pruned_commit):
@@ -160,6 +162,7 @@ def _lib():
                        lib.karp_topo_record_plain):
                 fn.argtypes = [vp, vp, ll, vp]
             lib.karp_topo_pour_smem.argtypes = [vp, vp, vp, vp]
+            lib.karp_topo_pool_statics.argtypes = [vp, vp, ll, ll, vp]
             for fn in (lib.karp_ffd_fused_headroom,
                        lib.karp_ffd_fused_commit):
                 fn.argtypes = [vp, ll, vp]
@@ -178,11 +181,13 @@ def _lib():
                        lib.karp_ffd_group_commit, lib.karp_ffd_k2_cluster,
                        lib.karp_ffd_bank_store, lib.karp_ffd_bank_load,
                        lib.karp_consol_absorb, lib.karp_subset_gather,
+                       lib.karp_subset_gather_grid,
                        lib.karp_subset_summary, lib.karp_ffd_pruned_probe,
                        lib.karp_ffd_pruned_commit,
                        lib.karp_ffd_pruned_cluster, lib.karp_topo_group_start,
                        lib.karp_topo_pour, lib.karp_topo_record_plain,
-                       lib.karp_topo_pour_smem, lib.karp_ffd_fused_headroom,
+                       lib.karp_topo_pour_smem, lib.karp_topo_pool_statics,
+                       lib.karp_ffd_fused_headroom,
                        lib.karp_ffd_fused_commit, lib.karp_ffd_fused_cluster,
                        lib.karp_mesh_new_caps,
                        lib.karp_mesh_slot_headroom, lib.karp_mesh_fill,

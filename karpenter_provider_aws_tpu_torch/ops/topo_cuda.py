@@ -7,8 +7,13 @@ launches on the state's device, on its current stream
 ``ffd_cuda.LAUNCHES`` and raises when the C entry returns a CUDA error.
 Nothing here falls back to the plain versions in ``ops/topo_torch.py``.
 
-- ``topo_group_start``: a topology group's candidates, per-slot room and
-  per-pool statics of opening a node;
+- ``topo_pool_statics``: the per-pool statics of opening a node and the
+  anti-ladder gate of a chunk of topology groups (``chunk`` of them, the
+  tables' rows; they read no carry), one launch before the chunk's first
+  group; the chunk at rank 0 also packs each type's offerings into one
+  Z*C-bit word;
+- ``topo_group_start``: a topology group's candidates and per-slot room
+  (after its chunk's statics);
 - ``topo_pour``: the group's whole event loop and its group-end
   narrowing, in one block; its shared memory holds the counter rows a
   group lists (``listed_rows``), sized by the most any topology group
@@ -18,11 +23,12 @@ Nothing here falls back to the plain versions in ``ops/topo_torch.py``.
 - ``topo_record_plain``: the membership counters after a group without
   topology ran the K2 kernels.
 
-``solve_scan_topo_cuda`` drives one scan: the K2 ``ScanState`` and the
+``solve_scan_topo_cuda`` drives one scan (``topo_state``, then the
+launches of ``topo_scan``): the K2 ``ScanState`` and the
 ``TopoScanState`` share one carry on the device, which every kernel updates
-in place; per group two or three launches under one guard of the
-state's device, no synchronisation after the one read of ``has_topo``
-and the listed rows' counts.
+in place; per group two or three launches (and a chunk's statics) under
+one guard of the state's device, no synchronisation after the one read of
+``has_topo`` and the listed rows' counts.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ from .ffd_cuda import (LAUNCHES, ScanState, _FfdArgs, _check, _launch, _lib,
                        _need, ffd_group_commit, ffd_slot_headroom, launching,
                        on_device)
 from .ffd_torch import BIG, KernelInputs, carry0
-from .topo_torch import TopoGroupRows, empty_events
+from .topo_torch import (GroupStart, PoolStatics, TopoGroupRows,
+                         empty_events, statics_chunk)
 
 _ROW_FIELDS = ("has_topo", "zone_needed", "min_mask", "zs_any", "zs_skew",
                "hs_any", "hs_skew", "za_any", "za_anti", "za_own", "ha_any",
@@ -43,14 +50,16 @@ _ROW_FIELDS = ("has_topo", "zone_needed", "min_mask", "zs_any", "zs_skew",
 _PTR_FIELDS = _ROW_FIELDS + (
     "cz", "ch", "zfix", "take", "rem", "und", "cand_new", "hr_new",
     "open_ok0", "availz_p", "cap_pz", "cap_any", "zcand_pz", "anti_bulk",
-    "ev_slot", "ev_zone", "ev_len", "ev_kind", "ev_aux", "ev_n", "bail")
+    "ev_slot", "ev_zone", "ev_len", "ev_kind", "ev_aux", "ev_n", "bail",
+    "srow", "tgid", "offw")
 
 
 class _TopoArgs(ctypes.Structure):
     """Mirror of ``struct TopoArgs`` in csrc/topo.cu (8-byte fields)."""
     _fields_ = ([(f, ctypes.c_void_p) for f in _PTR_FIELDS]
                 + [(f, ctypes.c_longlong) for f in ("GZ", "GH", "EVCAP",
-                                                    "PMAX", "NZ", "NH")])
+                                                    "PMAX", "NZ", "NH",
+                                                    "CH")])
 
 
 #: ``kLayoutTooLarge``: the pour's entry refuses a layout past the card's
@@ -117,13 +126,17 @@ class TopoScanState:
     ``ScanState`` ``st`` whose carry, candidate scratch, takes and
     leftover it shares: the rows, the counters ``cz`` [GZ, Z], ``ch``
     [GH, N] and ``zfix`` [N] (updated in place), the per-group scratch
-    (``take``, ``rem``, the pour's undecided words ``und``), the
-    group-start statics, the event log ``ev`` (``[G, EVCAP]`` rows at
-    their fill values, ``n`` [G]) and ``bail`` [G], plus the ctypes
-    argument block. ``nz`` / ``nh``: the most zone / hostname rows a
-    topology group lists (``listed_rows``), which size the pour's shared
-    memory; ``has_topo``: the rows' flags as a list (one read of the
-    device for both)."""
+    (``take``, ``rem``, the pour's undecided words ``und``), the pool
+    statics of a chunk of ``chunk`` topology groups (``cand_new`` [CH, P,
+    T] ..., ``anti_bulk`` [CH]: row ``rank[g] % chunk`` is group g's), the
+    types' offering words ``offw`` [T], the event log ``ev`` (``[G,
+    EVCAP]`` rows at their fill values, ``n`` [G]) and ``bail`` [G], plus
+    the ctypes argument block. ``nz`` / ``nh``: the most zone / hostname
+    rows a topology group lists (``listed_rows``), which size the pour's
+    shared memory; ``has_topo``: the rows' flags as a list (one read of
+    the device for both); ``topo_groups``: the topology groups in order,
+    ``rank`` [G] each one's index there (-1 for the others). ``chunk``:
+    ``statics_chunk``'s rule."""
 
     def __init__(self, st: ScanState, rows: TopoGroupRows, cz, ch, zfix, *,
                  EVCAP: int, PMAX: int):
@@ -139,6 +152,7 @@ class TopoScanState:
                              "group")
         if EVCAP < 1 or PMAX < 1:
             raise ValueError(f"EVCAP={EVCAP} and PMAX={PMAX} must be >= 1")
+        chunk = statics_chunk(P, T, Z)
         b, i64, i32 = torch.bool, torch.int64, torch.int32
         for nm, dt, shp in (
                 ("has_topo", b, (G,)), ("zone_needed", b, (G,)),
@@ -153,22 +167,37 @@ class TopoScanState:
         _need(cz, "cz", i64, (GZ, Z))
         _need(ch, "ch", i64, (GH, N))
         _need(zfix, "zfix", i32, (N,))
-        self.st, self.rows = st, rows
+        self.st, self.rows, self.chunk = st, rows, chunk
         self.cz, self.ch, self.zfix = cz, ch, zfix
         self.take = torch.empty(N, dtype=i64, device=dev)
         self.rem = torch.empty(N, dtype=i64, device=dev)
         self.und = torch.empty(2 * (-(-N // 32)), dtype=torch.int32,
                                device=dev)
-        self.cand_new = torch.empty((P, T), dtype=b, device=dev)
-        self.hr_new = torch.empty((P, T), dtype=i64, device=dev)
-        self.open_ok0 = torch.empty(P, dtype=b, device=dev)
-        self.availz_p = torch.empty((P, T, Z), dtype=b, device=dev)
-        self.cap_pz = torch.empty((P, Z), dtype=i64, device=dev)
-        self.cap_any = torch.empty(P, dtype=i64, device=dev)
-        self.zcand_pz = torch.empty((P, Z), dtype=b, device=dev)
-        self.anti_bulk = torch.empty(1, dtype=b, device=dev)
+        self.cand_new = torch.empty((chunk, P, T), dtype=b, device=dev)
+        self.hr_new = torch.empty((chunk, P, T), dtype=i64, device=dev)
+        self.open_ok0 = torch.empty((chunk, P), dtype=b, device=dev)
+        self.availz_p = torch.empty((chunk, P, T, Z), dtype=b, device=dev)
+        self.cap_pz = torch.empty((chunk, P, Z), dtype=i64, device=dev)
+        self.cap_any = torch.empty((chunk, P), dtype=i64, device=dev)
+        self.zcand_pz = torch.empty((chunk, P, Z), dtype=b, device=dev)
+        self.anti_bulk = torch.empty(chunk, dtype=b, device=dev)
+        self.offw = torch.empty(T, dtype=i64, device=dev)
         self.ev = empty_events(G, EVCAP, dev)
         self.bail = torch.zeros(G, dtype=b, device=dev)
+        nz, nh = listed_max(rows)
+        head = torch.cat([torch.stack([nz, nh]),
+                          rows.has_topo.long()]).tolist()
+        self.nz, self.nh = head[:2]
+        self.has_topo = [bool(x) for x in head[2:]]
+        self.topo_groups = [g for g, t in enumerate(self.has_topo) if t]
+        self.rank = [-1] * G
+        for r, g in enumerate(self.topo_groups):
+            self.rank[g] = r
+        # srow [G] (a topology group's table row, -1 for the others), then
+        # tgid [n_topo]: one copy to the device
+        idx = torch.tensor([r % chunk if r >= 0 else -1 for r in self.rank]
+                           + self.topo_groups, dtype=i32).to(dev)
+        self.srow, self.tgid = idx[:G], idx[G:]
         ptrs = {}
         for f in _PTR_FIELDS:
             if f in _ROW_FIELDS:
@@ -178,13 +207,30 @@ class TopoScanState:
             else:
                 t = getattr(self, f)
             ptrs[f] = t.data_ptr() if t.numel() else None
-        nz, nh = listed_max(rows)
-        head = torch.cat([torch.stack([nz, nh]),
-                          rows.has_topo.long()]).tolist()
-        self.nz, self.nh = head[:2]
-        self.has_topo = [bool(x) for x in head[2:]]
         self.args = _TopoArgs(**ptrs, GZ=GZ, GH=GH, EVCAP=EVCAP, PMAX=PMAX,
-                              NZ=self.nz, NH=self.nh)
+                              NZ=self.nz, NH=self.nh, CH=chunk)
+
+    def chunks(self) -> int:
+        """The scan's chunks of topology groups."""
+        return -(-len(self.topo_groups) // self.chunk)
+
+    def statics(self, g: int) -> PoolStatics:
+        """Topology group g's row of the pool statics (views, no leading
+        axis)."""
+        j = self._row(g)
+        return PoolStatics(*[getattr(self, f)[j]
+                             for f in PoolStatics._fields])
+
+    def load_statics(self, g: int, gs: GroupStart) -> None:
+        """Group g's row of the pool statics set to those of ``gs`` (a
+        plain group start), as its chunk's launch writes them."""
+        for f, dst in zip(PoolStatics._fields, self.statics(g)):
+            dst.copy_(getattr(gs, f).reshape(dst.shape))
+
+    def _row(self, g: int) -> int:
+        if not 0 <= g < len(self.rank) or self.rank[g] < 0:
+            raise ValueError(f"group {g} is not a topology group")
+        return self.rank[g] % self.chunk
 
 
 def _topo_launch(name: str, ts: TopoScanState, g: int, stream,
@@ -196,16 +242,33 @@ def _topo_launch(name: str, ts: TopoScanState, g: int, stream,
             stream)
 
 
+def topo_pool_statics(ts: TopoScanState, c: int, stream: int = None) -> None:
+    """The pool statics of chunk c (the topology groups of ranks [c·chunk,
+    (c + 1)·chunk), table rows 0 ..) and, for chunk 0, the types'
+    offering words ``ts.offw`` (kernel). ``stream``: the stream of the
+    caller's ``launching`` guard."""
+    if not 0 <= c < ts.chunks():
+        raise ValueError(f"chunk {c} outside [0, {ts.chunks()})")
+    r0 = c * ts.chunk
+    nr = min(ts.chunk, len(ts.topo_groups) - r0)
+    _launch("topo_pool_statics", _lib().karp_topo_pool_statics,
+            (ctypes.byref(ts.st.args), ctypes.byref(ts.args), r0, nr),
+            ts.take, stream)
+
+
 def topo_group_start(ts: TopoScanState, g: int, stream: int = None) -> None:
-    """Topology group g's group-start state: ``st.cand`` [N, T],
-    ``ts.rem`` [N] and the per-pool statics (kernel). ``stream``: the
-    stream of the caller's ``launching`` guard."""
+    """Topology group g's candidates ``st.cand`` [N, T] and per-slot room
+    ``ts.rem`` [N] (kernel), reading the offering words of the scan's
+    chunk 0 (``topo_pool_statics`` first). ``stream``: the stream of the
+    caller's ``launching`` guard."""
+    ts._row(g)
     _topo_launch("topo_group_start", ts, g, stream)
 
 
 def topo_pour(ts: TopoScanState, g: int, stream: int = None) -> None:
     """Topology group g's event loop and narrowing from its group-start
-    state: updates the carry and counters in place and writes
+    state (its candidates and room, its chunk's row of the pool statics):
+    updates the carry and counters in place and writes
     ``st.takes[g]``, ``st.leftover[g]``, the group's event-log row,
     ``ev["n"][g]`` and ``bail[g]`` (kernel). Raises TopoLayoutError,
     launching nothing, when the listed rows' layout exceeds the card's
@@ -247,18 +310,32 @@ def topo_state(inp: KernelInputs, rows: TopoGroupRows, cz0, ch0, *,
 def solve_scan_topo_cuda(inp: KernelInputs, rows: TopoGroupRows, cz0, ch0,
                          *, n_max: int, P: int, EVCAP: int = 128,
                          PMAX: int = 8):
-    """The whole topology scan on the card: per topology group
+    """The whole topology scan on the card (``topo_state``, then
+    ``topo_scan``). Returns the reference's outputs (takes [G, N] i64,
+    leftover, events, zfix, bail, final Carry) on the card. The only
+    synchronisation is one read of ``has_topo`` and the rows' listed
+    counts (the pour's layout) before the first launch."""
+    return topo_scan(topo_state(inp, rows, cz0, ch0, n_max=n_max, P=P,
+                                EVCAP=EVCAP, PMAX=PMAX))
+
+
+def topo_scan(ts: TopoScanState):
+    """The launches of a scan from a fresh state, under one guard of its
+    device and with no synchronisation: per chunk of topology groups
+    ``topo_pool_statics`` (chunk 0 before the scan's first group, each
+    later one before its first group), per topology group
     ``topo_group_start`` and ``topo_pour``, per other group the K2 pair
-    and ``topo_record_plain``. Returns the reference's outputs (takes
-    [G, N] i64, leftover, events, zfix, bail, final Carry) on the card.
-    The only synchronisation is one read of ``has_topo`` and the rows'
-    listed counts (the pour's layout) before the first launch."""
-    ts = topo_state(inp, rows, cz0, ch0, n_max=n_max, P=P, EVCAP=EVCAP,
-                    PMAX=PMAX)
+    and ``topo_record_plain``. Returns the outputs as
+    ``solve_scan_topo_cuda``."""
     st = ts.st
     with launching(ts.take) as stream:
+        if ts.topo_groups:
+            topo_pool_statics(ts, 0, stream)
         for g, topo in enumerate(ts.has_topo):
             if topo:
+                r = ts.rank[g]
+                if r and r % ts.chunk == 0:
+                    topo_pool_statics(ts, r // ts.chunk, stream)
                 topo_group_start(ts, g, stream)
                 topo_pour(ts, g, stream)
             else:
@@ -267,4 +344,3 @@ def solve_scan_topo_cuda(inp: KernelInputs, rows: TopoGroupRows, cz0, ch0,
                 topo_record_plain(ts, g, stream)
     return (st.takes.to(torch.int64), st.leftover, ts.ev, ts.zfix, ts.bail,
             st.carry)
-

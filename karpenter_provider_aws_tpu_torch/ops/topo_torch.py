@@ -11,8 +11,11 @@ undecided). Per group:
 - a group WITHOUT topology runs the base group step (K2) and then records
   its membership counters (``_topo_record_plain_ref``);
 - a group WITH topology computes its group-start state
-  (``_topo_group_start_ref``: candidates, per-slot room, the per-pool
-  statics of opening a node) and then pours its pods event by event
+  (``_topo_group_start_ref``): candidates and per-slot room
+  (``_topo_slot_start_ref``), and the per-pool statics of opening a node,
+  which read no carry and are computed ahead for a chunk of topology
+  groups at a time (``_topo_pool_statics_ref``); it then pours its pods
+  event by event
   (``_topo_pour_ref``): the periodic-cycle jump over the ring of the last
   2·PMAX events, else the first admissible slot whose run is viable
   (fixing an undecided slot's zone on the way), else a new node, with the
@@ -102,6 +105,37 @@ class GroupStart(NamedTuple):
     cap_any: torch.Tensor    # [P] i64
     zcand_pz: torch.Tensor   # [P, Z] bool
     anti_bulk: torch.Tensor  # [] bool     the group's cap-1 ladder gate
+
+
+class PoolStatics(NamedTuple):
+    """The carry-free half of the group starts of some topology groups
+    (``topo_pool_statics``): GroupStart's per-pool fields with a leading
+    group axis [n]."""
+    cand_new: torch.Tensor   # [n, P, T] bool
+    hr_new: torch.Tensor     # [n, P, T] i64
+    open_ok0: torch.Tensor   # [n, P] bool
+    availz_p: torch.Tensor   # [n, P, T, Z] bool
+    cap_pz: torch.Tensor     # [n, P, Z] i64
+    cap_any: torch.Tensor    # [n, P] i64
+    zcand_pz: torch.Tensor   # [n, P, Z] bool
+    anti_bulk: torch.Tensor  # [n] bool
+
+
+#: the most topology groups one ``topo_pool_statics`` launch serves (its
+#: chunk), and the most bytes its tables may take
+STATICS_CHUNK = 64
+STATICS_BYTES = 64 << 20
+
+#: the most zone x capacity-type pairs an offering word holds
+OFFER_BITS = 64
+
+
+def statics_chunk(P: int, T: int, Z: int) -> int:
+    """The topology groups a chunk of pool statics holds: at most
+    ``STATICS_CHUNK``, and at most ``STATICS_BYTES`` of tables (P·T·(9 +
+    Z) + P·(9·Z + 9) + 1 bytes a group), at least one."""
+    per = P * T * (9 + Z) + P * (9 * Z + 9) + 1
+    return max(1, min(STATICS_CHUNK, STATICS_BYTES // per))
 
 
 # ---------------------------------------------------------------------------
@@ -215,19 +249,27 @@ def _row(rows: TopoGroupRows, g: int) -> TopoGroupRows:
 # the three parts the kernels replace
 # ---------------------------------------------------------------------------
 
-def _topo_group_start_ref(inp: KernelInputs, carry: Carry, g: int,
-                          rows: TopoGroupRows, *, P: int) -> GroupStart:
-    """The group-start state of topology group g (topo_jax.py:281-315;
-    the kernel ``topo_group_start``). ``off_ok`` is a boolean
-    any-reduction, never an integer matmul."""
+def _offer_words_ref(avail_zc, Z: int, C: int):
+    """[T] int64: each type's offerings as one word, bit z*C + c (Z*C <=
+    ``OFFER_BITS``; bit 63 is the sign bit)."""
+    ZC = Z * C
+    if ZC > OFFER_BITS:
+        raise ValueError(f"{ZC} zone x capacity-type pairs exceed the "
+                         f"{OFFER_BITS}-bit word")
+    bit = torch.ones((), dtype=_I64, device=avail_zc.device) \
+        << torch.arange(ZC, device=avail_zc.device)
+    return torch.where(avail_zc, bit, torch.zeros_like(bit)).sum(dim=1)
+
+
+def _topo_slot_start_ref(inp: KernelInputs, carry: Carry, g: int, *,
+                         P: int):
+    """The slot half of topology group g's start (topo_jax.py:281-291;
+    the kernel ``topo_group_start``): (cand [N, T], rem0 [N]). ``off_ok``
+    is a boolean any-reduction, never an integer matmul."""
     R, F, agz, agc = inp.R[g], inp.F[g], inp.agz[g], inp.agc[g]
-    admit, daemon = inp.admit[g], inp.daemon[g]
-    gx = _row(rows, g)
-    T, D = inp.A.shape
+    admit = inp.admit[g]
     Z, C = agz.shape[0], agc.shape[0]
     N = carry.used.shape[0]
-    avail_tzc = inp.avail_zc.reshape(T, Z, C)
-    availz_anyct = avail_tzc.any(dim=2)                          # [T, Z]
     zc = ((carry.zones & agz)[:, :, None]
           & (carry.ct & agc)[:, None, :]).reshape(N, Z * C)
     off_ok = (zc[:, None, :] & inp.avail_zc[None, :, :]).any(dim=-1)
@@ -236,31 +278,63 @@ def _topo_group_start_ref(inp: KernelInputs, carry: Carry, g: int,
     cand = carry.types & F[None, :] & off_ok & adm_open[:, None]
     hr = _headroom(inp.A[None, :, :], carry.used[:, None, :], R)  # [N, T]
     rem0 = torch.where(cand, hr, torch.zeros_like(hr)).amax(dim=1)
+    return cand, rem0
 
-    agz_p = agz[None, :] & inp.pool_agz                          # [P, Z]
-    agc_p = agc[None, :] & inp.pool_agc                          # [P, C]
-    off_p = (avail_tzc[None] & agz_p[:, None, :, None]
-             & agc_p[:, None, None, :]).flatten(2).any(dim=2)   # [P, T]
-    cand_new = F[None, :] & inp.pool_types & off_p
-    hr_new = _headroom(inp.A[None, :, :], daemon[:, None, :], R)  # [P, T]
+
+def _topo_pool_statics_ref(inp: KernelInputs, rows: TopoGroupRows,
+                           groups, *, P: int) -> PoolStatics:
+    """The per-pool statics of opening a node and the cap-1 anti-ladder
+    gate of each topology group in ``groups`` (a list or a [n] tensor of
+    group ids; topo_jax.py:292-315; the kernel ``topo_pool_statics``):
+    they read the groups' rows and the static arena, never the carry."""
+    g = torch.as_tensor(groups, dtype=_I64, device=inp.A.device)
+    R, F, agz, agc = inp.R[g], inp.F[g], inp.agz[g], inp.agc[g]
+    admit, daemon = inp.admit[g], inp.daemon[g]
+    T, D = inp.A.shape
+    Z, C = agz.shape[1], agc.shape[1]
+    avail_tzc = inp.avail_zc.reshape(T, Z, C)
+    availz_anyct = avail_tzc.any(dim=2)                          # [T, Z]
+    agz_p = agz[:, None, :] & inp.pool_agz[None]                 # [n, P, Z]
+    agc_p = agc[:, None, :] & inp.pool_agc[None]                 # [n, P, C]
+    off_p = (avail_tzc[None, None] & agz_p[:, :, None, :, None]
+             & agc_p[:, :, None, None, :]).flatten(3).any(dim=3)
+    cand_new = F[:, None, :] & inp.pool_types[None] & off_p      # [n, P, T]
+    hr_new = _headroom(inp.A[None, None], daemon[:, :, None, :],
+                       R[:, None, None, :])                      # [n, P, T]
     hrc_new = torch.where(cand_new, hr_new, torch.zeros_like(hr_new))
-    cap_any = hrc_new.amax(dim=1)
-    open_ok0 = (admit & agz_p.any(dim=1) & agc_p.any(dim=1)
+    cap_any = hrc_new.amax(dim=2)
+    open_ok0 = (admit & agz_p.any(dim=2) & agc_p.any(dim=2)
                 & (cap_any >= 1))
-    availz_p = (avail_tzc[None] & agc_p[:, None, None, :]).any(dim=3)
-    cap_pz = torch.where(availz_p & cand_new[:, :, None],
-                         hr_new[:, :, None],
-                         torch.zeros_like(hr_new[:, :, None])).amax(dim=1)
-    zcand_pz = ((cand_new & (hr_new >= 1))[:, :, None]
-                & availz_anyct[None]).any(dim=1) & agz_p
-    anti_bulk = (~gx.zs_any.any() & ~gx.za_any.any() & ~gx.hs_any.any()
-                 & torch.where(gx.ha_any, gx.ha_anti & gx.ha_own,
-                               torch.ones_like(gx.ha_any)).all()
-                 & gx.ha_any.any())
-    return GroupStart(cand=cand, rem0=rem0, cand_new=cand_new,
-                      hr_new=hr_new, open_ok0=open_ok0, availz_p=availz_p,
-                      cap_pz=cap_pz, cap_any=cap_any, zcand_pz=zcand_pz,
-                      anti_bulk=anti_bulk)
+    availz_p = (avail_tzc[None, None]
+                & agc_p[:, :, None, None, :]).any(dim=4)         # [n,P,T,Z]
+    cap_pz = torch.where(availz_p & cand_new[..., None], hr_new[..., None],
+                         torch.zeros_like(hr_new[..., None])).amax(dim=2)
+    zcand_pz = ((cand_new & (hr_new >= 1))[..., None]
+                & availz_anyct[None, None]).any(dim=2) & agz_p
+    anti_bulk = (~rows.zs_any[g].any(dim=1) & ~rows.za_any[g].any(dim=1)
+                 & ~rows.hs_any[g].any(dim=1)
+                 & torch.where(rows.ha_any[g], rows.ha_anti[g]
+                               & rows.ha_own[g],
+                               torch.ones_like(rows.ha_any[g])).all(dim=1)
+                 & rows.ha_any[g].any(dim=1))
+    return PoolStatics(cand_new=cand_new, hr_new=hr_new, open_ok0=open_ok0,
+                       availz_p=availz_p, cap_pz=cap_pz, cap_any=cap_any,
+                       zcand_pz=zcand_pz, anti_bulk=anti_bulk)
+
+
+def group_start_of(cand, rem0, tab: PoolStatics, j: int) -> GroupStart:
+    """The GroupStart of a slot half and row ``j`` of pool statics."""
+    return GroupStart(cand, rem0, *[f[j] for f in tab])
+
+
+def _topo_group_start_ref(inp: KernelInputs, carry: Carry, g: int,
+                          rows: TopoGroupRows, *, P: int) -> GroupStart:
+    """The group-start state of topology group g (topo_jax.py:281-315):
+    its slot half (``_topo_slot_start_ref``) and its pool statics
+    (``_topo_pool_statics_ref``)."""
+    cand, rem0 = _topo_slot_start_ref(inp, carry, g, P=P)
+    return group_start_of(cand, rem0,
+                          _topo_pool_statics_ref(inp, rows, [g], P=P), 0)
 
 
 class PourResult(NamedTuple):
@@ -628,7 +702,9 @@ def _solve_scan_topo_ref(inp: KernelInputs, rows: TopoGroupRows, cz0, ch0,
                          PMAX: int = 8):
     """Plain version of the whole topology scan (E = 0): returns (takes
     [G, N] i64, leftover [G], events dict, zfix [N] i32, bail [G], final
-    Carry), the reference's ``solve_scan_topo`` outputs."""
+    Carry), the reference's ``solve_scan_topo`` outputs. Ordered as the
+    kernels are: the pool statics of each chunk of topology groups
+    (``statics_chunk``'s rule) before its first group."""
     G = inp.R.shape[0]
     N = n_max
     dev = inp.A.device
@@ -639,9 +715,21 @@ def _solve_scan_topo_ref(inp: KernelInputs, rows: TopoGroupRows, cz0, ch0,
     leftover = torch.zeros(G, dtype=_I64, device=dev)
     ev = empty_events(G, EVCAP, dev)
     bail = torch.zeros(G, dtype=torch.bool, device=dev)
-    for g, topo in enumerate(rows.has_topo.tolist()):
+    flags = rows.has_topo.tolist()
+    topo_groups = [g for g, topo in enumerate(flags) if topo]
+    T, Z = inp.A.shape[0], inp.agz.shape[1]
+    chunk = statics_chunk(P, T, Z)
+    rank = 0
+    for g, topo in enumerate(flags):
         if topo:
-            gs = _topo_group_start_ref(inp, carry, g, rows, P=P)
+            # the pool statics of the chunk's groups, before its first
+            j = rank % chunk
+            if j == 0:
+                tab = _topo_pool_statics_ref(
+                    inp, rows, topo_groups[rank:rank + chunk], P=P)
+            rank += 1
+            gs = group_start_of(*_topo_slot_start_ref(inp, carry, g, P=P),
+                                tab, j)
             r = _topo_pour_ref(inp, carry, cz, ch, zfix, g, rows, gs, P=P,
                                EVCAP=EVCAP, PMAX=PMAX)
             carry, cz, ch, zfix = r.carry, r.cz, r.ch, r.zfix

@@ -9,7 +9,8 @@ straddle CTA boundaries, tables of several blocks, whole solves, B = 3,
 8 and 64 lanes that branch differently, the solver), the pruned scan's
 kernels (K6, the new-node tables included, the commit at 256 and 1,024
 threads), the
-K7 consolidation kernels, the K9 topology kernels and K8, the
+K7 consolidation kernels (the gather at odd shapes and past grid y),
+the K9 topology kernels (the pool statics by chunk) and K8, the
 preemption search (its hazard tables and a round through
 ``Provisioner.reconcile``; a snapshot past the pour's layout routed to
 the host pour), the K10 mesh kernels (``mesh_fill``'s phases from 1 to
@@ -474,6 +475,52 @@ def test_subset_round_past_grid_y(cuda_device):
     del g_k
     assert torch.equal(ct.subset_solve(inp, tp, *many, **st),
                        rep(ct._subset_solve_ref(inp, tp, *one, **st)))
+
+
+@pytest.mark.parametrize("hazard", examples.SUBSET_HAZARDS)
+@pytest.mark.parametrize("shape", range(len(examples.GATHER_SHAPES)))
+def test_subset_gather_odd_shapes(cuda_device, shape, hazard):
+    """subset_gather at ``GATHER_SHAPES``' odd shapes (rows of T and E not
+    multiples of 16, D odd, Gq = 1 and 128, round (a)'s widths) against
+    the plain gather, and its grid the rule of ``gather_ctas``."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    shp = examples.GATHER_SHAPES[shape]
+    arena, _, lanes, _ = examples.subset_case(hazard, shape, **shp)
+    inp = ft.kernel_inputs_from_numpy(arena, cuda_device)
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in lanes.items()}
+    g_k = cc.subset_gather(inp, t["gid"], t["n"], t["dead"], t["keep"])
+    g_p = ct._subset_gather_ref(inp, t["gid"], t["n"], t["dead"], t["keep"])
+    for f in ct.LANE_FIELDS:
+        assert torch.equal(getattr(g_k, f), getattr(g_p, f)), f
+    args, _ = cc.gather_args(inp, t["gid"], t["dead"], t["keep"])
+    X, slots = cc.subset_gather_grid(args)
+    B, Gq = lanes["gid"].shape
+    assert slots > 0 and X == cc.gather_ctas(B, cc.gather_lane_bytes(
+        shp["T"], shp["Z"] * shp["C"], shp["D"], shp["Z"], shp["C"],
+        shp["P"], shp["Ep"], Gq), slots)
+
+
+def test_subset_gather_odd_shape_past_grid_y(cuda_device):
+    """65,552 lanes of the first odd shape (T = 813, D = 7, E = 37): the
+    gathered lanes equal the plain gather's, lane chunk by chunk."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    arena, _, lanes, _ = examples.subset_case(
+        "dead_nodes", 7, **examples.GATHER_SHAPES[0])
+    inp = ft.kernel_inputs_from_numpy(arena, cuda_device)
+    reps = -(-65_552 // lanes["gid"].shape[0])
+    tiled = examples.tile_lanes(lanes, reps)
+    t = {k: torch.from_numpy(v[:65_552]).to(cuda_device)
+         for k, v in tiled.items()}
+    g_k = cc.subset_gather(inp, t["gid"], t["n"], t["dead"], t["keep"])
+    for b0 in range(0, 65_552, 8_192):
+        sl = {k: v[b0:b0 + 8_192] for k, v in t.items()}
+        g_p = ct._subset_gather_ref(inp, sl["gid"], sl["n"], sl["dead"],
+                                    sl["keep"])
+        for f in ct.LANE_FIELDS:
+            assert torch.equal(getattr(g_k, f)[b0:b0 + 8_192],
+                               getattr(g_p, f)), (b0, f)
 
 
 @pytest.mark.parametrize("hazard", examples.ABSORB_HAZARDS)
@@ -1172,6 +1219,52 @@ def test_topo_pour_wide_counter_axes(cuda_device, case, evcap):
     assert smem[0] == smem[1]
 
 
+@pytest.mark.parametrize("chunk", [1, 2])
+@pytest.mark.parametrize("case", ["config3_small", "two_deployments",
+                                  "rows_last", "fix_zones", "und_first"])
+def test_topo_kernels_by_statics_chunk(cuda_device, case, chunk,
+                                      monkeypatch):
+    """The K9 kernels step by step with the pool statics launched a chunk
+    of one or two topology groups at a time (``STATICS_CHUNK`` set; each
+    chunk's rows and the offering words against the plain statics), and
+    the whole scan at that chunk: one ``topo_pool_statics`` a chunk,
+    outputs equal to the plain scan's on the CPU at the rule's chunk."""
+    from karpenter_provider_aws_tpu_torch.ops import topo_cuda as tc
+    from karpenter_provider_aws_tpu_torch.ops import topo_torch as tt
+    arrays, rows_np, st, inp, rows = _topo_inputs(case, cuda_device)
+    n_topo = int(rows_np["has_topo"].sum())
+    monkeypatch.setattr(tt, "STATICS_CHUNK", chunk)
+    seen = set()
+    for kernel, what, got, want in examples.topo_kernel_steps(
+            inp, rows, n_max=st["n_max"], P=st["P"], EVCAP=128):
+        assert got.dtype == want.dtype and torch.equal(got, want), \
+            (kernel, what)
+        seen.add(kernel)
+    assert {"topo_pool_statics", "topo_group_start", "topo_pour"} <= seen
+    before = dict(tc.LAUNCHES)
+    got = tc.solve_scan_topo_cuda(
+        inp, rows, torch.zeros((st["GZ"], st["Z"]), dtype=torch.int64,
+                               device=cuda_device),
+        torch.zeros((st["GH"], st["n_max"]), dtype=torch.int64,
+                    device=cuda_device),
+        n_max=st["n_max"], P=st["P"])
+    assert tc.LAUNCHES["topo_pool_statics"] \
+        - before["topo_pool_statics"] == -(-n_topo // chunk)
+    monkeypatch.undo()
+    want = tt._solve_scan_topo_ref(
+        ft.kernel_inputs_from_numpy(arrays, "cpu"),
+        tt.topo_rows_from_numpy(rows_np, "cpu"),
+        torch.zeros((st["GZ"], st["Z"]), dtype=torch.int64),
+        torch.zeros((st["GH"], st["n_max"]), dtype=torch.int64),
+        st["n_max"], st["P"])
+    for i, (g, w) in enumerate(zip(got[:2] + got[3:5], want[:2] + want[3:5])):
+        assert torch.equal(g.cpu(), w), i
+    for k in tt.EV_FILL:
+        assert torch.equal(got[2][k].cpu(), want[2][k]), k
+    for f, g, w in zip(ft.Carry._fields, got[5], want[5]):
+        assert torch.equal(g.cpu(), w), f
+
+
 def test_topo_pour_layout_too_large_raises(cuda_device):
     """A layout past the card's shared memory for one block (the listed
     zone rows set past what the host counted) raises TopoLayoutError and
@@ -1232,6 +1325,8 @@ def test_topo_scan_on_card(cuda_device, case, evcap):
     want = tt.dispatch_topo(arrays, rows, statics, device="cpu")
     n_topo = int(rows["has_topo"].sum())
     assert tc.LAUNCHES["topo_pour"] - before["topo_pour"] == n_topo
+    assert tc.LAUNCHES["topo_pool_statics"] \
+        - before["topo_pool_statics"] == 1
     assert tc.LAUNCHES["topo_record_plain"] \
         - before["topo_record_plain"] == len(rows["has_topo"]) - n_topo
     for k, w in want.items():
@@ -1255,6 +1350,7 @@ def test_topo_solver_on_card(cuda_device):
         assert (d["kernel"], d["reason"], d["bails"]) == \
             ("topo", reason, bails)
         assert d["launches"]["topo_pour"] == 21 * (1 + bails)
+        assert d["launches"]["topo_pool_statics"] == 1 + bails
         assert got.decision_fingerprint() == want
 
 

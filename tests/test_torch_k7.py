@@ -1,0 +1,278 @@
+"""The consolidation gather (K7d, ``subset_gather``) as its redesigned
+kernel computes it, held against the plain gather on the CPU.
+
+``csrc/consolidation.cu`` ``subset_gather_kernel`` runs X CTAs a lane
+(``consolidation_cuda.gather_ctas``), each taking a contiguous slice of
+each field's rows: the lane's ``avail_zc & keep`` bytes cut at the
+destination's 16-byte boundaries (CTA 0 also its head and tail bytes),
+each 16-byte word masked by keep of its bytes' types (a counter from the
+word's first type); the group rows a warp a row (R and daemon as 16-byte
+words where the two rows share their alignment mod 16, F & keep and
+ex_compat & ~dead as 16-byte words of source and mask read at their own
+alignment, the short rows as bytes); the existing rows' ``ex_alloc`` /
+``ex_used0`` two 8-byte words a thread, zero on the lane's dead rows (a
+word's row by 32-bit division), or a word a thread where the tables'
+alignments differ. Here a plain model of that decomposition, on
+simulated addresses (the arena's fields at offsets that give every load
+width), writes every output byte and checks that each is written once
+and equals ``_subset_gather_ref``: rows of T and E not multiples of 16,
+D odd, Gq = 1 and 128, dead rows at the CTAs' slice edges, 1 to 7 CTAs a
+lane. The grid rule itself: ``gather_ctas`` at the rounds' shapes.
+
+Tolerance: exact (int64 and bool).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from karpenter_provider_aws_tpu_torch import examples
+from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+_BYTE_FIELDS = ("avail_zc", "F", "agz", "agc", "admit", "ex_compat")
+_WORD_FIELDS = ("R", "daemon", "ex_alloc", "ex_used0")
+
+
+class Buf:
+    """A flat array at a simulated address: ``addr(i)`` of element i,
+    the values, and for an output the count of writes of each
+    element."""
+
+    def __init__(self, values, base: int, out: bool = False):
+        self.v = np.ascontiguousarray(values).reshape(-1).copy()
+        self.item = self.v.dtype.itemsize
+        self.base = base
+        self.n = np.zeros(self.v.size, np.int64) if out else None
+
+    def addr(self, i: int) -> int:
+        return self.base + i * self.item
+
+    def put(self, i: int, x) -> None:
+        self.v[i] = x
+        self.n[i] += 1
+
+
+def row_cut(addr: int, n: int):
+    """(head, nv, tail) of a row of n bytes at ``addr`` (``row_cut``)."""
+    head = min((16 - addr % 16) % 16, n)
+    nv = (n - head) // 16
+    return head, nv, n - head - 16 * nv
+
+
+def rel_align(src: int, dst: int) -> int:
+    """The width ``ld16`` reads src with, dst 16-byte aligned."""
+    d = (src - dst) % 16
+    return 16 if d == 0 else (4 if d % 4 == 0 else 1)
+
+
+def load16(buf: Buf, i: int, al: int):
+    """16 bytes of ``buf`` from element i at width ``al``: each load of
+    that width lands on an address of that alignment."""
+    assert buf.addr(i) % al == 0, (buf.addr(i), al)
+    return buf.v[i:i + 16].astype(np.uint8)
+
+
+def and_row(dst: Buf, d0: int, src: Buf, s0: int, mask: Buf, m0: int,
+            inv: bool, n: int) -> None:
+    """``and_row_warp``: dst[i] = src[i] & mask[i] (& ~mask[i])."""
+    head, nv, tail = row_cut(dst.addr(d0), n)
+    flip = 0xff if inv else 0
+    for i in list(range(head)) + list(range(head + 16 * nv, n)):
+        dst.put(d0 + i, src.v[s0 + i] & (mask.v[m0 + i] ^ flip))
+    a_s = rel_align(src.addr(s0 + head), dst.addr(d0 + head))
+    a_m = rel_align(mask.addr(m0 + head), dst.addr(d0 + head))
+    for k in range(nv):
+        o = head + 16 * k
+        assert dst.addr(d0 + o) % 16 == 0
+        v = load16(src, s0 + o, a_s) & (load16(mask, m0 + o, a_m) ^ flip)
+        for j in range(16):
+            dst.put(d0 + o + j, v[j])
+
+
+def copy_bytes(dst: Buf, d0: int, src: Buf, s0: int, n: int) -> None:
+    for i in range(n):
+        dst.put(d0 + i, src.v[s0 + i])
+
+
+def copy_i64(dst: Buf, d0: int, src: Buf, s0: int, n: int) -> None:
+    """``copy_i64_warp``: 16-byte words where the rows share their
+    alignment mod 16, one word before and after them; else words."""
+    if (dst.addr(d0) - src.addr(s0)) % 16:
+        for i in range(n):
+            dst.put(d0 + i, src.v[s0 + i])
+        return
+    h = 1 if dst.addr(d0) % 16 and n > 0 else 0
+    nv = (n - h) // 2
+    if h:
+        dst.put(d0, src.v[s0])
+    for k in range(nv):
+        i = h + 2 * k
+        assert dst.addr(d0 + i) % 16 == 0 and src.addr(s0 + i) % 16 == 0
+        dst.put(d0 + i, src.v[s0 + i])
+        dst.put(d0 + i + 1, src.v[s0 + i + 1])
+    if h + 2 * nv < n:
+        dst.put(d0 + n - 1, src.v[s0 + n - 1])
+
+
+def gather_model(arena, gid, dead, keep, X: int, offsets: dict):
+    """Every output of the gather, written as the kernel's X CTAs a lane
+    write it; the arena's fields at ``offsets`` bytes past a 256-byte
+    boundary (the outputs at one)."""
+    B, Gq = gid.shape
+    T, D = arena["A"].shape
+    Gu, E = arena["ex_compat"].shape
+    Z, C, P = (arena["agz"].shape[1], arena["agc"].shape[1],
+               arena["admit"].shape[1])
+    ZC = Z * C
+    base = iter(range(1 << 20, 1 << 40, 1 << 24))
+    src = {f: Buf(arena[f].astype(np.uint8) if f in _BYTE_FIELDS
+                  else arena[f], next(base) + offsets.get(f, 0))
+           for f in _BYTE_FIELDS + _WORD_FIELDS}
+    kb = Buf(keep.astype(np.uint8), next(base) + offsets.get("keep", 0))
+    db = Buf(dead.astype(np.uint8), next(base) + offsets.get("dead", 0))
+    shapes = dict(avail_zc=(T, ZC), R=(Gq, D), F=(Gq, T), agz=(Gq, Z),
+                  agc=(Gq, C), admit=(Gq, P), daemon=(Gq, P, D),
+                  ex_compat=(Gq, E), ex_alloc=(E, D), ex_used0=(E, D))
+    out = {f: Buf(np.zeros((B,) + shp, np.uint8 if f in _BYTE_FIELDS
+                           else np.int64), next(base), out=True)
+           for f, shp in shapes.items()}
+    for b in range(B):
+        for x in range(X):
+            # avail_zc & keep[type]
+            n = T * ZC
+            o_a, s_a = out["avail_zc"], src["avail_zc"]
+            head, nv, tail = row_cut(o_a.addr(b * n), n)
+            if x == 0:
+                for i in list(range(head)) + list(range(n - tail, n)):
+                    o_a.put(b * n + i, s_a.v[i] & kb.v[b * T + i // ZC])
+            al = rel_align(s_a.addr(head), o_a.addr(b * n + head))
+            for k in range(nv * x // X, nv * (x + 1) // X):
+                o = head + 16 * k
+                v = load16(s_a, o, al)
+                t, r = divmod(o, ZC)
+                for j in range(16):
+                    o_a.put(b * n + o + j, v[j] & kb.v[b * T + t])
+                    r += 1
+                    if r == ZC:
+                        r, t = 0, t + 1
+            # the group rows, a warp a row
+            for q in range(Gq * x // X, Gq * (x + 1) // X):
+                r = b * Gq + q
+                g = int(gid[b, q])
+                copy_i64(out["R"], r * D, src["R"], g * D, D)
+                and_row(out["F"], r * T, src["F"], g * T, kb, b * T, False,
+                        T)
+                for f, w in (("agz", Z), ("agc", C), ("admit", P)):
+                    copy_bytes(out[f], r * w, src[f], g * w, w)
+                copy_i64(out["daemon"], r * P * D, src["daemon"],
+                         g * P * D, P * D)
+                and_row(out["ex_compat"], r * E, src["ex_compat"], g * E,
+                        db, b * E, True, E)
+            # the existing rows
+            w0, w1 = E * x // X * D, E * (x + 1) // X * D
+            da, du = out["ex_alloc"], out["ex_used0"]
+            sa, su = src["ex_alloc"], src["ex_used0"]
+            o0 = b * E * D
+
+            def put(i):
+                gone = db.v[b * E + i // D]
+                da.put(o0 + i, 0 if gone else sa.v[i])
+                du.put(o0 + i, 0 if gone else su.v[i])
+            if ((da.addr(o0) - sa.addr(0)) | (du.addr(o0) - su.addr(0))
+                    | (da.addr(o0) - du.addr(o0))) % 16 == 0:
+                h = 1 if da.addr(o0 + w0) % 16 and w1 > w0 else 0
+                npair = (w1 - w0 - h) // 2
+                if h:
+                    put(w0)
+                for k in range(npair):
+                    i = w0 + h + 2 * k
+                    assert da.addr(o0 + i) % 16 == 0
+                    assert sa.addr(i) % 16 == 0
+                    e = i // D
+                    e1 = e + 1 if i + 1 - e * D == D else e
+                    assert e1 == (i + 1) // D
+                    put(i)
+                    put(i + 1)
+                if w0 + h + 2 * npair < w1:
+                    put(w1 - 1)
+            else:
+                for i in range(w0, w1):
+                    put(i)
+    for f, o in out.items():
+        assert (o.n == 1).all(), (f, int(o.n.min()), int(o.n.max()))
+    return {f: o.v.reshape((B,) + shapes[f]) for f, o in out.items()}
+
+
+def _check_model(arena, lanes, X, offsets):
+    inp = ft.kernel_inputs_from_numpy(arena, "cpu")
+    t = {k: torch.from_numpy(v) for k, v in lanes.items()}
+    want = ct._subset_gather_ref(inp, t["gid"], t["n"], t["dead"],
+                                 t["keep"])
+    got = gather_model(arena, lanes["gid"], lanes["dead"], lanes["keep"],
+                       X, offsets)
+    for f, g in got.items():
+        w = getattr(want, f).numpy()
+        if w.dtype == bool:
+            g = g.astype(bool)
+        assert g.shape == w.shape and np.array_equal(g, w), f
+
+
+#: arena field offsets past a 16-byte boundary: aligned, 8-byte words at
+#: 8, byte rows at 4 (4-byte loads) and at odd offsets (byte loads)
+OFFSETS = ({}, dict(R=8, daemon=8, ex_alloc=8, ex_used0=8, F=4, keep=12,
+                    dead=4, avail_zc=4, ex_compat=8),
+           dict(F=1, keep=3, dead=5, avail_zc=7, ex_compat=2, ex_used0=8))
+
+
+@pytest.mark.parametrize("offsets", range(len(OFFSETS)))
+@pytest.mark.parametrize("X", [1, 2, 7])
+@pytest.mark.parametrize("shape", range(4))
+def test_gather_model_matches_plain(shape, X, offsets):
+    """The model of the kernel's decomposition on ``GATHER_SHAPES``' odd
+    shapes (T = 813, 29, 17, 100; D = 7, 5, 1, 8; E = 37, 3, 1, 45; Gq = 1
+    to 128), with dead rows at the CTAs' slice edges: each output written
+    once and equal to the plain gather."""
+    shp = examples.GATHER_SHAPES[shape]
+    arena, _, lanes, _ = examples.subset_case("dead_nodes", shape, **shp)
+    E = shp["Ep"]
+    edges = sorted({e for x in range(X + 1) for e in
+                    (E * x // X - 1, E * x // X) if 0 <= e < E})
+    lanes["dead"][:, edges] = True
+    lanes["dead"][1 % shp["B"], edges] = False
+    _check_model(arena, lanes, X, OFFSETS[offsets])
+
+
+def test_gather_model_round_widths():
+    """Round (a)'s widths (T = 812, 12 offering pairs, E = 1,024, D = 8)
+    on a few lanes, at the two CTAs a lane the card gives it, and
+    round (b)'s 128 groups a lane on two lanes."""
+    for shp, X in ((dict(examples.GATHER_SHAPES[5], B=3), 2),
+                   (dict(examples.GATHER_SHAPES[4], B=2), 3)):
+        arena, _, lanes, _ = examples.subset_case("dead_nodes", 5, **shp)
+        _check_model(arena, lanes, X, OFFSETS[1])
+
+
+def test_gather_ctas_rule():
+    """CTAs a lane: about four waves of the resident CTAs (528 on the
+    H100: 4 of 256 threads on each of 132 SMs), at least 16 KB each, at
+    least one; round (a) (2,048 lanes), (b) (128 lanes of 128 groups),
+    the 65,552 lanes of a round past grid y, a tiny lane."""
+    a = cc.gather_lane_bytes(812, 12, 8, 4, 3, 1, 1024, 1)
+    b = cc.gather_lane_bytes(812, 12, 8, 4, 3, 1, 1024, 128)
+    assert a == 9744 + 16 * 1024 * 8 + 64 + 812 + 4 + 3 + 1 + 64 + 1024
+    assert cc.gather_ctas(2048, a, 528) == 2
+    assert cc.gather_ctas(128, b, 528) == 17
+    assert cc.gather_ctas(65_552, a, 528) == 1
+    assert cc.gather_ctas(4, 1000, 528) == 1
+    assert cc.gather_ctas(1, 10 * cc.GATHER_CTA_BYTES, 528) == 10

@@ -1,5 +1,21 @@
-"""The topology pour (K9) as its redesigned kernel computes it, held
-against the plain pour on the CPU.
+"""The topology group kernels (K9) as their redesigned kernels compute
+them, held against the plain parts on the CPU.
+
+The group start is two launches: ``topo_pool_statics`` computes the
+carry-free per-pool statics of a chunk of topology groups (the tables'
+row j the group of rank r0 + j) once before the chunk's first group, and
+packs each type's offerings into one Z*C-bit word; ``topo_group_start``
+takes a slot row a CTA, two types a thread (the row's bytes cut at its
+2-byte boundaries, pairs at a 4-byte boundary stored with the next
+lane's as one 4-byte word), each type's offering test one AND of its
+word with the slot's pair word (the loop past 64 pairs), its headroom
+quotients by the request's reciprocal. Here: the pool statics of every
+topology group, whole and in chunks of 1, 2, 3 groups, against each
+group's ``_topo_group_start_ref``; the word test against
+``offering_ok``'s loop (Z*C = 64, where bit 63 is the sign bit, and past
+the word); the reciprocal quotient against the floor division; a model
+of the slot CTA (rows at every alignment, T not a multiple of 4, two
+passes, D past the staged rows) against ``_topo_slot_start_ref``.
 
 ``csrc/topo.cu`` ``topo_pour`` runs a topology group's events in one
 block: it lists the counter rows the group reads or writes and walks only
@@ -852,3 +868,272 @@ def test_layout_sizes():
             counts.append((nz[topo].tolist(), nh[topo].tolist()))
         assert counts[0] == counts[1], name
         assert max(counts[0][0]) <= 2 and max(counts[0][1]) <= 2, name
+
+
+# ---------------------------------------------------------------------------
+# the group start: the pool statics, the offering words, the slot CTA
+# ---------------------------------------------------------------------------
+
+def statics_rows(has_topo, chunk):
+    """Each group's row of the pool statics (its rank among the topology
+    groups mod ``chunk``; -1 for the others) and the chunks' groups, as
+    ``topo_cuda.TopoScanState`` lays them out (``srow``, ``tgid``)."""
+    groups = [g for g, t in enumerate(has_topo) if t]
+    srow = [-1] * len(has_topo)
+    for r, g in enumerate(groups):
+        srow[g] = r % chunk
+    return srow, [groups[r:r + chunk] for r in range(0, len(groups), chunk)]
+
+
+@pytest.mark.parametrize("name", examples.TOPO_CASES)
+def test_pool_statics_match_group_start(name):
+    """The pool statics of every topology group at once, and in chunks of
+    1, 2 and 3 groups and of the card's rule: each group's row equals the
+    per-pool fields of its ``_topo_group_start_ref``."""
+    arrays, rows_np, st = examples.topo_case(name)
+    inp = ft.kernel_inputs_from_numpy(arrays, "cpu")
+    rows = tt.topo_rows_from_numpy(rows_np, "cpu")
+    P, N = st["P"], st["n_max"]
+    T, Z = inp.A.shape[0], inp.agz.shape[1]
+    carry = ft.carry0(inp, N, 0)
+    has_topo = rows_np["has_topo"].tolist()
+    topo = [g for g, t in enumerate(has_topo) if t]
+    want = {g: tt._topo_group_start_ref(inp, carry, g, rows, P=P)
+            for g in topo}
+    for chunk in sorted({1, 2, 3, len(topo), tt.statics_chunk(P, T, Z)}):
+        srow, chunks = statics_rows(has_topo, chunk)
+        assert sum(map(len, chunks)) == len(topo)
+        for groups in chunks:
+            tab = tt._topo_pool_statics_ref(inp, rows, groups, P=P)
+            for f in tt.PoolStatics._fields:
+                assert getattr(tab, f).shape[0] == len(groups), f
+            for g in groups:
+                for f in tt.PoolStatics._fields:
+                    got, w = getattr(tab, f)[srow[g]], getattr(want[g], f)
+                    assert got.dtype == w.dtype and torch.equal(got, w), \
+                        (name, chunk, g, f)
+
+
+def test_pool_statics_cases_reach_both_gates():
+    """Some topology group of the cases takes the cap-1 anti ladder and
+    some does not; some (group, pool) can open a node and some cannot."""
+    gates, opens = set(), set()
+    for name in examples.TOPO_CASES:
+        arrays, rows_np, st = examples.topo_case(name)
+        inp = ft.kernel_inputs_from_numpy(arrays, "cpu")
+        rows = tt.topo_rows_from_numpy(rows_np, "cpu")
+        topo = np.nonzero(rows_np["has_topo"])[0].tolist()
+        tab = tt._topo_pool_statics_ref(inp, rows, topo, P=st["P"])
+        gates |= set(tab.anti_bulk.tolist())
+        opens |= set(tab.open_ok0.reshape(-1).tolist())
+    assert gates == {True, False} and opens == {True, False}
+
+
+def test_statics_chunk_rule():
+    """At most 64 groups a chunk, at most 64 MiB of tables, at least one
+    group."""
+    assert tt.statics_chunk(1, 812, 4) == tt.STATICS_CHUNK == 64
+    per = 64 * 812 * (9 + 64) + 64 * (9 * 64 + 9) + 1
+    assert tt.statics_chunk(64, 812, 64) == tt.STATICS_BYTES // per == 17
+    assert tt.statics_chunk(4096, 100_000, 64) == 1
+
+
+def offering_loop(zones, ct, agz, agc, avail_zc, Z, C):
+    """[T] ``offering_ok`` of one slot for every type (ffd_common.cuh):
+    an offered (zone, capacity type) of the slot narrowed by the group."""
+    out = []
+    for t in range(avail_zc.shape[0]):
+        out.append(any(zones[z] and agz[z] and ct[c] and agc[c]
+                       and avail_zc[t, z * C + c]
+                       for z in range(Z) for c in range(C)))
+    return out
+
+
+def offering_bits(zones, ct, agz, agc, words, avail_zc, Z, C):
+    """The slot CTA's test: the slot's admitted pairs as one word (bit
+    z*C + c, warp 0's ballots), ANDed with each type's offering word;
+    offering_ok's loop past ``OFFER_BITS`` pairs."""
+    if Z * C > tt.OFFER_BITS:
+        return offering_loop(zones, ct, agz, agc, avail_zc, Z, C)
+    zm = 0
+    for i in range(Z * C):
+        z, c = divmod(i, C)
+        if zones[z] and agz[z] and ct[c] and agc[c]:
+            zm |= 1 << i
+    return [(int(w) & zm) != 0 for w in words]
+
+
+@pytest.mark.parametrize("Z,C", [(4, 3), (1, 1), (16, 4), (8, 8), (22, 3)])
+def test_offer_words_match_offering_loop(Z, C):
+    """The offering words (``_offer_words_ref``, what the statics launch
+    packs) and the slot's pair word give offering_ok's answer for every
+    slot and type: Z*C = 64 sets the sign bit, 66 pairs take the loop."""
+    rng = np.random.RandomState(Z * 100 + C)
+    T = 57
+    avail = rng.rand(T, Z * C) < 0.15
+    avail[0] = False
+    avail[1, -1] = True                      # the last pair (bit 63 at 64)
+    if Z * C <= tt.OFFER_BITS:
+        words = tt._offer_words_ref(torch.from_numpy(avail), Z, C).tolist()
+        for t in range(T):
+            assert [bool(int(words[t]) >> i & 1) for i in range(Z * C)] \
+                == avail[t].tolist()
+    else:
+        with pytest.raises(ValueError):
+            tt._offer_words_ref(torch.from_numpy(avail), Z, C)
+        words = None
+    hits = 0
+    for _ in range(40):
+        zones, ct = rng.rand(Z) < 0.6, rng.rand(C) < 0.7
+        agz, agc = rng.rand(Z) < 0.8, rng.rand(C) < 0.8
+        want = offering_loop(zones, ct, agz, agc, avail, Z, C)
+        assert offering_bits(zones, ct, agz, agc, words, avail, Z, C) \
+            == want
+        hits += sum(want)
+    assert hits
+
+
+def floordiv_rcp(a: int, b: int, rb: float) -> int:
+    """csrc/ffd_common.cuh ``floordiv_rcp``: below 2^52 the fp64 product
+    of a and rb = 1 / b (IEEE, rounded) floored, then one correction each
+    way by the remainder; the integer floor division otherwise."""
+    lim = 1 << 52
+    if a <= -lim or a >= lim or b >= lim:
+        return a // b
+    q = int(np.floor(np.float64(a) * np.float64(rb)))
+    r = a - q * b
+    return q - (r < 0) + (r >= b)
+
+
+def test_fp64_reciprocal_quotient_is_exact():
+    """The slot CTA's quotient by the request's reciprocal equals the floor
+    division on random and edge operands: multiples of b and one either
+    side, negative numerators (over-committed rows), b = 1, 2 and 3,
+    operands near 2^52 and past it (the integer path)."""
+    rng = np.random.RandomState(7)
+    cases = [(int(a), int(b)) for a, b in zip(
+        rng.randint(-(1 << 52) + 1, 1 << 52, size=20000, dtype=np.int64),
+        rng.randint(1, 1 << 40, size=20000, dtype=np.int64))]
+    cases += [(int(a), int(b)) for a, b in zip(
+        rng.randint(-(1 << 52) + 1, 1 << 52, size=20000, dtype=np.int64),
+        rng.randint(1, 8, size=20000, dtype=np.int64))]
+    for _ in range(20000):
+        b = int(rng.randint(1, 1 << 26))
+        q = int(rng.randint(-(1 << 25), 1 << 25))
+        for d in (-1, 0, 1):
+            cases.append((q * b + d, b))
+    lim = 1 << 52
+    cases += [(lim - 1, 1), (-lim + 1, 1), (lim - 1, 2), (lim - 2, 2),
+              (lim - 1, 3), (-lim + 1, 7), (lim, 3), (-lim, 3),
+              ((1 << 62) + 5, 7), (5, lim + 1), (0, 1), (-1, 1 << 51),
+              (1 << 51, (1 << 51) - 1), (lim - 1, (1 << 51) + 1)]
+    for a, b in cases:
+        assert floordiv_rcp(a, b, 1.0 / b) == a // b, (a, b)
+
+
+def slot_items(base: int, T: int, nth: int = 512):
+    """The slot CTA's cut of a candidate row at byte address ``base``:
+    item 0 the type before its first 2-byte boundary, items 1 .. nw pairs
+    of types, item nw + 1 the type after the last pair; thread w % nth of
+    pass w // nth takes item w. A pair at a 4-byte boundary whose next
+    item (the next lane's: lanes 0-30 of a warp) is a pair stores both as
+    one 4-byte word, and that next lane stores nothing; other pairs store
+    2-byte words, single types bytes. Returns [(types, [(first type,
+    bytes stored)])]: each item's types and the stores its lane makes."""
+    head = min(base % 2, T)
+    nw = (T - head) // 2
+    n_of = [head] + [2] * nw + [T - head - 2 * nw]
+    items = []
+    for w, n in enumerate(n_of):
+        t0 = 0 if w == 0 else head + 2 * (w - 1)
+        lane = (w % nth) % 32
+        nxt = n_of[w + 1] if w + 1 < len(n_of) and (w + 1) % nth else 0
+        prv = n_of[w - 1] if w > 0 else 0
+        at4 = (base + t0) % 4 == 0
+        stores = []
+        if n == 2 and at4 and lane < 31 and nxt == 2:
+            stores.append((t0, 4))
+        elif n == 2 and not (not at4 and lane > 0 and prv == 2):
+            stores.append((t0, 2))
+        elif n == 1:
+            stores.append((t0, 1))
+        for t, k in stores:
+            assert (base + t) % k == 0
+        items.append((list(range(t0, t0 + n)), stores))
+    return items
+
+
+@pytest.mark.parametrize("T,D", [(37, 5), (812, 8), (3, 11), (1, 5),
+                                 (1032, 8), (1030, 8)])
+def test_slot_cta_model_matches_plain(T, D):
+    """A model of ``topo_group_start``'s CTA (rows at each of the four
+    byte alignments; a free slot, an existing one and a pool the group
+    does not admit take the zero row by 16-byte stores and room 0; an
+    open one its items of two types, each type's candidate by the word
+    test and its headroom by the reciprocal quotients (D = 11: the global
+    rows), the candidate bytes stored as 4-byte words where two pairs
+    meet at a 4-byte boundary, else as 2-byte words and bytes, each byte
+    once, the room the max over the candidates) against
+    ``_topo_slot_start_ref`` on random carries, over-committed rows too;
+    T = 1,030 and 1,032 take two passes of the block."""
+    rng = np.random.RandomState(T + D)
+    Z, C, P, N = 3, 2, 3, 9
+    arrays, _ = examples.example_arrays(n_groups=4, n_types=T, P=P, Z=Z,
+                                        C=C, D=D)
+    arrays["admit"] = rng.rand(4, P) < 0.7
+    arrays["agz"] = rng.rand(4, Z) < 0.8
+    arrays["agc"] = rng.rand(4, C) < 0.8
+    arrays["R"][:, 1] = 0                    # a dimension no group requests
+    inp = ft.kernel_inputs_from_numpy(arrays, "cpu")
+    words = tt._offer_words_ref(inp.avail_zc, Z, C).tolist()
+    A, R = inp.A.numpy(), inp.R.numpy()
+    for trial in range(4):
+        carry = ft.Carry(
+            used=torch.from_numpy(rng.randint(0, 1 << 21, (N, D))),
+            types=torch.from_numpy(rng.rand(N, T) < 0.6),
+            zones=torch.from_numpy(rng.rand(N, Z) < 0.6),
+            ct=torch.from_numpy(rng.rand(N, C) < 0.7),
+            pool=torch.from_numpy(rng.choice([-2, -1, 0, 1, 2], N)
+                                  .astype(np.int32)),
+            alive=torch.ones(N, dtype=torch.bool),
+            num_nodes=torch.zeros(1, dtype=torch.int32),
+            pool_used=torch.zeros((P, D), dtype=torch.int64))
+        used = carry.used.numpy()
+        for g in range(4):
+            cand, rem0 = tt._topo_slot_start_ref(inp, carry, g, P=P)
+            for s in range(N):
+                base = (s * T + trial) % 4       # the row's byte address
+                pool = int(carry.pool[s])
+                if pool < 0 or not arrays["admit"][g, min(pool, P - 1)]:
+                    assert not cand[s].any() and int(rem0[s]) == 0
+                    continue
+                c_of, written = {}, [0] * T
+                k = 0
+                for types, stores in slot_items(base, T):
+                    for t in types:
+                        off = offering_bits(
+                            carry.zones[s].tolist(), carry.ct[s].tolist(),
+                            arrays["agz"][g], arrays["agc"][g], [words[t]],
+                            None, Z, C)[0]
+                        c = bool(carry.types[s, t]) and \
+                            bool(arrays["F"][g, t]) and off
+                        assert t not in c_of
+                        c_of[t] = c
+                        if not c:
+                            continue
+                        m = BIG
+                        for d in range(D):
+                            if R[g, d] <= 0:
+                                continue
+                            x = _w(int(A[t, d]) - int(used[s, d]))
+                            m = min(m, floordiv_rcp(x, int(R[g, d]),
+                                                    1.0 / int(R[g, d]))
+                                    if D <= 8 else x // int(R[g, d]))
+                        k = max(k, max(m, 0))
+                    for t, nb in stores:
+                        for i in range(nb):
+                            written[t + i] += 1
+                assert written == [1] * T
+                assert [c_of[t] for t in range(T)] == cand[s].tolist(), \
+                    (T, trial, g, s)
+                assert k == int(rem0[s]), (T, trial, g, s)

@@ -12,7 +12,9 @@ CPU.
 - The plain parts: ``_topo_group_start_ref`` against the reference
   kernel's group-start expressions at each topology group's entry state
   (from the reference's own scan), and ``_topo_record_plain_ref`` against
-  its membership recording.
+  its membership recording; the plain scan with the pool statics
+  computed a chunk of one or two topology groups ahead (the kernels'
+  order) against the reference's scan.
 - The slice: ``CUDASolver(device="cpu")`` against the reference
   ``CPUSolver`` by decision fingerprint on the equivalence scenarios, the
   fuzz generator of tests/test_topology_equivalence.py and BASELINE
@@ -156,6 +158,31 @@ def test_scan_byte_identical(name):
     for f, w in final._asdict().items():
         g = getattr(carry, f).numpy().reshape(np.shape(w))
         assert np.array_equal(g, np.asarray(w)), (name, f)
+
+
+@pytest.mark.parametrize("name,chunk", [
+    ("two_deployments", 1), ("fix_zones", 1), ("cross_group_zone_anti", 1),
+    ("rows_last", 1), ("rows_last", 2)])
+def test_scan_byte_identical_by_statics_chunk(name, chunk, monkeypatch):
+    """The plain scan in the kernels' order, its pool statics computed a
+    chunk of ``chunk`` topology groups ahead (``STATICS_CHUNK`` set; these
+    cases have two and three, so their scans cross chunk boundaries),
+    against the reference kernel: every output."""
+    arrays, rows, st, want = _jax_run(name)
+    assert int(rows["has_topo"].sum()) > chunk
+    monkeypatch.setattr(tt, "STATICS_CHUNK", chunk)
+    takes, leftover, ev, zfix, bail, carry = tt._solve_scan_topo_ref(
+        ft.kernel_inputs_from_numpy(arrays, "cpu"),
+        tt.topo_rows_from_numpy(rows, "cpu"),
+        torch.zeros((st["GZ"], st["Z"]), dtype=torch.int64),
+        torch.zeros((st["GH"], st["n_max"]), dtype=torch.int64),
+        st["n_max"], st["P"], st["EVCAP"], PMAX)
+    got = dict(takes=takes, leftover=leftover, zfix=zfix, bail=bail,
+               used=carry.used, types=carry.types, zones=carry.zones,
+               ct=carry.ct, pool=carry.pool, alive=carry.alive,
+               num_nodes=carry.num_nodes.reshape(1),
+               **{f"ev_{k}": v for k, v in ev.items()})
+    _assert_outputs_equal(got, want, (name, chunk))
 
 
 @pytest.mark.parametrize("evcap", [1, 2])
