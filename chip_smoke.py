@@ -32,7 +32,11 @@ Phases (any failure exits non-zero before the result line):
    sequential block; "striped" also at the catalog's 812 types), on
    the lane axis with one lane and with three lanes that branch apart,
    and one fused dispatch of 65,552 lanes (more than grid y holds),
-   each lane equal to the plain solve of its arena;
+   each lane equal to the plain solve of its arena; K1's one-launch pack
+   at ``examples.PACK_SHAPES`` (bool segments straddling words, odd
+   G*N) on 1 and 3 lanes with and without the bail word and on 65,552
+   lanes, and ``mesh_new_caps`` at ``examples.CAPS_CASES`` (its shapes,
+   minValues floors, D past eight, Z*C past the 64-bit word);
 4. the config-2 path: ``CUDASolver(incremental=False)`` solves config 2
    from scratch through ``Solver.solve`` (one warm-up, then timed rounds)
    with every launch counter set to 0 just before and read just after;
@@ -183,7 +187,14 @@ Phases (any failure exits non-zero before the result line):
    cell at world size 1 (N = 256 and 1,024), and K11 as one group step
    (five launches) of rank 0's shard of the 2 x 2 ceiling layout (2,112
    slots x 406 types) at its last group step, each launch's time and the
-   headroom's and the commit's bounds beside it.
+   headroom's and the commit's bounds beside it; ``pack_outputs`` at
+   config 2 and on the pruned scan's pack at config 7 (its bail word in
+   the row) with the CUDA kernels one call issues (the profiler: one),
+   and ``mesh_new_caps`` at its main paths' shapes (``caps_states``:
+   the tp cell at world 1 and its rank of four, the 500,000-pod cell's
+   rank of 2 x 2, K11's shard and the ceiling at world 1) and with
+   minValues floors (``caps_floors_state``), each checked against its
+   plain part.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; a line before them holds the per-kernel
@@ -479,6 +490,55 @@ def check_arena(label, buf_np, st, cmp, dev):
         raise AssertionError(f"{label}: packed solve on the card differs "
                              "from the plain packed solve")
     return inp, carry, tk, lf
+
+
+def check_k1_k10_shapes(cmp, dev):
+    """K1's pack at ``examples.PACK_SHAPES`` (segments straddling words,
+    odd G*N, config 2's widths) on 1 and 3 lanes with and without the
+    bail word, and on 65,552 lanes (sixteen distinct lanes repeated), and
+    ``mesh_new_caps`` at ``examples.CAPS_CASES`` (its main paths' shapes,
+    minValues floors, D past eight, Z*C past the 64-bit word): each
+    against its plain version on the same inputs, one launch a call.
+    Returns the number of states checked."""
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    n = 0
+    for shape in examples.PACK_SHAPES:
+        for L in (1, 3):
+            for bail in (False, True):
+                takes, left, carry, bl = examples.pack_case(
+                    *shape, L, seed=sum(shape) + L, bail=bail, device=dev)
+                a, kw = (takes, left, carry), dict(bail=bl)
+                n0 = fc.LAUNCHES["pack_outputs"]
+                cmp("pack_outputs", fc.pack_outputs_lanes(*a, **kw),
+                    pack_plain(a, kw), f"pack {shape} L={L} bail={bail}")
+                if fc.LAUNCHES["pack_outputs"] != n0 + 1:
+                    raise AssertionError("a pack call is not one launch")
+                n += 1
+    takes, left, carry, bl = examples.pack_case(37, 3, 2, 5, 3, 2, 3, 16,
+                                                seed=4, bail=True, device=dev)
+    reps = 65_552 // 16
+
+    def rep(t):
+        return t.repeat((reps,) + (1,) * (t.dim() - 1))
+    wide = fc.pack_outputs_lanes(rep(takes), rep(left),
+                                 type(carry)(*[rep(f) for f in carry]),
+                                 bail=rep(bl))
+    want = pack_plain((takes, left, carry), dict(bail=bl))
+    cmp("pack_outputs", wide.view(reps, 16, -1),
+        want[None].expand(reps, -1, -1).contiguous(), "pack, 65,552 lanes")
+    n += 1
+    for name, shape, K in examples.CAPS_CASES:
+        st = examples.caps_state(**shape, seed=len(name), K=K,
+                                 V=5 if K else 0, device=dev)
+        want = st.clone()
+        mc._new_caps_ref(want)
+        mc.mesh_new_caps(st)
+        cmp("mesh_new_caps", st.caps, want.caps, f"caps {name}")
+        n += 1
+    return n
 
 
 def n_offset(st) -> int:
@@ -2865,6 +2925,107 @@ def bound_ms(nbytes: float, ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def capture_pack(fn):
+    """``fn()`` with ``ffd_cuda.pack_outputs_lanes`` watched: (its result,
+    [(args, kwargs)] of each pack call, the tensors cloned), so that a
+    main path's pack can be replayed on its own inputs."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+
+    def clone(x):
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*[clone(f) for f in x])
+        return x.clone() if hasattr(x, "clone") else x
+    calls, orig = [], fc.pack_outputs_lanes
+
+    def spy(*a, **kw):
+        calls.append((tuple(clone(x) for x in a),
+                      {k: clone(v) for k, v in kw.items()}))
+        return orig(*a, **kw)
+    fc.pack_outputs_lanes = spy
+    try:
+        out = fn()
+    finally:
+        fc.pack_outputs_lanes = orig
+    return out, calls
+
+
+def pack_plain(a, kw):
+    """The plain version's rows of a captured pack call, lane by lane,
+    each with its bail word where the call writes one."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    takes, left, carry = a[:3]
+    bail = kw.get("bail")
+    rows = []
+    for b in range(takes.shape[0]):
+        row = ft._pack_outputs_ref(takes[b], left[b],
+                                   ft.Carry(*[f[b] for f in carry[:8]]))
+        if bail is not None:
+            row = torch.cat([row, bail[b].reshape(1).long()])
+        rows.append(row)
+    return torch.stack(rows)
+
+
+def pack_cost(a, kw):
+    """Bytes and operations of one pack call: every source read once
+    (leftover; the carry's used, pool, num_nodes and pool_used at their
+    own widths; the takes; the four bool segments; the bail bools) and
+    the output rows written once, 8 bytes a word; an operation a bool
+    and a takes lane."""
+    takes, left, carry = a[:3]
+    bail = kw.get("bail")
+    L = takes.shape[0]
+    i64 = [left, carry.used, carry.pool, carry.num_nodes, carry.pool_used]
+    bools = [carry.types, carry.zones, carry.ct, carry.alive]
+    srcs = i64 + [takes] + bools + ([bail] if bail is not None else [])
+    nread = sum(t.numel() * t.element_size() for t in srcs)
+    n32 = takes[0].numel()
+    nb = sum(t[0].numel() for t in bools)
+    W = (sum(t[0].numel() for t in i64) + (n32 + 1) // 2 + (nb + 63) // 64
+         + (bail is not None))
+    return nread + 8 * L * W, L * (nb + n32)
+
+
+def kernels_per_call(fn, tries=5):
+    """The CUDA kernels one call of ``fn`` issues, by the profiler's device
+    events; a trace with no device event at all is taken again, and
+    ``tries`` such traces raise."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    raise AssertionError(f"{tries} profiler traces showed no device event")
+
+
+def pack_times(a, kw, reps=50, fn=None):
+    """One captured pack call replayed (``fn``, by default
+    ``pack_outputs_lanes(*a, **kw)``): its device µs (CUDA events), its
+    bound and the kernels it issues; the output checked against the plain
+    rows first."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    if fn is None:
+        def fn():
+            return fc.pack_outputs_lanes(*a, **kw)
+    if not torch.equal(fn(), pack_plain(a, kw)):
+        raise AssertionError("the pack != the plain rows")
+    nbytes, ops = pack_cost(a, kw)
+    b, by = bound_ms(nbytes, ops)
+    kern = kernels_per_call(fn)
+    return dict(us=time_launches(fn, reps=reps) * 1e3, bound_us=b * 1e3,
+                bound_by=by, bytes=nbytes, lanes=int(a[0].shape[0]),
+                kernels=len(kern), kernel_names=kern)
+
+
 def kernel_times(c2, launches):
     """Time every kernel at the config-2 shapes; returns the records."""
     import torch
@@ -2931,14 +3092,16 @@ def kernel_times(c2, launches):
                                 statistics.fmean(by_l),
                                 statistics.fmean(op_l))
 
-    # K1 pack_outputs on the final carry
+    # K1 pack_outputs on the final carry: one kernel a call
     ms = time_launches(lambda: fc.pack_outputs(takes, lefts, final))
     pms = time_launches(lambda: ft._pack_outputs_ref(takes, lefts, final))
-    nb = sum(t.numel() for t in ft._out_bools(final))
-    n_out = (takes.numel() + 1) // 2 + (nb + 63) // 64
-    i64 = ft._out_i64(lefts, final).numel()
-    recs["pack_outputs"] = (ms, pms, takes.numel() * 4 + nb
-                            + i64 * 16 + n_out * 8, nb + takes.numel())
+    kern = kernels_per_call(lambda: fc.pack_outputs(takes, lefts, final))
+    log(f"[time] pack_outputs at config 2: CUDA kernels a call {kern}")
+    if len(kern) != 1:
+        raise AssertionError(f"one pack_outputs call issued {kern}")
+    recs["pack_outputs"] = (ms, pms, *pack_cost(
+        (takes[None], lefts[None], ft.Carry(*[f[None] for f in final])),
+        {}))
 
     out = []
     for name, (ms, pms, nbytes, ops) in recs.items():
@@ -3793,6 +3956,20 @@ def k8_times(tables, wide, launches):
                  bytes=nbytes, ops=ops)], by_g
 
 
+def caps_cost(st):
+    """Bytes and operations of ``mesh_new_caps`` on a rank's state: A,
+    the offerings, F, the pool types, R, the daemon rows, the group and
+    pool narrowings and the minValues pairs read once, the caps (and h1n)
+    written once; a test and a quotient a (group, pool, type, dim or
+    pair)."""
+    inp = st.inp
+    Tl, D, G, K, M, V, P = st.T, st.D, st.G, st.K, st.M, st.V, st.P
+    Z, C = inp.agz.shape[1], inp.agc.shape[1]
+    return (8 * Tl * D + Tl * Z * C + G * Tl + P * Tl + 8 * G * P * D
+            + 8 * G * D + (G + P) * (Z + C) + 16 * K * M
+            + 8 * G * P * (1 + K * V), G * P * Tl * (D + Z * C))
+
+
 def k10_cost(st, g, c0, c1, take):
     """Bytes and operations of each K10 kernel on a rank's state ``st``
     at group step g, from its data: the entry carry ``c0``, the headroom's
@@ -3816,10 +3993,7 @@ def k10_cost(st, g, c0, c1, take):
     hr, cm = k2_cost(local, c0, g, P, st.cand, c1, take)
     TB = -(-Tl // 256)
     return {
-        "mesh_new_caps": (
-            8 * Tl * D + Tl * ZC + G * Tl + P * Tl + 8 * G * P * D
-            + 8 * G * D + (G + P) * (Z + C) + 16 * K * M
-            + 8 * G * P * (1 + K * V), G * P * Tl * (D + ZC)),
+        "mesh_new_caps": caps_cost(st),
         "mesh_slot_headroom": hr,
         "mesh_fill": (
             16 * Nl + 6 * Nl + 16 * min(E, Nl) * D + 8 * (P + 1)
@@ -3928,6 +4102,91 @@ def k10_times(kept, launches):
         recs.append(dict(name=k, route="cuda", **KERNELS[k],
                          launches=launches[k], library_ms=None, **r))
     return recs, cells
+
+
+def caps_states(kept, slab, dev):
+    """``mesh_new_caps``' states at its main paths' shapes, each a rank's
+    ``MeshState`` cut as the dispatch cuts it: the tp cell at world 1 (T
+    = 812, G = 4) and its rank 0 on four type shards (Tl = 203), the
+    500,000-pod cell's rank 0 on 2 x 2 (Tl = 406), K11's shard (rank 0 of
+    2 x 2 cut from host 0's slab of the ceiling: Tl = 406, G = 64) and the
+    ceiling at world 1 (T = 812, G = 64). ``kept``: the mesh cells'
+    (arrays, statics, n_max) by name; ``slab``: host 0's slab."""
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    from karpenter_provider_aws_tpu_torch.ops.ffd_torch import KernelInputs
+    from karpenter_provider_aws_tpu_torch.parallel import distmesh as dm
+    from karpenter_provider_aws_tpu_torch.parallel import mesh as pm
+
+    def cut(arrays, stt, n_max, ndp, ntp, slab_rows=False):
+        E, P, V = stt["E"], stt["P"], stt.get("V", 0)
+        N = E + n_max
+        Np = -(-N // ndp) * ndp
+        T = arrays["A"].shape[0]
+        lay = examples.ShardStub(ndp, 0, [0] * (P + 1), ntp=ntp, tp_idx=0)
+        names = [f for f in pm.FIELDS if arrays.get(f) is not None]
+        inp = KernelInputs(**pm._shard_inputs(
+            arrays, lay, names, -(-T // ntp) * ntp, Np,
+            Np if ndp > 1 else None, V, dev))
+        return mc.MeshState(inp, E=E, P=P, V=V, N=N, slot0=0)
+
+    whole, wst = dm.tick_arrays(examples.DIST_CEILING_SHAPE,
+                                examples.DIST_SEED, 0)
+    sl_arrays, sl_st = slab
+    out = {"tp": cut(*kept["tp"], 1, 1), "tp_rank": cut(*kept["tp"], 1, 4)}
+    if "dp2" in kept:
+        out["dp2_rank"] = cut(*kept["dp2"], 2, 2)
+    out["k11"] = cut(sl_arrays, sl_st, sl_st["n_max"], 2, 2)
+    out["ceiling"] = cut(whole, wst, wst["n_max"], 1, 1)
+    return out
+
+
+def caps_floors_state(ex, dev):
+    """``CAPS_CASES``' ``tp_floors`` state of the examples module ``ex``
+    (Tl = 203, G = 4, P = 2, K = 3 keys over 5 values: one CTA a (group,
+    pool)), seeded as phase 3 seeds it."""
+    name, shape, K = next(c for c in ex.CAPS_CASES if c[0] == "tp_floors")
+    return ex.caps_state(**shape, seed=len(name), K=K, V=5, device=dev)
+
+
+def caps_shape_times(states, cmp=None):
+    """``mesh_new_caps`` on each of ``states`` (name: ``MeshState``): the
+    kernel against its plain part on the same state (through ``cmp`` when
+    given), µs a launch (CUDA events), the plain part's, the bound from
+    ``caps_cost`` and the CTAs a (group, pool)."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    out = {}
+    for name, st in states.items():
+        want = st.clone()
+        mc._new_caps_ref(want)
+        mc.mesh_new_caps(st)
+        if cmp is not None:
+            cmp("mesh_new_caps", st.caps, want.caps, f"caps at {name}")
+        elif not torch.equal(st.caps, want.caps):
+            raise AssertionError(f"mesh_new_caps at {name} != plain")
+        nbytes, ops = caps_cost(st)
+        b, by = bound_ms(nbytes, ops)
+        out[name] = dict(
+            us=time_launches(lambda: mc.mesh_new_caps(st)) * 1e3,
+            plain_us=time_launches(lambda: mc._new_caps_ref(st),
+                                   reps=10) * 1e3,
+            bound_us=b * 1e3, bound_by=by, bytes=nbytes, T=st.T, G=st.G,
+            P=st.P, K=st.K, ctas=mc.caps_cluster(st.T, st.K))
+    return out
+
+
+def pruned_pack_times(c7):
+    """The pruned scan's pack at config 7 (one lane, with its bail word):
+    one whole pruned dispatch with the pack watched, then ``pack_times``
+    on the pack's own inputs."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    buf, st, S, _ = c7
+    _, calls = capture_pack(lambda: fc.solve_scan_packed1_pruned_many_cuda(
+        torch.from_numpy(buf).cuda()[None], n_max=st["n_max"], S=S,
+        **{k: st[k] for k in "T D Z C G E P".split()}))
+    return pack_times(*calls[-1])
 
 
 def fill_shape_times():
@@ -4068,9 +4327,7 @@ def k1_lane_times(arenas, launches_b):
         bufs, n_i64, n_bits, takes, lefts, carry = k1
         words = bufs[:, n_i64:]
         lanes = [ft.Carry(*[f[b] for f in carry]) for b in range(B)]
-        nb = sum(t[0].numel() for t in ft._out_bools(carry))
-        n_out = (takes[0].numel() + 1) // 2 + (nb + 63) // 64
-        i64 = ft._out_i64(lefts[0], lanes[0]).numel()
+        pnb, pops = pack_cost((takes, lefts, carry), {})
         recs = {
             f"unpack_bits_lanes_b{B}": (
                 time_launches(lambda: fc.unpack_bits_lanes(words, n_bits)),
@@ -4084,8 +4341,7 @@ def k1_lane_times(arenas, launches_b):
                 time_launches(lambda: [ft._pack_outputs_ref(
                     takes[b], lefts[b], lanes[b]) for b in range(B)],
                     reps=5),
-                B * (takes[0].numel() * 4 + nb + i64 * 16 + n_out * 8),
-                B * (nb + takes[0].numel()), "pack_outputs"),
+                pnb, pops, "pack_outputs"),
         }
         for name, (ms, pms, nbytes, ops, kern) in recs.items():
             b, by = bound_ms(nbytes, ops)
@@ -4261,12 +4517,13 @@ def main() -> int:
         stw["Q"]), stw, cmp)
     k7_cases = check_k7_synthetic(cmp, dev)
     k5_cases = check_fused_cases(cmp, dev)
+    k1_k10 = check_k1_k10_shapes(cmp, dev)
     torch.cuda.synchronize()
     log(f"[compare] tolerance exact (integer math; any differing word "
         f"fails): {cmp.checks} checks over "
         f"{len(cases)} K1/K2 arenas, {k3_runs} K3 suffix runs, 2 one-lane "
-        f"K2 scans, {k7_cases} K7 cases and {k5_cases} K5 arenas, "
-        f"max_abs_err {cmp.err}")
+        f"K2 scans, {k7_cases} K7 cases, {k5_cases} K5 arenas and "
+        f"{k1_k10} K1 pack and K10 caps states, max_abs_err {cmp.err}")
 
     # ---- phase 4: the config-2 path -----------------------------------------
     solver = CUDASolver(incremental=False)
@@ -4424,6 +4681,12 @@ def main() -> int:
     k7_recs, lane = k7_times(caps, launches)
     recs += k7_recs
     recs += k6_times(c7_states, launches)
+    c7_pack = pruned_pack_times(c7_states)
+    log(f"[time] the pruned scan's pack at config 7 (with its bail word): "
+        f"{json.dumps(c7_pack)}")
+    if c7_pack["kernels"] != 1:
+        raise AssertionError(f"the pruned pack issued {c7_pack['kernels']} "
+                             "kernels")
     recs += k1_lane_times(batch_arenas, launches_b)
     recs += k9_times(c3_states, launches)
     k8_recs, k8_by_g = k8_times(p12_tables, p12_wide, launches)
@@ -4433,6 +4696,11 @@ def main() -> int:
     recs += k5_recs
     k10_recs, k10_cells = k10_times(m14_states, launches)
     recs += k10_recs
+    caps_st = caps_states(m14_states, d15_state, torch.device("cuda"))
+    caps_st["tp_floors"] = caps_floors_state(examples, torch.device("cuda"))
+    caps = caps_shape_times(caps_st, cmp)
+    log(f"[time] mesh_new_caps at its main paths' shapes and with floors: "
+        f"{json.dumps(caps)}")
     k11_recs, k11_shape = k11_times(d15_state, launches_d15)
     recs += k11_recs
     for r in recs:

@@ -22,14 +22,20 @@ group in this process, the ceiling on 2 hosts x 2 gloo ranks sharing the
 card (``MeshGroup``): its full tick and patch ticks. ``k10_times`` also
 times each ``mesh_fill`` phase (a, b, c and the one-launch fill) at
 ``examples.FILL_SHAPES`` (Nl = 256, 512, 2,112 and 4,224 rows, one pool
-and eight with limits; ``fill_shapes_us``). A third argument cuts the
-run to some of ``PARTS`` (``fill``: those fill times alone; ``k11``:
-K11's step alone). Prints one line ``AB <tag> {json}``. To compare two
-builds, run it on both checkouts in one call to the card, in the order
-P N N P:
+and eight with limits; ``fill_shapes_us``). ``mesh_new_caps`` is timed
+at its main paths' shapes (``chip_smoke.caps_shape_times``: the tp cell
+at world 1 and its rank of four gloo ranks, Tl = 203, the 500,000-pod
+cell's rank of 2 x 2, Tl = 406, K11's shard and the ceiling at world 1,
+and ``CAPS_CASES``' ``tp_floors`` with minValues floors; ``caps``), each
+read READINGS times beside the host's enqueue (``k1_ab.watch_drain``). A third argument cuts the run to some of ``PARTS`` (``fill``:
+those fill times alone; ``k11``: K11's step alone; ``caps``: the caps
+alone, on config 2's arrays at 50,000 pods without a solve). Prints one
+line ``AB <tag> {json}``. To compare two builds, run it on both
+checkouts in one call to the card, in the order P N N P:
 
     for v in p n n p; do python3 hack/k10_ab.py path/to/$v $v; done
     for v in p n n p; do python3 hack/k10_ab.py path/to/$v $v fill,k11; done
+    for v in p n n p; do python3 hack/k10_ab.py path/to/$v $v caps; done
 """
 import datetime
 import importlib.util
@@ -44,12 +50,15 @@ import time
 #: one warm-up; windows of the host-alone enqueue
 ROUNDS = 5
 HOST_REPS = 5
+#: ``time_launches`` readings of each caps shape
+READINGS = 3
 
 #: what a run can be cut to (a third argument, comma-separated): the mesh
 #: cells with everything at world 1 and on 2 x 2 gloo ranks (the K10
 #: kernels at each cell, the fill's phases at ``examples.FILL_SHAPES``
-#: among them), K11's step alone, the fill's shapes alone
-PARTS = {"cells", "k11", "fill"}
+#: and the caps at their shapes among them), K11's step alone, the fill's
+#: shapes alone, the caps' shapes alone
+PARTS = {"cells", "k11", "fill", "caps"}
 
 
 def main() -> int:
@@ -75,12 +84,21 @@ def main() -> int:
         raise ValueError(f"unknown parts {sorted(parts - PARTS)}; of "
                          f"{sorted(PARTS)}")
     here_examples(here)
-    out = dict(card=cs.smi_line())
+    spec = importlib.util.spec_from_file_location(
+        "k10_k1ab", os.path.join(here, "hack", "k1_ab.py"))
+    k1 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(k1)
+    drain = k1.watch_drain(cs)
+    out = dict(card=cs.smi_line(), sleep_ms=drain["sleep_ms"])
     if "fill" in parts and "cells" not in parts:
         out["fill_shapes_us"] = cs.fill_shape_times()
     if "k11" in parts and "cells" not in parts:
         _, out["k11"] = cs.k11_times(ceiling_slab(),
                                      dict.fromkeys(cs.KERNELS, 0))
+    if "caps" in parts and "cells" not in parts:
+        # the 500,000-pod cell has config 2's types and groups
+        c2 = config2_arrays()
+        out["caps"] = caps_times(cs, drain, {"tp": c2, "dp2": c2})
     if "cells" not in parts:
         print("AB", tag, json.dumps(out), flush=True)
         return 0
@@ -90,6 +108,7 @@ def main() -> int:
         world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
     try:
         kept, out["cells"] = mesh_cells(cs)
+        out["caps"] = caps_times(cs, drain, kept)
         kept["ceiling"] = ceiling_whole()
         _, out["k10"] = cs.k10_times(kept, dict.fromkeys(cs.KERNELS, 0))
         del kept
@@ -106,21 +125,50 @@ def main() -> int:
 
 
 def here_examples(here):
-    """Give an older checkout's ``examples`` this tree's fill states
-    (``fill_state``, ``FILL_SHAPES``), which build a ``MeshState`` through
-    interfaces both trees have: this tree's examples.py loaded as a module
-    of the checkout's package."""
+    """Give an older checkout's ``examples`` this tree's fill and caps
+    states (``fill_state``, ``FILL_SHAPES``, ``caps_state``,
+    ``CAPS_CASES``), which build a ``MeshState`` through interfaces both
+    trees have: this tree's examples.py loaded as a module of the
+    checkout's package. A checkout without ``mesh_cuda.caps_cluster`` ran
+    one CTA a (group, pool), which its stand-in says."""
     import importlib.util
     from karpenter_provider_aws_tpu_torch import examples
-    if hasattr(examples, "fill_state"):
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    if not hasattr(mc, "caps_cluster"):
+        mc.caps_cluster = lambda T, K: 1
+    names = ("fill_state", "FILL_SHAPES", "caps_state", "CAPS_CASES")
+    if all(hasattr(examples, n) for n in names):
         return
     spec = importlib.util.spec_from_file_location(
         "karpenter_provider_aws_tpu_torch._here_examples",
         os.path.join(here, "karpenter_provider_aws_tpu_torch", "examples.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    examples.fill_state, examples.FILL_SHAPES = mod.fill_state, \
-        mod.FILL_SHAPES
+    for n in names:
+        setattr(examples, n, getattr(mod, n))
+
+
+def caps_times(cs, drain, kept):
+    """``mesh_new_caps`` at ``chip_smoke.caps_states``' shapes (from the
+    kept cells' arrays and the ceiling's slab) and on the floors state
+    (``chip_smoke.caps_floors_state``), each with ``k1_ab.READINGS``
+    readings of its µs, (µs, the host's enqueue ms; ``drain``, from
+    ``k1_ab.watch_drain``)."""
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    dev = torch.device("cuda")
+    states = cs.caps_states(kept, ceiling_slab(), dev)
+    states["tp_floors"] = cs.caps_floors_state(examples, dev)
+    n0 = len(drain["readings"])
+    out = cs.caps_shape_times(states)
+    for i, (name, st) in enumerate(states.items()):
+        reads = [drain["readings"][n0 + 2 * i]]   # then the plain part's
+        for _ in range(READINGS - 1):
+            cs.time_launches(lambda: mc.mesh_new_caps(st))
+            reads.append(drain["readings"][-1])
+        out[name]["readings"] = reads
+    return out
 
 
 def mesh_cells(cs):
@@ -167,6 +215,25 @@ def mesh_cells(cs):
         kept[name] = (arrays, stt, solver._bucket)
         del snap, solver, res
     return kept, summary
+
+
+def config2_arrays():
+    """Config 2's sharded-scan arrays at 50,000 pods, as the mesh cell
+    prepares them, at the solver's first slot bucket (the caps read no
+    slot): (arrays, statics, n_max)."""
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.models.delta import \
+        full_existing_encode
+    from karpenter_provider_aws_tpu_torch.models.encoding import \
+        encode_snapshot
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    fenv.reset_pod_counter()
+    enc = encode_snapshot(examples.config2(fenv.Environment(), 50_000))
+    solver = CUDASolver(device="cpu")      # the arrays are numpy
+    arrays, stt = solver._prep_device_inputs(
+        enc, *full_existing_encode(enc, []), mesh=True)
+    return arrays, stt, solver._bucket
 
 
 def ceiling(cs):

@@ -192,21 +192,46 @@ __device__ __forceinline__ i64 ld_pin_i64(const i64* p) {
     return v;
 }
 
-// headroom() of an allocatable row held in registers (av [D], D <=
-// kHeadDims) over a used row u and a request row r in shared memory, its
-// quotients in fp64 with one int64 correction (floordiv_fp: a type
-// loop's 64-bit divisions were most of a candidate type's time).
-__device__ __forceinline__ i64 head_staged(const i64 (&av)[kHeadDims],
-                                           const i64* u, const i64* r,
-                                           i64 D) {
+// headroom() of an allocatable row av [D] (D <= kHeadDims: registers, or
+// a global row) over a used row u and a request row r in shared memory,
+// its quotients in fp64 with one int64 correction: floordiv_fp, or by
+// the reciprocals rb[d] = 1 / r[d] (rounded; staged once a CTA for many
+// rows) floordiv_rcp, which costs no division (a type loop's 64-bit
+// divisions were most of a candidate type's time).
+template <typename Row>
+__device__ __forceinline__ i64 head_staged(const Row& av, const i64* u,
+                                           const i64* r, i64 D,
+                                           const double* rb = nullptr) {
     i64 m = KARP_BIG;
 #pragma unroll
     for (int d = 0; d < kHeadDims; ++d) {
         if (d >= D || r[d] <= 0) continue;
-        const i64 q = floordiv_fp(wsub(av[d], u[d]), r[d]);
+        const i64 x = wsub(av[d], u[d]);
+        const i64 q = rb ? floordiv_rcp(x, r[d], rb[d]) : floordiv_fp(x, r[d]);
         m = q < m ? q : m;
     }
     return m < 0 ? 0 : m;
+}
+
+// The most zone x capacity-type pairs an offering word holds (bit z*C +
+// c; bit 63 is the sign bit); more pairs take the byte loops.
+constexpr int kOfferBits = 64;
+
+// A type's offerings avail_zc[t] (its row of zc <= kOfferBits bytes) as
+// one word, bit i the pair i: the row's loads issued 16 at a time before
+// their uses.
+__device__ __forceinline__ u64 offer_word(const u8* row, i64 zc) {
+    u64 w = 0;
+    for (i64 i0 = 0; i0 < zc; i0 += 16) {
+        unsigned v[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+            v[j] = i0 + j < zc ? ld_pin_u8(row + i0 + j) : 0u;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+            if (i0 + j < zc) w |= (u64)(v[j] != 0) << (i0 + j);
+    }
+    return w;
 }
 
 // ceil(a / b) for b > 0, as the reference's -(-a // b)

@@ -21,12 +21,25 @@
 // ffd_cluster.cuh's, reused with the shard's type window and a global
 // slot window (SlotWindow); nothing here repeats them.
 //
-// mesh_new_caps (once per solve, G x P blocks): the local new-node cap of
-//   every (group, pool) over the rank's types, and with minValues floors
-//   the per-value maxima h1n [G, P, K, V]. The caps read only A, daemon,
-//   R, F, pool_types and the offerings (ffd_jax.py:388-400), never the
-//   carry, so ONE tp all_reduce(MAX) of this [G, P(1 + K*V)] buffer per
-//   solve replaces the reference's P pmax (and P h1n pmax) of every step.
+// mesh_new_caps (once per solve): the local new-node cap of every (group,
+//   pool) over the rank's types, and with minValues floors the per-value
+//   maxima h1n [G, P, K, V]. The caps read only A, daemon, R, F,
+//   pool_types and the offerings (ffd_jax.py:388-400), never the carry,
+//   so ONE tp all_reduce(MAX) of this [G, P(1 + K*V)] buffer per solve
+//   replaces the reference's P pmax (and P h1n pmax) of every step. A
+//   (group, pool) is a thread-block cluster of X CTAs of 128 threads
+//   (karp_mesh_caps_cluster: 8 at Tl = 812, 4 at 406, 2 at 203), CTA r
+//   over a chunk of ceil(Tl / X) types, a type a thread: R, the daemon
+//   row, R's reciprocals and the (group, pool) zone x capacity-type pair
+//   word staged once a CTA; each type's loads issued at once (the first
+//   pass's before the staging barrier) and its
+//   offering test one AND of its word (offer_word) with the pair word
+//   (new_node_cand's loops past kOfferBits pairs), its quotients by the
+//   reciprocals (head_staged, exact); the partial maxima meet in CTA 0's
+//   shared memory over the cluster (distributed shared memory), so one
+//   launch writes caps with no memset and no second pass. With floors one
+//   CTA a (group, pool) (X = 1): the per-value maxima by atomicMax in its
+//   shared memory over the pairs.
 // mesh_slot_headroom (per step), K == 0: steps 1-3 on the shard on warp
 //   rows (ffd_step.cuh slot_headroom_warps, K2's k2_layout at one lane
 //   of Nl rows: 8 warps a row at Nl = 256 and 1,024, 4 at K11's 2,112),
@@ -126,7 +139,10 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kWideThreads = 256;
+// mesh_new_caps: threads a CTA (a type a thread a pass) and the most
+// CTAs of a (group, pool), a thread-block cluster over the type axis
+constexpr int kCapsThreads = 128;
+constexpr int kCapsCluster = 8;
 constexpr int kPhaseAll = 3;
 
 int set_smem(const void* fn, size_t smem) {
@@ -162,39 +178,142 @@ __device__ __forceinline__ i64 mv_cap_serial(const i64* h1, const i64* f,
     return cap < 0 ? 0 : cap;
 }
 
-__global__ void __launch_bounds__(kWideThreads)
-mesh_new_caps_kernel(MeshArgs m) {
-    extern __shared__ i64 dyn[];   // h1n [K*V]
+// What the new-node test of type t reads for group g in pool pi, loaded
+// with every load issued before its first use: its F and pool bytes
+// (ANDed), its allocatable row (D <= kHeadDims) and its offering word
+// (offer_word; Z*C <= kOfferBits).
+struct TypeRow {
+    i64 t;
+    unsigned fp;
+    u64 ow;
+    i64 av[kHeadDims];
+};
+
+__device__ __forceinline__ TypeRow type_row(const FfdArgs& a, i64 g, i64 pi,
+                                            i64 t) {
+    TypeRow r;
+    const i64 T = a.T, D = a.D, ZC = a.Z * a.C;
+    const bool staged = D <= kHeadDims;
+    r.t = t;
+    r.fp = ld_pin_u8(a.F + g * T + t) & ld_pin_u8(a.pool_types + pi * T + t);
+#pragma unroll
+    for (int d = 0; d < kHeadDims; ++d)
+        r.av[d] = staged && d < D ? ld_pin_i64(a.A + t * D + d) : 0;
+    r.ow = ZC <= kOfferBits ? offer_word(a.avail_zc + t * ZC, ZC) : 0;
+    return r;
+}
+
+// The new-node headroom of a TypeRow, or -1 where its type is no
+// candidate (new_node_cand): the offering test one AND of the type's
+// word with the (group, pool) pair word zm (new_node_cand past
+// kOfferBits pairs); the quotients by the CTA's reciprocals of R
+// (head_staged) for D <= kHeadDims, the global rows otherwise.
+__device__ __forceinline__ i64 type_hr(const FfdArgs& a, i64 g, i64 pi,
+                                       const TypeRow& r, u64 zm,
+                                       const i64* sR, const i64* sdm,
+                                       const double* srb) {
+    const i64 D = a.D, t = r.t;
+    const bool off = a.Z * a.C <= kOfferBits ? (r.ow & zm) != 0
+                                             : new_node_cand(a, g, pi, t);
+    if (!(r.fp && off)) return -1;
+    return D <= kHeadDims ? head_staged(r.av, sdm, sR, D, srb)
+                          : headroom(a.A + t * D, a.daemon + (g * a.P + pi) * D,
+                                     a.R + g * D, D);
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Block r of (group, pool) gp = blockIdx.x / X, a cluster of X CTAs
+// (caps_cluster): the partial cap over its chunk of ceil(T / X) types,
+// stored into rank 0's shared memory after the cluster barrier that
+// every CTA arrived at on entry (all have started); after a second
+// barrier rank 0 writes the max. X == 1 (minValues floors, or T <= one
+// CTA's threads) writes it directly, with the floors' per-value maxima
+// h1n (atomicMax in shared memory over the pairs).
+__global__ void __launch_bounds__(kCapsThreads)
+mesh_new_caps_kernel(MeshArgs m, i64 X) {
+    extern __shared__ i64 dyn[];   // h1n [K*V] (X == 1)
     __shared__ i64 red[33];
+    __shared__ i64 sR[kHeadDims], sdm[kHeadDims];
+    __shared__ double srb[kHeadDims];
+    __shared__ u64 s_zm;
+    __shared__ i64 part[kCapsCluster];   // rank 0's: each CTA's partial
     const FfdArgs& a = m.f;
     const i64 T = a.T, D = a.D, P = a.P, K = a.K, V = a.V, M = a.M;
-    const i64 g = blockIdx.x / P, pi = blockIdx.x % P;
-    const i64* R = a.R + g * D;
-    const i64* dmn = a.daemon + (g * P + pi) * D;
-    if (K > 0) {
-        for (i64 i = threadIdx.x; i < K * V; i += blockDim.x) dyn[i] = 0;
-        __syncthreads();
+    const i64 Z = a.Z, C = a.C, ZC = Z * C;
+    const i64 gp = blockIdx.x / X, r = blockIdx.x - gp * X;
+    const i64 g = gp / P, pi = gp - g * P;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (X > 1) cluster_arrive_relaxed();
+    const i64 tc = (T + X - 1) / X;
+    const i64 t0 = r * tc, t1 = t0 + tc < T ? t0 + tc : T;
+    // the first pass's type: its loads in flight across the staging
+    TypeRow first;
+    if (t0 + tid < t1) first = type_row(a, g, pi, t0 + tid);
+    if (warp == 0 && ZC <= kOfferBits) {   // lanes over the pairs
+        u64 zm = 0;
+        for (int h = 0; h < 2; ++h) {
+            const int i = lane + 32 * h;
+            bool on = false;
+            if (i < ZC) {
+                const int z = i / (int)C, c = i - z * (int)C;
+                on = (a.agz[g * Z + z] & a.pool_agz[pi * Z + z]
+                      & a.agc[g * C + c] & a.pool_agc[pi * C + c]) != 0;
+            }
+            zm |= (u64)__ballot_sync(~0u, on) << (32 * h);
+        }
+        if (lane == 0) s_zm = zm;
+    } else if (warp == 1 && lane < D && D <= kHeadDims) {
+        const i64 rr = a.R[g * D + lane];
+        sR[lane] = rr;
+        sdm[lane] = a.daemon[(g * P + pi) * D + lane];
+        srb[lane] = rr > 0 ? 1.0 / (double)rr : 0.0;
+    }
+    for (i64 i = tid; i < K * V; i += blockDim.x) dyn[i] = 0;
+    __syncthreads();
+    const u64 zm = ZC <= kOfferBits ? s_zm : 0;
+    if (K > 0) {   // X == 1
         for (i64 kk = 0; kk < K; ++kk) {
-            for (i64 j = threadIdx.x; j < M; j += blockDim.x) {
-                i64 v = a.mv_pairs_v[kk * M + j];
-                i64 t = a.mv_pairs_t[kk * M + j];
+            for (i64 j = tid; j < M; j += blockDim.x) {
+                const i64 v = a.mv_pairs_v[kk * M + j];
+                const i64 t = a.mv_pairs_t[kk * M + j];
                 if (v < 0 || v >= V || t < 0 || t >= T) continue;
-                if (!new_node_cand(a, g, pi, t)) continue;
-                atomicMax((long long*)&dyn[kk * V + v],
-                          (long long)(headroom(a.A + t * D, dmn, R, D) + 1));
+                const i64 hr = type_hr(a, g, pi, type_row(a, g, pi, t), zm,
+                                       sR, sdm, srb);
+                if (hr >= 0)
+                    atomicMax((long long*)&dyn[kk * V + v],
+                              (long long)(hr + 1));
             }
         }
     }
     i64 cmax = 0;
-    for (i64 t = threadIdx.x; t < T; t += blockDim.x) {
-        if (!new_node_cand(a, g, pi, t)) continue;
-        i64 hr = headroom(a.A + t * D, dmn, R, D);
+    for (i64 t = t0 + tid; t < t1; t += blockDim.x) {
+        const i64 hr = type_hr(a, g, pi, t == t0 + tid ? first
+                                              : type_row(a, g, pi, t),
+                               zm, sR, sdm, srb);
         cmax = hr > cmax ? hr : cmax;
     }
     const i64 cap = block_max(cmax, red);   // its barriers publish dyn
-    if (threadIdx.x == 0) m.caps[blockIdx.x] = cap;
-    i64* h1n = m.caps + a.G * P + blockIdx.x * K * V;
-    for (i64 i = threadIdx.x; i < K * V; i += blockDim.x) h1n[i] = dyn[i];
+    if (X == 1) {
+        if (tid == 0) m.caps[gp] = cap;
+        i64* h1n = m.caps + a.G * P + gp * K * V;
+        for (i64 i = tid; i < K * V; i += blockDim.x) h1n[i] = dyn[i];
+        return;
+    }
+    cg::cluster_group cl = cg::this_cluster();
+    cluster_wait();   // every CTA of the cluster has started
+    if (tid == 0) *cl.map_shared_rank(&part[r], 0) = cap;
+    cl.sync();
+    if (r == 0 && tid == 0) {
+        i64 c = part[0];
+        for (i64 q = 1; q < X; ++q) c = part[q] > c ? part[q] : c;
+        m.caps[gp] = c;
+    }
 }
 
 __global__ void __launch_bounds__(kRowThreads)
@@ -735,12 +854,37 @@ const void* commit_fn(i64 threads) {
 
 extern "C" {
 
+// mesh_new_caps' CTAs a (group, pool) for Tl types (ops/mesh_cuda.py
+// mirrors it): one with minValues floors (its per-value maxima stay on
+// one CTA), else the power of two of CTAs at or above Tl / kCapsThreads,
+// at most kCapsCluster.
+long long karp_mesh_caps_cluster(long long T, long long K) {
+    long long x = 1;
+    while (K == 0 && x < kCapsCluster && x * kCapsThreads < T) x *= 2;
+    return x;
+}
+
 int karp_mesh_new_caps(const MeshArgs* m, void* stream) {
+    const i64 GP = m->f.G * m->f.P;
+    if (GP <= 0) return (int)cudaGetLastError();
+    const i64 X = karp_mesh_caps_cluster(m->f.T, m->f.K);
     size_t smem = (size_t)(m->f.K * m->f.V) * sizeof(i64);
     int err = set_smem((const void*)mesh_new_caps_kernel, smem);
     if (err) return err;
-    mesh_new_caps_kernel<<<(unsigned)(m->f.G * m->f.P), kWideThreads, smem,
-                           (cudaStream_t)stream>>>(*m);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(GP * X));
+    cfg.blockDim = dim3(kCapsThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)X;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = (int)cudaLaunchKernelEx(&cfg, mesh_new_caps_kernel, *m, X);
+    if (err) return err;
     return (int)cudaGetLastError();
 }
 

@@ -1,43 +1,73 @@
 // K1, the packed arena in and out of the FFD scan.
 //
 // Replaces karpenter_provider_aws_tpu/ops/ffd_jax.py:_words_to_bits (the
-// bool section of the input arena) and _bits_to_words / _i32_to_words
-// inside _pack_solve_outputs (the int32-pair takes and the bit-packed
-// types/zones/ct/alive of the output buffer). The i64 section of the
-// output is a plain cat of views in the wrapper (ops/ffd_cuda.py).
+// bool section of the input arena) and _pack_solve_outputs with its
+// _bits_to_words / _i32_to_words (the whole output buffer: the i64
+// section, the int32-pair takes and the bit-packed types/zones/ct/alive).
 //
 // unpack_bits: one thread per bool of the plane. The word is read as an
 //   unsigned 64-bit value and shifted unsigned: a signed right shift
 //   would smear bit 63, the sign bit, into the result.
-// pack_outputs: one thread per output word. A takes word holds two int32
-//   lanes, the lower index in the low half; a bool word holds 64 bools,
-//   little-endian, read across the four carry segments in order.
+// pack_outputs: one launch writes every word of each lane's output row
+//   [i64 section | takes | bit words | bail]. Warps [0, ws) take the
+//   scalar words, one a thread: the i64 section's fields (leftover, used,
+//   pool, num_nodes, pool_used) read through their own pointers, lengths
+//   and lane strides, int32 fields widened here; a takes word of two
+//   int32 lanes, the lower index in the low half, by one 8-byte load where
+//   the pair is aligned (an odd count pads the last high half with 0);
+//   the optional bail word (the pruned scan's, a bool a lane). The warps
+//   after them take the bit words, kBitWords a warp: lane j reads bools
+//   16j .. 16j + 15 of each 512-bool pass as one 16-byte load where the
+//   16 lie in one segment at a 16-byte boundary (byte loads otherwise),
+//   packs them into 16 bits in registers, and lane 4q gathers its three
+//   neighbours' halves into word q by shuffles. A bool's segment is found
+//   by comparing its index with the segments' prefix lengths; bits past
+//   the last segment are 0.
 // The lane axis (solve_scan_packed1_many, the pruned scan's _many): L
 //   arenas of one statics bucket in one launch. The lane rides grid y
 //   and z (lane_grid, a 32-bit index as in the scan kernels); lane l
 //   reads its words l * w_stride words past the first lane's and writes
-//   its bools l * nbits past; pack_outputs reads each lane's takes and
-//   segments at their own strides and writes its output row at
-//   l * out_stride words. With L == 1 both kernels compute exactly what
-//   a lane-free launch computes.
-// What bounds them on this card: bytes in principle, but at the 50k-pod,
-//   812-type shape the input plane is ~13 k bits and the output ~208 k
-//   bits plus G*N takes, nanoseconds of memory traffic, so a launch
-//   costs its latency (PERF.md has the times). A later PR would fold
-//   both into the scan's persistent launch.
+//   its bools l * nbits past; pack_outputs reads each lane's fields at
+//   their own lane strides and writes its output row at l * out_stride
+//   words. With L == 1 both kernels compute exactly what a lane-free
+//   launch computes.
+// What bounds them on this card: bytes. At the 50k-pod, 812-type shape
+//   the input plane is ~13 k bits and the output ~208 k bools read plus
+//   ~5.6 k words written, nanoseconds of memory traffic, so one launch
+//   costs its latency; at B = 64 lanes (34 MB read and written) and on
+//   config 7's pruned pack (4.2 M takes) the bytes are the bound, which
+//   the 16-byte bool loads (512 bytes a warp instruction) and the 8-byte
+//   takes loads serve.
 #include <cuda_runtime.h>
 
 #include "ffd_common.cuh"
 
+// The output buffer's sources (mirrored by ops/ffd_cuda.py _PackArgs;
+// every field 8 bytes wide). Lengths and strides count elements.
+struct PackArgs {
+    const void* f_ptr[5];   // leftover, used, pool, num_nodes, pool_used
+    i64 f_len[5];
+    i64 f_stride[5];
+    i64 f_i32;              // bit j: field j is int32 (else int64)
+    const int* takes;
+    i64 n32;
+    i64 takes_stride;
+    const u8* seg_ptr[4];   // types, zones, ct, alive
+    i64 seg_len[4];
+    i64 seg_stride[4];
+    const u8* bail;         // [L] bools at bail_stride, or null
+    i64 bail_stride;
+    i64* out;
+    i64 out_stride;
+    i64 L;
+};
+
 namespace {
 
 constexpr int kThreads = 256;
-
-struct BoolSegments {
-    const u8* ptr[4];
-    i64 len[4];
-    i64 lane_stride[4];   // bytes between lanes of each segment
-};
+// pack_outputs: bit words a warp (two passes of 32 lanes x 16 bools)
+constexpr int kBitWords = 16;
+constexpr int kPackWarps = kThreads / 32;
 
 __global__ void unpack_bits_kernel(const i64* words, i64 nbits, u8* out,
                                    i64 L, i64 w_stride) {
@@ -49,38 +79,132 @@ __global__ void unpack_bits_kernel(const i64* words, i64 nbits, u8* out,
     out[lane * nbits + i] = (u8)((w >> (i & 63)) & 1ull);
 }
 
-__global__ void pack_outputs_kernel(const int* takes, i64 n32, i64 w32,
-                                    BoolSegments segs, i64 nbits, i64 nwb,
-                                    i64* out, i64 L, i64 takes_stride,
-                                    i64 out_stride) {
-    const unsigned lane = grid_lane();
-    if (lane >= L) return;
-    const i64 w = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-    if (w >= w32 + nwb) return;
-    takes += lane * takes_stride;
-    out += lane * out_stride;
-    for (int j = 0; j < 4; ++j) segs.ptr[j] += lane * segs.lane_stride[j];
-    if (w < w32) {
-        const u64 lo = (u64)(unsigned int)takes[2 * w];
-        const u64 hi = 2 * w + 1 < n32
-            ? (u64)(unsigned int)takes[2 * w + 1] : 0ull;
-        out[w] = (i64)(lo | (hi << 32));
+// Bits 0-3: which bytes of x are not zero.
+__device__ __forceinline__ unsigned nz4(unsigned x) {
+    const unsigned m = __vcmpne4(x, 0u);   // 0xff a non-zero byte
+    return (m & 1u) | ((m >> 7) & 2u) | ((m >> 14) & 4u) | ((m >> 21) & 8u);
+}
+
+// Segment j's bools of lane `lane` (constant j: a parameter load, no
+// copy of the argument block to local memory).
+template <int J>
+__device__ __forceinline__ const u8* seg_base(const PackArgs& a, i64 lane) {
+    return a.seg_ptr[J] + lane * a.seg_stride[J];
+}
+
+// The byte of bool x of lane `lane` (x < nbits): its segment by the
+// prefix lengths p1 <= p2 <= p3.
+__device__ __forceinline__ const u8* bool_at(const PackArgs& a, i64 lane,
+                                             i64 x, i64 p1, i64 p2, i64 p3) {
+    if (x < p1) return seg_base<0>(a, lane) + x;
+    if (x < p2) return seg_base<1>(a, lane) + (x - p1);
+    if (x < p3) return seg_base<2>(a, lane) + (x - p2);
+    return seg_base<3>(a, lane) + (x - p3);
+}
+
+// One scalar word s of lane `lane`'s row: an i64-section field, a takes
+// pair or the bail word.
+__device__ __forceinline__ void pack_scalar(const PackArgs& a, i64 lane,
+                                            i64 s, i64 n64, i64 w32,
+                                            i64 nwb, i64* out) {
+    if (s < n64) {
+        const i64 e0 = a.f_len[0], e1 = e0 + a.f_len[1];
+        const i64 e2 = e1 + a.f_len[2], e3 = e2 + a.f_len[3];
+        const void* p;
+        i64 at;
+        int f;
+        if (s < e0) {
+            p = a.f_ptr[0]; at = lane * a.f_stride[0] + s; f = 0;
+        } else if (s < e1) {
+            p = a.f_ptr[1]; at = lane * a.f_stride[1] + (s - e0); f = 1;
+        } else if (s < e2) {
+            p = a.f_ptr[2]; at = lane * a.f_stride[2] + (s - e1); f = 2;
+        } else if (s < e3) {
+            p = a.f_ptr[3]; at = lane * a.f_stride[3] + (s - e2); f = 3;
+        } else {
+            p = a.f_ptr[4]; at = lane * a.f_stride[4] + (s - e3); f = 4;
+        }
+        out[s] = (a.f_i32 >> f) & 1
+            ? (i64)__ldg(static_cast<const int*>(p) + at)
+            : __ldg(static_cast<const i64*>(p) + at);
         return;
     }
-    const i64 b0 = (w - w32) * 64;
-    u64 word = 0;
-    int seg = 0;
-    i64 base = 0;
-    for (int b = 0; b < 64; ++b) {
-        const i64 i = b0 + b;
-        if (i >= nbits) break;
-        while (seg < 3 && i - base >= segs.len[seg]) {
-            base += segs.len[seg];
-            ++seg;
+    if (s < n64 + w32) {
+        const i64 w = s - n64;
+        const int* tk = a.takes + lane * a.takes_stride + 2 * w;
+        unsigned lo, hi = 0;
+        if (2 * w + 1 < a.n32 && ((size_t)tk & 7) == 0) {
+            const int2 v = __ldg(reinterpret_cast<const int2*>(tk));
+            lo = (unsigned)v.x;
+            hi = (unsigned)v.y;
+        } else {
+            lo = (unsigned)__ldg(tk);
+            if (2 * w + 1 < a.n32) hi = (unsigned)__ldg(tk + 1);
         }
-        if (segs.ptr[seg][i - base]) word |= 1ull << b;
+        out[s] = (i64)((u64)lo | ((u64)hi << 32));
+        return;
     }
-    out[w] = (i64)word;
+    // the bail word, after the bit words
+    out[s + nwb] = __ldg(a.bail + lane * a.bail_stride) != 0;
+}
+
+// 16 bools from bool i of lane `lane`'s segments as bits 0-15: one
+// 16-byte load where they lie in one segment at a 16-byte boundary,
+// byte loads otherwise (bools past nbits are 0).
+__device__ __forceinline__ unsigned pack16(const PackArgs& a, i64 lane,
+                                           i64 i, i64 nbits, i64 p1,
+                                           i64 p2, i64 p3) {
+    const i64 end = i < p1 ? p1 : i < p2 ? p2 : i < p3 ? p3 : nbits;
+    const u8* p = bool_at(a, lane, i, p1, p2, p3);
+    if (i + 16 <= end && ((size_t)p & 15) == 0) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+        return nz4(v.x) | (nz4(v.y) << 4) | (nz4(v.z) << 8)
+            | (nz4(v.w) << 12);
+    }
+    unsigned m = 0;
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+        const i64 x = i + b;
+        if (x >= nbits) break;
+        m |= (unsigned)(__ldg(bool_at(a, lane, x, p1, p2, p3)) != 0) << b;
+    }
+    return m;
+}
+
+__global__ void __launch_bounds__(kThreads)
+pack_outputs_kernel(const __grid_constant__ PackArgs a, i64 n64, i64 w32,
+                    i64 nwb, i64 nbits, i64 ws) {
+    const unsigned lane = grid_lane();
+    if (lane >= a.L) return;
+    const int ln = threadIdx.x & 31;
+    const i64 gw = (i64)blockIdx.x * kPackWarps + (threadIdx.x >> 5);
+    i64* out = a.out + lane * a.out_stride;
+    if (gw < ws) {           // warp-uniform: the scalar words
+        const i64 s = gw * 32 + ln;
+        if (s < n64 + w32 + (a.bail != nullptr))
+            pack_scalar(a, lane, s, n64, w32, nwb, out);
+        return;
+    }
+    const i64 w0 = (gw - ws) * kBitWords;
+    if (w0 >= nwb) return;   // warp-uniform
+    const i64 p1 = a.seg_len[0], p2 = p1 + a.seg_len[1];
+    const i64 p3 = p2 + a.seg_len[2];
+    unsigned m[kBitWords / 8];
+#pragma unroll
+    for (int h = 0; h < kBitWords / 8; ++h) {
+        const i64 i = (w0 + 8 * h) * 64 + 16 * ln;
+        m[h] = i < nbits ? pack16(a, lane, i, nbits, p1, p2, p3) : 0u;
+    }
+#pragma unroll
+    for (int h = 0; h < kBitWords / 8; ++h) {
+        const unsigned m1 = __shfl_down_sync(~0u, m[h], 1);
+        const unsigned m2 = __shfl_down_sync(~0u, m[h], 2);
+        const unsigned m3 = __shfl_down_sync(~0u, m[h], 3);
+        const i64 w = w0 + 8 * h + (ln >> 2);
+        if ((ln & 3) == 0 && w < nwb)
+            out[n64 + w32 + w] = (i64)((u64)(m[h] | (m1 << 16))
+                                       | ((u64)(m2 | (m3 << 16)) << 32));
+    }
 }
 
 unsigned blocks_for(i64 n) {
@@ -109,29 +233,21 @@ int karp_unpack_bits(const long long* words, long long nbits,
     return (int)cudaGetLastError();
 }
 
-// L lanes: lane l's takes start l * takes_stride ints past `takes`, its
-// segment j l * seg_stride[j] bytes past seg_ptr[j], its output row
-// l * out_stride words past `out`.
-int karp_pack_outputs(const int* takes, long long n32,
-                      const unsigned char* const* seg_ptr,
-                      const long long* seg_len, long long* out, long long L,
-                      long long takes_stride, const long long* seg_stride,
-                      long long out_stride, void* stream) {
-    BoolSegments segs;
-    i64 nbits = 0;
-    for (int j = 0; j < 4; ++j) {
-        segs.ptr[j] = seg_ptr[j];
-        segs.len[j] = seg_len[j];
-        segs.lane_stride[j] = seg_stride[j];
-        nbits += seg_len[j];
-    }
-    const i64 w32 = (n32 + 1) / 2, nwb = (nbits + 63) / 64;
-    if (w32 + nwb > 0 && L > 0) {
-        dim3 grid(blocks_for(w32 + nwb));
-        lane_grid(L, &grid);
+// One launch for the whole output row of every lane (PackArgs); the row
+// is out_stride words: n64 + w32 + nwb (+ 1 with a bail pointer).
+int karp_pack_outputs(const PackArgs* a, void* stream) {
+    i64 n64 = 0, nbits = 0;
+    for (int j = 0; j < 5; ++j) n64 += a->f_len[j];
+    for (int j = 0; j < 4; ++j) nbits += a->seg_len[j];
+    const i64 w32 = (a->n32 + 1) / 2, nwb = (nbits + 63) / 64;
+    const i64 ns = n64 + w32 + (a->bail != nullptr);
+    const i64 ws = (ns + 31) / 32;
+    const i64 warps = ws + (nwb + kBitWords - 1) / kBitWords;
+    if (warps > 0 && a->L > 0) {
+        dim3 grid((unsigned)((warps + kPackWarps - 1) / kPackWarps));
+        lane_grid(a->L, &grid);
         pack_outputs_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-            takes, n32, w32, segs, nbits, nwb, out, L, takes_stride,
-            out_stride);
+            *a, n64, w32, nwb, nbits, ws);
     }
     return (int)cudaGetLastError();
 }

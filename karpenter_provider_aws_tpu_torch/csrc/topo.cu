@@ -182,8 +182,6 @@ namespace {
 constexpr int kStaticsThreads = 512;
 // topo_group_start's block (two types a thread: 1,024 types a pass)
 constexpr int kStartThreads = 512;
-// the most zone x capacity-type pairs an offering word holds
-constexpr int kOfferBits = 64;
 constexpr int kPourThreads = 512;
 // the pour's rows of D held in registers (D beyond is read in place), and
 // the touched slots its narrowing stages at a time
@@ -232,10 +230,7 @@ topo_pool_statics_kernel(const __grid_constant__ FfdArgs a,
     if ((i64)blockIdx.x >= nb) {
         const i64 tt = ((i64)blockIdx.x - nb) * nth + tid;
         if (tt < T) {
-            const u8* row = a.avail_zc + tt * Z * C;
-            u64 w = 0;
-            for (i64 i = 0; i < Z * C; ++i) w |= (u64)(row[i] != 0) << i;
-            t.offw[tt] = w;
+            t.offw[tt] = offer_word(a.avail_zc + tt * Z * C, Z * C);
         }
         return;
     }
@@ -436,18 +431,9 @@ topo_group_start_kernel(const __grid_constant__ FfdArgs a,
                              : offering_ok(a, g, s, tt));
                 if (!c) continue;
                 word |= 1u << (8 * j);
-                i64 m = KARP_BIG;
-                if (staged) {
-                    for (i64 d = 0; d < D; ++d) {
-                        if (sr[d] <= 0) continue;
-                        m = imin(m, floordiv_rcp(wsub(a.A[tt * D + d], su[d]),
-                                                 sr[d], srb[d]));
-                    }
-                    m = m < 0 ? 0 : m;
-                } else {
-                    m = headroom(a.A + tt * D, a.used + s * D, a.R + g * D,
-                                 D);
-                }
+                const i64 m = staged
+                    ? head_staged(a.A + tt * D, su, sr, D, srb)
+                    : headroom(a.A + tt * D, a.used + s * D, a.R + g * D, D);
                 kmax = imax(kmax, m);
             }
         }

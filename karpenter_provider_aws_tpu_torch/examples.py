@@ -2201,6 +2201,130 @@ def fill_state(Nl: int, P: int, *, seed: int = 0, limited: bool = True,
     return st, g
 
 
+#: ``mesh_new_caps``' shapes on the main paths: (name, the rank's types,
+#: groups, pools, Z, C, D): config 2's tp cell and 500,000-pod cell at
+#: world 1 (T = 812, G = 4), the tp cell's rank on four gloo ranks (Tl =
+#: 203), the 500,000-pod cell's on 2 x 2 (Tl = 406), K11's shard (Tl =
+#: 406, G = 64) and the distributed ceiling at world 1 (T = 812, G = 64)
+CAPS_SHAPES = (("tp", 812, 4, 1, 4, 3, 8), ("tp_rank", 203, 4, 1, 4, 3, 8),
+               ("dp2_rank", 406, 4, 1, 4, 3, 8),
+               ("k11", 406, 64, 1, 3, 2, 4), ("ceiling", 812, 64, 1, 3, 2, 4))
+
+
+#: ``mesh_new_caps``' test states: (name, ``caps_state`` shape, K) at
+#: ``CAPS_SHAPES``, with minValues floors (K keys over 5 values), past
+#: eight dimensions (the global rows), past the 64-bit offering word, at
+#: exactly 64 pairs (bit 63, the sign bit, with floors) and past 1,024
+#: types (two passes a CTA)
+CAPS_CASES = ([(name, dict(zip("TGPZCD", sh)), 0) for name, *sh in CAPS_SHAPES]
+              + [("tp_floors", dict(T=203, G=4, P=2, Z=4, C=3, D=8), 3),
+                 ("ceiling_floors", dict(T=812, G=6, P=1, Z=3, C=2, D=4), 2),
+                 ("wide_d", dict(T=300, G=3, P=2, Z=3, C=2, D=11), 0),
+                 ("past_word", dict(T=150, G=3, P=2, Z=22, C=3, D=4), 0),
+                 ("word_64", dict(T=150, G=3, P=2, Z=16, C=4, D=4), 2),
+                 ("wide_types", dict(T=1500, G=3, P=1, Z=4, C=3, D=8), 0)])
+
+
+def caps_state(T: int, G: int, P: int, Z: int, C: int, D: int, *,
+               seed: int = 0, K: int = 0, V: int = 0, device="cpu"):
+    """A rank's ``MeshState`` with random inputs from ``seed`` for
+    ``mesh_new_caps`` (which reads A, avail_zc, R, F, agz, agc, daemon,
+    pool_types, pool_agz, pool_agc and the minValues pairs): T types of
+    D >= 2 dimensions (one no group requests, and group 1 none at all,
+    whose headroom is BIG; daemon rows above some types' allocatable, so
+    quotients go negative), sparse offerings over Z * C pairs, groups and
+    pools that narrow zones and capacity types (one group takes no zone);
+    ``K`` keys over ``V`` values add floors with 2T pairs, some pointing
+    at the dump value V (another shard's type)."""
+    import torch
+
+    from .ops import mesh_cuda as mc
+    from .ops.ffd_torch import KernelInputs
+    rng = np.random.RandomState(seed)
+    R = rng.randint(1, 1 << 12, size=(G, D)).astype(np.int64)
+    R[:, 0] = 0
+    R[rng.rand(G, D) < 0.1] = 0
+    R[::7, 1] = 1
+    if G > 2:
+        R[1] = 0                              # no request: headroom BIG
+    A = rng.randint(1, 1 << 20, size=(T, D)).astype(np.int64)
+    agz = rng.rand(G, Z) < 0.8
+    agz[-1] = False
+    arrays = dict(
+        A=A, avail_zc=rng.rand(T, Z * C) < 0.3, R=R,
+        n=np.ones(G, np.int64), F=rng.rand(G, T) < 0.7, agz=agz,
+        agc=rng.rand(G, C) < 0.8, admit=np.ones((G, P), bool),
+        daemon=rng.randint(0, 1 << 16, size=(G, P, D)).astype(np.int64),
+        pool_types=rng.rand(P, T) < 0.9, pool_agz=rng.rand(P, Z) < 0.9,
+        pool_agc=rng.rand(P, C) < 0.9,
+        pool_limit=np.full((P, D), -1, np.int64),
+        pool_used0=np.zeros((P, D), np.int64),
+        ex_alloc=np.zeros((1, D), np.int64),
+        ex_used0=np.zeros((1, D), np.int64),
+        ex_compat=np.zeros((G, 1), bool))
+    arrays["A"][::5] = rng.randint(1, 1 << 10, size=arrays["A"][::5].shape)
+    if K:
+        M = 2 * T
+        pt = rng.randint(0, T, size=(K, M)).astype(np.int64)
+        pv = rng.randint(0, V + 1, size=(K, M)).astype(np.int64)
+        arrays.update(mv_floor=rng.randint(0, V + 2, size=(P, K))
+                      .astype(np.int64), mv_pairs_t=pt, mv_pairs_v=pv)
+    dev = torch.device(device)
+    inp = KernelInputs(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                          for k, v in arrays.items()})
+    return mc.MeshState(inp, E=0, P=P, V=V, N=1, slot0=0)
+
+
+#: ``pack_outputs``' odd shapes: (T, Z, C, N, G, P, D) with T, N and G*N
+#: odd, so the bool segments straddle words and the takes end in half a
+#: word; config 2's widths last (T = 812, N = 256, G = 4)
+PACK_SHAPES = ((813, 3, 2, 7, 3, 2, 4), (813, 3, 2, 33, 5, 1, 8),
+               (37, 4, 3, 5, 1, 3, 3), (1, 1, 1, 1, 1, 1, 1),
+               (812, 4, 3, 256, 4, 1, 8))
+
+
+def pack_case(T: int, Z: int, C: int, N: int, G: int, P: int, D: int, L: int,
+              *, seed: int = 0, bail: bool = False, device="cpu"):
+    """Random inputs of ``pack_outputs_lanes`` from ``seed``: (takes [L, G,
+    N] int32 over the whole int32 range, leftover [L, G], a ``Carry`` of
+    [L, ...] fields (int64 used and pool_used over the whole range, pool
+    -2 .. P-1 and num_nodes int32, the bools at several densities), and
+    with ``bail`` the [L, 1] bail flags, lane 0's set and lane 1's
+    clear)."""
+    import torch
+
+    from .ops.ffd_torch import Carry
+    rng = np.random.RandomState(seed)
+    i64 = np.iinfo(np.int64)
+
+    def big(*shape):
+        return rng.randint(i64.min, i64.max, size=(L,) + shape,
+                           dtype=np.int64)
+
+    def bits(p, *shape):
+        return rng.rand(L, *shape) < p
+
+    vals = dict(
+        takes=rng.randint(-(1 << 31), 1 << 31, size=(L, G, N),
+                          dtype=np.int64).astype(np.int32),
+        leftover=big(G), used=big(N, D), types=bits(0.6, N, T),
+        zones=bits(0.5, N, Z), ct=bits(0.4, N, C),
+        pool=rng.randint(-2, P, size=(L, N)).astype(np.int32),
+        alive=bits(0.7, N),
+        num_nodes=rng.randint(0, N + 1, size=(L, 1)).astype(np.int32),
+        pool_used=big(P, D))
+    if bail:
+        b = bits(0.5, 1)
+        b[0] = True
+        if L > 1:
+            b[1] = False
+        vals["bail"] = b
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+         for k, v in vals.items()}
+    carry = Carry(*[t[f] for f in Carry._fields])
+    return t["takes"], t["leftover"], carry, t.get("bail")
+
+
 def mesh_shard_check(case: str, ndp: int, dp_idx: int, before: str,
                      device="cpu", **state_kw):
     """Every kernel launch of the first four group steps of slot shard

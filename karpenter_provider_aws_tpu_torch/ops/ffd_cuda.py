@@ -45,7 +45,7 @@ from typing import Dict, Tuple
 import torch
 
 from .ffd_torch import (CARRY_DTYPES, Carry, CarryP, KernelInputs,
-                        _out_i64, _unpack_inputs, _unpack_inputs_lanes,
+                        _unpack_inputs, _unpack_inputs_lanes,
                         carry0, carry0_pruned)
 from .hostpack import in_layout_bool, in_layout_i64, layout_sizes, nwords
 
@@ -143,8 +143,7 @@ def _lib():
             lib = ctypes.CDLL(_BUILD_INFO["path"])
             vp, ll = ctypes.c_void_p, ctypes.c_longlong
             lib.karp_unpack_bits.argtypes = [vp, ll, vp, ll, ll, vp]
-            lib.karp_pack_outputs.argtypes = [vp, ll, vp, vp, vp, ll, ll, vp,
-                                              ll, vp]
+            lib.karp_pack_outputs.argtypes = [vp, vp]
             lib.karp_ffd_slot_headroom.argtypes = [vp, ll, vp]
             lib.karp_ffd_group_commit.argtypes = [vp, ll, vp]
             lib.karp_ffd_k2_cluster.argtypes = [vp]
@@ -171,6 +170,8 @@ def _lib():
             lib.karp_mesh_fill_threads.argtypes = [ll]
             lib.karp_mesh_fill_rows.argtypes = [ll]
             lib.karp_mesh_new_caps.argtypes = [vp, vp]
+            lib.karp_mesh_caps_cluster.argtypes = [ll, ll]
+            lib.karp_mesh_caps_cluster.restype = ll
             for fn in (lib.karp_mesh_slot_headroom, lib.karp_mesh_commit):
                 fn.argtypes = [vp, ll, vp]
             lib.karp_mesh_fill.argtypes = [vp, ll, ctypes.c_int, vp]
@@ -301,34 +302,121 @@ def pack_outputs(takes: torch.Tensor, leftover: torch.Tensor,
     """The output buffer [i64 section | int32-pair takes | bit words]:
     the one-lane launch of ``pack_outputs_lanes``."""
     return pack_outputs_lanes(takes[None], leftover[None],
-                              Carry(*[f[None] for f in carry]))[0]
+                              Carry(*[f[None] for f in carry[:8]]))[0]
+
+
+#: the i64 section's fields, in the output buffer's order
+PACK_FIELDS = ("leftover", "used", "pool", "num_nodes", "pool_used")
+#: ``pack_outputs``' bit words a warp and warps a CTA (csrc/packed_io.cu
+#: kBitWords, kPackWarps)
+PACK_BIT_WORDS = 16
+PACK_WARPS = 8
+
+
+class _PackArgs(ctypes.Structure):
+    """Mirror of ``struct PackArgs`` in csrc/packed_io.cu."""
+    _fields_ = [("f_ptr", ctypes.c_void_p * 5),
+                ("f_len", ctypes.c_longlong * 5),
+                ("f_stride", ctypes.c_longlong * 5),
+                ("f_i32", ctypes.c_longlong),
+                ("takes", ctypes.c_void_p), ("n32", ctypes.c_longlong),
+                ("takes_stride", ctypes.c_longlong),
+                ("seg_ptr", ctypes.c_void_p * 4),
+                ("seg_len", ctypes.c_longlong * 4),
+                ("seg_stride", ctypes.c_longlong * 4),
+                ("bail", ctypes.c_void_p), ("bail_stride", ctypes.c_longlong),
+                ("out", ctypes.c_void_p), ("out_stride", ctypes.c_longlong),
+                ("L", ctypes.c_longlong)]
+
+
+def _lane_source(t: torch.Tensor, name: str, dtypes) -> tuple:
+    """(t, elements a lane, lane stride) of a [L, ...] field whose lanes
+    are each contiguous, of one of ``dtypes``."""
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be one of {dtypes}, got {t.dtype}")
+    L = t.shape[0]
+    if L and not t[0].is_contiguous():
+        raise ValueError(f"{name} must be contiguous within each lane")
+    n = 1
+    for s in t.shape[1:]:
+        n *= s
+    return t, n, t.stride(0) if L > 1 else n
+
+
+def pack_sources(takes: torch.Tensor, leftover: torch.Tensor, carry,
+                 bail=None) -> dict:
+    """What ``pack_outputs_lanes``' one launch reads, as the kernel reads
+    it (any device): ``fields`` [(tensor, elements a lane, lane stride,
+    int32?)] of the i64 section in ``PACK_FIELDS`` order, ``takes``
+    (tensor, n32, lane stride), ``segs`` [(tensor, bools a lane, lane
+    stride)] of types, zones, ct, alive, ``bail`` (tensor, lane stride) or
+    None, and the row: ``n64`` words, ``w32`` takes words, ``nbits``
+    bools in ``nwb`` words, ``W`` words in all (the bail word last)."""
+    L = takes.shape[0]
+    vals = dict(leftover=leftover, used=carry.used, pool=carry.pool,
+                num_nodes=carry.num_nodes, pool_used=carry.pool_used)
+    fields = []
+    for nm in PACK_FIELDS:
+        t, n, s = _lane_source(vals[nm], nm, (torch.int32, torch.int64))
+        fields.append((t, n, s, t.dtype == torch.int32))
+    tk = _lane_source(takes, "takes", (torch.int32,))
+    segs = [_lane_source(s, f"bool segment {i}", (torch.bool,))
+            for i, s in enumerate((carry.types, carry.zones, carry.ct,
+                                   carry.alive))]
+    bl = None
+    if bail is not None:
+        b = _lane_source(bail, "bail", (torch.bool,))
+        if b[1] != 1:
+            raise ValueError(f"bail must hold one bool a lane, got {b[1]}")
+        bl = b[0], b[2]
+    for t, *_ in fields + [tk] + segs + ([bl] if bl else []):
+        if t.shape[0] != L:
+            raise ValueError(f"every field needs {L} lanes, got "
+                             f"{tuple(t.shape)}")
+    n64 = sum(f[1] for f in fields)
+    nbits = sum(s[1] for s in segs)
+    w32 = (tk[1] + 1) // 2
+    nwb = nwords(nbits)
+    return dict(fields=fields, takes=tk, segs=segs, bail=bl, L=L, n64=n64,
+                w32=w32, nbits=nbits, nwb=nwb,
+                W=n64 + w32 + nwb + (bl is not None))
 
 
 def pack_outputs_lanes(takes: torch.Tensor, leftover: torch.Tensor,
-                       carry, extra: int = 0) -> torch.Tensor:
-    """[L, Wout + extra]: row l the output buffer [i64 section | int32-
-    pair takes | bit words] of lane l (takes [L, G, N], leftover [L, G],
-    carry fields [L, ...], each contiguous). The i64 section is a cat of
-    views, the rest one kernel launch; the ``extra`` trailing words of
-    each row are left for the caller (the pruned scan's bail word)."""
-    L = takes.shape[0]
-    _need(takes, "takes", torch.int32)
-    segs = (carry.types, carry.zones, carry.ct, carry.alive)
-    for i, s in enumerate(segs):
-        _need(s, f"bool segment {i}", torch.bool)
-    i64 = _out_i64(leftover, carry, lanes=L)
-    n32 = takes[0].numel()
-    lens = [s[0].numel() for s in segs]
-    w = i64.shape[1] + nwords(sum(lens)) + (n32 + 1) // 2 + extra
-    out = torch.empty((L, w), dtype=torch.int64, device=takes.device)
-    out[:, :i64.shape[1]] = i64
-    ptrs = (ctypes.c_void_p * 4)(*[s.data_ptr() for s in segs])
-    seg_lens = (ctypes.c_longlong * 4)(*lens)
-    # each lane's segments are contiguous [L, ...] fields: lane strides
-    # are their lengths, the takes' is n32, the output row's is w
-    _launch("pack_outputs", _lib().karp_pack_outputs,
-            (takes.data_ptr(), n32, ptrs, seg_lens,
-             out[:, i64.shape[1]:].data_ptr(), L, n32, seg_lens, w), takes)
+                       carry, bail: torch.Tensor = None) -> torch.Tensor:
+    """[L, W]: row l the output buffer [i64 section | int32-pair takes |
+    bit words] of lane l (takes [L, G, N] int32, leftover [L, G], carry
+    fields [L, ...], each lane contiguous; int32 or int64 integers),
+    with ``bail`` [L, 1] bool one trailing word a lane (the pruned scan's
+    bail), in one kernel launch whatever L is."""
+    src = pack_sources(takes, leftover, carry, bail)
+    dev = takes.device
+    every = [f[0] for f in src["fields"]] + [src["takes"][0]] \
+        + [s[0] for s in src["segs"]] + ([bail] if bail is not None else [])
+    for i, t in enumerate(every):
+        _need(t, f"pack_outputs source {i}", t.dtype, lanes=True)
+        if t.device != dev:
+            raise ValueError(f"pack_outputs needs every tensor on one "
+                             f"device, got {t.device} beside {dev}")
+    L, W = src["L"], src["W"]
+    out = torch.empty((L, W), dtype=torch.int64, device=dev)
+    fl = src["fields"]
+    tk, segs = src["takes"], src["segs"]
+    bl = src["bail"]
+    args = _PackArgs(
+        f_ptr=(ctypes.c_void_p * 5)(*[f[0].data_ptr() for f in fl]),
+        f_len=(ctypes.c_longlong * 5)(*[f[1] for f in fl]),
+        f_stride=(ctypes.c_longlong * 5)(*[f[2] for f in fl]),
+        f_i32=sum(1 << j for j, f in enumerate(fl) if f[3]),
+        takes=tk[0].data_ptr(), n32=tk[1], takes_stride=tk[2],
+        seg_ptr=(ctypes.c_void_p * 4)(*[s[0].data_ptr() for s in segs]),
+        seg_len=(ctypes.c_longlong * 4)(*[s[1] for s in segs]),
+        seg_stride=(ctypes.c_longlong * 4)(*[s[2] for s in segs]),
+        bail=bl[0].data_ptr() if bl else None,
+        bail_stride=bl[1] if bl else 0, out=out.data_ptr(), out_stride=W,
+        L=L)
+    _launch("pack_outputs", _lib().karp_pack_outputs, (ctypes.byref(args),),
+            takes)
     return out
 
 
@@ -1103,11 +1191,10 @@ def solve_scan_packed1_pruned_many_cuda(bufs: torch.Tensor, *, T, D, Z, C,
                                         G, E, P, n_max, S) -> torch.Tensor:
     """B pruned solves on the card in one dispatch (B = 1: a single
     solve): one lane-axis unpack_bits, two lane-axis launches per group
-    step, one lane-axis pack_outputs; each row ends with its lane's bail
+    step, one lane-axis pack_outputs whose rows end with each lane's bail
     word; no synchronisation."""
     B = bufs.shape[0]
     inp = _packed_inputs_lanes(bufs, T, D, Z, C, G, E, P, 0, 0, 0)
     ps = _pruned_scan(inp, G=G, E=E, P=P, n_max=n_max, S=S, lanes=B)
-    out = pack_outputs_lanes(ps.takes, ps.leftover, ps.carry, extra=1)
-    out[:, -1] = ps.carry.bail[:, 0].long()
-    return out
+    return pack_outputs_lanes(ps.takes, ps.leftover, ps.carry,
+                              bail=ps.carry.bail)

@@ -60,6 +60,11 @@ PHASE_A, PHASE_B, PHASE_C, PHASE_ALL = 0, 1, 2, 3
 #: ``kFillRows``): past threads x FILL_ROWS the rank's rows go in tiles
 FILL_ROWS = 8
 
+#: ``mesh_new_caps``: threads a CTA and the most CTAs of a (group, pool)
+#: (csrc/mesh.cu ``kCapsThreads``, ``kCapsCluster``)
+CAPS_THREADS = 128
+CAPS_CLUSTER = 8
+
 #: the kernels of this module, in launch order
 KERNELS = ("mesh_new_caps", "mesh_slot_headroom", "mesh_fill",
            "mesh_commit")
@@ -229,6 +234,18 @@ def fill_rows(n: int) -> int:
     while r < FILL_ROWS and r * nt < n:
         r *= 2
     return r
+
+
+def caps_cluster(T: int, K: int) -> int:
+    """``mesh_new_caps``' CTAs a (group, pool), a thread-block cluster over
+    the rank's T types (csrc/mesh.cu ``karp_mesh_caps_cluster``): one with
+    minValues floors (K > 0), else the power of two at or above T /
+    ``CAPS_THREADS``, at most ``CAPS_CLUSTER``; CTA r takes the types
+    [r * ceil(T / X), (r + 1) * ceil(T / X))."""
+    x = 1
+    while K == 0 and x < CAPS_CLUSTER and x * CAPS_THREADS < T:
+        x *= 2
+    return x
 
 
 def _launch(name: str, st: MeshState, *args) -> None:

@@ -14,8 +14,9 @@ the K9 topology kernels (the pool statics by chunk) and K8, the
 preemption search (its hazard tables and a round through
 ``Provisioner.reconcile``; a snapshot past the pour's layout routed to
 the host pour), the K10 mesh kernels (``mesh_fill``'s phases from 1 to
-9,000 rows), and K11's distributed dispatch at 1 x 1 (a shard cut from
-its host's slab).
+9,000 rows, ``mesh_new_caps`` at the main paths' shapes), K1's one-launch
+pack at odd shapes, on 65,552 lanes and with the bail word, and K11's
+distributed dispatch at 1 x 1 (a shard cut from its host's slab).
 
 Every test here needs a CUDA card: the ``cuda_device`` fixture skips
 otherwise, so the CPU suite collects the same tests and skips them. On a
@@ -615,6 +616,86 @@ def test_k1_lane_axis_matches_plain(cuda_device):
                                                    ft.Carry(*[f[:1] for f in
                                                               carry]))[0],
                        ffd_cuda.pack_outputs(*outs[0]))
+
+
+def _pack_rows(takes, left, carry, bail, lanes):
+    """The plain version's rows of ``lanes`` (each with its bail word)."""
+    rows = []
+    for b in lanes:
+        row = ft._pack_outputs_ref(takes[b], left[b],
+                                   ft.Carry(*[f[b] for f in carry]))
+        if bail is not None:
+            row = torch.cat([row, bail[b].reshape(1).long()])
+        rows.append(row)
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("bail", [False, True])
+@pytest.mark.parametrize("L", [1, 3])
+@pytest.mark.parametrize("shape", examples.PACK_SHAPES)
+def test_pack_outputs_odd_shapes(cuda_device, shape, L, bail):
+    """``pack_outputs_lanes`` at ``examples.PACK_SHAPES`` (segments that
+    straddle words, odd G*N, config 2's widths) on 1 and 3 lanes, with
+    the pruned scan's bail word set and clear: lane by lane equal to the
+    plain version; one launch a call; the one-lane wrapper too."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    takes, left, carry, bl = examples.pack_case(
+        *shape, L, seed=sum(shape) + L, bail=bail, device=cuda_device)
+    before = ffd_cuda.LAUNCHES["pack_outputs"]
+    got = ffd_cuda.pack_outputs_lanes(takes, left, carry, bail=bl)
+    assert ffd_cuda.LAUNCHES["pack_outputs"] == before + 1
+    assert torch.equal(got, _pack_rows(takes, left, carry, bl, range(L)))
+    one = ffd_cuda.pack_outputs(takes[0], left[0],
+                                ft.Carry(*[f[0] for f in carry]))
+    assert torch.equal(one, _pack_rows(takes, left, carry, None, [0])[0])
+
+
+def test_pack_outputs_wide_lanes(cuda_device):
+    """65,552 lanes (grid z > 1), sixteen distinct lanes repeated, with the
+    bail word: every row equals its source lane's plain row."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    takes, left, carry, bl = examples.pack_case(37, 3, 2, 5, 3, 2, 3, 16,
+                                                seed=4, bail=True,
+                                                device=cuda_device)
+    reps = 65_552 // 16
+
+    def rep(t):
+        return t.repeat((reps,) + (1,) * (t.dim() - 1))
+    got = ffd_cuda.pack_outputs_lanes(rep(takes), rep(left),
+                                      ft.Carry(*[rep(f) for f in carry]),
+                                      bail=rep(bl))
+    assert got.shape[0] == 65_552
+    want = _pack_rows(takes, left, carry, bl, range(16))
+    assert torch.equal(got.view(reps, 16, -1),
+                       want[None].expand(reps, -1, -1))
+
+
+def test_pack_outputs_is_one_kernel(cuda_device):
+    """One call of ``pack_outputs`` and of ``pack_outputs_lanes`` with the
+    bail word issues exactly one CUDA kernel (no casts, cat or copies):
+    the profiler's device events of each call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    takes, left, carry, bl = examples.pack_case(*examples.PACK_SHAPES[-1], 2,
+                                                seed=1, bail=True,
+                                                device=cuda_device)
+    one = ft.Carry(*[f[0] for f in carry])
+    calls = (lambda: ffd_cuda.pack_outputs(takes[0], left[0], one),
+             lambda: ffd_cuda.pack_outputs_lanes(takes, left, carry,
+                                                 bail=bl))
+    for fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):  # a trace with no device event at all: again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            dev = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            if dev:
+                break
+        assert len(dev) == 1 and "pack_outputs" in dev[0], dev
 
 
 @pytest.mark.parametrize("B", [1, 3])
@@ -1496,6 +1577,37 @@ def test_mesh_fill_threads_rule_matches_the_card(cuda_device):
         assert ffd_cuda._lib().karp_mesh_fill_threads(n) \
             == mc.fill_threads(n)
         assert ffd_cuda._lib().karp_mesh_fill_rows(n) == mc.fill_rows(n)
+
+
+@pytest.mark.parametrize("name,shape,K", examples.CAPS_CASES,
+                         ids=[c[0] for c in examples.CAPS_CASES])
+def test_mesh_new_caps_shapes(cuda_device, name, shape, K):
+    """``mesh_new_caps`` at the main paths' shapes (``examples.CAPS_SHAPES``:
+    T = 812, 406 and 203 types on a cluster of 8, 4 and 2 CTAs, G = 4 and
+    64), with minValues floors, past eight dimensions and past the 64-bit
+    offering word: one launch, every cap and per-value maximum equal to
+    ``_new_caps_ref`` on the same state."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    st = examples.caps_state(**shape, seed=len(name), K=K, V=5 if K else 0,
+                             device=cuda_device)
+    want = st.clone()
+    mc._new_caps_ref(want)
+    before = ffd_cuda.LAUNCHES["mesh_new_caps"]
+    mc.mesh_new_caps(st)
+    assert ffd_cuda.LAUNCHES["mesh_new_caps"] == before + 1
+    assert torch.equal(st.caps, want.caps), name
+
+
+def test_mesh_caps_cluster_rule_matches_the_card(cuda_device):
+    """The caps' CTAs a (group, pool): the Python mirror equals the C
+    rule."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+    for T in (0, 1, 128, 129, 203, 406, 812, 1025, 5000):
+        for K in (0, 2):
+            assert ffd_cuda._lib().karp_mesh_caps_cluster(T, K) \
+                == mc.caps_cluster(T, K)
 
 
 @pytest.mark.parametrize("before", sorted(examples.MESH_BEFORES))

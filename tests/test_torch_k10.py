@@ -544,3 +544,228 @@ def test_fill_model_matches_plain(nl, P, kw, phase):
         assert seen["tiles"] > 1
     if P == 20 and phase in (mc.PHASE_B, mc.PHASE_ALL):
         assert seen.get("scans")   # ten limited pools: two scans
+
+
+# ---------------------------------------------------------------------------
+# mesh_new_caps: the type axis over a cluster of CTAs
+# ---------------------------------------------------------------------------
+
+def _floordiv_rcp(a, b):
+    """csrc/ffd_common.cuh ``floordiv_rcp`` with rb = 1 / b, elementwise:
+    below 2^52 the fp64 product floored and one correction each way by
+    the remainder; the integer floor division otherwise."""
+    a = np.asarray(a, np.int64)
+    b = np.broadcast_to(np.asarray(b, np.int64), a.shape)
+    lim = 1 << 52
+    big = (a <= -lim) | (a >= lim) | (b >= lim)
+    with np.errstate(invalid="ignore", over="ignore"):
+        rb = 1.0 / b.astype(np.float64)
+        q = np.floor(a.astype(np.float64) * rb)
+        q = np.where(big, 0, q).astype(np.int64)
+    r = a - q * b
+    q = q - (r < 0) + (r >= b)
+    return np.where(big, a // b, q)
+
+
+def _cand_loop(F, pool_types, avail, agz, pagz, agc, pagc, Z, C):
+    """[T] ``new_node_cand`` (csrc/ffd_step.cuh) of one (group, pool) for
+    every type: its byte loops."""
+    T = avail.shape[0]
+    out = np.zeros(T, bool)
+    for t in range(T):
+        if not (F[t] and pool_types[t]):
+            continue
+        out[t] = any(agz[z] and pagz[z] and agc[c] and pagc[c]
+                     and avail[t, z * C + c]
+                     for z in range(Z) for c in range(C))
+    return out
+
+
+def _offer_word(row) -> int:
+    """A type's offering word (bit z*C + c) as ``offer_word`` builds it
+    from the row's bytes."""
+    return sum(1 << i for i in range(len(row)) if row[i])
+
+
+def _cand_words(F, pool_types, avail, agz, pagz, agc, pagc, Z, C):
+    """[T] the kernel's candidate test (``type_hr``): each type's
+    offering word (``offer_word``) ANDed with the (group, pool) pair word
+    (warp 0's ballots); ``_cand_loop`` past 64 pairs."""
+    ZC = Z * C
+    if ZC > 64:
+        return _cand_loop(F, pool_types, avail, agz, pagz, agc, pagc, Z, C)
+    zm = 0
+    for i in range(ZC):
+        z, c = divmod(i, C)
+        if agz[z] and pagz[z] and agc[c] and pagc[c]:
+            zm |= 1 << i
+    words = [_offer_word(avail[t]) for t in range(avail.shape[0])]
+    return F & pool_types & np.array([(w & zm) != 0 for w in words], bool)
+
+
+def _hr_model(A, dmn, R):
+    """[T] the kernel's headroom of every type over the daemon row: the
+    quotients by reciprocals (``head_staged`` with ``rb``) at D <= 8, the floor
+    division past it; min over requested dims (BIG if none), clipped."""
+    D = A.shape[1]
+    m = np.full(A.shape[0], ft.BIG, np.int64)
+    with np.errstate(over="ignore"):
+        for d in range(D):
+            if R[d] <= 0:
+                continue
+            x = A[:, d] - dmn[d]                 # int64, wraps
+            q = _floordiv_rcp(x, R[d]) if D <= 8 else x // R[d]
+            m = np.minimum(m, q)
+    return np.maximum(m, 0)
+
+
+def caps_model(st):
+    """``mesh_new_caps`` as the kernel decomposes it, into a copy of
+    ``st.caps``: for each (group, pool) X = ``caps_cluster(T, K)`` CTAs,
+    CTA r over the types [r * ceil(T / X), ...), each type's candidate
+    and headroom as above, each CTA's partial max (0 over no candidate),
+    rank 0's max of the partials; with floors (X == 1) the per-value
+    maxima of headroom + 1 over the pairs (skipping v outside [0, V) and
+    t outside [0, T))."""
+    inp = {k: (v.numpy() if v is not None else None)
+           for k, v in st.inp._asdict().items()}
+    T, G, P, K, V = st.T, st.G, st.P, st.K, st.V
+    Z, C = inp["agz"].shape[1], inp["agc"].shape[1]
+    X = mc.caps_cluster(T, K)
+    assert K == 0 or X == 1
+    tc = -(-T // X) if T else 0
+    caps = np.zeros(G * P * (1 + K * V), np.int64)
+    for g in range(G):
+        for pi in range(P):
+            cand = _cand_words(inp["F"][g], inp["pool_types"][pi],
+                               inp["avail_zc"], inp["agz"][g],
+                               inp["pool_agz"][pi], inp["agc"][g],
+                               inp["pool_agc"][pi], Z, C)
+            hr = np.where(cand, _hr_model(inp["A"], inp["daemon"][g, pi],
+                                          inp["R"][g]), -1)
+            parts = [max(0, int(hr[r * tc:(r + 1) * tc].max(initial=-1)))
+                     for r in range(X)]
+            gp = g * P + pi
+            caps[gp] = max(parts)
+            if not K:
+                continue
+            h1 = np.zeros((K, V), np.int64)
+            for kk in range(K):
+                for t, v in zip(inp["mv_pairs_t"][kk], inp["mv_pairs_v"][kk]):
+                    if 0 <= v < V and 0 <= t < T and hr[t] >= 0:
+                        h1[kk, v] = max(h1[kk, v], hr[t] + 1)
+            caps[G * P + gp * K * V:G * P + (gp + 1) * K * V] = h1.reshape(-1)
+    return torch.from_numpy(caps)
+
+
+def test_caps_cluster_rule():
+    """The CTAs of a (group, pool) at the main paths' shapes (8 at T =
+    812, 2 at the tp cell's gloo rank of 203, 4 at 406), one with floors,
+    and every type in exactly one CTA's chunk of at most one pass of the
+    CTA's threads up to 1,024 types."""
+    want = dict(tp=8, tp_rank=2, dp2_rank=4, k11=4, ceiling=8)
+    for name, T, G, P, *_ in examples.CAPS_SHAPES:
+        assert mc.caps_cluster(T, 0) == want[name], name
+        assert mc.caps_cluster(T, 2) == 1
+    for T in (0, 1, 127, 128, 129, 203, 406, 812, 1024, 1025, 5000):
+        X = mc.caps_cluster(T, 0)
+        assert X in (1, 2, 4, 8)
+        tc = -(-T // X) if T else 0
+        cover = [t for r in range(X) for t in range(r * tc,
+                                                    min(T, (r + 1) * tc))]
+        assert cover == list(range(T))
+        if T <= 8 * mc.CAPS_THREADS:
+            assert tc <= mc.CAPS_THREADS
+
+
+CAPS_CASES = examples.CAPS_CASES
+
+
+@pytest.mark.parametrize("name,shape,K", CAPS_CASES,
+                         ids=[c[0] for c in CAPS_CASES])
+def test_caps_model_matches_plain(name, shape, K):
+    """The model of the kernel's decomposition equals ``_new_caps_ref`` at
+    the main paths' shapes (``examples.CAPS_SHAPES``), with floors, past
+    eight dimensions, past the 64-bit offering word and at exactly 64
+    pairs (bit 63 the sign bit)."""
+    st = examples.caps_state(**shape, seed=len(name), K=K, V=5 if K else 0)
+    mc._new_caps_ref(st)
+    got = caps_model(st)
+    assert torch.equal(got, st.caps), name
+    GP = st.G * st.P
+    assert bool((st.caps[:GP] > 0).any())
+    if K:
+        assert bool((st.caps[GP:] > 0).any())
+    if shape["G"] > 2:
+        assert int(st.caps[st.P]) == ft.BIG       # group 1 requests nothing
+
+
+def _case_ranks(case, ntp):
+    """Every rank of the type mesh of ``ntp`` shards of a ``MESH_CASES``
+    case, its minValues pairs localized with the case's V."""
+    arrays, st = examples.mesh_case(case)
+    E, P, V, N = st["E"], st["P"], st["V"], st["E"] + st["n_max"]
+    T = np.asarray(arrays["A"]).shape[0]
+    Tp = -(-T // ntp) * ntp
+    names = [f for f in pm.FIELDS if arrays.get(f) is not None]
+    out = []
+    for tp in range(ntp):
+        lay = examples.ShardStub(1, 0, [0] * (P + 1), ntp=ntp, tp_idx=tp)
+        inp = ft.KernelInputs(**pm._shard_inputs(
+            arrays, lay, names, Tp, N, None, V, torch.device("cpu")))
+        out.append(mc.MeshState(inp, E=E, P=P, V=V, N=N, slot0=0))
+    return out
+
+
+@pytest.mark.parametrize("ntp", [1, 4])
+@pytest.mark.parametrize("case", examples.MESH_CASES)
+def test_caps_model_on_mesh_cases(case, ntp):
+    """Every rank's caps (floors included) by the model equal
+    ``_new_caps_ref``'s, at world size 1 and on four type shards."""
+    for s in _case_ranks(case, ntp):
+        mc._new_caps_ref(s)
+        assert torch.equal(caps_model(s), s.caps), (case, ntp)
+
+
+@pytest.mark.parametrize("Z,C", [(4, 3), (3, 2), (16, 4), (22, 3), (1, 1)])
+def test_offer_words_match_new_node_cand(Z, C):
+    """The kernel's word test equals ``new_node_cand``'s loops for random
+    group and pool narrowings: Z*C = 64 sets bit 63, 66 pairs take the
+    loops."""
+    rng = np.random.RandomState(Z * 10 + C)
+    T = 61
+    avail = rng.rand(T, Z * C) < 0.2
+    avail[3, -1] = True
+    hits = 0
+    for _ in range(30):
+        F, pt = rng.rand(T) < 0.8, rng.rand(T) < 0.9
+        agz, pagz = rng.rand(Z) < 0.7, rng.rand(Z) < 0.8
+        agc, pagc = rng.rand(C) < 0.8, rng.rand(C) < 0.8
+        want = _cand_loop(F, pt, avail, agz, pagz, agc, pagc, Z, C)
+        got = _cand_words(F, pt, avail, agz, pagz, agc, pagc, Z, C)
+        assert np.array_equal(got, want)
+        hits += int(want.sum())
+    assert hits
+
+
+def test_rcp_quotients_are_exact():
+    """The elementwise reciprocal quotient used by the model equals the
+    floor division, and the K9 test's scalar model of ``floordiv_rcp``, on
+    random and edge operands (one either side of multiples, negative
+    numerators, b = 1, operands at and past 2^52)."""
+    import test_torch_k9 as k9
+    rng = np.random.RandomState(3)
+    a = rng.randint(-(1 << 52) + 1, 1 << 52, size=4000, dtype=np.int64)
+    b = rng.randint(1, 1 << 40, size=4000, dtype=np.int64)
+    bs = rng.randint(1, 1 << 20, size=4000, dtype=np.int64)
+    q = rng.randint(-(1 << 30), 1 << 30, size=4000, dtype=np.int64)
+    lim = 1 << 52
+    edges = [(lim - 1, 1), (-lim + 1, 1), (lim - 1, 3), (lim, 3), (-lim, 7),
+             ((1 << 62) + 5, 7), (5, lim + 1), (0, 1), (-1, 1 << 51)]
+    A = np.concatenate([a, q * bs - 1, q * bs, q * bs + 1,
+                        [e[0] for e in edges]])
+    B = np.concatenate([b, bs, bs, bs, [e[1] for e in edges]])
+    got = _floordiv_rcp(A, B)
+    assert np.array_equal(got, A // B)
+    for x, y, z in zip(A[::97], B[::97], got[::97]):
+        assert k9.floordiv_rcp(int(x), int(y), 1.0 / int(y)) == int(z)
