@@ -21,7 +21,10 @@ Phases (any failure exits non-zero before the result line):
    priority section, exhausted slots, an all-zero R column); the K3 bank
    kernels, the checkpointed solve and every (jr, SUF, GL) suffix of
    G=8, CK=2 arenas with existing nodes and with minValues floors, and
-   of the 50,000-pod warm-cluster arena; the K2 kernels on their lane
+   of the 50,000-pod warm-cluster arena (the chunk entries' bank rows
+   stored by ``ffd_slot_headroom``: no ``ffd_bank_store`` in a
+   checkpointed solve, one in a suffix with pad chunks, none without,
+   rows up to jr untouched); the K2 kernels on their lane
    axis with one lane (config 2 and the warm arena) and with five; the
    K7 kernels (``consol_absorb`` in its three modes, ``subset_gather``,
    ``subset_summary``, whole subset rounds) on the synthetic hazard cases
@@ -48,7 +51,10 @@ Phases (any failure exits non-zero before the result line):
    launch counter set to 0 just before and read just after. Every
    measured tick must be served by a suffix re-solve and fingerprint-
    equal a from-scratch ``CUDASolver(incremental=False)`` solve on the
-   card; the first five and the last also the plain versions' solve;
+   card; the first five and the last also the plain versions' solve; the
+   bank left resident (its rows stored by the suffixes' headroom launches
+   and re-stamps) must equal the plain checkpointed solve's of the last
+   tick's arena;
 6. the consolidation path, ``CUDAConsolidationEvaluator()`` on BASELINE
    config 4 (``examples.config4``): (a) the whole-fleet round of
    ``single_consolidation_device`` at 1,000 nodes (2,000 lanes), (b) the
@@ -84,7 +90,7 @@ Phases (any failure exits non-zero before the result line):
    (the pool statics of its topology groups, the offering words), every
    topology group's ``topo_group_start`` and ``topo_pour`` and every
    other group's
-   ``topo_record_plain`` of BASELINE config 3 (``examples.config3``,
+   ``ffd_group_commit`` with its membership record of BASELINE config 3 (``examples.config3``,
    50,000 pods: 20 zone-spread deployments, one hostname anti-affinity
    deployment, plain pods) against the plain parts from the same entry
    state at EVCAP 128, 1, 2 and the bail's re-dispatch capacity, and so
@@ -172,7 +178,11 @@ Phases (any failure exits non-zero before the result line):
    of its own, two threads);
 10. kernel times with CUDA events at the main paths' shapes, beside the
    plain versions' times, the bound the shapes allow and, for the bank
-   kernels, ``Tensor.copy_`` of the same bytes; the gather at rounds (a)
+   kernels, ``Tensor.copy_`` of the same bytes; ``ffd_slot_headroom`` at
+   config 2's and the warm arena's chunk entries without and with the
+   bank row it stores (the row checked against the plain store), and
+   config 3's plain groups' ``ffd_group_commit`` without and with the
+   membership record; the gather at rounds (a)
    and (b); the suffix solve's device
    time beside the checkpointed full solve's on the warm arena; the K2
    kernels on the lane axis at the whole-fleet round's 2,048 lanes; the
@@ -308,6 +318,10 @@ D15_BACKOFF_S = 0.5
 D15_REGROUP_BUDGET_S = 180
 D15_BATCHES = (5, 64)
 
+#: the kernels phase 11 holds to their plain parts
+TOPO_CHECKED = ("topo_pool_statics", "topo_group_start", "topo_pour",
+                "ffd_group_commit")
+
 #: the kernels of the warm-tick path
 K3_PATH = ("unpack_bits", "ffd_slot_headroom", "ffd_group_commit",
            "pack_outputs", "ffd_bank_store", "ffd_bank_load")
@@ -325,12 +339,14 @@ KERNELS = {
     "unpack_bits": dict(
         source="karpenter_provider_aws_tpu_torch/csrc/packed_io.cu",
         replaces="karpenter_provider_aws_tpu/ops/ffd_jax.py:1140"),
+    # the headroom also stores a chunk entry's bank row (K3), the commit
+    # also records a topology scan's plain group (K9)
     "ffd_slot_headroom": dict(
         source="karpenter_provider_aws_tpu_torch/csrc/ffd_scan.cu",
-        replaces="karpenter_provider_aws_tpu/ops/ffd_jax.py:279"),
+        replaces=f"{FFD_REF}:279, {FFD_REF}:795"),
     "ffd_group_commit": dict(
         source="karpenter_provider_aws_tpu_torch/csrc/ffd_scan.cu",
-        replaces="karpenter_provider_aws_tpu/ops/ffd_jax.py:380"),
+        replaces=f"{FFD_REF}:380, {K9_REF}:685"),
     "pack_outputs": dict(
         source="karpenter_provider_aws_tpu_torch/csrc/packed_io.cu",
         replaces="karpenter_provider_aws_tpu/ops/ffd_jax.py:1159"),
@@ -354,7 +370,6 @@ KERNELS = {
     "topo_pool_statics": dict(source=K9_SRC, replaces=f"{K9_REF}:292"),
     "topo_group_start": dict(source=K9_SRC, replaces=f"{K9_REF}:281"),
     "topo_pour": dict(source=K9_SRC, replaces=f"{K9_REF}:669"),
-    "topo_record_plain": dict(source=K9_SRC, replaces=f"{K9_REF}:685"),
     "ffd_fused_headroom": dict(source=K5_SRC, replaces=f"{FFD_REF}:694"),
     "ffd_fused_commit": dict(source=K5_SRC, replaces=f"{FFD_REF}:743"),
     "mesh_new_caps": dict(source=K10_SRC, replaces=f"{FFD_REF}:400"),
@@ -550,9 +565,12 @@ def check_k3(label, buf_np, st, cmp, dev, gls=None):
     """The K3 kernels and solves against their plain versions on one
     arena: for each live bound GL (``gls``; default every multiple of CK
     up to G, the groups past GL emptied) the checkpointed solve's output
-    and every bank field, ffd_bank_load of every bank row, then every
-    SUF the bound allows: the suffix output and the spliced bank, each
-    run from its own copy of the recorded bank."""
+    and every bank field (each row stored by its chunk entry's
+    ffd_slot_headroom; no ffd_bank_store launched), ffd_bank_load of every
+    bank row, then every SUF the bound allows: the suffix output and the
+    spliced bank, each run from its own copy of the recorded bank (rows
+    up to jr untouched, the later rows stored by the headroom, the pad
+    rows by the one ffd_bank_store there is, none without pad rows)."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
@@ -566,13 +584,18 @@ def check_k3(label, buf_np, st, cmp, dev, gls=None):
         b = buf_np.copy()
         b[off + GL:off + G] = 0
         d = torch.from_numpy(b).to(dev)
+        n0 = fc.LAUNCHES["ffd_bank_store"]
         out, bank = ft.solve_scan_packed1_ckpt(d, CK=CK, **ss)
+        if fc.LAUNCHES["ffd_bank_store"] != n0:
+            raise AssertionError(f"{label} GL={GL}: the checkpointed solve "
+                                 "launched ffd_bank_store")
         inp = ft._packed_inputs_ref(d, T, D, Z, C, G, E, P, K, M, Q)
         tk, lf, cr, pbank = ft._solve_ckpt_ref(inp, n_max, E, P, V, CK)
         cmp("pack_outputs", out, ft._pack_outputs_ref(tk, lf, cr),
             f"{label} GL={GL} ckpt output")
         for nm, g, w in zip(ft.Carry._fields, bank, pbank):
-            cmp("ffd_bank_store", g, w, f"{label} GL={GL} ckpt bank.{nm}")
+            cmp("ffd_slot_headroom", g, w,
+                f"{label} GL={GL} ckpt bank.{nm}")
         work = ft.bank_row(pbank, 0)
         bs = fc.BankState(work, bank)
         for j in range(G // CK):
@@ -583,14 +606,28 @@ def check_k3(label, buf_np, st, cmp, dev, gls=None):
         for SUF in range(1, GL // CK + 1):
             kb = ft.Carry(*[x.clone() for x in bank])
             pb = ft.Carry(*[x.clone() for x in pbank])
+            n0 = fc.LAUNCHES["ffd_bank_store"]
             o, kb = ft.solve_scan_suffix(d, kb, CK=CK, SUF=SUF, GL=GL, **ss)
+            pad = GL < G
+            if fc.LAUNCHES["ffd_bank_store"] - n0 != pad:
+                raise AssertionError(
+                    f"{label} GL={GL} SUF={SUF}: "
+                    f"{fc.LAUNCHES['ffd_bank_store'] - n0} ffd_bank_store "
+                    f"launches, {int(pad)} expected")
             tk, lf, cr, pb = ft._solve_suffix_ref(inp, pb, n_max, E, P, V,
                                                   CK, SUF, GL)
             cmp("ffd_bank_load", o, ft._pack_outputs_ref(tk, lf, cr),
                 f"{label} GL={GL} SUF={SUF} suffix output")
-            for nm, g, w in zip(ft.Carry._fields, kb, pb):
-                cmp("ffd_bank_store", g, w,
-                    f"{label} GL={GL} SUF={SUF} spliced bank.{nm}")
+            jr, lb = GL // CK - SUF, GL // CK
+            for nm, g, w, r in zip(ft.Carry._fields, kb, pb, bank):
+                what = f"{label} GL={GL} SUF={SUF} spliced bank.{nm}"
+                cmp("ffd_bank_load", g[:jr + 1], r[:jr + 1],
+                    f"{what} rows up to jr (untouched)")
+                cmp("ffd_slot_headroom", g[:lb], w[:lb],
+                    f"{what} rows up to GL/CK")
+                if pad:
+                    cmp("ffd_bank_store", g[lb:], w[lb:],
+                        f"{what} pad rows")
             runs += 1
     return runs
 
@@ -614,6 +651,13 @@ def warm_tick_phase(pods=WARM_PODS, device=None):
     snapshot, tick = examples.warm_cluster(pods=pods,
                                            pending_frac=WARM_PENDING)
     solver = CUDASolver(device=device)
+    suffixes = []               # the last suffix dispatch's (buf, statics)
+    dispatch_suffix = solver._dispatch_suffix
+
+    def watched(buf, bank, **statics):
+        suffixes[:] = [(buf, statics)]
+        return dispatch_suffix(buf, bank, **statics)
+    solver._dispatch_suffix = watched
     t0 = time.perf_counter()
     solver.solve(snapshot())
     cold_ms = (time.perf_counter() - t0) * 1e3
@@ -636,6 +680,7 @@ def warm_tick_phase(pods=WARM_PODS, device=None):
         stats.append((dict(solver.last_phase_stats),
                       dict(solver.last_dispatch_stats)))
     launches = dict(fc.LAUNCHES)
+    check_resident_bank(solver, *suffixes[-1])
     log(f"[warm] {pods} pods, {len(snaps[0].pods)} pending, "
         f"{len(snaps[0].existing_nodes)} existing nodes; cold solve "
         f"{cold_ms:.1f} ms; warm-up (mode, full reason): {warm_modes}")
@@ -690,6 +735,28 @@ def warm_tick_phase(pods=WARM_PODS, device=None):
         raise AssertionError(f"kernels never launched on the warm-tick "
                              f"path: {missing}")
     return launches, summary
+
+
+def check_resident_bank(solver, buf, statics):
+    """The bank the warm ticks left resident (the chunk entries' rows
+    stored by the suffix's ffd_slot_headroom launches, the pad rows by its
+    ffd_bank_store) against the plain checkpointed solve of the last
+    tick's arena, on the solver's device: every row, byte for byte."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    st = {k: statics.get(k, 0) for k in "T D Z C G E P K M V Q".split()}
+    d = torch.as_tensor(buf).to(solver.device)
+    inp = ft._packed_inputs_ref(d, *(st[k] for k in
+                                     "T D Z C G E P K M Q".split()))
+    _, _, _, want = ft._solve_ckpt_ref(inp, statics["n_max"], st["E"],
+                                       st["P"], st["V"], statics["CK"])
+    for nm, got, w in zip(ft.Carry._fields,
+                          solver._ckpt_bank["bank"], want):
+        if not torch.equal(got, w):
+            raise AssertionError(f"warm tick: the resident bank.{nm} != the "
+                                 "plain checkpointed solve's")
+    log(f"[warm] the resident bank ({want.used.shape[0]} rows) == the plain "
+        f"checkpointed solve of the last tick's arena")
 
 
 def check_lane_one(label, inp, st, cmp):
@@ -1585,7 +1652,7 @@ def topo_phase(cmp, device=None, n_pods=C3_PODS, rounds=C3_ROUNDS):
         log(f"[config3] every group's K9 kernel == its plain part from the "
             f"same entry state at EVCAP {st['EVCAP']}, 1, 2 and "
             f"{safe_evcap(arrays, rows)}; checks "
-            f"{ {k: cmp.checks[k] - n0[k] for k in KERNELS if 'topo' in k} }")
+            f"{ {k: cmp.checks[k] - n0[k] for k in TOPO_CHECKED} }")
         states = (inp, trows, st, states)
         # the kernel cases (rows at the last padded index, an undecided
         # slot below a decided one, the ladder filling 64 and 2,048 slots),
@@ -1611,7 +1678,7 @@ def topo_phase(cmp, device=None, n_pods=C3_PODS, rounds=C3_ROUNDS):
             f"rows_last@{wide} at EVCAP 1, 2, 128 and their bails' "
             f"re-dispatch capacity: every K9 kernel == its plain part; "
             f"checks "
-            f"{ {k: cmp.checks[k] - n0[k] for k in KERNELS if 'topo' in k} }")
+            f"{ {k: cmp.checks[k] - n0[k] for k in TOPO_CHECKED} }")
 
     fc.reset_launches()
     times, splits, stats = [], [], []
@@ -1635,7 +1702,6 @@ def topo_phase(cmp, device=None, n_pods=C3_PODS, rounds=C3_ROUNDS):
     if solver.device.type == "cuda":
         Gp = st["G"]
         want = dict(topo_group_start=n_topo, topo_pour=n_topo,
-                    topo_record_plain=Gp - n_topo,
                     ffd_slot_headroom=Gp - n_topo,
                     ffd_group_commit=Gp - n_topo)
         # one statics launch a chunk of topology groups (an older
@@ -3042,14 +3108,29 @@ def kernel_times(c2, launches):
     recs["unpack_bits"] = (ms, pms, words.numel() * 8 + n_bits,
                            2 * n_bits)
 
-    # K2 phase 1 at each group's entry carry (the scan's real states)
+    # K2 phase 1 at each group's entry carry (the scan's real states), and
+    # at each chunk entry (g % CK == 0) with the carry's bank row stored by
+    # the same launch (row 1 of two: the odd-width planes' rows are not
+    # 16-byte aligned there), checked against the plain store
     state = fc.ScanState(inp, ft.Carry(*[t.clone() for t in carries[0]]),
                          E=E, P=P)
-    ms_l, pms_l, by_l, op_l = [], [], [], []
+    bs = fc.BankState(state.carry, fc.empty_bank(state.carry, 2))
+    want = fc.empty_bank(state.carry, 2)
+    ms_l, pms_l, by_l, op_l, bank_l = [], [], [], [], []
     for g in range(G):
         cg = carries[g]
         for dst, src in zip(state.carry, cg):
             dst.copy_(src)
+        if g % CK == 0:
+            bank_l.append((
+                time_launches(lambda: fc.ffd_slot_headroom(state, g)),
+                time_launches(lambda: fc.ffd_slot_headroom(state, g, bank=bs,
+                                                           j=1))))
+            ft._bank_store_ref(want, cg, 1)
+            for nm, got, w in zip(ft.Carry._fields, bs.bank, want):
+                if not torch.equal(got[1], w[1]):
+                    raise AssertionError(f"config 2 g={g}: the headroom's "
+                                         f"bank row {nm} != the plain store")
         ms_l.append(time_launches(lambda: fc.ffd_slot_headroom(state, g)))
         pms_l.append(time_launches(
             lambda: ft._slot_headroom_ref(inp, cg, g, E=E, P=P, V=0),
@@ -3062,6 +3143,13 @@ def kernel_times(c2, launches):
                                  statistics.fmean(pms_l),
                                  statistics.fmean(by_l),
                                  statistics.fmean(op_l))
+    row = sum(c.numel() * c.element_size() for c in state.carry)
+    folded = dict(chunk_entries=len(bank_l), row_bytes=row,
+                  headroom_us=statistics.fmean(b[0] for b in bank_l) * 1e3,
+                  headroom_bank_row_us=statistics.fmean(
+                      b[1] for b in bank_l) * 1e3)
+    log(f"[time] ffd_slot_headroom at config 2's chunk entries without and "
+        f"with the bank row: {json.dumps(folded)}")
 
     # K2 phase 2: restore the group's entry carry and its phase-1 result
     # (candidates, headroom, the new-node table) before each launch,
@@ -3110,13 +3198,16 @@ def kernel_times(c2, launches):
                         launches=launches[name], ms=ms, plain_ms=pms,
                         bound_ms=b, bound_by=by, library_ms=None,
                         bytes=nbytes, ops=ops))
+    out[1]["folded_config2"] = folded
     return out
 
 
 def bank_times(d_buf, st, launches):
     """The bank kernels at the warm arena's carry, beside the plain
     versions and the eight ``Tensor.copy_`` calls that move the same
-    bytes (the library yardstick; the port never calls it)."""
+    bytes (the library yardstick; the port never calls it); and the
+    warm shape's ``ffd_slot_headroom`` at a chunk entry without and with
+    its bank row (``folded`` on the store's record)."""
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
     from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
@@ -3134,6 +3225,17 @@ def bank_times(d_buf, st, launches):
     def copy_load():
         for b, c in zip(bank, carry):
             c.copy_(b[j].reshape(c.shape))
+    g = j * CK
+    inp = ft._packed_inputs_ref(d_buf, *(st[k] for k in
+                                         "T D Z C G E P K M Q".split()))
+    hs = fc.ScanState(inp, carry, E=st["E"], P=st["P"], V=st["V"])
+    folded = dict(
+        row_bytes=row,
+        headroom_us=time_launches(lambda: fc.ffd_slot_headroom(hs, g)) * 1e3,
+        headroom_bank_row_us=time_launches(
+            lambda: fc.ffd_slot_headroom(hs, g, bank=bs, j=j)) * 1e3)
+    log(f"[time] ffd_slot_headroom at the warm arena's chunk entry {g} "
+        f"without and with its bank row: {json.dumps(folded)}")
     recs = {
         "ffd_bank_store": (time_launches(lambda: fc.ffd_bank_store(bs, j)),
                            time_launches(lambda: ft._bank_store_ref(
@@ -3151,6 +3253,7 @@ def bank_times(d_buf, st, launches):
                         launches=launches[name], ms=ms, plain_ms=pms,
                         bound_ms=b, bound_by=by, library_ms=lms,
                         bytes=2 * row, ops=0))
+    out[0]["folded_warm"] = folded
     return out
 
 
@@ -3570,8 +3673,12 @@ def k9_times(c3, launches):
     statics once, as a scan launches them (one chunk of every topology
     group). The pour's record also holds each group's time
     (``group_ms``: group, events, µs) and group 0's apart from the
-    others' mean."""
+    others' mean. Also returns the plain groups' ``ffd_group_commit``
+    without and with the membership record (``topo_cuda.plain_commit``),
+    each from the group's entry state after its headroom: {groups,
+    commit_us, commit_record_us}."""
     import torch
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
     from karpenter_provider_aws_tpu_torch.ops import topo_cuda as tc
     from karpenter_provider_aws_tpu_torch.ops import topo_torch as tt
     inp, rows, st, states = c3
@@ -3584,7 +3691,8 @@ def k9_times(c3, launches):
                        torch.zeros((GH, N), dtype=torch.int64, device=dev),
                        n_max=N, P=P, EVCAP=EVCAP, PMAX=st["PMAX"])
     acc = {k: [] for k in ("topo_pool_statics", "topo_group_start",
-                           "topo_pour", "topo_record_plain")}
+                           "topo_pour")}
+    commits = []    # a plain group's commit: (without, with the record) ms
     # the statics of chunk 0 (the offering words too), as a scan's first
     # launch: read the arena's type and pool tables, the groups' rows;
     # write the tables and the words. (An older checkout timed by
@@ -3614,18 +3722,13 @@ def k9_times(c3, launches):
             ts.ch.copy_(ch)
             ts.zfix.copy_(zfix)
         if r is None:               # a group without topology
-            take = x
-
-            def setup(restore=restore, take=take, g=g):
+            def setup(restore=restore, g=g):
                 restore()
-                ts.st.takes[g].copy_(take.to(torch.int32))
-            acc["topo_record_plain"].append((
-                time_launches(lambda: tc.topo_record_plain(ts, g),
+                fc.ffd_slot_headroom(ts.st, g)
+            commits.append((
+                time_launches(lambda: fc.ffd_group_commit(ts.st, g),
                               setup=setup),
-                time_launches(lambda: tt._topo_record_plain_ref(
-                    cz, ch, zfix, take, rows.member_z[g], rows.member_h[g]),
-                    reps=10),
-                N * 4 + N * 4 + 2 * N * 8 + 2 * Z * 8, 2 * N))
+                time_launches(lambda: tc.plain_commit(ts, g), setup=setup)))
             continue
         gs = x
         n_cand = int(gs.cand.sum())
@@ -3681,7 +3784,12 @@ def k9_times(c3, launches):
                 if len(groups) > 1 else None)
     log(f"[time] topo_pour by group (group, events, us): {groups}")
     del ts
-    return out
+    folded = dict(groups=len(commits))
+    if commits:
+        folded.update(
+            commit_us=statistics.fmean(c[0] for c in commits) * 1e3,
+            commit_record_us=statistics.fmean(c[1] for c in commits) * 1e3)
+    return out, folded
 
 
 def topo_scan_device_ms(c3, evcap=None, reps=10):
@@ -3691,25 +3799,11 @@ def topo_scan_device_ms(c3, evcap=None, reps=10):
     synchronisation outside the events, and a sleep kernel ahead of the
     launches lets the host enqueue them all before the start event fires.
     (A whole ``solve_scan_topo`` call reads ``has_topo`` back first, so
-    its events time the host's enqueue.) An older checkout timed by
-    hack/k9_ab.py has no ``topo_scan``: its loop is written out here."""
+    its events time the host's enqueue.)"""
     import torch
-    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
     from karpenter_provider_aws_tpu_torch.ops import topo_cuda as tc
     inp, rows, st, _ = c3
     dev = inp.A.device
-
-    def old_scan(ts):
-        with fc.launching(ts.take) as stream:
-            for g, topo in enumerate(ts.has_topo):
-                if topo:
-                    tc.topo_group_start(ts, g, stream)
-                    tc.topo_pour(ts, g, stream)
-                else:
-                    fc.ffd_slot_headroom(ts.st, g, stream)
-                    fc.ffd_group_commit(ts.st, g, stream)
-                    tc.topo_record_plain(ts, g, stream)
-    scan = getattr(tc, "topo_scan", old_scan)
     total = 0.0
     for i in range(reps + 1):
         ts = tc.topo_state(
@@ -3723,7 +3817,7 @@ def topo_scan_device_ms(c3, evcap=None, reps=10):
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda._sleep(20_000_000)
         s.record()
-        scan(ts)
+        tc.topo_scan(ts)
         e.record()
         torch.cuda.synchronize()
         if i:                       # the first is a warm-up
@@ -4602,8 +4696,7 @@ def main() -> int:
     # ---- phase 11: the topology path (config 3 on the K9 kernels) ----------
     launches_c3, c3, c3_states = topo_phase(cmp)
     missing = [k for k in ("topo_pool_statics", "topo_group_start",
-                           "topo_pour", "topo_record_plain",
-                           "ffd_slot_headroom",
+                           "topo_pour", "ffd_slot_headroom",
                            "ffd_group_commit") if launches_c3[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the topology "
@@ -4688,7 +4781,10 @@ def main() -> int:
         raise AssertionError(f"the pruned pack issued {c7_pack['kernels']} "
                              "kernels")
     recs += k1_lane_times(batch_arenas, launches_b)
-    recs += k9_times(c3_states, launches)
+    k9_recs, k9_folded = k9_times(c3_states, launches)
+    recs += k9_recs
+    log(f"[time] config 3's plain groups: ffd_group_commit without and with "
+        f"the membership record, us: {json.dumps(k9_folded)}")
     k8_recs, k8_by_g = k8_times(p12_tables, p12_wide, launches)
     recs += k8_recs
     k5_recs, k5_branch = k5_times(

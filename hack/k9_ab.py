@@ -1,7 +1,9 @@
 """Time the topology pour (K9) of one checkout of the port on a card.
 
 Runs, with the given checkout's package and this tree's ``chip_smoke.py``
-(its phase 11 and its K9 timing call only interfaces both trees have):
+(its phase 11 and its K9 timing call only interfaces both trees have;
+a checkout whose plain groups launch their own record kernel, as before
+the commit recorded them, needs hack/k3_k9_ab.py):
 BASELINE config 3 at 50,000 pods (``chip_smoke.topo_phase``: every
 group's K9 kernel against its plain part from the same entry state, 11
 solves through ``CUDASolver()`` with their p50 and median split, the host
@@ -45,7 +47,7 @@ def main() -> int:
     out = dict(card=cs.smi_line())
     launches, summary, c3 = cs.topo_phase(cs.Compare())
     out["config3"] = summary
-    recs = cs.k9_times(c3, launches)
+    recs, out["plain_commits"] = cs.k9_times(c3, launches)
     out["k9"] = {r["name"]: {k: r[k] for k in r if k not in
                              ("route", "source", "replaces")}
                  for r in recs}

@@ -11,33 +11,30 @@
 // The bank is eight device tensors, one per carry field, each with a
 // leading row axis of G/CK: used [., N, D] i64, types [., N, T] u8,
 // zones [., N, Z] u8, ct [., N, C] u8, pool [., N] i32, alive [., N] u8,
-// num_nodes [.] i32, pool_used [., P, D] i64. One row holds one carry.
+// num_nodes [.] i32, pool_used [., P, D] i64. One row holds one carry
+// (BankArgs, ffd_common.cuh).
 //
-// ffd_bank_store: the working carry into bank rows [j, j + count), all
-//   eight fields in one launch (count > 1 is the pad re-stamp).
+// The entry carry of a chunk is not stored here: the chunk entry's
+// ffd_slot_headroom launch, which reads that carry and writes none of it,
+// copies it into its bank row with every one of its threads (BankCopy,
+// ffd_common.cuh; ffd_scan.cu). A checkpointed solve therefore launches
+// no kernel of this file, and a suffix re-solve two at most:
 // ffd_bank_load: bank row j into the working carry, all eight fields in
-//   one launch.
+//   one launch (the suffix's resume row);
+// ffd_bank_store: the working carry into bank rows [j, j + count), all
+//   eight fields in one launch (the suffix's re-stamp of its pad chunks
+//   with the final carry, count >= 1).
 // Grid: x strides over a field's row bytes, y is the field, z the bank
 //   row. A field whose pointers and row size are 8-byte aligned moves in
 //   64-bit words, any other (the bool planes of odd widths) bytewise.
 // What bounds them on this card: bytes, one carry read and one written
 //   per row; at the warm-tick shape a carry is ~12 KB, nanoseconds of
-//   HBM time, so a launch costs its latency (PERF.md has the times). A
-//   later PR would fold the store into ffd_group_commit's epilogue.
+//   HBM time, so a launch costs its latency (PERF.md has the times).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "ffd_common.cuh"
-
-// Mirror of ops/ffd_cuda.py _BankArgs (8-byte fields throughout). Outside
-// the unnamed namespace: the exported entry points take it, and a type of
-// that namespace would give them internal linkage.
-struct BankArgs {
-    unsigned char* carry[8];   // the working carry, field by field
-    unsigned char* bank[8];    // row 0 of each bank field
-    i64 row_bytes[8];          // bytes of one carry field
-};
 
 namespace {
 

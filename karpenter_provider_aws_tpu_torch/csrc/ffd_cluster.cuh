@@ -248,7 +248,9 @@ __device__ __forceinline__ int deal_takers(int* tk, int* ntk, int* mine,
 // first w->E existing: the caps, the take by pool and the take total
 // are the window's (reduced over the shards), not the cluster's, so no
 // exchange runs and `capn` and `tbp` are not read; new nodes open at
-// global ids and only those inside the window are written.
+// global ids and only those inside the window are written. With `rec`
+// (the base commit of the topology scan's plain groups, nf == 1) each
+// take written is recorded (TakeRecord, ffd_step.cuh).
 __device__ __forceinline__ void commit_tail(const FfdArgs& a, i64 g0, i64 i0,
                                             i64 nf, i64 Fu, i64 c0, i64 c1,
                                             const i64* capn,
@@ -256,7 +258,8 @@ __device__ __forceinline__ void commit_tail(const FfdArgs& a, i64 g0, i64 i0,
                                             ClusterExchange& xch,
                                             const NewNodeStage& stage,
                                             i64* sc, bool spread = false,
-                                            const SlotWindow* w = nullptr) {
+                                            const SlotWindow* w = nullptr,
+                                            const TakeRecord* rec = nullptr) {
     namespace cg = cooperative_groups;
     const i64 N = a.N, P = a.P, D = a.D, T = a.T, W = Fu * P + Fu;
     const int tid = threadIdx.x, nthr = blockDim.x;
@@ -297,6 +300,7 @@ __device__ __forceinline__ void commit_tail(const FfdArgs& a, i64 g0, i64 i0,
                       spread ? (int)(rank * nthr) + tid : tid,
                       spread ? (int)(cs * nthr) : nthr, slot0);
         for (i64 s = c0 + tid; s < c1; s += nthr)
-            new_node_take(a, a.k + f * N, g0 + f, sf, s, slot0);
+            new_node_take(a, a.k + f * N, g0 + f, sf, s, slot0, rec);
     }
+    record_flush(rec);
 }

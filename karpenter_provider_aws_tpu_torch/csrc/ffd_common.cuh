@@ -370,3 +370,117 @@ __device__ __forceinline__ i64 block_excl_scan(i64 local, i64* tmp,
     __syncthreads();
     return before;
 }
+
+// ---------------------------------------------------------------------------
+// The checkpoint bank (K3): the carry's eight fields and their bank rows
+// ---------------------------------------------------------------------------
+
+// Mirror of ops/ffd_cuda.py _BankArgs (8-byte fields throughout). Outside
+// any unnamed namespace: exported entry points take it (ckpt.cu,
+// ffd_scan.cu), and a type of such a namespace would give them internal
+// linkage.
+struct BankArgs {
+    unsigned char* carry[8];   // the working carry, field by field
+    unsigned char* bank[8];    // row 0 of each bank field
+    i64 row_bytes[8];          // bytes of one carry field
+};
+
+// The working carry copied into one bank row by every thread of a launch
+// that reads the carry and writes none of it (ffd_slot_headroom at a
+// chunk entry, ffd_scan.cu). Each field is cut into units: where its
+// carry and its bank row share their address mod 16, the bytes before
+// the row's first 16-byte boundary (head), the row's 16-byte words (nv)
+// and the bytes after them; any other field (a bool plane of odd width
+// in a row j > 0) byte by byte (head = its bytes, nv = 0). end[f] counts
+// the units of fields 0 .. f; thread i of S takes units i, i + S, ...
+struct BankCopy {
+    const unsigned char* src[8];
+    unsigned char* dst[8];
+    i64 head[8];
+    i64 nv[8];
+    i64 end[8];
+};
+
+// The copy of the carry of `a` into bank row j; returns its units.
+inline i64 bank_copy_plan(const BankArgs& a, i64 j, BankCopy* c) {
+    i64 acc = 0;
+    for (int f = 0; f < 8; ++f) {
+        const i64 n = a.row_bytes[f];
+        unsigned char* d = a.bank[f] + j * n;
+        i64 h = n, nv = 0;
+        if ((((uintptr_t)d - (uintptr_t)a.carry[f]) & 15) == 0) {
+            h = (i64)((16 - ((uintptr_t)d & 15)) & 15);
+            h = h < n ? h : n;
+            nv = (n - h) / 16;
+        }
+        c->src[f] = a.carry[f];
+        c->dst[f] = d;
+        c->head[f] = h;
+        c->nv[f] = nv;
+        acc += n - 15 * nv;      // head + nv + the bytes after
+        c->end[f] = acc;
+    }
+    return acc;
+}
+
+// One unit of a BankCopy, loaded: its destination, its width (16, 1, or 0
+// past the copy's end) and its bytes.
+struct CopyUnit {
+    unsigned char* d;
+    uint4 v;
+    int w;
+};
+
+__device__ __forceinline__ CopyUnit bank_copy_load(const BankCopy& c, i64 u) {
+    CopyUnit x;
+    x.d = nullptr;
+    x.w = 0;
+    if (u >= c.end[7]) return x;
+    int f = 0;
+    while (c.end[f] <= u) ++f;
+    const i64 r = u - (f ? c.end[f - 1] : 0);
+    const i64 h = c.head[f], nv = c.nv[f];
+    if (r >= h && r < h + nv) {
+        const i64 off = h + 16 * (r - h);
+        x.v = *reinterpret_cast<const uint4*>(c.src[f] + off);
+        x.d = c.dst[f] + off;
+        x.w = 16;
+    } else {
+        const i64 off = r < h ? r : r + 15 * nv;   // head, or the bytes after
+        x.v.x = c.src[f][off];
+        x.d = c.dst[f] + off;
+        x.w = 1;
+    }
+    return x;
+}
+
+__device__ __forceinline__ void bank_copy_store(const CopyUnit& x) {
+    if (x.w == 16)
+        *reinterpret_cast<uint4*>(x.d) = x.v;
+    else if (x.w == 1)
+        *x.d = (unsigned char)x.v.x;
+}
+
+// The thread's units after its first, u0: u0 + S, u0 + 2S, ...
+__device__ __forceinline__ void bank_copy_rest(const BankCopy& c, i64 u0,
+                                               i64 S) {
+    for (i64 u = u0 + S; u < c.end[7]; u += S)
+        bank_copy_store(bank_copy_load(c, u));
+}
+
+// ---------------------------------------------------------------------------
+// The membership record of a group without topology (K9's plain groups)
+// ---------------------------------------------------------------------------
+
+// Mirror of ops/ffd_cuda.py _RecordArgs (8-byte fields): the topology
+// scan's counters and the groups' membership rows, which
+// ffd_group_commit updates with the takes it writes (topo_jax.py:685-702).
+// zfix == nullptr: no record (cz or ch may be null where no group names
+// one of their rows).
+struct RecordArgs {
+    i64* cz;                // [GZ, Z] zone counters
+    i64* ch;                // [GH, N] hostname counters
+    const int* zfix;        // [N] each slot's zone, -1 undecided
+    const int* member_z;    // [G] the group's zone counter row, -1 none
+    const int* member_h;    // [G] its hostname counter row, -1 none
+};

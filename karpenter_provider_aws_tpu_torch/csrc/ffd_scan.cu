@@ -65,6 +65,23 @@
 //   new-node phase pool by pool with its T-pass (commit_new_nodes, on
 //   row 0 of the table's buffers).
 //
+// Both kernels also do the work of a step that would otherwise take a
+// launch of its own beside them on the same stream (one lane only; the
+// entries refuse more):
+// - K3's bank store at a chunk entry (ffd_jax.py:795, the carry entering
+//   every CK-th group): ffd_slot_headroom given a bank row j copies the
+//   carry into it with all its CTAs (BankCopy, ffd_common.cuh: 16-byte
+//   words where the carry and the row share their address mod 16, bytes
+//   elsewhere), each thread's first unit loaded before its CTA's work. It
+//   reads the carry and writes none of it, so the copy is commit g - 1's
+//   carry: the chunk entry's.
+// - K9's membership record of a plain group (topo_jax.py:685-702):
+//   ffd_group_commit given a RecordArgs adds each slot's take, as the
+//   int32 it writes to `takes`, into the hostname counter row where it
+//   writes it (new_node_take at K == 0, commit_outputs at K > 0), and the
+//   zone sums by shared then global 64-bit atomics (TakeRecord,
+//   ffd_step.cuh).
+//
 // The commit's shape follows a fixed rule on the lane count
 // (karp_ffd_k2_cluster): the first of (CS, NT) = (8, 512), (4, 512),
 // (2, 512), (1, 512) whose L clusters the card holds at once and whose
@@ -109,17 +126,17 @@ namespace cg = cooperative_groups;
 // The headroom's row layout (RowLayout, block_rows, k2_layout) is
 // ffd_step.cuh's: mesh.cu's headroom takes it too.
 
-__global__ void __launch_bounds__(kRowThreads)
-ffd_slot_headroom_kernel(const __grid_constant__ ScanArgs args, i64 g,
-                         RowLayout lay) {
-    extern __shared__ i64 dyn[];   // h1 [K*V], sel [K]
-    __shared__ i64 red[33];
-    __shared__ FfdArgs sa;         // the lane's view, one copy a CTA
+// The headroom's work on one CTA: a slot row (K > 0), a chunk of a pool's
+// new-node table, or a CTA of slot rows.
+__device__ __forceinline__ void slot_headroom_cta(const ScanArgs& args,
+                                                  i64 g, RowLayout lay,
+                                                  i64* dyn, i64* red,
+                                                  FfdArgs* sa) {
     const unsigned lane = grid_lane();
     if (lane >= args.f.L) return;  // the (y, z) grid's spare lanes
-    lane_view_block(args.f, lane, &sa);
+    lane_view_block(args.f, lane, sa);
     __syncthreads();
-    const FfdArgs& a = sa;
+    const FfdArgs& a = *sa;
     if (a.K > 0) {
         slot_headroom_block(a, g, blockIdx.x, red, dyn);
         return;
@@ -139,17 +156,64 @@ ffd_slot_headroom_kernel(const __grid_constant__ ScanArgs args, i64 g,
     slot_headroom_warps(a, g, a.cand, a.k, lo, hi, (int)lay.warps);
 }
 
-// Dynamic shared bytes of the commit on CTAs of `chunk` slots: the
-// cluster commit's layout at K == 0; take_by_pool [P], h1 [K*V] and sel
-// [K] at K > 0.
-size_t commit_smem(const FfdArgs& f, i64 cs) {
-    if (f.K > 0) return (size_t)(f.P + f.K * f.V + f.K) * sizeof(i64);
-    return cluster_commit_smem(1, f.P, f.D, (f.N + cs - 1) / cs);
+__global__ void __launch_bounds__(kRowThreads)
+ffd_slot_headroom_kernel(const __grid_constant__ ScanArgs args, i64 g,
+                         RowLayout lay) {
+    extern __shared__ i64 dyn[];   // h1 [K*V], sel [K]
+    __shared__ i64 red[33];
+    __shared__ FfdArgs sa;         // the lane's view, one copy a CTA
+    slot_headroom_cta(args, g, lay, dyn, red, &sa);
 }
 
-template <int NT>
+// The same launch at a chunk entry of the checkpointed or suffix scan
+// (one lane): every thread also copies its units of the carry into the
+// bank row, the first loaded before the CTA's work and stored after it.
+// The launch writes no carry field, so the copy reads the carry that
+// commit g - 1 left. (A kernel of its own: the other launches keep no
+// copy registers live across their work, nor its parameters.)
+__global__ void __launch_bounds__(kRowThreads)
+ffd_slot_headroom_bank_kernel(const __grid_constant__ ScanArgs args, i64 g,
+                              RowLayout lay,
+                              const __grid_constant__ BankCopy bc) {
+    extern __shared__ i64 dyn[];
+    __shared__ i64 red[33];
+    __shared__ FfdArgs sa;
+    const i64 u0 = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+    const CopyUnit first = bank_copy_load(bc, u0);
+    slot_headroom_cta(args, g, lay, dyn, red, &sa);
+    bank_copy_store(first);
+    bank_copy_rest(bc, u0, (i64)gridDim.x * blockDim.x);
+}
+
+// Dynamic shared bytes of the commit on clusters of cs CTAs: the cluster
+// commit's layout at K == 0; take_by_pool [P], h1 [K*V] and sel [K] at K
+// > 0.
+__host__ __device__ __forceinline__ size_t commit_smem_base(const FfdArgs& f,
+                                                            i64 cs) {
+    return f.K > 0 ? (size_t)(f.P + f.K * f.V + f.K) * sizeof(i64)
+                   : cluster_commit_smem(1, f.P, f.D, (f.N + cs - 1) / cs);
+}
+
+// Where the membership record's zone sums dz [Z] start: after that layout,
+// on an 8-byte boundary.
+__host__ __device__ __forceinline__ size_t record_dz_at(const FfdArgs& f,
+                                                        i64 cs) {
+    return (commit_smem_base(f, cs) + 7) & ~(size_t)7;
+}
+
+size_t commit_smem(const FfdArgs& f, i64 cs, bool rec) {
+    return rec ? record_dz_at(f, cs) + (size_t)f.Z * sizeof(u64)
+               : commit_smem_base(f, cs);
+}
+
+// With a membership record (kRec: a plain group of the topology scan, one
+// lane) the thread that writes a slot's take records it (TakeRecord,
+// ffd_step.cuh); without one (every other launch) the record's code is
+// compiled out.
+template <int NT, bool kRec>
 __global__ void __launch_bounds__(NT)
-ffd_group_commit_kernel(const __grid_constant__ ScanArgs args, i64 g) {
+ffd_group_commit_kernel(const __grid_constant__ ScanArgs args, i64 g,
+                        const __grid_constant__ RecordArgs rec) {
     extern __shared__ i64 dyn[];
     __shared__ u64 scan[33 * kScanW];
     __shared__ i64 bud[kScanW];
@@ -159,11 +223,22 @@ ffd_group_commit_kernel(const __grid_constant__ ScanArgs args, i64 g) {
     // its CTAs share one lane and leave together: no cluster.sync() below
     // is reached by part of a cluster.
     if (lane >= args.f.L) return;
+    const int tid = threadIdx.x;
+    TakeRecord tr;
+    const TakeRecord* rp = nullptr;
+    if constexpr (kRec) {
+        tr = TakeRecord{rec.cz, rec.ch, rec.zfix, (i64)rec.member_z[g],
+                        (i64)rec.member_h[g], args.f.Z, args.f.N,
+                        reinterpret_cast<u64*>(
+                            reinterpret_cast<unsigned char*>(dyn)
+                            + record_dz_at(args.f, gridDim.x))};
+        for (i64 z = tid; z < args.f.Z; z += NT) tr.dz[z] = 0;
+        rp = &tr;
+    }
     lane_view_block(args.f, lane, &sa);
     __syncthreads();
     const FfdArgs& a = sa;
     const i64 N = a.N, P = a.P;
-    const int tid = threadIdx.x;
     if (a.K > 0) {                 // one CTA a lane (karp_ffd_group_commit)
         const i64 chunk = (N + NT - 1) / NT;
         const i64 lo = tid * chunk < N ? tid * chunk : N;
@@ -175,7 +250,7 @@ ffd_group_commit_kernel(const __grid_constant__ ScanArgs args, i64 g) {
         i64 n_rem = commit_fill(a, g, lo, hi, tmp);                // 4-5
         commit_narrow(a, g, 1, tbp);                               // 6
         n_rem = commit_new_nodes(a, g, n_rem, tmp, bud, h1, sel);  // 7
-        commit_outputs(a, g, n_rem);
+        commit_outputs(a, g, n_rem, rp);
         return;
     }
     cg::cluster_group cl = cg::this_cluster();
@@ -208,7 +283,7 @@ ffd_group_commit_kernel(const __grid_constant__ ScanArgs args, i64 g) {
                      return __ldg(&a.cand[s * T + t]) != 0;
                  }, m.tu);
     commit_tail(a, g, 0, 1, 1, c0, c1, capn, m.tbp, m.xch, m.stage, m.sc,
-                true);
+                true, nullptr, rp);
     cl.sync();   // no CTA leaves while another may read its shared memory
 }
 
@@ -218,21 +293,25 @@ int set_smem(const void* fn, size_t smem) {
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-const void* commit_fn(i64 threads) {
-    return threads == 512 ? (const void*)ffd_group_commit_kernel<512>
-                          : (const void*)ffd_group_commit_kernel<256>;
+const void* commit_fn(i64 threads, bool rec = false) {
+    if (rec)
+        return threads == 512
+            ? (const void*)ffd_group_commit_kernel<512, true>
+            : (const void*)ffd_group_commit_kernel<256, true>;
+    return threads == 512 ? (const void*)ffd_group_commit_kernel<512, false>
+                          : (const void*)ffd_group_commit_kernel<256, false>;
 }
 
 // The commit's launch on clusters of cs CTAs of `threads`; `attr` holds
 // the cluster dimension the configuration points at.
 cudaLaunchConfig_t commit_config(const ScanArgs* a, i64 cs, i64 threads,
-                                 cudaLaunchAttribute* attr,
+                                 bool rec, cudaLaunchAttribute* attr,
                                  cudaStream_t stream) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((unsigned)cs);   // the lane on y and z
     lane_grid(a->f.L, &cfg.gridDim);
     cfg.blockDim = dim3((unsigned)threads, 1, 1);
-    cfg.dynamicSmemBytes = commit_smem(a->f, cs);
+    cfg.dynamicSmemBytes = commit_smem(a->f, cs, rec);
     cfg.stream = stream;
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = (unsigned)cs;
@@ -247,11 +326,22 @@ cudaLaunchConfig_t commit_config(const ScanArgs* a, i64 cs, i64 threads,
 
 extern "C" {
 
-int karp_ffd_slot_headroom(const ScanArgs* a, long long g, void* stream) {
+// With `bank` non-null and j >= 0 (one lane only) the launch also copies
+// the carry into bank row j of `bank` (BankCopy, ffd_common.cuh).
+int karp_ffd_slot_headroom(const ScanArgs* a, long long g,
+                           const BankArgs* bank, long long j, void* stream) {
     const FfdArgs& f = a->f;
+    BankCopy bc = {};
+    if (bank && j >= 0) {
+        if (f.L != 1) return (int)cudaErrorInvalidValue;
+        bank_copy_plan(*bank, j, &bc);
+    }
     const size_t smem = f.K > 0 ? (size_t)(f.K * f.V + f.K) * sizeof(i64)
                                 : 0;
-    int err = set_smem((const void*)ffd_slot_headroom_kernel, smem);
+    const bool copy = bc.end[7] > 0;
+    const void* fn = copy ? (const void*)ffd_slot_headroom_bank_kernel
+                          : (const void*)ffd_slot_headroom_kernel;
+    int err = set_smem(fn, smem);
     if (err) return err;
     RowLayout lay = k2_layout(f.L, f.N);
     if (a->rows > 0 || a->warps > 0)
@@ -262,26 +352,34 @@ int karp_ffd_slot_headroom(const ScanArgs* a, long long g, void* stream) {
     dim3 grid((unsigned)(f.K > 0 ? f.N
                          : (f.N + rb - 1) / rb + f.P * table_blocks(f.T)));
     lane_grid(f.L, &grid);
-    ffd_slot_headroom_kernel<<<grid, kRowThreads, smem,
-                               (cudaStream_t)stream>>>(*a, (i64)g, lay);
+    if (copy)
+        ffd_slot_headroom_bank_kernel<<<grid, kRowThreads, smem,
+                                        (cudaStream_t)stream>>>(*a, (i64)g,
+                                                                lay, bc);
+    else
+        ffd_slot_headroom_kernel<<<grid, kRowThreads, smem,
+                                   (cudaStream_t)stream>>>(*a, (i64)g, lay);
     return (int)cudaGetLastError();
 }
 
-int karp_ffd_group_commit(const ScanArgs* a, long long g, void* stream) {
+// With `rec` non-null (one lane only) the commit also records the group's
+// membership (RecordArgs, ffd_common.cuh).
+int karp_ffd_group_commit(const ScanArgs* a, long long g,
+                          const RecordArgs* rec, void* stream) {
     const i64 cs = a->cluster, nt = a->threads;
     if ((cs != 1 && cs != 2 && cs != 4 && cs != 8) || (nt != 256 && nt != 512)
-        || (a->f.K > 0 && cs != 1))
+        || (a->f.K > 0 && cs != 1) || (rec && a->f.L != 1))
         return (int)cudaErrorInvalidValue;
+    RecordArgs r = rec ? *rec : RecordArgs{};
     cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = commit_config(a, cs, nt, attr,
-                                                 (cudaStream_t)stream);
-    int err = set_smem(commit_fn(nt), cfg.dynamicSmemBytes);
+    const cudaLaunchConfig_t cfg = commit_config(a, cs, nt, rec != nullptr,
+                                                 attr, (cudaStream_t)stream);
+    const void* fn = commit_fn(nt, rec != nullptr);
+    int err = set_smem(fn, cfg.dynamicSmemBytes);
     if (err) return err;
-    err = nt == 512
-        ? (int)cudaLaunchKernelEx(&cfg, ffd_group_commit_kernel<512>, *a,
-                                  (i64)g)
-        : (int)cudaLaunchKernelEx(&cfg, ffd_group_commit_kernel<256>, *a,
-                                  (i64)g);
+    i64 gg = (i64)g;
+    void* params[] = {const_cast<ScanArgs*>(a), &gg, &r};
+    err = (int)cudaLaunchKernelExC(&cfg, fn, params);
     if (err) return err;
     return (int)cudaGetLastError();
 }
@@ -305,8 +403,8 @@ int karp_ffd_k2_cluster(const ScanArgs* a) {
     for (const auto& sh : shapes) {
         if (a->f.K > 0 && sh[0] != 1) continue;
         cudaLaunchAttribute attr[1];
-        const cudaLaunchConfig_t cfg = commit_config(a, sh[0], sh[1], attr,
-                                                     0);
+        const cudaLaunchConfig_t cfg = commit_config(a, sh[0], sh[1], false,
+                                                     attr, 0);
         if (cfg.dynamicSmemBytes > (size_t)optin) continue;
         err = set_smem(commit_fn(sh[1]), cfg.dynamicSmemBytes);
         if (err) return -err;

@@ -469,12 +469,57 @@ __device__ __forceinline__ i64 commit_new_nodes(const FfdArgs& a, i64 g,
     return n_rem;
 }
 
-// The outputs of group g: takes[g - G0, :] = k as int32, leftover.
+// The membership record of group g, a group without topology in the
+// topology scan (topo_jax.py:685-702), kept by the commit that writes the
+// group's takes (RecordArgs, ffd_common.cuh): the thread that writes slot
+// s's take adds it into ch[mh, s] (one writer a slot: no atomics) and,
+// where zfix[s] >= 0 and the take is positive, into the CTA's shared zone
+// sums dz [Z]; after a barrier the CTA adds dz into cz[mz, :] by 64-bit
+// atomics, wrapping sums that commute, so the bytes do not depend on the
+// CTAs' order. The take is the int32 written to `takes`, sign-extended.
+struct TakeRecord {
+    i64* cz;
+    i64* ch;
+    const int* zfix;
+    i64 mz, mh, Z, N;
+    u64* dz;                // [Z] shared, zeroed before the CTA's first take
+};
+
+__device__ __forceinline__ void record_take(const TakeRecord* r, i64 s,
+                                            int take32) {
+    if (!r) return;
+    const i64 take = (i64)take32;
+    if (r->mh >= 0)
+        r->ch[r->mh * r->N + s] = wadd(r->ch[r->mh * r->N + s], take);
+    const int zf = r->zfix[s];
+    if (zf >= 0 && take > 0)
+        atomicAdd((unsigned long long*)&r->dz[zf], (unsigned long long)take);
+}
+
+// The CTA's zone sums into cz[mz, :], after a barrier over its takes.
+__device__ __forceinline__ void record_flush(const TakeRecord* r) {
+    if (!r) return;
+    __syncthreads();
+    if (r->mz < 0) return;
+    for (i64 z = threadIdx.x; z < r->Z; z += blockDim.x)
+        if (r->dz[z])
+            atomicAdd((unsigned long long*)&r->cz[r->mz * r->Z + z],
+                      (unsigned long long)r->dz[z]);
+}
+
+// The outputs of group g: takes[g - G0, :] = k as int32, leftover (and
+// the membership record `rec`, when given).
 __device__ __forceinline__ void commit_outputs(const FfdArgs& a, i64 g,
-                                               i64 n_rem) {
-    for (i64 s = threadIdx.x; s < a.N; s += blockDim.x)
-        a.takes[(g - a.G0) * a.N + s] = (int)a.k[s];
+                                               i64 n_rem,
+                                               const TakeRecord* rec =
+                                                   nullptr) {
+    for (i64 s = threadIdx.x; s < a.N; s += blockDim.x) {
+        const int t = (int)a.k[s];
+        a.takes[(g - a.G0) * a.N + s] = t;
+        record_take(rec, s, t);
+    }
     if (threadIdx.x == 0) a.leftover[g - a.G0] = n_rem;
+    record_flush(rec);
 }
 
 // ---------------------------------------------------------------------------
@@ -781,14 +826,18 @@ __device__ __forceinline__ void new_node_rows(const FfdArgs& a, i64 g,
 }
 
 // Row s's final take of group g: k[s] (the group's k row) plus what
-// step 7 opened at slot slot0 + s, written back to k and to the takes row.
+// step 7 opened at slot slot0 + s, written back to k and to the takes row
+// (and recorded by `rec`, when given).
 __device__ __forceinline__ void new_node_take(const FfdArgs& a, i64* k,
                                               i64 g, const i64* sc, i64 s,
-                                              i64 slot0 = 0) {
+                                              i64 slot0 = 0,
+                                              const TakeRecord* rec =
+                                                  nullptr) {
     i64 pi = 0;
     const i64 v = wadd(k[s], opened_pods(sc, a.P, slot0 + s, &pi));
     k[s] = v;
     a.takes[(g - a.G0) * a.N + s] = (int)v;
+    record_take(rec, s, (int)v);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
-// K9, the topology group scan: the four kernels of a topology scan.
+// K9, the topology group scan: the three kernels of a topology scan.
 //
 // Replaces karpenter_provider_aws_tpu/ops/topo_jax.py:solve_scan_topo
 // (dispatched by :730 dispatch_topo): a lax.scan over pod groups whose
 // topology groups run the pour's event loop in a lax.while_loop. Groups
-// without topology run the K2 kernels (ffd_scan.cu) and then
-// topo_record_plain; a topology group runs topo_group_start and then
+// without topology run the K2 kernels (ffd_scan.cu), whose commit also
+// records their membership (topo_jax.py:685-702: ch[member_h, :] +=
+// take, cz[member_z, zfix[s]] += take[s] where zfix[s] >= 0 and take[s]
+// > 0; RecordArgs, ffd_common.cuh, which points at this scan's counters);
+// a topology group runs topo_group_start and then
 // topo_pour, after the launch of topo_pool_statics for its chunk of
 // topology groups (one a chunk, before the chunk's first group). The
 // group kernels read and update one carry in device memory
@@ -109,10 +112,6 @@
 //   the entry then returns kLayoutTooLarge, as it does for Z > 64 (zone
 //   bit masks), and the wrapper raises TopoLayoutError.
 //
-// topo_record_plain (topo_jax.py:685-702): one block after a group
-//   without topology: ch[member_h, :] += take and cz[member_z, zfix[s]]
-//   += take[s] where zfix[s] >= 0 and take[s] > 0.
-//
 // Integers are int64 with the reference's floor division (floordiv,
 // ffd_common.cuh); a negative numerator (a hostname counter above this
 // group's skew, a slot past its room) floors toward -inf and makes the
@@ -187,7 +186,6 @@ constexpr int kPourThreads = 512;
 // the touched slots its narrowing stages at a time
 constexpr int kRegD = 8;
 constexpr int kNarrowRows = 16;
-constexpr int kRecordThreads = 256;
 // the pour's static shared memory (its search words and counters) and the
 // code its entry returns when its layout exceeds the card's shared memory
 constexpr int kPourStaticSmem = 64;
@@ -1574,32 +1572,6 @@ topo_pour_kernel(const __grid_constant__ FfdArgs a,
     }
 }
 
-// ---------------------------------------------------------------------------
-// topo_record_plain
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kRecordThreads)
-topo_record_plain_kernel(FfdArgs a, TopoArgs t, i64 g) {
-    extern __shared__ i64 dyn[];     // dz [Z]
-    i64* dz = dyn;
-    const i64 N = a.N, Z = a.Z;
-    const int tid = threadIdx.x;
-    const i64 mz = t.member_z[g], mh = t.member_h[g];
-    for (i64 z = tid; z < Z; z += blockDim.x) dz[z] = 0;
-    __syncthreads();
-    for (i64 s = tid; s < N; s += blockDim.x) {
-        const i64 take = a.takes[(g - a.G0) * N + s];
-        if (mh >= 0) t.ch[mh * N + s] = wadd(t.ch[mh * N + s], take);
-        const int zf = t.zfix[s];
-        if (zf >= 0 && take > 0)
-            atomicAdd((unsigned long long*)&dz[zf], (unsigned long long)take);
-    }
-    __syncthreads();
-    if (mz >= 0)
-        for (i64 z = tid; z < Z; z += blockDim.x)
-            t.cz[mz * Z + z] = wadd(t.cz[mz * Z + z], dz[z]);
-}
-
 int set_smem(const void* fn, size_t smem) {
     if (smem <= 48 * 1024) return 0;
     return (int)cudaFuncSetAttribute(
@@ -1661,13 +1633,6 @@ int karp_topo_pour(const FfdArgs* a, const TopoArgs* t, long long g,
     if (err) return err;
     topo_pour_kernel<<<1, kPourThreads, (size_t)smem,
                        (cudaStream_t)stream>>>(*a, *t, g);
-    return (int)cudaGetLastError();
-}
-
-int karp_topo_record_plain(const FfdArgs* a, const TopoArgs* t, long long g,
-                           void* stream) {
-    topo_record_plain_kernel<<<1, kRecordThreads, a->Z * sizeof(i64),
-                               (cudaStream_t)stream>>>(*a, *t, g);
     return (int)cudaGetLastError();
 }
 

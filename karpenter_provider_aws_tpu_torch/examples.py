@@ -1336,13 +1336,17 @@ def topo_kernel_steps(inp, rows, *, n_max: int, P: int, EVCAP: int = 128,
     for each output of ``topo_pool_statics`` (at a chunk's first group:
     every row of the chunk, and at chunk 0 the offering words),
     ``topo_group_start`` (candidates, room), ``topo_pour`` (carry,
-    counters, take, leftover, event-log row, ev_n, bail) and
-    ``topo_record_plain`` (counters). The plain parts carry the state.
+    counters, take, leftover, event-log row, ev_n, bail) and, for a group
+    without topology, ``ffd_group_commit`` with its membership record
+    (``topo_cuda.plain_commit`` after ``ffd_slot_headroom``: carry, take,
+    leftover, counters; the record against ``_topo_record_plain_ref`` of
+    the int32 takes the commit writes). The plain parts carry the state.
     ``states`` collects each group's entry state (g, carry, cz,
     ch, zfix, the plain group start or the plain take, the plain pour or
     None)."""
     import torch
 
+    from .ops import ffd_cuda as fc
     from .ops import ffd_torch as ft
     from .ops import topo_cuda as tc
     from .ops import topo_torch as tt
@@ -1410,17 +1414,23 @@ def topo_kernel_steps(inp, rows, *, n_max: int, P: int, EVCAP: int = 128,
                 states.append((g, carry, cz, ch, zfix, gs, r))
             carry, cz, ch, zfix = r.carry, r.cz, r.ch, r.zfix
         else:
-            carry, take, _ = ft._group_step_ref(inp, carry, g, E=0, P=P,
-                                                V=0)
-            st.takes[g] = take.to(torch.int32)
+            nxt, take, n_rem = ft._group_step_ref(inp, carry, g, E=0, P=P,
+                                                  V=0)
             if states is not None:
                 states.append((g, carry, cz, ch, zfix, take, None))
-            cz, ch = tt._topo_record_plain_ref(cz, ch, zfix, take,
-                                               rows.member_z[g],
-                                               rows.member_h[g])
-            tc.topo_record_plain(ts, g)
-            yield "topo_record_plain", f"g={g} cz", ts.cz, cz
-            yield "topo_record_plain", f"g={g} ch", ts.ch, ch
+            cz, ch = tt._topo_record_plain_ref(
+                cz, ch, zfix, take.to(torch.int32).long(), rows.member_z[g],
+                rows.member_h[g])
+            fc.ffd_slot_headroom(st, g)
+            tc.plain_commit(ts, g)
+            for f, got, want in zip(ft.Carry._fields, st.carry, nxt):
+                yield "ffd_group_commit", f"g={g} {f}", got, want
+            yield "ffd_group_commit", f"g={g} take", st.takes[g].long(), take
+            yield "ffd_group_commit", f"g={g} leftover", st.leftover[g], \
+                n_rem
+            yield "ffd_group_commit", f"g={g} record cz", ts.cz, cz
+            yield "ffd_group_commit", f"g={g} record ch", ts.ch, ch
+            carry = nxt
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,16 @@
 """The CUDA kernels of the packed FFD scan: build, binding and wrappers.
 
 ``csrc/packed_io.cu`` (K1: ``unpack_bits``, ``pack_outputs``),
-``csrc/ffd_scan.cu`` (K2: ``ffd_slot_headroom``, ``ffd_group_commit``),
+``csrc/ffd_scan.cu`` (K2: ``ffd_slot_headroom``, ``ffd_group_commit``;
+the headroom also stores K3's chunk-entry bank rows, the commit also
+records K9's plain groups),
 ``csrc/fused.cu`` (K5: ``ffd_fused_headroom``, ``ffd_fused_commit``),
 ``csrc/ckpt.cu`` (K3: ``ffd_bank_store``, ``ffd_bank_load``),
 ``csrc/consolidation.cu`` (K7: ``consol_absorb``, ``subset_gather``,
 ``subset_summary``; wrappers in ``ops/consolidation_cuda.py``) and
 ``csrc/pruned.cu`` (K6: ``ffd_pruned_probe``, ``ffd_pruned_commit``) and
 ``csrc/topo.cu`` (K9: ``topo_pool_statics``, ``topo_group_start``,
-``topo_pour``, ``topo_record_plain``; wrappers in ``ops/topo_cuda.py``) and
+``topo_pour``; wrappers in ``ops/topo_cuda.py``) and
 ``csrc/mesh.cu`` (K10: ``mesh_new_caps``, ``mesh_slot_headroom``,
 ``mesh_fill``, ``mesh_commit``; wrappers in ``ops/mesh_cuda.py``) are
 compiled with ``nvcc`` for ``sm_90a`` into one shared library with a
@@ -70,7 +72,7 @@ LAUNCHES: Dict[str, int] = {"unpack_bits": 0, "ffd_slot_headroom": 0,
                             "subset_summary": 0, "ffd_pruned_probe": 0,
                             "ffd_pruned_commit": 0, "topo_pool_statics": 0,
                             "topo_group_start": 0,
-                            "topo_pour": 0, "topo_record_plain": 0,
+                            "topo_pour": 0,
                             "ffd_fused_headroom": 0, "ffd_fused_commit": 0,
                             "mesh_new_caps": 0, "mesh_slot_headroom": 0,
                             "mesh_fill": 0, "mesh_commit": 0}
@@ -144,8 +146,8 @@ def _lib():
             vp, ll = ctypes.c_void_p, ctypes.c_longlong
             lib.karp_unpack_bits.argtypes = [vp, ll, vp, ll, ll, vp]
             lib.karp_pack_outputs.argtypes = [vp, vp]
-            lib.karp_ffd_slot_headroom.argtypes = [vp, ll, vp]
-            lib.karp_ffd_group_commit.argtypes = [vp, ll, vp]
+            lib.karp_ffd_slot_headroom.argtypes = [vp, ll, vp, ll, vp]
+            lib.karp_ffd_group_commit.argtypes = [vp, ll, vp, vp]
             lib.karp_ffd_k2_cluster.argtypes = [vp]
             lib.karp_ffd_bank_store.argtypes = [vp, ll, ll, vp]
             lib.karp_ffd_bank_load.argtypes = [vp, ll, vp]
@@ -157,8 +159,7 @@ def _lib():
                        lib.karp_ffd_pruned_commit):
                 fn.argtypes = [vp, ll, vp]
             lib.karp_ffd_pruned_cluster.argtypes = [vp]
-            for fn in (lib.karp_topo_group_start, lib.karp_topo_pour,
-                       lib.karp_topo_record_plain):
+            for fn in (lib.karp_topo_group_start, lib.karp_topo_pour):
                 fn.argtypes = [vp, vp, ll, vp]
             lib.karp_topo_pour_smem.argtypes = [vp, vp, vp, vp]
             lib.karp_topo_pool_statics.argtypes = [vp, vp, ll, ll, vp]
@@ -186,7 +187,7 @@ def _lib():
                        lib.karp_subset_summary, lib.karp_ffd_pruned_probe,
                        lib.karp_ffd_pruned_commit,
                        lib.karp_ffd_pruned_cluster, lib.karp_topo_group_start,
-                       lib.karp_topo_pour, lib.karp_topo_record_plain,
+                       lib.karp_topo_pour,
                        lib.karp_topo_pour_smem, lib.karp_topo_pool_statics,
                        lib.karp_ffd_fused_headroom,
                        lib.karp_ffd_fused_commit, lib.karp_ffd_fused_cluster,
@@ -651,26 +652,55 @@ def _in_window(st: ScanState, g: int) -> None:
                          f"[{st.s0}, {st.s1})")
 
 
-def ffd_slot_headroom(st: ScanState, g: int, stream: int = None) -> None:
+def ffd_slot_headroom(st: ScanState, g: int, stream: int = None,
+                      bank: "BankState" = None, j: int = -1) -> None:
     """Steps 1-3 for group g: fills ``st.cand`` [N, T] and ``st.k`` [N]
     and, without minValues floors, the group's new-node table
-    (``st.table()``). ``stream``: the stream of the caller's
-    ``launching`` guard."""
+    (``st.table()``). With ``bank`` (a ``BankState`` over ``st.carry``)
+    and ``j >= 0`` the same launch copies the carry, which it reads and
+    does not write, into bank row j: the store of a chunk entry (one
+    lane only). ``stream``: the stream of the caller's ``launching``
+    guard."""
     _in_window(st, g)
+    ba = None
+    if bank is not None and j >= 0:
+        if st.lanes is not None:
+            raise ValueError("a bank row takes a scan of one lane")
+        if not 0 <= j < bank.rows:
+            raise ValueError(f"bank row {j} outside [0, {bank.rows})")
+        if bank.carry is not st.carry:
+            raise ValueError("the bank's working carry is not the scan's")
+        ba = ctypes.byref(bank.args)
     _launch("ffd_slot_headroom", _lib().karp_ffd_slot_headroom,
-            (ctypes.byref(st.kargs), g), st.k, stream)
+            (ctypes.byref(st.kargs), g, ba, j if ba else -1), st.k, stream)
 
 
-def ffd_group_commit(st: ScanState, g: int, stream: int = None) -> None:
+class _RecordArgs(ctypes.Structure):
+    """Mirror of ``struct RecordArgs`` in csrc/ffd_common.cuh: the
+    topology scan's counters and membership rows, which
+    ``ffd_group_commit`` updates with a plain group's takes."""
+    _fields_ = [("cz", ctypes.c_void_p), ("ch", ctypes.c_void_p),
+                ("zfix", ctypes.c_void_p), ("member_z", ctypes.c_void_p),
+                ("member_h", ctypes.c_void_p)]
+
+
+def ffd_group_commit(st: ScanState, g: int, stream: int = None,
+                     record: _RecordArgs = None) -> None:
     """Steps 4-7 for group g, its new nodes read from the table the
     headroom launch wrote (K == 0; with minValues floors the commit
     computes each pool's table and caps itself): updates the carry in
     place and writes ``st.takes[g - s0]`` and ``st.leftover[g - s0]``
     (``st.k`` becomes take), on ``st.cluster`` CTAs of ``st.threads`` a
-    lane."""
+    lane. With ``record`` (a topology scan's plain group, one lane) the
+    same launch records the group's membership in the scan's counters
+    (``topo_torch._topo_record_plain_ref`` of the int32 takes)."""
     _in_window(st, g)
+    if record is not None and st.lanes is not None:
+        raise ValueError("a membership record takes a scan of one lane")
     _launch("ffd_group_commit", _lib().karp_ffd_group_commit,
-            (ctypes.byref(st.kargs), g), st.k, stream)
+            (ctypes.byref(st.kargs), g,
+             None if record is None else ctypes.byref(record)), st.k,
+            stream)
 
 
 def k2_steps(st: ScanState, g0: int, g1: int) -> None:
@@ -719,7 +749,7 @@ def solve_scan_packed1_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E, P,
 # ---------------------------------------------------------------------------
 
 class _BankArgs(ctypes.Structure):
-    """Mirror of ``struct BankArgs`` in csrc/ckpt.cu."""
+    """Mirror of ``struct BankArgs`` in csrc/ffd_common.cuh."""
     _fields_ = [("carry", ctypes.c_void_p * 8),
                 ("bank", ctypes.c_void_p * 8),
                 ("row_bytes", ctypes.c_longlong * 8)]
@@ -773,12 +803,24 @@ def ffd_bank_load(bs: BankState, j: int, stream: int = None) -> None:
             (ctypes.byref(bs.args), j), bs.carry.used, stream)
 
 
+def entry_row(g: int, s0: int, CK: int, j0: int, resumed: bool) -> int:
+    """The bank row that group g's ``ffd_slot_headroom`` stores its entry
+    carry into, in a scan of the window from s0 whose chunk entries s0,
+    s0 + CK, ... take rows j0, j0 + 1, ...; -1 for no store. A resumed
+    window (the suffix re-solve, loaded from row j0) stores nothing at
+    s0: row j0 already holds that carry."""
+    if (g - s0) % CK or (resumed and g == s0):
+        return -1
+    return j0 + (g - s0) // CK
+
+
 def solve_scan_packed1_ckpt_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E,
                                  P, n_max, K=0, V=0, M=0, Q=0, CK=4
                                  ) -> Tuple[torch.Tensor, Carry]:
     """The checkpointed full solve on the card: unpack_bits, then per
-    group ffd_slot_headroom and ffd_group_commit with ffd_bank_store at
-    every chunk entry, then pack_outputs; no synchronisation. Returns
+    group ffd_slot_headroom and ffd_group_commit, the headroom of every
+    chunk entry storing the carry into its bank row (``entry_row``), then
+    pack_outputs; no synchronisation and no ffd_bank_store. Returns
     (output buffer, bank [G/CK, ...])."""
     if G % CK:
         raise ValueError(f"G={G} is not a multiple of CK={CK}")
@@ -787,9 +829,8 @@ def solve_scan_packed1_ckpt_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E,
     bs = BankState(st.carry, empty_bank(st.carry, G // CK))
     with launching(st.k) as stream:
         for g in range(G):
-            if g % CK == 0:
-                ffd_bank_store(bs, g // CK, stream=stream)
-            ffd_slot_headroom(st, g, stream)
+            ffd_slot_headroom(st, g, stream, bs,
+                              entry_row(g, 0, CK, 0, False))
             ffd_group_commit(st, g, stream)
     return pack_outputs(st.takes, st.leftover, st.carry), bs.bank
 
@@ -799,10 +840,12 @@ def solve_scan_suffix_cuda(buf: torch.Tensor, bank: Carry, *, T, D, Z, C,
                            GL=None) -> Tuple[torch.Tensor, Carry]:
     """The suffix re-solve on the card: unpack_bits, ffd_bank_load of row
     jr = GL/CK - SUF, then per group of [GL - SUF*CK, GL) the two K2
-    kernels with ffd_bank_store at every chunk entry, one ffd_bank_store
-    re-stamping the pad chunks [GL/CK, G/CK) with the final carry, and
-    pack_outputs over the SUF*CK window rows; no synchronisation. The
-    bank is spliced in place and returned."""
+    kernels, the headroom of every later chunk entry storing the carry
+    into its bank row (``entry_row``; row jr keeps the carry it holds),
+    one ffd_bank_store re-stamping the pad chunks [GL/CK, G/CK) with the
+    final carry when there are any, and pack_outputs over the SUF*CK
+    window rows; no synchronisation. The bank is spliced in place and
+    returned."""
     GL = G if GL is None else GL
     NC = G // CK
     if G % CK or GL % CK or not 0 < GL <= G or not 1 <= SUF <= GL // CK:
@@ -823,9 +866,8 @@ def solve_scan_suffix_cuda(buf: torch.Tensor, bank: Carry, *, T, D, Z, C,
     with launching(st.k) as stream:
         ffd_bank_load(bs, jr, stream)
         for g in range(s0, GL):
-            if (g - s0) % CK == 0:
-                ffd_bank_store(bs, jr + (g - s0) // CK, stream=stream)
-            ffd_slot_headroom(st, g, stream)
+            ffd_slot_headroom(st, g, stream, bs,
+                              entry_row(g, s0, CK, jr, True))
             ffd_group_commit(st, g, stream)
         if NC > GL // CK:
             ffd_bank_store(bs, GL // CK, NC - GL // CK, stream)

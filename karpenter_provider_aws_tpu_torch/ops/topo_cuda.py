@@ -19,15 +19,17 @@ Nothing here falls back to the plain versions in ``ops/topo_torch.py``.
   group lists (``listed_rows``), sized by the most any topology group
   lists, and a layout past the card's shared memory (or more than 64
   zones) raises ``TopoLayoutError``; ``pour_fits`` answers the same
-  question before a scan, for the solver's routing;
-- ``topo_record_plain``: the membership counters after a group without
-  topology ran the K2 kernels.
+  question before a scan, for the solver's routing.
+
+A group without topology runs the K2 kernels, and its
+``ffd_group_commit`` also records its membership in the counters (the
+state's ``record``, ``ffd_cuda._RecordArgs``): no launch of its own.
 
 ``solve_scan_topo_cuda`` drives one scan (``topo_state``, then the
 launches of ``topo_scan``): the K2 ``ScanState`` and the
 ``TopoScanState`` share one carry on the device, which every kernel updates
-in place; per group two or three launches (and a chunk's statics) under
-one guard of the state's device, no synchronisation after the one read of
+in place; per group two launches (and a chunk's statics) under one guard
+of the state's device, no synchronisation after the one read of
 ``has_topo`` and the listed rows' counts.
 """
 
@@ -38,8 +40,8 @@ import ctypes
 import torch
 
 from .ffd_cuda import (LAUNCHES, ScanState, _FfdArgs, _check, _launch, _lib,
-                       _need, ffd_group_commit, ffd_slot_headroom, launching,
-                       on_device)
+                       _need, _RecordArgs, ffd_group_commit,
+                       ffd_slot_headroom, launching, on_device)
 from .ffd_torch import BIG, KernelInputs, carry0
 from .topo_torch import (GroupStart, PoolStatics, TopoGroupRows,
                          empty_events, statics_chunk)
@@ -131,12 +133,14 @@ class TopoScanState:
     T] ..., ``anti_bulk`` [CH]: row ``rank[g] % chunk`` is group g's), the
     types' offering words ``offw`` [T], the event log ``ev`` (``[G,
     EVCAP]`` rows at their fill values, ``n`` [G]) and ``bail`` [G], plus
-    the ctypes argument block. ``nz`` / ``nh``: the most zone / hostname
-    rows a topology group lists (``listed_rows``), which size the pour's
-    shared memory; ``has_topo``: the rows' flags as a list (one read of
-    the device for both); ``topo_groups``: the topology groups in order,
-    ``rank`` [G] each one's index there (-1 for the others). ``chunk``:
-    ``statics_chunk``'s rule."""
+    the ctypes argument block and ``record``, the block that a plain
+    group's ``ffd_group_commit`` records its membership with (the
+    counters and the membership rows). ``nz`` / ``nh``: the most zone /
+    hostname rows a topology group lists (``listed_rows``), which size
+    the pour's shared memory; ``has_topo``: the rows' flags as a list (one
+    read of the device for both); ``topo_groups``: the topology groups in
+    order, ``rank`` [G] each one's index there (-1 for the others).
+    ``chunk``: ``statics_chunk``'s rule."""
 
     def __init__(self, st: ScanState, rows: TopoGroupRows, cz, ch, zfix, *,
                  EVCAP: int, PMAX: int):
@@ -209,6 +213,8 @@ class TopoScanState:
             ptrs[f] = t.data_ptr() if t.numel() else None
         self.args = _TopoArgs(**ptrs, GZ=GZ, GH=GH, EVCAP=EVCAP, PMAX=PMAX,
                               NZ=self.nz, NH=self.nh, CH=chunk)
+        self.record = _RecordArgs(**{f: ptrs[f] for f in (
+            "cz", "ch", "zfix", "member_z", "member_h")})
 
     def chunks(self) -> int:
         """The scan's chunks of topology groups."""
@@ -291,10 +297,13 @@ def topo_pour(ts: TopoScanState, g: int, stream: int = None) -> None:
     _topo_launch("topo_pour", ts, g, stream, entry)
 
 
-def topo_record_plain(ts: TopoScanState, g: int, stream: int = None) -> None:
-    """The membership counters of group g, a group without topology whose
-    K2 step wrote ``st.takes[g]`` (kernel)."""
-    _topo_launch("topo_record_plain", ts, g, stream)
+def plain_commit(ts: TopoScanState, g: int, stream: int = None) -> None:
+    """``ffd_group_commit`` of group g, a group without topology, with
+    its membership recorded in the scan's counters in the same launch
+    (kernel; after its ``ffd_slot_headroom``)."""
+    if ts.has_topo[g]:
+        raise ValueError(f"group {g} is a topology group")
+    ffd_group_commit(ts.st, g, stream, ts.record)
 
 
 def topo_state(inp: KernelInputs, rows: TopoGroupRows, cz0, ch0, *,
@@ -324,9 +333,9 @@ def topo_scan(ts: TopoScanState):
     device and with no synchronisation: per chunk of topology groups
     ``topo_pool_statics`` (chunk 0 before the scan's first group, each
     later one before its first group), per topology group
-    ``topo_group_start`` and ``topo_pour``, per other group the K2 pair
-    and ``topo_record_plain``. Returns the outputs as
-    ``solve_scan_topo_cuda``."""
+    ``topo_group_start`` and ``topo_pour``, per other group the K2 pair,
+    its commit recording the group's membership (``plain_commit``).
+    Returns the outputs as ``solve_scan_topo_cuda``."""
     st = ts.st
     with launching(ts.take) as stream:
         if ts.topo_groups:
@@ -340,7 +349,6 @@ def topo_scan(ts: TopoScanState):
                 topo_pour(ts, g, stream)
             else:
                 ffd_slot_headroom(st, g, stream)
-                ffd_group_commit(st, g, stream)
-                topo_record_plain(ts, g, stream)
+                plain_commit(ts, g, stream)
     return (st.takes.to(torch.int64), st.leftover, ts.ev, ts.zfix, ts.bail,
             st.carry)

@@ -190,10 +190,55 @@ def test_bank_kernels(cuda_device, case):
 
 
 @pytest.mark.parametrize("case", ["base", "existing", "min_values"])
+@pytest.mark.parametrize("T", [37, 813, 812, 9])
+def test_headroom_stores_bank_rows(cuda_device, case, T):
+    """``ffd_slot_headroom`` given a bank row, at odd widths (T = 813, 37
+    and 9 with Z = 3: bool planes whose rows j > 0 are not 16-byte
+    aligned; D = 7; minValues floors run the one-CTA-a-row form): the
+    row equals ``_bank_store_ref`` of the same carry, every other row
+    stays as it was, and cand, k and the new-node table equal those of
+    the launch without a row."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    buf, st, n_i64, n_bits = _arena(case, cuda_device, T=T, n_max=13, D=7)
+    inp = _inputs(buf, st, n_i64, n_bits)
+    E, P, V, G = st["E"], st["P"], st["V"], st["G"]
+    carry = ft.carry0(inp, E + st["n_max"], E)
+    state = ffd_cuda.ScanState(inp, ft.Carry(*[t.clone() for t in carry]),
+                               E=E, P=P, V=V)
+    rows = 5
+    bs = ffd_cuda.BankState(state.carry, ffd_cuda.empty_bank(carry, rows))
+    for b in bs.bank:
+        b.fill_(7)
+    want = ft.Carry(*[b.clone() for b in bs.bank])
+    for g in range(G):
+        for dst, src in zip(state.carry, carry):
+            dst.copy_(src)
+        ffd_cuda.ffd_slot_headroom(state, g)
+        plain = (state.cand.clone(), state.k.clone(),
+                 *[t.clone() for t in state.table()])
+        j = g % rows
+        ffd_cuda.reset_launches()
+        ffd_cuda.ffd_slot_headroom(state, g, bank=bs, j=j)
+        assert ffd_cuda.LAUNCHES["ffd_slot_headroom"] == 1
+        assert ffd_cuda.LAUNCHES["ffd_bank_store"] == 0
+        ft._bank_store_ref(want, carry, j)
+        for nm, got, w in zip(ft.Carry._fields, bs.bank, want):
+            assert torch.equal(got, w), (g, j, nm)
+        for x, y in zip((state.cand, state.k, *state.table()), plain):
+            assert torch.equal(x, y), g
+        carry, _, _ = ft._group_step_ref(inp, carry, g, E=E, P=P, V=V)
+    with pytest.raises(ValueError):
+        ffd_cuda.ffd_slot_headroom(state, 0, bank=bs, j=rows)
+
+
+@pytest.mark.parametrize("case", ["base", "existing", "min_values"])
 def test_ckpt_and_suffix_on_card(cuda_device, case):
     """The checkpointed solve and every (SUF, GL) suffix of a G=8, CK=2
     arena on the card equal the plain versions on the CPU (output buffer
-    and bank), and each suffix equals the rows of the full solve."""
+    and bank), and each suffix equals the rows of the full solve. The
+    chunk entries' headroom launches store the bank rows: the solve
+    launches no ``ffd_bank_store``, a suffix one (its pad chunks' re-stamp)
+    where GL < G and none at GL = G, and row jr keeps its bytes."""
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
     from karpenter_provider_aws_tpu_torch.ops.hostpack import \
         unpack_outputs1
@@ -206,7 +251,7 @@ def test_ckpt_and_suffix_on_card(cuda_device, case):
         ffd_cuda.reset_launches()
         out, bank = ft.solve_scan_packed1_ckpt(buf, CK=CK,
                                                device=cuda_device, **ss)
-        assert ffd_cuda.LAUNCHES["ffd_bank_store"] == G // CK
+        assert ffd_cuda.LAUNCHES["ffd_bank_store"] == 0
         want, want_bank = ft.solve_scan_packed1_ckpt(buf, CK=CK,
                                                      device="cpu", **ss)
         assert torch.equal(out.cpu(), want)
@@ -223,6 +268,10 @@ def test_ckpt_and_suffix_on_card(cuda_device, case):
                                                **ss)
             assert ffd_cuda.LAUNCHES["ffd_bank_load"] == 1
             assert ffd_cuda.LAUNCHES["ffd_group_commit"] == SUF * CK
+            assert ffd_cuda.LAUNCHES["ffd_bank_store"] == int(GL < G) <= 1
+            jr = GL // CK - SUF
+            for nm, g, b in zip(ft.Carry._fields, d_bank, bank):
+                assert torch.equal(g[jr], b[jr]), (GL, SUF, nm)
             plain, c_bank = ft.solve_scan_suffix(buf, c_bank, CK=CK,
                                                  SUF=SUF, GL=GL,
                                                  device="cpu", **ss)
@@ -266,6 +315,7 @@ def test_warm_ticks_on_card_match_from_scratch(cuda_device):
         modes.append(warm.last_phase_stats["solve"])
     assert modes[12:] == ["suffix@3"] * 4
     assert warm.last_dispatch_stats["launches"]["ffd_bank_load"] == 1
+    assert warm.last_dispatch_stats["launches"]["ffd_bank_store"] <= 1
 
 
 # ---------------------------------------------------------------------------
@@ -1245,8 +1295,9 @@ def _topo_inputs(case, dev):
 @pytest.mark.parametrize("case", examples.TOPO_CASES)
 def test_topo_kernels_step_by_step(cuda_device, case):
     """Each K9 kernel from each group's entry state (the plain parts carry
-    the state): group start, the whole pour of a topology group, the
-    membership recording of the others."""
+    the state): group start, the whole pour of a topology group, and the
+    others' commit with its membership record (carry, take, and the
+    counters after every plain group)."""
     _, _, st, inp, rows = _topo_inputs(case, cuda_device)
     n = 0
     for kernel, what, got, want in examples.topo_kernel_steps(
@@ -1408,8 +1459,9 @@ def test_topo_scan_on_card(cuda_device, case, evcap):
     assert tc.LAUNCHES["topo_pour"] - before["topo_pour"] == n_topo
     assert tc.LAUNCHES["topo_pool_statics"] \
         - before["topo_pool_statics"] == 1
-    assert tc.LAUNCHES["topo_record_plain"] \
-        - before["topo_record_plain"] == len(rows["has_topo"]) - n_topo
+    assert "topo_record_plain" not in tc.LAUNCHES
+    assert tc.LAUNCHES["ffd_group_commit"] \
+        - before["ffd_group_commit"] == len(rows["has_topo"]) - n_topo
     for k, w in want.items():
         assert torch.equal(got[k].cpu(), w), k
 

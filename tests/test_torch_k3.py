@@ -1,0 +1,331 @@
+"""The checkpoint bank's store (K3) as the chunk entry's
+``ffd_slot_headroom`` launch does it, held against the plain store and
+the reference package on the CPU.
+
+``csrc/ffd_scan.cu`` ``ffd_slot_headroom_kernel`` given a bank row copies
+the working carry into it with every thread of its grid
+(``csrc/ffd_common.cuh`` ``bank_copy_plan`` / ``bank_copy_load``): each of
+the carry's eight fields is cut into units, where the field's carry and
+its bank row share their address mod 16 the bytes before the row's first
+16-byte boundary, its 16-byte words and the bytes after them, any other
+field byte by byte; thread i of S takes units i, i + S, ... Here a plain
+model of that decomposition, on simulated addresses (bank rows of bool
+planes of odd widths start at every offset mod 16; carries at aligned
+and at shifted addresses), writes the bank row and checks that every
+byte of every field is written once, whole, with each 16-byte unit on
+16-byte boundaries of both sides, and equal to ``_bank_store_ref``: T =
+813, 812 and 9, Z = 3, D = 7, N odd and even, 1 to 5 CTAs of 256 threads
+and more threads than units.
+
+Then the two solves in the kernels' order (``ffd_cuda.entry_row``: the
+checkpointed solve stores every chunk entry's carry from its headroom
+launch, the suffix re-solve loads row jr, stores nothing at its first
+group and every later chunk entry from its headroom, and re-stamps its
+pad chunks with one store), built from the plain group step and the
+model's store, are held byte for byte to the reference's
+``solve_scan_packed1_ckpt`` and ``solve_scan_suffix``: every live bound
+GL and every SUF at CK = 2 and 4, with and without pad chunks; the
+suffix leaves row jr's bytes as they were.
+
+Tolerance: exact (integer and bool bytes).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from __graft_entry__ import _example_arrays
+from karpenter_provider_aws_tpu.ops import ffd_jax
+from karpenter_provider_aws_tpu.ops import hostpack as hp_jax
+from karpenter_provider_aws_tpu_torch import examples
+from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+# ---------------------------------------------------------------------------
+# the folded copy on simulated addresses
+# ---------------------------------------------------------------------------
+
+def copy_plan(src, dst0, row_bytes, j):
+    """``bank_copy_plan``: per field (src, dst, head, nv, end)."""
+    out, acc = [], 0
+    for s, d0, n in zip(src, dst0, row_bytes):
+        d = d0 + j * n
+        h, nv = n, 0
+        if (d - s) % 16 == 0:
+            h = min((16 - d % 16) % 16, n)
+            nv = (n - h) // 16
+        acc += n - 15 * nv
+        out.append((s, d, h, nv, acc))
+    return out
+
+
+def copy_unit(plan, u):
+    """``bank_copy_load``: (field, byte offset, width) of unit u, or None
+    past the copy's end."""
+    if u >= plan[-1][4]:
+        return None
+    f = 0
+    while plan[f][4] <= u:
+        f += 1
+    r = u - (plan[f - 1][4] if f else 0)
+    _, _, h, nv, _ = plan[f]
+    if h <= r < h + nv:
+        return f, h + 16 * (r - h), 16
+    return f, (r if r < h else r + 15 * nv), 1
+
+
+def fold_store(bank_bytes, carry_bytes, j, S, src, dst0):
+    """The store of the carry into bank row j as the launch's S threads
+    make it: each thread's first unit (loaded before its CTA's work,
+    stored after it), then its units u0 + S, u0 + 2S, ... Writes
+    ``bank_bytes`` (per field, [rows * row bytes] uint8) and returns the
+    count of writes of each byte of row j, per field."""
+    row_bytes = [c.size for c in carry_bytes]
+    plan = copy_plan(src, dst0, row_bytes, j)
+    total = plan[-1][4]
+    hits = [np.zeros(n, np.int64) for n in row_bytes]
+    for u0 in range(min(S, total)):
+        for u in range(u0, total, S):
+            f, off, w = copy_unit(plan, u)
+            s, d = plan[f][0], plan[f][1]
+            if w == 16:
+                assert (s + off) % 16 == 0 and (d + off) % 16 == 0
+            n = row_bytes[f]
+            assert 0 <= off and off + w <= n
+            bank_bytes[f][j * n + off:j * n + off + w] = \
+                carry_bytes[f][off:off + w]
+            hits[f][off:off + w] += 1
+    return hits
+
+
+def _bytes(t):
+    return t.contiguous().numpy().reshape(-1).view(np.uint8).copy()
+
+
+def _random_carry(rng, N, T, Z, C, D, P):
+    b = torch.bool
+    return ft.Carry(
+        used=torch.from_numpy(rng.randint(-(1 << 40), 1 << 40, (N, D))),
+        types=torch.from_numpy(rng.rand(N, T) < 0.5).to(b),
+        zones=torch.from_numpy(rng.rand(N, Z) < 0.5).to(b),
+        ct=torch.from_numpy(rng.rand(N, C) < 0.5).to(b),
+        pool=torch.from_numpy(rng.randint(-2, P, N).astype(np.int32)),
+        alive=torch.from_numpy(rng.rand(N) < 0.5).to(b),
+        num_nodes=torch.tensor([int(rng.randint(0, N))], dtype=torch.int32),
+        pool_used=torch.from_numpy(rng.randint(0, 1 << 40, (P, D))))
+
+
+#: (T, N, Z, C, D, P): the catalog's widths (813, 812), a narrow one, N
+#: odd and even
+COPY_SHAPES = [(813, 13, 3, 2, 7, 2), (812, 13, 3, 2, 7, 1),
+               (812, 16, 3, 2, 8, 1), (9, 17, 3, 2, 7, 1),
+               (9, 4, 3, 1, 7, 3)]
+
+
+@pytest.mark.parametrize("shift", [0, 1, 8])
+@pytest.mark.parametrize("ctas", [1, 3, 10_000])
+@pytest.mark.parametrize("shape", COPY_SHAPES)
+def test_folded_copy_model_matches_bank_store(shape, ctas, shift):
+    """Every bank row j of five, written by the model of the headroom's
+    copy: each field's row bytes written once, whole, equal to
+    ``_bank_store_ref``; the other rows untouched. ``shift`` moves every
+    carry field off its 256-byte boundary (a view), ``ctas`` sets the
+    grid (256 threads a CTA; 10,000 CTAs: more threads than units)."""
+    T, N, Z, C, D, P = shape
+    rng = np.random.RandomState(T + N + ctas + shift)
+    carry = _random_carry(rng, N, T, Z, C, D, P)
+    rows = 5
+    bank = fc.empty_bank(carry, rows)
+    for b in bank:
+        b.zero_()
+    want = ft.Carry(*[b.clone() for b in bank])
+    carry_bytes = [_bytes(c) for c in carry]
+    bank_bytes = [_bytes(b) for b in bank]
+    base = 1 << 30
+    src = [base + (f + 1) * (1 << 24) + shift * (f + 1) for f in range(8)]
+    dst0 = [base + (f + 9) * (1 << 24) for f in range(8)]
+    S = 256 * ctas
+    vec = 0
+    for j in (3, 0, 4, 1, 2):
+        hits = fold_store(bank_bytes, carry_bytes, j, S, src, dst0)
+        ft._bank_store_ref(want, carry, j)
+        for nm, h in zip(ft.Carry._fields, hits):
+            assert (h == 1).all(), (j, nm)
+        for nm, got, w in zip(ft.Carry._fields, bank_bytes, want):
+            assert np.array_equal(got, _bytes(w)), (j, nm)
+        plan = copy_plan(src, dst0, [c.size for c in carry_bytes], j)
+        vec += sum(p[3] for p in plan)
+    if shift == 0:
+        # the aligned carry moves most of its bytes in 16-byte units
+        assert 16 * vec > sum(c.size for c in carry_bytes)
+
+
+def test_copy_plan_cuts_by_relative_alignment():
+    """A field whose carry and bank row differ mod 16 goes byte by byte;
+    one that agrees takes a head up to the row's first boundary, its
+    words and a tail."""
+    # row 1 of field 0 at 8192 + 813 (13 mod 16), its carry at 13 mod 16;
+    # row 1 of field 1 at 8192 + 40 (8 mod 16), its carry at 3 mod 16
+    p = copy_plan([4096 + 13, 4096 + 3], [8192, 8192], [813, 40], 1)
+    assert p[0][2:4] == (3, 50)
+    assert p[1][2:4] == (40, 0)
+    assert p[-1][4] == 813 - 15 * 50 + 40
+    units = [copy_unit(p, u) for u in range(p[-1][4])]
+    assert [x for x in units if x[2] == 16][0] == (0, 3, 16)
+    assert copy_unit(p, p[-1][4]) is None
+
+
+# ---------------------------------------------------------------------------
+# the two solves in the kernels' order against the reference
+# ---------------------------------------------------------------------------
+
+G = 8
+
+
+def _case(T=9, D=7):
+    """(packed arena, statics) of the existing-nodes case at odd widths
+    (N = 17)."""
+    arrays, st = examples.example_case("existing", base=_example_arrays,
+                                       G=G, T=T, D=D, n_max=12)
+    return arrays, st
+
+
+def _arena(arrays, st, GL):
+    a = dict(arrays, n=arrays["n"].copy())
+    a["n"][GL:] = 0
+    return hp_jax.pack_inputs1(a, *examples.pack_statics(st))
+
+
+def _inputs(buf, st):
+    return ft._packed_inputs_ref(torch.from_numpy(buf), *(
+        st[k] for k in "T D Z C G E P K M Q".split()))
+
+
+#: simulated addresses of the carry and the bank, and the headroom's
+#: threads (three CTAs)
+_SRC = [(1 << 30) + (f + 1) * (1 << 24) for f in range(8)]
+_DST = [(1 << 30) + (f + 9) * (1 << 24) for f in range(8)]
+_S = 768
+
+
+def _store(bank, carry, j):
+    """Bank row j written from ``carry`` by the model of the headroom's
+    copy (in place)."""
+    cb = [_bytes(c) for c in carry]
+    bb = [_bytes(b) for b in bank]
+    fold_store(bb, cb, j, _S, _SRC, _DST)
+    for b, x in zip(bank, bb):
+        b.copy_(torch.from_numpy(x.view(b.numpy().dtype)).reshape(b.shape))
+
+
+def ckpt_in_kernel_order(inp, st, CK):
+    """The checkpointed solve as the card runs it: per group the
+    headroom, which stores the chunk entry's carry (``entry_row``), then
+    the commit; no ``ffd_bank_store``. (output buffer, bank)."""
+    E, P, V = st["E"], st["P"], st["V"]
+    carry = ft.carry0(inp, E + st["n_max"], E)
+    bank = fc.empty_bank(carry, G // CK)
+    takes, lefts = [], []
+    for g in range(G):
+        j = fc.entry_row(g, 0, CK, 0, False)
+        if j >= 0:
+            _store(bank, carry, j)
+        carry, take, n_rem = ft._group_step_ref(inp, carry, g, E=E, P=P,
+                                                V=V)
+        takes.append(take.to(torch.int32))
+        lefts.append(n_rem.reshape(1))
+    return ft._pack_outputs_ref(torch.stack(takes), torch.cat(lefts),
+                                carry), bank
+
+
+def suffix_in_kernel_order(inp, st, bank, CK, SUF, GL):
+    """The suffix re-solve as the card runs it: ffd_bank_load of row jr,
+    per group of the window the headroom (storing every later chunk
+    entry) and the commit, one ffd_bank_store over the pad chunks when
+    there are any. (output buffer, bank spliced in place, stores)."""
+    E, P, V = st["E"], st["P"], st["V"]
+    NC, jr, s0 = G // CK, GL // CK - SUF, GL - SUF * CK
+    carry = ft.bank_row(bank, jr)
+    takes, lefts, stores = [], [], 0
+    for g in range(s0, GL):
+        j = fc.entry_row(g, s0, CK, jr, True)
+        if j >= 0:
+            _store(bank, carry, j)
+        carry, take, n_rem = ft._group_step_ref(inp, carry, g, E=E, P=P,
+                                                V=V)
+        takes.append(take.to(torch.int32))
+        lefts.append(n_rem.reshape(1))
+    if NC > GL // CK:
+        ft._bank_store_ref(bank, carry, GL // CK, NC - GL // CK)
+        stores += 1
+    return ft._pack_outputs_ref(torch.stack(takes), torch.cat(lefts),
+                                carry), bank, stores
+
+
+def _jax_bank(bank):
+    return [np.asarray(f).reshape(-1) for f in bank]
+
+
+def _assert_bank(got, want, what):
+    for nm, g, w in zip(ft.Carry._fields, got, want):
+        assert np.array_equal(g.numpy().reshape(-1), w), (what, nm)
+
+
+@pytest.mark.parametrize("CK", [2, 4])
+def test_kernel_order_solves_match_reference(CK):
+    """Every GL and SUF of a G = 8 arena at CK: the checkpointed solve and
+    each suffix in the kernels' order, byte for byte against the
+    reference's ``solve_scan_packed1_ckpt`` and ``solve_scan_suffix``
+    (output and bank); row jr unchanged by the tick; one store over the
+    pad chunks where GL < G, none at GL = G."""
+    arrays, st = _case()
+    ss = examples.solve_statics(st)
+    assert (st["E"] + st["n_max"]) % 2 == 1      # N odd
+    pads = set()
+    for GL in range(CK, G + 1, CK):
+        buf = _arena(arrays, st, GL)
+        inp = _inputs(buf, st)
+        out, bank = ckpt_in_kernel_order(inp, st, CK)
+        ref_out, ref_bank = ffd_jax.solve_scan_packed1_ckpt(buf, CK=CK,
+                                                            **ss)
+        assert np.array_equal(out.numpy(), np.asarray(ref_out)), GL
+        ref_bank_np = _jax_bank(ref_bank)
+        _assert_bank(bank, ref_bank_np, f"ckpt GL={GL}")
+        for SUF in range(1, GL // CK + 1):
+            jr = GL // CK - SUF
+            kb = ft.Carry(*[b.clone() for b in bank])
+            row_jr = [b[jr].clone() for b in kb]
+            o, kb, stores = suffix_in_kernel_order(inp, st, kb, CK, SUF, GL)
+            pads.add(stores)
+            assert stores == int(GL < G)
+            for nm, a, b in zip(ft.Carry._fields, kb, row_jr):
+                assert torch.equal(a[jr], b), (GL, SUF, nm)
+            w_out, w_bank = ffd_jax.solve_scan_suffix(
+                buf, ref_bank, CK=CK, SUF=SUF, GL=GL, **ss)
+            assert np.array_equal(o.numpy(), np.asarray(w_out)), (GL, SUF)
+            _assert_bank(kb, _jax_bank(w_bank), f"suffix GL={GL} SUF={SUF}")
+    assert pads == {0, 1}
+
+
+def test_entry_rows_of_both_scans():
+    """``entry_row``: the checkpointed solve stores rows 0 .. G/CK - 1 at
+    groups 0, CK, ...; a suffix from row jr stores jr + 1 .. at its later
+    chunk entries and nothing at its first group."""
+    for CK in (2, 4):
+        assert [fc.entry_row(g, 0, CK, 0, False) for g in range(8)] == \
+            [g // CK if g % CK == 0 else -1 for g in range(8)]
+        for jr, s0 in ((0, 0), (1, CK), (2, 2 * CK)):
+            rows = [fc.entry_row(g, s0, CK, jr, True)
+                    for g in range(s0, s0 + 3 * CK)]
+            assert rows == [-1 if (g - s0) % CK or g == s0
+                            else jr + (g - s0) // CK
+                            for g in range(s0, s0 + 3 * CK)]

@@ -49,6 +49,18 @@ steps, and of the whole pour built from them, against
 - the listed rows' counts, which size the pour's shared memory, the same
   whether the counter axes are padded to 8 rows or to 4,096.
 
+A group without topology has no K9 launch: its ``ffd_group_commit``
+(``csrc/ffd_scan.cu``) records its membership where it writes each
+slot's take (``TakeRecord``, ``csrc/ffd_step.cuh``): the int32 take,
+sign-extended, into ``ch[member_h, s]`` by the slot's one writer, and into
+the CTA's shared zone sums, which each CTA adds into ``cz[member_z, :]``
+by 64-bit atomics. A model of that record on 1, 2 and 8 CTAs, the CTAs'
+atomics applied in shuffled orders, against ``_topo_record_plain_ref`` and
+the reference's recording (``topo_jax.py:690-696``) on the same takes:
+takes that wrap negative as int32, ``member_z`` / ``member_h`` of -1,
+``zfix`` of -1, counters near the int64 limits; and at every plain group
+of the ``TOPO_CASES`` scans.
+
 Tolerance: exact (int64 and bool).
 """
 
@@ -1137,3 +1149,163 @@ def test_slot_cta_model_matches_plain(T, D):
                 assert [c_of[t] for t in range(T)] == cand[s].tolist(), \
                     (T, trial, g, s)
                 assert k == int(rem0[s]), (T, trial, g, s)
+
+
+# ---------------------------------------------------------------------------
+# the plain group's membership record, kept by its commit
+# ---------------------------------------------------------------------------
+
+M64 = (1 << 64) - 1
+
+
+def _signed64(x: int) -> int:
+    x &= M64
+    return x - (1 << 64) if x >> 63 else x
+
+
+def _take32(k: int) -> int:
+    """The int32 the commit writes for a slot's int64 take, read back
+    sign-extended."""
+    k &= (1 << 32) - 1
+    return k - (1 << 32) if k >> 31 else k
+
+
+def record_model(cz, ch, zfix, k, mz, mh, ctas, order):
+    """The commit's record on ``ctas`` CTAs (CTA r writes the takes of
+    the slots [r*ceil(N/ctas), ...); the one-CTA minValues form is 1):
+    each slot's take into ch[mh, s] by its writer; each CTA's zone sums
+    dz [Z] (u64), added into cz[mz, :] by the CTAs in ``order``. New
+    (cz, ch) lists."""
+    N, Z = len(k), len(cz[0]) if cz else 0
+    cz = [list(r) for r in cz]
+    ch = [list(r) for r in ch]
+    chunk = -(-N // ctas)
+    dzs = []
+    for r in range(ctas):
+        dz = [0] * Z
+        for s in range(r * chunk, min(N, (r + 1) * chunk)):
+            t = _take32(k[s])
+            if mh >= 0:
+                ch[mh][s] = _signed64(ch[mh][s] + t)
+            if zfix[s] >= 0 and t > 0:
+                dz[zfix[s]] = (dz[zfix[s]] + t) & M64
+        dzs.append(dz)
+    if mz >= 0:
+        for r in order:
+            for z in range(Z):
+                if dzs[r][z]:
+                    cz[mz][z] = _signed64(cz[mz][z] + dzs[r][z])
+    return cz, ch
+
+
+def _jax_record(cz, ch, zfix, take, mz, mh):
+    """The reference's recording of a plain group (topo_jax.py:690-696,
+    the scan's ``plain_group``) on numpy inputs, in the reference
+    package's 64-bit mode."""
+    import jax
+    import jax.numpy as jnp
+    jax.config.update("jax_enable_x64", True)
+    Z = cz.shape[1]
+    take, zfix = jnp.asarray(take), jnp.asarray(zfix)
+    chv = jnp.asarray(ch).at[max(mh, 0)].add(jnp.where(mh >= 0, take, 0))
+    zi = jnp.clip(zfix, 0, Z - 1)
+    dz = jnp.zeros((Z,), jnp.int64).at[zi].add(
+        jnp.where((zfix >= 0) & (take > 0), take, 0))
+    czv = jnp.asarray(cz).at[max(mz, 0)].add(jnp.where(mz >= 0, dz, 0))
+    return np.asarray(czv), np.asarray(chv)
+
+
+def _check_record(cz, ch, zfix, k, mz, mh, rng):
+    """The model on 1, 2 and 8 CTAs, three shuffled orders each, against
+    the plain record and the reference's, all on the int32 takes."""
+    take = np.array([_take32(int(x)) for x in k], np.int64)
+    want = tt._topo_record_plain_ref(
+        torch.from_numpy(cz), torch.from_numpy(ch),
+        torch.from_numpy(zfix.astype(np.int32)), torch.from_numpy(take),
+        torch.tensor(mz, dtype=torch.int32),
+        torch.tensor(mh, dtype=torch.int32))
+    ref = _jax_record(cz, ch, zfix, take, mz, mh)
+    for w, r in zip(want, ref):
+        assert np.array_equal(w.numpy(), r)
+    for ctas in (1, 2, 8):
+        for _ in range(3):
+            order = list(range(ctas))
+            rng.shuffle(order)
+            got = record_model(cz.tolist(), ch.tolist(), zfix.tolist(),
+                               [int(x) for x in k], mz, mh, ctas, order)
+            for g, w in zip(got, want):
+                assert np.array_equal(np.array(g, np.int64).reshape(
+                    w.shape), w.numpy()), (ctas, order)
+
+
+@pytest.mark.parametrize("N,Z", [(1, 3), (13, 3), (64, 1), (300, 5)])
+@pytest.mark.parametrize("seed", range(4))
+def test_commit_record_model_matches_plain(N, Z, seed):
+    """Seeded states: takes that wrap negative as int32 (and past 2^32),
+    zero and negative takes, zfix of -1, member rows of -1, counters near
+    the int64 limits (the sums wrap)."""
+    rng = random.Random(seed * 1000 + N)
+    nrng = np.random.RandomState(seed * 1000 + N)
+    GZ, GH = 3, 4
+    k = nrng.randint(0, 50, N).astype(np.int64)
+    for s in nrng.choice(N, size=max(1, N // 5), replace=False):
+        k[s] = int(nrng.choice([(1 << 31) + 7, (1 << 32) - 3, (1 << 32) + 9,
+                                (1 << 31) - 1, 0, -5]))
+    zfix = nrng.randint(-1, Z, N).astype(np.int32)
+    big = (1 << 63) - 40
+    cz = nrng.randint(0, 1000, (GZ, Z)).astype(np.int64)
+    ch = nrng.randint(0, 1000, (GH, N)).astype(np.int64)
+    cz[seed % GZ, 0] = big
+    ch[seed % GH, 0] = big
+    for mz, mh in ((seed % GZ, seed % GH), (-1, 1), (2, -1), (-1, -1)):
+        _check_record(cz, ch, zfix, k, mz, mh, rng)
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_group_states(name):
+    """[(cz, ch, zfix, take, member_z, member_h)] at each group without
+    topology of a kernel case's plain scan (numpy)."""
+    arrays, rows, st = examples.topo_case(name)
+    inp = ft.kernel_inputs_from_numpy(arrays, "cpu")
+    trows = tt.topo_rows_from_numpy(rows, "cpu")
+    P, N, Z = st["P"], st["n_max"], st["Z"]
+    carry = ft.carry0(inp, N, 0)
+    cz = torch.zeros((st["GZ"], Z), dtype=torch.int64)
+    ch = torch.zeros((st["GH"], N), dtype=torch.int64)
+    zfix = torch.full((N,), -1, dtype=torch.int32)
+    out = []
+    for g, topo in enumerate(rows["has_topo"]):
+        if topo:
+            gs = tt._topo_group_start_ref(inp, carry, g, trows, P=P)
+            r = tt._topo_pour_ref(inp, carry, cz, ch, zfix, g, trows, gs,
+                                  P=P, EVCAP=128, PMAX=8)
+            carry, cz, ch, zfix = r.carry, r.cz, r.ch, r.zfix
+            continue
+        carry, take, _ = ft._group_step_ref(inp, carry, g, E=0, P=P, V=0)
+        mz, mh = int(rows["member_z"][g]), int(rows["member_h"][g])
+        out.append((cz.numpy().copy(), ch.numpy().copy(),
+                    zfix.numpy().copy(), take.numpy().copy(), mz, mh))
+        cz, ch = tt._topo_record_plain_ref(cz, ch, zfix, take,
+                                           trows.member_z[g],
+                                           trows.member_h[g])
+    return out
+
+
+#: kernel cases whose plain groups are members of a counter row (the
+#: first two add takes of zone-fixed slots to a zone row)
+RECORD_CASES = ("config3_small", "mixed_topo_plain",
+                "cross_group_zone_affinity", "und_first")
+
+
+@pytest.mark.parametrize("name", RECORD_CASES)
+def test_commit_record_model_on_the_scans(name):
+    """At every plain group of a kernel case's scan, from its entry
+    counters: the model against the plain record and the reference's."""
+    rng = random.Random(len(name))
+    states = _plain_group_states(name)
+    for cz, ch, zfix, take, mz, mh in states:
+        _check_record(cz, ch, zfix, take, mz, mh, rng)
+    assert any(mz >= 0 and mh >= 0 for *_, mz, mh in states)
+    if name in RECORD_CASES[:2]:
+        assert any(mz >= 0 and ((zfix >= 0) & (take > 0)).any()
+                   for cz, ch, zfix, take, mz, mh in states)

@@ -339,11 +339,13 @@ class _Card:
     """A stand-in for two cards: cuda:0 current, every tensor the
     wrappers see on cuda:1. Records the device guards entered, the
     devices whose current stream was asked for, and each C entry called
-    with the stream it was given (stream handle 100 + device index)."""
+    with the stream it was given (stream handle 100 + device index) and,
+    in ``args``, with all its arguments."""
 
     def __init__(self):
         self.current = 0
         self.guards, self.streams, self.calls = [], [], []
+        self.args = []
 
     def device(self, dev):
         card = self
@@ -376,6 +378,7 @@ class _Card:
                         # the probe's answer also holds its row clusters
                         return 2 + 16 * ("pruned" in name)
                     card.calls.append((name, args[-1]))
+                    card.args.append((name, args))
                     return 0
                 return entry
         return Lib()
@@ -439,14 +442,17 @@ def test_k1_k2_launch_on_their_tensors_device(card):
 
 
 def test_checkpoint_solve_launches_on_its_device(card):
-    """unpack_bits, the checkpointed scan (bank stores and K2 under one
-    guard) and pack_outputs: three guards of cuda:1."""
+    """unpack_bits, the checkpointed scan (K2 under one guard, the chunk
+    entries' headroom launches storing the bank rows: no bank store) and
+    pack_outputs: three guards of cuda:1."""
     arrays, st = examples.example_case("base")
     buf = torch.from_numpy(pack_inputs1(arrays, *examples.pack_statics(st)))
     G = st["G"]
     fc.solve_scan_packed1_ckpt_cuda(buf, CK=2, **examples.solve_statics(st))
-    assert fc.LAUNCHES["ffd_bank_store"] == G // 2
+    assert fc.LAUNCHES["ffd_bank_store"] == 0
     assert fc.LAUNCHES["ffd_slot_headroom"] == G
+    rows = [a[3] for n, a in card.args if n == "karp_ffd_slot_headroom"]
+    assert rows == [g // 2 if g % 2 == 0 else -1 for g in range(G)]
     _on_card1(card, 3)
 
 
@@ -530,7 +536,8 @@ def test_topology_scan_launches_on_its_device(card):
                        torch.zeros((st["GH"], st["n_max"]),
                                    dtype=torch.int64),
                        n_max=st["n_max"], P=st["P"], EVCAP=128, PMAX=8)
-    tc.topo_record_plain(ts, 0)
+    tc.plain_commit(ts, ts.has_topo.index(False))
+    assert card.launches()[-1][0] == "karp_ffd_group_commit"
     _on_card1(card, 1)
 
 
