@@ -322,9 +322,10 @@ D15_BATCHES = (5, 64)
 TOPO_CHECKED = ("topo_pool_statics", "topo_group_start", "topo_pour",
                 "ffd_group_commit")
 
-#: the kernels of the warm-tick path
+#: the kernels of the warm-tick path (the suffix's unpack_bits launch
+#: also loads its resume row)
 K3_PATH = ("unpack_bits", "ffd_slot_headroom", "ffd_group_commit",
-           "pack_outputs", "ffd_bank_store", "ffd_bank_load")
+           "pack_outputs", "ffd_bank_store")
 
 K7_SRC = "karpenter_provider_aws_tpu_torch/csrc/consolidation.cu"
 K7_REF = "karpenter_provider_aws_tpu/ops/consolidation_jax.py"
@@ -336,9 +337,10 @@ K9_REF = "karpenter_provider_aws_tpu/ops/topo_jax.py"
 FFD_REF = "karpenter_provider_aws_tpu/ops/ffd_jax.py"
 
 KERNELS = {
+    # on the suffix re-solve the unpack also loads bank row jr (K3)
     "unpack_bits": dict(
         source="karpenter_provider_aws_tpu_torch/csrc/packed_io.cu",
-        replaces="karpenter_provider_aws_tpu/ops/ffd_jax.py:1140"),
+        replaces=f"{FFD_REF}:1140, {FFD_REF}:1329"),
     # the headroom also stores a chunk entry's bank row (K3), the commit
     # also records a topology scan's plain group (K9)
     "ffd_slot_headroom": dict(
@@ -353,9 +355,6 @@ KERNELS = {
     "ffd_bank_store": dict(
         source="karpenter_provider_aws_tpu_torch/csrc/ckpt.cu",
         replaces="karpenter_provider_aws_tpu/ops/ffd_jax.py:795"),
-    "ffd_bank_load": dict(
-        source="karpenter_provider_aws_tpu_torch/csrc/ckpt.cu",
-        replaces="karpenter_provider_aws_tpu/ops/ffd_jax.py:1296"),
     "consol_absorb_deletions": dict(source=K7_SRC, replaces=f"{K7_REF}:43"),
     "consol_absorb_prescreen": dict(source=K7_SRC, replaces=f"{K7_REF}:75"),
     "consol_absorb_dense": dict(source=K7_SRC, replaces=f"{K7_REF}:142"),
@@ -508,7 +507,12 @@ def check_arena(label, buf_np, st, cmp, dev):
 
 
 def check_k1_k10_shapes(cmp, dev):
-    """K1's pack at ``examples.PACK_SHAPES`` (segments straddling words,
+    """K1's unpack at ``examples.UNPACK_WIDTHS`` (heads, tails, units
+    straddling two words, bit 63 set, config 2's bool section) on 1, 3, 17
+    and 64 lanes (rows at every offset mod 16; the last lane's last word
+    ending the tensor, or lanes a word further apart) and on 65,552 lanes
+    of 333 bits (sixteen distinct lanes repeated); K1's pack at
+    ``examples.PACK_SHAPES`` (segments straddling words,
     odd G*N, config 2's widths) on 1 and 3 lanes with and without the
     bail word, and on 65,552 lanes (sixteen distinct lanes repeated), and
     ``mesh_new_caps`` at ``examples.CAPS_CASES`` (its main paths' shapes,
@@ -518,8 +522,29 @@ def check_k1_k10_shapes(cmp, dev):
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
     from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
+
+    def plain_rows(words, nbits):
+        return torch.stack([ft._unpack_bits_ref(w, nbits) for w in words])
     n = 0
+    for nbits in examples.UNPACK_WIDTHS:
+        for L in (1, 3, 17, 64):
+            words = examples.unpack_case(nbits, L, seed=nbits + L,
+                                         pad=L % 2, device=dev)
+            n0 = fc.LAUNCHES["unpack_bits"]
+            cmp("unpack_bits", fc.unpack_bits_lanes(words, nbits),
+                plain_rows(words, nbits), f"unpack {nbits} bits L={L}")
+            if fc.LAUNCHES["unpack_bits"] != n0 + 1:
+                raise AssertionError("an unpack call is not one launch")
+            n += 1
+    words = examples.unpack_case(333, 16, seed=3, device=dev)
+    reps = 65_552 // 16
+    wide = fc.unpack_bits_lanes(words.repeat(reps, 1), 333)
+    cmp("unpack_bits", wide.view(reps, 16, -1),
+        plain_rows(words, 333)[None].expand(reps, -1, -1).contiguous(),
+        "unpack 333 bits, 65,552 lanes")
+    n += 1
     for shape in examples.PACK_SHAPES:
         for L in (1, 3):
             for bail in (False, True):
@@ -566,19 +591,25 @@ def check_k3(label, buf_np, st, cmp, dev, gls=None):
     arena: for each live bound GL (``gls``; default every multiple of CK
     up to G, the groups past GL emptied) the checkpointed solve's output
     and every bank field (each row stored by its chunk entry's
-    ffd_slot_headroom; no ffd_bank_store launched), ffd_bank_load of every
-    bank row, then every SUF the bound allows: the suffix output and the
-    spliced bank, each run from its own copy of the recorded bank (rows
-    up to jr untouched, the later rows stored by the headroom, the pad
-    rows by the one ffd_bank_store there is, none without pad rows)."""
+    ffd_slot_headroom; no ffd_bank_store launched), the suffix's prologue
+    (unpack_bits_load: the arena's bool plane and one bank row into the
+    working carry, one launch) at every bank row, then every SUF the bound
+    allows: the suffix output and the spliced bank, each run from its own
+    copy of the recorded bank (rows up to jr untouched, the later rows
+    stored by the headroom, the pad rows by the one ffd_bank_store there
+    is, none without pad rows), one unpack_bits launch a suffix."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
     from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    from karpenter_provider_aws_tpu_torch.ops.hostpack import (
+        in_layout_bool, in_layout_i64, layout_sizes)
     T, D, Z, C, G, E, P = (st[k] for k in "T D Z C G E P".split())
     K, M, V, Q, n_max = st["K"], st["M"], st["V"], st["Q"], st["n_max"]
     ss = examples.solve_statics(st)
     off = n_offset(st)
+    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, K, M, 1, Q))
+    n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P, K, M, 1, Q))
     runs = 0
     for GL in (gls or range(CK, G + 1, CK)):
         b = buf_np.copy()
@@ -598,30 +629,40 @@ def check_k3(label, buf_np, st, cmp, dev, gls=None):
                 f"{label} GL={GL} ckpt bank.{nm}")
         work = ft.bank_row(pbank, 0)
         bs = fc.BankState(work, bank)
+        words = d[n_i64:]
+        plain_bits = ft._unpack_bits_ref(words, n_bits)
         for j in range(G // CK):
-            fc.ffd_bank_load(bs, j)
+            bits = fc.unpack_bits_load(words, n_bits, bs, j)
+            cmp("unpack_bits", bits, plain_bits,
+                f"{label} GL={GL} prologue of row {j}: bool plane")
             for nm, g, w in zip(ft.Carry._fields, work,
                                 ft.bank_row(pbank, j)):
-                cmp("ffd_bank_load", g, w, f"{label} row {j} {nm}")
+                cmp("unpack_bits", g, w,
+                    f"{label} GL={GL} prologue of row {j}: carry.{nm}")
         for SUF in range(1, GL // CK + 1):
             kb = ft.Carry(*[x.clone() for x in bank])
             pb = ft.Carry(*[x.clone() for x in pbank])
-            n0 = fc.LAUNCHES["ffd_bank_store"]
+            n0 = dict(fc.LAUNCHES)
             o, kb = ft.solve_scan_suffix(d, kb, CK=CK, SUF=SUF, GL=GL, **ss)
             pad = GL < G
-            if fc.LAUNCHES["ffd_bank_store"] - n0 != pad:
+            got = {k: fc.LAUNCHES[k] - n0[k] for k in
+                   ("unpack_bits", "ffd_bank_store", "ffd_group_commit")}
+            if got != dict(unpack_bits=1, ffd_bank_store=int(pad),
+                           ffd_group_commit=SUF * CK) \
+                    or "ffd_bank_load" in fc.LAUNCHES:
                 raise AssertionError(
-                    f"{label} GL={GL} SUF={SUF}: "
-                    f"{fc.LAUNCHES['ffd_bank_store'] - n0} ffd_bank_store "
-                    f"launches, {int(pad)} expected")
+                    f"{label} GL={GL} SUF={SUF}: launches {got}, expected "
+                    f"1 unpack_bits (loading row jr), {int(pad)} "
+                    f"ffd_bank_store, {SUF * CK} ffd_group_commit and no "
+                    "ffd_bank_load")
             tk, lf, cr, pb = ft._solve_suffix_ref(inp, pb, n_max, E, P, V,
                                                   CK, SUF, GL)
-            cmp("ffd_bank_load", o, ft._pack_outputs_ref(tk, lf, cr),
+            cmp("pack_outputs", o, ft._pack_outputs_ref(tk, lf, cr),
                 f"{label} GL={GL} SUF={SUF} suffix output")
             jr, lb = GL // CK - SUF, GL // CK
             for nm, g, w, r in zip(ft.Carry._fields, kb, pb, bank):
                 what = f"{label} GL={GL} SUF={SUF} spliced bank.{nm}"
-                cmp("ffd_bank_load", g[:jr + 1], r[:jr + 1],
+                cmp("ffd_slot_headroom", g[:jr + 1], r[:jr + 1],
                     f"{what} rows up to jr (untouched)")
                 cmp("ffd_slot_headroom", g[:lb], w[:lb],
                     f"{what} rows up to GL/CK")
@@ -3150,6 +3191,10 @@ def kernel_times(c2, launches):
                       b[1] for b in bank_l) * 1e3)
     log(f"[time] ffd_slot_headroom at config 2's chunk entries without and "
         f"with the bank row: {json.dumps(folded)}")
+    prologue = prologue_times(words, n_bits, bs, 1, want)
+    log(f"[time] unpack_bits at config 2 alone and as the suffix's "
+        f"prologue (with a bank row of config 2's carry): "
+        f"{json.dumps(prologue)}")
 
     # K2 phase 2: restore the group's entry carry and its phase-1 result
     # (candidates, headroom, the new-node table) before each launch,
@@ -3198,16 +3243,40 @@ def kernel_times(c2, launches):
                         launches=launches[name], ms=ms, plain_ms=pms,
                         bound_ms=b, bound_by=by, library_ms=None,
                         bytes=nbytes, ops=ops))
+    out[0]["prologue_config2"] = prologue
     out[1]["folded_config2"] = folded
     return out
 
 
+def prologue_times(words, n_bits, bs, j, bank):
+    """``unpack_bits`` of ``words`` alone and as the suffix's prologue
+    (``unpack_bits_load`` of row j of ``bs``, one launch), µs by CUDA
+    events, the prologue's plane and carry checked against the plain
+    unpack and ``bank_row(bank, j)`` first."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    bits = fc.unpack_bits_load(words, n_bits, bs, j)
+    ok = torch.equal(bits, ft._unpack_bits_ref(words, n_bits)) and all(
+        torch.equal(a, b) for a, b in zip(bs.carry, ft.bank_row(bank, j)))
+    if not ok:
+        raise AssertionError("the prologue's plane or carry != the plain "
+                             "unpack and bank row")
+    return dict(
+        row_bytes=sum(c.numel() * c.element_size() for c in bs.carry),
+        n_bits=n_bits,
+        unpack_us=time_launches(lambda: fc.unpack_bits(words, n_bits)) * 1e3,
+        prologue_us=time_launches(
+            lambda: fc.unpack_bits_load(words, n_bits, bs, j)) * 1e3)
+
+
 def bank_times(d_buf, st, launches):
-    """The bank kernels at the warm arena's carry, beside the plain
-    versions and the eight ``Tensor.copy_`` calls that move the same
-    bytes (the library yardstick; the port never calls it); and the
-    warm shape's ``ffd_slot_headroom`` at a chunk entry without and with
-    its bank row (``folded`` on the store's record)."""
+    """The bank store at the warm arena's carry, beside the plain version
+    and the eight ``Tensor.copy_`` calls that move the same bytes (the
+    library yardstick; the port never calls it); the warm shape's
+    ``ffd_slot_headroom`` at a chunk entry without and with its bank row
+    (``folded`` on the store's record), and its ``unpack_bits`` alone and
+    as the suffix's prologue loading that row (``prologue_warm``)."""
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
     from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
@@ -3221,10 +3290,6 @@ def bank_times(d_buf, st, launches):
     def copy_store():
         for b, c in zip(bank, carry):
             b[j].copy_(c.reshape(b[j].shape))
-
-    def copy_load():
-        for b, c in zip(bank, carry):
-            c.copy_(b[j].reshape(c.shape))
     g = j * CK
     inp = ft._packed_inputs_ref(d_buf, *(st[k] for k in
                                          "T D Z C G E P K M Q".split()))
@@ -3236,25 +3301,31 @@ def bank_times(d_buf, st, launches):
             lambda: fc.ffd_slot_headroom(hs, g, bank=bs, j=j)) * 1e3)
     log(f"[time] ffd_slot_headroom at the warm arena's chunk entry {g} "
         f"without and with its bank row: {json.dumps(folded)}")
-    recs = {
-        "ffd_bank_store": (time_launches(lambda: fc.ffd_bank_store(bs, j)),
-                           time_launches(lambda: ft._bank_store_ref(
-                               bank, carry, j)),
-                           time_launches(copy_store)),
-        "ffd_bank_load": (time_launches(lambda: fc.ffd_bank_load(bs, j)),
-                          time_launches(lambda: ft.bank_row(bank, j)),
-                          time_launches(copy_load)),
-    }
-    out = []
-    for name, (ms, pms, lms) in recs.items():
-        # one carry read and one written
-        b, by = bound_ms(2 * row, 0)
-        out.append(dict(name=name, route="cuda", **KERNELS[name],
-                        launches=launches[name], ms=ms, plain_ms=pms,
-                        bound_ms=b, bound_by=by, library_ms=lms,
-                        bytes=2 * row, ops=0))
-    out[0]["folded_warm"] = folded
-    return out
+    nbits = inp_bits(st)
+    words = d_buf[d_buf.numel() - -(-nbits // 64):]
+    prologue = prologue_times(words, nbits, bs, j - 1, bank)
+    log(f"[time] unpack_bits at the warm arena alone and as the suffix's "
+        f"prologue (loading bank row {j - 1}): {json.dumps(prologue)}")
+    fc.unpack_bits_load(words, nbits, bs, j)   # the carry of row j again
+    ms = time_launches(lambda: fc.ffd_bank_store(bs, j))
+    pms = time_launches(lambda: ft._bank_store_ref(bank, carry, j))
+    lms = time_launches(copy_store)
+    # one carry read and one written
+    b, by = bound_ms(2 * row, 0)
+    return [dict(name="ffd_bank_store", route="cuda",
+                 **KERNELS["ffd_bank_store"],
+                 launches=launches["ffd_bank_store"], ms=ms, plain_ms=pms,
+                 bound_ms=b, bound_by=by, library_ms=lms, bytes=2 * row,
+                 ops=0, folded_warm=folded, prologue_warm=prologue)]
+
+
+def inp_bits(st) -> int:
+    """Bools in the arena's bool section at the statics ``st``."""
+    from karpenter_provider_aws_tpu_torch.ops.hostpack import (
+        in_layout_bool, layout_sizes)
+    return layout_sizes(in_layout_bool(*(st[k] for k in
+                                         "T D Z C G E P K M".split()), 1,
+                                       st["Q"]))
 
 
 def _absorb_cost(kw, dense=False):
@@ -4617,7 +4688,8 @@ def main() -> int:
         f"fails): {cmp.checks} checks over "
         f"{len(cases)} K1/K2 arenas, {k3_runs} K3 suffix runs, 2 one-lane "
         f"K2 scans, {k7_cases} K7 cases, {k5_cases} K5 arenas and "
-        f"{k1_k10} K1 pack and K10 caps states, max_abs_err {cmp.err}")
+        f"{k1_k10} K1 unpack, K1 pack and K10 caps states, max_abs_err "
+        f"{cmp.err}")
 
     # ---- phase 4: the config-2 path -----------------------------------------
     solver = CUDASolver(incremental=False)
@@ -4662,6 +4734,12 @@ def main() -> int:
 
     # ---- phase 5: the warm-tick path ----------------------------------------
     launches_w, warm = warm_tick_phase()
+    per_tick = warm["launches_per_tick"]
+    if per_tick["unpack_bits"] != 1 or per_tick["ffd_bank_store"] > 1 \
+            or "ffd_bank_load" in per_tick:
+        raise AssertionError(f"a warm tick's launches {per_tick}: expected 1 "
+                             "unpack_bits (loading the resume row), at "
+                             "most 1 ffd_bank_store and no ffd_bank_load")
 
     # ---- phase 6: the consolidation path -------------------------------------
     launches_k7, c4, caps = consolidation_phase(cmp)

@@ -1,4 +1,4 @@
-// K3, the checkpoint bank of the incremental scan: carry <-> bank rows.
+// K3, the checkpoint bank of the incremental scan: carry -> bank rows.
 //
 // Replaces the bank half of karpenter_provider_aws_tpu/ops/ffd_jax.py
 // solve_scan_packed1_ckpt (_chunked_scan at :795 emits the carry entering
@@ -14,20 +14,21 @@
 // num_nodes [.] i32, pool_used [., P, D] i64. One row holds one carry
 // (BankArgs, ffd_common.cuh).
 //
-// The entry carry of a chunk is not stored here: the chunk entry's
-// ffd_slot_headroom launch, which reads that carry and writes none of it,
-// copies it into its bank row with every one of its threads (BankCopy,
-// ffd_common.cuh; ffd_scan.cu). A checkpointed solve therefore launches
-// no kernel of this file, and a suffix re-solve two at most:
-// ffd_bank_load: bank row j into the working carry, all eight fields in
-//   one launch (the suffix's resume row);
+// Neither the entry carry of a chunk nor the suffix's resume row moves
+// here: the chunk entry's ffd_slot_headroom launch, which reads that
+// carry and writes none of it, copies it into its bank row with every one
+// of its threads (BankCopy, ffd_common.cuh; ffd_scan.cu), and the suffix
+// re-solve's first launch, unpack_bits_load (packed_io.cu), copies bank
+// row jr into the working carry beside the arena's unpack. A checkpointed
+// solve therefore launches no kernel of this file, and a suffix re-solve
+// one at most:
 // ffd_bank_store: the working carry into bank rows [j, j + count), all
 //   eight fields in one launch (the suffix's re-stamp of its pad chunks
 //   with the final carry, count >= 1).
 // Grid: x strides over a field's row bytes, y is the field, z the bank
 //   row. A field whose pointers and row size are 8-byte aligned moves in
 //   64-bit words, any other (the bool planes of odd widths) bytewise.
-// What bounds them on this card: bytes, one carry read and one written
+// What bounds it on this card: bytes, one carry read and one written
 //   per row; at the warm-tick shape a carry is ~12 KB, nanoseconds of
 //   HBM time, so a launch costs its latency (PERF.md has the times).
 #include <cuda_runtime.h>
@@ -41,12 +42,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kFields = 8;
 
-__global__ void bank_copy_kernel(BankArgs a, i64 j, int to_bank) {
+__global__ void bank_copy_kernel(BankArgs a, i64 j) {
     const int f = blockIdx.y;
     const i64 rb = a.row_bytes[f];
-    unsigned char* row = a.bank[f] + (j + (i64)blockIdx.z) * rb;
-    const unsigned char* src = to_bank ? a.carry[f] : row;
-    unsigned char* dst = to_bank ? row : a.carry[f];
+    unsigned char* dst = a.bank[f] + (j + (i64)blockIdx.z) * rb;
+    const unsigned char* src = a.carry[f];
     const i64 stride = (i64)gridDim.x * blockDim.x;
     const i64 i0 = (i64)blockIdx.x * blockDim.x + threadIdx.x;
     if ((((uintptr_t)src | (uintptr_t)dst | (uintptr_t)rb) & 7) == 0) {
@@ -58,8 +58,12 @@ __global__ void bank_copy_kernel(BankArgs a, i64 j, int to_bank) {
     }
 }
 
-int launch(const BankArgs* a, long long j, long long count, int to_bank,
-           void* stream) {
+}  // namespace
+
+extern "C" {
+
+int karp_ffd_bank_store(const BankArgs* a, long long j, long long count,
+                        void* stream) {
     i64 most = 0;
     for (int f = 0; f < kFields; ++f)
         most = a->row_bytes[f] > most ? a->row_bytes[f] : most;
@@ -68,22 +72,8 @@ int launch(const BankArgs* a, long long j, long long count, int to_bank,
     i64 bx = (most / 8 + kThreads - 1) / kThreads;
     bx = bx < 1 ? 1 : (bx > 1024 ? 1024 : bx);
     dim3 grid((unsigned)bx, kFields, (unsigned)count);
-    bank_copy_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(*a, j,
-                                                                  to_bank);
+    bank_copy_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(*a, j);
     return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" {
-
-int karp_ffd_bank_store(const BankArgs* a, long long j, long long count,
-                        void* stream) {
-    return launch(a, j, count, 1, stream);
-}
-
-int karp_ffd_bank_load(const BankArgs* a, long long j, void* stream) {
-    return launch(a, j, 1, 0, stream);
 }
 
 }  // extern "C"

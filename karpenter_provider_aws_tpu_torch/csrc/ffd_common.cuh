@@ -385,14 +385,17 @@ struct BankArgs {
     i64 row_bytes[8];          // bytes of one carry field
 };
 
-// The working carry copied into one bank row by every thread of a launch
-// that reads the carry and writes none of it (ffd_slot_headroom at a
-// chunk entry, ffd_scan.cu). Each field is cut into units: where its
-// carry and its bank row share their address mod 16, the bytes before
-// the row's first 16-byte boundary (head), the row's 16-byte words (nv)
-// and the bytes after them; any other field (a bool plane of odd width
-// in a row j > 0) byte by byte (head = its bytes, nv = 0). end[f] counts
-// the units of fields 0 .. f; thread i of S takes units i, i + S, ...
+// A copy between the working carry and one bank row, made by every
+// thread of a launch that does not write what it reads: into the row
+// (to_bank: ffd_slot_headroom at a chunk entry, ffd_scan.cu, which reads
+// the carry and writes none of it) or out of the row into the carry (the
+// suffix re-solve's load, unpack_bits_load in packed_io.cu). Each field
+// is cut into units: where its carry and its bank row share their address
+// mod 16, the bytes before the destination's first 16-byte boundary
+// (head; the source's too), its 16-byte words (nv) and the bytes after
+// them; any other field (a bool plane of odd width in a row j > 0) byte
+// by byte (head = its bytes, nv = 0). end[f] counts the units of fields
+// 0 .. f; thread i of S takes units i, i + S, ...
 struct BankCopy {
     const unsigned char* src[8];
     unsigned char* dst[8];
@@ -401,19 +404,23 @@ struct BankCopy {
     i64 end[8];
 };
 
-// The copy of the carry of `a` into bank row j; returns its units.
-inline i64 bank_copy_plan(const BankArgs& a, i64 j, BankCopy* c) {
+// The copy of the carry of `a` into bank row j (to_bank), or of row j
+// into the carry; returns its units.
+inline i64 bank_copy_plan(const BankArgs& a, i64 j, BankCopy* c,
+                          bool to_bank) {
     i64 acc = 0;
     for (int f = 0; f < 8; ++f) {
         const i64 n = a.row_bytes[f];
-        unsigned char* d = a.bank[f] + j * n;
+        unsigned char* row = a.bank[f] + j * n;
+        unsigned char* d = to_bank ? row : a.carry[f];
+        const unsigned char* s = to_bank ? a.carry[f] : row;
         i64 h = n, nv = 0;
-        if ((((uintptr_t)d - (uintptr_t)a.carry[f]) & 15) == 0) {
+        if ((((uintptr_t)d - (uintptr_t)s) & 15) == 0) {
             h = (i64)((16 - ((uintptr_t)d & 15)) & 15);
             h = h < n ? h : n;
             nv = (n - h) / 16;
         }
-        c->src[f] = a.carry[f];
+        c->src[f] = s;
         c->dst[f] = d;
         c->head[f] = h;
         c->nv[f] = nv;

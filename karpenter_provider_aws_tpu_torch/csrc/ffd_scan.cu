@@ -334,7 +334,7 @@ int karp_ffd_slot_headroom(const ScanArgs* a, long long g,
     BankCopy bc = {};
     if (bank && j >= 0) {
         if (f.L != 1) return (int)cudaErrorInvalidValue;
-        bank_copy_plan(*bank, j, &bc);
+        bank_copy_plan(*bank, j, &bc, true);
     }
     const size_t smem = f.K > 0 ? (size_t)(f.K * f.V + f.K) * sizeof(i64)
                                 : 0;

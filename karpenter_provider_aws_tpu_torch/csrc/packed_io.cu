@@ -1,13 +1,32 @@
 // K1, the packed arena in and out of the FFD scan.
 //
 // Replaces karpenter_provider_aws_tpu/ops/ffd_jax.py:_words_to_bits (the
-// bool section of the input arena) and _pack_solve_outputs with its
-// _bits_to_words / _i32_to_words (the whole output buffer: the i64
-// section, the int32-pair takes and the bit-packed types/zones/ct/alive).
+// bool section of the input arena; on the suffix re-solve together with
+// solve_scan_suffix's select of bank row jr, :1329) and
+// _pack_solve_outputs with its _bits_to_words / _i32_to_words (the whole
+// output buffer: the i64 section, the int32-pair takes and the
+// bit-packed types/zones/ct/alive).
 //
-// unpack_bits: one thread per bool of the plane. The word is read as an
-//   unsigned 64-bit value and shifted unsigned: a signed right shift
-//   would smear bit 63, the sign bit, into the result.
+// unpack_bits: a thread takes one unit of a lane's bool row. Lane l's
+//   row starts l * nbits bytes past `out`, so at any offset mod 16; the
+//   row is cut at its own 16-byte boundaries: unit 0 is the head (the
+//   bytes before the first boundary), units 1 .. nv the row's 16-byte
+//   words, unit nv + 1 the tail (the bytes after them). A word is written
+//   by one uint4 store, the head and tail byte by byte, every byte of the
+//   row once. The unit's bits [s, s + 16) lie in word s >> 6, and also in
+//   the next one when s & 63 > 48: two 8-byte loads (the bool section is
+//   8-byte aligned, not 16), the next only where it is one of the lane's
+//   nwords(nbits) words (past them lie the next lane's words or the end
+//   of the allocation), joined by an unsigned funnel shift (a signed shift
+//   would smear bit 63, the sign bit). The 16 bits become 16 bytes in
+//   registers, four at a time by one multiply (expand4).
+// unpack_bits_load: the suffix re-solve's prologue, one lane, one launch:
+//   blocks [0, Bu) unpack as above, blocks [Bu, Bu + Bc) copy bank row j
+//   into the working carry (K3's load, ffd_jax.py:1329; BankCopy out of
+//   the row, ffd_common.cuh), each block wholly one or the other. The
+//   two sets of units touch disjoint memory (arena words -> bool plane,
+//   row j -> carry) and nothing in the launch reads what it writes; the
+//   next launch on the stream, the first headroom, reads both after it.
 // pack_outputs: one launch writes every word of each lane's output row
 //   [i64 section | takes | bit words | bail]. Warps [0, ws) take the
 //   scalar words, one a thread: the i64 section's fields (leftover, used,
@@ -34,11 +53,14 @@
 // What bounds them on this card: bytes. At the 50k-pod, 812-type shape
 //   the input plane is ~13 k bits and the output ~208 k bools read plus
 //   ~5.6 k words written, nanoseconds of memory traffic, so one launch
-//   costs its latency; at B = 64 lanes (34 MB read and written) and on
+//   costs its latency (hence the suffix's load rides the unpack's
+//   launch); at B = 64 lanes (8.5 MB unpacked, 34 MB packed) and on
 //   config 7's pruned pack (4.2 M takes) the bytes are the bound, which
-//   the 16-byte bool loads (512 bytes a warp instruction) and the 8-byte
-//   takes loads serve.
+//   the 16-byte bool stores and loads (512 bytes a warp instruction) and
+//   the 8-byte takes loads serve.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "ffd_common.cuh"
 
@@ -69,14 +91,61 @@ constexpr int kThreads = 256;
 constexpr int kBitWords = 16;
 constexpr int kPackWarps = kThreads / 32;
 
-__global__ void unpack_bits_kernel(const i64* words, i64 nbits, u8* out,
-                                   i64 L, i64 w_stride) {
+// Bits 0-3 of x as bytes 0-3 of the result, each 0 or 1: the multiply
+// puts bit k at bit 8k (the four shifted copies do not overlap).
+__device__ __forceinline__ unsigned expand4(unsigned x) {
+    return ((x & 15u) * 0x00204081u) & 0x01010101u;
+}
+
+// Units a lane's row of nbits bytes is cut into, at most: the head, the
+// 16-byte words and the tail.
+inline i64 unpack_units(i64 nbits) { return nbits / 16 + 2; }
+
+// Unit u of one lane's row: `words` its nwords(nbits) words, `row` its
+// nbits bytes.
+__device__ __forceinline__ void unpack_unit(const i64* words, i64 nbits,
+                                            u8* row, i64 u) {
+    i64 h = (i64)((16 - ((uintptr_t)row & 15)) & 15);
+    h = h < nbits ? h : nbits;
+    const i64 nv = (nbits - h) >> 4;
+    if (u > nv + 1) return;
+    const i64 s = u == 0 ? 0 : h + 16 * (u - 1);
+    const i64 e = u == 0 ? h : (u <= nv ? s + 16 : nbits);
+    if (s >= e) return;
+    const i64 q = s >> 6;
+    const unsigned sh = (unsigned)(s & 63);
+    u64 x = (u64)__ldg(words + q) >> sh;
+    if (sh > 48 && q + 1 < (nbits + 63) >> 6)
+        x |= (u64)__ldg(words + q + 1) << (64 - sh);
+    const unsigned b = (unsigned)x & 0xffffu;
+    if (u > 0 && u <= nv) {
+        *reinterpret_cast<uint4*>(row + s) = make_uint4(
+            expand4(b), expand4(b >> 4), expand4(b >> 8), expand4(b >> 12));
+        return;
+    }
+    for (int k = 0; k < (int)(e - s); ++k)
+        row[s + k] = (u8)((b >> k) & 1u);
+}
+
+__global__ void __launch_bounds__(kThreads)
+unpack_bits_kernel(const i64* words, i64 nbits, u8* out, i64 L,
+                   i64 w_stride) {
     const unsigned lane = grid_lane();
     if (lane >= L) return;   // the (y, z) grid's spare lanes
-    const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= nbits) return;
-    const u64 w = (u64)words[lane * w_stride + (i >> 6)];
-    out[lane * nbits + i] = (u8)((w >> (i & 63)) & 1ull);
+    unpack_unit(words + lane * w_stride, nbits, out + lane * nbits,
+                (i64)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+__global__ void __launch_bounds__(kThreads)
+unpack_bits_load_kernel(const i64* words, i64 nbits, u8* out,
+                        const __grid_constant__ BankCopy bc, unsigned bu) {
+    if (blockIdx.x < bu) {   // block-uniform: an unpack block
+        unpack_unit(words, nbits, out,
+                    (i64)blockIdx.x * blockDim.x + threadIdx.x);
+        return;
+    }
+    bank_copy_store(bank_copy_load(
+        bc, (i64)(blockIdx.x - bu) * blockDim.x + threadIdx.x));
 }
 
 // Bits 0-3: which bytes of x are not zero.
@@ -225,11 +294,27 @@ int karp_unpack_bits(const long long* words, long long nbits,
                      unsigned char* out, long long L, long long w_stride,
                      void* stream) {
     if (nbits > 0 && L > 0) {
-        dim3 grid(blocks_for(nbits));
+        dim3 grid(blocks_for(unpack_units(nbits)));
         lane_grid(L, &grid);
         unpack_bits_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
             words, nbits, out, L, w_stride);
     }
+    return (int)cudaGetLastError();
+}
+
+// One lane's unpack_bits and bank row j of `a` into its working carry, in
+// one launch: one unit a thread of each, the unpack's blocks first.
+int karp_unpack_bits_load(const long long* words, long long nbits,
+                          unsigned char* out, const BankArgs* a,
+                          long long j, void* stream) {
+    BankCopy bc;
+    const i64 units = bank_copy_plan(*a, j, &bc, false);
+    const unsigned bu = nbits > 0 ? blocks_for(unpack_units(nbits)) : 0;
+    const unsigned blocks = bu + blocks_for(units);
+    if (blocks > 0)
+        unpack_bits_load_kernel<<<blocks, kThreads, 0,
+                                  (cudaStream_t)stream>>>(words, nbits, out,
+                                                          bc, bu);
     return (int)cudaGetLastError();
 }
 

@@ -2335,6 +2335,32 @@ def pack_case(T: int, Z: int, C: int, N: int, G: int, P: int, D: int, L: int,
     return t["takes"], t["leftover"], carry, t.get("bail")
 
 
+#: ``unpack_bits``' widths: rows shorter than one 16-byte unit, one unit
+#: and either side of it, units whose 16 bits straddle two words (from bit
+#: 48, 49 or 50 of a word), one word and either side of it, odd widths
+#: (333, the catalog's 813) and config 2's bool section (13,843 bits)
+UNPACK_WIDTHS = (1, 15, 16, 17, 48, 49, 50, 63, 64, 65, 333, 813, 13_843)
+
+
+def unpack_case(nbits: int, L: int, *, seed: int = 0, pad: int = 0,
+                device="cpu"):
+    """Random words of ``unpack_bits_lanes`` from ``seed``: the [L,
+    nwords(nbits)] view of the first columns of a [L, nwords(nbits) + pad]
+    int64 stack (lanes nwords + pad words apart; with pad = 0 the last
+    lane's last word ends the tensor). Every word is drawn over the whole
+    int64 range, so bit 63 is set in about half of them, and the bits past
+    nbits are random too."""
+    import torch
+
+    from .ops.hostpack import nwords
+    rng = np.random.RandomState(seed)
+    i64 = np.iinfo(np.int64)
+    nw = nwords(nbits)
+    stack = rng.randint(i64.min, i64.max, size=(L, nw + pad), dtype=np.int64)
+    stack[:, 0] |= np.int64(i64.min)   # bit 63 set in every lane
+    return torch.from_numpy(stack).to(device)[:, :nw]
+
+
 def mesh_shard_check(case: str, ndp: int, dp_idx: int, before: str,
                      device="cpu", **state_kw):
     """Every kernel launch of the first four group steps of slot shard

@@ -1,11 +1,12 @@
 """The CUDA kernels of the packed FFD scan: build, binding and wrappers.
 
-``csrc/packed_io.cu`` (K1: ``unpack_bits``, ``pack_outputs``),
+``csrc/packed_io.cu`` (K1: ``unpack_bits``, ``pack_outputs``; the
+suffix re-solve's unpack also loads K3's resume row),
 ``csrc/ffd_scan.cu`` (K2: ``ffd_slot_headroom``, ``ffd_group_commit``;
 the headroom also stores K3's chunk-entry bank rows, the commit also
 records K9's plain groups),
 ``csrc/fused.cu`` (K5: ``ffd_fused_headroom``, ``ffd_fused_commit``),
-``csrc/ckpt.cu`` (K3: ``ffd_bank_store``, ``ffd_bank_load``),
+``csrc/ckpt.cu`` (K3: ``ffd_bank_store``),
 ``csrc/consolidation.cu`` (K7: ``consol_absorb``, ``subset_gather``,
 ``subset_summary``; wrappers in ``ops/consolidation_cuda.py``) and
 ``csrc/pruned.cu`` (K6: ``ffd_pruned_probe``, ``ffd_pruned_commit``) and
@@ -64,7 +65,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: wrapper, bumped where the kernel is launched and nowhere else)
 LAUNCHES: Dict[str, int] = {"unpack_bits": 0, "ffd_slot_headroom": 0,
                             "ffd_group_commit": 0, "pack_outputs": 0,
-                            "ffd_bank_store": 0, "ffd_bank_load": 0,
+                            "ffd_bank_store": 0,
                             "consol_absorb_deletions": 0,
                             "consol_absorb_prescreen": 0,
                             "consol_absorb_dense": 0,
@@ -145,12 +146,12 @@ def _lib():
             lib = ctypes.CDLL(_BUILD_INFO["path"])
             vp, ll = ctypes.c_void_p, ctypes.c_longlong
             lib.karp_unpack_bits.argtypes = [vp, ll, vp, ll, ll, vp]
+            lib.karp_unpack_bits_load.argtypes = [vp, ll, vp, vp, ll, vp]
             lib.karp_pack_outputs.argtypes = [vp, vp]
             lib.karp_ffd_slot_headroom.argtypes = [vp, ll, vp, ll, vp]
             lib.karp_ffd_group_commit.argtypes = [vp, ll, vp, vp]
             lib.karp_ffd_k2_cluster.argtypes = [vp]
             lib.karp_ffd_bank_store.argtypes = [vp, ll, ll, vp]
-            lib.karp_ffd_bank_load.argtypes = [vp, ll, vp]
             lib.karp_consol_absorb.argtypes = [vp, ctypes.c_int, vp]
             lib.karp_subset_gather.argtypes = [vp, vp]
             lib.karp_subset_gather_grid.argtypes = [vp, vp, vp]
@@ -178,10 +179,11 @@ def _lib():
             lib.karp_mesh_fill.argtypes = [vp, ll, ctypes.c_int, vp]
             lib.karp_error_string.argtypes = [ctypes.c_int]
             lib.karp_error_string.restype = ctypes.c_char_p
-            for fn in (lib.karp_unpack_bits, lib.karp_pack_outputs,
+            for fn in (lib.karp_unpack_bits, lib.karp_unpack_bits_load,
+                       lib.karp_pack_outputs,
                        lib.karp_ffd_slot_headroom,
                        lib.karp_ffd_group_commit, lib.karp_ffd_k2_cluster,
-                       lib.karp_ffd_bank_store, lib.karp_ffd_bank_load,
+                       lib.karp_ffd_bank_store,
                        lib.karp_consol_absorb, lib.karp_subset_gather,
                        lib.karp_subset_gather_grid,
                        lib.karp_subset_summary, lib.karp_ffd_pruned_probe,
@@ -295,6 +297,25 @@ def unpack_bits_lanes(words: torch.Tensor, nbits: int) -> torch.Tensor:
     _launch("unpack_bits", _lib().karp_unpack_bits,
             (words.data_ptr(), nbits, out.data_ptr(), L, words.stride(0)),
             words)
+    return out
+
+
+def unpack_bits_load(words: torch.Tensor, nbits: int, bs: "BankState",
+                     j: int, stream: int = None) -> torch.Tensor:
+    """``unpack_bits`` of one lane and bank row j of ``bs`` into its
+    working carry, in one launch (the suffix re-solve's prologue, counted
+    as ``unpack_bits``); returns the bool plane. ``stream``: the stream
+    of the caller's ``launching`` guard."""
+    _need(words, "words", torch.int64, (nwords(nbits),))
+    if not 0 <= j < bs.rows:
+        raise ValueError(f"bank row {j} outside [0, {bs.rows})")
+    if bs.carry.used.device != words.device:
+        raise ValueError(f"the bank lies on {bs.carry.used.device}, the "
+                         f"words on {words.device}")
+    out = torch.empty(nbits, dtype=torch.bool, device=words.device)
+    _launch("unpack_bits", _lib().karp_unpack_bits_load,
+            (words.data_ptr(), nbits, out.data_ptr(), ctypes.byref(bs.args),
+             j), words, stream)
     return out
 
 
@@ -722,16 +743,20 @@ def solve_scan_cuda(inp: KernelInputs, n_max: int, E: int, P: int,
 
 
 def _packed_inputs(buf: torch.Tensor, T, D, Z, C, G, E, P, K, M,
-                   Q, F=1) -> KernelInputs:
+                   Q, F=1, load: tuple = None,
+                   stream: int = None) -> KernelInputs:
     """The arena's inputs: one unpack_bits launch, then views (the
-    ``fuse`` flags too when F > 1)."""
+    ``fuse`` flags too when F > 1). With ``load`` = (BankState, j) the
+    same launch copies bank row j into the bank's working carry
+    (``unpack_bits_load``, on the ``stream`` of the caller's guard)."""
     _need(buf, "buf", torch.int64)
     n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G, E, P, K, M, F, Q))
     n_bits = layout_sizes(in_layout_bool(T, D, Z, C, G, E, P, K, M, F, Q))
     if buf.numel() != n_i64 + nwords(n_bits):
         raise ValueError(f"arena has {buf.numel()} words, the statics "
                          f"need {n_i64 + nwords(n_bits)}")
-    bool_flat = unpack_bits(buf[n_i64:], n_bits)
+    bool_flat = unpack_bits(buf[n_i64:], n_bits) if load is None else \
+        unpack_bits_load(buf[n_i64:], n_bits, *load, stream=stream)
     return _unpack_inputs(buf[:n_i64], bool_flat, T, D, Z, C, G, E, P, K, M,
                           F, Q)
 
@@ -795,14 +820,6 @@ def ffd_bank_store(bs: BankState, j: int, count: int = 1,
             (ctypes.byref(bs.args), j, count), bs.carry.used, stream)
 
 
-def ffd_bank_load(bs: BankState, j: int, stream: int = None) -> None:
-    """Bank row j into the working carry, every field in one launch."""
-    if not 0 <= j < bs.rows:
-        raise ValueError(f"bank row {j} outside [0, {bs.rows})")
-    _launch("ffd_bank_load", _lib().karp_ffd_bank_load,
-            (ctypes.byref(bs.args), j), bs.carry.used, stream)
-
-
 def entry_row(g: int, s0: int, CK: int, j0: int, resumed: bool) -> int:
     """The bank row that group g's ``ffd_slot_headroom`` stores its entry
     carry into, in a scan of the window from s0 whose chunk entries s0,
@@ -838,8 +855,9 @@ def solve_scan_packed1_ckpt_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E,
 def solve_scan_suffix_cuda(buf: torch.Tensor, bank: Carry, *, T, D, Z, C,
                            G, E, P, n_max, K=0, V=0, M=0, Q=0, CK=4, SUF=1,
                            GL=None) -> Tuple[torch.Tensor, Carry]:
-    """The suffix re-solve on the card: unpack_bits, ffd_bank_load of row
-    jr = GL/CK - SUF, then per group of [GL - SUF*CK, GL) the two K2
+    """The suffix re-solve on the card: one unpack_bits launch that also
+    loads bank row jr = GL/CK - SUF into the working carry
+    (``unpack_bits_load``), then per group of [GL - SUF*CK, GL) the two K2
     kernels, the headroom of every later chunk entry storing the carry
     into its bank row (``entry_row``; row jr keeps the carry it holds),
     one ffd_bank_store re-stamping the pad chunks [GL/CK, G/CK) with the
@@ -855,16 +873,16 @@ def solve_scan_suffix_cuda(buf: torch.Tensor, bank: Carry, *, T, D, Z, C,
     if bank.used.shape[:2] != (NC, N):
         raise ValueError(f"bank rows/slots {tuple(bank.used.shape[:2])}, "
                          f"the statics need {(NC, N)}")
-    inp = _packed_inputs(buf, T, D, Z, C, G, E, P, K, M, Q)
     carry = Carry(*[torch.empty((1,) if nm == "num_nodes"
                                 else tuple(b.shape[1:]),
                                 dtype=b.dtype, device=b.device)
                     for nm, b in zip(Carry._fields, bank)])
     bs = BankState(carry, bank)
     jr, s0 = GL // CK - SUF, GL - SUF * CK
-    st = ScanState(inp, carry, E=E, P=P, V=V, s0=s0, s1=GL)
-    with launching(st.k) as stream:
-        ffd_bank_load(bs, jr, stream)
+    with launching(buf) as stream:
+        inp = _packed_inputs(buf, T, D, Z, C, G, E, P, K, M, Q,
+                             load=(bs, jr), stream=stream)
+        st = ScanState(inp, carry, E=E, P=P, V=V, s0=s0, s1=GL)
         for g in range(s0, GL):
             ffd_slot_headroom(st, g, stream, bs,
                               entry_row(g, s0, CK, jr, True))

@@ -15,8 +15,11 @@ preemption search (its hazard tables and a round through
 ``Provisioner.reconcile``; a snapshot past the pour's layout routed to
 the host pour), the K10 mesh kernels (``mesh_fill``'s phases from 1 to
 9,000 rows, ``mesh_new_caps`` at the main paths' shapes), K1's one-launch
-pack at odd shapes, on 65,552 lanes and with the bail word, and K11's
-distributed dispatch at 1 x 1 (a shard cut from its host's slab).
+pack at odd shapes, on 65,552 lanes and with the bail word, K1's unpack
+at ``examples.UNPACK_WIDTHS`` on up to 64 lanes and on 65,552, the
+suffix's first launch (the unpack that loads a bank row; one CUDA
+kernel), and K11's distributed dispatch at 1 x 1 (a shard cut from its
+host's slab).
 
 Every test here needs a CUDA card: the ``cuda_device`` fixture skips
 otherwise, so the CPU suite collects the same tests and skips them. On a
@@ -85,6 +88,45 @@ def test_unpack_bits(cuda_device, case):
     words = buf[n_i64:n_i64 + nwords(n_bits)]
     assert torch.equal(ffd_cuda.unpack_bits(words, n_bits),
                        ft._unpack_bits_ref(words, n_bits))
+
+
+def _unpack_rows_ref(words, nbits):
+    """The plain version's bool rows of a [L, nwords] words view."""
+    return torch.stack([ft._unpack_bits_ref(w, nbits) for w in words])
+
+
+@pytest.mark.parametrize("L", [1, 3, 17, 64])
+@pytest.mark.parametrize("nbits", examples.UNPACK_WIDTHS)
+def test_unpack_bits_odd_widths(cuda_device, nbits, L):
+    """``unpack_bits_lanes`` at ``examples.UNPACK_WIDTHS`` (heads, tails,
+    units straddling two words, bit 63 set) on lanes whose rows start at
+    every offset mod 16 (the last lane's last word ends the tensor, or the
+    lanes lie a word further apart), one launch a call; the one-lane
+    wrapper too."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    for pad in (0, 1):
+        words = examples.unpack_case(nbits, L, seed=nbits + L + pad,
+                                     pad=pad, device=cuda_device)
+        before = ffd_cuda.LAUNCHES["unpack_bits"]
+        got = ffd_cuda.unpack_bits_lanes(words, nbits)
+        assert ffd_cuda.LAUNCHES["unpack_bits"] == before + 1
+        assert torch.equal(got, _unpack_rows_ref(words, nbits)), pad
+        assert torch.equal(ffd_cuda.unpack_bits(words[0].contiguous(),
+                                                nbits), got[0])
+
+
+def test_unpack_bits_wide_lanes(cuda_device):
+    """65,552 lanes (grid z > 1) of an odd width (333 bits), sixteen
+    distinct lanes repeated: every row equals its source lane's plain
+    row."""
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    words = examples.unpack_case(333, 16, seed=3, device=cuda_device)
+    reps = 65_552 // 16
+    got = ffd_cuda.unpack_bits_lanes(words.repeat(reps, 1), 333)
+    assert got.shape == (65_552, 333)
+    want = _unpack_rows_ref(words, 333)
+    assert torch.equal(got.view(reps, 16, -1),
+                       want[None].expand(reps, -1, -1))
 
 
 @pytest.mark.parametrize("case", examples.CASES)
@@ -161,8 +203,10 @@ def test_packed_solve(cuda_device, case, width):
 
 @pytest.mark.parametrize("case", ["base", "existing", "min_values"])
 def test_bank_kernels(cuda_device, case):
-    """ffd_bank_store (one row and a run of rows) and ffd_bank_load
-    against the plain store and bank_row, on carries of a real scan."""
+    """ffd_bank_store (one row and a run of rows) against the plain
+    store, and the suffix's prologue (``unpack_bits_load``: the arena's
+    bool plane and bank row j into the working carry, one launch) against
+    the plain unpack and bank_row, on carries of a real scan."""
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
     buf, st, n_i64, n_bits = _arena(case, cuda_device, T=37)
     inp = _inputs(buf, st, n_i64, n_bits)
@@ -182,11 +226,20 @@ def test_bank_kernels(cuda_device, case):
         ft._bank_store_ref(want, carry, g, count)
         for nm, got, w in zip(ft.Carry._fields, bank, want):
             assert torch.equal(got, w), (g, nm)
+    words = buf[n_i64:]
     for j in range(G):
-        ffd_cuda.ffd_bank_load(bs, j)
+        before = dict(ffd_cuda.LAUNCHES)
+        bits = ffd_cuda.unpack_bits_load(words, n_bits, bs, j)
+        assert ffd_cuda.LAUNCHES == dict(
+            before, unpack_bits=before["unpack_bits"] + 1)
+        assert torch.equal(bits, ft._unpack_bits_ref(words, n_bits)), j
         for nm, got, w in zip(ft.Carry._fields, bs.carry,
                               ft.bank_row(want, j)):
             assert torch.equal(got, w), (j, nm)
+        for nm, got, w in zip(ft.Carry._fields, bank, want):
+            assert torch.equal(got, w), (j, nm)
+    with pytest.raises(ValueError):
+        ffd_cuda.unpack_bits_load(words, n_bits, bs, G)
 
 
 @pytest.mark.parametrize("case", ["base", "existing", "min_values"])
@@ -238,7 +291,9 @@ def test_ckpt_and_suffix_on_card(cuda_device, case):
     and bank), and each suffix equals the rows of the full solve. The
     chunk entries' headroom launches store the bank rows: the solve
     launches no ``ffd_bank_store``, a suffix one (its pad chunks' re-stamp)
-    where GL < G and none at GL = G, and row jr keeps its bytes."""
+    where GL < G and none at GL = G, and row jr keeps its bytes. A suffix
+    loads row jr in its one ``unpack_bits`` launch (no ``ffd_bank_load``
+    exists)."""
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
     from karpenter_provider_aws_tpu_torch.ops.hostpack import \
         unpack_outputs1
@@ -266,7 +321,8 @@ def test_ckpt_and_suffix_on_card(cuda_device, case):
             got, d_bank = ft.solve_scan_suffix(buf, d_bank, CK=CK, SUF=SUF,
                                                GL=GL, device=cuda_device,
                                                **ss)
-            assert ffd_cuda.LAUNCHES["ffd_bank_load"] == 1
+            assert "ffd_bank_load" not in ffd_cuda.LAUNCHES
+            assert ffd_cuda.LAUNCHES["unpack_bits"] == 1
             assert ffd_cuda.LAUNCHES["ffd_group_commit"] == SUF * CK
             assert ffd_cuda.LAUNCHES["ffd_bank_store"] == int(GL < G) <= 1
             jr = GL // CK - SUF
@@ -314,8 +370,10 @@ def test_warm_ticks_on_card_match_from_scratch(cuda_device):
             cold.solve(snap).decision_fingerprint(), t
         modes.append(warm.last_phase_stats["solve"])
     assert modes[12:] == ["suffix@3"] * 4
-    assert warm.last_dispatch_stats["launches"]["ffd_bank_load"] == 1
-    assert warm.last_dispatch_stats["launches"]["ffd_bank_store"] <= 1
+    launches = warm.last_dispatch_stats["launches"]
+    assert launches["unpack_bits"] == 1
+    assert launches.get("ffd_bank_load", 0) == 0
+    assert launches["ffd_bank_store"] <= 1
 
 
 # ---------------------------------------------------------------------------
@@ -718,6 +776,39 @@ def test_pack_outputs_wide_lanes(cuda_device):
     want = _pack_rows(takes, left, carry, bl, range(16))
     assert torch.equal(got.view(reps, 16, -1),
                        want[None].expand(reps, -1, -1))
+
+
+def test_unpack_bits_load_is_one_kernel(cuda_device):
+    """One call of the suffix's prologue (``unpack_bits_load``) at the
+    catalog's width issues exactly one CUDA kernel, which unpacks the
+    arena and loads the bank row: the profiler's device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    buf, st, n_i64, n_bits = _arena("existing", cuda_device, T=813, G=4)
+    inp = _inputs(buf, st, n_i64, n_bits)
+    carry = ft.carry0(inp, st["E"] + st["n_max"], st["E"])
+    bank = ffd_cuda.empty_bank(carry, 2)
+    for b in bank:
+        b.random_(0, 2)
+    bs = ffd_cuda.BankState(carry, bank)
+    words = buf[n_i64:]
+
+    def fn():
+        return ffd_cuda.unpack_bits_load(words, n_bits, bs, 1)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace with no device event at all: again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+    assert len(dev) == 1 and "unpack_bits_load" in dev[0], dev
+    for nm, got, w in zip(ft.Carry._fields, carry, ft.bank_row(bank, 1)):
+        assert torch.equal(got, w), nm
 
 
 def test_pack_outputs_is_one_kernel(cuda_device):

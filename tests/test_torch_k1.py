@@ -27,7 +27,21 @@ reference's ``_pack_solve_outputs`` lane by lane, byte for byte, at
 straddle words; odd G*N; config 2's widths), L = 1 and 3 lanes (also as
 views of a wider stack), with and without the bail word (set and clear).
 
-Tolerance: exact (int64 words).
+Then ``unpack_bits``, the arena's way in, as its kernel cuts each lane's
+bool row: a thread a unit, unit 0 the head (the bytes before the row's
+first 16-byte boundary, bytewise), units 1 .. nv the row's 16-byte words
+(one 16-byte store each, 16 bools expanded from 16 bits four at a time by
+one multiply), unit nv + 1 the tail (bytewise); a unit's bits read from
+one word, or two joined by an unsigned funnel shift where they straddle
+(bit 48 on), never a word past the lane's nwords(nbits). The model runs
+the launch's grid on simulated addresses (lane rows at every offset mod
+16) and checks that every byte of every row is written once, each word
+store on a 16-byte boundary, against ``_unpack_bits_ref`` and the
+reference's ``_words_to_bits`` at ``examples.UNPACK_WIDTHS`` on 1, 3 and
+17 lanes (words with bit 63 set, the last lane's last word at the end of
+the tensor, lanes further apart than their words).
+
+Tolerance: exact (int64 words, bool bytes).
 """
 
 import numpy as np
@@ -242,3 +256,136 @@ def test_sources_refuse_what_the_kernel_does_not_read():
         fc.pack_sources(takes, left, carry, torch.ones((2, 2), dtype=bool))
     with pytest.raises(ValueError, match="CUDA"):
         fc.pack_outputs_lanes(takes, left, carry, bl)
+
+
+# ---------------------------------------------------------------------------
+# unpack_bits: the kernel's units on simulated addresses
+# ---------------------------------------------------------------------------
+
+M64 = (1 << 64) - 1
+#: csrc/packed_io.cu kThreads
+UNPACK_THREADS = 256
+
+
+def unpack_blocks(nbits):
+    """The unpack's CTAs a lane: one thread for each of ``unpack_units``."""
+    return -(-(nbits // 16 + 2) // UNPACK_THREADS)
+
+
+def expand4(x):
+    """``expand4``: bits 0-3 of x as the bytes of a 32-bit word."""
+    v = ((x & 15) * 0x00204081) & 0x01010101
+    assert v < 1 << 32
+    return [(v >> (8 * k)) & 0xFF for k in range(4)]
+
+
+def unpack_unit(words, w0, nbits, row, u, reads):
+    """``unpack_unit``: unit u of the row at simulated address ``row`` of
+    the lane whose words start at index ``w0`` of the flat int64 array
+    ``words``. Returns None or (first byte, its bytes, 16-byte store?) and
+    appends each word index read (relative to the lane) to ``reads``."""
+    nw = -(-nbits // 64)
+    h = min((16 - row % 16) % 16, nbits)
+    nv = (nbits - h) >> 4
+    if u > nv + 1:
+        return None
+    s = 0 if u == 0 else h + 16 * (u - 1)
+    e = h if u == 0 else (s + 16 if u <= nv else nbits)
+    if s >= e:
+        return None
+    q, sh = s >> 6, s & 63
+    reads.append(q)
+    x = (int(words[w0 + q]) & M64) >> sh
+    if sh > 48 and q + 1 < nw:
+        reads.append(q + 1)
+        x |= ((int(words[w0 + q + 1]) & M64) << (64 - sh)) & M64
+    b = x & 0xFFFF
+    if 0 < u <= nv:
+        return s, sum((expand4(b >> (4 * k)) for k in range(4)), []), True
+    return s, [(b >> k) & 1 for k in range(e - s)], False
+
+
+def unpack_model(words, nbits, out_addr):
+    """The launch of ``unpack_bits_lanes(words, nbits)`` with its output
+    at simulated address ``out_addr``: (bool rows [L, nbits], 16-byte
+    stores). Checks every read and write as it goes."""
+    L, nw = words.shape
+    stride = words.stride(0) if L > 1 else nw
+    flat = torch.as_strided(words, ((L - 1) * stride + nw,),
+                            (1,)).numpy()
+    out = np.zeros((L, nbits), np.int64)
+    seen = np.zeros((L, nbits), np.int64)
+    vec = 0
+    for lane in range(L):
+        row = out_addr + lane * nbits
+        for t in range(unpack_blocks(nbits) * UNPACK_THREADS):
+            reads = []
+            x = unpack_unit(flat, lane * stride, nbits, row, t, reads)
+            assert all(0 <= q < nw for q in reads), (lane, t, reads)
+            if x is None:
+                continue
+            s, vals, wide = x
+            if wide:
+                assert len(vals) == 16 and (row + s) % 16 == 0
+                vec += 1
+            else:
+                assert len(vals) < 16
+            assert s + len(vals) <= nbits
+            out[lane, s:s + len(vals)] = vals
+            seen[lane, s:s + len(vals)] += 1
+    assert (seen == 1).all(), "every byte of every row written once"
+    return out.astype(bool), vec
+
+
+@pytest.mark.parametrize("out_shift", [0, 7])
+@pytest.mark.parametrize("L", [1, 3, 17])
+@pytest.mark.parametrize("nbits", examples.UNPACK_WIDTHS)
+def test_unpack_model_matches_plain_and_reference(nbits, L, out_shift):
+    """The unpack's units at every width and lane count, the output at a
+    16-byte boundary and 7 bytes past one (17 lanes of an odd width put
+    the rows at every offset mod 16); lanes 0 and L - 1 also against the
+    reference's ``_words_to_bits``."""
+    import jax.numpy as jnp
+    words = examples.unpack_case(nbits, L, seed=nbits + L, pad=L % 2)
+    got, vec = unpack_model(words, nbits, (1 << 20) + out_shift)
+    for lane in range(L):
+        want = ft._unpack_bits_ref(words[lane], nbits).numpy()
+        assert np.array_equal(got[lane], want), lane
+    for lane in {0, L - 1}:
+        ref = np.asarray(ffd_jax._words_to_bits(
+            jnp.asarray(words[lane].numpy()), nbits))
+        assert np.array_equal(got[lane], ref), lane
+    if nbits >= 48:
+        assert vec, "the 16-byte stores ran"
+
+
+def test_unpack_units_straddle_and_end_cases():
+    """Hand-checked cuts. A 50-bit row at 7 mod 16: a 9-byte head, words
+    from bits 9 and 25, a 9-byte tail from bit 41. A 65-bit row at 0 mod
+    16: no head, bits [48, 64) from word 0 alone (bit 63 set), the tail
+    bit 64 from word 1. A 128-bit row at 15 mod 16: the word from bit 49
+    joins words 0 and 1. A 60-bit row at 15 mod 16: its tail from bit 49
+    reads word 0 only, the lane's one word."""
+    words = torch.tensor([-1 << 63 | 0x0123_4567_89AB_CDEF, 0x5A5A])
+    w = words.numpy()
+    bits = ft._unpack_bits_ref(words, 128).numpy()
+    cuts = [unpack_unit(w, 0, 50, 7, u, []) for u in range(5)]
+    assert [(c[0], len(c[1]), c[2]) for c in cuts[:4]] == \
+        [(0, 9, False), (9, 16, True), (25, 16, True), (41, 9, False)]
+    assert cuts[4] is None
+    assert unpack_unit(w, 0, 65, 0, 0, []) is None
+    reads = []
+    s, vals, wide = unpack_unit(w, 0, 65, 0, 4, reads)
+    assert (s, wide, reads) == (48, True, [0])
+    assert vals == [(0x8123 >> k) & 1 for k in range(16)]
+    reads = []
+    assert unpack_unit(w, 0, 65, 0, 5, reads) == (64, [0], False)
+    assert reads == [1]
+    reads = []
+    s, vals, wide = unpack_unit(w, 0, 128, 15, 4, reads)
+    assert (s, wide, reads) == (49, True, [0, 1])
+    assert vals == [int(b) for b in bits[49:65]]
+    reads = []
+    s, vals, wide = unpack_unit(w, 0, 60, 15, 4, reads)
+    assert (s, len(vals), wide, reads) == (49, 11, False, [0])
+    assert vals == [int(b) for b in bits[49:60]]

@@ -17,12 +17,22 @@ byte of every field is written once, whole, with each 16-byte unit on
 813, 812 and 9, Z = 3, D = 7, N odd and even, 1 to 5 CTAs of 256 threads
 and more threads than units.
 
+The same plan run the other way (``bank_copy_plan(..., to_bank=false)``)
+is the suffix re-solve's load of bank row jr into the working carry, made
+by the copy blocks of its first launch (``csrc/packed_io.cu``
+``unpack_bits_load``): the model of the reversed copy is held to
+``bank_row`` at the same shapes, and the model of that whole launch (its
+unpack blocks first, then its copy blocks, each block one or the other)
+writes every byte of the bool plane and of the carry once, reads only the
+arena's words and row jr, and writes none of what it reads.
+
 Then the two solves in the kernels' order (``ffd_cuda.entry_row``: the
 checkpointed solve stores every chunk entry's carry from its headroom
-launch, the suffix re-solve loads row jr, stores nothing at its first
-group and every later chunk entry from its headroom, and re-stamps its
-pad chunks with one store), built from the plain group step and the
-model's store, are held byte for byte to the reference's
+launch, the suffix re-solve unpacks the arena and loads row jr in one
+launch, stores nothing at its first group and every later chunk entry
+from its headroom, and re-stamps its pad chunks with one store), built
+from the plain group step and the models of the store and the prologue,
+are held byte for byte to the reference's
 ``solve_scan_packed1_ckpt`` and ``solve_scan_suffix``: every live bound
 GL and every SUF at CK = 2 and 4, with and without pad chunks; the
 suffix leaves row jr's bytes as they were.
@@ -40,6 +50,9 @@ from karpenter_provider_aws_tpu.ops import hostpack as hp_jax
 from karpenter_provider_aws_tpu_torch import examples
 from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
 from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+from karpenter_provider_aws_tpu_torch.ops.hostpack import (in_layout_bool,
+                                                           in_layout_i64,
+                                                           layout_sizes)
 
 
 @pytest.fixture(autouse=True)
@@ -54,11 +67,13 @@ def one_torch_thread():
 # the folded copy on simulated addresses
 # ---------------------------------------------------------------------------
 
-def copy_plan(src, dst0, row_bytes, j):
-    """``bank_copy_plan``: per field (src, dst, head, nv, end)."""
+def copy_plan(carry, bank0, row_bytes, j, to_bank=True):
+    """``bank_copy_plan``: per field (src, dst, head, nv, end), from the
+    carry's addresses into bank row j (``to_bank``) or from row j into the
+    carry."""
     out, acc = [], 0
-    for s, d0, n in zip(src, dst0, row_bytes):
-        d = d0 + j * n
+    for c, b0, n in zip(carry, bank0, row_bytes):
+        s, d = (c, b0 + j * n) if to_bank else (b0 + j * n, c)
         h, nv = n, 0
         if (d - s) % 16 == 0:
             h = min((16 - d % 16) % 16, n)
@@ -83,14 +98,16 @@ def copy_unit(plan, u):
     return f, (r if r < h else r + 15 * nv), 1
 
 
-def fold_store(bank_bytes, carry_bytes, j, S, src, dst0):
-    """The store of the carry into bank row j as the launch's S threads
-    make it: each thread's first unit (loaded before its CTA's work,
-    stored after it), then its units u0 + S, u0 + 2S, ... Writes
-    ``bank_bytes`` (per field, [rows * row bytes] uint8) and returns the
-    count of writes of each byte of row j, per field."""
+def fold_store(bank_bytes, carry_bytes, j, S, src, dst0, to_bank=True):
+    """The copy of the carry into bank row j (``to_bank``; or of row j
+    into the carry) as a launch's S threads make it: thread u0 takes units
+    u0, u0 + S, ... (the headroom's store loads its first unit before its
+    CTA's work and stores it after). Writes ``bank_bytes`` (per field,
+    [rows * row bytes] uint8) or ``carry_bytes`` and returns the count of
+    writes of each byte of the destination, per field. ``src`` / ``dst0``
+    are the carry's and the bank's simulated addresses."""
     row_bytes = [c.size for c in carry_bytes]
-    plan = copy_plan(src, dst0, row_bytes, j)
+    plan = copy_plan(src, dst0, row_bytes, j, to_bank)
     total = plan[-1][4]
     hits = [np.zeros(n, np.int64) for n in row_bytes]
     for u0 in range(min(S, total)):
@@ -101,8 +118,11 @@ def fold_store(bank_bytes, carry_bytes, j, S, src, dst0):
                 assert (s + off) % 16 == 0 and (d + off) % 16 == 0
             n = row_bytes[f]
             assert 0 <= off and off + w <= n
-            bank_bytes[f][j * n + off:j * n + off + w] = \
-                carry_bytes[f][off:off + w]
+            row = slice(j * n + off, j * n + off + w)
+            if to_bank:
+                bank_bytes[f][row] = carry_bytes[f][off:off + w]
+            else:
+                carry_bytes[f][off:off + w] = bank_bytes[f][row]
             hits[f][off:off + w] += 1
     return hits
 
@@ -166,6 +186,45 @@ def test_folded_copy_model_matches_bank_store(shape, ctas, shift):
         vec += sum(p[3] for p in plan)
     if shift == 0:
         # the aligned carry moves most of its bytes in 16-byte units
+        assert 16 * vec > sum(c.size for c in carry_bytes)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 8])
+@pytest.mark.parametrize("ctas", [1, 3, 10_000])
+@pytest.mark.parametrize("shape", COPY_SHAPES)
+def test_reversed_copy_model_matches_bank_row(shape, ctas, shift):
+    """Bank row j of five into the working carry by the model of the
+    reversed plan (the prologue's copy blocks): every byte of every carry
+    field written once, whole, equal to ``bank_row``; the bank untouched.
+    ``shift`` moves every carry field off its 256-byte boundary,
+    ``ctas`` sets the copy blocks (10,000: more threads than units)."""
+    T, N, Z, C, D, P = shape
+    rng = np.random.RandomState(T + N + ctas + shift + 1)
+    rows = 5
+    carries = [_random_carry(rng, N, T, Z, C, D, P) for _ in range(rows)]
+    bank = ft.Carry(*[torch.cat([c[i].reshape(
+        (1,) + (() if nm == "num_nodes" else tuple(c[i].shape)))
+        for c in carries]) for i, nm in enumerate(ft.Carry._fields)])
+    bank_bytes = [_bytes(b) for b in bank]
+    before = [b.copy() for b in bank_bytes]
+    base = 1 << 30
+    src = [base + (f + 1) * (1 << 24) + shift * (f + 1) for f in range(8)]
+    dst0 = [base + (f + 9) * (1 << 24) for f in range(8)]
+    vec = 0
+    for j in (3, 0, 4, 1, 2):
+        carry_bytes = [np.full(_bytes(c).size, 0xA5, np.uint8)
+                       for c in carries[0]]
+        hits = fold_store(bank_bytes, carry_bytes, j, 256 * ctas, src, dst0,
+                          to_bank=False)
+        want = ft.bank_row(bank, j)
+        for nm, h, got, w in zip(ft.Carry._fields, hits, carry_bytes, want):
+            assert (h == 1).all(), (j, nm)
+            assert np.array_equal(got, _bytes(w)), (j, nm)
+        plan = copy_plan(src, dst0, [c.size for c in carry_bytes], j, False)
+        vec += sum(p[3] for p in plan)
+    for got, b in zip(bank_bytes, before):
+        assert np.array_equal(got, b)
+    if shift == 0:
         assert 16 * vec > sum(c.size for c in carry_bytes)
 
 
@@ -247,14 +306,87 @@ def ckpt_in_kernel_order(inp, st, CK):
                                 carry), bank
 
 
-def suffix_in_kernel_order(inp, st, bank, CK, SUF, GL):
-    """The suffix re-solve as the card runs it: ffd_bank_load of row jr,
-    per group of the window the headroom (storing every later chunk
-    entry) and the commit, one ffd_bank_store over the pad chunks when
-    there are any. (output buffer, bank spliced in place, stores)."""
+#: simulated addresses of the arena's bool words and of the bool plane
+_WORDS, _PLANE = 1 << 29, (1 << 29) + (1 << 27) + 3
+
+
+def prologue(buf, st, bank, j):
+    """The suffix's first launch (``unpack_bits_load``) as its grid runs
+    it: blocks [0, Bu) the unpack's units (``test_torch_k1``'s model),
+    then the copy blocks, one unit a thread, of bank row j into the
+    working carry (the reversed plan), each block wholly one or the other.
+    Checks that every byte of the plane and of the carry is written once
+    and that nothing written is read in the launch; returns (bool plane,
+    carry)."""
+    from tests.test_torch_k1 import UNPACK_THREADS, unpack_blocks, \
+        unpack_unit
+    T, D, Z, C, G_, E, P = (st[k] for k in "T D Z C G E P".split())
+    K, M, Q = st["K"], st["M"], st["Q"]
+    n_i64 = layout_sizes(in_layout_i64(T, D, Z, C, G_, E, P, K, M, 1, Q))
+    nbits = layout_sizes(in_layout_bool(T, D, Z, C, G_, E, P, K, M, 1, Q))
+    words = buf[n_i64:]
+    assert words.size == -(-nbits // 64)
+    bank_bytes = [_bytes(b) for b in bank]
+    rows = [b.shape[0] for b in bank]
+    row_bytes = [bb.size // r for bb, r in zip(bank_bytes, rows)]
+    carry_bytes = [np.full(n, 0xA5, np.uint8) for n in row_bytes]
+    plan = copy_plan(_SRC, _DST, row_bytes, j, to_bank=False)
+    bu = unpack_blocks(nbits)
+    blocks = bu + -(-plan[-1][4] // UNPACK_THREADS)
+    plane = np.zeros(nbits, np.uint8)
+    seen = np.zeros(nbits, np.int64)
+    hits = [np.zeros(n, np.int64) for n in row_bytes]
+    reads, writes = [], []
+    for b in range(blocks):
+        for t in range(UNPACK_THREADS):
+            if b < bu:
+                q = []
+                x = unpack_unit(words, 0, nbits, _PLANE,
+                                b * UNPACK_THREADS + t, q)
+                reads += [(_WORDS + 8 * w, 8) for w in q]
+                if x is None:
+                    continue
+                s, vals, _ = x
+                plane[s:s + len(vals)] = vals
+                seen[s:s + len(vals)] += 1
+                writes.append((_PLANE + s, len(vals)))
+                continue
+            u = (b - bu) * UNPACK_THREADS + t
+            x = copy_unit(plan, u)
+            if x is None:
+                continue
+            f, off, w = x
+            carry_bytes[f][off:off + w] = \
+                bank_bytes[f][j * row_bytes[f] + off:][:w]
+            hits[f][off:off + w] += 1
+            reads.append((plan[f][0] + off, w))
+            writes.append((plan[f][1] + off, w))
+    assert (seen == 1).all() and all((h == 1).all() for h in hits)
+    spans = sorted([(a, a + n, "r") for a, n in reads]
+                   + [(a, a + n, "w") for a, n in writes])
+    for (a0, a1, k0), (b0, b1, k1) in zip(spans, spans[1:]):
+        assert b0 >= a1 or k0 == k1, "the launch reads what it writes"
+    carry = ft.Carry(*[torch.from_numpy(x.view(
+        b.numpy().dtype)).reshape((1,) if nm == "num_nodes" else
+                                  tuple(b.shape[1:]))
+        for nm, x, b in zip(ft.Carry._fields, carry_bytes, bank)])
+    return torch.from_numpy(plane.astype(bool)), carry
+
+
+def suffix_in_kernel_order(buf, st, bank, CK, SUF, GL):
+    """The suffix re-solve as the card runs it: one launch that unpacks
+    the arena and loads row jr (``prologue``), per group of the window
+    the headroom (storing every later chunk entry) and the commit, one
+    ffd_bank_store over the pad chunks when there are any. (output
+    buffer, bank spliced in place, stores)."""
     E, P, V = st["E"], st["P"], st["V"]
     NC, jr, s0 = G // CK, GL // CK - SUF, GL - SUF * CK
-    carry = ft.bank_row(bank, jr)
+    bools, carry = prologue(buf, st, bank, jr)
+    for nm, got, w in zip(ft.Carry._fields, carry, ft.bank_row(bank, jr)):
+        assert torch.equal(got, w), nm
+    n_i64 = buf.size - -(-bools.numel() // 64)
+    inp = ft._unpack_inputs(torch.from_numpy(buf[:n_i64]), bools, *(
+        st[k] for k in "T D Z C G E P K M".split()), 1, st["Q"])
     takes, lefts, stores = [], [], 0
     for g in range(s0, GL):
         j = fc.entry_row(g, s0, CK, jr, True)
@@ -304,7 +436,8 @@ def test_kernel_order_solves_match_reference(CK):
             jr = GL // CK - SUF
             kb = ft.Carry(*[b.clone() for b in bank])
             row_jr = [b[jr].clone() for b in kb]
-            o, kb, stores = suffix_in_kernel_order(inp, st, kb, CK, SUF, GL)
+            o, kb, stores = suffix_in_kernel_order(buf, st, kb, CK, SUF,
+                                                   GL)
             pads.add(stores)
             assert stores == int(GL < G)
             for nm, a, b in zip(ft.Carry._fields, kb, row_jr):

@@ -16,11 +16,12 @@ device of every kernel wrapper, on the CPU.
   1, 2, 8 and 16 CTAs when flagged slots straddle chunk ends, when a
   chunk is empty, when more than S slots are flagged and at S = N.
 - The launch device: with ``torch.cuda`` and the kernel library stubbed,
-  every wrapper family (K1/K2, fused, pruned, checkpoint, consolidation,
-  topology, mesh) launches on the device of its tensors (cuda:1 while
-  cuda:0 is current) on that device's stream; a scan enters the device's
-  guard once; the cluster rules key on the state's device; and a spawned
-  CUDA rank makes its card current.
+  every wrapper family (K1/K2, fused, pruned, checkpoint, suffix,
+  consolidation, topology, mesh) launches on the device of its tensors
+  (cuda:1 while cuda:0 is current) on that device's stream; a scan enters
+  the device's guard once (the suffix's first launch, the unpack that
+  loads its resume row, inside it); the cluster rules key on the state's
+  device; and a spawned CUDA rank makes its card current.
 
 Tolerance: exact (int64 and bool).
 """
@@ -454,6 +455,35 @@ def test_checkpoint_solve_launches_on_its_device(card):
     rows = [a[3] for n, a in card.args if n == "karp_ffd_slot_headroom"]
     assert rows == [g // 2 if g % 2 == 0 else -1 for g in range(G)]
     _on_card1(card, 3)
+
+
+def test_suffix_launches_on_its_device(card):
+    """The suffix re-solve enters cuda:1's guard once for its loop, whose
+    first launch is the loading unpack (``karp_unpack_bits_load`` of row
+    jr, counted as ``unpack_bits``; no ``karp_ffd_bank_load``), then the
+    window's K2 launches (the later chunk entry's headroom storing its
+    row) and the pad chunks' re-stamp; pack_outputs enters it again: two
+    guards of cuda:1."""
+    arrays, st = examples.example_case("base", G=8)
+    CK, SUF, GL = 2, 2, 6
+    arrays["n"][GL:] = 0
+    buf = torch.from_numpy(pack_inputs1(arrays, *examples.pack_statics(st)))
+    ss = examples.solve_statics(st)
+    _, bank = ft.solve_scan_packed1_ckpt(buf, CK=CK, device="cpu", **ss)
+    fc.solve_scan_suffix_cuda(buf, bank, CK=CK, SUF=SUF, GL=GL, **ss)
+    names = [n for n, _ in card.launches()]
+    assert names == ["karp_unpack_bits_load"] \
+        + ["karp_ffd_slot_headroom", "karp_ffd_group_commit"] * SUF * CK \
+        + ["karp_ffd_bank_store", "karp_pack_outputs"]
+    jr, s0 = GL // CK - SUF, GL - SUF * CK
+    assert card.args[0][1][4] == jr
+    rows = [a[3] for n, a in card.args if n == "karp_ffd_slot_headroom"]
+    assert rows == [fc.entry_row(g, s0, CK, jr, True)
+                    for g in range(s0, GL)] == [-1, -1, 2, -1]
+    assert "ffd_bank_load" not in fc.LAUNCHES
+    assert fc.LAUNCHES["unpack_bits"] == 1
+    assert fc.LAUNCHES["ffd_bank_store"] == 1
+    _on_card1(card, 2)
 
 
 def test_fused_launches_and_cluster_rule_on_the_states_device(card):
