@@ -22,12 +22,14 @@ Phases (any failure exits non-zero before the result line):
    kernels, the checkpointed solve and every (jr, SUF, GL) suffix of
    G=8, CK=2 arenas with existing nodes and with minValues floors, and
    of the 50,000-pod warm-cluster arena (the chunk entries' bank rows
-   stored by ``ffd_slot_headroom``: no ``ffd_bank_store`` in a
-   checkpointed solve, one in a suffix with pad chunks, none without,
-   rows up to jr untouched); the K2 kernels on their lane
-   axis with one lane (config 2 and the warm arena) and with five; the
-   K7 kernels (``consol_absorb`` in its three modes, ``subset_gather``,
-   ``subset_summary``, whole subset rounds) on the synthetic hazard cases
+   stored by ``ffd_slot_headroom``, a suffix's pad rows re-stamped by its
+   ``pack_outputs`` launch, and that pack with a range of several rows
+   against the plain store; rows up to jr untouched); the K2 kernels on
+   their lane axis with one lane (config 2 and the warm arena) and with
+   five; the K7 kernels (``consol_absorb`` in its three modes,
+   ``subset_gather``, the summary rows of a round's last
+   ``ffd_group_commit``, whole subset rounds, one of a single lane on a
+   cluster of 8) on the synthetic hazard cases
    of ``examples.absorb_case`` / ``subset_case`` (the gather also at the
    odd shapes of ``examples.GATHER_SHAPES``); both K5 kernels
    (``ffd_fused_headroom``, ``ffd_fused_commit``) block by block on every
@@ -53,8 +55,9 @@ Phases (any failure exits non-zero before the result line):
    equal a from-scratch ``CUDASolver(incremental=False)`` solve on the
    card; the first five and the last also the plain versions' solve; the
    bank left resident (its rows stored by the suffixes' headroom launches
-   and re-stamps) must equal the plain checkpointed solve's of the last
-   tick's arena;
+   and packs) must equal the plain checkpointed solve's of the last
+   tick's arena; a tick launches 1 ``unpack_bits`` and 1 ``pack_outputs``
+   and no other kernel of the bank;
 6. the consolidation path, ``CUDAConsolidationEvaluator()`` on BASELINE
    config 4 (``examples.config4``): (a) the whole-fleet round of
    ``single_consolidation_device`` at 1,000 nodes (2,000 lanes), (b) the
@@ -177,15 +180,17 @@ Phases (any failure exits non-zero before the result line):
    ``_solve_scan_ref`` on the CPU (computed from the start in a process
    of its own, two threads);
 10. kernel times with CUDA events at the main paths' shapes, beside the
-   plain versions' times, the bound the shapes allow and, for the bank
-   kernels, ``Tensor.copy_`` of the same bytes; ``ffd_slot_headroom`` at
-   config 2's and the warm arena's chunk entries without and with the
-   bank row it stores (the row checked against the plain store), and
-   config 3's plain groups' ``ffd_group_commit`` without and with the
-   membership record; the gather at rounds (a)
-   and (b); the suffix solve's device
-   time beside the checkpointed full solve's on the warm arena; the K2
-   kernels on the lane axis at the whole-fleet round's 2,048 lanes; the
+   plain versions' times and the bound the shapes allow;
+   ``ffd_slot_headroom`` at config 2's and the warm arena's chunk entries
+   without and with the bank row it stores (the row checked against the
+   plain store), the warm suffix's ``pack_outputs`` without and with the
+   re-stamp of its pad rows (beside the plain store and ``Tensor.copy_``
+   of the same bytes), config 3's plain groups' ``ffd_group_commit``
+   without and with the membership record, and each subset round's last
+   ``ffd_group_commit`` without and with the summary rows; the gather at
+   rounds (a) and (b); the suffix solve's device time beside the
+   checkpointed full solve's on the warm arena; the K2 kernels on the
+   lane axis at the whole-fleet round's 2,048 lanes; the
    K6 kernels at config 7's states (and config 7's step split, two
    launches a step, beside the figures of three), the lane-axis K1
    kernels at B = 8 and 64, the K9 kernels at config 3's states (the
@@ -323,9 +328,10 @@ TOPO_CHECKED = ("topo_pool_statics", "topo_group_start", "topo_pour",
                 "ffd_group_commit")
 
 #: the kernels of the warm-tick path (the suffix's unpack_bits launch
-#: also loads its resume row)
+#: also loads its resume row, its pack_outputs launch re-stamps the pad
+#: rows)
 K3_PATH = ("unpack_bits", "ffd_slot_headroom", "ffd_group_commit",
-           "pack_outputs", "ffd_bank_store")
+           "pack_outputs")
 
 K7_SRC = "karpenter_provider_aws_tpu_torch/csrc/consolidation.cu"
 K7_REF = "karpenter_provider_aws_tpu/ops/consolidation_jax.py"
@@ -342,19 +348,18 @@ KERNELS = {
         source="karpenter_provider_aws_tpu_torch/csrc/packed_io.cu",
         replaces=f"{FFD_REF}:1140, {FFD_REF}:1329"),
     # the headroom also stores a chunk entry's bank row (K3), the commit
-    # also records a topology scan's plain group (K9)
+    # also records a topology scan's plain group (K9) and writes a subset
+    # round's summary rows (K7d), the pack also re-stamps the suffix's pad
+    # rows (K3)
     "ffd_slot_headroom": dict(
         source="karpenter_provider_aws_tpu_torch/csrc/ffd_scan.cu",
         replaces=f"{FFD_REF}:279, {FFD_REF}:795"),
     "ffd_group_commit": dict(
         source="karpenter_provider_aws_tpu_torch/csrc/ffd_scan.cu",
-        replaces=f"{FFD_REF}:380, {K9_REF}:685"),
+        replaces=f"{FFD_REF}:380, {K9_REF}:685, {K7_REF}:253"),
     "pack_outputs": dict(
         source="karpenter_provider_aws_tpu_torch/csrc/packed_io.cu",
-        replaces="karpenter_provider_aws_tpu/ops/ffd_jax.py:1159"),
-    "ffd_bank_store": dict(
-        source="karpenter_provider_aws_tpu_torch/csrc/ckpt.cu",
-        replaces="karpenter_provider_aws_tpu/ops/ffd_jax.py:795"),
+        replaces=f"{FFD_REF}:1159, {FFD_REF}:1311"),
     "consol_absorb_deletions": dict(source=K7_SRC, replaces=f"{K7_REF}:43"),
     "consol_absorb_prescreen": dict(source=K7_SRC, replaces=f"{K7_REF}:75"),
     "consol_absorb_dense": dict(source=K7_SRC, replaces=f"{K7_REF}:142"),
@@ -362,7 +367,6 @@ KERNELS = {
         source=K7_SRC,
         replaces="karpenter_provider_aws_tpu/scheduling/preempt_jax.py:39"),
     "subset_gather": dict(source=K7_SRC, replaces=f"{K7_REF}:232"),
-    "subset_summary": dict(source=K7_SRC, replaces=f"{K7_REF}:253"),
     "ffd_pruned_probe": dict(source=K6_SRC,
                              replaces=f"{FFD_REF}:910, {FFD_REF}:939"),
     "ffd_pruned_commit": dict(source=K6_SRC, replaces=f"{FFD_REF}:957"),
@@ -591,13 +595,15 @@ def check_k3(label, buf_np, st, cmp, dev, gls=None):
     arena: for each live bound GL (``gls``; default every multiple of CK
     up to G, the groups past GL emptied) the checkpointed solve's output
     and every bank field (each row stored by its chunk entry's
-    ffd_slot_headroom; no ffd_bank_store launched), the suffix's prologue
-    (unpack_bits_load: the arena's bool plane and one bank row into the
-    working carry, one launch) at every bank row, then every SUF the bound
-    allows: the suffix output and the spliced bank, each run from its own
-    copy of the recorded bank (rows up to jr untouched, the later rows
-    stored by the headroom, the pad rows by the one ffd_bank_store there
-    is, none without pad rows), one unpack_bits launch a suffix."""
+    ffd_slot_headroom), the suffix's prologue (unpack_bits_load: the
+    arena's bool plane and one bank row into the working carry, one
+    launch) at every bank row, the pack with a store range of rows [1,
+    G/CK) (its output and those rows against the plain pack and store),
+    then every SUF the bound allows: the suffix output and the spliced
+    bank, each run from its own copy of the recorded bank (rows up to jr
+    untouched, the later rows stored by the headroom, the pad rows by the
+    suffix's pack), one unpack_bits and one pack_outputs launch a
+    suffix."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
@@ -615,11 +621,7 @@ def check_k3(label, buf_np, st, cmp, dev, gls=None):
         b = buf_np.copy()
         b[off + GL:off + G] = 0
         d = torch.from_numpy(b).to(dev)
-        n0 = fc.LAUNCHES["ffd_bank_store"]
         out, bank = ft.solve_scan_packed1_ckpt(d, CK=CK, **ss)
-        if fc.LAUNCHES["ffd_bank_store"] != n0:
-            raise AssertionError(f"{label} GL={GL}: the checkpointed solve "
-                                 "launched ffd_bank_store")
         inp = ft._packed_inputs_ref(d, T, D, Z, C, G, E, P, K, M, Q)
         tk, lf, cr, pbank = ft._solve_ckpt_ref(inp, n_max, E, P, V, CK)
         cmp("pack_outputs", out, ft._pack_outputs_ref(tk, lf, cr),
@@ -639,22 +641,32 @@ def check_k3(label, buf_np, st, cmp, dev, gls=None):
                                 ft.bank_row(pbank, j)):
                 cmp("unpack_bits", g, w,
                     f"{label} GL={GL} prologue of row {j}: carry.{nm}")
+        if G // CK > 1:   # the pack re-stamping rows [1, G/CK) of a copy
+            ks = fc.BankState(work, ft.Carry(*[x.clone() for x in bank]))
+            want = ft.Carry(*[x.clone() for x in bank])
+            ft._bank_store_ref(want, work, 1, G // CK - 1)
+            cmp("pack_outputs", fc.pack_outputs(
+                tk, lf, work, store=(ks, 1, G // CK - 1)),
+                ft._pack_outputs_ref(tk, lf, work),
+                f"{label} GL={GL} pack re-stamping rows [1, {G // CK})")
+            for nm, g, w in zip(ft.Carry._fields, ks.bank, want):
+                cmp("pack_outputs", g, w, f"{label} GL={GL} pack's "
+                    f"re-stamp of rows [1, {G // CK}): bank.{nm}")
         for SUF in range(1, GL // CK + 1):
             kb = ft.Carry(*[x.clone() for x in bank])
             pb = ft.Carry(*[x.clone() for x in pbank])
             n0 = dict(fc.LAUNCHES)
             o, kb = ft.solve_scan_suffix(d, kb, CK=CK, SUF=SUF, GL=GL, **ss)
             pad = GL < G
-            got = {k: fc.LAUNCHES[k] - n0[k] for k in
-                   ("unpack_bits", "ffd_bank_store", "ffd_group_commit")}
-            if got != dict(unpack_bits=1, ffd_bank_store=int(pad),
-                           ffd_group_commit=SUF * CK) \
-                    or "ffd_bank_load" in fc.LAUNCHES:
+            got = {k: fc.LAUNCHES[k] - n0[k] for k in fc.LAUNCHES
+                   if fc.LAUNCHES[k] != n0[k]}
+            if got != dict(unpack_bits=1, ffd_slot_headroom=SUF * CK,
+                           ffd_group_commit=SUF * CK, pack_outputs=1):
                 raise AssertionError(
                     f"{label} GL={GL} SUF={SUF}: launches {got}, expected "
-                    f"1 unpack_bits (loading row jr), {int(pad)} "
-                    f"ffd_bank_store, {SUF * CK} ffd_group_commit and no "
-                    "ffd_bank_load")
+                    f"1 unpack_bits (loading row jr), {SUF * CK} of each K2 "
+                    "kernel and 1 pack_outputs (re-stamping the pad rows), "
+                    "nothing else")
             tk, lf, cr, pb = ft._solve_suffix_ref(inp, pb, n_max, E, P, V,
                                                   CK, SUF, GL)
             cmp("pack_outputs", o, ft._pack_outputs_ref(tk, lf, cr),
@@ -667,7 +679,7 @@ def check_k3(label, buf_np, st, cmp, dev, gls=None):
                 cmp("ffd_slot_headroom", g[:lb], w[:lb],
                     f"{what} rows up to GL/CK")
                 if pad:
-                    cmp("ffd_bank_store", g[lb:], w[lb:],
+                    cmp("pack_outputs", g[lb:], w[lb:],
                         f"{what} pad rows")
             runs += 1
     return runs
@@ -781,7 +793,7 @@ def warm_tick_phase(pods=WARM_PODS, device=None):
 def check_resident_bank(solver, buf, statics):
     """The bank the warm ticks left resident (the chunk entries' rows
     stored by the suffix's ffd_slot_headroom launches, the pad rows by its
-    ffd_bank_store) against the plain checkpointed solve of the last
+    pack_outputs launch) against the plain checkpointed solve of the last
     tick's arena, on the solver's device: every row, byte for byte."""
     import torch
     from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
@@ -829,8 +841,8 @@ def check_lane_one(label, inp, st, cmp):
 def check_subset_lanes(label, arena, tprice, lanes, st, cmp, nlanes=None):
     """One subset round piece by piece on the card against the plain
     versions: subset_gather, the K2 kernels on the lane axis group by
-    group for the first ``nlanes`` lanes (default all), subset_summary,
-    and the whole round. ``arena`` is a KernelInputs and ``lanes`` a
+    group for the first ``nlanes`` lanes (default all), the last commit
+    with the summary rows. ``arena`` is a KernelInputs and ``lanes`` a
     dict of tensors, all on the card."""
     import torch
     from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
@@ -852,8 +864,11 @@ def check_subset_lanes(label, arena, tprice, lanes, st, cmp, nlanes=None):
     del g_k
     state = fc.ScanState(sub, ft.carry0(sub, N, E, lanes=B), E=E, P=P,
                          lanes=B)
+    keep, rp = t["keep"][:B].contiguous(), t["removed_price"][:B]
+    sargs, rows = cc.summary_args(state, keep, tprice, rp)
     carries = [ft.carry0(ct.lane_inputs(sub, b), N, E) for b in range(B)]
-    for g in range(sub.R.shape[1]):
+    Gq = sub.R.shape[1]
+    for g in range(Gq):
         fc.ffd_slot_headroom(state, g)
         cands, ks = [], []
         for b in range(B):
@@ -873,7 +888,8 @@ def check_subset_lanes(label, arena, tprice, lanes, st, cmp, nlanes=None):
             cmp("ffd_slot_headroom", got, torch.stack([x[i] for x in tabs]),
                 f"{label} lanes g={g} {nm}")
         del tabs
-        fc.ffd_group_commit(state, g)
+        fc.ffd_group_commit(state, g,
+                            summary=sargs if g == Gq - 1 else None)
         takes, lefts = [], []
         for b in range(B):
             carries[b], take, n_rem = ft._group_step_ref(
@@ -889,13 +905,10 @@ def check_subset_lanes(label, arena, tprice, lanes, st, cmp, nlanes=None):
         cmp("ffd_group_commit", state.leftover[:, g], torch.stack(lefts),
             f"{label} lanes g={g} leftover")
     del carries
-    keep, rp = t["keep"][:B].contiguous(), t["removed_price"][:B]
-    cmp("subset_summary",
-        cc.subset_summary(state.leftover, state.carry.num_nodes,
-                          state.carry.types, keep, tprice, rp, E),
+    cmp("ffd_group_commit", rows,
         ct._subset_summary_ref(state.leftover, state.carry.num_nodes,
                                state.carry.types, keep, tprice, rp, E),
-        f"{label} summary")
+        f"{label} lanes summary rows")
     del state, sub
 
 
@@ -903,12 +916,14 @@ def check_k7_synthetic(cmp, dev):
     """The K7 kernels on the seeded hazard cases of ``examples``: the
     three consol_absorb modes (E=32 with the carry in shared memory,
     E=4096 in the global scratch), and whole subset rounds piece by
-    piece, the gather at ``GATHER_SHAPES``, and one round of 65,552 lanes
-    (more than grid y holds). Returns the number of cases."""
+    piece, the gather at ``GATHER_SHAPES``, one round of 65,552 lanes
+    (more than grid y holds) and rounds of one lane (its commit, and so
+    its summary row, on a cluster of 8). Returns the number of cases."""
     import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
     from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
     from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
 
     def cuda(*arrays):
@@ -937,7 +952,7 @@ def check_k7_synthetic(cmp, dev):
             t = {k: torch.from_numpy(v).to(dev) for k, v in lanes.items()}
             what = f"subset {hazard} seed={seed}"
             check_subset_lanes(what, inp, tp, t, st, cmp)
-            cmp("subset_summary",
+            cmp("ffd_group_commit",
                 ct.subset_solve(inp, tp, t["gid"], t["n"], t["dead"],
                                 t["keep"], t["removed_price"], **st),
                 ct._subset_solve_ref(inp, tp, t["gid"], t["n"], t["dead"],
@@ -980,8 +995,30 @@ def check_k7_synthetic(cmp, dev):
         cmp("subset_gather", getattr(g_k, f), rep(getattr(g_p, f)),
             f"{what} {f}")
     del g_k, g_p
-    cmp("subset_summary", ct.subset_solve(inp, tp, *many, **st),
+    cmp("ffd_group_commit", ct.subset_solve(inp, tp, *many, **st),
         rep(ct._subset_solve_ref(inp, tp, *one, **st)), f"{what} round")
+    # one lane, whose commit takes a cluster of 8 CTAs: its summary row
+    for hazard in ("plain", "three_nodes"):
+        arena, tprice, lanes, st = examples.subset_case(
+            hazard, 7, T=813, Ep=37, B=1)
+        inp = ft.kernel_inputs_from_numpy(arena, dev)
+        tp = torch.from_numpy(tprice).to(dev)
+        one = [torch.from_numpy(lanes[k]).to(dev) for k in order]
+        n0 = dict(fc.LAUNCHES)
+        got = ct.subset_solve(inp, tp, *one, **st)
+        Gq = lanes["gid"].shape[1]
+        if {k: fc.LAUNCHES[k] - n0[k] for k in fc.LAUNCHES
+                if fc.LAUNCHES[k] != n0[k]} != dict(
+                    subset_gather=1, ffd_slot_headroom=Gq,
+                    ffd_group_commit=Gq):
+            raise AssertionError("a one-lane subset round's launches")
+        E, N = st["E"], st["E"] + st["n_max"]
+        if fc.k2_shape(1, 0, 0, st["P"], arena["R"].shape[1], N) != (8, 512):
+            raise AssertionError("one lane's commit is not a cluster of 8")
+        cmp("ffd_group_commit", got, ct._subset_solve_ref(inp, tp, *one,
+                                                          **st),
+            f"subset {hazard} one lane (a cluster of 8) row")
+        cases += 1
     return cases + 1
 
 
@@ -1069,8 +1106,8 @@ def subset_rows_check(label, cap, cmp, dev):
             "gid", "n", "dead", "keep", "removed_price")),
         n_max=kw["n_max"], E=kw["E"], P=kw["P"]).cpu()
         for b0 in range(0, B, LANE_CHUNK)])
-    cmp("subset_summary", torch.from_numpy(rows), plain,
-        f"{label}: all {B} lane rows")
+    cmp("ffd_group_commit", torch.from_numpy(rows), plain,
+        f"{label}: all {B} lane rows (the last commit's summary)")
     return plain.numpy(), (arena, tp, t, kw)
 
 
@@ -3270,13 +3307,18 @@ def prologue_times(words, n_bits, bs, j, bank):
             lambda: fc.unpack_bits_load(words, n_bits, bs, j)) * 1e3)
 
 
-def bank_times(d_buf, st, launches):
-    """The bank store at the warm arena's carry, beside the plain version
-    and the eight ``Tensor.copy_`` calls that move the same bytes (the
-    library yardstick; the port never calls it); the warm shape's
-    ``ffd_slot_headroom`` at a chunk entry without and with its bank row
-    (``folded`` on the store's record), and its ``unpack_bits`` alone and
-    as the suffix's prologue loading that row (``prologue_warm``)."""
+def bank_times(d_buf, st, gl):
+    """The warm arena's folded bank copies, µs by CUDA events: its
+    ``ffd_slot_headroom`` at a chunk entry without and with the bank row
+    (``folded``), its ``unpack_bits`` alone and as the suffix's prologue
+    loading a row (``prologue``), and the suffix's ``pack_outputs``
+    without and with the re-stamp of its pad rows [GL/CK, G/CK)
+    (``restamp``: the output and the rows checked against the plain pack
+    and store first; beside the plain store and the eight
+    ``Tensor.copy_`` calls that move the same bytes, the library
+    yardstick, which the port never calls). Returns (folded, prologue,
+    restamp)."""
+    import torch
     from karpenter_provider_aws_tpu_torch import examples
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
     from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
@@ -3286,10 +3328,6 @@ def bank_times(d_buf, st, launches):
     carry = ft.bank_row(bank, j)
     bs = fc.BankState(carry, bank)
     row = sum(c.numel() * c.element_size() for c in carry)
-
-    def copy_store():
-        for b, c in zip(bank, carry):
-            b[j].copy_(c.reshape(b[j].shape))
     g = j * CK
     inp = ft._packed_inputs_ref(d_buf, *(st[k] for k in
                                          "T D Z C G E P K M Q".split()))
@@ -3306,17 +3344,52 @@ def bank_times(d_buf, st, launches):
     prologue = prologue_times(words, nbits, bs, j - 1, bank)
     log(f"[time] unpack_bits at the warm arena alone and as the suffix's "
         f"prologue (loading bank row {j - 1}): {json.dumps(prologue)}")
-    fc.unpack_bits_load(words, nbits, bs, j)   # the carry of row j again
-    ms = time_launches(lambda: fc.ffd_bank_store(bs, j))
-    pms = time_launches(lambda: ft._bank_store_ref(bank, carry, j))
-    lms = time_launches(copy_store)
-    # one carry read and one written
-    b, by = bound_ms(2 * row, 0)
-    return [dict(name="ffd_bank_store", route="cuda",
-                 **KERNELS["ffd_bank_store"],
-                 launches=launches["ffd_bank_store"], ms=ms, plain_ms=pms,
-                 bound_ms=b, bound_by=by, library_ms=lms, bytes=2 * row,
-                 ops=0, folded_warm=folded, prologue_warm=prologue)]
+
+    # the warm tick's suffix (SUF = 3 where the bound allows it): its
+    # takes, leftover and final carry, and its pad rows
+    NC, SUF = st["G"] // CK, min(3, gl // CK)
+    tk, lf, cr, _ = ft._solve_suffix_ref(
+        inp, ft.Carry(*[b.clone() for b in bank]), st["n_max"], st["E"],
+        st["P"], st["V"], CK, SUF, gl)
+    final = ft.Carry(*[c.contiguous().clone() for c in cr])
+    count = max(NC - gl // CK, 1)
+    j0 = NC - count
+    rs = fc.BankState(final, ft.Carry(*[b.clone() for b in bank]))
+    want = ft.Carry(*[b.clone() for b in bank])
+    ft._bank_store_ref(want, final, j0, count)
+    out = fc.pack_outputs(tk, lf, final, store=(rs, j0, count))
+    if not torch.equal(out, ft._pack_outputs_ref(tk, lf, final)) or not all(
+            torch.equal(a, b) for a, b in zip(rs.bank, want)):
+        raise AssertionError("the warm pack's output or re-stamped rows != "
+                             "the plain pack and store")
+
+    def copy_store():
+        for b, c in zip(rs.bank, final):
+            b[j0:j0 + count].copy_(c.reshape(b[0].shape).expand(
+                b[j0:j0 + count].shape))
+    nbytes, ops = pack_cost((tk[None], lf[None], ft.Carry(
+        *[f[None] for f in final])), {})
+    # the re-stamp: one carry read, count rows written
+    rb = row + count * row
+    restamp = dict(
+        rows=count, first_row=j0, row_bytes=row,
+        pack_us=time_launches(lambda: fc.pack_outputs(tk, lf, final)) * 1e3,
+        pack_restamp_us=time_launches(lambda: fc.pack_outputs(
+            tk, lf, final, store=(rs, j0, count))) * 1e3,
+        pack_bound_us=bound_ms(nbytes, ops)[0] * 1e3,
+        pack_restamp_bound_us=bound_ms(nbytes + rb, ops)[0] * 1e3,
+        restamp_bound_us=bound_ms(rb, 0)[0] * 1e3,
+        plain_store_us=time_launches(lambda: ft._bank_store_ref(
+            rs.bank, final, j0, count)) * 1e3,
+        copy_us=time_launches(copy_store) * 1e3,
+        kernels=kernels_per_call(lambda: fc.pack_outputs(
+            tk, lf, final, store=(rs, j0, count))))
+    log(f"[time] pack_outputs at the warm suffix without and with the "
+        f"re-stamp of its pad rows: {json.dumps(restamp)}")
+    if len(restamp["kernels"]) != 1:
+        raise AssertionError(f"the re-stamping pack issued "
+                             f"{restamp['kernels']}")
+    return folded, prologue, restamp
 
 
 def inp_bits(st) -> int:
@@ -3361,13 +3434,11 @@ def _absorb_cost(kw, dense=False):
 def k7_times(caps, launches):
     """The K7 kernels at the consolidation phase's shapes (the captured
     inputs of its last rounds), beside the plain versions, and the K2
-    kernels on their lane axis at the whole-fleet round's lanes. Returns
-    (records for the kernels line, lane-axis record)."""
+    kernels on their lane axis at both subset rounds' lanes, the last
+    commit also with the summary rows (``summary_times``). Returns
+    (records for the kernels line, lane-axis record, summary record)."""
     import torch
-    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
     from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
-    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
-    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
     recs = []
 
     def record(name, ms, pms, nbytes, ops):
@@ -3401,29 +3472,65 @@ def k7_times(caps, launches):
         f"{b_ms * 1e3:.2f} us/launch, bound "
         f"{bound_ms(b_bytes, 0)[0] * 1e3:.4f} us (bytes, {b_bytes} B), "
         f"plain {b_pms * 1e3:.1f} us")
-    arena, tp, t, kw = caps["fleet"]
-    E, P, N = kw["E"], kw["P"], kw["E"] + kw["n_max"]
-    B, Gq = t["gid"].shape
-    T = arena.A.shape[0]
-
-    # the K2 kernels on the lane axis at both subset rounds' shapes; the
-    # whole-fleet round's scan, then its summary
+    # the K2 kernels on the lane axis at both subset rounds' shapes, and
+    # each round's last commit without and with the summary rows
     lane = {"fleet": k2_lane_times(caps["fleet"], (0,))}
-    st, _ = k2_lane_scan(caps["fleet"])
-    args = (st.leftover, st.carry.num_nodes, st.carry.types, t["keep"], tp,
-            t["removed_price"], E)
-    record("subset_summary",
-           time_launches(lambda: cc.subset_summary(*args)),
-           time_launches(lambda: ct._subset_summary_ref(*args), reps=10),
-           8 * B * Gq + 4 * B + 2 * B * T + 8 * T + 8 * B + 40 * B,
-           2 * B * T)
-    del st
+    summary = {"fleet": summary_times(caps["fleet"])}
     torch.cuda.empty_cache()
     Gp = caps["prefix"][2]["gid"].shape[1]
     lane["prefix"] = k2_lane_times(caps["prefix"],
                                    sorted({0, Gp // 4, Gp // 2, 3 * Gp // 4}))
+    summary["prefix"] = summary_times(caps["prefix"])
     torch.cuda.empty_cache()
-    return recs, lane
+    return recs, lane, summary
+
+
+def summary_times(cap):
+    """A captured subset round's last ``ffd_group_commit`` on the card
+    without and with the summary rows, from the same state (the kernels'
+    scan up to that group's headroom, restored before each launch): µs
+    by CUDA events, the rows checked against ``_subset_summary_ref`` of
+    the scan's own outputs first; the plain summary's µs, and the bound
+    of the rows' work (the leftovers, num_nodes, the t0 and keep rows,
+    the prices of the types that are on, the removed prices read once,
+    the rows written)."""
+    import torch
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    arena, tp, t, kw = cap
+    E = kw["E"]
+    B, Gq = t["gid"].shape
+    T = arena.A.shape[0]
+    st, _ = k2_lane_scan(cap, Gq - 1)
+    fc.ffd_slot_headroom(st, Gq - 1)
+    scratch = list(st.carry) + [st.k]    # what the commit writes
+    before = [x.clone() for x in scratch]
+
+    def restore():
+        for dst, src in zip(scratch, before):
+            dst.copy_(src)
+    keep, rp = t["keep"], t["removed_price"]
+    args, rows = cc.summary_args(st, keep, tp, rp)
+    fc.ffd_group_commit(st, Gq - 1, summary=args)
+    ref = (st.leftover, st.carry.num_nodes, st.carry.types, keep, tp, rp, E)
+    if not torch.equal(rows, ct._subset_summary_ref(*ref)):
+        raise AssertionError("the commit's summary rows != the plain rows")
+    on = int((st.carry.types[:, E] & keep).sum())
+    nbytes = 8 * B * Gq + 4 * B + 2 * B * T + 8 * on + 8 * B + 40 * B
+    out = dict(
+        lanes=B, groups=Gq, T=T, shape=[st.cluster, st.threads],
+        commit_us=time_launches(lambda: fc.ffd_group_commit(st, Gq - 1),
+                                reps=20, setup=restore) * 1e3,
+        commit_summary_us=time_launches(
+            lambda: fc.ffd_group_commit(st, Gq - 1, summary=args), reps=20,
+            setup=restore) * 1e3,
+        summary_bound_us=bound_ms(nbytes, 2 * B * T)[0] * 1e3,
+        summary_bytes=nbytes,
+        plain_summary_us=time_launches(
+            lambda: ct._subset_summary_ref(*ref), reps=10) * 1e3)
+    del st, scratch, before
+    return out
 
 
 def gather_cost(arena, gid) -> int:
@@ -4735,29 +4842,34 @@ def main() -> int:
     # ---- phase 5: the warm-tick path ----------------------------------------
     launches_w, warm = warm_tick_phase()
     per_tick = warm["launches_per_tick"]
-    if per_tick["unpack_bits"] != 1 or per_tick["ffd_bank_store"] > 1 \
-            or "ffd_bank_load" in per_tick:
+    if per_tick["unpack_bits"] != 1 or per_tick["pack_outputs"] != 1 \
+            or "ffd_bank_store" in per_tick or "ffd_bank_load" in per_tick:
         raise AssertionError(f"a warm tick's launches {per_tick}: expected 1 "
-                             "unpack_bits (loading the resume row), at "
-                             "most 1 ffd_bank_store and no ffd_bank_load")
+                             "unpack_bits (loading the resume row), 1 "
+                             "pack_outputs (re-stamping the pad rows), no "
+                             "ffd_bank_store and no ffd_bank_load")
 
     # ---- phase 6: the consolidation path -------------------------------------
     launches_k7, c4, caps = consolidation_phase(cmp)
     missing = [k for k in ("consol_absorb_deletions",
                            "consol_absorb_prescreen", "consol_absorb_dense",
-                           "subset_gather", "subset_summary",
-                           "ffd_slot_headroom", "ffd_group_commit")
+                           "subset_gather", "ffd_slot_headroom",
+                           "ffd_group_commit")
                if launches_k7.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the consolidation "
                              f"path: {missing}")
-    per_round = c4["fleet"]["launches_per_round"]
-    gq = c4["fleet"]["subset_dispatch"]["groups"]
-    if (per_round.get("subset_gather"), per_round.get("subset_summary"),
-            c4["fleet"]["subset_dispatch"]["launches"]["ffd_group_commit"]) \
-            != (1, 1, gq):
-        raise AssertionError(f"subset round launches {per_round} are not "
-                             f"1 gather + 2*{gq} + 1 summary")
+    for key in ("fleet", "prefix"):
+        per_round = c4[key]["launches_per_round"]
+        gq = c4[key]["subset_dispatch"]["groups"]
+        one = {k: v for k, v in
+               c4[key]["subset_dispatch"]["launches"].items() if v}
+        if per_round.get("subset_gather") != 1 or one != dict(
+                subset_gather=1, ffd_slot_headroom=gq, ffd_group_commit=gq):
+            raise AssertionError(f"{key} subset round launches {one} (a "
+                                 f"round: {per_round}) are not 1 gather + "
+                                 f"2*{gq} (the last commit writing the "
+                                 "summary rows)")
     torch.cuda.synchronize()
     log(f"[compare] after the consolidation phase: {cmp.checks} checks, "
         f"max_abs_err {cmp.err}")
@@ -4848,8 +4960,15 @@ def main() -> int:
     recs = kernel_times((inp, st2, words, n_bits, carries, tk, lf, final),
                         launches)
     d_bufw = torch.from_numpy(bufw).to(dev)
-    recs += bank_times(d_bufw, stw, launches)
-    k7_recs, lane = k7_times(caps, launches)
+    folded_w, prologue_w, restamp_w = bank_times(d_bufw, stw, glw)
+    per_name = {r["name"]: r for r in recs}
+    per_name["ffd_slot_headroom"]["folded_warm"] = folded_w
+    per_name["unpack_bits"]["prologue_warm"] = prologue_w
+    per_name["pack_outputs"]["restamp_warm"] = restamp_w
+    k7_recs, lane, summary = k7_times(caps, launches)
+    per_name["ffd_group_commit"]["summary_rounds"] = summary
+    log(f"[time] each subset round's last ffd_group_commit without and "
+        f"with the summary rows: {json.dumps(summary)}")
     recs += k7_recs
     recs += k6_times(c7_states, launches)
     c7_pack = pruned_pack_times(c7_states)
@@ -4880,7 +4999,7 @@ def main() -> int:
     for r in recs:
         r["max_abs_err"] = cmp.err[r["name"]]
         lib = "none" if r["library_ms"] is None else \
-            f"{r['library_ms'] * 1e3:.2f} us (Tensor.copy_ x8)"
+            f"{r['library_ms'] * 1e3:.2f} us"
         k = r["name"].split("_lanes_")[0]
         if k == "dist2_step":   # K11: one step of the K10 kernels
             where = "the distributed path's K10 launches"

@@ -29,6 +29,10 @@ Prints one line ``AB <tag> {json}``. To compare two builds, run it on both
 checkouts in one call to the card, in the order P N N P:
 
     for v in p n n p; do python3 hack/k3_k9_ab.py path/to/$v $v; done
+
+It times trees up to c0e7ebf: it calls ``ffd_bank_store``, which later
+trees fold into the suffix's ``pack_outputs`` (``hack/k3_k7_ab.py`` times
+that fold against a tree that still has it).
 """
 import collections
 import importlib.util

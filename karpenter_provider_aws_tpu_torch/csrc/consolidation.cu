@@ -1,6 +1,6 @@
 // K7, consolidation's batched search: the absorption scans of the
-// deletion check and the replacement pre-screen, and the gather and
-// summary around the subset lanes.
+// deletion check and the replacement pre-screen, and the gather before
+// the subset lanes.
 //
 // Replaces karpenter_provider_aws_tpu/ops/consolidation_jax.py:
 //
@@ -57,12 +57,8 @@
 //   sizes are far below 2^31. The lanes then run the K2 kernels on their
 //   lane axis (ffd_scan.cu).
 //
-// subset_summary (:253-262): per lane the [5] row: total leftover, new
-//   nodes, and over the first new slot's type mask t0 = types[E] & keep
-//   (E the padded count of existing rows) the flexibility popcount(t0)
-//   and the cheapest price min(t0 ? tprice : BIG) when a node was
-//   minted, and savings = removed_price - (nodes == 1 ? min_price : 0).
-//   One block per lane. Bound: bytes; it costs its launch.
+// The lanes' summary rows (:253-262) are written by the round's last
+//   ffd_group_commit launch (ffd_scan.cu, SummaryArgs in ffd_common.cuh).
 #include <cuda_runtime.h>
 
 #include "ffd_common.cuh"
@@ -120,18 +116,6 @@ struct GatherArgs {
     i64 B, Gq, T, ZC, D, Z, C, P, E;
 };
 
-// Mirror of ops/consolidation_cuda.py _SummaryArgs.
-struct SummaryArgs {
-    const i64* leftover;     // [B, Gq]
-    const int* num_nodes;    // [B, 1]
-    const u8* types;         // [B, N, T]
-    const u8* keep;          // [B, T]
-    const i64* tprice;       // [T]
-    const i64* removed_price;  // [B]
-    i64* out;                // [B, 5]
-    i64 B, Gq, N, T, E;
-};
-
 namespace {
 
 constexpr int kAbsorbThreads = 256;
@@ -140,7 +124,6 @@ constexpr int kGatherThreads = 256;
 // the waves of resident CTAs the grid aims at
 constexpr i64 kGatherCtaBytes = 16 * 1024;
 constexpr i64 kGatherWaves = 4;
-constexpr int kSummaryThreads = 256;
 
 // k of node row e for the current group (R in shared memory `Rg`);
 // ALIVE: the lane's alive row masks the node too
@@ -488,45 +471,6 @@ subset_gather_kernel(const __grid_constant__ GatherArgs a) {
     }
 }
 
-__global__ void __launch_bounds__(kSummaryThreads)
-subset_summary_kernel(SummaryArgs a) {
-    __shared__ unsigned long long flex;
-    __shared__ long long minp;
-    const i64 b = blockIdx.x, T = a.T;
-    if (threadIdx.x == 0) {
-        flex = 0;
-        minp = 0x7fffffffffffffffLL;
-    }
-    __syncthreads();
-    const u8* t0 = a.types + (b * a.N + a.E) * T;
-    const u8* keep = a.keep + b * T;
-    unsigned long long cnt = 0;
-    long long mp = 0x7fffffffffffffffLL;
-    for (i64 t = threadIdx.x; t < T; t += blockDim.x) {
-        const bool on = t0[t] && keep[t];
-        cnt += on;
-        const long long p = on ? a.tprice[t] : KARP_BIG;
-        mp = p < mp ? p : mp;
-    }
-    atomicAdd(&flex, cnt);
-    atomicMin(&minp, mp);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        i64 left = 0;
-        for (i64 g = 0; g < a.Gq; ++g)
-            left = wadd(left, a.leftover[b * a.Gq + g]);
-        const i64 nn = a.num_nodes[b];
-        const bool minted = nn > 0;
-        const i64 min_price = minted ? (i64)minp : 0;
-        i64* o = a.out + b * 5;
-        o[0] = left;
-        o[1] = nn;
-        o[2] = minted ? (i64)flex : 0;
-        o[3] = min_price;
-        o[4] = wsub(a.removed_price[b], nn == 1 ? min_price : 0);
-    }
-}
-
 int set_smem(const void* fn, size_t smem) {
     if (smem <= 48 * 1024) return 0;
     return (int)cudaFuncSetAttribute(
@@ -602,12 +546,6 @@ int karp_subset_gather(const GatherArgs* a, void* stream) {
     lane_grid(a->B, &grid);
     subset_gather_kernel<<<grid, kGatherThreads, 0, (cudaStream_t)stream>>>(
         *a);
-    return (int)cudaGetLastError();
-}
-
-int karp_subset_summary(const SummaryArgs* a, void* stream) {
-    subset_summary_kernel<<<(unsigned)a->B, kSummaryThreads, 0,
-                            (cudaStream_t)stream>>>(*a);
     return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 // Shared definitions of the FFD group-scan kernels (ffd_scan.cu), the
-// packed-arena kernels (packed_io.cu), the checkpoint-bank kernels
-// (ckpt.cu), the consolidation kernels (consolidation.cu) and the pruned
-// scan's kernels (pruned.cu).
+// packed-arena kernels (packed_io.cu, which also move the checkpoint
+// bank's rows), the consolidation kernels (consolidation.cu) and the
+// pruned scan's kernels (pruned.cu).
 //
 // Integer rules, carried over from the reference kernel
 // (karpenter_provider_aws_tpu/ops/ffd_jax.py): every resource, headroom,
@@ -166,6 +166,12 @@ __device__ __forceinline__ i64 floordiv_rcp(i64 a, i64 b, double rb) {
     q -= r < 0;
     q += r >= b;
     return q;
+}
+
+// Bits 0-3: which bytes of x are not zero.
+__device__ __forceinline__ unsigned nz4(unsigned x) {
+    const unsigned m = __vcmpne4(x, 0u);   // 0xff a non-zero byte
+    return (m & 1u) | ((m >> 7) & 2u) | ((m >> 14) & 4u) | ((m >> 21) & 8u);
 }
 
 // Widest request row a slot CTA stages in shared memory (its quotients
@@ -376,7 +382,7 @@ __device__ __forceinline__ i64 block_excl_scan(i64 local, i64* tmp,
 // ---------------------------------------------------------------------------
 
 // Mirror of ops/ffd_cuda.py _BankArgs (8-byte fields throughout). Outside
-// any unnamed namespace: exported entry points take it (ckpt.cu,
+// any unnamed namespace: exported entry points take it (packed_io.cu,
 // ffd_scan.cu), and a type of such a namespace would give them internal
 // linkage.
 struct BankArgs {
@@ -389,7 +395,8 @@ struct BankArgs {
 // thread of a launch that does not write what it reads: into the row
 // (to_bank: ffd_slot_headroom at a chunk entry, ffd_scan.cu, which reads
 // the carry and writes none of it) or out of the row into the carry (the
-// suffix re-solve's load, unpack_bits_load in packed_io.cu). Each field
+// suffix re-solve's load, unpack_bits_load in packed_io.cu; the suffix's
+// pad re-stamp, several rows, is pack_outputs' own, packed_io.cu). Each field
 // is cut into units: where its carry and its bank row share their address
 // mod 16, the bytes before the destination's first 16-byte boundary
 // (head; the source's too), its 16-byte words (nv) and the bytes after
@@ -490,4 +497,20 @@ struct RecordArgs {
     const int* zfix;        // [N] each slot's zone, -1 undecided
     const int* member_z;    // [G] the group's zone counter row, -1 none
     const int* member_h;    // [G] its hostname counter row, -1 none
+};
+
+// ---------------------------------------------------------------------------
+// The summary row of a consolidation subset lane (K7d)
+// ---------------------------------------------------------------------------
+
+// Mirror of ops/consolidation_cuda.py _SummaryArgs (8-byte fields): what
+// the subset round's last ffd_group_commit reads besides its own scan to
+// write each lane's [5] row (consolidation_jax.py:253-262). The lane's
+// leftover, num_nodes and new-node types come from the commit's own lane
+// view, so they are the scan's.
+struct SummaryArgs {
+    const u8* keep;            // [L, T] each lane's kept types
+    const i64* tprice;         // [T]
+    const i64* removed_price;  // [L]
+    i64* out;                  // [L, 5] the rows (SUBSET_OUT_COLS)
 };

@@ -58,7 +58,7 @@
 //   so both passes run on every CTA instead of those. It writes takes[g -
 //   G0, :] as int32 and leftover[g - G0] (G0 is the first group of the
 //   scanned window: 0 for a full scan, the resume group of a suffix
-//   re-solve, csrc/ckpt.cu).
+//   re-solve, ops/ffd_cuda.py).
 // ffd_group_commit, K > 0: one CTA a lane (CS = 1) runs the block
 //   commit with the minValues caps: the block-wide scans of the fill
 //   (commit_fill), the narrowing slot by slot (commit_narrow) and the
@@ -81,6 +81,29 @@
 //   writes it (new_node_take at K == 0, commit_outputs at K > 0), and the
 //   zone sums by shared then global 64-bit atomics (TakeRecord,
 //   ffd_step.cuh).
+// - K7d's summary row of a consolidation subset lane
+//   (consolidation_jax.py:253-262): the round's last ffd_group_commit
+//   given a SummaryArgs (any lane count, K == 0) writes each lane's [5]
+//   row after its final cluster barrier, on the lane's rank-0 CTA
+//   (summary_row): the leftover summed over the window's rows as a
+//   wrapping sum (exact in any order), the flex count and the cheapest
+//   price over t0 = types[E] & keep, the first new slot's row read a
+//   16-byte span a thread (the row cut at its own 16-byte boundaries, a
+//   full span by one uint4 load; keep's span by one uint4 load where it
+//   shares the row's address mod 16, four 4-byte loads where it shares it
+//   mod 4, as T = 812 rows do, bytes otherwise), tprice read only for the
+//   types that are on, every load of a thread in flight at once, the sums
+//   and minima by warp reductions (the least price as two 32-bit
+//   reductions of an order-preserving key); the lane's keep row is
+//   prefetched into L2 when the launch starts. The barrier makes what the
+//   lane's CTAs wrote in this launch visible to it (the last leftover,
+//   num_nodes, the opened rows' types; earlier groups' leftovers come
+//   from earlier launches): a cluster-scope release and acquire, or, on
+//   a cluster of one CTA (the rounds' shapes), a CTA barrier, which took
+//   ~0.6 us a CTA off the tail on the H100
+//   (hack/k7_summary_variants.py). The launch adds no block; the tail's
+//   latency counts once a wave of the round's CTAs (about 8 at 2,048
+//   lanes).
 //
 // The commit's shape follows a fixed rule on the lane count
 // (karp_ffd_k2_cluster): the first of (CS, NT) = (8, 512), (4, 512),
@@ -206,14 +229,131 @@ size_t commit_smem(const FfdArgs& f, i64 cs, bool rec) {
                : commit_smem_base(f, cs);
 }
 
+// The summary row of lane `lane` (SummaryArgs) after its commit of group
+// g, the last of the window, by every thread of one CTA: a is the lane's
+// view, part 3 * NT / 32 words of shared memory no other CTA reads any
+// more (the warps' leftover sums, flex counts and minimum prices). It
+// runs after the commit on each CTA, so its latency counts once a wave
+// of the round's CTAs: every load a thread makes is issued before any is
+// used (unrolled, predicated), two round trips in all (the t0 and keep
+// spans, then the prices of the types that are on).
+template <int NT>
+__device__ __forceinline__ void summary_row(const FfdArgs& a, i64 g,
+                                            const SummaryArgs& sm,
+                                            i64 lane, u64* part) {
+    constexpr int kWarps = NT / 32;
+    const int tid = threadIdx.x, ln = tid & 31, w = tid >> 5;
+    const i64 T = a.T;
+    // thread 0's scalars, in flight beside the rest
+    const i64 nn = tid == 0 ? (i64)a.num_nodes[0] : 0;
+    const i64 removed = tid == 0 ? __ldg(sm.removed_price + lane) : 0;
+    // the leftover over rows [0, g - G0]: a wrapping sum
+    u64 left = 0;
+    for (i64 r = tid; r <= g - a.G0; r += NT) left += (u64)a.leftover[r];
+    // t0 = types[E] & keep, a 16-byte span of the types row a unit: the
+    // head (bytes before its first 16-byte boundary), then full spans,
+    // read by one 16-byte load; keep's span by one 16-byte load where it
+    // shares the row's address mod 16, four 4-byte loads where it shares
+    // it mod 4 (T = 812 rows start at every 4-byte offset), bytes else
+    const u8* t0 = a.types + a.E * T;
+    const u8* kp = sm.keep + lane * T;
+    i64 h = (i64)((16 - ((uintptr_t)t0 & 15)) & 15);
+    h = h < T ? h : T;
+    const unsigned kal = (unsigned)(((uintptr_t)kp + h) & 15);
+    unsigned cnt = 0;
+    i64 mp = 0x7fffffffffffffffLL;
+    for (i64 u = tid; u < T / 16 + 2; u += NT) {
+        const i64 lo = u == 0 ? 0 : h + 16 * (u - 1);
+        const i64 hi = u == 0 ? h : (lo + 16 < T ? lo + 16 : T);
+        if (lo >= hi) continue;
+        unsigned on = 0;           // bit i: type lo + i is on
+        if (hi - lo == 16) {
+            const uint4 x = *reinterpret_cast<const uint4*>(t0 + lo);
+            uint4 y;
+            if (kal == 0) {
+                y = __ldg(reinterpret_cast<const uint4*>(kp + lo));
+            } else if ((kal & 3) == 0) {
+                const unsigned* k4 =
+                    reinterpret_cast<const unsigned*>(kp + lo);
+                y = make_uint4(__ldg(k4), __ldg(k4 + 1), __ldg(k4 + 2),
+                               __ldg(k4 + 3));
+            } else {
+                unsigned kw[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+                for (int b = 0; b < 16; ++b)
+                    kw[b >> 2] |= (unsigned)__ldg(kp + lo + b)
+                        << (8 * (b & 3));
+                y = make_uint4(kw[0], kw[1], kw[2], kw[3]);
+            }
+            on = (nz4(x.x) & nz4(y.x)) | ((nz4(x.y) & nz4(y.y)) << 4)
+                | ((nz4(x.z) & nz4(y.z)) << 8)
+                | ((nz4(x.w) & nz4(y.w)) << 12);
+        } else {
+#pragma unroll
+            for (int b = 0; b < 16; ++b)
+                if (lo + b < hi)
+                    on |= (unsigned)((t0[lo + b] != 0)
+                                     & (__ldg(kp + lo + b) != 0)) << b;
+        }
+        cnt += __popc(on);
+        i64 pr[16];
+#pragma unroll
+        for (int b = 0; b < 16; ++b)
+            pr[b] = (on >> b) & 1u ? __ldg(sm.tprice + lo + b)
+                                   : 0x7fffffffffffffffLL;
+#pragma unroll
+        for (int b = 0; b < 16; ++b) mp = pr[b] < mp ? pr[b] : mp;
+    }
+    cnt = __reduce_add_sync(~0u, cnt);
+    {   // the least price as an order-preserving unsigned key, high word
+        // first, by two 32-bit reductions
+        const u64 key = (u64)mp ^ (1ull << 63);
+        const unsigned kh = (unsigned)(key >> 32);
+        const unsigned mh = __reduce_min_sync(~0u, kh);
+        const unsigned ml = __reduce_min_sync(~0u, kh == mh ? (unsigned)key
+                                                             : ~0u);
+        mp = (i64)((((u64)mh << 32) | ml) ^ (1ull << 63));
+    }
+    if (g > a.G0)           // more than one leftover row
+        for (int off = 16; off > 0; off >>= 1)
+            left += __shfl_xor_sync(~0u, left, off);
+    if (ln == 0) {
+        part[w] = left;
+        part[kWarps + w] = cnt;
+        part[2 * kWarps + w] = (u64)mp;
+    }
+    __syncthreads();
+    if (tid != 0) return;
+    u64 flex = 0;
+    for (int i = 0; i < kWarps; ++i) {
+        if (i) left += part[i];
+        flex += part[kWarps + i];
+        const i64 o = (i64)part[2 * kWarps + i];
+        mp = o < mp ? o : mp;
+    }
+    // a type that is off counts BIG, as the reference's where(t0, ., BIG)
+    if (flex < (u64)T && KARP_BIG < mp) mp = KARP_BIG;
+    const bool minted = nn > 0;
+    const i64 min_price = minted ? mp : 0;
+    i64* o = sm.out + lane * 5;
+    o[0] = (i64)left;
+    o[1] = nn;
+    o[2] = minted ? (i64)flex : 0;
+    o[3] = min_price;
+    o[4] = wsub(removed, nn == 1 ? min_price : 0);
+}
+
 // With a membership record (kRec: a plain group of the topology scan, one
 // lane) the thread that writes a slot's take records it (TakeRecord,
-// ffd_step.cuh); without one (every other launch) the record's code is
+// ffd_step.cuh); with a summary (kSum: a subset round's last group, K ==
+// 0) the lane's rank-0 CTA writes its summary row (summary_row) after the
+// final cluster barrier. Without them (every other launch) their code is
 // compiled out.
-template <int NT, bool kRec>
+template <int NT, bool kRec, bool kSum>
 __global__ void __launch_bounds__(NT)
 ffd_group_commit_kernel(const __grid_constant__ ScanArgs args, i64 g,
-                        const __grid_constant__ RecordArgs rec) {
+                        const __grid_constant__ RecordArgs rec,
+                        const __grid_constant__ SummaryArgs sum) {
     extern __shared__ i64 dyn[];
     __shared__ u64 scan[33 * kScanW];
     __shared__ i64 bud[kScanW];
@@ -224,6 +364,11 @@ ffd_group_commit_kernel(const __grid_constant__ ScanArgs args, i64 g,
     // is reached by part of a cluster.
     if (lane >= args.f.L) return;
     const int tid = threadIdx.x;
+    if constexpr (kSum) {   // the lane's keep row into L2, 128 B a thread
+        if (blockIdx.x == 0 && tid * 128 < args.f.T)
+            asm volatile("prefetch.global.L2 [%0];" :: "l"(
+                sum.keep + (i64)lane * args.f.T + 128 * tid));
+    }
     TakeRecord tr;
     const TakeRecord* rp = nullptr;
     if constexpr (kRec) {
@@ -284,7 +429,14 @@ ffd_group_commit_kernel(const __grid_constant__ ScanArgs args, i64 g,
                  }, m.tu);
     commit_tail(a, g, 0, 1, 1, c0, c1, capn, m.tbp, m.xch, m.stage, m.sc,
                 true, nullptr, rp);
-    cl.sync();   // no CTA leaves while another may read its shared memory
+    if (kSum && CS == 1)    // one CTA: its own writes, visible at CTA scope
+        __syncthreads();
+    else
+        cl.sync();   // no CTA leaves while another may read its shared memory
+    if constexpr (kSum) {   // its partial sums in the CTA's scan words
+        static_assert(3 * NT / 32 <= 33 * kScanW, "scan holds the parts");
+        if (rank == 0) summary_row<NT>(a, g, sum, lane, scan);
+    }
 }
 
 int set_smem(const void* fn, size_t smem) {
@@ -293,13 +445,18 @@ int set_smem(const void* fn, size_t smem) {
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-const void* commit_fn(i64 threads, bool rec = false) {
+const void* commit_fn(i64 threads, bool rec = false, bool sum = false) {
     if (rec)
         return threads == 512
-            ? (const void*)ffd_group_commit_kernel<512, true>
-            : (const void*)ffd_group_commit_kernel<256, true>;
-    return threads == 512 ? (const void*)ffd_group_commit_kernel<512, false>
-                          : (const void*)ffd_group_commit_kernel<256, false>;
+            ? (const void*)ffd_group_commit_kernel<512, true, false>
+            : (const void*)ffd_group_commit_kernel<256, true, false>;
+    if (sum)
+        return threads == 512
+            ? (const void*)ffd_group_commit_kernel<512, false, true>
+            : (const void*)ffd_group_commit_kernel<256, false, true>;
+    return threads == 512
+        ? (const void*)ffd_group_commit_kernel<512, false, false>
+        : (const void*)ffd_group_commit_kernel<256, false, false>;
 }
 
 // The commit's launch on clusters of cs CTAs of `threads`; `attr` holds
@@ -363,22 +520,27 @@ int karp_ffd_slot_headroom(const ScanArgs* a, long long g,
 }
 
 // With `rec` non-null (one lane only) the commit also records the group's
-// membership (RecordArgs, ffd_common.cuh).
+// membership (RecordArgs, ffd_common.cuh); with `sum` non-null (K == 0, no
+// record; g the window's last group) it also writes each lane's summary
+// row (SummaryArgs, ffd_common.cuh).
 int karp_ffd_group_commit(const ScanArgs* a, long long g,
-                          const RecordArgs* rec, void* stream) {
+                          const RecordArgs* rec, const SummaryArgs* sum,
+                          void* stream) {
     const i64 cs = a->cluster, nt = a->threads;
     if ((cs != 1 && cs != 2 && cs != 4 && cs != 8) || (nt != 256 && nt != 512)
-        || (a->f.K > 0 && cs != 1) || (rec && a->f.L != 1))
+        || (a->f.K > 0 && cs != 1) || (rec && a->f.L != 1)
+        || (sum && (a->f.K > 0 || rec)))
         return (int)cudaErrorInvalidValue;
     RecordArgs r = rec ? *rec : RecordArgs{};
+    SummaryArgs sm = sum ? *sum : SummaryArgs{};
     cudaLaunchAttribute attr[1];
     const cudaLaunchConfig_t cfg = commit_config(a, cs, nt, rec != nullptr,
                                                  attr, (cudaStream_t)stream);
-    const void* fn = commit_fn(nt, rec != nullptr);
+    const void* fn = commit_fn(nt, rec != nullptr, sum != nullptr);
     int err = set_smem(fn, cfg.dynamicSmemBytes);
     if (err) return err;
     i64 gg = (i64)g;
-    void* params[] = {const_cast<ScanArgs*>(a), &gg, &r};
+    void* params[] = {const_cast<ScanArgs*>(a), &gg, &r, &sm};
     err = (int)cudaLaunchKernelExC(&cfg, fn, params);
     if (err) return err;
     return (int)cudaGetLastError();

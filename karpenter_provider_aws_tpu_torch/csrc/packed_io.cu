@@ -5,7 +5,23 @@
 // solve_scan_suffix's select of bank row jr, :1329) and
 // _pack_solve_outputs with its _bits_to_words / _i32_to_words (the whole
 // output buffer: the i64 section, the int32-pair takes and the
-// bit-packed types/zones/ct/alive).
+// bit-packed types/zones/ct/alive; on the suffix re-solve together with
+// solve_scan_suffix's re-stamp of the pad chunks with the final carry,
+// :1311-1322).
+//
+// K3's checkpoint bank (solve_scan_packed1_ckpt, :1280: _chunked_scan at
+// :795 emits the carry entering every CK-th group; solve_scan_suffix,
+// :1296: the select of bank row jr, the splice of the suffix's entry
+// carries over rows jr.., the re-stamp of the pad chunks) is eight device
+// tensors, one per carry field, each with a leading row axis of G/CK:
+// used [., N, D] i64, types [., N, T] u8, zones [., N, Z] u8, ct [., N, C]
+// u8, pool [., N] i32, alive [., N] u8, num_nodes [.] i32, pool_used
+// [., P, D] i64. One row holds one carry (BankArgs, ffd_common.cuh). No
+// launch of its own moves a row: a chunk entry's ffd_slot_headroom
+// (ffd_scan.cu) stores its entry carry, the suffix's unpack_bits_load
+// below loads row jr, and the suffix's pack_outputs re-stamps the pad
+// rows; each of those launches reads what it copies and writes none of
+// it. ops/ffd_cuda.py drives them.
 //
 // unpack_bits: a thread takes one unit of a lane's bool row. Lane l's
 //   row starts l * nbits bytes past `out`, so at any offset mod 16; the
@@ -42,6 +58,20 @@
 //   neighbours' halves into word q by shuffles. A bool's segment is found
 //   by comparing its index with the segments' prefix lengths; bits past
 //   the last segment are 0.
+// pack_outputs with a store range [j, j + count) (the suffix re-solve's
+//   last launch, one lane): blocks [0, Bp) pack as above, blocks [Bp, Bp
+//   + Bs) copy the final carry into bank rows j .. j + count - 1 (the pad
+//   chunks; the store direction of bank_copy_plan), each block wholly
+//   one or the other. Row j + r starts (j + r) * row_bytes past the
+//   field's row 0, so its cut moves from row to row: every row takes
+//   the same units a field (row_units: the bytes before the row's first
+//   16-byte boundary, then a unit a 16-byte span, n / 16 + 2 in all, the
+//   spare ones empty), and each unit finds its row's head from the row's
+//   address. A full span moves by one uint4 load and store where the
+//   carry and the row share their address mod 16, byte by byte
+//   otherwise, as the head and the tail do. The pack reads the carry and
+//   writes the output row, the copy reads the carry and writes bank rows
+//   the launch does not read.
 // The lane axis (solve_scan_packed1_many, the pruned scan's _many): L
 //   arenas of one statics bucket in one launch. The lane rides grid y
 //   and z (lane_grid, a 32-bit index as in the scan kernels); lane l
@@ -53,8 +83,9 @@
 // What bounds them on this card: bytes. At the 50k-pod, 812-type shape
 //   the input plane is ~13 k bits and the output ~208 k bools read plus
 //   ~5.6 k words written, nanoseconds of memory traffic, so one launch
-//   costs its latency (hence the suffix's load rides the unpack's
-//   launch); at B = 64 lanes (8.5 MB unpacked, 34 MB packed) and on
+//   costs its latency (hence the suffix's load rides the unpack's launch
+//   and its pad re-stamp, a ~12 KB carry a row at the warm tick, the
+//   pack's); at B = 64 lanes (8.5 MB unpacked, 34 MB packed) and on
 //   config 7's pruned pack (4.2 M takes) the bytes are the bound, which
 //   the 16-byte bool stores and loads (512 bytes a warp instruction) and
 //   the 8-byte takes loads serve.
@@ -148,12 +179,6 @@ unpack_bits_load_kernel(const i64* words, i64 nbits, u8* out,
         bc, (i64)(blockIdx.x - bu) * blockDim.x + threadIdx.x));
 }
 
-// Bits 0-3: which bytes of x are not zero.
-__device__ __forceinline__ unsigned nz4(unsigned x) {
-    const unsigned m = __vcmpne4(x, 0u);   // 0xff a non-zero byte
-    return (m & 1u) | ((m >> 7) & 2u) | ((m >> 14) & 4u) | ((m >> 21) & 8u);
-}
-
 // Segment j's bools of lane `lane` (constant j: a parameter load, no
 // copy of the argument block to local memory).
 template <int J>
@@ -240,9 +265,68 @@ __device__ __forceinline__ unsigned pack16(const PackArgs& a, i64 lane,
     return m;
 }
 
+// The pad re-stamp's rows: bank rows [j, j + count) of a BankArgs, and
+// the units of one row, end[f] counting those of fields 0 .. f
+// (row_units).
+struct RowStore {
+    i64 j, count;
+    i64 end[8];
+};
+
+// Units of one field of n bytes in any row: its head (the bytes before
+// the row's first 16-byte boundary, at most 15) and a unit a 16-byte
+// span after it; the spans past the row's end are empty.
+inline i64 row_units(i64 n) { return n / 16 + 2; }
+
+// Unit u of the re-stamp: row u / end[7], then a field and a unit of it
+// (ffd_common.cuh bank_copy_plan's cut, taken at this row's address).
+__device__ __forceinline__ void store_unit(const BankArgs& b,
+                                           const RowStore& rs, i64 u) {
+    const i64 R = rs.end[7];
+    const i64 r = u / R;
+    if (r >= rs.count) return;
+    const i64 x = u - r * R;
+    int f = 0;
+    while (rs.end[f] <= x) ++f;
+    const i64 k = x - (f ? rs.end[f - 1] : 0);
+    const i64 n = b.row_bytes[f];
+    unsigned char* d = b.bank[f] + (rs.j + r) * n;
+    const unsigned char* s = b.carry[f];
+    i64 h = (i64)((16 - ((uintptr_t)d & 15)) & 15);
+    h = h < n ? h : n;
+    const i64 lo = k == 0 ? 0 : h + 16 * (k - 1);
+    const i64 hi = k == 0 ? h : (lo + 16 < n ? lo + 16 : n);
+    if (lo >= hi) return;      // a spare unit of this row
+    if (hi - lo == 16 && (((uintptr_t)d - (uintptr_t)s) & 15) == 0) {
+        *reinterpret_cast<uint4*>(d + lo) =
+            __ldg(reinterpret_cast<const uint4*>(s + lo));
+        return;
+    }
+    // bytes: every load issued before the first store
+    u8 v[16];
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+        if (lo + b < hi) v[b] = __ldg(s + lo + b);
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+        if (lo + b < hi) d[lo + b] = v[b];
+}
+
+// With kStore (the suffix's last launch, one lane) blocks pb.. re-stamp
+// the bank rows of `rs`; without, that code is compiled out.
+template <bool kStore>
 __global__ void __launch_bounds__(kThreads)
 pack_outputs_kernel(const __grid_constant__ PackArgs a, i64 n64, i64 w32,
-                    i64 nwb, i64 nbits, i64 ws) {
+                    i64 nwb, i64 nbits, i64 ws,
+                    const __grid_constant__ BankArgs bk,
+                    const __grid_constant__ RowStore rs, unsigned pb) {
+    if constexpr (kStore) {
+        if (blockIdx.x >= pb) {   // block-uniform: a re-stamp block
+            store_unit(bk, rs,
+                       (i64)(blockIdx.x - pb) * blockDim.x + threadIdx.x);
+            return;
+        }
+    }
     const unsigned lane = grid_lane();
     if (lane >= a.L) return;
     const int ln = threadIdx.x & 31;
@@ -319,20 +403,47 @@ int karp_unpack_bits_load(const long long* words, long long nbits,
 }
 
 // One launch for the whole output row of every lane (PackArgs); the row
-// is out_stride words: n64 + w32 + nwb (+ 1 with a bail pointer).
-int karp_pack_outputs(const PackArgs* a, void* stream) {
+// is out_stride words: n64 + w32 + nwb (+ 1 with a bail pointer). With
+// `bank` non-null and count > 0 (one lane only) the launch also copies
+// the carry of `bank` into its rows [j, j + count) (RowStore).
+int karp_pack_outputs(const PackArgs* a, const BankArgs* bank, long long j,
+                      long long count, void* stream) {
+    const bool store = bank != nullptr && count > 0;
+    if (store && (a->L != 1 || j < 0)) return (int)cudaErrorInvalidValue;
     i64 n64 = 0, nbits = 0;
-    for (int j = 0; j < 5; ++j) n64 += a->f_len[j];
-    for (int j = 0; j < 4; ++j) nbits += a->seg_len[j];
+    for (int f = 0; f < 5; ++f) n64 += a->f_len[f];
+    for (int f = 0; f < 4; ++f) nbits += a->seg_len[f];
     const i64 w32 = (a->n32 + 1) / 2, nwb = (nbits + 63) / 64;
     const i64 ns = n64 + w32 + (a->bail != nullptr);
     const i64 ws = (ns + 31) / 32;
     const i64 warps = ws + (nwb + kBitWords - 1) / kBitWords;
-    if (warps > 0 && a->L > 0) {
-        dim3 grid((unsigned)((warps + kPackWarps - 1) / kPackWarps));
+    const unsigned pb = warps > 0 && a->L > 0
+        ? (unsigned)((warps + kPackWarps - 1) / kPackWarps) : 0;
+    RowStore rs = {};
+    BankArgs bk = {};
+    unsigned sb = 0;
+    if (store) {
+        bk = *bank;
+        rs.j = j;
+        rs.count = count;
+        i64 acc = 0;
+        for (int f = 0; f < 8; ++f) {
+            acc += row_units(bk.row_bytes[f]);
+            rs.end[f] = acc;
+        }
+        sb = blocks_for(count * acc);
+    }
+    if (pb + sb == 0) return (int)cudaGetLastError();
+    dim3 grid(pb + sb);
+    if (store) {
+        pack_outputs_kernel<true><<<grid, kThreads, 0,
+                                    (cudaStream_t)stream>>>(
+            *a, n64, w32, nwb, nbits, ws, bk, rs, pb);
+    } else {
         lane_grid(a->L, &grid);
-        pack_outputs_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-            *a, n64, w32, nwb, nbits, ws);
+        pack_outputs_kernel<false><<<grid, kThreads, 0,
+                                     (cudaStream_t)stream>>>(
+            *a, n64, w32, nwb, nbits, ws, bk, rs, pb);
     }
     return (int)cudaGetLastError();
 }

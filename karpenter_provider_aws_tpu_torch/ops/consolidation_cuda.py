@@ -18,9 +18,11 @@ Nothing here falls back to the plain versions in
 - ``subset_gather``: every lane's KernelInputs from the union arena, X
   CTAs a lane (``gather_ctas``: by bytes, about four waves of the card's
   resident CTAs), each field's rows cut into X slices, 16-byte stores.
-- ``subset_summary``: the [B, 5] rows.
+- ``summary_args``: the [B, 5] rows' arguments, which the round's last
+  ``ffd_group_commit`` launch takes (``csrc/ffd_scan.cu`` writes the rows
+  after that commit).
 - ``subset_solve_cuda``: gather, the K2 kernels on their lane axis
-  (2·Gq launches), summary.
+  (2·Gq launches, the last commit writing the rows).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import ctypes
 import torch
 
 from . import ffd_cuda
-from .ffd_cuda import LAUNCHES, ScanState, _launch, _lib, _need
+from .ffd_cuda import ScanState, _launch, _lib, _need
 from .ffd_torch import KernelInputs, carry0
 
 #: the largest lane carry ``used`` [E, D] kept in shared memory (bytes);
@@ -66,11 +68,9 @@ class _GatherArgs(ctypes.Structure):
 
 
 class _SummaryArgs(ctypes.Structure):
-    """Mirror of ``struct SummaryArgs`` in csrc/consolidation.cu."""
-    _fields_ = ([(f, _vp) for f in (
-        "leftover", "num_nodes", "types", "keep", "tprice", "removed_price",
-        "out")]
-        + [(f, _ll) for f in ("B", "Gq", "N", "T", "E")])
+    """Mirror of ``struct SummaryArgs`` in csrc/ffd_common.cuh."""
+    _fields_ = [(f, _vp) for f in ("keep", "tprice", "removed_price",
+                                   "out")]
 
 
 def _ptr(t):
@@ -249,30 +249,29 @@ def gather_args(arena: KernelInputs, gid, dead, keep):
     return args, o
 
 
-def subset_summary(leftover, num_nodes, types, keep, tprice, removed_price,
-                   E: int) -> torch.Tensor:
-    """[B, 5] int64 rows of SUBSET_OUT_COLS from the lanes' leftover
-    [B, Gq], num_nodes [B, 1] int32, types [B, N, T] and keep [B, T];
-    ``E`` is the padded count of existing rows."""
-    B, N, T = types.shape
-    Gq = leftover.shape[1]
-    if not 0 <= E < N:
-        raise ValueError(f"first new slot {E} outside [0, {N})")
-    _need(leftover, "leftover", torch.int64, (B, Gq))
-    _need(num_nodes, "num_nodes", torch.int32, (B, 1))
-    _need(types, "types", torch.bool, (B, N, T))
+def summary_args(st: ScanState, keep, tprice, removed_price):
+    """The summary rows' checked arguments over a lane-axis scan ``st``
+    (each lane's leftover, num_nodes and types [N, T], its first new slot
+    at ``st.args.E``), keep [B, T], tprice [T] and removed_price [B]:
+    (``_SummaryArgs``, the fresh [B, 5] int64 rows that
+    ``ffd_cuda.ffd_group_commit(st, last group, summary=...)`` writes)."""
+    if st.lanes is None:
+        raise ValueError("the summary rows take a scan on the lane axis")
+    B, T = st.lanes, st.args.T
+    if not 0 <= st.args.E < st.args.N:
+        raise ValueError(f"first new slot {st.args.E} outside "
+                         f"[0, {st.args.N})")
     _need(keep, "keep", torch.bool, (B, T))
     _need(tprice, "tprice", torch.int64, (T,))
     _need(removed_price, "removed_price", torch.int64, (B,))
-    out = torch.empty((B, 5), dtype=torch.int64, device=types.device)
-    args = _SummaryArgs(
-        leftover=_ptr(leftover), num_nodes=_ptr(num_nodes),
-        types=_ptr(types), keep=_ptr(keep), tprice=_ptr(tprice),
-        removed_price=_ptr(removed_price), out=_ptr(out), B=B, Gq=Gq, N=N,
-        T=T, E=E)
-    _launch("subset_summary", _lib().karp_subset_summary,
-            (ctypes.byref(args),), types)
-    return out
+    for t in (keep, tprice, removed_price):
+        if t.device != st.k.device:
+            raise ValueError(f"the summary's inputs lie on {t.device}, "
+                             f"the scan on {st.k.device}")
+    out = torch.empty((B, 5), dtype=torch.int64, device=st.k.device)
+    return _SummaryArgs(keep=_ptr(keep), tprice=_ptr(tprice),
+                        removed_price=_ptr(removed_price),
+                        out=_ptr(out)), out
 
 
 def subset_solve_cuda(arena: KernelInputs, tprice, gid, n, dead, keep,
@@ -280,7 +279,8 @@ def subset_solve_cuda(arena: KernelInputs, tprice, gid, n, dead, keep,
                       P: int) -> torch.Tensor:
     """The whole-fleet subset round on the card: one subset_gather, the
     two K2 kernels per group on the lane axis (2·Gq launches for every
-    lane at once), one subset_summary; no synchronisation."""
+    lane at once), the last commit also writing the [B, 5] rows
+    (``summary_args``); no synchronisation."""
     if arena.mv_floor is not None:
         raise ValueError("subset lanes take no minValues floors")
     if arena.ex_compat.shape[1] != E:
@@ -291,6 +291,10 @@ def subset_solve_cuda(arena: KernelInputs, tprice, gid, n, dead, keep,
         lanes = subset_gather(arena, gid, n, dead, keep)
         carry = carry0(lanes, E + n_max, E, lanes=B)
         st = ScanState(lanes, carry, E=E, P=P, lanes=B)
-        ffd_cuda.k2_steps(st, 0, Gq)
-        return subset_summary(st.leftover, carry.num_nodes, carry.types,
-                              keep, tprice, removed_price, E)
+        args, out = summary_args(st, keep, tprice, removed_price)
+        with ffd_cuda.launching(gid) as stream:
+            for g in range(Gq):
+                ffd_cuda.ffd_slot_headroom(st, g, stream)
+                ffd_cuda.ffd_group_commit(
+                    st, g, stream, summary=args if g == Gq - 1 else None)
+        return out

@@ -29,8 +29,8 @@ integer matmul).
 The public functions dispatch on the tensors' device: the plain versions
 below for CPU tensors, the CUDA kernels of ``ops/consolidation_cuda.py``
 (``consol_absorb``, ``subset_gather``, the K2 kernels on their lane axis,
-``subset_summary``) for CUDA tensors. Nothing falls back from one to the
-other.
+whose last commit writes the summary rows) for CUDA tensors. Nothing
+falls back from one to the other.
 """
 
 from __future__ import annotations

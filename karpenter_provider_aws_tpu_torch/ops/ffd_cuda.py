@@ -1,14 +1,14 @@
 """The CUDA kernels of the packed FFD scan: build, binding and wrappers.
 
 ``csrc/packed_io.cu`` (K1: ``unpack_bits``, ``pack_outputs``; the
-suffix re-solve's unpack also loads K3's resume row),
+suffix re-solve's unpack also loads K3's resume row, its pack also
+re-stamps K3's pad rows),
 ``csrc/ffd_scan.cu`` (K2: ``ffd_slot_headroom``, ``ffd_group_commit``;
 the headroom also stores K3's chunk-entry bank rows, the commit also
-records K9's plain groups),
+records K9's plain groups and writes K7d's summary rows),
 ``csrc/fused.cu`` (K5: ``ffd_fused_headroom``, ``ffd_fused_commit``),
-``csrc/ckpt.cu`` (K3: ``ffd_bank_store``),
-``csrc/consolidation.cu`` (K7: ``consol_absorb``, ``subset_gather``,
-``subset_summary``; wrappers in ``ops/consolidation_cuda.py``) and
+``csrc/consolidation.cu`` (K7: ``consol_absorb``, ``subset_gather``;
+wrappers in ``ops/consolidation_cuda.py``) and
 ``csrc/pruned.cu`` (K6: ``ffd_pruned_probe``, ``ffd_pruned_commit``) and
 ``csrc/topo.cu`` (K9: ``topo_pool_statics``, ``topo_group_start``,
 ``topo_pour``; wrappers in ``ops/topo_cuda.py``) and
@@ -55,8 +55,8 @@ from .hostpack import in_layout_bool, in_layout_i64, layout_sizes, nwords
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("packed_io.cu", "ffd_scan.cu", "ckpt.cu", "consolidation.cu",
-           "pruned.cu", "topo.cu", "fused.cu", "mesh.cu")
+SOURCES = ("packed_io.cu", "ffd_scan.cu", "consolidation.cu", "pruned.cu",
+           "topo.cu", "fused.cu", "mesh.cu")
 HEADERS = ("ffd_common.cuh", "ffd_step.cuh", "ffd_cluster.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -65,12 +65,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: wrapper, bumped where the kernel is launched and nowhere else)
 LAUNCHES: Dict[str, int] = {"unpack_bits": 0, "ffd_slot_headroom": 0,
                             "ffd_group_commit": 0, "pack_outputs": 0,
-                            "ffd_bank_store": 0,
                             "consol_absorb_deletions": 0,
                             "consol_absorb_prescreen": 0,
                             "consol_absorb_dense": 0,
                             "consol_absorb_preempt": 0, "subset_gather": 0,
-                            "subset_summary": 0, "ffd_pruned_probe": 0,
+                            "ffd_pruned_probe": 0,
                             "ffd_pruned_commit": 0, "topo_pool_statics": 0,
                             "topo_group_start": 0,
                             "topo_pour": 0,
@@ -147,15 +146,13 @@ def _lib():
             vp, ll = ctypes.c_void_p, ctypes.c_longlong
             lib.karp_unpack_bits.argtypes = [vp, ll, vp, ll, ll, vp]
             lib.karp_unpack_bits_load.argtypes = [vp, ll, vp, vp, ll, vp]
-            lib.karp_pack_outputs.argtypes = [vp, vp]
+            lib.karp_pack_outputs.argtypes = [vp, vp, ll, ll, vp]
             lib.karp_ffd_slot_headroom.argtypes = [vp, ll, vp, ll, vp]
-            lib.karp_ffd_group_commit.argtypes = [vp, ll, vp, vp]
+            lib.karp_ffd_group_commit.argtypes = [vp, ll, vp, vp, vp]
             lib.karp_ffd_k2_cluster.argtypes = [vp]
-            lib.karp_ffd_bank_store.argtypes = [vp, ll, ll, vp]
             lib.karp_consol_absorb.argtypes = [vp, ctypes.c_int, vp]
             lib.karp_subset_gather.argtypes = [vp, vp]
             lib.karp_subset_gather_grid.argtypes = [vp, vp, vp]
-            lib.karp_subset_summary.argtypes = [vp, vp]
             for fn in (lib.karp_ffd_pruned_probe,
                        lib.karp_ffd_pruned_commit):
                 fn.argtypes = [vp, ll, vp]
@@ -183,10 +180,8 @@ def _lib():
                        lib.karp_pack_outputs,
                        lib.karp_ffd_slot_headroom,
                        lib.karp_ffd_group_commit, lib.karp_ffd_k2_cluster,
-                       lib.karp_ffd_bank_store,
                        lib.karp_consol_absorb, lib.karp_subset_gather,
-                       lib.karp_subset_gather_grid,
-                       lib.karp_subset_summary, lib.karp_ffd_pruned_probe,
+                       lib.karp_subset_gather_grid, lib.karp_ffd_pruned_probe,
                        lib.karp_ffd_pruned_commit,
                        lib.karp_ffd_pruned_cluster, lib.karp_topo_group_start,
                        lib.karp_topo_pour,
@@ -320,11 +315,16 @@ def unpack_bits_load(words: torch.Tensor, nbits: int, bs: "BankState",
 
 
 def pack_outputs(takes: torch.Tensor, leftover: torch.Tensor,
-                 carry: Carry) -> torch.Tensor:
+                 carry: Carry, store: tuple = None,
+                 stream: int = None) -> torch.Tensor:
     """The output buffer [i64 section | int32-pair takes | bit words]:
-    the one-lane launch of ``pack_outputs_lanes``."""
+    the one-lane launch of ``pack_outputs_lanes``. With ``store`` = (a
+    ``BankState`` over ``carry``, j, count) the same launch copies the
+    carry into bank rows [j, j + count) (the suffix's pad re-stamp);
+    ``stream``: the stream of the caller's ``launching`` guard."""
     return pack_outputs_lanes(takes[None], leftover[None],
-                              Carry(*[f[None] for f in carry[:8]]))[0]
+                              Carry(*[f[None] for f in carry[:8]]),
+                              store=store, stream=stream)[0]
 
 
 #: the i64 section's fields, in the output buffer's order
@@ -405,13 +405,18 @@ def pack_sources(takes: torch.Tensor, leftover: torch.Tensor, carry,
 
 
 def pack_outputs_lanes(takes: torch.Tensor, leftover: torch.Tensor,
-                       carry, bail: torch.Tensor = None) -> torch.Tensor:
+                       carry, bail: torch.Tensor = None, store: tuple = None,
+                       stream: int = None) -> torch.Tensor:
     """[L, W]: row l the output buffer [i64 section | int32-pair takes |
     bit words] of lane l (takes [L, G, N] int32, leftover [L, G], carry
     fields [L, ...], each lane contiguous; int32 or int64 integers),
     with ``bail`` [L, 1] bool one trailing word a lane (the pruned scan's
-    bail), in one kernel launch whatever L is."""
+    bail), in one kernel launch whatever L is. With ``store`` = (bs, j,
+    count), one lane only, the launch also copies the carry into bank
+    rows [j, j + count) of the ``BankState`` bs, whose working carry it
+    must be (``_store_range``)."""
     src = pack_sources(takes, leftover, carry, bail)
+    bank, j, count = _store_range(store, carry) if store else (None, 0, 0)
     dev = takes.device
     every = [f[0] for f in src["fields"]] + [src["takes"][0]] \
         + [s[0] for s in src["segs"]] + ([bail] if bail is not None else [])
@@ -437,9 +442,25 @@ def pack_outputs_lanes(takes: torch.Tensor, leftover: torch.Tensor,
         bail=bl[0].data_ptr() if bl else None,
         bail_stride=bl[1] if bl else 0, out=out.data_ptr(), out_stride=W,
         L=L)
-    _launch("pack_outputs", _lib().karp_pack_outputs, (ctypes.byref(args),),
-            takes)
+    _launch("pack_outputs", _lib().karp_pack_outputs,
+            (ctypes.byref(args), bank, j, count), takes, stream)
     return out
+
+
+def _store_range(store: tuple, carry) -> tuple:
+    """The checked re-stamp of a pack (``store`` = (BankState, j,
+    count)) over the pack's [1, ...] ``carry``: (argument block, j,
+    count)."""
+    bs, j, count = store
+    if carry.used.shape[0] != 1:
+        raise ValueError("a bank store range takes a pack of one lane")
+    if not (0 <= j and count >= 1 and j + count <= bs.rows):
+        raise ValueError(f"bank rows [{j}, {j + count}) outside "
+                         f"[0, {bs.rows})")
+    if [c.data_ptr() for c in bs.carry] != \
+            [c.data_ptr() for c in carry[:8]]:
+        raise ValueError("the bank's working carry is not the pack's")
+    return ctypes.byref(bs.args), j, count
 
 
 # ---------------------------------------------------------------------------
@@ -706,7 +727,8 @@ class _RecordArgs(ctypes.Structure):
 
 
 def ffd_group_commit(st: ScanState, g: int, stream: int = None,
-                     record: _RecordArgs = None) -> None:
+                     record: _RecordArgs = None,
+                     summary: ctypes.Structure = None) -> None:
     """Steps 4-7 for group g, its new nodes read from the table the
     headroom launch wrote (K == 0; with minValues floors the commit
     computes each pool's table and caps itself): updates the carry in
@@ -714,13 +736,25 @@ def ffd_group_commit(st: ScanState, g: int, stream: int = None,
     (``st.k`` becomes take), on ``st.cluster`` CTAs of ``st.threads`` a
     lane. With ``record`` (a topology scan's plain group, one lane) the
     same launch records the group's membership in the scan's counters
-    (``topo_torch._topo_record_plain_ref`` of the int32 takes)."""
+    (``topo_torch._topo_record_plain_ref`` of the int32 takes). With
+    ``summary`` (``consolidation_cuda.summary_args``: a subset round's
+    last group, no minValues floors, no record) it also writes each
+    lane's summary row (``consolidation_torch._subset_summary_ref`` of
+    the scan's leftover, num_nodes and types)."""
     _in_window(st, g)
     if record is not None and st.lanes is not None:
         raise ValueError("a membership record takes a scan of one lane")
+    if summary is not None:
+        if record is not None or st.args.K > 0:
+            raise ValueError("a summary row takes a commit without "
+                             "minValues floors or a record")
+        if g != st.s1 - 1:
+            raise ValueError(f"a summary row takes the window's last group "
+                             f"{st.s1 - 1}, not {g}")
     _launch("ffd_group_commit", _lib().karp_ffd_group_commit,
             (ctypes.byref(st.kargs), g,
-             None if record is None else ctypes.byref(record)), st.k,
+             None if record is None else ctypes.byref(record),
+             None if summary is None else ctypes.byref(summary)), st.k,
             stream)
 
 
@@ -809,17 +843,6 @@ class BankState:
             self.args.row_bytes[i] = c.numel() * c.element_size()
 
 
-def ffd_bank_store(bs: BankState, j: int, count: int = 1,
-                   stream: int = None) -> None:
-    """The working carry into bank rows [j, j + count), every field in
-    one launch (count > 1: the pad re-stamp of a suffix re-solve)."""
-    if not (0 <= j and count >= 1 and j + count <= bs.rows):
-        raise ValueError(f"bank rows [{j}, {j + count}) outside "
-                         f"[0, {bs.rows})")
-    _launch("ffd_bank_store", _lib().karp_ffd_bank_store,
-            (ctypes.byref(bs.args), j, count), bs.carry.used, stream)
-
-
 def entry_row(g: int, s0: int, CK: int, j0: int, resumed: bool) -> int:
     """The bank row that group g's ``ffd_slot_headroom`` stores its entry
     carry into, in a scan of the window from s0 whose chunk entries s0,
@@ -837,8 +860,8 @@ def solve_scan_packed1_ckpt_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E,
     """The checkpointed full solve on the card: unpack_bits, then per
     group ffd_slot_headroom and ffd_group_commit, the headroom of every
     chunk entry storing the carry into its bank row (``entry_row``), then
-    pack_outputs; no synchronisation and no ffd_bank_store. Returns
-    (output buffer, bank [G/CK, ...])."""
+    pack_outputs; no synchronisation and no launch of its own for the
+    bank. Returns (output buffer, bank [G/CK, ...])."""
     if G % CK:
         raise ValueError(f"G={G} is not a multiple of CK={CK}")
     inp = _packed_inputs(buf, T, D, Z, C, G, E, P, K, M, Q)
@@ -855,14 +878,14 @@ def solve_scan_packed1_ckpt_cuda(buf: torch.Tensor, *, T, D, Z, C, G, E,
 def solve_scan_suffix_cuda(buf: torch.Tensor, bank: Carry, *, T, D, Z, C,
                            G, E, P, n_max, K=0, V=0, M=0, Q=0, CK=4, SUF=1,
                            GL=None) -> Tuple[torch.Tensor, Carry]:
-    """The suffix re-solve on the card: one unpack_bits launch that also
-    loads bank row jr = GL/CK - SUF into the working carry
-    (``unpack_bits_load``), then per group of [GL - SUF*CK, GL) the two K2
-    kernels, the headroom of every later chunk entry storing the carry
-    into its bank row (``entry_row``; row jr keeps the carry it holds),
-    one ffd_bank_store re-stamping the pad chunks [GL/CK, G/CK) with the
-    final carry when there are any, and pack_outputs over the SUF*CK
-    window rows; no synchronisation. The bank is spliced in place and
+    """The suffix re-solve on the card, under one guard: one unpack_bits
+    launch that also loads bank row jr = GL/CK - SUF into the working
+    carry (``unpack_bits_load``), then per group of [GL - SUF*CK, GL) the
+    two K2 kernels, the headroom of every later chunk entry storing the
+    carry into its bank row (``entry_row``; row jr keeps the carry it
+    holds), and pack_outputs over the SUF*CK window rows, whose launch
+    also re-stamps the pad chunks [GL/CK, G/CK) with the final carry when
+    there are any; no synchronisation. The bank is spliced in place and
     returned."""
     GL = G if GL is None else GL
     NC = G // CK
@@ -887,9 +910,10 @@ def solve_scan_suffix_cuda(buf: torch.Tensor, bank: Carry, *, T, D, Z, C,
             ffd_slot_headroom(st, g, stream, bs,
                               entry_row(g, s0, CK, jr, True))
             ffd_group_commit(st, g, stream)
-        if NC > GL // CK:
-            ffd_bank_store(bs, GL // CK, NC - GL // CK, stream)
-    return pack_outputs(st.takes, st.leftover, st.carry), bank
+        pad = (bs, GL // CK, NC - GL // CK) if NC > GL // CK else None
+        out = pack_outputs(st.takes, st.leftover, st.carry, store=pad,
+                           stream=stream)
+    return out, bank
 
 
 # ---------------------------------------------------------------------------

@@ -774,7 +774,8 @@ def bank_row(bank: Carry, j: int) -> Carry:
 
 def _bank_store_ref(bank: Carry, carry: Carry, j: int, count: int = 1
                     ) -> None:
-    """Plain version of ``ffd_bank_store``: the carry into bank rows
+    """Plain version of the bank stores (a chunk entry's headroom, the
+    suffix's pad re-stamp in ``pack_outputs``): the carry into bank rows
     [j, j + count), every field, in place."""
     for nm, b, c in zip(Carry._fields, bank, carry):
         b[j:j + count] = c.reshape(-1) if nm == "num_nodes" else c

@@ -1202,8 +1202,8 @@ class CUDASolver(Solver):
         device once and reused while the same arrays come back) and the
         per-lane stacks in ONE host-to-device copy, then
         ``ops.consolidation_torch.subset_solve`` (on CUDA: subset_gather,
-        2·Gq lane-axis K2 launches, subset_summary) and one copy of the
-        [B, 5] rows back."""
+        2·Gq lane-axis K2 launches, the last commit writing the rows) and
+        one copy of the [B, 5] rows back."""
         sa = self._sub_arena
         if sa is None or sa[0] is not arrays or sa[1] is not tprice:
             arena = kernel_inputs_from_numpy(arrays, self.device)

@@ -18,7 +18,10 @@ the host pour), the K10 mesh kernels (``mesh_fill``'s phases from 1 to
 pack at odd shapes, on 65,552 lanes and with the bail word, K1's unpack
 at ``examples.UNPACK_WIDTHS`` on up to 64 lanes and on 65,552, the
 suffix's first launch (the unpack that loads a bank row; one CUDA
-kernel), and K11's distributed dispatch at 1 x 1 (a shard cut from its
+kernel) and its last (the pack that re-stamps the pad rows: rows at
+every offset, one CUDA kernel), the subset round's last commit with the
+summary rows (every commit shape, one lane on a cluster of 8), the
+folded entries' refusals, and K11's distributed dispatch at 1 x 1 (a shard cut from its
 host's slab).
 
 Every test here needs a CUDA card: the ``cuda_device`` fixture skips
@@ -203,10 +206,11 @@ def test_packed_solve(cuda_device, case, width):
 
 @pytest.mark.parametrize("case", ["base", "existing", "min_values"])
 def test_bank_kernels(cuda_device, case):
-    """ffd_bank_store (one row and a run of rows) against the plain
-    store, and the suffix's prologue (``unpack_bits_load``: the arena's
-    bool plane and bank row j into the working carry, one launch) against
-    the plain unpack and bank_row, on carries of a real scan."""
+    """The pack's re-stamp (one row and a run of rows, from every group's
+    carry of a real scan) against the plain store and the plain pack, and
+    the suffix's prologue (``unpack_bits_load``: the arena's bool plane
+    and bank row j into the working carry, one launch) against the plain
+    unpack and bank_row."""
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
     buf, st, n_i64, n_bits = _arena(case, cuda_device, T=37)
     inp = _inputs(buf, st, n_i64, n_bits)
@@ -217,12 +221,18 @@ def test_bank_kernels(cuda_device, case):
     for b in bank:
         b.zero_()
     bs = ffd_cuda.BankState(carry, bank)
+    takes, lefts = [], []
     for g in range(G):
-        carry, _, _ = ft._group_step_ref(inp, carry, g, E=E, P=P, V=V)
+        carry, take, n_rem = ft._group_step_ref(inp, carry, g, E=E, P=P,
+                                                V=V)
+        takes.append(take.to(torch.int32))
+        lefts.append(n_rem.reshape(1))
         for dst, src in zip(bs.carry, carry):
             dst.copy_(src)
         count = G - g if g == G // 2 else 1
-        ffd_cuda.ffd_bank_store(bs, g, count)
+        tk, lf = torch.stack(takes), torch.cat(lefts)
+        out = ffd_cuda.pack_outputs(tk, lf, bs.carry, store=(bs, g, count))
+        assert torch.equal(out, ft._pack_outputs_ref(tk, lf, carry)), g
         ft._bank_store_ref(want, carry, g, count)
         for nm, got, w in zip(ft.Carry._fields, bank, want):
             assert torch.equal(got, w), (g, nm)
@@ -273,7 +283,7 @@ def test_headroom_stores_bank_rows(cuda_device, case, T):
         ffd_cuda.reset_launches()
         ffd_cuda.ffd_slot_headroom(state, g, bank=bs, j=j)
         assert ffd_cuda.LAUNCHES["ffd_slot_headroom"] == 1
-        assert ffd_cuda.LAUNCHES["ffd_bank_store"] == 0
+        assert sum(ffd_cuda.LAUNCHES.values()) == 1
         ft._bank_store_ref(want, carry, j)
         for nm, got, w in zip(ft.Carry._fields, bs.bank, want):
             assert torch.equal(got, w), (g, j, nm)
@@ -289,11 +299,10 @@ def test_ckpt_and_suffix_on_card(cuda_device, case):
     """The checkpointed solve and every (SUF, GL) suffix of a G=8, CK=2
     arena on the card equal the plain versions on the CPU (output buffer
     and bank), and each suffix equals the rows of the full solve. The
-    chunk entries' headroom launches store the bank rows: the solve
-    launches no ``ffd_bank_store``, a suffix one (its pad chunks' re-stamp)
-    where GL < G and none at GL = G, and row jr keeps its bytes. A suffix
-    loads row jr in its one ``unpack_bits`` launch (no ``ffd_bank_load``
-    exists)."""
+    chunk entries' headroom launches store the bank rows and a suffix's
+    pack re-stamps its pad chunks (no ``ffd_bank_store`` exists), and row
+    jr keeps its bytes. A suffix loads row jr in its one ``unpack_bits``
+    launch (no ``ffd_bank_load`` exists)."""
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
     from karpenter_provider_aws_tpu_torch.ops.hostpack import \
         unpack_outputs1
@@ -306,7 +315,8 @@ def test_ckpt_and_suffix_on_card(cuda_device, case):
         ffd_cuda.reset_launches()
         out, bank = ft.solve_scan_packed1_ckpt(buf, CK=CK,
                                                device=cuda_device, **ss)
-        assert ffd_cuda.LAUNCHES["ffd_bank_store"] == 0
+        assert "ffd_bank_store" not in ffd_cuda.LAUNCHES
+        assert ffd_cuda.LAUNCHES["pack_outputs"] == 1
         want, want_bank = ft.solve_scan_packed1_ckpt(buf, CK=CK,
                                                      device="cpu", **ss)
         assert torch.equal(out.cpu(), want)
@@ -324,7 +334,7 @@ def test_ckpt_and_suffix_on_card(cuda_device, case):
             assert "ffd_bank_load" not in ffd_cuda.LAUNCHES
             assert ffd_cuda.LAUNCHES["unpack_bits"] == 1
             assert ffd_cuda.LAUNCHES["ffd_group_commit"] == SUF * CK
-            assert ffd_cuda.LAUNCHES["ffd_bank_store"] == int(GL < G) <= 1
+            assert ffd_cuda.LAUNCHES["pack_outputs"] == 1
             jr = GL // CK - SUF
             for nm, g, b in zip(ft.Carry._fields, d_bank, bank):
                 assert torch.equal(g[jr], b[jr]), (GL, SUF, nm)
@@ -371,9 +381,9 @@ def test_warm_ticks_on_card_match_from_scratch(cuda_device):
         modes.append(warm.last_phase_stats["solve"])
     assert modes[12:] == ["suffix@3"] * 4
     launches = warm.last_dispatch_stats["launches"]
-    assert launches["unpack_bits"] == 1
+    assert launches["unpack_bits"] == launches["pack_outputs"] == 1
     assert launches.get("ffd_bank_load", 0) == 0
-    assert launches["ffd_bank_store"] <= 1
+    assert launches.get("ffd_bank_store", 0) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -502,8 +512,9 @@ def test_k2_round_of_2048_lanes(cuda_device, case):
 
 @pytest.mark.parametrize("hazard", examples.SUBSET_HAZARDS)
 def test_subset_kernels_match_plain(cuda_device, hazard):
-    """subset_gather, five lanes of the K2 kernels step by step, the
-    summary and the whole subset round against the plain versions."""
+    """subset_gather, five lanes of the K2 kernels step by step (the last
+    commit with the summary rows) and the whole subset round against the
+    plain versions."""
     from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
     from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
     from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
@@ -522,7 +533,10 @@ def test_subset_kernels_match_plain(cuda_device, hazard):
     state = ffd_cuda.ScanState(sub, ft.carry0(sub, N, E, lanes=B), E=E,
                                P=P, lanes=B)
     carries = [ft.carry0(ct.lane_inputs(sub, b), N, E) for b in range(B)]
-    for g in range(sub.R.shape[1]):
+    keep5, rp5 = t["keep"][:B].contiguous(), t["removed_price"][:B]
+    args, rows = cc.summary_args(state, keep5, tp, rp5)
+    Gq = sub.R.shape[1]
+    for g in range(Gq):
         ffd_cuda.ffd_slot_headroom(state, g)
         tab = state.table()
         for b in range(B):
@@ -532,7 +546,8 @@ def test_subset_kernels_match_plain(cuda_device, hazard):
             assert torch.equal(state.k[b], k), (g, b)
             _assert_table([x[b] for x in tab], ft._new_node_table_ref(
                 ct.lane_inputs(sub, b), g, P=P), (g, b))
-        ffd_cuda.ffd_group_commit(state, g)
+        ffd_cuda.ffd_group_commit(state, g,
+                                  summary=args if g == Gq - 1 else None)
         for b in range(B):
             carries[b], take, n_rem = ft._group_step_ref(
                 ct.lane_inputs(sub, b), carries[b], g, E=E, P=P, V=0)
@@ -541,19 +556,14 @@ def test_subset_kernels_match_plain(cuda_device, hazard):
                 assert torch.equal(got[b], want), (g, b, f)
             assert torch.equal(state.takes[b, g], take.to(torch.int32))
             assert int(state.leftover[b, g]) == int(n_rem)
-    keep5, rp5 = t["keep"][:B].contiguous(), t["removed_price"][:B]
-    got = cc.subset_summary(state.leftover, state.carry.num_nodes,
-                            state.carry.types, keep5, tp, rp5, E)
     want = ct._subset_summary_ref(state.leftover, state.carry.num_nodes,
                                   state.carry.types, keep5, tp, rp5, E)
-    assert torch.equal(got, want)
+    assert torch.equal(rows, want)
     ffd_cuda.reset_launches()
     whole = ct.subset_solve(inp, tp, t["gid"], t["n"], t["dead"], t["keep"],
                             t["removed_price"], **st)
-    Gq = lanes["gid"].shape[1]
     assert {k: v for k, v in ffd_cuda.LAUNCHES.items() if v} == dict(
-        subset_gather=1, ffd_slot_headroom=Gq, ffd_group_commit=Gq,
-        subset_summary=1)
+        subset_gather=1, ffd_slot_headroom=Gq, ffd_group_commit=Gq)
     plain = ct._subset_solve_ref(inp, tp, t["gid"], t["n"], t["dead"],
                                  t["keep"], t["removed_price"], **st)
     assert torch.equal(whole, plain)
@@ -584,6 +594,189 @@ def test_subset_round_past_grid_y(cuda_device):
     del g_k
     assert torch.equal(ct.subset_solve(inp, tp, *many, **st),
                        rep(ct._subset_solve_ref(inp, tp, *one, **st)))
+
+
+def _summary_commit(cc, ffd_cuda, inp, tp, t, st, B, cs=None, nt=None):
+    """The first B lanes of a subset round gathered and scanned on the
+    card up to the last group's headroom, on ``cs`` CTAs of ``nt``
+    threads a lane (default the rule's); then the last commit without and
+    with the summary rows from the same state: (the rows, their plain
+    version from the scan's own leftover, num_nodes and types, whether
+    the carry, takes and leftover of the two commits agree)."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    E, P = st["E"], st["P"]
+    g_k = cc.subset_gather(inp, *(t[k][:B].contiguous() for k in
+                                  ("gid", "n", "dead", "keep")))
+    state = ffd_cuda.ScanState(g_k, ft.carry0(g_k, E + st["n_max"], E,
+                                              lanes=B), E=E, P=P, lanes=B,
+                               cluster=cs, threads=nt)
+    Gq = t["gid"].shape[1]
+    ffd_cuda.k2_steps(state, 0, Gq - 1)
+    ffd_cuda.ffd_slot_headroom(state, Gq - 1)
+    scratch = list(state.carry) + [state.k, state.cand]
+    before = [x.clone() for x in scratch]
+
+    def restore():
+        for dst, src in zip(scratch, before):
+            dst.copy_(src)
+    ffd_cuda.ffd_group_commit(state, Gq - 1)
+    plain = [x.clone() for x in state.carry] + [state.takes.clone(),
+                                                 state.leftover.clone()]
+    restore()
+    keep, rp = t["keep"][:B].contiguous(), t["removed_price"][:B]
+    args, rows = cc.summary_args(state, keep, tp, rp)
+    n0 = dict(ffd_cuda.LAUNCHES)
+    ffd_cuda.ffd_group_commit(state, Gq - 1, summary=args)
+    assert ffd_cuda.LAUNCHES == dict(
+        n0, ffd_group_commit=n0["ffd_group_commit"] + 1)
+    same = all(torch.equal(a, b) for a, b in zip(
+        list(state.carry) + [state.takes, state.leftover], plain))
+    want = ct._subset_summary_ref(state.leftover, state.carry.num_nodes,
+                                  state.carry.types, keep, tp, rp, E)
+    return rows, want, same, (state.cluster, state.threads)
+
+
+@pytest.mark.parametrize("hazard", examples.SUBSET_HAZARDS)
+def test_commit_summary_rows_on_every_shape(cuda_device, hazard):
+    """The subset round's last ``ffd_group_commit`` with the summary rows
+    at T = 813 and E = 37 (the lanes' t0 rows at many offsets mod 16), on
+    every commit shape (1, 2, 4, 8 CTAs of 256 and 512 threads) and on
+    the rule's at 16 lanes and at one lane (a cluster of 8): the rows
+    equal ``_subset_summary_ref`` of the scan's own leftover, num_nodes
+    and types, and the commit's carry, takes and leftover equal those of
+    the commit without them."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    arena, tprice, lanes, st = examples.subset_case(
+        hazard, examples.SUBSET_HAZARDS.index(hazard), T=813, Ep=37)
+    inp = ft.kernel_inputs_from_numpy(arena, cuda_device)
+    tp = torch.from_numpy(tprice).to(cuda_device)
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in lanes.items()}
+    B = lanes["gid"].shape[0]
+    shapes = [(cs, nt) for cs in (1, 2, 4, 8) for nt in (256, 512)]
+    for B_, cs, nt in [(B, cs, nt) for cs, nt in shapes] + [(B, None, None),
+                                                            (1, None, None)]:
+        rows, want, same, shape = _summary_commit(cc, ffd_cuda, inp, tp, t,
+                                                  st, B_, cs, nt)
+        assert torch.equal(rows, want), (B_, shape)
+        assert same, (B_, shape)
+        if B_ == 1 and cs is None:
+            assert shape == (8, 512)
+
+
+def test_commit_summary_round_widths(cuda_device):
+    """Round (a)'s lanes and widths (2,048 lanes, T = 812, E = 1,024,
+    one group; the rule's one CTA of 256 threads a lane) and round (b)'s
+    (128 lanes of 128 groups): the summary rows equal the plain version's
+    of the scan's own outputs, the commit's outputs those without them."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    for shp, B in ((dict(examples.GATHER_SHAPES[5], B=2048), 2048),
+                   (dict(examples.GATHER_SHAPES[4], B=128), 128)):
+        arena, tprice, lanes, st = examples.subset_case("dead_nodes", 5,
+                                                        **shp)
+        inp = ft.kernel_inputs_from_numpy(arena, cuda_device)
+        tp = torch.from_numpy(tprice).to(cuda_device)
+        t = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in lanes.items()}
+        rows, want, same, shape = _summary_commit(cc, ffd_cuda, inp, tp, t,
+                                                  st, B)
+        assert torch.equal(rows, want), shape
+        assert same, shape
+        del inp, t
+        torch.cuda.empty_cache()
+
+
+def test_folded_entries_refuse_on_card(cuda_device):
+    """The C entries refuse what the folds do not take, before any launch:
+    a pack's store range at two lanes, a summary on a commit with
+    minValues floors or with a membership record."""
+    import ctypes
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    lib = ffd_cuda._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    takes, left, carry, _ = examples.pack_case(*examples.PACK_SHAPES[0], 2,
+                                               seed=3, device=cuda_device)
+    one = ft.Carry(*[f[0].contiguous() for f in carry])
+    bs = ffd_cuda.BankState(one, ffd_cuda.empty_bank(one, 3))
+    src = ffd_cuda.pack_sources(takes, left, carry)
+    args = ffd_cuda._PackArgs(
+        f_ptr=(ctypes.c_void_p * 5)(*[f[0].data_ptr()
+                                      for f in src["fields"]]),
+        f_len=(ctypes.c_longlong * 5)(*[f[1] for f in src["fields"]]),
+        f_stride=(ctypes.c_longlong * 5)(*[f[2] for f in src["fields"]]),
+        takes=src["takes"][0].data_ptr(), n32=src["takes"][1],
+        takes_stride=src["takes"][2],
+        seg_ptr=(ctypes.c_void_p * 4)(*[x[0].data_ptr()
+                                        for x in src["segs"]]),
+        seg_len=(ctypes.c_longlong * 4)(*[x[1] for x in src["segs"]]),
+        seg_stride=(ctypes.c_longlong * 4)(*[x[2] for x in src["segs"]]),
+        out=torch.empty((2, src["W"]), dtype=torch.int64,
+                        device=cuda_device).data_ptr(),
+        out_stride=src["W"], L=2)
+    assert lib.karp_pack_outputs(ctypes.byref(args), ctypes.byref(bs.args),
+                                 0, 1, stream) != 0
+    arrays, mst = examples.example_case("min_values")
+    minp = ft.kernel_inputs_from_numpy(arrays, cuda_device)
+    st = ffd_cuda.ScanState(minp, ft.carry0(minp, mst["E"] + mst["n_max"],
+                                            mst["E"]), E=mst["E"],
+                            P=mst["P"], V=mst["V"])
+    sm = cc._SummaryArgs()
+    assert lib.karp_ffd_group_commit(ctypes.byref(st.kargs), 0, None,
+                                     ctypes.byref(sm), stream) != 0
+    arena, tprice, lanes, sst = examples.subset_case("plain", 0)
+    inp = ft.kernel_inputs_from_numpy(arena, cuda_device)
+    st0 = ffd_cuda.ScanState(inp, ft.carry0(inp, sst["E"] + sst["n_max"],
+                                            sst["E"]), E=sst["E"],
+                             P=sst["P"])
+    assert lib.karp_ffd_group_commit(ctypes.byref(st0.kargs), 0,
+                                     ctypes.byref(ffd_cuda._RecordArgs()),
+                                     ctypes.byref(sm), stream) != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("T", [813, 37, 9])
+def test_pack_restamp_rows_at_odd_offsets(cuda_device, T):
+    """The pack with a store range of one to four rows of a bank of
+    seven, at odd widths (T = 813, 37 and 9 with Z = 3, D = 7, N odd: the
+    rows start at every offset mod 16, the carry's fields at their own):
+    the output row equals the plain pack, rows [j, j + count) the plain
+    store, the other rows keep their bytes; one CUDA kernel a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    buf, st, n_i64, n_bits = _arena("existing", cuda_device, T=T, n_max=13,
+                                    D=7)
+    inp = _inputs(buf, st, n_i64, n_bits)
+    E, P, V, G = st["E"], st["P"], st["V"], st["G"]
+    takes, left, carry = ft._solve_scan_ref(inp, st["n_max"], E, P, V)
+    rows = 7
+    bs = ffd_cuda.BankState(carry, ffd_cuda.empty_bank(carry, rows))
+    for j, count in ((0, 1), (1, 3), (3, 4), (6, 1), (2, 2)):
+        for b in bs.bank:
+            b.random_(0, 2)
+        want = ft.Carry(*[b.clone() for b in bs.bank])
+        ft._bank_store_ref(want, carry, j, count)
+        out = ffd_cuda.pack_outputs(takes, left, carry,
+                                    store=(bs, j, count))
+        assert torch.equal(out, ft._pack_outputs_ref(takes, left, carry))
+        for nm, got, w in zip(ft.Carry._fields, bs.bank, want):
+            assert torch.equal(got, w), (j, count, nm)
+
+    def fn():
+        return ffd_cuda.pack_outputs(takes, left, carry, store=(bs, 1, 3))
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace with no device event at all: again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+    assert len(dev) == 1 and "pack_outputs" in dev[0], dev
 
 
 @pytest.mark.parametrize("hazard", examples.SUBSET_HAZARDS)

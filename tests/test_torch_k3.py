@@ -26,16 +26,27 @@ unpack blocks first, then its copy blocks, each block one or the other)
 writes every byte of the bool plane and of the carry once, reads only the
 arena's words and row jr, and writes none of what it reads.
 
+The suffix's pad re-stamp rides its last launch, ``pack_outputs``
+(``csrc/packed_io.cu`` ``store_unit``): copy blocks after the pack's,
+every bank row [j, j + count) cut at its own 16-byte boundaries (row j +
+r starts (j + r) * row_bytes past the field's row 0, so the cut moves
+from row to row), the same units in every row (the head, then a unit a
+16-byte span, n / 16 + 2 a field, the spare ones empty), a full span by
+one 16-byte load and store where the carry and the row share their
+address mod 16, bytes otherwise. Its model writes 1 to 3 rows at every
+shift of the carry mod 16, odd-width bool planes among them: every byte
+of the rows once, the other rows untouched, equal to ``_bank_store_ref``.
+
 Then the two solves in the kernels' order (``ffd_cuda.entry_row``: the
 checkpointed solve stores every chunk entry's carry from its headroom
 launch, the suffix re-solve unpacks the arena and loads row jr in one
 launch, stores nothing at its first group and every later chunk entry
-from its headroom, and re-stamps its pad chunks with one store), built
-from the plain group step and the models of the store and the prologue,
-are held byte for byte to the reference's
-``solve_scan_packed1_ckpt`` and ``solve_scan_suffix``: every live bound
-GL and every SUF at CK = 2 and 4, with and without pad chunks; the
-suffix leaves row jr's bytes as they were.
+from its headroom, and re-stamps its pad chunks in its pack's launch),
+built from the plain group step and the models of the store, the
+prologue and the pack with its re-stamp, are held byte for byte to the
+reference's ``solve_scan_packed1_ckpt`` and ``solve_scan_suffix``: every
+live bound GL and every SUF at CK = 2 and 4, with and without pad
+chunks; the suffix leaves row jr's bytes as they were.
 
 Tolerance: exact (integer and bool bytes).
 """
@@ -244,6 +255,135 @@ def test_copy_plan_cuts_by_relative_alignment():
 
 
 # ---------------------------------------------------------------------------
+# the pad re-stamp in the pack's launch, on simulated addresses
+# ---------------------------------------------------------------------------
+
+#: ``pack_outputs``' threads a CTA (csrc/packed_io.cu kThreads)
+PACK_THREADS = 256
+
+
+def row_store_end(row_bytes):
+    """``RowStore.end``: each field's units in any row (``row_units``: n
+    // 16 + 2), cumulated."""
+    end, acc = [], 0
+    for n in row_bytes:
+        acc += n // 16 + 2
+        end.append(acc)
+    return end
+
+
+def store_unit(src, dst0, row_bytes, end, j, count, u):
+    """``store_unit``: (row r, field, byte offset, width, 16-byte move) of
+    unit u of the re-stamp of rows [j, j + count), or None for a spare
+    unit or one past the rows."""
+    R = end[-1]
+    r = u // R
+    if r >= count:
+        return None
+    x = u - r * R
+    f = 0
+    while end[f] <= x:
+        f += 1
+    k = x - (end[f - 1] if f else 0)
+    n = row_bytes[f]
+    d = dst0[f] + (j + r) * n
+    h = min((16 - d % 16) % 16, n)
+    lo = 0 if k == 0 else h + 16 * (k - 1)
+    hi = h if k == 0 else min(lo + 16, n)
+    if lo >= hi:
+        return None
+    return r, f, lo, hi - lo, hi - lo == 16 and (d - src[f]) % 16 == 0
+
+
+def restamp(bank_bytes, carry_bytes, j, count, src, dst0, pb=0):
+    """The re-stamp's blocks [pb, pb + Bs) of a pack launch, a unit a
+    thread: writes rows [j, j + count) of ``bank_bytes`` from
+    ``carry_bytes`` and returns (per field the count of writes of each
+    bank byte, 16-byte moves, the (address, width) spans read and
+    written)."""
+    row_bytes = [c.size for c in carry_bytes]
+    end = row_store_end(row_bytes)
+    blocks = -(-count * end[-1] // PACK_THREADS)
+    hits = [np.zeros(b.size, np.int64) for b in bank_bytes]
+    vec, reads, writes = 0, [], []
+    for b in range(pb, pb + blocks):
+        for t in range(PACK_THREADS):
+            x = store_unit(src, dst0, row_bytes, end, j, count,
+                           (b - pb) * PACK_THREADS + t)
+            if x is None:
+                continue
+            r, f, off, w, v = x
+            at = (j + r) * row_bytes[f] + off
+            if v:
+                assert (dst0[f] + at) % 16 == 0
+                assert (src[f] + off) % 16 == 0
+                vec += 1
+            bank_bytes[f][at:at + w] = carry_bytes[f][off:off + w]
+            hits[f][at:at + w] += 1
+            reads.append((src[f] + off, w))
+            writes.append((dst0[f] + at, w))
+    return hits, vec, reads, writes
+
+
+@pytest.mark.parametrize("shift", range(16))
+@pytest.mark.parametrize("shape", COPY_SHAPES)
+def test_restamp_model_matches_bank_store(shape, shift):
+    """1, 2 and 3 bank rows from row j of six, re-stamped by the model of
+    the pack's copy blocks with every carry field ``shift`` bytes past a
+    16-byte boundary (so every carry-to-row shift mod 16 across the
+    shapes' odd-width rows): each byte of the rows written once, the
+    other rows untouched, the bank equal to ``_bank_store_ref``; a row
+    that agrees with the carry mod 16 moves in 16-byte units."""
+    T, N, Z, C, D, P = shape
+    rng = np.random.RandomState(T + N + shift)
+    carry = _random_carry(rng, N, T, Z, C, D, P)
+    rows = 6
+    base = 1 << 30
+    src = [base + (f + 1) * (1 << 24) + shift for f in range(8)]
+    dst0 = [base + (f + 9) * (1 << 24) for f in range(8)]
+    carry_bytes = [_bytes(c) for c in carry]
+    row_bytes = [c.size for c in carry_bytes]
+    for count in (1, 2, 3):
+        for j in sorted({0, 1, rows - count}):
+            bank = fc.empty_bank(carry, rows)
+            for b in bank:
+                b.fill_(0x5A)
+            want = ft.Carry(*[b.clone() for b in bank])
+            ft._bank_store_ref(want, carry, j, count)
+            bank_bytes = [_bytes(b) for b in bank]
+            hits, vec, _, _ = restamp(bank_bytes, carry_bytes, j, count,
+                                      src, dst0, pb=3)
+            for nm, h, n, got, w in zip(ft.Carry._fields, hits, row_bytes,
+                                        bank_bytes, want):
+                inside = np.zeros(h.size, bool)
+                inside[j * n:(j + count) * n] = True
+                assert (h[inside] == 1).all(), (count, j, nm)
+                assert (h[~inside] == 0).all(), (count, j, nm)
+                assert np.array_equal(got, _bytes(w)), (count, j, nm)
+            aligned = sum(n // 16 - 1 for r in range(j, j + count)
+                          for n, s0, d0 in zip(row_bytes, src, dst0)
+                          if (d0 + r * n - s0) % 16 == 0 and n >= 32)
+            assert vec >= aligned
+
+
+def test_restamp_units_cut_each_row_at_its_own_boundaries():
+    """A 40-byte field whose rows start at 8 mod 16 in odd rows: row 1's
+    head is 8 bytes, its spans [8, 24) and [24, 40), the unit after them
+    spare; row 0 (aligned) has no head and three spans, the last 8
+    bytes; a carry at 8 mod 16 moves row 1's spans in 16-byte units and
+    row 0's bytewise."""
+    src, dst0, rb = [8], [0], [40]
+    end = row_store_end(rb)
+    assert end == [4]
+    units = [store_unit(src, dst0, rb, end, 0, 2, u) for u in range(8)]
+    assert units[:4] == [None, (0, 0, 0, 16, False), (0, 0, 16, 16, False),
+                         (0, 0, 32, 8, False)]
+    assert units[4:] == [(1, 0, 0, 8, False), (1, 0, 8, 16, True),
+                         (1, 0, 24, 16, True), None]
+    assert store_unit(src, dst0, rb, end, 0, 2, 8) is None
+
+
+# ---------------------------------------------------------------------------
 # the two solves in the kernels' order against the reference
 # ---------------------------------------------------------------------------
 
@@ -373,12 +513,43 @@ def prologue(buf, st, bank, j):
     return torch.from_numpy(plane.astype(bool)), carry
 
 
+def pack_launch(takes, lefts, carry, bank, j, count):
+    """The suffix's last launch as its grid runs it: the pack's blocks
+    (``test_torch_k1``'s model of the row, from the carry's own
+    addresses), then, with count > 0, the re-stamp's blocks of bank rows
+    [j, j + count) (``restamp`` at the simulated addresses of the carry
+    and the bank). Checks that the re-stamp reads only the carry, which
+    the launch does not write, and writes only rows [j, j + count);
+    returns the output row and writes the rows in place."""
+    from tests.test_torch_k1 import pack_model
+    src = fc.pack_sources(takes[None], lefts[None],
+                          ft.Carry(*[f[None] for f in carry]))
+    out, _, _ = pack_model(src)
+    if count:
+        carry_bytes = [_bytes(c) for c in carry]
+        bank_bytes = [_bytes(b) for b in bank]
+        hits, _, reads, _ = restamp(bank_bytes, carry_bytes, j, count,
+                                    _SRC, _DST)
+        for a, n in reads:
+            assert any(c <= a and a + n <= c + cb.size
+                       for c, cb in zip(_SRC, carry_bytes))
+        for h, cb in zip(hits, carry_bytes):
+            n = cb.size
+            assert (h[j * n:(j + count) * n] == 1).all()
+            assert h[:j * n].sum() == h[(j + count) * n:].sum() == 0
+        for b, x in zip(bank, bank_bytes):
+            b.copy_(torch.from_numpy(x.view(b.numpy().dtype)).reshape(
+                b.shape))
+    return torch.from_numpy(out[0])
+
+
 def suffix_in_kernel_order(buf, st, bank, CK, SUF, GL):
     """The suffix re-solve as the card runs it: one launch that unpacks
     the arena and loads row jr (``prologue``), per group of the window
-    the headroom (storing every later chunk entry) and the commit, one
-    ffd_bank_store over the pad chunks when there are any. (output
-    buffer, bank spliced in place, stores)."""
+    the headroom (storing every later chunk entry) and the commit, then
+    the pack, whose launch also re-stamps the pad chunks when there are
+    any (``pack_launch``). (output buffer, bank spliced in place, packs
+    that carried a re-stamp)."""
     E, P, V = st["E"], st["P"], st["V"]
     NC, jr, s0 = G // CK, GL // CK - SUF, GL - SUF * CK
     bools, carry = prologue(buf, st, bank, jr)
@@ -396,11 +567,12 @@ def suffix_in_kernel_order(buf, st, bank, CK, SUF, GL):
                                                 V=V)
         takes.append(take.to(torch.int32))
         lefts.append(n_rem.reshape(1))
-    if NC > GL // CK:
-        ft._bank_store_ref(bank, carry, GL // CK, NC - GL // CK)
-        stores += 1
-    return ft._pack_outputs_ref(torch.stack(takes), torch.cat(lefts),
-                                carry), bank, stores
+    count = NC - GL // CK
+    out = pack_launch(torch.stack(takes), torch.cat(lefts), carry, bank,
+                      GL // CK, count)
+    assert torch.equal(out, ft._pack_outputs_ref(torch.stack(takes),
+                                                 torch.cat(lefts), carry))
+    return out, bank, int(count > 0)
 
 
 def _jax_bank(bank):
@@ -417,8 +589,8 @@ def test_kernel_order_solves_match_reference(CK):
     """Every GL and SUF of a G = 8 arena at CK: the checkpointed solve and
     each suffix in the kernels' order, byte for byte against the
     reference's ``solve_scan_packed1_ckpt`` and ``solve_scan_suffix``
-    (output and bank); row jr unchanged by the tick; one store over the
-    pad chunks where GL < G, none at GL = G."""
+    (output and bank); row jr unchanged by the tick; the pack re-stamps
+    the pad chunks where GL < G, nothing at GL = G."""
     arrays, st = _case()
     ss = examples.solve_statics(st)
     assert (st["E"] + st["n_max"]) % 2 == 1      # N odd

@@ -1,5 +1,6 @@
-"""The consolidation gather (K7d, ``subset_gather``) as its redesigned
-kernel computes it, held against the plain gather on the CPU.
+"""The consolidation gather (K7d, ``subset_gather``) and the subset
+round's summary rows as their kernels compute them, held against the
+plain versions and the reference package on the CPU.
 
 ``csrc/consolidation.cu`` ``subset_gather_kernel`` runs X CTAs a lane
 (``consolidation_cuda.gather_ctas``), each taking a contiguous slice of
@@ -19,6 +20,23 @@ and equals ``_subset_gather_ref``: rows of T and E not multiples of 16,
 D odd, Gq = 1 and 128, dead rows at the CTAs' slice edges, 1 to 7 CTAs a
 lane. The grid rule itself: ``gather_ctas`` at the rounds' shapes.
 
+The lanes' summary rows (K7d's ``subset_summary``, consolidation_jax.py
+:253-262) are written by the round's last ``ffd_group_commit`` launch
+(``csrc/ffd_scan.cu`` ``summary_row``), on each lane's rank-0 CTA after
+its final cluster barrier: the leftover over the window as a wrapping
+sum, and over t0 = types[E] & keep (the first new slot's row, cut at its
+own 16-byte boundaries: one 16-byte load of each row where keep shares
+the row's address mod 16, bytes otherwise) the flex count and the
+cheapest price, ``tprice`` read only for the types that are on, then
+warp and CTA reductions (keep's span by 4-byte loads where it shares the
+row's address mod 4 only). Its model, at every offset of the row mod 16
+(keep aligned with it and not), 256 and 512 threads, is held to
+``_subset_summary_ref``: no minted node, one and two, leftovers whose sum
+wraps past 2^63, an empty t0, every type on with prices past BIG; and,
+on the subset rounds of ``examples.subset_case`` at T = 813 (rows at
+every offset), to the plain round and the reference's
+``subset_solve_kernel``.
+
 Tolerance: exact (int64 and bool).
 """
 
@@ -26,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+from karpenter_provider_aws_tpu.ops import consolidation_jax as cj
 from karpenter_provider_aws_tpu_torch import examples
 from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
 from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
@@ -276,3 +295,177 @@ def test_gather_ctas_rule():
     assert cc.gather_ctas(65_552, a, 528) == 1
     assert cc.gather_ctas(4, 1000, 528) == 1
     assert cc.gather_ctas(1, 10 * cc.GATHER_CTA_BYTES, 528) == 10
+
+
+# ---------------------------------------------------------------------------
+# the summary rows in the round's last ffd_group_commit
+# ---------------------------------------------------------------------------
+
+_I64_MAX = (1 << 63) - 1
+BIG = 1 << 60
+
+
+def _wrap(x: int) -> int:
+    return (x + (1 << 63)) % (1 << 64) - (1 << 63)
+
+
+def summary_model(left, nn, t0, keep, tprice, rp, t0_addr, keep_addr,
+                  NT=256):
+    """``summary_row`` of one lane on simulated addresses of its t0 row
+    and keep row: each of NT threads sums its leftover rows and takes
+    units tid, tid + NT, ... of the row (the head, then 16-byte spans;
+    a full span of t0 by one 16-byte load, of keep by one where keep
+    shares t0's address mod 16, by four 4-byte loads where it shares it
+    mod 4, bytes otherwise), counting the types on and reading their
+    prices; the warps' sums and minima, then thread 0 over the warps.
+    Checks that every type is taken once, every wide load is aligned to
+    its width and a price is read only for a type that is on. Returns
+    (the [5] row, units whose keep span took one 16-byte load)."""
+    T = len(t0)
+    h = min((16 - t0_addr % 16) % 16, T)
+    kal = (keep_addr + h) % 16
+    seen = np.zeros(T, np.int64)
+    priced = np.zeros(T, np.int64)
+    lefts, cnts, mps, nvec = [], [], [], 0
+    for tid in range(NT):
+        lsum = sum(int(x) for x in left[tid::NT])
+        cnt, mp = 0, _I64_MAX
+        for u in range(tid, T // 16 + 2, NT):
+            lo = 0 if u == 0 else h + 16 * (u - 1)
+            hi = h if u == 0 else min(lo + 16, T)
+            if lo >= hi:
+                continue
+            if hi - lo == 16:
+                assert (t0_addr + lo) % 16 == 0
+                width = 16 if kal == 0 else 4 if kal % 4 == 0 else 1
+                assert (keep_addr + lo) % width == 0
+                nvec += width == 16
+            seen[lo:hi] += 1
+            for i in range(lo, hi):
+                if t0[i] and keep[i]:
+                    cnt += 1
+                    priced[i] += 1
+                    mp = min(mp, int(tprice[i]))
+        lefts.append(lsum)
+        cnts.append(cnt)
+        mps.append(mp)
+    assert (seen == 1).all()
+    assert np.array_equal(priced, (np.asarray(t0) & np.asarray(keep))
+                          .astype(np.int64))
+    warp_left = [_wrap(sum(lefts[w:w + 32])) for w in range(0, NT, 32)]
+    warp_cnt = [sum(cnts[w:w + 32]) for w in range(0, NT, 32)]
+    warp_mp = [min(mps[w:w + 32]) for w in range(0, NT, 32)]
+    left_total = _wrap(sum(warp_left))
+    flex, mp = sum(warp_cnt), min(warp_mp)
+    if flex < T:
+        mp = min(mp, BIG)      # a type that is off counts BIG
+    minted = nn > 0
+    min_price = mp if minted else 0
+    row = [left_total, nn, flex if minted else 0, min_price,
+           _wrap(int(rp) - (min_price if nn == 1 else 0))]
+    return np.array(row, np.int64), nvec
+
+
+def _summary_want(left, nn, types, keep, tprice, rp, E):
+    """``_subset_summary_ref`` of one lane."""
+    return ct._subset_summary_ref(
+        torch.from_numpy(np.asarray(left, np.int64))[None],
+        torch.tensor([[nn]], dtype=torch.int32),
+        torch.from_numpy(types)[None], torch.from_numpy(keep)[None],
+        torch.from_numpy(tprice), torch.tensor([rp], dtype=torch.int64),
+        E)[0].numpy()
+
+
+#: (leftovers, num_nodes, t0 and keep pattern, prices): no minted node,
+#: one, two, leftovers wrapping past 2^63 over 128 rows, an empty t0,
+#: every type on with prices past BIG
+SUMMARY_CASES = {
+    "none_minted": ([3, 4], 0, "mixed", "low"),
+    "one_node": ([0], 1, "mixed", "low"),
+    "two_nodes": ([5, 0, 7], 2, "mixed", "low"),
+    "wrapping_leftover": ([1 << 62] * 127 + [-(1 << 61)], 1, "mixed",
+                          "low"),
+    "empty_t0": ([2], 1, "no_keep", "low"),
+    "all_on_past_big": ([1], 2, "all_on", "past_big"),
+}
+
+
+@pytest.mark.parametrize("NT", [256, 512])
+@pytest.mark.parametrize("case", list(SUMMARY_CASES))
+@pytest.mark.parametrize("T", [812, 813, 29])
+def test_summary_model_matches_plain(T, case, NT):
+    """The model of the commit's summary tail at every offset of the t0
+    row mod 16, keep at the row's alignment (16-byte loads), 4 bytes off
+    it (4-byte loads) and 1 byte off (bytes), against
+    ``_subset_summary_ref``."""
+    left, nn, pattern, prices = SUMMARY_CASES[case]
+    rng = np.random.RandomState(T + len(case) + NT)
+    N, E = 5, 3
+    types = rng.rand(N, T) < 0.5
+    keep = rng.rand(T) < 0.6
+    if pattern == "no_keep":
+        keep[:] = False
+    elif pattern == "all_on":
+        types[E] = keep[:] = True
+    tprice = rng.randint(1, 1 << 20, T).astype(np.int64)
+    if prices == "past_big":
+        tprice = BIG + 1 + rng.randint(0, 1 << 20, T).astype(np.int64)
+    else:
+        tprice[rng.rand(T) < 0.1] = BIG
+    rp = int(rng.randint(0, 1 << 21))
+    want = _summary_want(left, nn, types, keep, tprice, rp, E)
+    vec_units = 0
+    for off in range(16):
+        for keep_off in (off, off + 4, off + 1):
+            got, nvec = summary_model(left, nn, types[E], keep, tprice, rp,
+                                      (1 << 30) + off,
+                                      (1 << 29) + keep_off, NT)
+            assert np.array_equal(got, want), (off, keep_off)
+            vec_units += nvec
+    if T >= 32:
+        assert vec_units > 0
+    if case == "wrapping_leftover":
+        assert want[0] < 0      # the sum wrapped
+    if case == "all_on_past_big":
+        assert want[3] > BIG
+
+
+@pytest.mark.parametrize("hazard", examples.SUBSET_HAZARDS)
+def test_summary_model_on_subset_rounds_matches_jax(hazard):
+    """Every lane of ``subset_case(hazard)`` at T = 813 and E = 37 (the
+    lanes' t0 rows at many offsets mod 16 in a [B, N, T] carry, keep rows
+    at others): the model's rows from the plain scan's leftovers and
+    final carries equal the plain round's and the reference's
+    ``subset_solve_kernel``'s."""
+    import jax.numpy as jnp
+    arena, tprice, lanes, st = examples.subset_case(
+        hazard, examples.SUBSET_HAZARDS.index(hazard), T=813, Ep=37)
+    inp = ft.kernel_inputs_from_numpy(arena, "cpu")
+    t = {k: torch.from_numpy(v) for k, v in lanes.items()}
+    g = ct._subset_gather_ref(inp, t["gid"], t["n"], t["dead"], t["keep"])
+    E, P, n_max = st["E"], st["P"], st["n_max"]
+    N, T = E + n_max, tprice.size
+    rows, offs = [], set()
+    for b in range(lanes["gid"].shape[0]):
+        _, left, final = ft._solve_scan_ref(ct.lane_inputs(g, b), n_max, E,
+                                            P)
+        t0_addr = (1 << 30) + (b * N + E) * T
+        offs.add(t0_addr % 16)
+        row, _ = summary_model(left.numpy(), int(final.num_nodes[0]),
+                               final.types[E].numpy(), lanes["keep"][b],
+                               tprice, lanes["removed_price"][b], t0_addr,
+                               (1 << 29) + b * T, 256)
+        rows.append(row)
+    got = np.stack(rows)
+    plain = ct._subset_solve_ref(inp, torch.from_numpy(tprice), t["gid"],
+                                 t["n"], t["dead"], t["keep"],
+                                 t["removed_price"], **st).numpy()
+    a = arena
+    ref = np.asarray(cj.subset_solve_kernel(*map(jnp.asarray, (
+        a["A"], a["avail_zc"], tprice, a["R"], a["n"], a["F"], a["agz"],
+        a["agc"], a["admit"], a["daemon"], a["ex_compat"], a["pool_types"],
+        a["pool_agz"], a["pool_agc"], a["pool_limit"], a["pool_used0"],
+        a["ex_alloc"], a["ex_used0"], lanes["gid"], lanes["n"],
+        lanes["dead"], lanes["keep"], lanes["removed_price"])), **st))
+    assert np.array_equal(got, plain) and np.array_equal(got, ref)
+    assert len(offs) > 4

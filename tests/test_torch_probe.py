@@ -450,7 +450,12 @@ def test_checkpoint_solve_launches_on_its_device(card):
     buf = torch.from_numpy(pack_inputs1(arrays, *examples.pack_statics(st)))
     G = st["G"]
     fc.solve_scan_packed1_ckpt_cuda(buf, CK=2, **examples.solve_statics(st))
-    assert fc.LAUNCHES["ffd_bank_store"] == 0
+    assert "ffd_bank_store" not in fc.LAUNCHES
+    names = [n for n, _ in card.launches()]
+    assert names == ["karp_unpack_bits"] + ["karp_ffd_slot_headroom",
+                                            "karp_ffd_group_commit"] * G \
+        + ["karp_pack_outputs"]
+    assert card.args[-1][1][1:4] == (None, 0, 0)   # no store range
     assert fc.LAUNCHES["ffd_slot_headroom"] == G
     rows = [a[3] for n, a in card.args if n == "karp_ffd_slot_headroom"]
     assert rows == [g // 2 if g % 2 == 0 else -1 for g in range(G)]
@@ -458,12 +463,12 @@ def test_checkpoint_solve_launches_on_its_device(card):
 
 
 def test_suffix_launches_on_its_device(card):
-    """The suffix re-solve enters cuda:1's guard once for its loop, whose
-    first launch is the loading unpack (``karp_unpack_bits_load`` of row
-    jr, counted as ``unpack_bits``; no ``karp_ffd_bank_load``), then the
-    window's K2 launches (the later chunk entry's headroom storing its
-    row) and the pad chunks' re-stamp; pack_outputs enters it again: two
-    guards of cuda:1."""
+    """The suffix re-solve enters cuda:1's guard once for all its
+    launches: the loading unpack (``karp_unpack_bits_load`` of row jr,
+    counted as ``unpack_bits``; no ``karp_ffd_bank_load``), the window's
+    K2 launches (the later chunk entry's headroom storing its row) and
+    the pack, whose arguments carry the pad chunks' row range [GL/CK,
+    G/CK) (no ``karp_ffd_bank_store``)."""
     arrays, st = examples.example_case("base", G=8)
     CK, SUF, GL = 2, 2, 6
     arrays["n"][GL:] = 0
@@ -474,16 +479,57 @@ def test_suffix_launches_on_its_device(card):
     names = [n for n, _ in card.launches()]
     assert names == ["karp_unpack_bits_load"] \
         + ["karp_ffd_slot_headroom", "karp_ffd_group_commit"] * SUF * CK \
-        + ["karp_ffd_bank_store", "karp_pack_outputs"]
+        + ["karp_pack_outputs"]
     jr, s0 = GL // CK - SUF, GL - SUF * CK
     assert card.args[0][1][4] == jr
     rows = [a[3] for n, a in card.args if n == "karp_ffd_slot_headroom"]
     assert rows == [fc.entry_row(g, s0, CK, jr, True)
                     for g in range(s0, GL)] == [-1, -1, 2, -1]
+    name, args = card.args[-1]
+    assert name == "karp_pack_outputs"
+    assert args[1] is not None and args[2:4] == (GL // CK, 8 // CK - GL // CK)
     assert "ffd_bank_load" not in fc.LAUNCHES
-    assert fc.LAUNCHES["unpack_bits"] == 1
-    assert fc.LAUNCHES["ffd_bank_store"] == 1
-    _on_card1(card, 2)
+    assert "ffd_bank_store" not in fc.LAUNCHES
+    assert fc.LAUNCHES["unpack_bits"] == fc.LAUNCHES["pack_outputs"] == 1
+    _on_card1(card, 1)
+    # at GL = G there are no pad chunks: no range
+    card.calls.clear()
+    card.args.clear()
+    arrays["n"][GL:] = 1
+    buf = torch.from_numpy(pack_inputs1(arrays, *examples.pack_statics(st)))
+    fc.solve_scan_suffix_cuda(buf, bank, CK=CK, SUF=SUF, GL=8, **ss)
+    assert card.args[-1][0] == "karp_pack_outputs"
+    assert card.args[-1][1][1:4] == (None, 0, 0)
+
+
+def test_store_range_refusals(card):
+    """The pack's store range: one lane only, inside the bank, over the
+    bank's own working carry; the wrapper refuses before any launch."""
+    arrays, st = examples.example_case("base", G=8)
+    buf = torch.from_numpy(pack_inputs1(arrays, *examples.pack_statics(st)))
+    ss = examples.solve_statics(st)
+    _, bank = ft.solve_scan_packed1_ckpt(buf, CK=2, device="cpu", **ss)
+    carry = ft.bank_row(bank, 1)
+    bs = fc.BankState(carry, bank)
+    N = carry.used.shape[0]
+    takes = torch.zeros((2, N), dtype=torch.int32)
+    left = torch.zeros(2, dtype=torch.int64)
+    lanes2 = ft.Carry(*[torch.stack([f, f]) for f in carry])
+    for bad in (
+            lambda: fc.pack_outputs_lanes(takes[None].expand(2, 2, N),
+                                          left[None].expand(2, 2), lanes2,
+                                          store=(bs, 2, 1)),
+            lambda: fc.pack_outputs(takes, left, carry, store=(bs, 3, 2)),
+            lambda: fc.pack_outputs(takes, left, carry, store=(bs, -1, 1)),
+            lambda: fc.pack_outputs(takes, left, carry, store=(bs, 2, 0)),
+            lambda: fc.pack_outputs(takes, left, ft.Carry(
+                *[f.clone() for f in carry]), store=(bs, 2, 1))):
+        with pytest.raises(ValueError):
+            bad()
+    assert card.launches() == []
+    fc.pack_outputs(takes, left, carry, store=(bs, 2, 2))
+    assert card.args[-1][1][2:4] == (2, 2)
+    assert fc.LAUNCHES["pack_outputs"] == 1
 
 
 def test_fused_launches_and_cluster_rule_on_the_states_device(card):
@@ -526,15 +572,26 @@ def test_pruned_launches_and_cluster_rule_on_the_states_device(card):
 
 
 def test_consolidation_launches_on_its_device(card):
-    """An absorb launch alone, and a subset round: its gather, 2*Gq K2
-    launches and summary under the round's one guard."""
+    """An absorb launch alone, and a subset round: its gather and 2*Gq K2
+    launches under the round's one guard, the last commit carrying the
+    summary rows' arguments (no ``karp_subset_summary``)."""
     arena, tprice, lanes, st = examples.subset_case("dead_nodes", 5)
     inp = ft.kernel_inputs_from_numpy(arena, "cpu")
     order = ("gid", "n", "dead", "keep", "removed_price")
     lane = [torch.from_numpy(lanes[k]) for k in order]
-    cc.subset_solve_cuda(inp, torch.from_numpy(tprice), *lane,
-                         n_max=st["n_max"], E=st["E"], P=st["P"])
-    assert fc.LAUNCHES["subset_gather"] == fc.LAUNCHES["subset_summary"] == 1
+    rows = cc.subset_solve_cuda(inp, torch.from_numpy(tprice), *lane,
+                                n_max=st["n_max"], E=st["E"], P=st["P"])
+    Gq = lanes["gid"].shape[1]
+    assert rows.shape == (lanes["gid"].shape[0], 5)
+    names = [n for n, _ in card.launches()]
+    assert names == ["karp_subset_gather"] + ["karp_ffd_slot_headroom",
+                                              "karp_ffd_group_commit"] * Gq
+    sums = [a[3] for n, a in card.args if n == "karp_ffd_group_commit"]
+    assert [x is None for x in sums] == [True] * (Gq - 1) + [False]
+    assert sums[-1]._obj.out == rows.data_ptr()
+    assert "subset_summary" not in fc.LAUNCHES
+    assert fc.LAUNCHES["subset_gather"] == 1
+    assert fc.LAUNCHES["ffd_group_commit"] == Gq
     _on_card1(card, 1)
     E, D = inp.ex_alloc.shape
     B, G = 3, 2
@@ -624,3 +681,40 @@ def test_rank_main_sets_a_cuda_ranks_device(monkeypatch, tmp_path, backend,
                      device)
     assert seen == want
     assert (tmp_path / "3.out").exists()
+
+
+def test_summary_refusals(card):
+    """A summary row rides only a lane-axis commit of the window's last
+    group, without minValues floors or a membership record; the wrappers
+    refuse before any launch."""
+    arena, tprice, lanes, st = examples.subset_case("plain", 0)
+    inp = ft.kernel_inputs_from_numpy(arena, "cpu")
+    t = {k: torch.from_numpy(v) for k, v in lanes.items()}
+    g = cc.subset_gather(inp, t["gid"], t["n"], t["dead"], t["keep"])
+    E, P, B = st["E"], st["P"], lanes["gid"].shape[0]
+    Gq = lanes["gid"].shape[1]
+    sub = fc.ScanState(g, ft.carry0(g, E + st["n_max"], E, lanes=B), E=E,
+                       P=P, lanes=B)
+    args, _ = cc.summary_args(sub, t["keep"], torch.from_numpy(tprice),
+                              t["removed_price"])
+    card.calls.clear()
+    with pytest.raises(ValueError, match="last group"):
+        fc.ffd_group_commit(sub, Gq - 2, summary=args)
+    with pytest.raises(ValueError, match="record"):
+        fc.ffd_group_commit(sub, Gq - 1, summary=args,
+                            record=fc._RecordArgs())
+    # minValues floors (K > 0)
+    arrays, mst = examples.example_case("min_values")
+    minp = ft.kernel_inputs_from_numpy(arrays, "cpu")
+    one = fc.ScanState(minp, ft.carry0(minp, mst["E"] + mst["n_max"],
+                                       mst["E"]), E=mst["E"], P=mst["P"],
+                       V=mst["V"])
+    assert one.args.K > 0
+    with pytest.raises(ValueError, match="minValues"):
+        fc.ffd_group_commit(one, mst["G"] - 1, summary=cc._SummaryArgs())
+    with pytest.raises(ValueError, match="lane axis"):
+        cc.summary_args(one, t["keep"], torch.from_numpy(tprice),
+                        t["removed_price"])
+    assert card.launches() == []
+    fc.ffd_group_commit(sub, Gq - 1, summary=args)
+    assert card.args[-1][1][3] is not None
