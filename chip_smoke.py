@@ -31,7 +31,13 @@ Phases (any failure exits non-zero before the result line):
    ``ffd_group_commit``, whole subset rounds, one of a single lane on a
    cluster of 8) on the synthetic hazard cases
    of ``examples.absorb_case`` / ``subset_case`` (the gather also at the
-   odd shapes of ``examples.GATHER_SHAPES``); both K5 kernels
+   odd shapes of ``examples.GATHER_SHAPES``); ``consol_absorb`` in every
+   form of its scan (``ABSORB_FORM_SHAPES``: rows in registers, in
+   shared memory, in the global scratch), on one lane and 256, K8 at 64
+   lanes of 1,000 nodes for G = 16, 64 and 256, every mode at B = 0 (no
+   launch) and G = 0, and a subset round of Gq = 0 (no launch, the
+   reference's rows);
+   both K5 kernels
    (``ffd_fused_headroom``, ``ffd_fused_commit``) block by block on every
    ``examples.FUSED_CASES`` arena at F = 4 (each with a vectorized and a
    sequential block; "striped" also at the catalog's 812 types), on
@@ -1845,6 +1851,154 @@ def topo_phase(cmp, device=None, n_pods=C3_PODS, rounds=C3_ROUNDS):
         f"{host_ms:.0f} ms): True; EVCAP=1: {summary['evcap1']}, "
         f"fingerprint equal")
     return launches, summary, states
+
+
+#: the absorption scan's forms, forced by shape: E with the form each
+#: gives at D = 8 (csrc/consolidation.cu; the card test
+#: test_consol_absorb_forms_match_plain)
+ABSORB_FORM_SHAPES = {"registers": 1000, "registers_full": 1024,
+                      "shared": 1100, "shared_wide": 2048, "global": 4096}
+
+
+def check_absorb_forms(cmp, dev):
+    """consol_absorb in each form of its scan (rows in registers, in
+    shared memory, in the global scratch), every mode against its plain
+    version on the hazard cases; one lane and 256 lanes (at 1,500 nodes
+    rows in shared memory); K8 with slacks or R past 2^51 and a negative
+    R (``examples.preempt_wide_values``), and at the preemption round's
+    width (64 lanes, 1,000 nodes, D = 6) for each wide wave's G. Returns
+    the number of cases."""
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.scheduling import preempt_torch as pt
+
+    def cuda(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+    names = ("ex_alloc", "ex_used0", "compat", "R", "gid", "cid", "n",
+             "alive")
+    ps_names = ("type_alloc", "type_price", "tcompat", "padmit",
+                "pool_types", "price_cap")
+    cases = 0
+    for hazard in examples.ABSORB_HAZARDS:
+        for form, E in ABSORB_FORM_SHAPES.items():
+            a = cuda(*examples.absorb_case(hazard, 5, E=E, G=6))
+            ps = cuda(*examples.prescreen_tables(5))
+            dn = cuda(*examples.dense_case(hazard, 5, E=E, G=6))
+            kw = dict(zip(names, a))
+            what = f"{hazard} {form} E={E}"
+            cmp("consol_absorb_deletions",
+                cc.consol_absorb("deletions", **kw),
+                ct._deletions_feasible_ref(*a), what)
+            cmp("consol_absorb_prescreen",
+                cc.consol_absorb("prescreen", **kw,
+                                 **dict(zip(ps_names, ps))),
+                ct._replacements_prescreen_ref(*a[:4], *ps[:5], *a[4:],
+                                               ps[5]), what)
+            cmp("consol_absorb_dense", cc.consol_absorb(
+                "dense", **dict(zip(("ex_alloc", "ex_used0", "compat", "R",
+                                     "n"), dn))),
+                ct._deletions_feasible_dense_ref(*dn), what)
+            cases += 1
+    for B in (1, 256):
+        for E in (200, 1000, 1500):
+            a = cuda(*examples.absorb_case("zero_r_row", 6, B=B, E=E))
+            ps = cuda(*examples.prescreen_tables(6, B=B))
+            dn = cuda(*examples.dense_case("overcommitted", 6, B=B, E=E))
+            pa = (*a[:4], *ps[:5], *a[4:], ps[5])
+            what = f"B={B} E={E}"
+            cmp("consol_absorb_deletions", ct.deletions_feasible(*a),
+                ct._deletions_feasible_ref(*a), what)
+            cmp("consol_absorb_prescreen", ct.replacements_prescreen(*pa),
+                ct._replacements_prescreen_ref(*pa), what)
+            cmp("consol_absorb_dense", ct.deletions_feasible_dense(*dn),
+                ct._deletions_feasible_dense_ref(*dn), what)
+            t = cuda(*examples.preempt_case("refund_above_used", 3, E=E,
+                                            G=8, B=B))
+            cmp("consol_absorb_preempt", pt.preempt_solve(*t),
+                pt._preempt_solve_ref(*t), what)
+            cases += 1
+    for seed in range(3):       # quotients past their fp64 range
+        for small in (False, True):
+            for E in (700, 1100):
+                t = cuda(*examples.preempt_wide_values(seed, E=E,
+                                                       small=small))
+                cmp("consol_absorb_preempt", cc.preempt_absorb(*t),
+                    pt._preempt_solve_ref(*t),
+                    f"wide values seed={seed} small={small} E={E}")
+                cases += 1
+    for G in P12_WIDE_G:
+        for hazard in ("plain", "zero_r_row", "overcommitted"):
+            t = cuda(*examples.preempt_case(hazard, 2, E=P12_NODES, G=G, D=6,
+                                            B=64))
+            cmp("consol_absorb_preempt", cc.preempt_absorb(*t),
+                pt._preempt_solve_ref(*t), f"{hazard} B=64 G={G}")
+            cases += 1
+    return cases
+
+
+def check_absorb_edges(cmp, dev):
+    """No lanes (B = 0: no launch, an empty answer) and no groups (G = 0:
+    one launch) in every consol_absorb mode against the plain versions,
+    and a subset round of no groups (Gq = 0: no launch, the reference's
+    rows [0, 0, 0, 0, removed_price]) against the plain round. Returns the
+    number of cases."""
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    from karpenter_provider_aws_tpu_torch.scheduling import preempt_torch as pt
+
+    def cuda(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+    a = cuda(*examples.absorb_case("plain", 7))
+    ps = cuda(*examples.prescreen_tables(7))
+    dn = cuda(*examples.dense_case("plain", 7))
+    pr = cuda(*examples.preempt_case("plain", 7))
+    cases = 0
+    for what, lanes, groups in (("B=0", lambda x: x[:0], lambda x: x),
+                                ("G=0", lambda x: x, lambda x: x[:, :0])):
+        sa = [*a[:4], *(groups(lanes(x)) for x in a[4:7]), lanes(a[7])]
+        pa = (*sa[:4], *ps[:5], *sa[4:], lanes(ps[5]))
+        sd = [lanes(x) for x in dn[:2]] + [groups(lanes(x)) for x in dn[2:]]
+        gp = (lambda x: x[:0]) if what == "G=0" else (lambda x: x)
+        sp = [*pr[:2], *(gp(x) for x in pr[2:5]), lanes(pr[5])]
+        fc.reset_launches()
+        got = [ct.deletions_feasible(*sa), ct.replacements_prescreen(*pa),
+               ct.deletions_feasible_dense(*sd), pt.preempt_solve(*sp)]
+        n = sum(v for k, v in fc.LAUNCHES.items()
+                if k.startswith("consol_absorb"))
+        if n != (0 if what == "B=0" else 4):
+            raise AssertionError(f"absorb at {what}: {n} launches")
+        for name, x, y in zip(
+                ("consol_absorb_deletions", "consol_absorb_prescreen",
+                 "consol_absorb_dense", "consol_absorb_preempt"), got,
+                (ct._deletions_feasible_ref(*sa),
+                 ct._replacements_prescreen_ref(*pa),
+                 ct._deletions_feasible_dense_ref(*sd),
+                 pt._preempt_solve_ref(*sp))):
+            cmp(name, x, y, what)
+        cases += 1
+    # F7: a subset round of zero groups
+    arena, tprice, lanes_np, st = examples.subset_case("dead_nodes", 4, B=4)
+    inp = ft.kernel_inputs_from_numpy(arena, dev)
+    tp = torch.from_numpy(tprice).to(dev)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in lanes_np.items()}
+    t["gid"], t["n"] = t["gid"][:, :0], t["n"][:, :0]
+    order = ("gid", "n", "dead", "keep", "removed_price")
+    fc.reset_launches()
+    rows = ct.subset_solve(inp, tp, *(t[k] for k in order), **st)
+    if any(fc.LAUNCHES.values()):
+        raise AssertionError(f"a subset round of Gq = 0 launched "
+                             f"{ {k: v for k, v in fc.LAUNCHES.items() if v} }")
+    # no kernel ran: held to the plain round here, not under a kernel's row
+    want = ct._subset_solve_ref(inp, tp, *(t[k] for k in order), **st)
+    if rows.device != want.device or not torch.equal(rows, want):
+        raise AssertionError(f"a subset round of Gq = 0: {rows.tolist()} != "
+                             f"the plain round's {want.tolist()}")
+    return cases + 1
 
 
 # ---------------------------------------------------------------------------
@@ -4788,6 +4942,8 @@ def main() -> int:
         stw["C"], stw["G"], stw["E"], stw["P"], stw["K"], stw["M"],
         stw["Q"]), stw, cmp)
     k7_cases = check_k7_synthetic(cmp, dev)
+    k7_cases += check_absorb_forms(cmp, dev)
+    k7_cases += check_absorb_edges(cmp, dev)
     k5_cases = check_fused_cases(cmp, dev)
     k1_k10 = check_k1_k10_shapes(cmp, dev)
     torch.cuda.synchronize()

@@ -377,6 +377,25 @@ __device__ __forceinline__ i64 block_excl_scan(i64 local, i64* tmp,
     return before;
 }
 
+// The inclusive prefix of v over a warp's lanes, wrapping (no barrier).
+__device__ __forceinline__ u64 warp_scan_u64(u64 v) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const u64 o = __shfl_up_sync(0xffffffffu, v, off);
+        if (lane >= off) v += o;
+    }
+    return v;
+}
+
+// The wrapping sum of v over a warp's lanes, on every lane.
+__device__ __forceinline__ u64 warp_sum_u64(u64 v) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+    return v;
+}
+
 // ---------------------------------------------------------------------------
 // The checkpoint bank (K3): the carry's eight fields and their bank rows
 // ---------------------------------------------------------------------------

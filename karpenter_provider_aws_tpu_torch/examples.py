@@ -1478,6 +1478,32 @@ def preempt_case(name: str, seed: int, E: int = 32, G: int = 4, D: int = 8,
     return ex_alloc, ex_used, ex_compat, R, n, np.cumsum(step, axis=0)
 
 
+def preempt_wide_values(seed: int, B: int = 6, E: int = 45, G: int = 5,
+                        D: int = 4, small: bool = False):
+    """K8 inputs (as ``preempt_case``) whose slacks (or, ``small``, only
+    the R rows) reach past 2^51, with R = 1 dims, over-committed nodes and,
+    ``small``, a group with a negative R: the absorption scan's quotients
+    past their fp64 range, and its fp64 rows turned back to int64."""
+    rng = np.random.RandomState(seed)
+    hi = 1 << 30 if small else 1 << 58
+    ex_alloc = rng.randint(hi >> 5, hi, (E, D)).astype(np.int64)
+    ex_alloc[::5] = rng.randint(0, 1 << 10, (E, D))[::5]
+    ex_used = (ex_alloc // 3).astype(np.int64)
+    ex_used[::7] = ex_alloc[::7] + (1 << 12)        # over-committed
+    R = rng.randint(1, 1 << 50, (G, D)).astype(np.int64)
+    R[0, 0] = 1
+    R[1] = 1
+    R[2, 1] = (1 << 53) + 3
+    R[3, 2] = 0
+    if small:
+        R[3] = rng.randint(1, 1 << 8, D)
+        R[3, 3] = -5
+    n = rng.randint(0, 1 << 12, G).astype(np.int64)
+    compat = rng.rand(G, E) < 0.85
+    freed = np.cumsum(rng.randint(0, hi >> 18, (B, E, D)), axis=0)
+    return ex_alloc, ex_used, compat, R, n, freed.astype(np.int64)
+
+
 def preempt_api(pkg=None):
     """The objects a preemption cluster is built from, as a namespace:
     the API objects, ``Resources``, ``Requirements``, the ``labels``

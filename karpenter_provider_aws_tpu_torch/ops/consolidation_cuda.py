@@ -12,6 +12,9 @@ Nothing here falls back to the plain versions in
 - ``consol_absorb(mode, ...)``: the absorption scans, one launch per
   batch whatever B or G: ``"deletions"`` (shared tables), ``"prescreen"``
   (shared tables + the one-new-node tail), ``"dense"`` (per-lane tables).
+  A lane is one CTA of ``ABSORB_THREADS``; its threads keep their rows in
+  registers, shared memory or a global scratch (``absorb_form``). B = 0
+  launches nothing.
 - ``preempt_absorb``: K8, the preemption victim-set search, as the fourth
   mode of the same kernel (``consol_absorb_preempt``): shared group rows,
   a per-lane refund, each lane's summed leftover out.
@@ -22,7 +25,8 @@ Nothing here falls back to the plain versions in
   ``ffd_group_commit`` launch takes (``csrc/ffd_scan.cu`` writes the rows
   after that commit).
 - ``subset_solve_cuda``: gather, the K2 kernels on their lane axis
-  (2·Gq launches, the last commit writing the rows).
+  (2·Gq launches, the last commit writing the rows); a round of no lanes
+  or no groups launches nothing.
 """
 
 from __future__ import annotations
@@ -35,8 +39,13 @@ from . import ffd_cuda
 from .ffd_cuda import ScanState, _launch, _lib, _need
 from .ffd_torch import KernelInputs, carry0
 
-#: the largest lane carry ``used`` [E, D] kept in shared memory (bytes);
-#: larger carries go to a global scratch
+#: threads a CTA of the absorption scan; rows a thread keeps in registers
+#: (form 0), each of at most ABSORB_REG_DIMS dims
+ABSORB_THREADS = 256
+ABSORB_REG_ROWS = 4
+ABSORB_REG_DIMS = 8
+#: the largest lane's rows kept in shared memory (form 1, bytes); larger
+#: rows go to a global scratch (form 2)
 ABSORB_SMEM_MAX = 160 * 1024
 
 _MODES = {"deletions": 0, "prescreen": 1, "dense": 2}
@@ -51,9 +60,9 @@ class _AbsorbArgs(ctypes.Structure):
     _fields_ = ([(f, _vp) for f in (
         "ex_alloc", "ex_used0", "compat", "R", "gid", "cid", "n", "alive",
         "type_alloc", "type_price", "tcompat", "padmit", "pool_types",
-        "price_cap", "used_scratch", "leftover", "out", "freed", "total")]
+        "price_cap", "scratch", "leftover", "out", "freed", "total")]
         + [(f, _ll) for f in ("B", "G", "E", "D", "Sc", "T", "P",
-                              "used_in_smem")])
+                              "form")])
 
 
 class _GatherArgs(ctypes.Structure):
@@ -75,6 +84,42 @@ class _SummaryArgs(ctypes.Structure):
 
 def _ptr(t):
     return t.data_ptr() if t is not None and t.numel() else None
+
+
+def absorb_chunk(E: int) -> int:
+    """The rows a thread of the absorption scan owns: ceil(E / the lane's
+    threads)."""
+    return -(-E // ABSORB_THREADS)
+
+
+def absorb_form(E: int, D: int) -> int:
+    """Where the scan's threads keep their rows: in registers (0) at up to
+    ABSORB_REG_ROWS rows of ABSORB_REG_DIMS dims, in shared memory (1)
+    while a lane's rows fit ABSORB_SMEM_MAX, else in a global scratch (2);
+    csrc/consolidation.cu takes what it is given and refuses a form the
+    shapes do not fit."""
+    if absorb_chunk(E) <= ABSORB_REG_ROWS and D <= ABSORB_REG_DIMS:
+        return 0
+    return 1 if 8 * absorb_row_words(E, D) <= ABSORB_SMEM_MAX else 2
+
+
+def absorb_row_words(E: int, D: int) -> int:
+    """Words of one lane's rows in forms 1 and 2: each thread's chunk of
+    rows, D slack words and k a row (``absorb_row_words``)."""
+    return absorb_chunk(E) * (D + 1) * ABSORB_THREADS
+
+
+def _absorb_launch(name: str, mode: int, args: _AbsorbArgs, B: int, E: int,
+                   D: int, at) -> None:
+    """One launch of the scan, its form set in ``args`` (a global scratch
+    for form 2). Nothing at B = 0."""
+    if B == 0:
+        return
+    form = absorb_form(E, D)
+    scratch = None if form != 2 else torch.empty(
+        (B, absorb_row_words(E, D)), dtype=torch.int64, device=at.device)
+    args.form, args.scratch = form, _ptr(scratch)
+    _launch(name, _lib().karp_consol_absorb, (ctypes.byref(args), mode), at)
 
 
 def consol_absorb(mode: str, *, ex_alloc, ex_used0, compat, R, n, gid=None,
@@ -117,9 +162,6 @@ def consol_absorb(mode: str, *, ex_alloc, ex_used0, compat, R, n, gid=None,
         _need(pool_types, "pool_types", b, (P, T))
         _need(price_cap, "price_cap", i64, (B,))
     dev = n.device
-    smem = E * D * 8 <= ABSORB_SMEM_MAX
-    scratch = None if smem else torch.empty((B, E, D), dtype=i64,
-                                            device=dev)
     leftover = torch.empty((B, G), dtype=i64, device=dev)
     out = torch.empty(B, dtype=b, device=dev)
     args = _AbsorbArgs(
@@ -128,21 +170,19 @@ def consol_absorb(mode: str, *, ex_alloc, ex_used0, compat, R, n, gid=None,
         alive=_ptr(alive), type_alloc=_ptr(type_alloc),
         type_price=_ptr(type_price), tcompat=_ptr(tcompat),
         padmit=_ptr(padmit), pool_types=_ptr(pool_types),
-        price_cap=_ptr(price_cap), used_scratch=_ptr(scratch),
-        leftover=_ptr(leftover), out=_ptr(out), B=B, G=G, E=E, D=D, Sc=Sc,
-        T=T, P=P, used_in_smem=int(smem))
-    _launch(f"consol_absorb_{mode}", _lib().karp_consol_absorb,
-            (ctypes.byref(args), _MODES[mode]), n)
+        price_cap=_ptr(price_cap), leftover=_ptr(leftover), out=_ptr(out),
+        B=B, G=G, E=E, D=D, Sc=Sc, T=T, P=P)
+    _absorb_launch(f"consol_absorb_{mode}", _MODES[mode], args, B, E, D, n)
     return out
 
 
-def preempt_absorb(ex_alloc, ex_used0, ex_compat, R, n,
-                   freed) -> torch.Tensor:
+def preempt_absorb(ex_alloc, ex_used0, ex_compat, R, n, freed
+                   ) -> torch.Tensor:
     """K8: [B] int64, each lane's leftover demand pods after the greedy
     fill of the G demand groups onto the E existing nodes, the lane's
     refund ``freed[b]`` taken off the usage first. ex_alloc/ex_used0
     [E, D], ex_compat [G, E] bool, R [G, D], n [G], freed [B, E, D]; one
-    launch (one block per lane)."""
+    launch (a CTA a lane), none at B = 0."""
     i64 = torch.int64
     B, E, D = freed.shape
     G = R.shape[0]
@@ -152,18 +192,13 @@ def preempt_absorb(ex_alloc, ex_used0, ex_compat, R, n,
     _need(ex_compat, "ex_compat", torch.bool, (G, E))
     _need(R, "R", i64, (G, D))
     _need(n, "n", i64, (G,))
-    dev = freed.device
-    smem = E * D * 8 <= ABSORB_SMEM_MAX
-    scratch = None if smem else torch.empty((B, E, D), dtype=i64,
-                                            device=dev)
-    total = torch.empty(B, dtype=i64, device=dev)
+    total = torch.empty(B, dtype=i64, device=freed.device)
     args = _AbsorbArgs(
         ex_alloc=_ptr(ex_alloc), ex_used0=_ptr(ex_used0),
         compat=_ptr(ex_compat), R=_ptr(R), n=_ptr(n), freed=_ptr(freed),
-        used_scratch=_ptr(scratch), total=_ptr(total), B=B, G=G, E=E, D=D,
-        used_in_smem=int(smem))
-    _launch("consol_absorb_preempt", _lib().karp_consol_absorb,
-            (ctypes.byref(args), _MODE_PREEMPT), freed)
+        total=_ptr(total), B=B, G=G, E=E, D=D)
+    _absorb_launch("consol_absorb_preempt", _MODE_PREEMPT, args, B, E, D,
+                   freed)
     return total
 
 
@@ -280,13 +315,21 @@ def subset_solve_cuda(arena: KernelInputs, tprice, gid, n, dead, keep,
     """The whole-fleet subset round on the card: one subset_gather, the
     two K2 kernels per group on the lane axis (2·Gq launches for every
     lane at once), the last commit also writing the [B, 5] rows
-    (``summary_args``); no synchronisation."""
+    (``summary_args``); no synchronisation. With no lane or no group
+    nothing launches and the rows are the reference's for an empty scan."""
     if arena.mv_floor is not None:
         raise ValueError("subset lanes take no minValues floors")
     if arena.ex_compat.shape[1] != E:
         raise ValueError(f"arena has {arena.ex_compat.shape[1]} existing "
                          f"rows, E={E}")
     B, Gq = gid.shape
+    if B == 0 or Gq == 0:
+        # no group to fill: each lane's row is the reference's start,
+        # [0, 0, 0, 0, removed_price], with no launch
+        _need(removed_price, "removed_price", torch.int64, (B,))
+        out = torch.zeros((B, 5), dtype=torch.int64, device=gid.device)
+        out[:, 4] = removed_price
+        return out
     with ffd_cuda.on_device(ffd_cuda._device(gid)):
         lanes = subset_gather(arena, gid, n, dead, keep)
         carry = carry0(lanes, E + n_max, E, lanes=B)

@@ -74,6 +74,8 @@ def _absorb_scan(ex_alloc: torch.Tensor, used: torch.Tensor,
         take = torch.minimum((n[:, g:g + 1] - cum).clamp(min=0), k)
         used = used + take[:, :, None] * Rg[:, None, :]
         lefts.append(n[:, g] - take.sum(dim=1))
+    if not lefts:   # no group: the reference's scan of none, [B, 0]
+        return n.new_zeros((n.shape[0], 0))
     return torch.stack(lefts, dim=1)
 
 

@@ -849,6 +849,200 @@ def test_consol_absorb_matches_plain(cuda_device, hazard, E):
         consol_absorb_dense=1)
 
 
+#: the absorption scan's forms forced by shape: E with the form that
+#: gives (csrc/consolidation.cu; D = 8)
+ABSORB_FORM_SHAPES = {"registers": 1000, "registers_full": 1024,
+                      "shared": 1100, "shared_wide": 2048, "global": 4096}
+
+
+@pytest.mark.parametrize("shape", list(ABSORB_FORM_SHAPES))
+@pytest.mark.parametrize("hazard", examples.ABSORB_HAZARDS)
+def test_consol_absorb_forms_match_plain(cuda_device, hazard, shape):
+    """The three K7 modes in each form of the redesigned scan (rows in
+    registers, in shared memory, in the global scratch) against the plain
+    versions, one launch each."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    E = ABSORB_FORM_SHAPES[shape]
+    want = {"registers": 0, "registers_full": 0, "shared": 1,
+            "shared_wide": 1, "global": 2}[shape]
+    assert cc.absorb_form(E, 8) == want
+    a = _t(cuda_device, *examples.absorb_case(hazard, 5, E=E, G=6))
+    ps = _t(cuda_device, *examples.prescreen_tables(5))
+    dn = _t(cuda_device, *examples.dense_case(hazard, 5, E=E, G=6))
+    names = ("ex_alloc", "ex_used0", "compat", "R", "gid", "cid", "n",
+             "alive")
+    kw = dict(zip(names, a))
+    ffd_cuda.reset_launches()
+    assert torch.equal(cc.consol_absorb("deletions", **kw),
+                       ct._deletions_feasible_ref(*a))
+    pkw = dict(kw, **dict(zip(("type_alloc", "type_price", "tcompat",
+                               "padmit", "pool_types", "price_cap"), ps)))
+    assert torch.equal(cc.consol_absorb("prescreen", **pkw),
+                       ct._replacements_prescreen_ref(*a[:4], *ps[:5],
+                                                      *a[4:], ps[5]))
+    assert torch.equal(cc.consol_absorb(
+        "dense", **dict(zip(("ex_alloc", "ex_used0", "compat", "R", "n"),
+                            dn))),
+        ct._deletions_feasible_dense_ref(*dn))
+    assert {k: v for k, v in ffd_cuda.LAUNCHES.items() if v} == dict(
+        consol_absorb_deletions=1, consol_absorb_prescreen=1,
+        consol_absorb_dense=1)
+
+
+@pytest.mark.parametrize("B", [1, 256])
+@pytest.mark.parametrize("hazard", ["plain", "zero_r_row", "overcommitted"])
+def test_consol_absorb_lane_counts(cuda_device, hazard, B):
+    """One lane and 256 lanes (rows in registers at 200 and 1,000 nodes,
+    in shared memory at 1,500), every K7 mode against the plain
+    versions."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    for E in (200, 1000, 1500):
+        a = _t(cuda_device, *examples.absorb_case(hazard, 6, B=B, E=E))
+        ps = _t(cuda_device, *examples.prescreen_tables(6, B=B))
+        dn = _t(cuda_device, *examples.dense_case(hazard, 6, B=B, E=E))
+        assert torch.equal(ct.deletions_feasible(*a),
+                           ct._deletions_feasible_ref(*a))
+        pa = (*a[:4], *ps[:5], *a[4:], ps[5])
+        assert torch.equal(ct.replacements_prescreen(*pa),
+                           ct._replacements_prescreen_ref(*pa))
+        assert torch.equal(ct.deletions_feasible_dense(*dn),
+                           ct._deletions_feasible_dense_ref(*dn))
+
+
+@pytest.mark.parametrize("G", [2, 16, 64, 256])
+def test_preempt_wide_waves_match_plain(cuda_device, G):
+    """K8 at the preemption round's width (64 lanes, 1,000 nodes, D = 6)
+    for the waves of G groups against the plain version; one launch."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    from karpenter_provider_aws_tpu_torch.scheduling import preempt_torch
+    for hazard in ("plain", "zero_r_row", "overcommitted"):
+        t = _t(cuda_device, *examples.preempt_case(hazard, 2, E=1000, G=G,
+                                                   D=6, B=64))
+        ffd_cuda.reset_launches()
+        got = cc.preempt_absorb(*t)
+        assert dict(ffd_cuda.LAUNCHES)["consol_absorb_preempt"] == 1
+        assert torch.equal(got, preempt_torch._preempt_solve_ref(*t)), hazard
+
+
+@pytest.mark.parametrize("small", [False, True])
+@pytest.mark.parametrize("seed", range(3))
+def test_preempt_wide_values(cuda_device, seed, small):
+    """K8 where the scan's quotients leave their fp64 range: slacks past
+    2^51 (floordiv_rcp), or small slacks (rows kept as fp64) with R past
+    2^51 and a group with a negative R (the rows back to int64), in
+    registers (45 and 700 nodes) and in shared memory (1,100), against the
+    plain version."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.scheduling import preempt_torch
+    for E in (45, 700, 1100):
+        t = _t(cuda_device, *examples.preempt_wide_values(seed, E=E,
+                                                           small=small))
+        want = preempt_torch._preempt_solve_ref(*t)
+        assert torch.equal(cc.preempt_absorb(*t), want), E
+
+
+@pytest.mark.parametrize("B", [1, 200])
+def test_preempt_lane_counts(cuda_device, B):
+    """K8 on one lane and on 200 (rows in registers, in shared memory at
+    1,500 nodes, in the global scratch at 4,096), against the plain
+    version."""
+    from karpenter_provider_aws_tpu_torch.scheduling import preempt_torch
+    for E in (32, 1000, 1500, 4096):
+        t = _t(cuda_device, *examples.preempt_case("refund_above_used", 3,
+                                                   E=E, G=8, B=B))
+        assert torch.equal(preempt_torch.preempt_solve(*t),
+                           preempt_torch._preempt_solve_ref(*t)), E
+
+
+def test_absorb_no_lanes_and_no_groups(cuda_device):
+    """B = 0: every mode launches nothing and answers an empty [0] (the
+    plain versions' answer; a launch of no blocks is refused by CUDA). G =
+    0 at B >= 1: one launch each, equal to the plain versions (every lane
+    feasible, no leftover pods)."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    from karpenter_provider_aws_tpu_torch.scheduling import preempt_torch
+    a = _t(cuda_device, *examples.absorb_case("plain", 7))
+    ps = _t(cuda_device, *examples.prescreen_tables(7))
+    dn = _t(cuda_device, *examples.dense_case("plain", 7))
+    pr = _t(cuda_device, *examples.preempt_case("plain", 7))
+    cuts = {
+        "B=0": (lambda x: x[:0], lambda x: x[:0]),
+        "G=0": (lambda x: x, lambda x: x[:, :0]),
+    }
+    for what, (lanes, groups) in cuts.items():
+        sa = [*a[:4], *(groups(lanes(x)) for x in a[4:7]), lanes(a[7])]
+        pa = (*sa[:4], *ps[:5], *sa[4:], lanes(ps[5]))
+        sd = [lanes(x) for x in dn[:2]] + [groups(lanes(x)) for x in dn[2:]]
+        gp = (lambda x: x[:0]) if what == "G=0" else (lambda x: x)
+        sp = [*pr[:2], *(gp(x) for x in pr[2:5]), lanes(pr[5])]
+        ffd_cuda.reset_launches()
+        got = [ct.deletions_feasible(*sa), ct.replacements_prescreen(*pa),
+               ct.deletions_feasible_dense(*sd),
+               preempt_torch.preempt_solve(*sp)]
+        torch.cuda.synchronize()
+        want = [ct._deletions_feasible_ref(*sa),
+                ct._replacements_prescreen_ref(*pa),
+                ct._deletions_feasible_dense_ref(*sd),
+                preempt_torch._preempt_solve_ref(*sp)]
+        for x, y in zip(got, want):
+            assert x.device.type == "cuda" and torch.equal(x, y), what
+        n = sum(v for k, v in ffd_cuda.LAUNCHES.items()
+                if k.startswith("consol_absorb"))
+        assert n == (0 if what == "B=0" else 4), what
+
+
+def test_absorb_refuses_a_form_its_shapes_do_not_take(cuda_device):
+    """Rows in registers past 4 a thread (E = 2,000): the C entry refuses
+    the launch with an error, runs nothing and writes nothing."""
+    import ctypes
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    t = _t(cuda_device, *examples.preempt_case("plain", 8, E=2000, B=2))
+    total = torch.full((2,), -7, dtype=torch.int64, device=cuda_device)
+    args = cc._AbsorbArgs(
+        ex_alloc=cc._ptr(t[0]), ex_used0=cc._ptr(t[1]), compat=cc._ptr(t[2]),
+        R=cc._ptr(t[3]), n=cc._ptr(t[4]), freed=cc._ptr(t[5]),
+        total=cc._ptr(total), B=2, G=t[3].shape[0], E=2000, D=t[0].shape[1],
+        form=0)
+    err = ffd_cuda._lib().karp_consol_absorb(ctypes.byref(args), 3, None)
+    torch.cuda.synchronize()
+    assert err != 0
+    assert total.tolist() == [-7, -7]
+
+
+@pytest.mark.parametrize("B", [0, 4])
+def test_subset_round_of_no_groups(cuda_device, B):
+    """A subset round of zero groups (Gq = 0) launches nothing and
+    answers the plain version's rows, [0, 0, 0, 0, removed_price] a lane;
+    with no lanes an empty [0, 5]."""
+    from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda
+    arena, tprice, lanes, st = examples.subset_case("dead_nodes", 4, B=4)
+    inp = ft.kernel_inputs_from_numpy(arena, cuda_device)
+    tp = torch.from_numpy(tprice).to(cuda_device)
+    t = {k: torch.from_numpy(v[:B]).to(cuda_device)
+         for k, v in lanes.items()}
+    t["gid"], t["n"] = t["gid"][:, :0], t["n"][:, :0]
+    order = ("gid", "n", "dead", "keep", "removed_price")
+    # a freed block of -1s where the rows' allocation may land
+    del_me = torch.full((max(B, 1), 5), -1, dtype=torch.int64,
+                        device=cuda_device)
+    del del_me
+    ffd_cuda.reset_launches()
+    got = ct.subset_solve(inp, tp, *(t[k] for k in order), **st)
+    torch.cuda.synchronize()
+    assert not any(ffd_cuda.LAUNCHES.values())
+    want = ct._subset_solve_ref(inp, tp, *(t[k] for k in order), **st) \
+        if B else torch.zeros((0, 5), dtype=torch.int64, device=cuda_device)
+    assert got.shape == (B, 5) and torch.equal(got, want)
+    assert torch.equal(got[:, 4], t["removed_price"])
+    assert not got[:, :4].any()
+
+
 def test_consolidation_evaluator_on_card_matches_plain(cuda_device):
     """config 4 at 24 nodes: the three walks on the card equal the plain
     versions' walks, and the subset rows are equal lane for lane."""

@@ -469,3 +469,186 @@ def test_summary_model_on_subset_rounds_matches_jax(hazard):
         lanes["dead"], lanes["keep"], lanes["removed_price"])), **st))
     assert np.array_equal(got, plain) and np.array_equal(got, ref)
     assert len(offs) > 4
+
+
+# ---------------------------------------------------------------------------
+# the absorption scan's three K7 modes (consol_absorb, redesigned)
+# ---------------------------------------------------------------------------
+
+def _wrap_sum(xs) -> int:
+    return _wrap(sum(int(x) for x in xs))
+
+
+def prescreen_tail_model(left, gid, cid, R_tab, type_alloc, type_price,
+                         tcompat, padmit, pool_types, cap) -> bool:
+    """The kernel's pre-screen tail on one lane's leftovers: any_active
+    and the pool flags by votes over the groups, the aggregate by wrapping
+    (shared atomic) adds of leftover * R over every group whose leftover
+    is not 0, then a thread a type."""
+    active = left > 0
+    any_active = bool(active.any())
+    D = R_tab.shape[1]
+    agg = [_wrap_sum(int(left[g]) * int(R_tab[gid[g], d])
+                     for g in range(len(left)) if left[g] != 0)
+           for d in range(D)]
+    pok = [all(padmit[p, cid[g]] for g in range(len(left)) if active[g])
+           for p in range(padmit.shape[0])]
+    found = False
+    for t in range(type_alloc.shape[0]):
+        ok = type_price[t] < cap
+        ok = ok and all(tcompat[cid[g], t] for g in range(len(left))
+                        if active[g])
+        ok = ok and all(agg[d] <= type_alloc[t, d] for d in range(D))
+        pool = any(pok[p] and pool_types[p, t]
+                   for p in range(padmit.shape[0]))
+        found |= bool(ok and pool)
+    return found or not any_active
+
+
+def k7_model(mode, a, ps=None, NT=256, reg=True):
+    """The three K7 modes by ``test_torch_k8.absorb_model``: shared
+    tables a = (ex_alloc, ex_used0, compat_tab, R_tab, gid, cid, n, alive)
+    (+ ps, the pre-screen's tables), or dense a = (ex_alloc, ex_used0,
+    ex_compat, R, n)."""
+    from tests.test_torch_k8 import absorb_model
+    if mode == "dense":
+        alloc, used, compat, R, n = a
+        B = n.shape[0]
+        with np.errstate(over="ignore"):
+            return np.array([(absorb_model(alloc[b] - used[b], compat[b],
+                                           R[b], n[b], NT, reg)[0] == 0).all()
+                             for b in range(B)], bool)
+    alloc, used, compat_tab, R_tab, gid, cid, n, alive = a
+    B = n.shape[0]
+    out = np.zeros(B, bool)
+    with np.errstate(over="ignore"):
+        slack = alloc - used
+    for b in range(B):
+        left, _ = absorb_model(slack, compat_tab[cid[b]] & alive[b][None],
+                               R_tab[gid[b]], n[b], NT, reg)
+        if mode == "deletions":
+            out[b] = (left == 0).all()
+        else:
+            out[b] = prescreen_tail_model(left, gid[b], cid[b], R_tab,
+                                          *ps[:5], ps[5][b])
+    return out
+
+
+def _k7_jax(mode, a, ps):
+    import jax.numpy as jnp
+    j = [jnp.asarray(x) for x in a]
+    if mode == "deletions":
+        return np.asarray(cj.deletions_feasible_kernel(*j))
+    if mode == "dense":
+        return np.asarray(cj.deletions_feasible_dense(*j))
+    p = [jnp.asarray(x) for x in ps]
+    return np.asarray(cj.replacements_prescreen_kernel(*j[:4], *p[:5],
+                                                       *j[4:], p[5]))
+
+
+def _k7_plain(mode, a, ps):
+    t = [torch.from_numpy(x) for x in a]
+    if mode == "deletions":
+        return ct._deletions_feasible_ref(*t).numpy()
+    if mode == "dense":
+        return ct._deletions_feasible_dense_ref(*t).numpy()
+    p = [torch.from_numpy(x) for x in ps]
+    return ct._replacements_prescreen_ref(*t[:4], *p[:5], *t[4:],
+                                          p[5]).numpy()
+
+
+#: the model's (threads a CTA, rows in registers): the kernel's, and
+#: counts that do not divide E = 37 or 300
+K7_LAYOUTS = [(256, True), (256, False), (32, True), (96, False)]
+
+
+@pytest.mark.parametrize("E", [37, 300])
+@pytest.mark.parametrize("mode", ["deletions", "prescreen", "dense"])
+@pytest.mark.parametrize("hazard", examples.ABSORB_HAZARDS)
+def test_absorb_model_matches_plain_and_jax(hazard, mode, E):
+    """Each K7 mode of the redesigned scan (k once a row, thread-owned
+    slack, fp64 or floordiv_rcp quotients, the warp-then-CTA prefix, the
+    take sums carried to the next group's barrier, the pre-screen tail by
+    votes) equal to the plain version and the reference's kernel, at every
+    hazard of
+    ``ABSORB_HAZARDS`` (an all-zero R row wrapping the prefix, over-
+    committed and dead nodes, padded lanes and groups, counts past the
+    nodes)."""
+    seed = examples.ABSORB_HAZARDS.index(hazard)
+    B = 6
+    a = (examples.dense_case if mode == "dense" else examples.absorb_case)(
+        hazard, seed, B=B, E=E, G=5)
+    ps = examples.prescreen_tables(seed, B=B) if mode == "prescreen" \
+        else None
+    want = _k7_plain(mode, a, ps)
+    assert np.array_equal(want, _k7_jax(mode, a, ps))
+    for NT, reg in K7_LAYOUTS:
+        assert np.array_equal(k7_model(mode, a, ps, NT, reg), want), \
+            (NT, reg)
+
+
+@pytest.mark.parametrize("cut", ["G=0", "B=0", "E=0"])
+@pytest.mark.parametrize("mode", ["deletions", "prescreen", "dense"])
+def test_absorb_model_edges(mode, cut):
+    """No groups (every lane feasible), no lanes (an empty answer), no
+    nodes: the model, the plain version and the reference agree."""
+    B, E, G = (0, 32, 4) if cut == "B=0" else (5, 0 if cut == "E=0" else
+                                               32, 0 if cut == "G=0" else 4)
+    mk = examples.dense_case if mode == "dense" else examples.absorb_case
+    a = [np.ascontiguousarray(x) for x in mk("overcommitted", 3, B=max(B, 1),
+                                               E=max(E, 1), G=max(G, 1))]
+    ps = list(examples.prescreen_tables(3, B=max(B, 1)))
+    ps[5] = ps[5][:B]
+    if mode == "dense":        # ex_alloc, ex_used0 [B, E, D], ex_compat
+        a = [a[0][:B, :E], a[1][:B, :E], a[2][:B, :G, :E], a[3][:B, :G],
+             a[4][:B, :G]]
+    else:
+        a = [a[0][:E], a[1][:E], a[2][:, :E], a[3], a[4][:B, :G],
+             a[5][:B, :G], a[6][:B, :G], a[7][:B, :E]]
+    want = _k7_plain(mode, a, ps)
+    assert want.shape == (B,)
+    assert np.array_equal(want, _k7_jax(mode, a, ps))
+    for NT, reg in K7_LAYOUTS:
+        assert np.array_equal(k7_model(mode, a, ps, NT, reg), want), \
+            (NT, reg)
+
+
+@pytest.mark.parametrize("mode", ["deletions", "prescreen", "dense",
+                                  "preempt"])
+def test_absorb_scan_of_no_groups_is_the_references(mode):
+    """G = 0 at B = 3: ``_absorb_scan`` answers leftover [B, 0] (the
+    reference's ``lax.scan`` of no steps), and each plain entry built on
+    it equals the reference's kernel called on the same inputs: every lane
+    feasible (K7a-c), every lane's total 0 (K8)."""
+    from karpenter_provider_aws_tpu.scheduling import preempt_jax as pj
+    from karpenter_provider_aws_tpu_torch.scheduling import preempt_torch \
+        as pt
+    import jax.numpy as jnp
+    B, E, D = 3, 32, 8
+    i64 = torch.int64
+    left = ct._absorb_scan(torch.ones((1, E, D), dtype=i64),
+                           torch.zeros((B, E, D), dtype=i64),
+                           torch.zeros((B, 0, E), dtype=torch.bool),
+                           torch.zeros((B, 0, D), dtype=i64),
+                           torch.zeros((B, 0), dtype=i64))
+    assert left.shape == (B, 0) and left.dtype == i64
+    if mode == "preempt":
+        t = list(examples.preempt_case("plain", 3, E=E, B=B))
+        t[2], t[3], t[4] = t[2][:0], t[3][:0], t[4][:0]
+        want = np.asarray(pj.preempt_solve_kernel(*map(jnp.asarray, t)))
+        got = pt._preempt_solve_ref(*map(torch.from_numpy, t)).numpy()
+        assert np.array_equal(want, np.zeros(B, np.int64))
+    else:
+        mk = examples.dense_case if mode == "dense" else examples.absorb_case
+        a = list(mk("plain", 3, B=B, E=E, G=1))
+        if mode == "dense":
+            a[2], a[3], a[4] = a[2][:, :0], a[3][:, :0], a[4][:, :0]
+        else:
+            a[4], a[5], a[6] = a[4][:, :0], a[5][:, :0], a[6][:, :0]
+        a = [np.ascontiguousarray(x) for x in a]
+        ps = examples.prescreen_tables(3, B=B) if mode == "prescreen" \
+            else None
+        want = _k7_jax(mode, a, ps)
+        got = _k7_plain(mode, a, ps)
+        assert np.array_equal(want, np.ones(B, bool))
+    assert got.dtype == want.dtype and np.array_equal(got, want)

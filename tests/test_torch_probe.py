@@ -37,6 +37,7 @@ import torch
 from karpenter_provider_aws_tpu.ops import ffd_jax
 from karpenter_provider_aws_tpu_torch import examples
 from karpenter_provider_aws_tpu_torch.ops import consolidation_cuda as cc
+from karpenter_provider_aws_tpu_torch.ops import consolidation_torch as ct
 from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
 from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
 from karpenter_provider_aws_tpu_torch.ops import mesh_cuda as mc
@@ -604,6 +605,111 @@ def test_consolidation_launches_on_its_device(card):
         cid=torch.zeros((B, G), dtype=torch.int32),
         alive=torch.ones((B, E), dtype=torch.bool))
     _on_card1(card, 2)
+
+
+def _absorb_kw(mode, B, E, G=3, D=8):
+    """Inputs of ``consol_absorb(mode)`` at B lanes, E rows, G groups."""
+    i64, b = torch.int64, torch.bool
+    if mode == "dense":
+        return dict(ex_alloc=torch.ones((B, E, D), dtype=i64),
+                    ex_used0=torch.zeros((B, E, D), dtype=i64),
+                    compat=torch.ones((B, G, E), dtype=b),
+                    R=torch.ones((B, G, D), dtype=i64),
+                    n=torch.ones((B, G), dtype=i64))
+    kw = dict(ex_alloc=torch.ones((E, D), dtype=i64),
+              ex_used0=torch.zeros((E, D), dtype=i64),
+              compat=torch.ones((2, E), dtype=b),
+              R=torch.ones((4, D), dtype=i64), n=torch.ones((B, G), dtype=i64),
+              gid=torch.zeros((B, G), dtype=torch.int32),
+              cid=torch.zeros((B, G), dtype=torch.int32),
+              alive=torch.ones((B, E), dtype=b))
+    if mode == "prescreen":
+        T, P = 5, 2
+        kw.update(type_alloc=torch.ones((T, D), dtype=i64),
+                  type_price=torch.ones(T, dtype=i64),
+                  tcompat=torch.ones((2, T), dtype=b),
+                  padmit=torch.ones((P, 2), dtype=b),
+                  pool_types=torch.ones((P, T), dtype=b),
+                  price_cap=torch.ones(B, dtype=i64))
+    return kw
+
+
+@pytest.mark.parametrize("E,D,want_form", [
+    (16, 8, 0), (1000, 8, 0), (1024, 8, 0), (1025, 8, 1), (1500, 6, 1),
+    (100, 9, 1), (2100, 4, 1), (4096, 8, 2)])
+@pytest.mark.parametrize("mode", ["deletions", "prescreen", "dense",
+                                  "preempt"])
+def test_absorb_one_launch_in_the_rules_form(card, mode, E, D, want_form):
+    """Each mode is one ``karp_consol_absorb`` launch of its mode under one
+    guard, whatever B or G; its form follows the rule (rows in registers at
+    up to 4 of 8 dims a thread, else shared memory, else a global scratch
+    of the lane's rows)."""
+    B, G = 3, 4
+    if mode == "preempt":
+        out = cc.preempt_absorb(
+            torch.ones((E, D), dtype=torch.int64),
+            torch.zeros((E, D), dtype=torch.int64),
+            torch.ones((G, E), dtype=torch.bool),
+            torch.ones((G, D), dtype=torch.int64),
+            torch.ones(G, dtype=torch.int64),
+            torch.zeros((B, E, D), dtype=torch.int64))
+    else:
+        out = cc.consol_absorb(mode, **_absorb_kw(mode, B, E, G, D))
+    assert out.shape == (B,)
+    names = [n for n, _ in card.launches()]
+    assert names == ["karp_consol_absorb"]
+    args = card.args[-1][1]
+    assert args[1] == {"deletions": 0, "prescreen": 1, "dense": 2,
+                       "preempt": 3}[mode]
+    a = args[0]._obj
+    assert (a.B, a.G, a.E, a.D) == (B, G, E, D)
+    assert a.form == want_form == cc.absorb_form(E, D)
+    assert bool(a.scratch) == (want_form == 2)
+    assert fc.LAUNCHES[f"consol_absorb_{mode}"] == 1
+    assert sum(fc.LAUNCHES.values()) == 1
+    _on_card1(card, 1)
+
+
+@pytest.mark.parametrize("mode", ["deletions", "prescreen", "dense",
+                                  "preempt"])
+def test_absorb_no_lanes_launches_nothing(card, mode):
+    """B = 0: an empty answer and no launch (CUDA refuses a grid of no
+    blocks; the plain versions answer [0])."""
+    E, G, D = 32, 3, 8
+    if mode == "preempt":
+        out = cc.preempt_absorb(
+            torch.ones((E, D), dtype=torch.int64),
+            torch.zeros((E, D), dtype=torch.int64),
+            torch.ones((G, E), dtype=torch.bool),
+            torch.ones((G, D), dtype=torch.int64),
+            torch.ones(G, dtype=torch.int64),
+            torch.zeros((0, E, D), dtype=torch.int64))
+        assert out.dtype == torch.int64
+    else:
+        out = cc.consol_absorb(mode, **_absorb_kw(mode, 0, E, G, D))
+        assert out.dtype == torch.bool
+    assert out.shape == (0,)
+    assert card.calls == [] and not any(fc.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("B", [0, 4])
+def test_subset_round_of_no_groups_launches_nothing(card, B):
+    """A subset round of Gq = 0 (or of no lanes) launches nothing and
+    answers the reference's rows, [0, 0, 0, 0, removed_price] a lane, the
+    plain version's on the same inputs."""
+    arena, tprice, lanes, st = examples.subset_case("dead_nodes", 4, B=4)
+    inp = ft.kernel_inputs_from_numpy(arena, "cpu")
+    t = {k: torch.from_numpy(v[:B]) for k, v in lanes.items()}
+    t["gid"], t["n"] = t["gid"][:, :0], t["n"][:, :0]
+    order = ("gid", "n", "dead", "keep", "removed_price")
+    rows = cc.subset_solve_cuda(inp, torch.from_numpy(tprice),
+                                *(t[k] for k in order), **st)
+    assert card.calls == [] and not any(fc.LAUNCHES.values())
+    want = ct._subset_solve_ref(inp, torch.from_numpy(tprice),
+                                *(t[k] for k in order), **st) if B else \
+        torch.zeros((0, 5), dtype=torch.int64)
+    assert rows.shape == (B, 5) and torch.equal(rows, want)
+    assert torch.equal(rows[:, 4], t["removed_price"])
 
 
 def test_topology_scan_launches_on_its_device(card):
