@@ -185,6 +185,29 @@ Phases (any failure exits non-zero before the result line):
    (``distmesh.oracle_out``), ticks 0 and 1 also the plain
    ``_solve_scan_ref`` on the CPU (computed from the start in a process
    of its own, two threads);
+16. the preference path (run before phase 10 too): BASELINE config 6
+   (``examples.config6``, 50,000 pods: 70% plain, 20% ScheduleAnyway
+   zone spread in 10 deployments, 10% preferred zone anti-affinity in
+   ~200-pod deployments) through ``CUDASolver().solve`` with ``metrics``
+   set: the relaxation wrapper hardens the soft terms and relaxes the
+   pods they block, so every solve runs at least two rounds (read from
+   the counter), each on the topology kernels (``kernel="topo"``, no
+   bail); each round's snapshot is kept by wrapping ``_solve_core`` in
+   this script, and every round's K9 kernels (and the plain groups'
+   ``ffd_group_commit`` with its record) are held to their plain parts
+   from the same entry state, launches counted; one warm-up and timed
+   solves (counters set to 0 just before and read just after), the split
+   summed over the rounds; decisions equal to the port's CPU oracle
+   (``CPUSolver``) on the same snapshot;
+17. the oracle route (run before phase 10 too): config 2's shape at
+   50,000 pods plus one deployment whose topology the pour does not
+   model (an arch spread; a zone spread beside a zone-id requirement)
+   through ``CUDASolver().solve``: ``kernel="oracle"``, no launch of any
+   kernel, the fallback counted; the same solver's next config-2 tick
+   runs on the card and equals a fresh solver's; then the grouping
+   walk's ``group_ms`` p50 at config 2 and config 3 with the C walk
+   (``models.encoding._groupwalk()``, which must have built) and with the
+   Python loop, in turns (host times);
 10. kernel times with CUDA events at the main paths' shapes, beside the
    plain versions' times and the bound the shapes allow;
    ``ffd_slot_headroom`` at config 2's and the warm arena's chunk entries
@@ -328,6 +351,15 @@ D15_TIMEOUT_S = 300
 D15_BACKOFF_S = 0.5
 D15_REGROUP_BUDGET_S = 180
 D15_BATCHES = (5, 64)
+
+#: the preference path: BASELINE config 6 at its published size (the
+#: reference's bench.build_config6) and the timed solves after one warm-up
+C6_PODS = 50_000
+C6_ROUNDS = 3
+#: the oracle route: config 2's shape plus one group the pour does not
+#: model; and the grouping walk's timed walks (each way, in turns)
+C17_PODS = 50_000
+WALK_REPS = 10
 
 #: the kernels phase 11 holds to their plain parts
 TOPO_CHECKED = ("topo_pool_statics", "topo_group_start", "topo_pour",
@@ -1851,6 +1883,271 @@ def topo_phase(cmp, device=None, n_pods=C3_PODS, rounds=C3_ROUNDS):
         f"{host_ms:.0f} ms): True; EVCAP=1: {summary['evcap1']}, "
         f"fingerprint equal")
     return launches, summary, states
+
+
+def round_recorder(solver):
+    """Wrap ``solver._solve_core`` on the instance (here, never in the
+    package) to keep each relax round's snapshot, its grouping and the
+    round's dispatch and phase evidence; returns the list it fills."""
+    rounds = []
+    core = solver._solve_core
+
+    def wrapped(snapshot, pod_groups=None):
+        res = core(snapshot, pod_groups=pod_groups)
+        rounds.append(dict(snapshot=snapshot, groups=pod_groups,
+                           dispatch=dict(solver.last_dispatch_stats),
+                           phase=dict(solver.last_phase_stats)))
+        return res
+
+    solver._solve_core = wrapped
+    return rounds
+
+
+def check_round_kernels(cmp, rnd, device, label):
+    """Every K9 kernel of one relax round (and K2's plain-group commit
+    with its record) against its plain part from the same entry state, on
+    the round's own hardened snapshot at the slot bucket and event
+    capacity the round ran at. Returns (groups, topology groups)."""
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.models.encoding import \
+        encode_snapshot
+    from karpenter_provider_aws_tpu_torch.ops import ffd_torch as ft
+    from karpenter_provider_aws_tpu_torch.ops import topo_torch as tt
+    from karpenter_provider_aws_tpu_torch.ops.topo import \
+        build_topo_encoding
+    from karpenter_provider_aws_tpu_torch.solver.cuda import topo_arrays
+
+    snap, d = rnd["snapshot"], rnd["dispatch"]
+    enc = encode_snapshot(snap, pod_groups=rnd["groups"])
+    tenc = build_topo_encoding(enc, snap, [])
+    arrays, rows, stt = topo_arrays(enc, tenc)
+    inp = ft.kernel_inputs_from_numpy(arrays, device)
+    trows = tt.topo_rows_from_numpy(rows, device)
+    for kernel, what, got, want in examples.topo_kernel_steps(
+            inp, trows, n_max=d["slot_bucket"], P=stt["P"],
+            EVCAP=d["evcap"]):
+        cmp(kernel, got, want, f"{label} {what}")
+    return len(arrays["n"]), int(rows["has_topo"].sum())
+
+
+def prefs_phase(cmp, device=None, n_pods=C6_PODS, rounds=C6_ROUNDS):
+    """Drive config 6 through ``CUDASolver().solve`` with ``metrics`` set
+    (``device`` default cuda; the rehearsal passes cpu): every relax
+    round on the topology kernels, the relaxation counted, and on the
+    card every round's K9 kernels against their plain parts; the
+    decisions against the port's CPU oracle on the same snapshot.
+    Returns (launches of the measured run, summary)."""
+    import torch
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.models import encoding as penc
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.solver import CPUSolver, CUDASolver
+    from karpenter_provider_aws_tpu_torch.utils.metrics import Metrics
+
+    relax = "karpenter_solver_preference_relaxation_rounds_total"
+    fenv.reset_pod_counter()
+    t0 = time.perf_counter()
+    snap = examples.config6(fenv.Environment(), n_pods)
+    log(f"[config6] {n_pods} pods built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    solver = CUDASolver(device=device)
+    if penc._groupwalk() is None:
+        raise AssertionError("the grouping walk's C extension did not build")
+    solver.metrics = Metrics()
+    per_round = round_recorder(solver)
+    fc.reset_launches()
+    times, splits, per_solve = [], [], []
+    res = None
+    for i in range(rounds + 1):
+        n0 = len(per_round)
+        r0 = solver.metrics.counter(relax)
+        t0 = time.perf_counter()
+        res = solver.solve(snap)
+        dt = (time.perf_counter() - t0) * 1e3
+        mine = per_round[n0:]
+        extra = solver.metrics.counter(relax) - r0
+        if extra < 1 or len(mine) != extra + 1:
+            raise AssertionError(f"config 6 solve {i}: {extra} extra "
+                                 f"round(s) counted, {len(mine)} run")
+        kinds = {(r["dispatch"]["kernel"], r["dispatch"]["reason"])
+                 for r in mine}
+        if kinds != {("topo", None)}:
+            raise AssertionError(f"config 6 rounds not all on the topology "
+                                 f"kernels without a bail: {kinds}")
+        per_solve.append([r["dispatch"]["launches"] for r in mine])
+        if i:   # solve 0 is the warm-up
+            times.append(dt)
+            splits.append(dict(
+                group_ms=mine[0]["phase"]["group_ms"],
+                **{k: sum(r["phase"][k] for r in mine)
+                   for k in ("encode_ms", "kernel_ms", "decode_ms")},
+                wrapper_ms=dt - mine[0]["phase"]["group_ms"] - sum(
+                    r["phase"][k] for r in mine
+                    for k in ("encode_ms", "kernel_ms", "decode_ms"))))
+    launches = dict(fc.LAUNCHES)
+    dev = solver.device
+    checked = []
+    if dev.type == "cuda":
+        # every round of the last solve: K9 (and the plain groups'
+        # commit) against the plain parts, and its launches counted
+        n0 = dict(cmp.checks)
+        for j, rnd in enumerate(per_round[-len(per_solve[-1]):]):
+            G, n_topo = check_round_kernels(cmp, rnd, dev,
+                                            f"config6 round {j}")
+            got = rnd["dispatch"]["launches"]
+            want = dict(topo_group_start=n_topo, topo_pour=n_topo,
+                        ffd_slot_headroom=G - n_topo,
+                        ffd_group_commit=G - n_topo)
+            scans = 1 + rnd["dispatch"]["retries"]
+            if any(got[k] != scans * v for k, v in want.items()):
+                raise AssertionError(f"config 6 round {j} launches {got}, "
+                                     f"expected {scans} x {want}")
+            checked.append(dict(groups=G, topo_groups=n_topo,
+                                slot_bucket=rnd["dispatch"]["slot_bucket"],
+                                evcap=rnd["dispatch"]["evcap"],
+                                launches={k: v for k, v in got.items()
+                                          if v}))
+        torch.cuda.synchronize()
+        log(f"[config6] every round's K9 kernel (and plain-group commit) "
+            f"== its plain part from the same entry state: "
+            f"{json.dumps(checked)}; checks "
+            f"{ {k: cmp.checks[k] - n0[k] for k in TOPO_CHECKED} }")
+    # the decisions: the port's CPU oracle on the same snapshot
+    t0 = time.perf_counter()
+    oracle = CPUSolver().solve(snap)
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    if res.decision_fingerprint() != oracle.decision_fingerprint():
+        raise AssertionError("config 6: decisions differ from the CPU "
+                             "oracle's")
+    placed = sum(len(n.pod_names) for n in res.new_nodes)
+    if placed + len(res.existing_assignments) + len(res.unschedulable) \
+            != len(snap.pods):
+        raise AssertionError("config 6: not every pod placed or reported")
+    split = {k: statistics.median(s[k] for s in splits)
+             for k in ("group_ms", "encode_ms", "kernel_ms", "decode_ms",
+                       "wrapper_ms")}
+    p50, p99 = p50_p99(times)
+    summary = dict(p50_ms=p50, p99_ms=p99, rounds=rounds,
+                   relax_rounds=len(per_solve[-1]) - 1,
+                   median_split_ms=split,
+                   launches_per_solve=[{k: v for k, v in x.items() if v}
+                                       for x in per_solve[-1]],
+                   rounds_checked=checked,
+                   unschedulable=len(res.unschedulable), oracle_ms=oracle_ms)
+    log(f"[config6] {res.summary()}; solve p50 {p50:.3f} ms p99 "
+        f"{p99:.3f} ms over {rounds} solves of "
+        f"{summary['relax_rounds'] + 1} rounds each; median split "
+        f"{json.dumps(split)}; fingerprint == the CPU oracle's "
+        f"({oracle_ms:.0f} ms): True")
+    return launches, summary
+
+
+def config2_arch(env, n_pods, zone_id=False):
+    """Config 2's shape with one more deployment whose topology the pour
+    does not model: a spread over the arch key (or, with ``zone_id``, a
+    zone spread beside a zone-id requirement)."""
+    from karpenter_provider_aws_tpu_torch.apis import labels as L
+    from karpenter_provider_aws_tpu_torch.apis.objects import \
+        TopologySpreadConstraint
+    from karpenter_provider_aws_tpu_torch.fake.environment import make_pods
+    from karpenter_provider_aws_tpu_torch import examples
+    snap = examples.config2(env, n_pods)
+    extra = make_pods(
+        40, cpu="500m", memory="1Gi", prefix="odd", group="odd",
+        node_selector={L.ZONE_ID: "usw2-az1"} if zone_id else None,
+        topology_spread=[TopologySpreadConstraint(
+            max_skew=1, topology_key=L.ZONE if zone_id else L.ARCH,
+            when_unsatisfiable="DoNotSchedule", group="odd")])
+    return env.snapshot(list(snap.pods) + extra, [env.nodepool("bench-pool")])
+
+
+def oracle_phase(device=None, n_pods=C17_PODS):
+    """The oracle route: config 2's shape plus a group the pour does not
+    model, through ``CUDASolver().solve`` (``device`` default cuda): the
+    oracle serves it with no launch; the same solver's next config-2
+    tick runs on the card and equals a fresh solver's. Returns a
+    summary."""
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.ops import ffd_cuda as fc
+    from karpenter_provider_aws_tpu_torch.solver import CUDASolver
+    from karpenter_provider_aws_tpu_torch.utils.metrics import Metrics
+
+    env = fenv.Environment()
+    solver = CUDASolver(device=device)
+    solver.metrics = Metrics()
+    out = {}
+    for case, zid in (("arch", False), ("zone_id", True)):
+        fenv.reset_pod_counter()
+        snap = config2_arch(env, n_pods, zone_id=zid)
+        before = dict(fc.LAUNCHES)
+        t0 = time.perf_counter()
+        res = solver.solve(snap)
+        wall = (time.perf_counter() - t0) * 1e3
+        d = solver.last_dispatch_stats
+        if (d["kernel"], d["reason"]) != ("oracle", "unsupported_topology") \
+                or dict(fc.LAUNCHES) != before:
+            raise AssertionError(f"oracle route ({case}): {d}, launches "
+                                 f"moved: {dict(fc.LAUNCHES) != before}")
+        out[case] = dict(pods=len(snap.pods), topo_reason=d["topo_reason"],
+                         wall_ms=wall, oracle_ms=solver.last_phase_stats[
+                             "kernel_ms"], summary=res.summary())
+    if solver.metrics.counter("karpenter_solver_oracle_fallback_total",
+                              {"reason": "unsupported-topology"}) != 2:
+        raise AssertionError("the oracle fallbacks were not counted")
+    # ROADMAP hazard 97 on the card: the next tick on the same solver
+    fenv.reset_pod_counter()
+    snap2 = examples.config2(env, n_pods)
+    before = dict(fc.LAUNCHES)
+    res = solver.solve(snap2)
+    d = solver.last_dispatch_stats
+    ran = {k: v - before[k] for k, v in fc.LAUNCHES.items() if v - before[k]}
+    on_card = solver.device.type != "cuda" or (
+        ran.get("ffd_group_commit", 0) > 0 and ran.get("pack_outputs", 0) > 0)
+    if d["kernel"] in ("oracle", "host") or not on_card:
+        raise AssertionError(f"the tick after the oracle did not run on the "
+                             f"card: {d['kernel']}, {ran}")
+    fresh = CUDASolver(device=device).solve(snap2)
+    if res.decision_fingerprint() != fresh.decision_fingerprint():
+        raise AssertionError("the tick after the oracle differs from a "
+                             "fresh solver's")
+    out["next_tick"] = dict(kernel=d["kernel"], reason=d["reason"],
+                            launches=ran)
+    log(f"[oracle] {json.dumps(out)}; the next config-2 tick on the same "
+        f"solver == a fresh solver's: True")
+    return ran, out
+
+
+def walk_times(n_pods=PODS, reps=WALK_REPS):
+    """``group_ms`` of config 2 and config 3 (the grouping walk that
+    ``Solver.solve`` times), with the C walk and with the Python loop, in
+    turns in one process; host times. Returns {config: {c, python}}."""
+    from karpenter_provider_aws_tpu_torch import examples
+    from karpenter_provider_aws_tpu_torch.fake import environment as fenv
+    from karpenter_provider_aws_tpu_torch.models import encoding as penc
+    gw = penc._groupwalk()
+    if gw is None:
+        raise AssertionError("the grouping walk's C extension did not build")
+    out = {}
+    for name, build in (("config2", examples.config2),
+                        ("config3", examples.config3)):
+        fenv.reset_pod_counter()
+        pods = build(fenv.Environment(), n_pods).pods
+        penc.canonical_pod_groups(pods)   # intern: the warm walk is timed
+        ms = {"c": [], "python": []}
+        for i in range(reps):
+            for which in (("c", "python") if i % 2 == 0
+                          else ("python", "c")):
+                penc._GROUPWALK = gw if which == "c" else None
+                t0 = time.perf_counter()
+                penc.canonical_pod_groups(pods)
+                ms[which].append((time.perf_counter() - t0) * 1e3)
+        penc._GROUPWALK = gw
+        out[name] = {k: statistics.median(v) for k, v in ms.items()}
+    log(f"[walk] group_ms p50 over {reps} walks each at {n_pods} pods "
+        f"(host times): {json.dumps(out)}")
+    return out
 
 
 #: the absorption scan's forms, forced by shape: E with the form each
@@ -4822,7 +5119,7 @@ def warm_solve_times(d_buf, st, gl):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 3-6, 8, 9 and 11-15 with the "
+                    help="run phases 3-6, 8, 9 and 11-17 with the "
                          "plain versions at a small size on the CPU (never "
                          "the default)")
     args = ap.parse_args()
@@ -5051,6 +5348,21 @@ def main() -> int:
     log(f"[compare] after the topology phase: {cmp.checks} checks, "
         f"max_abs_err {cmp.err}")
 
+    # ---- phase 16: the preference path (config 6 on the K9 kernels) -------
+    launches_c6, c6 = prefs_phase(cmp)
+    missing = [k for k in ("topo_pool_statics", "topo_group_start",
+                           "topo_pour", "ffd_slot_headroom",
+                           "ffd_group_commit") if launches_c6[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the preference "
+                             f"path: {missing}")
+    # ---- phase 17: the oracle route, then the grouping walk --------------
+    launches_o17, o17 = oracle_phase()
+    walk = walk_times()
+    torch.cuda.synchronize()
+    log(f"[compare] after the preference and oracle phases: {cmp.checks} "
+        f"checks, max_abs_err {cmp.err}")
+
     # ---- phase 12: the preemption path (K8) --------------------------------
     launches_p12, p12, p12_tables, p12_wide = preempt_phase(cmp)
     missing = [k for k in ("consol_absorb_preempt", "unpack_bits",
@@ -5096,7 +5408,8 @@ def main() -> int:
         f"max_abs_err {cmp.err}")
     launches = {k: launches_c2[k] + launches_w[k] + launches_k7.get(k, 0)
                 + launches_c7[k] + sum(lb[k] for lb in launches_b.values())
-                + launches_c3[k] + launches_p12[k] + launches_s13[k]
+                + launches_c3[k] + launches_c6[k] + launches_o17.get(k, 0)
+                + launches_p12[k] + launches_s13[k]
                 + launches_m14[k] + launches_d15.get(k, 0)
                 + launches_d15b.get(k, 0) for k in launches_c2}
 
@@ -5165,7 +5478,9 @@ def main() -> int:
                 f"consolidation: {launches_k7.get(k, 0)}, config 7: "
                 f"{launches_c7[k]}, batch: "
                 f"{ {b: lb[k] for b, lb in launches_b.items()} }, config "
-                f"3: {launches_c3[k]}, preemption: {launches_p12[k]}, "
+                f"3: {launches_c3[k]}, config 6: {launches_c6[k]}, the "
+                f"tick after the oracle: {launches_o17.get(k, 0)}, "
+                f"preemption: {launches_p12[k]}, "
                 f"striped: {launches_s13[k]}, mesh: {launches_m14[k]}, "
                 f"dist: {launches_d15.get(k, 0) + launches_d15b.get(k, 0)}")
         log(f"[time] {r['name']}: {r['ms'] * 1e3:.2f} us/launch, "
@@ -5242,6 +5557,13 @@ def main() -> int:
         f"reads has_topo back, so its events time the host's enqueue) "
         f"{c3_scan:.3f} (wall p50 {c3['p50_ms']:.3f}); summary "
         f"{json.dumps(c3)}")
+    c6_dev = sum(per[k] * n for rnd in c6["launches_per_solve"]
+                 for k, n in rnd.items() if k in per)
+    log(f"[time] config 6: device ms from the per-launch times x launches "
+        f"per solve {c6_dev:.3f} (wall p50 {c6['p50_ms']:.3f}); summary "
+        f"{json.dumps(c6)} | {smi}")
+    log(f"[time] the oracle route: {json.dumps(o17)}; the grouping walk, "
+        f"group_ms p50 (host): {json.dumps(walk)} | {smi}")
     log(f"[time] K5 by branch at the striped cluster's blocks: "
         f"{json.dumps(k5_branch)}")
     _, st13, _, d13, d13_f1, st13_f1 = s13_states
@@ -5275,9 +5597,10 @@ def main() -> int:
 
 
 def rehearsal(n_pods: int, rounds: int) -> int:
-    """Phases 3-6, 8, 9 and 11-15 with the plain versions on the CPU, at
+    """Phases 3-6, 8, 9 and 11-17 with the plain versions on the CPU, at
     a small size (config 7 cut to ``n_pods`` pods, one signature per 5;
-    config 3 cut to ``n_pods`` pods; the preemption cluster to 40 nodes;
+    config 3, config 6 and the oracle route's snapshots cut to ``n_pods``
+    pods; the preemption cluster to 40 nodes;
     the striped cluster to 400 pods over 100 signatures; the mesh cells
     to 400 pods, the dp2 cell with no slot floor; the distributed
     ceiling to 4 groups x 64 types over 256 slots)."""
@@ -5315,6 +5638,9 @@ def rehearsal(n_pods: int, rounds: int) -> int:
                  rounds=1, max_groups=256)
     batch_phase(cmp, device="cpu", sizes=(3,), rounds=1, n_sigs=64)
     topo_phase(cmp, device="cpu", n_pods=n_pods, rounds=1)
+    prefs_phase(cmp, device="cpu", n_pods=n_pods, rounds=1)
+    oracle_phase(device="cpu", n_pods=n_pods)
+    walk_times(n_pods=n_pods, reps=3)
     preempt_phase(cmp, device="cpu", n_nodes=40, rounds=2, reconciles=2)
     fused_phase(cmp, device="cpu", n_pods=400, n_sigs=100, rounds=1,
                 ticks=3, min_vec=1)

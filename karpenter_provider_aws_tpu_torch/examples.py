@@ -1000,6 +1000,43 @@ def config3(env, n_pods: int = 50_000, api=None):
     return env.snapshot(pods, [env.nodepool("bench-c3")])
 
 
+def config6(env, n_pods: int = 50_000, api=None):
+    """BASELINE config 6, preference relaxation at headline scale (a copy
+    of the reference repository's ``bench.build_config6``): 70% plain
+    pods, 20% with a ScheduleAnyway zone spread in at most 10 groups, 10%
+    with a preferred (soft) zone anti-affinity in ~200-pod groups, which
+    cannot hold when hardened, so the wrapper relaxes them."""
+    a = topo_api(api)
+    L = a.L
+    n_plain = int(n_pods * 0.70)
+    n_soft_spread = int(n_pods * 0.20)
+    n_soft_anti = n_pods - n_plain - n_soft_spread
+    pods = a.make_pods(n_plain, cpu="250m", memory="512Mi", prefix="plain6")
+    groups = max(1, min(10, n_soft_spread))
+    per = n_soft_spread // groups
+    for gi in range(groups):
+        cnt = per if gi < groups - 1 \
+            else n_soft_spread - per * (groups - 1)
+        pods += a.make_pods(
+            cnt, cpu="500m", memory="1Gi", prefix=f"soft{gi:02d}",
+            group=f"soft{gi:02d}",
+            topology_spread=[a.TopologySpreadConstraint(
+                max_skew=1, topology_key=L.ZONE,
+                when_unsatisfiable="ScheduleAnyway", group=f"soft{gi:02d}")])
+    anti_groups = max(1, n_soft_anti // 200)
+    per = n_soft_anti // anti_groups
+    for gi in range(anti_groups):
+        cnt = per if gi < anti_groups - 1 \
+            else n_soft_anti - per * (anti_groups - 1)
+        pods += a.make_pods(
+            cnt, cpu="1", memory="2Gi", prefix=f"panti{gi:03d}",
+            group=f"panti{gi:03d}",
+            pod_affinity=[a.PodAffinityTerm(
+                topology_key=L.ZONE, group=f"panti{gi:03d}", anti=True,
+                required=False)])
+    return env.snapshot(pods, [env.nodepool("bench-c6")])
+
+
 #: the scenarios of the reference's tests/test_topology_equivalence.py
 #: that this package serves (ScheduleAnyway and preferred terms need the
 #: preference wrapper), plus the kernel cases' own arenas

@@ -25,7 +25,7 @@ Encoding scheme
 
 Everything host-side here is numpy; the packed arena reaches the device
 in solver/cuda.py. A copy of the reference package's encoder on its numpy
-path (the native grouping walk is not carried).
+path, with its grouping walk in C (native/groupwalk.c, a host helper).
 """
 
 from __future__ import annotations
@@ -276,6 +276,25 @@ def independent_runs(rows: np.ndarray) -> np.ndarray:
 #: C-speed sort key over Pod._nskey (set eagerly in Pod.__init__)
 _NSKEY_GET = operator.attrgetter("_nskey")
 
+#: C-accelerated grouping walk (native/groupwalk.c); None -> pure python.
+#: The walk reads each pod's cached (epoch, sig-id) pair and buckets by
+#: sig id — six C-API calls per pod, the largest host layer of a 50k-pod
+#: solve as bytecode. The one-shot compile sits neither on the import
+#: path nor mid-solve: CUDASolver's constructor calls _groupwalk() to pay
+#: it up front, and the first grouping builds it only if no solver was
+#: constructed first. A host without a C compiler keeps the Python loop.
+_GROUPWALK = None
+_GROUPWALK_TRIED = False
+
+
+def _groupwalk():
+    global _GROUPWALK, _GROUPWALK_TRIED
+    if not _GROUPWALK_TRIED:
+        _GROUPWALK_TRIED = True
+        from ..native._build import build_ext_and_import
+        _GROUPWALK = build_ext_and_import("karpgroupwalk", "groupwalk.c")
+    return _GROUPWALK
+
 #: process-wide signature intern table: sig tuple -> (small id, sig).
 #: Grouping then hashes one cached int per pod instead of a deep tuple.
 #: Bounded: past _SIG_CAP distinct signatures the table resets and the
@@ -326,21 +345,33 @@ def canonical_pod_groups(pods: Sequence[Pod]) -> List[Tuple[Tuple, List[Pod]]]:
     representative's key prefix and members by (ns, name) reproduces the
     exact canonical order.
     """
+    gw = _groupwalk()
     for _attempt in range(3):
         epoch = _SIG_EPOCH
-        by_sid: Dict[int, List[Pod]] = {}
-        prev_sid = -1
-        bucket: List[Pod] = []
-        for p in pods:
-            ent = p.__dict__.get("_sig_id")
-            sid = ent[1] if (ent is not None and ent[0] == epoch) \
-                else _sig_id(p)
-            if sid != prev_sid:  # pods arrive in same-sig runs: skip
-                prev_sid = sid   # the bucket lookup inside a run
-                bucket = by_sid.get(sid)
-                if bucket is None:
-                    by_sid[sid] = bucket = []
-            bucket.append(p)
+        by_sid: "Optional[Dict[int, List[Pod]]]" = None
+        if gw is not None:
+            by_sid, misses = gw.walk(pods, epoch)
+            if by_sid is None:
+                # cold/stale entries: intern them (computes signatures),
+                # then redo the walk — the second pass sees every entry
+                # warm unless the table reset mid-way (epoch check below)
+                for p in misses:
+                    _sig_id(p)
+                by_sid, misses = gw.walk(pods, epoch)
+        if by_sid is None:
+            by_sid = {}
+            prev_sid = -1
+            bucket: List[Pod] = []
+            for p in pods:
+                ent = p.__dict__.get("_sig_id")
+                sid = ent[1] if (ent is not None and ent[0] == epoch) \
+                    else _sig_id(p)
+                if sid != prev_sid:  # pods arrive in same-sig runs: skip
+                    prev_sid = sid   # the bucket lookup inside a run
+                    bucket = by_sid.get(sid)
+                    if bucket is None:
+                        by_sid[sid] = bucket = []
+                bucket.append(p)
         # ids assigned before an intern-table reset collide with ids after
         # it; resolve ids back to sig tuples under the lock, and only if
         # the epoch never moved mid-loop — otherwise the grouping is

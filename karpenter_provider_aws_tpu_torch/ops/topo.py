@@ -25,9 +25,9 @@ name, then open by creation, then new nodes pool-by-pool).
 
 Unsupported shapes (spread/affinity over keys other than zone/hostname,
 zone-id requirements mixed with topology) are detected at build time —
-``TopoEncoding.supported`` is False. The reference's solver sends such a
-snapshot to its CPU oracle; ``solver/cuda.py`` raises
-``NotImplementedError`` for it.
+``TopoEncoding.supported`` is False. ``solver/cuda.py`` then sends the
+snapshot to the CPU oracle (solver/cpu.py), as the reference's solver
+does, before any launch.
 
 A copy of the reference package's ``ops/topo.py``, whole: in this package
 it is the host pour of ``CUDASolver._run_host`` (snapshots outside the

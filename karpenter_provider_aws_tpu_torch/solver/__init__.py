@@ -1,8 +1,10 @@
+from .cpu import CPUSolver
 from .types import (DaemonOverhead, ExistingNode, NewNodeClaim, NodePoolSpec,
                     SchedulingSnapshot, SolveResult, Solver)
 
-__all__ = ["Solver", "CUDASolver", "SchedulingSnapshot", "SolveResult",
-           "NewNodeClaim", "NodePoolSpec", "ExistingNode", "DaemonOverhead"]
+__all__ = ["Solver", "CUDASolver", "CPUSolver", "SchedulingSnapshot",
+           "SolveResult", "NewNodeClaim", "NodePoolSpec", "ExistingNode",
+           "DaemonOverhead"]
 
 
 def __getattr__(name):

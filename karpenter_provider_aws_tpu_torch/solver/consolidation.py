@@ -45,8 +45,8 @@ from ..models.delta import DeltaEncoder
 from ..models.encoding import canonical_pod_groups
 from ..ops import consolidation_torch as ct
 from .cuda import CUDASolver
-from .types import ExistingNode, SchedulingSnapshot, Solver, \
-    preference_count
+from .preferences import preference_count
+from .types import ExistingNode, SchedulingSnapshot, Solver
 
 BIG = np.int64(1) << 60
 

@@ -77,11 +77,20 @@ packed arena). ``last_dispatch_stats`` records ``kernel="mesh"``,
 consolidation and preemption dispatches run single-device on each rank,
 replicated (``mesh="replicated"``).
 
-There is no router, host twin or oracle fallback here: on a CUDA device
-a solve the kernels take runs them or raises, and nothing catches a
-kernel failure. ``device="cpu"`` runs the plain PyTorch versions of the
-same kernels (tests). Snapshots outside this port's slice raise
-``NotImplementedError`` naming the ROADMAP.md item that will port them.
+Soft preferences (preferred affinity, ScheduleAnyway spread) ride the
+reference's relaxation wrapper (solver/preferences.py, through
+``Solver.solve``): each relax round is a full ``_solve_core`` on the
+hardened snapshot. Topology the pour does not model (a spread or
+affinity key other than zone or hostname, or a zone-id requirement mixed
+with topology: ``TopoEncoding.supported`` False) goes to the sequential
+CPU oracle, as the reference's ``_oracle_fallback`` sends it
+(``kernel="oracle"``, ``reason="unsupported_topology"``): decided from
+the encoding before any launch, it launches no kernel.
+
+There is no router or host twin here: on a CUDA device a solve the
+kernels take runs them or raises, and nothing catches a kernel failure.
+``device="cpu"`` runs the plain PyTorch versions of the same kernels
+(tests).
 """
 
 from __future__ import annotations
@@ -115,9 +124,11 @@ from ..ops.topo_torch import (K_ANTIRUN, K_CYC, dispatch_topo,
                               topo_rows_from_numpy)
 from ..parallel.mesh import DP2_MIN_SLOTS, dispatch_mesh
 from ..scheduling.preempt_torch import preempt_solve
+from .cpu import CPUSolver
 from .incremental import CKPT_CHUNK, ckpt_eligible, live_bound, suffix_plan
+from .preferences import preference_count
 from .types import (ExistingNode, NewNodeClaim, SchedulingSnapshot,
-                    SolveResult, Solver, preference_count)
+                    SolveResult, Solver)
 
 
 def _slotmap(E: int, Ep: int, N: int) -> np.ndarray:
@@ -415,6 +426,25 @@ class CUDASolver(Solver):
         self.dev_fuse = DEV_FUSE
         #: below this padded group count the unfused scan serves
         self.dev_fuse_min_groups = 64
+        # the grouping walk's one-shot build is paid here, never by the
+        # first solve (the reference's constructor does the same)
+        from ..models.encoding import _groupwalk
+        _groupwalk()
+        #: the sequential oracle for topology the pour does not model
+        self._cpu_fallback = CPUSolver()
+
+    def _oracle_fallback(self, snapshot: SchedulingSnapshot,
+                         reason: str) -> SolveResult:
+        """The reference's ``_oracle_fallback``: the oracle's full
+        ``solve`` (its wrapper passes the hardened pods through)."""
+        import logging
+        logging.getLogger(__name__).warning(
+            "CUDA solver falling back to CPU oracle (%s): %d pods",
+            reason, len(snapshot.pods))
+        if self.metrics is not None:
+            self.metrics.inc("karpenter_solver_oracle_fallback_total",
+                             labels={"reason": reason})
+        return self._cpu_fallback.solve(snapshot)
 
     def solve(self, snapshot: SchedulingSnapshot) -> SolveResult:
         """Slot growth (``_grow_if_exhausted``) is scoped to ONE solve."""
@@ -474,10 +504,18 @@ class CUDASolver(Solver):
         if enc.topo_any:
             tenc = build_topo_encoding(enc, snapshot, existing)
             if not tenc.supported:
-                raise NotImplementedError(
-                    f"topology outside the pour ({tenc.reason}) needs the "
-                    f"CPU oracle (ROADMAP.md queue 1, item 14: "
-                    f"solver/cpu.py CPUSolver)")
+                # decided from the encoding, before any launch; the
+                # oracle's wall is the split's kernel_ms
+                self._solve_mode = "full"
+                before = dict(ffd_cuda.LAUNCHES)
+                t_enc = time.perf_counter()
+                res = self._oracle_fallback(snapshot, "unsupported-topology")
+                self.last_dispatch_stats = dict(
+                    device=str(self.device), kernel="oracle",
+                    reason="unsupported_topology", topo_reason=tenc.reason,
+                    bails=0, batch=1, launches=self._launches_since(before))
+                self._set_phase_stats(t0, t_enc, time.perf_counter())
+                return res
         t_enc = time.perf_counter()
         if not enc.types:
             # zero-width type axis: only the host engine takes T == 0
@@ -512,6 +550,13 @@ class CUDASolver(Solver):
             return self._solve_core(snapshot, pod_groups=pod_groups)
         t_k = time.perf_counter()
         res = self._decode(enc, existing, takes, leftover, final)
+        self._set_phase_stats(t0, t_enc, t_k)
+        return res
+
+    def _set_phase_stats(self, t0: float, t_enc: float, t_k: float):
+        """The group/encode/kernel/decode split of the solve that just
+        ended (decode runs from ``t_k`` to now), its mode and, when
+        incremental, its delta tier."""
         now = time.perf_counter()
         self.last_phase_stats = dict(group_ms=self.last_group_ms,
                                      encode_ms=(t_enc - t0) * 1e3,
@@ -522,7 +567,6 @@ class CUDASolver(Solver):
         if d is not None:
             self.last_phase_stats["cache"] = d.tier
             self.last_phase_stats["patched_rows"] = d.patched_rows
-        return res
 
     @property
     def on_mesh(self) -> bool:

@@ -2,9 +2,10 @@
 
 The provisioning controller builds a :class:`SchedulingSnapshot` and
 calls ``Solver.solve``; the implementation here is
-``cuda`` (solver/cuda.py, the packed group scan on the GPU). Decisions
-must be identical to the reference package's CPU oracle —
-tests/test_torch_pipeline.py enforces it.
+``cuda`` (solver/cuda.py, the packed group scan on the GPU) and ``cpu``
+(solver/cpu.py, the sequential FFD oracle). Decisions must be identical
+to the reference package's CPU oracle — tests/test_torch_pipeline.py
+enforces it.
 
 The solve semantics mirror the core scheduler the reference drives
 (designs/bin-packing.md:17-42): sort pending pods by descending size,
@@ -20,7 +21,7 @@ import abc
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Sequence, Tuple
 
-from ..apis.objects import PREF_COUNT_MEMO, NodePool, Pod, Taint
+from ..apis.objects import NodePool, Pod, Taint
 from ..apis.requirements import Requirements
 from ..apis.resources import Resources
 from ..cloudprovider.types import InstanceTypes
@@ -117,42 +118,34 @@ class SolveResult:
 
 class Solver(abc.ABC):
     name: str = "abstract"
+    #: optional metrics registry; the operator injects its own. Oracle
+    #: routes and relax rounds are latency cliffs it counts, never silent
+    metrics = None
+    #: wall ms of the canonical grouping walk of the last solve
     last_group_ms: float = 0.0
 
     def solve(self, snapshot: SchedulingSnapshot) -> SolveResult:
-        """Group the pods canonically and solve. Soft constraints
-        (preferred affinity, ScheduleAnyway spread) need the reference's
-        relaxation wrapper (solver/preferences.py), which this package
-        does not carry yet: such a snapshot raises."""
+        """Solve with upstream's preference-relaxation semantics: soft
+        constraints (preferred affinity, ScheduleAnyway spread) are
+        hardened to required and relaxed per pod only when they block it
+        (solver/preferences.py). Engines implement _solve_core. The
+        wrapper's first grouping walk is timed here (``last_group_ms``)."""
         import time
 
         from ..models.encoding import canonical_pod_groups
+        from .preferences import solve_with_preferences
         t0 = time.perf_counter()
         groups = canonical_pod_groups(snapshot.pods)
-        #: wall ms of the canonical grouping walk of the last solve
         self.last_group_ms = (time.perf_counter() - t0) * 1e3
-        if any(preference_count(plist[0]) for _sig, plist in groups):
-            raise NotImplementedError(
-                "pods with soft preferences need the preference-relaxation "
-                "wrapper (ROADMAP.md queue 1: solver/preferences.py)")
-        return self._solve_core(snapshot, pod_groups=groups)
+        return solve_with_preferences(self._solve_core, snapshot,
+                                      metrics=self.metrics,
+                                      raw_groups=groups)
 
     @abc.abstractmethod
     def _solve_core(self, snapshot: SchedulingSnapshot,
                     pod_groups=None) -> SolveResult:
-        """pod_groups: the canonical [(sig, members)] grouping ``solve``
-        already computed."""
+        """pod_groups: optional canonical [(sig, members)] grouping the
+        preference wrapper already computed — engines that encode by
+        group reuse it instead of re-walking every pod; the oracle
+        ignores it (its independent sort is part of being the oracle)."""
         ...
-
-
-def preference_count(pod: Pod) -> int:
-    """Length of the pod's preference chain (0 = nothing to relax); a
-    copy of the reference's solver/preferences.py helper, memoized under
-    the same per-pod key."""
-    n = pod.__dict__.get(PREF_COUNT_MEMO)
-    if n is None:
-        n = sum(1 for a in pod.pod_affinity if not a.required) \
-            + sum(1 for c in pod.topology_spread
-                  if c.when_unsatisfiable != "DoNotSchedule")
-        pod.__dict__[PREF_COUNT_MEMO] = n
-    return n

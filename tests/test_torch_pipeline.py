@@ -343,32 +343,38 @@ def test_slot_growth_matches_oracle(envs, both_counters):
         CPUSolver().solve(snap(REF, e_ref)).decision_fingerprint()
 
 
-def test_out_of_slice_snapshots_raise(envs):
-    _, e_port = envs
-    spread = env_port.make_pods(
-        4, prefix="soft", topology_spread=[obj_port.TopologySpreadConstraint(
-            max_skew=1, topology_key=L_port.ZONE,
-            when_unsatisfiable="ScheduleAnyway", group="soft")])
-    with pytest.raises(NotImplementedError, match="preferences"):
-        CUDASolver(device="cpu").solve(
-            e_port.snapshot(spread, [e_port.nodepool("p")]))
-    # a required zone spread is in the slice now (the topology pour); a
-    # spread over a key the pour does not model still raises
-    hard = env_port.make_pods(
-        4, prefix="hard", topology_spread=[obj_port.TopologySpreadConstraint(
-            max_skew=1, topology_key=L_port.ZONE,
-            when_unsatisfiable="DoNotSchedule", group="hard")])
-    solver = CUDASolver(device="cpu")
-    assert not solver.solve(
-        e_port.snapshot(hard, [e_port.nodepool("p")])).unschedulable
-    assert solver.last_dispatch_stats["kernel"] == "topo"
-    arch = env_port.make_pods(
-        4, prefix="arch", topology_spread=[obj_port.TopologySpreadConstraint(
-            max_skew=1, topology_key=L_port.ARCH,
-            when_unsatisfiable="DoNotSchedule", group="arch")])
-    with pytest.raises(NotImplementedError, match="CPUSolver"):
-        CUDASolver(device="cpu").solve(
-            e_port.snapshot(arch, [e_port.nodepool("p")]))
+def test_out_of_slice_snapshots_raise(envs, both_counters):
+    """The shapes this test once saw refused are served now, each as the
+    reference serves it: soft preferences through the relaxation wrapper
+    (here on the topology pour), a required zone spread on the pour, a
+    spread over a key the pour does not model on the CPU oracle."""
+    e_ref, e_port = envs
+
+    def pair(prefix, key, when):
+        snaps = []
+        for api, env in ((REF, e_ref), (PORT, e_port)):
+            pods = api.env.make_pods(
+                4, prefix=prefix,
+                topology_spread=[api.obj.TopologySpreadConstraint(
+                    max_skew=1, topology_key=getattr(api.L, key),
+                    when_unsatisfiable=when, group=prefix)])
+            snaps.append(env.snapshot(pods, [env.nodepool("p")]))
+        return snaps
+
+    for prefix, key, when, route in (
+            ("soft", "ZONE", "ScheduleAnyway", ("topo", None)),
+            ("hard", "ZONE", "DoNotSchedule", ("topo", None)),
+            ("arch", "ARCH", "DoNotSchedule",
+             ("oracle", "unsupported_topology"))):
+        ref, port = pair(prefix, key, when)
+        solver = CUDASolver(device="cpu")
+        got = solver.solve(port)
+        # the oracle reports the arch pods (a new node has no arch domain)
+        assert bool(got.unschedulable) == (key == "ARCH")
+        assert got.decision_fingerprint() == \
+            CPUSolver().solve(ref).decision_fingerprint()
+        assert (solver.last_dispatch_stats["kernel"],
+                solver.last_dispatch_stats["reason"]) == route
     # a snapshot with no instance types is in the slice now: the host
     # engine serves it (no pools and no nodes: both pods are reported)
     empty = e_port.snapshot(env_port.make_pods(2), [])

@@ -19,7 +19,8 @@ CPU.
   ``CPUSolver`` by decision fingerprint on the equivalence scenarios, the
   fuzz generator of tests/test_topology_equivalence.py and BASELINE
   config 3 at 2,000 pods; the routing (host pour outside the envelope,
-  the bail re-dispatch, the unsupported refusal); two warm ticks.
+  the bail re-dispatch, the oracle route of an unsupported key); two
+  warm ticks.
 - The copies: ``ops/topo.py`` (encodings and host-pour outputs) and
   ``_runs_from_events`` against the originals.
 
@@ -478,12 +479,26 @@ def test_layout_past_the_pour_serves_host_pour(both_counters):
 
 
 def test_unsupported_topology_key_raises(both_counters):
-    env = _port_env()
-    pods = env_port.make_pods(4, cpu="1", prefix="arch", topology_spread=[
-        TSC_port(max_skew=1, topology_key=L_port.ARCH)])
-    with pytest.raises(NotImplementedError, match="CPUSolver"):
-        CUDASolver(device="cpu").solve(env.snapshot(pods,
-                                                    [env.nodepool("d")]))
+    """A spread over a key the pour does not model no longer raises: the
+    solver answers it on the CPU oracle, as the reference routes it
+    (``_oracle_fallback``), before any launch."""
+    def build(env, api):
+        a = examples.topo_api(api)
+        pods = a.make_pods(4, cpu="1", prefix="arch", topology_spread=[
+            a.TopologySpreadConstraint(max_skew=1,
+                                       topology_key=a.L.ARCH)])
+        return env.snapshot(pods, [env.nodepool("d")])
+
+    ref, port = _pair(build)
+    solver = CUDASolver(device="cpu")
+    got = solver.solve(port)
+    d = solver.last_dispatch_stats
+    assert (d["kernel"], d["reason"], d["topo_reason"]) == \
+        ("oracle", "unsupported_topology",
+         f"spread key {L_port.ARCH} unsupported")
+    assert not any(d["launches"].values())
+    assert got.decision_fingerprint() == \
+        CPUSolver().solve(ref).decision_fingerprint()
 
 
 def test_warm_ticks(both_counters):
